@@ -9,12 +9,14 @@ Run from the root of a checkout, on a machine with a CUDA card and nvcc:
 Phases, in order; any failure raises and the script exits non-zero:
 
   1. card    — the card's name and power limit, as nvidia-smi gives them;
-  2. build   — nvcc builds every kernel under src/repro_torch/kernels/csrc;
+  2. build   — nvcc builds every kernel under src/repro_torch/kernels/csrc
+               (one nvcc per source, all started together);
   3. kernels — each CUDA kernel against its plain version on the card,
                bitwise (torch.equal), over duplicates within and across
-               bags, drop sentinels, empty operands (which must launch
-               nothing), D in {8, 40, 128, 192}, L in {1, 3, 20} and the
-               serving slice's own shapes;
+               bags, a slot repeated all through one bag, drop sentinels,
+               fills gathered in the same call, empty operands (which must
+               launch nothing), D in {8, 40, 128, 192}, L in {1, 3, 20} and
+               the serving and training paths' own shapes;
   4. serve   — the main path: ``repro_torch.launch.serve`` with
                ``scratchpipe-serve`` at the full width of dlrm-scratchpipe
                (8 tables, D=128 fp32, 20 lookups per table, 2048 requests per
@@ -30,6 +32,22 @@ Phases, in order; any failure raises and the script exits non-zero:
                events, median, L2 flushed before each launch) beside its
                bound, its plain version and one PyTorch library call that
                computes the same function (a yardstick the port never calls).
+  6. train   — the training path: ``repro_torch.launch.train.train_dlrm``
+               at the full width of dlrm-scratchpipe (8 tables, D=128 fp32,
+               20 lookups per table, batch 2048, bottom MLP 13-512-256-128,
+               dot interaction, top MLP 164-1024-1024-512-256-1), 24 steps,
+               seed 0: ``scratchpipe`` split, ``scratchpipe --fused``, then
+               ``nocache``, each from a copy of one host table. One cut:
+               1M rows per table instead of 10M, with the uncut config's
+               4,000,000-slot scratchpad (cache_fraction 0.5 at the cut).
+               Counts are reset just before each run and read just after;
+               the plain versions raise during the runs. The losses of the
+               three runs must be bitwise equal step by step, and so must
+               the host tables after ``flush_to_host`` (TF32 off, cuBLAS
+               workspace pinned); losses finite.
+  7. timing  — ``scatter_add`` and ``fill_gather_reduce`` at the operands
+               the training runs gave them, and ``gather_reduce`` again at
+               the training bags.
 
 The last three lines are the ``kernels`` JSON line, the nvidia-smi line and
 ``{"ok": true, "device": {...}}``.
@@ -37,22 +55,34 @@ The last three lines are the ``kernels`` JSON line, the nvidia-smi line and
 from __future__ import annotations
 
 import json
+import os
 import statistics
 import subprocess
 import sys
 import time
 from pathlib import Path
 
+# cuBLAS picks a fixed reduction order only with a pinned workspace; set
+# before CUDA starts (the three training runs must agree bitwise)
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 FP32_OPS_PER_S = 67e12  # H100 SXM fp32 outside the tensor cores
 CU_SOURCE = "src/repro_torch/kernels/csrc/gather_reduce.cu"
+CU_SOURCE_BWD = "src/repro_torch/kernels/csrc/grad_coalesce.cu"
 DEVICE = "cuda"
 # the serving slice at the full width of dlrm-scratchpipe
 # (src/repro/configs/base.py: DLRMConfig), cut to 1M rows per table
 TABLES, ROWS, DIM, LOOKUPS, BATCH = 8, 1_000_000, 128, 20, 2048
 STEPS, DEPTH, CACHE_FRAC = 24, 2, 0.25
+# the training slice: the same width and cut; the scratchpad keeps the uncut
+# config's 0.05 x 80M = 4,000,000 slots (above the 6 x 327,680-row window floor)
+TRAIN_STEPS, TRAIN_WARMUP, TRAIN_CACHE_FRAC = 24, 6, 0.5
+TRAIN_RUNS = (("scratchpipe split", "scratchpipe", False),
+              ("scratchpipe fused", "scratchpipe", True),
+              ("nocache", "nocache", False))
 
 
 def serve_args(design: str) -> list:
@@ -85,10 +115,58 @@ def card_line() -> str:
 # --------------------------------------------------------------------------- #
 # 3. kernels against their plain versions
 # --------------------------------------------------------------------------- #
+def zipf_ids(torch, g, shape, n_rows: int, s: float = 0.77):
+    """Ids with the training stream's skew (data/synthetic.py: the medium
+    locality's Zipf exponent), scattered over [0, n_rows)."""
+    u = torch.rand(shape, generator=g, dtype=torch.float64)
+    ranks = torch.clamp((n_rows * u ** (1.0 / (1.0 - s))).long(), max=n_rows - 1)
+    return ((ranks * 2_654_435_761) % n_rows).to(torch.int32)
+
+
 def sweep_kernels(torch, ops, ref, dev) -> dict:
     """Bitwise sweep; returns the largest |kernel - plain| per kernel."""
     g = torch.Generator(device="cpu").manual_seed(0)
-    err = {"gather_reduce": 0.0, "fill": 0.0}
+    err = {"gather_reduce": 0.0, "fill": 0.0, "scatter_add": 0.0,
+           "fill_gather_reduce": 0.0}
+
+    def scatter_case(N, D, ids, scale=1.0):
+        nb = ids.shape[0]
+        st = torch.randn(N, D, generator=g).to(dev)
+        deltas = (torch.randn(nb, D, generator=g) * scale).to(dev)
+        ids = ids.to(dev)
+        before = ops.launch_counts()["scatter_add"]
+        got = ops.coalesce_deltas(st.clone(), ids, deltas)
+        want = ref.scatter_add_ref(st.clone(), ids, deltas)
+        torch.cuda.synchronize()
+        check(ops.launch_counts()["scatter_add"] == before + 1, "scatter_add launch count")
+        check(torch.equal(got, want),
+              f"scatter_add differs at N={N} D={D} ids={tuple(ids.shape)}")
+        err["scatter_add"] = max(err["scatter_add"], (got - want).abs().max().item())
+
+    def fused_case(N, D, F, n_valid, nb, L, ids=None):
+        st = torch.randn(N, D, generator=g).to(dev)
+        slots = torch.full((F,), N, dtype=torch.int32)  # drop sentinels
+        slots[torch.randperm(F, generator=g)[:n_valid]] = (
+            torch.randperm(N, generator=g)[:n_valid].to(torch.int32))
+        if ids is None:  # half the lookups read a slot filled in this call
+            filled = slots[slots < N]
+            ids = torch.where(
+                torch.rand(nb, L, generator=g) < 0.5,
+                filled[torch.randint(0, filled.numel(), (nb, L), generator=g)],
+                torch.randint(0, N, (nb, L), generator=g, dtype=torch.int32))
+        rows = torch.randn(F, D, generator=g).to(dev)
+        slots, ids = slots.to(dev), ids.to(dev)
+        before = ops.launch_counts()["fill_gather_reduce"]
+        got_st, got = ops.fill_gather_reduce(st.clone(), slots, rows, ids)
+        want_st, want = ref.fill_gather_reduce_ref(st.clone(), slots, rows, ids)
+        torch.cuda.synchronize()
+        check(ops.launch_counts()["fill_gather_reduce"] == before + 1,
+              "fill_gather_reduce launch count")
+        check(torch.equal(got_st, want_st) and torch.equal(got, want),
+              f"fill_gather_reduce differs at N={N} D={D} F={F} nb={nb} L={L}")
+        err["fill_gather_reduce"] = max(
+            err["fill_gather_reduce"], (got - want).abs().max().item(),
+            (got_st - want_st).abs().max().item())
 
     def gather_case(N, D, nb, L, id_hi):
         st = torch.randn(N, D, generator=g).to(dev)
@@ -120,8 +198,20 @@ def sweep_kernels(torch, ops, ref, dev) -> dict:
         for L in (1, 3, 20):
             gather_case(4096, D, 257, L, 64)  # ids < 64: duplicates everywhere
             gather_case(4096, D, 33, L, 4096)
+            scatter_case(4096, D, torch.randint(0, 64, (257, L), generator=g,
+                                                dtype=torch.int32))
+            scatter_case(4096, D, torch.randint(0, 4096, (33, L), generator=g,
+                                                dtype=torch.int32))
+            fused_case(4096, D, 1024, 1000, 257, L)
         fill_case(4096, D, 1000, 1024)
         fill_case(4096, D, 4096, 4096)  # every slot, no sentinel
+        fused_case(4096, D, 4096, 4096, 100, 3)  # every slot filled
+    # a slot repeated all through one bag, one row in every bag, and deltas
+    # whose magnitudes make any reordering of the adds show
+    rep = torch.randint(0, 64, (200, 20), generator=g, dtype=torch.int32)
+    rep[0] = 5
+    rep[:, 7] = 9
+    scatter_case(64, 128, rep, scale=1e6)
     st = torch.randn(64, 40, generator=g).to(dev)
     dup = torch.tensor([[3, 3, 3, 5], [5, 3, 5, 3], [0, 0, 0, 0]], dtype=torch.int32)
     check(torch.equal(ops.gather_reduce(st, dup.to(dev)),
@@ -132,12 +222,24 @@ def sweep_kernels(torch, ops, ref, dev) -> dict:
                 TABLES * min(ROWS, BATCH * LOOKUPS * (DEPTH + 2)))
     gather_case(slots, DIM, BATCH * TABLES, LOOKUPS, slots)
     fill_case(slots, DIM, slots // 10, 1 << (slots // 8 - 1).bit_length())
+    # the training path's shapes: a 4M-slot scratchpad, BATCH x TABLES bags
+    # of LOOKUPS Zipf-skewed slots, a pow-2 padded fill of ~200k rows
+    n_train = int(TABLES * ROWS * TRAIN_CACHE_FRAC)
+    train_ids = zipf_ids(torch, g, (BATCH * TABLES, LOOKUPS), n_train)
+    scatter_case(n_train, DIM, train_ids, scale=1e-3)
+    fused_case(n_train, DIM, 1 << 18, 200_000, BATCH * TABLES, LOOKUPS)
 
     before = ops.launch_counts()
     for shape in ((0, 5), (3, 0), (0, 0)):
         out = ops.gather_reduce(st, torch.zeros(shape, dtype=torch.int32, device=dev))
         check(out.shape == shape[:-1] + (40,) and not out.any(), "empty gather result")
-    ops.fill(st, torch.zeros(0, dtype=torch.int32, device=dev), torch.zeros(0, 40, device=dev))
+    no_ids = torch.zeros(0, dtype=torch.int32, device=dev)
+    ops.fill(st, no_ids, torch.zeros(0, 40, device=dev))
+    for shape in ((0, 5), (3, 0)):
+        ids = torch.zeros(shape, dtype=torch.int32, device=dev)
+        ops.coalesce_apply(st, ids, torch.zeros(shape[0], 40, device=dev), 0.1)
+        ops.coalesce_deltas(st, ids, torch.zeros(shape[0], 40, device=dev))
+        ops.fill_gather_reduce(st, no_ids, torch.zeros(0, 40, device=dev), ids)
     torch.cuda.synchronize()
     check(ops.launch_counts() == before, "an empty operand launched a kernel")
     return err
@@ -146,19 +248,14 @@ def sweep_kernels(torch, ops, ref, dev) -> dict:
 # --------------------------------------------------------------------------- #
 # 4. the main path
 # --------------------------------------------------------------------------- #
-def stage_timers(serving_cache):
-    """Wrap the serving runtime's stage methods with host-clock timers
-    (seconds and calls per stage). They add two clock reads per call and
-    no synchronization, so a stage's queued device work is charged to the
-    stage that next waits for the device: the lookup's copy of the bags
-    back to the host. Returns (stages, restore)."""
-    stages = {}
-    cls = serving_cache.ReadOnlyCacheServer
-    targets = [(cls, "serve_next", "serve (whole cycle)"),
-               (cls, "_plan_entry", "plan"), (cls, "_fetch", "exchange (host gather)"),
-               (cls, "_insert", "insert (h2d + fill)"),
-               (cls, "_emergency_fill", "emergency fill"),
-               (serving_cache, "_lookup_bags", "lookup (h2d ids + gather + d2h bags)")]
+def stage_timers(targets):
+    """Wrap stage methods with host-clock timers: ``targets`` is a list of
+    (object, attribute, label). They add two clock reads per call and no
+    synchronization, so a stage's queued device work is charged to the
+    stage that next waits for the device. Returns (stages — seconds and
+    calls per label —, ends — the clock at each call's return, per label —,
+    restore)."""
+    stages, ends = {}, {}
     saved = [(obj, name, getattr(obj, name)) for obj, name, _ in targets]
 
     def timed(fn, label):
@@ -167,9 +264,11 @@ def stage_timers(serving_cache):
             try:
                 return fn(*a, **k)
             finally:
+                t1 = time.perf_counter()
                 st = stages.setdefault(label, {"s": 0.0, "calls": 0})
-                st["s"] += time.perf_counter() - t0
+                st["s"] += t1 - t0
                 st["calls"] += 1
+                ends.setdefault(label, []).append(t1)
         return wrapper
 
     for (obj, name, label), (_, _, fn) in zip(targets, saved):
@@ -178,7 +277,16 @@ def stage_timers(serving_cache):
     def restore():
         for obj, name, fn in saved:
             setattr(obj, name, fn)
-    return stages, restore
+    return stages, ends, restore
+
+
+def serve_targets(serving_cache):
+    cls = serving_cache.ReadOnlyCacheServer
+    return [(cls, "serve_next", "serve (whole cycle)"),
+            (cls, "_plan_entry", "plan"), (cls, "_fetch", "exchange (host gather)"),
+            (cls, "_insert", "insert (h2d + fill)"),
+            (cls, "_emergency_fill", "emergency fill"),
+            (serving_cache, "_lookup_bags", "lookup (h2d ids + gather + d2h bags)")]
 
 
 def serve_main_path(torch, ops, ref, serve, serving_cache):
@@ -205,7 +313,7 @@ def serve_main_path(torch, ops, ref, serve, serving_cache):
     args = serve.build_parser().parse_args(serve_args("scratchpipe-serve"))
     ops.gather_reduce, ops.fill = spy_gather, spy_fill
     ref.gather_reduce_ref = ref.fill_ref = no_plain
-    stages, restore = stage_timers(serving_cache)
+    stages, _, restore = stage_timers(serve_targets(serving_cache))
     try:
         ops.reset_launch_counts()
         res = serve.run_embedding(args, collect_bags=True)
@@ -301,6 +409,265 @@ def time_kernels(torch, ops, ref, gr, captured, counts, sweep_err, dev):
     return [gather, fill], details
 
 
+# --------------------------------------------------------------------------- #
+# 6. the training path
+# --------------------------------------------------------------------------- #
+PLAIN_VERSIONS = ("gather_reduce_ref", "fill_ref", "fill_gather_reduce_ref",
+                  "scatter_add_ref", "coalesce_apply_ref")
+TRAIN_STEP_LABEL = {"scratchpipe": "train (fwd + bwd + update)",
+                    "nocache": "step (whole nocache step)"}
+
+
+def train_targets(pipeline, static_cache, dlrm_runtime):
+    sp, tr = pipeline.ScratchPipe, dlrm_runtime.DLRMTrainer
+    return [(sp, "_stage_plan", "plan"),
+            (sp, "_stage_collect", "collect (host gather + victim read)"),
+            (sp, "_stage_exchange", "exchange (h2d rows + d2h victims)"),
+            (sp, "_stage_insert_host", "insert host (write-back)"),
+            (sp, "_stage_insert_fill", "insert fill"),
+            (sp, "_stage_train", TRAIN_STEP_LABEL["scratchpipe"]),
+            (tr, "fused_train_fn", "fused fill + train calls"),
+            (static_cache.NoCacheBaseline, "_step", TRAIN_STEP_LABEL["nocache"])]
+
+
+def train_run(torch, mods, cfg, base_table, name, runtime, fused, captured):
+    """One training run through the launcher's ``train_dlrm`` from a copy of
+    ``base_table``; the plain versions raise during it. Captures kernel
+    operands of the middle step into ``captured``. Returns (result, launch
+    counts of the run, stage times, ms/step after the warm-up)."""
+    ops, ref, gr, gc = mods["ops"], mods["ref"], mods["gr"], mods["gc"]
+    at = TRAIN_STEPS // 2
+    calls = {"gather": 0, "scatter": 0, "fused": 0}
+    real = {"gather": ops.gather_reduce, "scatter": gc.scatter_add,
+            "fused": gr.fill_gather_reduce}
+    real_refs = {n: getattr(ref, n) for n in PLAIN_VERSIONS}
+
+    def spy_gather(storage, slot_ids):
+        calls["gather"] += 1
+        if name == "scratchpipe split" and calls["gather"] == at:
+            captured["train_gather"] = (storage, slot_ids)
+        return real["gather"](storage, slot_ids)
+
+    def spy_scatter(storage, flat_ids, deltas):
+        calls["scatter"] += 1
+        if name == "scratchpipe split" and calls["scatter"] == at:
+            captured["scatter"] = (storage.clone(), flat_ids.clone(), deltas.clone())
+        return real["scatter"](storage, flat_ids, deltas)
+
+    def spy_fused(storage, fill_slots, rows, flat_ids):
+        calls["fused"] += 1
+        if calls["fused"] == at:
+            captured["fused"] = (storage.clone(), fill_slots.clone(), rows.clone(),
+                                 flat_ids.clone())
+        return real["fused"](storage, fill_slots, rows, flat_ids)
+
+    def no_plain(*_a, **_k):
+        raise RuntimeError("a plain PyTorch version ran on the main path")
+
+    argv = ["--arch", "dlrm-scratchpipe", "--steps", str(TRAIN_STEPS), "--batch",
+            str(BATCH), "--seed", "0", "--runtime", runtime, "--device", DEVICE]
+    args = mods["train"].build_parser().parse_args(argv + (["--fused"] if fused else []))
+    host = mods["HostEmbeddingTable"](base_table.shape[0], base_table.shape[1],
+                                      data=base_table.copy())
+    ops.gather_reduce, gc.scatter_add, gr.fill_gather_reduce = (
+        spy_gather, spy_scatter, spy_fused)
+    for n in PLAIN_VERSIONS:
+        setattr(ref, n, no_plain)
+    stages, ends, restore = stage_timers(
+        train_targets(mods["pipeline"], mods["static_cache"], mods["dlrm_runtime"]))
+    try:
+        ops.reset_launch_counts()
+        res = mods["train"].train_dlrm(args, cfg=cfg, host=host)
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+    finally:
+        restore()
+        ops.gather_reduce, gc.scatter_add, gr.fill_gather_reduce = (
+            real["gather"], real["scatter"], real["fused"])
+        for n, fn in real_refs.items():
+            setattr(ref, n, fn)
+    step_ends = ends[TRAIN_STEP_LABEL[runtime]]
+    ms_per_step = ((step_ends[-1] - step_ends[TRAIN_WARMUP - 1])
+                   / (len(step_ends) - TRAIN_WARMUP) * 1e3)
+    return res, counts, stages, ms_per_step
+
+
+def check_train_counts(name, stats, counts, stages):
+    """Every kernel of the run's path fired, and only where it should."""
+    n = len(stats)
+    with_fills = sum(1 for st in stats if st.n_miss > 0)
+    check(n == TRAIN_STEPS and with_fills > 0, f"{name}: {n} steps, {with_fills} with fills")
+    check(counts["scatter_add"] == n, f"{name}: one scatter_add per step: {counts}")
+    if name == "scratchpipe split":
+        check(counts["gather_reduce"] == n and counts["fill"] == with_fills
+              and counts["fill_gather_reduce"] == 0, f"{name}: launches {counts}")
+    elif name == "scratchpipe fused":
+        fused = stages.get("fused fill + train calls", {}).get("calls", 0)
+        check(counts["fill_gather_reduce"] == fused > 0
+              and counts["fill_gather_reduce"] + counts["fill"] == with_fills
+              and counts["fill_gather_reduce"] + counts["gather_reduce"] == n,
+              f"{name}: launches {counts}, fused cycles {fused}")
+    else:
+        check(counts["gather_reduce"] == n and counts["fill"] == 0
+              and counts["fill_gather_reduce"] == 0, f"{name}: launches {counts}")
+
+
+def train_main_path(torch, mods, dev):
+    """The three training runs on copies of one host table; returns
+    (summaries, launch counts per run, captured operands)."""
+    cfg = mods["DLRMConfig"](rows_per_table=ROWS, cache_fraction=TRAIN_CACHE_FRAC)
+    check((cfg.num_tables, cfg.embed_dim, cfg.lookups_per_table) == (TABLES, DIM, LOOKUPS)
+          and cfg.bottom_mlp == (512, 256, 128)
+          and cfg.top_mlp == (1024, 1024, 512, 256, 1)
+          and mods["interaction_dim"](cfg) == 164, "the training config is not full width")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    t0 = time.perf_counter()
+    base = mods["HostEmbeddingTable"](cfg.total_rows, cfg.embed_dim, seed=0).data
+    log(f"train: host table {base.shape} fp32 built in {time.perf_counter() - t0:.1f}s")
+    captured, summaries, counts_by_run = {}, [], {}
+    first_losses = first_table = None
+    for name, runtime, fused in TRAIN_RUNS:
+        t0 = time.perf_counter()
+        res, counts, stages, ms = train_run(torch, mods, cfg, base, name, runtime,
+                                            fused, captured)
+        stats, pipe = res["stats"], res["pipe"]
+        check(pipe.device.type == dev.type, f"{name}: the runtime is not on the card")
+        check_train_counts(name, stats, counts, stages)
+        losses = torch.stack([st.aux["loss"] for st in stats]).cpu()
+        check(bool(torch.isfinite(losses).all()), f"{name}: non-finite loss")
+        pipe.flush_to_host()
+        table = res["host"].data
+        if first_losses is None:
+            first_losses, first_table = losses, table
+        else:
+            check(torch.equal(losses, first_losses),
+                  f"{name}: losses differ from {TRAIN_RUNS[0][0]} at steps "
+                  f"{torch.nonzero(losses != first_losses).flatten().tolist()}")
+            check(first_table.shape == table.shape and (first_table == table).all(),
+                  f"{name}: flushed host table differs from {TRAIN_RUNS[0][0]}")
+        tr = pipe.traffic()
+        summaries.append({
+            "run": name, "ms_per_step": ms, "warmup_steps": TRAIN_WARMUP,
+            "plan_hit": res["plan_hit"], "wall_s": res["wall_s"],
+            "loss_first": float(losses[0]), "loss_last": float(losses[-1]),
+            "traffic_MB": {k: tr[k].total / 1e6 for k in ("host", "pcie", "hbm")},
+            "launches": counts, "stages_s": stages,
+            "scratchpad_slots": int(getattr(pipe, "num_slots", 0)),
+        })
+        print("train: " + json.dumps(summaries[-1]), flush=True)
+        counts_by_run[name] = counts
+        log(f"train: {name} done ({time.perf_counter() - t0:.1f}s)")
+        del res, pipe, table
+    log(f"train: losses of all {TRAIN_STEPS} steps and the flushed host tables bitwise "
+        f"equal across {', '.join(r[0] for r in TRAIN_RUNS)}")
+    return summaries, counts_by_run, captured
+
+
+# --------------------------------------------------------------------------- #
+# 7. timing at the training operands
+# --------------------------------------------------------------------------- #
+def bound(n_bytes: int, n_ops: int):
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / FP32_OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def time_train_kernels(torch, ops, ref, gr, gc, captured, dev):
+    """Times of gather_reduce, scatter_add and fill_gather_reduce at the
+    training run's operands; returns ({kernel: numbers}, details)."""
+    import torch.nn.functional as F
+
+    flush = torch.empty(32 * 1024 * 1024, dtype=torch.float32, device=dev)  # 128 MB > L2
+    out, details = {}, {}
+
+    storage, slot_ids = captured["train_gather"]
+    L = slot_ids.shape[-1]
+    flat = slot_ids.reshape(-1, L).contiguous()
+    nb, D = flat.shape[0], storage.shape[1]
+    got, want = gr.gather_reduce(storage, flat), ref.gather_reduce_ref(storage, flat)
+    check(torch.equal(got, want), "gather_reduce differs at the training operands")
+    n_unique = int(torch.unique(flat).numel())
+    b_ms, b_by = bound(n_unique * D * 4 + flat.numel() * 4 + nb * D * 4, nb * (L - 1) * D)
+    long_ids = flat.long()
+    out["gather_reduce"] = {
+        "ms": median_ms(torch, lambda: gr.gather_reduce(storage, flat), 30, flush),
+        "plain_ms": median_ms(torch, lambda: ref.gather_reduce_ref(storage, flat), 10, flush),
+        "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": median_ms(
+            torch, lambda: F.embedding_bag(long_ids, storage, mode="sum"), 30, flush),
+        "max_abs_err": (got - want).abs().max().item(),
+    }
+    details["gather_reduce"] = {"storage": list(storage.shape), "bags": nb, "L": L,
+                                "unique_rows": n_unique}
+
+    st0, flat, deltas = captured["scatter"]
+    nb, L = flat.shape
+    got = st0.clone()
+    gc.scatter_add(got, flat, deltas)
+    want = ref.scatter_add_ref(st0.clone(), flat, deltas)
+    check(torch.equal(got, want), "scatter_add differs at the training operands")
+    err = (got - want).abs().max().item()
+    del got, want
+    n_unique = int(torch.unique(flat).numel())
+    seg = torch.unique(flat, return_counts=True)[1]
+    b_ms, b_by = bound(2 * n_unique * D * 4 + flat.numel() * 4 + nb * D * 4, flat.numel() * D)
+    scratch = st0.clone()
+    keys, perm = gc.sort_by_slot(flat)
+    dup, idx = deltas.repeat_interleave(L, dim=0), flat.reshape(-1).long()
+    out["scatter_add"] = {
+        "ms": median_ms(torch, lambda: gc.scatter_add(scratch, flat, deltas), 30, flush),
+        "sort_ms": median_ms(torch, lambda: gc.sort_by_slot(flat), 30, flush),
+        "accumulate_ms": median_ms(
+            torch, lambda: gc.scatter_add_sorted(scratch, keys, perm, deltas, L), 30, flush),
+        "plain_ms": median_ms(torch, lambda: ref.scatter_add_ref(scratch, flat, deltas), 3, flush),
+        "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": median_ms(torch, lambda: scratch.index_add_(0, idx, dup), 30, flush),
+        "max_abs_err": err,
+    }
+    details["scatter_add"] = {"storage": list(st0.shape), "bags": nb, "L": L,
+                              "unique_rows": n_unique, "longest_segment": int(seg.max()),
+                              "sort": "torch.sort(stable=True), timed apart as sort_ms"}
+    del st0, scratch, dup, idx, keys, perm, captured["scatter"]
+
+    st0, slots, rows, flat = captured["fused"]
+    nb, L = flat.shape
+    got_st = st0.clone()
+    got = gr.fill_gather_reduce(got_st, slots, rows, flat)
+    want_st, want = ref.fill_gather_reduce_ref(st0.clone(), slots, rows, flat)
+    check(torch.equal(got_st, want_st) and torch.equal(got, want),
+          "fill_gather_reduce differs at the training operands")
+    err = max((got - want).abs().max().item(), (got_st - want_st).abs().max().item())
+    del got_st, want_st
+    valid = slots < st0.shape[0]
+    n_valid = int(valid.sum().item())
+    n_unique = int(torch.unique(flat).numel())
+    b_ms, b_by = bound(2 * n_valid * D * 4 + slots.numel() * 4 + n_unique * D * 4
+                       + flat.numel() * 4 + nb * D * 4, nb * (L - 1) * D)
+    scratch = st0.clone()
+    v_slots, v_rows, long_ids = slots[valid].long(), rows[valid], flat.long()
+
+    def library():
+        scratch.index_copy_(0, v_slots, v_rows)
+        return F.embedding_bag(long_ids, scratch, mode="sum")
+
+    out["fill_gather_reduce"] = {
+        "ms": median_ms(torch, lambda: gr.fill_gather_reduce(scratch, slots, rows, flat),
+                        30, flush),
+        "plain_ms": median_ms(
+            torch, lambda: ref.fill_gather_reduce_ref(scratch, slots, rows, flat), 10, flush),
+        "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": median_ms(torch, library, 30, flush),
+        "max_abs_err": err,
+    }
+    details["fill_gather_reduce"] = {
+        "storage": list(st0.shape), "F": int(slots.numel()), "valid_rows": n_valid,
+        "bags": nb, "L": L, "unique_rows": n_unique,
+        "library": "index_copy_ + F.embedding_bag (two calls)"}
+    del st0, scratch, captured["fused"]
+    return out, details
+
+
 def main() -> int:
     import torch
 
@@ -312,10 +679,19 @@ def main() -> int:
               "a checkout", file=sys.stderr)
         return 2
     sys.path.insert(0, str(SRC))
-    from repro_torch.core import serving_cache
+    from repro_torch.configs.base import DLRMConfig
+    from repro_torch.core import dlrm_runtime, pipeline, serving_cache, static_cache
+    from repro_torch.core.host_table import HostEmbeddingTable
     from repro_torch.kernels import _build, ops, ref
     from repro_torch.kernels import gather_reduce as gr
-    from repro_torch.launch import serve
+    from repro_torch.kernels import grad_coalesce as gc
+    from repro_torch.launch import serve, train
+    from repro_torch.models.dlrm import interaction_dim
+
+    mods = {"ops": ops, "ref": ref, "gr": gr, "gc": gc, "train": train,
+            "pipeline": pipeline, "static_cache": static_cache,
+            "dlrm_runtime": dlrm_runtime, "HostEmbeddingTable": HostEmbeddingTable,
+            "DLRMConfig": DLRMConfig, "interaction_dim": interaction_dim}
 
     t_start = time.perf_counter()
     card = card_line()
@@ -382,6 +758,36 @@ def main() -> int:
                                     sweep_err, dev)
     log(f"timing: done ({time.perf_counter() - t0:.1f}s)")
     print("details: " + json.dumps(details), flush=True)
+    del res, backend, captured
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    summaries, train_counts, train_captured = train_main_path(torch, mods, dev)
+    log(f"train: three runs done ({time.perf_counter() - t0:.1f}s)")
+
+    t0 = time.perf_counter()
+    train_times, train_details = time_train_kernels(torch, ops, ref, gr, gc,
+                                                    train_captured, dev)
+    log(f"timing: training operands done ({time.perf_counter() - t0:.1f}s)")
+    print("details: " + json.dumps(train_details), flush=True)
+    by_run = {"serve": counts, **train_counts}
+    gather, fill = kernels
+    for k in (gather, fill):
+        k["launches_by_run"] = {run: c[k["name"]] for run, c in by_run.items()}
+        k["launches"] = sum(k["launches_by_run"].values())
+    gather["max_abs_err"] = max(gather["max_abs_err"],
+                                train_times["gather_reduce"].pop("max_abs_err"))
+    gather["train"] = train_times["gather_reduce"]
+    for name, source, replaces in (
+            ("scatter_add", CU_SOURCE_BWD, "src/repro/kernels/grad_coalesce.py:44"),
+            ("fill_gather_reduce", CU_SOURCE, "src/repro/kernels/gather_reduce.py:210")):
+        t = train_times[name]
+        launches = {run: c[name] for run, c in train_counts.items()}
+        kernels.append({
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": sum(launches.values()), "launches_by_run": launches,
+            "max_abs_err": max(sweep_err[name], t.pop("max_abs_err")), **t,
+        })
     log(f"total {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card_line(), flush=True)

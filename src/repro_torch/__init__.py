@@ -6,5 +6,8 @@ is PyTorch; every Pallas kernel on a ported path is a hand-written CUDA
 kernel under ``kernels/csrc/``, dispatched by the tensor's device
 (``kernels/ops.py``). Ported so far: the DLRM embedding serving path
 (``launch/serve.py --embedding``; ``nocache-serve`` and
-``scratchpipe-serve``) with the ``gather_reduce`` and ``fill`` kernels.
+``scratchpipe-serve``) and DLRM training (``launch/train.py``;
+``scratchpipe`` split and fused, ``strawman``, ``nocache``, ``static``),
+with the ``gather_reduce``, ``fill``, ``fill_gather_reduce`` and
+``scatter_add`` kernels.
 """

@@ -1,0 +1,81 @@
+"""DLRM configuration dataclass.
+
+Port of ``DLRMConfig`` from ``repro/configs/base.py``, copied field for
+field (the reference's module is pure data too, but importing it would load
+the JAX package). The LM-side ``ModelConfig``/``ShapeSpec`` come with the
+LM slice.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+
+@dataclasses.dataclass(frozen=True)
+class DLRMConfig:
+    name: str = "dlrm-scratchpipe"
+    family: str = "dlrm"
+    num_tables: int = 8
+    rows_per_table: int = 10_000_000
+    # Heterogeneous per-table row counts (realistic Criteo-style workloads).
+    # When set it overrides num_tables/rows_per_table; tables fuse into one
+    # global row space at offsets cumsum(table_rows) (core.TableGroup).
+    table_rows: Optional[Tuple[int, ...]] = None
+    embed_dim: int = 128
+    lookups_per_table: int = 20  # pooling factor (paper default 20)
+    num_dense_features: int = 13
+    bottom_mlp: Tuple[int, ...] = (512, 256, 128)
+    top_mlp: Tuple[int, ...] = (1024, 1024, 512, 256, 1)
+    batch_size: int = 2048
+    interaction: str = "dot"  # dot-product feature interaction (DLRM)
+    param_dtype: str = "float32"  # paper uses fp32 (4-byte rows, §VI-D)
+    # ScratchPipe runtime knobs
+    cache_fraction: float = 0.05  # scratchpad size as fraction of table rows
+    past_window: int = 3
+    future_window: int = 2
+    # scratchpad replica precision: only "fp32" runs in the port so far
+    # (fp16/int8 come with the mixed-precision slice, ROADMAP Queue 1 item 8)
+    precision: str = "fp32"
+    rounding: str = "stochastic"
+
+    def __post_init__(self):
+        if self.table_rows is not None:
+            object.__setattr__(self, "num_tables", len(self.table_rows))
+        if self.precision not in ("fp32", "fp16", "int8"):
+            raise ValueError(f"bad precision {self.precision!r}")
+        if self.rounding not in ("nearest", "stochastic"):
+            raise ValueError(f"bad rounding {self.rounding!r}")
+
+    @property
+    def table_row_list(self) -> Tuple[int, ...]:
+        """Per-table row counts (uniform fallback when table_rows unset)."""
+        if self.table_rows is not None:
+            return self.table_rows
+        return (self.rows_per_table,) * self.num_tables
+
+    @property
+    def table_offsets(self) -> Tuple[int, ...]:
+        """Fused-row-space start offset of each table (len num_tables)."""
+        offs, acc = [], 0
+        for r in self.table_row_list:
+            offs.append(acc)
+            acc += r
+        return tuple(offs)
+
+    @property
+    def total_rows(self) -> int:
+        return sum(self.table_row_list)
+
+    @property
+    def table_bytes(self) -> int:
+        return self.total_rows * self.embed_dim * 4
+
+    def param_count(self) -> int:
+        emb = self.total_rows * self.embed_dim
+        dims_b = (self.num_dense_features,) + self.bottom_mlp
+        bot = sum(a * b + b for a, b in zip(dims_b[:-1], dims_b[1:]))
+        n_int = self.num_tables + 1
+        inter_dim = n_int * (n_int - 1) // 2 + self.embed_dim
+        dims_t = (inter_dim,) + self.top_mlp
+        top = sum(a * b + b for a, b in zip(dims_t[:-1], dims_t[1:]))
+        return emb + bot + top

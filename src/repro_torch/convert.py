@@ -10,11 +10,15 @@ returns), so this module imports nothing of the reference:
     reference ``ReadOnlyCacheServer`` (fp32, empty queue) -> the port's
     server on its device: host table, scratchpad ``storage``, planner
     state (``planner_*``), the ``landed`` mask and the serve step. Both
-    servers then continue bit-identically on the same requests.
-
-DLRM MLP weights come with the training slice.
+    servers then continue bit-identically on the same requests;
+  * :func:`mlps_from_reference` — the reference's DLRM ``init_mlps``
+    pytree (as numpy arrays) -> the parameters of the port's
+    ``models.dlrm.DLRM`` (a ``state_dict``, copied and transposed to
+    ``nn.Linear``'s (out, in) layout).
 """
 from __future__ import annotations
+
+from typing import Dict
 
 import numpy as np
 import torch
@@ -66,3 +70,25 @@ def load_reference_server_state(server: ReadOnlyCacheServer, arrays: dict) -> No
     )
     server._landed = np.array(arrays["landed"], dtype=bool, copy=True)
     server._step = int(np.asarray(arrays["serve_state"])[0])
+
+
+def mlps_from_reference(mlps: dict) -> Dict[str, torch.Tensor]:
+    """``{"bottom"|"top": [{"w": (in, out), "b": (out,)}, ...]}`` (numpy
+    arrays of the reference's ``dlrm.init_mlps``, or of a trained
+    ``DLRMTrainer.mlps``) -> a ``state_dict`` for the port's ``DLRM``:
+    ``<stack>.<i>.weight`` = ``w.T`` and ``<stack>.<i>.bias`` = ``b``, fp32
+    CPU copies. Load it with ``model.load_state_dict(...)``, which copies
+    onto the model's device."""
+    out: Dict[str, torch.Tensor] = {}
+    for stack in ("bottom", "top"):
+        for i, layer in enumerate(mlps[stack]):
+            w = np.asarray(layer["w"], dtype=np.float32)
+            b = np.asarray(layer["b"], dtype=np.float32)
+            if w.ndim != 2 or b.shape != (w.shape[1],):
+                raise ValueError(
+                    f"{stack}[{i}]: expected w (in, out) and b (out,), got "
+                    f"{w.shape} and {b.shape}"
+                )
+            out[f"{stack}.{i}.weight"] = torch.from_numpy(np.array(w.T, copy=True))
+            out[f"{stack}.{i}.bias"] = torch.from_numpy(np.array(b, copy=True))
+    return out

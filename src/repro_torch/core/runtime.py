@@ -2,8 +2,12 @@
 name -> factory registry so launchers select designs uniformly.
 
 Port of ``repro/core/runtime.py``. The port registers, so far, the
-read-only serving designs:
+paper's training designs and the read-only serving designs:
 
+    nocache      — hybrid CPU-GPU, no caching (Fig. 4(a))
+    static       — Yin et al. pinned top-N cache (Fig. 4(b))
+    scratchpipe  — the paper's pipelined always-hit cache (§IV)
+    strawman     — dynamic cache, no pipelining (§IV-B)
     nocache-serve      — the serving oracle (host gather every lookup)
     scratchpipe-serve  — the plan-ahead cache with the queue as look-ahead
 
@@ -62,7 +66,11 @@ def register_runtime(name: str):
 
 def _ensure_registered() -> None:
     # importing the modules runs their @register_runtime decorators
-    from repro_torch.core import serving_cache  # noqa: F401
+    from repro_torch.core import (  # noqa: F401
+        pipeline,
+        serving_cache,
+        static_cache,
+    )
 
 
 def available_runtimes() -> List[str]:

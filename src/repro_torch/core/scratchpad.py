@@ -1,10 +1,15 @@
 """Device scratchpad Storage array + its embedding primitives (fp32).
 
 Port of the fp32 half of ``repro/core/scratchpad.py``: ``make_storage``,
-``fill``, ``gather_reduce`` and ``storage_bytes``. The reference's
-``kernel="xla" | "pallas"`` axis does not carry over: the kernel follows
-the storage's device (``kernels/ops.py``) — the hand-written CUDA kernels
-on the card, their plain PyTorch versions on the CPU. Reduced-precision
+``fill``, ``read``, ``gather_reduce``, ``apply_grad``, ``fill_gather_reduce``
+and ``storage_bytes``. The reference's ``kernel="xla" | "pallas"`` axis
+does not carry over: the kernel follows the storage's device
+(``kernels/ops.py``) — the hand-written CUDA kernels on the card, their
+plain PyTorch versions on the CPU. Every update (fill, apply_grad, the
+fused fill) is IN PLACE on the storage tensor, where the reference donates
+the buffer to a functional update; the contents are the same.
+``read`` stays plain indexing, as the reference leaves it to XLA: it feeds
+the victim write-back over PCIe, not an HBM hot loop. Reduced-precision
 storages come with the mixed-precision slice.
 """
 from __future__ import annotations
@@ -39,3 +44,31 @@ def gather_reduce(storage: torch.Tensor, slot_ids: torch.Tensor) -> torch.Tensor
 def storage_bytes(storage: torch.Tensor) -> int:
     """Resident bytes of a storage."""
     return storage.numel() * storage.element_size()
+
+
+def read(storage: torch.Tensor, slots: torch.Tensor) -> torch.Tensor:
+    """[Collect]: read victim rows for write-back -> a (len(slots), D) copy.
+    Later in-place updates of ``storage`` do not reach it."""
+    return storage[slots.long()]
+
+
+def apply_grad(
+    storage: torch.Tensor, slot_ids: torch.Tensor, bag_grads: torch.Tensor, lr: float
+) -> torch.Tensor:
+    """Backward, in place: duplicate bag grads to each looked-up row,
+    coalesce duplicates (scatter-add), apply SGD. slot_ids (B,T,L),
+    bag_grads (B,T,D). Returns ``storage``."""
+    return ops.coalesce_apply(storage, slot_ids, bag_grads, lr)
+
+
+def fill_gather_reduce(
+    storage: torch.Tensor,
+    fill_slots: torch.Tensor,
+    fill_rows: torch.Tensor,
+    slot_ids: torch.Tensor,
+):
+    """Fused [Insert]-fill + embedding-bag forward for one pipeline cycle:
+    the fill lands (in place) before the gather — the split engine's
+    intra-cycle order. Returns (storage, (B, T, D) bags); on the card ONE
+    kernel launch (the fused cycle kernel)."""
+    return ops.fill_gather_reduce(storage, fill_slots, fill_rows, slot_ids)

@@ -1,0 +1,229 @@
+"""Baseline embedding-cache designs the paper compares against (§III/VI).
+
+Port of the fp32 half of ``repro/core/static_cache.py``:
+
+* ``NoCacheBaseline``     — hybrid CPU-GPU without caching [Tensor Casting
+  baseline, Fig. 4(a)]: every gather and every gradient scatter hits the
+  slow host tier.
+* ``StaticCacheBaseline`` — Yin et al. [12], Fig. 4(b): the top-N
+  most-frequently-accessed rows are pinned in device memory for the whole
+  training run (no eviction). Hits train on-device; misses gather from and
+  scatter-update to the host tier.
+
+Both run the SAME [Train] computation as ScratchPipe (``train_fn``, with
+its in-place storage update), so end-to-end training math is identical;
+only row placement differs. Both satisfy the EmbeddingCacheRuntime protocol
+(run / run_one_cycle / flush_to_host / stats / traffic). The fp16/int8
+static cache (``precision=``) comes with the mixed-precision slice, and the
+``tracer``/``metrics`` hooks with observability (ROADMAP.md).
+"""
+from __future__ import annotations
+
+from typing import List, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.core.host_table import HostEmbeddingTable, HostTraffic
+from repro_torch.core.pipeline import StepStats, _not_ported
+from repro_torch.core.plan import pad_rows
+from repro_torch.core.runtime import register_runtime
+from repro_torch.device import resolve_device
+
+
+class NoCacheBaseline:
+    """All embedding work on the host tier; the device only does the MLPs.
+
+    ``train_fn(storage, slots, batch)`` is reused by presenting the
+    *gathered batch rows themselves* as a dense mini-storage on the device
+    (slot i = i-th unique row), so compute is identical; the updated rows
+    are scattered back to the host.
+    """
+
+    def __init__(self, host_table: HostEmbeddingTable, train_fn, *, device="cuda"):
+        self.device = resolve_device(device)
+        self.host = host_table
+        self.train_fn = train_fn
+        self.pcie = HostTraffic()
+        self.hbm = HostTraffic()  # stays zero: device holds no embedding rows
+        self._stats: List[StepStats] = []
+
+    def _step(self, step: int, ids, batch) -> StepStats:
+        ids = np.asarray(ids)
+        flat = ids.ravel()
+        uniq, inv = np.unique(flat, return_inverse=True)
+        rows = self.host.gather(uniq)  # host gather (memory-bound)
+        # pow-2 padded transient region, as the reference (zero rows past
+        # ``uniq.size`` are never addressed by ``slots``)
+        storage = torch.from_numpy(pad_rows(rows)).to(self.device)
+        self.pcie.written += rows.nbytes
+        slots = inv.reshape(ids.shape)
+        storage, aux = self.train_fn(storage, slots, batch)
+        new_rows = storage[: uniq.size].cpu().numpy()
+        self.pcie.read += new_rows.nbytes
+        # host-side scatter of trained rows (gradient path on slow tier)
+        self.host.scatter(uniq, new_rows)
+        st = StepStats(
+            step=step,
+            n_lookups=int(flat.size),
+            n_unique=int(uniq.size),
+            n_hits=0,
+            n_miss=int(uniq.size),
+            n_evict=0,
+            aux=aux,
+        )
+        self._stats.append(st)
+        return st
+
+    def run(self, stream, lookahead_fn=None) -> List[StepStats]:
+        return [
+            self._step(step, ids, batch)
+            for step, (ids, batch) in enumerate(stream, 1)
+        ]
+
+    def run_one_cycle(self, ids, batch, lookahead_fn=None) -> Optional[StepStats]:
+        return self._step(len(self._stats) + 1, ids, batch)
+
+    def flush_to_host(self):
+        pass  # nothing device-resident
+
+    def traffic(self) -> dict:
+        return {"host": self.host.traffic, "pcie": self.pcie, "hbm": self.hbm}
+
+    @property
+    def stats(self):
+        return self._stats
+
+
+class StaticCacheBaseline:
+    """Yin et al. static top-N cache. ``hot_ids`` (GLOBAL row ids, e.g.
+    per-table top-N from ``data.synthetic.hot_ids_for_group``) are pinned
+    on the device for the whole run."""
+
+    def __init__(
+        self,
+        host_table: HostEmbeddingTable,
+        hot_ids: np.ndarray,
+        train_fn,
+        *,
+        precision: str = "fp32",
+        device="cuda",
+    ):
+        if precision != "fp32":
+            raise _not_ported(f"static cache precision={precision!r}", "item 8")
+        self.device = resolve_device(device)
+        self.host = host_table
+        self.train_fn = train_fn
+        self.precision = precision
+        self._row_bytes = host_table.row_bytes
+        self.pcie = HostTraffic()
+        self.hbm = HostTraffic()  # pinned-region traffic ([Train] on hits)
+        self.hot_ids = np.asarray(np.sort(hot_ids), dtype=np.int64)
+        self.id_to_slot = np.full(host_table.rows, -1, dtype=np.int64)
+        self.id_to_slot[self.hot_ids] = np.arange(self.hot_ids.size)
+        self.storage = torch.from_numpy(host_table.gather(self.hot_ids)).to(self.device)
+        host_table.traffic.reset()  # preload is not steady-state traffic
+        self._stats: List[StepStats] = []
+
+    def _step(self, step: int, ids, batch) -> StepStats:
+        ids = np.asarray(ids)
+        flat = ids.ravel()
+        uniq = np.unique(flat)
+        slots_u = self.id_to_slot[uniq]
+        miss_ids = uniq[slots_u < 0]
+        n_hit_lookups = int(np.sum(self.id_to_slot[flat] >= 0))
+        n_hits = int(uniq.size - miss_ids.size)
+
+        # Misses: gather from host, append to a transient device region
+        # behind the pinned area (fresh every step — no insertion), pow-2
+        # padded as the reference pads it.
+        miss_rows = self.host.gather(miss_ids)
+        self.pcie.written += miss_ids.size * self._row_bytes
+        if miss_ids.size:
+            ext = torch.cat(
+                [self.storage, torch.from_numpy(pad_rows(miss_rows)).to(self.device)],
+                dim=0,
+            )
+        else:
+            ext = self.storage
+        # temporarily map misses into the transient tail (reverted in the
+        # finally, so an exception in train_fn leaves no tail slot mapped)
+        try:
+            self.id_to_slot[miss_ids] = self.hot_ids.size + np.arange(miss_ids.size)
+            slots = self.id_to_slot[flat].reshape(ids.shape)
+        finally:
+            self.id_to_slot[miss_ids] = -1
+
+        ext, aux = self.train_fn(ext, slots, batch)
+        # hit rows stay on the device; missed rows' trained values scatter
+        # back to the host tier (the slow bwd path, Fig. 4(b) right)
+        n_pin = self.hot_ids.size
+        self.storage = ext[:n_pin]
+        if miss_ids.size:
+            upd = ext[n_pin : n_pin + miss_ids.size].cpu().numpy()
+            self.pcie.read += miss_ids.size * self._row_bytes
+            self.host.scatter(miss_ids, upd)
+        # device-tier bytes: bag gathers over all lookups + read-mod-write
+        # of the pinned hit rows
+        row_b = self._row_bytes
+        self.hbm.read += (2 * n_hits + int(flat.size)) * row_b
+        self.hbm.written += n_hits * row_b
+
+        st = StepStats(
+            step=step,
+            n_lookups=int(flat.size),
+            n_unique=int(uniq.size),
+            n_hits=n_hits,
+            n_miss=int(miss_ids.size),
+            n_evict=0,
+            hit_lookups=n_hit_lookups,
+            aux=aux,
+        )
+        self._stats.append(st)
+        return st
+
+    def run(self, stream, lookahead_fn=None) -> List[StepStats]:
+        return [
+            self._step(step, ids, batch)
+            for step, (ids, batch) in enumerate(stream, 1)
+        ]
+
+    def run_one_cycle(self, ids, batch, lookahead_fn=None) -> Optional[StepStats]:
+        return self._step(len(self._stats) + 1, ids, batch)
+
+    def flush_to_host(self):
+        self.host.scatter(self.hot_ids, self.storage.cpu().numpy())
+
+    def traffic(self) -> dict:
+        return {"host": self.host.traffic, "pcie": self.pcie, "hbm": self.hbm}
+
+    @property
+    def stats(self):
+        return self._stats
+
+
+def _reject_unsupported(name: str, kw: dict) -> None:
+    obs = {k: kw.pop(k) for k in ("tracer", "metrics") if kw.get(k) is not None}
+    if obs:
+        raise _not_ported(f"{sorted(obs)} on runtime {name!r}", "item 12")
+    extra = {k: v for k, v in kw.items() if v is not None}
+    if extra:
+        raise TypeError(
+            f"runtime {name!r} does not support {sorted(extra)}; it has no "
+            "scratchpad to budget (slot kwargs apply to the dynamic caches)"
+        )
+
+
+@register_runtime("nocache")
+def _make_nocache(host_table, train_fn, *, device="cuda", **kw) -> NoCacheBaseline:
+    _reject_unsupported("nocache", kw)
+    return NoCacheBaseline(host_table, train_fn, device=device)
+
+
+@register_runtime("static")
+def _make_static(host_table, train_fn, *, hot_ids, device="cuda", **kw) -> StaticCacheBaseline:
+    precision = kw.pop("precision", None) or "fp32"
+    _reject_unsupported("static", kw)
+    return StaticCacheBaseline(
+        host_table, hot_ids, train_fn, precision=precision, device=device
+    )

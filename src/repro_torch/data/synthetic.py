@@ -1,9 +1,9 @@
-"""Zipf id sampling for the synthetic traffic scenarios (paper §V Benchmarks).
+"""Synthetic embedding-access trace generator (paper §V Benchmarks).
 
-Port of the part of ``repro/data/synthetic.py`` that the scenarios import
-(``LOCALITY_S``, ``zipf_ranks``, ``sample_ids_s``, ``scatter_ranks``),
-copied unchanged: numpy only, so the same generator state draws the same
-ids in both packages.
+Port of ``repro/data/synthetic.py``, copied unchanged: numpy only, so the
+same seed draws the same ids, dense features and labels in both packages
+(tests/test_torch_train.py). ``dlrm_batches_group`` (heterogeneous tables)
+comes with the multi-table slice.
 
 Ranks come from a Zipf(s) distribution via the continuous inverse-CDF
 (rank = N * u^(1/(1-s))), with s calibrated so the top-2% of rows capture
@@ -20,10 +20,13 @@ so "hot" rows are not contiguous.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
-from typing import Dict
+from typing import Dict, Iterator, Tuple
 
 import numpy as np
+
+from repro_torch.core.table_group import TableGroup
 
 LOCALITY_S: Dict[str, float] = {
     "random": 0.0,
@@ -70,3 +73,107 @@ def sample_ids_s(
     if s <= 0.0:
         return ranks  # uniform ranks are already ids
     return _coprime_scatter(ranks, n_rows)
+
+
+def sample_ids(
+    rng: np.random.Generator, n_rows: int, size, locality: str
+) -> np.ndarray:
+    return sample_ids_s(rng, n_rows, size, LOCALITY_S[locality])
+
+
+@dataclasses.dataclass
+class TraceConfig:
+    num_tables: int = 8
+    rows_per_table: int = 10_000_000
+    lookups_per_table: int = 20
+    batch_size: int = 2048
+    locality: str = "medium"
+    num_dense_features: int = 13
+    seed: int = 0
+
+
+def dlrm_batches(tc: TraceConfig, steps: int) -> Iterator[Tuple[np.ndarray, dict]]:
+    """Yields (global_row_ids (B, T, L), batch payload). Row ids are already
+    offset into the flattened (T * rows) global space used by the cache
+    controller and the full-table model."""
+    rng = np.random.default_rng(tc.seed)
+    offs = (np.arange(tc.num_tables, dtype=np.int64) * tc.rows_per_table)[
+        None, :, None
+    ]
+    for _ in range(steps):
+        ids = sample_ids(
+            rng,
+            tc.rows_per_table,
+            (tc.batch_size, tc.num_tables, tc.lookups_per_table),
+            tc.locality,
+        )
+        gids = ids + offs
+        dense = rng.standard_normal(
+            (tc.batch_size, tc.num_dense_features)
+        ).astype(np.float32)
+        # CTR label correlated with the dense features (learnable signal)
+        logits = dense[:, 0] - 0.5 * dense[:, 1]
+        label = (rng.random(tc.batch_size) < 1.0 / (1.0 + np.exp(-logits))).astype(
+            np.float32
+        )
+        yield gids, {"dense": dense, "label": label, "sparse_ids": ids}
+
+
+def hot_ids_for_group(
+    group: TableGroup, fraction: float, *, locality: str = "medium",
+    draws_per_table: int = 200_000, seed: int = 99,
+) -> np.ndarray:
+    """Per-table top-N hottest GLOBAL row ids for the static-cache baseline:
+    every table gets its own pinned budget (``rows * fraction``), estimated
+    from an offline profiling pass over its own lookup stream. The profile
+    scales with the budget, and only rows actually observed are pinned
+    (never-accessed zero-count ties would waste cache capacity)."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for t, spec in enumerate(group.tables):
+        per_table = max(1, int(spec.rows * fraction))
+        draws = max(draws_per_table, 4 * per_table)
+        counts = np.zeros(spec.rows, dtype=np.int64)
+        ids = sample_ids(rng, spec.rows, draws, locality)
+        np.add.at(counts, ids, 1)
+        observed = int(np.count_nonzero(counts))
+        n_pin = min(per_table, observed)
+        top = np.argpartition(counts, -n_pin)[-n_pin:]
+        out.append(group.to_global(t, top))
+    return np.concatenate(out)
+
+
+def access_counts(tc: TraceConfig, steps: int) -> np.ndarray:
+    """Sorted per-row access histogram (reproduces Fig. 3 curves)."""
+    rng = np.random.default_rng(tc.seed)
+    counts = np.zeros(tc.rows_per_table, dtype=np.int64)
+    for _ in range(steps):
+        ids = sample_ids(
+            rng,
+            tc.rows_per_table,
+            tc.batch_size * tc.num_tables * tc.lookups_per_table,
+            tc.locality,
+        )
+        np.add.at(counts, ids, 1)
+    return np.sort(counts)[::-1]
+
+
+def hot_ids_global(tc: TraceConfig, fraction: float, steps: int = 50) -> np.ndarray:
+    """Top-N hottest *global* row ids (for the static-cache baseline),
+    estimated from a profiling prefix — exactly how a deployed static cache
+    would be provisioned."""
+    rng = np.random.default_rng(tc.seed + 99)
+    per_table = max(1, int(tc.rows_per_table * fraction))
+    out = []
+    for t in range(tc.num_tables):
+        counts = np.zeros(tc.rows_per_table, dtype=np.int64)
+        ids = sample_ids(
+            rng,
+            tc.rows_per_table,
+            steps * tc.batch_size * tc.lookups_per_table,
+            tc.locality,
+        )
+        np.add.at(counts, ids, 1)
+        top = np.argpartition(counts, -per_table)[-per_table:]
+        out.append(top.astype(np.int64) + t * tc.rows_per_table)
+    return np.concatenate(out)

@@ -1,8 +1,8 @@
 """Build the port's CUDA sources at first use (no JAX counterpart).
 
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` into its own shared library
-with a plain C interface, which ``kernels/gather_reduce.py`` loads with
-``ctypes``. That builds in seconds, where an extension that includes
+with a plain C interface, which its launcher (``kernels/<name>.py``) loads
+with ``ctypes``. That builds in seconds, where an extension that includes
 PyTorch's headers takes minutes. Libraries go to ``build/repro_torch/`` at
 the root of the checkout (git-ignored), in a directory keyed by a hash of
 the sources and flags, so an edited source is rebuilt and an unchanged one

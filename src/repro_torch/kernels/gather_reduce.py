@@ -1,8 +1,8 @@
 """ctypes launchers of the hand-written CUDA kernels in ``csrc/gather_reduce.cu``.
 
-Port of the fp32 ``gather_reduce`` and ``fill`` Pallas kernels of
-``repro/kernels/gather_reduce.py``; the source file holds each kernel's
-bound and design note. These launchers take CUDA tensors only: they check
+Port of the fp32 ``gather_reduce``, ``fill`` and ``fill_gather_reduce``
+Pallas kernels of ``repro/kernels/gather_reduce.py``; the source file holds
+each kernel's bound and design note. These launchers take CUDA tensors only: they check
 device, dtype (fp32 storage and rows, int32 ids), shape and contiguity,
 launch on the current stream, raise on the launch's CUDA error, and count
 each launch in :data:`LAUNCHES`. The library is built and loaded at the
@@ -19,7 +19,7 @@ import torch
 
 #: kernel launches since the last reset, by kernel name — one is added
 #: where a launch succeeds, and nowhere else
-LAUNCHES = {"gather_reduce": 0, "fill": 0}
+LAUNCHES = {"gather_reduce": 0, "fill": 0, "fill_gather_reduce": 0}
 
 _LIB: Optional[ctypes.CDLL] = None
 
@@ -35,6 +35,10 @@ def _lib() -> ctypes.CDLL:
         lib.repro_gather_reduce_f32.restype = i32
         lib.repro_fill_f32.argtypes = [ptr, ptr, ptr, i64, i32, i64, ptr]
         lib.repro_fill_f32.restype = i32
+        lib.repro_fill_gather_reduce_f32.argtypes = [
+            ptr, ptr, ptr, i64, i64, ptr, ptr, i64, i32, i32, ptr,
+        ]
+        lib.repro_fill_gather_reduce_f32.restype = i32
         lib.repro_cuda_error_string.argtypes = [i32]
         lib.repro_cuda_error_string.restype = ctypes.c_char_p
         _LIB = lib
@@ -109,3 +113,47 @@ def fill(storage: torch.Tensor, fill_slots: torch.Tensor, rows: torch.Tensor) ->
         )
     _raise_on(err, "fill")
     LAUNCHES["fill"] += 1
+
+
+def fill_gather_reduce(
+    storage: torch.Tensor,
+    fill_slots: torch.Tensor,
+    rows: torch.Tensor,
+    flat_ids: torch.Tensor,
+) -> torch.Tensor:
+    """ONE cooperative launch: the fill (in place, as :func:`fill`), then
+    the bag gather-reduce over the post-fill storage -> (nb, D) fp32 bags.
+    storage (N, D) fp32; fill_slots (F,) int32, non-negative, valid slots
+    unique; rows (F, D) fp32; flat_ids (nb, L) int32 with every id in
+    [0, N); F, nb, L > 0. All on one CUDA device."""
+    if storage.device.type != "cuda":
+        raise ValueError(f"CUDA kernel called on a {storage.device} tensor")
+    _check(storage, "storage", torch.float32, storage.device)
+    _check(fill_slots, "fill_slots", torch.int32, storage.device)
+    _check(rows, "rows", torch.float32, storage.device)
+    _check(flat_ids, "slot_ids", torch.int32, storage.device)
+    if (storage.dim() != 2 or fill_slots.dim() != 1 or rows.dim() != 2
+            or flat_ids.dim() != 2):
+        raise ValueError(
+            "expected storage (N, D), fill_slots (F,), rows (F, D), slot_ids (nb, L)"
+        )
+    (F,) = fill_slots.shape
+    N, D = storage.shape
+    nb, L = flat_ids.shape
+    if rows.shape != (F, D):
+        raise ValueError(f"rows {tuple(rows.shape)} != ({F}, {D})")
+    if F == 0 or nb == 0 or L == 0 or D == 0:
+        raise ValueError(
+            "empty operands launch nothing: ops.fill_gather_reduce skips them"
+        )
+    out = torch.empty((nb, D), dtype=torch.float32, device=storage.device)
+    lib = _lib()
+    with torch.cuda.device(storage.device):
+        err = lib.repro_fill_gather_reduce_f32(
+            storage.data_ptr(), fill_slots.data_ptr(), rows.data_ptr(), F, N,
+            flat_ids.data_ptr(), out.data_ptr(), nb, L, D,
+            torch.cuda.current_stream(storage.device).cuda_stream,
+        )
+    _raise_on(err, "fill_gather_reduce")
+    LAUNCHES["fill_gather_reduce"] += 1
+    return out

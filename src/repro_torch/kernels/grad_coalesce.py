@@ -1,0 +1,110 @@
+"""ctypes launcher of the hand-written CUDA backward kernel in
+``csrc/grad_coalesce.cu``.
+
+Port of the ``scatter_add`` Pallas kernel of ``repro/kernels/grad_coalesce.py``
+(the source file holds the kernel's bound and design note). The TPU kernel
+coalesces duplicate rows because its grid runs in order; here the flat
+lookup positions are stable-sorted by slot first (:func:`sort_by_slot`,
+``torch.sort``, a library radix sort), and the hand-written kernel
+(:func:`scatter_add_sorted`) adds each row's deltas in that order.
+:func:`scatter_add` does both. The launchers take CUDA tensors only: they
+check device, dtype (fp32 storage and deltas, int32 ids), shape and
+contiguity, launch on the current stream, raise on the launch's CUDA error
+and count each launch of the accumulating kernel in :data:`LAUNCHES`. The
+library is built and loaded at the first launch, never at import. Natural
+shapes, empty operands and the CPU dispatch live in ``kernels/ops.py``.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Optional, Tuple
+
+import torch
+
+from repro_torch.kernels.gather_reduce import _check
+
+#: kernel launches since the last reset — one is added where a launch
+#: succeeds, and nowhere else
+LAUNCHES = {"scatter_add": 0}
+
+_LIB: Optional[ctypes.CDLL] = None
+
+
+def _lib() -> ctypes.CDLL:
+    global _LIB
+    if _LIB is None:
+        from repro_torch.kernels import _build
+
+        lib = ctypes.CDLL(str(_build.library_path("grad_coalesce")))
+        ptr, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+        lib.repro_scatter_add_sorted_f32.argtypes = [
+            ptr, ptr, ptr, ptr, i64, i32, i32, i64, ptr,
+        ]
+        lib.repro_scatter_add_sorted_f32.restype = i32
+        lib.repro_cuda_error_string.argtypes = [i32]
+        lib.repro_cuda_error_string.restype = ctypes.c_char_p
+        _LIB = lib
+    return _LIB
+
+
+def sort_by_slot(flat_ids: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """flat_ids (nb, L) int32 -> (keys (nb*L,) int32 sorted stably,
+    perm (nb*L,) int64 flat positions): within one slot the positions keep
+    their flat bag-major order."""
+    return torch.sort(flat_ids.reshape(-1), stable=True)
+
+
+def scatter_add_sorted(
+    storage: torch.Tensor,
+    keys: torch.Tensor,
+    perm: torch.Tensor,
+    bag_deltas: torch.Tensor,
+    L: int,
+) -> None:
+    """In place: storage[keys[j]] += bag_deltas[perm[j] // L] for every j,
+    in j order per row. storage (N, D) fp32; keys (n,) int32 and perm (n,)
+    int64 from :func:`sort_by_slot`; bag_deltas (n // L, D) fp32; n > 0.
+    All on one CUDA device."""
+    if storage.device.type != "cuda":
+        raise ValueError(f"CUDA kernel called on a {storage.device} tensor")
+    _check(storage, "storage", torch.float32, storage.device)
+    _check(keys, "keys", torch.int32, storage.device)
+    _check(perm, "perm", torch.int64, storage.device)
+    _check(bag_deltas, "bag_deltas", torch.float32, storage.device)
+    if storage.dim() != 2 or bag_deltas.dim() != 2 or keys.dim() != 1:
+        raise ValueError("expected storage (N, D), keys (n,), perm (n,), deltas (nb, D)")
+    (n,) = keys.shape
+    N, D = storage.shape
+    if L <= 0 or perm.shape != (n,) or bag_deltas.shape != (n // L, D) or n % L:
+        raise ValueError(
+            f"keys {n}, perm {tuple(perm.shape)}, deltas {tuple(bag_deltas.shape)} "
+            f"and L={L} do not describe (nb, L) lookups of ({N}, {D}) rows"
+        )
+    if n == 0 or D == 0:
+        raise ValueError("empty operands launch nothing: ops.scatter_add skips them")
+    lib = _lib()
+    with torch.cuda.device(storage.device):
+        err = lib.repro_scatter_add_sorted_f32(
+            storage.data_ptr(), keys.data_ptr(), perm.data_ptr(),
+            bag_deltas.data_ptr(), n, L, D, N,
+            torch.cuda.current_stream(storage.device).cuda_stream,
+        )
+    if err != 0:
+        what = lib.repro_cuda_error_string(err).decode()
+        raise RuntimeError(f"CUDA launch of scatter_add failed: {what} (cudaError {err})")
+    LAUNCHES["scatter_add"] += 1
+
+
+def scatter_add(
+    storage: torch.Tensor, flat_ids: torch.Tensor, bag_deltas: torch.Tensor
+) -> None:
+    """In place: storage[flat_ids[b, l]] += bag_deltas[b], duplicates in flat
+    bag-major order. storage (N, D) fp32; flat_ids (nb, L) int32 with every
+    id in [0, N); bag_deltas (nb, D) fp32; nb, L > 0."""
+    if storage.device.type != "cuda":
+        raise ValueError(f"CUDA kernel called on a {storage.device} tensor")
+    _check(flat_ids, "slot_ids", torch.int32, storage.device)
+    if flat_ids.dim() != 2:
+        raise ValueError(f"expected slot_ids (nb, L), got {tuple(flat_ids.shape)}")
+    keys, perm = sort_by_slot(flat_ids)
+    scatter_add_sorted(storage, keys, perm, bag_deltas, flat_ids.shape[1])

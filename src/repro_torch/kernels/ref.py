@@ -1,9 +1,11 @@
 """Plain PyTorch versions of the port's kernels, in the reference's op order.
 
-Port of the fp32 ``gather_reduce_ref`` and ``fill_ref`` of
-``repro/kernels/ref.py``. They are what ``kernels/ops.py`` runs for tensors
-on the CPU, and what ``chip_smoke.py`` holds each CUDA kernel against on
-the card (bitwise: the kernels do the same fp32 adds in the same order).
+Port of the fp32 half of ``repro/kernels/ref.py``: ``gather_reduce_ref``,
+``fill_ref``, ``fill_gather_reduce_ref``, ``scatter_deltas`` and
+``coalesce_apply_ref``, plus ``scatter_add_ref``, the plain version of the
+backward kernel. They are what ``kernels/ops.py`` runs for tensors on the
+CPU, and what ``chip_smoke.py`` holds each CUDA kernel against on the card
+(bitwise: the kernels do the same fp32 adds in the same order).
 
   * ``gather_reduce_ref`` starts each bag from its ``l = 0`` row and adds
     rows ``l = 1 .. L-1`` in order, in fp32 — a plain ``sum`` would be free
@@ -12,6 +14,15 @@ the card (bitwise: the kernels do the same fp32 adds in the same order).
     ``== num_slots``, ``core/plan.py: pad_index``). Torch's index ops do
     not drop out-of-range indices, so the version masks them explicitly.
     It writes in place (the reference returns a new array).
+  * ``scatter_add_ref`` updates every looked-up row as
+    ``row + d_first + d_next + ...`` with the deltas in flat bag-major
+    order — what the reference's ``storage.at[flat].add(dup)`` does. Torch's
+    ``index_add_`` keeps that order on the CPU but not on the card (atomics),
+    so the version orders it explicitly: a stable sort by slot ranks every
+    lookup among the lookups of its row, and rank level ``r`` adds the
+    ``r``-th delta of every row at once (the rows of one level are unique,
+    so the level is a plain gather-add-scatter with no race). It writes in
+    place, and so does ``coalesce_apply_ref``.
 """
 from __future__ import annotations
 
@@ -44,3 +55,67 @@ def fill_ref(
     keep = fill_slots < storage.shape[0]
     storage[fill_slots[keep].long()] = rows[keep].to(storage.dtype)
     return storage
+
+
+def fill_gather_reduce_ref(
+    storage: torch.Tensor,
+    fill_slots: torch.Tensor,
+    fill_rows: torch.Tensor,
+    slot_ids: torch.Tensor,
+):
+    """Fused [Insert]-fill + [Train]-gather forward: the fill lands (in
+    place) before the gather — the split engine's intra-cycle order.
+    Returns (storage, bags)."""
+    storage = fill_ref(storage, fill_slots, fill_rows)
+    return storage, gather_reduce_ref(storage, slot_ids)
+
+
+def scatter_deltas(
+    storage: torch.Tensor, bag_grads: torch.Tensor, lr: float
+) -> torch.Tensor:
+    """The canonical pre-rounded per-bag SGD delta ``-lr * bag_grads`` in the
+    storage dtype, rounded once per bag before any accumulation (an
+    in-kernel ``acc += -lr * g`` could contract to an FMA)."""
+    return ((-lr) * bag_grads).to(storage.dtype)
+
+
+def scatter_add_ref(
+    storage: torch.Tensor, slot_ids: torch.Tensor, bag_deltas: torch.Tensor
+) -> torch.Tensor:
+    """In place: ``storage[slot_ids[b, l]] += bag_deltas[b]`` for every
+    (b, l), duplicates accumulated in flat bag-major order. storage (N, D);
+    slot_ids (nb, L) with ids in [0, N); bag_deltas (nb, D) in the storage
+    dtype. Returns ``storage``."""
+    L = slot_ids.shape[-1]
+    flat = slot_ids.reshape(-1).long()
+    n = flat.numel()
+    if n == 0:
+        return storage
+    keys, perm = torch.sort(flat, stable=True)
+    pos = torch.arange(n, device=flat.device)
+    head = torch.ones(n, dtype=torch.bool, device=flat.device)
+    head[1:] = keys[1:] != keys[:-1]
+    seg_start = torch.cummax(torch.where(head, pos, torch.zeros_like(pos)), 0).values
+    rank = pos - seg_start  # lookups of the same row before this one
+    order = torch.argsort(rank, stable=True)
+    keys, bags = keys[order], (perm // L)[order]
+    start = 0
+    for count in torch.bincount(rank).tolist():
+        s = keys[start:start + count]  # unique within one rank level
+        storage[s] = storage[s] + bag_deltas[bags[start:start + count]]
+        start += count
+    return storage
+
+
+def coalesce_apply_ref(
+    storage: torch.Tensor, slot_ids: torch.Tensor, bag_grads: torch.Tensor, lr: float
+) -> torch.Tensor:
+    """In place: storage (N, D); slot_ids (..., L); bag_grads (..., D).
+    Gradient duplication (bag -> each looked-up row), coalescing of duplicate
+    rows (scatter-add in flat bag-major order) and the SGD update."""
+    L = slot_ids.shape[-1]
+    D = bag_grads.shape[-1]
+    if L == 0 or slot_ids.numel() == 0:
+        return storage
+    deltas = scatter_deltas(storage, bag_grads, lr).reshape(-1, D)
+    return scatter_add_ref(storage, slot_ids.reshape(-1, L), deltas)

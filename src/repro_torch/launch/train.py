@@ -1,0 +1,177 @@
+"""Training launcher of the port: the paper's DLRM through a cache runtime.
+
+Port of the DLRM branch of ``repro/launch/train.py``: host-resident tables,
+the ScratchPipe pipeline (or a baseline) and the DLRM [Train] stage, on the
+card:
+
+    python -m repro_torch.launch.train --arch dlrm-scratchpipe --batch 2048 \
+        [--smoke] [--runtime scratchpipe|strawman|nocache|static] [--fused]
+
+``--device cpu`` runs the kernels' plain PyTorch versions instead. It prints
+the same ``runtime=``, ``done:`` and ``traffic:`` lines as the reference
+(``kernel=`` names the kernels that ran: ``cuda`` or ``plain``). Like the
+reference, ``--batch`` defaults to 8; the paper's batch is 2048.
+
+Not ported yet (each errors with a pointer to ROADMAP.md): the LM archs,
+``--tables``, ``--trace``, ``--supervise``/``--chaos``,
+``--executor overlapped``, ``--planner device`` and ``--precision``
+fp16/int8.
+"""
+from __future__ import annotations
+
+import argparse
+import time
+from typing import Any, Dict, Optional, Sequence
+
+import numpy as np
+
+ARCH = "dlrm-scratchpipe"
+
+#: options of the reference launcher that later slices port, with the
+#: ROADMAP.md item that carries each
+_NOT_PORTED = {
+    "tables": "Queue 1 item 9 (multi-table)",
+    "trace": "Queue 1 item 10 (traces)",
+    "supervise": "Queue 1 item 12 (recovery)",
+    "chaos": "Queue 1 item 12 (recovery)",
+    "executor": "Queue 1 item 6 (overlapped executor)",
+    "planner": "Queue 1 item 7 (on-device planner)",
+    "precision": "Queue 1 item 8 (mixed precision)",
+}
+_DEFAULTS = {"tables": 0, "trace": None, "supervise": False, "chaos": None,
+             "executor": "sync", "planner": "host", "precision": "fp32"}
+
+
+def train_dlrm(args, cfg=None, host=None, mlps=None) -> Dict[str, Any]:
+    """Build the host table, the trainer and the runtime from parsed
+    ``args``, train ``args.steps`` synthetic mini-batches, print the
+    reference's summary lines and return the run (stats, losses, the
+    runtime, the trainer, the wall seconds). ``cfg`` replaces the
+    configuration that ``--smoke`` selects (how a caller cuts table rows);
+    ``host`` replaces the host table the launcher would build from
+    ``--seed`` (the caller's copy is trained in place); ``mlps`` (a
+    ``DLRM`` state_dict, e.g. ``convert.mlps_from_reference``) replaces the
+    seeded MLP init."""
+    import torch
+
+    from repro_torch.configs.dlrm_scratchpipe import config, smoke_config
+    from repro_torch.core.dlrm_runtime import DLRMTrainer
+    from repro_torch.core.host_table import HostEmbeddingTable
+    from repro_torch.core.runtime import make_runtime
+    from repro_torch.core.table_group import TableGroup
+    from repro_torch.data.lookahead import LookaheadStream
+    from repro_torch.data.synthetic import TraceConfig, dlrm_batches, hot_ids_for_group
+    from repro_torch.device import resolve_device
+
+    dev = resolve_device(args.device)  # fail before building tables, not after
+    if cfg is None:
+        cfg = smoke_config() if args.smoke else config()
+    group = TableGroup.from_config(cfg)
+    batch = args.batch or cfg.batch_size
+    rows = group.total_rows
+    slots = max(2048, int(rows * cfg.cache_fraction))
+    tc = TraceConfig(
+        num_tables=cfg.num_tables,
+        rows_per_table=cfg.rows_per_table,
+        lookups_per_table=cfg.lookups_per_table,
+        batch_size=batch,
+        locality=args.locality,
+        seed=args.seed,
+    )
+    kw: Dict[str, Any] = {"num_slots": slots}
+    if args.runtime == "scratchpipe":
+        kw.update(past_window=cfg.past_window, future_window=cfg.future_window)
+    if args.runtime == "static":
+        kw = {"hot_ids": hot_ids_for_group(group, cfg.cache_fraction, locality=args.locality)}
+    elif args.runtime == "nocache":
+        kw = {}
+    kw["device"] = dev
+
+    if host is None:
+        host = HostEmbeddingTable(rows, cfg.embed_dim, seed=args.seed)
+    elif host.data.shape != (rows, cfg.embed_dim):
+        raise ValueError(f"host table {host.data.shape} != ({rows}, {cfg.embed_dim})")
+    trainer = DLRMTrainer(cfg, seed=args.seed, lr=args.lr, device=dev)
+    if mlps is not None:
+        trainer.model.load_state_dict(mlps)
+    if args.runtime in ("scratchpipe", "strawman") and args.fused:
+        kw["fused_train_fn"] = trainer.fused_train_fn
+    pipe = make_runtime(args.runtime, host, trainer.train_fn, **kw)
+
+    stream = LookaheadStream(dlrm_batches(tc, args.steps))
+    t0 = time.time()
+    stats = pipe.run(stream, lookahead_fn=stream.peek_ids)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    dt = time.time() - t0
+    losses = [float(s.aux["loss"]) for s in stats if s.aux]
+    hit = float(np.mean([s.hit_rate for s in stats[6:]])) if len(stats) > 6 else 0
+    print(
+        f"runtime={args.runtime} source=synthetic "
+        f"kernel={'cuda' if dev.type == 'cuda' else 'plain'} precision=fp32 "
+        f"tables={group.num_tables} rows={list(group.rows)}"
+    )
+    print(
+        f"done: steps={len(stats)} loss {losses[0]:.4f}->{losses[-1]:.4f} "
+        f"plan_hit={hit:.3f} {dt / max(len(stats), 1) * 1e3:.1f}ms/step"
+    )
+    tr = pipe.traffic()
+    print(
+        f"traffic: host {tr['host'].total / 1e6:.1f}MB "
+        f"pcie {tr['pcie'].total / 1e6:.1f}MB hbm {tr['hbm'].total / 1e6:.1f}MB"
+    )
+    return {"stats": stats, "losses": losses, "plan_hit": hit, "pipe": pipe,
+            "trainer": trainer, "host": host, "wall_s": dt, "cfg": cfg}
+
+
+def build_parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n", 1)[0])
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--lr", type=float, default=3e-4)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--locality", default="medium")
+    ap.add_argument(
+        "--runtime",
+        default="scratchpipe",
+        choices=("scratchpipe", "strawman", "nocache", "static"),
+        help="embedding-cache runtime (EmbeddingCacheRuntime registry)",
+    )
+    ap.add_argument(
+        "--fused",
+        action="store_true",
+        help="fuse [Insert]-fill into the [Train] forward (one kernel launch "
+        "per cycle; bitwise equal to the split path)",
+    )
+    ap.add_argument(
+        "--device", default="cuda",
+        help="cuda (default; raises without a card) or cpu (plain PyTorch "
+        "versions of the kernels)",
+    )
+    later = ap.add_argument_group("not ported yet (error with a ROADMAP pointer)")
+    later.add_argument("--tables", type=int, default=0)
+    later.add_argument("--trace", default=None)
+    later.add_argument("--supervise", action="store_true")
+    later.add_argument("--chaos", default=None)
+    later.add_argument("--executor", choices=("sync", "overlapped"), default="sync")
+    later.add_argument("--planner", choices=("host", "device"), default="host")
+    later.add_argument("--precision", choices=("fp32", "fp16", "int8"), default="fp32")
+    return ap
+
+
+def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
+    ap = build_parser()
+    args = ap.parse_args(argv)
+    if args.arch != ARCH:
+        ap.error(f"--arch {args.arch}: the port trains {ARCH} only; the LM "
+                 "archs come last (ROADMAP.md Queue 1 item 14)")
+    for name, item in _NOT_PORTED.items():
+        if getattr(args, name) != _DEFAULTS[name]:
+            ap.error(f"--{name} is not ported to repro_torch yet (ROADMAP.md {item})")
+    return train_dlrm(args)
+
+
+if __name__ == "__main__":
+    main()

@@ -10,13 +10,16 @@ JAX. There, skip the repository's conftest (which imports JAX):
     PYTHONPATH=src python -m pytest -q -m cuda --noconftest tests/test_torch_cuda.py
 
 Comparisons are bitwise (``torch.equal``): the kernels do the same fp32 adds
-in the same order as the plain versions.
+in the same order as the plain versions — the backward ``scatter_add`` too
+(its duplicates in flat bag-major order, with no atomics), and the fused
+``fill_gather_reduce`` gathers the rows it has just filled.
 """
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.kernels import gather_reduce as tgr
+from repro_torch.kernels import grad_coalesce as tgc
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
 
@@ -73,7 +76,12 @@ def test_cuda_empty_operands_launch_nothing(cuda):
     st = torch.zeros(8, 40, device=cuda)
     assert tops.gather_reduce(st, torch.zeros(0, 5, dtype=torch.int32, device=cuda)).shape == (0, 40)
     tops.fill(st, torch.zeros(0, dtype=torch.int32, device=cuda), torch.zeros(0, 40, device=cuda))
-    assert tops.launch_counts() == {"gather_reduce": 0, "fill": 0}
+    tops.coalesce_apply(st, torch.zeros(0, 5, dtype=torch.int32, device=cuda),
+                        torch.zeros(0, 40, device=cuda), 0.1)
+    tops.fill_gather_reduce(st, torch.zeros(0, dtype=torch.int32, device=cuda),
+                            torch.zeros(0, 40, device=cuda),
+                            torch.zeros(3, 0, dtype=torch.int32, device=cuda))
+    assert not any(tops.launch_counts().values()), tops.launch_counts()
 
 
 @pytest.mark.cuda
@@ -85,3 +93,89 @@ def test_cuda_launchers_check_operands(cuda):
         tgr.gather_reduce(st, torch.zeros(3, 2, dtype=torch.int32, device=cuda).t())
     with pytest.raises(ValueError, match="expected"):
         tgr.fill(st, torch.zeros(2, dtype=torch.int32), torch.zeros(2, 40, device=cuda))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [8, 40, 128, 192])
+@pytest.mark.parametrize("L", [1, 3, 20])
+@pytest.mark.parametrize("id_hi", [8, 64, 500])
+def test_cuda_scatter_add_bitwise(cuda, D, L, id_hi):
+    """Heavy duplicates within and across bags (small id_hi) down to few."""
+    N, nb = 500, 97
+    st = torch.from_numpy(_storage(N, D)).to(cuda)
+    ids = torch.from_numpy(RNG.integers(0, id_hi, (nb, L)).astype(np.int32)).to(cuda)
+    deltas = torch.from_numpy(RNG.standard_normal((nb, D)).astype(np.float32)).to(cuda)
+    got = tops.coalesce_deltas(st.clone(), ids, deltas)
+    want = tref.scatter_add_ref(st.clone(), ids, deltas)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert tops.launch_counts()["scatter_add"] == 1
+
+
+@pytest.mark.cuda
+def test_cuda_scatter_add_long_segments(cuda):
+    """One row looked up by every lookup of every bag (a 4000-long segment)
+    and a slot repeated all through one bag: order matters at these
+    magnitudes, so any reordering shows."""
+    N, D, nb, L = 64, 128, 200, 20
+    st = torch.from_numpy(_storage(N, D)).to(cuda)
+    ids = torch.full((nb, L), 7, dtype=torch.int32)
+    ids[1] = 3
+    deltas = torch.from_numpy(
+        (RNG.standard_normal((nb, D)) * 10.0 ** RNG.integers(-4, 8, (nb, 1))).astype(np.float32))
+    got = tops.coalesce_apply(st.clone(), ids.to(cuda), deltas.to(cuda), 0.05)
+    want = tref.coalesce_apply_ref(st.clone(), ids.to(cuda), deltas.to(cuda), 0.05)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [8, 40, 128, 192])
+@pytest.mark.parametrize("L", [1, 3, 20])
+def test_cuda_fill_gather_reduce_bitwise(cuda, D, L):
+    """Sentinels in the fill, and lookups of the slots filled in the call."""
+    N, F, nb = 600, 256, 113
+    st = torch.from_numpy(_storage(N, D)).to(cuda)
+    slots = np.full(F, N, np.int32)
+    slots[RNG.permutation(F)[:200]] = RNG.permutation(N)[:200]
+    filled = slots[slots < N]
+    ids = np.where(RNG.random((nb, L)) < 0.5, RNG.choice(filled, (nb, L)),
+                   RNG.integers(0, N, (nb, L))).astype(np.int32)
+    rows = torch.from_numpy(RNG.standard_normal((F, D)).astype(np.float32)).to(cuda)
+    slots_t, ids_t = torch.from_numpy(slots).to(cuda), torch.from_numpy(ids).to(cuda)
+    got_st, got = tops.fill_gather_reduce(st.clone(), slots_t, rows, ids_t)
+    want_st, want = tref.fill_gather_reduce_ref(st.clone(), slots_t, rows, ids_t)
+    torch.cuda.synchronize()
+    assert torch.equal(got_st, want_st)
+    assert torch.equal(got, want)
+    assert tops.launch_counts()["fill_gather_reduce"] == 1
+    assert tops.launch_counts()["fill"] == tops.launch_counts()["gather_reduce"] == 0
+
+
+@pytest.mark.cuda
+def test_cuda_fill_gather_reduce_grid_stride(cuda):
+    """More fill rows and bags than the persistent grid has warps."""
+    N, D, F, nb, L = 300_000, 128, 131_072, 40_000, 3
+    g = torch.Generator(device="cpu").manual_seed(3)
+    st = torch.randn(N, D, generator=g).to(cuda)
+    slots = torch.randperm(N, generator=g)[:F].to(torch.int32)
+    rows = torch.randn(F, D, generator=g).to(cuda)
+    ids = slots[torch.randint(0, F, (nb, L), generator=g)].to(cuda)
+    slots = slots.to(cuda)
+    got_st, got = tops.fill_gather_reduce(st.clone(), slots, rows, ids)
+    want_st, want = tref.fill_gather_reduce_ref(st.clone(), slots, rows, ids)
+    torch.cuda.synchronize()
+    assert torch.equal(got_st, want_st) and torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_cuda_training_launchers_check_operands(cuda):
+    st = torch.zeros(8, 40, device=cuda)
+    ids = torch.zeros(2, 3, dtype=torch.int32, device=cuda)
+    with pytest.raises(TypeError):
+        tgc.scatter_add(st, ids, torch.zeros(2, 40, dtype=torch.float64, device=cuda))
+    with pytest.raises(ValueError, match="describe"):
+        tgc.scatter_add(st, ids, torch.zeros(3, 40, device=cuda))
+    with pytest.raises(ValueError, match="rows"):
+        tgr.fill_gather_reduce(st, torch.zeros(2, dtype=torch.int32, device=cuda),
+                               torch.zeros(3, 40, device=cuda), ids)

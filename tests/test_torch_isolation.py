@@ -4,8 +4,8 @@
     fresh interpreter loads neither ``jax`` nor any ``repro`` module;
   * no source file of the port, nor ``chip_smoke.py``, names them in an
     import statement;
-  * the launcher and the runtimes default to ``cuda`` and raise when no
-    card is visible, instead of continuing on the CPU.
+  * the launchers, the runtimes and the trainer default to ``cuda`` and
+    raise when no card is visible, instead of continuing on the CPU.
 """
 import ast
 import inspect
@@ -18,10 +18,14 @@ import pytest
 import torch
 
 import repro_torch
+from repro_torch.configs.dlrm_scratchpipe import smoke_config
 from repro_torch.core import scratchpad as sp
+from repro_torch.core.dlrm_runtime import DLRMTrainer
 from repro_torch.core.host_table import HostEmbeddingTable
+from repro_torch.core.pipeline import ScratchPipe
 from repro_torch.core.serving_cache import NoCacheServer, ReadOnlyCacheServer
-from repro_torch.launch import serve
+from repro_torch.core.static_cache import NoCacheBaseline, StaticCacheBaseline
+from repro_torch.launch import serve, train
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG_DIR = os.path.dirname(repro_torch.__file__)
@@ -44,7 +48,11 @@ def _port_sources():
 def test_every_module_listed():
     mods = _port_modules()
     for m in ("repro_torch.kernels.ops", "repro_torch.core.serving_cache",
-              "repro_torch.launch.serve", "repro_torch.convert"):
+              "repro_torch.launch.serve", "repro_torch.convert",
+              "repro_torch.launch.train", "repro_torch.core.pipeline",
+              "repro_torch.models.dlrm", "repro_torch.kernels.grad_coalesce",
+              "repro_torch.core.dlrm_runtime", "repro_torch.core.static_cache",
+              "repro_torch.configs.dlrm_scratchpipe", "repro_torch.data.lookahead"):
         assert m in mods
 
 
@@ -85,8 +93,11 @@ def test_no_jax_or_reference_import_statement(path):
 
 def test_entry_points_default_to_cuda():
     assert serve.build_parser().parse_args(["--embedding"]).device == "cuda"
+    args = train.build_parser().parse_args(["--arch", "dlrm-scratchpipe"])
+    assert args.device == "cuda"
     for fn in (ReadOnlyCacheServer.__init__, NoCacheServer.__init__,
-               sp.make_storage):
+               sp.make_storage, ScratchPipe.__init__, DLRMTrainer.__init__,
+               NoCacheBaseline.__init__, StaticCacheBaseline.__init__):
         assert inspect.signature(fn).parameters["device"].default == "cuda"
 
 
@@ -101,3 +112,14 @@ def test_cuda_without_a_card_raises(monkeypatch):
         sp.make_storage(4, 4)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serve.main(["--embedding", "--steps", "2", "--rows", "50", "--dim", "4"])
+    noop = lambda s, slots, b: (s, {})  # noqa: E731
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ScratchPipe(host, 16, noop)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        DLRMTrainer(smoke_config())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        NoCacheBaseline(host, noop)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        StaticCacheBaseline(host, [1, 2], noop)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train.main(["--arch", "dlrm-scratchpipe", "--smoke", "--steps", "2"])

@@ -95,7 +95,7 @@ def test_gather_reduce_empty_operands(shape):
     ids = np.zeros(shape, np.int32)
     port, want_ref, _ = _both_gather(st, ids)
     assert_bitwise(port, want_ref)
-    assert tops.launch_counts() == {"gather_reduce": 0, "fill": 0}
+    assert not any(tops.launch_counts().values()), tops.launch_counts()
 
 
 def test_gather_reduce_leading_dims_restored():
@@ -105,7 +105,7 @@ def test_gather_reduce_leading_dims_restored():
     assert out.shape == (2, 3, 5, 8)
     flat = tops.gather_reduce(st, ids.reshape(-1, 4))
     assert torch.equal(out.reshape(-1, 8), flat)
-    assert tops.launch_counts() == {"gather_reduce": 0, "fill": 0}
+    assert not any(tops.launch_counts().values()), tops.launch_counts()
 
 
 # ---------------------------------------------------------------------------
@@ -127,7 +127,7 @@ def test_fill_drop_mode_sentinel(D):
     )
     assert_bitwise(port_st.numpy(), want_ref, "vs repro.kernels.ref")
     assert_bitwise(port_st.numpy(), want_pl, "vs pallas interpret")
-    assert tops.launch_counts() == {"gather_reduce": 0, "fill": 0}
+    assert not any(tops.launch_counts().values()), tops.launch_counts()
 
 
 def test_fill_empty_operands():
@@ -135,7 +135,7 @@ def test_fill_empty_operands():
     port_st = torch.from_numpy(st.copy())
     tops.fill(port_st, torch.zeros(0, dtype=torch.int32), torch.zeros(0, 40))
     assert_bitwise(port_st.numpy(), st)
-    assert tops.launch_counts() == {"gather_reduce": 0, "fill": 0}
+    assert not any(tops.launch_counts().values()), tops.launch_counts()
 
 
 def test_fill_rejects_negative_slots():

@@ -88,7 +88,7 @@ def test_serving_matches_reference(kernel, depth, design, num_slots, scenario):
     j_res = j_replay(j_srv, batches, depth=depth, collect_bags=True)
     t_res = t_replay(t_srv, batches, depth=depth, collect_bags=True)
     assert_same_run(t_res, j_res, t_srv, j_srv)
-    assert tops.launch_counts() == {"gather_reduce": 0, "fill": 0}
+    assert not any(tops.launch_counts().values()), tops.launch_counts()
 
 
 @pytest.mark.parametrize("policy,pad_buckets,budgets", [
