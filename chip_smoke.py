@@ -48,8 +48,24 @@ Phases, in order; any failure raises and the script exits non-zero:
   7. timing  — ``scatter_add`` and ``fill_gather_reduce`` at the operands
                the training runs gave them, and ``gather_reduce`` again at
                the training bags.
+  8. train q — the same training path at fp16 and int8 replica precision
+               (``--precision``, ``stochastic`` rounding, the launcher's
+               default): fp16 split, fp16 fused, int8 split, int8 fused, 24
+               steps each, from copies of the same host table, in a nominal
+               budget of 1,000,000 fp32-row slots (cache_fraction 0.125 at
+               the cut): fp16 holds 2,000,000 rows and evicts (checked), so
+               the victim read, its d2h and the dequantized write-back run on
+               the card; int8 holds 4,000,000. Per precision the split and
+               fused losses and flushed host tables must be bitwise equal,
+               and every step's loss within 1e-2 (fp16) / 1e-1 (int8)
+               relative of the fp32 split run's; launch counts as designed,
+               the plain versions raise.
+  9. timing  — ``gather_reduce_q``, ``fill_gather_reduce_q`` and the fp16/
+               int8 forms of ``gather_reduce``, ``fill`` and
+               ``fill_gather_reduce`` at the operands of the middle step of
+               phase 8, and the plain ``requantize_update`` epilogue.
 
-The last three lines are the ``kernels`` JSON line, the nvidia-smi line and
+The sweep of phase 3 covers the fp16 and int8 forms too. The last three lines are the ``kernels`` JSON line, the nvidia-smi line and
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -83,6 +99,16 @@ TRAIN_STEPS, TRAIN_WARMUP, TRAIN_CACHE_FRAC = 24, 6, 0.5
 TRAIN_RUNS = (("scratchpipe split", "scratchpipe", False),
               ("scratchpipe fused", "scratchpipe", True),
               ("nocache", "nocache", False))
+# the reduced-precision slice: the same width and cut, a nominal budget of
+# 1,000,000 fp32-row slots (cache_fraction 0.125 of the 8M rows): fp16 holds
+# 2,000,000 rows and evicts after ~15 steps of ~130k misses, int8 4,000,000
+Q_CACHE_FRAC, Q_NOMINAL_SLOTS = 0.125, 1_000_000
+Q_MULT = {"fp16": 2, "int8": 4}
+Q_RUNS = (("fp16 split", "fp16", False), ("fp16 fused", "fp16", True),
+          ("int8 split", "int8", False), ("int8 fused", "int8", True))
+# each step's loss against the fp32 split run's: the reference's P3 bounds
+# (tests/test_precision_parity.py)
+Q_LOSS_RTOL = {"fp16": 1e-2, "int8": 1e-1}
 
 
 def serve_args(design: str) -> list:
@@ -123,11 +149,82 @@ def zipf_ids(torch, g, shape, n_rows: int, s: float = 0.77):
     return ((ranks * 2_654_435_761) % n_rows).to(torch.int32)
 
 
-def sweep_kernels(torch, ops, ref, dev) -> dict:
+#: launch-count keys of the reduced-precision forms: (gather, fill, fused)
+Q_KEYS = {"fp16": ("gather_reduce_f16", "fill_f16", "fill_gather_reduce_f16"),
+          "int8": ("gather_reduce_q", "fill_i8", "fill_gather_reduce_q")}
+
+
+def sweep_kernels(torch, ops, ref, qz, dev) -> dict:
     """Bitwise sweep; returns the largest |kernel - plain| per kernel."""
     g = torch.Generator(device="cpu").manual_seed(0)
     err = {"gather_reduce": 0.0, "fill": 0.0, "scatter_add": 0.0,
            "fill_gather_reduce": 0.0}
+    err.update({k: 0.0 for keys in Q_KEYS.values() for k in keys})
+
+    def q_storage(N, D, precision):
+        """Quantized rows on the card: fp16, or an int8 payload with snapped
+        per-row scales (scale None for fp16)."""
+        if precision == "fp16":
+            return (torch.randn(N, D, generator=g) * 0.1).half().to(dev), None
+        data = torch.randint(-127, 128, (N, D), generator=g, dtype=torch.int8)
+        scale = qz._snap_scale(torch.rand(N, 1, generator=g) * 1e-2 + 1e-4)
+        return data.to(dev), scale.to(dev)
+
+    def diff(a, b):
+        return (a.float() - b.float()).abs().max().item() if a.numel() else 0.0
+
+    def gather_q_case(N, D, nb, L, precision, ids):
+        data, scale = q_storage(N, D, precision)
+        key = Q_KEYS[precision][0]
+        ids = ids.to(dev)
+        before = ops.launch_counts()[key]
+        got = ops.gather_reduce_q(data, scale, ids)
+        want = ref.gather_reduce_q_ref(data, scale, ids)
+        torch.cuda.synchronize()
+        check(ops.launch_counts()[key] == before + 1, f"{key} launch count")
+        check(got.dtype == torch.float32 and torch.equal(got, want),
+              f"{key} differs at N={N} D={D} nb={nb} L={L}")
+        err[key] = max(err[key], diff(got, want))
+
+    def fill_q_case(N, D, n_valid, F, precision):
+        st = q_storage(N, D, precision)[0]
+        slots = torch.full((F,), N, dtype=torch.int32)  # drop sentinels
+        slots[torch.randperm(F, generator=g)[:n_valid]] = (
+            torch.randperm(N, generator=g)[:n_valid].to(torch.int32))
+        rows, slots = q_storage(F, D, precision)[0], slots.to(dev)
+        key = Q_KEYS[precision][1]
+        before = ops.launch_counts()[key]
+        got = ops.fill(st.clone(), slots, rows)
+        want = ref.fill_ref(st.clone(), slots, rows)
+        torch.cuda.synchronize()
+        check(ops.launch_counts()[key] == before + 1, f"{key} launch count")
+        check(torch.equal(got, want), f"{key} differs at N={N} D={D} F={F}")
+        err[key] = max(err[key], diff(got, want))
+
+    def fused_q_case(N, D, F, n_valid, nb, L, precision):
+        data, scale = q_storage(N, D, precision)
+        slots = torch.full((F,), N, dtype=torch.int32)
+        slots[torch.randperm(F, generator=g)[:n_valid]] = (
+            torch.randperm(N, generator=g)[:n_valid].to(torch.int32))
+        filled = slots[slots < N]
+        ids = torch.where(
+            torch.rand(nb, L, generator=g) < 0.5,
+            filled[torch.randint(0, filled.numel(), (nb, L), generator=g)],
+            torch.randint(0, N, (nb, L), generator=g, dtype=torch.int32))
+        rows, rows_scale = q_storage(F, D, precision)
+        slots, ids = slots.to(dev), ids.to(dev)
+        if scale is not None:  # the scale column is scattered before the launch
+            keep = slots < N
+            scale[slots[keep].long()] = rows_scale[keep]
+        key = Q_KEYS[precision][2]
+        before = ops.launch_counts()[key]
+        got_st, got = ops.fill_gather_reduce_q(data.clone(), scale, slots, rows, ids)
+        want_st, want = ref.fill_gather_reduce_q_ref(data.clone(), scale, slots, rows, ids)
+        torch.cuda.synchronize()
+        check(ops.launch_counts()[key] == before + 1, f"{key} launch count")
+        check(torch.equal(got_st, want_st) and torch.equal(got, want),
+              f"{key} differs at N={N} D={D} F={F} nb={nb} L={L}")
+        err[key] = max(err[key], diff(got, want), diff(got_st, want_st))
 
     def scatter_case(N, D, ids, scale=1.0):
         nb = ids.shape[0]
@@ -216,6 +313,20 @@ def sweep_kernels(torch, ops, ref, dev) -> dict:
     dup = torch.tensor([[3, 3, 3, 5], [5, 3, 5, 3], [0, 0, 0, 0]], dtype=torch.int32)
     check(torch.equal(ops.gather_reduce(st, dup.to(dev)),
                       ref.gather_reduce_ref(st, dup.to(dev))), "explicit duplicates")
+    # the fp16 and int8 forms over the same sweep; D=3 copies 6- and 3-byte
+    # rows (2- and 1-byte chunks)
+    for precision in Q_KEYS:
+        for D in (8, 40, 128, 192):
+            for L in (1, 3, 20):
+                gather_q_case(4096, D, 257, L, precision,
+                              torch.randint(0, 64, (257, L), generator=g, dtype=torch.int32))
+                gather_q_case(4096, D, 33, L, precision,
+                              torch.randint(0, 4096, (33, L), generator=g, dtype=torch.int32))
+                fused_q_case(4096, D, 1024, 1000, 257, L, precision)
+            fill_q_case(4096, D, 1000, 1024, precision)
+            fill_q_case(4096, D, 4096, 4096, precision)
+            fused_q_case(4096, D, 4096, 4096, 100, 3, precision)
+        fill_q_case(4096, 3, 1000, 1024, precision)
     # the slice's shapes: the serving scratchpad (2M slots), BATCH x TABLES
     # bags of LOOKUPS, and a pow-2 padded fill of an eighth of the slots
     slots = max(int(TABLES * ROWS * CACHE_FRAC),
@@ -227,7 +338,15 @@ def sweep_kernels(torch, ops, ref, dev) -> dict:
     n_train = int(TABLES * ROWS * TRAIN_CACHE_FRAC)
     train_ids = zipf_ids(torch, g, (BATCH * TABLES, LOOKUPS), n_train)
     scatter_case(n_train, DIM, train_ids, scale=1e-3)
-    fused_case(n_train, DIM, 1 << 18, 200_000, BATCH * TABLES, LOOKUPS)
+    fused_case(n_train, DIM, 1 << 18, min(200_000, n_train // 2), BATCH * TABLES, LOOKUPS)
+    # the reduced-precision runs' shapes: 2M fp16 and 4M int8 rows in the
+    # nominal 1M-row budget
+    for precision in Q_KEYS:
+        n_q = Q_NOMINAL_SLOTS * Q_MULT[precision]
+        gather_q_case(n_q, DIM, BATCH * TABLES, LOOKUPS, precision,
+                      zipf_ids(torch, g, (BATCH * TABLES, LOOKUPS), n_q))
+        fused_q_case(n_q, DIM, 1 << 18, min(200_000, n_q // 2), BATCH * TABLES, LOOKUPS,
+                     precision)
 
     before = ops.launch_counts()
     for shape in ((0, 5), (3, 0), (0, 0)):
@@ -240,6 +359,11 @@ def sweep_kernels(torch, ops, ref, dev) -> dict:
         ops.coalesce_apply(st, ids, torch.zeros(shape[0], 40, device=dev), 0.1)
         ops.coalesce_deltas(st, ids, torch.zeros(shape[0], 40, device=dev))
         ops.fill_gather_reduce(st, no_ids, torch.zeros(0, 40, device=dev), ids)
+        for precision in Q_KEYS:
+            data, scale = q_storage(8, 40, precision)
+            ops.gather_reduce_q(data, scale, ids)
+            ops.fill_gather_reduce_q(data, scale, no_ids, data[:0], ids)
+            ops.fill(data, no_ids, data[:0])
     torch.cuda.synchronize()
     check(ops.launch_counts() == before, "an empty operand launched a kernel")
     return err
@@ -413,7 +537,8 @@ def time_kernels(torch, ops, ref, gr, captured, counts, sweep_err, dev):
 # 6. the training path
 # --------------------------------------------------------------------------- #
 PLAIN_VERSIONS = ("gather_reduce_ref", "fill_ref", "fill_gather_reduce_ref",
-                  "scatter_add_ref", "coalesce_apply_ref")
+                  "scatter_add_ref", "coalesce_apply_ref", "gather_reduce_q_ref",
+                  "fill_gather_reduce_q_ref")
 TRAIN_STEP_LABEL = {"scratchpipe": "train (fwd + bwd + update)",
                     "nocache": "step (whole nocache step)"}
 
@@ -514,7 +639,8 @@ def check_train_counts(name, stats, counts, stages):
 
 def train_main_path(torch, mods, dev):
     """The three training runs on copies of one host table; returns
-    (summaries, launch counts per run, captured operands)."""
+    (summaries, launch counts per run, captured operands, the host table,
+    the losses)."""
     cfg = mods["DLRMConfig"](rows_per_table=ROWS, cache_fraction=TRAIN_CACHE_FRAC)
     check((cfg.num_tables, cfg.embed_dim, cfg.lookups_per_table) == (TABLES, DIM, LOOKUPS)
           and cfg.bottom_mlp == (512, 256, 128)
@@ -562,7 +688,7 @@ def train_main_path(torch, mods, dev):
         del res, pipe, table
     log(f"train: losses of all {TRAIN_STEPS} steps and the flushed host tables bitwise "
         f"equal across {', '.join(r[0] for r in TRAIN_RUNS)}")
-    return summaries, counts_by_run, captured
+    return summaries, counts_by_run, captured, base, first_losses
 
 
 # --------------------------------------------------------------------------- #
@@ -668,6 +794,283 @@ def time_train_kernels(torch, ops, ref, gr, gc, captured, dev):
     return out, details
 
 
+# --------------------------------------------------------------------------- #
+# 8. the reduced-precision training path
+# --------------------------------------------------------------------------- #
+def clone_args(torch, args):
+    """Copies of a call's tensor arguments (an int8 pair stays a pair)."""
+    def c(x):
+        if isinstance(x, torch.Tensor):
+            return x.clone()
+        if isinstance(x, tuple):
+            out = [c(a) for a in x]
+            return type(x)(*out) if hasattr(x, "_fields") else tuple(out)
+        return x
+    return tuple(c(a) for a in args)
+
+
+def train_run_q(torch, mods, cfg, base_table, name, precision, fused, captured):
+    """One reduced-precision run through ``train_dlrm`` (``--precision``,
+    stochastic rounding) from a copy of ``base_table``; the plain versions
+    raise during it. Captures the middle step's kernel and epilogue operands
+    into ``captured`` under "<precision> <kernel>". Returns (result, launch
+    counts, stage times, ms/step after the warm-up)."""
+    ops, ref, gr, qz = mods["ops"], mods["ref"], mods["gr"], mods["qz"]
+    at = TRAIN_STEPS // 2
+    fused_names = ("fill_gather_reduce", "fill_gather_reduce_q")
+    targets = [(gr, n) for n in ("gather_reduce", "gather_reduce_q", "fill") + fused_names]
+    targets.append((qz, "requantize_update"))
+    real = {n: getattr(m, n) for m, n in targets}
+    real_refs = {n: getattr(ref, n) for n in PLAIN_VERSIONS}
+    calls = {}
+
+    def spy(n):
+        fn = real[n]
+        wanted = (n in fused_names) == fused  # split runs: the rest
+
+        def wrapper(*a):
+            calls[n] = calls.get(n, 0) + 1
+            if wanted and calls[n] == at:
+                captured[f"{precision} {n}"] = clone_args(torch, a)
+            return fn(*a)
+        return wrapper
+
+    def no_plain(*_a, **_k):
+        raise RuntimeError("a plain PyTorch version ran on the main path")
+
+    argv = ["--arch", "dlrm-scratchpipe", "--steps", str(TRAIN_STEPS), "--batch",
+            str(BATCH), "--seed", "0", "--runtime", "scratchpipe", "--device", DEVICE,
+            "--precision", precision]
+    args = mods["train"].build_parser().parse_args(argv + (["--fused"] if fused else []))
+    host = mods["HostEmbeddingTable"](base_table.shape[0], base_table.shape[1],
+                                      data=base_table.copy())
+    for m, n in targets:
+        setattr(m, n, spy(n))
+    for n in PLAIN_VERSIONS:
+        setattr(ref, n, no_plain)
+    stages, ends, restore = stage_timers(
+        train_targets(mods["pipeline"], mods["static_cache"], mods["dlrm_runtime"]))
+    try:
+        ops.reset_launch_counts()
+        res = mods["train"].train_dlrm(args, cfg=cfg, host=host)
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+    finally:
+        restore()
+        for m, n in targets:
+            setattr(m, n, real[n])
+        for n, fn in real_refs.items():
+            setattr(ref, n, fn)
+    step_ends = ends[TRAIN_STEP_LABEL["scratchpipe"]]
+    ms_per_step = ((step_ends[-1] - step_ends[TRAIN_WARMUP - 1])
+                   / (len(step_ends) - TRAIN_WARMUP) * 1e3)
+    return res, counts, stages, ms_per_step
+
+
+def check_q_counts(name, precision, fused, stats, counts, stages):
+    """The run launched its precision's kernels where designed, no other
+    form, one scatter_add per step."""
+    gk, fk, fgk = Q_KEYS[precision]
+    n = len(stats)
+    with_fills = sum(1 for st in stats if st.n_miss > 0)
+    check(n == TRAIN_STEPS and with_fills > 0, f"{name}: {n} steps, {with_fills} with fills")
+    check(counts["scatter_add"] == n, f"{name}: one scatter_add per step: {counts}")
+    other = {k: v for k, v in counts.items() if k not in (gk, fk, fgk, "scatter_add")}
+    check(not any(other.values()), f"{name}: another form launched: {counts}")
+    if not fused:
+        check(counts[gk] == n and counts[fk] == with_fills and counts[fgk] == 0,
+              f"{name}: launches {counts}")
+    else:
+        cycles = stages.get("fused fill + train calls", {}).get("calls", 0)
+        check(counts[fgk] == cycles > 0 and counts[fgk] + counts[fk] == with_fills
+              and counts[fgk] + counts[gk] == n,
+              f"{name}: launches {counts}, fused cycles {cycles}")
+
+
+def train_q_main_path(torch, mods, dev, base, fp32_losses):
+    """fp16 and int8, split and fused, on copies of ``base``. Per precision
+    the split and fused losses and flushed host tables must be bitwise
+    equal; every step's loss within Q_LOSS_RTOL of ``fp32_losses``; the
+    fp16 runs must evict. Returns (summaries, launch counts per run,
+    captured operands)."""
+    cfg = mods["DLRMConfig"](rows_per_table=ROWS, cache_fraction=Q_CACHE_FRAC)
+    check(int(cfg.total_rows * cfg.cache_fraction) == Q_NOMINAL_SLOTS,
+          "the nominal budget is not 1,000,000 fp32-row slots")
+    captured, summaries, counts_by_run, split = {}, [], {}, {}
+    for name, precision, fused in Q_RUNS:
+        t0 = time.perf_counter()
+        res, counts, stages, ms = train_run_q(torch, mods, cfg, base, name, precision,
+                                              fused, captured)
+        stats, pipe = res["stats"], res["pipe"]
+        check(pipe.device.type == dev.type and pipe.precision == precision
+              and pipe.num_slots == Q_NOMINAL_SLOTS * Q_MULT[precision]
+              and pipe.nominal_slots == Q_NOMINAL_SLOTS,
+              f"{name}: the runtime is not the {precision} one on the card")
+        check_q_counts(name, precision, fused, stats, counts, stages)
+        losses = torch.stack([st.aux["loss"] for st in stats]).cpu()
+        check(bool(torch.isfinite(losses).all()), f"{name}: non-finite loss")
+        rel = ((losses - fp32_losses).abs() / fp32_losses.abs()).max().item()
+        check(rel <= Q_LOSS_RTOL[precision],
+              f"{name}: loss {rel:.3g} relative from fp32 > {Q_LOSS_RTOL[precision]}")
+        evicted = sum(st.n_evict for st in stats)
+        if precision == "fp16":
+            check(evicted > 0, f"{name}: nothing was evicted")
+        pipe.flush_to_host()
+        table = res["host"].data
+        if not fused:
+            split[precision] = (losses, table)
+        else:
+            s_losses, s_table = split.pop(precision)
+            check(torch.equal(losses, s_losses),
+                  f"{name}: losses differ from the split run at steps "
+                  f"{torch.nonzero(losses != s_losses).flatten().tolist()}")
+            check((s_table == table).all(), f"{name}: flushed host table differs from split")
+        tr = pipe.traffic()
+        summaries.append({
+            "run": name, "precision": precision, "rounding": res["cfg"].rounding,
+            "ms_per_step": ms, "warmup_steps": TRAIN_WARMUP,
+            "plan_hit": res["plan_hit"], "wall_s": res["wall_s"],
+            "loss_first": float(losses[0]), "loss_last": float(losses[-1]),
+            "max_rel_loss_vs_fp32": rel, "evicted_rows": evicted,
+            "evicting_steps": sum(1 for st in stats if st.n_evict > 0),
+            "traffic_MB": {k: tr[k].total / 1e6 for k in ("host", "pcie", "hbm")},
+            "launches": counts, "stages_s": stages,
+            "scratchpad_rows": pipe.num_slots, "nominal_slots": pipe.nominal_slots,
+        })
+        print("train: " + json.dumps(summaries[-1]), flush=True)
+        counts_by_run[name] = counts
+        log(f"train: {name} done ({time.perf_counter() - t0:.1f}s)")
+        del res, pipe, table
+    log("train: per precision, split and fused losses and flushed host tables bitwise "
+        "equal; losses within " + ", ".join(f"{p} {t:g}" for p, t in Q_LOSS_RTOL.items())
+        + " of fp32")
+    return summaries, counts_by_run, captured
+
+
+# --------------------------------------------------------------------------- #
+# 9. timing at the reduced-precision operands
+# --------------------------------------------------------------------------- #
+NO_LIBRARY = {
+    "gather": "no single PyTorch call sums dequantized {p} rows into fp32 bags "
+              "(F.embedding_bag returns bags in the weight's dtype)",
+    "fused": "no single PyTorch call fills {p} rows and sums dequantized rows into "
+             "fp32 bags",
+}
+
+
+def time_q_kernels(torch, mods, captured, dev):
+    """The fp16/int8 gathers, fills and fused kernels at the operands the
+    reduced-precision runs gave them (the middle step), each against its
+    plain version (bitwise) and its bound; the plain requantize epilogue
+    timed apart. Returns ({kernel: numbers}, details)."""
+    ops, ref, gr, qz = mods["ops"], mods["ref"], mods["gr"], mods["qz"]
+    flush = torch.empty(32 * 1024 * 1024, dtype=torch.float32, device=dev)  # 128 MB > L2
+    out, details = {}, {}
+    for precision in Q_KEYS:
+        gk, fk, fgk = Q_KEYS[precision]
+        int8 = precision == "int8"
+
+        # the gather: fp16 storage, or int8 payload + scale
+        if int8:
+            data, scale, flat = captured.pop("int8 gather_reduce_q")
+            kernel = lambda: gr.gather_reduce_q(data, scale, flat)  # noqa: E731
+        else:
+            (data, flat), scale = captured.pop("fp16 gather_reduce"), None
+            kernel = lambda: gr.gather_reduce(data, flat)  # noqa: E731
+        plain = lambda: ref.gather_reduce_q_ref(data, scale, flat)  # noqa: E731
+        got, want = kernel(), plain()
+        check(torch.equal(got, want), f"{gk} differs at the training operands")
+        nb, L = flat.shape
+        D, item = data.shape[1], data.element_size()
+        row_b = D * item + (4 if int8 else 0)
+        n_unique = int(torch.unique(flat).numel())
+        g_bytes = n_unique * row_b + flat.numel() * 4 + nb * D * 4
+        g_ops = nb * (L - 1) * D + (nb * L * D if int8 else 0)
+        b_ms, b_by = bound(g_bytes, g_ops)
+        out[gk] = {
+            "ms": median_ms(torch, kernel, 30, flush),
+            "plain_ms": median_ms(torch, plain, 10, flush),
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "library": NO_LIBRARY["gather"].format(p=precision),
+            "max_abs_err": (got - want).abs().max().item(),
+        }
+        details[gk] = {"storage": list(data.shape), "dtype": str(data.dtype), "bags": nb,
+                       "L": L, "unique_rows": n_unique, "bytes": g_bytes}
+        del data, scale, flat, got, want
+
+        # the fill (the payload of an int8 pair)
+        st0, slots, rows = captured.pop(f"{precision} fill")
+        scratch = st0.clone()
+        gr.fill(scratch, slots, rows)
+        want = ref.fill_ref(st0.clone(), slots, rows)
+        check(torch.equal(scratch, want), f"{fk} differs at the training operands")
+        fill_err = (scratch.float() - want.float()).abs().max().item()
+        valid = slots < st0.shape[0]
+        n_valid = int(valid.sum().item())
+        f_bytes = 2 * n_valid * D * item + slots.numel() * 4
+        v_slots, v_rows = slots[valid].long(), rows[valid]
+        out[fk] = {
+            "ms": median_ms(torch, lambda: gr.fill(scratch, slots, rows), 30, flush),
+            "plain_ms": median_ms(torch, lambda: ref.fill_ref(scratch, slots, rows), 10,
+                                  flush),
+            "bound_ms": f_bytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+            "library_ms": median_ms(
+                torch, lambda: scratch.index_copy_(0, v_slots, v_rows), 30, flush),
+            "max_abs_err": fill_err,
+        }
+        details[fk] = {"storage": list(st0.shape), "F": int(slots.numel()),
+                       "valid_rows": n_valid, "bytes": f_bytes}
+        del st0, scratch, want, slots, rows, v_slots, v_rows
+
+        # the fused fill + gather (the int8 scale column already scattered)
+        if int8:
+            st0, scale, slots, rows, flat = captured.pop("int8 fill_gather_reduce_q")
+            kernel = lambda st: gr.fill_gather_reduce_q(st, scale, slots, rows, flat)  # noqa: E731
+        else:
+            (st0, slots, rows, flat), scale = captured.pop("fp16 fill_gather_reduce"), None
+            kernel = lambda st: gr.fill_gather_reduce(st, slots, rows, flat)  # noqa: E731
+        got_st = st0.clone()
+        got = kernel(got_st)
+        want_st, want = ref.fill_gather_reduce_q_ref(st0.clone(), scale, slots, rows, flat)
+        check(torch.equal(got_st, want_st) and torch.equal(got, want),
+              f"{fgk} differs at the training operands")
+        err = (got - want).abs().max().item()
+        del got_st, want_st
+        valid = slots < st0.shape[0]
+        n_valid = int(valid.sum().item())
+        nb, L = flat.shape
+        n_unique = int(torch.unique(flat).numel())
+        fg_bytes = (2 * n_valid * D * item + slots.numel() * 4 + n_unique * row_b
+                    + flat.numel() * 4 + nb * D * 4)
+        b_ms, b_by = bound(fg_bytes, g_ops)
+        scratch = st0.clone()
+        out[fgk] = {
+            "ms": median_ms(torch, lambda: kernel(scratch), 30, flush),
+            "plain_ms": median_ms(
+                torch, lambda: ref.fill_gather_reduce_q_ref(scratch, scale, slots, rows, flat),
+                10, flush),
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "library": NO_LIBRARY["fused"].format(p=precision),
+            "max_abs_err": err,
+        }
+        details[fgk] = {"storage": list(st0.shape), "F": int(slots.numel()),
+                        "valid_rows": n_valid, "bags": nb, "L": L, "unique_rows": n_unique,
+                        "bytes": fg_bytes}
+        del st0, scratch, scale, slots, rows, flat, got, want
+
+        # the plain re-quantization epilogue of the backward (torch, not a
+        # kernel of the TPU package: the reference leaves it to XLA too)
+        st0, rows_u, delta = captured.pop(f"{precision} requantize_update")[:3]
+        gen = torch.Generator(device=dev)
+        details[f"requantize_update_{precision}"] = {
+            "ms": median_ms(torch, lambda: qz.requantize_update(
+                st0, rows_u, delta, precision, "stochastic", gen.manual_seed(0)), 10, flush),
+            "touched_rows": int(rows_u.numel()), "D": int(delta.shape[1]),
+        }
+        del st0, rows_u, delta
+    return out, details
+
+
 def main() -> int:
     import torch
 
@@ -681,6 +1084,7 @@ def main() -> int:
     sys.path.insert(0, str(SRC))
     from repro_torch.configs.base import DLRMConfig
     from repro_torch.core import dlrm_runtime, pipeline, serving_cache, static_cache
+    from repro_torch.core import quantize as qz
     from repro_torch.core.host_table import HostEmbeddingTable
     from repro_torch.kernels import _build, ops, ref
     from repro_torch.kernels import gather_reduce as gr
@@ -688,7 +1092,7 @@ def main() -> int:
     from repro_torch.launch import serve, train
     from repro_torch.models.dlrm import interaction_dim
 
-    mods = {"ops": ops, "ref": ref, "gr": gr, "gc": gc, "train": train,
+    mods = {"ops": ops, "ref": ref, "gr": gr, "gc": gc, "qz": qz, "train": train,
             "pipeline": pipeline, "static_cache": static_cache,
             "dlrm_runtime": dlrm_runtime, "HostEmbeddingTable": HostEmbeddingTable,
             "DLRMConfig": DLRMConfig, "interaction_dim": interaction_dim}
@@ -708,7 +1112,7 @@ def main() -> int:
     log(f"build: {time.perf_counter() - t0:.2f}s in all")
 
     t0 = time.perf_counter()
-    sweep_err = sweep_kernels(torch, ops, ref, dev)
+    sweep_err = sweep_kernels(torch, ops, ref, qz, dev)
     log(f"kernels: bitwise equal to their plain versions across the sweep "
         f"({time.perf_counter() - t0:.1f}s)")
 
@@ -762,7 +1166,8 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
-    summaries, train_counts, train_captured = train_main_path(torch, mods, dev)
+    summaries, train_counts, train_captured, base, fp32_losses = train_main_path(
+        torch, mods, dev)
     log(f"train: three runs done ({time.perf_counter() - t0:.1f}s)")
 
     t0 = time.perf_counter()
@@ -770,7 +1175,18 @@ def main() -> int:
                                                     train_captured, dev)
     log(f"timing: training operands done ({time.perf_counter() - t0:.1f}s)")
     print("details: " + json.dumps(train_details), flush=True)
-    by_run = {"serve": counts, **train_counts}
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    _, q_counts, q_captured = train_q_main_path(torch, mods, dev, base, fp32_losses)
+    del base
+    log(f"train: four reduced-precision runs done ({time.perf_counter() - t0:.1f}s)")
+    t0 = time.perf_counter()
+    q_times, q_details = time_q_kernels(torch, mods, q_captured, dev)
+    log(f"timing: reduced-precision operands done ({time.perf_counter() - t0:.1f}s)")
+    print("details: " + json.dumps(q_details), flush=True)
+
+    by_run = {"serve": counts, **train_counts, **q_counts}
     gather, fill = kernels
     for k in (gather, fill):
         k["launches_by_run"] = {run: c[k["name"]] for run, c in by_run.items()}
@@ -778,11 +1194,18 @@ def main() -> int:
     gather["max_abs_err"] = max(gather["max_abs_err"],
                                 train_times["gather_reduce"].pop("max_abs_err"))
     gather["train"] = train_times["gather_reduce"]
+    train_times.update(q_times)
     for name, source, replaces in (
             ("scatter_add", CU_SOURCE_BWD, "src/repro/kernels/grad_coalesce.py:44"),
-            ("fill_gather_reduce", CU_SOURCE, "src/repro/kernels/gather_reduce.py:210")):
+            ("fill_gather_reduce", CU_SOURCE, "src/repro/kernels/gather_reduce.py:210"),
+            ("gather_reduce_q", CU_SOURCE, "src/repro/kernels/gather_reduce.py:103"),
+            ("fill_gather_reduce_q", CU_SOURCE, "src/repro/kernels/gather_reduce.py:304"),
+            ("gather_reduce_f16", CU_SOURCE, "src/repro/kernels/gather_reduce.py:55"),
+            ("fill_f16", CU_SOURCE, "src/repro/kernels/gather_reduce.py:146"),
+            ("fill_i8", CU_SOURCE, "src/repro/kernels/gather_reduce.py:146"),
+            ("fill_gather_reduce_f16", CU_SOURCE, "src/repro/kernels/gather_reduce.py:210")):
         t = train_times[name]
-        launches = {run: c[name] for run, c in train_counts.items()}
+        launches = {run: c[name] for run, c in by_run.items() if run != "serve"}
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": sum(launches.values()), "launches_by_run": launches,

@@ -33,8 +33,8 @@ class DLRMConfig:
     cache_fraction: float = 0.05  # scratchpad size as fraction of table rows
     past_window: int = 3
     future_window: int = 2
-    # scratchpad replica precision: only "fp32" runs in the port so far
-    # (fp16/int8 come with the mixed-precision slice, ROADMAP Queue 1 item 8)
+    # scratchpad replica precision (fp32 host masters; fp16/int8 replicas,
+    # core/quantize.py) and the re-quantization rounding of in-cache updates
     precision: str = "fp32"
     rounding: str = "stochastic"
 

@@ -11,6 +11,10 @@ returns), so this module imports nothing of the reference:
     server on its device: host table, scratchpad ``storage``, planner
     state (``planner_*``), the ``landed`` mask and the serve step. Both
     servers then continue bit-identically on the same requests;
+  * :func:`storage_from_reference` — a reference scratchpad storage (an
+    fp32/fp16 array, or an int8 ``QuantStorage`` as a ``(data, scale)``
+    pair of numpy arrays) -> the port's storage on a device, copied, so
+    both packages can start from identical quantized state;
   * :func:`mlps_from_reference` — the reference's DLRM ``init_mlps``
     pytree (as numpy arrays) -> the parameters of the port's
     ``models.dlrm.DLRM`` (a ``state_dict``, copied and transposed to
@@ -24,6 +28,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.host_table import HostEmbeddingTable
+from repro_torch.core.quantize import QuantStorage
 from repro_torch.core.serving_cache import ReadOnlyCacheServer
 
 
@@ -70,6 +75,28 @@ def load_reference_server_state(server: ReadOnlyCacheServer, arrays: dict) -> No
     )
     server._landed = np.array(arrays["landed"], dtype=bool, copy=True)
     server._step = int(np.asarray(arrays["serve_state"])[0])
+
+
+def storage_from_reference(storage, device="cpu"):
+    """A reference scratchpad storage -> the port's, on ``device``: an
+    fp32/fp16 (N, D) array -> a tensor of its dtype; an int8 ``(data,
+    scale)`` pair (a reference ``QuantStorage`` read as numpy arrays) -> a
+    :class:`QuantStorage` of an int8 (N, D) payload and an fp32 (N, 1)
+    scale column. Every array is copied."""
+    if isinstance(storage, tuple):
+        data, scale = (np.array(a, copy=True) for a in storage)
+        if data.dtype != np.int8 or scale.dtype != np.float32:
+            raise ValueError(
+                f"expected int8 data and fp32 scale, got {data.dtype} and {scale.dtype}"
+            )
+        if data.ndim != 2 or scale.shape != (data.shape[0], 1):
+            raise ValueError(f"data {data.shape} and scale {scale.shape} do not pair")
+        return QuantStorage(torch.from_numpy(data).to(device),
+                            torch.from_numpy(scale).to(device))
+    arr = np.array(storage, copy=True)
+    if arr.dtype not in (np.float32, np.float16) or arr.ndim != 2:
+        raise ValueError(f"expected an fp32/fp16 (N, D) array, got {arr.dtype} {arr.shape}")
+    return torch.from_numpy(arr).to(device)
 
 
 def mlps_from_reference(mlps: dict) -> Dict[str, torch.Tensor]:

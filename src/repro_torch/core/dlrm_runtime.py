@@ -1,7 +1,7 @@
 """DLRM [Train] stage: the fwd+bwd+update computation shared by ScratchPipe
 AND both baselines (identical math; only row placement differs).
 
-Port of the fp32 half of ``repro/core/dlrm_runtime.py``. The embedding rows
+Port of ``repro/core/dlrm_runtime.py``. The embedding rows
 enter as the ``storage`` operand (scratchpad / transient gathered region /
 pinned region) addressed by [Plan]-translated slots; the gradient
 duplication -> coalescing -> scatter update runs on whatever memory holds
@@ -22,6 +22,11 @@ The storage update is IN PLACE: ``train_fn`` returns the very tensor it was
 given, its looked-up rows updated (the reference donates the buffer and
 returns a new array). The loss stays a device tensor in ``aux``: reading it
 (``float(aux["loss"])``) synchronizes, so the runtimes never do it per step.
+
+At fp16/int8 replica precision the ``*_q`` steps run instead: the gather
+dequantizes in the kernel (fp32 bags into the same loss) and the update
+re-quantizes only the touched rows (``scratchpad.apply_grad_q``). The MLP
+math is the fp32 step's.
 """
 from __future__ import annotations
 
@@ -30,6 +35,7 @@ from typing import Any, Dict, Tuple
 import numpy as np
 import torch
 
+from repro_torch.core import quantize as qz
 from repro_torch.core import scratchpad as sp
 from repro_torch.device import resolve_device
 from repro_torch.models import dlrm
@@ -72,28 +78,68 @@ def dlrm_fill_train_step(
     return storage, loss
 
 
+def dlrm_train_step_q(storage, model, slots, dense, label, lr: float,
+                      generator=None, rounding: str = "stochastic"):
+    """Reduced-precision twin of :func:`dlrm_train_step`: dequantizing
+    gather, the same MLP step, and the re-quantizing update of the touched
+    rows (in place; ``generator`` draws the stochastic-rounding noise and
+    must be per-step). -> (storage, loss)."""
+    bags = sp.gather_reduce_q(storage, slots)
+    loss, g_bags = _mlp_step(model, dense, bags, label, lr)
+    storage = sp.apply_grad_q(storage, slots, g_bags, lr, generator, rounding=rounding)
+    return storage, loss
+
+
+def dlrm_fill_train_step_q(
+    storage, model, fill_slots, fill_rows, slots, dense, label, lr: float,
+    generator=None, rounding: str = "stochastic",
+):
+    """Fused quantized cycle: the host-quantized ``fill_rows`` land first
+    (for int8 the scale column is scattered before the payload kernel, so
+    gathers of just-filled rows are coherent), then the dequantizing gather
+    — ONE kernel launch on the card — the loss and the re-quantizing
+    update. -> (storage, loss)."""
+    storage, bags = sp.fill_gather_reduce_q(storage, fill_slots, fill_rows, slots)
+    loss, g_bags = _mlp_step(model, dense, bags, label, lr)
+    storage = sp.apply_grad_q(storage, slots, g_bags, lr, generator, rounding=rounding)
+    return storage, loss
+
+
 class DLRMTrainer:
     """Holds the dense (MLP) parameters; exposes ``train_fn(storage, slots,
     batch)`` for the cache runtimes. ``slots`` and the batch's ``dense`` and
     ``label`` arrive as numpy arrays (from the planner and the stream) and
-    are copied to ``device``; ``storage`` already lies there. fp32 only: the
-    reduced precisions come with the mixed-precision slice."""
+    are copied to ``device``; ``storage`` already lies there.
+    ``precision``/``rounding`` default to the config's fields, else
+    "fp32"/"stochastic". With a reduced precision the trainer routes
+    through the ``*_q`` steps and re-seeds one generator on ``device`` per
+    step from ``(seed, step)`` — the reference folds the step into its key
+    the same way — so a split and a fused run draw the same noise at the
+    same step. The step counter advances on each ``train_fn`` or
+    ``fused_train_fn`` call of a reduced-precision trainer."""
 
     def __init__(self, cfg, seed: int = 0, lr: float = 0.05, *,
-                 precision: str = None, device="cuda"):
-        precision = precision if precision is not None else getattr(
-            cfg, "precision", "fp32"
-        )
-        if precision != "fp32":
-            raise NotImplementedError(
-                f"precision={precision!r}: the port's trainer is fp32 so far "
-                "(mixed precision: ROADMAP.md Queue 1 item 8)"
-            )
+                 precision: str = None, rounding: str = None, device="cuda"):
         self.cfg = cfg
         self.lr = lr
-        self.precision = precision
+        self.precision = qz.check_precision(
+            precision if precision is not None else getattr(cfg, "precision", "fp32")
+        )
+        self.rounding = qz.check_rounding(
+            rounding if rounding is not None
+            else getattr(cfg, "rounding", "stochastic")
+        )
         self.device = resolve_device(device)
         self.model = dlrm.DLRM(cfg, seed=seed).to(self.device)
+        self.seed = int(seed)
+        self._step = 0
+        self._gen = torch.Generator(device=self.device)
+
+    def _next_generator(self) -> torch.Generator:
+        state = np.random.SeedSequence([self.seed, 0x5EED, self._step])
+        self._gen.manual_seed(int(state.generate_state(1, np.uint64)[0]))
+        self._step += 1
+        return self._gen
 
     def _to_device(self, slots, batch):
         slots_t = torch.from_numpy(np.ascontiguousarray(slots, dtype=np.int32))
@@ -104,9 +150,15 @@ class DLRMTrainer:
 
     def train_fn(self, storage, slots, batch) -> Tuple[torch.Tensor, Dict[str, Any]]:
         slots_t, dense, label = self._to_device(slots, batch)
-        storage, loss = dlrm_train_step(
-            storage, self.model, slots_t, dense, label, self.lr
-        )
+        if self.precision != "fp32":
+            storage, loss = dlrm_train_step_q(
+                storage, self.model, slots_t, dense, label, self.lr,
+                self._next_generator(), self.rounding,
+            )
+        else:
+            storage, loss = dlrm_train_step(
+                storage, self.model, slots_t, dense, label, self.lr
+            )
         return storage, {"loss": loss}
 
     def fused_train_fn(
@@ -115,11 +167,18 @@ class DLRMTrainer:
         """[Insert]-fill + [Train] in one forward launch (pass as
         ``ScratchPipe(..., fused_train_fn=trainer.fused_train_fn)``).
         ``fill_slots`` (numpy, sentinel-padded) and ``fill_rows`` (a tensor
-        already on the device, from [Exchange])."""
+        already on the device, from [Exchange]; an int8 ``(payload,
+        scale)`` pair of tensors at int8 precision)."""
         slots_t, dense, label = self._to_device(slots, batch)
         fs = torch.from_numpy(np.ascontiguousarray(fill_slots, dtype=np.int32))
-        storage, loss = dlrm_fill_train_step(
-            storage, self.model, fs.to(self.device), fill_rows, slots_t, dense,
-            label, self.lr,
-        )
+        fs = fs.to(self.device)
+        if self.precision != "fp32":
+            storage, loss = dlrm_fill_train_step_q(
+                storage, self.model, fs, fill_rows, slots_t, dense, label,
+                self.lr, self._next_generator(), self.rounding,
+            )
+        else:
+            storage, loss = dlrm_fill_train_step(
+                storage, self.model, fs, fill_rows, slots_t, dense, label, self.lr,
+            )
         return storage, {"loss": loss}

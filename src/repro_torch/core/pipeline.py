@@ -1,7 +1,8 @@
 """ScratchPipe: the pipelined always-hit embedding cache runtime (paper §IV).
 
-Port of ``repro/core/pipeline.py`` with the ``sync`` executor, the host
-planner and fp32 replicas. Six-stage pipeline over mini-batches, one
+Port of ``repro/core/pipeline.py`` with the ``sync`` executor and the host
+planner, at fp32, fp16 or int8 replica precision. Six-stage pipeline over
+mini-batches, one
 training iteration completing per pipeline cycle at steady state:
 
     [Plan] -> [Collect] -> [Exchange] -> [Insert] -> [Train(fwd+bwd+update)]
@@ -30,15 +31,24 @@ reference's operands, drop sentinels included. The reference's
 options are not carried over: no caller of the port sets them (LRU,
 pow-2 buckets and the memoized planner are the defaults kept).
 
+Replica precision (``core/quantize.py``): the host table keeps fp32
+masters. ``num_slots`` is the byte budget in fp32 rows; fp16 holds 2x and
+int8 4x as many rows in it (``nominal_slots`` keeps the budget,
+``num_slots`` the rows). [Collect] quantizes the missed master rows on the
+host (numpy), so the h2d copy already moves the small rows — both halves of
+an int8 ``(payload, scale)`` pair; the victim read and its d2h move the
+quantized rows too, and [Insert] and ``flush_to_host`` dequantize them into
+the masters on the host.
+
 The runtime keeps the reference's per-tier byte counters ([Collect]/
-[Insert] host bytes, [Exchange] PCIe bytes, [Train] HBM bytes), LOGICAL
-(unpadded) and identical to the reference's on the same stream.
+[Insert] host bytes, [Exchange] PCIe bytes, [Train] HBM bytes, priced at
+``quantize.row_bytes`` of the replica), LOGICAL (unpadded) and identical to
+the reference's on the same stream.
 
 Not ported yet (each raises NotImplementedError with a pointer to
 ROADMAP.md): ``executor="overlapped"`` (Queue 1 item 6), ``planner="device"``
-(item 7), fp16/int8 ``precision`` (item 8), ``table_group``/``slot_budgets``
-(item 9), ``supervise`` and ``state_arrays`` (item 12), ``tracer``/``metrics``
-(item 12).
+(item 7), ``table_group``/``slot_budgets`` (item 9), ``supervise`` and
+``state_arrays`` (item 12), ``tracer``/``metrics`` (item 12).
 """
 from __future__ import annotations
 
@@ -49,9 +59,11 @@ from typing import Any, Callable, Deque, Dict, Iterator, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.core import quantize as qz
 from repro_torch.core import scratchpad as sp
 from repro_torch.core.host_table import HostEmbeddingTable, HostTraffic
 from repro_torch.core.plan import Planner, PlanResult, pad_index, pad_rows
+from repro_torch.core.quantize import QuantStorage
 from repro_torch.core.runtime import register_runtime
 from repro_torch.device import resolve_device
 
@@ -91,15 +103,25 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
     )
 
 
+def _map_rows(fn, rows):
+    """``fn`` over a row block, or over both halves of an int8
+    ``(payload, scale)`` pair (a :class:`QuantStorage` stays one)."""
+    if isinstance(rows, tuple):
+        out = [fn(r) for r in rows]
+        return QuantStorage(*out) if isinstance(rows, QuantStorage) else tuple(out)
+    return fn(rows)
+
+
 @dataclasses.dataclass
 class _InFlight:
     ids: np.ndarray
     batch: Any
     plan: Optional[PlanResult] = None
-    host_rows: Optional[np.ndarray] = None  # [Collect] host->staging
-    evicted_dev: Optional[torch.Tensor] = None  # [Collect] device victim read
-    fetched_dev: Optional[torch.Tensor] = None  # [Exchange] h2d
-    evicted_host: Optional[np.ndarray] = None  # [Exchange] d2h
+    # int8 rows travel as (payload, scale) pairs in each of the four fields
+    host_rows: Any = None  # [Collect] host->staging (quantized)
+    evicted_dev: Any = None  # [Collect] device victim read
+    fetched_dev: Any = None  # [Exchange] h2d
+    evicted_host: Any = None  # [Exchange] d2h
     stage: int = 0  # stages completed: 1=planned .. 4=inserted
 
 
@@ -132,8 +154,6 @@ class ScratchPipe:
             raise _not_ported('executor="overlapped"', "item 6")
         if planner == "device":
             raise _not_ported('planner="device"', "item 7")
-        if precision not in (None, "fp32"):
-            raise _not_ported(f"precision={precision!r}", "item 8")
         if table_group is not None or slot_budgets is not None:
             raise _not_ported("table_group/slot_budgets", "item 9")
         if supervise is not None:
@@ -141,6 +161,8 @@ class ScratchPipe:
         if tracer is not None or metrics is not None:
             raise _not_ported("tracer/metrics", "item 12")
         self.device = resolve_device(device)
+        self.precision = qz.check_precision(precision or "fp32")
+        eff_slots = num_slots * qz.SLOT_MULTIPLIER[self.precision]
         self.host = host_table
         self.train_fn = train_fn
         self.fused_train_fn = fused_train_fn
@@ -149,13 +171,19 @@ class ScratchPipe:
             past_window, future_window = 0, 0
         self.planner = Planner(
             host_table.rows,
-            num_slots,
+            eff_slots,
             past_window=past_window,
             future_window=future_window,
         )
-        self.storage = sp.make_storage(num_slots, host_table.dim, device=self.device)
-        self.num_slots = num_slots
-        self._row_bytes = host_table.row_bytes
+        self.storage = sp.make_storage(
+            eff_slots, host_table.dim, precision=self.precision, device=self.device
+        )
+        self.num_slots = eff_slots
+        self.nominal_slots = num_slots  # the fp32-row byte budget
+        # bytes ONE replica row moves over pcie/hbm (== host.row_bytes at fp32)
+        self._row_bytes = qz.row_bytes(
+            host_table.dim, self.precision, host_table.data.dtype.itemsize
+        )
         self.pcie = HostTraffic()  # read = d2h, written = h2d
         self.hbm = HostTraffic()  # device-side traffic ([Train] + fills)
         self._window: Deque[_InFlight] = collections.deque()
@@ -166,6 +194,13 @@ class ScratchPipe:
         """A host index vector -> int32 tensor on the device (h2d)."""
         return torch.from_numpy(np.ascontiguousarray(idx, dtype=np.int32)).to(self.device)
 
+    def _dequant(self, rows):
+        """replica -> master: dequantize written-back rows on the host
+        (identity at fp32)."""
+        if self.precision == "fp32":
+            return rows
+        return qz.dequantize_rows_np(rows, self.precision)
+
     # ------------------------------------------------------------------ #
     # stages
     # ------------------------------------------------------------------ #
@@ -175,7 +210,11 @@ class ScratchPipe:
     def _stage_collect(self, entry: _InFlight):
         p = entry.plan
         if p.miss_ids.size:
-            entry.host_rows = self.host.gather(p.miss_ids)  # host read
+            # host read; master -> replica quantization on the host, so the
+            # h2d copy below already moves the small rows
+            entry.host_rows = qz.quantize_rows_np(
+                self.host.gather(p.miss_ids), self.precision
+            )
         if p.evict_slots.size:
             # pad victim reads to the pow-2 bucket (slot 0 is always safe
             # to read); the d2h side slices the real rows back out
@@ -186,12 +225,16 @@ class ScratchPipe:
 
     def _stage_exchange(self, entry: _InFlight):
         p = entry.plan
-        if p.miss_ids.size:
-            rows = pad_rows(entry.host_rows)
-            entry.fetched_dev = torch.from_numpy(rows).to(self.device)  # h2d
+        if p.miss_ids.size:  # h2d, both halves of an int8 pair
+            entry.fetched_dev = _map_rows(
+                lambda r: torch.from_numpy(pad_rows(r)).to(self.device),
+                entry.host_rows,
+            )
         n_evict = int(p.evict_slots.size)
-        if n_evict:
-            entry.evicted_host = entry.evicted_dev[:n_evict].cpu().numpy()  # d2h
+        if n_evict:  # d2h of the real victims, padding dropped
+            entry.evicted_host = _map_rows(
+                lambda t: t[:n_evict].cpu().numpy(), entry.evicted_dev
+            )
         self.pcie.written += p.miss_ids.size * self._row_bytes
         self.pcie.read += p.evict_slots.size * self._row_bytes
 
@@ -199,7 +242,7 @@ class ScratchPipe:
         """[Insert], host half: write evicted (dirty, trained) rows back."""
         p = entry.plan
         if p.evict_ids.size:
-            self.host.scatter(p.evict_ids, entry.evicted_host)
+            self.host.scatter(p.evict_ids, self._dequant(entry.evicted_host))
 
     def _stage_insert_fill(self, entry: _InFlight):
         """[Insert], device half: fill fetched rows into their slots."""
@@ -374,8 +417,9 @@ class ScratchPipe:
         slot_to_id = self.planner.slot_to_id
         live = np.flatnonzero(slot_to_id >= 0)
         if live.size:
-            vals = sp.read(self.storage, self._index(live)).cpu().numpy()
-            self.host.scatter(slot_to_id[live], vals)
+            vals = _map_rows(lambda t: t.cpu().numpy(),
+                             sp.read(self.storage, self._index(live)))
+            self.host.scatter(slot_to_id[live], self._dequant(vals))
 
     def state_arrays(self) -> dict:
         raise _not_ported("checkpointing (state_arrays)", "item 12")

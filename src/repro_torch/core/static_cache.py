@@ -1,6 +1,6 @@
 """Baseline embedding-cache designs the paper compares against (§III/VI).
 
-Port of the fp32 half of ``repro/core/static_cache.py``:
+Port of ``repro/core/static_cache.py``:
 
 * ``NoCacheBaseline``     — hybrid CPU-GPU without caching [Tensor Casting
   baseline, Fig. 4(a)]: every gather and every gradient scatter hits the
@@ -13,9 +13,10 @@ Port of the fp32 half of ``repro/core/static_cache.py``:
 Both run the SAME [Train] computation as ScratchPipe (``train_fn``, with
 its in-place storage update), so end-to-end training math is identical;
 only row placement differs. Both satisfy the EmbeddingCacheRuntime protocol
-(run / run_one_cycle / flush_to_host / stats / traffic). The fp16/int8
-static cache (``precision=``) comes with the mixed-precision slice, and the
-``tracer``/``metrics`` hooks with observability (ROADMAP.md).
+(run / run_one_cycle / flush_to_host / stats / traffic). The static cache
+takes a replica ``precision`` (fp16/int8 pinned region and transient miss
+tail, dequantized on the scatter back to the fp32 host masters); the
+``tracer``/``metrics`` hooks come with observability (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -24,9 +25,11 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from repro_torch.core import quantize as qz
 from repro_torch.core.host_table import HostEmbeddingTable, HostTraffic
-from repro_torch.core.pipeline import StepStats, _not_ported
+from repro_torch.core.pipeline import StepStats, _map_rows, _not_ported
 from repro_torch.core.plan import pad_rows
+from repro_torch.core.quantize import QuantStorage
 from repro_torch.core.runtime import register_runtime
 from repro_torch.device import resolve_device
 
@@ -98,7 +101,13 @@ class NoCacheBaseline:
 class StaticCacheBaseline:
     """Yin et al. static top-N cache. ``hot_ids`` (GLOBAL row ids, e.g.
     per-table top-N from ``data.synthetic.hot_ids_for_group``) are pinned
-    on the device for the whole run."""
+    on the device for the whole run.
+
+    ``precision`` quantizes the pinned region AND the per-step transient
+    miss tail (core/quantize.py), so both hold the bytes a ScratchPipe
+    scratchpad of that precision would; pair it with a trainer of the same
+    precision. Missed rows' trained values dequantize on the scatter back
+    to the fp32 host master."""
 
     def __init__(
         self,
@@ -109,19 +118,21 @@ class StaticCacheBaseline:
         precision: str = "fp32",
         device="cuda",
     ):
-        if precision != "fp32":
-            raise _not_ported(f"static cache precision={precision!r}", "item 8")
         self.device = resolve_device(device)
         self.host = host_table
         self.train_fn = train_fn
-        self.precision = precision
-        self._row_bytes = host_table.row_bytes
+        self.precision = qz.check_precision(precision)
+        self._row_bytes = qz.row_bytes(
+            host_table.dim, self.precision, host_table.data.dtype.itemsize
+        )
         self.pcie = HostTraffic()
         self.hbm = HostTraffic()  # pinned-region traffic ([Train] on hits)
         self.hot_ids = np.asarray(np.sort(hot_ids), dtype=np.int64)
         self.id_to_slot = np.full(host_table.rows, -1, dtype=np.int64)
         self.id_to_slot[self.hot_ids] = np.arange(self.hot_ids.size)
-        self.storage = torch.from_numpy(host_table.gather(self.hot_ids)).to(self.device)
+        self.storage = self._to_device(
+            qz.quantize_rows_np(host_table.gather(self.hot_ids), self.precision)
+        )
         host_table.traffic.reset()  # preload is not steady-state traffic
         self._stats: List[StepStats] = []
 
@@ -136,14 +147,17 @@ class StaticCacheBaseline:
 
         # Misses: gather from host, append to a transient device region
         # behind the pinned area (fresh every step — no insertion), pow-2
-        # padded as the reference pads it.
-        miss_rows = self.host.gather(miss_ids)
+        # padded as the reference pads it. Under a reduced precision the
+        # tail rows cross h2d quantized, like the pinned region.
+        miss_rows = qz.quantize_rows_np(self.host.gather(miss_ids), self.precision)
         self.pcie.written += miss_ids.size * self._row_bytes
         if miss_ids.size:
-            ext = torch.cat(
-                [self.storage, torch.from_numpy(pad_rows(miss_rows)).to(self.device)],
-                dim=0,
-            )
+            tail = self._to_device(_map_rows(pad_rows, miss_rows))
+            if isinstance(self.storage, QuantStorage):
+                ext = QuantStorage(*(torch.cat([a, b], dim=0)
+                                     for a, b in zip(self.storage, tail)))
+            else:
+                ext = torch.cat([self.storage, tail], dim=0)
         else:
             ext = self.storage
         # temporarily map misses into the transient tail (reverted in the
@@ -156,13 +170,14 @@ class StaticCacheBaseline:
 
         ext, aux = self.train_fn(ext, slots, batch)
         # hit rows stay on the device; missed rows' trained values scatter
-        # back to the host tier (the slow bwd path, Fig. 4(b) right)
+        # back to the host tier (the slow bwd path, Fig. 4(b) right),
+        # dequantized into the fp32 master under a reduced precision
         n_pin = self.hot_ids.size
-        self.storage = ext[:n_pin]
+        self.storage = _map_rows(lambda t: t[:n_pin], ext)
         if miss_ids.size:
-            upd = ext[n_pin : n_pin + miss_ids.size].cpu().numpy()
+            upd = _map_rows(lambda t: t[n_pin : n_pin + miss_ids.size].cpu().numpy(), ext)
             self.pcie.read += miss_ids.size * self._row_bytes
-            self.host.scatter(miss_ids, upd)
+            self.host.scatter(miss_ids, qz.dequantize_rows_np(upd, self.precision))
         # device-tier bytes: bag gathers over all lookups + read-mod-write
         # of the pinned hit rows
         row_b = self._row_bytes
@@ -191,8 +206,15 @@ class StaticCacheBaseline:
     def run_one_cycle(self, ids, batch, lookahead_fn=None) -> Optional[StepStats]:
         return self._step(len(self._stats) + 1, ids, batch)
 
+    def _to_device(self, rows):
+        """Host rows (an int8 pair: a QuantStorage) -> tensors on the device."""
+        if isinstance(rows, tuple):
+            return QuantStorage(*(torch.from_numpy(r).to(self.device) for r in rows))
+        return torch.from_numpy(rows).to(self.device)
+
     def flush_to_host(self):
-        self.host.scatter(self.hot_ids, self.storage.cpu().numpy())
+        vals = _map_rows(lambda t: t.cpu().numpy(), self.storage)
+        self.host.scatter(self.hot_ids, qz.dequantize_rows_np(vals, self.precision))
 
     def traffic(self) -> dict:
         return {"host": self.host.traffic, "pcie": self.pcie, "hbm": self.hbm}

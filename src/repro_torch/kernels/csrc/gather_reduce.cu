@@ -1,50 +1,84 @@
 // Hand-written Hopper (sm_90a) kernels of the embedding forward: the bag
-// gather-reduce of every [Lookup] / [Train] forward, the [Insert] drop-mode
-// fill, and the fused fill + gather-reduce of one training cycle.
+// gather-reduce of every [Lookup] / [Train] forward (fp32, fp16 and
+// dequantizing int8 storage), the [Insert] drop-mode fill, and the fused
+// fill + gather-reduce of one training cycle (fp32, fp16, int8).
 // Plain C interface, loaded with ctypes (kernels/gather_reduce.py); built by
 // kernels/_build.py with nvcc, without fast-math or flush-to-zero, so each
-// fp32 add rounds exactly as the plain PyTorch versions' adds do.
+// fp32 add rounds exactly as the plain PyTorch versions' adds do. Every add
+// (and the int8 dequant multiply) is an explicit __fadd_rn / __fmul_rn, so
+// no --fmad setting can contract them.
 //
-// repro_gather_reduce_f32 replaces the Pallas kernel
-//   repro/kernels/gather_reduce.py: gather_reduce (_gather_kernel).
-//   out[b, :] = storage[ids[b, 0]] + storage[ids[b, 1]] + ... (fp32, l order)
+// repro_gather_reduce_f32 / _f16 replace the Pallas kernel
+//   repro/kernels/gather_reduce.py: gather_reduce (_gather_kernel); the
+//   fp16 form is what repro/kernels/ops.py: gather_reduce_q runs for fp16
+//   storage (scale=None).
+//   out[b, :] = storage[ids[b, 0]] + storage[ids[b, 1]] + ... (fp32, l order;
+//   fp16 rows widened to fp32 exactly before the add)
 //   Bound on an H100 SXM: bytes. It reads every looked-up row once (the
-//   unique rows of the call at best, nb*L*D*4 bytes at worst), the ids and
-//   writes nb*D*4 bytes; it does one add per byte-quad read, far below the
-//   card's 67 TFLOP/s fp32. At the serving slice's shape (16384 bags x L=20
-//   x D=128) the no-reuse bound is ~177.5 MB / 3.35 TB/s ~ 53 us.
-//   Design: one warp per bag, lanes over the row in 16-byte float4 chunks
-//   (neighbouring lanes on neighbouring addresses; a D=128 row is exactly one
-//   512-byte warp load). Each output element is accumulated by ONE thread,
+//   unique rows of the call at best, nb*L*D*itemsize bytes at worst), the
+//   ids and writes nb*D*4 bytes; it does one add per element read, far
+//   below the card's 67 TFLOP/s fp32. At the serving slice's shape (16384
+//   bags x L=20 x D=128 fp32) the no-reuse bound is ~177.5 MB / 3.35 TB/s
+//   ~ 53 us.
+//   Design: one warp per bag, each lane owning 4 consecutive output floats
+//   (neighbouring lanes on neighbouring addresses; a D=128 fp32 row is one
+//   512-byte warp load of float4s, a D=128 fp16 row one 256-byte warp load
+//   of 4-half chunks). Each output element is accumulated by ONE thread,
 //   starting from the l=0 row and adding l=1..L-1 in order: no split-L
 //   reduction and no atomics, so the sum is bitwise equal to
-//   kernels/ref.py: gather_reduce_ref. The TPU kernel gets that order from
-//   its sequential grid; Hopper blocks run in no order, so the loop over l
-//   lives inside the thread. The bag's ids are loaded once per 32 lookups
-//   by the whole warp (one coalesced load) and broadcast with shuffles, so
-//   a row load never waits on its own id load; 8 warps per block and many
-//   resident blocks keep enough row loads in flight to cover HBM latency.
+//   kernels/ref.py: gather_reduce_ref / gather_reduce_q_ref. The TPU kernel
+//   gets that order from its sequential grid; Hopper blocks run in no
+//   order, so the loop over l lives inside the thread. The bag's ids are
+//   loaded once per 32 lookups by the whole warp (one coalesced load) and
+//   broadcast with shuffles, so a row load never waits on its own id load;
+//   8 warps per block and many resident blocks keep enough row loads in
+//   flight to cover HBM latency. Rows whose width or address does not allow
+//   the 4-wide chunks take a scalar (one element per lane) variant.
 //
-// repro_fill_f32 replaces the Pallas kernel
-//   repro/kernels/gather_reduce.py: fill (_fill_kernel).
+// repro_gather_reduce_q8 replaces the Pallas kernel
+//   repro/kernels/gather_reduce.py: gather_reduce_q (_gather_q_kernel).
+//   out[b, :] = sum over l of float(q[ids[b, l]]) * scale[ids[b, l]]
+//   (int8 payload, fp32 per-row scale; fp32 bags, l order).
+//   Bound: bytes, each unique looked-up row's D payload bytes + its 4-byte
+//   scale, the ids and the nb*D*4 bytes of bags: ~42 MB, ~13 us at the
+//   training slice's ~247k unique rows. The int8 payload makes the rows 4x
+//   smaller than fp32, so the fp32 bags written are now the larger half.
+//   Design: the gather above, with lanes loading the int8 row in 4-byte
+//   char4 chunks (a D=128 row is one 128-byte warp load). The lane that
+//   loads a lookup's id also loads that row's scale, and both are passed
+//   on by shuffles, so a scale is read once per lookup, not once per lane.
+//   Each addend is __fmul_rn(float(q), s): the product is exact (payload 7
+//   significant bits, snapped scale <= 17, core/quantize.py), so it adds
+//   no rounding and the sum is bitwise equal to the plain version.
+//
+// repro_fill replaces the Pallas kernel
+//   repro/kernels/gather_reduce.py: fill (_fill_kernel), for every storage
+//   type: it is a byte copy.
 //   storage[slots[i], :] = rows[i, :] for every slots[i] < N; the pad
 //   sentinel (== N, core/plan.py: pad_index) is dropped.
-//   Bound: bytes, 2 * F_valid * D * 4 (read each valid row, write it once)
-//   plus the F slot ids, over 3.35 TB/s.
-//   Design: one warp per fill row, lanes copying float4 chunks; a dropped
-//   row costs one id load. The Pallas kernel writes in grid order; Hopper
-//   blocks race, so the kernel relies on a PRECONDITION: the valid slots of
-//   one call are unique (the planner assigns each slot once per plan, and
-//   the serving runtime drops stale pairs before filling,
+//   Bound: bytes, 2 * F_valid * row_bytes (read each valid row, write it
+//   once) plus the F slot ids, over 3.35 TB/s.
+//   Design: one warp per fill row, lanes copying the row's bytes in 16-byte
+//   chunks where the row width and both addresses allow it, else 8, 4, 2 or
+//   1 (chosen once per call on the host; the branch is uniform across the
+//   grid); a dropped row costs one id load. The Pallas kernel writes in grid
+//   order; Hopper blocks race, so the kernel relies on a PRECONDITION: the
+//   valid slots of one call are unique (the planner assigns each slot once
+//   per plan, and the serving runtime drops stale pairs before filling,
 //   core/serving_cache.py: _insert). Negative slots are rejected by the
 //   Python wrapper; the kernel also drops them rather than write out of
 //   bounds.
 //
-// repro_fill_gather_reduce_f32 replaces the Pallas kernel
-//   repro/kernels/gather_reduce.py: fill_gather_reduce (_make_fused_kernel).
+// repro_fill_gather_reduce_f32 / _f16 / _q8 replace the Pallas kernels
+//   repro/kernels/gather_reduce.py: fill_gather_reduce (_make_fused_kernel)
+//   and fill_gather_reduce_q (the int8 form).
 //   The fill above, then the gather-reduce above over the POST-fill
 //   storage: a bag that looks up a slot filled in the same call reads the
-//   filled row (== kernels/ref.py: fill_gather_reduce_ref, bitwise).
+//   filled row (== kernels/ref.py: fill_gather_reduce_ref /
+//   fill_gather_reduce_q_ref, bitwise). The int8 form fills the payload
+//   only: its scale column was scattered by an earlier op on the same
+//   stream (core/scratchpad.py: fill_gather_reduce_q), so the kernel reads
+//   it, like the gather, through the read-only path.
 //   Bound: bytes, the sum of the two: read + write of each valid fill row,
 //   each unique looked-up row read once (a row that was just filled counts
 //   again: the card cannot keep 260k rows on chip between the phases), the
@@ -55,7 +89,7 @@
 //   fill rows, as the fill kernel does. Then cooperative_groups'
 //   grid.sync(): every fill store is complete and visible before any
 //   block starts phase 2. Phase 2: warps stride over the bags, as the
-//   gather kernel does, but load storage rows with __ldcg (cached in L2
+//   gather kernel does, but load payload rows with __ldcg (cached in L2
 //   only, the card's point of coherence), never through the read-only
 //   non-coherent path that __ldg takes: the rows were written in this same
 //   launch. The TPU kernel orders fill before gather with its sequential
@@ -71,6 +105,7 @@
 // (the runtimes look up only resident rows).
 
 #include <cooperative_groups.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
 #include <algorithm>
@@ -83,17 +118,18 @@ constexpr int kWarpsPerBlock = 8;
 constexpr int kThreads = kWarp * kWarpsPerBlock;
 constexpr unsigned kFullMask = 0xffffffffu;
 
-__device__ __forceinline__ float add(float a, float b) { return a + b; }
+__device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
 
 __device__ __forceinline__ float4 add(float4 a, float4 b) {
-  return make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
+  return make_float4(__fadd_rn(a.x, b.x), __fadd_rn(a.y, b.y),
+                     __fadd_rn(a.z, b.z), __fadd_rn(a.w, b.w));
 }
 
 // Storage-row load: through the read-only path where the kernel never
 // writes storage (kReadOnly), else from L2 (rows written earlier in the
 // same launch by other blocks).
 template <bool kReadOnly, typename V>
-__device__ __forceinline__ V load_row(const V* p) {
+__device__ __forceinline__ V load(const V* p) {
   if constexpr (kReadOnly) {
     return __ldg(p);
   } else {
@@ -101,28 +137,92 @@ __device__ __forceinline__ V load_row(const V* p) {
   }
 }
 
+__device__ __forceinline__ float half_bits_to_float(unsigned bits) {
+  return __half2float(__ushort_as_half(static_cast<unsigned short>(bits)));
+}
+
+// Row formats of the gather: In is what a lane loads per chunk, Acc the
+// fp32 values it adds (4 consecutive elements, or 1). convert() widens a
+// chunk to fp32 exactly; scale is the row's int8 scale (unused otherwise).
+struct F32x4 {
+  using In = float4;
+  using Acc = float4;
+  static constexpr bool kScaled = false;
+  __device__ static Acc convert(In v, float) { return v; }
+};
+struct F32x1 {
+  using In = float;
+  using Acc = float;
+  static constexpr bool kScaled = false;
+  __device__ static Acc convert(In v, float) { return v; }
+};
+struct F16x4 {  // 4 halves, little-endian in two 32-bit words
+  using In = uint2;
+  using Acc = float4;
+  static constexpr bool kScaled = false;
+  __device__ static Acc convert(In v, float) {
+    return make_float4(half_bits_to_float(v.x & 0xffffu), half_bits_to_float(v.x >> 16),
+                       half_bits_to_float(v.y & 0xffffu), half_bits_to_float(v.y >> 16));
+  }
+};
+struct F16x1 {
+  using In = unsigned short;
+  using Acc = float;
+  static constexpr bool kScaled = false;
+  __device__ static Acc convert(In v, float) { return half_bits_to_float(v); }
+};
+struct I8x4 {
+  using In = char4;
+  using Acc = float4;
+  static constexpr bool kScaled = true;
+  __device__ static Acc convert(In v, float s) {
+    return make_float4(__fmul_rn(static_cast<float>(v.x), s),
+                       __fmul_rn(static_cast<float>(v.y), s),
+                       __fmul_rn(static_cast<float>(v.z), s),
+                       __fmul_rn(static_cast<float>(v.w), s));
+  }
+};
+struct I8x1 {
+  using In = signed char;
+  using Acc = float;
+  static constexpr bool kScaled = true;
+  __device__ static Acc convert(In v, float s) {
+    return __fmul_rn(static_cast<float>(v), s);
+  }
+};
+
 // One warp sums one bag: each output element is accumulated by ONE lane,
-// from the l=0 row, adding l=1..L-1 in order. V is float4 (D % 4 == 0,
-// 16-byte aligned rows) or float; dv = D in Vs. Called warp-uniformly.
-template <bool kReadOnly, typename V>
-__device__ __forceinline__ void reduce_bag(const V* storage,
+// from the l=0 row, adding l=1..L-1 in order. dv = chunks per row (D / 4
+// or D). Called warp-uniformly.
+template <bool kReadOnly, typename R>
+__device__ __forceinline__ void reduce_bag(const typename R::In* storage,
+                                           const float* __restrict__ scale,
                                            const int* __restrict__ ids,
-                                           V* __restrict__ out, long long bag,
-                                           int L, int dv, int lane) {
+                                           typename R::Acc* __restrict__ out,
+                                           long long bag, int L, int dv,
+                                           int lane) {
+  using Acc = typename R::Acc;
   const int* bag_ids = ids + bag * L;
-  V* dst = out + bag * dv;
+  Acc* dst = out + bag * dv;
   for (int c0 = 0; c0 < dv; c0 += kWarp) {
     const int c = c0 + lane;
     const bool active = c < dv;
-    V acc{};
+    Acc acc{};
     for (int l0 = 0; l0 < L; l0 += kWarp) {
       const int n = min(kWarp, L - l0);
       const int my_id = lane < n ? __ldg(bag_ids + l0 + lane) : 0;
+      float my_scale = 1.0f;
+      if constexpr (R::kScaled) {
+        // the scale column is never written by these kernels
+        my_scale = lane < n ? __ldg(scale + my_id) : 1.0f;
+      }
 #pragma unroll 4
       for (int j = 0; j < n; ++j) {
         const long long s = __shfl_sync(kFullMask, my_id, j);
+        float sc = 1.0f;
+        if constexpr (R::kScaled) sc = __shfl_sync(kFullMask, my_scale, j);
         if (active) {
-          const V v = load_row<kReadOnly>(storage + s * dv + c);
+          const Acc v = R::convert(load<kReadOnly>(storage + s * dv + c), sc);
           acc = (l0 + j == 0) ? v : add(acc, v);
         }
       }
@@ -131,114 +231,114 @@ __device__ __forceinline__ void reduce_bag(const V* storage,
   }
 }
 
-// One warp copies fill row i into its slot; the sentinel (>= N) and
-// negative slots are dropped.
-template <typename V>
-__device__ __forceinline__ void fill_row(V* storage,
-                                         const int* __restrict__ slots,
-                                         const V* __restrict__ rows,
-                                         long long i, int dv, long long N,
+// One warp copies fill row i (row_bytes bytes, in chunks of C) into its
+// slot; the sentinel (>= N) and negative slots are dropped.
+template <typename C>
+__device__ __forceinline__ void copy_row(char* storage, const char* rows,
+                                         int s, long long i, int row_bytes,
                                          int lane) {
-  const int s = __ldg(slots + i);
-  if (s < 0 || static_cast<long long>(s) >= N) return;  // drop sentinel
-  V* dst = storage + static_cast<long long>(s) * dv;
-  const V* src = rows + i * dv;
-  for (int c = lane; c < dv; c += kWarp) dst[c] = __ldg(src + c);
+  C* dst = reinterpret_cast<C*>(storage + static_cast<long long>(s) * row_bytes);
+  const C* src = reinterpret_cast<const C*>(rows + i * row_bytes);
+  const int n = row_bytes / static_cast<int>(sizeof(C));
+  for (int c = lane; c < n; c += kWarp) dst[c] = __ldg(src + c);
 }
 
-template <typename V>
+__device__ __forceinline__ void fill_row(char* storage,
+                                         const int* __restrict__ slots,
+                                         const char* __restrict__ rows,
+                                         long long i, int row_bytes, int chunk,
+                                         long long N, int lane) {
+  const int s = __ldg(slots + i);
+  if (s < 0 || static_cast<long long>(s) >= N) return;  // drop sentinel
+  switch (chunk) {  // uniform over the whole grid
+    case 16: copy_row<uint4>(storage, rows, s, i, row_bytes, lane); break;
+    case 8: copy_row<uint2>(storage, rows, s, i, row_bytes, lane); break;
+    case 4: copy_row<unsigned>(storage, rows, s, i, row_bytes, lane); break;
+    case 2: copy_row<unsigned short>(storage, rows, s, i, row_bytes, lane); break;
+    default: copy_row<unsigned char>(storage, rows, s, i, row_bytes, lane); break;
+  }
+}
+
+template <typename R>
 __global__ void __launch_bounds__(kThreads)
-    gather_reduce_kernel(const V* __restrict__ storage,
-                         const int* __restrict__ ids, V* __restrict__ out,
-                         long long nb, int L, int dv) {
+    gather_reduce_kernel(const typename R::In* __restrict__ storage,
+                         const float* __restrict__ scale,
+                         const int* __restrict__ ids,
+                         typename R::Acc* __restrict__ out, long long nb, int L,
+                         int dv) {
   // warp-uniform: a warp either owns a bag or leaves together, so the full
   // shuffle mask is always exact
   const long long bag =
       static_cast<long long>(blockIdx.x) * kWarpsPerBlock + threadIdx.x / kWarp;
   if (bag >= nb) return;
-  reduce_bag<true>(storage, ids, out, bag, L, dv, threadIdx.x % kWarp);
+  reduce_bag<true, R>(storage, scale, ids, out, bag, L, dv, threadIdx.x % kWarp);
 }
 
-template <typename V>
 __global__ void __launch_bounds__(kThreads)
-    fill_kernel(V* __restrict__ storage, const int* __restrict__ slots,
-                const V* __restrict__ rows, long long F, int dv, long long N) {
+    fill_kernel(char* __restrict__ storage, const int* __restrict__ slots,
+                const char* __restrict__ rows, long long F, int row_bytes,
+                int chunk, long long N) {
   const long long i =
       static_cast<long long>(blockIdx.x) * kWarpsPerBlock + threadIdx.x / kWarp;
   if (i >= F) return;
-  fill_row(storage, slots, rows, i, dv, N, threadIdx.x % kWarp);
+  fill_row(storage, slots, rows, i, row_bytes, chunk, N, threadIdx.x % kWarp);
 }
 
 // Cooperative launch only: every block of the grid must be co-resident.
-template <typename V>
+template <typename R>
 __global__ void __launch_bounds__(kThreads)
-    fill_gather_reduce_kernel(V* storage, const int* __restrict__ slots,
-                              const V* __restrict__ rows, long long F,
-                              long long N, const int* __restrict__ ids,
-                              V* __restrict__ out, long long nb, int L,
-                              int dv) {
+    fill_gather_reduce_kernel(char* storage, const int* __restrict__ slots,
+                              const char* __restrict__ rows, long long F,
+                              long long N, int row_bytes, int chunk,
+                              const float* __restrict__ scale,
+                              const int* __restrict__ ids,
+                              typename R::Acc* __restrict__ out, long long nb,
+                              int L, int dv) {
   const long long first =
       static_cast<long long>(blockIdx.x) * kWarpsPerBlock + threadIdx.x / kWarp;
   const long long stride = static_cast<long long>(gridDim.x) * kWarpsPerBlock;
   const int lane = threadIdx.x % kWarp;
   for (long long i = first; i < F; i += stride) {
-    fill_row(storage, slots, rows, i, dv, N, lane);
+    fill_row(storage, slots, rows, i, row_bytes, chunk, N, lane);
   }
   cooperative_groups::this_grid().sync();
+  const auto* st = reinterpret_cast<const typename R::In*>(storage);
   for (long long bag = first; bag < nb; bag += stride) {
-    reduce_bag<false>(storage, ids, out, bag, L, dv, lane);
+    reduce_bag<false, R>(st, scale, ids, out, bag, L, dv, lane);
   }
 }
 
-bool aligned16(const void* p) {
-  return (reinterpret_cast<std::uintptr_t>(p) & 15u) == 0;
+bool aligned(const void* p, unsigned bytes) {
+  return (reinterpret_cast<std::uintptr_t>(p) & (bytes - 1u)) == 0;
 }
 
 unsigned blocks_for(long long n) {
   return static_cast<unsigned>((n + kWarpsPerBlock - 1) / kWarpsPerBlock);
 }
 
-}  // namespace
-
-extern "C" int repro_gather_reduce_f32(const float* storage, const int* ids,
-                                       float* out, long long nb, int L, int D,
-                                       void* stream) {
-  if (nb <= 0 || L <= 0 || D <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (D % 4 == 0 && aligned16(storage) && aligned16(out)) {
-    gather_reduce_kernel<float4><<<blocks_for(nb), kThreads, 0, st>>>(
-        reinterpret_cast<const float4*>(storage), ids,
-        reinterpret_cast<float4*>(out), nb, L, D / 4);
-  } else {
-    gather_reduce_kernel<float><<<blocks_for(nb), kThreads, 0, st>>>(
-        storage, ids, out, nb, L, D);
+// Widest copy chunk (16, 8, 4, 2 or 1 bytes) that divides the row and
+// keeps every row of both arrays aligned.
+int fill_chunk(const void* storage, const void* rows, int row_bytes) {
+  for (int c = 16; c > 1; c /= 2) {
+    if (row_bytes % c == 0 && aligned(storage, c) && aligned(rows, c)) return c;
   }
+  return 1;
+}
+
+template <typename R>
+int launch_gather(const void* storage, const float* scale, const int* ids,
+                  float* out, long long nb, int L, int dv, cudaStream_t st) {
+  gather_reduce_kernel<R><<<blocks_for(nb), kThreads, 0, st>>>(
+      static_cast<const typename R::In*>(storage), scale, ids,
+      reinterpret_cast<typename R::Acc*>(out), nb, L, dv);
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int repro_fill_f32(float* storage, const int* slots,
-                              const float* rows, long long F, int D,
-                              long long N, void* stream) {
-  if (F <= 0 || D <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (D % 4 == 0 && aligned16(storage) && aligned16(rows)) {
-    fill_kernel<float4><<<blocks_for(F), kThreads, 0, st>>>(
-        reinterpret_cast<float4*>(storage), slots,
-        reinterpret_cast<const float4*>(rows), F, D / 4, N);
-  } else {
-    fill_kernel<float><<<blocks_for(F), kThreads, 0, st>>>(storage, slots,
-                                                           rows, F, D, N);
-  }
-  return static_cast<int>(cudaGetLastError());
-}
-
-namespace {
-
-template <typename V>
-int launch_fused(V* storage, const int* slots, const V* rows, long long F,
-                 long long N, const int* ids, V* out, long long nb, int L,
-                 int dv, cudaStream_t st) {
-  const void* fn = reinterpret_cast<const void*>(&fill_gather_reduce_kernel<V>);
+template <typename R>
+int launch_fused(void* storage, const int* slots, const void* rows, long long F,
+                 long long N, int row_bytes, const float* scale, const int* ids,
+                 float* out, long long nb, int L, int dv, cudaStream_t st) {
+  const void* fn = reinterpret_cast<const void*>(&fill_gather_reduce_kernel<R>);
   int dev = 0, sms = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess) {
@@ -252,29 +352,116 @@ int launch_fused(V* storage, const int* slots, const V* rows, long long F,
   const long long want = blocks_for(std::max(F, nb));
   const unsigned grid = static_cast<unsigned>(
       std::min<long long>(want, static_cast<long long>(per_sm) * sms));
-  void* args[] = {&storage, &slots, &rows, &F, &N, &ids, &out, &nb, &L, &dv};
+  char* st_bytes = static_cast<char*>(storage);
+  const char* row_data = static_cast<const char*>(rows);
+  int chunk = fill_chunk(storage, rows, row_bytes);
+  auto* acc_out = reinterpret_cast<typename R::Acc*>(out);
+  void* args[] = {&st_bytes, &slots, &row_data, &F, &N, &row_bytes,
+                  &chunk, &scale, &ids, &acc_out, &nb, &L, &dv};
   err = cudaLaunchCooperativeKernel(fn, dim3(grid), dim3(kThreads), args, 0, st);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
+bool bad_gather(long long nb, int L, int D) { return nb <= 0 || L <= 0 || D <= 0; }
+
+bool bad_fused(long long F, long long nb, int L, int D) {
+  return F <= 0 || bad_gather(nb, L, D);
+}
+
 }  // namespace
+
+extern "C" int repro_gather_reduce_f32(const float* storage, const int* ids,
+                                       float* out, long long nb, int L, int D,
+                                       void* stream) {
+  if (bad_gather(nb, L, D)) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (D % 4 == 0 && aligned(storage, 16) && aligned(out, 16)) {
+    return launch_gather<F32x4>(storage, nullptr, ids, out, nb, L, D / 4, st);
+  }
+  return launch_gather<F32x1>(storage, nullptr, ids, out, nb, L, D, st);
+}
+
+extern "C" int repro_gather_reduce_f16(const void* storage, const int* ids,
+                                       float* out, long long nb, int L, int D,
+                                       void* stream) {
+  if (bad_gather(nb, L, D)) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (D % 4 == 0 && aligned(storage, 8) && aligned(out, 16)) {
+    return launch_gather<F16x4>(storage, nullptr, ids, out, nb, L, D / 4, st);
+  }
+  return launch_gather<F16x1>(storage, nullptr, ids, out, nb, L, D, st);
+}
+
+extern "C" int repro_gather_reduce_q8(const void* data, const float* scale,
+                                      const int* ids, float* out, long long nb,
+                                      int L, int D, void* stream) {
+  if (bad_gather(nb, L, D) || scale == nullptr) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (D % 4 == 0 && aligned(data, 4) && aligned(out, 16)) {
+    return launch_gather<I8x4>(data, scale, ids, out, nb, L, D / 4, st);
+  }
+  return launch_gather<I8x1>(data, scale, ids, out, nb, L, D, st);
+}
+
+extern "C" int repro_fill(void* storage, const int* slots, const void* rows,
+                          long long F, int row_bytes, long long N, void* stream) {
+  if (F <= 0 || row_bytes <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  fill_kernel<<<blocks_for(F), kThreads, 0, st>>>(
+      static_cast<char*>(storage), slots, static_cast<const char*>(rows), F,
+      row_bytes, fill_chunk(storage, rows, row_bytes), N);
+  return static_cast<int>(cudaGetLastError());
+}
 
 extern "C" int repro_fill_gather_reduce_f32(float* storage, const int* slots,
                                             const float* rows, long long F,
                                             long long N, const int* ids,
                                             float* out, long long nb, int L,
                                             int D, void* stream) {
-  if (F <= 0 || nb <= 0 || L <= 0 || D <= 0) {
+  if (bad_fused(F, nb, L, D)) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (D % 4 == 0 && aligned(storage, 16) && aligned(out, 16)) {
+    return launch_fused<F32x4>(storage, slots, rows, F, N, D * 4, nullptr, ids,
+                               out, nb, L, D / 4, st);
+  }
+  return launch_fused<F32x1>(storage, slots, rows, F, N, D * 4, nullptr, ids,
+                             out, nb, L, D, st);
+}
+
+extern "C" int repro_fill_gather_reduce_f16(void* storage, const int* slots,
+                                            const void* rows, long long F,
+                                            long long N, const int* ids,
+                                            float* out, long long nb, int L,
+                                            int D, void* stream) {
+  if (bad_fused(F, nb, L, D)) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (D % 4 == 0 && aligned(storage, 8) && aligned(out, 16)) {
+    return launch_fused<F16x4>(storage, slots, rows, F, N, D * 2, nullptr, ids,
+                               out, nb, L, D / 4, st);
+  }
+  return launch_fused<F16x1>(storage, slots, rows, F, N, D * 2, nullptr, ids,
+                             out, nb, L, D, st);
+}
+
+extern "C" int repro_fill_gather_reduce_q8(void* data, const float* scale,
+                                           const int* slots, const void* rows,
+                                           long long F, long long N,
+                                           const int* ids, float* out,
+                                           long long nb, int L, int D,
+                                           void* stream) {
+  if (bad_fused(F, nb, L, D) || scale == nullptr) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (D % 4 == 0 && aligned16(storage) && aligned16(rows) && aligned16(out)) {
-    return launch_fused(reinterpret_cast<float4*>(storage), slots,
-                        reinterpret_cast<const float4*>(rows), F, N, ids,
-                        reinterpret_cast<float4*>(out), nb, L, D / 4, st);
+  if (D % 4 == 0 && aligned(data, 4) && aligned(out, 16)) {
+    return launch_fused<I8x4>(data, slots, rows, F, N, D, scale, ids, out, nb,
+                              L, D / 4, st);
   }
-  return launch_fused(storage, slots, rows, F, N, ids, out, nb, L, D, st);
+  return launch_fused<I8x1>(data, slots, rows, F, N, D, scale, ids, out, nb, L,
+                            D, st);
 }
 
 extern "C" const char* repro_cuda_error_string(int err) {

@@ -1,14 +1,15 @@
 """ctypes launchers of the hand-written CUDA kernels in ``csrc/gather_reduce.cu``.
 
-Port of the fp32 ``gather_reduce``, ``fill`` and ``fill_gather_reduce``
-Pallas kernels of ``repro/kernels/gather_reduce.py``; the source file holds
-each kernel's bound and design note. These launchers take CUDA tensors only: they check
-device, dtype (fp32 storage and rows, int32 ids), shape and contiguity,
-launch on the current stream, raise on the launch's CUDA error, and count
-each launch in :data:`LAUNCHES`. The library is built and loaded at the
-first launch, never at import (the CPU tests import this module).
-Natural shapes, empty operands and the CPU dispatch live in
-``kernels/ops.py``.
+Port of the ``gather_reduce``, ``gather_reduce_q``, ``fill``,
+``fill_gather_reduce`` and ``fill_gather_reduce_q`` Pallas kernels of
+``repro/kernels/gather_reduce.py``, for fp32, fp16 and int8 storage; the
+source file holds each kernel's bound and design note. These launchers take
+CUDA tensors only: they check device, dtype, shape and contiguity, launch
+on the current stream, raise on the launch's CUDA error, and count each
+launch in :data:`LAUNCHES`, under the kernel's name and storage form. The
+library is built and loaded at the first launch, never at import (the CPU
+tests import this module). Natural shapes, empty operands and the CPU
+dispatch live in ``kernels/ops.py``.
 """
 from __future__ import annotations
 
@@ -17,9 +18,19 @@ from typing import Optional
 
 import torch
 
-#: kernel launches since the last reset, by kernel name — one is added
-#: where a launch succeeds, and nowhere else
-LAUNCHES = {"gather_reduce": 0, "fill": 0, "fill_gather_reduce": 0}
+#: kernel launches since the last reset, by kernel and storage form — one
+#: is added where a launch succeeds, and nowhere else. The fp32 forms keep
+#: the bare kernel names; ``_f16`` is fp16 storage, ``_i8`` an int8 payload
+#: (``gather_reduce_q`` and ``fill_gather_reduce_q`` are int8 only).
+LAUNCHES = {
+    "gather_reduce": 0, "gather_reduce_f16": 0, "gather_reduce_q": 0,
+    "fill": 0, "fill_f16": 0, "fill_i8": 0,
+    "fill_gather_reduce": 0, "fill_gather_reduce_f16": 0,
+    "fill_gather_reduce_q": 0,
+}
+
+#: storage dtype -> suffix of its LAUNCHES key
+_FORM = {torch.float32: "", torch.float16: "_f16", torch.int8: "_i8"}
 
 _LIB: Optional[ctypes.CDLL] = None
 
@@ -31,27 +42,78 @@ def _lib() -> ctypes.CDLL:
 
         lib = ctypes.CDLL(str(_build.library_path("gather_reduce")))
         ptr, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-        lib.repro_gather_reduce_f32.argtypes = [ptr, ptr, ptr, i64, i32, i32, ptr]
-        lib.repro_gather_reduce_f32.restype = i32
-        lib.repro_fill_f32.argtypes = [ptr, ptr, ptr, i64, i32, i64, ptr]
-        lib.repro_fill_f32.restype = i32
-        lib.repro_fill_gather_reduce_f32.argtypes = [
-            ptr, ptr, ptr, i64, i64, ptr, ptr, i64, i32, i32, ptr,
-        ]
-        lib.repro_fill_gather_reduce_f32.restype = i32
+        gather = [ptr, ptr, ptr, i64, i32, i32, ptr]
+        fused = [ptr, ptr, ptr, i64, i64, ptr, ptr, i64, i32, i32, ptr]
+        for name, argtypes in (
+            ("repro_gather_reduce_f32", gather),
+            ("repro_gather_reduce_f16", gather),
+            ("repro_gather_reduce_q8", [ptr] + gather),
+            ("repro_fill", [ptr, ptr, ptr, i64, i32, i64, ptr]),
+            ("repro_fill_gather_reduce_f32", fused),
+            ("repro_fill_gather_reduce_f16", fused),
+            ("repro_fill_gather_reduce_q8", [ptr, ptr] + fused[1:]),
+        ):
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = i32
         lib.repro_cuda_error_string.argtypes = [i32]
         lib.repro_cuda_error_string.restype = ctypes.c_char_p
         _LIB = lib
     return _LIB
 
 
-def _check(t: torch.Tensor, name: str, dtype: torch.dtype, device: torch.device):
+def _check(t: torch.Tensor, name: str, dtype, device: torch.device):
+    """``dtype`` is one dtype or a tuple of the accepted ones."""
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != dtype:
-        raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
+    dtypes = dtype if isinstance(dtype, tuple) else (dtype,)
+    if t.dtype not in dtypes:
+        raise TypeError(f"{name} has dtype {t.dtype}, expected one of {dtypes}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+def _check_cuda(storage: torch.Tensor) -> None:
+    if storage.device.type != "cuda":
+        raise ValueError(f"CUDA kernel called on a {storage.device} tensor")
+
+
+def _check_scale(scale: torch.Tensor, storage: torch.Tensor) -> None:
+    _check(scale, "scale", torch.float32, storage.device)
+    if tuple(scale.shape) != (storage.shape[0], 1):
+        raise ValueError(
+            f"scale {tuple(scale.shape)} != ({storage.shape[0]}, 1): one fp32 "
+            "scale per storage row"
+        )
+
+
+def _gather_shapes(storage: torch.Tensor, flat_ids: torch.Tensor, what: str):
+    if storage.dim() != 2 or flat_ids.dim() != 2:
+        raise ValueError(
+            f"expected storage (N, D) and slot_ids (nb, L), got "
+            f"{tuple(storage.shape)} and {tuple(flat_ids.shape)}"
+        )
+    nb, L = flat_ids.shape
+    D = storage.shape[1]
+    if nb == 0 or L == 0 or D == 0:
+        raise ValueError(f"empty operands launch nothing: ops.{what} skips them")
+    return nb, L, D
+
+
+def _fill_shapes(storage, fill_slots, rows, what: str):
+    if storage.dim() != 2 or fill_slots.dim() != 1 or rows.dim() != 2:
+        raise ValueError("expected storage (N, D), fill_slots (F,), rows (F, D)")
+    (F,) = fill_slots.shape
+    N, D = storage.shape
+    if rows.shape != (F, D):
+        raise ValueError(f"rows {tuple(rows.shape)} != ({F}, {D})")
+    if F == 0 or D == 0:
+        raise ValueError(f"empty operands launch nothing: ops.{what} skips them")
+    return F, N, D
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
 
 
 def _raise_on(err: int, kernel: str) -> None:
@@ -61,58 +123,79 @@ def _raise_on(err: int, kernel: str) -> None:
 
 
 def gather_reduce(storage: torch.Tensor, flat_ids: torch.Tensor) -> torch.Tensor:
-    """storage (N, D) fp32 on a CUDA device; flat_ids (nb, L) int32 with
-    every id in [0, N), nb, L > 0 -> (nb, D) fp32 bags."""
-    if storage.device.type != "cuda":
-        raise ValueError(f"CUDA kernel called on a {storage.device} tensor")
-    _check(storage, "storage", torch.float32, storage.device)
+    """storage (N, D) fp32 or fp16 on a CUDA device; flat_ids (nb, L) int32
+    with every id in [0, N), nb, L > 0 -> (nb, D) fp32 bags (fp16 rows are
+    widened exactly, then summed in fp32)."""
+    _check_cuda(storage)
+    _check(storage, "storage", (torch.float32, torch.float16), storage.device)
     _check(flat_ids, "slot_ids", torch.int32, storage.device)
-    if storage.dim() != 2 or flat_ids.dim() != 2:
-        raise ValueError(
-            f"expected storage (N, D) and slot_ids (nb, L), got "
-            f"{tuple(storage.shape)} and {tuple(flat_ids.shape)}"
-        )
-    nb, L = flat_ids.shape
-    D = storage.shape[1]
-    if nb == 0 or L == 0 or D == 0:
-        raise ValueError("empty operands launch nothing: ops.gather_reduce skips them")
+    nb, L, D = _gather_shapes(storage, flat_ids, "gather_reduce")
     out = torch.empty((nb, D), dtype=torch.float32, device=storage.device)
     lib = _lib()
+    fn = (lib.repro_gather_reduce_f32 if storage.dtype == torch.float32
+          else lib.repro_gather_reduce_f16)
+    key = "gather_reduce" + _FORM[storage.dtype]
     with torch.cuda.device(storage.device):
-        err = lib.repro_gather_reduce_f32(
-            storage.data_ptr(), flat_ids.data_ptr(), out.data_ptr(), nb, L, D,
-            torch.cuda.current_stream(storage.device).cuda_stream,
+        err = fn(storage.data_ptr(), flat_ids.data_ptr(), out.data_ptr(), nb, L, D,
+                 _stream(storage))
+    _raise_on(err, key)
+    LAUNCHES[key] += 1
+    return out
+
+
+def gather_reduce_q(
+    storage: torch.Tensor, scale: torch.Tensor, flat_ids: torch.Tensor
+) -> torch.Tensor:
+    """Dequantizing gather: storage (N, D) int8 payload and scale (N, 1)
+    fp32 on a CUDA device; flat_ids (nb, L) int32 with every id in [0, N),
+    nb, L > 0 -> (nb, D) fp32 bags, each addend ``q * scale[id]``."""
+    _check_cuda(storage)
+    _check(storage, "storage", torch.int8, storage.device)
+    _check_scale(scale, storage)
+    _check(flat_ids, "slot_ids", torch.int32, storage.device)
+    nb, L, D = _gather_shapes(storage, flat_ids, "gather_reduce_q")
+    out = torch.empty((nb, D), dtype=torch.float32, device=storage.device)
+    with torch.cuda.device(storage.device):
+        err = _lib().repro_gather_reduce_q8(
+            storage.data_ptr(), scale.data_ptr(), flat_ids.data_ptr(),
+            out.data_ptr(), nb, L, D, _stream(storage),
         )
-    _raise_on(err, "gather_reduce")
-    LAUNCHES["gather_reduce"] += 1
+    _raise_on(err, "gather_reduce_q")
+    LAUNCHES["gather_reduce_q"] += 1
     return out
 
 
 def fill(storage: torch.Tensor, fill_slots: torch.Tensor, rows: torch.Tensor) -> None:
     """In place: storage[s] = rows[i] for every s = fill_slots[i] < N.
-    storage (N, D) fp32; fill_slots (F,) int32, non-negative, valid slots
-    unique; rows (F, D) fp32; F > 0. All on one CUDA device."""
-    if storage.device.type != "cuda":
-        raise ValueError(f"CUDA kernel called on a {storage.device} tensor")
-    _check(storage, "storage", torch.float32, storage.device)
+    storage (N, D) fp32, fp16 or int8; fill_slots (F,) int32, non-negative,
+    valid slots unique; rows (F, D) of the storage's dtype; F > 0. All on
+    one CUDA device. One byte-copy kernel serves every dtype."""
+    _check_cuda(storage)
+    _check(storage, "storage", tuple(_FORM), storage.device)
     _check(fill_slots, "fill_slots", torch.int32, storage.device)
-    _check(rows, "rows", torch.float32, storage.device)
-    if storage.dim() != 2 or fill_slots.dim() != 1 or rows.dim() != 2:
-        raise ValueError("expected storage (N, D), fill_slots (F,), rows (F, D)")
-    (F,) = fill_slots.shape
-    N, D = storage.shape
-    if rows.shape != (F, D):
-        raise ValueError(f"rows {tuple(rows.shape)} != ({F}, {D})")
-    if F == 0 or D == 0:
-        raise ValueError("empty operands launch nothing: ops.fill skips them")
-    lib = _lib()
+    _check(rows, "rows", storage.dtype, storage.device)
+    F, N, D = _fill_shapes(storage, fill_slots, rows, "fill")
+    key = "fill" + _FORM[storage.dtype]
     with torch.cuda.device(storage.device):
-        err = lib.repro_fill_f32(
-            storage.data_ptr(), fill_slots.data_ptr(), rows.data_ptr(), F, D, N,
-            torch.cuda.current_stream(storage.device).cuda_stream,
+        err = _lib().repro_fill(
+            storage.data_ptr(), fill_slots.data_ptr(), rows.data_ptr(), F,
+            D * storage.element_size(), N, _stream(storage),
         )
-    _raise_on(err, "fill")
-    LAUNCHES["fill"] += 1
+    _raise_on(err, key)
+    LAUNCHES[key] += 1
+
+
+def _check_fused(storage, fill_slots, rows, flat_ids, what):
+    _check(fill_slots, "fill_slots", torch.int32, storage.device)
+    _check(rows, "rows", storage.dtype, storage.device)
+    _check(flat_ids, "slot_ids", torch.int32, storage.device)
+    if flat_ids.dim() != 2:
+        raise ValueError(f"expected slot_ids (nb, L), got {tuple(flat_ids.shape)}")
+    F, N, D = _fill_shapes(storage, fill_slots, rows, what)
+    nb, L = flat_ids.shape
+    if nb == 0 or L == 0:
+        raise ValueError(f"empty operands launch nothing: ops.{what} skips them")
+    return F, N, D, nb, L
 
 
 def fill_gather_reduce(
@@ -123,37 +206,50 @@ def fill_gather_reduce(
 ) -> torch.Tensor:
     """ONE cooperative launch: the fill (in place, as :func:`fill`), then
     the bag gather-reduce over the post-fill storage -> (nb, D) fp32 bags.
-    storage (N, D) fp32; fill_slots (F,) int32, non-negative, valid slots
-    unique; rows (F, D) fp32; flat_ids (nb, L) int32 with every id in
-    [0, N); F, nb, L > 0. All on one CUDA device."""
-    if storage.device.type != "cuda":
-        raise ValueError(f"CUDA kernel called on a {storage.device} tensor")
-    _check(storage, "storage", torch.float32, storage.device)
-    _check(fill_slots, "fill_slots", torch.int32, storage.device)
-    _check(rows, "rows", torch.float32, storage.device)
-    _check(flat_ids, "slot_ids", torch.int32, storage.device)
-    if (storage.dim() != 2 or fill_slots.dim() != 1 or rows.dim() != 2
-            or flat_ids.dim() != 2):
-        raise ValueError(
-            "expected storage (N, D), fill_slots (F,), rows (F, D), slot_ids (nb, L)"
-        )
-    (F,) = fill_slots.shape
-    N, D = storage.shape
-    nb, L = flat_ids.shape
-    if rows.shape != (F, D):
-        raise ValueError(f"rows {tuple(rows.shape)} != ({F}, {D})")
-    if F == 0 or nb == 0 or L == 0 or D == 0:
-        raise ValueError(
-            "empty operands launch nothing: ops.fill_gather_reduce skips them"
-        )
+    storage (N, D) fp32 or fp16; fill_slots (F,) int32, non-negative, valid
+    slots unique; rows (F, D) of the storage's dtype; flat_ids (nb, L) int32
+    with every id in [0, N); F, nb, L > 0. All on one CUDA device."""
+    _check_cuda(storage)
+    _check(storage, "storage", (torch.float32, torch.float16), storage.device)
+    F, N, D, nb, L = _check_fused(storage, fill_slots, rows, flat_ids,
+                                  "fill_gather_reduce")
     out = torch.empty((nb, D), dtype=torch.float32, device=storage.device)
     lib = _lib()
+    fn = (lib.repro_fill_gather_reduce_f32 if storage.dtype == torch.float32
+          else lib.repro_fill_gather_reduce_f16)
+    key = "fill_gather_reduce" + _FORM[storage.dtype]
     with torch.cuda.device(storage.device):
-        err = lib.repro_fill_gather_reduce_f32(
-            storage.data_ptr(), fill_slots.data_ptr(), rows.data_ptr(), F, N,
-            flat_ids.data_ptr(), out.data_ptr(), nb, L, D,
-            torch.cuda.current_stream(storage.device).cuda_stream,
+        err = fn(storage.data_ptr(), fill_slots.data_ptr(), rows.data_ptr(), F, N,
+                 flat_ids.data_ptr(), out.data_ptr(), nb, L, D, _stream(storage))
+    _raise_on(err, key)
+    LAUNCHES[key] += 1
+    return out
+
+
+def fill_gather_reduce_q(
+    storage: torch.Tensor,
+    scale: torch.Tensor,
+    fill_slots: torch.Tensor,
+    rows: torch.Tensor,
+    flat_ids: torch.Tensor,
+) -> torch.Tensor:
+    """ONE cooperative launch of the int8 form: fill the payload rows (in
+    place), then the dequantizing gather over the post-fill payload ->
+    (nb, D) fp32 bags. ``scale`` (N, 1) fp32 must ALREADY hold the fill
+    rows' scales; the kernel only reads it. storage (N, D) int8; rows
+    (F, D) int8; the rest as :func:`fill_gather_reduce`."""
+    _check_cuda(storage)
+    _check(storage, "storage", torch.int8, storage.device)
+    _check_scale(scale, storage)
+    F, N, D, nb, L = _check_fused(storage, fill_slots, rows, flat_ids,
+                                  "fill_gather_reduce_q")
+    out = torch.empty((nb, D), dtype=torch.float32, device=storage.device)
+    with torch.cuda.device(storage.device):
+        err = _lib().repro_fill_gather_reduce_q8(
+            storage.data_ptr(), scale.data_ptr(), fill_slots.data_ptr(),
+            rows.data_ptr(), F, N, flat_ids.data_ptr(), out.data_ptr(), nb, L, D,
+            _stream(storage),
         )
-    _raise_on(err, "fill_gather_reduce")
-    LAUNCHES["fill_gather_reduce"] += 1
+    _raise_on(err, "fill_gather_reduce_q")
+    LAUNCHES["fill_gather_reduce_q"] += 1
     return out

@@ -1,8 +1,9 @@
 """Public wrappers of the port's kernels: dispatch by the tensor's device.
 
-Port of the fp32 ``gather_reduce``, ``fill``, ``fill_gather_reduce``,
-``coalesce_deltas`` and ``coalesce_apply`` of ``repro/kernels/ops.py``. The
-wrappers own what the raw launchers do not take:
+Port of ``gather_reduce``, ``gather_reduce_q``, ``fill``,
+``fill_gather_reduce``, ``fill_gather_reduce_q``, ``coalesce_deltas`` and
+``coalesce_apply`` of ``repro/kernels/ops.py``, for fp32, fp16 and int8
+storage. The wrappers own what the raw launchers do not take:
 
   * natural shapes — leading batch/table dims of ``slot_ids`` are flattened
     to (nb, L) and restored on the way out;
@@ -20,7 +21,12 @@ wrappers own what the raw launchers do not take:
     grad, the ports of the reference's ``custom_vjp``s: the backward is the
     coalescing scatter-add kernel into the cotangent buffer. The training
     step does not use them (it takes the bag gradients explicitly,
-    ``core/dlrm_runtime.py``); the grad checks do.
+    ``core/dlrm_runtime.py``); the grad checks do. The quantized wrappers
+    have none, as in the reference;
+  * quantized storage — ``gather_reduce_q`` and ``fill_gather_reduce_q``
+    take the payload and its (N, 1) fp32 ``scale`` column, or
+    ``scale=None`` for fp16 storage, whose kernels are the fp16 forms of
+    ``gather_reduce`` and ``fill_gather_reduce``; their bags stay fp32.
 
 The backward and the fused forward update ``storage`` IN PLACE (the
 reference returns new arrays; with donation XLA updates in place too). The
@@ -67,7 +73,7 @@ def _route(t: torch.Tensor) -> str:
 # --------------------------------------------------------------------------- #
 def _gather_call(storage: torch.Tensor, flat: torch.Tensor) -> torch.Tensor:
     if _route(storage) == "cuda":
-        return _gr.gather_reduce(storage, flat)
+        return _gr.gather_reduce(storage, flat).to(storage.dtype)
     return _ref.gather_reduce_ref(storage, flat)
 
 
@@ -80,8 +86,25 @@ def _scatter_call(storage: torch.Tensor, flat: torch.Tensor, deltas: torch.Tenso
 
 def _fused_call(storage, fill_slots, fill_rows, flat) -> torch.Tensor:
     if _route(storage) == "cuda":
-        return _gr.fill_gather_reduce(storage, fill_slots, fill_rows, flat)
+        return _gr.fill_gather_reduce(storage, fill_slots, fill_rows, flat).to(
+            storage.dtype)
     return _ref.fill_gather_reduce_ref(storage, fill_slots, fill_rows, flat)[1]
+
+
+def _gather_q_call(storage, scale, flat) -> torch.Tensor:
+    if _route(storage) == "cuda":
+        if scale is None:
+            return _gr.gather_reduce(storage, flat)
+        return _gr.gather_reduce_q(storage, scale, flat)
+    return _ref.gather_reduce_q_ref(storage, scale, flat)
+
+
+def _fused_q_call(storage, scale, fill_slots, fill_rows, flat) -> torch.Tensor:
+    if _route(storage) == "cuda":
+        if scale is None:
+            return _gr.fill_gather_reduce(storage, fill_slots, fill_rows, flat)
+        return _gr.fill_gather_reduce_q(storage, scale, fill_slots, fill_rows, flat)
+    return _ref.fill_gather_reduce_q_ref(storage, scale, fill_slots, fill_rows, flat)[1]
 
 
 def _check_fill_slots(fill_slots: torch.Tensor) -> None:
@@ -129,6 +152,20 @@ def gather_reduce(storage: torch.Tensor, slot_ids: torch.Tensor) -> torch.Tensor
         out = _GatherReduce.apply(storage, flat)
     else:
         out = _gather_call(storage, flat)
+    return out.reshape(*lead, D)
+
+
+def gather_reduce_q(storage: torch.Tensor, scale, slot_ids: torch.Tensor) -> torch.Tensor:
+    """Quantized-storage gather -> (..., D) fp32 bags (no cast back to the
+    storage dtype: the MLP consumes fp32). storage (N, D) fp16 with
+    ``scale=None``, or int8 with its (N, 1) fp32 ``scale`` column, whose
+    addends are dequantized in the kernel."""
+    lead = tuple(slot_ids.shape[:-1])
+    L = slot_ids.shape[-1]
+    D = storage.shape[1]
+    if L == 0 or slot_ids.numel() == 0:  # empty cycle: no launch
+        return torch.zeros(lead + (D,), dtype=torch.float32, device=storage.device)
+    out = _gather_q_call(storage, scale, slot_ids.reshape(-1, L).contiguous())
     return out.reshape(*lead, D)
 
 
@@ -248,4 +285,33 @@ def fill_gather_reduce(
         storage, bags = _FillGatherReduce.apply(storage, fill_slots, fill_rows, flat)
     else:
         bags = _fused_call(storage, fill_slots, fill_rows, flat)
+    return storage, bags.reshape(*lead, D)
+
+
+def fill_gather_reduce_q(
+    storage: torch.Tensor,
+    scale,
+    fill_slots: torch.Tensor,
+    fill_rows: torch.Tensor,
+    slot_ids: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Fused quantized fill + gather -> (payload storage, (..., D) fp32
+    bags); the fill is in place. ``scale=None`` is fp16 storage (the fp16
+    form of the fused kernel); an (N, 1) ``scale`` — ALREADY holding this
+    call's fill scales — is int8 storage (``fill_gather_reduce_q``).
+    Degenerate operands fall back to the single-kernel paths, as in
+    :func:`fill_gather_reduce`."""
+    lead = tuple(slot_ids.shape[:-1])
+    L = slot_ids.shape[-1]
+    D = storage.shape[1]
+    if L == 0 or slot_ids.numel() == 0:
+        return (
+            fill(storage, fill_slots, fill_rows),
+            torch.zeros(lead + (D,), dtype=torch.float32, device=storage.device),
+        )
+    if fill_slots.numel() == 0:
+        return storage, gather_reduce_q(storage, scale, slot_ids)
+    _check_fill_slots(fill_slots)
+    flat = slot_ids.reshape(-1, L).contiguous()
+    bags = _fused_q_call(storage, scale, fill_slots, fill_rows, flat)
     return storage, bags.reshape(*lead, D)

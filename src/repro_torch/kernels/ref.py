@@ -1,15 +1,22 @@
 """Plain PyTorch versions of the port's kernels, in the reference's op order.
 
-Port of the fp32 half of ``repro/kernels/ref.py``: ``gather_reduce_ref``,
-``fill_ref``, ``fill_gather_reduce_ref``, ``scatter_deltas`` and
-``coalesce_apply_ref``, plus ``scatter_add_ref``, the plain version of the
-backward kernel. They are what ``kernels/ops.py`` runs for tensors on the
-CPU, and what ``chip_smoke.py`` holds each CUDA kernel against on the card
-(bitwise: the kernels do the same fp32 adds in the same order).
+Port of ``repro/kernels/ref.py``'s embedding half: ``gather_reduce_ref``,
+``fill_ref``, ``fill_gather_reduce_ref``, ``scatter_deltas``,
+``coalesce_apply_ref``, ``gather_reduce_q_ref`` and
+``fill_gather_reduce_q_ref``, plus ``scatter_add_ref``, the plain version
+of the backward kernel. They are what ``kernels/ops.py`` runs for tensors
+on the CPU, and what ``chip_smoke.py`` holds each CUDA kernel against on
+the card (bitwise: the kernels do the same fp32 adds in the same order).
 
   * ``gather_reduce_ref`` starts each bag from its ``l = 0`` row and adds
     rows ``l = 1 .. L-1`` in order, in fp32 — a plain ``sum`` would be free
     to reassociate and could never be bit-identical to the kernel.
+  * ``gather_reduce_q_ref`` dequantizes each addend first —
+    ``row.float()``, times the row's scale for int8 storage — and then
+    sums in the same order; its bags stay fp32 (``gather_reduce_ref``
+    casts back to the storage dtype, so it must not be reused for fp16).
+    The int8 product is exact (snapped scales, ``core/quantize.py``), so
+    the order of mul and add cannot change a bit.
   * ``fill_ref`` drops slots ``>= N`` (the planner's pad sentinel is
     ``== num_slots``, ``core/plan.py: pad_index``). Torch's index ops do
     not drop out-of-range indices, so the version masks them explicitly.
@@ -68,6 +75,45 @@ def fill_gather_reduce_ref(
     Returns (storage, bags)."""
     storage = fill_ref(storage, fill_slots, fill_rows)
     return storage, gather_reduce_ref(storage, slot_ids)
+
+
+def gather_reduce_q_ref(
+    storage: torch.Tensor, scale, slot_ids: torch.Tensor
+) -> torch.Tensor:
+    """Quantized-storage gather: storage (N, D) fp16, or int8 with its
+    (N, 1) fp32 ``scale`` column (``None`` for fp16); slot_ids (..., L) ->
+    (..., D) fp32 bags. Each addend is ``row.float() [* scale_row]``; the
+    sum runs over l in order from the l=0 addend."""
+    if slot_ids.shape[-1] == 0 or slot_ids.numel() == 0:
+        return torch.zeros(
+            slot_ids.shape[:-1] + (storage.shape[-1],),
+            dtype=torch.float32,
+            device=storage.device,
+        )
+    idx = slot_ids.long()
+    emb = storage[idx].to(torch.float32)
+    if scale is not None:
+        emb = emb * scale[idx]
+    out = emb[..., 0, :]
+    for l in range(1, emb.shape[-2]):
+        out = out + emb[..., l, :]
+    return out
+
+
+def fill_gather_reduce_q_ref(
+    storage: torch.Tensor,
+    scale,
+    fill_slots: torch.Tensor,
+    fill_rows: torch.Tensor,
+    slot_ids: torch.Tensor,
+):
+    """Fused quantized fill + gather: the (already quantized) rows land in
+    the payload first (in place), then the dequantizing gather runs, so
+    bags see this call's fills. ``scale`` must ALREADY hold the fill rows'
+    scales (``core/scratchpad.py`` scatters it first). Returns (payload
+    storage, fp32 bags)."""
+    storage = fill_ref(storage, fill_slots, fill_rows)
+    return storage, gather_reduce_q_ref(storage, scale, slot_ids)
 
 
 def scatter_deltas(

@@ -5,17 +5,20 @@ the ScratchPipe pipeline (or a baseline) and the DLRM [Train] stage, on the
 card:
 
     python -m repro_torch.launch.train --arch dlrm-scratchpipe --batch 2048 \
-        [--smoke] [--runtime scratchpipe|strawman|nocache|static] [--fused]
+        [--smoke] [--runtime scratchpipe|strawman|nocache|static] [--fused] \
+        [--precision fp32|fp16|int8] [--rounding nearest|stochastic]
 
 ``--device cpu`` runs the kernels' plain PyTorch versions instead. It prints
 the same ``runtime=``, ``done:`` and ``traffic:`` lines as the reference
 (``kernel=`` names the kernels that ran: ``cuda`` or ``plain``). Like the
 reference, ``--batch`` defaults to 8; the paper's batch is 2048.
+``--precision fp16|int8`` keeps fp32 host masters and fp16/int8 scratchpad
+replicas (``core/quantize.py``); ``--rounding`` picks how in-cache updates
+re-quantize (default ``stochastic``, as the reference).
 
 Not ported yet (each errors with a pointer to ROADMAP.md): the LM archs,
 ``--tables``, ``--trace``, ``--supervise``/``--chaos``,
-``--executor overlapped``, ``--planner device`` and ``--precision``
-fp16/int8.
+``--executor overlapped`` and ``--planner device``.
 """
 from __future__ import annotations
 
@@ -36,10 +39,9 @@ _NOT_PORTED = {
     "chaos": "Queue 1 item 12 (recovery)",
     "executor": "Queue 1 item 6 (overlapped executor)",
     "planner": "Queue 1 item 7 (on-device planner)",
-    "precision": "Queue 1 item 8 (mixed precision)",
 }
 _DEFAULTS = {"tables": 0, "trace": None, "supervise": False, "chaos": None,
-             "executor": "sync", "planner": "host", "precision": "fp32"}
+             "executor": "sync", "planner": "host"}
 
 
 def train_dlrm(args, cfg=None, host=None, mlps=None) -> Dict[str, Any]:
@@ -52,6 +54,8 @@ def train_dlrm(args, cfg=None, host=None, mlps=None) -> Dict[str, Any]:
     ``--seed`` (the caller's copy is trained in place); ``mlps`` (a
     ``DLRM`` state_dict, e.g. ``convert.mlps_from_reference``) replaces the
     seeded MLP init."""
+    import dataclasses
+
     import torch
 
     from repro_torch.configs.dlrm_scratchpipe import config, smoke_config
@@ -63,9 +67,18 @@ def train_dlrm(args, cfg=None, host=None, mlps=None) -> Dict[str, Any]:
     from repro_torch.data.synthetic import TraceConfig, dlrm_batches, hot_ids_for_group
     from repro_torch.device import resolve_device
 
+    if args.runtime == "nocache" and args.precision != "fp32":
+        raise SystemExit(
+            "--precision applies to the device-resident caches; "
+            "the nocache baseline holds no rows to quantize"
+        )
     dev = resolve_device(args.device)  # fail before building tables, not after
     if cfg is None:
         cfg = smoke_config() if args.smoke else config()
+    if args.precision != "fp32":
+        # scratchpad replica precision: fp32 masters stay on the host; the
+        # trainer reads it from the config
+        cfg = dataclasses.replace(cfg, precision=args.precision, rounding=args.rounding)
     group = TableGroup.from_config(cfg)
     batch = args.batch or cfg.batch_size
     rows = group.total_rows
@@ -78,11 +91,12 @@ def train_dlrm(args, cfg=None, host=None, mlps=None) -> Dict[str, Any]:
         locality=args.locality,
         seed=args.seed,
     )
-    kw: Dict[str, Any] = {"num_slots": slots}
+    kw: Dict[str, Any] = {"num_slots": slots, "precision": args.precision}
     if args.runtime == "scratchpipe":
         kw.update(past_window=cfg.past_window, future_window=cfg.future_window)
     if args.runtime == "static":
-        kw = {"hot_ids": hot_ids_for_group(group, cfg.cache_fraction, locality=args.locality)}
+        kw = {"hot_ids": hot_ids_for_group(group, cfg.cache_fraction, locality=args.locality),
+              "precision": args.precision}
     elif args.runtime == "nocache":
         kw = {}
     kw["device"] = dev
@@ -108,7 +122,7 @@ def train_dlrm(args, cfg=None, host=None, mlps=None) -> Dict[str, Any]:
     hit = float(np.mean([s.hit_rate for s in stats[6:]])) if len(stats) > 6 else 0
     print(
         f"runtime={args.runtime} source=synthetic "
-        f"kernel={'cuda' if dev.type == 'cuda' else 'plain'} precision=fp32 "
+        f"kernel={'cuda' if dev.type == 'cuda' else 'plain'} precision={args.precision} "
         f"tables={group.num_tables} rows={list(group.rows)}"
     )
     print(
@@ -150,6 +164,17 @@ def build_parser() -> argparse.ArgumentParser:
         help="cuda (default; raises without a card) or cpu (plain PyTorch "
         "versions of the kernels)",
     )
+    ap.add_argument(
+        "--precision", choices=("fp32", "fp16", "int8"), default="fp32",
+        help="scratchpad replica precision: fp32 host masters stay exact; "
+        "fp16/int8 rows hold 2x/4x resident rows at the same byte budget "
+        "(int8: per-row scale, dequantized in the kernel)",
+    )
+    ap.add_argument(
+        "--rounding", choices=("nearest", "stochastic"), default="stochastic",
+        help="re-quantization rounding of in-cache updates (reduced precision "
+        "only); 'stochastic' keeps repeated small updates unbiased",
+    )
     later = ap.add_argument_group("not ported yet (error with a ROADMAP pointer)")
     later.add_argument("--tables", type=int, default=0)
     later.add_argument("--trace", default=None)
@@ -157,7 +182,6 @@ def build_parser() -> argparse.ArgumentParser:
     later.add_argument("--chaos", default=None)
     later.add_argument("--executor", choices=("sync", "overlapped"), default="sync")
     later.add_argument("--planner", choices=("host", "device"), default="host")
-    later.add_argument("--precision", choices=("fp32", "fp16", "int8"), default="fp32")
     return ap
 
 

@@ -12,12 +12,16 @@ JAX. There, skip the repository's conftest (which imports JAX):
 Comparisons are bitwise (``torch.equal``): the kernels do the same fp32 adds
 in the same order as the plain versions — the backward ``scatter_add`` too
 (its duplicates in flat bag-major order, with no atomics), and the fused
-``fill_gather_reduce`` gathers the rows it has just filled.
+``fill_gather_reduce`` gathers the rows it has just filled. The fp16 and
+int8 forms (``gather_reduce_q``, ``fill_gather_reduce_q``, the byte-copy
+``fill``) are held the same way: the int8 dequant product is exact.
 """
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.core import quantize as tqz
+from repro_torch.core import scratchpad as tsp
 from repro_torch.kernels import gather_reduce as tgr
 from repro_torch.kernels import grad_coalesce as tgc
 from repro_torch.kernels import ops as tops
@@ -179,3 +183,147 @@ def test_cuda_training_launchers_check_operands(cuda):
     with pytest.raises(ValueError, match="rows"):
         tgr.fill_gather_reduce(st, torch.zeros(2, dtype=torch.int32, device=cuda),
                                torch.zeros(3, 40, device=cuda), ids)
+
+
+# ---------------------------------------------------------------------------
+# reduced precision: the fp16/int8 forms and the dequantizing kernels
+# ---------------------------------------------------------------------------
+def _quantized(precision, N, D):
+    """(payload, scale or None) quantized as the host [Collect] does."""
+    rows = (RNG.standard_normal((N, D)) * 10.0 ** RNG.integers(-2, 1, (N, 1))).astype(
+        np.float32)
+    rows[1] = 0.0
+    q = tqz.quantize_rows_np(rows, precision)
+    if precision == "int8":
+        return torch.from_numpy(q[0]), torch.from_numpy(q[1])
+    return torch.from_numpy(q), None
+
+
+_Q_KEYS = {"fp16": ("gather_reduce_f16", "fill_f16", "fill_gather_reduce_f16"),
+           "int8": ("gather_reduce_q", "fill_i8", "fill_gather_reduce_q")}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["fp16", "int8"])
+@pytest.mark.parametrize("D", [8, 40, 128, 192])
+@pytest.mark.parametrize("L", [1, 3, 20, 40])
+def test_cuda_gather_reduce_q_bitwise(cuda, precision, D, L):
+    N = 500
+    data, scale = _quantized(precision, N, D)
+    data = data.to(cuda)
+    scale = None if scale is None else scale.to(cuda)
+    ids = torch.from_numpy(RNG.integers(0, N // 10, (37, L)).astype(np.int32)).to(cuda)
+    out = tops.gather_reduce_q(data, scale, ids)
+    want = tref.gather_reduce_q_ref(data, scale, ids)
+    torch.cuda.synchronize()
+    assert out.dtype == torch.float32 and torch.equal(out, want)
+    assert tops.launch_counts()[_Q_KEYS[precision][0]] == 1
+    if precision == "fp16":  # the fp16 form of the plain gather casts back
+        assert torch.equal(tops.gather_reduce(data, ids), tref.gather_reduce_ref(data, ids))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["fp16", "int8"])
+@pytest.mark.parametrize("D", [8, 40, 128, 192, 3])
+def test_cuda_fill_reduced_precision_bitwise(cuda, precision, D):
+    """The byte-copy fill at every chunk width (D=3 int8: 1-byte chunks)."""
+    N = 300
+    st = _quantized(precision, N, D)[0].to(cuda)
+    slots = np.concatenate([RNG.permutation(N)[:100], [N] * 28]).astype(np.int32)
+    rows = _quantized(precision, slots.size, D)[0].to(cuda)
+    slots_t = torch.from_numpy(slots).to(cuda)
+    got = tops.fill(st.clone(), slots_t, rows)
+    want = tref.fill_ref(st.clone(), slots_t, rows)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert tops.launch_counts()[_Q_KEYS[precision][1]] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["fp16", "int8"])
+@pytest.mark.parametrize("D", [8, 40, 128, 192])
+@pytest.mark.parametrize("L", [1, 3, 20])
+def test_cuda_fill_gather_reduce_q_bitwise(cuda, precision, D, L):
+    """Sentinels in the fill, and lookups of the slots filled in the call;
+    the int8 scale column holds the fill rows' scales before the launch."""
+    N, F, nb = 600, 256, 113
+    data, scale = _quantized(precision, N, D)
+    slots = np.full(F, N, np.int32)
+    slots[RNG.permutation(F)[:200]] = RNG.permutation(N)[:200]
+    filled = slots[slots < N]
+    ids = np.where(RNG.random((nb, L)) < 0.5, RNG.choice(filled, (nb, L)),
+                   RNG.integers(0, N, (nb, L))).astype(np.int32)
+    rows, rows_scale = _quantized(precision, F, D)
+    if scale is not None:
+        keep = torch.from_numpy(slots < N)
+        scale[torch.from_numpy(slots)[keep].long()] = rows_scale[keep]
+        scale = scale.to(cuda)
+    data, rows = data.to(cuda), rows.to(cuda)
+    slots_t, ids_t = torch.from_numpy(slots).to(cuda), torch.from_numpy(ids).to(cuda)
+    got_st, got = tops.fill_gather_reduce_q(data.clone(), scale, slots_t, rows, ids_t)
+    want_st, want = tref.fill_gather_reduce_q_ref(data.clone(), scale, slots_t, rows, ids_t)
+    torch.cuda.synchronize()
+    assert torch.equal(got_st, want_st)
+    assert got.dtype == torch.float32 and torch.equal(got, want)
+    counts = tops.launch_counts()
+    assert counts[_Q_KEYS[precision][2]] == 1
+    assert counts[_Q_KEYS[precision][0]] == counts[_Q_KEYS[precision][1]] == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["fp16", "int8"])
+def test_cuda_quantized_grid_stride(cuda, precision):
+    """More fill rows and bags than the persistent grid has warps, at the
+    training width."""
+    N, D, F, nb, L = 300_000, 128, 131_072, 40_000, 3
+    data, scale = _quantized(precision, N, D)
+    g = torch.Generator(device="cpu").manual_seed(3)
+    slots = torch.randperm(N, generator=g)[:F].to(torch.int32)
+    rows, rows_scale = _quantized(precision, F, D)
+    if scale is not None:
+        scale[slots.long()] = rows_scale
+        scale = scale.to(cuda)
+    ids = slots[torch.randint(0, F, (nb, L), generator=g)].to(cuda)
+    data, rows, slots = data.to(cuda), rows.to(cuda), slots.to(cuda)
+    got_st, got = tops.fill_gather_reduce_q(data.clone(), scale, slots, rows, ids)
+    want_st, want = tref.fill_gather_reduce_q_ref(data.clone(), scale, slots, rows, ids)
+    torch.cuda.synchronize()
+    assert torch.equal(got_st, want_st) and torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["fp16", "int8"])
+def test_cuda_apply_grad_q_matches_cpu(cuda, precision):
+    """The quantized backward on the card (scatter kernel + torch epilogue)
+    at nearest rounding equals the CPU run of the same code."""
+    N, D, nb, L = 400, 40, 64, 5
+    st = tsp.make_storage(N, D, precision=precision, device="cpu")
+    rows = RNG.standard_normal((N, D)).astype(np.float32) * 0.1
+    tsp.fill(st, torch.arange(N, dtype=torch.int32),
+             tuple(torch.from_numpy(a) for a in tqz.quantize_rows_np(rows, precision))
+             if precision == "int8" else torch.from_numpy(tqz.quantize_rows_np(rows, precision)))
+    ids = torch.from_numpy(RNG.integers(0, N // 4, (nb, L)).astype(np.int32))
+    g = torch.from_numpy(RNG.standard_normal((nb, D)).astype(np.float32))
+    on_card = tqz.QuantStorage(*(t.to(cuda) for t in st)) if precision == "int8" else st.to(cuda)
+    tsp.apply_grad_q(on_card, ids.to(cuda), g.to(cuda), 0.05, rounding="nearest")
+    tsp.apply_grad_q(st, ids, g, 0.05, rounding="nearest")
+    torch.cuda.synchronize()
+    for a, b in zip(*((x,) if precision == "fp16" else x for x in (on_card, st))):
+        assert torch.equal(a.cpu(), b)
+    assert tops.launch_counts()["scatter_add"] == 1
+
+
+@pytest.mark.cuda
+def test_cuda_quantized_launchers_check_operands(cuda):
+    data = torch.zeros(8, 40, dtype=torch.int8, device=cuda)
+    ids = torch.zeros(2, 3, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="scale"):
+        tgr.gather_reduce_q(data, torch.ones(7, 1, device=cuda), ids)
+    with pytest.raises(TypeError):
+        tgr.gather_reduce_q(data, torch.ones(8, 1, dtype=torch.float16, device=cuda), ids)
+    with pytest.raises(TypeError):
+        tgr.gather_reduce(data, ids)  # int8 needs its scale: gather_reduce_q
+    with pytest.raises(TypeError):
+        tgr.fill(torch.zeros(8, 40, dtype=torch.float16, device=cuda),
+                 torch.zeros(2, dtype=torch.int32, device=cuda),
+                 torch.zeros(2, 40, device=cuda))

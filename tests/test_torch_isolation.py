@@ -5,9 +5,11 @@
   * no source file of the port, nor ``chip_smoke.py``, names them in an
     import statement;
   * the launchers, the runtimes and the trainer default to ``cuda`` and
-    raise when no card is visible, instead of continuing on the CPU.
+    raise when no card is visible, instead of continuing on the CPU — at
+    fp16/int8 replica precision too.
 """
 import ast
+import dataclasses
 import inspect
 import os
 import pkgutil
@@ -52,7 +54,8 @@ def test_every_module_listed():
               "repro_torch.launch.train", "repro_torch.core.pipeline",
               "repro_torch.models.dlrm", "repro_torch.kernels.grad_coalesce",
               "repro_torch.core.dlrm_runtime", "repro_torch.core.static_cache",
-              "repro_torch.configs.dlrm_scratchpipe", "repro_torch.data.lookahead"):
+              "repro_torch.configs.dlrm_scratchpipe", "repro_torch.data.lookahead",
+              "repro_torch.core.quantize", "repro_torch.core.scratchpad"):
         assert m in mods
 
 
@@ -123,3 +126,19 @@ def test_cuda_without_a_card_raises(monkeypatch):
         StaticCacheBaseline(host, [1, 2], noop)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         train.main(["--arch", "dlrm-scratchpipe", "--smoke", "--steps", "2"])
+
+
+@pytest.mark.parametrize("precision", ["fp16", "int8"])
+def test_reduced_precision_without_a_card_raises(monkeypatch, precision):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    host = HostEmbeddingTable(50, 4, seed=0)
+    noop = lambda s, slots, b: (s, {})  # noqa: E731
+    cfg = dataclasses.replace(smoke_config(), precision=precision)
+    for make in (lambda: ScratchPipe(host, 16, noop, precision=precision),
+                 lambda: StaticCacheBaseline(host, [1, 2], noop, precision=precision),
+                 lambda: DLRMTrainer(cfg),
+                 lambda: sp.make_storage(4, 4, precision=precision),
+                 lambda: train.main(["--arch", "dlrm-scratchpipe", "--smoke", "--steps",
+                                     "2", "--precision", precision])):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()

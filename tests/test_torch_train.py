@@ -361,7 +361,6 @@ def test_training_registry_and_options():
     noop = lambda s, slots, b: (s, {})  # noqa: E731
     for kw, item in ((dict(executor="overlapped"), "item 6"),
                      (dict(planner="device"), "item 7"),
-                     (dict(precision="int8"), "item 8"),
                      (dict(table_group=TGroup.uniform(2, 32, 4)), "item 9"),
                      (dict(supervise=object()), "item 12"),
                      (dict(tracer=object()), "item 12")):
@@ -373,8 +372,11 @@ def test_training_registry_and_options():
         pipe.state_arrays()
     with pytest.raises(TypeError, match="scratchpad"):
         t_make_runtime("nocache", host, noop, num_slots=16, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 8"):
-        TTrainer(tcfgs.smoke_config(), precision="int8", device="cpu")
+    # mixed precision is ported: int8 replicas hold 4x the rows of the budget
+    pipe = t_make_runtime("scratchpipe", host, noop, num_slots=16, precision="int8",
+                          device="cpu")
+    assert pipe.num_slots == 64 and pipe.nominal_slots == 16
+    assert TTrainer(tcfgs.smoke_config(), precision="int8", device="cpu").precision == "int8"
 
 
 # ---------------------------------------------------------------------------
@@ -526,8 +528,8 @@ def test_launcher_prints_reference_figures(runtime, capsys):
 
 def test_launcher_rejects_what_is_not_ported():
     for extra in (["--tables", "4"], ["--executor", "overlapped"], ["--planner", "device"],
-                  ["--precision", "fp16"], ["--supervise"], ["--trace", "x"],
-                  ["--chaos", "kill-gather@3"]):
+                  ["--runtime", "nocache", "--precision", "fp16"], ["--supervise"],
+                  ["--trace", "x"], ["--chaos", "kill-gather@3"]):
         with pytest.raises(SystemExit):
             tlaunch.main(["--arch", "dlrm-scratchpipe", "--smoke", "--device", "cpu", *extra])
     with pytest.raises(SystemExit):
