@@ -64,12 +64,39 @@ Phases, in order; any failure raises and the script exits non-zero:
                int8 forms of ``gather_reduce``, ``fill`` and
                ``fill_gather_reduce`` at the operands of the middle step of
                phase 8, and the plain ``requantize_update`` epilogue.
+ 10. lm serve — the LM serving path: ``repro_torch.launch.serve``'s
+               ``run_lm`` for ``--arch zamba2-1.2b --batch 4 --prompt-len
+               2048 --gen 16 --seed 0`` at full width (38 mamba2 layers,
+               d_model 2048, the shared attention block applied 6 times,
+               vocab 32000), bf16, no cut: one prefill, then 15 greedy
+               decode steps against the KV + SSM cache. Counts are reset
+               just before and read just after, and at the first decode
+               step: exactly 38 ``ssd_chunk_scan`` and 6 ``flash_attention``
+               launches in the prefill, none in decode; the plain versions
+               raise during the run. Logits finite, tokens in the vocab,
+               caches of the grown shape. Then each LM kernel against its
+               plain version at the run's first operands and over a sweep
+               (flash: GQA, MQA, causal + window, non-causal with ragged
+               keys past a block, Sq not a block multiple, hd 64/128; SSD:
+               ng 1/2, S not a multiple of Q, Q 64/256, ds 64/128; fp32 and
+               bf16), at the reference's tolerances (flash atol 2e-5 fp32,
+               3e-2 bf16; SSD atol 2e-4 fp32, and 3e-2 + 1e-2 |plain| for
+               its bf16 output). Then the same prefill and decode at fp32
+               (params and activations; TF32 off) through the kernels and
+               with the plain versions swapped in: last-position logits
+               within 1e-3 of the plain run's largest logit, the 16 greedy
+               tokens equal. A warm prefill and one decode step are traced
+               with torch.profiler (device time by kernel, busy share).
+ 11. timing  — ``flash_attention`` and ``ssd_chunk_scan`` at the main
+               path's operands beside their bounds, their plain versions
+               and (flash) ``F.scaled_dot_product_attention``.
 
 The sweep of phase 3 covers the fp16 and int8 forms too. The last three lines are the ``kernels`` JSON line, the nvidia-smi line and
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import statistics
@@ -88,6 +115,10 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 FP32_OPS_PER_S = 67e12  # H100 SXM fp32 outside the tensor cores
 CU_SOURCE = "src/repro_torch/kernels/csrc/gather_reduce.cu"
 CU_SOURCE_BWD = "src/repro_torch/kernels/csrc/grad_coalesce.cu"
+CU_SOURCE_FA = "src/repro_torch/kernels/csrc/flash_attention.cu"
+CU_SOURCE_SSD = "src/repro_torch/kernels/csrc/ssd_chunk.cu"
+BF16_OPS_PER_S = 989e12  # H100 SXM dense bf16 tensor cores
+TF32_OPS_PER_S = 495e12  # H100 SXM dense TF32 tensor cores (fp32 operands)
 DEVICE = "cuda"
 # the serving slice at the full width of dlrm-scratchpipe
 # (src/repro/configs/base.py: DLRMConfig), cut to 1M rows per table
@@ -109,6 +140,17 @@ Q_RUNS = (("fp16 split", "fp16", False), ("fp16 fused", "fp16", True),
 # each step's loss against the fp32 split run's: the reference's P3 bounds
 # (tests/test_precision_parity.py)
 Q_LOSS_RTOL = {"fp16": 1e-2, "int8": 1e-1}
+# the LM serving slice: zamba2-1.2b at full width, no cut
+LM_ARCH, LM_BATCH, LM_PROMPT, LM_GEN = "zamba2-1.2b", 4, 2048, 16
+LM_ARGV = ["--arch", LM_ARCH, "--batch", str(LM_BATCH), "--prompt-len", str(LM_PROMPT),
+           "--gen", str(LM_GEN), "--seed", "0", "--device", DEVICE]
+LM_PREFILL_LAUNCHES = {"ssd_chunk_scan": 38, "flash_attention": 6}
+# the reference's tolerances (tests/test_kernels.py); a bf16 SSD output is
+# held to 3e-2 + 1e-2 |plain| (two bf16 steps of 2^-8 relative, plus flash's
+# bf16 bound)
+FLASH_ATOL = {"float32": 2e-5, "bfloat16": 3e-2}
+SSD_ATOL, SSD_BF16_ATOL, SSD_BF16_RTOL = 2e-4, 3e-2, 1e-2
+LM_LOGIT_RTOL = 1e-3  # fp32 kernels vs plain: max |diff| / max |plain logit|
 
 
 def serve_args(design: str) -> list:
@@ -1071,6 +1113,358 @@ def time_q_kernels(torch, mods, captured, dev):
     return out, details
 
 
+# --------------------------------------------------------------------------- #
+# 10. the LM serving path
+# --------------------------------------------------------------------------- #
+LM_PLAIN_VERSIONS = PLAIN_VERSIONS + ("flash_attention_ref", "ssd_chunk_scan_ref")
+
+
+def lm_run(torch, mods, cfg=None, plain=False):
+    """One ``run_lm`` (``cfg`` overrides the arch's config). With
+    ``plain=False`` the plain versions raise during the run and the first
+    operands of each kernel are captured; with ``plain=True`` the launchers
+    are swapped for the plain versions (run on the card). Returns (result,
+    launch counts after the prefill, launch counts at the end, captured
+    operands, host ms of each decode step, its token on the host)."""
+    ops, ref, fa, ssd, hybrid = (mods[k] for k in ("ops", "ref", "fa", "ssd", "hybrid"))
+    real = {"fa": fa.flash_attention, "ssd": ssd.ssd_chunk_scan,
+            "decode": hybrid.decode_step}
+    real_refs = {n: getattr(ref, n) for n in LM_PLAIN_VERSIONS}
+    captured, at_decode, step_ms = {}, [], []
+
+    def spy_fa(q, k, v, causal, window):
+        captured.setdefault("flash", (q.clone(), k.clone(), v.clone(), causal, window))
+        return real["fa"](q, k, v, causal, window)
+
+    def spy_ssd(x, dt, A, Bm, Cm, Q):
+        captured.setdefault("ssd", tuple(t.clone() for t in (x, dt, A, Bm, Cm)) + (Q,))
+        return real["ssd"](x, dt, A, Bm, Cm, Q)
+
+    def spy_decode(*a, **k):
+        if not at_decode:
+            at_decode.append(ops.launch_counts())
+        t = time.perf_counter()
+        out = real["decode"](*a, **k)
+        out[0].cpu()  # the step's token reaches the host, as the launcher reads it
+        step_ms.append((time.perf_counter() - t) * 1e3)
+        return out
+
+    def no_plain(*_a, **_k):
+        raise RuntimeError("a plain PyTorch version ran on the main path")
+
+    if plain:
+        fa.flash_attention = lambda q, k, v, causal, window: real_refs[
+            "flash_attention_ref"](q, k, v, causal=causal, window=window)
+        ssd.ssd_chunk_scan = lambda x, dt, A, Bm, Cm, Q: real_refs[
+            "ssd_chunk_scan_ref"](x, dt, A, Bm, Cm, Q)
+    else:
+        fa.flash_attention, ssd.ssd_chunk_scan = spy_fa, spy_ssd
+        for n in LM_PLAIN_VERSIONS:
+            setattr(ref, n, no_plain)
+    hybrid.decode_step = spy_decode
+    try:
+        ops.reset_launch_counts()
+        res = mods["serve"].run_lm(mods["serve"].build_parser().parse_args(LM_ARGV),
+                                   cfg=cfg)
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+    finally:
+        fa.flash_attention, ssd.ssd_chunk_scan = real["fa"], real["ssd"]
+        hybrid.decode_step = real["decode"]
+        for n, fn in real_refs.items():
+            setattr(ref, n, fn)
+    return res, (at_decode[0] if at_decode else counts), counts, captured, step_ms
+
+
+def check_lm_result(torch, res, cfg, dev, what):
+    vocab, G = cfg.vocab_size, cfg.hybrid_groups
+    logits, cache, tokens = res["logits"], res["cache"], res["tokens"]
+    check(logits.device.type == dev.type and tuple(logits.shape) == (LM_BATCH, vocab)
+          and logits.dtype == torch.float32, f"{what}: logits {tuple(logits.shape)}")
+    check(bool(torch.isfinite(logits).all()), f"{what}: non-finite logits")
+    check(tokens.shape == (LM_BATCH, LM_GEN) and tokens.min() >= 0
+          and tokens.max() < vocab, f"{what}: tokens {tokens.shape}")
+    kv = (G, LM_BATCH, LM_PROMPT + LM_GEN + 1, cfg.num_kv_heads, cfg.head_dim)
+    check(tuple(cache["k"].shape) == kv == tuple(cache["v"].shape),
+          f"{what}: KV cache {tuple(cache['k'].shape)} != {kv}")
+    check(bool(torch.isfinite(cache["groups"][-1][-1]["ssm"]).all()),
+          f"{what}: non-finite SSM state")
+
+
+def check_lm_counts(what, after_prefill, counts):
+    want = LM_PREFILL_LAUNCHES
+    got = {k: after_prefill[k] for k in want}
+    check(got == want, f"{what}: prefill launched {got}, expected {want}")
+    check({k: counts[k] for k in want} == want,
+          f"{what}: decode launched LM kernels: {counts}")
+    other = {k: v for k, v in counts.items() if k not in want and v}
+    check(not other, f"{what}: other kernels launched: {other}")
+
+
+def device_summary(torch, prof, wall_ms: float) -> dict:
+    """Kernel (device) time of a torch.profiler trace: the CUDA events only
+    (an aten op's own device time is its kernels', so it is not added
+    again), against the host wall of the traced region."""
+    from torch.autograd import DeviceType
+
+    rows = [(e.key, e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    rows.sort(key=lambda r: -r[1])
+    busy = sum(r[1] for r in rows)
+    return {"wall_ms": wall_ms, "device_busy_ms": busy,
+            "device_idle_share": 1 - busy / wall_ms, "kernel_launches": sum(r[2] for r in rows),
+            "top": [{"name": k[:90], "ms": ms, "calls": n} for k, ms, n in rows[:12]]}
+
+
+def lm_profile(torch, mods, res):
+    """Two warm prefills of ``res``'s params and prompt on the host clock,
+    then one more prefill and one decode step (on ``res``'s grown cache, at
+    its last free position) traced with torch.profiler. Returns (summary,
+    the faster warm prefill's ms)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    api, cfg = mods["api"], res["cfg"]
+    batch = api.synth_batch(cfg, mods["ShapeSpec"]("serve", LM_PROMPT, LM_BATCH, "prefill"),
+                            seed=0, device=DEVICE)
+    prefill, decode = api.make_prefill_fn(cfg), api.make_decode_fn(cfg)
+    tok = torch.as_tensor(res["tokens"][:, -1:], device=DEVICE)
+    walls, summary = [], {}
+    with torch.inference_mode():
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            prefill(res["params"], batch)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        for what, fn in (("prefill", lambda: prefill(res["params"], batch)),
+                         ("decode step", lambda: decode(res["params"], res["cache"], tok,
+                                                        LM_PROMPT + LM_GEN - 1))):
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t0) * 1e3
+            summary[what] = device_summary(torch, prof, wall)
+    summary["warm_prefill_ms"] = walls
+    return summary, min(walls)
+
+
+# --------------------------------------------------------------------------- #
+# the LM kernels against their plain versions
+# --------------------------------------------------------------------------- #
+def lm_flash_check(torch, ops, ref, q, k, v, causal, window):
+    """One flash launch against its plain version; returns (dtype, err)."""
+    before = ops.launch_counts()["flash_attention"]
+    got = ops.flash_attention(q, k, v, causal, window)
+    want = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    check(ops.launch_counts()["flash_attention"] == before + 1, "flash launch count")
+    err = (got.float() - want.float()).abs().max().item()
+    name = str(q.dtype).split(".")[-1]
+    check(got.dtype == q.dtype and err <= FLASH_ATOL[name],
+          f"flash_attention differs by {err} > {FLASH_ATOL[name]} at q {tuple(q.shape)} "
+          f"k {tuple(k.shape)} causal={causal} window={window} {name}")
+    return name, err
+
+
+def lm_ssd_check(torch, ops, ref, ssd_in, Q):
+    """One SSD launch against its plain version; returns (dtype, err)."""
+    before = ops.launch_counts()["ssd_chunk_scan"]
+    y, h = ops.ssd_chunk_scan(*ssd_in, Q)
+    y_ref, h_ref = ref.ssd_chunk_scan_ref(*ssd_in, Q)
+    torch.cuda.synchronize()
+    check(ops.launch_counts()["ssd_chunk_scan"] == before + 1, "ssd launch count")
+    dy = (y.float() - y_ref.float()).abs()
+    dh = (h - h_ref).abs().max().item()
+    name = str(ssd_in[0].dtype).split(".")[-1]
+    where = f"x {tuple(ssd_in[0].shape)} B {tuple(ssd_in[3].shape)} Q={Q} {name}"
+    if name == "float32":
+        check(dy.max().item() <= SSD_ATOL, f"ssd y differs by {dy.max().item()} at {where}")
+    else:
+        check(bool((dy <= SSD_BF16_ATOL + SSD_BF16_RTOL * y_ref.float().abs()).all()),
+              f"ssd y (bf16) differs by {dy.max().item()} at {where}")
+    check(dh <= SSD_ATOL, f"ssd state differs by {dh} at {where}")
+    return name, max(dy.max().item(), dh)
+
+
+def lm_sweep(torch, ops, ref, dev, captured) -> dict:
+    """Both LM kernels against their plain versions at the main path's
+    operands and over the sweep (the reference's input distributions);
+    returns the largest error per kernel and dtype."""
+    g = torch.Generator(device=dev).manual_seed(0)
+    err = {}
+
+    def keep(kernel, name_err):
+        key = f"{kernel} {name_err[0]}"
+        err[key] = max(err.get(key, 0.0), name_err[1])
+
+    def randn(*shape, dtype=torch.float32):
+        return torch.randn(shape, generator=g, device=dev).to(dtype)
+
+    def uniform(lo, hi, *shape):
+        return torch.rand(shape, generator=g, device=dev) * (hi - lo) + lo
+
+    q, k, v, causal, window = captured["flash"]
+    keep("flash_attention", lm_flash_check(torch, ops, ref, q, k, v, causal, window))
+    *ssd_in, Q = captured["ssd"]
+    keep("ssd_chunk_scan", lm_ssd_check(torch, ops, ref, ssd_in, Q))
+    for dtype in (torch.float32, torch.bfloat16):
+        for B, Sq, Skv, H, K, hd, causal, window in (
+                (2, 128, 128, 8, 2, 64, True, None),  # GQA
+                (2, 160, 160, 4, 1, 32, True, None),  # MQA, Sq not a block multiple
+                (2, 256, 256, 8, 2, 64, True, 64),  # causal + window
+                (1, 300, 300, 4, 4, 64, False, 100),
+                (2, 200, 200, 4, 4, 64, False, None),  # non-causal, ragged keys
+                (2, 70, 300, 4, 2, 64, False, None),
+                (1, 100, 100, 4, 4, 128, True, None),  # hd 128
+                (1, 1000, 1000, 8, 2, 128, True, None)):
+            keep("flash_attention", lm_flash_check(
+                torch, ops, ref, randn(B, Sq, H, hd, dtype=dtype),
+                randn(B, Skv, K, hd, dtype=dtype), randn(B, Skv, K, hd, dtype=dtype),
+                causal, window))
+        for B, S, ng, hpg, hd, ds, Q in ((2, 300, 1, 4, 64, 64, 64),  # S % Q != 0
+                                         (1, 600, 2, 2, 64, 128, 256),
+                                         (2, 512, 1, 4, 64, 64, 256),
+                                         (1, 130, 2, 2, 128, 128, 64),
+                                         (1, 1000, 2, 8, 64, 64, 256)):
+            nh = ng * hpg
+            ssd_in = (randn(B, S, nh, hd, dtype=dtype), uniform(0.05, 1.0, B, S, nh),
+                      -uniform(0.3, 4.0, nh), randn(B, S, ng, ds), randn(B, S, ng, ds))
+            keep("ssd_chunk_scan", lm_ssd_check(torch, ops, ref, ssd_in, Q))
+    before = ops.launch_counts()
+    z = torch.zeros(2, 0, 4, 16, device=dev)
+    ops.flash_attention(z, z, z)
+    ops.flash_attention(torch.zeros(2, 5, 4, 16, device=dev), z, z)
+    ops.ssd_chunk_scan(torch.zeros(2, 0, 4, 8, device=dev), torch.zeros(2, 0, 4, device=dev),
+                       -torch.ones(4, device=dev), torch.zeros(2, 0, 1, 16, device=dev),
+                       torch.zeros(2, 0, 1, 16, device=dev), 8)
+    torch.cuda.synchronize()
+    check(ops.launch_counts() == before, "an empty LM operand launched a kernel")
+    return err
+
+
+def lm_fp32_check(torch, mods, dev):
+    """The prefill and decode at fp32 through the kernels, then with the
+    plain versions on the card (TF32 off): logits within LM_LOGIT_RTOL of
+    the plain run's largest, the greedy tokens equal. Returns a summary and
+    the kernels' first fp32 operands."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    cfg = dataclasses.replace(mods["get_config"](LM_ARCH), param_dtype="float32",
+                              compute_dtype="float32")
+    res_k, after_prefill, counts, captured, _ = lm_run(torch, mods, cfg=cfg)
+    check_lm_result(torch, res_k, cfg, dev, "lm fp32 kernels")
+    check_lm_counts("lm fp32 kernels", after_prefill, counts)
+    logits_k, tokens_k = res_k["logits"].clone(), res_k["tokens"]
+    summary = {"kernels_prefill_s": res_k["prefill_s"], "kernels_decode_s": res_k["decode_s"]}
+    del res_k
+    torch.cuda.empty_cache()
+    res_p, _, counts_p, _, _ = lm_run(torch, mods, cfg=cfg, plain=True)
+    check_lm_result(torch, res_p, cfg, dev, "lm fp32 plain")
+    check(not any(counts_p.values()), f"the plain run launched kernels: {counts_p}")
+    diff = (logits_k - res_p["logits"]).abs().max().item()
+    scale = res_p["logits"].abs().max().item()
+    check(diff <= LM_LOGIT_RTOL * scale,
+          f"fp32 logits: kernels vs plain differ by {diff} > {LM_LOGIT_RTOL} x {scale}")
+    check((tokens_k == res_p["tokens"]).all(),
+          f"fp32 greedy tokens differ:\n{tokens_k}\n{res_p['tokens']}")
+    summary.update({"plain_prefill_s": res_p["prefill_s"], "plain_decode_s": res_p["decode_s"],
+                    "max_abs_logit_diff": diff, "max_abs_logit": scale,
+                    "tokens_equal": True, "tf32": False, "tokens": tokens_k.tolist()})
+    del res_p
+    torch.cuda.empty_cache()
+    return summary, captured
+
+
+# --------------------------------------------------------------------------- #
+# 11. timing of the LM kernels
+# --------------------------------------------------------------------------- #
+def valid_pairs(Sq: int, Skv: int, causal: bool, window) -> int:
+    """(q, k) pairs the attention of these shapes needs (the unmasked ones)."""
+    n = 0
+    for qp in range(Sq):
+        hi = min(Skv - 1, qp) if causal else Skv - 1
+        lo = max(0, qp - window + 1) if window is not None else 0
+        n += max(0, hi - lo + 1)
+    return n
+
+
+def time_lm_kernels(torch, mods, captured, captured32, sweep_err, dev):
+    """flash_attention and ssd_chunk_scan at the main path's (bf16) first
+    operands: median ms (CUDA events, L2 flushed) beside the bound, the plain
+    version and, for flash, SDPA; the fp32 run's operands timed too."""
+    import torch.nn.functional as F
+
+    fa, ssd, ref = mods["fa"], mods["ssd"], mods["ref"]
+    flush = torch.empty(32 * 1024 * 1024, dtype=torch.float32, device=dev)  # 128 MB > L2
+    out, details = {}, {}
+
+    q, k, v, causal, window = captured["flash"]
+    B, Sq, H, hd = q.shape
+    Skv, K = k.shape[1], k.shape[2]
+    pairs = valid_pairs(Sq, Skv, causal, window)
+    f_ops = 4 * B * H * hd * pairs  # QK^T and PV, 2 flops per multiply-add
+    f_bytes = (q.numel() + k.numel() + v.numel() + q.numel()) * q.element_size()
+    t_ops, t_bytes = f_ops / BF16_OPS_PER_S, f_bytes / HBM_BYTES_PER_S
+    qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    out["flash_attention"] = {
+        "ms": median_ms(torch, lambda: fa.flash_attention(q, k, v, causal, window), 20, flush),
+        "plain_ms": median_ms(torch, lambda: ref.flash_attention_ref(
+            q, k, v, causal=causal, window=window), 5, flush),
+        "bound_ms": max(t_ops, t_bytes) * 1e3,
+        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        "library_ms": median_ms(torch, lambda: F.scaled_dot_product_attention(
+            qh, kh, vh, is_causal=True), 20, flush) if causal and window is None and H == K
+        else None,
+        "library": "F.scaled_dot_product_attention(is_causal=True), (B, H, S, hd) bf16",
+        "max_abs_err": max(e for n, e in sweep_err.items() if n.startswith("flash")),
+    }
+    q32, k32, v32, c32, w32 = captured32["flash"]
+    details["flash_attention"] = {
+        "shape": {"B": B, "Sq": Sq, "Skv": Skv, "H": H, "K": K, "hd": hd},
+        "dtype": str(q.dtype), "causal": causal, "window": window, "pairs": pairs,
+        "flops": f_ops, "bytes": f_bytes, "ops_ms_bf16": t_ops * 1e3,
+        "bytes_ms": t_bytes * 1e3,
+        "fp32_ms": median_ms(torch, lambda: fa.flash_attention(q32, k32, v32, c32, w32),
+                             10, flush),
+        "max_abs_err_by_dtype": {n: e for n, e in sweep_err.items() if n.startswith("flash")},
+    }
+    del qh, kh, vh, q32, k32, v32
+
+    x, dt, A, Bm, Cm, Q = captured["ssd"]
+    B, S, nh, hd = x.shape
+    ng, ds = Bm.shape[2], Bm.shape[3]
+    nc = -(-S // Q)
+    tri = Q * (Q + 1) // 2  # (i, j) pairs with j <= i in a full chunk
+    s_ops = (B * nh * nc * (2 * tri * hd + 4 * Q * ds * hd)  # y_intra, C.h, state
+             + B * ng * nc * 2 * tri * ds)  # C.B^T once per group
+    s_bytes = (2 * x.numel() * x.element_size()  # x in, y out
+               + 4 * (dt.numel() + A.numel() + Bm.numel() + Cm.numel() + B * nh * hd * ds))
+    t_ops, t_bytes = s_ops / TF32_OPS_PER_S, s_bytes / HBM_BYTES_PER_S
+    out["ssd_chunk_scan"] = {
+        "ms": median_ms(torch, lambda: ssd.ssd_chunk_scan(x, dt, A, Bm, Cm, Q), 20, flush),
+        "plain_ms": median_ms(torch, lambda: ref.ssd_chunk_scan_ref(x, dt, A, Bm, Cm, Q),
+                              5, flush),
+        "bound_ms": max(t_ops, t_bytes) * 1e3,
+        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        "library_ms": None,
+        "library": "no single PyTorch call computes the chunked SSD scan",
+        "max_abs_err": max(e for n, e in sweep_err.items() if n.startswith("ssd")),
+    }
+    x32, dt32, A32, B32, C32, Q32 = captured32["ssd"]
+    details["ssd_chunk_scan"] = {
+        "shape": {"B": B, "S": S, "nh": nh, "hd": hd, "ng": ng, "ds": ds, "Q": Q},
+        "dtype": str(x.dtype), "flops": s_ops, "bytes": s_bytes,
+        "ops_ms_tf32": t_ops * 1e3, "ops_ms_bf16": s_ops / BF16_OPS_PER_S * 1e3,
+        "bytes_ms": t_bytes * 1e3,
+        "fp32_ms": median_ms(torch, lambda: ssd.ssd_chunk_scan(x32, dt32, A32, B32, C32, Q32),
+                             10, flush),
+        "max_abs_err_by_dtype": {n: e for n, e in sweep_err.items() if n.startswith("ssd")},
+    }
+    return out, details
+
+
 def main() -> int:
     import torch
 
@@ -1082,20 +1476,26 @@ def main() -> int:
               "a checkout", file=sys.stderr)
         return 2
     sys.path.insert(0, str(SRC))
-    from repro_torch.configs.base import DLRMConfig
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import DLRMConfig, ShapeSpec
     from repro_torch.core import dlrm_runtime, pipeline, serving_cache, static_cache
     from repro_torch.core import quantize as qz
     from repro_torch.core.host_table import HostEmbeddingTable
     from repro_torch.kernels import _build, ops, ref
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import gather_reduce as gr
     from repro_torch.kernels import grad_coalesce as gc
+    from repro_torch.kernels import ssd_chunk as ssd
     from repro_torch.launch import serve, train
+    from repro_torch.models import api, hybrid
     from repro_torch.models.dlrm import interaction_dim
 
     mods = {"ops": ops, "ref": ref, "gr": gr, "gc": gc, "qz": qz, "train": train,
             "pipeline": pipeline, "static_cache": static_cache,
             "dlrm_runtime": dlrm_runtime, "HostEmbeddingTable": HostEmbeddingTable,
-            "DLRMConfig": DLRMConfig, "interaction_dim": interaction_dim}
+            "DLRMConfig": DLRMConfig, "interaction_dim": interaction_dim,
+            "fa": fa, "ssd": ssd, "serve": serve, "api": api, "hybrid": hybrid,
+            "ShapeSpec": ShapeSpec, "get_config": get_config}
 
     t_start = time.perf_counter()
     card = card_line()
@@ -1186,6 +1586,57 @@ def main() -> int:
     log(f"timing: reduced-precision operands done ({time.perf_counter() - t0:.1f}s)")
     print("details: " + json.dumps(q_details), flush=True)
 
+    del q_captured
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    log("lm serve: " + " ".join(LM_ARGV))
+    res, after_prefill, lm_counts, lm_captured, step_ms = lm_run(torch, mods)
+    lm_cfg = res["cfg"]
+    check(lm_cfg == get_config(LM_ARCH) and lm_cfg.d_model == 2048
+          and lm_cfg.num_layers == 38 and lm_cfg.vocab_size == 32000,
+          "the LM config is not the full zamba2-1.2b")
+    check(res["params"]["embed"].dtype == torch.bfloat16
+          and res["params"]["embed"].device.type == dev.type, "params not bf16 on the card")
+    check_lm_result(torch, res, lm_cfg, dev, "lm serve")
+    check_lm_counts("lm serve", after_prefill, lm_counts)
+    log(f"lm serve: prefill launched {after_prefill['ssd_chunk_scan']} ssd_chunk_scan + "
+        f"{after_prefill['flash_attention']} flash_attention, decode none "
+        f"({time.perf_counter() - t0:.1f}s)")
+    profile, warm_ms = lm_profile(torch, mods, res)
+    lm_summary = {
+        "prefill_ms_cold": res["prefill_s"] * 1e3, "prefill_ms_warm": warm_ms,
+        "decode_ms_per_step": res["decode_s"] / max(res["decode_steps"], 1) * 1e3,
+        "decode_step_ms": step_ms,
+        "decode_step_ms_median": statistics.median(step_ms) if step_ms else None,
+        "prompt_tokens_per_s_warm": LM_BATCH * LM_PROMPT / (warm_ms / 1e3),
+        "decode_tokens_per_s": LM_BATCH * res["decode_steps"] / res["decode_s"],
+        "peak_memory_GB": torch.cuda.max_memory_allocated() / 1e9,
+        "launches_after_prefill": {k: after_prefill[k] for k in LM_PREFILL_LAUNCHES},
+        "launches_total": {k: lm_counts[k] for k in LM_PREFILL_LAUNCHES},
+        "tokens": res["tokens"].tolist(), "profile": profile,
+    }
+    print("lm serve: " + json.dumps(lm_summary), flush=True)
+    del res
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    lm_err = lm_sweep(torch, ops, ref, dev, lm_captured)
+    log(f"lm kernels: within tolerance of their plain versions {lm_err} "
+        f"({time.perf_counter() - t0:.1f}s)")
+    t0 = time.perf_counter()
+    fp32_summary, lm_captured32 = lm_fp32_check(torch, mods, dev)
+    log(f"lm fp32: kernels vs plain logits {fp32_summary['max_abs_logit_diff']:.3g} of "
+        f"{fp32_summary['max_abs_logit']:.3g}, {LM_GEN} greedy tokens equal "
+        f"({time.perf_counter() - t0:.1f}s)")
+    print("lm fp32: " + json.dumps(fp32_summary), flush=True)
+    t0 = time.perf_counter()
+    lm_times, lm_details = time_lm_kernels(torch, mods, lm_captured, lm_captured32, lm_err,
+                                           dev)
+    log(f"timing: LM operands done ({time.perf_counter() - t0:.1f}s)")
+    print("details: " + json.dumps(lm_details), flush=True)
+    del lm_captured, lm_captured32
+
     by_run = {"serve": counts, **train_counts, **q_counts}
     gather, fill = kernels
     for k in (gather, fill):
@@ -1210,6 +1661,14 @@ def main() -> int:
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": sum(launches.values()), "launches_by_run": launches,
             "max_abs_err": max(sweep_err[name], t.pop("max_abs_err")), **t,
+        })
+    for name, source, replaces in (
+            ("flash_attention", CU_SOURCE_FA, "src/repro/kernels/flash_attention.py:87"),
+            ("ssd_chunk_scan", CU_SOURCE_SSD, "src/repro/kernels/ssd_chunk.py:81")):
+        kernels.append({
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": lm_counts[name], "launches_by_run": {"lm serve": lm_counts[name]},
+            **lm_times[name],
         })
     log(f"total {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": kernels}), flush=True)

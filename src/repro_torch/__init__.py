@@ -7,7 +7,10 @@ kernel under ``kernels/csrc/``, dispatched by the tensor's device
 (``kernels/ops.py``). Ported so far: the DLRM embedding serving path
 (``launch/serve.py --embedding``; ``nocache-serve`` and
 ``scratchpipe-serve``) and DLRM training (``launch/train.py``;
-``scratchpipe`` split and fused, ``strawman``, ``nocache``, ``static``),
-with the ``gather_reduce``, ``fill``, ``fill_gather_reduce`` and
-``scatter_add`` kernels.
+``scratchpipe`` split and fused, ``strawman``, ``nocache``, ``static``;
+fp32 and fp16/int8 replicas), with the ``gather_reduce``,
+``gather_reduce_q``, ``fill``, ``fill_gather_reduce``,
+``fill_gather_reduce_q`` and ``scatter_add`` kernels; and LM serving of
+zamba2-1.2b (``launch/serve.py --arch``: prefill + greedy decode) with the
+``flash_attention`` and ``ssd_chunk_scan`` kernels.
 """

@@ -1,9 +1,12 @@
-"""DLRM configuration dataclass.
+"""Configuration dataclasses: ``DLRMConfig``, the LM ``ModelConfig`` and
+``ShapeSpec``.
 
-Port of ``DLRMConfig`` from ``repro/configs/base.py``, copied field for
-field (the reference's module is pure data too, but importing it would load
-the JAX package). The LM-side ``ModelConfig``/``ShapeSpec`` come with the
-LM slice.
+Ports of the classes of the same names in ``repro/configs/base.py`` (the
+reference's module is pure data too, but importing it would load the JAX
+package). ``DLRMConfig`` and ``ShapeSpec`` are copied field for field;
+``ModelConfig`` keeps the fields the ported LM path reads. The reference's
+dry-run shape grid and arch registry are not ported:
+``configs/__init__.py`` resolves the archs the port runs.
 """
 from __future__ import annotations
 
@@ -79,3 +82,68 @@ class DLRMConfig:
         dims_t = (inter_dim,) + self.top_mlp
         top = sum(a * b + b for a, b in zip(dims_t[:-1], dims_t[1:]))
         return emb + bot + top
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeSpec:
+    """One (seq_len, global_batch) cell of the dry-run grid."""
+
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # "train" | "prefill" | "decode"
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    """The fields of the reference's ``ModelConfig`` that the ported hybrid
+    serving path reads, with the reference's defaults. The reference's
+    other fields (MoE, sliding window, qkv bias, sharding, remat and scan
+    knobs, frontends, the bf16 SSD storage) come with the slices that port
+    the code reading them (ROADMAP.md Queue 1 items 15-19)."""
+
+    name: str
+    family: str  # hybrid (the reference's other families are not ported)
+    num_layers: int
+    d_model: int
+    num_heads: int
+    num_kv_heads: int
+    d_ff: int
+    vocab_size: int
+    head_dim: int = 0  # 0 -> d_model // num_heads
+
+    # attention details
+    rope_theta: float = 10000.0
+    rope_fraction: float = 1.0
+    causal: bool = True
+
+    # SSM (mamba2 / SSD)
+    ssm_state: int = 0
+    ssm_expand: int = 2
+    ssm_headdim: int = 64
+    ssm_ngroups: int = 1
+    ssm_conv: int = 4
+    ssm_chunk: int = 256
+
+    # hybrid (zamba2-style): groups of mamba layers + shared attention block
+    hybrid_groups: int = 0
+    hybrid_layers_per_group: int = 0
+    hybrid_tail_layers: int = 0
+
+    # numerics
+    norm_eps: float = 1e-5
+    param_dtype: str = "bfloat16"
+    compute_dtype: str = "bfloat16"
+
+    def __post_init__(self):
+        if self.head_dim == 0 and self.num_heads:
+            object.__setattr__(self, "head_dim", self.d_model // self.num_heads)
+
+    # ---- derived sizes -----------------------------------------------------
+    @property
+    def d_inner(self) -> int:  # mamba2 inner width
+        return self.ssm_expand * self.d_model
+
+    @property
+    def ssm_nheads(self) -> int:
+        return self.d_inner // self.ssm_headdim if self.ssm_headdim else 0

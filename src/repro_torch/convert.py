@@ -18,11 +18,18 @@ returns), so this module imports nothing of the reference:
   * :func:`mlps_from_reference` — the reference's DLRM ``init_mlps``
     pytree (as numpy arrays) -> the parameters of the port's
     ``models.dlrm.DLRM`` (a ``state_dict``, copied and transposed to
-    ``nn.Linear``'s (out, in) layout).
+    ``nn.Linear``'s (out, in) layout);
+  * :func:`lm_params_from_reference` — the reference's LM params (the
+    nested dict of ``models/api.py: init``, as numpy arrays) -> the port's
+    hybrid params: the stacked ``groups`` leaves (G, m, ...) and ``tail``
+    leaves (tail, ...) become per-layer dicts, every array a copy;
+  * :func:`lm_cache_from_reference` — a reference hybrid decode cache (as
+    numpy arrays) -> the port's, likewise unstacked per layer, so the port
+    can decode on from a reference prefill.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Any, Dict, List
 
 import numpy as np
 import torch
@@ -118,4 +125,58 @@ def mlps_from_reference(mlps: dict) -> Dict[str, torch.Tensor]:
                 )
             out[f"{stack}.{i}.weight"] = torch.from_numpy(np.array(w.T, copy=True))
             out[f"{stack}.{i}.bias"] = torch.from_numpy(np.array(b, copy=True))
+    return out
+
+
+def _tensor(a, device) -> torch.Tensor:
+    """A copy of numpy array ``a`` as a tensor on ``device``; bfloat16
+    arrays (numpy's ml_dtypes type, which torch cannot read) go through
+    their 16-bit pattern."""
+    arr = np.array(a, copy=True)
+    if arr.dtype.name == "bfloat16":
+        return torch.from_numpy(arr.view(np.uint16)).view(torch.bfloat16).to(device)
+    return torch.from_numpy(arr).to(device)
+
+
+def _tree(d, device):
+    if isinstance(d, dict):
+        return {k: _tree(v, device) for k, v in d.items()}
+    return _tensor(d, device)
+
+
+def _unstack(tree: Dict[str, Any], n_lead: int, device) -> List:
+    """{name: (n0[, n1], ...)} -> [[{name: (...)}, ...], ...] over the
+    ``n_lead`` leading axes (1: a list of dicts; 2: a list of lists)."""
+    leaves = {k: np.asarray(v) for k, v in tree.items()}
+    n = {v.shape[0] for v in leaves.values()}
+    if len(n) != 1:
+        raise ValueError(f"stacked leaves disagree on their leading axis: {sorted(n)}")
+    out = []
+    for i in range(n.pop()):
+        sub = {k: v[i] for k, v in leaves.items()}
+        out.append(_unstack(sub, n_lead - 1, device) if n_lead > 1
+                   else {k: _tensor(v, device) for k, v in sub.items()})
+    return out
+
+
+def lm_params_from_reference(params: dict, device="cpu") -> dict:
+    """Reference hybrid LM params (numpy arrays: ``embed``, ``groups``
+    stacked (G, m, ...), ``shared``, ``final_norm``, ``lm_head``, ``tail``
+    stacked (tail, ...)) -> the port's ``models/hybrid.py`` params on
+    ``device``, every array copied."""
+    out = {k: _tree(v, device) for k, v in params.items() if k not in ("groups", "tail")}
+    out["groups"] = _unstack(params["groups"], 2, device)
+    if "tail" in params:
+        out["tail"] = _unstack(params["tail"], 1, device)
+    return out
+
+
+def lm_cache_from_reference(cache: dict, device="cpu") -> dict:
+    """Reference hybrid decode cache (numpy arrays: ``groups`` states
+    stacked (G, m, B, ...), ``k``/``v`` (G, B, S, K, hd), ``x0``, ``tail``
+    stacked (tail, B, ...)) -> the port's, on ``device``, copied."""
+    out = {k: _tensor(cache[k], device) for k in ("k", "v", "x0")}
+    out["groups"] = _unstack(cache["groups"], 2, device)
+    if "tail" in cache:
+        out["tail"] = _unstack(cache["tail"], 1, device)
     return out

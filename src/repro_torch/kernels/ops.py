@@ -3,7 +3,9 @@
 Port of ``gather_reduce``, ``gather_reduce_q``, ``fill``,
 ``fill_gather_reduce``, ``fill_gather_reduce_q``, ``coalesce_deltas`` and
 ``coalesce_apply`` of ``repro/kernels/ops.py``, for fp32, fp16 and int8
-storage. The wrappers own what the raw launchers do not take:
+storage, and of its LM kernels ``flash_attention`` (forward) and
+``ssd_chunk_scan``, for fp32 and bf16 activations. The wrappers own what
+the raw launchers do not take:
 
   * natural shapes — leading batch/table dims of ``slot_ids`` are flattened
     to (nb, L) and restored on the way out;
@@ -33,7 +35,10 @@ reference returns new arrays; with donation XLA updates in place too). The
 autograd paths are functional: they work on a copy of the storage.
 
 The reference pads the lane dim to its TPU tile; the CUDA kernels take any
-``D``, so the port does not pad.
+``D``, so the port does not pad. Nor does it pad the LM kernels' sequence
+dims to a block or chunk multiple: the kernels mask the ragged edge
+themselves (the reference's zero-padded keys enter a non-causal softmax,
+ROADMAP Queue 3).
 """
 from __future__ import annotations
 
@@ -41,11 +46,13 @@ from typing import Dict, Tuple
 
 import torch
 
+from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import gather_reduce as _gr
 from repro_torch.kernels import grad_coalesce as _gc
 from repro_torch.kernels import ref as _ref
+from repro_torch.kernels import ssd_chunk as _ssd
 
-_COUNTERS = (_gr.LAUNCHES, _gc.LAUNCHES)
+_COUNTERS = (_gr.LAUNCHES, _gc.LAUNCHES, _fa.LAUNCHES, _ssd.LAUNCHES)
 
 
 def launch_counts() -> Dict[str, int]:
@@ -315,3 +322,46 @@ def fill_gather_reduce_q(
     flat = slot_ids.reshape(-1, L).contiguous()
     bags = _fused_q_call(storage, scale, fill_slots, fill_rows, flat)
     return storage, bags.reshape(*lead, D)
+
+
+# --------------------------------------------------------------------------- #
+# LM kernels: attention and the Mamba2 / SSD chunked scan
+# --------------------------------------------------------------------------- #
+def flash_attention(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = True,
+    window=None,
+) -> torch.Tensor:
+    """Forward attention: q (B, Sq, H, hd); k/v (B, Skv, K, hd) with
+    H % K == 0 -> (B, Sq, H, hd) in q's dtype. Keys past Skv, past the
+    causal frontier (``causal``) or outside ``window`` are masked. No
+    gradient (the reference's backward recomputes through the plain
+    version; LM training is not ported yet)."""
+    B, Sq, H, hd = q.shape
+    if min(B, Sq, H, hd) == 0:  # nothing to compute: no launch
+        return q.new_empty(q.shape)
+    if k.shape[1] == 0:  # every key masked: zeros, as the kernel would give
+        return torch.zeros_like(q)
+    if _route(q) == "cuda":
+        return _fa.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                                   causal, window)
+    return _ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+
+
+def ssd_chunk_scan(
+    x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.Tensor,
+    Cm: torch.Tensor, chunk: int = 256,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Mamba2 / SSD chunked scan from a zero state: x (B, S, nh, hd), dt
+    (B, S, nh) fp32, A (nh,) fp32, Bm/Cm (B, S, ng, ds) fp32 -> (y (B, S,
+    nh, hd) in x's dtype, h_final (B, nh, hd, ds) fp32), in chunks of
+    ``min(chunk, S)``."""
+    Bt, S, nh, hd = x.shape
+    ds = Bm.shape[3]
+    if min(Bt, S, nh, hd, ds) == 0:  # nothing to scan: no launch
+        return (x.new_empty(x.shape),
+                torch.zeros((Bt, nh, hd, ds), dtype=torch.float32, device=x.device))
+    Q = min(chunk, S)
+    if _route(x) == "cuda":
+        return _ssd.ssd_chunk_scan(x.contiguous(), dt.contiguous(), A.contiguous(),
+                                   Bm.contiguous(), Cm.contiguous(), Q)
+    return _ref.ssd_chunk_scan_ref(x, dt, A, Bm, Cm, Q)

@@ -30,8 +30,26 @@ the card (bitwise: the kernels do the same fp32 adds in the same order).
     ``r``-th delta of every row at once (the rows of one level are unique,
     so the level is a plain gather-add-scatter with no race). It writes in
     place, and so does ``coalesce_apply_ref``.
+
+And of its LM half, held to a tolerance (the kernels sum in another order):
+
+  * ``flash_attention_ref`` — ``repro/kernels/ref.py: flash_attention_ref``:
+    a direct softmax over the (Sq, Skv) scores in fp32, masked where
+    ``kv_pos > q_pos`` (causal) or ``q_pos - kv_pos >= window``; p is
+    rounded to v's dtype before the PV product.
+  * ``ssd_chunk_scan_ref`` — the chunk loop of ``repro/models/mamba2.py:
+    ssd_scan`` with ``h0=None, low_prec=False``, in the same einsum order
+    (the three-operand state einsum as ``x . (B * wj)``, the TPU kernel's
+    order), computed in dt's dtype (fp32 on the serving path). The prefix
+    sum of ``dt * A`` is accumulated in fp64 and rounded once — what torch's
+    CPU ``cumsum`` does anyway — so the card's plain version and the kernel
+    see the same ``cum``. In fp32 at Q = 256, y lies about 5e-4 from the
+    exact recurrence, as the reference's does (tests/test_torch_lm_kernels.
+    py), more than the 2e-4 the kernel is held to against this version.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -165,3 +183,87 @@ def coalesce_apply_ref(
         return storage
     deltas = scatter_deltas(storage, bag_grads, lr).reshape(-1, D)
     return scatter_add_ref(storage, slot_ids.reshape(-1, L), deltas)
+
+
+def flash_attention_ref(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = True,
+    window=None,
+) -> torch.Tensor:
+    """q (B, Sq, H, hd); k/v (B, Skv, K, hd) with H % K == 0 -> (B, Sq, H,
+    hd) in q's dtype. Direct softmax attention; kv head h // (H // K)."""
+    B, Sq, H, hd = q.shape
+    G = H // k.shape[2]
+    if G > 1:
+        k = k.repeat_interleave(G, dim=2)
+        v = v.repeat_interleave(G, dim=2)
+    Skv = k.shape[1]
+    s = torch.einsum("bqhd,bjhd->bhqj", q.float(), k.float()) / math.sqrt(hd)
+    q_pos = torch.arange(Sq, device=q.device)[:, None]
+    kv_pos = torch.arange(Skv, device=q.device)[None, :]
+    valid = torch.ones((Sq, Skv), dtype=torch.bool, device=q.device)
+    if causal:
+        valid &= kv_pos <= q_pos
+    if window is not None:
+        valid &= q_pos - kv_pos < window
+    s = torch.where(valid[None, None], s, torch.full((), -1e30, device=q.device))
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bhqj,bjhd->bqhd", p.to(v.dtype).float(), v.float())
+    return out.to(q.dtype)
+
+
+def ssd_chunk_scan_ref(
+    x: torch.Tensor,  # (B, S, nh, hd)
+    dt: torch.Tensor,  # (B, S, nh) fp32, post-softplus
+    A: torch.Tensor,  # (nh,) fp32, negative
+    Bm: torch.Tensor,  # (B, S, ng, ds) fp32
+    Cm: torch.Tensor,  # (B, S, ng, ds) fp32
+    chunk: int,
+):
+    """Returns (y (B, S, nh, hd) in x's dtype, h_final (B, nh, hd, ds) in
+    dt's dtype). S is zero-padded to a chunk multiple (dt = 0 leaves the state
+    unchanged), as in the reference."""
+    Bt, S, nh, hd = x.shape
+    ng, ds = Bm.shape[2], Bm.shape[3]
+    hpg = nh // ng
+    Q = min(chunk, S)
+    pad = (-S) % Q
+    if pad:
+        x = torch.nn.functional.pad(x, (0, 0, 0, 0, 0, pad))
+        dt = torch.nn.functional.pad(dt, (0, 0, 0, pad))
+        Bm = torch.nn.functional.pad(Bm, (0, 0, 0, 0, 0, pad))
+        Cm = torch.nn.functional.pad(Cm, (0, 0, 0, 0, 0, pad))
+    nc = (S + pad) // Q
+    # chunked views, group-major head layout (B, nc, Q, ng, hpg, ...)
+    xg = x.reshape(Bt, nc, Q, ng, hpg, hd)
+    dtg = dt.reshape(Bt, nc, Q, ng, hpg)
+    Bg = Bm.reshape(Bt, nc, Q, ng, ds)
+    Cg = Cm.reshape(Bt, nc, Q, ng, ds)
+    Ag = A.reshape(ng, hpg)
+    tri = torch.ones((Q, Q), dtype=torch.bool, device=x.device).tril()[
+        None, :, :, None, None]  # i >= j
+    neg_inf = torch.full((), -math.inf, device=x.device)
+    h = torch.zeros((Bt, ng, hpg, hd, ds), dtype=dt.dtype, device=x.device)
+    ys = []
+    for c in range(nc):
+        xc, dtc, Bc, Cc = xg[:, c].to(dt.dtype), dtg[:, c], Bg[:, c], Cg[:, c]
+        a = dtc * Ag  # (B, Q, ng, hpg), <= 0
+        cum = torch.cumsum(a, dim=1, dtype=torch.float64).to(dt.dtype)
+        total = cum[:, -1]  # (B, ng, hpg)
+        # intra-chunk quadratic form; the i < j exponent is positive and
+        # would overflow -> mask inside the exp (masking after gives inf*0)
+        G = torch.einsum("bigs,bjgs->bgij", Cc, Bc)
+        expo = cum[:, :, None] - cum[:, None, :]  # (B, i, j, ng, hpg)
+        decay = torch.exp(torch.where(tri, expo, neg_inf))
+        w_ij = decay * dtc[:, None, :]
+        s = G[..., None] * w_ij.permute(0, 3, 1, 2, 4)  # (B, ng, i, j, hpg)
+        y_intra = torch.einsum("bgijn,bjgnd->bignd", s, xc)
+        # inter-chunk: contribution of the incoming state
+        y_inter = torch.einsum("bigs,bgnds->bignd", Cc, h) * torch.exp(cum)[..., None]
+        # state update
+        wj = torch.exp(total[:, None] - cum) * dtc  # (B, Q, ng, hpg)
+        Bw = Bc[:, :, :, None, :] * wj[..., None]  # (B, Q, ng, hpg, ds)
+        h = h * torch.exp(total)[..., None, None] + torch.einsum(
+            "bjgnd,bjgns->bgnds", xc, Bw)
+        ys.append((y_intra + y_inter).to(x.dtype))
+    y = torch.stack(ys, 1).reshape(Bt, nc * Q, nh, hd)[:, :S]
+    return y, h.reshape(Bt, nh, hd, ds)

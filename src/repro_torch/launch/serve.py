@@ -1,20 +1,32 @@
-"""Serving launcher of the port: the DLRM embedding lookup tier.
+"""Serving launcher of the port: LM prefill + decode, or the DLRM embedding
+lookup tier.
 
-Port of the ``--embedding`` mode of ``repro/launch/serve.py``: serve a
-synthetic scenario's request micro-batches through a read-only cache
-runtime (the queue-as-lookahead pipeline) on the card:
+Port of ``repro/launch/serve.py``. LM archs (batched prefill + greedy
+decode against the KV/SSM cache; ``zamba2-1.2b`` so far, the others raise
+with their ROADMAP item):
+
+    python -m repro_torch.launch.serve --arch zamba2-1.2b --batch 4 \
+        --prompt-len 2048 --gen 16
+
+``--smoke`` takes the arch's smoke config. Weights are random, drawn from
+``--seed``, as in the reference. Prints the reference's ``prefill:``,
+``decode:`` and ``sample[b]:`` lines.
+
+Embedding serving: a synthetic scenario's request micro-batches through a
+read-only cache runtime (the queue-as-lookahead pipeline):
 
     python -m repro_torch.launch.serve --embedding --design scratchpipe-serve \
         --scenario inference_mix --steps 64 --depth 2
 
-``--device cpu`` runs the kernels' plain PyTorch versions instead. It
-prints the same ``serving``/``served``/``hit_rate=`` lines as the
-reference. LM serving, ``--trace`` replay, ``static-serve``, warm start and
-the telemetry outputs are not ported yet (see ROADMAP.md).
+It prints the same ``serving``/``served``/``hit_rate=`` lines as the
+reference. Both run on the card; ``--device cpu`` runs the kernels' plain
+PyTorch versions instead. ``--trace`` replay, ``static-serve``, warm start
+and the telemetry outputs are not ported yet (see ROADMAP.md).
 """
 from __future__ import annotations
 
 import argparse
+import time
 from typing import Any, Dict, Optional, Sequence
 
 DESIGNS = ("scratchpipe-serve", "nocache-serve")
@@ -92,6 +104,69 @@ def run_embedding(args, *, collect_bags: bool = False) -> Dict[str, Any]:
     return res
 
 
+def _sync(dev) -> None:
+    if dev.type == "cuda":
+        import torch
+
+        torch.cuda.synchronize(dev)
+
+
+def run_lm(args, cfg=None) -> Dict[str, Any]:
+    """Port of the reference's ``_serve_lm``: random params from
+    ``--seed``, the reference's synthetic prompt batch, one prefill, the KV
+    cache grown by ``gen + 1`` positions, then ``gen - 1`` greedy decode
+    steps. ``cfg`` overrides the arch's config (same arch, e.g. another
+    dtype). Prints the reference's lines and returns the prefill logits,
+    the cache, the generated tokens (B, gen) and the host-clock times (each
+    ended by a device synchronization)."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.device import resolve_device
+    from repro_torch.models import api
+
+    dev = resolve_device(args.device)
+    if cfg is None:
+        cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    shape = ShapeSpec("serve", args.prompt_len, args.batch, "prefill")
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    params = api.init(cfg, gen, device=dev)
+    batch = api.synth_batch(cfg, shape, seed=args.seed, device=dev)
+    prefill = api.make_prefill_fn(cfg)
+    decode = api.make_decode_fn(cfg)
+
+    with torch.inference_mode():
+        _sync(dev)
+        t0 = time.perf_counter()
+        logits, cache = prefill(params, batch)
+        # grow the KV caches to the full generation length (the reference
+        # grows a hybrid cache by gen + 1)
+        cache["k"] = F.pad(cache["k"], (0, 0, 0, 0, 0, args.gen + 1))
+        cache["v"] = F.pad(cache["v"], (0, 0, 0, 0, 0, args.gen + 1))
+        tok = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
+        _sync(dev)
+        prefill_s = time.perf_counter() - t0
+        print(f"prefill: {prefill_s:.2f}s")
+        outs = [tok.cpu().numpy()]
+        t1 = time.perf_counter()
+        for i in range(args.gen - 1):
+            tok, cache = decode(params, cache, tok, args.prompt_len + i)
+            outs.append(tok.cpu().numpy())
+        decode_s = time.perf_counter() - t1
+    steps = args.gen - 1
+    generated = np.concatenate(outs, axis=1)
+    print(f"decode: {steps} steps in {decode_s:.2f}s "
+          f"({decode_s / max(steps, 1) * 1e3:.1f} ms/step/batch)")
+    for b in range(min(args.batch, 2)):
+        print(f"  sample[{b}]: {generated[b].tolist()}")
+    return {"cfg": cfg, "params": params, "logits": logits, "cache": cache,
+            "tokens": generated, "prefill_s": prefill_s, "decode_s": decode_s,
+            "decode_steps": steps}
+
+
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.split("\n", 1)[0])
     ap.add_argument("--batch", type=int, default=4)
@@ -101,10 +176,15 @@ def build_parser() -> argparse.ArgumentParser:
         help="cuda (default; raises without a card) or cpu (plain PyTorch "
         "versions of the kernels)",
     )
+    lm = ap.add_argument_group("LM serving")
+    lm.add_argument("--arch", default=None, help="LM arch id (zamba2-1.2b)")
+    lm.add_argument("--smoke", action="store_true", help="the arch's smoke config")
+    lm.add_argument("--prompt-len", type=int, default=32)
+    lm.add_argument("--gen", type=int, default=16)
     emb = ap.add_argument_group("embedding serving")
     emb.add_argument(
         "--embedding", action="store_true",
-        help="serve the DLRM embedding lookup tier (the port's only mode)",
+        help="serve the DLRM embedding lookup tier",
     )
     emb.add_argument("--design", default="scratchpipe-serve", choices=DESIGNS)
     emb.add_argument("--scenario", default="inference_mix")
@@ -122,9 +202,11 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
     ap = build_parser()
     args = ap.parse_args(argv)
-    if not args.embedding:
-        ap.error("the port serves the embedding tier only: pass --embedding")
-    return run_embedding(args)
+    if args.embedding:
+        return run_embedding(args)
+    if args.arch is None:
+        ap.error("pass --arch <id> or --embedding")
+    return run_lm(args)
 
 
 if __name__ == "__main__":

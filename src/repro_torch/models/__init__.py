@@ -1,1 +1,1 @@
-"""Models of the port (the DLRM so far)."""
+"""Models of the port: the DLRM, and the hybrid (zamba2) LM's serving half."""

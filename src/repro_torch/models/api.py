@@ -1,0 +1,103 @@
+"""Unified model API of the port: family dispatch, head/vocab padding at one
+card, and synthetic batches.
+
+Port of ``repro/models/api.py`` for the serving path of the ``hybrid``
+family (zamba2-1.2b). One card: TP = 1, so nothing is padded and there are
+no mesh, specs or shardings. The other families raise, naming the ROADMAP
+item that ports them. ``synth_batch`` draws from the same numpy generator
+as the reference, so its tokens equal the reference's.
+"""
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig, ShapeSpec
+from repro_torch.models import hybrid
+
+_FAMILY_MOD = {"hybrid": hybrid}
+#: families of the reference not ported yet -> ROADMAP.md Queue 1 item
+_FAMILY_ITEM = {"dense": 15, "encoder": 15, "vlm": 15, "ssm": 16, "moe": 17}
+
+
+def family_module(cfg):
+    if cfg.family not in _FAMILY_MOD:
+        item = _FAMILY_ITEM.get(cfg.family)
+        raise NotImplementedError(
+            f"model family {cfg.family!r} is not ported yet"
+            + (f": ROADMAP.md Queue 1 item {item}" if item else "")
+        )
+    return _FAMILY_MOD[cfg.family]
+
+
+# ---------------------------------------------------------------------------
+# Runtime config: pad heads/vocab to the TP width (one card: no padding)
+# ---------------------------------------------------------------------------
+
+
+def runtime_config(cfg: ModelConfig) -> Tuple[ModelConfig, int]:
+    """Returns (cfg', vocab_pad). The reference pads num_heads and the vocab
+    rows up to multiples of the TP width; at TP = 1 both stay as they are."""
+    return cfg, cfg.vocab_size
+
+
+def init(cfg: ModelConfig, gen: torch.Generator, device=None):
+    """Random params of ``cfg`` drawn from ``gen`` (on ``device``, the
+    generator's by default)."""
+    rc, vp = runtime_config(cfg)
+    return family_module(rc).init_params(rc, gen, vp, device)
+
+
+def make_prefill_fn(cfg: ModelConfig):
+    rc, _ = runtime_config(cfg)
+    mod = family_module(rc)
+
+    def pre(params, batch):
+        return mod.prefill(params, rc, batch)
+
+    return pre
+
+
+def make_decode_fn(cfg: ModelConfig):
+    rc, _ = runtime_config(cfg)
+    mod = family_module(rc)
+
+    def dec(params, cache, tokens, pos: int):
+        return mod.decode_step(params, rc, cache, tokens, pos)
+
+    return dec
+
+
+def init_cache(cfg: ModelConfig, batch: int, seq_len: int, device="cpu"):
+    rc, _ = runtime_config(cfg)
+    return family_module(rc).init_cache(rc, batch, seq_len, device)
+
+
+# ---------------------------------------------------------------------------
+# Batches
+# ---------------------------------------------------------------------------
+
+
+def batch_structure(cfg: ModelConfig, shape: ShapeSpec) -> Dict[str, Tuple]:
+    """name -> (shape, dtype) for the *train/prefill* inputs of this arch:
+    tokens (and labels to train). The reference's modality frontends and
+    offloaded embedding come with their families (ROADMAP.md Queue 1 items
+    15 and 19)."""
+    B, S = shape.global_batch, shape.seq_len
+    d = {"tokens": ((B, S), "int32")}
+    if shape.kind == "train":
+        d["labels"] = ((B, S), "int32")
+    return d
+
+
+def synth_batch(cfg: ModelConfig, shape: ShapeSpec, seed: int = 0, device="cpu"):
+    """The reference's synthetic batch, drawn from the same numpy generator
+    in the same order, as tensors on ``device``."""
+    rng = np.random.default_rng(seed)
+    return {
+        name: torch.from_numpy(
+            rng.integers(0, cfg.vocab_size, size=shp, dtype=np.int32)).to(device)
+        for name, (shp, _) in batch_structure(cfg, shape).items()
+    }

@@ -1,0 +1,224 @@
+"""Mamba2 (SSD — state-space duality, arXiv:2405.21060) layers of the port.
+
+Port of ``repro/models/mamba2.py`` (the mesh sharding specs disappear: one
+card, TP = 1). Within a chunk the recurrence is a masked "attention-like"
+quadratic form (C_i.B_j with segment decay); across chunks the (heads,
+headdim, dstate) state is carried. In the port :func:`ssd_scan` IS the
+kernel call (``kernels/ops.py: ssd_chunk_scan``: the hand-written CUDA
+kernel for a CUDA tensor, the plain version ``kernels/ref.py:
+ssd_chunk_scan_ref`` — the reference's chunk loop — for a CPU one). The
+per-token decode recurrence (:func:`ssd_step`) and the convolutions are
+plain torch. Parameters are plain dicts of tensors in the reference's
+layouts; states are dicts ``{"conv_x", "conv_B", "conv_C", "ssm"}`` of one
+layer.
+"""
+from __future__ import annotations
+
+import math
+from typing import Dict, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import ops
+from repro_torch.models import layers as L
+
+
+def _softplus(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softplus``: logaddexp(x, 0), with no linear threshold."""
+    return torch.logaddexp(x, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+# ---------------------------------------------------------------------------
+# Causal depthwise conv (width ssm_conv, unrolled shifts)
+# ---------------------------------------------------------------------------
+
+
+def causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """x: (B, S, C); w: (K, C); left-padded causal depthwise conv, the taps
+    summed in order from i = 0."""
+    K = w.shape[0]
+    S = x.shape[1]
+    xp = F.pad(x, (0, 0, K - 1, 0))
+    y = w[0] * xp[:, 0:S]
+    for i in range(1, K):
+        y = y + w[i] * xp[:, i:i + S]
+    return y + b
+
+
+def conv_step(state: torch.Tensor, xt: torch.Tensor, w: torch.Tensor, b: torch.Tensor):
+    """state: (B, K-1, C) last inputs; xt: (B, C). Returns (y (B, C), state)."""
+    window = torch.cat([state, xt[:, None].to(state.dtype)], dim=1)  # (B, K, C)
+    y = torch.einsum("bkc,kc->bc", window, w) + b
+    return y, window[:, 1:]
+
+
+# ---------------------------------------------------------------------------
+# SSD core
+# ---------------------------------------------------------------------------
+
+
+def ssd_scan(
+    x: torch.Tensor,  # (B, S, nh, hd)
+    dt: torch.Tensor,  # (B, S, nh) fp32, post-softplus
+    A: torch.Tensor,  # (nh,) fp32, negative
+    Bm: torch.Tensor,  # (B, S, ng, ds) fp32
+    Cm: torch.Tensor,  # (B, S, ng, ds) fp32
+    chunk: int,
+    h0=None,
+    low_prec: bool = False,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Returns (y (B, S, nh, hd), h_final (B, nh, hd, ds)), through the
+    SSD kernel. The TPU kernel takes neither a carried-in state nor the
+    bf16 intra-chunk storage, and no config on the ported path sets them:
+    ``h0`` and ``low_prec`` raise (ROADMAP.md Queue 1 item 16)."""
+    if h0 is not None or low_prec:
+        raise NotImplementedError(
+            "ssd_scan with h0 or low_prec (the reference's cfg.ssd_bf16) is not "
+            "ported: the SSD kernel starts from a zero state in fp32 "
+            "(ROADMAP.md Queue 1 item 16)"
+        )
+    return ops.ssd_chunk_scan(x, dt, A, Bm, Cm, chunk)
+
+
+def ssd_step(
+    h: torch.Tensor,  # (B, nh, hd, ds) fp32
+    xt: torch.Tensor,  # (B, nh, hd)
+    dtt: torch.Tensor,  # (B, nh) fp32
+    A: torch.Tensor,  # (nh,)
+    Bt_: torch.Tensor,  # (B, ng, ds)
+    Ct_: torch.Tensor,  # (B, ng, ds)
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Single-token SSD recurrence. Returns (y (B, nh, hd), h_new)."""
+    nh = xt.shape[1]
+    hpg = nh // Bt_.shape[1]
+    Bh = Bt_.repeat_interleave(hpg, dim=1)  # (B, nh, ds)
+    Ch = Ct_.repeat_interleave(hpg, dim=1)
+    decay = torch.exp(dtt * A[None, :])  # (B, nh)
+    h_new = h * decay[..., None, None] + torch.einsum(
+        "bns,bnd,bn->bnds", Bh, xt.float(), dtt)
+    y = torch.einsum("bnds,bns->bnd", h_new, Ch)
+    return y.to(xt.dtype), h_new
+
+
+# ---------------------------------------------------------------------------
+# Mamba2 block (layer)
+# ---------------------------------------------------------------------------
+
+
+def init_mamba_layer(gen: torch.Generator, cfg, device=None) -> Dict[str, torch.Tensor]:
+    """One layer's params, normal draws from ``gen`` scaled as in the
+    reference; A in [-16, -1] (``A_log`` = log(linspace(1, 16, nh)))."""
+    dt_ = getattr(torch, cfg.param_dtype)
+    device = device or gen.device
+    D, din = cfg.d_model, cfg.d_inner
+    nh, ng, ds, K = cfg.ssm_nheads, cfg.ssm_ngroups, cfg.ssm_state, cfg.ssm_conv
+
+    def normal(shape, std):
+        return L.normal(gen, shape, std, dt_, device)
+
+    def const(shape, value, dtype=dt_):
+        return torch.full(shape, value, dtype=dtype, device=device)
+
+    std = 1.0 / math.sqrt(D)
+    return {
+        "norm": const((D,), 1.0),
+        "wz": normal((D, din), std),
+        "wx": normal((D, din), std),
+        "wB": normal((D, ng * ds), std),
+        "wC": normal((D, ng * ds), std),
+        "wdt": normal((D, nh), std),
+        "dt_bias": const((nh,), 0.0, torch.float32),
+        "A_log": torch.log(torch.linspace(1.0, 16.0, nh, dtype=torch.float32,
+                                          device=device)),
+        "D_skip": const((nh,), 1.0, torch.float32),
+        "conv_wx": normal((K, din), 1.0 / math.sqrt(K)),
+        "conv_bx": const((din,), 0.0),
+        "conv_wB": normal((K, ng * ds), 1.0 / math.sqrt(K)),
+        "conv_bB": const((ng * ds,), 0.0),
+        "conv_wC": normal((K, ng * ds), 1.0 / math.sqrt(K)),
+        "conv_bC": const((ng * ds,), 0.0),
+        "out_norm": const((din,), 1.0),
+        "wo": normal((din, D), 1.0 / math.sqrt(din)),
+    }
+
+
+def mamba_layer_forward(cfg, p, x):
+    """x: (B, S, D). Returns (x_out, h_final)."""
+    B, S, D = x.shape
+    nh, ng, ds = cfg.ssm_nheads, cfg.ssm_ngroups, cfg.ssm_state
+    hd = cfg.ssm_headdim
+    h = L.rms_norm(x, p["norm"], cfg.norm_eps)
+    z = h @ p["wz"]
+    xi = h @ p["wx"]
+    Bc = h @ p["wB"]
+    Cc = h @ p["wC"]
+    dt_raw = (h @ p["wdt"]).float()
+
+    xi = F.silu(causal_conv(xi, p["conv_wx"], p["conv_bx"]))
+    Bc = F.silu(causal_conv(Bc, p["conv_wB"], p["conv_bB"]))
+    Cc = F.silu(causal_conv(Cc, p["conv_wC"], p["conv_bC"]))
+
+    dt = _softplus(dt_raw + p["dt_bias"])
+    A = -torch.exp(p["A_log"])
+    xh = xi.reshape(B, S, nh, hd)
+    y, h_fin = ssd_scan(
+        xh,
+        dt,
+        A,
+        Bc.reshape(B, S, ng, ds).float(),
+        Cc.reshape(B, S, ng, ds).float(),
+        cfg.ssm_chunk,
+    )
+    y = y + p["D_skip"][None, None, :, None].to(y.dtype) * xh
+    y = y.reshape(B, S, cfg.d_inner)
+    y = L.rms_norm(y * F.silu(z), p["out_norm"], cfg.norm_eps)
+    return x + y @ p["wo"], h_fin
+
+
+def mamba_layer_decode(cfg, p, x, state):
+    """x: (B, 1, D); state = {"conv_x","conv_B","conv_C","ssm"} of this
+    layer. Returns (x_out, new_state)."""
+    B = x.shape[0]
+    nh, ng, ds, hd = cfg.ssm_nheads, cfg.ssm_ngroups, cfg.ssm_state, cfg.ssm_headdim
+    h = L.rms_norm(x[:, 0], p["norm"], cfg.norm_eps)  # (B, D)
+    z = h @ p["wz"]
+    xi = h @ p["wx"]
+    Bc = h @ p["wB"]
+    Cc = h @ p["wC"]
+    dt_raw = (h @ p["wdt"]).float()
+
+    xi, cx = conv_step(state["conv_x"], xi, p["conv_wx"], p["conv_bx"])
+    Bc, cB = conv_step(state["conv_B"], Bc, p["conv_wB"], p["conv_bB"])
+    Cc, cC = conv_step(state["conv_C"], Cc, p["conv_wC"], p["conv_bC"])
+    xi, Bc, Cc = F.silu(xi), F.silu(Bc), F.silu(Cc)
+
+    dt = _softplus(dt_raw + p["dt_bias"])
+    A = -torch.exp(p["A_log"])
+    y, ssm = ssd_step(
+        state["ssm"],
+        xi.reshape(B, nh, hd),
+        dt,
+        A,
+        Bc.reshape(B, ng, ds).float(),
+        Cc.reshape(B, ng, ds).float(),
+    )
+    y = y + p["D_skip"][None, :, None].to(y.dtype) * xi.reshape(B, nh, hd)
+    y = y.reshape(B, cfg.d_inner)
+    y = L.rms_norm(y * F.silu(z), p["out_norm"], cfg.norm_eps)
+    out = x + (y @ p["wo"])[:, None]
+    return out, {"conv_x": cx, "conv_B": cB, "conv_C": cC, "ssm": ssm}
+
+
+def init_mamba_state(cfg, batch: int, device="cpu") -> Dict[str, torch.Tensor]:
+    """Zero decode state of ONE layer (the reference stacks layers on
+    leading dims; the port keeps a state per layer)."""
+    K = cfg.ssm_conv
+    nh, ng, ds, hd = cfg.ssm_nheads, cfg.ssm_ngroups, cfg.ssm_state, cfg.ssm_headdim
+    dt_ = getattr(torch, cfg.compute_dtype)
+    return {
+        "conv_x": torch.zeros((batch, K - 1, cfg.d_inner), dtype=dt_, device=device),
+        "conv_B": torch.zeros((batch, K - 1, ng * ds), dtype=dt_, device=device),
+        "conv_C": torch.zeros((batch, K - 1, ng * ds), dtype=dt_, device=device),
+        "ssm": torch.zeros((batch, nh, hd, ds), dtype=torch.float32, device=device),
+    }

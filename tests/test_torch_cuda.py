@@ -15,6 +15,14 @@ in the same order as the plain versions — the backward ``scatter_add`` too
 ``fill_gather_reduce`` gathers the rows it has just filled. The fp16 and
 int8 forms (``gather_reduce_q``, ``fill_gather_reduce_q``, the byte-copy
 ``fill``) are held the same way: the int8 dequant product is exact.
+
+The LM kernels ``flash_attention`` and ``ssd_chunk_scan`` sum in another
+order than their plain versions, so they are held to the reference's own
+tolerances (tests/test_kernels.py): flash atol 2e-5 at fp32 and 3e-2 at
+bf16 (compared in fp32), SSD atol 2e-4 at fp32. SSD with bf16 ``x`` rounds
+its output to bf16, whose step is 2^-8 relative: there |kernel - plain|
+<= 3e-2 + 1e-2 |plain| (two bf16 steps plus flash's bf16 bound); its fp32
+state keeps atol 2e-4.
 """
 import numpy as np
 import pytest
@@ -22,8 +30,10 @@ import torch
 
 from repro_torch.core import quantize as tqz
 from repro_torch.core import scratchpad as tsp
+from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import gather_reduce as tgr
 from repro_torch.kernels import grad_coalesce as tgc
+from repro_torch.kernels import ssd_chunk as tssd
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
 
@@ -327,3 +337,119 @@ def test_cuda_quantized_launchers_check_operands(cuda):
         tgr.fill(torch.zeros(8, 40, dtype=torch.float16, device=cuda),
                  torch.zeros(2, dtype=torch.int32, device=cuda),
                  torch.zeros(2, 40, device=cuda))
+
+
+# --------------------------------------------------------------------------- #
+# LM kernels: flash_attention and ssd_chunk_scan (held to tolerances)
+# --------------------------------------------------------------------------- #
+_BF16_ATOL, _BF16_RTOL = 3e-2, 1e-2
+
+
+def _lm_tensor(shape, dtype, cuda, lo=None, hi=None):
+    a = (RNG.standard_normal(shape) if lo is None else RNG.uniform(lo, hi, shape))
+    return torch.from_numpy(a.astype(np.float32)).to(cuda).to(dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize(
+    "B,Sq,Skv,H,K,hd,causal,window",
+    [
+        (2, 128, 128, 8, 2, 64, True, None),  # GQA
+        (2, 160, 160, 4, 1, 32, True, None),  # MQA, ragged
+        (2, 256, 256, 8, 2, 64, True, 64),  # causal + window
+        (1, 300, 300, 4, 4, 64, False, 100),  # non-causal window
+        (2, 200, 200, 4, 4, 64, False, None),  # non-causal, ragged Skv > block
+        (2, 70, 300, 4, 2, 64, False, None),  # Sq != Skv, neither a block multiple
+        (1, 100, 100, 4, 4, 128, True, None),  # hd 128, Sq not a block multiple
+        (2, 96, 96, 2, 2, 16, False, None),
+        (1, 512, 512, 32, 32, 64, True, None),  # the zamba2 head layout
+    ],
+)
+def test_cuda_flash_attention_vs_plain(cuda, dtype, B, Sq, Skv, H, K, hd, causal, window):
+    q = _lm_tensor((B, Sq, H, hd), dtype, cuda)
+    k = _lm_tensor((B, Skv, K, hd), dtype, cuda)
+    v = _lm_tensor((B, Skv, K, hd), dtype, cuda)
+    got = tops.flash_attention(q, k, v, causal, window)
+    want = tref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == q.shape
+    atol = 2e-5 if dtype == torch.float32 else _BF16_ATOL
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= atol, err
+    assert tops.launch_counts()["flash_attention"] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize(
+    "B,S,ng,hpg,hd,ds,Q",
+    [
+        (2, 32, 1, 4, 8, 16, 8),  # the reference's sweep (tests/test_kernels.py)
+        (1, 64, 2, 3, 16, 8, 16),
+        (1, 40, 1, 2, 8, 8, 16),
+        (2, 300, 1, 4, 64, 64, 64),  # S not a multiple of Q
+        (1, 600, 2, 2, 64, 128, 256),
+        (2, 512, 1, 4, 64, 64, 256),  # the zamba2 widths per head
+        (1, 130, 2, 2, 128, 128, 64),
+    ],
+)
+def test_cuda_ssd_chunk_scan_vs_plain(cuda, dtype, B, S, ng, hpg, hd, ds, Q):
+    nh = ng * hpg
+    x = _lm_tensor((B, S, nh, hd), dtype, cuda)
+    dt = _lm_tensor((B, S, nh), torch.float32, cuda, 0.05, 1.0)
+    A = -_lm_tensor((nh,), torch.float32, cuda, 0.3, 4.0)
+    Bm = _lm_tensor((B, S, ng, ds), torch.float32, cuda)
+    Cm = _lm_tensor((B, S, ng, ds), torch.float32, cuda)
+    y, h = tops.ssd_chunk_scan(x, dt, A, Bm, Cm, Q)
+    y_ref, h_ref = tref.ssd_chunk_scan_ref(x, dt, A, Bm, Cm, Q)
+    torch.cuda.synchronize()
+    assert y.dtype == dtype and y.shape == x.shape and h.shape == (B, nh, hd, ds)
+    dy = (y.float() - y_ref.float()).abs()
+    if dtype == torch.float32:
+        assert dy.max().item() <= 2e-4, dy.max().item()
+    else:
+        assert bool((dy <= _BF16_ATOL + _BF16_RTOL * y_ref.float().abs()).all()), (
+            dy.max().item())
+    assert (h - h_ref).abs().max().item() <= 2e-4
+    assert tops.launch_counts()["ssd_chunk_scan"] == 1
+
+
+@pytest.mark.cuda
+def test_cuda_lm_empty_operands_launch_nothing(cuda):
+    q = torch.zeros(2, 0, 4, 16, device=cuda)
+    k = torch.zeros(2, 5, 4, 16, device=cuda)
+    assert tops.flash_attention(q, k, k).shape == q.shape
+    out = tops.flash_attention(k, q, q)  # no keys: every row masked
+    assert out.shape == k.shape and not out.any()
+    x = torch.zeros(2, 0, 4, 8, device=cuda)
+    y, h = tops.ssd_chunk_scan(x, torch.zeros(2, 0, 4, device=cuda),
+                               -torch.ones(4, device=cuda),
+                               torch.zeros(2, 0, 1, 16, device=cuda),
+                               torch.zeros(2, 0, 1, 16, device=cuda), 8)
+    assert y.shape == x.shape and h.shape == (2, 4, 8, 16) and not h.any()
+    assert not any(tops.launch_counts().values()), tops.launch_counts()
+
+
+@pytest.mark.cuda
+def test_cuda_lm_launchers_check_operands(cuda):
+    q = torch.zeros(1, 8, 4, 16, device=cuda)
+    with pytest.raises(TypeError):
+        tfa.flash_attention(q, q.bfloat16(), q, True, None)
+    with pytest.raises(ValueError, match="contiguous"):
+        tfa.flash_attention(q.transpose(1, 2), q, q, True, None)
+    with pytest.raises(ValueError, match="head dim"):
+        big = torch.zeros(1, 8, 1, 192, device=cuda)
+        tfa.flash_attention(big, big, big, True, None)
+    with pytest.raises(ValueError, match="pair"):
+        tfa.flash_attention(q, torch.zeros(1, 8, 3, 16, device=cuda),
+                            torch.zeros(1, 8, 3, 16, device=cuda), True, None)
+    x = torch.zeros(1, 8, 2, 16, device=cuda)
+    dt, A = torch.zeros(1, 8, 2, device=cuda), torch.zeros(2, device=cuda)
+    bc = torch.zeros(1, 8, 1, 16, device=cuda)
+    with pytest.raises(TypeError):
+        tssd.ssd_chunk_scan(x, dt.double(), A, bc, bc, 4)
+    with pytest.raises(ValueError, match="pair"):
+        tssd.ssd_chunk_scan(x, dt, torch.zeros(3, device=cuda), bc, bc, 4)
+    with pytest.raises(ValueError, match="shared"):
+        tssd.ssd_chunk_scan(x, dt, A, bc, bc, 1 << 16)

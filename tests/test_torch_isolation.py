@@ -142,3 +142,57 @@ def test_reduced_precision_without_a_card_raises(monkeypatch, precision):
                                      "2", "--precision", precision])):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             make()
+
+
+LM_MODULES = ("repro_torch.models.layers", "repro_torch.models.mamba2",
+              "repro_torch.models.transformer", "repro_torch.models.hybrid",
+              "repro_torch.models.api", "repro_torch.parallel.collectives",
+              "repro_torch.kernels.flash_attention", "repro_torch.kernels.ssd_chunk",
+              "repro_torch.configs.zamba2_1_2b")
+
+
+def test_lm_modules_listed_and_import_nothing_of_jax():
+    """The LM slice's modules are part of the port (so the import checks
+    above cover them), and loading them alone loads no jax or repro."""
+    mods = _port_modules()
+    for m in LM_MODULES:
+        assert m in mods
+    code = (
+        "import importlib, sys\n"
+        f"for m in {LM_MODULES!r}:\n"
+        "    importlib.import_module(m)\n"
+        "print('BAD', sorted(m for m in sys.modules\n"
+        "                    if m.split('.')[0] in ('jax', 'jaxlib', 'repro')))\n"
+    )
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, timeout=120)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert "BAD []" in out.stdout, out.stdout
+
+
+def test_lm_serving_defaults_to_cuda_and_raises_without_a_card(monkeypatch):
+    args = serve.build_parser().parse_args(["--arch", "zamba2-1.2b"])
+    assert args.device == "cuda"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.main(["--arch", "zamba2-1.2b", "--smoke"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.main(["--arch", "zamba2-1.2b", "--smoke", "--device", "cuda:0"])
+
+
+@pytest.mark.parametrize("arch,item", [
+    ("hubert-xlarge", 15), ("chatglm3-6b", 15), ("qwen2-72b", 15),
+    ("mistral-large-123b", 15), ("qwen2.5-32b", 15), ("phi-3-vision-4.2b", 15),
+    ("mamba2-2.7b", 16), ("mixtral-8x7b", 17), ("llama4-scout-17b-a16e", 17),
+])
+def test_other_lm_archs_name_their_roadmap_item(arch, item):
+    with pytest.raises(NotImplementedError, match=f"Queue 1 item {item}$"):
+        serve.main(["--arch", arch, "--smoke", "--device", "cpu"])
+
+
+def test_unknown_arch_and_missing_mode():
+    with pytest.raises(KeyError, match="unknown arch"):
+        serve.main(["--arch", "no-such-model", "--device", "cpu"])
+    with pytest.raises(SystemExit):
+        serve.main(["--device", "cpu"])
