@@ -16,7 +16,11 @@ Phases, in order; any failure raises and the script exits non-zero:
                bags, a slot repeated all through one bag, drop sentinels,
                fills gathered in the same call, empty operands (which must
                launch nothing), D in {8, 40, 128, 192}, L in {1, 3, 20} and
-               the serving and training paths' own shapes;
+               the serving and training paths' own shapes; for
+               ``scatter_add`` also segments of T - 1, T and T + 1 lookups
+               of one row (T = the long-segment threshold), several long
+               segments in one launch, a 4,000-long segment among 10^5
+               short ones, and ids == N (which the kernel drops);
   4. serve   — the main path: ``repro_torch.launch.serve`` with
                ``scratchpipe-serve`` at the full width of dlrm-scratchpipe
                (8 tables, D=128 fp32, 20 lookups per table, 2048 requests per
@@ -47,7 +51,11 @@ Phases, in order; any failure raises and the script exits non-zero:
                workspace pinned); losses finite.
   7. timing  — ``scatter_add`` and ``fill_gather_reduce`` at the operands
                the training runs gave them, and ``gather_reduce`` again at
-               the training bags.
+               the training bags. ``scatter_add`` is split too: the sort,
+               the accumulate, the accumulate of as many lookups with no
+               repeated id, and of the longest segment alone; its
+               long-segment worklist is checked against torch's; and it is
+               timed again on ids of the sweep's Zipf skew.
   8. train q — the same training path at fp16 and int8 replica precision
                (``--precision``, ``stochastic`` rounding, the launcher's
                default): fp16 split, fp16 fused, int8 split, int8 fused, 24
@@ -77,7 +85,10 @@ Phases, in order; any failure raises and the script exits non-zero:
                caches of the grown shape. Then each LM kernel against its
                plain version at the run's first operands and over a sweep
                (flash: GQA, MQA, causal + window, non-causal with ragged
-               keys past a block, Sq not a block multiple, hd 64/128; SSD:
+               keys past a block, Sq not a block multiple, hd 64/128, and
+               the tensor-core kernel's edges: Sq = Skv in {127, 129, 255,
+               257}, a window across KV blocks, Sq != Skv, hd 16/20/32/48,
+               GQA H/K = 4; SSD:
                ng 1/2, S not a multiple of Q, Q 64/256, ds 64/128; fp32 and
                bf16), at the reference's tolerances (flash atol 2e-5 fp32,
                3e-2 bf16; SSD atol 2e-4 fp32, and 3e-2 + 1e-2 |plain| for
@@ -89,9 +100,11 @@ Phases, in order; any failure raises and the script exits non-zero:
                with torch.profiler (device time by kernel, busy share).
  11. timing  — ``flash_attention`` and ``ssd_chunk_scan`` at the main
                path's operands beside their bounds, their plain versions
-               and (flash) ``F.scaled_dot_product_attention``.
+               and (flash) ``F.scaled_dot_product_attention``; flash's
+               achieved TFLOP/s.
 
-The sweep of phase 3 covers the fp16 and int8 forms too. The last three lines are the ``kernels`` JSON line, the nvidia-smi line and
+The sweep of phase 3 covers the fp16 and int8 forms too. The last three lines are the ``kernels`` JSON line (``scatter_add`` and
+``flash_attention`` carry their ``details``), the nvidia-smi line and
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -196,7 +209,7 @@ Q_KEYS = {"fp16": ("gather_reduce_f16", "fill_f16", "fill_gather_reduce_f16"),
           "int8": ("gather_reduce_q", "fill_i8", "fill_gather_reduce_q")}
 
 
-def sweep_kernels(torch, ops, ref, qz, dev) -> dict:
+def sweep_kernels(torch, ops, ref, gc, qz, dev) -> dict:
     """Bitwise sweep; returns the largest |kernel - plain| per kernel."""
     g = torch.Generator(device="cpu").manual_seed(0)
     err = {"gather_reduce": 0.0, "fill": 0.0, "scatter_add": 0.0,
@@ -269,13 +282,15 @@ def sweep_kernels(torch, ops, ref, qz, dev) -> dict:
         err[key] = max(err[key], diff(got, want), diff(got_st, want_st))
 
     def scatter_case(N, D, ids, scale=1.0):
+        """ids may hold N, which the kernel drops: the plain version (which
+        takes ids in [0, N) only) adds those to a row N past the kernel's."""
         nb = ids.shape[0]
-        st = torch.randn(N, D, generator=g).to(dev)
+        st = torch.randn(N + 1, D, generator=g).to(dev)
         deltas = (torch.randn(nb, D, generator=g) * scale).to(dev)
         ids = ids.to(dev)
         before = ops.launch_counts()["scatter_add"]
-        got = ops.coalesce_deltas(st.clone(), ids, deltas)
-        want = ref.scatter_add_ref(st.clone(), ids, deltas)
+        got = ops.coalesce_deltas(st[:N].clone(), ids, deltas)
+        want = ref.scatter_add_ref(st.clone(), ids, deltas)[:N]
         torch.cuda.synchronize()
         check(ops.launch_counts()["scatter_add"] == before + 1, "scatter_add launch count")
         check(torch.equal(got, want),
@@ -351,6 +366,20 @@ def sweep_kernels(torch, ops, ref, qz, dev) -> dict:
     rep[0] = 5
     rep[:, 7] = 9
     scatter_case(64, 128, rep, scale=1e6)
+    # segments at the long-segment threshold T and past it, several long ones
+    # in one launch, one 4,000-long among 10^5 short ones; ids == N dropped
+    T = gc.LONG_SEGMENT
+    for D in (8, 40, 128, 192):
+        for lens in ((T - 1,), (T,), (T + 1,), (T + 1, 3 * T, 5, T - 1, 2000, 1, 700)):
+            ids = torch.cat([torch.full((n,), 7 * i + 3, dtype=torch.int32)
+                             for i, n in enumerate(lens)] + [torch.full((3,), 4096, dtype=torch.int32)])
+            ids = ids[torch.randperm(ids.numel(), generator=g)]
+            ids = torch.cat([ids, torch.randint(0, 4096, ((-ids.numel()) % 4,), generator=g,
+                                                dtype=torch.int32)])
+            scatter_case(4096, D, ids.reshape(-1, 4), scale=1e3)
+    hot = torch.randint(0, 1_000_000, (100_000,), generator=g, dtype=torch.int32)
+    hot[torch.randperm(100_000, generator=g)[:4000]] = 17
+    scatter_case(1_000_000, 128, hot.reshape(-1, 4), scale=1e3)
     st = torch.randn(64, 40, generator=g).to(dev)
     dup = torch.tensor([[3, 3, 3, 5], [5, 3, 5, 3], [0, 0, 0, 0]], dtype=torch.int32)
     check(torch.equal(ops.gather_reduce(st, dup.to(dev)),
@@ -741,6 +770,32 @@ def bound(n_bytes: int, n_ops: int):
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def scatter_zipf(torch, ref, gc, storage, deltas, flush, dev) -> dict:
+    """scatter_add on ids of the sweep's Zipf skew (``zipf_ids``, seed 1: a
+    harder skew than the training stream's, with a longest segment of
+    thousands more lookups) at the training operands' shapes: checked
+    bitwise, then timed."""
+    nb, L = deltas.shape[0], LOOKUPS
+    flat = zipf_ids(torch, torch.Generator().manual_seed(1), (nb, L), storage.shape[0]).to(dev)
+    got, want = storage.clone(), ref.scatter_add_ref(storage.clone(), flat, deltas)
+    gc.scatter_add(got, flat, deltas)
+    check(torch.equal(got, want), "scatter_add differs on the Zipf ids")
+    del got, want
+    seg = torch.unique(flat, return_counts=True)[1]
+    keys, perm = gc.sort_by_slot(flat)
+    scratch = storage.clone()
+    dup, idx = deltas.repeat_interleave(L, dim=0), flat.reshape(-1).long()
+    return {
+        "unique_rows": int(seg.numel()), "longest_segment": int(seg.max()),
+        "long_segments": int((seg > gc.LONG_SEGMENT).sum()),
+        "ms": median_ms(torch, lambda: gc.scatter_add(scratch, flat, deltas), 30, flush),
+        "sort_ms": median_ms(torch, lambda: gc.sort_by_slot(flat), 30, flush),
+        "accumulate_ms": median_ms(
+            torch, lambda: gc.scatter_add_sorted(scratch, keys, perm, deltas, L), 30, flush),
+        "library_ms": median_ms(torch, lambda: scratch.index_add_(0, idx, dup), 30, flush),
+    }
+
+
 def time_train_kernels(torch, ops, ref, gr, gc, captured, dev):
     """Times of gather_reduce, scatter_add and fill_gather_reduce at the
     training run's operands; returns ({kernel: numbers}, details)."""
@@ -777,11 +832,23 @@ def time_train_kernels(torch, ops, ref, gr, gc, captured, dev):
     check(torch.equal(got, want), "scatter_add differs at the training operands")
     err = (got - want).abs().max().item()
     del got, want
-    n_unique = int(torch.unique(flat).numel())
     seg = torch.unique(flat, return_counts=True)[1]
+    n_unique, longest = int(seg.numel()), int(seg.max())
     b_ms, b_by = bound(2 * n_unique * D * 4 + flat.numel() * 4 + nb * D * 4, flat.numel() * D)
     scratch = st0.clone()
     keys, perm = gc.sort_by_slot(flat)
+    # the long-segment worklist the first launch builds, against torch's
+    work = gc.scatter_add_sorted(scratch, keys, perm, deltas, L)
+    heads = gc.long_segment_heads(keys, st0.shape[0])
+    n_long = int(work[0])
+    check(torch.equal(torch.sort(work[2:2 + n_long]).values, heads),
+          "the long-segment worklist differs from long_segment_heads")
+    # the same number of lookups with no repeated id, and the longest
+    # segment alone: what the short class and the long class cost
+    distinct = torch.randperm(st0.shape[0], device=dev)[:flat.numel()].to(torch.int32)
+    keys_u, perm_u = gc.sort_by_slot(distinct.reshape(nb, L))
+    keys_1, perm_1 = gc.sort_by_slot(torch.zeros(longest, 1, dtype=torch.int32, device=dev))
+    deltas_1 = deltas[torch.arange(longest, device=dev) % nb]
     dup, idx = deltas.repeat_interleave(L, dim=0), flat.reshape(-1).long()
     out["scatter_add"] = {
         "ms": median_ms(torch, lambda: gc.scatter_add(scratch, flat, deltas), 30, flush),
@@ -793,10 +860,25 @@ def time_train_kernels(torch, ops, ref, gr, gc, captured, dev):
         "library_ms": median_ms(torch, lambda: scratch.index_add_(0, idx, dup), 30, flush),
         "max_abs_err": err,
     }
-    details["scatter_add"] = {"storage": list(st0.shape), "bags": nb, "L": L,
-                              "unique_rows": n_unique, "longest_segment": int(seg.max()),
-                              "sort": "torch.sort(stable=True), timed apart as sort_ms"}
-    del st0, scratch, dup, idx, keys, perm, captured["scatter"]
+    details["scatter_add"] = {
+        "storage": list(st0.shape), "bags": nb, "L": L, "unique_rows": n_unique,
+        "longest_segment": longest, "long_threshold_T": gc.LONG_SEGMENT,
+        "long_segments": n_long,
+        "lookups_in_long_segments": int(seg[seg > gc.LONG_SEGMENT].sum()),
+        "accumulate_no_repeat_ms": median_ms(
+            torch, lambda: gc.scatter_add_sorted(scratch, keys_u, perm_u, deltas, L), 30, flush),
+        "no_repeat_bound_ms": bound(2 * flat.numel() * D * 4 + flat.numel() * 4
+                                    + nb * D * 4, flat.numel() * D)[0],
+        "accumulate_longest_alone_ms": median_ms(
+            torch, lambda: gc.scatter_add_sorted(scratch, keys_1, perm_1, deltas_1, 1), 30,
+            flush),
+        "zipf": scatter_zipf(torch, ref, gc, st0, deltas, flush, dev),
+        "design": "torch.sort(stable=True) (timed apart as sort_ms), then a warp per 32 "
+                  "sorted positions for segments <= T and, on a side stream beside it, a "
+                  "CTA per (segment > T, 16-column slab), delta rows through a 4-stage "
+                  "cp.async ring; every row's adds in flat order",
+    }
+    del st0, scratch, dup, idx, keys, perm, distinct, keys_u, perm_u, captured["scatter"]
 
     st0, slots, rows, flat = captured["fused"]
     nb, L = flat.shape
@@ -1317,7 +1399,18 @@ def lm_sweep(torch, ops, ref, dev, captured) -> dict:
                 (2, 200, 200, 4, 4, 64, False, None),  # non-causal, ragged keys
                 (2, 70, 300, 4, 2, 64, False, None),
                 (1, 100, 100, 4, 4, 128, True, None),  # hd 128
-                (1, 1000, 1000, 8, 2, 128, True, None)):
+                (1, 1000, 1000, 8, 2, 128, True, None),
+                # the tensor-core kernel's edges: 128-row q tiles, 64-key
+                # blocks, GQA H/K = 4, hd padded to 32/64/128 (20: no
+                # 16-byte rows)
+                (2, 127, 127, 8, 2, 64, True, None), (2, 129, 129, 8, 2, 64, True, None),
+                (1, 255, 255, 8, 2, 64, True, None), (1, 257, 257, 8, 2, 64, True, None),
+                (2, 257, 257, 8, 2, 64, True, 100),  # the window crosses KV blocks
+                (1, 257, 257, 8, 2, 64, False, 70),
+                (2, 300, 70, 8, 2, 64, True, None), (1, 129, 257, 8, 2, 64, False, None),
+                (2, 200, 200, 8, 2, 16, True, None), (2, 200, 200, 8, 2, 32, False, None),
+                (2, 200, 200, 8, 2, 48, True, 64), (1, 257, 257, 8, 2, 128, True, None),
+                (1, 100, 100, 4, 4, 20, True, None)):
             keep("flash_attention", lm_flash_check(
                 torch, ops, ref, randn(B, Sq, H, hd, dtype=dtype),
                 randn(B, Skv, K, hd, dtype=dtype), randn(B, Skv, K, hd, dtype=dtype),
@@ -1426,6 +1519,8 @@ def time_lm_kernels(torch, mods, captured, captured32, sweep_err, dev):
         "dtype": str(q.dtype), "causal": causal, "window": window, "pairs": pairs,
         "flops": f_ops, "bytes": f_bytes, "ops_ms_bf16": t_ops * 1e3,
         "bytes_ms": t_bytes * 1e3,
+        "design": fa.ROUTES[q.dtype], "fp32_design": fa.ROUTES[torch.float32],
+        "tflops_per_s": f_ops / out["flash_attention"]["ms"] / 1e9,
         "fp32_ms": median_ms(torch, lambda: fa.flash_attention(q32, k32, v32, c32, w32),
                              10, flush),
         "max_abs_err_by_dtype": {n: e for n, e in sweep_err.items() if n.startswith("flash")},
@@ -1512,7 +1607,7 @@ def main() -> int:
     log(f"build: {time.perf_counter() - t0:.2f}s in all")
 
     t0 = time.perf_counter()
-    sweep_err = sweep_kernels(torch, ops, ref, qz, dev)
+    sweep_err = sweep_kernels(torch, ops, ref, gc, qz, dev)
     log(f"kernels: bitwise equal to their plain versions across the sweep "
         f"({time.perf_counter() - t0:.1f}s)")
 
@@ -1662,6 +1757,8 @@ def main() -> int:
             "launches": sum(launches.values()), "launches_by_run": launches,
             "max_abs_err": max(sweep_err[name], t.pop("max_abs_err")), **t,
         })
+        if name == "scatter_add":
+            kernels[-1]["details"] = train_details[name]
     for name, source, replaces in (
             ("flash_attention", CU_SOURCE_FA, "src/repro/kernels/flash_attention.py:87"),
             ("ssd_chunk_scan", CU_SOURCE_SSD, "src/repro/kernels/ssd_chunk.py:81")):
@@ -1670,6 +1767,10 @@ def main() -> int:
             "launches": lm_counts[name], "launches_by_run": {"lm serve": lm_counts[name]},
             **lm_times[name],
         })
+        if name == "flash_attention":
+            kernels[-1]["details"] = {**lm_details[name],
+                                      "warm_prefill_ms": lm_summary["prefill_ms_warm"],
+                                      "prefill_profile": lm_summary["profile"]["prefill"]}
     log(f"total {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card_line(), flush=True)

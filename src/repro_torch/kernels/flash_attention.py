@@ -1,9 +1,11 @@
 """ctypes launcher of the hand-written CUDA kernel in ``csrc/flash_attention.cu``.
 
 Port of the ``flash_attention`` Pallas kernel of
-``repro/kernels/flash_attention.py`` (forward only), for fp32 and bf16
-operands; the source file holds the kernel's bound and design note. The
-launcher takes CUDA tensors only: it checks device, dtype, shape and
+``repro/kernels/flash_attention.py`` (forward only), for bf16 and fp32
+operands; the source file holds the kernels' bound and design note. The
+dtype picks the kernel (:data:`ROUTES`): bf16 runs on the tensor cores
+(``mma.sync``), fp32 on the FMA kernel (TF32 could not meet fp32's tolerance).
+The launcher takes CUDA tensors only: it checks device, dtype, shape and
 contiguity, launches on the current stream, raises on the launch's CUDA
 error, and counts each launch in :data:`LAUNCHES` (both dtypes under the
 kernel's name). The library is built and loaded at the first launch, never
@@ -24,8 +26,11 @@ from repro_torch.kernels.gather_reduce import _check
 LAUNCHES = {"flash_attention": 0}
 
 _LIB: Optional[ctypes.CDLL] = None
-_DTYPES = (torch.float32, torch.bfloat16)
 MAX_HEAD_DIM = 128
+#: the kernel of each dtype: what it computes both products with
+ROUTES = {torch.bfloat16: "mma.sync m16n8k16 bf16 tensor cores, 128 q rows x 64 keys",
+          torch.float32: "fp32 FMAs, 64 q rows x 64 keys"}
+_DTYPES = tuple(ROUTES)
 
 
 def _lib() -> ctypes.CDLL:

@@ -2,17 +2,23 @@
 ``csrc/grad_coalesce.cu``.
 
 Port of the ``scatter_add`` Pallas kernel of ``repro/kernels/grad_coalesce.py``
-(the source file holds the kernel's bound and design note). The TPU kernel
+(the source file holds the kernels' bound and design note). The TPU kernel
 coalesces duplicate rows because its grid runs in order; here the flat
 lookup positions are stable-sorted by slot first (:func:`sort_by_slot`,
-``torch.sort``, a library radix sort), and the hand-written kernel
-(:func:`scatter_add_sorted`) adds each row's deltas in that order.
-:func:`scatter_add` does both. The launchers take CUDA tensors only: they
-check device, dtype (fp32 storage and deltas, int32 ids), shape and
-contiguity, launch on the current stream, raise on the launch's CUDA error
-and count each launch of the accumulating kernel in :data:`LAUNCHES`. The
-library is built and loaded at the first launch, never at import. Natural
-shapes, empty operands and the CPU dispatch live in ``kernels/ops.py``.
+``torch.sort``, a library radix sort), and the hand-written kernels
+(:func:`scatter_add_sorted`) add each row's deltas in that order: one warp
+per 32 sorted positions for the segments of at most :data:`LONG_SEGMENT`
+lookups; a CTA per (longer segment, column slab) for the hot rows, on a
+side stream that overlaps the short kernel, from a worklist a first launch
+builds on the device (:func:`long_segment_heads` is the same list in
+torch). :func:`scatter_add` does the sort and the accumulation. The
+launchers take CUDA tensors only: they check device, dtype (fp32 storage
+and deltas, int32 ids), shape and contiguity, launch on the current stream
+(the long kernel forked from and joined back to it), raise on a CUDA error
+and count each accumulation (its two or three launches) once in
+:data:`LAUNCHES`. The library is built and loaded at the first launch,
+never at import. Natural shapes, empty operands and the CPU dispatch live
+in ``kernels/ops.py``.
 """
 from __future__ import annotations
 
@@ -26,6 +32,8 @@ from repro_torch.kernels.gather_reduce import _check
 #: kernel launches since the last reset — one is added where a launch
 #: succeeds, and nowhere else
 LAUNCHES = {"scatter_add": 0}
+#: a segment of more than this many lookups of one row gets a CTA of its own
+LONG_SEGMENT = 64
 
 _LIB: Optional[ctypes.CDLL] = None
 
@@ -38,7 +46,7 @@ def _lib() -> ctypes.CDLL:
         lib = ctypes.CDLL(str(_build.library_path("grad_coalesce")))
         ptr, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
         lib.repro_scatter_add_sorted_f32.argtypes = [
-            ptr, ptr, ptr, ptr, i64, i32, i32, i64, ptr,
+            ptr, ptr, ptr, ptr, i64, i32, i32, i64, i32, ptr, i64, ptr,
         ]
         lib.repro_scatter_add_sorted_f32.restype = i32
         lib.repro_cuda_error_string.argtypes = [i32]
@@ -54,17 +62,32 @@ def sort_by_slot(flat_ids: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return torch.sort(flat_ids.reshape(-1), stable=True)
 
 
+def long_segment_heads(keys: torch.Tensor, n_ids: int, T: int = LONG_SEGMENT) -> torch.Tensor:
+    """keys (n,) sorted -> the first positions (int64, ascending) of the
+    runs of one id in [0, ``n_ids``) longer than ``T``: the segments the
+    long-segment kernel takes, the list its first launch builds."""
+    n = keys.numel()
+    pos = torch.arange(n, device=keys.device)
+    head = torch.ones(n, dtype=torch.bool, device=keys.device)
+    head[1:] = keys[1:] != keys[:-1]
+    longer = torch.zeros(n, dtype=torch.bool, device=keys.device)
+    longer[: max(n - T, 0)] = keys[T:] == keys[: max(n - T, 0)]
+    return pos[head & longer & (keys >= 0) & (keys < n_ids)]
+
+
 def scatter_add_sorted(
     storage: torch.Tensor,
     keys: torch.Tensor,
     perm: torch.Tensor,
     bag_deltas: torch.Tensor,
     L: int,
-) -> None:
+) -> torch.Tensor:
     """In place: storage[keys[j]] += bag_deltas[perm[j] // L] for every j,
     in j order per row. storage (N, D) fp32; keys (n,) int32 and perm (n,)
     int64 from :func:`sort_by_slot`; bag_deltas (n // L, D) fp32; n > 0.
-    All on one CUDA device."""
+    All on one CUDA device. Returns the long-segment worklist, int64:
+    ``work[0]`` heads at ``work[2:2 + work[0]]``, in no fixed order (as a
+    set, they are :func:`long_segment_heads`)."""
     if storage.device.type != "cuda":
         raise ValueError(f"CUDA kernel called on a {storage.device} tensor")
     _check(storage, "storage", torch.float32, storage.device)
@@ -82,17 +105,22 @@ def scatter_add_sorted(
         )
     if n == 0 or D == 0:
         raise ValueError("empty operands launch nothing: ops.scatter_add skips them")
+    if n >= 2**31:
+        raise ValueError(f"{n} lookups: the kernels take fewer than 2^31")
+    cap = n // (LONG_SEGMENT + 1)  # the most segments longer than LONG_SEGMENT
+    work = torch.empty(2 + cap, dtype=torch.int64, device=storage.device)
     lib = _lib()
     with torch.cuda.device(storage.device):
         err = lib.repro_scatter_add_sorted_f32(
             storage.data_ptr(), keys.data_ptr(), perm.data_ptr(),
-            bag_deltas.data_ptr(), n, L, D, N,
+            bag_deltas.data_ptr(), n, L, D, N, LONG_SEGMENT, work.data_ptr(), cap,
             torch.cuda.current_stream(storage.device).cuda_stream,
         )
     if err != 0:
         what = lib.repro_cuda_error_string(err).decode()
         raise RuntimeError(f"CUDA launch of scatter_add failed: {what} (cudaError {err})")
     LAUNCHES["scatter_add"] += 1
+    return work
 
 
 def scatter_add(

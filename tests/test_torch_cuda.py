@@ -11,13 +11,14 @@ JAX. There, skip the repository's conftest (which imports JAX):
 
 Comparisons are bitwise (``torch.equal``): the kernels do the same fp32 adds
 in the same order as the plain versions — the backward ``scatter_add`` too
-(its duplicates in flat bag-major order, with no atomics), and the fused
+(its duplicates in flat bag-major order, with no float atomics, in both its
+short- and long-segment classes), and the fused
 ``fill_gather_reduce`` gathers the rows it has just filled. The fp16 and
 int8 forms (``gather_reduce_q``, ``fill_gather_reduce_q``, the byte-copy
 ``fill``) are held the same way: the int8 dequant product is exact.
 
-The LM kernels ``flash_attention`` and ``ssd_chunk_scan`` sum in another
-order than their plain versions, so they are held to the reference's own
+The LM kernels ``flash_attention`` (bf16 on the tensor cores, fp32 on
+FMAs) and ``ssd_chunk_scan`` sum in another order than their plain versions, so they are held to the reference's own
 tolerances (tests/test_kernels.py): flash atol 2e-5 at fp32 and 3e-2 at
 bf16 (compared in fp32), SSD atol 2e-4 at fp32. SSD with bf16 ``x`` rounds
 its output to bf16, whose step is 2^-8 relative: there |kernel - plain|
@@ -141,6 +142,70 @@ def test_cuda_scatter_add_long_segments(cuda):
     want = tref.coalesce_apply_ref(st.clone(), ids.to(cuda), deltas.to(cuda), 0.05)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
+
+
+def _scatter_vs_plain(cuda, N, D, ids, scale=1e3):
+    """coalesce_deltas on the card against scatter_add_ref, bitwise. ids may
+    hold N, which the kernel drops: the plain version (ids in [0, N) only)
+    adds those to a row N past the kernel's storage."""
+    st = torch.from_numpy(_storage(N + 1, D)).to(cuda)
+    deltas = torch.from_numpy(
+        (RNG.standard_normal((ids.shape[0], D)) * scale).astype(np.float32)).to(cuda)
+    ids = torch.from_numpy(ids).to(cuda)
+    got = tops.coalesce_deltas(st[:N].clone(), ids, deltas)
+    want = tref.scatter_add_ref(st.clone(), ids, deltas)[:N]
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+def _segments(lens, N, extra=0):
+    """Runs of one id per length in ``lens`` (ids 7 i + 3), ``extra`` ids ==
+    N, shuffled, in bags of 4 (padded with ids == N)."""
+    ids = np.concatenate([np.full(n, 7 * i + 3) for i, n in enumerate(lens)] + [[N] * extra])
+    ids = RNG.permutation(ids)
+    ids = np.concatenate([ids, np.full((-ids.size) % 4, N)])
+    return ids.astype(np.int32).reshape(-1, 4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [8, 40, 128, 192])
+@pytest.mark.parametrize("case", ["T-1", "T", "T+1", "several long", "id N"])
+def test_cuda_scatter_add_segment_classes(cuda, D, case):
+    """Segments just under, at and over the long-segment threshold T, several
+    long segments in one launch, and ids == N (dropped), bitwise."""
+    T = tgc.LONG_SEGMENT
+    lens = {"T-1": (T - 1,), "T": (T,), "T+1": (T + 1,),
+            "several long": (T + 1, 3 * T, 5, T - 1, 2000, 1, 700),
+            "id N": (T + 1, 2, 9)}[case]
+    _scatter_vs_plain(cuda, 4096, D, _segments(lens, 4096, extra=5 if case == "id N" else 0))
+    assert tops.launch_counts()["scatter_add"] == 1
+
+
+@pytest.mark.cuda
+def test_cuda_scatter_add_hot_row_among_short(cuda):
+    """One row looked up 4,000 times among 10^5 lookups of mostly distinct
+    rows, bitwise."""
+    N = 1_000_000
+    ids = RNG.integers(0, N, 100_000)
+    ids[RNG.permutation(100_000)[:4000]] = 17
+    _scatter_vs_plain(cuda, N, 128, ids.astype(np.int32).reshape(-1, 4))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lens", [(), (65,), (65, 200, 64, 3000), (1000,) * 7])
+def test_cuda_scatter_add_worklist(cuda, lens):
+    """The long-segment heads the first launch lists on the card are
+    long_segment_heads' (as a set)."""
+    N = 4096
+    flat = torch.from_numpy(_segments(lens + (30, 1, 64), N, extra=100)).to(cuda)
+    keys, perm = tgc.sort_by_slot(flat)
+    st = torch.zeros(N, 8, device=cuda)
+    work = tgc.scatter_add_sorted(st, keys, perm, torch.zeros(flat.shape[0], 8, device=cuda),
+                                  flat.shape[1])
+    torch.cuda.synchronize()
+    n = int(work[0])
+    assert n == sum(1 for x in lens if x > tgc.LONG_SEGMENT)
+    assert torch.equal(torch.sort(work[2:2 + n]).values, tgc.long_segment_heads(keys, N))
 
 
 @pytest.mark.cuda
@@ -367,6 +432,42 @@ def _lm_tensor(shape, dtype, cuda, lo=None, hi=None):
     ],
 )
 def test_cuda_flash_attention_vs_plain(cuda, dtype, B, Sq, Skv, H, K, hd, causal, window):
+    q = _lm_tensor((B, Sq, H, hd), dtype, cuda)
+    k = _lm_tensor((B, Skv, K, hd), dtype, cuda)
+    v = _lm_tensor((B, Skv, K, hd), dtype, cuda)
+    got = tops.flash_attention(q, k, v, causal, window)
+    want = tref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == q.shape
+    atol = 2e-5 if dtype == torch.float32 else _BF16_ATOL
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= atol, err
+    assert tops.launch_counts()["flash_attention"] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize(
+    "B,Sq,Skv,H,K,hd,causal,window",
+    [
+        (2, 127, 127, 8, 2, 64, True, None),  # around the 128-row q tile
+        (2, 129, 129, 8, 2, 64, True, None),
+        (1, 255, 255, 8, 2, 64, True, None),
+        (1, 257, 257, 8, 2, 64, True, None),
+        (2, 257, 257, 8, 2, 64, True, 100),  # the window crosses 64-key blocks
+        (1, 257, 257, 8, 2, 64, False, 70),
+        (2, 300, 70, 8, 2, 64, True, None),  # Sq != Skv
+        (1, 129, 257, 8, 2, 64, False, None),
+        (2, 200, 200, 8, 2, 16, True, None),  # hd padded to 32, 64, 128
+        (2, 200, 200, 8, 2, 32, False, None),
+        (2, 200, 200, 8, 2, 48, True, 64),
+        (1, 257, 257, 8, 2, 128, True, None),
+        (1, 100, 100, 4, 4, 20, True, None),  # rows not 16-byte multiples
+    ],
+)
+def test_cuda_flash_attention_tile_edges(cuda, dtype, B, Sq, Skv, H, K, hd, causal, window):
+    """The edges of the bf16 tensor-core kernel's tiles (and the fp32
+    kernel's at the same shapes), GQA H/K = 4, against the plain version."""
     q = _lm_tensor((B, Sq, H, hd), dtype, cuda)
     k = _lm_tensor((B, Skv, K, hd), dtype, cuda)
     v = _lm_tensor((B, Skv, K, hd), dtype, cuda)

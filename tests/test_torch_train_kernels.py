@@ -22,6 +22,7 @@ import torch
 
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
+from repro_torch.kernels import grad_coalesce as tgc
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
 
@@ -108,6 +109,47 @@ def test_scatter_add_ref_random_sweep(D):
                                     torch.from_numpy(deltas)).numpy()
         want = jref.coalesce_deltas_ref(jnp.asarray(st), jnp.asarray(ids), jnp.asarray(deltas))
         assert_bitwise(port, want, f"nb={nb} L={L}")
+
+
+@pytest.mark.parametrize("shape", [(7, 5), (300, 20), (1, 1)])
+def test_sort_by_slot_is_stable(shape):
+    """The sort the CUDA backward runs first: keys ascending, and within one
+    slot the flat positions in order (numpy's stable argsort)."""
+    flat = RNG.integers(0, 9, shape).astype(np.int32)
+    keys, perm = tgc.sort_by_slot(torch.from_numpy(flat))
+    want = np.argsort(flat.reshape(-1), kind="stable")
+    assert keys.dtype == torch.int32 and perm.dtype == torch.int64
+    np.testing.assert_array_equal(perm.numpy(), want)
+    np.testing.assert_array_equal(keys.numpy(), flat.reshape(-1)[want])
+
+
+def _long_heads_np(keys, n_ids, T):
+    """First positions of the runs of one id in [0, n_ids) longer than T."""
+    heads, i = [], 0
+    while i < keys.size:
+        j = i
+        while j < keys.size and keys[j] == keys[i]:
+            j += 1
+        if j - i > T and 0 <= keys[i] < n_ids:
+            heads.append(i)
+        i = j
+    return np.asarray(heads, dtype=np.int64)
+
+
+@pytest.mark.parametrize("T", [3, tgc.LONG_SEGMENT])
+@pytest.mark.parametrize("lens", [(), (64,), (65,), (65, 192, 5, 63, 2000, 1), (3, 4) * 9])
+def test_long_segment_heads_matches_numpy(T, lens):
+    """The long-segment worklist in torch (which the CUDA backward's first
+    launch builds on the card): runs longer than T, ids outside [0, N)
+    (-1 and N, each in a run longer than T) never listed."""
+    N = 500
+    ids = np.concatenate([np.full(n, 7 * i + 3) for i, n in enumerate(lens)]
+                         + [np.full(T + 2, -1), np.full(T + 5, N),
+                            RNG.integers(0, N, 40)]).astype(np.int32)
+    keys, _ = tgc.sort_by_slot(torch.from_numpy(RNG.permutation(ids)).reshape(1, -1))
+    got = tgc.long_segment_heads(keys, N, T)
+    assert got.dtype == torch.int64
+    np.testing.assert_array_equal(got.numpy(), _long_heads_np(keys.numpy(), N, T))
 
 
 def test_scatter_deltas_rounding_matches_reference():
