@@ -89,8 +89,11 @@ Phases, in order; any failure raises and the script exits non-zero:
                the tensor-core kernel's edges: Sq = Skv in {127, 129, 255,
                257}, a window across KV blocks, Sq != Skv, hd 16/20/32/48,
                GQA H/K = 4; SSD:
-               ng 1/2, S not a multiple of Q, Q 64/256, ds 64/128; fp32 and
-               bf16), at the reference's tolerances (flash atol 2e-5 fp32,
+               ng 1/2, S not a multiple of Q, Q 64/256, ds 64/128, and the
+               tensor-core kernel's edges: hd 16/20/48/96, ds 16/128, S
+               below, at and one past Q = 64/128/256, ng 2 x hpg 8, S = 4096
+               (16 chunks of state); fp32 and bf16), at the reference's
+               tolerances (flash atol 2e-5 fp32,
                3e-2 bf16; SSD atol 2e-4 fp32, and 3e-2 + 1e-2 |plain| for
                its bf16 output). Then the same prefill and decode at fp32
                (params and activations; TF32 off) through the kernels and
@@ -100,11 +103,15 @@ Phases, in order; any failure raises and the script exits non-zero:
                with torch.profiler (device time by kernel, busy share).
  11. timing  — ``flash_attention`` and ``ssd_chunk_scan`` at the main
                path's operands beside their bounds, their plain versions
-               and (flash) ``F.scaled_dot_product_attention``; flash's
-               achieved TFLOP/s.
+               and (flash) ``F.scaled_dot_product_attention``; achieved
+               TFLOP/s; the SSD's two launches (G, then the scan) timed
+               apart, its GB/s and operations at the bf16 splits it uses,
+               and the traced prefill's per-launch means of both SSD
+               kernels beside the CUDA-event medians (a cross-check of the
+               profiler).
 
-The sweep of phase 3 covers the fp16 and int8 forms too. The last three lines are the ``kernels`` JSON line (``scatter_add`` and
-``flash_attention`` carry their ``details``), the nvidia-smi line and
+The sweep of phase 3 covers the fp16 and int8 forms too. The last three lines are the ``kernels`` JSON line (``scatter_add``,
+``flash_attention`` and ``ssd_chunk_scan`` carry their ``details``), the nvidia-smi line and
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -1283,10 +1290,11 @@ def check_lm_counts(what, after_prefill, counts):
     check(not other, f"{what}: other kernels launched: {other}")
 
 
-def device_summary(torch, prof, wall_ms: float) -> dict:
+def device_summary(torch, prof, wall_ms: float, named=("ssd_", "flash_fwd")) -> dict:
     """Kernel (device) time of a torch.profiler trace: the CUDA events only
     (an aten op's own device time is its kernels', so it is not added
-    again), against the host wall of the traced region."""
+    again), against the host wall of the traced region; the port's LM
+    kernels (names containing one of ``named``) with their per-launch mean."""
     from torch.autograd import DeviceType
 
     rows = [(e.key, e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
@@ -1295,7 +1303,9 @@ def device_summary(torch, prof, wall_ms: float) -> dict:
     busy = sum(r[1] for r in rows)
     return {"wall_ms": wall_ms, "device_busy_ms": busy,
             "device_idle_share": 1 - busy / wall_ms, "kernel_launches": sum(r[2] for r in rows),
-            "top": [{"name": k[:90], "ms": ms, "calls": n} for k, ms, n in rows[:12]]}
+            "top": [{"name": k[:90], "ms": ms, "calls": n} for k, ms, n in rows[:12]],
+            "named": [{"name": k[:90], "ms": ms, "calls": n, "mean_ms": ms / n}
+                      for k, ms, n in rows if any(w in k for w in named)]}
 
 
 def lm_profile(torch, mods, res):
@@ -1415,11 +1425,23 @@ def lm_sweep(torch, ops, ref, dev, captured) -> dict:
                 torch, ops, ref, randn(B, Sq, H, hd, dtype=dtype),
                 randn(B, Skv, K, hd, dtype=dtype), randn(B, Skv, K, hd, dtype=dtype),
                 causal, window))
-        for B, S, ng, hpg, hd, ds, Q in ((2, 300, 1, 4, 64, 64, 64),  # S % Q != 0
-                                         (1, 600, 2, 2, 64, 128, 256),
-                                         (2, 512, 1, 4, 64, 64, 256),
-                                         (1, 130, 2, 2, 128, 128, 64),
-                                         (1, 1000, 2, 8, 64, 64, 256)):
+        for B, S, ng, hpg, hd, ds, Q in (
+                (2, 300, 1, 4, 64, 64, 64),  # S % Q != 0
+                (1, 600, 2, 2, 64, 128, 256), (2, 512, 1, 4, 64, 64, 256),
+                (1, 130, 2, 2, 128, 128, 64), (1, 1000, 2, 8, 64, 64, 256),
+                # the tensor-core kernel's edges: head dims not a multiple of
+                # its 64-dim slab (20: rows not 16-byte multiples), ds padded
+                # to 16 / 128, S below, at and one past Q = 64, 128, 256 (nc
+                # = 1 among them), ng = 2 with hpg = 8, 16 chunks of state
+                (1, 200, 1, 2, 16, 64, 64), (1, 200, 1, 2, 20, 64, 64),
+                (1, 200, 1, 2, 48, 64, 64), (1, 200, 1, 2, 96, 64, 64),
+                (1, 300, 1, 2, 64, 16, 128), (1, 300, 1, 2, 64, 128, 128),
+                (1, 50, 1, 2, 64, 64, 64), (1, 64, 1, 2, 64, 64, 64),
+                (1, 65, 1, 2, 64, 64, 64), (1, 100, 1, 2, 64, 64, 128),
+                (1, 128, 1, 2, 64, 64, 128), (1, 129, 1, 2, 64, 64, 128),
+                (1, 200, 1, 2, 64, 64, 256), (2, 256, 1, 4, 64, 64, 256),
+                (1, 257, 1, 2, 64, 64, 256), (2, 700, 2, 8, 64, 64, 256),
+                (1, 4096, 1, 4, 64, 64, 256)):
             nh = ng * hpg
             ssd_in = (randn(B, S, nh, hd, dtype=dtype), uniform(0.05, 1.0, B, S, nh),
                       -uniform(0.3, 4.0, nh), randn(B, S, ng, ds), randn(B, S, ng, ds))
@@ -1483,10 +1505,12 @@ def valid_pairs(Sq: int, Skv: int, causal: bool, window) -> int:
     return n
 
 
-def time_lm_kernels(torch, mods, captured, captured32, sweep_err, dev):
+def time_lm_kernels(torch, mods, captured, captured32, sweep_err, dev, prefill_profile):
     """flash_attention and ssd_chunk_scan at the main path's (bf16) first
     operands: median ms (CUDA events, L2 flushed) beside the bound, the plain
-    version and, for flash, SDPA; the fp32 run's operands timed too."""
+    version and, for flash, SDPA; the fp32 run's operands timed too; the
+    SSD's two launches apart, beside the traced prefill's per-launch means
+    (``prefill_profile``, from lm_profile)."""
     import torch.nn.functional as F
 
     fa, ssd, ref = mods["fa"], mods["ssd"], mods["ref"]
@@ -1547,12 +1571,48 @@ def time_lm_kernels(torch, mods, captured, captured32, sweep_err, dev):
         "library": "no single PyTorch call computes the chunked SSD scan",
         "max_abs_err": max(e for n, e in sweep_err.items() if n.startswith("ssd")),
     }
+    # the operations the tensor-core route does: S.x on hi + lo of S, C.h
+    # and the state update on three bf16 products each, C.B^T once per
+    # group in fp32 FMAs
+    s_ops_split = (B * nh * nc * (2 * 2 * tri * hd + 3 * 2 * Q * ds * hd + 3 * 2 * Q * ds * hd)
+                   + B * ng * nc * 2 * tri * ds)
+    # its two launches apart, on the same operands and workspace
+    lib, stream = ssd._lib(), torch.cuda.current_stream(dev).cuda_stream
+    work = torch.empty(ssd.workspace_shape(B, S, ng, ds, Q), dtype=torch.float32, device=dev)
+    y_p, h_p = torch.empty_like(x), torch.empty((B, nh, hd, ds), device=dev)
+
+    def gram():
+        check(lib.repro_ssd_gram_bf16(Bm.data_ptr(), Cm.data_ptr(), work.data_ptr(), B, S, nh,
+                                      ng, ds, Q, stream) == 0, "ssd G launch failed")
+
+    def scan():
+        check(lib.repro_ssd_scan_bf16(x.data_ptr(), dt.data_ptr(), A.data_ptr(),
+                                      work.data_ptr(), y_p.data_ptr(), h_p.data_ptr(), B, S,
+                                      nh, hd, ng, ds, Q, stream) == 0, "ssd scan launch failed")
+
+    gram_ms, scan_ms = median_ms(torch, gram, 20, flush), median_ms(torch, scan, 20, flush)
+    y_c, h_c = ssd.ssd_chunk_scan(x, dt, A, Bm, Cm, Q)
+    torch.cuda.synchronize()
+    check(torch.equal(y_c, y_p) and torch.equal(h_c, h_p),
+          "ssd: the two launches apart differ from one call")
+    ms = out["ssd_chunk_scan"]["ms"]
+    traced = {r["name"]: r["mean_ms"] for r in prefill_profile["named"] if "ssd_" in r["name"]}
+    log(f"ssd cross-check: CUDA events call {ms:.4f} = G {gram_ms:.4f} + scan {scan_ms:.4f} "
+        f"ms; traced prefill per-launch means {traced}")
     x32, dt32, A32, B32, C32, Q32 = captured32["ssd"]
     details["ssd_chunk_scan"] = {
         "shape": {"B": B, "S": S, "nh": nh, "hd": hd, "ng": ng, "ds": ds, "Q": Q},
         "dtype": str(x.dtype), "flops": s_ops, "bytes": s_bytes,
         "ops_ms_tf32": t_ops * 1e3, "ops_ms_bf16": s_ops / BF16_OPS_PER_S * 1e3,
         "bytes_ms": t_bytes * 1e3,
+        "design": ssd.ROUTES[x.dtype], "fp32_design": ssd.ROUTES[torch.float32],
+        "flops_at_splits": s_ops_split,
+        "ops_ms_bf16_at_splits": s_ops_split / BF16_OPS_PER_S * 1e3,
+        "gram_ms": gram_ms, "scan_ms": scan_ms,
+        "tflops_per_s": s_ops / ms / 1e9, "tflops_per_s_at_splits": s_ops_split / ms / 1e9,
+        "gb_per_s": s_bytes / ms / 1e6,
+        "workspace_MB": work.numel() * 4 / 1e6,
+        "traced_prefill_mean_ms": traced,
         "fp32_ms": median_ms(torch, lambda: ssd.ssd_chunk_scan(x32, dt32, A32, B32, C32, Q32),
                              10, flush),
         "max_abs_err_by_dtype": {n: e for n, e in sweep_err.items() if n.startswith("ssd")},
@@ -1727,7 +1787,7 @@ def main() -> int:
     print("lm fp32: " + json.dumps(fp32_summary), flush=True)
     t0 = time.perf_counter()
     lm_times, lm_details = time_lm_kernels(torch, mods, lm_captured, lm_captured32, lm_err,
-                                           dev)
+                                           dev, lm_summary["profile"]["prefill"])
     log(f"timing: LM operands done ({time.perf_counter() - t0:.1f}s)")
     print("details: " + json.dumps(lm_details), flush=True)
     del lm_captured, lm_captured32
@@ -1771,6 +1831,8 @@ def main() -> int:
             kernels[-1]["details"] = {**lm_details[name],
                                       "warm_prefill_ms": lm_summary["prefill_ms_warm"],
                                       "prefill_profile": lm_summary["profile"]["prefill"]}
+        else:
+            kernels[-1]["details"] = lm_details[name]
     log(f"total {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card_line(), flush=True)

@@ -212,7 +212,7 @@ class ReadOnlyCacheServer(_ServingRuntimeBase):
         if table_group is not None and table_group.uniform_precision() != "fp32":
             raise ValueError(
                 "the port's serving scratchpad holds fp32 rows; fp16/int8 "
-                "replicas come with the mixed-precision slice"
+                "serving replicas are not ported yet (ROADMAP.md Queue 1 item 11)"
             )
         self.num_slots = int(num_slots)
         self._row_bytes = qz.row_bytes(

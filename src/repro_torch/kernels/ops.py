@@ -354,7 +354,8 @@ def ssd_chunk_scan(
     """Mamba2 / SSD chunked scan from a zero state: x (B, S, nh, hd), dt
     (B, S, nh) fp32, A (nh,) fp32, Bm/Cm (B, S, ng, ds) fp32 -> (y (B, S,
     nh, hd) in x's dtype, h_final (B, nh, hd, ds) fp32), in chunks of
-    ``min(chunk, S)``."""
+    ``min(chunk, S)`` (on the card at most 256 for bf16 ``x``: the
+    tensor-core kernel's limit)."""
     Bt, S, nh, hd = x.shape
     ds = Bm.shape[3]
     if min(Bt, S, nh, hd, ds) == 0:  # nothing to scan: no launch

@@ -2,11 +2,15 @@
 
 Port of the ``ssd_chunk_scan`` Pallas kernel of ``repro/kernels/ssd_chunk.py``
 (the Mamba2 / SSD chunked scan), for fp32 and bf16 ``x``; the source file
-holds the kernel's bound and design note. The launcher takes CUDA tensors
-only: it checks device, dtype, shape, contiguity and the kernel's shared
-memory at this shape, launches on the current stream, raises on the launch's
-CUDA error, and counts each launch in :data:`LAUNCHES` (both dtypes under
-the kernel's name). The library is built and loaded at the first launch,
+holds the kernels' bound and design note. Routes by ``x``'s dtype
+(:data:`ROUTES`): bf16 makes two CUDA launches per call, G = C B^T once per
+(batch, group, chunk) into an fp32 workspace that this launcher allocates
+(:func:`workspace_shape`), then the scan on the tensor cores; fp32 makes
+one launch of the FMA kernel. The launcher takes CUDA tensors only: it checks
+device, dtype, shape, contiguity and the shapes the route takes, launches on
+the current stream, raises on the launch's CUDA error, and counts each CALL in
+:data:`LAUNCHES` (both dtypes under the kernel's name, one per call whatever
+its CUDA launches). The library is built and loaded at the first launch,
 never at import. Empty operands and the CPU dispatch live in
 ``kernels/ops.py``.
 """
@@ -19,13 +23,40 @@ import torch
 
 from repro_torch.kernels.gather_reduce import _check
 
-#: kernel launches since the last reset — one is added where a launch
-#: succeeds, and nowhere else
+#: kernel calls since the last reset — one is added where a call's
+#: launches succeed, and nowhere else
 LAUNCHES = {"ssd_chunk_scan": 0}
+
+#: the kernel each dtype of ``x`` runs (the design note is in the source)
+ROUTES = {
+    torch.bfloat16: "tensor cores: G = C.B^T once per (b, group, chunk) in fp32 FMAs, "
+                    "then one CTA per (b, head, 64 head dims) walking the chunks in "
+                    "order, mma.sync m16n8k16 bf16 with fp32 operands split into bf16 "
+                    "parts (S.x x2, C.h x3, state x3)",
+    torch.float32: "fp32 FMAs: one CTA per (b, head), 64 x 64 tiles",
+}
 
 _LIB: Optional[ctypes.CDLL] = None
 MAX_DIM = 128  # head dim and state dim
 MAX_SMEM = 232_448  # dynamic shared memory a block may use on sm_90
+MAX_CHUNK_BF16 = 256  # the tensor-core route: 16 row tiles of 16, two per warp
+GRAM_TILE = 64  # the G launch's tile: Q is padded up to a multiple
+
+
+def workspace_shape(Bt: int, S: int, ng: int, ds: int, Q: int) -> Tuple[int, ...]:
+    """Shape of the bf16 route's fp32 workspace, (Bt, ng, nc, Qp * (Qp + 2
+    DS)): per chunk G (Qp, Qp), then C and B (Qp, DS) each, in the order the
+    kernel's mma fragments read them. nc = ceil(S / Q), Qp = Q rounded up
+    to :data:`GRAM_TILE`, DS = ds rounded up to 16, 32, 64 or 128. Raises for
+    a chunk the route does not take (Q > :data:`MAX_CHUNK_BF16`)."""
+    if not 0 < Q <= MAX_CHUNK_BF16:
+        raise ValueError(f"chunk {Q}: the bf16 tensor-core kernel takes chunks of 1 to "
+                         f"{MAX_CHUNK_BF16} positions")
+    if not 0 < ds <= MAX_DIM:
+        raise ValueError(f"state dim {ds}: the kernel takes 1 to {MAX_DIM}")
+    Qp = -(-Q // GRAM_TILE) * GRAM_TILE
+    DS = next(d for d in (16, 32, 64, 128) if ds <= d)
+    return (Bt, ng, -(-S // Q), Qp * (Qp + 2 * DS))
 
 
 def _lib() -> ctypes.CDLL:
@@ -35,9 +66,13 @@ def _lib() -> ctypes.CDLL:
 
         lib = ctypes.CDLL(str(_build.library_path("ssd_chunk")))
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        for name in ("repro_ssd_chunk_scan_f32", "repro_ssd_chunk_scan_bf16"):
-            fn = getattr(lib, name)
-            fn.argtypes = [ptr] * 7 + [i32] * 7 + [ptr]
+        lib.repro_ssd_chunk_scan_f32.argtypes = [ptr] * 7 + [i32] * 7 + [ptr]
+        lib.repro_ssd_chunk_scan_bf16.argtypes = [ptr] * 8 + [i32] * 7 + [ptr]
+        # the bf16 route's two launches one at a time (chip_smoke.py times them)
+        lib.repro_ssd_gram_bf16.argtypes = [ptr] * 3 + [i32] * 6 + [ptr]
+        lib.repro_ssd_scan_bf16.argtypes = [ptr] * 6 + [i32] * 7 + [ptr]
+        for fn in (lib.repro_ssd_chunk_scan_f32, lib.repro_ssd_chunk_scan_bf16,
+                   lib.repro_ssd_gram_bf16, lib.repro_ssd_scan_bf16):
             fn.restype = i32
         lib.repro_ssd_smem_bytes.argtypes = [i32, i32, i32]
         lib.repro_ssd_smem_bytes.restype = ctypes.c_longlong
@@ -53,8 +88,9 @@ def ssd_chunk_scan(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x (B, S, nh, hd) fp32 or bf16; dt (B, S, nh), A (nh,), Bm/Cm
     (B, S, ng, ds) fp32; all contiguous on one CUDA device; nh % ng == 0,
-    hd, ds <= 128, no dim empty; ``Q`` the chunk (S need not be a multiple)
-    -> (y (B, S, nh, hd) in x's dtype, h_final (B, nh, hd, ds) fp32)."""
+    hd, ds <= 128, no dim empty; ``Q`` the chunk (S need not be a multiple;
+    at most 256 for bf16) -> (y (B, S, nh, hd) in x's dtype, h_final
+    (B, nh, hd, ds) fp32)."""
     if x.device.type != "cuda":
         raise ValueError(f"CUDA kernel called on a {x.device} tensor")
     dev = x.device
@@ -76,18 +112,25 @@ def ssd_chunk_scan(
     if hd > MAX_DIM or ds > MAX_DIM or Q <= 0:
         raise ValueError(f"head dim {hd}, state dim {ds} (<= {MAX_DIM}) and chunk {Q} "
                          "(> 0): the kernel does not take them")
+    work = None  # the bf16 route's workspace, checked before the build
+    if x.dtype == torch.bfloat16:
+        work = torch.empty(workspace_shape(Bt, S, ng, ds, Q), dtype=torch.float32,
+                           device=dev)
     lib = _lib()
-    smem = lib.repro_ssd_smem_bytes(hd, ds, Q)
-    if smem > MAX_SMEM:
-        raise ValueError(f"chunk {Q} at hd {hd}, ds {ds} needs {smem} bytes of shared "
-                         f"memory, more than a block's {MAX_SMEM}")
+    ptrs = [x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(), Cm.data_ptr()]
+    if work is None:
+        fn = lib.repro_ssd_chunk_scan_f32
+        smem = lib.repro_ssd_smem_bytes(hd, ds, Q)
+        if smem > MAX_SMEM:
+            raise ValueError(f"chunk {Q} at hd {hd}, ds {ds} needs {smem} bytes of shared "
+                             f"memory, more than a block's {MAX_SMEM}")
+    else:
+        fn = lib.repro_ssd_chunk_scan_bf16
+        ptrs.append(work.data_ptr())
     y = torch.empty_like(x)
     h = torch.empty((Bt, nh, hd, ds), dtype=torch.float32, device=dev)
-    fn = (lib.repro_ssd_chunk_scan_f32 if x.dtype == torch.float32
-          else lib.repro_ssd_chunk_scan_bf16)
     with torch.cuda.device(dev):
-        err = fn(x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
-                 y.data_ptr(), h.data_ptr(), Bt, S, nh, hd, ng, ds, Q,
+        err = fn(*ptrs, y.data_ptr(), h.data_ptr(), Bt, S, nh, hd, ng, ds, Q,
                  torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         what = lib.repro_cuda_error_string(err).decode()

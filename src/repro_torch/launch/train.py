@@ -190,7 +190,7 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
     args = ap.parse_args(argv)
     if args.arch != ARCH:
         ap.error(f"--arch {args.arch}: the port trains {ARCH} only; the LM "
-                 "archs come last (ROADMAP.md Queue 1 item 14)")
+                 "training comes later (ROADMAP.md Queue 1 item 18)")
     for name, item in _NOT_PORTED.items():
         if getattr(args, name) != _DEFAULTS[name]:
             ap.error(f"--{name} is not ported to repro_torch yet (ROADMAP.md {item})")

@@ -18,7 +18,8 @@ int8 forms (``gather_reduce_q``, ``fill_gather_reduce_q``, the byte-copy
 ``fill``) are held the same way: the int8 dequant product is exact.
 
 The LM kernels ``flash_attention`` (bf16 on the tensor cores, fp32 on
-FMAs) and ``ssd_chunk_scan`` sum in another order than their plain versions, so they are held to the reference's own
+FMAs) and ``ssd_chunk_scan`` (bf16 ``x`` on the tensor cores, fp32 on FMAs) sum in
+another order than their plain versions, so they are held to the reference's own
 tolerances (tests/test_kernels.py): flash atol 2e-5 at fp32 and 3e-2 at
 bf16 (compared in fp32), SSD atol 2e-4 at fp32. SSD with bf16 ``x`` rounds
 its output to bf16, whose step is 2^-8 relative: there |kernel - plain|
@@ -493,6 +494,20 @@ def test_cuda_flash_attention_tile_edges(cuda, dtype, B, Sq, Skv, H, K, hd, caus
         (1, 600, 2, 2, 64, 128, 256),
         (2, 512, 1, 4, 64, 64, 256),  # the zamba2 widths per head
         (1, 130, 2, 2, 128, 128, 64),
+        # the tensor-core kernel's edges: head dims not a multiple of its
+        # 64-dim slab (20: rows not 16-byte multiples), ds padded to 16 /
+        # 128, S below, at and one past the chunk at Q = 64, 128, 256 (one
+        # chunk: nc = 1), several heads reading one G, 16 chunks of state
+        (1, 200, 1, 2, 16, 64, 64), (1, 200, 1, 2, 20, 64, 64),
+        (1, 200, 1, 2, 48, 64, 64), (1, 200, 1, 2, 96, 64, 64),
+        (1, 300, 1, 2, 64, 16, 128), (1, 300, 1, 2, 64, 128, 128),
+        (1, 50, 1, 2, 64, 64, 64), (1, 64, 1, 2, 64, 64, 64), (1, 65, 1, 2, 64, 64, 64),
+        (1, 100, 1, 2, 64, 64, 128), (1, 128, 1, 2, 64, 64, 128),
+        (1, 129, 1, 2, 64, 64, 128),
+        (1, 200, 1, 2, 64, 64, 256), (2, 256, 1, 4, 64, 64, 256),
+        (1, 257, 1, 2, 64, 64, 256),
+        (2, 700, 2, 8, 64, 64, 256),  # ng = 2, hpg = 8
+        (1, 4096, 1, 4, 64, 64, 256),  # the state after 16 chunks
     ],
 )
 def test_cuda_ssd_chunk_scan_vs_plain(cuda, dtype, B, S, ng, hpg, hd, ds, Q):
@@ -554,3 +569,15 @@ def test_cuda_lm_launchers_check_operands(cuda):
         tssd.ssd_chunk_scan(x, dt, torch.zeros(3, device=cuda), bc, bc, 4)
     with pytest.raises(ValueError, match="shared"):
         tssd.ssd_chunk_scan(x, dt, A, bc, bc, 1 << 16)
+
+
+@pytest.mark.cuda
+def test_cuda_ssd_bf16_refuses_long_chunks(cuda):
+    """The tensor-core route takes chunks of at most 256 positions (16 row
+    tiles, two per warp); a longer one raises before anything launches."""
+    x = torch.zeros(1, 300, 2, 16, dtype=torch.bfloat16, device=cuda)
+    dt, A = torch.zeros(1, 300, 2, device=cuda), torch.zeros(2, device=cuda)
+    bc = torch.zeros(1, 300, 1, 16, device=cuda)
+    with pytest.raises(ValueError, match="chunk 300"):
+        tssd.ssd_chunk_scan(x, dt, A, bc, bc, 300)
+    assert tops.launch_counts()["ssd_chunk_scan"] == 0

@@ -196,3 +196,28 @@ def test_unknown_arch_and_missing_mode():
         serve.main(["--arch", "no-such-model", "--device", "cpu"])
     with pytest.raises(SystemExit):
         serve.main(["--device", "cpu"])
+
+
+def _lm_training_message(capsys):
+    with pytest.raises(SystemExit):
+        train.main(["--arch", "zamba2-1.2b", "--device", "cpu"])
+    return capsys.readouterr().err
+
+
+def _serving_precision_message(capsys):
+    from repro_torch.core.table_group import TableGroup
+
+    host = HostEmbeddingTable(800, 16, seed=0)
+    with pytest.raises(ValueError) as err:
+        ReadOnlyCacheServer(host, 128, device="cpu",
+                            table_group=TableGroup.uniform(2, 400, 16, precision="int8"))
+    return str(err.value)
+
+
+@pytest.mark.parametrize("message,item", [
+    (_lm_training_message, 18),  # LM training
+    (_serving_precision_message, 11),  # reduced-precision serving
+], ids=["lm-training", "serving-precision"])
+def test_not_ported_messages_name_their_roadmap_item(capsys, message, item):
+    """What is not ported yet says where ROADMAP.md queues it."""
+    assert f"ROADMAP.md Queue 1 item {item})" in message(capsys)

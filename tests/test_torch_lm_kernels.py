@@ -25,6 +25,7 @@ from repro.models import layers as jlayers
 from repro.models import mamba2 as jmamba
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
+from repro_torch.kernels import ssd_chunk as tssd
 from repro_torch.models import layers as tlayers
 from repro_torch.models import mamba2 as tmamba
 
@@ -239,6 +240,27 @@ def test_ssd_chunk_scan_plain_bf16():
     y_want = _np(y_want)
     assert (np.abs(_np(y) - y_want) <= BF16_ATOL + BF16_RTOL * np.abs(y_want)).all()
     np.testing.assert_allclose(h.numpy(), np.asarray(h_want), atol=2e-4)
+
+
+@pytest.mark.parametrize("Bt,S,ng,ds,Q,shape", [
+    (4, 2048, 1, 64, 256, (4, 1, 8, 256 * (256 + 2 * 64))),  # the zamba2 prefill
+    (1, 50, 2, 8, 50, (1, 2, 1, 64 * (64 + 2 * 16))),  # Q and ds padded up
+    (2, 300, 1, 128, 128, (2, 1, 3, 128 * (128 + 2 * 128))),
+    (1, 257, 1, 20, 256, (1, 1, 2, 256 * (256 + 2 * 32))),  # a ragged last chunk
+    (1, 64, 1, 17, 64, (1, 1, 1, 64 * (64 + 2 * 32))),
+])
+def test_ssd_workspace_shape(Bt, S, ng, ds, Q, shape):
+    """The bf16 route's fp32 workspace: per (b, group, chunk) G (Qp, Qp) and
+    C, B (Qp, DS), Qp = Q up to a multiple of 64, DS = ds up to 16, 32, 64
+    or 128 (the kernel's layout, csrc/ssd_chunk.cu)."""
+    assert tssd.workspace_shape(Bt, S, ng, ds, Q) == shape
+
+
+@pytest.mark.parametrize("ds,Q,match", [(64, 257, "chunk 257"), (64, 0, "chunk 0"),
+                                        (129, 64, "state dim 129")])
+def test_ssd_workspace_refuses(ds, Q, match):
+    with pytest.raises(ValueError, match=match):
+        tssd.workspace_shape(1, 512, 1, ds, Q)
 
 
 def test_ssd_scan_unported_options_and_empty():
