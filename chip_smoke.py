@@ -71,7 +71,9 @@ Phases, in order; any failure raises and the script exits non-zero:
   9. timing  — ``gather_reduce_q``, ``fill_gather_reduce_q`` and the fp16/
                int8 forms of ``gather_reduce``, ``fill`` and
                ``fill_gather_reduce`` at the operands of the middle step of
-               phase 8, and the plain ``requantize_update`` epilogue.
+               phase 8 (checked to take the int8 kernels' staged path), with
+               each gather's and fused kernel's GB/s and random accesses per
+               microsecond, and the plain ``requantize_update`` epilogue.
  10. lm serve — the LM serving path: ``repro_torch.launch.serve``'s
                ``run_lm`` for ``--arch zamba2-1.2b --batch 4 --prompt-len
                2048 --gen 16 --seed 0`` at full width (38 mamba2 layers,
@@ -110,7 +112,10 @@ Phases, in order; any failure raises and the script exits non-zero:
                kernels beside the CUDA-event medians (a cross-check of the
                profiler).
 
-The sweep of phase 3 covers the fp16 and int8 forms too. The last three lines are the ``kernels`` JSON line (``scatter_add``,
+The sweep of phase 3 covers the fp16 and int8 forms too, and for them also
+D in {256, 1024} (rows of several warp loads), L in {33, 64} (more than one
+32-lookup group), a payload 4 but not 16 bytes aligned, fused calls whose
+fills are all sentinels, and ragged fills. The last three lines are the ``kernels`` JSON line (``scatter_add``,
 ``flash_attention`` and ``ssd_chunk_scan`` carry their ``details``), the nvidia-smi line and
 ``{"ok": true, "device": {...}}``.
 """
@@ -211,6 +216,17 @@ def zipf_ids(torch, g, shape, n_rows: int, s: float = 0.77):
     return ((ranks * 2_654_435_761) % n_rows).to(torch.int32)
 
 
+def offset_copy(torch, t, offset: int):
+    """A contiguous copy of ``t`` whose data starts ``offset`` bytes past a
+    64-byte-aligned address (0: the copy is aligned)."""
+    n_bytes = t.numel() * t.element_size()
+    buf = torch.empty(n_bytes + 64, dtype=torch.uint8, device=t.device)
+    base = (-buf.data_ptr()) % 64 + offset
+    view = buf[base:base + n_bytes].view(t.dtype).view(t.shape)
+    view.copy_(t)
+    return view
+
+
 #: launch-count keys of the reduced-precision forms: (gather, fill, fused)
 Q_KEYS = {"fp16": ("gather_reduce_f16", "fill_f16", "fill_gather_reduce_f16"),
           "int8": ("gather_reduce_q", "fill_i8", "fill_gather_reduce_q")}
@@ -235,9 +251,14 @@ def sweep_kernels(torch, ops, ref, gc, qz, dev) -> dict:
     def diff(a, b):
         return (a.float() - b.float()).abs().max().item() if a.numel() else 0.0
 
-    def gather_q_case(N, D, nb, L, precision, ids):
+    def gather_q_case(N, D, nb, L, precision, ids, offset=0):
+        """offset 4: a payload 4 but not 16 bytes aligned (the int8 gather's
+        old path); bag 0 looks up one slot all through."""
         data, scale = q_storage(N, D, precision)
+        data = offset_copy(torch, data, offset)
         key = Q_KEYS[precision][0]
+        ids = ids.clone()
+        ids[0] = 5
         ids = ids.to(dev)
         before = ops.launch_counts()[key]
         got = ops.gather_reduce_q(data, scale, ids)
@@ -245,7 +266,7 @@ def sweep_kernels(torch, ops, ref, gc, qz, dev) -> dict:
         torch.cuda.synchronize()
         check(ops.launch_counts()[key] == before + 1, f"{key} launch count")
         check(got.dtype == torch.float32 and torch.equal(got, want),
-              f"{key} differs at N={N} D={D} nb={nb} L={L}")
+              f"{key} differs at N={N} D={D} nb={nb} L={L} offset={offset}")
         err[key] = max(err[key], diff(got, want))
 
     def fill_q_case(N, D, n_valid, F, precision):
@@ -263,16 +284,18 @@ def sweep_kernels(torch, ops, ref, gc, qz, dev) -> dict:
         check(torch.equal(got, want), f"{key} differs at N={N} D={D} F={F}")
         err[key] = max(err[key], diff(got, want))
 
-    def fused_q_case(N, D, F, n_valid, nb, L, precision):
+    def fused_q_case(N, D, F, n_valid, nb, L, precision, offset=0):
+        """n_valid 0: every fill a sentinel; offset as in gather_q_case."""
         data, scale = q_storage(N, D, precision)
         slots = torch.full((F,), N, dtype=torch.int32)
         slots[torch.randperm(F, generator=g)[:n_valid]] = (
             torch.randperm(N, generator=g)[:n_valid].to(torch.int32))
         filled = slots[slots < N]
-        ids = torch.where(
-            torch.rand(nb, L, generator=g) < 0.5,
-            filled[torch.randint(0, filled.numel(), (nb, L), generator=g)],
-            torch.randint(0, N, (nb, L), generator=g, dtype=torch.int32))
+        ids = torch.randint(0, N, (nb, L), generator=g, dtype=torch.int32)
+        if n_valid:
+            ids = torch.where(torch.rand(nb, L, generator=g) < 0.5,
+                              filled[torch.randint(0, filled.numel(), (nb, L), generator=g)],
+                              ids)
         rows, rows_scale = q_storage(F, D, precision)
         slots, ids = slots.to(dev), ids.to(dev)
         if scale is not None:  # the scale column is scattered before the launch
@@ -280,12 +303,14 @@ def sweep_kernels(torch, ops, ref, gc, qz, dev) -> dict:
             scale[slots[keep].long()] = rows_scale[keep]
         key = Q_KEYS[precision][2]
         before = ops.launch_counts()[key]
-        got_st, got = ops.fill_gather_reduce_q(data.clone(), scale, slots, rows, ids)
+        got_st, got = ops.fill_gather_reduce_q(offset_copy(torch, data, offset), scale, slots,
+                                               rows, ids)
         want_st, want = ref.fill_gather_reduce_q_ref(data.clone(), scale, slots, rows, ids)
         torch.cuda.synchronize()
         check(ops.launch_counts()[key] == before + 1, f"{key} launch count")
         check(torch.equal(got_st, want_st) and torch.equal(got, want),
-              f"{key} differs at N={N} D={D} F={F} nb={nb} L={L}")
+              f"{key} differs at N={N} D={D} F={F} n_valid={n_valid} nb={nb} L={L} "
+              f"offset={offset}")
         err[key] = max(err[key], diff(got, want), diff(got_st, want_st))
 
     def scatter_case(N, D, ids, scale=1.0):
@@ -391,17 +416,27 @@ def sweep_kernels(torch, ops, ref, gc, qz, dev) -> dict:
     dup = torch.tensor([[3, 3, 3, 5], [5, 3, 5, 3], [0, 0, 0, 0]], dtype=torch.int32)
     check(torch.equal(ops.gather_reduce(st, dup.to(dev)),
                       ref.gather_reduce_ref(st, dup.to(dev))), "explicit duplicates")
-    # the fp16 and int8 forms over the same sweep; D=3 copies 6- and 3-byte
-    # rows (2- and 1-byte chunks)
+    # the fp16 and int8 forms over the same sweep, plus rows of several warp
+    # loads (D 256, 1024), more than one 32-lookup group (L 33, 64), a
+    # payload 4 but not 16 bytes aligned, fused calls whose fills are all
+    # sentinels, and ragged fills; narrow rows fill several per warp, the
+    # fp32 D=128 rows above (exactly 512 bytes) one per warp. D=3 copies 6-
+    # and 3-byte rows (2- and 1-byte chunks)
     for precision in Q_KEYS:
-        for D in (8, 40, 128, 192):
-            for L in (1, 3, 20):
+        for D in (8, 40, 128, 192, 256, 1024):
+            for L in (1, 3, 20, 33, 64):
                 gather_q_case(4096, D, 257, L, precision,
                               torch.randint(0, 64, (257, L), generator=g, dtype=torch.int32))
                 gather_q_case(4096, D, 33, L, precision,
                               torch.randint(0, 4096, (33, L), generator=g, dtype=torch.int32))
                 fused_q_case(4096, D, 1024, 1000, 257, L, precision)
+            gather_q_case(4096, D, 33, 20, precision,
+                          torch.randint(0, 4096, (33, 20), generator=g, dtype=torch.int32),
+                          offset=4)
+            fused_q_case(4096, D, 1024, 1000, 33, 20, precision, offset=4)
+            fused_q_case(4096, D, 1024, 0, 33, 3, precision)  # every fill a sentinel
             fill_q_case(4096, D, 1000, 1024, precision)
+            fill_q_case(4096, D, 999, 1023, precision)
             fill_q_case(4096, D, 4096, 4096, precision)
             fused_q_case(4096, D, 4096, 4096, 100, 3, precision)
         fill_q_case(4096, 3, 1000, 1024, precision)
@@ -531,16 +566,19 @@ def serve_main_path(torch, ops, ref, serve, serving_cache):
 # --------------------------------------------------------------------------- #
 # 5. timing
 # --------------------------------------------------------------------------- #
-def median_ms(torch, fn, reps: int, flush) -> float:
+def median_ms(torch, fn, reps: int, flush, warm=None) -> float:
     """Median device time of ``fn`` over ``reps`` launches (CUDA events
     around each launch; the L2 is flushed before each, as a serve finds
-    it after its other work)."""
+    it after its other work). ``warm``, if given, runs after the flush and
+    outside the events (to time ``fn`` with some operand L2-resident)."""
     for _ in range(2):
         fn()
     ev = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
           for _ in range(reps)]
     for a, b in ev:
         flush.zero_()
+        if warm is not None:
+            warm()
         a.record()
         fn()
         b.record()
@@ -777,6 +815,24 @@ def bound(n_bytes: int, n_ops: int):
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def access_rates(torch, ms: float, n_bytes: int, flat, row_bytes: int, scaled: bool,
+                 fill_rows: int = 0) -> dict:
+    """What a gather (or fused) launch achieved: the bound's bytes per
+    second, and random accesses per microsecond. An access is a unique
+    payload line (128 bytes; a row of ``row_bytes`` from a line-aligned
+    base spans ceil(row_bytes / 128)), for int8 a unique scale sector (32
+    bytes: ids // 8), and in the fused kernels each valid fill row's lines
+    stored."""
+    unique = torch.unique(flat)
+    per_row = -(-row_bytes // 128)
+    lines = unique.numel() * per_row
+    sectors = int(torch.unique(unique // 8).numel()) if scaled else 0
+    accesses = lines + sectors + fill_rows * per_row
+    return {"GB_per_s": n_bytes / ms / 1e6, "accesses_per_us": accesses / (ms * 1e3),
+            "payload_lines": lines, "scale_sectors": sectors,
+            "fill_lines": fill_rows * per_row}
+
+
 def scatter_zipf(torch, ref, gc, storage, deltas, flush, dev) -> dict:
     """scatter_add on ids of the sweep's Zipf skew (``zipf_ids``, seed 1: a
     harder skew than the training stream's, with a longest segment of
@@ -818,7 +874,8 @@ def time_train_kernels(torch, ops, ref, gr, gc, captured, dev):
     got, want = gr.gather_reduce(storage, flat), ref.gather_reduce_ref(storage, flat)
     check(torch.equal(got, want), "gather_reduce differs at the training operands")
     n_unique = int(torch.unique(flat).numel())
-    b_ms, b_by = bound(n_unique * D * 4 + flat.numel() * 4 + nb * D * 4, nb * (L - 1) * D)
+    g_bytes = n_unique * D * 4 + flat.numel() * 4 + nb * D * 4
+    b_ms, b_by = bound(g_bytes, nb * (L - 1) * D)
     long_ids = flat.long()
     out["gather_reduce"] = {
         "ms": median_ms(torch, lambda: gr.gather_reduce(storage, flat), 30, flush),
@@ -828,8 +885,9 @@ def time_train_kernels(torch, ops, ref, gr, gc, captured, dev):
             torch, lambda: F.embedding_bag(long_ids, storage, mode="sum"), 30, flush),
         "max_abs_err": (got - want).abs().max().item(),
     }
-    details["gather_reduce"] = {"storage": list(storage.shape), "bags": nb, "L": L,
-                                "unique_rows": n_unique}
+    details["gather_reduce"] = {
+        "storage": list(storage.shape), "bags": nb, "L": L, "unique_rows": n_unique,
+        **access_rates(torch, out["gather_reduce"]["ms"], g_bytes, flat, D * 4, False)}
 
     st0, flat, deltas = captured["scatter"]
     nb, L = flat.shape
@@ -899,8 +957,9 @@ def time_train_kernels(torch, ops, ref, gr, gc, captured, dev):
     valid = slots < st0.shape[0]
     n_valid = int(valid.sum().item())
     n_unique = int(torch.unique(flat).numel())
-    b_ms, b_by = bound(2 * n_valid * D * 4 + slots.numel() * 4 + n_unique * D * 4
-                       + flat.numel() * 4 + nb * D * 4, nb * (L - 1) * D)
+    fg_bytes = (2 * n_valid * D * 4 + slots.numel() * 4 + n_unique * D * 4
+                + flat.numel() * 4 + nb * D * 4)
+    b_ms, b_by = bound(fg_bytes, nb * (L - 1) * D)
     scratch = st0.clone()
     v_slots, v_rows, long_ids = slots[valid].long(), rows[valid], flat.long()
 
@@ -920,7 +979,9 @@ def time_train_kernels(torch, ops, ref, gr, gc, captured, dev):
     details["fill_gather_reduce"] = {
         "storage": list(st0.shape), "F": int(slots.numel()), "valid_rows": n_valid,
         "bags": nb, "L": L, "unique_rows": n_unique,
-        "library": "index_copy_ + F.embedding_bag (two calls)"}
+        "library": "index_copy_ + F.embedding_bag (two calls)",
+        **access_rates(torch, out["fill_gather_reduce"]["ms"], fg_bytes, flat, D * 4, False,
+                       n_valid)}
     del st0, scratch, captured["fused"]
     return out, details
 
@@ -1089,6 +1150,14 @@ NO_LIBRARY = {
 }
 
 
+def staged_path(data, bags) -> bool:
+    """Whether csrc/gather_reduce.cu stages this int8 payload's rows in
+    shared memory (its redesigned gather): D % 16 == 0, payload and bags
+    16-byte aligned."""
+    return (data.shape[1] % 16 == 0 and data.data_ptr() % 16 == 0
+            and bags.data_ptr() % 16 == 0)
+
+
 def time_q_kernels(torch, mods, captured, dev):
     """The fp16/int8 gathers, fills and fused kernels at the operands the
     reduced-precision runs gave them (the middle step), each against its
@@ -1113,6 +1182,9 @@ def time_q_kernels(torch, mods, captured, dev):
         check(torch.equal(got, want), f"{gk} differs at the training operands")
         nb, L = flat.shape
         D, item = data.shape[1], data.element_size()
+        if int8:  # the times below are of the staged path
+            check(staged_path(data, got), "the int8 gather's operands miss the staged path: "
+                  f"D={D}, payload at {data.data_ptr()}, bags at {got.data_ptr()}")
         row_b = D * item + (4 if int8 else 0)
         n_unique = int(torch.unique(flat).numel())
         g_bytes = n_unique * row_b + flat.numel() * 4 + nb * D * 4
@@ -1126,7 +1198,13 @@ def time_q_kernels(torch, mods, captured, dev):
             "max_abs_err": (got - want).abs().max().item(),
         }
         details[gk] = {"storage": list(data.shape), "dtype": str(data.dtype), "bags": nb,
-                       "L": L, "unique_rows": n_unique, "bytes": g_bytes}
+                       "L": L, "unique_rows": n_unique, "bytes": g_bytes,
+                       **access_rates(torch, out[gk]["ms"], g_bytes, flat, D * item, int8)}
+        if int8:  # the same launch with the scale column read into L2 first:
+            # what the scale's random sectors cost, and what the payload's cost
+            sink = torch.empty(1, device=dev)
+            details[gk]["ms_scale_in_L2"] = median_ms(
+                torch, kernel, 30, flush, warm=lambda: torch.sum(scale, dim=(0,), out=sink))
         del data, scale, flat, got, want
 
         # the fill (the payload of an int8 pair)
@@ -1165,6 +1243,9 @@ def time_q_kernels(torch, mods, captured, dev):
         want_st, want = ref.fill_gather_reduce_q_ref(st0.clone(), scale, slots, rows, flat)
         check(torch.equal(got_st, want_st) and torch.equal(got, want),
               f"{fgk} differs at the training operands")
+        if int8:
+            check(staged_path(got_st, got), "the fused int8 operands miss the staged path: "
+                  f"D={D}, payload at {got_st.data_ptr()}, bags at {got.data_ptr()}")
         err = (got - want).abs().max().item()
         del got_st, want_st
         valid = slots < st0.shape[0]
@@ -1175,6 +1256,7 @@ def time_q_kernels(torch, mods, captured, dev):
                     + flat.numel() * 4 + nb * D * 4)
         b_ms, b_by = bound(fg_bytes, g_ops)
         scratch = st0.clone()
+        check(not int8 or scratch.data_ptr() % 16 == 0, "the timed payload is not 16-byte aligned")
         out[fgk] = {
             "ms": median_ms(torch, lambda: kernel(scratch), 30, flush),
             "plain_ms": median_ms(
@@ -1186,7 +1268,9 @@ def time_q_kernels(torch, mods, captured, dev):
         }
         details[fgk] = {"storage": list(st0.shape), "F": int(slots.numel()),
                         "valid_rows": n_valid, "bags": nb, "L": L, "unique_rows": n_unique,
-                        "bytes": fg_bytes}
+                        "bytes": fg_bytes,
+                        **access_rates(torch, out[fgk]["ms"], fg_bytes, flat, D * item, int8,
+                                       n_valid)}
         del st0, scratch, scale, slots, rows, flat, got, want
 
         # the plain re-quantization epilogue of the backward (torch, not a

@@ -43,13 +43,32 @@
 //   scale, the ids and the nb*D*4 bytes of bags: ~42 MB, ~13 us at the
 //   training slice's ~247k unique rows. The int8 payload makes the rows 4x
 //   smaller than fp32, so the fp32 bags written are now the larger half.
-//   Design: the gather above, with lanes loading the int8 row in 4-byte
-//   char4 chunks (a D=128 row is one 128-byte warp load). The lane that
-//   loads a lookup's id also loads that row's scale, and both are passed
-//   on by shuffles, so a scale is read once per lookup, not once per lane.
-//   Each addend is __fmul_rn(float(q), s): the product is exact (payload 7
-//   significant bits, snapped scale <= 17, core/quantize.py), so it adds
-//   no rounding and the sum is bitwise equal to the plain version.
+//   The scale is an (N, 1) column beside the payload (core/scratchpad.py),
+//   so a unique lookup touches a 128-byte payload line (D=128) and a
+//   32-byte scale sector (~247k lines + ~110k sectors at those operands,
+//   whose slots lie close). The rate of these random accesses, not the
+//   bytes, bounds the gather on the card, and the payload rows most of
+//   it: chip_smoke.py phase 9 prints the rates, and the time with the
+//   scale column already in L2.
+//   Design (D % 16 == 0, payload and bags 16-byte aligned:
+//   gather_bag_i8_staged): one warp per bag, its rows staged in shared
+//   memory. Per 32-lookup group the ids come in one coalesced load; then
+//   every row of the group is copied with 16-byte cp.async.cg (lane t
+//   copies chunk t % 8 of rows t / 8, t / 8 + 4, ...: one warp instruction
+//   covers 4 rows of 128 bytes, where a 4-byte load per lane covers one),
+//   the lane that holds lookup j's id loading its scale beside them, not
+//   in front of them; then lane c adds the char4 column c of rows 0..n-1
+//   in l order from shared memory, each scale passed on by a shuffle. The
+//   grid is persistent (as many blocks as are co-resident) and strides
+//   over the bags. A register version (all 32 rows of a group loaded into
+//   registers before the first add) ran slower on the card: its registers
+//   left far fewer resident warps, and one 4-byte load per row and lane
+//   kept the load instructions as many as before. Each addend is
+//   __fmul_rn(float(q), s): the product is exact (payload 7 significant
+//   bits, snapped scale <= 17, core/quantize.py), so it adds no rounding
+//   and the sum is bitwise equal to the plain version. Other widths and
+//   alignments (D = 8, 40, a view 4 but not 16 bytes in) keep reduce_bag
+//   with I8x4 / I8x1 lanes, the lane that loads an id loading its scale.
 //
 // repro_fill replaces the Pallas kernel
 //   repro/kernels/gather_reduce.py: fill (_fill_kernel), for every storage
@@ -58,16 +77,28 @@
 //   sentinel (== N, core/plan.py: pad_index) is dropped.
 //   Bound: bytes, 2 * F_valid * row_bytes (read each valid row, write it
 //   once) plus the F slot ids, over 3.35 TB/s.
-//   Design: one warp per fill row, lanes copying the row's bytes in 16-byte
-//   chunks where the row width and both addresses allow it, else 8, 4, 2 or
-//   1 (chosen once per call on the host; the branch is uniform across the
-//   grid); a dropped row costs one id load. The Pallas kernel writes in grid
-//   order; Hopper blocks race, so the kernel relies on a PRECONDITION: the
-//   valid slots of one call are unique (the planner assigns each slot once
-//   per plan, and the serving runtime drops stale pairs before filling,
-//   core/serving_cache.py: _insert). Negative slots are rejected by the
-//   Python wrapper; the kernel also drops them rather than write out of
-//   bounds.
+//   Design: lanes copy 16-byte chunks where the row width and both
+//   addresses allow it, else 8, 4, 2 or 1 (chosen once per call on the
+//   host; the branch is uniform across the grid). A row of 1, 2, 4, 8 or
+//   16 chunks of 16 bytes (an int8 D=128 row is 8, fp16 D=128 16) is
+//   narrower than a warp's 512-byte load: one warp per row would leave
+//   lanes idle and each warp one short chain of slot load -> row load ->
+//   store, 128 bytes in flight. There a warp takes a group of G = min(32,
+//   256 / chunks) rows (32 int8 D=128 rows), loads their G slot ids in one
+//   coalesced load, hands them out by shuffles, and each lane issues up to
+//   8 chunk loads of the group (contiguous in `rows`, so each warp load is
+//   512 bytes) before its first store: 4 KB in flight per warp. The narrow
+//   and the one-warp-per-row forms are separate instantiations: the wide
+//   rows (fp32 D=128, the serving and fp32 training fills) would lose
+//   resident warps to the narrow form's registers. Other row widths keep
+//   one warp per row. A dropped row costs its share
+//   of one id load. The Pallas kernel writes in grid order; Hopper blocks
+//   race, so the kernel relies on a
+//   PRECONDITION: the valid slots of one call are unique (the planner
+//   assigns each slot once per plan, and the serving runtime drops stale
+//   pairs before filling, core/serving_cache.py: _insert). Negative slots
+//   are rejected by the Python wrapper; the kernel also drops them rather
+//   than write out of bounds.
 //
 // repro_fill_gather_reduce_f32 / _f16 / _q8 replace the Pallas kernels
 //   repro/kernels/gather_reduce.py: fill_gather_reduce (_make_fused_kernel)
@@ -81,23 +112,29 @@
 //   it, like the gather, through the read-only path.
 //   Bound: bytes, the sum of the two: read + write of each valid fill row,
 //   each unique looked-up row read once (a row that was just filled counts
-//   again: the card cannot keep 260k rows on chip between the phases), the
-//   ids, the fill slots and the bags written.
+//   again, though the int8 form's ~15 MB of just-filled rows can stay in
+//   the 50 MB L2 between the phases, where fp32's ~61 MB cannot), the ids,
+//   the fill slots and the bags written. Random accesses: the fill's row
+//   stores plus the gather's (int8: payload lines + scale sectors).
 //   Design: ONE cooperative launch (cudaLaunchCooperativeKernel) of a
 //   persistent grid sized to what can be co-resident on the card (the
 //   occupancy query times the SM count). Phase 1: warps stride over the
-//   fill rows, as the fill kernel does. Then cooperative_groups'
-//   grid.sync(): every fill store is complete and visible before any
-//   block starts phase 2. Phase 2: warps stride over the bags, as the
-//   gather kernel does, but load payload rows with __ldcg (cached in L2
-//   only, the card's point of coherence), never through the read-only
-//   non-coherent path that __ldg takes: the rows were written in this same
-//   launch. The TPU kernel orders fill before gather with its sequential
-//   grid (the fills are the first F grid steps); here the barrier does,
-//   and it costs one launch instead of two. The other design, a gather
-//   that reads "around" the fill (a slot -> fill-row map), would need an
-//   N-entry map built and cleared by extra launches. Same precondition as
-//   the fill: the valid fill slots of one call are unique.
+//   fill's work items (a row, or a group of narrow rows), as the fill
+//   kernel does. Then cooperative_groups' grid.sync(): every fill store is
+//   complete and visible before any block starts phase 2. Phase 2: warps
+//   stride over the bags, as the gather kernels do (int8 rows of 16-byte
+//   multiples: staged in shared memory), but read payload rows with
+//   __ldcg or cp.async.cg (cached in L2 only, the card's point of
+//   coherence), never through the read-only non-coherent path that __ldg
+//   takes: the rows were written in this same launch. The int8 form's
+//   staging array is static shared memory, so the occupancy query that
+//   sizes the cooperative grid counts it. The TPU kernel orders fill before gather with its
+//   sequential grid (the fills are the first F grid steps); here the
+//   barrier does, and it costs one launch instead of two. The other
+//   design, a gather that reads "around" the fill (a slot -> fill-row
+//   map), would need an N-entry map built and cleared by extra launches.
+//   Same precondition as the fill: the valid fill slots of one call are
+//   unique.
 //
 // All: launch on the caller's stream, allocate nothing, do not
 // synchronize, and return the launch's error for the wrapper to raise on.
@@ -110,6 +147,7 @@
 
 #include <algorithm>
 #include <cstdint>
+#include <type_traits>
 
 namespace {
 
@@ -191,6 +229,13 @@ struct I8x1 {
   }
 };
 
+// int8 rows of a multiple of 16 bytes, 16-byte aligned: the gather stages
+// a group's rows in shared memory (gather_bag_i8_staged) instead of
+// reduce_bag's loads into registers; each lane adds char4 columns as I8x4.
+struct I8Stage {
+  using Acc = float4;
+};
+
 // One warp sums one bag: each output element is accumulated by ONE lane,
 // from the l=0 row, adding l=1..L-1 in order. dv = chunks per row (D / 4
 // or D). Called warp-uniformly.
@@ -231,6 +276,71 @@ __device__ __forceinline__ void reduce_bag(const typename R::In* storage,
   }
 }
 
+// row bytes staged per pass of the staged int8 gather: 8 chunks of 16
+constexpr int kSlab = 128;
+
+// 16-byte copy global -> shared that bypasses L1 (cached in L2 only, so it
+// sees rows stored earlier in the same launch), and the wait for all of the
+// thread's copies.
+__device__ __forceinline__ void copy_async16(void* smem, const void* gmem) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(
+                   static_cast<unsigned>(__cvta_generic_to_shared(smem))),
+               "l"(gmem));
+}
+__device__ __forceinline__ void copy_async_wait() {
+  asm volatile("cp.async.wait_all;" ::: "memory");
+}
+
+// One warp sums int8 bag `bag` (D % 16 == 0) with its rows staged in
+// shared memory, `stage` being the warp's own kWarp x kSlab bytes. Per
+// 128-byte column slab and 32-lookup group: one coalesced id load, then
+// every row of the group is copied with 16-byte cp.async (lane t copies
+// chunk t % 8 of rows t / 8, t / 8 + 4, ...: one warp instruction covers 4
+// rows, where a 4-byte load per lane covers 1), each lookup's scale loaded
+// beside them; then lane c adds the char4 column c of rows 0..n-1 in l
+// order, from shared memory. Called warp-uniformly.
+__device__ __forceinline__ void gather_bag_i8_staged(const char* storage,
+                                                     const float* __restrict__ scale,
+                                                     const int* __restrict__ ids,
+                                                     float4* __restrict__ out,
+                                                     long long bag, int L, int D,
+                                                     char4* stage, int lane) {
+  const int* bag_ids = ids + bag * L;
+  const int chunk = lane % 8;
+  for (int c0 = 0; c0 < D; c0 += kSlab) {
+    const int slab = min(kSlab, D - c0);
+    const bool copies = chunk * 16 < slab;
+    const bool active = lane * 4 < slab;
+    float4 acc{};
+    for (int l0 = 0; l0 < L; l0 += kWarp) {
+      const int n = min(kWarp, L - l0);
+      const int my_id = lane < n ? __ldg(bag_ids + l0 + lane) : 0;
+      for (int r0 = 0; r0 < n; r0 += 4) {  // n is warp-uniform
+        const int r = r0 + lane / 8;
+        const long long s = __shfl_sync(kFullMask, my_id, min(r, n - 1));
+        if (r < n && copies) {
+          copy_async16(stage + r * (kSlab / 4) + chunk * 4,
+                       storage + s * D + c0 + chunk * 16);
+        }
+      }
+      // the scale column is never written by these kernels
+      const float my_scale = lane < n ? __ldg(scale + my_id) : 1.0f;
+      copy_async_wait();
+      __syncwarp();
+#pragma unroll 4
+      for (int j = 0; j < n; ++j) {
+        const float sc = __shfl_sync(kFullMask, my_scale, j);
+        if (active) {
+          const float4 a = I8x4::convert(stage[j * (kSlab / 4) + lane], sc);
+          acc = (l0 + j == 0) ? a : add(acc, a);
+        }
+      }
+      __syncwarp();  // the stage is read before the next group overwrites it
+    }
+    if (active) out[bag * (D / 4) + c0 / 4 + lane] = acc;
+  }
+}
+
 // One warp copies fill row i (row_bytes bytes, in chunks of C) into its
 // slot; the sentinel (>= N) and negative slots are dropped.
 template <typename C>
@@ -259,6 +369,69 @@ __device__ __forceinline__ void fill_row(char* storage,
   }
 }
 
+// 16-byte chunk loads a lane of the narrow-row fill issues before its
+// first store
+constexpr int kFillBatch = 8;
+
+// One warp copies the G narrow fill rows from i0: each row is n = 1, 2, 4,
+// 8 or 16 chunks of 16 bytes, and G = min(32, 32 * kFillBatch / n). One
+// coalesced load of their slot ids, then every chunk load of the group,
+// then the stores. The group's chunks are contiguous in `rows`: lane t
+// takes chunks t, t + 32, ..., so chunk t % n of rows t / n, t / n + 32 / n,
+// ... (G n is a multiple of 32: the bound on k is warp-uniform).
+__device__ __forceinline__ void copy_rows(char* storage,
+                                          const int* __restrict__ slots,
+                                          const char* __restrict__ rows,
+                                          long long i0, long long F,
+                                          int row_bytes, int G, long long N,
+                                          int lane) {
+  const int n = row_bytes / 16;
+  const int log_n = __ffs(n) - 1;
+  const int chunks = G * n;
+  const int my_slot = lane < G && i0 + lane < F ? __ldg(slots + i0 + lane) : -1;
+  const uint4* src = reinterpret_cast<const uint4*>(rows + i0 * row_bytes);
+  const int col = lane & (n - 1);
+  uint4 v[kFillBatch];
+  int s[kFillBatch];
+#pragma unroll
+  for (int k = 0; k < kFillBatch; ++k) {
+    s[k] = -1;
+    if (k * kWarp < chunks) {
+      const int q = lane + k * kWarp;
+      s[k] = __shfl_sync(kFullMask, my_slot, q >> log_n);
+      if (s[k] >= 0 && static_cast<long long>(s[k]) < N) {  // drop sentinel
+        v[k] = __ldg(src + q);
+      } else {
+        s[k] = -1;
+      }
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < kFillBatch; ++k) {
+    if (s[k] >= 0) {
+      reinterpret_cast<uint4*>(storage + static_cast<long long>(s[k]) * row_bytes)[col] =
+          v[k];
+    }
+  }
+}
+
+// Work item w of the fill: the group of G narrow rows from w * G, or row
+// w (kNarrow false: one warp per row; a separate instantiation, so that
+// it does not carry the narrow form's registers). Called warp-uniformly.
+template <bool kNarrow>
+__device__ __forceinline__ void fill_item(char* storage,
+                                          const int* __restrict__ slots,
+                                          const char* __restrict__ rows,
+                                          long long w, long long F,
+                                          int row_bytes, int chunk, int G,
+                                          long long N, int lane) {
+  if constexpr (kNarrow) {
+    copy_rows(storage, slots, rows, w * G, F, row_bytes, G, N, lane);
+  } else {
+    fill_row(storage, slots, rows, w, row_bytes, chunk, N, lane);
+  }
+}
+
 template <typename R>
 __global__ void __launch_bounds__(kThreads)
     gather_reduce_kernel(const typename R::In* __restrict__ storage,
@@ -274,22 +447,41 @@ __global__ void __launch_bounds__(kThreads)
   reduce_bag<true, R>(storage, scale, ids, out, bag, L, dv, threadIdx.x % kWarp);
 }
 
+// Persistent: the grid is what can be co-resident; warps stride over bags.
+__global__ void __launch_bounds__(kThreads)
+    gather_i8_staged_kernel(const char* __restrict__ storage,
+                            const float* __restrict__ scale,
+                            const int* __restrict__ ids,
+                            float4* __restrict__ out, long long nb, int L, int D) {
+  __shared__ __align__(16) char4 stage[kWarpsPerBlock][kWarp * kSlab / 4];
+  const long long stride = static_cast<long long>(gridDim.x) * kWarpsPerBlock;
+  for (long long bag =
+           static_cast<long long>(blockIdx.x) * kWarpsPerBlock + threadIdx.x / kWarp;
+       bag < nb; bag += stride) {
+    gather_bag_i8_staged(storage, scale, ids, out, bag, L, D, stage[threadIdx.x / kWarp],
+                         threadIdx.x % kWarp);
+  }
+}
+
+template <bool kNarrow>
 __global__ void __launch_bounds__(kThreads)
     fill_kernel(char* __restrict__ storage, const int* __restrict__ slots,
-                const char* __restrict__ rows, long long F, int row_bytes,
-                int chunk, long long N) {
-  const long long i =
+                const char* __restrict__ rows, long long F, long long items,
+                int row_bytes, int chunk, int G, long long N) {
+  const long long w =
       static_cast<long long>(blockIdx.x) * kWarpsPerBlock + threadIdx.x / kWarp;
-  if (i >= F) return;
-  fill_row(storage, slots, rows, i, row_bytes, chunk, N, threadIdx.x % kWarp);
+  if (w >= items) return;
+  fill_item<kNarrow>(storage, slots, rows, w, F, row_bytes, chunk, G, N,
+                     threadIdx.x % kWarp);
 }
 
 // Cooperative launch only: every block of the grid must be co-resident.
-template <typename R>
+template <typename R, bool kNarrow>
 __global__ void __launch_bounds__(kThreads)
     fill_gather_reduce_kernel(char* storage, const int* __restrict__ slots,
                               const char* __restrict__ rows, long long F,
-                              long long N, int row_bytes, int chunk,
+                              long long items, long long N, int row_bytes,
+                              int chunk, int G,
                               const float* __restrict__ scale,
                               const int* __restrict__ ids,
                               typename R::Acc* __restrict__ out, long long nb,
@@ -298,13 +490,21 @@ __global__ void __launch_bounds__(kThreads)
       static_cast<long long>(blockIdx.x) * kWarpsPerBlock + threadIdx.x / kWarp;
   const long long stride = static_cast<long long>(gridDim.x) * kWarpsPerBlock;
   const int lane = threadIdx.x % kWarp;
-  for (long long i = first; i < F; i += stride) {
-    fill_row(storage, slots, rows, i, row_bytes, chunk, N, lane);
+  for (long long w = first; w < items; w += stride) {
+    fill_item<kNarrow>(storage, slots, rows, w, F, row_bytes, chunk, G, N, lane);
   }
   cooperative_groups::this_grid().sync();
-  const auto* st = reinterpret_cast<const typename R::In*>(storage);
-  for (long long bag = first; bag < nb; bag += stride) {
-    reduce_bag<false, R>(st, scale, ids, out, bag, L, dv, lane);
+  if constexpr (std::is_same_v<R, I8Stage>) {
+    __shared__ __align__(16) char4 stage[kWarpsPerBlock][kWarp * kSlab / 4];
+    for (long long bag = first; bag < nb; bag += stride) {
+      gather_bag_i8_staged(storage, scale, ids, out, bag, L, dv * 4,
+                           stage[threadIdx.x / kWarp], lane);
+    }
+  } else {
+    const auto* st = reinterpret_cast<const typename R::In*>(storage);
+    for (long long bag = first; bag < nb; bag += stride) {
+      reduce_bag<false, R>(st, scale, ids, out, bag, L, dv, lane);
+    }
   }
 }
 
@@ -316,13 +516,44 @@ unsigned blocks_for(long long n) {
   return static_cast<unsigned>((n + kWarpsPerBlock - 1) / kWarpsPerBlock);
 }
 
-// Widest copy chunk (16, 8, 4, 2 or 1 bytes) that divides the row and
-// keeps every row of both arrays aligned.
-int fill_chunk(const void* storage, const void* rows, int row_bytes) {
+// How the fill copies a row: chunk bytes (16, 8, 4, 2 or 1: the widest
+// that divides the row and keeps every row of both arrays aligned) and G
+// rows per warp (G > 1 where a row is 1, 2, 4, 8 or 16 chunks of 16
+// bytes); items is the number of warp work items.
+struct FillLayout {
+  int chunk, G;
+  long long items;
+};
+
+FillLayout fill_layout(const void* storage, const void* rows, int row_bytes,
+                       long long F) {
+  int chunk = 1;
   for (int c = 16; c > 1; c /= 2) {
-    if (row_bytes % c == 0 && aligned(storage, c) && aligned(rows, c)) return c;
+    if (row_bytes % c == 0 && aligned(storage, c) && aligned(rows, c)) {
+      chunk = c;
+      break;
+    }
   }
-  return 1;
+  const int n = row_bytes / chunk;
+  const bool narrow = chunk == 16 && n < kWarp && (n & (n - 1)) == 0;
+  const int G = narrow ? std::min(kWarp, kFillBatch * kWarp / n) : 1;
+  return {chunk, G, (F + G - 1) / G};
+}
+
+// Blocks of fn (kThreads each, no dynamic shared memory) that can be
+// co-resident on the current device.
+cudaError_t resident_blocks(const void* fn, long long* blocks) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) {
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  }
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, kThreads, 0);
+  }
+  if (err == cudaSuccess && per_sm < 1) err = cudaErrorCooperativeLaunchTooLarge;
+  *blocks = static_cast<long long>(per_sm) * sms;
+  return err;
 }
 
 template <typename R>
@@ -334,30 +565,39 @@ int launch_gather(const void* storage, const float* scale, const int* ids,
   return static_cast<int>(cudaGetLastError());
 }
 
+int launch_gather_i8_staged(const void* storage, const float* scale,
+                            const int* ids, float* out, long long nb, int L,
+                            int D, cudaStream_t st) {
+  long long resident = 0;
+  const cudaError_t err = resident_blocks(
+      reinterpret_cast<const void*>(&gather_i8_staged_kernel), &resident);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const unsigned grid =
+      static_cast<unsigned>(std::min<long long>(blocks_for(nb), resident));
+  gather_i8_staged_kernel<<<grid, kThreads, 0, st>>>(
+      static_cast<const char*>(storage), scale, ids, reinterpret_cast<float4*>(out),
+      nb, L, D);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename R>
 int launch_fused(void* storage, const int* slots, const void* rows, long long F,
                  long long N, int row_bytes, const float* scale, const int* ids,
                  float* out, long long nb, int L, int dv, cudaStream_t st) {
-  const void* fn = reinterpret_cast<const void*>(&fill_gather_reduce_kernel<R>);
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) {
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  }
-  if (err == cudaSuccess) {
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, kThreads, 0);
-  }
+  FillLayout fl = fill_layout(storage, rows, row_bytes, F);
+  const void* fn =
+      fl.G > 1 ? reinterpret_cast<const void*>(&fill_gather_reduce_kernel<R, true>)
+               : reinterpret_cast<const void*>(&fill_gather_reduce_kernel<R, false>);
+  long long resident = 0;
+  cudaError_t err = resident_blocks(fn, &resident);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (per_sm < 1) return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
-  const long long want = blocks_for(std::max(F, nb));
   const unsigned grid = static_cast<unsigned>(
-      std::min<long long>(want, static_cast<long long>(per_sm) * sms));
+      std::min<long long>(blocks_for(std::max(fl.items, nb)), resident));
   char* st_bytes = static_cast<char*>(storage);
   const char* row_data = static_cast<const char*>(rows);
-  int chunk = fill_chunk(storage, rows, row_bytes);
   auto* acc_out = reinterpret_cast<typename R::Acc*>(out);
-  void* args[] = {&st_bytes, &slots, &row_data, &F, &N, &row_bytes,
-                  &chunk, &scale, &ids, &acc_out, &nb, &L, &dv};
+  void* args[] = {&st_bytes, &slots, &row_data, &F, &fl.items, &N, &row_bytes,
+                  &fl.chunk, &fl.G, &scale, &ids, &acc_out, &nb, &L, &dv};
   err = cudaLaunchCooperativeKernel(fn, dim3(grid), dim3(kThreads), args, 0, st);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
@@ -400,6 +640,9 @@ extern "C" int repro_gather_reduce_q8(const void* data, const float* scale,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (D % 16 == 0 && aligned(data, 16) && aligned(out, 16)) {
+    return launch_gather_i8_staged(data, scale, ids, out, nb, L, D, st);
+  }
   if (D % 4 == 0 && aligned(data, 4) && aligned(out, 16)) {
     return launch_gather<I8x4>(data, scale, ids, out, nb, L, D / 4, st);
   }
@@ -410,9 +653,11 @@ extern "C" int repro_fill(void* storage, const int* slots, const void* rows,
                           long long F, int row_bytes, long long N, void* stream) {
   if (F <= 0 || row_bytes <= 0) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  fill_kernel<<<blocks_for(F), kThreads, 0, st>>>(
+  const FillLayout fl = fill_layout(storage, rows, row_bytes, F);
+  auto* fn = fl.G > 1 ? &fill_kernel<true> : &fill_kernel<false>;
+  fn<<<blocks_for(fl.items), kThreads, 0, st>>>(
       static_cast<char*>(storage), slots, static_cast<const char*>(rows), F,
-      row_bytes, fill_chunk(storage, rows, row_bytes), N);
+      fl.items, row_bytes, fl.chunk, fl.G, N);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -456,6 +701,10 @@ extern "C" int repro_fill_gather_reduce_q8(void* data, const float* scale,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (D % 16 == 0 && aligned(data, 16) && aligned(out, 16)) {
+    return launch_fused<I8Stage>(data, slots, rows, F, N, D, scale, ids, out, nb,
+                               L, D / 4, st);
+  }
   if (D % 4 == 0 && aligned(data, 4) && aligned(out, 16)) {
     return launch_fused<I8x4>(data, slots, rows, F, N, D, scale, ids, out, nb,
                               L, D / 4, st);

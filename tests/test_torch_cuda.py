@@ -279,16 +279,33 @@ _Q_KEYS = {"fp16": ("gather_reduce_f16", "fill_f16", "fill_gather_reduce_f16"),
            "int8": ("gather_reduce_q", "fill_i8", "fill_gather_reduce_q")}
 
 
+def _offset_view(t, offset):
+    """A contiguous copy of ``t`` whose data starts ``offset`` bytes past a
+    64-byte-aligned address (offset 4: aligned to 4 bytes, not to 16)."""
+    n_bytes = t.numel() * t.element_size()
+    buf = torch.empty(n_bytes + 64, dtype=torch.uint8, device=t.device)
+    base = (-buf.data_ptr()) % 64 + offset
+    view = buf[base:base + n_bytes].view(t.dtype).view(t.shape)
+    view.copy_(t)
+    return view
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("offset", [0, 4])
 @pytest.mark.parametrize("precision", ["fp16", "int8"])
-@pytest.mark.parametrize("D", [8, 40, 128, 192])
-@pytest.mark.parametrize("L", [1, 3, 20, 40])
-def test_cuda_gather_reduce_q_bitwise(cuda, precision, D, L):
+@pytest.mark.parametrize("D", [8, 40, 128, 192, 256, 1024])
+@pytest.mark.parametrize("L", [1, 3, 20, 33, 40, 64])
+def test_cuda_gather_reduce_q_bitwise(cuda, precision, D, L, offset):
+    """Rows of one and of several warp loads, one and several 32-lookup
+    groups, one slot all through a bag, and (offset 4) a payload 4 but not
+    16 bytes aligned, which keeps the int8 gather off the whole-bag path."""
     N = 500
     data, scale = _quantized(precision, N, D)
-    data = data.to(cuda)
+    data = _offset_view(data.to(cuda), offset)
     scale = None if scale is None else scale.to(cuda)
-    ids = torch.from_numpy(RNG.integers(0, N // 10, (37, L)).astype(np.int32)).to(cuda)
+    ids = RNG.integers(0, N // 10, (37, L)).astype(np.int32)
+    ids[0] = 7
+    ids = torch.from_numpy(ids).to(cuda)
     out = tops.gather_reduce_q(data, scale, ids)
     want = tref.gather_reduce_q_ref(data, scale, ids)
     torch.cuda.synchronize()
@@ -300,12 +317,14 @@ def test_cuda_gather_reduce_q_bitwise(cuda, precision, D, L):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("precision", ["fp16", "int8"])
-@pytest.mark.parametrize("D", [8, 40, 128, 192, 3])
+@pytest.mark.parametrize("D", [8, 40, 128, 192, 256, 1024, 3])
 def test_cuda_fill_reduced_precision_bitwise(cuda, precision, D):
-    """The byte-copy fill at every chunk width (D=3 int8: 1-byte chunks)."""
+    """The byte-copy fill at every chunk width (D=3 int8: 1-byte chunks),
+    rows narrower than a warp load (several per warp, the last group
+    ragged) and wider."""
     N = 300
     st = _quantized(precision, N, D)[0].to(cuda)
-    slots = np.concatenate([RNG.permutation(N)[:100], [N] * 28]).astype(np.int32)
+    slots = np.concatenate([RNG.permutation(N)[:100], [N] * 29]).astype(np.int32)
     rows = _quantized(precision, slots.size, D)[0].to(cuda)
     slots_t = torch.from_numpy(slots).to(cuda)
     got = tops.fill(st.clone(), slots_t, rows)
@@ -317,18 +336,22 @@ def test_cuda_fill_reduced_precision_bitwise(cuda, precision, D):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("precision", ["fp16", "int8"])
-@pytest.mark.parametrize("D", [8, 40, 128, 192])
-@pytest.mark.parametrize("L", [1, 3, 20])
-def test_cuda_fill_gather_reduce_q_bitwise(cuda, precision, D, L):
-    """Sentinels in the fill, and lookups of the slots filled in the call;
-    the int8 scale column holds the fill rows' scales before the launch."""
+@pytest.mark.parametrize("D", [8, 40, 128, 192, 256, 1024])
+@pytest.mark.parametrize("L", [1, 3, 20, 33, 64])
+@pytest.mark.parametrize("n_valid", [200, 0])
+def test_cuda_fill_gather_reduce_q_bitwise(cuda, precision, D, L, n_valid):
+    """Sentinels in the fill (n_valid 0: every fill a sentinel), and lookups
+    of the slots filled in the call; the int8 scale column holds the fill
+    rows' scales before the launch."""
     N, F, nb = 600, 256, 113
     data, scale = _quantized(precision, N, D)
     slots = np.full(F, N, np.int32)
-    slots[RNG.permutation(F)[:200]] = RNG.permutation(N)[:200]
+    slots[RNG.permutation(F)[:n_valid]] = RNG.permutation(N)[:n_valid]
     filled = slots[slots < N]
-    ids = np.where(RNG.random((nb, L)) < 0.5, RNG.choice(filled, (nb, L)),
-                   RNG.integers(0, N, (nb, L))).astype(np.int32)
+    ids = RNG.integers(0, N, (nb, L))
+    if n_valid:
+        ids = np.where(RNG.random((nb, L)) < 0.5, RNG.choice(filled, (nb, L)), ids)
+    ids = ids.astype(np.int32)
     rows, rows_scale = _quantized(precision, F, D)
     if scale is not None:
         keep = torch.from_numpy(slots < N)
@@ -348,10 +371,11 @@ def test_cuda_fill_gather_reduce_q_bitwise(cuda, precision, D, L):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("precision", ["fp16", "int8"])
-def test_cuda_quantized_grid_stride(cuda, precision):
+@pytest.mark.parametrize("D, L", [(128, 3), (128, 33), (1024, 3)])
+def test_cuda_quantized_grid_stride(cuda, precision, D, L):
     """More fill rows and bags than the persistent grid has warps, at the
-    training width."""
-    N, D, F, nb, L = 300_000, 128, 131_072, 40_000, 3
+    training width, past one 32-lookup group, and at rows of 8 warp loads."""
+    N, F, nb = 300_000, 131_072, 40_000
     data, scale = _quantized(precision, N, D)
     g = torch.Generator(device="cpu").manual_seed(3)
     slots = torch.randperm(N, generator=g)[:F].to(torch.int32)

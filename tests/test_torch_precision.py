@@ -133,9 +133,13 @@ def _ids(slots, N, nb, L):
 # ---------------------------------------------------------------------------
 # the kernels' plain versions
 # ---------------------------------------------------------------------------
+# (L, D): the grid, then the edges the card's kernels are swept at (rows of
+# several warp loads, more than one 32-lookup group)
+_Q_EDGES = [(L, D) for L in (1, 3, 20) for D in (8, 40, 128)] + [(3, 192), (33, 128), (2, 256)]
+
+
 @pytest.mark.parametrize("precision", ["fp16", "int8"])
-@pytest.mark.parametrize("D", [8, 40, 128])
-@pytest.mark.parametrize("L", [1, 3, 20])
+@pytest.mark.parametrize("L, D", _Q_EDGES)
 def test_gather_reduce_q_matches_reference(precision, D, L):
     N, nb = 48, 7
     st = _qstorage(precision, N, D)
@@ -158,8 +162,7 @@ def test_gather_reduce_q_matches_reference(precision, D, L):
 
 
 @pytest.mark.parametrize("precision", ["fp16", "int8"])
-@pytest.mark.parametrize("D", [8, 40, 128])
-@pytest.mark.parametrize("L", [1, 3, 20])
+@pytest.mark.parametrize("L, D", _Q_EDGES)
 def test_fill_gather_reduce_q_matches_reference(precision, D, L):
     N, F, nb = 40, 16, 6
     st = _qstorage(precision, N, D)
