@@ -20,7 +20,11 @@ Phases, in order; any failure raises and the script exits non-zero:
                ``scatter_add`` also segments of T - 1, T and T + 1 lookups
                of one row (T = the long-segment threshold), several long
                segments in one launch, a 4,000-long segment among 10^5
-               short ones, and ids == N (which the kernel drops);
+               short ones, and ids == N (which the kernel drops); and two
+               host threads launching it at once, each on a stream and a
+               storage of its own, 40 times, on ids with long segments (the
+               side stream is per thread): each result equal to its plain
+               version;
   4. serve   — the main path: ``repro_torch.launch.serve`` with
                ``scratchpipe-serve`` at the full width of dlrm-scratchpipe
                (8 tables, D=128 fp32, 20 lookups per table, 2048 requests per
@@ -44,11 +48,19 @@ Phases, in order; any failure raises and the script exits non-zero:
                ``nocache``, each from a copy of one host table. One cut:
                1M rows per table instead of 10M, with the uncut config's
                4,000,000-slot scratchpad (cache_fraction 0.5 at the cut).
-               Counts are reset just before each run and read just after;
-               the plain versions raise during the runs. The losses of the
-               three runs must be bitwise equal step by step, and so must
-               the host tables after ``flush_to_host`` (TF32 off, cuBLAS
-               workspace pinned); losses finite.
+               Then two more: ``scratchpipe --planner device --executor
+               overlapped``, split and ``--fused`` (the plan state on the
+               card, the host gather and write-back on a worker thread, the
+               copies back on a d2h thread). Counts are reset just before
+               each run and read just after; the plain versions raise
+               during the runs, every kernel wrapper fails a launch off the
+               main thread, and in the device-planner runs the numpy
+               ``Planner.plan`` raises. The losses of the five runs must be
+               bitwise equal step by step, and so must the host tables
+               after ``flush_to_host`` (TF32 off, cuBLAS workspace pinned);
+               losses finite. Each ``train:`` line has ms/step, the main
+               thread's seconds per stage (under ``overlapped`` the main
+               thread's only) and its seconds waiting on worker futures.
   7. timing  — ``scatter_add`` and ``fill_gather_reduce`` at the operands
                the training runs gave them, and ``gather_reduce`` again at
                the training bags. ``scatter_add`` is split too: the sort,
@@ -63,8 +75,11 @@ Phases, in order; any failure raises and the script exits non-zero:
                budget of 1,000,000 fp32-row slots (cache_fraction 0.125 at
                the cut): fp16 holds 2,000,000 rows and evicts (checked), so
                the victim read, its d2h and the dequantized write-back run on
-               the card; int8 holds 4,000,000. Per precision the split and
-               fused losses and flushed host tables must be bitwise equal,
+               the card; int8 holds 4,000,000. Then ``fp16`` and ``int8
+               device+overlapped fused`` (the fp16 one evicts: its victims'
+               d2h and dequantized write-back run on the worker threads).
+               Per precision the split, fused and device+overlapped losses
+               and flushed host tables must be bitwise equal,
                and every step's loss within 1e-2 (fp16) / 1e-1 (int8)
                relative of the fp32 split run's; launch counts as designed,
                the plain versions raise.
@@ -110,7 +125,17 @@ Phases, in order; any failure raises and the script exits non-zero:
                apart, its GB/s and operations at the bf16 splits it uses,
                and the traced prefill's per-launch means of both SSD
                kernels beside the CUDA-event medians (a cross-check of the
-               profiler).
+               profiler); the fp32 forms' bounds at the fp32 rate and
+               SDPA's fp32 time at flash's operands.
+ 12. plan_step — the device planner's ``plan_step`` at the operands of
+               phase 6's device+overlapped split run at its 12th step
+               (327,680 ids and the 655,360-id look-ahead union, padded by
+               the planner to its pow-2 lengths 524,288 and 1,048,576;
+               4,000,000 slots, 8,000,000 rows): once under
+               ``torch.cuda.set_sync_debug_mode("error")`` (a host sync
+               inside fails the phase), every output and the new state
+               equal to the same call on the CPU; then ms per call (CUDA
+               events, median), the slots' stable sort timed apart.
 
 The sweep of phase 3 covers the fp16 and int8 forms too, and for them also
 D in {256, 1024} (rows of several warp loads), L in {33, 64} (more than one
@@ -152,16 +177,23 @@ STEPS, DEPTH, CACHE_FRAC = 24, 2, 0.25
 # the training slice: the same width and cut; the scratchpad keeps the uncut
 # config's 0.05 x 80M = 4,000,000 slots (above the 6 x 327,680-row window floor)
 TRAIN_STEPS, TRAIN_WARMUP, TRAIN_CACHE_FRAC = 24, 6, 0.5
-TRAIN_RUNS = (("scratchpipe split", "scratchpipe", False),
-              ("scratchpipe fused", "scratchpipe", True),
-              ("nocache", "nocache", False))
+# (name, runtime, fused, fast): ``fast`` adds --planner device --executor
+# overlapped (the device-resident planner and the overlapped executor)
+TRAIN_RUNS = (("scratchpipe split", "scratchpipe", False, False),
+              ("scratchpipe fused", "scratchpipe", True, False),
+              ("nocache", "nocache", False, False),
+              ("scratchpipe device+overlapped", "scratchpipe", False, True),
+              ("scratchpipe device+overlapped fused", "scratchpipe", True, True))
+FAST_ARGV = ["--planner", "device", "--executor", "overlapped"]
 # the reduced-precision slice: the same width and cut, a nominal budget of
 # 1,000,000 fp32-row slots (cache_fraction 0.125 of the 8M rows): fp16 holds
 # 2,000,000 rows and evicts after ~15 steps of ~130k misses, int8 4,000,000
 Q_CACHE_FRAC, Q_NOMINAL_SLOTS = 0.125, 1_000_000
 Q_MULT = {"fp16": 2, "int8": 4}
-Q_RUNS = (("fp16 split", "fp16", False), ("fp16 fused", "fp16", True),
-          ("int8 split", "int8", False), ("int8 fused", "int8", True))
+Q_RUNS = (("fp16 split", "fp16", False, False), ("fp16 fused", "fp16", True, False),
+          ("fp16 device+overlapped fused", "fp16", True, True),
+          ("int8 split", "int8", False, False), ("int8 fused", "int8", True, False),
+          ("int8 device+overlapped fused", "int8", True, True))
 # each step's loss against the fp32 split run's: the reference's P3 bounds
 # (tests/test_precision_parity.py)
 Q_LOSS_RTOL = {"fp16": 1e-2, "int8": 1e-1}
@@ -230,6 +262,55 @@ def offset_copy(torch, t, offset: int):
 #: launch-count keys of the reduced-precision forms: (gather, fill, fused)
 Q_KEYS = {"fp16": ("gather_reduce_f16", "fill_f16", "fill_gather_reduce_f16"),
           "int8": ("gather_reduce_q", "fill_i8", "fill_gather_reduce_q")}
+
+
+def scatter_two_threads(torch, ref, gc, g, dev, reps: int = 40) -> None:
+    """Two host threads launch ``scatter_add`` at once, each on a stream and
+    a storage of its own, ``reps`` times, on ids with long segments (so each
+    call forks and joins its side stream): each result equals its plain
+    version, the same adds repeated."""
+    import threading
+
+    cases = []
+    for i in range(2):
+        ids = torch.randint(0, 4096, (40_000,), generator=g, dtype=torch.int32)
+        ids[torch.randperm(40_000, generator=g)[:3000]] = 11 + i
+        ids[torch.randperm(40_000, generator=g)[:500]] = 100 + i
+        ids = ids.reshape(-1, 4)
+        cases.append((torch.randn(4096, 128, generator=g).to(dev), ids.to(dev),
+                      (torch.randn(ids.shape[0], 128, generator=g) * 1e3).to(dev),
+                      torch.cuda.Stream(dev)))
+    torch.cuda.synchronize()
+    got, errors = [None, None], []
+    start = threading.Barrier(2)
+
+    def work(i):
+        st, ids, deltas, stream = cases[i]
+        try:
+            with torch.cuda.stream(stream):
+                out = st.clone()
+                start.wait(timeout=60)
+                for _ in range(reps):
+                    gc.scatter_add(out, ids, deltas)
+                got[i] = out
+        except Exception as e:  # reported on the main thread below
+            errors.append(e)
+
+    threads = [threading.Thread(target=work, args=(i,)) for i in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    check(not any(t.is_alive() for t in threads) and not errors,
+          f"scatter_add from two threads: {errors}")
+    torch.cuda.synchronize()
+    for i, (st, ids, deltas, _) in enumerate(cases):
+        want = st.clone()
+        for _ in range(reps):
+            want = ref.scatter_add_ref(want, ids, deltas)
+        check(torch.equal(got[i], want), f"scatter_add from two threads: thread {i} differs")
+    log(f"kernels: scatter_add from two host threads at once ({reps} launches each, "
+        "two streams, long segments) equals its plain version")
 
 
 def sweep_kernels(torch, ops, ref, gc, qz, dev) -> dict:
@@ -412,6 +493,7 @@ def sweep_kernels(torch, ops, ref, gc, qz, dev) -> dict:
     hot = torch.randint(0, 1_000_000, (100_000,), generator=g, dtype=torch.int32)
     hot[torch.randperm(100_000, generator=g)[:4000]] = 17
     scatter_case(1_000_000, 128, hot.reshape(-1, 4), scale=1e3)
+    scatter_two_threads(torch, ref, gc, g, dev)
     st = torch.randn(64, 40, generator=g).to(dev)
     dup = torch.tensor([[3, 3, 3, 5], [5, 3, 5, 3], [0, 0, 0, 0]], dtype=torch.int32)
     check(torch.equal(ops.gather_reduce(st, dup.to(dev)),
@@ -671,12 +753,100 @@ def train_targets(pipeline, static_cache, dlrm_runtime):
             (static_cache.NoCacheBaseline, "_step", TRAIN_STEP_LABEL["nocache"])]
 
 
-def train_run(torch, mods, cfg, base_table, name, runtime, fused, captured):
+#: every kernel wrapper that launches (each adds one to its count there)
+LAUNCHERS = {"gr": ("gather_reduce", "gather_reduce_q", "fill", "fill_gather_reduce",
+                    "fill_gather_reduce_q"),
+             "gc": ("scatter_add", "scatter_add_sorted"),
+             "fa": ("flash_attention",), "ssd": ("ssd_chunk_scan",)}
+
+
+def run_guards(mods, fast: bool, captured=None):
+    """Wrap every kernel wrapper so that a launch off the main thread is
+    recorded (and raises where it happens); under ``fast`` make the numpy
+    ``Planner.plan`` raise, and capture ``plan_step``'s operands at the
+    middle step into ``captured`` (when given); time the main thread's
+    waits on worker futures. Returns (report, restore): report() -> (the
+    off-main-thread launches, the main thread's seconds in Future.result)."""
+    import concurrent.futures
+    import threading
+
+    off_main, waited = [], [0.0]
+    saved = []
+
+    def patch(obj, name, fn):
+        saved.append((obj, name, getattr(obj, name)))
+        setattr(obj, name, fn)
+
+    def guarded(name, fn):
+        def wrapper(*a, **k):
+            if threading.current_thread() is not threading.main_thread():
+                off_main.append((name, threading.current_thread().name))
+                raise RuntimeError(f"{name} launched off the main thread")
+            return fn(*a, **k)
+        return wrapper
+
+    for mod, names in LAUNCHERS.items():
+        for n in names:
+            patch(mods[mod], n, guarded(n, getattr(mods[mod], n)))
+    real_result = concurrent.futures.Future.result
+
+    def timed_result(self, timeout=None):
+        if threading.current_thread() is not threading.main_thread():
+            return real_result(self, timeout)
+        t0 = time.perf_counter()
+        try:
+            return real_result(self, timeout)
+        finally:
+            waited[0] += time.perf_counter() - t0
+
+    patch(concurrent.futures.Future, "result", timed_result)
+    if fast:
+        def no_host_plan(*_a, **_k):
+            raise RuntimeError("the numpy Planner.plan ran on a device-planner path")
+
+        patch(mods["plan"].Planner, "plan", no_host_plan)
+        pd, calls = mods["plan_device"], [0]
+        real_step = pd.plan_step
+
+        def spy_step(state, ids, fut, *, past_window=3):
+            calls[0] += 1
+            if captured is not None and calls[0] == TRAIN_STEPS // 2:
+                captured["plan_step"] = (state, ids, fut, past_window)
+            return real_step(state, ids, fut, past_window=past_window)
+
+        patch(pd, "plan_step", spy_step)
+
+    def restore():
+        for obj, name, fn in reversed(saved):
+            setattr(obj, name, fn)
+    return (lambda: (list(off_main), waited[0])), restore
+
+
+def train_summary(name, fast, ms, res, stages, report):
+    """The fields every ``train:`` line has."""
+    off_main, waited = report()
+    check(not off_main, f"{name}: kernel launches off the main thread: {off_main[:5]}")
+    return {
+        "run": name, "planner": "device" if fast else "host",
+        "executor": "overlapped" if fast else "sync", "ms_per_step": ms,
+        "warmup_steps": TRAIN_WARMUP, "plan_hit": res["plan_hit"], "wall_s": res["wall_s"],
+        "stages_s": stages,
+        "stages_s_are": ("the main thread's seconds only (the host gather, write-back "
+                         "and copies back run on worker threads)") if fast
+        else "seconds per stage (all on the main thread)",
+        "main_thread_wait_on_workers_s": waited,
+    }
+
+
+def train_run(torch, mods, cfg, base_table, name, runtime, fused, fast, captured):
     """One training run through the launcher's ``train_dlrm`` from a copy of
-    ``base_table``; the plain versions raise during it. Captures kernel
-    operands of the middle step into ``captured``. Returns (result, launch
-    counts of the run, stage times, ms/step after the warm-up)."""
+    ``base_table``; the plain versions raise during it, and every kernel
+    launch must come from the main thread (``run_guards``). Captures kernel
+    operands of the middle step into ``captured`` (and under ``fast``
+    plan_step's). Returns (result, launch counts of the run, stage times,
+    ms/step after the warm-up, the guards' report)."""
     ops, ref, gr, gc = mods["ops"], mods["ref"], mods["gr"], mods["gc"]
+    report, unguard = run_guards(mods, fast, captured if fast and not fused else None)
     at = TRAIN_STEPS // 2
     calls = {"gather": 0, "scatter": 0, "fused": 0}
     real = {"gather": ops.gather_reduce, "scatter": gc.scatter_add,
@@ -697,7 +867,7 @@ def train_run(torch, mods, cfg, base_table, name, runtime, fused, captured):
 
     def spy_fused(storage, fill_slots, rows, flat_ids):
         calls["fused"] += 1
-        if calls["fused"] == at:
+        if name == "scratchpipe fused" and calls["fused"] == at:
             captured["fused"] = (storage.clone(), fill_slots.clone(), rows.clone(),
                                  flat_ids.clone())
         return real["fused"](storage, fill_slots, rows, flat_ids)
@@ -707,7 +877,8 @@ def train_run(torch, mods, cfg, base_table, name, runtime, fused, captured):
 
     argv = ["--arch", "dlrm-scratchpipe", "--steps", str(TRAIN_STEPS), "--batch",
             str(BATCH), "--seed", "0", "--runtime", runtime, "--device", DEVICE]
-    args = mods["train"].build_parser().parse_args(argv + (["--fused"] if fused else []))
+    args = mods["train"].build_parser().parse_args(
+        argv + (["--fused"] if fused else []) + (FAST_ARGV if fast else []))
     host = mods["HostEmbeddingTable"](base_table.shape[0], base_table.shape[1],
                                       data=base_table.copy())
     ops.gather_reduce, gc.scatter_add, gr.fill_gather_reduce = (
@@ -727,22 +898,23 @@ def train_run(torch, mods, cfg, base_table, name, runtime, fused, captured):
             real["gather"], real["scatter"], real["fused"])
         for n, fn in real_refs.items():
             setattr(ref, n, fn)
+        unguard()
     step_ends = ends[TRAIN_STEP_LABEL[runtime]]
     ms_per_step = ((step_ends[-1] - step_ends[TRAIN_WARMUP - 1])
                    / (len(step_ends) - TRAIN_WARMUP) * 1e3)
-    return res, counts, stages, ms_per_step
+    return res, counts, stages, ms_per_step, report
 
 
-def check_train_counts(name, stats, counts, stages):
+def check_train_counts(name, runtime, fused, stats, counts, stages):
     """Every kernel of the run's path fired, and only where it should."""
     n = len(stats)
     with_fills = sum(1 for st in stats if st.n_miss > 0)
     check(n == TRAIN_STEPS and with_fills > 0, f"{name}: {n} steps, {with_fills} with fills")
     check(counts["scatter_add"] == n, f"{name}: one scatter_add per step: {counts}")
-    if name == "scratchpipe split":
+    if runtime == "scratchpipe" and not fused:
         check(counts["gather_reduce"] == n and counts["fill"] == with_fills
               and counts["fill_gather_reduce"] == 0, f"{name}: launches {counts}")
-    elif name == "scratchpipe fused":
+    elif runtime == "scratchpipe":
         fused = stages.get("fused fill + train calls", {}).get("calls", 0)
         check(counts["fill_gather_reduce"] == fused > 0
               and counts["fill_gather_reduce"] + counts["fill"] == with_fills
@@ -770,16 +942,22 @@ def train_main_path(torch, mods, dev):
     log(f"train: host table {base.shape} fp32 built in {time.perf_counter() - t0:.1f}s")
     captured, summaries, counts_by_run = {}, [], {}
     first_losses = first_table = None
-    for name, runtime, fused in TRAIN_RUNS:
+    for name, runtime, fused, fast in TRAIN_RUNS:
         t0 = time.perf_counter()
-        res, counts, stages, ms = train_run(torch, mods, cfg, base, name, runtime,
-                                            fused, captured)
+        res, counts, stages, ms, report = train_run(torch, mods, cfg, base, name, runtime,
+                                                    fused, fast, captured)
         stats, pipe = res["stats"], res["pipe"]
         check(pipe.device.type == dev.type, f"{name}: the runtime is not on the card")
-        check_train_counts(name, stats, counts, stages)
+        if fast:
+            check(isinstance(pipe.planner, mods["plan_device"].DevicePlanner)
+                  and pipe.executor == "overlapped",
+                  f"{name}: not the device planner with the overlapped executor")
+        check_train_counts(name, runtime, fused, stats, counts, stages)
         losses = torch.stack([st.aux["loss"] for st in stats]).cpu()
         check(bool(torch.isfinite(losses).all()), f"{name}: non-finite loss")
         pipe.flush_to_host()
+        if runtime == "scratchpipe":
+            pipe.close()
         table = res["host"].data
         if first_losses is None:
             first_losses, first_table = losses, table
@@ -791,11 +969,10 @@ def train_main_path(torch, mods, dev):
                   f"{name}: flushed host table differs from {TRAIN_RUNS[0][0]}")
         tr = pipe.traffic()
         summaries.append({
-            "run": name, "ms_per_step": ms, "warmup_steps": TRAIN_WARMUP,
-            "plan_hit": res["plan_hit"], "wall_s": res["wall_s"],
+            **train_summary(name, fast, ms, res, stages, report),
             "loss_first": float(losses[0]), "loss_last": float(losses[-1]),
             "traffic_MB": {k: tr[k].total / 1e6 for k in ("host", "pcie", "hbm")},
-            "launches": counts, "stages_s": stages,
+            "launches": counts,
             "scratchpad_slots": int(getattr(pipe, "num_slots", 0)),
         })
         print("train: " + json.dumps(summaries[-1]), flush=True)
@@ -803,7 +980,8 @@ def train_main_path(torch, mods, dev):
         log(f"train: {name} done ({time.perf_counter() - t0:.1f}s)")
         del res, pipe, table
     log(f"train: losses of all {TRAIN_STEPS} steps and the flushed host tables bitwise "
-        f"equal across {', '.join(r[0] for r in TRAIN_RUNS)}")
+        f"equal across {', '.join(r[0] for r in TRAIN_RUNS)}; every kernel launched on the "
+        "main thread; the device-planner runs never called the numpy planner")
     return summaries, counts_by_run, captured, base, first_losses
 
 
@@ -1001,13 +1179,16 @@ def clone_args(torch, args):
     return tuple(c(a) for a in args)
 
 
-def train_run_q(torch, mods, cfg, base_table, name, precision, fused, captured):
+def train_run_q(torch, mods, cfg, base_table, name, precision, fused, fast, captured):
     """One reduced-precision run through ``train_dlrm`` (``--precision``,
     stochastic rounding) from a copy of ``base_table``; the plain versions
-    raise during it. Captures the middle step's kernel and epilogue operands
-    into ``captured`` under "<precision> <kernel>". Returns (result, launch
-    counts, stage times, ms/step after the warm-up)."""
+    raise during it, and every kernel launch must come from the main thread.
+    Captures the middle step's kernel and epilogue operands into
+    ``captured`` under "<precision> <kernel>" (not in ``fast`` runs).
+    Returns (result, launch counts, stage times, ms/step after the warm-up,
+    the guards' report)."""
     ops, ref, gr, qz = mods["ops"], mods["ref"], mods["gr"], mods["qz"]
+    report, unguard = run_guards(mods, fast)
     at = TRAIN_STEPS // 2
     fused_names = ("fill_gather_reduce", "fill_gather_reduce_q")
     targets = [(gr, n) for n in ("gather_reduce", "gather_reduce_q", "fill") + fused_names]
@@ -1022,7 +1203,7 @@ def train_run_q(torch, mods, cfg, base_table, name, precision, fused, captured):
 
         def wrapper(*a):
             calls[n] = calls.get(n, 0) + 1
-            if wanted and calls[n] == at:
+            if wanted and not fast and calls[n] == at:
                 captured[f"{precision} {n}"] = clone_args(torch, a)
             return fn(*a)
         return wrapper
@@ -1033,7 +1214,8 @@ def train_run_q(torch, mods, cfg, base_table, name, precision, fused, captured):
     argv = ["--arch", "dlrm-scratchpipe", "--steps", str(TRAIN_STEPS), "--batch",
             str(BATCH), "--seed", "0", "--runtime", "scratchpipe", "--device", DEVICE,
             "--precision", precision]
-    args = mods["train"].build_parser().parse_args(argv + (["--fused"] if fused else []))
+    args = mods["train"].build_parser().parse_args(
+        argv + (["--fused"] if fused else []) + (FAST_ARGV if fast else []))
     host = mods["HostEmbeddingTable"](base_table.shape[0], base_table.shape[1],
                                       data=base_table.copy())
     for m, n in targets:
@@ -1053,10 +1235,11 @@ def train_run_q(torch, mods, cfg, base_table, name, precision, fused, captured):
             setattr(m, n, real[n])
         for n, fn in real_refs.items():
             setattr(ref, n, fn)
+        unguard()
     step_ends = ends[TRAIN_STEP_LABEL["scratchpipe"]]
     ms_per_step = ((step_ends[-1] - step_ends[TRAIN_WARMUP - 1])
                    / (len(step_ends) - TRAIN_WARMUP) * 1e3)
-    return res, counts, stages, ms_per_step
+    return res, counts, stages, ms_per_step, report
 
 
 def check_q_counts(name, precision, fused, stats, counts, stages):
@@ -1089,15 +1272,19 @@ def train_q_main_path(torch, mods, dev, base, fp32_losses):
     check(int(cfg.total_rows * cfg.cache_fraction) == Q_NOMINAL_SLOTS,
           "the nominal budget is not 1,000,000 fp32-row slots")
     captured, summaries, counts_by_run, split = {}, [], {}, {}
-    for name, precision, fused in Q_RUNS:
+    for name, precision, fused, fast in Q_RUNS:
         t0 = time.perf_counter()
-        res, counts, stages, ms = train_run_q(torch, mods, cfg, base, name, precision,
-                                              fused, captured)
+        res, counts, stages, ms, report = train_run_q(torch, mods, cfg, base, name,
+                                                      precision, fused, fast, captured)
         stats, pipe = res["stats"], res["pipe"]
         check(pipe.device.type == dev.type and pipe.precision == precision
               and pipe.num_slots == Q_NOMINAL_SLOTS * Q_MULT[precision]
               and pipe.nominal_slots == Q_NOMINAL_SLOTS,
               f"{name}: the runtime is not the {precision} one on the card")
+        if fast:
+            check(isinstance(pipe.planner, mods["plan_device"].DevicePlanner)
+                  and pipe.executor == "overlapped",
+                  f"{name}: not the device planner with the overlapped executor")
         check_q_counts(name, precision, fused, stats, counts, stages)
         losses = torch.stack([st.aux["loss"] for st in stats]).cpu()
         check(bool(torch.isfinite(losses).all()), f"{name}: non-finite loss")
@@ -1108,33 +1295,34 @@ def train_q_main_path(torch, mods, dev, base, fp32_losses):
         if precision == "fp16":
             check(evicted > 0, f"{name}: nothing was evicted")
         pipe.flush_to_host()
+        pipe.close()
         table = res["host"].data
         if not fused:
             split[precision] = (losses, table)
         else:
-            s_losses, s_table = split.pop(precision)
+            s_losses, s_table = split[precision]
             check(torch.equal(losses, s_losses),
                   f"{name}: losses differ from the split run at steps "
                   f"{torch.nonzero(losses != s_losses).flatten().tolist()}")
             check((s_table == table).all(), f"{name}: flushed host table differs from split")
         tr = pipe.traffic()
         summaries.append({
-            "run": name, "precision": precision, "rounding": res["cfg"].rounding,
-            "ms_per_step": ms, "warmup_steps": TRAIN_WARMUP,
-            "plan_hit": res["plan_hit"], "wall_s": res["wall_s"],
+            **train_summary(name, fast, ms, res, stages, report),
+            "precision": precision, "rounding": res["cfg"].rounding,
             "loss_first": float(losses[0]), "loss_last": float(losses[-1]),
             "max_rel_loss_vs_fp32": rel, "evicted_rows": evicted,
             "evicting_steps": sum(1 for st in stats if st.n_evict > 0),
             "traffic_MB": {k: tr[k].total / 1e6 for k in ("host", "pcie", "hbm")},
-            "launches": counts, "stages_s": stages,
+            "launches": counts,
             "scratchpad_rows": pipe.num_slots, "nominal_slots": pipe.nominal_slots,
         })
         print("train: " + json.dumps(summaries[-1]), flush=True)
         counts_by_run[name] = counts
         log(f"train: {name} done ({time.perf_counter() - t0:.1f}s)")
         del res, pipe, table
-    log("train: per precision, split and fused losses and flushed host tables bitwise "
-        "equal; losses within " + ", ".join(f"{p} {t:g}" for p, t in Q_LOSS_RTOL.items())
+    del split
+    log("train: per precision, split, fused and device+overlapped fused losses and flushed "
+        "host tables bitwise equal; losses within " + ", ".join(f"{p} {t:g}" for p, t in Q_LOSS_RTOL.items())
         + " of fp32")
     return summaries, counts_by_run, captured
 
@@ -1622,6 +1810,8 @@ def time_lm_kernels(torch, mods, captured, captured32, sweep_err, dev, prefill_p
         "max_abs_err": max(e for n, e in sweep_err.items() if n.startswith("flash")),
     }
     q32, k32, v32, c32, w32 = captured32["flash"]
+    q32h, k32h, v32h = (t.transpose(1, 2).contiguous() for t in (q32, k32, v32))
+    f32_ops, f32_bytes = f_ops / FP32_OPS_PER_S, f_bytes * 4 / q.element_size() / HBM_BYTES_PER_S
     details["flash_attention"] = {
         "shape": {"B": B, "Sq": Sq, "Skv": Skv, "H": H, "K": K, "hd": hd},
         "dtype": str(q.dtype), "causal": causal, "window": window, "pairs": pairs,
@@ -1631,9 +1821,16 @@ def time_lm_kernels(torch, mods, captured, captured32, sweep_err, dev, prefill_p
         "tflops_per_s": f_ops / out["flash_attention"]["ms"] / 1e9,
         "fp32_ms": median_ms(torch, lambda: fa.flash_attention(q32, k32, v32, c32, w32),
                              10, flush),
+        # the fp32 form's bound at FP32_OPS_PER_S (it runs on fp32 FMAs) and
+        # SDPA's fp32 time on the same operands (TF32 off)
+        "fp32_bound_ms": max(f32_ops, f32_bytes) * 1e3,
+        "fp32_bound_by": "operations" if f32_ops >= f32_bytes else "bytes",
+        "fp32_library_ms": median_ms(torch, lambda: F.scaled_dot_product_attention(
+            q32h, k32h, v32h, is_causal=True), 10, flush)
+        if c32 and w32 is None and H == K else None,
         "max_abs_err_by_dtype": {n: e for n, e in sweep_err.items() if n.startswith("flash")},
     }
-    del qh, kh, vh, q32, k32, v32
+    del qh, kh, vh, q32, k32, v32, q32h, k32h, v32h
 
     x, dt, A, Bm, Cm, Q = captured["ssd"]
     B, S, nh, hd = x.shape
@@ -1684,6 +1881,8 @@ def time_lm_kernels(torch, mods, captured, captured32, sweep_err, dev, prefill_p
     log(f"ssd cross-check: CUDA events call {ms:.4f} = G {gram_ms:.4f} + scan {scan_ms:.4f} "
         f"ms; traced prefill per-launch means {traced}")
     x32, dt32, A32, B32, C32, Q32 = captured32["ssd"]
+    s32_ops = s_ops / FP32_OPS_PER_S
+    s32_bytes = (s_bytes + 2 * x32.numel() * (4 - x.element_size())) / HBM_BYTES_PER_S
     details["ssd_chunk_scan"] = {
         "shape": {"B": B, "S": S, "nh": nh, "hd": hd, "ng": ng, "ds": ds, "Q": Q},
         "dtype": str(x.dtype), "flops": s_ops, "bytes": s_bytes,
@@ -1699,9 +1898,56 @@ def time_lm_kernels(torch, mods, captured, captured32, sweep_err, dev, prefill_p
         "traced_prefill_mean_ms": traced,
         "fp32_ms": median_ms(torch, lambda: ssd.ssd_chunk_scan(x32, dt32, A32, B32, C32, Q32),
                              10, flush),
+        "fp32_bound_ms": max(s32_ops, s32_bytes) * 1e3,
+        "fp32_bound_by": "operations" if s32_ops >= s32_bytes else "bytes",
         "max_abs_err_by_dtype": {n: e for n, e in sweep_err.items() if n.startswith("ssd")},
     }
     return out, details
+
+
+# --------------------------------------------------------------------------- #
+# 12. the device planner's plan_step at the main path's operands
+# --------------------------------------------------------------------------- #
+def plan_step_phase(torch, pd, captured, dev) -> dict:
+    """plan_step on the card at the operands the device+overlapped run gave
+    its middle step (state, ids, look-ahead union): run once under
+    ``torch.cuda.set_sync_debug_mode("error")`` (a host sync inside fails
+    the phase), every output and the new state equal to the same call on
+    the CPU; then ms per call (CUDA events, median, L2 flushed), and the
+    stable sort of the slots' priorities timed apart."""
+    state, ids, fut, pw = captured.pop("plan_step")
+    cpu = pd.PlanState(*(t.cpu() for t in state))
+    want_state, want = pd.plan_step(cpu, ids.cpu(), fut.cpu(), past_window=pw)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got_state, got = pd.plan_step(state, ids, fut, past_window=pw)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    for k, v in want.items():
+        check(got[k].device.type == dev.type and torch.equal(got[k].cpu(), v),
+              f"plan_step: output {k} differs from the CPU's")
+    for f, v in zip(pd.PlanState._fields, want_state):
+        # the dummy element takes padded writes in any order: not compared
+        a, b = getattr(got_state, f).cpu(), v
+        if a.ndim:
+            a, b = a[:-1], b[:-1]
+        check(torch.equal(a, b), f"plan_step: state {f} differs from the CPU's")
+    flush = torch.empty(32 * 1024 * 1024, dtype=torch.float32, device=dev)  # 128 MB > L2
+    prio = state.last_use[:-1].clone()
+    out = {
+        "ids": ids.numel(), "future_ids": fut.numel(),
+        "slots": state.slot_to_id.numel() - 1, "rows": state.hitmap.numel() - 1,
+        "n_unique": int(want["n_unique"]), "n_hits": int(want["n_hits"]),
+        "n_miss": int((want["miss_ids"] >= 0).sum()), "n_evict": int(want["n_evict"]),
+        "sync_debug_mode": "error: no host sync inside plan_step",
+        "ms": median_ms(torch, lambda: pd.plan_step(state, ids, fut, past_window=pw), 20,
+                        flush),
+        "slot_sort_ms": median_ms(torch, lambda: torch.sort(prio, stable=True), 20, flush),
+        "ids_sort_ms": median_ms(torch, lambda: torch.sort(ids), 20, flush),
+    }
+    return out
 
 
 def main() -> int:
@@ -1718,6 +1964,7 @@ def main() -> int:
     from repro_torch.configs import get_config
     from repro_torch.configs.base import DLRMConfig, ShapeSpec
     from repro_torch.core import dlrm_runtime, pipeline, serving_cache, static_cache
+    from repro_torch.core import plan, plan_device
     from repro_torch.core import quantize as qz
     from repro_torch.core.host_table import HostEmbeddingTable
     from repro_torch.kernels import _build, ops, ref
@@ -1734,7 +1981,8 @@ def main() -> int:
             "dlrm_runtime": dlrm_runtime, "HostEmbeddingTable": HostEmbeddingTable,
             "DLRMConfig": DLRMConfig, "interaction_dim": interaction_dim,
             "fa": fa, "ssd": ssd, "serve": serve, "api": api, "hybrid": hybrid,
-            "ShapeSpec": ShapeSpec, "get_config": get_config}
+            "ShapeSpec": ShapeSpec, "get_config": get_config, "plan": plan,
+            "plan_device": plan_device}
 
     t_start = time.perf_counter()
     card = card_line()
@@ -1807,8 +2055,9 @@ def main() -> int:
     t0 = time.perf_counter()
     summaries, train_counts, train_captured, base, fp32_losses = train_main_path(
         torch, mods, dev)
-    log(f"train: three runs done ({time.perf_counter() - t0:.1f}s)")
+    log(f"train: {len(TRAIN_RUNS)} runs done ({time.perf_counter() - t0:.1f}s)")
 
+    plan_captured = {"plan_step": train_captured.pop("plan_step")}
     t0 = time.perf_counter()
     train_times, train_details = time_train_kernels(torch, ops, ref, gr, gc,
                                                     train_captured, dev)
@@ -1819,7 +2068,7 @@ def main() -> int:
     t0 = time.perf_counter()
     _, q_counts, q_captured = train_q_main_path(torch, mods, dev, base, fp32_losses)
     del base
-    log(f"train: four reduced-precision runs done ({time.perf_counter() - t0:.1f}s)")
+    log(f"train: {len(Q_RUNS)} reduced-precision runs done ({time.perf_counter() - t0:.1f}s)")
     t0 = time.perf_counter()
     q_times, q_details = time_q_kernels(torch, mods, q_captured, dev)
     log(f"timing: reduced-precision operands done ({time.perf_counter() - t0:.1f}s)")
@@ -1875,6 +2124,15 @@ def main() -> int:
     log(f"timing: LM operands done ({time.perf_counter() - t0:.1f}s)")
     print("details: " + json.dumps(lm_details), flush=True)
     del lm_captured, lm_captured32
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    plan_summary = plan_step_phase(torch, plan_device, plan_captured, dev)
+    log(f"plan_step: equal to the CPU's, no host sync, {plan_summary['ms']:.4f} ms per call "
+        f"(the slots' stable sort {plan_summary['slot_sort_ms']:.4f}) "
+        f"({time.perf_counter() - t0:.1f}s)")
+    print("plan_step: " + json.dumps(plan_summary), flush=True)
+
 
     by_run = {"serve": counts, **train_counts, **q_counts}
     gather, fill = kernels

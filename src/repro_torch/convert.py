@@ -11,6 +11,10 @@ returns), so this module imports nothing of the reference:
     server on its device: host table, scratchpad ``storage``, planner
     state (``planner_*``), the ``landed`` mask and the serve step. Both
     servers then continue bit-identically on the same requests;
+  * :func:`device_planner_state_from_reference` — a reference
+    ``DevicePlanner.state_dict()`` (keys ``t{t}_{field}``, ``hold``
+    uint32) -> a ``state_dict`` the port's ``DevicePlanner`` loads; both
+    planners then plan the same next cycles;
   * :func:`storage_from_reference` — a reference scratchpad storage (an
     fp32/fp16 array, or an int8 ``QuantStorage`` as a ``(data, scale)``
     pair of numpy arrays) -> the port's storage on a device, copied, so
@@ -82,6 +86,35 @@ def load_reference_server_state(server: ReadOnlyCacheServer, arrays: dict) -> No
     )
     server._landed = np.array(arrays["landed"], dtype=bool, copy=True)
     server._step = int(np.asarray(arrays["serve_state"])[0])
+
+
+#: the reference DevicePlanner's per-table state fields and their dtypes
+_PLAN_STATE = {"hitmap": np.int32, "slot_to_id": np.int32, "hold": np.uint32,
+               "last_use": np.int32, "free_ptr": np.int32, "cycle": np.int32}
+
+
+def device_planner_state_from_reference(state_dict: dict) -> Dict[str, np.ndarray]:
+    """A reference ``DevicePlanner.state_dict()`` -> the port's: the same
+    keys (``t{t}_{field}`` for tables t = 0, 1, ...), every array copied
+    and checked. The port keeps ``hold`` in int32 (torch shifts no
+    uint32), so a register with bit 31 set (a past window over 30 cycles)
+    cannot be carried across."""
+    out: Dict[str, np.ndarray] = {}
+    tables = sorted({int(k[1:].split("_", 1)[0]) for k in state_dict if k.startswith("t")})
+    if not tables or tables != list(range(len(tables))):
+        raise ValueError("expected t{t}_{field} keys for tables 0, 1, ...")
+    for t in tables:
+        for f, dtype in _PLAN_STATE.items():
+            key = f"t{t}_{f}"
+            if key not in state_dict:
+                raise ValueError(f"device-planner state lacks {key!r}")
+            a = np.asarray(state_dict[key])
+            if a.dtype != dtype:
+                raise ValueError(f"{key}: expected {np.dtype(dtype)}, got {a.dtype}")
+            out[key] = np.array(a, copy=True)
+        if (out[f"t{t}_hold"] >> 31).any():
+            raise ValueError(f"t{t}_hold: bit 31 set; the port's hold register is int32")
+    return out
 
 
 def storage_from_reference(storage, device="cpu"):

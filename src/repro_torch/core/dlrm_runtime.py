@@ -107,9 +107,11 @@ def dlrm_fill_train_step_q(
 
 class DLRMTrainer:
     """Holds the dense (MLP) parameters; exposes ``train_fn(storage, slots,
-    batch)`` for the cache runtimes. ``slots`` and the batch's ``dense`` and
-    ``label`` arrive as numpy arrays (from the planner and the stream) and
-    are copied to ``device``; ``storage`` already lies there.
+    batch)`` for the cache runtimes. The batch's ``dense`` and ``label``
+    arrive as numpy arrays (from the stream) and are copied to ``device``;
+    so are ``slots`` from the host planner, while the device planner's
+    (int32, on ``device``) are taken as they are; ``storage`` already lies
+    there.
     ``precision``/``rounding`` default to the config's fields, else
     "fp32"/"stochastic". With a reduced precision the trainer routes
     through the ``*_q`` steps and re-seeds one generator on ``device`` per
@@ -142,7 +144,11 @@ class DLRMTrainer:
         return self._gen
 
     def _to_device(self, slots, batch):
-        slots_t = torch.from_numpy(np.ascontiguousarray(slots, dtype=np.int32))
+        # the device planner's slots already lie on the card: taken as they are
+        if isinstance(slots, torch.Tensor):
+            slots_t = slots
+        else:
+            slots_t = torch.from_numpy(np.ascontiguousarray(slots, dtype=np.int32))
         dense = torch.from_numpy(np.ascontiguousarray(batch["dense"], dtype=np.float32))
         label = torch.from_numpy(np.ascontiguousarray(batch["label"], dtype=np.float32))
         return (slots_t.to(self.device), dense.to(self.device),

@@ -1,9 +1,9 @@
 """ScratchPipe: the pipelined always-hit embedding cache runtime (paper §IV).
 
-Port of ``repro/core/pipeline.py`` with the ``sync`` executor and the host
-planner, at fp32, fp16 or int8 replica precision. Six-stage pipeline over
-mini-batches, one
-training iteration completing per pipeline cycle at steady state:
+Port of ``repro/core/pipeline.py`` at fp32, fp16 or int8 replica
+precision, with both executors and both planner placements. Six-stage
+pipeline over mini-batches, one training iteration completing per pipeline
+cycle at steady state:
 
     [Plan] -> [Collect] -> [Exchange] -> [Insert] -> [Train(fwd+bwd+update)]
 
@@ -15,21 +15,48 @@ paper's window (3 past + current + 2 future) execution is equivalent to
 sequential training (tests/test_torch_train.py ports the property tests).
 
 ``train_fn(storage, slots, batch) -> (storage, aux)`` is the [Train] stage:
-it gathers from the scratchpad with ``slots`` (numpy, from the planner) and
-updates those rows IN PLACE on the card (``core/dlrm_runtime.py``).
+it gathers from the scratchpad with ``slots`` (numpy from the host planner,
+a device tensor from the device planner) and updates those rows IN PLACE on
+the card (``core/dlrm_runtime.py``).
 
 The device half is PyTorch on ``device``: [Collect] reads the victims with
 plain indexing (a copy, taken before the older batches' [Train] of the same
 cycle updates the scratchpad), [Exchange] moves the fetched rows host ->
-device and the victims device -> host (the copy back synchronizes, once
-per cycle), [Insert] fills with the port's ``fill`` kernel, or — with
-``fused_train_fn`` — inside the [Train] launch (``fill_gather_reduce``).
-Empty operands launch nothing, and variable-length index operands are
-padded to the reference's default pow-2 buckets so the kernels see the
-reference's operands, drop sentinels included. The reference's
-``policy``, ``pad_buckets``, ``memoize_plan`` and ``record_stage_times``
-options are not carried over: no caller of the port sets them (LRU,
-pow-2 buckets and the memoized planner are the defaults kept).
+device and the victims device -> host, [Insert] fills with the port's
+``fill`` kernel, or — with ``fused_train_fn`` — inside the [Train] launch
+(``fill_gather_reduce``). Empty operands launch nothing, and
+variable-length index operands are padded to the reference's default pow-2
+buckets so the kernels see the reference's operands, drop sentinels
+included. The reference's ``policy``, ``pad_buckets``, ``memoize_plan`` and
+``record_stage_times`` options are not carried over: no caller of the port
+sets them (LRU, pow-2 buckets and the memoized planner are the defaults
+kept).
+
+Executors:
+
+  * ``executor="sync"`` (default) — every stage runs on the calling thread
+    in the hazard-adversarial order above; the victims' d2h copy waits for
+    the card, once per cycle.
+  * ``executor="overlapped"`` — ONE ordered host worker runs the [Collect]
+    gather (with the master -> replica quantize inside it) and the [Insert]
+    write-back (with the dequantize), in the sync engine's submission
+    order; a d2h thread waits for the victims' and the device plan's
+    copies. Host-table operations all run on the one worker, so every host
+    read/write interleaving is the sync engine's and the two executors are
+    bitwise equal. Every CUDA launch stays on the calling thread: the
+    workers run numpy and wait on events, nothing else. The d2h copies go
+    on a dedicated stream into pinned buffers (``device.HostCopy``),
+    ordered by an event recorded right after their producer, so they do not
+    queue behind the [Train] kernels enqueued after it. A worker's
+    exception surfaces from ``run``; there is no fallback to ``sync``.
+    Call :meth:`close` to release the threads.
+
+Planner placement: ``planner="host"`` (default) runs the numpy
+:class:`~repro_torch.core.plan.Planner`; ``"device"`` keeps the plan state
+on the card (:class:`~repro_torch.core.plan_device.DevicePlanner`): raw ids
+go h2d, the dense id -> slot translation feeds [Train] without visiting the
+host, and the miss/fill/evict vectors come back in one packed d2h (on the
+d2h thread under ``overlapped``). Both placements give equal plans.
 
 Replica precision (``core/quantize.py``): the host table keeps fp32
 masters. ``num_slots`` is the byte budget in fp32 rows; fp16 holds 2x and
@@ -46,14 +73,14 @@ The runtime keeps the reference's per-tier byte counters ([Collect]/
 the reference's on the same stream.
 
 Not ported yet (each raises NotImplementedError with a pointer to
-ROADMAP.md): ``executor="overlapped"`` (Queue 1 item 6), ``planner="device"``
-(item 7), ``table_group``/``slot_budgets`` (item 9), ``supervise`` and
+ROADMAP.md): ``table_group``/``slot_budgets`` (item 9), ``supervise`` and
 ``state_arrays`` (item 12), ``tracer``/``metrics`` (item 12).
 """
 from __future__ import annotations
 
 import collections
 import dataclasses
+from concurrent.futures import Future, ThreadPoolExecutor
 from typing import Any, Callable, Deque, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
@@ -63,9 +90,10 @@ from repro_torch.core import quantize as qz
 from repro_torch.core import scratchpad as sp
 from repro_torch.core.host_table import HostEmbeddingTable, HostTraffic
 from repro_torch.core.plan import Planner, PlanResult, pad_index, pad_rows
+from repro_torch.core.plan_device import DevicePlanner
 from repro_torch.core.quantize import QuantStorage
 from repro_torch.core.runtime import register_runtime
-from repro_torch.device import resolve_device
+from repro_torch.device import HostCopy, resolve_device
 
 
 @dataclasses.dataclass
@@ -112,6 +140,18 @@ def _map_rows(fn, rows):
     return fn(rows)
 
 
+def _numel(x) -> int:
+    """Element count of a numpy array or a tensor (``.size`` is a method
+    on a tensor)."""
+    return x.numel() if isinstance(x, torch.Tensor) else int(x.size)
+
+
+def _wait_rows(pending):
+    """d2h-thread task: wait for a victim copy (both halves of an int8
+    pair) and return it as numpy."""
+    return _map_rows(lambda p: p.wait(), pending)
+
+
 @dataclasses.dataclass
 class _InFlight:
     ids: np.ndarray
@@ -119,9 +159,12 @@ class _InFlight:
     plan: Optional[PlanResult] = None
     # int8 rows travel as (payload, scale) pairs in each of the four fields
     host_rows: Any = None  # [Collect] host->staging (quantized)
+    host_rows_f: Optional[Future] = None  # overlapped: pending gather
     evicted_dev: Any = None  # [Collect] device victim read
+    evict_ready: Any = None  # overlapped: event right after the victim read
     fetched_dev: Any = None  # [Exchange] h2d
     evicted_host: Any = None  # [Exchange] d2h
+    evicted_host_f: Optional[Future] = None  # overlapped: pending d2h
     stage: int = 0  # stages completed: 1=planned .. 4=inserted
 
 
@@ -150,10 +193,6 @@ class ScratchPipe:
             raise ValueError(f"unknown executor {executor!r}")
         if planner not in ("host", "device"):
             raise ValueError(f"unknown planner placement {planner!r}")
-        if executor == "overlapped":
-            raise _not_ported('executor="overlapped"', "item 6")
-        if planner == "device":
-            raise _not_ported('planner="device"', "item 7")
         if table_group is not None or slot_budgets is not None:
             raise _not_ported("table_group/slot_budgets", "item 9")
         if supervise is not None:
@@ -169,12 +208,12 @@ class ScratchPipe:
         self.pipelined = pipelined
         if not pipelined:  # straw-man (§IV-B): depth-1, no hazards possible
             past_window, future_window = 0, 0
-        self.planner = Planner(
-            host_table.rows,
-            eff_slots,
-            past_window=past_window,
-            future_window=future_window,
-        )
+        windows = dict(past_window=past_window, future_window=future_window)
+        if planner == "device":
+            self.planner = DevicePlanner(host_table.rows, eff_slots, device=self.device,
+                                         **windows)
+        else:
+            self.planner = Planner(host_table.rows, eff_slots, **windows)
         self.storage = sp.make_storage(
             eff_slots, host_table.dim, precision=self.precision, device=self.device
         )
@@ -189,6 +228,29 @@ class ScratchPipe:
         self._window: Deque[_InFlight] = collections.deque()
         self._stats: List[StepStats] = []
         self.future_window = future_window
+        self.executor = executor
+        # overlapped executor: ONE ordered host worker (gathers and
+        # write-backs interleave exactly as the sync engine runs them) and a
+        # d2h thread that waits for the copies back
+        self._host_pool: Optional[ThreadPoolExecutor] = None
+        self._d2h_pool: Optional[ThreadPoolExecutor] = None
+        self._pending: Deque[Future] = collections.deque()
+        self._copy: Optional[HostCopy] = None
+        if executor == "overlapped":
+            self._host_pool = ThreadPoolExecutor(
+                max_workers=1, thread_name_prefix="scratchpipe-host")
+            self._d2h_pool = ThreadPoolExecutor(
+                max_workers=1, thread_name_prefix="scratchpipe-d2h")
+            self._copy = HostCopy(self.device)
+        self._gather_fn = self.host.gather
+        if self.precision != "fp32":
+            # master -> replica quantization inside the gather, so under
+            # overlapped it runs on the host worker and the h2d copy already
+            # moves the small rows
+            def _gather_quantized(ids, _g=self.host.gather, _p=self.precision):
+                return qz.quantize_rows_np(_g(ids), _p)
+
+            self._gather_fn = _gather_quantized
 
     def _index(self, idx: np.ndarray) -> torch.Tensor:
         """A host index vector -> int32 tensor on the device (h2d)."""
@@ -196,42 +258,100 @@ class ScratchPipe:
 
     def _dequant(self, rows):
         """replica -> master: dequantize written-back rows on the host
-        (identity at fp32)."""
+        (identity at fp32; on the host worker under overlapped)."""
         if self.precision == "fp32":
             return rows
         return qz.dequantize_rows_np(rows, self.precision)
+
+    # ------------------------------------------------------------------ #
+    # overlapped-executor plumbing
+    # ------------------------------------------------------------------ #
+    def _submit_host(self, fn, *args) -> Future:
+        fut = self._host_pool.submit(fn, *args)
+        self._pending.append(fut)
+        # reap retired work each cycle: surfaces worker exceptions promptly
+        # and keeps the deque from growing with the run length
+        while self._pending and self._pending[0].done():
+            self._pending.popleft().result()
+        return fut
+
+    def _op_result(self, fut: Future):
+        """A host-queue result, read on the calling thread; a worker's
+        exception raises here."""
+        if fut in self._pending:
+            self._pending.remove(fut)
+        return fut.result()
+
+    def _barrier(self) -> None:
+        """Wait for every outstanding host operation (gathers, write-backs,
+        and through them the victims' copies). Called at run and drain ends
+        and before anything reads the host table or its counters."""
+        while self._pending:
+            self._pending.popleft().result()
+
+    def _writeback(self, evict_ids: np.ndarray, d2h: Future) -> None:
+        """Host-worker task: wait for the victims' d2h, then scatter. Runs
+        strictly after every earlier-submitted gather (one ordered worker)."""
+        self.host.scatter(evict_ids, self._dequant(d2h.result()))
+
+    def close(self) -> None:
+        """Quiesce and release the overlapped executor's threads.
+        Idempotent; a no-op for the sync executor."""
+        try:
+            self._barrier()
+        finally:
+            for pool in (self._host_pool, self._d2h_pool):
+                if pool is not None:
+                    pool.shutdown(wait=True)
+            self._host_pool = self._d2h_pool = None
 
     # ------------------------------------------------------------------ #
     # stages
     # ------------------------------------------------------------------ #
     def _stage_plan(self, entry: _InFlight, lookahead: List[np.ndarray]):
         entry.plan = self.planner.plan(entry.ids, lookahead)
+        if self._d2h_pool is not None and hasattr(entry.plan, "start_materialize"):
+            # device planner + overlapped: the miss/evict vectors come back
+            # on the d2h thread, beside [Train]
+            entry.plan.start_materialize(self._d2h_pool)
 
     def _stage_collect(self, entry: _InFlight):
         p = entry.plan
         if p.miss_ids.size:
             # host read; master -> replica quantization on the host, so the
             # h2d copy below already moves the small rows
-            entry.host_rows = qz.quantize_rows_np(
-                self.host.gather(p.miss_ids), self.precision
-            )
+            if self._host_pool is not None:
+                entry.host_rows_f = self._submit_host(self._gather_fn, p.miss_ids)
+            else:
+                entry.host_rows = self._gather_fn(p.miss_ids)
         if p.evict_slots.size:
             # pad victim reads to the pow-2 bucket (slot 0 is always safe
             # to read); the d2h side slices the real rows back out
             entry.evicted_dev = sp.read(
                 self.storage, self._index(pad_index(p.evict_slots, 0))
             )
+            if self._copy is not None:
+                entry.evict_ready = self._copy.ready()
         self.hbm.read += p.evict_slots.size * self._row_bytes
 
     def _stage_exchange(self, entry: _InFlight):
         p = entry.plan
         if p.miss_ids.size:  # h2d, both halves of an int8 pair
+            rows = (self._op_result(entry.host_rows_f)
+                    if entry.host_rows_f is not None else entry.host_rows)
             entry.fetched_dev = _map_rows(
-                lambda r: torch.from_numpy(pad_rows(r)).to(self.device),
-                entry.host_rows,
+                lambda r: torch.from_numpy(pad_rows(r)).to(self.device), rows
             )
         n_evict = int(p.evict_slots.size)
-        if n_evict:  # d2h of the real victims, padding dropped
+        if n_evict and self._copy is not None:
+            # the copies are enqueued here (the launching thread); the d2h
+            # thread only waits for them
+            pending = _map_rows(
+                lambda t: self._copy.start(t[:n_evict], entry.evict_ready),
+                entry.evicted_dev,
+            )
+            entry.evicted_host_f = self._d2h_pool.submit(_wait_rows, pending)
+        elif n_evict:  # d2h of the real victims, padding dropped
             entry.evicted_host = _map_rows(
                 lambda t: t[:n_evict].cpu().numpy(), entry.evicted_dev
             )
@@ -242,7 +362,10 @@ class ScratchPipe:
         """[Insert], host half: write evicted (dirty, trained) rows back."""
         p = entry.plan
         if p.evict_ids.size:
-            self.host.scatter(p.evict_ids, self._dequant(entry.evicted_host))
+            if self._host_pool is not None:
+                self._submit_host(self._writeback, p.evict_ids, entry.evicted_host_f)
+            else:
+                self.host.scatter(p.evict_ids, self._dequant(entry.evicted_host))
 
     def _stage_insert_fill(self, entry: _InFlight):
         """[Insert], device half: fill fetched rows into their slots."""
@@ -274,8 +397,9 @@ class ScratchPipe:
             self.hbm.written += fp.fill_slots.size * self._row_bytes
         else:
             self.storage, aux = self.train_fn(self.storage, p.slots, entry.batch)
+        n_lookups = _numel(p.slots)
         # [Train] HBM traffic: gather reads + coalesced scatter read-mod-write
-        self.hbm.read += p.slots.size * self._row_bytes
+        self.hbm.read += n_lookups * self._row_bytes
         self.hbm.read += p.n_unique * self._row_bytes
         self.hbm.written += p.n_unique * self._row_bytes
         by_table = None
@@ -283,12 +407,12 @@ class ScratchPipe:
             by_table = {"hits": p.hits_by_table, "misses": p.misses_by_table}
         st = StepStats(
             step=p.step,
-            n_lookups=int(p.slots.size),
+            n_lookups=n_lookups,
             n_unique=p.n_unique,
             n_hits=p.n_hits,
             n_miss=int(p.miss_ids.size),
             n_evict=int(p.evict_slots.size),
-            hit_lookups=int(p.slots.size),  # always-hit at [Train] (§IV)
+            hit_lookups=n_lookups,  # always-hit at [Train] (§IV)
             by_table=by_table,
             aux=aux,
         )
@@ -333,6 +457,7 @@ class ScratchPipe:
             self._advance_cycle(out)
             if draining and not self._window:
                 break
+        self._barrier()
         return out
 
     def _advance_cycle(self, out: List[StepStats]):
@@ -388,6 +513,8 @@ class ScratchPipe:
         """Advance one cycle without a new batch (pipeline drain)."""
         out: List[StepStats] = []
         self._advance_cycle(out)
+        if not self._window:
+            self._barrier()
         return out[0] if out else None
 
     def _step_sequential(self, ids: np.ndarray, batch) -> StepStats:
@@ -407,13 +534,17 @@ class ScratchPipe:
     def _run_sequential(self, stream) -> List[StepStats]:
         """Straw-man (§IV-B): dynamic cache, no pipelining — every batch runs
         the five stages back-to-back."""
-        return [
+        out = [
             self._step_sequential(np.asarray(ids), batch) for ids, batch in stream
         ]
+        self._barrier()
+        return out
 
     # ------------------------------------------------------------------ #
     def flush_to_host(self):
         """Write every cached (dirty) row back to the host table."""
+        self._barrier()
+        # bind once: the device planner's slot_to_id is a d2h per access
         slot_to_id = self.planner.slot_to_id
         live = np.flatnonzero(slot_to_id >= 0)
         if live.size:
@@ -432,6 +563,7 @@ class ScratchPipe:
         return self._stats
 
     def traffic(self) -> dict:
+        self._barrier()  # host counters settle with the worker queue
         return {"host": self.host.traffic, "pcie": self.pcie, "hbm": self.hbm}
 
 

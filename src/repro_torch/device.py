@@ -26,3 +26,63 @@ def resolve_device(device="cuda") -> torch.device:
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {str(dev)!r}: use 'cuda' or 'cpu'")
     return dev
+
+
+class HostCopy:
+    """Device -> host copies that leave the main stream free.
+
+    :meth:`start` is called on the thread that launches (it enqueues CUDA
+    work); the handle's ``wait()`` may run on any thread: it waits on an
+    event and touches no stream. On the card the copy goes on a dedicated
+    stream into a fresh pinned buffer, ordered after ``ready`` (an event
+    recorded on the producer's stream right after the producer; by default
+    one recorded now on the current stream). The copy stream is recorded on
+    the source, so its memory is not reused before the copy is done, and
+    PyTorch's pinned allocator does not hand the buffer out again before
+    the copy's event completes and every view of it is gone. On the CPU
+    the tensor already is host memory: ``wait()`` returns its numpy view.
+    """
+
+    def __init__(self, device):
+        self.device = torch.device(device)
+        self._stream = (torch.cuda.Stream(self.device)
+                        if self.device.type == "cuda" else None)
+
+    def ready(self):
+        """An event on the current stream, to order a later :meth:`start`
+        after the work enqueued so far (None on the CPU)."""
+        if self._stream is None:
+            return None
+        ev = torch.cuda.Event()
+        ev.record()
+        return ev
+
+    def start(self, t: torch.Tensor, ready=None) -> "PendingCopy":
+        if self._stream is None:
+            return PendingCopy(t.detach().numpy(), None)
+        if ready is None:
+            ready = self.ready()
+        host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        self._stream.wait_event(ready)
+        with torch.cuda.stream(self._stream):
+            host.copy_(t, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record()
+        t.record_stream(self._stream)
+        return PendingCopy(host.numpy(), done)
+
+
+class PendingCopy:
+    """A host copy in flight: ``wait()`` blocks until it has landed and
+    returns it as a numpy array (which keeps its buffer alive)."""
+
+    __slots__ = ("_host", "_done")
+
+    def __init__(self, host, done):
+        self._host = host
+        self._done = done
+
+    def wait(self):
+        if self._done is not None:
+            self._done.synchronize()
+        return self._host

@@ -348,9 +348,10 @@ bool aligned16(const void* p) {
 }
 
 // The long kernel's stream, forked from and joined back to the caller's by
-// two events: one set per device, made at its first use. It has the
-// greatest priority, so a long CTA takes the first SM room the short blocks
-// free.
+// two events: one set per host thread and device, made at its first use
+// there, so two threads that launch at once never interleave one fork's
+// record and wait (nor share a join). It has the greatest priority, so a
+// long CTA takes the first SM room the short blocks free.
 struct Side {
   cudaStream_t stream = nullptr;
   cudaEvent_t fork = nullptr, join = nullptr;
@@ -358,7 +359,7 @@ struct Side {
 };
 
 cudaError_t side_for_device(Side** out) {
-  static Side sides[64];
+  static thread_local Side sides[64];
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;

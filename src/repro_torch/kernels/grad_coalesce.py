@@ -14,7 +14,9 @@ builds on the device (:func:`long_segment_heads` is the same list in
 torch). :func:`scatter_add` does the sort and the accumulation. The
 launchers take CUDA tensors only: they check device, dtype (fp32 storage
 and deltas, int32 ids), shape and contiguity, launch on the current stream
-(the long kernel forked from and joined back to it), raise on a CUDA error
+(the long kernel forked from and joined back to it on a side stream of
+the calling host thread's own, so threads may launch at once on their own
+streams), raise on a CUDA error
 and count each accumulation (its two or three launches) once in
 :data:`LAUNCHES`. The library is built and loaded at the first launch,
 never at import. Natural shapes, empty operands and the CPU dispatch live

@@ -6,7 +6,8 @@ card:
 
     python -m repro_torch.launch.train --arch dlrm-scratchpipe --batch 2048 \
         [--smoke] [--runtime scratchpipe|strawman|nocache|static] [--fused] \
-        [--precision fp32|fp16|int8] [--rounding nearest|stochastic]
+        [--precision fp32|fp16|int8] [--rounding nearest|stochastic] \
+        [--planner host|device] [--executor sync|overlapped]
 
 ``--device cpu`` runs the kernels' plain PyTorch versions instead. It prints
 the same ``runtime=``, ``done:`` and ``traffic:`` lines as the reference
@@ -15,10 +16,16 @@ reference, ``--batch`` defaults to 8; the paper's batch is 2048.
 ``--precision fp16|int8`` keeps fp32 host masters and fp16/int8 scratchpad
 replicas (``core/quantize.py``); ``--rounding`` picks how in-cache updates
 re-quantize (default ``stochastic``, as the reference).
+``--planner device`` keeps the [Plan] state on the card
+(``core/plan_device.py``) and ``--executor overlapped`` moves the host
+gather and write-back to a worker thread and the copies back to a d2h
+thread (``core/pipeline.py``); both give the same figures as the defaults
+(``--planner host --executor sync``). A caller of :func:`train_dlrm`
+calls ``close()`` on the returned runtime when done with it (the
+overlapped executor's threads).
 
 Not ported yet (each errors with a pointer to ROADMAP.md): the LM archs,
-``--tables``, ``--trace``, ``--supervise``/``--chaos``,
-``--executor overlapped`` and ``--planner device``.
+``--tables``, ``--trace`` and ``--supervise``/``--chaos``.
 """
 from __future__ import annotations
 
@@ -37,11 +44,8 @@ _NOT_PORTED = {
     "trace": "Queue 1 item 10 (traces)",
     "supervise": "Queue 1 item 12 (recovery)",
     "chaos": "Queue 1 item 12 (recovery)",
-    "executor": "Queue 1 item 6 (overlapped executor)",
-    "planner": "Queue 1 item 7 (on-device planner)",
 }
-_DEFAULTS = {"tables": 0, "trace": None, "supervise": False, "chaos": None,
-             "executor": "sync", "planner": "host"}
+_DEFAULTS = {"tables": 0, "trace": None, "supervise": False, "chaos": None}
 
 
 def train_dlrm(args, cfg=None, host=None, mlps=None) -> Dict[str, Any]:
@@ -94,6 +98,8 @@ def train_dlrm(args, cfg=None, host=None, mlps=None) -> Dict[str, Any]:
     kw: Dict[str, Any] = {"num_slots": slots, "precision": args.precision}
     if args.runtime == "scratchpipe":
         kw.update(past_window=cfg.past_window, future_window=cfg.future_window)
+    if args.runtime in ("scratchpipe", "strawman"):
+        kw.update(executor=args.executor, planner=args.planner)
     if args.runtime == "static":
         kw = {"hot_ids": hot_ids_for_group(group, cfg.cache_fraction, locality=args.locality),
               "precision": args.precision}
@@ -175,13 +181,22 @@ def build_parser() -> argparse.ArgumentParser:
         help="re-quantization rounding of in-cache updates (reduced precision "
         "only); 'stochastic' keeps repeated small updates unbiased",
     )
+    ap.add_argument(
+        "--executor", choices=("sync", "overlapped"), default="sync",
+        help="scratchpipe/strawman stage executor: 'overlapped' runs the host "
+        "gather and write-back on a worker thread and waits for the d2h "
+        "copies on another (bitwise equal to 'sync')",
+    )
+    ap.add_argument(
+        "--planner", choices=("host", "device"), default="host",
+        help="scratchpipe/strawman [Plan] placement: 'device' keeps the plan "
+        "state on the card (equal plans to 'host')",
+    )
     later = ap.add_argument_group("not ported yet (error with a ROADMAP pointer)")
     later.add_argument("--tables", type=int, default=0)
     later.add_argument("--trace", default=None)
     later.add_argument("--supervise", action="store_true")
     later.add_argument("--chaos", default=None)
-    later.add_argument("--executor", choices=("sync", "overlapped"), default="sync")
-    later.add_argument("--planner", choices=("host", "device"), default="host")
     return ap
 
 

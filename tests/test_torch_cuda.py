@@ -25,11 +25,17 @@ bf16 (compared in fp32), SSD atol 2e-4 at fp32. SSD with bf16 ``x`` rounds
 its output to bf16, whose step is 2^-8 relative: there |kernel - plain|
 <= 3e-2 + 1e-2 |plain| (two bf16 steps plus flash's bf16 bound); its fp32
 state keeps atol 2e-4.
+
+The device planner's ``plan_step`` (plain torch, no kernel of its own) is
+held equal to its CPU run on every output and on the new state (the dummy
+elements that take padded writes aside), and must run with no host sync
+under ``torch.cuda.set_sync_debug_mode("error")``.
 """
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.core import plan_device as tpd
 from repro_torch.core import quantize as tqz
 from repro_torch.core import scratchpad as tsp
 from repro_torch.kernels import flash_attention as tfa
@@ -605,3 +611,52 @@ def test_cuda_ssd_bf16_refuses_long_chunks(cuda):
     with pytest.raises(ValueError, match="chunk 300"):
         tssd.ssd_chunk_scan(x, dt, A, bc, bc, 300)
     assert tops.launch_counts()["ssd_chunk_scan"] == 0
+
+
+# --------------------------------------------------------------------------- #
+# the device-resident planner's plan_step on the card
+# --------------------------------------------------------------------------- #
+def _plan_trace(rows, slots, n, steps, seed):
+    """(state before the last step, its ids, its look-ahead union) after
+    ``steps - 1`` CPU cycles of a random trace that evicts."""
+    rng = np.random.default_rng(seed)
+    batches = [rng.integers(0, rows, size=n).astype(np.int32) for _ in range(steps + 2)]
+    st = tpd.init_state(rows, slots)
+    for t in range(steps):
+        ids = torch.from_numpy(batches[t])
+        fut = torch.from_numpy(np.concatenate(batches[t + 1:t + 3]))
+        if t == steps - 1:
+            return st, ids, fut
+        st, _ = tpd.plan_step(st, ids, fut)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,slots,n,steps", [(200, 96, 12, 40), (50_000, 20_000, 3_000, 12)])
+def test_cuda_plan_step_equals_cpu(cuda, rows, slots, n, steps):
+    state, ids, fut = _plan_trace(rows, slots, n, steps, seed=rows)
+    want_state, want = tpd.plan_step(state, ids, fut)
+    got_state, got = tpd.plan_step(tpd.PlanState(*(t.to(cuda) for t in state)),
+                                   ids.to(cuda), fut.to(cuda))
+    torch.cuda.synchronize()
+    assert int(want["n_evict"]) > 0
+    for k, v in want.items():
+        assert got[k].device.type == "cuda" and torch.equal(got[k].cpu(), v), k
+    for f, a, b in zip(tpd.PlanState._fields, got_state, want_state):
+        a = a.cpu()
+        if a.ndim:  # the dummy element takes padded writes in any order
+            a, b = a[:-1], b[:-1]
+        assert torch.equal(a, b), f
+
+
+@pytest.mark.cuda
+def test_cuda_plan_step_makes_no_host_sync(cuda):
+    state, ids, fut = _plan_trace(50_000, 20_000, 3_000, 12, seed=1)
+    state = tpd.PlanState(*(t.to(cuda) for t in state))
+    ids, fut = ids.to(cuda), fut.to(cuda)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        tpd.plan_step(state, ids, fut)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()

@@ -55,7 +55,8 @@ def test_every_module_listed():
               "repro_torch.models.dlrm", "repro_torch.kernels.grad_coalesce",
               "repro_torch.core.dlrm_runtime", "repro_torch.core.static_cache",
               "repro_torch.configs.dlrm_scratchpipe", "repro_torch.data.lookahead",
-              "repro_torch.core.quantize", "repro_torch.core.scratchpad"):
+              "repro_torch.core.quantize", "repro_torch.core.scratchpad",
+              "repro_torch.core.plan_device"):
         assert m in mods
 
 

@@ -359,13 +359,16 @@ def test_training_registry_and_options():
     assert {"scratchpipe", "strawman", "nocache", "static"} <= set(available_runtimes())
     host = THost(64, 4, seed=0)
     noop = lambda s, slots, b: (s, {})  # noqa: E731
-    for kw, item in ((dict(executor="overlapped"), "item 6"),
-                     (dict(planner="device"), "item 7"),
-                     (dict(table_group=TGroup.uniform(2, 32, 4)), "item 9"),
+    for kw, item in ((dict(table_group=TGroup.uniform(2, 32, 4)), "item 9"),
                      (dict(supervise=object()), "item 12"),
                      (dict(tracer=object()), "item 12")):
         with pytest.raises(NotImplementedError, match=item):
             t_make_runtime("scratchpipe", host, noop, num_slots=16, device="cpu", **kw)
+    # the device planner and the overlapped executor are ported
+    pipe = t_make_runtime("scratchpipe", host, noop, num_slots=16, device="cpu",
+                          executor="overlapped", planner="device")
+    assert pipe.executor == "overlapped" and type(pipe.planner).__name__ == "DevicePlanner"
+    pipe.close()
     pipe = t_make_runtime("strawman", host, noop, num_slots=16, device="cpu")
     assert not pipe.pipelined and pipe.planner.past_window == 0
     with pytest.raises(NotImplementedError, match="item 12"):
@@ -527,7 +530,7 @@ def test_launcher_prints_reference_figures(runtime, capsys):
 
 
 def test_launcher_rejects_what_is_not_ported():
-    for extra in (["--tables", "4"], ["--executor", "overlapped"], ["--planner", "device"],
+    for extra in (["--tables", "4"],
                   ["--runtime", "nocache", "--precision", "fp16"], ["--supervise"],
                   ["--trace", "x"], ["--chaos", "kill-gather@3"]):
         with pytest.raises(SystemExit):
