@@ -137,12 +137,48 @@ Phases, in order; any failure raises and the script exits non-zero:
                equal to the same call on the CPU; then ms per call (CUDA
                events, median), the slots' stable sort timed apart.
 
-The sweep of phase 3 covers the fp16 and int8 forms too, and for them also
-D in {256, 1024} (rows of several warp loads), L in {33, 64} (more than one
-32-lookup group), a payload 4 but not 16 bytes aligned, fused calls whose
-fills are all sentinels, and ragged fills. The last three lines are the ``kernels`` JSON line (``scatter_add``,
-``flash_attention`` and ``ssd_chunk_scan`` carry their ``details``), the nvidia-smi line and
-``{"ok": true, "device": {...}}``.
+ 13. trace serve — phase 4's 24 ``inference_mix`` micro-batches recorded with
+               ``record_serving_trace`` as three traces whose tables say fp32,
+               fp16 and int8, served through ``repro_torch.launch.serve
+               --embedding --trace`` on one host table (``run_embedding(...,
+               host=)``, built once): fp32 ``scratchpipe-serve`` at depth 2
+               (bags bitwise equal to phase 4's); fp16 and int8 at depths 2
+               and 0 in a nominal budget set by the launcher's window floor
+               (``--cache-frac 0.125``; fp16 2,621,440 rows, which evict,
+               checked; int8 5,242,880), bags bitwise equal to
+               ``nocache-serve`` over host rows quantized and dequantized the
+               same way, ``hit_rate`` 1.000 at depth 2, exactly one gather of
+               the precision's form per micro-batch and fills of its form, no
+               fp32 gather; ``static-serve`` over the fp32 trace (hot rows of
+               the first quarter of the batches), bitwise equal to
+               ``nocache-serve``, one ``gather_reduce`` per micro-batch; and
+               ``EmbeddingServer`` over an int8 ``scratchpipe-serve``: four
+               host threads each submit one micro-batch's 2048 requests one
+               at a time, every future's bags bitwise equal to the oracle's
+               for that request, every kernel launch from the front end's
+               worker thread (the wrappers record the launching thread).
+               Counts are reset before and read after each run, the plain
+               versions raise during the runs, and each run prints a
+               ``serve:`` line (p50, p99, lookups/s, stage seconds). Then
+               ``gather_reduce_q``, the fp16 gather and the fp16/int8 fills
+               are timed at the depth-2 runs' operands.
+ 14. trace train — phase 6's 24 synthetic batches recorded with
+               ``record_trace`` and replayed by ``train_dlrm --trace`` through
+               ``scratchpipe --planner device --executor overlapped --fused``
+               with phase 6's configuration: the losses and the flushed host
+               table (its SHA-256) bitwise equal to phase 6's, every launch on
+               the main thread (the replay's prefetch thread launches
+               nothing); ms/step beside phase 6's.
+
+The traces go to a temporary directory removed at exit. The sweep of
+phase 3 covers the fp16 and int8 forms too, and for them also D in {256,
+1024} (rows of several warp loads), L in {33, 64} (more than one 32-lookup
+group), a payload 4 but not 16 bytes aligned, fused calls whose
+fills are all sentinels, and ragged fills. The last three lines are the
+``kernels`` JSON line (``scatter_add``, ``flash_attention`` and
+``ssd_chunk_scan`` carry their ``details``; ``gather_reduce_q`` and the fp16
+gather and fp16/int8 fills their times at phase 13's operands under
+``serve``), the nvidia-smi line and ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -152,6 +188,7 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -737,6 +774,25 @@ def time_kernels(torch, ops, ref, gr, captured, counts, sweep_err, dev):
 PLAIN_VERSIONS = ("gather_reduce_ref", "fill_ref", "fill_gather_reduce_ref",
                   "scatter_add_ref", "coalesce_apply_ref", "gather_reduce_q_ref",
                   "fill_gather_reduce_q_ref")
+
+
+def plain_versions_raise(ref):
+    """Make every plain PyTorch version raise while a main path runs (no
+    CPU tensor may reach a kernel wrapper); returns restore()."""
+    saved = {n: getattr(ref, n) for n in PLAIN_VERSIONS}
+
+    def no_plain(*_a, **_k):
+        raise RuntimeError("a plain PyTorch version ran on the main path")
+
+    for n in saved:
+        setattr(ref, n, no_plain)
+
+    def restore():
+        for n, fn in saved.items():
+            setattr(ref, n, fn)
+    return restore
+
+
 TRAIN_STEP_LABEL = {"scratchpipe": "train (fwd + bwd + update)",
                     "nocache": "step (whole nocache step)"}
 
@@ -838,7 +894,8 @@ def train_summary(name, fast, ms, res, stages, report):
     }
 
 
-def train_run(torch, mods, cfg, base_table, name, runtime, fused, fast, captured):
+def train_run(torch, mods, cfg, base_table, name, runtime, fused, fast, captured,
+              extra_argv=()):
     """One training run through the launcher's ``train_dlrm`` from a copy of
     ``base_table``; the plain versions raise during it, and every kernel
     launch must come from the main thread (``run_guards``). Captures kernel
@@ -851,7 +908,6 @@ def train_run(torch, mods, cfg, base_table, name, runtime, fused, fast, captured
     calls = {"gather": 0, "scatter": 0, "fused": 0}
     real = {"gather": ops.gather_reduce, "scatter": gc.scatter_add,
             "fused": gr.fill_gather_reduce}
-    real_refs = {n: getattr(ref, n) for n in PLAIN_VERSIONS}
 
     def spy_gather(storage, slot_ids):
         calls["gather"] += 1
@@ -872,19 +928,16 @@ def train_run(torch, mods, cfg, base_table, name, runtime, fused, fast, captured
                                  flat_ids.clone())
         return real["fused"](storage, fill_slots, rows, flat_ids)
 
-    def no_plain(*_a, **_k):
-        raise RuntimeError("a plain PyTorch version ran on the main path")
-
     argv = ["--arch", "dlrm-scratchpipe", "--steps", str(TRAIN_STEPS), "--batch",
             str(BATCH), "--seed", "0", "--runtime", runtime, "--device", DEVICE]
     args = mods["train"].build_parser().parse_args(
-        argv + (["--fused"] if fused else []) + (FAST_ARGV if fast else []))
+        argv + (["--fused"] if fused else []) + (FAST_ARGV if fast else [])
+        + list(extra_argv))
     host = mods["HostEmbeddingTable"](base_table.shape[0], base_table.shape[1],
                                       data=base_table.copy())
     ops.gather_reduce, gc.scatter_add, gr.fill_gather_reduce = (
         spy_gather, spy_scatter, spy_fused)
-    for n in PLAIN_VERSIONS:
-        setattr(ref, n, no_plain)
+    restore_plain = plain_versions_raise(ref)
     stages, ends, restore = stage_timers(
         train_targets(mods["pipeline"], mods["static_cache"], mods["dlrm_runtime"]))
     try:
@@ -896,13 +949,21 @@ def train_run(torch, mods, cfg, base_table, name, runtime, fused, fast, captured
         restore()
         ops.gather_reduce, gc.scatter_add, gr.fill_gather_reduce = (
             real["gather"], real["scatter"], real["fused"])
-        for n, fn in real_refs.items():
-            setattr(ref, n, fn)
+        restore_plain()
         unguard()
     step_ends = ends[TRAIN_STEP_LABEL[runtime]]
     ms_per_step = ((step_ends[-1] - step_ends[TRAIN_WARMUP - 1])
                    / (len(step_ends) - TRAIN_WARMUP) * 1e3)
     return res, counts, stages, ms_per_step, report
+
+
+def table_digest(table) -> str:
+    """SHA-256 of a host table's bytes: two flushed tables with the same
+    digest are bitwise equal (phase 14 checks against phase 6's without
+    keeping a fourth 4 GB table alive)."""
+    import hashlib
+
+    return hashlib.sha256(table.data).hexdigest()
 
 
 def check_train_counts(name, runtime, fused, stats, counts, stages):
@@ -926,9 +987,9 @@ def check_train_counts(name, runtime, fused, stats, counts, stages):
 
 
 def train_main_path(torch, mods, dev):
-    """The three training runs on copies of one host table; returns
+    """The five training runs on copies of one host table; returns
     (summaries, launch counts per run, captured operands, the host table,
-    the losses)."""
+    the losses, the flushed table's SHA-256)."""
     cfg = mods["DLRMConfig"](rows_per_table=ROWS, cache_fraction=TRAIN_CACHE_FRAC)
     check((cfg.num_tables, cfg.embed_dim, cfg.lookups_per_table) == (TABLES, DIM, LOOKUPS)
           and cfg.bottom_mlp == (512, 256, 128)
@@ -941,7 +1002,7 @@ def train_main_path(torch, mods, dev):
     base = mods["HostEmbeddingTable"](cfg.total_rows, cfg.embed_dim, seed=0).data
     log(f"train: host table {base.shape} fp32 built in {time.perf_counter() - t0:.1f}s")
     captured, summaries, counts_by_run = {}, [], {}
-    first_losses = first_table = None
+    first_losses = first_table = first_digest = None
     for name, runtime, fused, fast in TRAIN_RUNS:
         t0 = time.perf_counter()
         res, counts, stages, ms, report = train_run(torch, mods, cfg, base, name, runtime,
@@ -961,6 +1022,7 @@ def train_main_path(torch, mods, dev):
         table = res["host"].data
         if first_losses is None:
             first_losses, first_table = losses, table
+            first_digest = table_digest(table)
         else:
             check(torch.equal(losses, first_losses),
                   f"{name}: losses differ from {TRAIN_RUNS[0][0]} at steps "
@@ -982,7 +1044,7 @@ def train_main_path(torch, mods, dev):
     log(f"train: losses of all {TRAIN_STEPS} steps and the flushed host tables bitwise "
         f"equal across {', '.join(r[0] for r in TRAIN_RUNS)}; every kernel launched on the "
         "main thread; the device-planner runs never called the numpy planner")
-    return summaries, counts_by_run, captured, base, first_losses
+    return summaries, counts_by_run, captured, base, first_losses, first_digest
 
 
 # --------------------------------------------------------------------------- #
@@ -1194,7 +1256,6 @@ def train_run_q(torch, mods, cfg, base_table, name, precision, fused, fast, capt
     targets = [(gr, n) for n in ("gather_reduce", "gather_reduce_q", "fill") + fused_names]
     targets.append((qz, "requantize_update"))
     real = {n: getattr(m, n) for m, n in targets}
-    real_refs = {n: getattr(ref, n) for n in PLAIN_VERSIONS}
     calls = {}
 
     def spy(n):
@@ -1208,9 +1269,6 @@ def train_run_q(torch, mods, cfg, base_table, name, precision, fused, fast, capt
             return fn(*a)
         return wrapper
 
-    def no_plain(*_a, **_k):
-        raise RuntimeError("a plain PyTorch version ran on the main path")
-
     argv = ["--arch", "dlrm-scratchpipe", "--steps", str(TRAIN_STEPS), "--batch",
             str(BATCH), "--seed", "0", "--runtime", "scratchpipe", "--device", DEVICE,
             "--precision", precision]
@@ -1220,8 +1278,7 @@ def train_run_q(torch, mods, cfg, base_table, name, precision, fused, fast, capt
                                       data=base_table.copy())
     for m, n in targets:
         setattr(m, n, spy(n))
-    for n in PLAIN_VERSIONS:
-        setattr(ref, n, no_plain)
+    restore_plain = plain_versions_raise(ref)
     stages, ends, restore = stage_timers(
         train_targets(mods["pipeline"], mods["static_cache"], mods["dlrm_runtime"]))
     try:
@@ -1233,8 +1290,7 @@ def train_run_q(torch, mods, cfg, base_table, name, precision, fused, fast, capt
         restore()
         for m, n in targets:
             setattr(m, n, real[n])
-        for n, fn in real_refs.items():
-            setattr(ref, n, fn)
+        restore_plain()
         unguard()
     step_ends = ends[TRAIN_STEP_LABEL["scratchpipe"]]
     ms_per_step = ((step_ends[-1] - step_ends[TRAIN_WARMUP - 1])
@@ -1346,12 +1402,81 @@ def staged_path(data, bags) -> bool:
             and bags.data_ptr() % 16 == 0)
 
 
+def q_gather_times(torch, mods, precision, data, scale, flat, flush, what):
+    """The fp16 gather (``scale`` None) or the int8 ``gather_reduce_q`` at
+    one call's operands: checked bitwise against its plain version, then
+    timed beside its bound. Returns (numbers, details)."""
+    gr, ref = mods["gr"], mods["ref"]
+    int8 = precision == "int8"
+    gk = Q_KEYS[precision][0]
+    if int8:
+        kernel = lambda: gr.gather_reduce_q(data, scale, flat)  # noqa: E731
+    else:
+        kernel = lambda: gr.gather_reduce(data, flat)  # noqa: E731
+    plain = lambda: ref.gather_reduce_q_ref(data, scale, flat)  # noqa: E731
+    got, want = kernel(), plain()
+    check(torch.equal(got, want), f"{gk} differs at the {what} operands")
+    nb, L = flat.shape
+    D, item = data.shape[1], data.element_size()
+    if int8:  # the times below are of the staged path
+        check(staged_path(data, got), "the int8 gather's operands miss the staged path: "
+              f"D={D}, payload at {data.data_ptr()}, bags at {got.data_ptr()}")
+    row_b = D * item + (4 if int8 else 0)
+    n_unique = int(torch.unique(flat).numel())
+    g_bytes = n_unique * row_b + flat.numel() * 4 + nb * D * 4
+    g_ops = nb * (L - 1) * D + (nb * L * D if int8 else 0)
+    b_ms, b_by = bound(g_bytes, g_ops)
+    out = {
+        "ms": median_ms(torch, kernel, 30, flush),
+        "plain_ms": median_ms(torch, plain, 10, flush),
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+        "library": NO_LIBRARY["gather"].format(p=precision),
+        "max_abs_err": (got - want).abs().max().item(),
+    }
+    details = {"storage": list(data.shape), "dtype": str(data.dtype), "bags": nb,
+               "L": L, "unique_rows": n_unique, "bytes": g_bytes,
+               **access_rates(torch, out["ms"], g_bytes, flat, D * item, int8)}
+    return out, details
+
+
+def q_fill_times(torch, mods, precision, st0, slots, rows, flush, what):
+    """The fp16 fill or the int8 payload fill at one call's operands, into
+    a copy of ``st0``: checked bitwise against its plain version, then
+    timed beside its bound and ``index_copy_``. Returns (numbers,
+    details)."""
+    gr, ref = mods["gr"], mods["ref"]
+    fk = Q_KEYS[precision][1]
+    scratch = st0.clone()
+    gr.fill(scratch, slots, rows)
+    want = ref.fill_ref(st0.clone(), slots, rows)
+    check(torch.equal(scratch, want), f"{fk} differs at the {what} operands")
+    fill_err = (scratch.float() - want.float()).abs().max().item()
+    del want
+    valid = slots < st0.shape[0]
+    n_valid = int(valid.sum().item())
+    D, item = st0.shape[1], st0.element_size()
+    f_bytes = 2 * n_valid * D * item + slots.numel() * 4
+    v_slots, v_rows = slots[valid].long(), rows[valid]
+    out = {
+        "ms": median_ms(torch, lambda: gr.fill(scratch, slots, rows), 30, flush),
+        "plain_ms": median_ms(torch, lambda: ref.fill_ref(scratch, slots, rows), 10,
+                              flush),
+        "bound_ms": f_bytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+        "library_ms": median_ms(
+            torch, lambda: scratch.index_copy_(0, v_slots, v_rows), 30, flush),
+        "max_abs_err": fill_err,
+    }
+    details = {"storage": list(st0.shape), "F": int(slots.numel()),
+               "valid_rows": n_valid, "bytes": f_bytes}
+    return out, details
+
+
 def time_q_kernels(torch, mods, captured, dev):
     """The fp16/int8 gathers, fills and fused kernels at the operands the
     reduced-precision runs gave them (the middle step), each against its
     plain version (bitwise) and its bound; the plain requantize epilogue
     timed apart. Returns ({kernel: numbers}, details)."""
-    ops, ref, gr, qz = mods["ops"], mods["ref"], mods["gr"], mods["qz"]
+    ref, gr, qz = mods["ref"], mods["gr"], mods["qz"]
     flush = torch.empty(32 * 1024 * 1024, dtype=torch.float32, device=dev)  # 128 MB > L2
     out, details = {}, {}
     for precision in Q_KEYS:
@@ -1361,63 +1486,25 @@ def time_q_kernels(torch, mods, captured, dev):
         # the gather: fp16 storage, or int8 payload + scale
         if int8:
             data, scale, flat = captured.pop("int8 gather_reduce_q")
-            kernel = lambda: gr.gather_reduce_q(data, scale, flat)  # noqa: E731
         else:
             (data, flat), scale = captured.pop("fp16 gather_reduce"), None
-            kernel = lambda: gr.gather_reduce(data, flat)  # noqa: E731
-        plain = lambda: ref.gather_reduce_q_ref(data, scale, flat)  # noqa: E731
-        got, want = kernel(), plain()
-        check(torch.equal(got, want), f"{gk} differs at the training operands")
-        nb, L = flat.shape
-        D, item = data.shape[1], data.element_size()
-        if int8:  # the times below are of the staged path
-            check(staged_path(data, got), "the int8 gather's operands miss the staged path: "
-                  f"D={D}, payload at {data.data_ptr()}, bags at {got.data_ptr()}")
-        row_b = D * item + (4 if int8 else 0)
-        n_unique = int(torch.unique(flat).numel())
-        g_bytes = n_unique * row_b + flat.numel() * 4 + nb * D * 4
-        g_ops = nb * (L - 1) * D + (nb * L * D if int8 else 0)
-        b_ms, b_by = bound(g_bytes, g_ops)
-        out[gk] = {
-            "ms": median_ms(torch, kernel, 30, flush),
-            "plain_ms": median_ms(torch, plain, 10, flush),
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-            "library": NO_LIBRARY["gather"].format(p=precision),
-            "max_abs_err": (got - want).abs().max().item(),
-        }
-        details[gk] = {"storage": list(data.shape), "dtype": str(data.dtype), "bags": nb,
-                       "L": L, "unique_rows": n_unique, "bytes": g_bytes,
-                       **access_rates(torch, out[gk]["ms"], g_bytes, flat, D * item, int8)}
+        out[gk], details[gk] = q_gather_times(torch, mods, precision, data, scale, flat,
+                                              flush, "training")
         if int8:  # the same launch with the scale column read into L2 first:
             # what the scale's random sectors cost, and what the payload's cost
             sink = torch.empty(1, device=dev)
             details[gk]["ms_scale_in_L2"] = median_ms(
-                torch, kernel, 30, flush, warm=lambda: torch.sum(scale, dim=(0,), out=sink))
-        del data, scale, flat, got, want
+                torch, lambda: gr.gather_reduce_q(data, scale, flat), 30, flush,
+                warm=lambda: torch.sum(scale, dim=(0,), out=sink))
+        D, item = data.shape[1], data.element_size()
+        row_b = D * item + (4 if int8 else 0)
+        del data, scale, flat
 
         # the fill (the payload of an int8 pair)
         st0, slots, rows = captured.pop(f"{precision} fill")
-        scratch = st0.clone()
-        gr.fill(scratch, slots, rows)
-        want = ref.fill_ref(st0.clone(), slots, rows)
-        check(torch.equal(scratch, want), f"{fk} differs at the training operands")
-        fill_err = (scratch.float() - want.float()).abs().max().item()
-        valid = slots < st0.shape[0]
-        n_valid = int(valid.sum().item())
-        f_bytes = 2 * n_valid * D * item + slots.numel() * 4
-        v_slots, v_rows = slots[valid].long(), rows[valid]
-        out[fk] = {
-            "ms": median_ms(torch, lambda: gr.fill(scratch, slots, rows), 30, flush),
-            "plain_ms": median_ms(torch, lambda: ref.fill_ref(scratch, slots, rows), 10,
-                                  flush),
-            "bound_ms": f_bytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
-            "library_ms": median_ms(
-                torch, lambda: scratch.index_copy_(0, v_slots, v_rows), 30, flush),
-            "max_abs_err": fill_err,
-        }
-        details[fk] = {"storage": list(st0.shape), "F": int(slots.numel()),
-                       "valid_rows": n_valid, "bytes": f_bytes}
-        del st0, scratch, want, slots, rows, v_slots, v_rows
+        out[fk], details[fk] = q_fill_times(torch, mods, precision, st0, slots, rows,
+                                            flush, "training")
+        del st0, slots, rows
 
         # the fused fill + gather (the int8 scale column already scattered)
         if int8:
@@ -1439,6 +1526,7 @@ def time_q_kernels(torch, mods, captured, dev):
         valid = slots < st0.shape[0]
         n_valid = int(valid.sum().item())
         nb, L = flat.shape
+        g_ops = nb * (L - 1) * D + (nb * L * D if int8 else 0)
         n_unique = int(torch.unique(flat).numel())
         fg_bytes = (2 * n_valid * D * item + slots.numel() * 4 + n_unique * row_b
                     + flat.numel() * 4 + nb * D * 4)
@@ -1950,6 +2038,398 @@ def plan_step_phase(torch, pd, captured, dev) -> dict:
     return out
 
 
+
+# --------------------------------------------------------------------------- #
+# 13. trace serve: recorded serving traces at fp32, fp16 and int8
+# --------------------------------------------------------------------------- #
+#: the reduced-precision serving budget: 0.125 x 8M = 1,000,000 nominal
+#: slots, under the launcher's depth-2 window floor of 8 x 163,840 =
+#: 1,310,720, which sets it: fp16 holds 2,621,440 rows and evicts (phase 4's
+#: 24 micro-batches fill ~4M rows), int8 5,242,880; at depth 0 the nominal
+#: budget is 1,000,000 (the floor is 655,360)
+Q_SERVE_CACHE_FRAC = 0.125
+Q_SERVE_RUNS = (("fp16", DEPTH), ("fp16", 0), ("int8", DEPTH), ("int8", 0))
+#: host threads submitting single requests to the front end, each the 2048
+#: requests of one of the int8 trace's first micro-batches
+FRONTEND_THREADS = 4
+FRONTEND_RUN = "front end int8 scratchpipe-serve"
+
+
+def trace_args(path: str, design: str, depth: int, cache_frac: float) -> list:
+    return ["--embedding", "--trace", path, "--design", design, "--depth", str(depth),
+            "--batch", str(BATCH), "--lookups", str(LOOKUPS), "--cache-frac",
+            str(cache_frac), "--seed", "0", "--device", DEVICE]
+
+
+def launch_threads(gr):
+    """Record the id of every thread that calls a kernel wrapper of
+    ``kernels/gather_reduce.py``; returns (the set of ids, restore)."""
+    import threading
+
+    ids, saved = set(), []
+    for n in LAUNCHERS["gr"]:
+        fn = getattr(gr, n)
+
+        def wrapper(*a, _fn=fn):
+            ids.add(threading.get_ident())
+            return _fn(*a)
+        saved.append((n, fn))
+        setattr(gr, n, wrapper)
+
+    def restore():
+        for n, fn in saved:
+            setattr(gr, n, fn)
+    return ids, restore
+
+
+def dequantized_host(mods, host, precision: str):
+    """The reduced-precision oracle's host table: ``host``'s rows (shared,
+    not copied), each gathered row quantized to ``precision`` and
+    dequantized back, per row, as the serving fill quantizes it."""
+    qz = mods["qz"]
+
+    class DequantizedHost(mods["HostEmbeddingTable"]):
+        def gather(self, ids):
+            rows = super().gather(ids)
+            return qz.dequantize_rows_np(qz.quantize_rows_np(rows, precision), precision)
+
+    return DequantizedHost(host.rows, host.dim, data=host.data)
+
+
+def capture_serve_operands(torch, gr, captured, precision: str):
+    """Spy on a serving run's gather and fills of ``precision``'s form:
+    copy the middle micro-batch's gather operands and the largest fill's
+    (with the storage it filled) into ``captured``; returns restore()."""
+    gname = "gather_reduce_q" if precision == "int8" else "gather_reduce"
+    real_g, real_f, calls = getattr(gr, gname), gr.fill, [0]
+
+    def spy_gather(*a):
+        calls[0] += 1
+        if calls[0] == STEPS // 2:
+            captured[f"{precision} gather"] = clone_args(torch, a)
+        return real_g(*a)
+
+    def spy_fill(storage, slots, rows):
+        best = captured.get(f"{precision} fill")
+        if best is None or slots.numel() > best[1].numel():
+            captured[f"{precision} fill"] = (storage.clone(), slots.clone(), rows.clone())
+        return real_f(storage, slots, rows)
+
+    setattr(gr, gname, spy_gather)
+    gr.fill = spy_fill
+
+    def restore():
+        setattr(gr, gname, real_g)
+        gr.fill = real_f
+    return restore
+
+
+def trace_serve_run(torch, mods, host, argv):
+    """One serving run through the launcher's ``run_embedding`` on
+    ``host``, the plain versions raising; returns (result, launch counts of
+    the run, stage times)."""
+    ops, serve, sc = mods["ops"], mods["serve"], mods["serving_cache"]
+    args = serve.build_parser().parse_args(argv)
+    restore_plain = plain_versions_raise(mods["ref"])
+    stages, _, restore = stage_timers(
+        serve_targets(sc) + [(sc.StaticCacheServer, "serve_next", "serve (whole cycle)")])
+    try:
+        ops.reset_launch_counts()
+        res = serve.run_embedding(args, collect_bags=True, host=host)
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+    finally:
+        restore()
+        restore_plain()
+    return res, counts, stages
+
+
+def serve_summary(name, res, counts, stages) -> dict:
+    lat = res["latency"]
+    return {"run": name, "p50_ms": lat["p50_ms"], "p99_ms": lat["p99_ms"],
+            "lookups_per_s": res["lookups_per_s"], "hit_rate": res["hit_rate"],
+            "warmup": res["warmup"], "served": res["served"], "wall_s": res["wall_s"],
+            "evicted_rows": sum(st.n_evict for st in res["stats"]),
+            "launches": {k: v for k, v in counts.items() if v}, "stages_s": stages}
+
+
+def check_serve_counts(name, counts, gather: str, served: int, fill: str = None):
+    """One ``gather`` per micro-batch, fills of ``fill``'s form, no other."""
+    other = {k: v for k, v in counts.items() if v and k not in (gather, fill)}
+    check(counts[gather] == served and not other
+          and (fill is None or counts[fill] > 0),
+          f"{name}: launches {counts}, {served} micro-batches")
+
+
+def check_bags(name, got, want):
+    check(len(got) == len(want) == STEPS, f"{name}: every micro-batch served")
+    for i, (a, b) in enumerate(zip(got, want)):
+        check(a.shape == (BATCH, TABLES, DIM) and a.dtype == b.dtype and (a == b).all(),
+              f"{name}: bags of serve {i} differ from the oracle's")
+
+
+def frontend_run(torch, mods, host, group, path, oracle_bags) -> tuple:
+    """EmbeddingServer over an int8 scratchpipe-serve on the card:
+    FRONTEND_THREADS host threads each submit one micro-batch's requests
+    one at a time; each future's bags must equal the oracle's for that
+    request, and every kernel launch must come from the front end's worker
+    thread. Returns (the run's summary, its launch counts)."""
+    import threading
+
+    import numpy as np
+
+    from repro_torch.core.runtime import make_runtime
+    from repro_torch.serving import EmbeddingServer
+    from repro_torch.traces import TraceReader
+
+    ops, gr, serve = mods["ops"], mods["gr"], mods["serve"]
+    reader = TraceReader(path)
+    reqs = [reader.batch(b)[0] for b in range(FRONTEND_THREADS)]
+    reader.close()
+    int8 = group.with_precision("int8")
+    backend = make_runtime(
+        "scratchpipe-serve", host, None, window=DEPTH, table_group=int8, device=DEVICE,
+        num_slots=serve.scratchpad_slots(int8, BATCH, LOOKUPS, DEPTH, Q_SERVE_CACHE_FRAC))
+    results, latencies = {}, []
+
+    def client(t):
+        futures = []
+        for r in reqs[t]:
+            t_sub = time.perf_counter()
+            f = fe.lookup(r)
+            f.add_done_callback(
+                lambda _f, t_sub=t_sub: latencies.append(time.perf_counter() - t_sub))
+            futures.append(f)
+        results[t] = np.stack([f.result(timeout=600) for f in futures])
+
+    threads, restore_threads = launch_threads(gr)
+    restore_plain = plain_versions_raise(mods["ref"])
+    try:
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        with EmbeddingServer(backend, max_batch=BATCH) as fe:
+            clients = [threading.Thread(target=client, args=(t,), name=f"client-{t}")
+                       for t in range(FRONTEND_THREADS)]
+            for th in clients:
+                th.start()
+            for th in clients:
+                th.join(timeout=600)
+            worker = fe._thread.ident
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = ops.launch_counts()
+    finally:
+        restore_plain()
+        restore_threads()
+    check(sorted(results) == list(range(FRONTEND_THREADS)), "a front-end client failed")
+    for t in range(FRONTEND_THREADS):
+        check(results[t].shape == (BATCH, TABLES, DIM)
+              and (results[t] == oracle_bags[t]).all(),
+              f"front end: bags of client {t}'s requests differ from the oracle's")
+    check(threads == {worker},
+          f"front end: kernels launched from threads {threads}, the worker is {worker}")
+    cycles = len(backend.stats)
+    check_serve_counts("front end", counts, "gather_reduce_q", cycles, "fill_i8")
+    lat = sorted(latencies)
+    n = len(reqs) * BATCH
+    return {"run": FRONTEND_RUN, "requests": n,
+            "client_threads": FRONTEND_THREADS, "cycles": cycles, "wall_s": wall,
+            "requests_per_s": n / wall, "lookups_per_s": n * TABLES * LOOKUPS / wall,
+            "request_p50_ms": lat[len(lat) // 2] * 1e3,
+            "request_p99_ms": lat[int(len(lat) * 0.99)] * 1e3,
+            "launching_threads": 1,
+            "launches": {k: v for k, v in counts.items() if v}}, counts
+
+
+def trace_serve_phase(torch, mods, tmp: str, phase4_bags):
+    """Phase 13: phase 4's micro-batches recorded as serving traces at
+    fp32, fp16 and int8, served through ``launch/serve.py --trace`` on one
+    host table. Returns (summaries, launch counts per run, captured kernel
+    operands)."""
+    from repro_torch.core.table_group import TableGroup
+    from repro_torch.traces import record_serving_trace, scenario_batches
+
+    serve = mods["serve"]
+    group = TableGroup.uniform(TABLES, ROWS, DIM)
+    t0 = time.perf_counter()
+    items = list(scenario_batches("inference_mix", group, STEPS, batch_size=BATCH,
+                                  lookups_per_table=LOOKUPS, seed=0))
+    paths = {}
+    for p in ("fp32", "fp16", "int8"):
+        paths[p] = os.path.join(tmp, f"serve-{p}")
+        n = record_serving_trace(paths[p], group.with_precision(p), iter(items),
+                                 provenance={"scenario": "inference_mix", "seed": 0})
+        check(n == STEPS, f"recorded {n} micro-batches, not {STEPS}")
+    del items
+    mb = sum(os.path.getsize(os.path.join(paths["fp32"], f))
+             for f in os.listdir(paths["fp32"])) / 1e6
+    log(f"trace serve: three serving traces of {STEPS} micro-batches recorded, {mb:.1f} MB "
+        f"each ({time.perf_counter() - t0:.1f}s)")
+    t0 = time.perf_counter()
+    # the launcher's host table (--seed 0 builds it from seed 1), built once
+    host = mods["HostEmbeddingTable"](group.total_rows, DIM, seed=1)
+    log(f"trace serve: host table {host.data.shape} fp32 built in "
+        f"{time.perf_counter() - t0:.1f}s")
+    summaries, counts_by_run, captured = [], {}, {}
+
+    def record(name, res, counts, stages, **extra):
+        summaries.append({**serve_summary(name, res, counts, stages), **extra})
+        counts_by_run[name] = counts
+        print("serve: " + json.dumps(summaries[-1]), flush=True)
+
+    # fp32 scratchpipe-serve over the trace: phase 4's bags
+    t0 = time.perf_counter()
+    name = f"trace fp32 scratchpipe-serve depth {DEPTH}"
+    res, counts, stages = trace_serve_run(
+        torch, mods, host, trace_args(paths["fp32"], "scratchpipe-serve", DEPTH, CACHE_FRAC))
+    check(res["backend"].precision == "fp32", f"{name}: not the fp32 scratchpad")
+    check_bags(name, res["bags"], phase4_bags)
+    check(res["hit_rate"] == 1.0, f"{name}: post-warm-up hit rate {res['hit_rate']}")
+    check_serve_counts(name, counts, "gather_reduce", STEPS, "fill")
+    record(name, res, counts, stages)
+    del res
+    log(f"trace serve: {name} bitwise equal to phase 4 ({time.perf_counter() - t0:.1f}s)")
+
+    # fp16 and int8: the oracle is nocache-serve over dequantized host rows
+    oracle = {}
+    for precision in ("fp16", "int8"):
+        t0 = time.perf_counter()
+        o = serve.run_embedding(
+            serve.build_parser().parse_args(
+                trace_args(paths[precision], "nocache-serve", 0, Q_SERVE_CACHE_FRAC)),
+            collect_bags=True, host=dequantized_host(mods, host, precision))
+        oracle[precision] = o["bags"]
+        check(any((a != b).any() for a, b in zip(o["bags"], phase4_bags)),
+              f"the {precision} oracle equals the fp32 bags")
+        log(f"trace serve: the {precision} oracle served ({time.perf_counter() - t0:.1f}s)")
+        del o
+    for precision, depth in Q_SERVE_RUNS:
+        t0 = time.perf_counter()
+        name = f"trace {precision} scratchpipe-serve depth {depth}"
+        restore = (capture_serve_operands(torch, mods["gr"], captured, precision)
+                   if depth == DEPTH else (lambda: None))
+        try:
+            res, counts, stages = trace_serve_run(
+                torch, mods, host,
+                trace_args(paths[precision], "scratchpipe-serve", depth, Q_SERVE_CACHE_FRAC))
+        finally:
+            restore()
+        backend = res["backend"]
+        nominal = serve.scratchpad_slots(group, BATCH, LOOKUPS, depth, Q_SERVE_CACHE_FRAC)
+        check(backend.precision == precision and backend.nominal_slots == nominal
+              and backend.num_slots == nominal * Q_MULT[precision],
+              f"{name}: not the {precision} scratchpad of {nominal} nominal slots")
+        check_bags(name, res["bags"], oracle[precision])
+        if depth == DEPTH:
+            check(res["hit_rate"] == 1.0, f"{name}: post-warm-up hit rate {res['hit_rate']}")
+        evicted = sum(st.n_evict for st in res["stats"])
+        if precision == "fp16":
+            check(evicted > 0, f"{name}: nothing was evicted")
+        gk, fk = Q_KEYS[precision][:2]
+        check_serve_counts(name, counts, gk, STEPS, fk)
+        record(name, res, counts, stages, precision=precision,
+               scratchpad_rows=backend.num_slots, nominal_slots=nominal)
+        del res, backend
+        log(f"trace serve: {name} bitwise equal to the dequantized oracle, {evicted} rows "
+            f"evicted ({time.perf_counter() - t0:.1f}s)")
+
+    # static-serve: nocache-serve's bags, which phase 4's equal
+    t0 = time.perf_counter()
+    name = f"trace fp32 static-serve depth {DEPTH}"
+    res, counts, stages = trace_serve_run(
+        torch, mods, host, trace_args(paths["fp32"], "static-serve", DEPTH, CACHE_FRAC))
+    check_bags(name, res["bags"], phase4_bags)
+    check_serve_counts(name, counts, "gather_reduce", STEPS)
+    record(name, res, counts, stages, hot_rows=int(res["backend"].hot_ids.size))
+    del res
+    log(f"trace serve: {name} bitwise equal to nocache-serve ({time.perf_counter() - t0:.1f}s)")
+
+    # the front end over int8 scratchpipe-serve
+    t0 = time.perf_counter()
+    fe, counts_by_run[FRONTEND_RUN] = frontend_run(torch, mods, host, group, paths["int8"],
+                                                   oracle["int8"])
+    print("serve: " + json.dumps(fe), flush=True)
+    log(f"trace serve: front end: {fe['requests']} requests from {FRONTEND_THREADS} threads "
+        f"in {fe['cycles']} cycles, bitwise equal to the oracle, every launch from its "
+        f"worker thread ({time.perf_counter() - t0:.1f}s)")
+    return summaries + [fe], counts_by_run, captured
+
+
+def time_serve_q_kernels(torch, mods, captured, dev):
+    """``gather_reduce_q``, the fp16 gather and the fp16/int8 fills at the
+    operands the depth-2 trace-serve runs gave them. Returns ({kernel:
+    numbers}, details)."""
+    flush = torch.empty(32 * 1024 * 1024, dtype=torch.float32, device=dev)  # 128 MB > L2
+    out, details = {}, {}
+    for precision in Q_KEYS:
+        gk, fk = Q_KEYS[precision][:2]
+        if precision == "int8":
+            data, scale, flat = captured.pop("int8 gather")
+        else:
+            (data, flat), scale = captured.pop("fp16 gather"), None
+        out[gk], details[gk] = q_gather_times(torch, mods, precision, data, scale, flat,
+                                              flush, "serving")
+        del data, scale, flat
+        st0, slots, rows = captured.pop(f"{precision} fill")
+        out[fk], details[fk] = q_fill_times(torch, mods, precision, st0, slots, rows,
+                                            flush, "serving")
+        del st0, slots, rows
+    return out, details
+
+
+# --------------------------------------------------------------------------- #
+# 14. trace train: phase 6's batches replayed from a recorded trace
+# --------------------------------------------------------------------------- #
+def trace_train_phase(torch, mods, tmp: str, base, losses6, digest6, ms6):
+    """Record phase 6's 24 synthetic batches with ``record_trace``, replay
+    them with ``train_dlrm --trace`` through scratchpipe device+overlapped
+    fused: losses and the flushed host table bitwise equal to phase 6's.
+    Returns (summary, {run: launch counts})."""
+    from repro_torch.core.table_group import TableGroup
+    from repro_torch.data.synthetic import TraceConfig, dlrm_batches
+    from repro_torch.traces import record_trace
+
+    cfg = mods["DLRMConfig"](rows_per_table=ROWS, cache_fraction=TRAIN_CACHE_FRAC)
+    path = os.path.join(tmp, "train")
+    t0 = time.perf_counter()
+    tc = TraceConfig(num_tables=TABLES, rows_per_table=ROWS, lookups_per_table=LOOKUPS,
+                     batch_size=BATCH, locality="medium", seed=0)
+    n = record_trace(path, TableGroup.from_config(cfg), dlrm_batches(tc, TRAIN_STEPS),
+                     provenance={"generator": "synthetic", "locality": "medium", "seed": 0})
+    check(n == TRAIN_STEPS, f"recorded {n} batches, not {TRAIN_STEPS}")
+    log(f"trace train: {n} batches recorded ({time.perf_counter() - t0:.1f}s)")
+    t0 = time.perf_counter()
+    name = "scratchpipe device+overlapped fused --trace"
+    res, counts, stages, ms, report = train_run(torch, mods, cfg, base, name, "scratchpipe",
+                                                True, True, {}, extra_argv=["--trace", path])
+    stats, pipe = res["stats"], res["pipe"]
+    check(res["cfg"].name == "dlrm-trace" and res["cfg"].cache_fraction == TRAIN_CACHE_FRAC
+          and res["cfg"].bottom_mlp == cfg.bottom_mlp, f"{name}: the trace's config is off")
+    check(isinstance(pipe.planner, mods["plan_device"].DevicePlanner)
+          and pipe.executor == "overlapped",
+          f"{name}: not the device planner with the overlapped executor")
+    check_train_counts(name, "scratchpipe", True, stats, counts, stages)
+    losses = torch.stack([st.aux["loss"] for st in stats]).cpu()
+    check(torch.equal(losses, losses6),
+          f"{name}: losses differ from phase 6's at steps "
+          f"{torch.nonzero(losses != losses6).flatten().tolist()}")
+    pipe.flush_to_host()
+    pipe.close()
+    check(table_digest(res["host"].data) == digest6,
+          f"{name}: the flushed host table differs from phase 6's")
+    tr = pipe.traffic()
+    summary = {
+        **train_summary(name, True, ms, res, stages, report),
+        "phase6_ms_per_step": ms6, "loss_first": float(losses[0]),
+        "loss_last": float(losses[-1]),
+        "traffic_MB": {k: tr[k].total / 1e6 for k in ("host", "pcie", "hbm")},
+        "launches": counts,
+    }
+    print("train: " + json.dumps(summary), flush=True)
+    log(f"trace train: losses and the flushed host table bitwise equal to phase 6's; "
+        f"{ms:.2f} ms/step against phase 6's {ms6:.2f} ({time.perf_counter() - t0:.1f}s)")
+    return summary, {name: counts}
+
 def main() -> int:
     import torch
 
@@ -1982,7 +2462,7 @@ def main() -> int:
             "DLRMConfig": DLRMConfig, "interaction_dim": interaction_dim,
             "fa": fa, "ssd": ssd, "serve": serve, "api": api, "hybrid": hybrid,
             "ShapeSpec": ShapeSpec, "get_config": get_config, "plan": plan,
-            "plan_device": plan_device}
+            "plan_device": plan_device, "serving_cache": serving_cache}
 
     t_start = time.perf_counter()
     card = card_line()
@@ -2049,12 +2529,13 @@ def main() -> int:
                                     sweep_err, dev)
     log(f"timing: done ({time.perf_counter() - t0:.1f}s)")
     print("details: " + json.dumps(details), flush=True)
+    serve_bags = res["bags"]  # phase 13's fp32 and static-serve oracle
     del res, backend, captured
     torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
-    summaries, train_counts, train_captured, base, fp32_losses = train_main_path(
-        torch, mods, dev)
+    summaries, train_counts, train_captured, base, fp32_losses, fp32_digest = (
+        train_main_path(torch, mods, dev))
     log(f"train: {len(TRAIN_RUNS)} runs done ({time.perf_counter() - t0:.1f}s)")
 
     plan_captured = {"plan_step": train_captured.pop("plan_step")}
@@ -2067,7 +2548,6 @@ def main() -> int:
 
     t0 = time.perf_counter()
     _, q_counts, q_captured = train_q_main_path(torch, mods, dev, base, fp32_losses)
-    del base
     log(f"train: {len(Q_RUNS)} reduced-precision runs done ({time.perf_counter() - t0:.1f}s)")
     t0 = time.perf_counter()
     q_times, q_details = time_q_kernels(torch, mods, q_captured, dev)
@@ -2133,8 +2613,24 @@ def main() -> int:
         f"({time.perf_counter() - t0:.1f}s)")
     print("plan_step: " + json.dumps(plan_summary), flush=True)
 
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_traces_") as tmp:
+        t0 = time.perf_counter()
+        _, ts_counts, ts_captured = trace_serve_phase(torch, mods, tmp, serve_bags)
+        del serve_bags
+        log(f"trace serve: {len(ts_counts)} runs done ({time.perf_counter() - t0:.1f}s)")
+        t0 = time.perf_counter()
+        serve_q_times, serve_q_details = time_serve_q_kernels(torch, mods, ts_captured, dev)
+        log(f"timing: serving operands done ({time.perf_counter() - t0:.1f}s)")
+        print("details: " + json.dumps(serve_q_details), flush=True)
+        del ts_captured
+        torch.cuda.empty_cache()
+        ms6 = next(r["ms_per_step"] for r in summaries
+                   if r["run"] == "scratchpipe device+overlapped fused")
+        _, tt_counts = trace_train_phase(torch, mods, tmp, base, fp32_losses, fp32_digest,
+                                         ms6)
+    del base
 
-    by_run = {"serve": counts, **train_counts, **q_counts}
+    by_run = {"serve": counts, **train_counts, **q_counts, **ts_counts, **tt_counts}
     gather, fill = kernels
     for k in (gather, fill):
         k["launches_by_run"] = {run: c[k["name"]] for run, c in by_run.items()}
@@ -2161,6 +2657,10 @@ def main() -> int:
         })
         if name == "scatter_add":
             kernels[-1]["details"] = train_details[name]
+        if name in serve_q_times:  # phase 13's operands
+            t = serve_q_times[name]
+            kernels[-1]["max_abs_err"] = max(kernels[-1]["max_abs_err"], t.pop("max_abs_err"))
+            kernels[-1]["serve"] = t
     for name, source, replaces in (
             ("flash_attention", CU_SOURCE_FA, "src/repro/kernels/flash_attention.py:87"),
             ("ssd_chunk_scan", CU_SOURCE_SSD, "src/repro/kernels/ssd_chunk.py:81")):

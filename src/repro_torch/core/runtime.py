@@ -9,7 +9,9 @@ paper's training designs and the read-only serving designs:
     scratchpipe  — the paper's pipelined always-hit cache (§IV)
     strawman     — dynamic cache, no pipelining (§IV-B)
     nocache-serve      — the serving oracle (host gather every lookup)
+    static-serve       — pinned profiled hot rows, misses in a transient tail
     scratchpipe-serve  — the plan-ahead cache with the queue as look-ahead
+                         (fp32, fp16 or int8 replicas)
 
 Every factory takes ``(host_table, train_fn, **kwargs)``; serving
 factories require ``train_fn=None`` — they never write back.

@@ -1,10 +1,11 @@
 """Read-only serving runtimes: the always-hit cache under inference traffic.
 
-Port of ``repro/core/serving_cache.py`` (fp32): ``NoCacheServer`` (the
-oracle) and ``ReadOnlyCacheServer``, registered as ``nocache-serve`` and
-``scratchpipe-serve``. Planning, queueing and byte accounting are the
-reference's numpy code unchanged; the device half is PyTorch: rows go to
-the device with ``torch.from_numpy(...).to(device)``, bags come back with
+Port of ``repro/core/serving_cache.py``: ``NoCacheServer`` (the oracle),
+``StaticCacheServer`` and ``ReadOnlyCacheServer``, registered as
+``nocache-serve``, ``static-serve`` and ``scratchpipe-serve``. Planning,
+queueing and byte accounting are the reference's numpy code unchanged; the
+device half is PyTorch: rows go to the device with
+``torch.from_numpy(...).to(device)``, bags come back with
 ``.cpu().numpy()``, and the [Lookup] and [Insert] run the port's kernels
 (``core/scratchpad.py``) — the hand-written CUDA kernels on the card, their
 plain versions on the CPU. Bags are bit-identical to the reference's.
@@ -27,10 +28,16 @@ translate is re-probed from the HitMap at serve time and fills are
 validated against the current HitMap before landing, results are
 bit-identical to the no-cache oracle under ANY eviction interleaving.
 
-Not ported yet (see ROADMAP.md): ``static-serve``, the ``tracer``/
-``metrics`` hooks, ``fetch_retries``, ``state_arrays``/
-``load_state_arrays``/warm start (``convert.py`` carries a reference
-server's state across instead), and fp16/int8 replicas.
+Replica precision (``core/quantize.py``): the plan-ahead scratchpad may
+hold fp16 or int8 rows of the fp32 host masters. Rows quantize once on fill
+and are never written back; the [Lookup] dequantizes in the kernel and
+returns fp32 bags, equal bit for bit to the fp32 oracle's over host rows
+that were quantized and dequantized the same way.
+
+Not ported yet (see ROADMAP.md): the ``tracer``/``metrics`` hooks,
+``fetch_retries``, ``state_arrays``/``load_state_arrays``/warm start
+(``convert.py`` carries a reference server's fp32 state across instead;
+Queue 1 item 12), and the ``storage_dtype`` knob (item 11).
 """
 from __future__ import annotations
 
@@ -43,6 +50,7 @@ import torch
 
 from repro_torch.core import quantize as qz
 from repro_torch.core import scratchpad as sp
+from repro_torch.core.quantize import QuantStorage
 from repro_torch.core.host_table import HostEmbeddingTable, HostTraffic
 from repro_torch.core.pipeline import StepStats
 from repro_torch.core.plan import Planner, PlanResult, pad_index, pad_rows
@@ -51,12 +59,16 @@ from repro_torch.core.table_group import TableGroup
 from repro_torch.device import resolve_device
 
 
-def _lookup_bags(storage: torch.Tensor, slots: np.ndarray) -> np.ndarray:
+def _lookup_bags(storage, slots: np.ndarray) -> np.ndarray:
     """[Lookup]: the training forward's gather+bag-reduce, backward elided.
     ``slots`` (R, T, L) on the host -> (R, T, D) fp32 bags on the host (the
-    copy back synchronizes the device)."""
-    ids = torch.from_numpy(np.ascontiguousarray(slots, dtype=np.int32))
-    return sp.gather_reduce(storage, ids.to(storage.device)).cpu().numpy()
+    copy back synchronizes the device). An fp16 or int8 storage goes
+    through the dequantizing gather."""
+    dev = storage.data.device if isinstance(storage, QuantStorage) else storage.device
+    ids = torch.from_numpy(np.ascontiguousarray(slots, dtype=np.int32)).to(dev)
+    if sp.storage_precision(storage) == "fp32":
+        return sp.gather_reduce(storage, ids).cpu().numpy()
+    return sp.gather_reduce_q(storage, ids).cpu().numpy()
 
 
 @dataclasses.dataclass
@@ -177,6 +189,62 @@ class NoCacheServer(_ServingRuntimeBase):
         return bags, st
 
 
+class StaticCacheServer(_ServingRuntimeBase):
+    """Yin et al. pinned top-N cache, serving flavor: profiled hot rows
+    stay on the device in fp32; each cycle's misses ride a transient tail
+    (fetched from the host, never inserted): the storage and the padded
+    miss rows are concatenated (a copy, ``torch.cat``), then one gather
+    serves the micro-batch. Decays under drift exactly like the training
+    variant — the comparison point the curve is measured against."""
+
+    def __init__(
+        self,
+        host_table: HostEmbeddingTable,
+        hot_ids: np.ndarray,
+        *,
+        queue_depth: int = 0,
+        device="cuda",
+    ):
+        super().__init__(host_table, queue_depth=queue_depth, device=device)
+        self.hot_ids = np.asarray(np.sort(hot_ids), dtype=np.int64)
+        self.id_to_slot = np.full(host_table.rows, -1, dtype=np.int64)
+        self.id_to_slot[self.hot_ids] = np.arange(self.hot_ids.size)
+        self.storage = torch.from_numpy(host_table.gather(self.hot_ids)).to(self.device)
+        host_table.traffic.reset()  # preload is not steady-state traffic
+
+    def _serve(self, entry: _ServeEntry) -> Tuple[np.ndarray, StepStats]:
+        ids = entry.ids
+        flat = ids.ravel()
+        uniq = np.unique(flat)
+        slots_u = self.id_to_slot[uniq]
+        miss_ids = uniq[slots_u < 0]
+        n_hit_lookups = int(np.sum(self.id_to_slot[flat] >= 0))
+        miss_rows = self.host.gather(miss_ids)
+        self.pcie.written += miss_rows.nbytes
+        if miss_ids.size:
+            tail = torch.from_numpy(pad_rows(miss_rows)).to(self.device)
+            ext = torch.cat([self.storage, tail], dim=0)
+        else:
+            ext = self.storage
+        try:
+            self.id_to_slot[miss_ids] = self.hot_ids.size + np.arange(miss_ids.size)
+            slots = self.id_to_slot[flat].reshape(ids.shape)
+        finally:
+            self.id_to_slot[miss_ids] = -1
+        bags = _lookup_bags(ext, slots)
+        self.hbm.read += flat.size * self.host.row_bytes
+        st = StepStats(
+            step=self._step,
+            n_lookups=int(flat.size),
+            n_unique=int(uniq.size),
+            n_hits=int(uniq.size - miss_ids.size),
+            n_miss=int(miss_ids.size),
+            n_evict=0,
+            hit_lookups=n_hit_lookups,
+        )
+        return bags, st
+
+
 class ReadOnlyCacheServer(_ServingRuntimeBase):
     """ScratchPipe's plan-ahead cache with the write-back half deleted.
 
@@ -186,7 +254,12 @@ class ReadOnlyCacheServer(_ServingRuntimeBase):
     serve cycle. At queue depth >= ``window`` every served batch finds all
     of its rows landed — 100% lookup hits; shallower queues pay emergency
     completion on the serve path (misses + latency, never wrong results).
-    The scratchpad holds fp32 rows on ``device``.
+
+    The scratchpad holds ``precision`` rows (fp32, fp16, or int8 with a
+    per-row fp32 scale) on ``device``; ``precision`` defaults to the table
+    group's uniform precision, else fp32, and must not conflict with it.
+    ``num_slots`` is a byte budget in fp32-row units: the scratchpad holds
+    ``num_slots * quantize.SLOT_MULTIPLIER[precision]`` rows.
     """
 
 
@@ -201,6 +274,7 @@ class ReadOnlyCacheServer(_ServingRuntimeBase):
         table_group: Optional[TableGroup] = None,
         slot_budgets=None,
         pad_buckets: Optional[Sequence[int]] = None,
+        precision: Optional[str] = None,
         device="cuda",
     ):
         super().__init__(
@@ -209,14 +283,22 @@ class ReadOnlyCacheServer(_ServingRuntimeBase):
             device=device,
         )
         self.window = int(window)
-        if table_group is not None and table_group.uniform_precision() != "fp32":
+        group_prec = (
+            table_group.uniform_precision() if table_group is not None else None
+        )
+        if precision is None:
+            precision = group_prec or "fp32"
+        elif group_prec is not None and precision != group_prec:
             raise ValueError(
-                "the port's serving scratchpad holds fp32 rows; fp16/int8 "
-                "serving replicas are not ported yet (ROADMAP.md Queue 1 item 11)"
+                f"precision={precision!r} conflicts with the table group's "
+                f"uniform precision {group_prec!r}"
             )
-        self.num_slots = int(num_slots)
+        self.precision = qz.check_precision(precision)
+        eff_slots = int(num_slots) * qz.SLOT_MULTIPLIER[self.precision]
+        self.num_slots = eff_slots
+        self.nominal_slots = int(num_slots)
         self._row_bytes = qz.row_bytes(
-            host_table.dim, "fp32", host_table.data.dtype.itemsize
+            host_table.dim, self.precision, host_table.data.dtype.itemsize
         )
         self.pad_buckets = tuple(sorted(pad_buckets)) if pad_buckets else None
         self.table_group = table_group
@@ -231,9 +313,9 @@ class ReadOnlyCacheServer(_ServingRuntimeBase):
                 if slot_budgets is not None
                 else table_group.precision_slot_budgets(num_slots)
             )
-            if sum(budgets) > self.num_slots:
+            if sum(budgets) > eff_slots:
                 raise ValueError(
-                    f"slot budgets {budgets} exceed num_slots={self.num_slots}"
+                    f"slot budgets {budgets} exceed num_slots={eff_slots}"
                 )
             row_offsets = table_group.offsets
             slot_ranges = table_group.slot_ranges(budgets)
@@ -243,7 +325,7 @@ class ReadOnlyCacheServer(_ServingRuntimeBase):
         # covers the visible queue — the look-ahead protection itself.
         self.planner = Planner(
             host_table.rows,
-            self.num_slots,
+            eff_slots,
             past_window=0,
             future_window=self.window,
             policy=policy,
@@ -251,11 +333,11 @@ class ReadOnlyCacheServer(_ServingRuntimeBase):
             slot_ranges=slot_ranges,
         )
         self.storage = sp.make_storage(
-            self.num_slots, host_table.dim, device=self.device
+            eff_slots, host_table.dim, precision=self.precision, device=self.device
         )
         # slot content validity: True iff the slot holds the row the HitMap
         # currently maps to it (fills land here; plans invalidate here)
-        self._landed = np.zeros(self.num_slots, dtype=bool)
+        self._landed = np.zeros(eff_slots, dtype=bool)
         # the visible window: planned entries, head first (<= window + 1)
         self._visible: Deque[_ServeEntry] = collections.deque()
 
@@ -307,15 +389,22 @@ class ReadOnlyCacheServer(_ServingRuntimeBase):
         entry.stage = 3
 
     def _fill_rows(self, slots: np.ndarray, rows: np.ndarray) -> None:
+        """Quantize fp32 host rows to the replica precision, pad them and
+        their slots to the bucket, and fill them in (an int8 pair pads both
+        components)."""
         padded_slots = pad_index(
             np.ascontiguousarray(slots, dtype=np.int32), self.num_slots,
             self.pad_buckets,
         )
-        sp.fill(
-            self.storage,
-            torch.from_numpy(padded_slots).to(self.device),
-            torch.from_numpy(pad_rows(rows, self.pad_buckets)).to(self.device),
-        )
+        q = qz.quantize_rows_np(rows, self.precision)
+        if isinstance(q, tuple):  # int8: (payload, scale) components
+            q = tuple(
+                torch.from_numpy(pad_rows(c, self.pad_buckets)).to(self.device)
+                for c in q
+            )
+        else:
+            q = torch.from_numpy(pad_rows(q, self.pad_buckets)).to(self.device)
+        sp.fill(self.storage, torch.from_numpy(padded_slots).to(self.device), q)
         self._landed[slots] = True
         self.pcie.written += slots.size * self._row_bytes
         self.hbm.written += slots.size * self._row_bytes
@@ -434,3 +523,11 @@ def _make_scratchpipe_serve(
 def _make_nocache_serve(host_table, train_fn=None, **kw) -> NoCacheServer:
     _require_no_train_fn("nocache-serve", train_fn)
     return NoCacheServer(host_table, **kw)
+
+
+@register_runtime("static-serve")
+def _make_static_serve(
+    host_table, train_fn=None, *, hot_ids, **kw
+) -> StaticCacheServer:
+    _require_no_train_fn("static-serve", train_fn)
+    return StaticCacheServer(host_table, hot_ids, **kw)

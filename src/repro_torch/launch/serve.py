@@ -12,16 +12,22 @@ with their ROADMAP item):
 ``--seed``, as in the reference. Prints the reference's ``prefill:``,
 ``decode:`` and ``sample[b]:`` lines.
 
-Embedding serving: a synthetic scenario's request micro-batches through a
-read-only cache runtime (the queue-as-lookahead pipeline):
+Embedding serving: request micro-batches, from a synthetic scenario or a
+recorded serving trace, through a read-only cache runtime (the
+queue-as-lookahead pipeline):
 
     python -m repro_torch.launch.serve --embedding --design scratchpipe-serve \
         --scenario inference_mix --steps 64 --depth 2
+    python -m repro_torch.launch.serve --embedding --trace /path/to/trace --depth 2
 
-It prints the same ``serving``/``served``/``hit_rate=`` lines as the
-reference. Both run on the card; ``--device cpu`` runs the kernels' plain
-PyTorch versions instead. ``--trace`` replay, ``static-serve``, warm start
-and the telemetry outputs are not ported yet (see ROADMAP.md).
+A trace's manifest sets the tables, rows, dim and the scratchpad's replica
+precision (a trace recorded from ``launch/train.py --precision int8
+--record-trace`` serves from an int8 scratchpad). ``--design static-serve``
+pins the hottest rows of the first quarter of the batches. It prints the
+same ``serving``/``served``/``hit_rate=`` lines as the reference. Both
+modes run on the card; ``--device cpu`` runs the kernels' plain PyTorch
+versions instead. Warm start and the telemetry outputs are not ported yet
+(ROADMAP.md Queue 1 item 12).
 """
 from __future__ import annotations
 
@@ -29,7 +35,7 @@ import argparse
 import time
 from typing import Any, Dict, Optional, Sequence
 
-DESIGNS = ("scratchpipe-serve", "nocache-serve")
+DESIGNS = ("scratchpipe-serve", "nocache-serve", "static-serve")
 
 
 def scratchpad_slots(group, batch: int, lookups: int, depth: int,
@@ -46,34 +52,55 @@ def scratchpad_slots(group, batch: int, lookups: int, depth: int,
     )
 
 
-def run_embedding(args, *, collect_bags: bool = False) -> Dict[str, Any]:
-    """Build the host table, the scenario's batches and the runtime from
-    parsed ``args``, serve every batch, print the reference's summary
-    lines, and return ``replay_serving``'s result plus the ``backend``."""
+def run_embedding(args, *, collect_bags: bool = False, host=None) -> Dict[str, Any]:
+    """Build the host table, the batches (a recorded trace's, else the
+    scenario's) and the runtime from parsed ``args``, serve every batch,
+    print the reference's summary lines, and return ``replay_serving``'s
+    result plus the ``backend``. ``host`` replaces the host table the
+    launcher would build from ``--seed`` (read only: serving never writes
+    it back)."""
     from repro_torch.core.host_table import HostEmbeddingTable
     from repro_torch.core.runtime import make_runtime
     from repro_torch.core.table_group import TableGroup
     from repro_torch.device import resolve_device
     from repro_torch.serving import replay_serving
-    from repro_torch.traces.scenarios import scenario_batches
 
     resolve_device(args.device)  # fail before building tables, not after
-    group = TableGroup.uniform(args.tables, args.rows, args.dim)
-    steps = args.steps if args.steps is not None else 64
-    batches = [
-        gids
-        for gids, _ in scenario_batches(
-            args.scenario,
-            group,
-            steps,
-            batch_size=args.batch,
-            lookups_per_table=args.lookups,
-            seed=args.seed,
-        )
-    ]
-    src = f"scenario {args.scenario} ({steps} batches)"
+    if args.trace:
+        from repro_torch.traces.format import TraceReader
 
-    host = HostEmbeddingTable(group.total_rows, group.dim, seed=args.seed + 1)
+        reader = TraceReader(args.trace)
+        group = reader.group
+        steps = reader.num_batches if args.steps is None else min(
+            args.steps, reader.num_batches
+        )
+        batches = [reader.batch(i)[0] for i in range(steps)]
+        reader.close()
+        src = f"trace {args.trace} ({steps} batches)"
+    else:
+        from repro_torch.traces.scenarios import scenario_batches
+
+        group = TableGroup.uniform(args.tables, args.rows, args.dim)
+        steps = args.steps if args.steps is not None else 64
+        batches = [
+            gids
+            for gids, _ in scenario_batches(
+                args.scenario,
+                group,
+                steps,
+                batch_size=args.batch,
+                lookups_per_table=args.lookups,
+                seed=args.seed,
+            )
+        ]
+        src = f"scenario {args.scenario} ({steps} batches)"
+
+    if host is None:
+        host = HostEmbeddingTable(group.total_rows, group.dim, seed=args.seed + 1)
+    elif host.data.shape != (group.total_rows, group.dim):
+        raise ValueError(
+            f"host table {host.data.shape} != ({group.total_rows}, {group.dim})"
+        )
     kwargs: Dict[str, Any] = dict(device=args.device)
     if args.design == "scratchpipe-serve":
         kwargs.update(
@@ -82,6 +109,13 @@ def run_embedding(args, *, collect_bags: bool = False) -> Dict[str, Any]:
             ),
             window=args.depth,
             table_group=group,
+        )
+    elif args.design == "static-serve":
+        from repro_torch.traces.profiling import profile_hot_ids
+
+        kwargs.update(
+            hot_ids=profile_hot_ids(batches[: max(2, len(batches) // 4)],
+                                    group, args.cache_frac)
         )
     backend = make_runtime(args.design, host, None, **kwargs)
 
@@ -187,6 +221,8 @@ def build_parser() -> argparse.ArgumentParser:
         help="serve the DLRM embedding lookup tier",
     )
     emb.add_argument("--design", default="scratchpipe-serve", choices=DESIGNS)
+    emb.add_argument("--trace", default=None,
+                     help="recorded serving trace dir (repro_torch.traces format)")
     emb.add_argument("--scenario", default="inference_mix")
     emb.add_argument("--steps", type=int, default=None)
     emb.add_argument("--depth", type=int, default=2,

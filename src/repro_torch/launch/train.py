@@ -16,6 +16,12 @@ reference, ``--batch`` defaults to 8; the paper's batch is 2048.
 ``--precision fp16|int8`` keeps fp32 host masters and fp16/int8 scratchpad
 replicas (``core/quantize.py``); ``--rounding`` picks how in-cache updates
 re-quantize (default ``stochastic``, as the reference).
+``--trace <dir>`` replays a recorded workload trace (``repro_torch.traces``
+format; the reference's traces too): its manifest sets the tables, rows,
+dim, lookups, dense features and batch size, and a prefetch thread decodes
+the next batches ahead of the pipeline. ``--scenario <name>`` draws a
+non-stationary generator instead (``traces/scenarios.py``), and
+``--record-trace <dir>`` records the run's workload while it trains.
 ``--planner device`` keeps the [Plan] state on the card
 (``core/plan_device.py``) and ``--executor overlapped`` moves the host
 gather and write-back to a worker thread and the copies back to a d2h
@@ -25,11 +31,13 @@ calls ``close()`` on the returned runtime when done with it (the
 overlapped executor's threads).
 
 Not ported yet (each errors with a pointer to ROADMAP.md): the LM archs,
-``--tables``, ``--trace`` and ``--supervise``/``--chaos``.
+``--tables`` and a trace whose tables differ in rows (item 9),
+``--adaptive-pad`` (item 10), and ``--supervise``/``--chaos`` (item 12).
 """
 from __future__ import annotations
 
 import argparse
+import os
 import time
 from typing import Any, Dict, Optional, Sequence
 
@@ -40,25 +48,30 @@ ARCH = "dlrm-scratchpipe"
 #: options of the reference launcher that later slices port, with the
 #: ROADMAP.md item that carries each
 _NOT_PORTED = {
-    "tables": "Queue 1 item 9 (multi-table)",
-    "trace": "Queue 1 item 10 (traces)",
-    "supervise": "Queue 1 item 12 (recovery)",
-    "chaos": "Queue 1 item 12 (recovery)",
+    "tables": ("multi-table", 9),
+    "adaptive_pad": ("trace-derived pad buckets", 10),
+    "supervise": ("recovery", 12),
+    "chaos": ("recovery", 12),
 }
-_DEFAULTS = {"tables": 0, "trace": None, "supervise": False, "chaos": None}
+_DEFAULTS = {"tables": 0, "adaptive_pad": False, "supervise": False, "chaos": None}
+_HETERO_TRACE = ("a trace whose tables differ in rows needs per-table slot "
+                 "budgets (multi-table), which are not ported to repro_torch yet "
+                 "(ROADMAP.md Queue 1 item 9)")
 
 
 def train_dlrm(args, cfg=None, host=None, mlps=None) -> Dict[str, Any]:
     """Build the host table, the trainer and the runtime from parsed
-    ``args``, train ``args.steps`` synthetic mini-batches, print the
-    reference's summary lines and return the run (stats, losses, the
-    runtime, the trainer, the wall seconds). ``cfg`` replaces the
-    configuration that ``--smoke`` selects (how a caller cuts table rows);
-    ``host`` replaces the host table the launcher would build from
-    ``--seed`` (the caller's copy is trained in place); ``mlps`` (a
-    ``DLRM`` state_dict, e.g. ``convert.mlps_from_reference``) replaces the
-    seeded MLP init."""
+    ``args``, train ``args.steps`` mini-batches (synthetic, a scenario's,
+    or a recorded trace's), print the reference's summary lines and return
+    the run (stats, losses, the runtime, the trainer, the wall seconds).
+    ``cfg`` replaces the configuration that ``--smoke`` selects (how a
+    caller cuts table rows; with ``--trace`` the manifest sets the workload
+    shape and ``cfg`` keeps its cache fraction and MLP sizes); ``host``
+    replaces the host table the launcher would build from ``--seed`` (the
+    caller's copy is trained in place); ``mlps`` (a ``DLRM`` state_dict,
+    e.g. ``convert.mlps_from_reference``) replaces the seeded MLP init."""
     import dataclasses
+    import itertools
 
     import torch
 
@@ -70,6 +83,14 @@ def train_dlrm(args, cfg=None, host=None, mlps=None) -> Dict[str, Any]:
     from repro_torch.data.lookahead import LookaheadStream
     from repro_torch.data.synthetic import TraceConfig, dlrm_batches, hot_ids_for_group
     from repro_torch.device import resolve_device
+    from repro_torch.traces import (
+        TraceReader,
+        TraceRecorder,
+        TraceReplayStream,
+        hot_ids_from_trace,
+        profile_hot_ids,
+        scenario_batches,
+    )
 
     if args.runtime == "nocache" and args.precision != "fp32":
         raise SystemExit(
@@ -77,32 +98,83 @@ def train_dlrm(args, cfg=None, host=None, mlps=None) -> Dict[str, Any]:
             "the nocache baseline holds no rows to quantize"
         )
     dev = resolve_device(args.device)  # fail before building tables, not after
-    if cfg is None:
-        cfg = smoke_config() if args.smoke else config()
+    base = cfg if cfg is not None else (smoke_config() if args.smoke else config())
+    reader = None
+    if args.trace:  # replay a recorded workload trace
+        reader = TraceReader(args.trace)
+        if reader.num_batches < 1:
+            raise SystemExit(f"--trace {args.trace}: empty trace (0 recorded batches)")
+        if reader.num_dense_features < 1:
+            raise SystemExit(
+                f"--trace {args.trace}: no dense features (not a DLRM trace)"
+            )
+        group = reader.group
+        if len(set(group.rows)) > 1:
+            raise NotImplementedError(_HETERO_TRACE)
+        # the trace manifest defines the workload shape; the MLP stack
+        # follows (bottom-MLP output must match the trace's embed dim)
+        cfg = dataclasses.replace(
+            base,
+            name="dlrm-trace",
+            table_rows=tuple(group.rows),
+            embed_dim=group.dim,
+            lookups_per_table=reader.lookups_per_table,
+            num_dense_features=reader.num_dense_features,
+            batch_size=reader.batch_size,
+            bottom_mlp=tuple(base.bottom_mlp[:-1]) + (group.dim,),
+        )
+        batch = reader.batch_size
+        args.steps = min(args.steps, reader.num_batches)
+    else:
+        cfg = base
+        group = TableGroup.from_config(cfg)
+        batch = args.batch or cfg.batch_size
     if args.precision != "fp32":
         # scratchpad replica precision: fp32 masters stay on the host; the
-        # trainer reads it from the config
+        # trainer reads it from the config (so do the TableGroup specs)
         cfg = dataclasses.replace(cfg, precision=args.precision, rounding=args.rounding)
-    group = TableGroup.from_config(cfg)
-    batch = args.batch or cfg.batch_size
+        group = (group.with_precision(args.precision) if reader is not None
+                 else TableGroup.from_config(cfg))
     rows = group.total_rows
     slots = max(2048, int(rows * cfg.cache_fraction))
-    tc = TraceConfig(
-        num_tables=cfg.num_tables,
-        rows_per_table=cfg.rows_per_table,
-        lookups_per_table=cfg.lookups_per_table,
-        batch_size=batch,
-        locality=args.locality,
-        seed=args.seed,
-    )
+
+    def batches(steps):
+        if reader is not None:
+            return TraceReplayStream(reader, stop=steps)
+        if args.scenario:  # non-stationary generator (traces/scenarios.py)
+            return scenario_batches(
+                args.scenario, group, steps, batch_size=batch,
+                lookups_per_table=cfg.lookups_per_table, locality=args.locality,
+                num_dense_features=cfg.num_dense_features, seed=args.seed,
+            )
+        tc = TraceConfig(
+            num_tables=cfg.num_tables,
+            rows_per_table=cfg.rows_per_table,
+            lookups_per_table=cfg.lookups_per_table,
+            batch_size=batch,
+            locality=args.locality,
+            seed=args.seed,
+        )
+        return dlrm_batches(tc, steps)
+
     kw: Dict[str, Any] = {"num_slots": slots, "precision": args.precision}
     if args.runtime == "scratchpipe":
         kw.update(past_window=cfg.past_window, future_window=cfg.future_window)
     if args.runtime in ("scratchpipe", "strawman"):
         kw.update(executor=args.executor, planner=args.planner)
     if args.runtime == "static":
-        kw = {"hot_ids": hot_ids_for_group(group, cfg.cache_fraction, locality=args.locality),
-              "precision": args.precision}
+        if reader is not None:
+            hot = hot_ids_from_trace(reader, cfg.cache_fraction,
+                                     profile_batches=max(1, args.steps // 5))
+        elif args.scenario:
+            # offline profiling pass over the workload's own prefix
+            hot = profile_hot_ids(
+                itertools.islice(batches(args.steps), max(1, args.steps // 5)),
+                group, cfg.cache_fraction,
+            )
+        else:
+            hot = hot_ids_for_group(group, cfg.cache_fraction, locality=args.locality)
+        kw = {"hot_ids": hot, "precision": args.precision}
     elif args.runtime == "nocache":
         kw = {}
     kw["device"] = dev
@@ -118,19 +190,33 @@ def train_dlrm(args, cfg=None, host=None, mlps=None) -> Dict[str, Any]:
         kw["fused_train_fn"] = trainer.fused_train_fn
     pipe = make_runtime(args.runtime, host, trainer.train_fn, **kw)
 
-    stream = LookaheadStream(dlrm_batches(tc, args.steps))
+    src = batches(args.steps)
+    if args.record_trace:
+        prov = {"generator": args.scenario or "synthetic",
+                "locality": args.locality, "seed": args.seed}
+        src = TraceRecorder(args.record_trace, group, provenance=prov).tee(src)
+    # a replay stream already is a look-ahead source
+    stream = src if hasattr(src, "peek_ids") else LookaheadStream(src)
     t0 = time.time()
-    stats = pipe.run(stream, lookahead_fn=stream.peek_ids)
+    try:
+        stats = pipe.run(stream, lookahead_fn=stream.peek_ids)
+    finally:
+        if isinstance(stream, TraceReplayStream):
+            stream.close()
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     dt = time.time() - t0
     losses = [float(s.aux["loss"]) for s in stats if s.aux]
     hit = float(np.mean([s.hit_rate for s in stats[6:]])) if len(stats) > 6 else 0
+    source = (f"trace:{args.trace}" if args.trace
+              else f"scenario:{args.scenario}" if args.scenario else "synthetic")
     print(
-        f"runtime={args.runtime} source=synthetic "
+        f"runtime={args.runtime} source={source} "
         f"kernel={'cuda' if dev.type == 'cuda' else 'plain'} precision={args.precision} "
         f"tables={group.num_tables} rows={list(group.rows)}"
     )
+    if args.record_trace:
+        print(f"recorded trace -> {args.record_trace}")
     print(
         f"done: steps={len(stats)} loss {losses[0]:.4f}->{losses[-1]:.4f} "
         f"plan_hit={hit:.3f} {dt / max(len(stats), 1) * 1e3:.1f}ms/step"
@@ -192,9 +278,24 @@ def build_parser() -> argparse.ArgumentParser:
         help="scratchpipe/strawman [Plan] placement: 'device' keeps the plan "
         "state on the card (equal plans to 'host')",
     )
+    ap.add_argument(
+        "--trace", default=None,
+        help="replay a recorded workload trace directory (repro_torch.traces "
+        "format; overrides the synthetic generator)",
+    )
+    ap.add_argument(
+        "--scenario", default=None,
+        help="non-stationary workload generator by name "
+        "(drift, flash_crowd, diurnal, cold_start)",
+    )
+    ap.add_argument(
+        "--record-trace", default=None,
+        help="snapshot the training workload into this trace directory while "
+        "training (repro_torch.traces.TraceRecorder.tee)",
+    )
     later = ap.add_argument_group("not ported yet (error with a ROADMAP pointer)")
     later.add_argument("--tables", type=int, default=0)
-    later.add_argument("--trace", default=None)
+    later.add_argument("--adaptive-pad", action="store_true")
     later.add_argument("--supervise", action="store_true")
     later.add_argument("--chaos", default=None)
     return ap
@@ -206,9 +307,15 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
     if args.arch != ARCH:
         ap.error(f"--arch {args.arch}: the port trains {ARCH} only; the LM "
                  "training comes later (ROADMAP.md Queue 1 item 18)")
-    for name, item in _NOT_PORTED.items():
+    for name, (what, item) in _NOT_PORTED.items():
         if getattr(args, name) != _DEFAULTS[name]:
-            ap.error(f"--{name} is not ported to repro_torch yet (ROADMAP.md {item})")
+            ap.error(f"--{name.replace('_', '-')} ({what}) is not ported to repro_torch "
+                     f"yet (ROADMAP.md Queue 1 item {item})")
+    if args.trace and args.scenario:
+        ap.error("--trace and --scenario are mutually exclusive")
+    if args.trace and not os.path.exists(os.path.join(args.trace, "manifest.json")):
+        ap.error(f"--trace {args.trace}: not a recorded trace directory "
+                 "(no manifest.json)")
     return train_dlrm(args)
 
 

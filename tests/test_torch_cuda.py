@@ -660,3 +660,130 @@ def test_cuda_plan_step_makes_no_host_sync(cuda):
     finally:
         torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
+
+
+# --------------------------------------------------------------------------- #
+# serving on the card: fp16/int8 replicas, static-serve, the front end
+# --------------------------------------------------------------------------- #
+def _serving_batches(steps=14):
+    from repro_torch.core.table_group import TableGroup
+    from repro_torch.traces.scenarios import scenario_batches
+
+    group = TableGroup.uniform(2, 400, 16)
+    return [g for g, _ in scenario_batches("flash_crowd", group, steps, batch_size=8,
+                                           lookups_per_table=3, seed=7)]
+
+
+def _serve(dev, design, precision="fp32", depth=2, hot=None):
+    from repro_torch.core.host_table import HostEmbeddingTable
+    from repro_torch.core.serving_cache import (
+        NoCacheServer,
+        ReadOnlyCacheServer,
+        StaticCacheServer,
+    )
+    from repro_torch.core.table_group import TableGroup
+    from repro_torch.serving import replay_serving
+
+    host = HostEmbeddingTable(800, 16, seed=7)
+    if design == "static":
+        srv = StaticCacheServer(host, hot, device=dev)
+    elif design == "nocache":
+        srv = NoCacheServer(host, device=dev)
+    else:
+        # 160 rows: above the depth-2 window's 3 x 24 ids per table, and
+        # evicting over 14 micro-batches
+        num_slots = 160 // {"fp32": 1, "fp16": 2, "int8": 4}[precision]
+        srv = ReadOnlyCacheServer(host, num_slots, window=2, device=dev,
+                                  table_group=TableGroup.uniform(2, 400, 16,
+                                                                 precision=precision))
+    return replay_serving(srv, _serving_batches(), depth=depth, collect_bags=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("depth", [0, 2])
+@pytest.mark.parametrize("precision", ["fp16", "int8"])
+def test_cuda_reduced_precision_serving(cuda, precision, depth):
+    """Bags bitwise equal to the same server's on the CPU; one gather of the
+    precision's form per micro-batch, fills of its form, no fp32 gather."""
+    want = _serve("cpu", "scratchpipe", precision, depth)
+    tops.reset_launch_counts()
+    got = _serve(cuda, "scratchpipe", precision, depth)
+    counts = tops.launch_counts()
+    for a, b in zip(got["bags"], want["bags"]):
+        assert np.array_equal(a, b)
+    assert sum(s.n_evict for s in got["stats"]) > 0
+    gather, fill = (("gather_reduce_q", "fill_i8") if precision == "int8"
+                    else ("gather_reduce_f16", "fill_f16"))
+    assert counts[gather] == got["served"] == 14 and counts[fill] > 0
+    assert sum(counts.values()) == counts[gather] + counts[fill], counts
+
+
+@pytest.mark.cuda
+def test_cuda_static_serve_one_gather_per_micro_batch(cuda):
+    batches = _serving_batches()
+    hot = np.unique(np.concatenate([b.ravel() for b in batches[:3]]))[:100]
+    want = _serve("cpu", "nocache", depth=0)
+    tops.reset_launch_counts()
+    got = _serve(cuda, "static", depth=0, hot=hot)
+    counts = tops.launch_counts()
+    for a, b in zip(got["bags"], want["bags"]):
+        assert np.array_equal(a, b)
+    assert counts["gather_reduce"] == got["served"] == 14
+    assert sum(counts.values()) == 14, counts
+
+
+@pytest.mark.cuda
+def test_cuda_frontend_launches_from_its_worker_only(cuda, monkeypatch):
+    """Several host threads submit single requests to the front end over an
+    int8 scratchpipe-serve on the card: every kernel launch comes from the
+    front end's worker thread, and every request's bags equal its CPU
+    oracle's."""
+    import threading
+
+    from repro_torch.core.host_table import HostEmbeddingTable
+    from repro_torch.core.serving_cache import ReadOnlyCacheServer
+    from repro_torch.core.table_group import TableGroup
+    from repro_torch.serving import EmbeddingServer
+
+    threads = set()
+    for name in ("gather_reduce", "gather_reduce_q", "fill", "fill_gather_reduce",
+                 "fill_gather_reduce_q"):
+        real = getattr(tgr, name)
+
+        def spy(*a, _real=real):
+            threads.add(threading.get_ident())
+            return _real(*a)
+        monkeypatch.setattr(tgr, name, spy)
+    group = TableGroup.uniform(2, 400, 16, precision="int8")
+    rng = np.random.default_rng(3)
+    reqs = {t: [group.globalize(rng.integers(0, 400, (1, 2, 3)))[0] for _ in range(20)]
+            for t in range(4)}
+
+    def run(dev):
+        srv = ReadOnlyCacheServer(HostEmbeddingTable(800, 16, seed=7), 64, window=2,
+                                  table_group=group, device=dev)
+        out = {}
+
+        def client(t):
+            futs = [fe.lookup(r) for r in reqs[t]]
+            out[t] = [f.result(timeout=60.0) for f in futs]
+
+        with EmbeddingServer(srv, max_batch=8) as fe:
+            ths = [threading.Thread(target=client, args=(t,)) for t in reqs]
+            for th in ths:
+                th.start()
+            for th in ths:
+                th.join(timeout=60.0)
+            worker = fe._thread.ident
+        return out, worker
+
+    want, _ = run("cpu")
+    assert not threads
+    tops.reset_launch_counts()
+    got, worker = run(cuda)
+    torch.cuda.synchronize()
+    assert threads == {worker}
+    assert tops.launch_counts()["gather_reduce_q"] > 0
+    for t in reqs:
+        for a, b in zip(got[t], want[t]):
+            assert np.array_equal(a, b)

@@ -25,7 +25,11 @@ from repro_torch.core import scratchpad as sp
 from repro_torch.core.dlrm_runtime import DLRMTrainer
 from repro_torch.core.host_table import HostEmbeddingTable
 from repro_torch.core.pipeline import ScratchPipe
-from repro_torch.core.serving_cache import NoCacheServer, ReadOnlyCacheServer
+from repro_torch.core.serving_cache import (
+    NoCacheServer,
+    ReadOnlyCacheServer,
+    StaticCacheServer,
+)
 from repro_torch.core.static_cache import NoCacheBaseline, StaticCacheBaseline
 from repro_torch.launch import serve, train
 
@@ -56,7 +60,10 @@ def test_every_module_listed():
               "repro_torch.core.dlrm_runtime", "repro_torch.core.static_cache",
               "repro_torch.configs.dlrm_scratchpipe", "repro_torch.data.lookahead",
               "repro_torch.core.quantize", "repro_torch.core.scratchpad",
-              "repro_torch.core.plan_device"):
+              "repro_torch.core.plan_device", "repro_torch.traces.format",
+              "repro_torch.traces.recorder", "repro_torch.traces.replay",
+              "repro_torch.traces.profiling", "repro_torch.traces.criteo",
+              "repro_torch.traces.scenarios", "repro_torch.serving.frontend"):
         assert m in mods
 
 
@@ -100,6 +107,7 @@ def test_entry_points_default_to_cuda():
     args = train.build_parser().parse_args(["--arch", "dlrm-scratchpipe"])
     assert args.device == "cuda"
     for fn in (ReadOnlyCacheServer.__init__, NoCacheServer.__init__,
+               StaticCacheServer.__init__,
                sp.make_storage, ScratchPipe.__init__, DLRMTrainer.__init__,
                NoCacheBaseline.__init__, StaticCacheBaseline.__init__):
         assert inspect.signature(fn).parameters["device"].default == "cuda"
@@ -112,6 +120,8 @@ def test_cuda_without_a_card_raises(monkeypatch):
         ReadOnlyCacheServer(host, 16)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         NoCacheServer(host)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        StaticCacheServer(host, [1, 2])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         sp.make_storage(4, 4)
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -136,6 +146,7 @@ def test_reduced_precision_without_a_card_raises(monkeypatch, precision):
     noop = lambda s, slots, b: (s, {})  # noqa: E731
     cfg = dataclasses.replace(smoke_config(), precision=precision)
     for make in (lambda: ScratchPipe(host, 16, noop, precision=precision),
+                 lambda: ReadOnlyCacheServer(host, 16, precision=precision),
                  lambda: StaticCacheBaseline(host, [1, 2], noop, precision=precision),
                  lambda: DLRMTrainer(cfg),
                  lambda: sp.make_storage(4, 4, precision=precision),
@@ -205,20 +216,17 @@ def _lm_training_message(capsys):
     return capsys.readouterr().err
 
 
-def _serving_precision_message(capsys):
-    from repro_torch.core.table_group import TableGroup
-
-    host = HostEmbeddingTable(800, 16, seed=0)
-    with pytest.raises(ValueError) as err:
-        ReadOnlyCacheServer(host, 128, device="cpu",
-                            table_group=TableGroup.uniform(2, 400, 16, precision="int8"))
-    return str(err.value)
+def _adaptive_pad_message(capsys):
+    with pytest.raises(SystemExit):
+        train.main(["--arch", "dlrm-scratchpipe", "--smoke", "--device", "cpu",
+                    "--adaptive-pad"])
+    return capsys.readouterr().err
 
 
 @pytest.mark.parametrize("message,item", [
     (_lm_training_message, 18),  # LM training
-    (_serving_precision_message, 11),  # reduced-precision serving
-], ids=["lm-training", "serving-precision"])
+    (_adaptive_pad_message, 10),  # trace-derived pad buckets
+], ids=["lm-training", "adaptive-pad"])
 def test_not_ported_messages_name_their_roadmap_item(capsys, message, item):
     """What is not ported yet says where ROADMAP.md queues it."""
     assert f"ROADMAP.md Queue 1 item {item})" in message(capsys)

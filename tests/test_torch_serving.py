@@ -150,9 +150,9 @@ def test_registry_and_read_only_factories():
     assert isinstance(srv, TServer) and srv.storage.device.type == "cpu"
     srv.flush_to_host()
     assert set(srv.traffic()) == {"host", "pcie", "hbm"} and srv.stats == []
-    with pytest.raises(ValueError, match="fp32"):
-        TServer(host, 128, device="cpu",
-                table_group=TGroup.uniform(2, 400, DIM, precision="int8"))
+    int8 = TServer(host, 128, device="cpu",
+                   table_group=TGroup.uniform(2, 400, DIM, precision="int8"))
+    assert int8.precision == "int8" and int8.num_slots == 4 * 128
 
 
 @pytest.mark.parametrize("kernel", ["xla", "pallas"])

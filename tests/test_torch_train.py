@@ -537,3 +537,144 @@ def test_launcher_rejects_what_is_not_ported():
             tlaunch.main(["--arch", "dlrm-scratchpipe", "--smoke", "--device", "cpu", *extra])
     with pytest.raises(SystemExit):
         tlaunch.main(["--arch", "llama3-8b", "--device", "cpu"])
+
+
+# ---------------------------------------------------------------------------
+# the launcher's --trace, --record-trace and --scenario
+# ---------------------------------------------------------------------------
+def _reference_launch(monkeypatch, capsys, argv):
+    """The reference launcher in-process: its printed lines, the runtime it
+    built (for StepStats and traffic) and its trainer's initial MLPs."""
+    from repro.core import runtime as jruntime
+    from repro.launch import train as jlaunch
+
+    seen = {}
+    real = jruntime.make_runtime
+
+    def spy(name, host_table, train_fn, **kw):
+        seen["mlps"] = _mlps_np(train_fn.__self__.mlps)
+        seen["pipe"] = real(name, host_table, train_fn, **kw)
+        return seen["pipe"]
+
+    monkeypatch.setattr(jruntime, "make_runtime", spy)
+    monkeypatch.setattr(sys, "argv", ["train", "--arch", "dlrm-scratchpipe", "--smoke",
+                                      *argv])
+    capsys.readouterr()
+    jlaunch.main()
+    monkeypatch.setattr(jruntime, "make_runtime", real)
+    return capsys.readouterr().out.splitlines(), seen["pipe"], seen["mlps"]
+
+
+@pytest.fixture(scope="module")
+def recorded_traces(tmp_path_factory):
+    """10 smoke steps recorded while training, once by each launcher."""
+    out = {}
+    for pkg in ("ref", "port"):
+        path = str(tmp_path_factory.mktemp("traces") / pkg)
+        module = "repro.launch.train" if pkg == "ref" else "repro_torch.launch.train"
+        extra = ["--record-trace", path] + (["--device", "cpu"] if pkg == "port" else [])
+        lines = _launch(module, extra)
+        assert f"recorded trace -> {path}" in lines
+        out[pkg] = path
+    return out
+
+
+def test_record_trace_launchers_write_identical_bytes(recorded_traces):
+    import filecmp
+
+    a, b = recorded_traces["ref"], recorded_traces["port"]
+    assert sorted(os.listdir(a)) == sorted(os.listdir(b))
+    for name in os.listdir(a):
+        assert filecmp.cmp(os.path.join(a, name), os.path.join(b, name), shallow=False)
+
+
+@pytest.mark.parametrize("extra,rtol", [
+    (["--runtime", "scratchpipe"], LOSS_RTOL),
+    (["--runtime", "scratchpipe", "--fused", "--planner", "device",
+      "--executor", "overlapped"], LOSS_RTOL),
+    (["--runtime", "static"], LOSS_RTOL),
+    (["--runtime", "nocache"], LOSS_RTOL),
+    (["--precision", "int8", "--rounding", "nearest"], 1e-4),
+    (["--scenario", "drift"], LOSS_RTOL),
+], ids=["scratchpipe", "device-overlapped-fused", "static", "nocache", "int8-nearest",
+        "scenario-drift"])
+def test_trace_launcher_matches_reference(recorded_traces, monkeypatch, capsys, extra,
+                                          rtol):
+    """Replaying the reference's recorded trace (or drawing a scenario):
+    the port's launcher gives the reference's StepStats and traffic, the
+    same runtime=/done:/traffic: figures, and losses within the MLP tier
+    from the reference's MLP init."""
+    src = [] if "--scenario" in extra else ["--trace", recorded_traces["ref"]]
+    argv = ["--steps", "10", *src, *extra]
+    ref_lines, j_pipe, mlps = _reference_launch(monkeypatch, capsys, argv)
+    args = tlaunch.build_parser().parse_args(
+        ["--arch", "dlrm-scratchpipe", "--smoke", *argv, "--device", "cpu"])
+    res = tlaunch.train_dlrm(args, mlps=convert.mlps_from_reference(mlps))
+    port_lines = capsys.readouterr().out.splitlines()
+    if hasattr(res["pipe"], "close"):
+        res["pipe"].close()
+    assert _fields(port_lines)[:3] == _fields(ref_lines)[:3]
+    want_src = "scenario:drift" if src == [] else f"trace:{recorded_traces['ref']}"
+    assert f"source={want_src}" in _fields(port_lines)[0]
+    assert len(res["stats"]) == 10
+    assert _plain_stats(res["stats"]) == _plain_stats(j_pipe.stats)
+    for tier, t in res["pipe"].traffic().items():
+        assert dataclasses.asdict(t) == dataclasses.asdict(j_pipe.traffic()[tier]), tier
+    np.testing.assert_allclose(res["losses"], _losses(j_pipe.stats), rtol=rtol)
+
+
+@pytest.mark.parametrize("extra", [
+    [],
+    ["--fused", "--planner", "device", "--executor", "overlapped"],
+    ["--runtime", "strawman"],
+    ["--precision", "int8", "--fused"],
+], ids=["scratchpipe", "device-overlapped-fused", "strawman", "int8-fused"])
+def test_trace_replay_equals_generator_run(tmp_path, extra):
+    """A trace recorded from the synthetic generator while training, then
+    replayed: the losses and the flushed host table bitwise equal to the
+    generator-driven run's (int8's stochastic rounding is seeded per step,
+    so it replays too)."""
+    path = str(tmp_path / "t")
+    runs = []
+    for src in (["--record-trace", path], ["--trace", path]):
+        args = tlaunch.build_parser().parse_args(
+            ["--arch", "dlrm-scratchpipe", "--smoke", "--steps", "12", "--device", "cpu",
+             *src, *extra])
+        res = tlaunch.train_dlrm(args)
+        res["pipe"].flush_to_host()
+        if hasattr(res["pipe"], "close"):
+            res["pipe"].close()
+        runs.append((np.array(res["losses"]), res["host"].data.copy(), res["stats"]))
+    (l0, t0, s0), (l1, t1, s1) = runs
+    assert len(l0) == len(l1) == 12 and np.isfinite(l0).all()
+    np.testing.assert_array_equal(l0, l1)
+    np.testing.assert_array_equal(t0, t1)
+    assert _plain_stats(s0) == _plain_stats(s1)
+
+
+def test_trace_launcher_refuses(tmp_path, capsys):
+    from repro_torch.core.table_group import TableGroup, TableSpec
+    from repro_torch.traces import record_serving_trace, record_trace, scenario_batches
+
+    def run(*extra):
+        return tlaunch.main(["--arch", "dlrm-scratchpipe", "--smoke", "--steps", "3",
+                             "--device", "cpu", *extra])
+
+    with pytest.raises(SystemExit):
+        run("--trace", str(tmp_path / "none"))
+    assert "not a recorded trace directory" in capsys.readouterr().err
+    uniform = TableGroup.uniform(2, 64, 8)
+    serving = str(tmp_path / "serving")
+    record_serving_trace(serving, uniform, scenario_batches(
+        "inference_mix", uniform, 3, batch_size=4, lookups_per_table=2, seed=0))
+    with pytest.raises(SystemExit, match="no dense features"):
+        run("--trace", serving)
+    with pytest.raises(SystemExit):
+        run("--trace", serving, "--scenario", "drift")
+    assert "mutually exclusive" in capsys.readouterr().err
+    hetero = TableGroup([TableSpec("a", 64, 8), TableSpec("b", 32, 8)])
+    path = str(tmp_path / "hetero")
+    record_trace(path, hetero, scenario_batches(
+        "drift", hetero, 3, batch_size=4, lookups_per_table=2, seed=0))
+    with pytest.raises(NotImplementedError, match=r"ROADMAP.md Queue 1 item 9\)$"):
+        run("--trace", path)
