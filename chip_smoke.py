@@ -169,8 +169,39 @@ Phases, in order; any failure raises and the script exits non-zero:
                table (its SHA-256) bitwise equal to phase 6's, every launch on
                the main thread (the replay's prefetch thread launches
                nothing); ms/step beside phase 6's.
+ 15. multi-table train — ``train_dlrm --tables 8``: ``multi_table_config(8)``,
+               the paper's DLRM at full width with heterogeneous tables, cut
+               like every DLRM phase (base_rows 10M -> 1M: 8M, 4M, ... 62.5k
+               rows, 15,937,500 in all, 8.16 GB of fp32), 24 steps, seed 0,
+               the launcher's per-table budgets (1,662,060 slots: the §VI-D
+               floor of 6 x 2048 x 20 rows for each of the six large
+               tables, the two small ones whole), from copies of one host
+               table: host/sync split, fused, ``nocache``, device+overlapped
+               fused and fp16 device+overlapped fused. The fp32 runs' losses
+               and flushed tables bitwise equal, the four largest tables
+               evict (victims tallied per table), ``by_table`` hits + misses
+               = ``n_unique`` every step, fp16 within 1e-2 of fp32, launch
+               counts as designed, the plain versions raising, every launch
+               on the main thread. Then the same batches recorded as a trace
+               (tables of different rows) and replayed with ``--trace
+               --adaptive-pad`` device+overlapped fused: its bucket set
+               printed, losses and table bitwise equal to the runs above.
+ 16. sharded — ``make_runtime("sharded")`` (one ``ScratchPipe`` per table)
+               over phase 15's group, ids and budgets with the counting
+               [Train] of the reference's tests (+1.0 per unique touched
+               slot, plain torch), host/sync and device+overlapped, from a
+               zeroed table; then a single-manager ``ScratchPipe(table_group=,
+               slot_budgets=)`` with the same [Train]: each flushed table
+               equal to the exact count of each row's batches, one ``fill``
+               per shard per cycle with misses and no other launch. Then the
+               tables at int8, fp16 and fp32 in turn, on a copy of phase
+               15's host table, with a [Train] that changes nothing: every
+               loaded row equal to the numpy quantize-then-dequantize of its
+               master, the rest unchanged; ``fill_i8``, ``fill_f16`` and
+               ``fill`` each launched once per shard of its form per cycle
+               with misses.
 
-The traces go to a temporary directory removed at exit. The sweep of
+The traces go to temporary directories removed at exit. The sweep of
 phase 3 covers the fp16 and int8 forms too, and for them also D in {256,
 1024} (rows of several warp loads), L in {33, 64} (more than one 32-lookup
 group), a payload 4 but not 16 bytes aligned, fused calls whose
@@ -819,15 +850,20 @@ LAUNCHERS = {"gr": ("gather_reduce", "gather_reduce_q", "fill", "fill_gather_red
 def run_guards(mods, fast: bool, captured=None):
     """Wrap every kernel wrapper so that a launch off the main thread is
     recorded (and raises where it happens); under ``fast`` make the numpy
-    ``Planner.plan`` raise, and capture ``plan_step``'s operands at the
-    middle step into ``captured`` (when given); time the main thread's
-    waits on worker futures. Returns (report, restore): report() -> (the
-    off-main-thread launches, the main thread's seconds in Future.result)."""
+    ``Planner.plan`` raise, save while ``derive_pad_buckets`` (the
+    ``--adaptive-pad`` profiling pass) runs, and capture ``plan_step``'s
+    operands at the middle step into ``captured`` (when given); time the
+    main thread's waits on worker futures. Returns (report, restore):
+    report() -> (the off-main-thread launches, the main thread's seconds in
+    Future.result); ``report.profiling`` counts the profiling passes
+    (``calls``), the numpy plans they made (``plans``) and the passes that
+    started after a ``ScratchPipe`` was built (``late``)."""
     import concurrent.futures
     import threading
 
     off_main, waited = [], [0.0]
     saved = []
+    profiling = {"calls": 0, "plans": 0, "late": 0}
 
     def patch(obj, name, fn):
         saved.append((obj, name, getattr(obj, name)))
@@ -857,9 +893,39 @@ def run_guards(mods, fast: bool, captured=None):
 
     patch(concurrent.futures.Future, "result", timed_result)
     if fast:
-        def no_host_plan(*_a, **_k):
+        import repro_torch.traces as traces
+        import repro_torch.traces.profiling as profiling_mod
+
+        real_plan = mods["plan"].Planner.plan
+        real_derive = profiling_mod.derive_pad_buckets
+        real_init = mods["pipeline"].ScratchPipe.__init__
+        state = {"profiling": False, "built": False}
+
+        def derive(*a, **k):
+            # --adaptive-pad's offline profiling pass replays the trace
+            # through a numpy planner of its own before the run: only it
+            # may plan on the host
+            profiling["calls"] += 1
+            profiling["late"] += state["built"]
+            state["profiling"] = True
+            try:
+                return real_derive(*a, **k)
+            finally:
+                state["profiling"] = False
+
+        def init(self, *a, **k):
+            state["built"] = True
+            return real_init(self, *a, **k)
+
+        def no_host_plan(self, *a, **k):
+            if state["profiling"]:
+                profiling["plans"] += 1
+                return real_plan(self, *a, **k)
             raise RuntimeError("the numpy Planner.plan ran on a device-planner path")
 
+        patch(traces, "derive_pad_buckets", derive)
+        patch(profiling_mod, "derive_pad_buckets", derive)
+        patch(mods["pipeline"].ScratchPipe, "__init__", init)
         patch(mods["plan"].Planner, "plan", no_host_plan)
         pd, calls = mods["plan_device"], [0]
         real_step = pd.plan_step
@@ -875,7 +941,12 @@ def run_guards(mods, fast: bool, captured=None):
     def restore():
         for obj, name, fn in reversed(saved):
             setattr(obj, name, fn)
-    return (lambda: (list(off_main), waited[0])), restore
+
+    def report():
+        return list(off_main), waited[0]
+
+    report.profiling = profiling
+    return report, restore
 
 
 def train_summary(name, fast, ms, res, stages, report):
@@ -1241,7 +1312,8 @@ def clone_args(torch, args):
     return tuple(c(a) for a in args)
 
 
-def train_run_q(torch, mods, cfg, base_table, name, precision, fused, fast, captured):
+def train_run_q(torch, mods, cfg, base_table, name, precision, fused, fast, captured,
+                extra_argv=()):
     """One reduced-precision run through ``train_dlrm`` (``--precision``,
     stochastic rounding) from a copy of ``base_table``; the plain versions
     raise during it, and every kernel launch must come from the main thread.
@@ -1273,7 +1345,8 @@ def train_run_q(torch, mods, cfg, base_table, name, precision, fused, fast, capt
             str(BATCH), "--seed", "0", "--runtime", "scratchpipe", "--device", DEVICE,
             "--precision", precision]
     args = mods["train"].build_parser().parse_args(
-        argv + (["--fused"] if fused else []) + (FAST_ARGV if fast else []))
+        argv + (["--fused"] if fused else []) + (FAST_ARGV if fast else [])
+        + list(extra_argv))
     host = mods["HostEmbeddingTable"](base_table.shape[0], base_table.shape[1],
                                       data=base_table.copy())
     for m, n in targets:
@@ -2430,6 +2503,361 @@ def trace_train_phase(torch, mods, tmp: str, base, losses6, digest6, ms6):
         f"{ms:.2f} ms/step against phase 6's {ms6:.2f} ({time.perf_counter() - t0:.1f}s)")
     return summary, {name: counts}
 
+
+# --------------------------------------------------------------------------- #
+# 15. multi-table train: the heterogeneous 8-table DLRM, per-table budgets
+# --------------------------------------------------------------------------- #
+#: (name, runtime, fused, fast, precision) of phase 15's runs
+MT_RUNS = (("multi-table split", "scratchpipe", False, False, "fp32"),
+           ("multi-table fused", "scratchpipe", True, False, "fp32"),
+           ("multi-table nocache", "nocache", False, False, "fp32"),
+           ("multi-table device+overlapped fused", "scratchpipe", True, True, "fp32"),
+           ("multi-table fp16 device+overlapped fused", "scratchpipe", True, True, "fp16"))
+#: the tables that must evict at fp32 (8M, 4M, 2M and 1M rows)
+MT_EVICTING = 4
+
+
+def multi_table_setup(mods):
+    """Phase 15's configuration: ``multi_table_config(8)`` at full width with
+    the one cut of every DLRM phase (base_rows 10M -> 1M); its group, the
+    launcher's slot count and per-table budgets (the §VI-D floor of 6 x 2048
+    x 20 lookups per table), and the 24 batches of ``dlrm_batches_group``."""
+    from repro_torch.configs.dlrm_scratchpipe import multi_table_config
+    from repro_torch.core.table_group import TableGroup
+    from repro_torch.data.synthetic import dlrm_batches_group
+
+    cfg = multi_table_config(TABLES, base_rows=ROWS)
+    group = TableGroup.from_config(cfg)
+    check(group.rows == (8_000_000, 4_000_000, 2_000_000, 1_000_000, 500_000, 250_000,
+                         125_000, 62_500)
+          and (cfg.embed_dim, cfg.lookups_per_table, cfg.batch_size) == (DIM, LOOKUPS, BATCH)
+          and cfg.bottom_mlp == (512, 256, 128)
+          and cfg.top_mlp == (1024, 1024, 512, 256, 1),
+          "the multi-table config is not the paper's DLRM at full width")
+    floor = group.window_floor(BATCH * LOOKUPS)
+    slots = max(2048, int(group.total_rows * cfg.cache_fraction),
+                sum(min(floor, r) for r in group.rows))
+    budgets = group.precision_slot_budgets(slots, min_per_table=floor)
+    check(slots == 1_662_060 and budgets == [floor] * 6 + [125_000, 62_500],
+          f"the launcher's slot math moved: {slots} {budgets}")
+    batches = [ids for ids, _ in dlrm_batches_group(
+        group, TRAIN_STEPS, batch_size=BATCH, lookups_per_table=LOOKUPS,
+        locality="medium", seed=0)]
+    return cfg, group, slots, budgets, batches
+
+
+def evictions_by_table(pipeline):
+    """Keep each cycle's victim slots (a spy on ``ScratchPipe._stage_collect``
+    that only holds a reference, so no work of its own lands in the timed
+    stages). Returns (tally, restore): tally(), after the run, counts the
+    victims by the table whose slot range holds them."""
+    import numpy as np
+
+    cls, kept = pipeline.ScratchPipe, []
+    real = cls._stage_collect
+
+    def spy(self, entry):
+        out = real(self, entry)
+        kept.append((self.planner.slot_ranges, entry.plan.evict_slots))
+        return out
+
+    def tally():
+        out = {}
+        for ranges, ev in kept:
+            if ev.size:
+                bounds = [hi for _, hi in ranges]
+                per = np.bincount(np.searchsorted(bounds, ev, side="right"),
+                                  minlength=len(bounds))
+                for t, n in enumerate(per.tolist()):
+                    out[t] = out.get(t, 0) + n
+        return out
+
+    cls._stage_collect = spy
+
+    def restore():
+        cls._stage_collect = real
+    return tally, restore
+
+
+def multi_table_phase(torch, mods, tmp: str, dev):
+    """Phase 15: ``train_dlrm --tables 8`` through host/sync split and fused,
+    ``nocache``, device+overlapped fused and fp16 device+overlapped fused,
+    each from a copy of one host table; then the same batches recorded as a
+    trace and replayed with ``--trace --adaptive-pad``. Returns (summaries,
+    {run: launch counts}, the setup, the host table, run 1's losses)."""
+    from repro_torch.data.synthetic import dlrm_batches_group
+    from repro_torch.traces import record_trace
+
+    cfg, group, slots, budgets, batches = multi_table_setup(mods)
+    t0 = time.perf_counter()
+    base = mods["HostEmbeddingTable"](group.total_rows, DIM, seed=0).data
+    log(f"multi-table: host table {base.shape} fp32 ({base.nbytes / 1e9:.2f} GB) built in "
+        f"{time.perf_counter() - t0:.1f}s; {slots:,} slots, budgets {budgets}")
+    summaries, counts_by_run = [], {}
+    first_losses = first_table = fast_losses = None
+
+    def one_run(name, runtime, fused, fast, precision, extra):
+        tally, untally = evictions_by_table(mods["pipeline"])
+        try:
+            if precision == "fp32":
+                out = train_run(torch, mods, cfg, base, name, runtime, fused, fast, {},
+                                extra_argv=extra)
+            else:
+                out = train_run_q(torch, mods, cfg, base, name, precision, fused, fast, {},
+                                  extra_argv=extra)
+        finally:
+            untally()
+        return out, tally()
+
+    runs = [(r, ["--tables", str(TABLES)]) for r in MT_RUNS]
+    path = os.path.join(tmp, "multi_table")
+    runs.append((("multi-table --trace --adaptive-pad device+overlapped fused", "scratchpipe",
+                  True, True, "fp32"), ["--trace", path, "--adaptive-pad"]))
+    for (name, runtime, fused, fast, precision), extra in runs:
+        t0 = time.perf_counter()
+        if "--trace" in extra:  # the same batches, payloads included
+            n = record_trace(path, group, dlrm_batches_group(
+                group, TRAIN_STEPS, batch_size=BATCH, lookups_per_table=LOOKUPS,
+                locality="medium", seed=0), provenance={
+                    "generator": "synthetic", "locality": "medium", "seed": 0})
+            check(n == TRAIN_STEPS, f"recorded {n} batches, not {TRAIN_STEPS}")
+        (res, counts, stages, ms, report), tally = one_run(name, runtime, fused, fast,
+                                                           precision, extra)
+        stats, pipe = res["stats"], res["pipe"]
+        check(pipe.device.type == dev.type, f"{name}: the runtime is not on the card")
+        if runtime == "scratchpipe":
+            mult = Q_MULT.get(precision, 1)
+            check(pipe.table_group is not None and pipe.num_slots == slots * mult
+                  and pipe.planner.slot_ranges == group.slot_ranges(
+                      [b * mult for b in budgets]),
+                  f"{name}: not the launcher's per-table budgets")
+            for st in stats:
+                bt = st.by_table
+                check(bt is not None and sum(int(x) for x in bt["hits"])
+                      + sum(int(x) for x in bt["misses"]) == st.n_unique,
+                      f"{name}: by_table hits + misses != n_unique at step {st.step}")
+        if fast:
+            check(isinstance(pipe.planner, mods["plan_device"].DevicePlanner)
+                  and pipe.executor == "overlapped",
+                  f"{name}: not the device planner with the overlapped executor")
+            # the numpy planner ran only inside --adaptive-pad's profiling
+            # pass, once per profiled batch, before the runtime was built
+            prof = report.profiling
+            want = ({"calls": 1, "plans": min(TRAIN_STEPS, 512), "late": 0}
+                    if "--adaptive-pad" in extra else {"calls": 0, "plans": 0, "late": 0})
+            check(prof == want, f"{name}: the profiling pass ran as {prof}, not {want}")
+        if precision == "fp32":
+            check_train_counts(name, runtime, fused, stats, counts, stages)
+        else:
+            check_q_counts(name, precision, fused, stats, counts, stages)
+        losses = torch.stack([st.aux["loss"] for st in stats]).cpu()
+        check(bool(torch.isfinite(losses).all()), f"{name}: non-finite loss")
+        pipe.flush_to_host()
+        if runtime == "scratchpipe":
+            pipe.close()
+        table = res["host"].data
+        extra_fields = {}
+        if precision != "fp32":
+            rel = ((losses - first_losses).abs() / first_losses.abs()).max().item()
+            check(rel <= Q_LOSS_RTOL[precision],
+                  f"{name}: loss {rel:.3g} relative from fp32 > {Q_LOSS_RTOL[precision]}")
+            extra_fields["max_rel_loss_vs_fp32"] = rel
+        elif first_losses is None:
+            first_losses, first_table = losses, table
+            evicting = [tally.get(t, 0) for t in range(MT_EVICTING)]
+            check(min(evicting) > 0, f"{name}: the large tables evicted {evicting}")
+        else:
+            want = fast_losses if "--trace" in extra else first_losses
+            check(torch.equal(losses, want),
+                  f"{name}: losses differ at steps "
+                  f"{torch.nonzero(losses != want).flatten().tolist()}")
+            check((first_table == table).all(),
+                  f"{name}: flushed host table differs from {MT_RUNS[0][0]}")
+            if fast:
+                fast_losses = losses
+        if "--trace" in extra:
+            check(bool(pipe.pad_buckets), f"{name}: no adaptive pad buckets")
+            extra_fields["pad_buckets"] = list(pipe.pad_buckets)
+        tr = pipe.traffic()
+        summaries.append({
+            **train_summary(name, fast, ms, res, stages, report),
+            "precision": precision, "loss_first": float(losses[0]),
+            "loss_last": float(losses[-1]),
+            "evicted_by_table": [tally.get(t, 0) for t in range(group.num_tables)],
+            "evicted_rows": sum(st.n_evict for st in stats) if runtime == "scratchpipe" else 0,
+            "traffic_MB": {k: tr[k].total / 1e6 for k in ("host", "pcie", "hbm")},
+            "launches": counts, **extra_fields,
+        })
+        print("train: " + json.dumps(summaries[-1]), flush=True)
+        counts_by_run[name] = counts
+        log(f"multi-table: {name} done ({time.perf_counter() - t0:.1f}s)")
+        del res, pipe, table
+    log("multi-table: the fp32 runs' losses and flushed host tables bitwise equal (the "
+        "--adaptive-pad replay to device+overlapped fused), the large tables evict, fp16 "
+        f"within {Q_LOSS_RTOL['fp16']:g}; every kernel launched on the main thread")
+    del first_table
+    return summaries, counts_by_run, (cfg, group, slots, budgets, batches), base
+
+
+# --------------------------------------------------------------------------- #
+# 16. sharded: one ScratchPipe manager per table (paper §VI-G)
+# --------------------------------------------------------------------------- #
+MIXED = ("int8", "fp16", "fp32")  # table t's replica precision: MIXED[t % 3]
+
+
+def count_rows_train(torch):
+    """The reference tests' counting [Train] (plain torch on the card, test
+    scaffolding, not a kernel port): +1.0 on each unique touched slot. Returns
+    (the sharded form, the single-manager form)."""
+    def bump(storage, slots):
+        s = slots if isinstance(slots, torch.Tensor) else torch.from_numpy(slots)
+        s = s.to(storage.device).reshape(-1).long()
+        if s.numel():
+            storage[torch.unique(s)] += 1.0
+
+    def sharded(storages, slots_all, batch):
+        for storage, slots in zip(storages, slots_all):
+            bump(storage, slots)
+        return storages, None
+
+    def single(storage, slots, batch):
+        bump(storage, slots)
+        return storage, None
+
+    return sharded, single
+
+
+def sharded_run(torch, mods, name, host, train_fn, batches, fast=False, single=False,
+                **kw):
+    """One ``sharded`` run (``single``: a single-manager ``scratchpipe``; with
+    ``fast`` on the device planner and the overlapped executor) over
+    ``batches``, the plain versions raising and every launch held to the
+    main thread. Returns (runtime, launch counts, seconds)."""
+    from repro_torch.core.runtime import make_runtime
+    from repro_torch.data.lookahead import LookaheadStream
+
+    ops = mods["ops"]
+    report, unguard = run_guards(mods, fast)
+    restore_plain = plain_versions_raise(mods["ref"])
+    t0 = time.perf_counter()
+    try:
+        ops.reset_launch_counts()
+        rt = make_runtime("scratchpipe" if single else "sharded", host, train_fn,
+                          device=DEVICE, planner="device" if fast else "host",
+                          executor="overlapped" if fast else "sync", **kw)
+        stream = LookaheadStream(iter([(ids, {}) for ids in batches]))
+        stats = rt.run(stream, lookahead_fn=stream.peek_ids)
+        rt.flush_to_host()
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        rt.close()
+    finally:
+        restore_plain()
+        unguard()
+    off_main, _ = report()
+    check(not off_main, f"{name}: kernel launches off the main thread: {off_main[:5]}")
+    check(len(stats) == TRAIN_STEPS, f"{name}: {len(stats)} steps")
+    return rt, counts, time.perf_counter() - t0
+
+
+def fills_by_form(rt):
+    """Per fill form, the cycles with misses summed over the run's managers."""
+    form = {"fp32": "fill", "fp16": "fill_f16", "int8": "fill_i8"}
+    out = {}
+    for p in getattr(rt, "pipes", [rt]):
+        k = form[p.precision]
+        out[k] = out.get(k, 0) + sum(1 for st in p.stats if st.n_miss > 0)
+    return out
+
+
+def sharded_phase(torch, mods, setup, base):
+    """Phase 16: ``make_runtime("sharded")`` over phase 15's group, budgets and
+    ids. fp32 with the counting [Train], host/sync and device+overlapped,
+    from a zeroed table: the flushed table equals the exact count of each
+    row's batches, as does a single-manager ``ScratchPipe(table_group=,
+    slot_budgets=)`` run; ``fill`` once per shard per cycle with misses, no
+    other kernel. Then the group at int8/fp16/fp32 in turn on a copy of
+    ``base`` with a [Train] that changes nothing: each loaded row comes back
+    as the numpy quantize-then-dequantize of its master, the others as they
+    were; ``fill_i8``, ``fill_f16`` and ``fill`` each launched. Returns
+    (summary, {run: launch counts})."""
+    import numpy as np
+
+    from repro_torch.core.table_group import TableGroup, TableSpec
+
+    cfg, group, slots, budgets, batches = setup
+    qz = mods["qz"]
+    t0 = time.perf_counter()
+    counts_want = np.zeros(group.total_rows, np.float32)
+    for ids in batches:
+        counts_want[np.unique(ids)] += 1.0
+    log(f"sharded: exact counts of {int((counts_want > 0).sum()):,} rows "
+        f"({time.perf_counter() - t0:.1f}s)")
+    sharded_train, single_train = count_rows_train(torch)
+    summary, counts_by_run = {}, {}
+    for name, fast, single in (("sharded host/sync", False, False),
+                               ("sharded device+overlapped", True, False),
+                               ("single manager host/sync", False, True)):
+        host = mods["HostEmbeddingTable"](group.total_rows, DIM,
+                                          data=np.zeros((group.total_rows, DIM), np.float32))
+        rt, counts, secs = sharded_run(torch, mods, name, host,
+                                       single_train if single else sharded_train, batches,
+                                       fast, single, num_slots=slots, table_group=group,
+                                       slot_budgets=budgets)
+        check(bool((host.data == counts_want[:, None]).all()),
+              f"{name}: the flushed table is not the exact row counts")
+        want = fills_by_form(rt)
+        check(counts["fill"] == want["fill"] > 0
+              and sum(counts.values()) == counts["fill"],
+              f"{name}: launches {counts}, cycles with misses {want}")
+        if not single:
+            check(rt.num_shards == group.num_tables
+                  and [p.num_slots for p in rt.pipes] == budgets,
+                  f"{name}: not one manager per table with the launcher's budgets")
+        evicted = sum(st.n_evict for p in getattr(rt, "pipes", [rt]) for st in p.stats)
+        summary[name] = {"s": secs, "launches": {k: v for k, v in counts.items() if v},
+                         "evicted_rows": evicted}
+        counts_by_run[name] = counts
+        log(f"sharded: {name} equals the exact counts; {counts['fill']} fills, "
+            f"{evicted:,} rows evicted ({secs:.1f}s)")
+        del host, rt
+    mixed = TableGroup([TableSpec(t.name, t.rows, t.dim, precision=MIXED[i % 3])
+                        for i, t in enumerate(group.tables)])
+    host = mods["HostEmbeddingTable"](group.total_rows, DIM, data=base.copy())
+    name = "sharded mixed int8/fp16/fp32"
+    rt, counts, secs = sharded_run(torch, mods, name, host, lambda s, sl, b: (s, None),
+                                   batches, fast=True, num_slots=slots, table_group=mixed,
+                                   slot_budgets=budgets)
+    check(rt.precisions == tuple(MIXED[i % 3] for i in range(group.num_tables))
+          and [p.num_slots for p in rt.pipes]
+          == [b * Q_MULT.get(p, 1) for b, p in zip(budgets, rt.precisions)],
+          f"{name}: the managers' forms or budgets are off")
+    want = fills_by_form(rt)
+    check(all(counts[k] == v > 0 for k, v in want.items()) and len(want) == 3
+          and sum(counts.values()) == sum(want.values()),
+          f"{name}: launches {counts}, cycles with misses {want}")
+    loaded = counts_want > 0
+    for t, prec in enumerate(rt.precisions):
+        sl = group.row_slice(t)
+        got, master, hit = host.data[sl], base[sl], loaded[sl]
+        oracle = qz.dequantize_rows_np(qz.quantize_rows_np(master[hit], prec), prec)
+        check(np.array_equal(got[hit], oracle),
+              f"{name}: table {t} ({prec}): loaded rows are not the quantize/dequantize "
+              "of their masters")
+        check(np.array_equal(got[~hit], master[~hit]),
+              f"{name}: table {t} ({prec}): rows never loaded changed")
+    evicted = [sum(st.n_evict for st in p.stats) for p in rt.pipes]
+    summary[name] = {"s": secs, "launches": {k: v for k, v in counts.items() if v},
+                     "evicted_by_table": evicted,
+                     "precisions": list(rt.precisions)}
+    counts_by_run[name] = counts
+    log(f"sharded: {name}: every loaded row its quantize/dequantize, the rest unchanged; "
+        f"fills {want}, evicted {evicted} ({secs:.1f}s)")
+    del host, rt
+    print("sharded: " + json.dumps(summary), flush=True)
+    return summary, counts_by_run
+
+
 def main() -> int:
     import torch
 
@@ -2628,9 +3056,21 @@ def main() -> int:
                    if r["run"] == "scratchpipe device+overlapped fused")
         _, tt_counts = trace_train_phase(torch, mods, tmp, base, fp32_losses, fp32_digest,
                                          ms6)
-    del base
+    del base  # phases 6-8's host table: phase 15 builds one twice its size
+    torch.cuda.empty_cache()
 
-    by_run = {"serve": counts, **train_counts, **q_counts, **ts_counts, **tt_counts}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_traces_") as tmp:
+        t0 = time.perf_counter()
+        _, mt_counts, mt_setup, mt_base = multi_table_phase(torch, mods, tmp, dev)
+        log(f"multi-table: {len(mt_counts)} runs done ({time.perf_counter() - t0:.1f}s)")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    _, sh_counts = sharded_phase(torch, mods, mt_setup, mt_base)
+    log(f"sharded: {len(sh_counts)} runs done ({time.perf_counter() - t0:.1f}s)")
+    del mt_base, mt_setup
+
+    by_run = {"serve": counts, **train_counts, **q_counts, **ts_counts, **tt_counts,
+              **mt_counts, **sh_counts}
     gather, fill = kernels
     for k in (gather, fill):
         k["launches_by_run"] = {run: c[k["name"]] for run, c in by_run.items()}

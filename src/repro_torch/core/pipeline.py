@@ -25,12 +25,25 @@ cycle updates the scratchpad), [Exchange] moves the fetched rows host ->
 device and the victims device -> host, [Insert] fills with the port's
 ``fill`` kernel, or — with ``fused_train_fn`` — inside the [Train] launch
 (``fill_gather_reduce``). Empty operands launch nothing, and
-variable-length index operands are padded to the reference's default pow-2
-buckets so the kernels see the reference's operands, drop sentinels
-included. The reference's ``policy``, ``pad_buckets``, ``memoize_plan`` and
-``record_stage_times`` options are not carried over: no caller of the port
-sets them (LRU, pow-2 buckets and the memoized planner are the defaults
-kept).
+variable-length index operands are padded to the reference's buckets —
+pow-2 by default, or the set ``pad_buckets=`` gives (a trace-derived set,
+``traces/profiling.py: derive_pad_buckets``, ``launch/train.py
+--adaptive-pad``) — so the kernels see the reference's operands, drop
+sentinels included; the padding changes operand lengths, never results.
+The reference's ``policy``, ``memoize_plan`` and ``record_stage_times``
+options are not carried over: no caller of the port sets them (LRU and the
+memoized planner are the defaults kept).
+
+Multi-table (``table_group=``, paper §VI-D): the tables of a
+:class:`~repro_torch.core.table_group.TableGroup` share one scratchpad
+whose slots are split into per-table ranges (``slot_budgets=``, default
+``table_group.precision_slot_budgets(num_slots)``), so one table's burst
+never evicts another's held rows; both planners take the row offsets and
+slot ranges, and ``StepStats.by_table`` carries each table's hits and
+misses. One storage holds one replica precision: the group's must be
+uniform (mixed per-table precisions need
+:class:`~repro_torch.core.sharded_pipeline.ShardedScratchPipe`, one
+manager and storage per table).
 
 Executors:
 
@@ -73,15 +86,15 @@ The runtime keeps the reference's per-tier byte counters ([Collect]/
 the reference's on the same stream.
 
 Not ported yet (each raises NotImplementedError with a pointer to
-ROADMAP.md): ``table_group``/``slot_budgets`` (item 9), ``supervise`` and
-``state_arrays`` (item 12), ``tracer``/``metrics`` (item 12).
+ROADMAP.md): ``supervise`` and ``state_arrays`` (item 12),
+``tracer``/``metrics`` (item 12).
 """
 from __future__ import annotations
 
 import collections
 import dataclasses
 from concurrent.futures import Future, ThreadPoolExecutor
-from typing import Any, Callable, Deque, Dict, Iterator, List, Optional, Tuple
+from typing import Any, Callable, Deque, Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -184,6 +197,7 @@ class ScratchPipe:
         executor: str = "sync",
         fused_train_fn: Optional[Callable] = None,
         planner: str = "host",
+        pad_buckets: Optional[Sequence[int]] = None,
         tracer=None,
         metrics=None,
         supervise=None,
@@ -193,25 +207,47 @@ class ScratchPipe:
             raise ValueError(f"unknown executor {executor!r}")
         if planner not in ("host", "device"):
             raise ValueError(f"unknown planner placement {planner!r}")
-        if table_group is not None or slot_budgets is not None:
-            raise _not_ported("table_group/slot_budgets", "item 9")
         if supervise is not None:
             raise _not_ported("supervise", "item 12")
         if tracer is not None or metrics is not None:
             raise _not_ported("tracer/metrics", "item 12")
         self.device = resolve_device(device)
-        self.precision = qz.check_precision(precision or "fp32")
+        # an explicit precision= must agree with the group's (uniform) one:
+        # one storage holds one replica format
+        group_prec = table_group.uniform_precision() if table_group is not None else None
+        if precision is None:
+            precision = group_prec or "fp32"
+        elif group_prec is not None and precision != group_prec:
+            raise ValueError(
+                f"precision={precision!r} conflicts with the table group's "
+                f"uniform precision {group_prec!r}"
+            )
+        self.precision = qz.check_precision(precision)
         eff_slots = num_slots * qz.SLOT_MULTIPLIER[self.precision]
         self.host = host_table
         self.train_fn = train_fn
         self.fused_train_fn = fused_train_fn
         self.pipelined = pipelined
+        self.pad_buckets = tuple(sorted(pad_buckets)) if pad_buckets else None
+        self.table_group = table_group
         if not pipelined:  # straw-man (§IV-B): depth-1, no hazards possible
             past_window, future_window = 0, 0
         windows = dict(past_window=past_window, future_window=future_window)
+        if table_group is not None:
+            if table_group.total_rows != host_table.rows:
+                raise ValueError(
+                    f"table_group covers {table_group.total_rows} rows, "
+                    f"host table has {host_table.rows}"
+                )
+            budgets = (list(slot_budgets) if slot_budgets is not None
+                       else table_group.precision_slot_budgets(num_slots))
+            if sum(budgets) > eff_slots:
+                raise ValueError(f"slot budgets {budgets} exceed num_slots={eff_slots}")
+            windows.update(row_offsets=table_group.offsets,
+                           slot_ranges=table_group.slot_ranges(budgets))
         if planner == "device":
             self.planner = DevicePlanner(host_table.rows, eff_slots, device=self.device,
-                                         **windows)
+                                         pad_buckets=self.pad_buckets, **windows)
         else:
             self.planner = Planner(host_table.rows, eff_slots, **windows)
         self.storage = sp.make_storage(
@@ -328,7 +364,7 @@ class ScratchPipe:
             # pad victim reads to the pow-2 bucket (slot 0 is always safe
             # to read); the d2h side slices the real rows back out
             entry.evicted_dev = sp.read(
-                self.storage, self._index(pad_index(p.evict_slots, 0))
+                self.storage, self._index(pad_index(p.evict_slots, 0, self.pad_buckets))
             )
             if self._copy is not None:
                 entry.evict_ready = self._copy.ready()
@@ -340,7 +376,8 @@ class ScratchPipe:
             rows = (self._op_result(entry.host_rows_f)
                     if entry.host_rows_f is not None else entry.host_rows)
             entry.fetched_dev = _map_rows(
-                lambda r: torch.from_numpy(pad_rows(r)).to(self.device), rows
+                lambda r: torch.from_numpy(pad_rows(r, self.pad_buckets)).to(self.device),
+                rows,
             )
         n_evict = int(p.evict_slots.size)
         if n_evict and self._copy is not None:
@@ -373,7 +410,7 @@ class ScratchPipe:
         if p.fill_slots.size:
             self.storage = sp.fill(
                 self.storage,
-                self._index(pad_index(p.fill_slots, self.num_slots)),
+                self._index(pad_index(p.fill_slots, self.num_slots, self.pad_buckets)),
                 entry.fetched_dev,
             )
         self.hbm.written += p.fill_slots.size * self._row_bytes
@@ -389,7 +426,7 @@ class ScratchPipe:
             fp = fused_entry.plan
             self.storage, aux = self.fused_train_fn(
                 self.storage,
-                pad_index(fp.fill_slots, self.num_slots),
+                pad_index(fp.fill_slots, self.num_slots, self.pad_buckets),
                 fused_entry.fetched_dev,
                 p.slots,
                 entry.batch,

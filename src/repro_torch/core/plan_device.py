@@ -415,7 +415,8 @@ class DevicePlanner:
 
     * LRU only;
     * fixed-shape dispatches: ids are padded to a monotone per-planner
-      length (pow-2 buckets), so the kernels see O(log batch) shapes;
+      length (pow-2 buckets, or the smallest of ``pad_buckets`` that fits),
+      so the kernels see O(log batch) shapes;
     * multi-table (``slot_ranges``) planning needs the standard
       ``(B, num_tables, L)`` id layout where ``ids[:, t, :]`` holds table
       t's global ids (checked on the first batch).
@@ -431,6 +432,7 @@ class DevicePlanner:
         policy: str = "lru",
         row_offsets: Optional[Sequence[int]] = None,
         slot_ranges: Optional[Sequence[Tuple[int, int]]] = None,
+        pad_buckets: Optional[Sequence[int]] = None,
         device="cuda",
     ):
         if policy != "lru":
@@ -472,8 +474,9 @@ class DevicePlanner:
             for r, b in zip(self._table_rows, self._budgets)
         ]
         self._cycle = 0  # host-side mirror of the device cycle counters
+        self._pad_buckets = tuple(sorted(pad_buckets)) if pad_buckets else None
         # monotone pad lengths: one set of shapes per planner even when the
-        # stream's batch sizes vary (drain cycles)
+        # stream's batch sizes vary (a shard's id stream, drain cycles)
         self._ids_pad = 0
         self._fut_pad = 0
         self._validated = False
@@ -517,7 +520,7 @@ class DevicePlanner:
         return loc
 
     def _pad_to(self, n: int, attr: str) -> int:
-        p = max(pad_len(n), getattr(self, attr))
+        p = max(pad_len(n, self._pad_buckets), getattr(self, attr))
         setattr(self, attr, p)
         return p
 

@@ -1,13 +1,14 @@
 """EmbeddingCacheRuntime: the protocol all cache runtimes satisfy, plus a
 name -> factory registry so launchers select designs uniformly.
 
-Port of ``repro/core/runtime.py``. The port registers, so far, the
-paper's training designs and the read-only serving designs:
+Port of ``repro/core/runtime.py``. The port registers the paper's
+training designs and the read-only serving designs:
 
     nocache      — hybrid CPU-GPU, no caching (Fig. 4(a))
     static       — Yin et al. pinned top-N cache (Fig. 4(b))
     scratchpipe  — the paper's pipelined always-hit cache (§IV)
     strawman     — dynamic cache, no pipelining (§IV-B)
+    sharded      — one ScratchPipe manager per table partition (§VI-G)
     nocache-serve      — the serving oracle (host gather every lookup)
     static-serve       — pinned profiled hot rows, misses in a transient tail
     scratchpipe-serve  — the plan-ahead cache with the queue as look-ahead
@@ -71,6 +72,7 @@ def _ensure_registered() -> None:
     from repro_torch.core import (  # noqa: F401
         pipeline,
         serving_cache,
+        sharded_pipeline,
         static_cache,
     )
 

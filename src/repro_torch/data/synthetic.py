@@ -2,8 +2,8 @@
 
 Port of ``repro/data/synthetic.py``, copied unchanged: numpy only, so the
 same seed draws the same ids, dense features and labels in both packages
-(tests/test_torch_train.py). ``dlrm_batches_group`` (heterogeneous tables)
-comes with the multi-table slice.
+(tests/test_torch_train.py, and tests/test_torch_table_group.py for the
+heterogeneous tables of ``dlrm_batches_group``).
 
 Ranks come from a Zipf(s) distribution via the continuous inverse-CDF
 (rank = N * u^(1/(1-s))), with s calibrated so the top-2% of rows capture
@@ -117,6 +117,47 @@ def dlrm_batches(tc: TraceConfig, steps: int) -> Iterator[Tuple[np.ndarray, dict
             np.float32
         )
         yield gids, {"dense": dense, "label": label, "sparse_ids": ids}
+
+
+def dlrm_batches_group(
+    group: TableGroup,
+    steps: int,
+    *,
+    batch_size: int = 2048,
+    lookups_per_table: int = 20,
+    locality: str = "medium",
+    num_dense_features: int = 13,
+    seed: int = 0,
+) -> Iterator[Tuple[np.ndarray, dict]]:
+    """Multi-table trace over a TableGroup with HETEROGENEOUS row counts:
+    each table's lookup stream is sampled from its own Zipf over its own row
+    space (the per-table access streams BagPipe/Fang et al. cache against).
+    Yields (global_row_ids (B, T, L), payload); ``payload["sparse_ids"]``
+    keeps the per-table LOCAL ids (what the full-table model consumes)."""
+    rng = np.random.default_rng(seed)
+    T = group.num_tables
+    for _ in range(steps):
+        local = np.stack(
+            [
+                sample_ids(
+                    rng,
+                    group.tables[t].rows,
+                    (batch_size, lookups_per_table),
+                    locality,
+                )
+                for t in range(T)
+            ],
+            axis=1,
+        )  # (B, T, L)
+        gids = group.globalize(local)
+        dense = rng.standard_normal(
+            (batch_size, num_dense_features)
+        ).astype(np.float32)
+        logits = dense[:, 0] - 0.5 * dense[:, 1]
+        label = (rng.random(batch_size) < 1.0 / (1.0 + np.exp(-logits))).astype(
+            np.float32
+        )
+        yield gids, {"dense": dense, "label": label, "sparse_ids": local}
 
 
 def hot_ids_for_group(

@@ -7,7 +7,8 @@ card:
     python -m repro_torch.launch.train --arch dlrm-scratchpipe --batch 2048 \
         [--smoke] [--runtime scratchpipe|strawman|nocache|static] [--fused] \
         [--precision fp32|fp16|int8] [--rounding nearest|stochastic] \
-        [--planner host|device] [--executor sync|overlapped]
+        [--planner host|device] [--executor sync|overlapped] [--tables N] \
+        [--trace <dir> [--adaptive-pad]]
 
 ``--device cpu`` runs the kernels' plain PyTorch versions instead. It prints
 the same ``runtime=``, ``done:`` and ``traffic:`` lines as the reference
@@ -29,10 +30,19 @@ thread (``core/pipeline.py``); both give the same figures as the defaults
 (``--planner host --executor sync``). A caller of :func:`train_dlrm`
 calls ``close()`` on the returned runtime when done with it (the
 overlapped executor's threads).
+``--tables N`` trains the heterogeneous N-table DLRM
+(``configs/dlrm_scratchpipe.py: multi_table_config``, streamed by
+``data/synthetic.py: dlrm_batches_group``); it and a trace whose tables
+differ in rows get per-table slot budgets with the §VI-D window floor
+(6 mini-batches of lookups per table). ``--adaptive-pad`` (with
+``--trace``) derives the pad-bucket set of the variable-length operands
+from the trace's miss counts (``traces/profiling.py:
+derive_pad_buckets``); the results are those of the pow-2 default. The
+``sharded`` runtime (one manager per table) is reached through
+``core.runtime.make_runtime``, as in the reference, not ``--runtime``.
 
-Not ported yet (each errors with a pointer to ROADMAP.md): the LM archs,
-``--tables`` and a trace whose tables differ in rows (item 9),
-``--adaptive-pad`` (item 10), and ``--supervise``/``--chaos`` (item 12).
+Not ported yet (each errors with a pointer to ROADMAP.md): the LM archs
+(item 18) and ``--supervise``/``--chaos`` (item 12).
 """
 from __future__ import annotations
 
@@ -48,15 +58,10 @@ ARCH = "dlrm-scratchpipe"
 #: options of the reference launcher that later slices port, with the
 #: ROADMAP.md item that carries each
 _NOT_PORTED = {
-    "tables": ("multi-table", 9),
-    "adaptive_pad": ("trace-derived pad buckets", 10),
     "supervise": ("recovery", 12),
     "chaos": ("recovery", 12),
 }
-_DEFAULTS = {"tables": 0, "adaptive_pad": False, "supervise": False, "chaos": None}
-_HETERO_TRACE = ("a trace whose tables differ in rows needs per-table slot "
-                 "budgets (multi-table), which are not ported to repro_torch yet "
-                 "(ROADMAP.md Queue 1 item 9)")
+_DEFAULTS = {"supervise": False, "chaos": None}
 
 
 def train_dlrm(args, cfg=None, host=None, mlps=None) -> Dict[str, Any]:
@@ -75,18 +80,29 @@ def train_dlrm(args, cfg=None, host=None, mlps=None) -> Dict[str, Any]:
 
     import torch
 
-    from repro_torch.configs.dlrm_scratchpipe import config, smoke_config
+    from repro_torch.configs.dlrm_scratchpipe import (
+        config,
+        multi_table_config,
+        multi_table_smoke_config,
+        smoke_config,
+    )
     from repro_torch.core.dlrm_runtime import DLRMTrainer
     from repro_torch.core.host_table import HostEmbeddingTable
     from repro_torch.core.runtime import make_runtime
     from repro_torch.core.table_group import TableGroup
     from repro_torch.data.lookahead import LookaheadStream
-    from repro_torch.data.synthetic import TraceConfig, dlrm_batches, hot_ids_for_group
+    from repro_torch.data.synthetic import (
+        TraceConfig,
+        dlrm_batches,
+        dlrm_batches_group,
+        hot_ids_for_group,
+    )
     from repro_torch.device import resolve_device
     from repro_torch.traces import (
         TraceReader,
         TraceRecorder,
         TraceReplayStream,
+        derive_pad_buckets,
         hot_ids_from_trace,
         profile_hot_ids,
         scenario_batches,
@@ -98,7 +114,13 @@ def train_dlrm(args, cfg=None, host=None, mlps=None) -> Dict[str, Any]:
             "the nocache baseline holds no rows to quantize"
         )
     dev = resolve_device(args.device)  # fail before building tables, not after
-    base = cfg if cfg is not None else (smoke_config() if args.smoke else config())
+    if cfg is not None:
+        base = cfg
+    elif args.tables and args.trace is None:  # heterogeneous multi-table scenario
+        base = (multi_table_smoke_config(args.tables) if args.smoke
+                else multi_table_config(args.tables))
+    else:
+        base = smoke_config() if args.smoke else config()
     reader = None
     if args.trace:  # replay a recorded workload trace
         reader = TraceReader(args.trace)
@@ -109,8 +131,6 @@ def train_dlrm(args, cfg=None, host=None, mlps=None) -> Dict[str, Any]:
                 f"--trace {args.trace}: no dense features (not a DLRM trace)"
             )
         group = reader.group
-        if len(set(group.rows)) > 1:
-            raise NotImplementedError(_HETERO_TRACE)
         # the trace manifest defines the workload shape; the MLP stack
         # follows (bottom-MLP output must match the trace's embed dim)
         cfg = dataclasses.replace(
@@ -147,6 +167,12 @@ def train_dlrm(args, cfg=None, host=None, mlps=None) -> Dict[str, Any]:
                 lookups_per_table=cfg.lookups_per_table, locality=args.locality,
                 num_dense_features=cfg.num_dense_features, seed=args.seed,
             )
+        if args.tables:
+            return dlrm_batches_group(
+                group, steps, batch_size=batch,
+                lookups_per_table=cfg.lookups_per_table, locality=args.locality,
+                num_dense_features=cfg.num_dense_features, seed=args.seed,
+            )
         tc = TraceConfig(
             num_tables=cfg.num_tables,
             rows_per_table=cfg.rows_per_table,
@@ -158,10 +184,28 @@ def train_dlrm(args, cfg=None, host=None, mlps=None) -> Dict[str, Any]:
         return dlrm_batches(tc, steps)
 
     kw: Dict[str, Any] = {"num_slots": slots, "precision": args.precision}
+    if args.tables or (reader is not None and len(set(group.rows)) > 1):
+        # heterogeneous tables: per-table budgets with the §VI-D window floor
+        # (the worst-case 6-batch window working set of each table)
+        floor = group.window_floor(batch * cfg.lookups_per_table)
+        slots = max(slots, sum(min(floor, r) for r in group.rows))
+        # byte-budget slot math: per-table budgets in ROWS of each table's
+        # replica precision (the plain budgets at fp32)
+        budgets = group.precision_slot_budgets(slots, min_per_table=floor)
+        kw.update(num_slots=slots, table_group=group, slot_budgets=budgets)
     if args.runtime == "scratchpipe":
         kw.update(past_window=cfg.past_window, future_window=cfg.future_window)
     if args.runtime in ("scratchpipe", "strawman"):
         kw.update(executor=args.executor, planner=args.planner)
+        if args.adaptive_pad:
+            # trace-derived fill/evict pad buckets (vs the pow-2 default)
+            pw, fw = ((cfg.past_window, cfg.future_window)
+                      if args.runtime == "scratchpipe" else (0, 0))
+            kw["pad_buckets"] = derive_pad_buckets(
+                reader, slots, past_window=pw, future_window=fw,
+                profile_batches=min(args.steps, 512),
+            )
+            print(f"adaptive pad buckets: {kw['pad_buckets']}")
     if args.runtime == "static":
         if reader is not None:
             hot = hot_ids_from_trace(reader, cfg.cache_fraction,
@@ -293,9 +337,17 @@ def build_parser() -> argparse.ArgumentParser:
         help="snapshot the training workload into this trace directory while "
         "training (repro_torch.traces.TraceRecorder.tee)",
     )
+    ap.add_argument(
+        "--tables", type=int, default=0,
+        help="N>0: heterogeneous N-table DLRM (per-table slot budgets); "
+        "0: the paper's uniform 8-table config",
+    )
+    ap.add_argument(
+        "--adaptive-pad", action="store_true",
+        help="derive the fill/evict pad-bucket set from the --trace's "
+        "miss-count distribution instead of the pow-2 default",
+    )
     later = ap.add_argument_group("not ported yet (error with a ROADMAP pointer)")
-    later.add_argument("--tables", type=int, default=0)
-    later.add_argument("--adaptive-pad", action="store_true")
     later.add_argument("--supervise", action="store_true")
     later.add_argument("--chaos", default=None)
     return ap
@@ -311,8 +363,12 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
         if getattr(args, name) != _DEFAULTS[name]:
             ap.error(f"--{name.replace('_', '-')} ({what}) is not ported to repro_torch "
                      f"yet (ROADMAP.md Queue 1 item {item})")
+    if args.tables < 0:
+        ap.error("--tables must be >= 0 (0 = uniform paper config)")
     if args.trace and args.scenario:
         ap.error("--trace and --scenario are mutually exclusive")
+    if args.adaptive_pad and not args.trace:
+        ap.error("--adaptive-pad derives buckets from a recorded trace; pass --trace")
     if args.trace and not os.path.exists(os.path.join(args.trace, "manifest.json")):
         ap.error(f"--trace {args.trace}: not a recorded trace directory "
                  "(no manifest.json)")

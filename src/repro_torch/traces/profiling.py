@@ -7,8 +7,9 @@ from a trace's measured miss-count distribution.
 Port of ``repro/traces/profiling.py`` (numpy only): the same trace gives
 the same hot ids and the same pad buckets in both packages
 (``derive_pad_buckets`` runs the port's numpy :class:`Planner`). Its
-caller, ``--adaptive-pad``, is not ported yet (ROADMAP.md Queue 1 item 10):
-the port's runtimes take no ``pad_buckets`` for training.
+caller is ``launch/train.py --adaptive-pad``, which hands the bucket set to
+the runtime as ``pad_buckets=`` (``core/pipeline.py``,
+``core/plan_device.py``).
 """
 from __future__ import annotations
 

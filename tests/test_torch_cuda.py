@@ -31,6 +31,8 @@ held equal to its CPU run on every output and on the new state (the dummy
 elements that take padded writes aside), and must run with no host sync
 under ``torch.cuda.set_sync_debug_mode("error")``.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -787,3 +789,136 @@ def test_cuda_frontend_launches_from_its_worker_only(cuda, monkeypatch):
     for t in reqs:
         for a, b in zip(got[t], want[t]):
             assert np.array_equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# multi-table (per-table slot ranges) and sharded runtimes on the card
+# ---------------------------------------------------------------------------
+class _KernelTrainer:
+    """A [Train] that runs the port's training kernels with no MLP: the
+    bags (``gather_reduce``, or ``fill_gather_reduce`` fused), then
+    ``apply_grad`` (``scatter_add``) of 1e-3 x the bags. Elementwise
+    products are rounded alike on both devices, so a run on the card equals
+    the plain versions' run on the CPU bit for bit."""
+
+    @staticmethod
+    def _slots(storage, slots):
+        if not isinstance(slots, torch.Tensor):
+            slots = torch.from_numpy(np.ascontiguousarray(slots, np.int32))
+        return slots.to(storage.device)
+
+    def train_fn(self, storage, slots, batch):
+        s = self._slots(storage, slots)
+        bags = tsp.gather_reduce(storage, s)
+        return tsp.apply_grad(storage, s, bags * 1e-3, 1.0), {}
+
+    def fused_train_fn(self, storage, fill_slots, fill_rows, slots, batch):
+        s = self._slots(storage, slots)
+        fs = self._slots(storage, fill_slots)
+        storage, bags = tsp.fill_gather_reduce(storage, fs, fill_rows, s)
+        return tsp.apply_grad(storage, s, bags * 1e-3, 1.0), {}
+
+    def sharded_train_fn(self, storages, slots_all, batch):
+        """The fp32 shards train (one lookup per bag); the others keep
+        their rows."""
+        for storage, slots in zip(storages, slots_all):
+            if isinstance(storage, torch.Tensor) and storage.dtype == torch.float32:
+                s = self._slots(storage, slots).reshape(-1, 1)
+                if s.numel():
+                    self.train_fn(storage, s, batch)
+        return storages, None
+
+
+def _stats(stats):
+    """StepStats as plain values (``by_table`` holds numpy arrays)."""
+    return [{k: (v if k != "by_table" else {n: np.asarray(a).tolist() for n, a in v.items()})
+             for k, v in dataclasses.asdict(st).items()} for st in stats]
+
+
+def _multi_table_run(dev, fused, planner, executor, pad_buckets=None):
+    from repro_torch.core.host_table import HostEmbeddingTable
+    from repro_torch.core.pipeline import ScratchPipe
+    from repro_torch.core.table_group import TableGroup, TableSpec
+    from repro_torch.data.lookahead import LookaheadStream
+    from repro_torch.data.synthetic import dlrm_batches_group
+
+    group = TableGroup([TableSpec("a", 4000, 40), TableSpec("b", 1500, 40),
+                        TableSpec("c", 300, 40)])
+    floor = group.window_floor(8 * 5)
+    budgets = group.slot_budgets(3 * floor, min_per_table=floor)
+    host = HostEmbeddingTable(group.total_rows, 40, seed=4)
+    tr = _KernelTrainer()
+    pipe = ScratchPipe(host, sum(budgets), tr.train_fn, table_group=group,
+                       slot_budgets=budgets, planner=planner, executor=executor,
+                       fused_train_fn=tr.fused_train_fn if fused else None,
+                       pad_buckets=pad_buckets, device=dev)
+    stream = LookaheadStream(dlrm_batches_group(group, 20, batch_size=8,
+                                                lookups_per_table=5, seed=6))
+    stats = pipe.run(stream, lookahead_fn=stream.peek_ids)
+    pipe.flush_to_host()
+    pipe.close()
+    return stats, host.data
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fused", [False, True], ids=["split", "fused"])
+@pytest.mark.parametrize("planner,executor,pad", [
+    ("host", "sync", None), ("device", "overlapped", None), ("device", "overlapped", (40, 72)),
+], ids=["host-sync", "device-overlapped", "device-overlapped-buckets"])
+def test_cuda_multi_table_pipeline_equals_plain(cuda, fused, planner, executor, pad):
+    """Per-table slot ranges: fills (pad sentinel = the effective slot
+    count), gathers and scatters on the card equal the CPU's plain run."""
+    want = _multi_table_run("cpu", fused, "host", "sync")
+    tops.reset_launch_counts()
+    got = _multi_table_run(cuda, fused, planner, executor, pad)
+    counts = tops.launch_counts()
+    assert sum(s.n_evict for s in got[0]) > 0
+    assert _stats(got[0]) == _stats(want[0])
+    assert np.array_equal(got[1], want[1])
+    assert counts["scatter_add"] == 20
+    if fused:
+        assert counts["fill_gather_reduce"] > 0 and counts["gather_reduce"] < 20
+    else:
+        assert counts["gather_reduce"] == 20 and counts["fill"] > 0
+
+
+def _sharded_run(dev, precisions, planner, executor):
+    from repro_torch.core.host_table import HostEmbeddingTable
+    from repro_torch.core.runtime import make_runtime
+    from repro_torch.core.table_group import TableGroup, TableSpec
+    from repro_torch.data.lookahead import LookaheadStream
+    from repro_torch.data.synthetic import dlrm_batches_group
+
+    group = TableGroup([TableSpec(n, r, 40, precision=p) for (n, r), p in
+                        zip((("a", 3000), ("b", 2000), ("c", 1500)), precisions)])
+    budgets = [240 // tqz.SLOT_MULTIPLIER[p] for p in precisions]  # 6 x 8 x 5 rows
+    host = HostEmbeddingTable(group.total_rows, 40, seed=5)
+    rt = make_runtime("sharded", host, _KernelTrainer().sharded_train_fn, num_slots=0,
+                      table_group=group, slot_budgets=budgets, planner=planner,
+                      executor=executor, device=dev)
+    stream = LookaheadStream(dlrm_batches_group(group, 16, batch_size=8,
+                                                lookups_per_table=5, seed=9))
+    rt.run(stream, lookahead_fn=stream.peek_ids)
+    rt.flush_to_host()
+    rt.close()
+    return [p.stats for p in rt.pipes], host.data
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precisions", [("fp32", "fp32", "fp32"), ("int8", "fp16", "fp32")])
+@pytest.mark.parametrize("planner,executor", [("host", "sync"), ("device", "overlapped")])
+def test_cuda_sharded_fills_equal_plain(cuda, precisions, planner, executor):
+    """One manager per table, each with its own storage form: the per-shard
+    fills (and the fp32 shards' gathers and scatters) on the card equal the
+    CPU's plain run; one fill of the shard's form per cycle with misses."""
+    want = _sharded_run("cpu", precisions, "host", "sync")
+    tops.reset_launch_counts()
+    got = _sharded_run(cuda, precisions, planner, executor)
+    counts = tops.launch_counts()
+    assert np.array_equal(got[1], want[1])
+    assert all(sum(s.n_evict for s in st) > 0 for st in got[0])
+    form = {"fp32": "fill", "fp16": "fill_f16", "int8": "fill_i8"}
+    for p in set(precisions):
+        fills = sum(sum(1 for s in st if s.n_miss) for st, q in zip(got[0], precisions)
+                    if q == p)
+        assert counts[form[p]] == fills > 0, (p, counts)

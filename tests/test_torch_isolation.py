@@ -30,6 +30,7 @@ from repro_torch.core.serving_cache import (
     ReadOnlyCacheServer,
     StaticCacheServer,
 )
+from repro_torch.core.sharded_pipeline import ShardedScratchPipe
 from repro_torch.core.static_cache import NoCacheBaseline, StaticCacheBaseline
 from repro_torch.launch import serve, train
 
@@ -63,7 +64,8 @@ def test_every_module_listed():
               "repro_torch.core.plan_device", "repro_torch.traces.format",
               "repro_torch.traces.recorder", "repro_torch.traces.replay",
               "repro_torch.traces.profiling", "repro_torch.traces.criteo",
-              "repro_torch.traces.scenarios", "repro_torch.serving.frontend"):
+              "repro_torch.traces.scenarios", "repro_torch.serving.frontend",
+              "repro_torch.core.sharded_pipeline"):
         assert m in mods
 
 
@@ -109,7 +111,8 @@ def test_entry_points_default_to_cuda():
     for fn in (ReadOnlyCacheServer.__init__, NoCacheServer.__init__,
                StaticCacheServer.__init__,
                sp.make_storage, ScratchPipe.__init__, DLRMTrainer.__init__,
-               NoCacheBaseline.__init__, StaticCacheBaseline.__init__):
+               NoCacheBaseline.__init__, StaticCacheBaseline.__init__,
+               ShardedScratchPipe.__init__):
         assert inspect.signature(fn).parameters["device"].default == "cuda"
 
 
@@ -130,6 +133,8 @@ def test_cuda_without_a_card_raises(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ScratchPipe(host, 16, noop)
     with pytest.raises(RuntimeError, match="no CUDA device"):
+        ShardedScratchPipe(host, 16, 2, noop)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
         DLRMTrainer(smoke_config())
     with pytest.raises(RuntimeError, match="no CUDA device"):
         NoCacheBaseline(host, noop)
@@ -137,6 +142,8 @@ def test_cuda_without_a_card_raises(monkeypatch):
         StaticCacheBaseline(host, [1, 2], noop)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         train.main(["--arch", "dlrm-scratchpipe", "--smoke", "--steps", "2"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train.main(["--arch", "dlrm-scratchpipe", "--smoke", "--steps", "2", "--tables", "4"])
 
 
 @pytest.mark.parametrize("precision", ["fp16", "int8"])
@@ -216,17 +223,17 @@ def _lm_training_message(capsys):
     return capsys.readouterr().err
 
 
-def _adaptive_pad_message(capsys):
+def _supervise_message(capsys):
     with pytest.raises(SystemExit):
         train.main(["--arch", "dlrm-scratchpipe", "--smoke", "--device", "cpu",
-                    "--adaptive-pad"])
+                    "--supervise"])
     return capsys.readouterr().err
 
 
 @pytest.mark.parametrize("message,item", [
     (_lm_training_message, 18),  # LM training
-    (_adaptive_pad_message, 10),  # trace-derived pad buckets
-], ids=["lm-training", "adaptive-pad"])
+    (_supervise_message, 12),  # recovery
+], ids=["lm-training", "supervise"])
 def test_not_ported_messages_name_their_roadmap_item(capsys, message, item):
     """What is not ported yet says where ROADMAP.md queues it."""
     assert f"ROADMAP.md Queue 1 item {item})" in message(capsys)

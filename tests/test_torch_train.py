@@ -356,14 +356,19 @@ def test_designs_bitwise_equal_within_the_port(reference_runs):
 
 
 def test_training_registry_and_options():
-    assert {"scratchpipe", "strawman", "nocache", "static"} <= set(available_runtimes())
+    assert {"scratchpipe", "strawman", "nocache", "static", "sharded"} <= set(
+        available_runtimes())
     host = THost(64, 4, seed=0)
     noop = lambda s, slots, b: (s, {})  # noqa: E731
-    for kw, item in ((dict(table_group=TGroup.uniform(2, 32, 4)), "item 9"),
-                     (dict(supervise=object()), "item 12"),
+    for kw, item in ((dict(supervise=object()), "item 12"),
                      (dict(tracer=object()), "item 12")):
         with pytest.raises(NotImplementedError, match=item):
             t_make_runtime("scratchpipe", host, noop, num_slots=16, device="cpu", **kw)
+    # multi-table is ported: a table group splits the slots into per-table ranges
+    pipe = t_make_runtime("scratchpipe", host, noop, num_slots=16, device="cpu",
+                          table_group=TGroup.uniform(2, 32, 4), slot_budgets=[10, 6])
+    assert pipe.planner.slot_ranges == [(0, 10), (10, 16)]
+    assert list(pipe.planner.row_offsets) == [0, 32, 64]
     # the device planner and the overlapped executor are ported
     pipe = t_make_runtime("scratchpipe", host, noop, num_slots=16, device="cpu",
                           executor="overlapped", planner="device")
@@ -530,7 +535,7 @@ def test_launcher_prints_reference_figures(runtime, capsys):
 
 
 def test_launcher_rejects_what_is_not_ported():
-    for extra in (["--tables", "4"],
+    for extra in (["--runtime", "sharded"],
                   ["--runtime", "nocache", "--precision", "fp16"], ["--supervise"],
                   ["--trace", "x"], ["--chaos", "kill-gather@3"]):
         with pytest.raises(SystemExit):
@@ -676,5 +681,10 @@ def test_trace_launcher_refuses(tmp_path, capsys):
     path = str(tmp_path / "hetero")
     record_trace(path, hetero, scenario_batches(
         "drift", hetero, 3, batch_size=4, lookups_per_table=2, seed=0))
-    with pytest.raises(NotImplementedError, match=r"ROADMAP.md Queue 1 item 9\)$"):
-        run("--trace", path)
+    # tables that differ in rows train with per-table budgets (the §VI-D
+    # floor of 6 x 4 x 2 lookups, capped at each table's rows)
+    res = run("--trace", path)
+    res["pipe"].close()
+    assert len(res["stats"]) == 3 and np.isfinite(res["losses"]).all()
+    assert res["pipe"].planner.slot_ranges == [(0, 64), (64, 96)]
+    assert all(st.by_table is not None for st in res["stats"])
