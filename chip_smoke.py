@@ -61,6 +61,14 @@ Phases, in order; any failure raises and the script exits non-zero:
                losses finite. Each ``train:`` line has ms/step, the main
                thread's seconds per stage (under ``overlapped`` the main
                thread's only) and its seconds waiting on worker futures.
+  6b. observe — phase 6's device+overlapped fused run once more, from a
+               copy of the same host table, with a ``repro_torch.obs``
+               Tracer and MetricsRegistry installed: losses and the flushed
+               table bitwise equal to phase 6's, the Chrome trace valid with
+               spans on the main thread, ``scratchpipe-host_0`` and
+               ``scratchpipe-d2h_0``, the ``cache.*`` counters equal to the
+               StepStats sums, every launch on the main thread; prints each
+               thread's span seconds and the traced ms/step beside phase 6's.
   7. timing  — ``scatter_add`` and ``fill_gather_reduce`` at the operands
                the training runs gave them, and ``gather_reduce`` again at
                the training bags. ``scatter_add`` is split too: the sort,
@@ -83,6 +91,18 @@ Phases, in order; any failure raises and the script exits non-zero:
                and every step's loss within 1e-2 (fp16) / 1e-1 (int8)
                relative of the fp32 split run's; launch counts as designed,
                the plain versions raise.
+  8b. observe and recover — phase 8's fp16 and int8 device+overlapped
+               fused runs traced and metered, each bitwise equal to its
+               precision's untraced runs; then the drill: the fp16 run
+               through ``launch/train.py``'s supervised path with ``--chaos
+               "kill-gather@3;fail-writeback@5;kill-d2h@7;nan-loss@9;
+               corrupt-row@13:5" --verify-every 4 --ckpt-every 8``
+               (checkpoints in a temporary directory, removed): every event
+               fired, at least two restores, the losses and flushed table
+               bitwise equal to phase 8's unsupervised run, every launch on
+               the main thread; and a clean ``--supervise`` twin with the
+               same ``state_digest=``. Prints the save and restore
+               milliseconds and the checkpoint bytes.
   9. timing  — ``gather_reduce_q``, ``fill_gather_reduce_q`` and the fp16/
                int8 forms of ``gather_reduce``, ``fill`` and
                ``fill_gather_reduce`` at the operands of the middle step of
@@ -162,6 +182,16 @@ Phases, in order; any failure raises and the script exits non-zero:
                ``serve:`` line (p50, p99, lookups/s, stage seconds). Then
                ``gather_reduce_q``, the fp16 gather and the fp16/int8 fills
                are timed at the depth-2 runs' operands.
+ 13b. observe — the fp32 ``scratchpipe-serve`` replay of phase 13, traced
+               and metered: bags bitwise equal to phase 13's, the ``serve.*``
+               counters and the latency histogram equal to the replay's
+               StepStats (emergency fills from ``StepStats.aux``); then the
+               front end over an fp32 ``scratchpipe-serve`` fed by a
+               ``TraceReplayStream`` of that trace: the first 4
+               micro-batches' 8,192 requests, one at a time, each future's
+               bags equal to phase 4's, every launch from the front end's
+               worker, spans on the worker and on the replay's prefetch
+               thread.
  14. trace train — phase 6's 24 synthetic batches recorded with
                ``record_trace`` and replayed by ``train_dlrm --trace`` through
                ``scratchpipe --planner device --executor overlapped --fused``
@@ -216,6 +246,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -328,6 +359,8 @@ def offset_copy(torch, t, offset: int):
 
 
 #: launch-count keys of the reduced-precision forms: (gather, fill, fused)
+OBSERVE_TRAIN_RUN = "6b observe: scratchpipe device+overlapped fused"
+DRILL_RUN = "8b drill: fp16 device+overlapped fused --chaos"
 Q_KEYS = {"fp16": ("gather_reduce_f16", "fill_f16", "fill_gather_reduce_f16"),
           "int8": ("gather_reduce_q", "fill_i8", "fill_gather_reduce_q")}
 
@@ -1057,6 +1090,76 @@ def check_train_counts(name, runtime, fused, stats, counts, stages):
               and counts["fill_gather_reduce"] == 0, f"{name}: launches {counts}")
 
 
+# --------------------------------------------------------------------------- #
+# 6b / 8b / 13b: observability and training recovery on the card
+# --------------------------------------------------------------------------- #
+#: phase 8b's drill: a gather worker's death, a failed write-back, the d2h
+#: thread's death (all recovered inline), a NaN loss and five corrupted host
+#: rows (each recovered by a checkpoint restore)
+DRILL_CHAOS = "kill-gather@3;fail-writeback@5;kill-d2h@7;nan-loss@9;corrupt-row@13:5"
+DRILL_ARGV = ["--verify-every", "4", "--ckpt-every", "8"]
+POOL_THREADS = ("MainThread", "scratchpipe-host_0", "scratchpipe-d2h_0")
+
+
+def observed(torch, run, *a, **k):
+    """``run(torch, *a, **k)`` with a fresh Tracer and MetricsRegistry
+    installed for every runtime it builds; returns (run's result, tracer,
+    metrics). The install is cleared on the way out."""
+    from repro_torch import obs
+
+    tracer, metrics = obs.Tracer(), obs.MetricsRegistry()
+    obs.install(tracer, metrics)
+    try:
+        return run(torch, *a, **k), tracer, metrics
+    finally:
+        obs.install(None, None)
+
+
+def spans_by_thread(tracer) -> dict:
+    """{thread: {span: seconds}} from ``Tracer.totals()``."""
+    out = {}
+    for (thread, span), sec in sorted(tracer.totals().items()):
+        out.setdefault(thread, {})[span] = sec
+    return out
+
+
+def check_artifacts(name, tracer, metrics, threads, min_threads=3) -> dict:
+    """Export and validate both artifacts (``repro_torch.obs.check``): the
+    trace with spans on ``min_threads`` threads, ``threads`` among them.
+    Returns the per-thread span seconds."""
+    from repro_torch.obs.check import validate_chrome_trace, validate_metrics_jsonl
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_obs_") as tmp:
+        tpath, mpath = os.path.join(tmp, "trace.json"), os.path.join(tmp, "metrics.jsonl")
+        n = tracer.export_chrome(tpath)
+        metrics.write_jsonl(mpath, provenance={"run": name})
+        problems = (validate_chrome_trace(tpath, min_threads=min_threads)
+                    + validate_metrics_jsonl(mpath))
+    check(not problems, f"{name}: invalid artifacts {problems[:3]}")
+    names = set(tracer.thread_names())
+    check(set(threads) <= names, f"{name}: no spans on {set(threads) - names}")
+    by_thread = spans_by_thread(tracer)
+    by_thread["events"] = n
+    return by_thread
+
+
+def check_cache_counters(name, metrics, stats) -> dict:
+    """``cache.*`` counters equal the StepStats sums."""
+    want = {"cycles": len(stats), "lookups": sum(st.n_lookups for st in stats),
+            "unique": sum(st.n_unique for st in stats),
+            "hits": sum(st.n_hits for st in stats), "misses": sum(st.n_miss for st in stats),
+            "evicts": sum(st.n_evict for st in stats)}
+    got = {k: metrics.counter(f"cache.{k}", runtime="scratchpipe").value for k in want}
+    check(got == want, f"{name}: cache counters {got} != StepStats sums {want}")
+    return got
+
+
+def observe_summary(name, fast, ms, res, stages, report, by_thread, cells, untraced_ms):
+    return {**train_summary(name, fast, ms, res, stages, report),
+            "untraced_ms_per_step": untraced_ms, "cache_counters": cells,
+            "span_s_by_thread": by_thread}
+
+
 def train_main_path(torch, mods, dev):
     """The five training runs on copies of one host table; returns
     (summaries, launch counts per run, captured operands, the host table,
@@ -1115,6 +1218,32 @@ def train_main_path(torch, mods, dev):
     log(f"train: losses of all {TRAIN_STEPS} steps and the flushed host tables bitwise "
         f"equal across {', '.join(r[0] for r in TRAIN_RUNS)}; every kernel launched on the "
         "main thread; the device-planner runs never called the numpy planner")
+
+    # 6b: the device+overlapped fused run again, traced and metered
+    t0 = time.perf_counter()
+    name = OBSERVE_TRAIN_RUN
+    (res, counts, stages, ms, report), tracer, metrics = observed(
+        torch, train_run, mods, cfg, base, name, "scratchpipe", True, True, captured)
+    stats, pipe = res["stats"], res["pipe"]
+    check_train_counts(name, "scratchpipe", True, stats, counts, stages)
+    losses = torch.stack([st.aux["loss"] for st in stats]).cpu()
+    check(torch.equal(losses, first_losses), f"{name}: losses differ from the untraced runs")
+    pipe.flush_to_host()
+    pipe.close()
+    check((res["host"].data == first_table).all(),
+          f"{name}: the flushed host table differs from the untraced runs'")
+    cells = check_cache_counters(name, metrics, stats)
+    by_thread = check_artifacts(name, tracer, metrics, POOL_THREADS)
+    untraced = next(r["ms_per_step"] for r in summaries
+                    if r["run"] == "scratchpipe device+overlapped fused")
+    summaries.append(observe_summary(name, True, ms, res, stages, report, by_thread, cells,
+                                     untraced))
+    print("observe: " + json.dumps(summaries[-1]), flush=True)
+    counts_by_run[name] = counts
+    log(f"observe: {name}: bitwise equal to the untraced runs, spans on "
+        f"{len(by_thread) - 1} threads, {ms:.2f} ms/step against {untraced:.2f} untraced "
+        f"({time.perf_counter() - t0:.1f}s)")
+    del res, pipe, tracer, metrics
     return summaries, counts_by_run, captured, base, first_losses, first_digest
 
 
@@ -1449,11 +1578,107 @@ def train_q_main_path(torch, mods, dev, base, fp32_losses):
         counts_by_run[name] = counts
         log(f"train: {name} done ({time.perf_counter() - t0:.1f}s)")
         del res, pipe, table
+    summaries += observe_q_phase(torch, mods, cfg, base, split, summaries, counts_by_run,
+                                 captured)
     del split
     log("train: per precision, split, fused and device+overlapped fused losses and flushed "
         "host tables bitwise equal; losses within " + ", ".join(f"{p} {t:g}" for p, t in Q_LOSS_RTOL.items())
         + " of fp32")
     return summaries, counts_by_run, captured
+
+
+def checkpoint_bytes(root: str) -> int:
+    """Bytes of the newest checkpoint under ``root``."""
+    steps = [d for d in os.listdir(root) if d.startswith("step_")]
+    newest = os.path.join(root, max(steps, key=lambda d: int(d.split("_")[1])))
+    return sum(os.path.getsize(os.path.join(dp, f))
+               for dp, _, fs in os.walk(newest) for f in fs)
+
+
+def observe_q_phase(torch, mods, cfg, base, split, summaries, counts_by_run, captured):
+    """Phase 8b: the fp16 and int8 device+overlapped fused runs traced, each
+    bitwise equal to its precision's untraced runs; then the fp16 drill
+    (``--chaos DRILL_CHAOS``) and its clean ``--supervise`` twin. Returns
+    the new summaries (their launch counts go into ``counts_by_run``)."""
+    out = []
+    for precision in ("fp16", "int8"):
+        t0 = time.perf_counter()
+        name = f"8b observe: {precision} device+overlapped fused"
+        (res, counts, stages, ms, report), tracer, metrics = observed(
+            torch, train_run_q, mods, cfg, base, name, precision, True, True, captured)
+        stats, pipe = res["stats"], res["pipe"]
+        check_q_counts(name, precision, True, stats, counts, stages)
+        losses = torch.stack([st.aux["loss"] for st in stats]).cpu()
+        s_losses, s_table = split[precision]
+        check(torch.equal(losses, s_losses), f"{name}: losses differ from the untraced runs")
+        pipe.flush_to_host()
+        pipe.close()
+        check((res["host"].data == s_table).all(),
+              f"{name}: the flushed host table differs from the untraced runs'")
+        cells = check_cache_counters(name, metrics, stats)
+        by_thread = check_artifacts(name, tracer, metrics, POOL_THREADS)
+        untraced = next(r["ms_per_step"] for r in summaries
+                        if r["run"] == f"{precision} device+overlapped fused")
+        out.append({**observe_summary(name, True, ms, res, stages, report, by_thread,
+                                      cells, untraced), "precision": precision,
+                    "evicted_rows": sum(st.n_evict for st in stats)})
+        print("observe: " + json.dumps(out[-1]), flush=True)
+        counts_by_run[name] = counts
+        log(f"observe: {name}: bitwise equal to the untraced runs, {ms:.2f} ms/step "
+            f"against {untraced:.2f} ({time.perf_counter() - t0:.1f}s)")
+        del res, pipe, tracer, metrics
+
+    s_losses, s_table = split["fp16"]
+    events = sorted(DRILL_CHAOS.split(";"))
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as ck:
+        digests = {}
+        for name, argv in ((DRILL_RUN, ["--chaos", DRILL_CHAOS]),
+                           ("8b clean supervised twin", ["--supervise"])):
+            t0 = time.perf_counter()
+            ckdir = os.path.join(ck, name.split()[1])
+            res, counts, stages, ms, report = train_run_q(
+                torch, mods, cfg, base, name, "fp16", True, True, captured,
+                extra_argv=argv + DRILL_ARGV + ["--ckpt-dir", ckdir])
+            wall = time.perf_counter() - t0
+            rep, stats, pipe = res["report"], res["stats"], res["pipe"]
+            losses = torch.stack([st.aux["loss"] for st in stats]).cpu()
+            check(len(stats) == TRAIN_STEPS and torch.equal(losses, s_losses),
+                  f"{name}: losses differ from phase 8's unsupervised fp16 runs")
+            check((res["host"].data == s_table).all(),
+                  f"{name}: the flushed host table differs from phase 8's")
+            if name == DRILL_RUN:
+                check(sorted(res["chaos_fired"]) == events,
+                      f"{name}: fired {res['chaos_fired']}, not every event of {events}")
+                check(rep.restarts >= 2 and rep.nan_steps_skipped >= 1,
+                      f"{name}: {rep.restarts} restores, {rep.nan_steps_skipped} NaN steps")
+                check(counts["fill_gather_reduce_f16"] > 0 and counts["scatter_add"] > 0,
+                      f"{name}: launches {counts}")
+            else:
+                check(rep.restarts == 0, f"{name}: {rep.restarts} restarts")
+            digests[name] = res["state_digest"]
+            out.append({**train_summary(name, True, ms, res, stages, report),
+                        "precision": "fp16", "wall_with_recovery_s": wall,
+                        "chaos_fired": res["chaos_fired"], "restarts": rep.restarts,
+                        "nan_steps_skipped": rep.nan_steps_skipped,
+                        "checkpoints": rep.checkpoints, "save_ms": rep.save_ms,
+                        "restore_ms": rep.restore_ms, "restart_causes": rep.causes,
+                        "checkpoint_bytes": checkpoint_bytes(ckdir),
+                        "state_digest": res["state_digest"], "launches": counts})
+            print("recover: " + json.dumps(out[-1]), flush=True)
+            counts_by_run[name] = counts
+            pipe.close()
+            log(f"recover: {name}: {rep.restarts} restores "
+                f"({[round(x) for x in rep.restore_ms]} ms), {rep.checkpoints} saves "
+                f"({[round(x) for x in rep.save_ms]} ms, "
+                f"{out[-1]['checkpoint_bytes'] / 1e9:.2f} GB each), bitwise equal to phase "
+                f"8's unsupervised run ({wall:.1f}s)")
+            del res, pipe, stats
+            shutil.rmtree(ckdir, ignore_errors=True)
+        check(len(set(digests.values())) == 1,
+              f"state digests differ: {digests}")
+    log(f"recover: the drill fired {len(events)} events and its state_digest equals the "
+        "clean supervised twin's; every launch on the main thread")
+    return out
 
 
 # --------------------------------------------------------------------------- #
@@ -2425,7 +2650,106 @@ def trace_serve_phase(torch, mods, tmp: str, phase4_bags):
     log(f"trace serve: front end: {fe['requests']} requests from {FRONTEND_THREADS} threads "
         f"in {fe['cycles']} cycles, bitwise equal to the oracle, every launch from its "
         f"worker thread ({time.perf_counter() - t0:.1f}s)")
-    return summaries + [fe], counts_by_run, captured
+    obs13 = observe_serve_phase(torch, mods, host, group, paths["fp32"], phase4_bags,
+                                counts_by_run)
+    return summaries + [fe, obs13], counts_by_run, captured
+
+
+def check_serve_counters(name, metrics, stats) -> dict:
+    """``serve.*`` counters and the latency histogram against the StepStats
+    of the run (emergency fills from ``StepStats.aux``)."""
+    lbl = {"runtime": "scratchpipe-serve"}
+    em = [st.aux["emergency"] for st in stats]
+    want = {"requests": len(stats), "lookups": sum(st.n_lookups for st in stats),
+            "hits": sum(st.n_hits for st in stats), "misses": sum(st.n_miss for st in stats),
+            "emergency_rows": sum(em), "emergency_serves": sum(1 for e in em if e)}
+    got = {k: metrics.counter(f"serve.{k}", **lbl).value for k in want}
+    got["latency_count"] = metrics.histogram("serve.latency_us", **lbl).count
+    want["latency_count"] = len(stats)
+    check(got == want, f"{name}: serve counters {got} != {want}")
+    return got
+
+
+def observe_serve_phase(torch, mods, host, group, path, phase4_bags, counts_by_run) -> dict:
+    """Phase 13b: the fp32 ``scratchpipe-serve --trace`` replay traced and
+    metered (bags bitwise equal to phase 13's, ``serve.*`` counters equal
+    the replay's); then the front end over an fp32 ``scratchpipe-serve``
+    fed from a ``TraceReplayStream`` of the same trace (its prefetch thread
+    decodes): the first FRONTEND_THREADS micro-batches' requests, one at a
+    time, each future's bags equal to phase 4's, every launch from the
+    front end's worker, spans on the worker and on the prefetch thread."""
+    import numpy as np
+
+    from repro_torch import obs
+    from repro_torch.core.runtime import make_runtime
+    from repro_torch.serving import EmbeddingServer
+    from repro_torch.traces import TraceReplayStream
+
+    t0 = time.perf_counter()
+    ops, gr, serve = mods["ops"], mods["gr"], mods["serve"]
+    name = f"13b observe: trace fp32 scratchpipe-serve depth {DEPTH}"
+    tracer, m_replay, m_front = obs.Tracer(), obs.MetricsRegistry(), obs.MetricsRegistry()
+    obs.install(tracer, m_replay)
+    try:
+        res, counts, stages = trace_serve_run(
+            torch, mods, host, trace_args(path, "scratchpipe-serve", DEPTH, CACHE_FRAC))
+    finally:
+        obs.install(None, None)
+    check_bags(name, res["bags"], phase4_bags)
+    check_serve_counts(name, counts, "gather_reduce", STEPS, "fill")
+    replay_cells = check_serve_counters(name, m_replay, res["stats"])
+    summary = {**serve_summary(name, res, counts, stages), "serve_counters": replay_cells}
+    counts_by_run[name] = counts
+    del res
+
+    fe_name = "13b observe: front end fp32 scratchpipe-serve from a replay stream"
+    backend = make_runtime(
+        "scratchpipe-serve", host, None, window=DEPTH, table_group=group, device=DEVICE,
+        num_slots=serve.scratchpad_slots(group, BATCH, LOOKUPS, DEPTH, CACHE_FRAC),
+        tracer=tracer, metrics=m_front)
+    threads, restore_threads = launch_threads(gr)
+    restore_plain = plain_versions_raise(mods["ref"])
+    results = []
+    try:
+        ops.reset_launch_counts()
+        t1 = time.perf_counter()
+        stream = TraceReplayStream(path, stop=FRONTEND_THREADS, tracer=tracer)
+        with EmbeddingServer(backend, max_batch=BATCH) as fe:
+            for gids, _payload in stream:
+                results.append([fe.lookup(r) for r in gids])
+            results = [np.stack([f.result(timeout=600) for f in fs]) for fs in results]
+            worker = fe._thread.ident
+        stream.close()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+        fe_counts = ops.launch_counts()
+    finally:
+        restore_plain()
+        restore_threads()
+    check(len(results) == FRONTEND_THREADS, f"{fe_name}: {len(results)} micro-batches")
+    for b, got in enumerate(results):
+        check(got.shape == (BATCH, TABLES, DIM) and (got == phase4_bags[b]).all(),
+              f"{fe_name}: bags of micro-batch {b}'s requests differ from phase 4's")
+    check(threads == {worker}, f"{fe_name}: kernels launched from {threads}, not the worker")
+    check_serve_counts(fe_name, fe_counts, "gather_reduce", len(backend.stats), "fill")
+    fe_cells = check_serve_counters(fe_name, m_front, backend.stats)
+    by_thread = check_artifacts(name, tracer, m_front,
+                                ("MainThread", "serving-frontend", "trace-prefetch"))
+    check({"frontend.form", "frontend.complete", "serve"} <= set(by_thread["serving-frontend"])
+          and "trace.decode" in by_thread["trace-prefetch"],
+          f"{fe_name}: spans {by_thread}")
+    counts_by_run[fe_name] = fe_counts
+    n = FRONTEND_THREADS * BATCH
+    summary["front_end"] = {"run": fe_name, "requests": n, "cycles": len(backend.stats),
+                            "wall_s": wall, "requests_per_s": n / wall,
+                            "serve_counters": fe_cells,
+                            "launches": {k: v for k, v in fe_counts.items() if v}}
+    summary["span_s_by_thread"] = by_thread
+    print("observe: " + json.dumps(summary), flush=True)
+    log(f"observe: {name} and the front end from a replay stream: bags bitwise equal, "
+        f"serve counters equal the StepStats, spans on {len(by_thread) - 1} threads "
+        f"({time.perf_counter() - t0:.1f}s)")
+    return summary
 
 
 def time_serve_q_kernels(torch, mods, captured, dev):

@@ -12,5 +12,9 @@ fp32 and fp16/int8 replicas), with the ``gather_reduce``,
 ``gather_reduce_q``, ``fill``, ``fill_gather_reduce``,
 ``fill_gather_reduce_q`` and ``scatter_add`` kernels; and LM serving of
 zamba2-1.2b (``launch/serve.py --arch``: prefill + greedy decode) with the
-``flash_attention`` and ``ssd_chunk_scan`` kernels.
+``flash_attention`` and ``ssd_chunk_scan`` kernels. Beside them:
+telemetry (``obs/``: spans on every pipeline thread, metrics, their
+validators) and the recovery of DLRM training (``checkpoint/``,
+``runtime/``, ``chaos/``: crash-consistent checkpoints at any cycle, the
+supervised overlapped executor, fault injection).
 """

@@ -11,6 +11,13 @@ returns), so this module imports nothing of the reference:
     server on its device: host table, scratchpad ``storage``, planner
     state (``planner_*``), the ``landed`` mask and the serve step. Both
     servers then continue bit-identically on the same requests;
+  * :func:`pipe_state_from_reference` — a reference training runtime's
+    ``state_arrays()`` (``ScratchPipe``, or ``ShardedScratchPipe`` with its
+    ``shard<i>_`` keys), or the host arrays of a reference checkpoint ->
+    a dict the port's ``load_state_arrays`` takes: every array copied, the
+    device-planner state checked, the int8 ``storage``/``storage_scale``
+    pair checked, and the in-flight window blob read with the port's
+    restricted unpickler (numpy and builtins only) and packed anew;
   * :func:`device_planner_state_from_reference` — a reference
     ``DevicePlanner.state_dict()`` (keys ``t{t}_{field}``, ``hold``
     uint32) -> a ``state_dict`` the port's ``DevicePlanner`` loads; both
@@ -38,6 +45,7 @@ from typing import Any, Dict, List
 import numpy as np
 import torch
 
+from repro_torch.checkpoint.pack import pack_blob, unpack_blob
 from repro_torch.core.host_table import HostEmbeddingTable
 from repro_torch.core.quantize import QuantStorage
 from repro_torch.core.serving_cache import ReadOnlyCacheServer
@@ -114,6 +122,38 @@ def device_planner_state_from_reference(state_dict: dict) -> Dict[str, np.ndarra
             out[key] = np.array(a, copy=True)
         if (out[f"t{t}_hold"] >> 31).any():
             raise ValueError(f"t{t}_hold: bit 31 set; the port's hold register is int32")
+    return out
+
+
+def pipe_state_from_reference(arrays: dict) -> Dict[str, np.ndarray]:
+    """A reference training runtime's ``state_arrays()`` (or a reference
+    checkpoint's host arrays) -> the port's, for
+    ``ScratchPipe.load_state_arrays`` / ``ShardedScratchPipe.load_state_arrays``.
+    The keys are the reference's; every array is copied (a reference
+    snapshot aliases its live planner arrays and, on the CPU, its
+    scratchpad)."""
+    prefixes = sorted({k[:k.index("_") + 1] for k in arrays
+                       if k.startswith("shard") and "_" in k})
+    if prefixes:  # ShardedScratchPipe: one runtime's keys per shard
+        out: Dict[str, np.ndarray] = {}
+        for pre in prefixes:
+            sub = {k[len(pre):]: v for k, v in arrays.items() if k.startswith(pre)}
+            out.update({pre + k: v for k, v in pipe_state_from_reference(sub).items()})
+        return out
+    for key in ("host_table", "storage"):
+        if key not in arrays:
+            raise ValueError(f"not a runtime snapshot: no {key!r}")
+    out = {k: np.array(v, copy=True) for k, v in arrays.items()
+           if k not in ("window",) and not k.startswith("planner_")}
+    if "storage_scale" in out:
+        storage_from_reference((out["storage"], out["storage_scale"]))  # checks
+    planner = {k[len("planner_"):]: v for k, v in arrays.items()
+               if k.startswith("planner_")}
+    if any(k.startswith("t0_") for k in planner):  # the device planner's
+        planner = device_planner_state_from_reference(planner)
+    out.update({f"planner_{k}": np.array(v, copy=True) for k, v in planner.items()})
+    if "window" in arrays:
+        out["window"] = pack_blob(unpack_blob(arrays["window"]))
     return out
 
 

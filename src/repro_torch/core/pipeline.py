@@ -85,20 +85,43 @@ The runtime keeps the reference's per-tier byte counters ([Collect]/
 ``quantize.row_bytes`` of the replica), LOGICAL (unpadded) and identical to
 the reference's on the same stream.
 
-Not ported yet (each raises NotImplementedError with a pointer to
-ROADMAP.md): ``supervise`` and ``state_arrays`` (item 12),
-``tracer``/``metrics`` (item 12).
+Telemetry (``repro_torch.obs``, opt-in: ``tracer=``/``metrics=`` or the
+global install): spans ``plan``, ``collect``, ``exchange``,
+``insert_host``, ``insert_fill`` and ``train`` on the calling thread, and
+the pool functions wrapped once at construction, so ``collect.gather``
+(the precision's own gather, quantize included) and ``insert.writeback``
+land on ``scratchpipe-host``, ``exchange.d2h`` and ``plan.materialize`` on
+``scratchpipe-d2h``; ``cache.*`` counters per [Train], per-table cells,
+and lazy gauges over the byte counters and the planner (``obs_labels=``
+adds labels). With both off the hot loop sees ``NULL_SPAN`` and ``is
+None`` branches only; a traced run is bitwise equal to an untraced one.
+
+Supervision (``supervise=SupervisePolicy(...)``, overlapped executor): a
+host or d2h op that raises or outlives ``op_timeout`` is recomputed INLINE
+on the calling thread, every op from the failed one on in submission
+order, after its stalled future is quiesced; a d2h op's replay waits on
+the same pending copy (it never enqueues a second one). After
+``degrade_after`` incidents the pools are shut down and the runtime runs
+``executor="sync"`` for the rest of the run. Results are unchanged either
+way. :meth:`state_arrays`/:meth:`load_state_arrays` snapshot and restore
+the whole runtime at any cycle, mid-window included (planner, scratchpad,
+host table in place, traffic counters, the in-flight entries), so a
+restored run is bitwise equal to the uninterrupted one.
+
+The reference's ``storage_dtype`` (an fp32-path experiment knob that no
+launcher, benchmark or example of the reference sets) is not carried over.
 """
 from __future__ import annotations
 
 import collections
 import dataclasses
-from concurrent.futures import Future, ThreadPoolExecutor
+from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Callable, Deque, Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from repro_torch.checkpoint.pack import pack_blob, unpack_blob
 from repro_torch.core import quantize as qz
 from repro_torch.core import scratchpad as sp
 from repro_torch.core.host_table import HostEmbeddingTable, HostTraffic
@@ -106,7 +129,14 @@ from repro_torch.core.plan import Planner, PlanResult, pad_index, pad_rows
 from repro_torch.core.plan_device import DevicePlanner
 from repro_torch.core.quantize import QuantStorage
 from repro_torch.core.runtime import register_runtime
-from repro_torch.device import HostCopy, resolve_device
+from repro_torch.device import HostCopy, PendingCopy, resolve_device
+from repro_torch.obs import NULL_SPAN, resolve as obs_resolve
+from repro_torch.runtime.supervision import (
+    OpSupervisor,
+    SupervisedOp,
+    SupervisePolicy,
+    TransientOpError,
+)
 
 
 @dataclasses.dataclass
@@ -138,12 +168,6 @@ _PLAN_FIELDS = (
 )
 
 
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to repro_torch yet (ROADMAP.md Queue 1 {item})"
-    )
-
-
 def _map_rows(fn, rows):
     """``fn`` over a row block, or over both halves of an int8
     ``(payload, scale)`` pair (a :class:`QuantStorage` stays one)."""
@@ -160,9 +184,24 @@ def _numel(x) -> int:
 
 
 def _wait_rows(pending):
-    """d2h-thread task: wait for a victim copy (both halves of an int8
-    pair) and return it as numpy."""
-    return _map_rows(lambda p: p.wait(), pending)
+    """The victims' d2h (both halves of an int8 pair) as numpy: on the d2h
+    thread a wait for a copy the main thread enqueued (``PendingCopy``);
+    under the sync executor a blocking copy of the tensors, on the main
+    thread."""
+    return _map_rows(
+        lambda p: p.wait() if isinstance(p, PendingCopy) else p.cpu().numpy(), pending)
+
+
+def _to_numpy(x):
+    """A tensor (an int8 pair: both halves) -> an owning numpy copy; None
+    stays None. Pairs come back as plain tuples (the blob's form)."""
+    if x is None:
+        return None
+    if isinstance(x, tuple):
+        return tuple(_to_numpy(a) for a in x)
+    if isinstance(x, torch.Tensor):
+        return x.detach().to("cpu", copy=True).numpy()
+    return np.array(x)
 
 
 @dataclasses.dataclass
@@ -172,12 +211,12 @@ class _InFlight:
     plan: Optional[PlanResult] = None
     # int8 rows travel as (payload, scale) pairs in each of the four fields
     host_rows: Any = None  # [Collect] host->staging (quantized)
-    host_rows_f: Optional[Future] = None  # overlapped: pending gather
+    host_rows_f: Optional[SupervisedOp] = None  # overlapped: pending gather
     evicted_dev: Any = None  # [Collect] device victim read
     evict_ready: Any = None  # overlapped: event right after the victim read
     fetched_dev: Any = None  # [Exchange] h2d
     evicted_host: Any = None  # [Exchange] d2h
-    evicted_host_f: Optional[Future] = None  # overlapped: pending d2h
+    evicted_host_f: Optional[SupervisedOp] = None  # overlapped: pending d2h
     stage: int = 0  # stages completed: 1=planned .. 4=inserted
 
 
@@ -200,17 +239,14 @@ class ScratchPipe:
         pad_buckets: Optional[Sequence[int]] = None,
         tracer=None,
         metrics=None,
-        supervise=None,
+        obs_labels: Optional[Dict[str, str]] = None,
+        supervise: Optional[SupervisePolicy] = None,
         device="cuda",
     ):
         if executor not in ("sync", "overlapped"):
             raise ValueError(f"unknown executor {executor!r}")
         if planner not in ("host", "device"):
             raise ValueError(f"unknown planner placement {planner!r}")
-        if supervise is not None:
-            raise _not_ported("supervise", "item 12")
-        if tracer is not None or metrics is not None:
-            raise _not_ported("tracer/metrics", "item 12")
         self.device = resolve_device(device)
         # an explicit precision= must agree with the group's (uniform) one:
         # one storage holds one replica format
@@ -270,7 +306,7 @@ class ScratchPipe:
         # d2h thread that waits for the copies back
         self._host_pool: Optional[ThreadPoolExecutor] = None
         self._d2h_pool: Optional[ThreadPoolExecutor] = None
-        self._pending: Deque[Future] = collections.deque()
+        self._pending: Deque[SupervisedOp] = collections.deque()
         self._copy: Optional[HostCopy] = None
         if executor == "overlapped":
             self._host_pool = ThreadPoolExecutor(
@@ -278,6 +314,8 @@ class ScratchPipe:
             self._d2h_pool = ThreadPoolExecutor(
                 max_workers=1, thread_name_prefix="scratchpipe-d2h")
             self._copy = HostCopy(self.device)
+        # -- telemetry, resolved once (with both off: NULL_SPAN, `is None`)
+        self._tracer, self._metrics = obs_resolve(tracer, metrics)
         self._gather_fn = self.host.gather
         if self.precision != "fp32":
             # master -> replica quantization inside the gather, so under
@@ -287,6 +325,70 @@ class ScratchPipe:
                 return qz.quantize_rows_np(_g(ids), _p)
 
             self._gather_fn = _gather_quantized
+        self._writeback_fn = self._writeback
+        self._d2h_fn = _wait_rows
+        if self._tracer is not None:
+            # wrapped once, here, so the spans land on the thread that runs
+            # the function; the precision's own gather is the one wrapped
+            # (the reference wraps host.gather, which drops the quantize)
+            self._gather_fn = self._tracer.wrap("collect.gather", self._gather_fn,
+                                                cat="host")
+            self._writeback_fn = self._tracer.wrap("insert.writeback", self._writeback,
+                                                   cat="host")
+            self._d2h_fn = self._tracer.wrap("exchange.d2h", _wait_rows, cat="d2h")
+        self._mc = None
+        if self._metrics is not None:
+            self._setup_metrics(dict(obs_labels or {}))
+        # -- supervised execution: only the overlapped executor has workers
+        self.supervise = supervise
+        self._sv: Optional[OpSupervisor] = None
+        if supervise is not None and executor == "overlapped":
+            self._sv = OpSupervisor(supervise, metrics=self._metrics, tracer=self._tracer)
+
+    def _setup_metrics(self, labels: Dict[str, str]) -> None:
+        """Counter cells made now; gauges read the byte counters and the
+        planner lazily, at snapshot time (nothing added per cycle)."""
+        m = self._metrics
+        labels.setdefault("runtime", "scratchpipe" if self.pipelined else "strawman")
+        self._mc = {k: m.counter(f"cache.{k}", **labels)
+                    for k in ("cycles", "lookups", "unique", "hits", "misses",
+                              "evicts", "fills")}
+        self._tbl_counters = None
+        if self.table_group is not None:
+            self._tbl_counters = [
+                (m.counter("cache.hits", table=t.name, **labels),
+                 m.counter("cache.misses", table=t.name, **labels))
+                for t in self.table_group.tables
+            ]
+        m.gauge("scratchpad.bytes", fn=lambda: sp.storage_bytes(self.storage),
+                dtype=self.precision, **labels)
+        m.gauge("traffic.pcie.h2d_bytes", fn=lambda: self.pcie.written, **labels)
+        m.gauge("traffic.pcie.d2h_bytes", fn=lambda: self.pcie.read, **labels)
+        m.gauge("traffic.hbm.read_bytes", fn=lambda: self.hbm.read, **labels)
+        m.gauge("traffic.hbm.written_bytes", fn=lambda: self.hbm.written, **labels)
+        m.gauge("traffic.host.read_bytes", fn=lambda: self.host.traffic.read, **labels)
+        m.gauge("traffic.host.written_bytes", fn=lambda: self.host.traffic.written,
+                **labels)
+        m.gauge("planner.occupancy", fn=lambda: self.planner.occupancy, **labels)
+        m.gauge("planner.hold_occupancy", fn=self._hold_occupancy, **labels)
+        m.gauge("planner.memo.hits", fn=lambda: self._memo_counts()[0], **labels)
+        m.gauge("planner.memo.misses", fn=lambda: self._memo_counts()[1], **labels)
+
+    def _hold_occupancy(self) -> int:
+        """Slots held by the RAW window (hold register != 0)."""
+        if isinstance(self.planner, DevicePlanner):  # one register per table
+            return sum(int((s.hold[:-1] != 0).sum()) for s in self.planner._states)
+        return int(np.count_nonzero(self.planner.hold))
+
+    def _memo_counts(self) -> Tuple[int, int]:
+        """(hits, misses) of the planner's per-batch memo (the host
+        planner's digest cache, the device planner's prep cache)."""
+        c = self.planner._prep if isinstance(self.planner, DevicePlanner) else self.planner._digests
+        return c.hits, c.misses
+
+    def _span(self, name: str, cat: str = "train"):
+        t = self._tracer
+        return NULL_SPAN if t is None else t.span(name, cat)
 
     def _index(self, idx: np.ndarray) -> torch.Tensor:
         """A host index vector -> int32 tensor on the device (h2d)."""
@@ -302,33 +404,122 @@ class ScratchPipe:
     # ------------------------------------------------------------------ #
     # overlapped-executor plumbing
     # ------------------------------------------------------------------ #
-    def _submit_host(self, fn, *args) -> Future:
-        fut = self._host_pool.submit(fn, *args)
-        self._pending.append(fut)
+    def _submit_host(self, fn, *args) -> SupervisedOp:
+        if self._host_pool is None:
+            # degraded mid-run: execute inline (sync semantics)
+            return SupervisedOp.completed(fn, args, fn(*args))
+        op = SupervisedOp(fn, args)
+        op.future = self._host_pool.submit(fn, *args)
+        self._pending.append(op)
         # reap retired work each cycle: surfaces worker exceptions promptly
         # and keeps the deque from growing with the run length
-        while self._pending and self._pending[0].done():
-            self._pending.popleft().result()
-        return fut
+        while self._pending and self._pending[0].probe_done() and self._settle_head():
+            pass
+        return op
 
-    def _op_result(self, fut: Future):
-        """A host-queue result, read on the calling thread; a worker's
-        exception raises here."""
-        if fut in self._pending:
-            self._pending.remove(fut)
-        return fut.result()
+    def _settle_head(self) -> bool:
+        """Settle the oldest queued op. Unsupervised, a worker's exception
+        raises here; under supervision a failed or stalled op starts the
+        ordered inline recovery of the whole queue, and False is returned
+        (the queue is then empty)."""
+        if self._sv is None:
+            self._pending.popleft().result_now()
+            return True
+        try:
+            self._pending[0].wait(self._sv.policy.op_timeout)
+        except TransientOpError as e:
+            self._sv.note_failure(e)
+            self._recover_pending()
+            return False
+        self._pending.popleft()
+        return True
+
+    def _op_result(self, op: SupervisedOp):
+        """A host-queue result, read on the calling thread. Every EARLIER op
+        settles first (submission order), so under supervision a failure
+        upstream of ``op`` is recovered before a value computed against
+        tainted host state is consumed."""
+        while not op.settled and self._pending and self._settle_head():
+            pass
+        return op.result_now()
 
     def _barrier(self) -> None:
         """Wait for every outstanding host operation (gathers, write-backs,
         and through them the victims' copies). Called at run and drain ends
-        and before anything reads the host table or its counters."""
-        while self._pending:
-            self._pending.popleft().result()
+        and before anything reads the host table or its counters. Under
+        supervision a failed or stalled op is recovered inline instead of
+        raising."""
+        while self._pending and self._settle_head():
+            pass
 
-    def _writeback(self, evict_ids: np.ndarray, d2h: Future) -> None:
+    def _recover_pending(self) -> None:
+        """Ordered recovery of the host-op queue after a failure or timeout:
+        every op from the first failed one on is recomputed INLINE (on this,
+        the calling thread) in submission order. Host ops are pure reads
+        (gather) or idempotent writes keyed by evict ids (scatter), so the
+        replay reproduces the sync engine's host-table interleaving exactly.
+        Retries are bounded by the policy; repeated incidents degrade the
+        runtime to the sync executor."""
+        sv = self._sv
+        with self._span("ft.recover", cat="host"):
+            poisoned = False
+            while self._pending:
+                op = self._pending.popleft()
+                if not poisoned:
+                    try:
+                        op.wait(sv.policy.op_timeout)
+                        continue
+                    except TransientOpError as e:
+                        sv.note_failure(e)
+                        poisoned = True
+                # quiesce before replaying: never run the op inline while a
+                # (stalled) worker might still be executing it
+                f = op.future
+                if f is not None and not f.done() and not f.cancel():
+                    try:
+                        op.wait(sv.policy.op_timeout * 5)
+                    except TransientOpError:
+                        pass
+                if not op.settled:
+                    sv.run_inline(op)
+        if sv.note_incident():
+            self._degrade_to_sync()
+
+    def _degrade_to_sync(self) -> None:
+        """After repeated worker faults: settle every in-flight op, abandon
+        the pools, and run every later stage inline (``executor="sync"``).
+        Output is unchanged — the sync order IS the reference order — only
+        overlap is lost."""
+        if self._host_pool is None and self._d2h_pool is None:
+            return
+        self._sv.note_degraded()
+        for e in self._window:
+            if e.host_rows_f is not None:
+                e.host_rows = self._sv.value_or_inline(e.host_rows_f)
+                e.host_rows_f = None
+            if e.evicted_host_f is not None:
+                e.evicted_host = self._sv.value_or_inline(e.evicted_host_f)
+                e.evicted_host_f = None
+        pools = [p for p in (self._host_pool, self._d2h_pool) if p is not None]
+        self._host_pool = self._d2h_pool = None
+        self.executor = "sync"
+        for p in pools:
+            # queued work (a device plan's materialize) still completes;
+            # the threads then exit — nothing new is ever submitted
+            p.shutdown(wait=False)
+
+    def _d2h_value(self, d2h):
+        """A victims' d2h value: a SupervisedOp (overlapped; recomputed
+        inline under supervision — a wait on the same pending copy, so the
+        value is byte-identical), or already host rows."""
+        if isinstance(d2h, SupervisedOp):
+            return d2h.result_now() if self._sv is None else self._sv.value_or_inline(d2h)
+        return d2h
+
+    def _writeback(self, evict_ids: np.ndarray, d2h) -> None:
         """Host-worker task: wait for the victims' d2h, then scatter. Runs
         strictly after every earlier-submitted gather (one ordered worker)."""
-        self.host.scatter(evict_ids, self._dequant(d2h.result()))
+        self.host.scatter(evict_ids, self._dequant(self._d2h_value(d2h)))
 
     def close(self) -> None:
         """Quiesce and release the overlapped executor's threads.
@@ -345,79 +536,90 @@ class ScratchPipe:
     # stages
     # ------------------------------------------------------------------ #
     def _stage_plan(self, entry: _InFlight, lookahead: List[np.ndarray]):
-        entry.plan = self.planner.plan(entry.ids, lookahead)
-        if self._d2h_pool is not None and hasattr(entry.plan, "start_materialize"):
-            # device planner + overlapped: the miss/evict vectors come back
-            # on the d2h thread, beside [Train]
-            entry.plan.start_materialize(self._d2h_pool)
+        with self._span("plan"):
+            entry.plan = self.planner.plan(entry.ids, lookahead)
+            if self._d2h_pool is not None and hasattr(entry.plan, "start_materialize"):
+                # device planner + overlapped: the miss/evict vectors come
+                # back on the d2h thread, beside [Train]
+                entry.plan.start_materialize(self._d2h_pool, tracer=self._tracer)
 
     def _stage_collect(self, entry: _InFlight):
-        p = entry.plan
-        if p.miss_ids.size:
-            # host read; master -> replica quantization on the host, so the
-            # h2d copy below already moves the small rows
-            if self._host_pool is not None:
-                entry.host_rows_f = self._submit_host(self._gather_fn, p.miss_ids)
-            else:
-                entry.host_rows = self._gather_fn(p.miss_ids)
-        if p.evict_slots.size:
-            # pad victim reads to the pow-2 bucket (slot 0 is always safe
-            # to read); the d2h side slices the real rows back out
-            entry.evicted_dev = sp.read(
-                self.storage, self._index(pad_index(p.evict_slots, 0, self.pad_buckets))
-            )
-            if self._copy is not None:
-                entry.evict_ready = self._copy.ready()
-        self.hbm.read += p.evict_slots.size * self._row_bytes
+        with self._span("collect"):
+            p = entry.plan
+            if p.miss_ids.size:
+                # host read; master -> replica quantization on the host, so
+                # the h2d copy below already moves the small rows
+                if self._host_pool is not None:
+                    entry.host_rows_f = self._submit_host(self._gather_fn, p.miss_ids)
+                else:
+                    entry.host_rows = self._gather_fn(p.miss_ids)
+            if p.evict_slots.size:
+                # pad victim reads to the pow-2 bucket (slot 0 is always
+                # safe to read); the d2h side slices the real rows back out
+                entry.evicted_dev = sp.read(
+                    self.storage,
+                    self._index(pad_index(p.evict_slots, 0, self.pad_buckets)))
+                if self._d2h_pool is not None:
+                    entry.evict_ready = self._copy.ready()
+            self.hbm.read += p.evict_slots.size * self._row_bytes
 
     def _stage_exchange(self, entry: _InFlight):
-        p = entry.plan
-        if p.miss_ids.size:  # h2d, both halves of an int8 pair
-            rows = (self._op_result(entry.host_rows_f)
-                    if entry.host_rows_f is not None else entry.host_rows)
-            entry.fetched_dev = _map_rows(
-                lambda r: torch.from_numpy(pad_rows(r, self.pad_buckets)).to(self.device),
-                rows,
-            )
-        n_evict = int(p.evict_slots.size)
-        if n_evict and self._copy is not None:
-            # the copies are enqueued here (the launching thread); the d2h
-            # thread only waits for them
-            pending = _map_rows(
-                lambda t: self._copy.start(t[:n_evict], entry.evict_ready),
-                entry.evicted_dev,
-            )
-            entry.evicted_host_f = self._d2h_pool.submit(_wait_rows, pending)
-        elif n_evict:  # d2h of the real victims, padding dropped
-            entry.evicted_host = _map_rows(
-                lambda t: t[:n_evict].cpu().numpy(), entry.evicted_dev
-            )
-        self.pcie.written += p.miss_ids.size * self._row_bytes
-        self.pcie.read += p.evict_slots.size * self._row_bytes
+        with self._span("exchange"):
+            p = entry.plan
+            if p.miss_ids.size:  # h2d, both halves of an int8 pair
+                rows = (self._op_result(entry.host_rows_f)
+                        if entry.host_rows_f is not None else entry.host_rows)
+                entry.fetched_dev = _map_rows(
+                    lambda r: torch.from_numpy(pad_rows(r, self.pad_buckets)).to(self.device),
+                    rows,
+                )
+            n_evict = int(p.evict_slots.size)
+            if n_evict and self._d2h_pool is not None:
+                # the copies are enqueued here (the launching thread); the
+                # d2h thread only waits for them, and so does a replay
+                pending = _map_rows(
+                    lambda t: self._copy.start(t[:n_evict], entry.evict_ready),
+                    entry.evicted_dev,
+                )
+                op = SupervisedOp(self._d2h_fn, (pending,))
+                op.future = self._d2h_pool.submit(self._d2h_fn, pending)
+                entry.evicted_host_f = op
+            elif n_evict:  # d2h of the real victims, padding dropped
+                entry.evicted_host = self._d2h_fn(
+                    _map_rows(lambda t: t[:n_evict], entry.evicted_dev))
+            self.pcie.written += p.miss_ids.size * self._row_bytes
+            self.pcie.read += p.evict_slots.size * self._row_bytes
 
     def _stage_insert_host(self, entry: _InFlight):
         """[Insert], host half: write evicted (dirty, trained) rows back."""
-        p = entry.plan
-        if p.evict_ids.size:
-            if self._host_pool is not None:
-                self._submit_host(self._writeback, p.evict_ids, entry.evicted_host_f)
-            else:
-                self.host.scatter(p.evict_ids, self._dequant(entry.evicted_host))
+        with self._span("insert_host"):
+            p = entry.plan
+            if p.evict_ids.size:
+                if self._host_pool is not None:
+                    self._submit_host(self._writeback_fn, p.evict_ids,
+                                      entry.evicted_host_f)
+                else:
+                    self.host.scatter(p.evict_ids, self._dequant(entry.evicted_host))
 
     def _stage_insert_fill(self, entry: _InFlight):
         """[Insert], device half: fill fetched rows into their slots."""
-        p = entry.plan
-        if p.fill_slots.size:
-            self.storage = sp.fill(
-                self.storage,
-                self._index(pad_index(p.fill_slots, self.num_slots, self.pad_buckets)),
-                entry.fetched_dev,
-            )
-        self.hbm.written += p.fill_slots.size * self._row_bytes
+        with self._span("insert_fill"):
+            p = entry.plan
+            if p.fill_slots.size:
+                self.storage = sp.fill(
+                    self.storage,
+                    self._index(pad_index(p.fill_slots, self.num_slots, self.pad_buckets)),
+                    entry.fetched_dev,
+                )
+            self.hbm.written += p.fill_slots.size * self._row_bytes
 
     def _stage_train(
         self, entry: _InFlight, fused_entry: Optional[_InFlight] = None
     ) -> StepStats:
+        with self._span("train"):
+            return self._train_body(entry, fused_entry)
+
+    def _train_body(self, entry: _InFlight, fused_entry: Optional[_InFlight]) -> StepStats:
         p = entry.plan
         if fused_entry is not None:
             # one launch: the younger batch's [Insert]-fill rides inside
@@ -454,6 +656,20 @@ class ScratchPipe:
             aux=aux,
         )
         self._stats.append(st)
+        mc = self._mc
+        if mc is not None:
+            mc["cycles"].inc()
+            mc["lookups"].inc(st.n_lookups)
+            mc["unique"].inc(st.n_unique)
+            mc["hits"].inc(st.n_hits)
+            mc["misses"].inc(st.n_miss)
+            mc["evicts"].inc(st.n_evict)
+            mc["fills"].inc(int(p.fill_slots.size))
+            if by_table is not None and self._tbl_counters is not None:
+                for (ch, cm), h, m in zip(self._tbl_counters, by_table["hits"],
+                                          by_table["misses"]):
+                    ch.inc(int(h))
+                    cm.inc(int(m))
         return st
 
     # ------------------------------------------------------------------ #
@@ -589,11 +805,127 @@ class ScratchPipe:
                              sp.read(self.storage, self._index(live)))
             self.host.scatter(slot_to_id[live], self._dequant(vals))
 
+    # -- checkpoint/restart (crash-consistent, ANY cycle) ------------------ #
+    @staticmethod
+    def _capture_plan(p) -> dict:
+        """A plan (host PlanResult, or a device plan: its host fields
+        materialize, its device ``slots`` come back) -> a plain host dict
+        of the ``_PLAN_FIELDS``."""
+        out: Dict[str, Any] = {}
+        for f in _PLAN_FIELDS:
+            v = getattr(p, f)
+            if f in ("step", "n_unique", "n_hits"):
+                out[f] = int(v)
+            else:
+                out[f] = None if v is None else _to_numpy(v)
+        return out
+
+    def _to_device(self, x):
+        """Host rows (an int8 pair: both halves) -> tensors on the device."""
+        if x is None:
+            return None
+        if isinstance(x, tuple):
+            return tuple(self._to_device(a) for a in x)
+        return torch.from_numpy(np.array(x)).to(self.device)
+
+    def _capture_window(self) -> list:
+        """Every in-flight entry as host structures. Pending ops are
+        RESOLVED (not cancelled): after ``_barrier()`` the host queue is
+        drained, and the d2h waits settle here. Non-destructive — the
+        entries keep their (now settled) ops and the run continues."""
+        entries = []
+        for e in self._window:
+            host_rows = e.host_rows
+            if e.host_rows_f is not None:
+                host_rows = self._op_result(e.host_rows_f)
+            evicted_host = e.evicted_host
+            if e.evicted_host_f is not None:
+                evicted_host = self._d2h_value(e.evicted_host_f)
+            entries.append({
+                "ids": np.asarray(e.ids),
+                "stage": int(e.stage),
+                "batch": e.batch,  # host-normalized inside pack_blob
+                "plan": None if e.plan is None else self._capture_plan(e.plan),
+                "host_rows": _to_numpy(host_rows),
+                "evicted_dev": _to_numpy(e.evicted_dev),
+                "fetched_dev": _to_numpy(e.fetched_dev),
+                "evicted_host": _to_numpy(evicted_host),
+            })
+        return entries
+
+    def _restore_entry(self, d: dict) -> _InFlight:
+        e = _InFlight(np.asarray(d["ids"]), d["batch"])
+        e.stage = int(d["stage"])
+        if d["plan"] is not None:
+            # always a host PlanResult: the captured fields are exactly what
+            # later stages consume, equal to what either planner produced
+            e.plan = PlanResult(**d["plan"])
+        e.host_rows = d["host_rows"]
+        e.evicted_dev = self._to_device(d["evicted_dev"])
+        e.fetched_dev = self._to_device(d["fetched_dev"])
+        ev = d["evicted_host"]
+        if ev is not None:
+            if self._host_pool is not None:
+                # [Insert]-host under overlapped hands the op straight to the
+                # write-back task: restore it settled
+                e.evicted_host_f = SupervisedOp.completed(lambda *_a, _v=ev: _v, (), ev)
+            else:
+                e.evicted_host = ev
+        return e
+
     def state_arrays(self) -> dict:
-        raise _not_ported("checkpointing (state_arrays)", "item 12")
+        """Crash-consistent host snapshot at ANY cycle: planner state,
+        scratchpad contents (int8: ``storage`` + ``storage_scale``), host
+        table, traffic counters and the in-flight hold window (``window``:
+        a packed blob of the queued batches, staged rows and settled d2h
+        values), in the reference's keys. ``_barrier()`` first drains the
+        ordered host queue, so every captured value is the sync engine's at
+        this cycle. Every array is a copy except ``host_table``, which is
+        the live table (``CheckpointManager.save`` copies it)."""
+        self._barrier()
+        out = {"host_table": self.host.data}
+        if isinstance(self.storage, QuantStorage):
+            out["storage"] = _to_numpy(self.storage.data)
+            out["storage_scale"] = _to_numpy(self.storage.scale)
+        else:
+            out["storage"] = _to_numpy(self.storage)
+        for k, v in self.planner.state_dict().items():
+            out[f"planner_{k}"] = np.array(v)
+        out["traffic"] = np.array(
+            [self.pcie.read, self.pcie.written, self.hbm.read, self.hbm.written,
+             self.host.traffic.read, self.host.traffic.written], dtype=np.int64)
+        if self._window:
+            out["window"] = pack_blob(self._capture_window())
+        return out
 
     def load_state_arrays(self, arrays: dict) -> None:
-        raise _not_ported("checkpointing (load_state_arrays)", "item 12")
+        """Load a :meth:`state_arrays` snapshot (this package's or the
+        reference's) into this runtime: the host table IN PLACE (a shard's
+        table is a view of the caller's), the scratchpad, the planner, the
+        counters and the in-flight window onto this runtime's device."""
+        self._barrier()
+        self._window.clear()
+        ht = np.asarray(arrays["host_table"])
+        if ht.shape != self.host.data.shape:
+            raise ValueError(f"checkpoint host table {ht.shape} != {self.host.data.shape}")
+        self.host.data[...] = ht
+        self.host.reguard()
+        if "storage_scale" in arrays:
+            self.storage = QuantStorage(self._to_device(arrays["storage"]),
+                                        self._to_device(arrays["storage_scale"]))
+        else:
+            self.storage = self._to_device(arrays["storage"])
+        self.planner.load_state_dict(
+            {k[len("planner_"):]: np.array(v) for k, v in arrays.items()
+             if k.startswith("planner_")})
+        if "traffic" in arrays:
+            t = [int(x) for x in np.asarray(arrays["traffic"])]
+            self.pcie.read, self.pcie.written = t[0], t[1]
+            self.hbm.read, self.hbm.written = t[2], t[3]
+            self.host.traffic.read, self.host.traffic.written = t[4], t[5]
+        if "window" in arrays:
+            for d in unpack_blob(arrays["window"]):
+                self._window.append(self._restore_entry(d))
 
     @property
     def stats(self) -> List[StepStats]:

@@ -337,13 +337,17 @@ class DevicePlanResult:
         self._future = None
         self._host = False
 
-    def start_materialize(self, pool) -> None:
+    def start_materialize(self, pool, tracer=None) -> None:
         """Enqueue the packed outputs' d2h (here: the caller's thread, the
         one that launches) and submit its wait and the compaction to
-        ``pool``."""
+        ``pool``; with a tracer they run under a ``plan.materialize`` span
+        on the pool's thread."""
         if not self._host and self._future is None:
             pending = self._copier.start(self._packed)
-            self._future = pool.submit(self._compact, pending)
+            fn = self._compact
+            if tracer is not None:
+                fn = tracer.wrap("plan.materialize", fn, cat="d2h")
+            self._future = pool.submit(fn, pending)
 
     def _compact(self, pending) -> dict:
         host = pending.wait()

@@ -34,15 +34,24 @@ and are never written back; the [Lookup] dequantizes in the kernel and
 returns fp32 bags, equal bit for bit to the fp32 oracle's over host rows
 that were quantized and dequantized the same way.
 
-Not ported yet (see ROADMAP.md): the ``tracer``/``metrics`` hooks,
-``fetch_retries``, ``state_arrays``/``load_state_arrays``/warm start
+Telemetry (``tracer=``/``metrics=``, or the global install of
+``repro_torch.obs``): ``serve``, ``serve.plan``, ``serve.advance`` and
+``serve.emergency`` spans, the ``serve.*`` counters, the
+``serve.latency_us`` histogram and lazy gauges, labelled with the design's
+name, as in the reference.
+
+Not ported yet (see ROADMAP.md): serving recovery — ``fetch_retries`` and
+its failsafe, ``state_arrays``/``load_state_arrays``/warm start
 (``convert.py`` carries a reference server's fp32 state across instead;
-Queue 1 item 12), and the ``storage_dtype`` knob (item 11).
+Queue 1 item 12). Not carried over: the reference's ``storage_dtype``, an
+fp32-path experiment knob that no launcher, benchmark or example of the
+reference sets.
 """
 from __future__ import annotations
 
 import collections
 import dataclasses
+import time
 from typing import Any, Deque, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -57,6 +66,7 @@ from repro_torch.core.plan import Planner, PlanResult, pad_index, pad_rows
 from repro_torch.core.runtime import register_runtime
 from repro_torch.core.table_group import TableGroup
 from repro_torch.device import resolve_device
+from repro_torch.obs import NULL_SPAN, resolve as obs_resolve
 
 
 def _lookup_bags(storage, slots: np.ndarray) -> np.ndarray:
@@ -86,12 +96,15 @@ class _ServingRuntimeBase:
     """Queue surface + EmbeddingCacheRuntime protocol shared by the serving
     designs. Unpipelined designs serve a whole batch per cycle."""
 
+    _RUNTIME_NAME = "serve"
 
     def __init__(
         self,
         host_table: HostEmbeddingTable,
         *,
         queue_depth: int = 0,
+        tracer=None,
+        metrics=None,
         device="cuda",
     ):
         self.host = host_table
@@ -102,6 +115,32 @@ class _ServingRuntimeBase:
         self._queue: Deque[_ServeEntry] = collections.deque()
         self._stats: List[StepStats] = []
         self._step = 0
+        # opt-in telemetry, resolved once
+        self._tracer, self._metrics = obs_resolve(tracer, metrics)
+        self._mc = None
+        self._latency = None
+        m = self._metrics
+        if m is not None:
+            lbl = {"runtime": self._RUNTIME_NAME}
+            # fetch_failures/failsafe stay 0 until serving recovery is
+            # ported; kept so the snapshot has the reference's cells
+            self._mc = {k: m.counter(f"serve.{k}", **lbl)
+                        for k in ("requests", "lookups", "hits", "misses",
+                                  "emergency_serves", "emergency_rows",
+                                  "fetch_failures", "failsafe")}
+            self._latency = m.histogram("serve.latency_us", **lbl)
+            m.gauge("serve.queue_depth", fn=lambda: len(self._queue), **lbl)
+            m.gauge("traffic.pcie.h2d_bytes", fn=lambda: self.pcie.written, **lbl)
+            m.gauge("traffic.pcie.d2h_bytes", fn=lambda: self.pcie.read, **lbl)
+            m.gauge("traffic.hbm.read_bytes", fn=lambda: self.hbm.read, **lbl)
+            m.gauge("traffic.hbm.written_bytes", fn=lambda: self.hbm.written, **lbl)
+            m.gauge("traffic.host.read_bytes", fn=lambda: self.host.traffic.read, **lbl)
+            m.gauge("traffic.host.written_bytes",
+                    fn=lambda: self.host.traffic.written, **lbl)
+
+    def _span(self, name: str, cat: str = "serve"):
+        t = self._tracer
+        return NULL_SPAN if t is None else t.span(name, cat)
 
     # -- queue surface ------------------------------------------------------
     def enqueue(self, ids: np.ndarray, tag: Any = None) -> None:
@@ -123,7 +162,20 @@ class _ServingRuntimeBase:
             raise IndexError("serve_next on an empty queue")
         entry = self._queue.popleft()
         self._step += 1
-        bags, st = self._serve(entry)
+        mc = self._mc
+        t0 = time.perf_counter() if mc is not None else 0.0
+        with self._span("serve"):
+            bags, st = self._serve(entry)
+        if mc is not None:
+            self._latency.observe((time.perf_counter() - t0) * 1e6)
+            mc["requests"].inc()
+            mc["lookups"].inc(st.n_lookups)
+            mc["hits"].inc(st.n_hits)
+            mc["misses"].inc(st.n_miss)
+            em = st.aux.get("emergency", 0) if isinstance(st.aux, dict) else 0
+            if em:
+                mc["emergency_serves"].inc()
+                mc["emergency_rows"].inc(em)
         self._stats.append(st)
         return bags, st, entry.tag
 
@@ -167,6 +219,7 @@ class NoCacheServer(_ServingRuntimeBase):
     gather-reduce. No device-resident rows, no state — the bit-parity
     reference."""
 
+    _RUNTIME_NAME = "nocache-serve"
 
     def _serve(self, entry: _ServeEntry) -> Tuple[np.ndarray, StepStats]:
         ids = entry.ids
@@ -197,15 +250,20 @@ class StaticCacheServer(_ServingRuntimeBase):
     serves the micro-batch. Decays under drift exactly like the training
     variant — the comparison point the curve is measured against."""
 
+    _RUNTIME_NAME = "static-serve"
+
     def __init__(
         self,
         host_table: HostEmbeddingTable,
         hot_ids: np.ndarray,
         *,
         queue_depth: int = 0,
+        tracer=None,
+        metrics=None,
         device="cuda",
     ):
-        super().__init__(host_table, queue_depth=queue_depth, device=device)
+        super().__init__(host_table, queue_depth=queue_depth, tracer=tracer,
+                         metrics=metrics, device=device)
         self.hot_ids = np.asarray(np.sort(hot_ids), dtype=np.int64)
         self.id_to_slot = np.full(host_table.rows, -1, dtype=np.int64)
         self.id_to_slot[self.hot_ids] = np.arange(self.hot_ids.size)
@@ -262,6 +320,7 @@ class ReadOnlyCacheServer(_ServingRuntimeBase):
     ``num_slots * quantize.SLOT_MULTIPLIER[precision]`` rows.
     """
 
+    _RUNTIME_NAME = "scratchpipe-serve"
 
     def __init__(
         self,
@@ -275,11 +334,15 @@ class ReadOnlyCacheServer(_ServingRuntimeBase):
         slot_budgets=None,
         pad_buckets: Optional[Sequence[int]] = None,
         precision: Optional[str] = None,
+        tracer=None,
+        metrics=None,
         device="cuda",
     ):
         super().__init__(
             host_table,
             queue_depth=window if queue_depth is None else queue_depth,
+            tracer=tracer,
+            metrics=metrics,
             device=device,
         )
         self.window = int(window)
@@ -350,11 +413,12 @@ class ReadOnlyCacheServer(_ServingRuntimeBase):
         return out
 
     def _plan_entry(self, entry: _ServeEntry) -> None:
-        entry.plan = self.planner.plan(entry.ids, self._future_ids())
-        # newly (re-)assigned slots await their fill
-        if entry.plan.fill_slots.size:
-            self._landed[entry.plan.fill_slots] = False
-        entry.stage = 1
+        with self._span("serve.plan"):
+            entry.plan = self.planner.plan(entry.ids, self._future_ids())
+            # newly (re-)assigned slots await their fill
+            if entry.plan.fill_slots.size:
+                self._landed[entry.plan.fill_slots] = False
+            entry.stage = 1
 
     def _admitted(self, entry: _ServeEntry) -> None:
         self._refill_visible()
@@ -412,11 +476,12 @@ class ReadOnlyCacheServer(_ServingRuntimeBase):
     def _advance(self) -> None:
         """Advance every visible non-head entry one stage (the background
         pipeline work overlapping this cycle's serve)."""
-        for e in self._visible:
-            if e.stage == 1:
-                self._fetch(e)
-            elif e.stage == 2:
-                self._insert(e)
+        with self._span("serve.advance"):
+            for e in self._visible:
+                if e.stage == 1:
+                    self._fetch(e)
+                elif e.stage == 2:
+                    self._insert(e)
 
     # -- serve --------------------------------------------------------------
     def _serve(self, entry: _ServeEntry) -> Tuple[np.ndarray, StepStats]:
@@ -443,7 +508,8 @@ class ReadOnlyCacheServer(_ServingRuntimeBase):
         n_evict = int(entry.plan.evict_slots.size)
         missing = uniq[~resident_u]
         if missing.size:
-            n_evict += self._emergency_fill(entry, missing)
+            with self._span("serve.emergency"):
+                n_evict += self._emergency_fill(entry, missing)
 
         slots = self.planner.hitmap[flat]
         if not ((slots >= 0).all() and self._landed[slots].all()):

@@ -29,14 +29,16 @@ cache manager per embedding table, with per-table scratchpad budgets and
 each table's own replica precision — the route to MIXED per-table
 precisions, which one storage cannot hold).
 
+``tracer``/``metrics`` and ``supervise`` pass through to every shard (its
+cells labelled ``shard=<i>``; a watchdog of its own over its own pools);
+``state_arrays``/``load_state_arrays`` snapshot every shard under
+``shard<i>_`` keys between lockstep cycles, each shard's host table loading
+in place into the caller's table.
+
 The reference's ``kernel=`` and ``pad_buckets=`` options are not carried
 over: no caller of the port sets them (``sharded`` is not a ``--runtime``
 choice, so ``--adaptive-pad`` never reaches it; each shard pads to the
 pow-2 default).
-
-Not ported yet (each raises NotImplementedError with a pointer to
-ROADMAP.md): ``state_arrays``/``load_state_arrays``, ``supervise``,
-``tracer``/``metrics`` (item 12).
 """
 from __future__ import annotations
 
@@ -45,7 +47,7 @@ from typing import Any, Callable, Iterator, List, Optional, Sequence, Tuple, Uni
 import numpy as np
 
 from repro_torch.core.host_table import HostEmbeddingTable, HostTraffic
-from repro_torch.core.pipeline import ScratchPipe, StepStats, _not_ported
+from repro_torch.core.pipeline import ScratchPipe, StepStats
 from repro_torch.core.runtime import register_runtime
 from repro_torch.core.table_group import TableGroup
 
@@ -78,10 +80,6 @@ class ShardedScratchPipe:
         (str: uniform; sequence: one per shard). Per-shard ``num_slots``
         stay NOMINAL (fp32-row byte budgets); each manager applies its own
         capacity multiplier."""
-        if supervise is not None:
-            raise _not_ported("supervise", "item 12")
-        if tracer is not None or metrics is not None:
-            raise _not_ported("tracer/metrics", "item 12")
         rows = host_table.rows
         if boundaries is None:
             assert rows % num_shards == 0, (rows, num_shards)
@@ -142,6 +140,12 @@ class ShardedScratchPipe:
                     # the planner's monotone pad lengths
                     planner=planner,
                     precision=precision[i],
+                    tracer=tracer,
+                    metrics=metrics,
+                    # per-shard metric cells: same names, one label apart
+                    obs_labels={"shard": str(i)},
+                    # each shard's own watchdog over its own pools
+                    supervise=supervise,
                     device=device,
                 )
             )
@@ -268,11 +272,30 @@ class ShardedScratchPipe:
         for pipe in self.pipes:
             pipe.flush_to_host()
 
+    # -- checkpoint/restart (crash-consistent, ANY lockstep boundary) ------ #
     def state_arrays(self) -> dict:
-        raise _not_ported("checkpointing (state_arrays)", "item 12")
+        """Every shard's :meth:`ScratchPipe.state_arrays` under
+        ``shard<i>_<key>``. Called between lockstep cycles (every shard has
+        fired its [Train] or none has: no [Train] input is held), so a
+        restored N-shard run is bitwise equal to the uninterrupted one."""
+        if self._pending:
+            raise RuntimeError("checkpoint only between lockstep cycles")
+        out: dict = {}
+        for i, pipe in enumerate(self.pipes):
+            for k, v in pipe.state_arrays().items():
+                out[f"shard{i}_{k}"] = v
+        return out
 
     def load_state_arrays(self, arrays: dict) -> None:
-        raise _not_ported("checkpointing (load_state_arrays)", "item 12")
+        """Split the shard-indexed keys and load each shard; shard host
+        tables load IN PLACE, so the caller's table stays the one trained."""
+        self._pending = {}
+        for i, pipe in enumerate(self.pipes):
+            prefix = f"shard{i}_"
+            sub = {k[len(prefix):]: v for k, v in arrays.items() if k.startswith(prefix)}
+            if not sub:
+                raise KeyError(f"checkpoint has no arrays for shard {i}")
+            pipe.load_state_arrays(sub)
 
     @property
     def stats(self) -> List[StepStats]:

@@ -15,8 +15,9 @@ its in-place storage update), so end-to-end training math is identical;
 only row placement differs. Both satisfy the EmbeddingCacheRuntime protocol
 (run / run_one_cycle / flush_to_host / stats / traffic). The static cache
 takes a replica ``precision`` (fp16/int8 pinned region and transient miss
-tail, dequantized on the scatter back to the fp32 host masters); the
-``tracer``/``metrics`` hooks come with observability (ROADMAP.md).
+tail, dequantized on the scatter back to the fp32 host masters). Both take
+``tracer=``/``metrics=`` (``repro_torch.obs``): one ``step`` span per
+cycle, ``cache.*`` counters and lazy traffic gauges, as in the reference.
 """
 from __future__ import annotations
 
@@ -27,14 +28,51 @@ import torch
 
 from repro_torch.core import quantize as qz
 from repro_torch.core.host_table import HostEmbeddingTable, HostTraffic
-from repro_torch.core.pipeline import StepStats, _map_rows, _not_ported
+from repro_torch.core.pipeline import StepStats, _map_rows
 from repro_torch.core.plan import pad_rows
 from repro_torch.core.quantize import QuantStorage
 from repro_torch.core.runtime import register_runtime
 from repro_torch.device import resolve_device
+from repro_torch.obs import NULL_SPAN, resolve as obs_resolve
 
 
-class NoCacheBaseline:
+class _BaselineObs:
+    """Opt-in telemetry shared by the unpipelined baselines. Both run one
+    whole step per cycle on the calling thread, so one ``step`` span plus
+    the post-step counter batch covers them; traffic gauges read the byte
+    counters at snapshot time."""
+
+    def _init_obs(self, tracer, metrics, runtime_name: str) -> None:
+        self._tracer, self._metrics = obs_resolve(tracer, metrics)
+        self._mc = None
+        m = self._metrics
+        if m is None:
+            return
+        lbl = {"runtime": runtime_name}
+        self._mc = {k: m.counter(f"cache.{k}", **lbl)
+                    for k in ("cycles", "lookups", "unique", "hits", "misses")}
+        m.gauge("traffic.pcie.h2d_bytes", fn=lambda: self.pcie.written, **lbl)
+        m.gauge("traffic.pcie.d2h_bytes", fn=lambda: self.pcie.read, **lbl)
+        m.gauge("traffic.hbm.read_bytes", fn=lambda: self.hbm.read, **lbl)
+        m.gauge("traffic.hbm.written_bytes", fn=lambda: self.hbm.written, **lbl)
+        m.gauge("traffic.host.read_bytes", fn=lambda: self.host.traffic.read, **lbl)
+        m.gauge("traffic.host.written_bytes", fn=lambda: self.host.traffic.written, **lbl)
+
+    def _step(self, step: int, ids, batch) -> StepStats:
+        t = self._tracer
+        with NULL_SPAN if t is None else t.span("step", "train"):
+            st = self._step_body(step, ids, batch)
+        mc = self._mc
+        if mc is not None:
+            mc["cycles"].inc()
+            mc["lookups"].inc(st.n_lookups)
+            mc["unique"].inc(st.n_unique)
+            mc["hits"].inc(st.n_hits)
+            mc["misses"].inc(st.n_miss)
+        return st
+
+
+class NoCacheBaseline(_BaselineObs):
     """All embedding work on the host tier; the device only does the MLPs.
 
     ``train_fn(storage, slots, batch)`` is reused by presenting the
@@ -43,15 +81,17 @@ class NoCacheBaseline:
     are scattered back to the host.
     """
 
-    def __init__(self, host_table: HostEmbeddingTable, train_fn, *, device="cuda"):
+    def __init__(self, host_table: HostEmbeddingTable, train_fn, *, tracer=None,
+                 metrics=None, device="cuda"):
         self.device = resolve_device(device)
         self.host = host_table
         self.train_fn = train_fn
         self.pcie = HostTraffic()
         self.hbm = HostTraffic()  # stays zero: device holds no embedding rows
         self._stats: List[StepStats] = []
+        self._init_obs(tracer, metrics, "nocache")
 
-    def _step(self, step: int, ids, batch) -> StepStats:
+    def _step_body(self, step: int, ids, batch) -> StepStats:
         ids = np.asarray(ids)
         flat = ids.ravel()
         uniq, inv = np.unique(flat, return_inverse=True)
@@ -98,7 +138,7 @@ class NoCacheBaseline:
         return self._stats
 
 
-class StaticCacheBaseline:
+class StaticCacheBaseline(_BaselineObs):
     """Yin et al. static top-N cache. ``hot_ids`` (GLOBAL row ids, e.g.
     per-table top-N from ``data.synthetic.hot_ids_for_group``) are pinned
     on the device for the whole run.
@@ -116,6 +156,8 @@ class StaticCacheBaseline:
         train_fn,
         *,
         precision: str = "fp32",
+        tracer=None,
+        metrics=None,
         device="cuda",
     ):
         self.device = resolve_device(device)
@@ -135,8 +177,9 @@ class StaticCacheBaseline:
         )
         host_table.traffic.reset()  # preload is not steady-state traffic
         self._stats: List[StepStats] = []
+        self._init_obs(tracer, metrics, "static")
 
-    def _step(self, step: int, ids, batch) -> StepStats:
+    def _step_body(self, step: int, ids, batch) -> StepStats:
         ids = np.asarray(ids)
         flat = ids.ravel()
         uniq = np.unique(flat)
@@ -225,9 +268,6 @@ class StaticCacheBaseline:
 
 
 def _reject_unsupported(name: str, kw: dict) -> None:
-    obs = {k: kw.pop(k) for k in ("tracer", "metrics") if kw.get(k) is not None}
-    if obs:
-        raise _not_ported(f"{sorted(obs)} on runtime {name!r}", "item 12")
     extra = {k: v for k, v in kw.items() if v is not None}
     if extra:
         raise TypeError(
@@ -238,14 +278,16 @@ def _reject_unsupported(name: str, kw: dict) -> None:
 
 @register_runtime("nocache")
 def _make_nocache(host_table, train_fn, *, device="cuda", **kw) -> NoCacheBaseline:
+    obs_kw = {k: kw.pop(k, None) for k in ("tracer", "metrics")}
     _reject_unsupported("nocache", kw)
-    return NoCacheBaseline(host_table, train_fn, device=device)
+    return NoCacheBaseline(host_table, train_fn, device=device, **obs_kw)
 
 
 @register_runtime("static")
 def _make_static(host_table, train_fn, *, hot_ids, device="cuda", **kw) -> StaticCacheBaseline:
+    obs_kw = {k: kw.pop(k, None) for k in ("tracer", "metrics")}
     precision = kw.pop("precision", None) or "fp32"
     _reject_unsupported("static", kw)
     return StaticCacheBaseline(
-        host_table, hot_ids, train_fn, precision=precision, device=device
+        host_table, hot_ids, train_fn, precision=precision, device=device, **obs_kw
     )

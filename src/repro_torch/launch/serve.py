@@ -26,7 +26,10 @@ precision (a trace recorded from ``launch/train.py --precision int8
 pins the hottest rows of the first quarter of the batches. It prints the
 same ``serving``/``served``/``hit_rate=`` lines as the reference. Both
 modes run on the card; ``--device cpu`` runs the kernels' plain PyTorch
-versions instead. Warm start and the telemetry outputs are not ported yet
+versions instead. ``--metrics-out``/``--trace-out`` write the
+``repro_torch.obs`` snapshot and Chrome trace (spans of the serving
+runtime, the request front end and the replay's prefetch thread), as the
+reference's launcher does. Warm start (``--warm-start``) is not ported yet
 (ROADMAP.md Queue 1 item 12).
 """
 from __future__ import annotations
@@ -232,17 +235,38 @@ def build_parser() -> argparse.ArgumentParser:
     emb.add_argument("--dim", type=int, default=32)
     emb.add_argument("--lookups", type=int, default=8)
     emb.add_argument("--cache-frac", type=float, default=0.25)
+    emb.add_argument("--warm-start", default=None,
+                     help="not ported yet (serving recovery)")
+    ap.add_argument("--metrics-out", default=None,
+                    help="write an obs_metrics/v1 JSONL snapshot here at exit")
+    ap.add_argument("--trace-out", default=None,
+                    help="write a Chrome trace-event JSON here at exit")
     return ap
 
 
 def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
+    from repro_torch.launch.train import obs_export, obs_setup
+
     ap = build_parser()
     args = ap.parse_args(argv)
-    if args.embedding:
-        return run_embedding(args)
-    if args.arch is None:
+    if args.warm_start is not None:
+        ap.error("--warm-start (serving recovery) is not ported to repro_torch yet "
+                 "(ROADMAP.md Queue 1 item 12)")
+    if not args.embedding and args.arch is None:
         ap.error("pass --arch <id> or --embedding")
-    return run_lm(args)
+    tracer, metrics = obs_setup(args.trace_out, args.metrics_out)
+    try:
+        return run_embedding(args) if args.embedding else run_lm(args)
+    finally:
+        obs_export(
+            args.trace_out, args.metrics_out, tracer, metrics,
+            provenance={
+                "mode": "serve",
+                "design": args.design if args.embedding else args.arch,
+                "depth": args.depth, "device": args.device,
+                "scenario": None if args.trace else args.scenario,
+            },
+        )
 
 
 if __name__ == "__main__":

@@ -41,27 +41,152 @@ derive_pad_buckets``); the results are those of the pow-2 default. The
 ``sharded`` runtime (one manager per table) is reached through
 ``core.runtime.make_runtime``, as in the reference, not ``--runtime``.
 
-Not ported yet (each errors with a pointer to ROADMAP.md): the LM archs
-(item 18) and ``--supervise``/``--chaos`` (item 12).
+Telemetry: ``--metrics-out m.jsonl`` writes an ``obs_metrics/v1`` snapshot
+and ``--trace-out t.json`` a Chrome trace of spans on every thread
+(``repro_torch.obs``; check both with ``python -m repro_torch.obs.check``),
+with a provenance block; both are written on the way out, error paths
+included, and the global install is cleared there.
+
+Recovery: ``--supervise`` trains under
+``runtime.EmbeddingTrainSupervisor`` (crash-consistent checkpoints every
+``--ckpt-every`` admitted batches under ``--ckpt-dir``, default a fresh
+temporary directory that is printed; restore + fast-forward on a fault; a
+watchdog over the overlapped executor's workers) and prints a
+``state_digest=`` line; ``--chaos <spec>`` (implies ``--supervise``) arms
+``chaos.ChaosInjector`` on the runtime until each event has fired (across
+restarts, unlike the reference, which arms the first incarnation only), and
+``--verify-every k`` audits the host table's row checksums every k cycles.
+A supervised run's results equal the plain run's bit for bit.
+
+Not ported yet: the LM archs (item 18 of ROADMAP.md Queue 1).
 """
 from __future__ import annotations
 
 import argparse
 import os
+import tempfile
 import time
 from typing import Any, Dict, Optional, Sequence
 
 import numpy as np
 
+from repro_torch import obs
+
 ARCH = "dlrm-scratchpipe"
 
-#: options of the reference launcher that later slices port, with the
-#: ROADMAP.md item that carries each
-_NOT_PORTED = {
-    "supervise": ("recovery", 12),
-    "chaos": ("recovery", 12),
-}
-_DEFAULTS = {"supervise": False, "chaos": None}
+
+def obs_setup(trace_out, metrics_out):
+    """Build and globally install the opt-in telemetry pair (either side
+    may be None). Every runtime and stream built afterwards picks them up
+    through ``repro_torch.obs.resolve`` — one call covers every thread."""
+    tracer = obs.Tracer() if trace_out else None
+    metrics = obs.MetricsRegistry() if metrics_out else None
+    if tracer is not None or metrics is not None:
+        obs.install(tracer, metrics)
+    return tracer, metrics
+
+
+def obs_export(trace_out, metrics_out, tracer, metrics, provenance):
+    """Write the artifacts and clear the global install (also on error
+    paths — callers wrap the run in try/finally)."""
+    try:
+        if metrics is not None:
+            metrics.write_jsonl(metrics_out, provenance=provenance)
+            print(f"metrics snapshot -> {metrics_out}")
+        if tracer is not None:
+            n = tracer.export_chrome(trace_out)
+            print(f"chrome trace -> {trace_out} ({n} events)")
+    finally:
+        obs.install(None, None)
+
+
+def _state_digest(pipe, trainer, stats) -> str:
+    """SHA-256 over the final host tables, the dense parameters and the
+    loss trajectory — one line two runs can diff to prove bit-parity (a
+    chaos run against its clean twin)."""
+    import hashlib
+
+    h = hashlib.sha256()
+    pipes = getattr(pipe, "pipes", None)
+    for host in ([p.host for p in pipes] if pipes else [pipe.host]):
+        h.update(np.ascontiguousarray(host.data).tobytes())
+    if trainer is not None:
+        for v in trainer.model.state_dict().values():
+            h.update(v.detach().cpu().numpy().tobytes())
+    for s in stats:
+        loss = s.aux.get("loss") if isinstance(s.aux, dict) else s.aux
+        if loss is not None:
+            h.update(np.float64(float(loss)).tobytes())
+    return h.hexdigest()
+
+
+def _train_dlrm_supervised(args, build, batches, reader):
+    """DLRM training under ``EmbeddingTrainSupervisor``: periodic
+    crash-consistent checkpoints, restore + fast-forward on faults, and
+    (with ``--chaos``) deterministic fault injection. One injector follows
+    the runtime across restarts until each event has fired once (its
+    counters count the calls of the whole run, replays included), so a
+    plan of two restoring faults exercises two restores; the reference's
+    launcher arms the first incarnation only, where a restore disarms the
+    rest of the plan. Returns (runtime, trainer, stats, report, seconds, the
+    specs of the chaos events that fired)."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.data.lookahead import LookaheadStream
+    from repro_torch.runtime import EmbeddingTrainSupervisor
+    from repro_torch.traces import TraceReplayStream
+
+    injector = None
+    if args.chaos:
+        from repro_torch.chaos import ChaosInjector, ChaosPlan
+
+        injector = ChaosInjector(ChaosPlan.parse(args.chaos), seed=args.chaos_seed)
+        print(f"chaos plan: {injector.plan.spec} (seed {args.chaos_seed})")
+    if args.ckpt_dir is None:
+        args.ckpt_dir = tempfile.mkdtemp(prefix="repro_torch_ckpt_")
+    print(f"checkpoints -> {args.ckpt_dir}")
+    ckpt = CheckpointManager(args.ckpt_dir, keep=2)
+    first = [True]
+
+    def runtime_factory():
+        _host, trainer, pipe = build(supervised=True, first=first[0],
+                                     restoring=ckpt.latest_step() is not None)
+        if injector is not None and not all(e.fired for e in injector.plan.events):
+            injector.attach(pipe)
+        first[0] = False
+        return pipe, trainer
+
+    streams = []
+
+    def stream_factory(skip):
+        if reader is not None:
+            st = TraceReplayStream(reader, start=skip, stop=args.steps)
+            streams.append(st)
+            return st
+        it = iter(batches(args.steps))
+        for _ in range(skip):
+            next(it)
+        return LookaheadStream(it)
+
+    sup = EmbeddingTrainSupervisor(
+        ckpt, runtime_factory, stream_factory,
+        ckpt_every=args.ckpt_every, verify_every=args.verify_every,
+    )
+    t0 = time.time()
+    try:
+        stats, report = sup.run(args.steps)
+    finally:
+        for st in streams:
+            st.close()
+    dt = time.time() - t0
+    fired = [e.spec for e in injector.fired] if injector is not None else []
+    print(
+        f"supervised: restarts={report.restarts} "
+        f"checkpoints={report.checkpoints} "
+        f"nan_skipped={report.nan_steps_skipped} "
+        f"restore_ms={[round(m, 1) for m in report.restore_ms]} "
+        f"chaos_fired={fired}"
+    )
+    return sup.runtime, sup.trainer, stats, report, dt, fired
 
 
 def train_dlrm(args, cfg=None, host=None, mlps=None) -> Dict[str, Any]:
@@ -74,7 +199,11 @@ def train_dlrm(args, cfg=None, host=None, mlps=None) -> Dict[str, Any]:
     shape and ``cfg`` keeps its cache fraction and MLP sizes); ``host``
     replaces the host table the launcher would build from ``--seed`` (the
     caller's copy is trained in place); ``mlps`` (a ``DLRM`` state_dict,
-    e.g. ``convert.mlps_from_reference``) replaces the seeded MLP init."""
+    e.g. ``convert.mlps_from_reference``) replaces the seeded MLP init.
+    Under ``--supervise``/``--chaos`` the run goes through
+    ``EmbeddingTrainSupervisor``; the result then also carries the
+    supervisor's ``report``, and ``host`` is the live runtime's table (a
+    restart rebuilds the runtime, whose table the checkpoint fills)."""
     import dataclasses
     import itertools
 
@@ -223,33 +352,62 @@ def train_dlrm(args, cfg=None, host=None, mlps=None) -> Dict[str, Any]:
         kw = {}
     kw["device"] = dev
 
-    if host is None:
-        host = HostEmbeddingTable(rows, cfg.embed_dim, seed=args.seed)
-    elif host.data.shape != (rows, cfg.embed_dim):
+    if host is not None and host.data.shape != (rows, cfg.embed_dim):
         raise ValueError(f"host table {host.data.shape} != ({rows}, {cfg.embed_dim})")
-    trainer = DLRMTrainer(cfg, seed=args.seed, lr=args.lr, device=dev)
-    if mlps is not None:
-        trainer.model.load_state_dict(mlps)
-    if args.runtime in ("scratchpipe", "strawman") and args.fused:
-        kw["fused_train_fn"] = trainer.fused_train_fn
-    pipe = make_runtime(args.runtime, host, trainer.train_fn, **kw)
 
-    src = batches(args.steps)
-    if args.record_trace:
-        prov = {"generator": args.scenario or "synthetic",
-                "locality": args.locality, "seed": args.seed}
-        src = TraceRecorder(args.record_trace, group, provenance=prov).tee(src)
-    # a replay stream already is a look-ahead source
-    stream = src if hasattr(src, "peek_ids") else LookaheadStream(src)
-    t0 = time.time()
-    try:
-        stats = pipe.run(stream, lookahead_fn=stream.peek_ids)
-    finally:
-        if isinstance(stream, TraceReplayStream):
-            stream.close()
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
-    dt = time.time() - t0
+    def build(supervised: bool = False, first: bool = True, restoring: bool = False):
+        """One runtime stack — host table, trainer, runtime. Under
+        supervision a restart rebuilds it from scratch (a clean process
+        image): the table is then empty when a checkpoint will fill it, and
+        the seeded one when the run restarts from the beginning."""
+        if first and host is not None:
+            h = host
+        elif restoring:
+            h = HostEmbeddingTable(rows, cfg.embed_dim,
+                                   data=np.empty((rows, cfg.embed_dim), np.float32))
+        elif host is not None:
+            raise RuntimeError("a restart before the first checkpoint needs the "
+                               "caller's initial host table, which was trained in place")
+        else:
+            h = HostEmbeddingTable(rows, cfg.embed_dim, seed=args.seed)
+        trainer = DLRMTrainer(cfg, seed=args.seed, lr=args.lr, device=dev)
+        if mlps is not None:
+            trainer.model.load_state_dict(mlps)
+        kw2 = dict(kw)
+        if args.runtime in ("scratchpipe", "strawman") and args.fused:
+            kw2["fused_train_fn"] = trainer.fused_train_fn
+        if supervised:
+            from repro_torch.runtime import SupervisePolicy
+
+            kw2["supervise"] = SupervisePolicy()
+        return h, trainer, make_runtime(args.runtime, h, trainer.train_fn, **kw2)
+
+    report, fired = None, []
+    if args.chaos:
+        args.supervise = True
+    if args.supervise:
+        pipe, trainer, stats, report, dt, fired = _train_dlrm_supervised(
+            args, build, batches, reader)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+    else:
+        host, trainer, pipe = build()
+        src = batches(args.steps)
+        if args.record_trace:
+            prov = {"generator": args.scenario or "synthetic",
+                    "locality": args.locality, "seed": args.seed}
+            src = TraceRecorder(args.record_trace, group, provenance=prov).tee(src)
+        # a replay stream already is a look-ahead source
+        stream = src if hasattr(src, "peek_ids") else LookaheadStream(src)
+        t0 = time.time()
+        try:
+            stats = pipe.run(stream, lookahead_fn=stream.peek_ids)
+        finally:
+            if isinstance(stream, TraceReplayStream):
+                stream.close()
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        dt = time.time() - t0
     losses = [float(s.aux["loss"]) for s in stats if s.aux]
     hit = float(np.mean([s.hit_rate for s in stats[6:]])) if len(stats) > 6 else 0
     source = (f"trace:{args.trace}" if args.trace
@@ -265,13 +423,20 @@ def train_dlrm(args, cfg=None, host=None, mlps=None) -> Dict[str, Any]:
         f"done: steps={len(stats)} loss {losses[0]:.4f}->{losses[-1]:.4f} "
         f"plan_hit={hit:.3f} {dt / max(len(stats), 1) * 1e3:.1f}ms/step"
     )
+    digest = None
+    if args.supervise:
+        # settle every cached row so the digest covers the full model state
+        pipe.flush_to_host()
+        digest = _state_digest(pipe, trainer, stats)
+        print(f"state_digest={digest}")
     tr = pipe.traffic()
     print(
         f"traffic: host {tr['host'].total / 1e6:.1f}MB "
         f"pcie {tr['pcie'].total / 1e6:.1f}MB hbm {tr['hbm'].total / 1e6:.1f}MB"
     )
     return {"stats": stats, "losses": losses, "plan_hit": hit, "pipe": pipe,
-            "trainer": trainer, "host": host, "wall_s": dt, "cfg": cfg}
+            "trainer": trainer, "host": pipe.host, "wall_s": dt, "cfg": cfg,
+            "report": report, "chaos_fired": fired, "state_digest": digest}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -347,9 +512,43 @@ def build_parser() -> argparse.ArgumentParser:
         help="derive the fill/evict pad-bucket set from the --trace's "
         "miss-count distribution instead of the pow-2 default",
     )
-    later = ap.add_argument_group("not ported yet (error with a ROADMAP pointer)")
-    later.add_argument("--supervise", action="store_true")
-    later.add_argument("--chaos", default=None)
+    ap.add_argument(
+        "--ckpt-dir", default=None,
+        help="checkpoint directory of --supervise (default: a fresh temporary "
+        "directory, printed)",
+    )
+    ap.add_argument("--ckpt-every", type=int, default=50)
+    ap.add_argument(
+        "--supervise", action="store_true",
+        help="train under EmbeddingTrainSupervisor: crash-consistent "
+        "checkpoints (any cycle, mid-window), restore + fast-forward on "
+        "faults, a watchdog over the overlapped executor; prints a "
+        "state_digest= line for bit-parity diffs",
+    )
+    ap.add_argument(
+        "--chaos", default=None,
+        help="fault-injection spec armed on the runtime until each event has "
+        "fired once, across restarts (implies --supervise), e.g. "
+        "'kill-gather@3;stall-d2h@12:0.2;corrupt-row@13:5;nan-loss@9'",
+    )
+    ap.add_argument(
+        "--chaos-seed", type=int, default=0,
+        help="RNG seed of the chaos victims (corrupt-row targets)",
+    )
+    ap.add_argument(
+        "--verify-every", type=int, default=0,
+        help="audit the host table's row checksums every N cycles (0 = off; "
+        "corruption triggers a checkpoint restore)",
+    )
+    ap.add_argument(
+        "--metrics-out", default=None,
+        help="write an obs_metrics/v1 JSONL snapshot here at exit",
+    )
+    ap.add_argument(
+        "--trace-out", default=None,
+        help="write a Chrome trace-event JSON here at exit (spans on every "
+        "pipeline thread; Perfetto / chrome://tracing)",
+    )
     return ap
 
 
@@ -359,10 +558,6 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
     if args.arch != ARCH:
         ap.error(f"--arch {args.arch}: the port trains {ARCH} only; the LM "
                  "training comes later (ROADMAP.md Queue 1 item 18)")
-    for name, (what, item) in _NOT_PORTED.items():
-        if getattr(args, name) != _DEFAULTS[name]:
-            ap.error(f"--{name.replace('_', '-')} ({what}) is not ported to repro_torch "
-                     f"yet (ROADMAP.md Queue 1 item {item})")
     if args.tables < 0:
         ap.error("--tables must be >= 0 (0 = uniform paper config)")
     if args.trace and args.scenario:
@@ -372,7 +567,33 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
     if args.trace and not os.path.exists(os.path.join(args.trace, "manifest.json")):
         ap.error(f"--trace {args.trace}: not a recorded trace directory "
                  "(no manifest.json)")
-    return train_dlrm(args)
+    if (args.supervise or args.chaos) and args.record_trace:
+        ap.error("--record-trace cannot ride a supervised run: a restart "
+                 "would re-record already-captured batches")
+    if (args.supervise or args.chaos) and args.runtime not in ("scratchpipe", "strawman"):
+        ap.error("--supervise/--chaos cover the scratchpipe-family runtimes")
+    if args.chaos:
+        from repro_torch.chaos import ChaosPlan
+
+        try:
+            ChaosPlan.parse(args.chaos)
+        except ValueError as e:
+            ap.error(f"--chaos: {e}")
+    tracer, metrics = obs_setup(args.trace_out, args.metrics_out)
+    try:
+        return train_dlrm(args)
+    finally:
+        obs_export(
+            args.trace_out, args.metrics_out, tracer, metrics,
+            provenance={
+                "mode": "train", "arch": args.arch, "runtime": args.runtime,
+                "executor": args.executor, "planner": args.planner,
+                "device": args.device, "fused": bool(args.fused),
+                "precision": args.precision, "steps": args.steps,
+                "smoke": bool(args.smoke), "supervise": bool(args.supervise),
+                "chaos": args.chaos,
+            },
+        )
 
 
 if __name__ == "__main__":

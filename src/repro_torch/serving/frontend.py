@@ -18,8 +18,9 @@ from a single cycle, keeping its latency one serve), size-capped at
 Port of ``repro/serving/frontend.py``. The worker thread is the only
 thread that drives the backend, so it is the one thread that launches
 kernels on the card; the submitting threads only queue numpy arrays and
-wait on futures. The ``tracer=`` hook comes with observability (ROADMAP.md
-Queue 1 item 12): anything but ``None`` raises.
+wait on futures. With a tracer (``tracer=``, else the backend's, else the
+global install of ``repro_torch.obs``) the worker's ``frontend.form`` and
+``frontend.complete`` spans land on ``serving-frontend``.
 """
 from __future__ import annotations
 
@@ -28,6 +29,8 @@ from concurrent.futures import Future
 from typing import Any, List, Optional, Tuple
 
 import numpy as np
+
+from repro_torch.obs import NULL_SPAN, resolve as obs_resolve
 
 
 class EmbeddingServer:
@@ -40,12 +43,12 @@ class EmbeddingServer:
     """
 
     def __init__(self, backend, *, max_batch: int = 32, tracer=None):
-        if tracer is not None:
-            raise NotImplementedError(
-                "tracer on EmbeddingServer is not ported to repro_torch yet "
-                "(ROADMAP.md Queue 1 item 12)"
-            )
         self.backend = backend
+        # front-end spans land on the worker thread below; default to the
+        # backend's tracer so one opt-in covers the whole serving stack,
+        # else the process-global install
+        self._tracer, _ = obs_resolve(
+            tracer if tracer is not None else getattr(backend, "_tracer", None), None)
         self.max_batch = int(max_batch)
         self._cv = threading.Condition()
         self._waiting: List[Tuple[np.ndarray, Future]] = []
@@ -57,6 +60,10 @@ class EmbeddingServer:
             target=self._worker, daemon=True, name="serving-frontend"
         )
         self._thread.start()
+
+    def _span(self, name: str):
+        t = self._tracer
+        return NULL_SPAN if t is None else t.span(name, cat="serve")
 
     # -- client surface -----------------------------------------------------
     def lookup(self, ids: np.ndarray) -> "Future[np.ndarray]":
@@ -106,10 +113,12 @@ class EmbeddingServer:
                     # admit ALL waiting requests first: the backend plans
                     # over its queue, so forming the tail before serving
                     # the head is what turns load into look-ahead
-                    self._form_batches()
+                    with self._span("frontend.form"):
+                        self._form_batches()
                 bags, _st, futures = self.backend.serve_next()
-                for i, fut in enumerate(futures):
-                    fut.set_result(bags[i])
+                with self._span("frontend.complete"):
+                    for i, fut in enumerate(futures):
+                        fut.set_result(bags[i])
                 self._admitted = [f for f in self._admitted if not f.done()]
         except BaseException as e:  # deliver the failure to every caller
             with self._cv:

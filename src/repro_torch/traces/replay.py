@@ -1,8 +1,10 @@
 """TraceReplayStream: a recorded trace as a look-ahead training stream.
 
 Port of ``repro/traces/replay.py`` (numpy only; the prefetch thread reads
-shards and launches nothing on the card). The ``tracer=`` hook comes with
-observability (ROADMAP.md Queue 1 item 12): anything but ``None`` raises.
+shards and launches nothing on the card). With a tracer (``tracer=`` or
+the global install of ``repro_torch.obs``) each decode runs under a span
+on the thread that decodes: ``trace.decode`` on ``trace-prefetch``,
+``trace.decode_sync`` on the consumer when it decodes a position itself.
 
 Implements the full ``LookaheadStream`` surface (`__next__`, ``peek_ids``,
 ``peek_table_ids``, ``consumed``, ``state_dict``, ``exhausted``) so every
@@ -35,6 +37,7 @@ from typing import Any, Dict, List, Optional, Set, Tuple, Union
 
 import numpy as np
 
+from repro_torch.obs import NULL_SPAN, resolve as obs_resolve
 from repro_torch.traces.format import TraceReader
 
 
@@ -52,11 +55,6 @@ class TraceReplayStream:
         to the end; a ``stop`` beyond the trace is clamped). ``trace`` is a
         trace directory path or any reader exposing the ``TraceReader``
         surface (``num_batches`` / ``batch`` / ``global_ids`` / ``group``)."""
-        if tracer is not None:
-            raise NotImplementedError(
-                "tracer on TraceReplayStream is not ported to repro_torch yet "
-                "(ROADMAP.md Queue 1 item 12)"
-            )
         self._reader = (
             TraceReader(trace) if isinstance(trace, (str, os.PathLike)) else trace
         )
@@ -76,12 +74,18 @@ class TraceReplayStream:
         # seek() bumps the generation; a decode started under an older
         # generation discards its result instead of caching/delivering it.
         self._gen = 0
+        # opt-in tracing: decode spans land on whichever thread decodes
+        self._tracer, _ = obs_resolve(tracer, None)
         self._thread: Optional[threading.Thread] = None
         if self._depth > 0:
             self._thread = threading.Thread(
                 target=self._prefetch_loop, daemon=True, name="trace-prefetch"
             )
             self._thread.start()
+
+    def _span(self, name: str):
+        t = self._tracer
+        return NULL_SPAN if t is None else t.span(name, cat="io")
 
     # -- prefetcher ---------------------------------------------------------
     def _window(self) -> range:
@@ -108,7 +112,8 @@ class TraceReplayStream:
                 gen = self._gen
                 self._inflight.add(want)
             try:
-                item = self._reader.batch(want)  # decode outside the lock
+                with self._span("trace.decode"):
+                    item = self._reader.batch(want)  # decode outside the lock
             except BaseException:
                 with self._cv:
                     self._inflight.discard(want)
@@ -152,7 +157,8 @@ class TraceReplayStream:
                 self._inflight.add(pos)
         if item is None:
             try:
-                item = self._reader.batch(pos)
+                with self._span("trace.decode_sync"):
+                    item = self._reader.batch(pos)
             finally:
                 with self._cv:
                     self._inflight.discard(pos)

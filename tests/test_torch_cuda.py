@@ -835,12 +835,10 @@ def _stats(stats):
              for k, v in dataclasses.asdict(st).items()} for st in stats]
 
 
-def _multi_table_run(dev, fused, planner, executor, pad_buckets=None):
+def _multi_table_pipe(dev, fused, planner, executor, pad_buckets=None, **kw):
     from repro_torch.core.host_table import HostEmbeddingTable
     from repro_torch.core.pipeline import ScratchPipe
     from repro_torch.core.table_group import TableGroup, TableSpec
-    from repro_torch.data.lookahead import LookaheadStream
-    from repro_torch.data.synthetic import dlrm_batches_group
 
     group = TableGroup([TableSpec("a", 4000, 40), TableSpec("b", 1500, 40),
                         TableSpec("c", 300, 40)])
@@ -851,9 +849,23 @@ def _multi_table_run(dev, fused, planner, executor, pad_buckets=None):
     pipe = ScratchPipe(host, sum(budgets), tr.train_fn, table_group=group,
                        slot_budgets=budgets, planner=planner, executor=executor,
                        fused_train_fn=tr.fused_train_fn if fused else None,
-                       pad_buckets=pad_buckets, device=dev)
-    stream = LookaheadStream(dlrm_batches_group(group, 20, batch_size=8,
-                                                lookups_per_table=5, seed=6))
+                       pad_buckets=pad_buckets, device=dev, **kw)
+    return group, host, pipe
+
+
+def _multi_table_batches(group):
+    from repro_torch.data.synthetic import dlrm_batches_group
+
+    return list(dlrm_batches_group(group, 20, batch_size=8, lookups_per_table=5, seed=6))
+
+
+def _multi_table_run(dev, fused, planner, executor, pad_buckets=None, hook=None, **kw):
+    from repro_torch.data.lookahead import LookaheadStream
+
+    group, host, pipe = _multi_table_pipe(dev, fused, planner, executor, pad_buckets, **kw)
+    if hook is not None:
+        hook(pipe)
+    stream = LookaheadStream(iter(_multi_table_batches(group)))
     stats = pipe.run(stream, lookahead_fn=stream.peek_ids)
     pipe.flush_to_host()
     pipe.close()
@@ -880,6 +892,69 @@ def test_cuda_multi_table_pipeline_equals_plain(cuda, fused, planner, executor, 
         assert counts["fill_gather_reduce"] > 0 and counts["gather_reduce"] < 20
     else:
         assert counts["gather_reduce"] == 20 and counts["fill"] > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fused", [False, True], ids=["split", "fused"])
+def test_cuda_traced_and_chaos_overlapped_equal_plain(cuda, fused):
+    """A traced overlapped run and a supervised chaos run (worker kills, a
+    stalled d2h past its timeout) on the card equal the CPU's untraced
+    sync run bit for bit; the spans land on the worker threads."""
+    from repro_torch.chaos import ChaosInjector, ChaosPlan
+    from repro_torch.obs import MetricsRegistry, Tracer
+    from repro_torch.runtime import SupervisePolicy
+
+    want = _multi_table_run("cpu", fused, "host", "sync")
+    tr = Tracer()
+    traced = _multi_table_run(cuda, fused, "device", "overlapped", tracer=tr,
+                              metrics=MetricsRegistry())
+    names = {(t.rsplit("_", 1)[0], n) for t, n in tr.totals()}
+    assert {("scratchpipe-host", "collect.gather"), ("scratchpipe-d2h", "exchange.d2h"),
+            ("scratchpipe-d2h", "plan.materialize")} <= names
+    injected = []
+
+    def arm(pipe):
+        injected.append(ChaosInjector(ChaosPlan.parse(
+            "kill-gather@3;fail-writeback@2;kill-d2h@3;stall-d2h@5:0.5"), seed=0).attach(pipe))
+
+    chaos = _multi_table_run(cuda, fused, "device", "overlapped", hook=arm,
+                             supervise=SupervisePolicy(op_timeout=0.1, backoff=0.0))
+    assert len(injected[0].fired) == 4
+    for got in (traced, chaos):
+        assert _stats(got[0]) == _stats(want[0])
+        assert np.array_equal(got[1], want[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("planner,executor", [("host", "sync"), ("device", "overlapped")])
+def test_cuda_midwindow_state_roundtrip_equals_plain(cuda, planner, executor):
+    """state_arrays mid-window on the card, loaded into a fresh runtime on
+    the card: the resumed run equals the CPU's uninterrupted plain run."""
+    from repro_torch.data.lookahead import LookaheadStream
+
+    want = _multi_table_run("cpu", True, "host", "sync")
+    group, _, pipe = _multi_table_pipe(cuda, True, planner, executor)
+    batches = _multi_table_batches(group)
+    stream = LookaheadStream(iter(batches))
+    for i, (ids, b) in enumerate(stream):
+        if i == 9:
+            break
+        pipe.run_one_cycle(ids, b, stream.peek_ids)
+    assert pipe._window
+    state = pipe.state_arrays()
+    head = list(pipe.stats)
+    pipe.close()
+    _, host, pipe = _multi_table_pipe(cuda, True, planner, executor)
+    pipe.load_state_arrays(state)
+    stream = LookaheadStream(iter(batches[9:]))
+    for ids, b in stream:
+        pipe.run_one_cycle(ids, b, stream.peek_ids)
+    while pipe._window:
+        pipe.drain_one_cycle()
+    pipe.flush_to_host()
+    pipe.close()
+    assert _stats(head + pipe.stats) == _stats(want[0])
+    assert np.array_equal(host.data, want[1])
 
 
 def _sharded_run(dev, precisions, planner, executor):

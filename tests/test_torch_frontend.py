@@ -163,6 +163,19 @@ def test_frontend_delivers_a_backend_failure_to_every_caller():
 
 
 def test_frontend_tracer_is_item_12():
-    srv = TServer(make_host(), 128, window=WINDOW, table_group=small_group(), device="cpu")
-    with pytest.raises(NotImplementedError, match=r"ROADMAP.md Queue 1 item 12\)"):
-        EmbeddingServer(srv, tracer=object())
+    """Item 12's tracer is ported: the front end takes its backend's, and
+    its spans land on the worker thread."""
+    from repro_torch.obs import Tracer
+
+    tr = Tracer()
+    srv = TServer(make_host(), 128, window=WINDOW, table_group=small_group(), tracer=tr,
+                  device="cpu")
+    with EmbeddingServer(srv, max_batch=2) as server:
+        assert server._tracer is tr
+        futs = [server.lookup(r) for r in requests(6)]
+        for f in futs:
+            assert f.result(timeout=60.0).shape == (2, DIM)
+    spans = {(t, s) for t, s in tr.totals()}
+    assert ("serving-frontend", "frontend.form") in spans
+    assert ("serving-frontend", "frontend.complete") in spans
+    assert ("serving-frontend", "serve") in spans

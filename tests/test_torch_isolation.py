@@ -65,7 +65,11 @@ def test_every_module_listed():
               "repro_torch.traces.recorder", "repro_torch.traces.replay",
               "repro_torch.traces.profiling", "repro_torch.traces.criteo",
               "repro_torch.traces.scenarios", "repro_torch.serving.frontend",
-              "repro_torch.core.sharded_pipeline"):
+              "repro_torch.core.sharded_pipeline", "repro_torch.obs",
+              "repro_torch.obs.metrics", "repro_torch.obs.tracing",
+              "repro_torch.obs.check", "repro_torch.checkpoint.manager",
+              "repro_torch.checkpoint.pack", "repro_torch.chaos.injector",
+              "repro_torch.runtime.supervision", "repro_torch.runtime.fault_tolerance"):
         assert m in mods
 
 
@@ -224,9 +228,9 @@ def _lm_training_message(capsys):
 
 
 def _supervise_message(capsys):
+    """Serving recovery (``launch/serve.py --warm-start``) is item 12's rest."""
     with pytest.raises(SystemExit):
-        train.main(["--arch", "dlrm-scratchpipe", "--smoke", "--device", "cpu",
-                    "--supervise"])
+        serve.main(["--embedding", "--device", "cpu", "--warm-start", "x"])
     return capsys.readouterr().err
 
 

@@ -285,15 +285,28 @@ def test_global_train_runs_on_the_calling_thread():
 
 
 def test_not_ported_options_name_item_12():
+    """Item 12's options are ported: they build, pass through to every
+    shard, and the state round-trips (shard<i>_ keys)."""
+    from repro_torch.obs import MetricsRegistry, Tracer
+    from repro_torch.runtime import SupervisePolicy
+
     host = THost(40, 4)
     noop = lambda s, sl, b: (list(s), None)  # noqa: E731
-    for kw in (dict(supervise=object()), dict(tracer=object()), dict(metrics=object())):
-        with pytest.raises(NotImplementedError, match="item 12"):
-            TSharded(host, 8, 2, noop, device="cpu", **kw)
-    rt = TSharded(host, 8, 2, noop, device="cpu")
-    for call in (rt.state_arrays, lambda: rt.load_state_arrays({})):
-        with pytest.raises(NotImplementedError, match="item 12"):
-            call()
+    tr, m = Tracer(), MetricsRegistry()
+    rt = TSharded(host, 20, 2, noop, executor="overlapped", supervise=SupervisePolicy(),
+                  tracer=tr, metrics=m, device="cpu")
+    assert all(p._sv is not None and p._tracer is tr and p._metrics is m for p in rt.pipes)
+    for b in (np.arange(0, 40, 3), np.arange(1, 40, 5)):
+        rt.run_one_cycle(b, {})
+    st = rt.state_arrays()
+    assert {k.split("_", 1)[0] for k in st} == {"shard0", "shard1"}
+    rt.close()
+    rt2 = TSharded(THost(40, 4, seed=5), 20, 2, noop, device="cpu")
+    rt2.load_state_arrays(st)
+    np.testing.assert_array_equal(rt2.pipes[0].host.data, host.data[:20])
+    assert len(rt2.pipes[1]._window) == 2
+    with pytest.raises(KeyError, match="shard 0"):
+        rt2.load_state_arrays({})
 
 
 # ---------------------------------------------------------------------------

@@ -373,8 +373,19 @@ def test_record_serving_trace_strips_payload(tmp_path):
 
 
 def test_replay_tracer_is_item_12(ref_trace):
-    with pytest.raises(NotImplementedError, match=r"ROADMAP.md Queue 1 item 12\)"):
-        TReplay(ref_trace[0], tracer=object())
+    """Item 12's tracer is ported: decodes are spanned on the thread that
+    decodes them — the prefetch thread, or the consumer without one."""
+    from repro_torch.obs import Tracer
+
+    tr = Tracer()
+    stream = TReplay(ref_trace[0], tracer=tr)
+    n = sum(1 for _ in stream)
+    stream.close()
+    totals = tr.totals()
+    assert n > 0 and ("trace-prefetch", "trace.decode") in totals
+    tr2 = Tracer()
+    assert sum(1 for _ in TReplay(ref_trace[0], prefetch=0, tracer=tr2)) == n
+    assert set(tr2.totals()) == {("MainThread", "trace.decode_sync")}
 
 
 # --------------------------------------------------------------------------- #

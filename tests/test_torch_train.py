@@ -360,10 +360,18 @@ def test_training_registry_and_options():
         available_runtimes())
     host = THost(64, 4, seed=0)
     noop = lambda s, slots, b: (s, {})  # noqa: E731
-    for kw, item in ((dict(supervise=object()), "item 12"),
-                     (dict(tracer=object()), "item 12")):
-        with pytest.raises(NotImplementedError, match=item):
-            t_make_runtime("scratchpipe", host, noop, num_slots=16, device="cpu", **kw)
+    # supervision and telemetry are ported: the options build
+    from repro_torch.obs import Tracer
+    from repro_torch.runtime import SupervisePolicy, TrainSupervisor
+
+    pipe = t_make_runtime("scratchpipe", host, noop, num_slots=16, device="cpu",
+                          executor="overlapped", supervise=SupervisePolicy(),
+                          tracer=Tracer())
+    assert pipe._sv is not None and pipe._tracer is not None
+    pipe.close()
+    # the LM's step-function supervisor waits for LM training
+    with pytest.raises(NotImplementedError, match="item 18"):
+        TrainSupervisor(None, None, None)
     # multi-table is ported: a table group splits the slots into per-table ranges
     pipe = t_make_runtime("scratchpipe", host, noop, num_slots=16, device="cpu",
                           table_group=TGroup.uniform(2, 32, 4), slot_budgets=[10, 6])
@@ -376,8 +384,10 @@ def test_training_registry_and_options():
     pipe.close()
     pipe = t_make_runtime("strawman", host, noop, num_slots=16, device="cpu")
     assert not pipe.pipelined and pipe.planner.past_window == 0
-    with pytest.raises(NotImplementedError, match="item 12"):
-        pipe.state_arrays()
+    # checkpointing is ported: the snapshot of an idle runtime
+    st = pipe.state_arrays()
+    assert st["host_table"] is host.data and "window" not in st
+    assert st["storage"].shape == (16, 4) and st["traffic"].tolist() == [0] * 6
     with pytest.raises(TypeError, match="scratchpad"):
         t_make_runtime("nocache", host, noop, num_slots=16, device="cpu")
     # mixed precision is ported: int8 replicas hold 4x the rows of the budget
@@ -536,8 +546,9 @@ def test_launcher_prints_reference_figures(runtime, capsys):
 
 def test_launcher_rejects_what_is_not_ported():
     for extra in (["--runtime", "sharded"],
-                  ["--runtime", "nocache", "--precision", "fp16"], ["--supervise"],
-                  ["--trace", "x"], ["--chaos", "kill-gather@3"]):
+                  ["--runtime", "nocache", "--precision", "fp16"],
+                  ["--supervise", "--runtime", "nocache"],
+                  ["--trace", "x"], ["--chaos", "kill-gather@"]):
         with pytest.raises(SystemExit):
             tlaunch.main(["--arch", "dlrm-scratchpipe", "--smoke", "--device", "cpu", *extra])
     with pytest.raises(SystemExit):
