@@ -230,14 +230,39 @@ Phases, in order; any failure raises and the script exits non-zero:
                master, the rest unchanged; ``fill_i8``, ``fill_f16`` and
                ``fill`` each launched once per shard of its form per cycle
                with misses.
+ 17. serving recovery — at phase 4's configuration, on phase 13's host
+               table: phase 4's first 12 micro-batches with a
+               ``state_arrays`` snapshot taken after 6 (two still queued,
+               mid-pipeline) and loaded into a fresh server; the same 12
+               under ``ChaosInjector.attach_server`` with one fetch kill
+               (retried) and one fetch whose retry fails too (the failsafe):
+               bags bitwise equal to phase 4's, ``serve.fetch_failures`` and
+               ``serve.failsafe`` equal to the injected events. Then
+               ``launch/serve.py --warm-start`` from one save of phase 6's
+               fp32 split run (taken after its flush, in a temporary
+               directory), 8 micro-batches against a cold start and
+               ``nocache-serve`` over the checkpoint's table, all bitwise
+               equal; its ``warm start:`` line, the first four hit rates
+               and p50 warm and cold. Every launch on the serving thread.
+ 18. transformers — bf16, batch 4 x 2048, 16 greedy tokens, random weights
+               from a seeded ``torch.Generator`` on the card, each config
+               built and freed in turn: chatglm3-6b, phi-3-vision-4.2b and
+               hubert-xlarge (prefill only: an encoder has no decode) in
+               full; qwen2.5-32b, qwen2-72b and mistral-large-123b at full
+               width cut to 4 layers. One ``flash_attention`` per layer per
+               prefill, none in decode; each at fp32 and 2 layers against
+               the plain versions (logits within 1e-3 of the largest, the
+               greedy tokens equal); flash timed at each config's operands
+               beside its bound, its plain version and SDPA.
 
 The traces go to temporary directories removed at exit. The sweep of
 phase 3 covers the fp16 and int8 forms too, and for them also D in {256,
 1024} (rows of several warp loads), L in {33, 64} (more than one 32-lookup
 group), a payload 4 but not 16 bytes aligned, fused calls whose
 fills are all sentinels, and ragged fills. The last three lines are the
-``kernels`` JSON line (``scatter_add``, ``flash_attention`` and
-``ssd_chunk_scan`` carry their ``details``; ``gather_reduce_q`` and the fp16
+``kernels`` JSON line (``scatter_add``, ``flash_attention`` — with
+phase 18's shapes under ``transformer_shapes`` — and ``ssd_chunk_scan``
+carry their ``details``; ``gather_reduce_q`` and the fp16
 gather and fp16/int8 fills their times at phase 13's operands under
 ``serve``), the nvidia-smi line and ``{"ok": true, "device": {...}}``.
 """
@@ -305,6 +330,11 @@ LM_PREFILL_LAUNCHES = {"ssd_chunk_scan": 38, "flash_attention": 6}
 # held to 3e-2 + 1e-2 |plain| (two bf16 steps of 2^-8 relative, plus flash's
 # bf16 bound)
 FLASH_ATOL = {"float32": 2e-5, "bfloat16": 3e-2}
+# and the error relative to the output's size, ||got - want||_F /
+# ||want||_F: a bf16 row that averages over thousands of keys is itself
+# about 3e-2 in size, so the atol alone would pass a wrong scale or a
+# dropped key block there (a correct bf16 kernel reads a few 1e-3)
+FLASH_RTOL = {"float32": 1e-4, "bfloat16": 1e-2}
 SSD_ATOL, SSD_BF16_ATOL, SSD_BF16_RTOL = 2e-4, 3e-2, 1e-2
 LM_LOGIT_RTOL = 1e-3  # fp32 kernels vs plain: max |diff| / max |plain logit|
 
@@ -1160,10 +1190,12 @@ def observe_summary(name, fast, ms, res, stages, report, by_thread, cells, untra
             "span_s_by_thread": by_thread}
 
 
-def train_main_path(torch, mods, dev):
+def train_main_path(torch, mods, dev, ckpt_dir=None):
     """The five training runs on copies of one host table; returns
     (summaries, launch counts per run, captured operands, the host table,
-    the losses, the flushed table's SHA-256)."""
+    the losses, the flushed table's SHA-256). With ``ckpt_dir``, the first
+    run (fp32 split, host planner) is saved there once after its flush:
+    phase 17's warm-start checkpoint."""
     cfg = mods["DLRMConfig"](rows_per_table=ROWS, cache_fraction=TRAIN_CACHE_FRAC)
     check((cfg.num_tables, cfg.embed_dim, cfg.lookups_per_table) == (TABLES, DIM, LOOKUPS)
           and cfg.bottom_mlp == (512, 256, 128)
@@ -1191,6 +1223,9 @@ def train_main_path(torch, mods, dev):
         losses = torch.stack([st.aux["loss"] for st in stats]).cpu()
         check(bool(torch.isfinite(losses).all()), f"{name}: non-finite loss")
         pipe.flush_to_host()
+        if ckpt_dir is not None and first_losses is None:
+            ckpt = save_training_checkpoint(pipe, ckpt_dir)
+            print("checkpoint: " + json.dumps(ckpt), flush=True)
         if runtime == "scratchpipe":
             pipe.close()
         table = res["host"].data
@@ -1866,22 +1901,24 @@ def time_q_kernels(torch, mods, captured, dev):
 LM_PLAIN_VERSIONS = PLAIN_VERSIONS + ("flash_attention_ref", "ssd_chunk_scan_ref")
 
 
-def lm_run(torch, mods, cfg=None, plain=False):
-    """One ``run_lm`` (``cfg`` overrides the arch's config). With
+def lm_run(torch, mods, cfg=None, plain=False, argv=LM_ARGV, model="hybrid"):
+    """One ``run_lm`` of ``argv`` (``cfg`` overrides the arch's config;
+    ``model`` names the family module whose ``decode_step`` runs). With
     ``plain=False`` the plain versions raise during the run and the first
     operands of each kernel are captured; with ``plain=True`` the launchers
     are swapped for the plain versions (run on the card). Returns (result,
     launch counts after the prefill, launch counts at the end, captured
     operands, host ms of each decode step, its token on the host)."""
-    ops, ref, fa, ssd, hybrid = (mods[k] for k in ("ops", "ref", "fa", "ssd", "hybrid"))
+    ops, ref, fa, ssd = (mods[k] for k in ("ops", "ref", "fa", "ssd"))
+    model = mods[model]
     real = {"fa": fa.flash_attention, "ssd": ssd.ssd_chunk_scan,
-            "decode": hybrid.decode_step}
+            "decode": model.decode_step}
     real_refs = {n: getattr(ref, n) for n in LM_PLAIN_VERSIONS}
     captured, at_decode, step_ms = {}, [], []
 
-    def spy_fa(q, k, v, causal, window):
+    def spy_fa(q, k, v, causal, window, q_offset=0):
         captured.setdefault("flash", (q.clone(), k.clone(), v.clone(), causal, window))
-        return real["fa"](q, k, v, causal, window)
+        return real["fa"](q, k, v, causal, window, q_offset)
 
     def spy_ssd(x, dt, A, Bm, Cm, Q):
         captured.setdefault("ssd", tuple(t.clone() for t in (x, dt, A, Bm, Cm)) + (Q,))
@@ -1900,24 +1937,24 @@ def lm_run(torch, mods, cfg=None, plain=False):
         raise RuntimeError("a plain PyTorch version ran on the main path")
 
     if plain:
-        fa.flash_attention = lambda q, k, v, causal, window: real_refs[
-            "flash_attention_ref"](q, k, v, causal=causal, window=window)
+        fa.flash_attention = lambda q, k, v, causal, window, q_offset=0: real_refs[
+            "flash_attention_ref"](q, k, v, causal=causal, window=window, q_offset=q_offset)
         ssd.ssd_chunk_scan = lambda x, dt, A, Bm, Cm, Q: real_refs[
             "ssd_chunk_scan_ref"](x, dt, A, Bm, Cm, Q)
     else:
         fa.flash_attention, ssd.ssd_chunk_scan = spy_fa, spy_ssd
         for n in LM_PLAIN_VERSIONS:
             setattr(ref, n, no_plain)
-    hybrid.decode_step = spy_decode
+    model.decode_step = spy_decode
     try:
         ops.reset_launch_counts()
-        res = mods["serve"].run_lm(mods["serve"].build_parser().parse_args(LM_ARGV),
+        res = mods["serve"].run_lm(mods["serve"].build_parser().parse_args(argv),
                                    cfg=cfg)
         torch.cuda.synchronize()
         counts = ops.launch_counts()
     finally:
         fa.flash_attention, ssd.ssd_chunk_scan = real["fa"], real["ssd"]
-        hybrid.decode_step = real["decode"]
+        model.decode_step = real["decode"]
         for n, fn in real_refs.items():
             setattr(ref, n, fn)
     return res, (at_decode[0] if at_decode else counts), counts, captured, step_ms
@@ -2002,6 +2039,21 @@ def lm_profile(torch, mods, res):
 # --------------------------------------------------------------------------- #
 # the LM kernels against their plain versions
 # --------------------------------------------------------------------------- #
+def flash_close(torch, got, want, what):
+    """Holds a flash output against its plain version, in max |diff| and in
+    the Frobenius norm relative to the plain output's; returns (dtype name,
+    max |diff|, relative error)."""
+    name = str(want.dtype).split(".")[-1]
+    diff = got.float() - want.float()
+    err = diff.abs().max().item()
+    rel = (torch.linalg.vector_norm(diff) / torch.linalg.vector_norm(want.float())
+           .clamp_min(1e-30)).item()
+    check(got.dtype == want.dtype and err <= FLASH_ATOL[name] and rel <= FLASH_RTOL[name],
+          f"flash_attention differs by {err} (limit {FLASH_ATOL[name]}), relative {rel} "
+          f"(limit {FLASH_RTOL[name]}) at {what} {name}")
+    return name, err, rel
+
+
 def lm_flash_check(torch, ops, ref, q, k, v, causal, window):
     """One flash launch against its plain version; returns (dtype, err)."""
     before = ops.launch_counts()["flash_attention"]
@@ -2009,11 +2061,8 @@ def lm_flash_check(torch, ops, ref, q, k, v, causal, window):
     want = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
     check(ops.launch_counts()["flash_attention"] == before + 1, "flash launch count")
-    err = (got.float() - want.float()).abs().max().item()
-    name = str(q.dtype).split(".")[-1]
-    check(got.dtype == q.dtype and err <= FLASH_ATOL[name],
-          f"flash_attention differs by {err} > {FLASH_ATOL[name]} at q {tuple(q.shape)} "
-          f"k {tuple(k.shape)} causal={causal} window={window} {name}")
+    name, err, _ = flash_close(torch, got, want, f"q {tuple(q.shape)} k {tuple(k.shape)} "
+                               f"causal={causal} window={window}")
     return name, err
 
 
@@ -2543,7 +2592,7 @@ def trace_serve_phase(torch, mods, tmp: str, phase4_bags):
     """Phase 13: phase 4's micro-batches recorded as serving traces at
     fp32, fp16 and int8, served through ``launch/serve.py --trace`` on one
     host table. Returns (summaries, launch counts per run, captured kernel
-    operands)."""
+    operands, the host table: phase 17 serves from it too)."""
     from repro_torch.core.table_group import TableGroup
     from repro_torch.traces import record_serving_trace, scenario_batches
 
@@ -2652,7 +2701,7 @@ def trace_serve_phase(torch, mods, tmp: str, phase4_bags):
         f"worker thread ({time.perf_counter() - t0:.1f}s)")
     obs13 = observe_serve_phase(torch, mods, host, group, paths["fp32"], phase4_bags,
                                 counts_by_run)
-    return summaries + [fe, obs13], counts_by_run, captured
+    return summaries + [fe, obs13], counts_by_run, captured, host
 
 
 def check_serve_counters(name, metrics, stats) -> dict:
@@ -3182,6 +3231,446 @@ def sharded_phase(torch, mods, setup, base):
     return summary, counts_by_run
 
 
+# --------------------------------------------------------------------------- #
+# 17. serving recovery
+# --------------------------------------------------------------------------- #
+#: phase 17's (a) and (c) serve phase 4's first RECOVERY_SERVES micro-batches;
+#: the mid-queue snapshot is taken after RECOVERY_SPLIT are admitted
+RECOVERY_SERVES, RECOVERY_SPLIT = 12, 6
+#: one kill (retried: fetch_retries=1), then two failures in a row of one
+#: fetch, its retry included (exhausted: the entry goes to the failsafe)
+RECOVERY_CHAOS = "kill-fetch@3;fail-fetch@6;fail-fetch@7"
+RECOVERY_FAULTS, RECOVERY_FAILSAFES = 3, 1
+WARM_SERVES = 8  # micro-batches served warm, cold and by nocache-serve
+
+
+def save_training_checkpoint(pipe, root: str) -> dict:
+    """Phase 17's warm-start source: one blocking save of phase 6's fp32
+    split run after its flush (so every resident scratchpad row equals its
+    host row in the checkpoint)."""
+    from repro_torch.checkpoint import CheckpointManager
+
+    t0 = time.perf_counter()
+    # not durable: the directory is temporary (no fsync of its 6 GB)
+    CheckpointManager(root, keep=1, durable=False).save(
+        TRAIN_STEPS, {}, host_arrays=pipe.state_arrays(), blocking=True)
+    return {"run": TRAIN_RUNS[0][0], "dir_bytes": checkpoint_bytes(root),
+            "save_ms": (time.perf_counter() - t0) * 1e3, "step": TRAIN_STEPS}
+
+
+def serve_all(srv, batches, drain: bool = True) -> list:
+    """Serve ``batches`` at the server's queue depth, then (``drain``) the
+    rest of the queue; returns (bags, stats, host ms of the serve) per
+    micro-batch (the bags come back to the host, which synchronizes).
+    Without ``drain`` the last ``queue_depth`` stay queued, mid-pipeline."""
+    out = []
+
+    def one():
+        t0 = time.perf_counter()
+        bags, st, _ = srv.serve_next()
+        out.append((bags, st, (time.perf_counter() - t0) * 1e3))
+
+    for ids in batches:
+        srv.enqueue(ids)
+        if srv.pending > srv.queue_depth:
+            one()
+    while drain and srv.pending:
+        one()
+    return out
+
+
+def recovery_phase(torch, mods, phase4_bags, ckpt_dir: str, host):
+    """Phase 17 at phase 4's configuration, on ``host`` (the launcher's
+    table of seed 1, phase 13's): a mid-queue snapshot restored into a
+    fresh server; fetch faults, one retried and one into the failsafe; then
+    ``launch/serve.py --warm-start`` from phase 6's checkpoint against a
+    cold start and ``nocache-serve`` over the checkpoint's table (which the
+    warm start loads into ``host``). Returns (summary, launch counts per
+    run)."""
+    import contextlib
+    import io
+    import threading
+
+    from repro_torch.chaos import ChaosInjector, ChaosPlan
+    from repro_torch.core.table_group import TableGroup
+    from repro_torch.obs import MetricsRegistry
+    from repro_torch.traces import scenario_batches
+
+    ops, sc, serve = mods["ops"], mods["serving_cache"], mods["serve"]
+    group = TableGroup.uniform(TABLES, ROWS, DIM)
+    slots = serve.scratchpad_slots(group, BATCH, LOOKUPS, DEPTH, CACHE_FRAC)
+    batches = [g for g, _ in scenario_batches("inference_mix", group, STEPS,
+                                              batch_size=BATCH, lookups_per_table=LOOKUPS,
+                                              seed=0)][:RECOVERY_SERVES]  # phase 4's first
+    want = phase4_bags[:RECOVERY_SERVES]
+
+    def server(**kw):
+        return sc.ReadOnlyCacheServer(host, slots, window=DEPTH, table_group=group,
+                                      device=DEVICE, **kw)
+
+    def bags_equal(name, got, oracle):
+        check(len(got) == len(oracle), f"{name}: served {len(got)} of {len(oracle)}")
+        for i, (a, b) in enumerate(zip(got, oracle)):
+            check(a.shape == (BATCH, TABLES, DIM) and (a == b).all(),
+                  f"{name}: bags of serve {i} differ from the oracle's")
+
+    def launcher(extra, design="scratchpipe-serve"):
+        args = serve.build_parser().parse_args(
+            serve_args(design) + ["--steps", str(WARM_SERVES)] + extra)
+        out = io.StringIO()
+        ops.reset_launch_counts()
+        with contextlib.redirect_stdout(out):
+            res = serve.run_embedding(args, collect_bags=True, host=host)
+        torch.cuda.synchronize()
+        return res, out.getvalue(), ops.launch_counts()
+
+    summary, counts_by_run = {"scratchpad_slots": slots}, {}
+    threads, restore_threads = launch_threads(mods["gr"])
+    restore_plain = plain_versions_raise(mods["ref"])
+    stages, _, restore_timers = stage_timers(
+        [(serve, "warm_start", "read the checkpoint + preload"),
+         (sc.ReadOnlyCacheServer, "warm_start_from_arrays", "preload")])
+    try:
+        # (a) mid-queue snapshot -> a fresh server
+        t0 = time.perf_counter()
+        ops.reset_launch_counts()
+        b = server()
+        head = [bags for bags, _, _ in serve_all(b, batches[:RECOVERY_SPLIT], drain=False)]
+        t1 = time.perf_counter()
+        snap = b.state_arrays()
+        snap_ms = (time.perf_counter() - t1) * 1e3
+        queued = sorted({e.stage for e in b._queue})
+        check("queue" in snap and b.pending == DEPTH,
+              f"recovery: the snapshot is not mid-queue (stages {queued})")
+        del b
+        torch.cuda.empty_cache()
+        c = server()
+        t1 = time.perf_counter()
+        c.load_state_arrays(snap)
+        torch.cuda.synchronize()
+        load_ms = (time.perf_counter() - t1) * 1e3
+        del snap
+        tail = [bags for bags, _, _ in serve_all(c, batches[RECOVERY_SPLIT:])]
+        torch.cuda.synchronize()
+        counts_by_run["recovery mid-queue"] = counts = ops.launch_counts()
+        bags_equal("recovery mid-queue", head + tail, want)
+        check_serve_counts("recovery mid-queue", counts, "gather_reduce", RECOVERY_SERVES,
+                           "fill")
+        del c, head, tail
+        torch.cuda.empty_cache()
+        summary["midqueue"] = {"served": RECOVERY_SERVES, "snapshot_after": RECOVERY_SPLIT,
+                               "queued_at_snapshot": DEPTH, "queued_stages": queued,
+                               "state_arrays_ms": snap_ms, "load_state_arrays_ms": load_ms,
+                               "wall_s": time.perf_counter() - t0}
+        log(f"recovery: mid-queue snapshot (stages {queued}) restored into a fresh server, "
+            f"{RECOVERY_SERVES} bags bitwise equal to phase 4's "
+            f"({time.perf_counter() - t0:.1f}s)")
+
+        # (c) fetch faults: one retried, one exhausted into the failsafe
+        t0 = time.perf_counter()
+        ops.reset_launch_counts()
+        f = server(fetch_retries=1, metrics=MetricsRegistry())
+        inj = ChaosInjector(ChaosPlan.parse(RECOVERY_CHAOS), seed=0).attach_server(f)
+        got = serve_all(f, batches)
+        torch.cuda.synchronize()
+        counts_by_run["recovery failsafe"] = counts = ops.launch_counts()
+        bags_equal("recovery failsafe", [g for g, _, _ in got], want)
+        check_serve_counts("recovery failsafe", counts, "gather_reduce", RECOVERY_SERVES,
+                           "fill")
+        fails, safes = (f._mc[k].value for k in ("fetch_failures", "failsafe"))
+        check(len(inj.fired) == RECOVERY_FAULTS and fails == RECOVERY_FAULTS
+              and safes == RECOVERY_FAILSAFES,
+              f"recovery failsafe: fired {len(inj.fired)}, fetch_failures {fails}, "
+              f"failsafe {safes}")
+        emergency = [st.aux["emergency"] for _, st, _ in got]
+        check(sum(emergency[DEPTH:]) > 0, "recovery failsafe: the failsafe filled nothing")
+        summary["failsafe"] = {"chaos": RECOVERY_CHAOS, "fetch_failures": fails,
+                               "failsafe": safes, "emergency_rows_by_serve": emergency,
+                               "ms_by_serve": [ms for _, _, ms in got],
+                               "wall_s": time.perf_counter() - t0}
+        del f, got
+        torch.cuda.empty_cache()
+        log(f"recovery: {fails} fetch faults, {safes} to the failsafe; {RECOVERY_SERVES} bags "
+            f"bitwise equal to phase 4's ({time.perf_counter() - t0:.1f}s)")
+
+        # (b) the launcher's --warm-start from phase 6's checkpoint, then a
+        # cold start and nocache-serve over the checkpoint's table
+        t0 = time.perf_counter()
+        warm, out, counts_by_run["recovery warm start"] = launcher(["--warm-start", ckpt_dir])
+        line = next((ln for ln in out.splitlines() if ln.startswith("warm start:")), "")
+        n = int(line.split()[2]) if line else 0
+        check(n > 0 and line == f"warm start: {n} rows preloaded from {ckpt_dir} "
+              f"(training step {TRAIN_STEPS})", f"--warm-start printed {line!r}")
+        check_serve_counts("recovery warm start", counts_by_run["recovery warm start"],
+                           "gather_reduce", WARM_SERVES, "fill")
+        print(line, flush=True)
+        cold, _, counts_by_run["recovery cold start"] = launcher([])
+        oracle, _, counts_by_run["recovery nocache"] = launcher([], "nocache-serve")
+        for name, run in (("recovery warm start", warm), ("recovery cold start", cold)):
+            bags_equal(name, run["bags"], oracle["bags"])
+
+        def head4(run):
+            return {"hit_rate": [st.n_hits / st.n_unique for st in run["stats"][:4]],
+                    "ms": [x * 1e3 for x in run["latencies_s"][:4]],
+                    "p50_ms": statistics.median(run["latencies_s"][:4]) * 1e3}
+
+        summary["warm_start"] = {
+            "line": line, "rows_preloaded": n, "stages_s": stages,
+            "warm": head4(warm), "cold": head4(cold), "wall_s": time.perf_counter() - t0}
+        log(f"recovery: {line}; first four hit rates warm "
+            f"{summary['warm_start']['warm']['hit_rate']} cold "
+            f"{summary['warm_start']['cold']['hit_rate']}; bags bitwise equal to "
+            f"nocache-serve over the checkpoint's table ({time.perf_counter() - t0:.1f}s)")
+        del warm, cold, oracle
+    finally:
+        restore_timers()
+        restore_plain()
+        restore_threads()
+    check(threads == {threading.get_ident()},
+          f"recovery: kernels launched from {len(threads)} threads, not the serving one")
+    return summary, counts_by_run
+
+
+# --------------------------------------------------------------------------- #
+# 18. the dense, encoder and vlm transformers
+# --------------------------------------------------------------------------- #
+#: (arch, layers kept): None runs the config in full; the three wider dense
+#: configs keep their full width at 4 layers (full depth is about 65, 144 and
+#: 246 GB of bf16 weights, over the card's 80 GB)
+TRANSFORMERS = (("chatglm3-6b", None), ("phi-3-vision-4.2b", None), ("hubert-xlarge", None),
+                ("qwen2.5-32b", 4), ("qwen2-72b", 4), ("mistral-large-123b", 4))
+TRANSFORMER_FP32_LAYERS = 2
+
+
+def transformer_argv(arch: str) -> list:
+    return ["--arch", arch, "--batch", str(LM_BATCH), "--prompt-len", str(LM_PROMPT),
+            "--gen", str(LM_GEN), "--seed", "0", "--device", DEVICE]
+
+
+def encoder_run(torch, mods, cfg, plain=False):
+    """The encoder's prefill forward (the launcher has no encoder decode):
+    params from ``torch.Generator(device="cuda")`` seeded 0, the
+    reference's synthetic frames, through ``models/api.py``. ``plain`` as
+    in lm_run. Returns (result, counts, captured)."""
+    api, ops, ref, fa = mods["api"], mods["ops"], mods["ref"], mods["fa"]
+    real, real_ref = fa.flash_attention, ref.flash_attention_ref
+    captured = {}
+
+    def spy_fa(q, k, v, causal, window, q_offset=0):
+        captured.setdefault("flash", (q.clone(), k.clone(), v.clone(), causal, window))
+        return real(q, k, v, causal, window, q_offset)
+
+    def no_plain(*_a, **_k):
+        raise RuntimeError("a plain PyTorch version ran on the main path")
+
+    if plain:
+        fa.flash_attention = lambda q, k, v, causal, window, q_offset=0: real_ref(
+            q, k, v, causal=causal, window=window, q_offset=q_offset)
+    else:
+        fa.flash_attention, ref.flash_attention_ref = spy_fa, no_plain
+    try:
+        gen = torch.Generator(device=DEVICE).manual_seed(0)
+        params = api.init(cfg, gen, device=DEVICE)
+        batch = api.synth_batch(cfg, mods["ShapeSpec"]("serve", LM_PROMPT, LM_BATCH,
+                                                        "prefill"), seed=0, device=DEVICE)
+        ops.reset_launch_counts()
+        with torch.inference_mode():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, cache = api.make_prefill_fn(cfg)(params, batch)
+            torch.cuda.synchronize()
+            prefill_s = time.perf_counter() - t0
+        counts = ops.launch_counts()
+    finally:
+        fa.flash_attention, ref.flash_attention_ref = real, real_ref
+    return ({"cfg": cfg, "params": params, "batch": batch, "logits": logits, "cache": cache,
+             "tokens": None, "prefill_s": prefill_s}, counts, captured)
+
+
+def transformer_run(torch, mods, arch, cfg, plain=False):
+    """One config's serving run: (result, launches after the prefill,
+    launches at the end, captured operands, decode step ms)."""
+    if cfg.family == "encoder":
+        res, counts, captured = encoder_run(torch, mods, cfg, plain)
+        return res, counts, counts, captured, []
+    return lm_run(torch, mods, cfg=cfg, plain=plain, argv=transformer_argv(arch),
+                  model="transformer")
+
+
+def warm_prefill_ms(torch, mods, res) -> list:
+    api, cfg = mods["api"], res["cfg"]
+    batch = res.get("batch") or api.synth_batch(
+        cfg, mods["ShapeSpec"]("serve", LM_PROMPT, LM_BATCH, "prefill"), seed=0,
+        device=DEVICE)
+    prefill, walls = api.make_prefill_fn(cfg), []
+    with torch.inference_mode():
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            prefill(res["params"], batch)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+    return walls
+
+
+def check_transformer(torch, res, cfg, after_prefill, counts, what):
+    L, B = cfg.num_layers, LM_BATCH
+    want = {"flash_attention": L, "ssd_chunk_scan": 0}
+    check({k: after_prefill[k] for k in want} == want,
+          f"{what}: prefill launched {after_prefill}, expected {L} flash_attention")
+    check({k: counts[k] for k in want} == want, f"{what}: decode launched kernels {counts}")
+    other = {k: v for k, v in counts.items() if k not in want and v}
+    check(not other, f"{what}: other kernels launched: {other}")
+    logits = res["logits"]
+    check(tuple(logits.shape) == (B, cfg.vocab_size) and logits.dtype == torch.float32
+          and bool(torch.isfinite(logits).all()), f"{what}: logits {tuple(logits.shape)}")
+    S = LM_PROMPT + (0 if cfg.family == "encoder" else LM_GEN)
+    kv = (L, B, S, cfg.num_kv_heads, cfg.head_dim)
+    check(tuple(res["cache"]["k"].shape) == kv, f"{what}: KV cache "
+          f"{tuple(res['cache']['k'].shape)} != {kv}")
+    if res["tokens"] is not None:
+        t = res["tokens"]
+        check(t.shape == (B, LM_GEN) and t.min() >= 0 and t.max() < cfg.vocab_size,
+              f"{what}: tokens {t.shape}")
+
+
+def n_params(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(n_params(v) for v in tree.values())
+    if isinstance(tree, list):
+        return sum(n_params(v) for v in tree)
+    return tree.numel()
+
+
+def transformer_fp32_check(torch, mods, arch, cfg):
+    """The config at fp32 and TRANSFORMER_FP32_LAYERS layers, through the
+    kernels and then the plain versions on the card (TF32 off): logits
+    within LM_LOGIT_RTOL of the plain run's largest, the greedy tokens
+    equal. Returns a summary."""
+    cfg32 = dataclasses.replace(cfg, num_layers=TRANSFORMER_FP32_LAYERS,
+                                param_dtype="float32", compute_dtype="float32")
+    res_k, after_prefill, counts, _, _ = transformer_run(torch, mods, arch, cfg32)
+    check_transformer(torch, res_k, cfg32, after_prefill, counts, f"{arch} fp32 kernels")
+    logits_k, tokens_k = res_k["logits"].clone(), res_k["tokens"]
+    del res_k
+    torch.cuda.empty_cache()
+    res_p, _, counts_p, _, _ = transformer_run(torch, mods, arch, cfg32, plain=True)
+    check(not any(counts_p.values()), f"{arch}: the plain run launched kernels: {counts_p}")
+    diff = (logits_k - res_p["logits"]).abs().max().item()
+    scale = res_p["logits"].abs().max().item()
+    check(diff <= LM_LOGIT_RTOL * scale,
+          f"{arch} fp32 logits: kernels vs plain differ by {diff} > {LM_LOGIT_RTOL} x {scale}")
+    if tokens_k is not None:
+        check((tokens_k == res_p["tokens"]).all(),
+              f"{arch} fp32 greedy tokens differ:\n{tokens_k}\n{res_p['tokens']}")
+    del res_p
+    torch.cuda.empty_cache()
+    return {"layers": TRANSFORMER_FP32_LAYERS, "max_abs_logit_diff": diff,
+            "max_abs_logit": scale, "tokens_equal": None if tokens_k is None else True}
+
+
+def transformer_phase(torch, mods, dev):
+    """Phase 18: each config in bf16 through the launcher's ``run_lm`` (the
+    encoder's prefill through ``models/api.py``), built and freed in turn;
+    then at fp32 and 2 layers against the plain versions. Returns
+    (summaries, launch counts per run, the first flash operands of each
+    config)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    summaries, counts_by_run, operands = [], {}, {}
+    for arch, layers in TRANSFORMERS:
+        t0 = time.perf_counter()
+        full = mods["get_config"](arch)
+        cfg = full if layers is None else dataclasses.replace(full, num_layers=layers)
+        torch.cuda.reset_peak_memory_stats()
+        res, after_prefill, counts, captured, step_ms = transformer_run(torch, mods, arch, cfg)
+        what = f"lm serve {arch}"
+        check(res["cfg"] == cfg and res["params"]["embed"].dtype == torch.bfloat16
+              and res["params"]["embed"].device.type == dev.type,
+              f"{what}: not the bf16 config on the card")
+        check_transformer(torch, res, cfg, after_prefill, counts, what)
+        walls = warm_prefill_ms(torch, mods, res)
+        decode_steps = LM_GEN - 1 if res["tokens"] is not None else 0
+        summaries.append({
+            "arch": arch, "family": cfg.family, "layers": cfg.num_layers,
+            "full_layers": full.num_layers,
+            "reduced": None if layers is None else f"depth {full.num_layers} -> {layers}",
+            "params_GB": n_params(res["params"]) * 2 / 1e9,
+            "prefill_ms_cold": res["prefill_s"] * 1e3, "prefill_ms_warm": min(walls),
+            "prefill_ms_warm_runs": walls,
+            "decode_ms_per_step": (res["decode_s"] / decode_steps * 1e3
+                                   if decode_steps else None),
+            "decode_step_ms_median": statistics.median(step_ms) if step_ms else None,
+            "flash_launches_per_prefill": after_prefill["flash_attention"],
+            "flash_launches_in_decode": counts["flash_attention"]
+            - after_prefill["flash_attention"],
+            "peak_memory_GB": torch.cuda.max_memory_allocated() / 1e9,
+            "tokens": None if res["tokens"] is None else res["tokens"].tolist()})
+        counts_by_run[what] = counts
+        operands[arch] = captured["flash"]
+        del res, captured
+        torch.cuda.empty_cache()
+        summaries[-1]["fp32"] = transformer_fp32_check(torch, mods, arch, full)
+        summaries[-1]["wall_s"] = time.perf_counter() - t0
+        print("lm serve: " + json.dumps(summaries[-1]), flush=True)
+        log(f"{what}: {cfg.num_layers} layers, {after_prefill['flash_attention']} flash "
+            f"launches per prefill, none in decode; fp32 at {TRANSFORMER_FP32_LAYERS} layers "
+            f"within {LM_LOGIT_RTOL} of the plain run ({time.perf_counter() - t0:.1f}s)")
+    return summaries, counts_by_run, operands
+
+
+def time_flash_shapes(torch, mods, operands, dev) -> list:
+    """flash_attention at each config's first prefill operands (bf16): median
+    ms (CUDA events, L2 flushed) beside the bound (flops at the bf16 tensor
+    cores' rate, or bytes), the plain version and SDPA (grouped keys through
+    ``enable_gqa``), each held against its plain version."""
+    import torch.nn.functional as F
+
+    fa, ref = mods["fa"], mods["ref"]
+    flush = torch.empty(32 * 1024 * 1024, dtype=torch.float32, device=dev)
+    out = []
+    for arch, (q, k, v, causal, window) in operands.items():
+        B, Sq, H, hd = q.shape
+        Skv, K = k.shape[1], k.shape[2]
+        got = fa.flash_attention(q, k, v, causal, window)
+        want = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+        torch.cuda.synchronize()
+        _, err, rel = flash_close(torch, got, want, f"{arch}'s operands")
+        del got, want
+        pairs = valid_pairs(Sq, Skv, causal, window)
+        f_ops = 4 * B * H * hd * pairs
+        f_bytes = 2 * (q.numel() + k.numel() + v.numel() + q.numel())
+        t_ops, t_bytes = f_ops / BF16_OPS_PER_S, f_bytes / HBM_BYTES_PER_S
+        qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        library = "F.scaled_dot_product_attention(is_causal, enable_gqa), (B, H, S, hd)"
+        try:
+            F.scaled_dot_product_attention(qh[:1, :, :8], kh[:1, :, :8], vh[:1, :, :8],
+                                           enable_gqa=H != K)
+        except TypeError:  # an older torch: the keys expanded to H heads beforehand
+            kh, vh = (t.repeat_interleave(H // K, dim=1) for t in (kh, vh))
+            library = ("F.scaled_dot_product_attention(is_causal), (B, H, S, hd), keys "
+                       "expanded to H heads outside the timed call")
+        sdpa = (None if window is not None else lambda: F.scaled_dot_product_attention(
+            qh, kh, vh, is_causal=causal, enable_gqa=H != K) if library.endswith("hd)")
+            else F.scaled_dot_product_attention(qh, kh, vh, is_causal=causal))
+        ms = median_ms(torch, lambda: fa.flash_attention(q, k, v, causal, window), 20, flush)
+        out.append({
+            "arch": arch, "shape": {"B": B, "Sq": Sq, "Skv": Skv, "H": H, "K": K, "hd": hd},
+            "gqa": H // K, "causal": causal, "hd_padded_to": 32 if hd <= 32 else
+            64 if hd <= 64 else 128, "ms": ms,
+            "plain_ms": median_ms(torch, lambda: ref.flash_attention_ref(
+                q, k, v, causal=causal, window=window), 3, flush),
+            "bound_ms": max(t_ops, t_bytes) * 1e3,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "library_ms": None if sdpa is None else median_ms(torch, sdpa, 20, flush),
+            "library": library, "tflops_per_s": f_ops / ms / 1e9, "max_abs_err": err,
+            "rel_err": rel})
+        del qh, kh, vh
+        log(f"flash at {arch}'s operands: {ms:.4f} ms, bound {out[-1]['bound_ms']:.4f}, "
+            f"SDPA {out[-1]['library_ms']}")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -3205,7 +3694,7 @@ def main() -> int:
     from repro_torch.kernels import grad_coalesce as gc
     from repro_torch.kernels import ssd_chunk as ssd
     from repro_torch.launch import serve, train
-    from repro_torch.models import api, hybrid
+    from repro_torch.models import api, hybrid, transformer
     from repro_torch.models.dlrm import interaction_dim
 
     mods = {"ops": ops, "ref": ref, "gr": gr, "gc": gc, "qz": qz, "train": train,
@@ -3213,6 +3702,7 @@ def main() -> int:
             "dlrm_runtime": dlrm_runtime, "HostEmbeddingTable": HostEmbeddingTable,
             "DLRMConfig": DLRMConfig, "interaction_dim": interaction_dim,
             "fa": fa, "ssd": ssd, "serve": serve, "api": api, "hybrid": hybrid,
+            "transformer": transformer,
             "ShapeSpec": ShapeSpec, "get_config": get_config, "plan": plan,
             "plan_device": plan_device, "serving_cache": serving_cache}
 
@@ -3229,7 +3719,18 @@ def main() -> int:
         for ln in regs:
             print(f"    {ln}")
     log(f"build: {time.perf_counter() - t0:.2f}s in all")
+    ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        return run_all(torch, mods, dev, ckpt_dir, t_start)
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
 
+
+def run_all(torch, mods, dev, ckpt_dir, t_start) -> int:
+    """Phases 3-18, the kernels line, the card line and the last line."""
+    ops, ref, gr, gc, qz = (mods[k] for k in ("ops", "ref", "gr", "gc", "qz"))
+    serve, serving_cache, plan_device = mods["serve"], mods["serving_cache"], mods["plan_device"]
+    get_config = mods["get_config"]
     t0 = time.perf_counter()
     sweep_err = sweep_kernels(torch, ops, ref, gc, qz, dev)
     log(f"kernels: bitwise equal to their plain versions across the sweep "
@@ -3287,7 +3788,7 @@ def main() -> int:
 
     t0 = time.perf_counter()
     summaries, train_counts, train_captured, base, fp32_losses, fp32_digest = (
-        train_main_path(torch, mods, dev))
+        train_main_path(torch, mods, dev, ckpt_dir))
     log(f"train: {len(TRAIN_RUNS)} runs done ({time.perf_counter() - t0:.1f}s)")
 
     plan_captured = {"plan_step": train_captured.pop("plan_step")}
@@ -3367,8 +3868,7 @@ def main() -> int:
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_traces_") as tmp:
         t0 = time.perf_counter()
-        _, ts_counts, ts_captured = trace_serve_phase(torch, mods, tmp, serve_bags)
-        del serve_bags
+        _, ts_counts, ts_captured, serve_host = trace_serve_phase(torch, mods, tmp, serve_bags)
         log(f"trace serve: {len(ts_counts)} runs done ({time.perf_counter() - t0:.1f}s)")
         t0 = time.perf_counter()
         serve_q_times, serve_q_details = time_serve_q_kernels(torch, mods, ts_captured, dev)
@@ -3393,8 +3893,20 @@ def main() -> int:
     log(f"sharded: {len(sh_counts)} runs done ({time.perf_counter() - t0:.1f}s)")
     del mt_base, mt_setup
 
+    t0 = time.perf_counter()
+    rec_summary, rec_counts = recovery_phase(torch, mods, serve_bags, ckpt_dir, serve_host)
+    print("recovery: " + json.dumps(rec_summary), flush=True)
+    log(f"recovery: done ({time.perf_counter() - t0:.1f}s)")
+    del serve_bags, serve_host
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    _, tf_counts, tf_operands = transformer_phase(torch, mods, dev)
+    flash_shapes = time_flash_shapes(torch, mods, tf_operands, dev)
+    del tf_operands
+    log(f"transformers: done ({time.perf_counter() - t0:.1f}s)")
+
     by_run = {"serve": counts, **train_counts, **q_counts, **ts_counts, **tt_counts,
-              **mt_counts, **sh_counts}
+              **mt_counts, **sh_counts, **rec_counts}
     gather, fill = kernels
     for k in (gather, fill):
         k["launches_by_run"] = {run: c[k["name"]] for run, c in by_run.items()}
@@ -3434,9 +3946,15 @@ def main() -> int:
             **lm_times[name],
         })
         if name == "flash_attention":
+            kernels[-1]["launches_by_run"].update(
+                {run: c[name] for run, c in tf_counts.items()})
+            kernels[-1]["launches"] = sum(kernels[-1]["launches_by_run"].values())
+            kernels[-1]["max_abs_err"] = max(kernels[-1]["max_abs_err"],
+                                             *(f["max_abs_err"] for f in flash_shapes))
             kernels[-1]["details"] = {**lm_details[name],
                                       "warm_prefill_ms": lm_summary["prefill_ms_warm"],
-                                      "prefill_profile": lm_summary["profile"]["prefill"]}
+                                      "prefill_profile": lm_summary["profile"]["prefill"],
+                                      "transformer_shapes": flash_shapes}
         else:
             kernels[-1]["details"] = lm_details[name]
     log(f"total {time.perf_counter() - t_start:.1f}s")

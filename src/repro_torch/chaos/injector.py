@@ -30,8 +30,9 @@ counters, so a chaos run is exactly reproducible: same spec + same seed ->
 same faults at the same cycles. Specs parse from compact strings
 (``"kill-gather@3;corrupt-row@13:5"``) for the ``--chaos`` flag, or are
 drawn from a seeded RNG (:meth:`ChaosPlan.random`) for soak tests.
-Serving's fetch hook (``attach_server``) is not ported yet: it comes with
-serving recovery (ROADMAP.md Queue 1 item 12).
+:meth:`ChaosInjector.attach_server` arms a ``ReadOnlyCacheServer``:
+``kill-fetch``/``fail-fetch`` ride its retried prefetch hook, corruption its
+planner's clock.
 """
 from __future__ import annotations
 
@@ -256,9 +257,12 @@ class ChaosInjector:
         return self
 
     def attach_server(self, server) -> "ChaosInjector":
-        """Serving's fetch faults (the retried prefetch and its failsafe)
-        are not ported yet."""
-        raise NotImplementedError(
-            "ChaosInjector.attach_server (serving recovery) is not ported to "
-            "repro_torch yet (ROADMAP.md Queue 1 item 12)"
-        )
+        """Arm against a ``ReadOnlyCacheServer``: fetch faults ride the
+        failsafe prefetch hook (``_fetch_gather``); row corruption turns on
+        the host table's checksum guard and rides the plan clock."""
+        self._host = server.host
+        if any(e.action == "corrupt" and not e.fired for e in self.plan.events):
+            self._host.enable_guard()
+        server._fetch_gather = self._wrap("fetch", server._fetch_gather)
+        server.planner.plan = self._wrap("plan", server.planner.plan)
+        return self

@@ -2,10 +2,10 @@
 so the port never imports the JAX package.
 
 ``get_config`` / ``get_smoke_config`` resolve ``--arch`` as the reference's
-registry does, for the archs the port runs: ``dlrm-scratchpipe`` and the
-hybrid LM ``zamba2-1.2b``. The reference's other LM archs raise
-``NotImplementedError`` naming the ROADMAP Queue 1 item that ports their
-model family.
+registry does, for the archs the port runs: ``dlrm-scratchpipe``, the
+hybrid LM ``zamba2-1.2b`` and the dense, encoder and vlm transformers. The
+reference's other LM archs raise ``NotImplementedError`` naming the ROADMAP
+Queue 1 item that ports their model family.
 """
 from __future__ import annotations
 
@@ -14,16 +14,16 @@ import importlib
 _ARCH_MODULES = {
     "dlrm-scratchpipe": "dlrm_scratchpipe",
     "zamba2-1.2b": "zamba2_1_2b",
+    "chatglm3-6b": "chatglm3_6b",
+    "hubert-xlarge": "hubert_xlarge",
+    "phi-3-vision-4.2b": "phi_3_vision_4_2b",
+    "qwen2.5-32b": "qwen2_5_32b",
+    "qwen2-72b": "qwen2_72b",
+    "mistral-large-123b": "mistral_large_123b",
 }
 
 #: the reference's LM archs not ported yet -> (model family, ROADMAP Queue 1 item)
 _NOT_PORTED = {
-    "hubert-xlarge": ("encoder (transformer.py)", 15),
-    "chatglm3-6b": ("dense transformer", 15),
-    "qwen2-72b": ("dense transformer", 15),
-    "mistral-large-123b": ("dense transformer", 15),
-    "qwen2.5-32b": ("dense transformer", 15),
-    "phi-3-vision-4.2b": ("vlm transformer", 15),
     "mamba2-2.7b": ("ssm (ssm_lm.py)", 16),
     "mixtral-8x7b": ("moe", 17),
     "llama4-scout-17b-a16e": ("moe", 17),

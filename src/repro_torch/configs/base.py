@@ -4,7 +4,7 @@
 Ports of the classes of the same names in ``repro/configs/base.py`` (the
 reference's module is pure data too, but importing it would load the JAX
 package). ``DLRMConfig`` and ``ShapeSpec`` are copied field for field;
-``ModelConfig`` keeps the fields the ported LM path reads. The reference's
+``ModelConfig`` keeps the fields the ported LM paths read. The reference's
 dry-run shape grid and arch registry are not ported:
 ``configs/__init__.py`` resolves the archs the port runs.
 """
@@ -96,14 +96,14 @@ class ShapeSpec:
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
-    """The fields of the reference's ``ModelConfig`` that the ported hybrid
-    serving path reads, with the reference's defaults. The reference's
-    other fields (MoE, sliding window, qkv bias, sharding, remat and scan
-    knobs, frontends, the bf16 SSD storage) come with the slices that port
-    the code reading them (ROADMAP.md Queue 1 items 15-19)."""
+    """The fields of the reference's ``ModelConfig`` that the ported
+    serving paths (hybrid, dense, encoder, vlm) read, with the reference's
+    defaults. Its MoE fields and the bf16 SSD storage come with the code
+    that reads them; its sharding, remat and scan knobs have no meaning on
+    one card."""
 
     name: str
-    family: str  # hybrid (the reference's other families are not ported)
+    family: str  # dense | encoder | vlm | hybrid (ssm and moe: not yet)
     num_layers: int
     d_model: int
     num_heads: int
@@ -113,9 +113,11 @@ class ModelConfig:
     head_dim: int = 0  # 0 -> d_model // num_heads
 
     # attention details
+    qkv_bias: bool = False
     rope_theta: float = 10000.0
-    rope_fraction: float = 1.0
-    causal: bool = True
+    rope_fraction: float = 1.0  # chatglm applies rotary to half the dims
+    sliding_window: Optional[int] = None  # SWA: a rolling KV cache
+    causal: bool = True  # False for encoder-only
 
     # SSM (mamba2 / SSD)
     ssm_state: int = 0
@@ -130,8 +132,13 @@ class ModelConfig:
     hybrid_layers_per_group: int = 0
     hybrid_tail_layers: int = 0
 
+    # modality frontend stub: None | "frames" (audio) | "patches" (vision)
+    frontend: Optional[str] = None
+    frontend_positions: int = 256  # image patches prepended (vlm)
+
     # numerics
     norm_eps: float = 1e-5
+    tie_embeddings: bool = False
     param_dtype: str = "bfloat16"
     compute_dtype: str = "bfloat16"
 

@@ -1,0 +1,36 @@
+"""mistral-large-123b [dense]: 88L d_model=12288 96H (GQA kv=8) d_ff=28672
+vocab=32768. [hf:mistralai/Mistral-Large-Instruct-2407].
+
+Port of ``config`` and ``smoke_config`` of ``repro/configs/mistral_large_123b.py`` (the
+reference's dry-run shape plan and its sharding knobs are not ported).
+"""
+from repro_torch.configs.base import ModelConfig
+
+
+def config() -> ModelConfig:
+    return ModelConfig(
+        name="mistral-large-123b",
+        family="dense",
+        num_layers=88,
+        d_model=12288,
+        num_heads=96,
+        num_kv_heads=8,
+        d_ff=28672,
+        vocab_size=32768,
+        rope_theta=1e6,
+    )
+
+
+def smoke_config() -> ModelConfig:
+    return ModelConfig(
+        name="mistral-large-smoke",
+        family="dense",
+        num_layers=2,
+        d_model=96,
+        num_heads=6,
+        num_kv_heads=2,
+        d_ff=160,
+        vocab_size=128,
+        param_dtype="float32",
+        compute_dtype="float32",
+    )

@@ -1,0 +1,38 @@
+"""qwen2-72b [dense]: 80L d_model=8192 64H (GQA kv=8) d_ff=29568 vocab=152064,
+GQA + QKV bias. [arXiv:2407.10671; hf].
+
+Port of ``config`` and ``smoke_config`` of ``repro/configs/qwen2_72b.py`` (the
+reference's dry-run shape plan and its sharding knobs are not ported).
+"""
+from repro_torch.configs.base import ModelConfig
+
+
+def config() -> ModelConfig:
+    return ModelConfig(
+        name="qwen2-72b",
+        family="dense",
+        num_layers=80,
+        d_model=8192,
+        num_heads=64,
+        num_kv_heads=8,
+        d_ff=29568,
+        vocab_size=152064,
+        qkv_bias=True,
+        rope_theta=1e6,
+    )
+
+
+def smoke_config() -> ModelConfig:
+    return ModelConfig(
+        name="qwen2-72b-smoke",
+        family="dense",
+        num_layers=2,
+        d_model=64,
+        num_heads=8,
+        num_kv_heads=2,
+        d_ff=160,
+        vocab_size=128,
+        qkv_bias=True,
+        param_dtype="float32",
+        compute_dtype="float32",
+    )

@@ -7,10 +7,13 @@ returns), so this module imports nothing of the reference:
     the port's :class:`HostEmbeddingTable` (a copy; the two tables never
     share memory);
   * :func:`load_reference_server_state` — the ``state_arrays()`` dict of a
-    reference ``ReadOnlyCacheServer`` (fp32, empty queue) -> the port's
-    server on its device: host table, scratchpad ``storage``, planner
-    state (``planner_*``), the ``landed`` mask and the serve step. Both
-    servers then continue bit-identically on the same requests;
+    reference ``ReadOnlyCacheServer`` (at any cycle, its queue included;
+    fp32, fp16 or int8) -> the port's server of the same shape, on its
+    device, through ``ReadOnlyCacheServer.load_state_arrays``. Both servers
+    then continue bit-identically on the same requests;
+  * :func:`server_state_to_reference` — the way back: a port server's
+    ``state_arrays()`` as owning numpy copies (the host table too), which
+    a reference ``ReadOnlyCacheServer.load_state_arrays`` takes;
   * :func:`pipe_state_from_reference` — a reference training runtime's
     ``state_arrays()`` (``ScratchPipe``, or ``ShardedScratchPipe`` with its
     ``shard<i>_`` keys), or the host arrays of a reference checkpoint ->
@@ -31,12 +34,16 @@ returns), so this module imports nothing of the reference:
     ``models.dlrm.DLRM`` (a ``state_dict``, copied and transposed to
     ``nn.Linear``'s (out, in) layout);
   * :func:`lm_params_from_reference` — the reference's LM params (the
-    nested dict of ``models/api.py: init``, as numpy arrays) -> the port's
-    hybrid params: the stacked ``groups`` leaves (G, m, ...) and ``tail``
-    leaves (tail, ...) become per-layer dicts, every array a copy;
-  * :func:`lm_cache_from_reference` — a reference hybrid decode cache (as
-    numpy arrays) -> the port's, likewise unstacked per layer, so the port
-    can decode on from a reference prefill.
+    nested dict of ``models/api.py: init``, as numpy arrays) -> the port's:
+    for the hybrid family the stacked ``groups`` leaves (G, m, ...) and
+    ``tail`` leaves (tail, ...), for the transformer families the stacked
+    ``layers`` (L, ...) (qkv biases, layer-norm weights and biases and all)
+    become per-layer dicts; ``frontend_proj`` and an untied ``lm_head``
+    come as they are; every array a copy;
+  * :func:`lm_cache_from_reference` — a reference hybrid or transformer
+    decode cache (as numpy arrays) -> the port's, the mamba states
+    unstacked per layer, the KV caches stacked as in the reference, so the
+    port can decode on from a reference prefill.
 """
 from __future__ import annotations
 
@@ -61,39 +68,20 @@ def host_table_from_reference(data: np.ndarray) -> HostEmbeddingTable:
 
 def load_reference_server_state(server: ReadOnlyCacheServer, arrays: dict) -> None:
     """Load a reference ``ReadOnlyCacheServer.state_arrays()`` snapshot into
-    an idle port ``server`` of the same shape (same rows, dim, num_slots
-    and table layout)."""
-    if "queue" in arrays:
-        raise ValueError(
-            "the snapshot holds queued micro-batches; carry state across "
-            "only from a server whose queue is empty"
-        )
-    if "storage_scale" in arrays or np.asarray(arrays["storage"]).dtype != np.float32:
-        raise ValueError("only fp32 scratchpads can be carried across so far")
-    if server.pending or server._visible:
-        raise RuntimeError("load_reference_server_state on a non-idle server")
-    ht = np.asarray(arrays["host_table"])
-    if ht.shape != server.host.data.shape:
-        raise ValueError(
-            f"snapshot host table {ht.shape} != {server.host.data.shape}"
-        )
-    storage = np.asarray(arrays["storage"])
-    if storage.shape != tuple(server.storage.shape):
-        raise ValueError(
-            f"snapshot storage {storage.shape} != {tuple(server.storage.shape)}"
-        )
-    # every array is copied: a reference snapshot may alias the live state
-    # of the server it came from (its planner arrays, a zero-copy view of
-    # its scratchpad), which that server goes on mutating
-    server.host.data[...] = ht
-    server.host.reguard()
-    server.storage = torch.from_numpy(np.array(storage, copy=True)).to(server.device)
-    server.planner.load_state_dict(
-        {k[len("planner_"):]: np.array(v, copy=True)
-         for k, v in arrays.items() if k.startswith("planner_")}
-    )
-    server._landed = np.array(arrays["landed"], dtype=bool, copy=True)
-    server._step = int(np.asarray(arrays["serve_state"])[0])
+    a port ``server`` of the same shape (rows, dim, num_slots, precision
+    and table layout). Every array is copied (a reference snapshot aliases
+    the live planner arrays of the server it came from, and on the CPU a
+    zero-copy view of its scratchpad), and the queue blob is read with the
+    port's restricted unpickler."""
+    server.load_state_arrays(arrays)
+
+
+def server_state_to_reference(server: ReadOnlyCacheServer) -> Dict[str, np.ndarray]:
+    """A port server's ``state_arrays()`` with every array an owning numpy
+    copy (the host table, which ``state_arrays`` returns live, included):
+    a reference ``ReadOnlyCacheServer.load_state_arrays`` takes it as it
+    stands, and both servers then serve the same bags."""
+    return {k: np.array(v, copy=True) for k, v in server.state_arrays().items()}
 
 
 #: the reference DevicePlanner's per-table state fields and their dtypes
@@ -217,39 +205,57 @@ def _tree(d, device):
     return _tensor(d, device)
 
 
+def _leading(tree) -> set:
+    if isinstance(tree, dict):
+        return set().union(*(_leading(v) for v in tree.values()))
+    return {np.asarray(tree).shape[0]}
+
+
+def _index(tree, i: int):
+    if isinstance(tree, dict):
+        return {k: _index(v, i) for k, v in tree.items()}
+    return np.asarray(tree)[i]
+
+
 def _unstack(tree: Dict[str, Any], n_lead: int, device) -> List:
-    """{name: (n0[, n1], ...)} -> [[{name: (...)}, ...], ...] over the
-    ``n_lead`` leading axes (1: a list of dicts; 2: a list of lists)."""
-    leaves = {k: np.asarray(v) for k, v in tree.items()}
-    n = {v.shape[0] for v in leaves.values()}
+    """A nested dict of stacked leaves (n0[, n1], ...) -> [[{...}, ...], ...]
+    over the ``n_lead`` leading axes (1: a list of dicts; 2: a list of
+    lists), each leaf a tensor copy on ``device``."""
+    n = _leading(tree)
     if len(n) != 1:
         raise ValueError(f"stacked leaves disagree on their leading axis: {sorted(n)}")
     out = []
     for i in range(n.pop()):
-        sub = {k: v[i] for k, v in leaves.items()}
-        out.append(_unstack(sub, n_lead - 1, device) if n_lead > 1
-                   else {k: _tensor(v, device) for k, v in sub.items()})
+        sub = _index(tree, i)
+        out.append(_unstack(sub, n_lead - 1, device) if n_lead > 1 else _tree(sub, device))
     return out
 
 
+#: stacked leaves -> how many leading axes the port unstacks into lists
+_STACKED = {"groups": 2, "tail": 1, "layers": 1}
+
+
 def lm_params_from_reference(params: dict, device="cpu") -> dict:
-    """Reference hybrid LM params (numpy arrays: ``embed``, ``groups``
+    """Reference LM params (numpy arrays) -> the port's on ``device``, every
+    array copied. Hybrid (``models/hybrid.py``): ``embed``, ``groups``
     stacked (G, m, ...), ``shared``, ``final_norm``, ``lm_head``, ``tail``
-    stacked (tail, ...)) -> the port's ``models/hybrid.py`` params on
-    ``device``, every array copied."""
-    out = {k: _tree(v, device) for k, v in params.items() if k not in ("groups", "tail")}
-    out["groups"] = _unstack(params["groups"], 2, device)
-    if "tail" in params:
-        out["tail"] = _unstack(params["tail"], 1, device)
+    stacked (tail, ...). Transformer (``models/transformer.py``):
+    ``layers`` stacked (L, ...), ``final_norm`` (a dict of ``w``/``b`` for
+    the encoder), ``embed``, ``lm_head`` unless tied, ``frontend_proj``."""
+    out = {k: _tree(v, device) for k, v in params.items() if k not in _STACKED}
+    for k, n_lead in _STACKED.items():
+        if k in params:
+            out[k] = _unstack(params[k], n_lead, device)
     return out
 
 
 def lm_cache_from_reference(cache: dict, device="cpu") -> dict:
-    """Reference hybrid decode cache (numpy arrays: ``groups`` states
-    stacked (G, m, B, ...), ``k``/``v`` (G, B, S, K, hd), ``x0``, ``tail``
-    stacked (tail, B, ...)) -> the port's, on ``device``, copied."""
-    out = {k: _tensor(cache[k], device) for k in ("k", "v", "x0")}
-    out["groups"] = _unstack(cache["groups"], 2, device)
-    if "tail" in cache:
-        out["tail"] = _unstack(cache["tail"], 1, device)
+    """A reference decode cache (numpy arrays) -> the port's, on ``device``,
+    copied: ``k``/``v`` stay stacked ((G or L), B, S, K, hd); the hybrid's
+    ``x0`` as it is, its ``groups`` states (G, m, B, ...) and ``tail``
+    states (tail, B, ...) unstacked per layer."""
+    out = {k: _tensor(v, device) for k, v in cache.items() if k not in _STACKED}
+    for k, n_lead in _STACKED.items():
+        if k in cache:
+            out[k] = _unstack(cache[k], n_lead, device)
     return out

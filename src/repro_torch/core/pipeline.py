@@ -204,6 +204,20 @@ def _to_numpy(x):
     return np.array(x)
 
 
+def capture_plan(p) -> dict:
+    """A plan (host PlanResult, or a device plan: its host fields
+    materialize, its device ``slots`` come back) -> a plain host dict of
+    the ``_PLAN_FIELDS``, as checkpoints hold it."""
+    out: Dict[str, Any] = {}
+    for f in _PLAN_FIELDS:
+        v = getattr(p, f)
+        if f in ("step", "n_unique", "n_hits"):
+            out[f] = int(v)
+        else:
+            out[f] = None if v is None else _to_numpy(v)
+    return out
+
+
 @dataclasses.dataclass
 class _InFlight:
     ids: np.ndarray
@@ -806,20 +820,6 @@ class ScratchPipe:
             self.host.scatter(slot_to_id[live], self._dequant(vals))
 
     # -- checkpoint/restart (crash-consistent, ANY cycle) ------------------ #
-    @staticmethod
-    def _capture_plan(p) -> dict:
-        """A plan (host PlanResult, or a device plan: its host fields
-        materialize, its device ``slots`` come back) -> a plain host dict
-        of the ``_PLAN_FIELDS``."""
-        out: Dict[str, Any] = {}
-        for f in _PLAN_FIELDS:
-            v = getattr(p, f)
-            if f in ("step", "n_unique", "n_hits"):
-                out[f] = int(v)
-            else:
-                out[f] = None if v is None else _to_numpy(v)
-        return out
-
     def _to_device(self, x):
         """Host rows (an int8 pair: both halves) -> tensors on the device."""
         if x is None:
@@ -845,7 +845,7 @@ class ScratchPipe:
                 "ids": np.asarray(e.ids),
                 "stage": int(e.stage),
                 "batch": e.batch,  # host-normalized inside pack_blob
-                "plan": None if e.plan is None else self._capture_plan(e.plan),
+                "plan": None if e.plan is None else capture_plan(e.plan),
                 "host_rows": _to_numpy(host_rows),
                 "evicted_dev": _to_numpy(e.evicted_dev),
                 "fetched_dev": _to_numpy(e.fetched_dev),

@@ -40,10 +40,20 @@ Telemetry (``tracer=``/``metrics=``, or the global install of
 ``serve.latency_us`` histogram and lazy gauges, labelled with the design's
 name, as in the reference.
 
-Not ported yet (see ROADMAP.md): serving recovery — ``fetch_retries`` and
-its failsafe, ``state_arrays``/``load_state_arrays``/warm start
-(``convert.py`` carries a reference server's fp32 state across instead;
-Queue 1 item 12). Not carried over: the reference's ``storage_dtype``, an
+Recovery, as in the reference: the prefetch gather goes through a hook
+(``_fetch_gather``, which the chaos injector wraps) and is retried
+``fetch_retries`` times on ``TransientOpError``; an entry whose retries run
+out is completed by the emergency path at serve time, which reads the same
+read-only host rows, so its bags stay bit-identical (``serve.fetch_failures``
+and ``serve.failsafe`` count the events). ``state_arrays``/
+``load_state_arrays`` snapshot a server at any cycle, mid-queue too (the
+queued entries ride one ``pack_blob``), in the reference's keys, so the
+two packages load each other's snapshots. ``warm_start_from_arrays``
+preloads an empty server from a TRAINING checkpoint's resident set
+(``resident_set_from_state``: flat, device-planner and sharded layouts, at
+fp32, fp16 and int8 storage). Every fill of a retry, an emergency or a
+warm start runs on the thread that drives the server, through the port's
+kernels. Not carried over: the reference's ``storage_dtype``, an
 fp32-path experiment knob that no launcher, benchmark or example of the
 reference sets.
 """
@@ -57,16 +67,18 @@ from typing import Any, Deque, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch.checkpoint.pack import pack_blob, unpack_blob
 from repro_torch.core import quantize as qz
 from repro_torch.core import scratchpad as sp
 from repro_torch.core.quantize import QuantStorage
 from repro_torch.core.host_table import HostEmbeddingTable, HostTraffic
-from repro_torch.core.pipeline import StepStats
+from repro_torch.core.pipeline import StepStats, _to_numpy, capture_plan
 from repro_torch.core.plan import Planner, PlanResult, pad_index, pad_rows
 from repro_torch.core.runtime import register_runtime
 from repro_torch.core.table_group import TableGroup
 from repro_torch.device import resolve_device
 from repro_torch.obs import NULL_SPAN, resolve as obs_resolve
+from repro_torch.runtime.supervision import TransientOpError
 
 
 def _lookup_bags(storage, slots: np.ndarray) -> np.ndarray:
@@ -122,8 +134,6 @@ class _ServingRuntimeBase:
         m = self._metrics
         if m is not None:
             lbl = {"runtime": self._RUNTIME_NAME}
-            # fetch_failures/failsafe stay 0 until serving recovery is
-            # ported; kept so the snapshot has the reference's cells
             self._mc = {k: m.counter(f"serve.{k}", **lbl)
                         for k in ("requests", "lookups", "hits", "misses",
                                   "emergency_serves", "emergency_rows",
@@ -334,6 +344,7 @@ class ReadOnlyCacheServer(_ServingRuntimeBase):
         slot_budgets=None,
         pad_buckets: Optional[Sequence[int]] = None,
         precision: Optional[str] = None,
+        fetch_retries: int = 1,
         tracer=None,
         metrics=None,
         device="cuda",
@@ -346,6 +357,13 @@ class ReadOnlyCacheServer(_ServingRuntimeBase):
             device=device,
         )
         self.window = int(window)
+        # failsafe fetch path: the prefetch gather goes through this hook
+        # (the chaos injector wraps it) and is retried ``fetch_retries``
+        # times on TransientOpError; on exhaustion the entry misses and the
+        # serve-time emergency path, which reads the host table directly,
+        # completes it. Both read the same read-only host rows.
+        self.fetch_retries = int(fetch_retries)
+        self._fetch_gather = self.host.gather
         group_prec = (
             table_group.uniform_precision() if table_group is not None else None
         )
@@ -434,9 +452,26 @@ class ReadOnlyCacheServer(_ServingRuntimeBase):
 
     def _fetch(self, entry: _ServeEntry) -> None:
         """[Exchange]: host-gather the planned misses (still-valid ones are
-        filled at [Insert]; stale pairs are dropped there)."""
+        filled at [Insert]; stale pairs are dropped there). A fetch that
+        keeps failing is abandoned after ``fetch_retries`` retries: the
+        entry falls through to the emergency path at serve time, with
+        bit-parity kept at the cost of latency (``serve.failsafe``)."""
         p = entry.plan
-        entry.fetched = self.host.gather(p.miss_ids) if p.miss_ids.size else None
+        if not p.miss_ids.size:
+            entry.fetched = None
+            entry.stage = 2
+            return
+        rows = None
+        for _attempt in range(self.fetch_retries + 1):
+            try:
+                rows = self._fetch_gather(p.miss_ids)
+                break
+            except TransientOpError:
+                if self._mc is not None:
+                    self._mc["fetch_failures"].inc()
+        if rows is None and self._mc is not None:
+            self._mc["failsafe"].inc()
+        entry.fetched = rows
         entry.stage = 2
 
     def _insert(self, entry: _ServeEntry) -> None:
@@ -567,6 +602,219 @@ class ReadOnlyCacheServer(_ServingRuntimeBase):
                 self._landed[plan.fill_slots] = False
                 self._fill_rows(plan.fill_slots, self.host.gather(plan.miss_ids))
         return n_evict
+
+    # -- checkpoint/restart (crash-consistent, ANY cycle) ------------------ #
+    def state_arrays(self) -> dict:
+        """Host snapshot at ANY cycle, mid-queue too, in the reference's
+        keys: the host table (live, as the training runtimes return it),
+        the scratchpad (int8: ``storage`` + ``storage_scale``), the planner
+        state, the landed mask, the serve step and every queued micro-batch
+        with its pipeline progress (plan, fetched rows, stage) packed into
+        one ``queue`` blob. Restoring into a server of the same shape and
+        replaying the same enqueue/serve sequence gives bit-identical bags.
+        Entry tags ride the blob: numpy arrays and builtins only."""
+        out = {"host_table": self.host.data}
+        if isinstance(self.storage, QuantStorage):
+            out["storage"] = _to_numpy(self.storage.data)
+            out["storage_scale"] = _to_numpy(self.storage.scale)
+        else:
+            out["storage"] = _to_numpy(self.storage)
+        for k, v in self.planner.state_dict().items():
+            out[f"planner_{k}"] = np.array(v)
+        out["landed"] = self._landed.copy()
+        out["serve_state"] = np.array([self._step], dtype=np.int64)
+        if self._queue:
+            out["queue"] = pack_blob([
+                {
+                    "ids": np.asarray(e.ids),
+                    "tag": e.tag,
+                    "plan": None if e.plan is None else capture_plan(e.plan),
+                    "fetched": None if e.fetched is None else np.asarray(e.fetched),
+                    "stage": int(e.stage),
+                }
+                for e in self._queue
+            ])
+        return out
+
+    def _to_device(self, a) -> torch.Tensor:
+        return torch.from_numpy(np.array(a, copy=True)).to(self.device)
+
+    def load_state_arrays(self, arrays: dict) -> None:
+        """Load a :meth:`state_arrays` snapshot (this package's or the
+        reference's) into this server: the host table IN PLACE, the
+        scratchpad onto this server's device, the planner, the landed mask,
+        the serve step and the queue (its planned entries form the visible
+        window again, in queue order). Every array is copied."""
+        ht = np.asarray(arrays["host_table"])
+        if ht.shape != self.host.data.shape:
+            raise ValueError(
+                f"checkpoint host table {ht.shape} != {self.host.data.shape}"
+            )
+        storage = np.asarray(arrays["storage"])
+        have = (self.storage.data if isinstance(self.storage, QuantStorage)
+                else self.storage)
+        if storage.shape != tuple(have.shape) or ("storage_scale" in arrays) != (
+                isinstance(self.storage, QuantStorage)):
+            raise ValueError(
+                f"checkpoint storage {storage.dtype} {storage.shape} does not fit "
+                f"this server's {self.precision} {tuple(have.shape)}"
+            )
+        self.host.data[...] = ht
+        self.host.reguard()
+        if "storage_scale" in arrays:
+            self.storage = QuantStorage(self._to_device(storage),
+                                        self._to_device(arrays["storage_scale"]))
+        else:
+            self.storage = self._to_device(storage)
+        self.planner.load_state_dict(
+            {k[len("planner_"):]: np.array(v, copy=True) for k, v in arrays.items()
+             if k.startswith("planner_")}
+        )
+        self._landed = np.array(arrays["landed"], dtype=bool, copy=True)
+        self._step = int(np.asarray(arrays["serve_state"])[0])
+        self._queue.clear()
+        self._visible.clear()
+        if "queue" in arrays:
+            for d in unpack_blob(arrays["queue"]):
+                e = _ServeEntry(np.asarray(d["ids"]), d["tag"])
+                e.stage = int(d["stage"])
+                if d["plan"] is not None:
+                    e.plan = PlanResult(**d["plan"])
+                e.fetched = d["fetched"]
+                self._queue.append(e)
+                # the same objects in both deques: ``_visible.remove(entry)``
+                # at serve goes by identity
+                if e.stage >= 1:
+                    self._visible.append(e)
+
+    # -- warm start from a TRAINING checkpoint ----------------------------- #
+    def _warm_cap(self, ids: np.ndarray) -> np.ndarray:
+        """Keep-mask limiting a preload candidate list (already ordered
+        hottest-first) to this server's per-table slot budgets."""
+        keep = np.zeros(ids.size, dtype=bool)
+        if self.table_group is None:
+            keep[: self.num_slots] = True
+            return keep
+        offsets = np.asarray(self.table_group.offsets, dtype=np.int64)
+        t_of = np.searchsorted(offsets[1:-1], ids, side="right")
+        for t, (lo, hi) in enumerate(self.planner.slot_ranges):
+            keep[np.flatnonzero(t_of == t)[: int(hi - lo)]] = True
+        return keep
+
+    def warm_start_from_arrays(self, arrays: dict, *, load_host: bool = True) -> int:
+        """Preload the scratchpad from a TRAINING checkpoint's resident set
+        (``ScratchPipe``/``ShardedScratchPipe.state_arrays()``, either
+        package's), so a fresh replica starts at the trained runtime's hit
+        rate instead of cold. Rows are ordered by the trainer's recency
+        (``last_use``), capped to this server's per-table budgets, and go
+        in with one fill of the replica precision (the kernel on the card).
+        With ``load_host`` the checkpoint's host table is loaded IN PLACE
+        (shapes must match). A hit-rate optimization, not a parity contract:
+        the planner state is not the trainer's. Returns rows preloaded."""
+        if self._queue or self._visible or np.any(self._landed):
+            raise RuntimeError("warm_start_from_arrays on a non-empty server")
+        if load_host:
+            ht = _host_table_from_state(arrays)
+            if ht.shape != self.host.data.shape:
+                raise ValueError(
+                    f"checkpoint host table {ht.shape} != {self.host.data.shape}"
+                )
+            self.host.data[...] = ht
+            self.host.reguard()
+        ids, rows, last_use = resident_set_from_state(arrays)
+        order = np.argsort(-last_use, kind="stable")  # most recent first
+        ids, rows = ids[order], rows[order]
+        keep = self._warm_cap(ids)
+        ids, rows = ids[keep], rows[keep]
+        if ids.size == 0:
+            return 0
+        # one plan over the empty cache assigns a free slot per id; the
+        # head doubles as its own look-ahead so nothing is evictable
+        plan = self.planner.plan(ids, [ids])
+        srt = np.argsort(ids, kind="stable")
+        if not np.array_equal(np.asarray(plan.miss_ids), ids[srt]):
+            raise RuntimeError(
+                "warm start: planner miss order diverged from the sorted preload ids")
+        if plan.fill_slots.size:
+            self._landed[plan.fill_slots] = False
+            self._fill_rows(np.asarray(plan.fill_slots), rows[srt])
+        return int(ids.size)
+
+
+def _host_table_from_state(arrays: dict) -> np.ndarray:
+    """The (possibly sharded) fp32 host table of a training checkpoint's
+    ``state_arrays()`` dict."""
+    if "host_table" in arrays:
+        return np.asarray(arrays["host_table"])
+    parts = []
+    while f"shard{len(parts)}_host_table" in arrays:
+        parts.append(np.asarray(arrays[f"shard{len(parts)}_host_table"]))
+    if not parts:
+        raise ValueError("no host table in checkpoint arrays")
+    return np.concatenate(parts, axis=0)
+
+
+def resident_set_from_state(arrays: dict):
+    """The resident set ``(global ids int64, fp32 rows, last_use int64)`` of
+    a training runtime's ``state_arrays()`` dict, in the reference's order:
+
+    * host planner: ``planner_slot_to_id`` holds global row ids;
+    * device planner: per-table ``planner_t{t}_slot_to_id`` holds LOCAL
+      ids; row offsets come from the hitmap lengths, slot offsets from the
+      slot_to_id lengths (the budgets);
+    * sharded: ``shard{i}_`` sub-dicts recurse, row offsets from the
+      shards' host tables.
+
+    Rows are dequantized to fp32 from the scratchpad's precision (fp32,
+    fp16, or int8 + ``storage_scale``)."""
+    if "shard0_host_table" in arrays:
+        ids_all, rows_all, use_all = [], [], []
+        i = row_off = 0
+        while f"shard{i}_host_table" in arrays:
+            prefix = f"shard{i}_"
+            sub = {k[len(prefix):]: v for k, v in arrays.items() if k.startswith(prefix)}
+            ids, rows, use = resident_set_from_state(sub)
+            ids_all.append(ids + row_off)
+            rows_all.append(rows)
+            use_all.append(use)
+            row_off += int(np.asarray(sub["host_table"]).shape[0])
+            i += 1
+        return (np.concatenate(ids_all), np.concatenate(rows_all, axis=0),
+                np.concatenate(use_all))
+
+    storage = np.asarray(arrays["storage"])
+    scale = np.asarray(arrays["storage_scale"]) if "storage_scale" in arrays else None
+
+    def _rows_of(slots: np.ndarray) -> np.ndarray:
+        if scale is not None:
+            return qz.dequantize_rows_np((storage[slots], scale[slots]), "int8")
+        if storage.dtype == np.float16:
+            return qz.dequantize_rows_np(storage[slots], "fp16")
+        return np.asarray(storage[slots], dtype=np.float32)
+
+    if "planner_slot_to_id" in arrays:  # the host planner's layout
+        s2i = np.asarray(arrays["planner_slot_to_id"]).ravel()
+        use = np.asarray(arrays["planner_last_use"]).ravel()
+        slots = np.flatnonzero(s2i >= 0)
+        return s2i[slots].astype(np.int64), _rows_of(slots), use[slots].astype(np.int64)
+
+    # the device planner's: t{t}_* per table, local ids, consecutive slots
+    ids_all, rows_all, use_all = [], [], []
+    t = slot_off = row_off = 0
+    while f"planner_t{t}_slot_to_id" in arrays:
+        s2i = np.asarray(arrays[f"planner_t{t}_slot_to_id"]).ravel()
+        use = np.asarray(arrays[f"planner_t{t}_last_use"]).ravel()
+        local = np.flatnonzero(s2i >= 0)
+        ids_all.append(s2i[local].astype(np.int64) + row_off)
+        rows_all.append(_rows_of(local + slot_off))
+        use_all.append(use[local].astype(np.int64))
+        row_off += int(np.asarray(arrays[f"planner_t{t}_hitmap"]).shape[0])
+        slot_off += int(s2i.shape[0])
+        t += 1
+    if not ids_all:
+        raise ValueError("no planner state found in checkpoint arrays")
+    return (np.concatenate(ids_all), np.concatenate(rows_all, axis=0),
+            np.concatenate(use_all))
 
 
 def _require_no_train_fn(name: str, train_fn) -> None:

@@ -7,6 +7,9 @@
 //   repro/kernels/flash_attention.py: flash_attention (_kernel).
 //   q (B, Sq, H, hd), k/v (B, Skv, K, hd) with H % K == 0, bf16 or fp32 ->
 //   o (B, Sq, H, hd) in q's dtype. Query head h reads kv head h * K / H.
+//   Query row i sits at position q_pos = q_off + i (q_off >= 0:
+//   layers.chunked_attention's q_offset, a query chunk after a prefix of
+//   keys); key j at kv_pos = j.
 //   Scores s = (q . k) * 1/sqrt(hd) in fp32; masked where kv_pos >= Skv, or
 //   (causal) kv_pos > q_pos, or (window) q_pos - kv_pos >= window. Online
 //   softmax with a running max, denominator and accumulator in fp32; p is
@@ -203,7 +206,7 @@ flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
                       const __nv_bfloat16* __restrict__ k,
                       const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
                       int Sq, int Skv, int H, int K, int hd, float scale, int causal,
-                      int has_window, int window) {
+                      int has_window, int window, int q_off) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   constexpr int LD = ld<HD>();
   __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // kBM x LD
@@ -221,6 +224,7 @@ flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
   const int t = lane % 4;  // its column pair
   const int q_lo = iq * kBM;
   const int q_hi = min(q_lo + kBM, Sq) - 1;
+  const int p_lo = q_off + q_lo, p_hi = q_off + q_hi;  // the tile's positions
 
   const long long q_step = static_cast<long long>(H) * hd;  // between positions
   const long long kv_step = static_cast<long long>(K) * hd;
@@ -229,10 +233,10 @@ flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
   const __nv_bfloat16* vb = v + (static_cast<long long>(b) * Skv * K + kh) * hd;
 
   const int n_kv = (Skv + kBN - 1) / kBN;
-  const int j_end = causal ? min(n_kv, q_hi / kBN + 1) : n_kv;
+  const int j_end = causal ? min(n_kv, p_hi / kBN + 1) : n_kv;
   int j_begin = 0;
   if (has_window) {
-    const long long first = static_cast<long long>(q_lo) - window + 1;
+    const long long first = static_cast<long long>(p_lo) - window + 1;
     if (first > 0) j_begin = static_cast<int>(min(first / kBN, static_cast<long long>(n_kv)));
   }
 
@@ -269,7 +273,7 @@ flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
   // 4 lanes at the end)
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
   const float scale_log2 = scale * kLog2e;
-  const int rows[2] = {q_lo + warp * 16 + g, q_lo + warp * 16 + g + 8};
+  const int rows[2] = {p_lo + warp * 16 + g, p_lo + warp * 16 + g + 8};  // positions
 
   for (int j = j_begin; j < j_end; ++j) {
     const int buf = (j - j_begin) % kStages;
@@ -309,8 +313,8 @@ flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
     }
 
     // mask, only where the block straddles an edge; the row maxima
-    const bool need_mask = kv_lo + kBN > Skv || (causal && kv_lo + kBN - 1 > q_lo) ||
-                           (has_window && q_hi - kv_lo >= window);
+    const bool need_mask = kv_lo + kBN > Skv || (causal && kv_lo + kBN - 1 > p_lo) ||
+                           (has_window && p_hi - kv_lo >= window);
     float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
     for (int nt = 0; nt < kBN / 8; ++nt) {
@@ -410,7 +414,7 @@ flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
 template <int HD, bool VEC>
 int launch_hd(const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfloat16* v,
               __nv_bfloat16* o, int B, int Sq, int Skv, int H, int K, int hd, int causal,
-              int has_window, int window, cudaStream_t st) {
+              int has_window, int window, int q_off, cudaStream_t st) {
   constexpr size_t smem = smem_bytes<HD>();
   cudaError_t err = cudaFuncSetAttribute(flash_fwd_bf16_kernel<HD, VEC>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -421,33 +425,39 @@ int launch_hd(const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfloat1
   // 1/sqrt(hd) rounded once from double, as the reference's Python float is
   const float scale = static_cast<float>(1.0 / std::sqrt(static_cast<double>(hd)));
   flash_fwd_bf16_kernel<HD, VEC><<<grid, kThreads, smem, st>>>(
-      q, k, v, o, Sq, Skv, H, K, hd, scale, causal, has_window, window);
+      q, k, v, o, Sq, Skv, H, K, hd, scale, causal, has_window, window, q_off);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <bool VEC>
 int launch_vec(const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfloat16* v,
                __nv_bfloat16* o, int B, int Sq, int Skv, int H, int K, int hd, int causal,
-               int has_window, int window, cudaStream_t st) {
+               int has_window, int window, int q_off, cudaStream_t st) {
   if (hd <= 32)
-    return launch_hd<32, VEC>(q, k, v, o, B, Sq, Skv, H, K, hd, causal, has_window, window, st);
+    return launch_hd<32, VEC>(q, k, v, o, B, Sq, Skv, H, K, hd, causal, has_window, window,
+                              q_off, st);
   if (hd <= 64)
-    return launch_hd<64, VEC>(q, k, v, o, B, Sq, Skv, H, K, hd, causal, has_window, window, st);
-  return launch_hd<128, VEC>(q, k, v, o, B, Sq, Skv, H, K, hd, causal, has_window, window, st);
+    return launch_hd<64, VEC>(q, k, v, o, B, Sq, Skv, H, K, hd, causal, has_window, window,
+                              q_off, st);
+  return launch_hd<128, VEC>(q, k, v, o, B, Sq, Skv, H, K, hd, causal, has_window, window,
+                             q_off, st);
 }
 
 bool aligned16(const void* p) { return (reinterpret_cast<std::uintptr_t>(p) & 15u) == 0; }
 
 int launch(const void* q, const void* k, const void* v, void* o, int B, int Sq, int Skv,
-           int H, int K, int hd, int causal, int has_window, int window, void* stream) {
+           int H, int K, int hd, int causal, int has_window, int window, int q_off,
+           void* stream) {
   const auto* qt = static_cast<const __nv_bfloat16*>(q);
   const auto* kt = static_cast<const __nv_bfloat16*>(k);
   const auto* vt = static_cast<const __nv_bfloat16*>(v);
   auto* ot = static_cast<__nv_bfloat16*>(o);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (hd % 8 == 0 && aligned16(q) && aligned16(k) && aligned16(v) && aligned16(o))
-    return launch_vec<true>(qt, kt, vt, ot, B, Sq, Skv, H, K, hd, causal, has_window, window, st);
-  return launch_vec<false>(qt, kt, vt, ot, B, Sq, Skv, H, K, hd, causal, has_window, window, st);
+    return launch_vec<true>(qt, kt, vt, ot, B, Sq, Skv, H, K, hd, causal, has_window, window,
+                            q_off, st);
+  return launch_vec<false>(qt, kt, vt, ot, B, Sq, Skv, H, K, hd, causal, has_window, window,
+                           q_off, st);
 }
 
 }  // namespace tc
@@ -484,7 +494,7 @@ __global__ void __launch_bounds__(kThreads)
 flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, float* __restrict__ o, int Sq, int Skv,
                      int H, int K, int hd, float scale, int causal, int has_window,
-                     int window) {
+                     int window, int q_off) {
   extern __shared__ float smem[];
   float* Qt = smem;               // hd x kLd: Qt[d][r]
   float* Kt = Qt + hd * kLd;      // hd x kLd: Kt[d][c]
@@ -524,10 +534,10 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
   const int q_hi = min(q_lo + kBQ, Sq) - 1;
   const int n_kv = (Skv + kBKV - 1) / kBKV;
-  const int j_end = causal ? min(n_kv, q_hi / kBKV + 1) : n_kv;
+  const int j_end = causal ? min(n_kv, (q_off + q_hi) / kBKV + 1) : n_kv;
   int j_begin = 0;
   if (has_window) {
-    const long long first = static_cast<long long>(q_lo) - window + 1;
+    const long long first = static_cast<long long>(q_off) + q_lo - window + 1;
     if (first > 0) j_begin = static_cast<int>(first / kBKV);
   }
 
@@ -567,14 +577,15 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int qp = q_lo + ty * 4 + i;
+      const int pos = q_off + qp;
       bool ok[4];
       float mx = kNegInf;
 #pragma unroll
       for (int jj = 0; jj < 4; ++jj) {
         const int kp = kv_lo + tx + 16 * jj;
         bool valid = kp < Skv && qp < Sq;
-        if (causal) valid = valid && kp <= qp;
-        if (has_window) valid = valid && (qp - kp < window);
+        if (causal) valid = valid && kp <= pos;
+        if (has_window) valid = valid && (pos - kp < window);
         ok[jj] = valid;
         sc[i][jj] = valid ? sc[i][jj] * scale : kNegInf;
         mx = fmaxf(mx, sc[i][jj]);
@@ -628,7 +639,7 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 template <int NJ>
 int launch_nj(const float* q, const float* k, const float* v, float* o, int B, int Sq,
               int Skv, int H, int K, int hd, int causal, int has_window, int window,
-              cudaStream_t st) {
+              int q_off, cudaStream_t st) {
   const size_t smem = smem_bytes(hd);
   cudaError_t err = cudaFuncSetAttribute(
       flash_fwd_f32_kernel<NJ>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -637,20 +648,26 @@ int launch_nj(const float* q, const float* k, const float* v, float* o, int B, i
   const dim3 grid((Sq + kBQ - 1) / kBQ, H, B);
   const float scale = static_cast<float>(1.0 / std::sqrt(static_cast<double>(hd)));
   flash_fwd_f32_kernel<NJ><<<grid, kThreads, smem, st>>>(
-      q, k, v, o, Sq, Skv, H, K, hd, scale, causal, has_window, window);
+      q, k, v, o, Sq, Skv, H, K, hd, scale, causal, has_window, window, q_off);
   return static_cast<int>(cudaGetLastError());
 }
 
 int launch(const void* q, const void* k, const void* v, void* o, int B, int Sq, int Skv,
-           int H, int K, int hd, int causal, int has_window, int window, void* stream) {
+           int H, int K, int hd, int causal, int has_window, int window, int q_off,
+           void* stream) {
   const float* qt = static_cast<const float*>(q);
   const float* kt = static_cast<const float*>(k);
   const float* vt = static_cast<const float*>(v);
   float* ot = static_cast<float*>(o);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (hd <= 32) return launch_nj<2>(qt, kt, vt, ot, B, Sq, Skv, H, K, hd, causal, has_window, window, st);
-  if (hd <= 64) return launch_nj<4>(qt, kt, vt, ot, B, Sq, Skv, H, K, hd, causal, has_window, window, st);
-  return launch_nj<8>(qt, kt, vt, ot, B, Sq, Skv, H, K, hd, causal, has_window, window, st);
+  if (hd <= 32)
+    return launch_nj<2>(qt, kt, vt, ot, B, Sq, Skv, H, K, hd, causal, has_window, window,
+                        q_off, st);
+  if (hd <= 64)
+    return launch_nj<4>(qt, kt, vt, ot, B, Sq, Skv, H, K, hd, causal, has_window, window,
+                        q_off, st);
+  return launch_nj<8>(qt, kt, vt, ot, B, Sq, Skv, H, K, hd, causal, has_window, window,
+                      q_off, st);
 }
 
 }  // namespace f32
@@ -663,22 +680,26 @@ bool valid_shape(int B, int Sq, int Skv, int H, int K, int hd) {
 }  // namespace
 
 // The 1/sqrt(hd) scale is the kernel's (as in the TPU kernel). window is
-// read only when has_window is non-zero.
+// read only when has_window is non-zero; q_off is the position of q row 0.
 extern "C" int repro_flash_attention_f32(const void* q, const void* k, const void* v,
                                          void* o, int B, int Sq, int Skv, int H,
                                          int K, int hd, int causal, int has_window,
-                                         int window, void* stream) {
-  if (!valid_shape(B, Sq, Skv, H, K, hd)) return static_cast<int>(cudaErrorInvalidValue);
-  return f32::launch(q, k, v, o, B, Sq, Skv, H, K, hd, causal, has_window, window, stream);
+                                         int window, int q_off, void* stream) {
+  if (!valid_shape(B, Sq, Skv, H, K, hd) || q_off < 0 || q_off > (1 << 30) - Sq)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return f32::launch(q, k, v, o, B, Sq, Skv, H, K, hd, causal, has_window, window, q_off,
+                     stream);
 }
 
 extern "C" int repro_flash_attention_bf16(const void* q, const void* k, const void* v,
                                           void* o, int B, int Sq, int Skv, int H,
                                           int K, int hd, int causal, int has_window,
-                                          int window, void* stream) {
-  if (!valid_shape(B, Sq, Skv, H, K, hd) || (Sq + tc::kBM - 1) / tc::kBM > 65535)
+                                          int window, int q_off, void* stream) {
+  if (!valid_shape(B, Sq, Skv, H, K, hd) || (Sq + tc::kBM - 1) / tc::kBM > 65535 ||
+      q_off < 0 || q_off > (1 << 30) - Sq)
     return static_cast<int>(cudaErrorInvalidValue);
-  return tc::launch(q, k, v, o, B, Sq, Skv, H, K, hd, causal, has_window, window, stream);
+  return tc::launch(q, k, v, o, B, Sq, Skv, H, K, hd, causal, has_window, window, q_off,
+                    stream);
 }
 
 extern "C" const char* repro_cuda_error_string(int err) {

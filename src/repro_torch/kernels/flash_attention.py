@@ -42,7 +42,7 @@ def _lib() -> ctypes.CDLL:
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         for name in ("repro_flash_attention_f32", "repro_flash_attention_bf16"):
             fn = getattr(lib, name)
-            fn.argtypes = [ptr, ptr, ptr, ptr] + [i32] * 9 + [ptr]
+            fn.argtypes = [ptr, ptr, ptr, ptr] + [i32] * 10 + [ptr]
             fn.restype = i32
         lib.repro_cuda_error_string.argtypes = [i32]
         lib.repro_cuda_error_string.restype = ctypes.c_char_p
@@ -52,13 +52,13 @@ def _lib() -> ctypes.CDLL:
 
 def flash_attention(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
-    window: Optional[int],
+    window: Optional[int], q_offset: int = 0,
 ) -> torch.Tensor:
     """q (B, Sq, H, hd), k/v (B, Skv, K, hd), contiguous, all fp32 or all
     bf16 on one CUDA device; H % K == 0, hd <= 128, no dim empty ->
     (B, Sq, H, hd) in q's dtype: softmax(q k^T / sqrt(hd)) v over the
     unmasked keys (``causal``: kv_pos <= q_pos; ``window``: q_pos - kv_pos
-    < window)."""
+    < window), query row i at q_pos = ``q_offset`` + i (>= 0)."""
     if q.device.type != "cuda":
         raise ValueError(f"CUDA kernel called on a {q.device} tensor")
     _check(q, "q", _DTYPES, q.device)
@@ -77,6 +77,8 @@ def flash_attention(
         raise ValueError("empty operands launch nothing: ops.flash_attention skips them")
     if hd > MAX_HEAD_DIM:
         raise ValueError(f"head dim {hd} > {MAX_HEAD_DIM}: the kernel does not take it")
+    if q_offset < 0:
+        raise ValueError(f"q_offset {q_offset} < 0: the kernel does not take it")
     out = torch.empty_like(q)
     lib = _lib()
     fn = (lib.repro_flash_attention_f32 if q.dtype == torch.float32
@@ -84,7 +86,8 @@ def flash_attention(
     with torch.cuda.device(q.device):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Sq, Skv,
                  H, K, hd, int(bool(causal)), int(window is not None),
-                 int(window or 0), torch.cuda.current_stream(q.device).cuda_stream)
+                 int(window or 0), int(q_offset),
+                 torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         what = lib.repro_cuda_error_string(err).decode()
         raise RuntimeError(

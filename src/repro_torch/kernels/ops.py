@@ -329,13 +329,14 @@ def fill_gather_reduce_q(
 # --------------------------------------------------------------------------- #
 def flash_attention(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = True,
-    window=None,
+    window=None, q_offset: int = 0,
 ) -> torch.Tensor:
     """Forward attention: q (B, Sq, H, hd); k/v (B, Skv, K, hd) with
-    H % K == 0 -> (B, Sq, H, hd) in q's dtype. Keys past Skv, past the
-    causal frontier (``causal``) or outside ``window`` are masked. No
-    gradient (the reference's backward recomputes through the plain
-    version; LM training is not ported yet)."""
+    H % K == 0 -> (B, Sq, H, hd) in q's dtype. Query row i sits at position
+    ``q_offset`` + i, key j at j; keys past Skv, past the causal frontier
+    (``causal``) or outside ``window`` are masked. No gradient (the
+    reference's backward recomputes through the plain version; LM training
+    is not ported yet)."""
     B, Sq, H, hd = q.shape
     if min(B, Sq, H, hd) == 0:  # nothing to compute: no launch
         return q.new_empty(q.shape)
@@ -343,8 +344,9 @@ def flash_attention(
         return torch.zeros_like(q)
     if _route(q) == "cuda":
         return _fa.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
-                                   causal, window)
-    return _ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+                                   causal, window, q_offset)
+    return _ref.flash_attention_ref(q, k, v, causal=causal, window=window,
+                                    q_offset=q_offset)
 
 
 def ssd_chunk_scan(

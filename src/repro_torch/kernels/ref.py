@@ -187,10 +187,11 @@ def coalesce_apply_ref(
 
 def flash_attention_ref(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = True,
-    window=None,
+    window=None, q_offset: int = 0,
 ) -> torch.Tensor:
     """q (B, Sq, H, hd); k/v (B, Skv, K, hd) with H % K == 0 -> (B, Sq, H,
-    hd) in q's dtype. Direct softmax attention; kv head h // (H // K)."""
+    hd) in q's dtype. Direct softmax attention; kv head h // (H // K); query
+    row i at position ``q_offset`` + i (``layers.chunked_attention``'s)."""
     B, Sq, H, hd = q.shape
     G = H // k.shape[2]
     if G > 1:
@@ -198,7 +199,7 @@ def flash_attention_ref(
         v = v.repeat_interleave(G, dim=2)
     Skv = k.shape[1]
     s = torch.einsum("bqhd,bjhd->bhqj", q.float(), k.float()) / math.sqrt(hd)
-    q_pos = torch.arange(Sq, device=q.device)[:, None]
+    q_pos = q_offset + torch.arange(Sq, device=q.device)[:, None]
     kv_pos = torch.arange(Skv, device=q.device)[None, :]
     valid = torch.ones((Sq, Skv), dtype=torch.bool, device=q.device)
     if causal:

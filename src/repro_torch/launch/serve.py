@@ -2,11 +2,13 @@
 lookup tier.
 
 Port of ``repro/launch/serve.py``. LM archs (batched prefill + greedy
-decode against the KV/SSM cache; ``zamba2-1.2b`` so far, the others raise
-with their ROADMAP item):
+decode against the KV/SSM cache: ``zamba2-1.2b`` and the dense and vlm
+transformers; an encoder-only arch exits, as in the reference; mamba2 and
+the MoE archs raise with their ROADMAP item):
 
     python -m repro_torch.launch.serve --arch zamba2-1.2b --batch 4 \
         --prompt-len 2048 --gen 16
+    python -m repro_torch.launch.serve --arch chatglm3-6b --smoke --device cpu
 
 ``--smoke`` takes the arch's smoke config. Weights are random, drawn from
 ``--seed``, as in the reference. Prints the reference's ``prefill:``,
@@ -29,8 +31,11 @@ modes run on the card; ``--device cpu`` runs the kernels' plain PyTorch
 versions instead. ``--metrics-out``/``--trace-out`` write the
 ``repro_torch.obs`` snapshot and Chrome trace (spans of the serving
 runtime, the request front end and the replay's prefetch thread), as the
-reference's launcher does. Warm start (``--warm-start``) is not ported yet
-(ROADMAP.md Queue 1 item 12).
+reference's launcher does. ``--warm-start DIR`` (``scratchpipe-serve``
+only) preloads the scratchpad and the host table from the newest training
+checkpoint under DIR (``launch/train.py --supervise/--ckpt-every``, either
+package's) and prints ``warm start: N rows preloaded from DIR (training
+step S)``.
 """
 from __future__ import annotations
 
@@ -121,6 +126,8 @@ def run_embedding(args, *, collect_bags: bool = False, host=None) -> Dict[str, A
                                     group, args.cache_frac)
         )
     backend = make_runtime(args.design, host, None, **kwargs)
+    if args.warm_start:
+        warm_start(backend, args)
 
     print(f"serving {src} through {args.design} at queue depth {args.depth}")
     res = replay_serving(backend, batches, depth=args.depth,
@@ -141,6 +148,30 @@ def run_embedding(args, *, collect_bags: bool = False, host=None) -> Dict[str, A
     return res
 
 
+def warm_start(backend, args) -> int:
+    """``--warm-start``: preload ``backend`` from the newest checkpoint under
+    ``args.warm_start`` (the reference launcher's checks and line)."""
+    from repro_torch.checkpoint import CheckpointManager
+
+    if args.design != "scratchpipe-serve":
+        raise SystemExit(
+            "--warm-start preloads the plan-ahead scratchpad; it requires "
+            "--design scratchpipe-serve"
+        )
+    ckpt = CheckpointManager(args.warm_start)
+    if ckpt.latest_step() is None:
+        raise SystemExit(
+            f"--warm-start: no checkpoints under {args.warm_start} "
+            "(train with --supervise/--ckpt-every to produce them)"
+        )
+    man = ckpt.manifest()
+    arrays = {name: ckpt.restore_host(name) for name in man["host"]}
+    n = backend.warm_start_from_arrays(arrays)
+    print(f"warm start: {n} rows preloaded from {args.warm_start} "
+          f"(training step {man['step']})")
+    return n
+
+
 def _sync(dev) -> None:
     if dev.type == "cuda":
         import torch
@@ -151,11 +182,13 @@ def _sync(dev) -> None:
 def run_lm(args, cfg=None) -> Dict[str, Any]:
     """Port of the reference's ``_serve_lm``: random params from
     ``--seed``, the reference's synthetic prompt batch, one prefill, the KV
-    cache grown by ``gen + 1`` positions, then ``gen - 1`` greedy decode
-    steps. ``cfg`` overrides the arch's config (same arch, e.g. another
-    dtype). Prints the reference's lines and returns the prefill logits,
-    the cache, the generated tokens (B, gen) and the host-clock times (each
-    ended by a device synchronization)."""
+    cache grown by ``gen`` positions (``gen + 1`` for the hybrid family;
+    not at all under a sliding window, whose cache is a ring), then
+    ``gen - 1`` greedy decode steps. ``cfg`` overrides the arch's config
+    (same arch, e.g. another dtype or depth). Prints the reference's lines
+    and returns the prefill logits, the cache, the generated tokens (B,
+    gen) and the host-clock times (each ended by a device
+    synchronization)."""
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -168,6 +201,8 @@ def run_lm(args, cfg=None) -> Dict[str, Any]:
     dev = resolve_device(args.device)
     if cfg is None:
         cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    if cfg.family == "encoder":
+        raise SystemExit("encoder-only arch has no decode step")
     shape = ShapeSpec("serve", args.prompt_len, args.batch, "prefill")
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     params = api.init(cfg, gen, device=dev)
@@ -180,9 +215,11 @@ def run_lm(args, cfg=None) -> Dict[str, Any]:
         t0 = time.perf_counter()
         logits, cache = prefill(params, batch)
         # grow the KV caches to the full generation length (the reference
-        # grows a hybrid cache by gen + 1)
-        cache["k"] = F.pad(cache["k"], (0, 0, 0, 0, 0, args.gen + 1))
-        cache["v"] = F.pad(cache["v"], (0, 0, 0, 0, 0, args.gen + 1))
+        # grows a hybrid cache by gen + 1, a dense one by gen)
+        if cfg.sliding_window is None:
+            pad = args.gen + (1 if cfg.family == "hybrid" else 0)
+            cache["k"] = F.pad(cache["k"], (0, 0, 0, 0, 0, pad))
+            cache["v"] = F.pad(cache["v"], (0, 0, 0, 0, 0, pad))
         tok = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
         _sync(dev)
         prefill_s = time.perf_counter() - t0
@@ -214,7 +251,8 @@ def build_parser() -> argparse.ArgumentParser:
         "versions of the kernels)",
     )
     lm = ap.add_argument_group("LM serving")
-    lm.add_argument("--arch", default=None, help="LM arch id (zamba2-1.2b)")
+    lm.add_argument("--arch", default=None,
+                    help="LM arch id (zamba2-1.2b, chatglm3-6b, phi-3-vision-4.2b, ...)")
     lm.add_argument("--smoke", action="store_true", help="the arch's smoke config")
     lm.add_argument("--prompt-len", type=int, default=32)
     lm.add_argument("--gen", type=int, default=16)
@@ -235,8 +273,12 @@ def build_parser() -> argparse.ArgumentParser:
     emb.add_argument("--dim", type=int, default=32)
     emb.add_argument("--lookups", type=int, default=8)
     emb.add_argument("--cache-frac", type=float, default=0.25)
-    emb.add_argument("--warm-start", default=None,
-                     help="not ported yet (serving recovery)")
+    emb.add_argument(
+        "--warm-start", default=None,
+        help="training checkpoint dir (CheckpointManager layout): preload the "
+        "serving scratchpad with the trained runtime's resident set and host "
+        "table, so the replica starts warm instead of cold",
+    )
     ap.add_argument("--metrics-out", default=None,
                     help="write an obs_metrics/v1 JSONL snapshot here at exit")
     ap.add_argument("--trace-out", default=None,
@@ -249,9 +291,6 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
 
     ap = build_parser()
     args = ap.parse_args(argv)
-    if args.warm_start is not None:
-        ap.error("--warm-start (serving recovery) is not ported to repro_torch yet "
-                 "(ROADMAP.md Queue 1 item 12)")
     if not args.embedding and args.arch is None:
         ap.error("pass --arch <id> or --embedding")
     tracer, metrics = obs_setup(args.trace_out, args.metrics_out)

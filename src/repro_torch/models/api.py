@@ -1,11 +1,13 @@
 """Unified model API of the port: family dispatch, head/vocab padding at one
 card, and synthetic batches.
 
-Port of ``repro/models/api.py`` for the serving path of the ``hybrid``
-family (zamba2-1.2b). One card: TP = 1, so nothing is padded and there are
-no mesh, specs or shardings. The other families raise, naming the ROADMAP
-item that ports them. ``synth_batch`` draws from the same numpy generator
-as the reference, so its tokens equal the reference's.
+Port of ``repro/models/api.py`` for the serving paths of the ``hybrid``
+family (zamba2-1.2b) and the ``dense``, ``encoder`` and ``vlm`` transformer
+families. One card: TP = 1, so nothing is padded and there are no mesh,
+specs or shardings. The other families raise, naming the ROADMAP item that
+ports them. ``synth_batch`` draws from the same numpy generator in the same
+order as the reference, so its tokens, frames and patches equal the
+reference's.
 """
 from __future__ import annotations
 
@@ -15,11 +17,13 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig, ShapeSpec
-from repro_torch.models import hybrid
+from repro_torch.models import hybrid, transformer
+from repro_torch.models.transformer import FRAME_DIM, PATCH_DIM
 
-_FAMILY_MOD = {"hybrid": hybrid}
+_FAMILY_MOD = {"hybrid": hybrid, "dense": transformer, "encoder": transformer,
+               "vlm": transformer}
 #: families of the reference not ported yet -> ROADMAP.md Queue 1 item
-_FAMILY_ITEM = {"dense": 15, "encoder": 15, "vlm": 15, "ssm": 16, "moe": 17}
+_FAMILY_ITEM = {"ssm": 16, "moe": 17}
 
 
 def family_module(cfg):
@@ -82,10 +86,23 @@ def init_cache(cfg: ModelConfig, batch: int, seq_len: int, device="cpu"):
 
 def batch_structure(cfg: ModelConfig, shape: ShapeSpec) -> Dict[str, Tuple]:
     """name -> (shape, dtype) for the *train/prefill* inputs of this arch:
-    tokens (and labels to train). The reference's modality frontends and
-    offloaded embedding come with their families (ROADMAP.md Queue 1 items
-    15 and 19)."""
+    tokens, or the ``frames`` frontend's frame embeddings, or the
+    ``patches`` frontend's ``frontend_positions`` patch embeddings plus the
+    remaining S - P tokens (and labels to train). The reference's offloaded
+    embedding (``embed_offload``) has no config in the port."""
     B, S = shape.global_batch, shape.seq_len
+    if cfg.frontend == "frames":
+        d = {"frames": ((B, S, FRAME_DIM), cfg.compute_dtype)}
+        if shape.kind == "train":
+            d["labels"] = ((B, S), "int32")
+        return d
+    if cfg.frontend == "patches":
+        Pn = cfg.frontend_positions
+        d = {"patches": ((B, Pn, PATCH_DIM), cfg.compute_dtype),
+             "tokens": ((B, S - Pn), "int32")}
+        if shape.kind == "train":
+            d["labels"] = ((B, S - Pn), "int32")
+        return d
     d = {"tokens": ((B, S), "int32")}
     if shape.kind == "train":
         d["labels"] = ((B, S), "int32")
@@ -94,10 +111,15 @@ def batch_structure(cfg: ModelConfig, shape: ShapeSpec) -> Dict[str, Tuple]:
 
 def synth_batch(cfg: ModelConfig, shape: ShapeSpec, seed: int = 0, device="cpu"):
     """The reference's synthetic batch, drawn from the same numpy generator
-    in the same order, as tensors on ``device``."""
+    in the same order (integers for int32 inputs, standard normals cast
+    from fp32 for the frontends' embeddings), as tensors on ``device``."""
     rng = np.random.default_rng(seed)
-    return {
-        name: torch.from_numpy(
-            rng.integers(0, cfg.vocab_size, size=shp, dtype=np.int32)).to(device)
-        for name, (shp, _) in batch_structure(cfg, shape).items()
-    }
+    out = {}
+    for name, (shp, dt) in batch_structure(cfg, shape).items():
+        if dt == "int32":
+            a = torch.from_numpy(rng.integers(0, cfg.vocab_size, size=shp, dtype=np.int32))
+        else:
+            a = torch.from_numpy(rng.standard_normal(shp).astype(np.float32)).to(
+                getattr(torch, dt))
+        out[name] = a.to(device)
+    return out

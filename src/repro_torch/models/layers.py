@@ -1,8 +1,10 @@
-"""Shared building blocks of the LM path: norms, RoPE, attention for prefill
-(the hand-written flash kernel) and decode (against a KV cache), SwiGLU.
+"""Shared building blocks of the LM paths: norms, RoPE, attention for
+prefill (the hand-written flash kernel) and decode (against a KV cache,
+rolling under a sliding window), SwiGLU and GELU MLPs.
 
-Port of the part of ``repro/models/layers.py`` that the hybrid serving path
-runs. The reference calls its Pallas kernels "drop-in replacements on TPU"
+Port of ``repro/models/layers.py`` (the serving half: the reference's
+``x_kv`` cross-attention argument has no caller and is not carried over).
+The reference calls its Pallas kernels "drop-in replacements on TPU"
 of this pure-JAX code; in the port :func:`chunked_attention` IS the kernel
 call (``kernels/ops.py: flash_attention``: the CUDA kernel for a CUDA
 tensor, the plain version for a CPU one). Parameters are plain dicts of
@@ -42,6 +44,15 @@ def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
     xf = x.float()
     var = (xf * xf).mean(dim=-1, keepdim=True)
     return (xf * torch.rsqrt(var + eps)).to(x.dtype) * w.to(x.dtype)
+
+
+def layer_norm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, eps: float) -> torch.Tensor:
+    """fp32 mean and variance, then ``.to(x.dtype)``, then ``* w + b``."""
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = ((xf - mu) ** 2).mean(dim=-1, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return y.to(x.dtype) * w.to(x.dtype) + b.to(x.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -85,16 +96,11 @@ def chunked_attention(
     q_offset: int = 0,
 ) -> torch.Tensor:
     """q: (B, Sq, H, hd); k, v: (B, Skv, K, hd) with H % K == 0 ->
-    (B, Sq, H, hd) in q's dtype, through ``ops.flash_attention``. The
-    kernel walks the keys in blocks of its own: the reference's
-    ``block_kv`` has no counterpart. ``q_offset`` must be 0: no caller on
-    the ported path passes another (a chunked prefill is ROADMAP Queue 1
-    item 15)."""
-    if q_offset != 0:
-        raise NotImplementedError(
-            f"q_offset={q_offset}: only 0 is ported (ROADMAP.md Queue 1 item 15)"
-        )
-    return ops.flash_attention(q, k, v, causal=causal, window=window)
+    (B, Sq, H, hd) in q's dtype, through ``ops.flash_attention``. Query row
+    i sits at position ``q_offset`` + i (a query chunk after a prefix of
+    keys). The kernel walks the keys in blocks of its own: the reference's
+    ``block_kv`` has no counterpart."""
+    return ops.flash_attention(q, k, v, causal=causal, window=window, q_offset=q_offset)
 
 
 # ---------------------------------------------------------------------------
@@ -107,41 +113,50 @@ def decode_attention(
     k_cache: torch.Tensor,
     v_cache: torch.Tensor,
     pos: int,
+    *,
+    rolling: bool = False,
 ) -> torch.Tensor:
     """q: (B, 1, H, hd); caches: (B, S, K, hd); pos = index of the token
-    *just written*. RoPE is applied before caching. (The reference's
-    sliding-window ring buffer comes with the dense family, ROADMAP.md
-    Queue 1 item 15.)"""
+    *just written*. RoPE is applied before caching. ``rolling``: the cache
+    is a sliding-window ring buffer of size S (every slot valid once pos
+    reaches S - 1)."""
     B, _, H, hd = q.shape
     S, K = k_cache.shape[1], k_cache.shape[2]
     G = H // K
     scale = 1.0 / math.sqrt(hd)
     qg = q.reshape(B, K, G, hd)
     s = torch.einsum("bkgd,bjkd->bkgj", qg.float(), k_cache.float()) * scale
-    valid = torch.arange(S, device=q.device) <= pos
+    n_valid = min(pos + 1, S) if rolling else pos + 1
+    valid = torch.arange(S, device=q.device) < n_valid
     s = torch.where(valid[None, None, None, :], s, torch.full((), NEG_INF, device=q.device))
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bkgj,bjkd->bkgd", p.to(v_cache.dtype).float(), v_cache.float())
     return out.reshape(B, 1, H, hd).to(q.dtype)
 
 
-def cache_write(cache: torch.Tensor, new: torch.Tensor, pos: int) -> torch.Tensor:
-    """In place: write one token (B, 1, K, hd) into (B, S, K, hd) at ``pos``.
-    A slot past the end is clamped to the last, as
-    ``lax.dynamic_update_slice`` clamps. Returns ``cache``."""
+def cache_write(cache: torch.Tensor, new: torch.Tensor, pos: int, *,
+                rolling: bool = False) -> torch.Tensor:
+    """In place: write one token (B, 1, K, hd) into (B, S, K, hd) at ``pos``
+    (ring slot ``pos % S`` when ``rolling``). A slot past the end is clamped
+    to the last, as ``lax.dynamic_update_slice`` clamps. Returns ``cache``."""
     S = cache.shape[1]
-    slot = min(max(pos, 0), S - 1)
+    slot = pos % S if rolling else min(max(pos, 0), S - 1)
     cache[:, slot] = new[:, 0].to(cache.dtype)
     return cache
 
 
 # ---------------------------------------------------------------------------
-# MLP
+# MLPs
 # ---------------------------------------------------------------------------
 
 
 def swiglu(x, wg, wu, wd):
     return (F.silu(x @ wg) * (x @ wu)) @ wd
+
+
+def gelu_mlp(x, w1, b1, w2, b2):
+    """The reference's ``jax.nn.gelu`` is the tanh approximation."""
+    return F.gelu(x @ w1 + b1, approximate="tanh") @ w2 + b2
 
 
 # ---------------------------------------------------------------------------
@@ -151,38 +166,66 @@ def swiglu(x, wg, wu, wd):
 
 def init_attention(gen: torch.Generator, cfg, device=None):
     """Params for one attention block in ``cfg.param_dtype``, normal draws
-    from ``gen`` (on ``device``) scaled as in the reference. The heads are
-    ``cfg``'s (TP = 1: nothing padded; no qkv bias, which only the dense
-    family has)."""
+    from ``gen`` (on ``device``) scaled as in the reference, zero qkv biases
+    under ``cfg.qkv_bias``. The heads are ``cfg``'s (TP = 1: nothing
+    padded)."""
     D = cfg.d_model
     H, K, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     dt = getattr(torch, cfg.param_dtype)
     device = device or gen.device
     std = 1.0 / math.sqrt(D)
-    return {
+    p = {
         "wq": normal(gen, (D, H * hd), std, dt, device),
         "wk": normal(gen, (D, K * hd), std, dt, device),
         "wv": normal(gen, (D, K * hd), std, dt, device),
         "wo": normal(gen, (H * hd, cfg.d_model), 1.0 / math.sqrt(H * hd), dt, device),
     }
+    if cfg.qkv_bias:
+        for name, n in (("bq", H * hd), ("bk", K * hd), ("bv", K * hd)):
+            p[name] = torch.zeros((n,), dtype=dt, device=device)
+    return p
+
+
+def qkv_proj(p, x: torch.Tensor, cfg) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """x (B, S, D) -> q (B, S, H, hd), k and v (B, S, K, hd), biased under
+    ``cfg.qkv_bias``, before RoPE."""
+    B, S, _ = x.shape
+    q, k, v = x @ p["wq"], x @ p["wk"], x @ p["wv"]
+    if cfg.qkv_bias:
+        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    return (q.reshape(B, S, cfg.num_heads, cfg.head_dim),
+            k.reshape(B, S, cfg.num_kv_heads, cfg.head_dim),
+            v.reshape(B, S, cfg.num_kv_heads, cfg.head_dim))
+
+
+def attention_forward(
+    p, x: torch.Tensor, positions: torch.Tensor, cfg
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Prefill attention: x (B, S, D), positions (B, S) -> (out (B, S, D),
+    the post-RoPE k and v (B, S, K, hd) for the KV cache), the core through
+    the flash kernel (causal or not, windowed under ``cfg.sliding_window``)."""
+    B, S, _ = x.shape
+    q, k, v = qkv_proj(p, x, cfg)
+    q = apply_rope(q, positions, cfg.rope_theta, cfg.rope_fraction)
+    k = apply_rope(k, positions, cfg.rope_theta, cfg.rope_fraction)
+    out = chunked_attention(q, k, v, causal=cfg.causal, window=cfg.sliding_window)
+    return out.reshape(B, S, cfg.num_heads * cfg.head_dim) @ p["wo"], k, v
 
 
 def attention_decode(
     p, x: torch.Tensor, pos: int, k_cache: torch.Tensor, v_cache: torch.Tensor, cfg
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One-token decode. x: (B, 1, D); caches (B, S, K, hd), written in
-    place at ``pos``. Returns (out, k_cache, v_cache)."""
+    place at ``pos`` (ring slot ``pos % S`` under ``cfg.sliding_window``).
+    Returns (out, k_cache, v_cache)."""
     B = x.shape[0]
-    H, K, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    q, k, v = x @ p["wq"], x @ p["wk"], x @ p["wv"]
-    q = q.reshape(B, 1, H, hd)
-    k = k.reshape(B, 1, K, hd)
-    v = v.reshape(B, 1, K, hd)
+    rolling = cfg.sliding_window is not None
+    q, k, v = qkv_proj(p, x, cfg)
     posb = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
     q = apply_rope(q, posb, cfg.rope_theta, cfg.rope_fraction)
     k = apply_rope(k, posb, cfg.rope_theta, cfg.rope_fraction)
-    k_cache = cache_write(k_cache, k, pos)
-    v_cache = cache_write(v_cache, v, pos)
-    out = decode_attention(q, k_cache, v_cache, pos)
-    out = out.reshape(B, 1, H * hd) @ p["wo"]
+    k_cache = cache_write(k_cache, k, pos, rolling=rolling)
+    v_cache = cache_write(v_cache, v, pos, rolling=rolling)
+    out = decode_attention(q, k_cache, v_cache, pos, rolling=rolling)
+    out = out.reshape(B, 1, cfg.num_heads * cfg.head_dim) @ p["wo"]
     return out, k_cache, v_cache

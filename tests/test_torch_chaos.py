@@ -374,9 +374,18 @@ def test_chaos_error_is_transient_op_error():
 
 
 def test_attach_server_is_item_12():
+    """Item 12's serving half is ported: attach_server arms the server's
+    fetch hook and its plan clock (tests/test_torch_serving_recovery.py
+    drives the faults)."""
     srv = ReadOnlyCacheServer(HostEmbeddingTable(ROWS, DIM, seed=1), SLOTS, device="cpu")
-    with pytest.raises(NotImplementedError, match=r"ROADMAP.md Queue 1 item 12\)"):
-        ChaosInjector(ChaosPlan.parse("kill-fetch@2")).attach_server(srv)
+    fetch, plan = srv._fetch_gather, srv.planner.plan
+    inj = ChaosInjector(ChaosPlan.parse("kill-fetch@2"))
+    assert inj.attach_server(srv) is inj
+    assert srv._fetch_gather is not fetch and srv._fetch_gather.__name__ == "chaos_fetch"
+    assert srv.planner.plan is not plan and srv.planner.plan.__name__ == "chaos_plan"
+    srv._fetch_gather(np.arange(3))
+    with pytest.raises(InjectedWorkerDeath):
+        srv._fetch_gather(np.arange(3))
 
 
 # --------------------------------------------------------------------------- #

@@ -441,6 +441,19 @@ def test_cuda_quantized_launchers_check_operands(cuda):
 # LM kernels: flash_attention and ssd_chunk_scan (held to tolerances)
 # --------------------------------------------------------------------------- #
 _BF16_ATOL, _BF16_RTOL = 3e-2, 1e-2
+# flash is also held in the Frobenius norm relative to the plain output's
+# size: a bf16 row averaging over hundreds of keys is not much larger than
+# the atol (a correct bf16 kernel reads a few 1e-3)
+_FLASH_REL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+
+
+def _assert_flash_close(got, want, dtype):
+    assert got.dtype == dtype and got.shape == want.shape
+    atol = 2e-5 if dtype == torch.float32 else _BF16_ATOL
+    diff = got.float() - want.float()
+    err = diff.abs().max().item()
+    rel = (torch.linalg.vector_norm(diff) / torch.linalg.vector_norm(want.float())).item()
+    assert err <= atol and rel <= _FLASH_REL[dtype], (err, rel)
 
 
 def _lm_tensor(shape, dtype, cuda, lo=None, hi=None):
@@ -471,10 +484,7 @@ def test_cuda_flash_attention_vs_plain(cuda, dtype, B, Sq, Skv, H, K, hd, causal
     got = tops.flash_attention(q, k, v, causal, window)
     want = tref.flash_attention_ref(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
-    assert got.dtype == dtype and got.shape == q.shape
-    atol = 2e-5 if dtype == torch.float32 else _BF16_ATOL
-    err = (got.float() - want.float()).abs().max().item()
-    assert err <= atol, err
+    _assert_flash_close(got, want, dtype)
     assert tops.launch_counts()["flash_attention"] == 1
 
 
@@ -507,10 +517,45 @@ def test_cuda_flash_attention_tile_edges(cuda, dtype, B, Sq, Skv, H, K, hd, caus
     got = tops.flash_attention(q, k, v, causal, window)
     want = tref.flash_attention_ref(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
-    assert got.dtype == dtype and got.shape == q.shape
-    atol = 2e-5 if dtype == torch.float32 else _BF16_ATOL
-    err = (got.float() - want.float()).abs().max().item()
-    assert err <= atol, err
+    _assert_flash_close(got, want, dtype)
+    assert tops.launch_counts()["flash_attention"] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize(
+    "B,Sq,Skv,H,K,hd,causal,window,q_offset",
+    [
+        # the dense, encoder and vlm configs' head layouts: hd 80 and 96 are
+        # zero-padded to 128 inside the kernel; GQA ratios 16, 5, 8 and 12
+        (1, 300, 300, 32, 2, 128, True, None, 0),  # chatglm3-6b
+        (1, 300, 300, 16, 16, 80, False, None, 0),  # hubert-xlarge, non-causal
+        (1, 333, 333, 8, 8, 80, True, None, 0),
+        (1, 300, 300, 8, 8, 96, True, None, 0),  # phi-3-vision (MHA)
+        (1, 200, 200, 4, 4, 96, False, None, 0),
+        (1, 300, 300, 40, 8, 128, True, None, 0),  # qwen2.5-32b, GQA 5
+        (1, 300, 300, 64, 8, 128, True, None, 0),  # qwen2-72b, GQA 8
+        (1, 300, 300, 96, 8, 128, True, None, 0),  # mistral-large, GQA 12
+        (2, 257, 257, 10, 2, 128, False, None, 0),  # GQA 5, non-causal
+        (2, 257, 257, 24, 2, 80, True, 100, 0),  # GQA 12, window
+        # q_offset: a query chunk after a prefix of keys
+        (2, 100, 300, 8, 2, 64, True, None, 200),
+        (1, 129, 400, 12, 4, 96, True, 150, 271),
+        (1, 70, 200, 16, 16, 80, False, None, 130),
+    ],
+)
+def test_cuda_flash_attention_lm_head_layouts(cuda, dtype, B, Sq, Skv, H, K, hd, causal,
+                                              window, q_offset):
+    """flash_attention at the transformer configs' head dims and GQA ratios,
+    causal and not, and with q_offset, against the plain version."""
+    rng = np.random.default_rng(hd * 1000 + H)
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(cuda)
+               .to(dtype) for shape in ((B, Sq, H, hd), (B, Skv, K, hd), (B, Skv, K, hd)))
+    got = tops.flash_attention(q, k, v, causal, window, q_offset)
+    want = tref.flash_attention_ref(q, k, v, causal=causal, window=window,
+                                    q_offset=q_offset)
+    torch.cuda.synchronize()
+    _assert_flash_close(got, want, dtype)
     assert tops.launch_counts()["flash_attention"] == 1
 
 

@@ -69,7 +69,11 @@ def test_every_module_listed():
               "repro_torch.obs.metrics", "repro_torch.obs.tracing",
               "repro_torch.obs.check", "repro_torch.checkpoint.manager",
               "repro_torch.checkpoint.pack", "repro_torch.chaos.injector",
-              "repro_torch.runtime.supervision", "repro_torch.runtime.fault_tolerance"):
+              "repro_torch.runtime.supervision", "repro_torch.runtime.fault_tolerance",
+              "repro_torch.models.transformer", "repro_torch.configs.chatglm3_6b",
+              "repro_torch.configs.hubert_xlarge", "repro_torch.configs.phi_3_vision_4_2b",
+              "repro_torch.configs.qwen2_5_32b", "repro_torch.configs.qwen2_72b",
+              "repro_torch.configs.mistral_large_123b"):
         assert m in mods
 
 
@@ -171,7 +175,11 @@ LM_MODULES = ("repro_torch.models.layers", "repro_torch.models.mamba2",
               "repro_torch.models.transformer", "repro_torch.models.hybrid",
               "repro_torch.models.api", "repro_torch.parallel.collectives",
               "repro_torch.kernels.flash_attention", "repro_torch.kernels.ssd_chunk",
-              "repro_torch.configs.zamba2_1_2b")
+              "repro_torch.configs.zamba2_1_2b", "repro_torch.configs.chatglm3_6b",
+              "repro_torch.configs.hubert_xlarge", "repro_torch.configs.phi_3_vision_4_2b",
+              "repro_torch.configs.qwen2_5_32b", "repro_torch.configs.qwen2_72b",
+              "repro_torch.configs.mistral_large_123b", "repro_torch.core.serving_cache",
+              "repro_torch.chaos.injector", "repro_torch.convert")
 
 
 def test_lm_modules_listed_and_import_nothing_of_jax():
@@ -205,13 +213,40 @@ def test_lm_serving_defaults_to_cuda_and_raises_without_a_card(monkeypatch):
 
 
 @pytest.mark.parametrize("arch,item", [
-    ("hubert-xlarge", 15), ("chatglm3-6b", 15), ("qwen2-72b", 15),
-    ("mistral-large-123b", 15), ("qwen2.5-32b", 15), ("phi-3-vision-4.2b", 15),
     ("mamba2-2.7b", 16), ("mixtral-8x7b", 17), ("llama4-scout-17b-a16e", 17),
 ])
 def test_other_lm_archs_name_their_roadmap_item(arch, item):
     with pytest.raises(NotImplementedError, match=f"Queue 1 item {item}$"):
         serve.main(["--arch", arch, "--smoke", "--device", "cpu"])
+
+
+@pytest.mark.parametrize("arch", [
+    "hubert-xlarge", "chatglm3-6b", "qwen2-72b", "mistral-large-123b", "qwen2.5-32b",
+    "phi-3-vision-4.2b",
+])
+def test_transformer_archs_default_to_cuda_and_raise_without_a_card(monkeypatch, arch):
+    """The dense, encoder and vlm archs serve on the card by default and
+    raise without one (the encoder too, before it would exit for want of
+    a decode step); their families are no longer refused."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import api
+
+    assert serve.build_parser().parse_args(["--arch", arch]).device == "cuda"
+    cfg = get_smoke_config(arch)
+    assert api.family_module(cfg).__name__ == "repro_torch.models.transformer"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.main(["--arch", arch, "--smoke"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.main(["--arch", arch, "--smoke", "--device", "cuda:0"])
+
+
+def test_warm_start_without_a_card_raises(monkeypatch, tmp_path):
+    """``--warm-start`` fails on the missing card before it reads anything."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.main(["--embedding", "--steps", "2", "--rows", "50", "--dim", "4",
+                    "--warm-start", str(tmp_path)])
 
 
 def test_unknown_arch_and_missing_mode():
@@ -228,15 +263,18 @@ def _lm_training_message(capsys):
 
 
 def _supervise_message(capsys):
-    """Serving recovery (``launch/serve.py --warm-start``) is item 12's rest."""
-    with pytest.raises(SystemExit):
-        serve.main(["--embedding", "--device", "cpu", "--warm-start", "x"])
-    return capsys.readouterr().err
+    """The LM training supervisor waits for LM training (item 18); serving
+    recovery, which this pointed at before, is ported."""
+    from repro_torch.runtime import TrainSupervisor
+
+    with pytest.raises(NotImplementedError) as e:
+        TrainSupervisor(None, None, None)
+    return str(e.value)
 
 
 @pytest.mark.parametrize("message,item", [
     (_lm_training_message, 18),  # LM training
-    (_supervise_message, 12),  # recovery
+    (_supervise_message, 18),  # LM training's supervisor
 ], ids=["lm-training", "supervise"])
 def test_not_ported_messages_name_their_roadmap_item(capsys, message, item):
     """What is not ported yet says where ROADMAP.md queues it."""

@@ -122,8 +122,15 @@ def test_flash_attention_empty_and_q_offset():
     assert tops.flash_attention(q, k, k).shape == q.shape
     out = tops.flash_attention(k, q, q)  # no keys: every row masked -> zeros
     assert out.shape == k.shape and not out.any()
-    with pytest.raises(NotImplementedError, match="item 15"):
-        tlayers.chunked_attention(k, k, k, q_offset=3)
+    # q_offset (ported with the dense family): rows at positions 3.. of 5
+    # keys, against the reference's plain attention on the full query range
+    q5, k5, v5 = (np.random.default_rng(5).standard_normal((2, 5, 4, 16)).astype(np.float32)
+                  for _ in range(3))
+    got = tlayers.chunked_attention(torch.from_numpy(q5[:, 3:]), torch.from_numpy(k5),
+                                    torch.from_numpy(v5), q_offset=3)
+    want = jref.flash_attention_ref(jnp.asarray(q5), jnp.asarray(k5), jnp.asarray(v5),
+                                    causal=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want)[:, 3:], atol=2e-5)
 
 
 # --------------------------------------------------------------------------- #

@@ -182,12 +182,18 @@ def test_carry_reference_state_across(kernel):
 
 
 def test_carry_across_refuses_a_busy_snapshot():
+    """A busy snapshot (queued micro-batches) carries across since serving
+    recovery is ported (tests/test_torch_serving_recovery.py continues from
+    one); a snapshot of another scratchpad size is refused."""
     batches = batches_for("inference_mix", 4)
     j_srv = jax_server("scratchpipe", "xla", 96)
     j_srv.enqueue(batches[0])
     t_srv = port_server("scratchpipe", 96)
-    with pytest.raises(ValueError, match="queued"):
-        convert.load_reference_server_state(t_srv, j_srv.state_arrays())
+    convert.load_reference_server_state(t_srv, j_srv.state_arrays())
+    assert t_srv.pending == 1 and len(t_srv._visible) == 1
+    with pytest.raises(ValueError, match="does not fit"):
+        convert.load_reference_server_state(port_server("scratchpipe", 48),
+                                            j_srv.state_arrays())
 
 
 def _launch(module, extra):
