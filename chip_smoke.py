@@ -254,6 +254,27 @@ Phases, in order; any failure raises and the script exits non-zero:
                the plain versions (logits within 1e-3 of the largest, the
                greedy tokens equal); flash timed at each config's operands
                beside its bound, its plain version and SDPA.
+ 19. mamba2 and moe — bf16, 16 greedy tokens, random weights from a seeded
+               ``torch.Generator`` on the card, through ``run_lm``, each
+               config built and freed in turn: mamba2-2.7b (attention-free,
+               64 layers, ds 128) in full at batch 4 x 2048; mixtral-8x7b
+               at full width cut to 8 of 32 layers (the whole model is
+               about 93 GB), at 4 x 2048 and at 1 x 8192 (a multiple of its
+               4096-key window: the kernel skips the blocks outside it and
+               decode runs on a full 4096-slot ring); llama4-scout-17b-a16e
+               at full width cut to 4 of 48 layers (the whole model is
+               about 200 GB), at 4 x 2048. Exactly one ``ssd_chunk_scan``
+               (mamba2: 64) or one ``flash_attention`` (MoE) per layer per
+               prefill, none in decode, no other kernel; the SSM states or
+               the KV ring of min(prompt + gen, window) slots. Each config
+               also at fp32 and 2 layers against the plain versions (logits
+               within 1e-3 of the largest, the tokens equal; for MoE the
+               (token, choice) routings that differ between the two runs
+               counted and printed). Then SSD at mamba2-2.7b's first-layer
+               operands (row 8a) and flash at each MoE run's (rows 7g, 7h:
+               mixtral causal at 4 x 2048, windowed at 1 x 8192, SDPA with
+               the window as an explicit mask) beside their bounds, plain
+               versions and library calls.
 
 The traces go to temporary directories removed at exit. The sweep of
 phase 3 covers the fp16 and int8 forms too, and for them also D in {256,
@@ -261,8 +282,9 @@ phase 3 covers the fp16 and int8 forms too, and for them also D in {256,
 group), a payload 4 but not 16 bytes aligned, fused calls whose
 fills are all sentinels, and ragged fills. The last three lines are the
 ``kernels`` JSON line (``scatter_add``, ``flash_attention`` — with
-phase 18's shapes under ``transformer_shapes`` — and ``ssd_chunk_scan``
-carry their ``details``; ``gather_reduce_q`` and the fp16
+phase 18's shapes under ``transformer_shapes`` and phase 19's under
+``moe_shapes`` — and ``ssd_chunk_scan`` — phase 19's under
+``mamba2_shapes`` — carry their ``details``; ``gather_reduce_q`` and the fp16
 gather and fp16/int8 fills their times at phase 13's operands under
 ``serve``), the nvidia-smi line and ``{"ok": true, "device": {...}}``.
 """
@@ -2212,6 +2234,21 @@ def valid_pairs(Sq: int, Skv: int, causal: bool, window) -> int:
     return n
 
 
+def ssd_work(x, dt, A, Bm, Cm, Q) -> tuple:
+    """(operations, bytes) of one SSD call: the chunk products (y_intra,
+    C.h, the state update) per head, C.B^T once per head group; each input
+    read once, y and the final state written once."""
+    B, S, nh, hd = x.shape
+    ng, ds = Bm.shape[2], Bm.shape[3]
+    nc = -(-S // Q)
+    tri = Q * (Q + 1) // 2  # (i, j) pairs with j <= i in a full chunk
+    ops = (B * nh * nc * (2 * tri * hd + 4 * Q * ds * hd)  # y_intra, C.h, state
+           + B * ng * nc * 2 * tri * ds)  # C.B^T once per group
+    n_bytes = (2 * x.numel() * x.element_size()  # x in, y out
+               + 4 * (dt.numel() + A.numel() + Bm.numel() + Cm.numel() + B * nh * hd * ds))
+    return ops, n_bytes
+
+
 def time_lm_kernels(torch, mods, captured, captured32, sweep_err, dev, prefill_profile):
     """flash_attention and ssd_chunk_scan at the main path's (bf16) first
     operands: median ms (CUDA events, L2 flushed) beside the bound, the plain
@@ -2272,10 +2309,7 @@ def time_lm_kernels(torch, mods, captured, captured32, sweep_err, dev, prefill_p
     ng, ds = Bm.shape[2], Bm.shape[3]
     nc = -(-S // Q)
     tri = Q * (Q + 1) // 2  # (i, j) pairs with j <= i in a full chunk
-    s_ops = (B * nh * nc * (2 * tri * hd + 4 * Q * ds * hd)  # y_intra, C.h, state
-             + B * ng * nc * 2 * tri * ds)  # C.B^T once per group
-    s_bytes = (2 * x.numel() * x.element_size()  # x in, y out
-               + 4 * (dt.numel() + A.numel() + Bm.numel() + Cm.numel() + B * nh * hd * ds))
+    s_ops, s_bytes = ssd_work(x, dt, A, Bm, Cm, Q)
     t_ops, t_bytes = s_ops / TF32_OPS_PER_S, s_bytes / HBM_BYTES_PER_S
     out["ssd_chunk_scan"] = {
         "ms": median_ms(torch, lambda: ssd.ssd_chunk_scan(x, dt, A, Bm, Cm, Q), 20, flush),
@@ -3432,22 +3466,30 @@ def recovery_phase(torch, mods, phase4_bags, ckpt_dir: str, host):
 
 
 # --------------------------------------------------------------------------- #
-# 18. the dense, encoder and vlm transformers
+# 18. the dense, encoder and vlm transformers; 19. mamba2 and the MoE family
 # --------------------------------------------------------------------------- #
-#: (arch, layers kept): None runs the config in full; the three wider dense
-#: configs keep their full width at 4 layers (full depth is about 65, 144 and
-#: 246 GB of bf16 weights, over the card's 80 GB)
-TRANSFORMERS = (("chatglm3-6b", None), ("phi-3-vision-4.2b", None), ("hubert-xlarge", None),
-                ("qwen2.5-32b", 4), ("qwen2-72b", 4), ("mistral-large-123b", 4))
-TRANSFORMER_FP32_LAYERS = 2
+#: phase 18's (arch, layers kept, batch, prompt): None runs the config in
+#: full; the three wider dense configs keep their full width at 4 layers
+#: (full depth is about 65, 144 and 246 GB of bf16 weights, over the card's
+#: 80 GB)
+TRANSFORMERS = (("chatglm3-6b", None, LM_BATCH, LM_PROMPT),
+                ("phi-3-vision-4.2b", None, LM_BATCH, LM_PROMPT),
+                ("hubert-xlarge", None, LM_BATCH, LM_PROMPT),
+                ("qwen2.5-32b", 4, LM_BATCH, LM_PROMPT), ("qwen2-72b", 4, LM_BATCH, LM_PROMPT),
+                ("mistral-large-123b", 4, LM_BATCH, LM_PROMPT))
+#: phase 19's: mamba2-2.7b in full; the MoE configs at full width,
+#: mixtral-8x7b at 8 of 32 layers (about 23.8 GB of bf16 with embed and
+#: head; the whole model is about 93 GB), at 4 x 2048 and at 1 x 8192 (a
+#: multiple of its 4096-key window: the kernel skips the blocks outside it
+#: and decode runs on a full ring); llama4-scout at 4 of 48 layers (about
+#: 21 GB; the whole ~200 GB)
+FAMILY_RUNS = (("mamba2-2.7b", None, LM_BATCH, LM_PROMPT),
+               ("mixtral-8x7b", 8, LM_BATCH, LM_PROMPT), ("mixtral-8x7b", 8, 1, 8192),
+               ("llama4-scout-17b-a16e", 4, LM_BATCH, LM_PROMPT))
+FP32_LAYERS = 2
 
 
-def transformer_argv(arch: str) -> list:
-    return ["--arch", arch, "--batch", str(LM_BATCH), "--prompt-len", str(LM_PROMPT),
-            "--gen", str(LM_GEN), "--seed", "0", "--device", DEVICE]
-
-
-def encoder_run(torch, mods, cfg, plain=False):
+def encoder_run(torch, mods, cfg, batch, prompt, plain=False):
     """The encoder's prefill forward (the launcher has no encoder decode):
     params from ``torch.Generator(device="cuda")`` seeded 0, the
     reference's synthetic frames, through ``models/api.py``. ``plain`` as
@@ -3471,36 +3513,39 @@ def encoder_run(torch, mods, cfg, plain=False):
     try:
         gen = torch.Generator(device=DEVICE).manual_seed(0)
         params = api.init(cfg, gen, device=DEVICE)
-        batch = api.synth_batch(cfg, mods["ShapeSpec"]("serve", LM_PROMPT, LM_BATCH,
-                                                        "prefill"), seed=0, device=DEVICE)
+        inputs = api.synth_batch(cfg, mods["ShapeSpec"]("serve", prompt, batch, "prefill"),
+                                 seed=0, device=DEVICE)
         ops.reset_launch_counts()
         with torch.inference_mode():
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            logits, cache = api.make_prefill_fn(cfg)(params, batch)
+            logits, cache = api.make_prefill_fn(cfg)(params, inputs)
             torch.cuda.synchronize()
             prefill_s = time.perf_counter() - t0
         counts = ops.launch_counts()
     finally:
         fa.flash_attention, ref.flash_attention_ref = real, real_ref
-    return ({"cfg": cfg, "params": params, "batch": batch, "logits": logits, "cache": cache,
+    return ({"cfg": cfg, "params": params, "batch": inputs, "logits": logits, "cache": cache,
              "tokens": None, "prefill_s": prefill_s}, counts, captured)
 
 
-def transformer_run(torch, mods, arch, cfg, plain=False):
-    """One config's serving run: (result, launches after the prefill,
-    launches at the end, captured operands, decode step ms)."""
+def serve_run(torch, mods, arch, cfg, batch, prompt, plain=False):
+    """One config's serving run through ``run_lm`` (an encoder's prefill
+    through encoder_run): (result, launches after the prefill, launches at
+    the end, captured operands, decode step ms)."""
     if cfg.family == "encoder":
-        res, counts, captured = encoder_run(torch, mods, cfg, plain)
+        res, counts, captured = encoder_run(torch, mods, cfg, batch, prompt, plain)
         return res, counts, counts, captured, []
-    return lm_run(torch, mods, cfg=cfg, plain=plain, argv=transformer_argv(arch),
-                  model="transformer")
+    argv = ["--arch", arch, "--batch", str(batch), "--prompt-len", str(prompt),
+            "--gen", str(LM_GEN), "--seed", "0", "--device", DEVICE]
+    return lm_run(torch, mods, cfg=cfg, plain=plain, argv=argv,
+                  model="ssm_lm" if cfg.family == "ssm" else "transformer")
 
 
-def warm_prefill_ms(torch, mods, res) -> list:
+def warm_prefill_ms(torch, mods, res, batch_size, prompt) -> list:
     api, cfg = mods["api"], res["cfg"]
     batch = res.get("batch") or api.synth_batch(
-        cfg, mods["ShapeSpec"]("serve", LM_PROMPT, LM_BATCH, "prefill"), seed=0,
+        cfg, mods["ShapeSpec"]("serve", prompt, batch_size, "prefill"), seed=0,
         device=DEVICE)
     prefill, walls = api.make_prefill_fn(cfg), []
     with torch.inference_mode():
@@ -3513,25 +3558,35 @@ def warm_prefill_ms(torch, mods, res) -> list:
     return walls
 
 
-def check_transformer(torch, res, cfg, after_prefill, counts, what):
-    L, B = cfg.num_layers, LM_BATCH
-    want = {"flash_attention": L, "ssd_chunk_scan": 0}
+def check_serve(torch, res, cfg, batch, prompt, after_prefill, counts, what):
+    """One kernel launch per layer per prefill (the SSD scan for the ssm
+    family, flash for the others), none in decode, no other kernel; finite
+    logits, tokens in the vocab; the SSM states, or the KV cache of
+    min(prompt + gen, window) slots (the prompt's for an encoder)."""
+    L = cfg.num_layers
+    kernel = "ssd_chunk_scan" if cfg.family == "ssm" else "flash_attention"
+    want = {"ssd_chunk_scan": 0, "flash_attention": 0, kernel: L}
     check({k: after_prefill[k] for k in want} == want,
-          f"{what}: prefill launched {after_prefill}, expected {L} flash_attention")
+          f"{what}: prefill launched {after_prefill}, expected {L} {kernel}")
     check({k: counts[k] for k in want} == want, f"{what}: decode launched kernels {counts}")
     other = {k: v for k, v in counts.items() if k not in want and v}
     check(not other, f"{what}: other kernels launched: {other}")
-    logits = res["logits"]
-    check(tuple(logits.shape) == (B, cfg.vocab_size) and logits.dtype == torch.float32
+    logits, tokens, cache = res["logits"], res["tokens"], res["cache"]
+    check(tuple(logits.shape) == (batch, cfg.vocab_size) and logits.dtype == torch.float32
           and bool(torch.isfinite(logits).all()), f"{what}: logits {tuple(logits.shape)}")
-    S = LM_PROMPT + (0 if cfg.family == "encoder" else LM_GEN)
-    kv = (L, B, S, cfg.num_kv_heads, cfg.head_dim)
-    check(tuple(res["cache"]["k"].shape) == kv, f"{what}: KV cache "
-          f"{tuple(res['cache']['k'].shape)} != {kv}")
-    if res["tokens"] is not None:
-        t = res["tokens"]
-        check(t.shape == (B, LM_GEN) and t.min() >= 0 and t.max() < cfg.vocab_size,
-              f"{what}: tokens {t.shape}")
+    if tokens is not None:
+        check(tokens.shape == (batch, LM_GEN) and tokens.min() >= 0
+              and tokens.max() < cfg.vocab_size, f"{what}: tokens {tokens.shape}")
+    if cfg.family == "ssm":
+        ssm = (batch, cfg.ssm_nheads, cfg.ssm_headdim, cfg.ssm_state)
+        check(len(cache["layers"]) == L and all(
+            tuple(st["ssm"].shape) == ssm and bool(torch.isfinite(st["ssm"]).all())
+            for st in cache["layers"]), f"{what}: SSM states")
+        return
+    S = prompt if tokens is None else prompt + LM_GEN
+    kv = (L, batch, min(S, cfg.sliding_window or S), cfg.num_kv_heads, cfg.head_dim)
+    check(tuple(cache["k"].shape) == kv and bool(torch.isfinite(cache["k"][-1]).all()),
+          f"{what}: KV cache {tuple(cache['k'].shape)} != {kv}")
 
 
 def n_params(tree) -> int:
@@ -3542,20 +3597,39 @@ def n_params(tree) -> int:
     return tree.numel()
 
 
-def transformer_fp32_check(torch, mods, arch, cfg):
-    """The config at fp32 and TRANSFORMER_FP32_LAYERS layers, through the
-    kernels and then the plain versions on the card (TF32 off): logits
-    within LM_LOGIT_RTOL of the plain run's largest, the greedy tokens
-    equal. Returns a summary."""
-    cfg32 = dataclasses.replace(cfg, num_layers=TRANSFORMER_FP32_LAYERS,
-                                param_dtype="float32", compute_dtype="float32")
-    res_k, after_prefill, counts, _, _ = transformer_run(torch, mods, arch, cfg32)
-    check_transformer(torch, res_k, cfg32, after_prefill, counts, f"{arch} fp32 kernels")
-    logits_k, tokens_k = res_k["logits"].clone(), res_k["tokens"]
-    del res_k
-    torch.cuda.empty_cache()
-    res_p, _, counts_p, _, _ = transformer_run(torch, mods, arch, cfg32, plain=True)
+def fp32_check(torch, mods, arch, full, batch, prompt):
+    """The config at fp32 and FP32_LAYERS layers through the kernels, then
+    the plain versions (TF32 off): logits within LM_LOGIT_RTOL of the plain
+    run's largest, the greedy tokens equal; for the MoE family the (token,
+    choice) expert assignments that differ between the two runs (a router
+    near-tie can flip one), counted over every routing call."""
+    cfg32 = dataclasses.replace(full, num_layers=FP32_LAYERS, param_dtype="float32",
+                                compute_dtype="float32")
+    moe, routes = mods["moe"], []
+    real_route = moe.route
+
+    def spy_route(*a, **k):
+        r = real_route(*a, **k)
+        routes[-1].append(r["idx"].sort(dim=-1).values)
+        return r
+
+    moe.route = spy_route
+    try:
+        routes.append([])
+        res_k, after_prefill, counts, _, _ = serve_run(torch, mods, arch, cfg32, batch, prompt)
+        check_serve(torch, res_k, cfg32, batch, prompt, after_prefill, counts,
+                    f"{arch} fp32 kernels")
+        logits_k, tokens_k = res_k["logits"].clone(), res_k["tokens"]
+        del res_k
+        torch.cuda.empty_cache()
+        routes.append([])
+        res_p, _, counts_p, _, _ = serve_run(torch, mods, arch, cfg32, batch, prompt,
+                                             plain=True)
+    finally:
+        moe.route = real_route
     check(not any(counts_p.values()), f"{arch}: the plain run launched kernels: {counts_p}")
+    check(len(routes[0]) == len(routes[1]), f"{arch}: routing calls differ")
+    flips = sum(int((a != b).sum()) for a, b in zip(*routes))
     diff = (logits_k - res_p["logits"]).abs().max().item()
     scale = res_p["logits"].abs().max().item()
     check(diff <= LM_LOGIT_RTOL * scale,
@@ -3565,58 +3639,72 @@ def transformer_fp32_check(torch, mods, arch, cfg):
               f"{arch} fp32 greedy tokens differ:\n{tokens_k}\n{res_p['tokens']}")
     del res_p
     torch.cuda.empty_cache()
-    return {"layers": TRANSFORMER_FP32_LAYERS, "max_abs_logit_diff": diff,
-            "max_abs_logit": scale, "tokens_equal": None if tokens_k is None else True}
+    summary = {"layers": FP32_LAYERS, "max_abs_logit_diff": diff, "max_abs_logit": scale,
+               "tokens_equal": None if tokens_k is None else True}
+    if cfg32.family == "moe":
+        summary.update(routing_flips=flips,
+                       routing_assignments=sum(a.numel() for a in routes[0]))
+    return summary
 
 
-def transformer_phase(torch, mods, dev):
-    """Phase 18: each config in bf16 through the launcher's ``run_lm`` (the
-    encoder's prefill through ``models/api.py``), built and freed in turn;
-    then at fp32 and 2 layers against the plain versions. Returns
-    (summaries, launch counts per run, the first flash operands of each
-    config)."""
+def lm_serve_phase(torch, mods, dev, runs):
+    """Phases 18 and 19: each (arch, layers, batch, prompt) of ``runs`` in
+    bf16 through the launcher's ``run_lm`` (an encoder's prefill through
+    ``models/api.py``), built and freed in turn, each config at its first
+    shape once more at fp32 and FP32_LAYERS layers against the plain
+    versions. Returns (summaries, launch counts per run, the first flash
+    operands and the first SSD operands of each run, by run label)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    summaries, counts_by_run, operands = [], {}, {}
-    for arch, layers in TRANSFORMERS:
+    summaries, counts_by_run, operands, checked = [], {}, {"flash": {}, "ssd": {}}, set()
+    for arch, layers, batch, prompt in runs:
         t0 = time.perf_counter()
         full = mods["get_config"](arch)
         cfg = full if layers is None else dataclasses.replace(full, num_layers=layers)
+        label = f"{arch} {batch}x{prompt}"
+        what = f"lm serve {label}"
         torch.cuda.reset_peak_memory_stats()
-        res, after_prefill, counts, captured, step_ms = transformer_run(torch, mods, arch, cfg)
-        what = f"lm serve {arch}"
+        res, after_prefill, counts, captured, step_ms = serve_run(
+            torch, mods, arch, cfg, batch, prompt)
         check(res["cfg"] == cfg and res["params"]["embed"].dtype == torch.bfloat16
               and res["params"]["embed"].device.type == dev.type,
               f"{what}: not the bf16 config on the card")
-        check_transformer(torch, res, cfg, after_prefill, counts, what)
-        walls = warm_prefill_ms(torch, mods, res)
+        check_serve(torch, res, cfg, batch, prompt, after_prefill, counts, what)
+        walls = warm_prefill_ms(torch, mods, res, batch, prompt)
+        kernel = "ssd_chunk_scan" if cfg.family == "ssm" else "flash_attention"
         decode_steps = LM_GEN - 1 if res["tokens"] is not None else 0
         summaries.append({
-            "arch": arch, "family": cfg.family, "layers": cfg.num_layers,
-            "full_layers": full.num_layers,
+            "arch": arch, "family": cfg.family, "batch": batch, "prompt": prompt,
+            "layers": cfg.num_layers, "full_layers": full.num_layers,
             "reduced": None if layers is None else f"depth {full.num_layers} -> {layers}",
+            "window": cfg.sliding_window,
+            "kv_slots": res["cache"]["k"].shape[2] if "k" in res["cache"] else None,
             "params_GB": n_params(res["params"]) * 2 / 1e9,
             "prefill_ms_cold": res["prefill_s"] * 1e3, "prefill_ms_warm": min(walls),
             "prefill_ms_warm_runs": walls,
+            "prompt_tokens_per_s_warm": batch * prompt / (min(walls) / 1e3),
             "decode_ms_per_step": (res["decode_s"] / decode_steps * 1e3
                                    if decode_steps else None),
             "decode_step_ms_median": statistics.median(step_ms) if step_ms else None,
-            "flash_launches_per_prefill": after_prefill["flash_attention"],
-            "flash_launches_in_decode": counts["flash_attention"]
-            - after_prefill["flash_attention"],
+            f"{kernel}_per_prefill": after_prefill[kernel],
+            f"{kernel}_in_decode": counts[kernel] - after_prefill[kernel],
             "peak_memory_GB": torch.cuda.max_memory_allocated() / 1e9,
             "tokens": None if res["tokens"] is None else res["tokens"].tolist()})
         counts_by_run[what] = counts
-        operands[arch] = captured["flash"]
+        for k in ("flash", "ssd"):
+            if k in captured:
+                operands[k][label] = captured[k]
         del res, captured
         torch.cuda.empty_cache()
-        summaries[-1]["fp32"] = transformer_fp32_check(torch, mods, arch, full)
+        if arch not in checked:  # fp32 at each config's first shape
+            checked.add(arch)
+            summaries[-1]["fp32"] = fp32_check(torch, mods, arch, full, batch, prompt)
         summaries[-1]["wall_s"] = time.perf_counter() - t0
         print("lm serve: " + json.dumps(summaries[-1]), flush=True)
-        log(f"{what}: {cfg.num_layers} layers, {after_prefill['flash_attention']} flash "
-            f"launches per prefill, none in decode; fp32 at {TRANSFORMER_FP32_LAYERS} layers "
-            f"within {LM_LOGIT_RTOL} of the plain run ({time.perf_counter() - t0:.1f}s)")
-    return summaries, counts_by_run, operands
+        log(f"{what}: {cfg.num_layers} layers, {after_prefill[kernel]} {kernel} per "
+            f"prefill, none in decode; fp32 at {FP32_LAYERS} layers within {LM_LOGIT_RTOL} "
+            f"of the plain run ({time.perf_counter() - t0:.1f}s)")
+    return summaries, counts_by_run, operands["flash"], operands["ssd"]
 
 
 def time_flash_shapes(torch, mods, operands, dev) -> list:
@@ -3650,9 +3738,23 @@ def time_flash_shapes(torch, mods, operands, dev) -> list:
             kh, vh = (t.repeat_interleave(H // K, dim=1) for t in (kh, vh))
             library = ("F.scaled_dot_product_attention(is_causal), (B, H, S, hd), keys "
                        "expanded to H heads outside the timed call")
-        sdpa = (None if window is not None else lambda: F.scaled_dot_product_attention(
-            qh, kh, vh, is_causal=causal, enable_gqa=H != K) if library.endswith("hd)")
-            else F.scaled_dot_product_attention(qh, kh, vh, is_causal=causal))
+        if window is not None and window < max(Sq, Skv):  # a window that cuts: a mask
+            i = torch.arange(Sq, device=dev)[:, None]
+            j = torch.arange(Skv, device=dev)[None]
+            keep = (i - j < window) & ((j <= i) if causal else True)
+            mask = torch.zeros((Sq, Skv), dtype=q.dtype, device=dev).masked_fill(
+                ~keep, float("-inf"))
+            if kh.shape[1] != H:
+                kh, vh = (t.repeat_interleave(H // K, dim=1) for t in (kh, vh))
+            library = ("F.scaled_dot_product_attention(attn_mask=the causal window as "
+                       "an additive (Sq, Skv) mask), keys expanded to H heads outside "
+                       "the timed call")
+            sdpa = lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask)
+        else:
+            sdpa = (lambda: F.scaled_dot_product_attention(
+                qh, kh, vh, is_causal=causal, enable_gqa=H != K)
+                if library.endswith("hd)")
+                else F.scaled_dot_product_attention(qh, kh, vh, is_causal=causal))
         ms = median_ms(torch, lambda: fa.flash_attention(q, k, v, causal, window), 20, flush)
         out.append({
             "arch": arch, "shape": {"B": B, "Sq": Sq, "Skv": Skv, "H": H, "K": K, "hd": hd},
@@ -3662,12 +3764,44 @@ def time_flash_shapes(torch, mods, operands, dev) -> list:
                 q, k, v, causal=causal, window=window), 3, flush),
             "bound_ms": max(t_ops, t_bytes) * 1e3,
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "library_ms": None if sdpa is None else median_ms(torch, sdpa, 20, flush),
-            "library": library, "tflops_per_s": f_ops / ms / 1e9, "max_abs_err": err,
-            "rel_err": rel})
-        del qh, kh, vh
+            "library_ms": median_ms(torch, sdpa, 20, flush),
+            "library": library, "window": window, "tflops_per_s": f_ops / ms / 1e9,
+            "max_abs_err": err, "rel_err": rel})
+        del qh, kh, vh, sdpa
         log(f"flash at {arch}'s operands: {ms:.4f} ms, bound {out[-1]['bound_ms']:.4f}, "
             f"SDPA {out[-1]['library_ms']}")
+    return out
+
+
+def time_ssd_shapes(torch, mods, operands, dev) -> list:
+    """ssd_chunk_scan at each run's first prefill operands (bf16): held
+    against its plain version, median ms (CUDA events, L2 flushed) beside
+    its bound (operations at the TF32 rate, as row 8, or bytes) and the
+    plain version's time; no single PyTorch call computes the scan."""
+    ssd, ops, ref = mods["ssd"], mods["ops"], mods["ref"]
+    flush = torch.empty(32 * 1024 * 1024, dtype=torch.float32, device=dev)
+    out = []
+    for label, (x, dt, A, Bm, Cm, Q) in operands.items():
+        _, err = lm_ssd_check(torch, ops, ref, (x, dt, A, Bm, Cm), Q)
+        s_ops, s_bytes = ssd_work(x, dt, A, Bm, Cm, Q)
+        t_ops, t_bytes = s_ops / TF32_OPS_PER_S, s_bytes / HBM_BYTES_PER_S
+        ms = median_ms(torch, lambda: ssd.ssd_chunk_scan(x, dt, A, Bm, Cm, Q), 20, flush)
+        B, S, nh, hd = x.shape
+        out.append({
+            "arch": label, "shape": {"B": B, "S": S, "nh": nh, "hd": hd, "ng": Bm.shape[2],
+                                     "ds": Bm.shape[3], "Q": Q},
+            "ms": ms, "plain_ms": median_ms(torch, lambda: ref.ssd_chunk_scan_ref(
+                x, dt, A, Bm, Cm, Q), 3, flush),
+            "bound_ms": max(t_ops, t_bytes) * 1e3,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "ops_ms_tf32": t_ops * 1e3, "ops_ms_bf16": s_ops / BF16_OPS_PER_S * 1e3,
+            "bytes_ms": t_bytes * 1e3, "flops": s_ops, "bytes": s_bytes,
+            "library_ms": None,
+            "library": "no single PyTorch call computes the chunked SSD scan",
+            "tflops_per_s": s_ops / ms / 1e9, "gb_per_s": s_bytes / ms / 1e6,
+            "max_abs_err": err})
+        log(f"ssd at {label}'s operands: {ms:.4f} ms, bound {out[-1]['bound_ms']:.4f} "
+            f"({out[-1]['bound_by']}), plain {out[-1]['plain_ms']:.4f}")
     return out
 
 
@@ -3694,7 +3828,7 @@ def main() -> int:
     from repro_torch.kernels import grad_coalesce as gc
     from repro_torch.kernels import ssd_chunk as ssd
     from repro_torch.launch import serve, train
-    from repro_torch.models import api, hybrid, transformer
+    from repro_torch.models import api, hybrid, moe, ssm_lm, transformer
     from repro_torch.models.dlrm import interaction_dim
 
     mods = {"ops": ops, "ref": ref, "gr": gr, "gc": gc, "qz": qz, "train": train,
@@ -3702,7 +3836,7 @@ def main() -> int:
             "dlrm_runtime": dlrm_runtime, "HostEmbeddingTable": HostEmbeddingTable,
             "DLRMConfig": DLRMConfig, "interaction_dim": interaction_dim,
             "fa": fa, "ssd": ssd, "serve": serve, "api": api, "hybrid": hybrid,
-            "transformer": transformer,
+            "transformer": transformer, "ssm_lm": ssm_lm, "moe": moe,
             "ShapeSpec": ShapeSpec, "get_config": get_config, "plan": plan,
             "plan_device": plan_device, "serving_cache": serving_cache}
 
@@ -3714,7 +3848,8 @@ def main() -> int:
     t0 = time.perf_counter()
     built = _build.build_all()
     for b in built.values():
-        regs = [ln.strip() for ln in b.log.splitlines() if "registers" in ln or "spill" in ln]
+        regs = [ln.strip() for ln in b.log.splitlines()
+                if "registers" in ln or "spill" in ln or "Function properties" in ln]
         log(f"build: {b.name} in {b.seconds:.2f}s -> {b.path.relative_to(ROOT)}")
         for ln in regs:
             print(f"    {ln}")
@@ -3727,7 +3862,7 @@ def main() -> int:
 
 
 def run_all(torch, mods, dev, ckpt_dir, t_start) -> int:
-    """Phases 3-18, the kernels line, the card line and the last line."""
+    """Phases 3-19, the kernels line, the card line and the last line."""
     ops, ref, gr, gc, qz = (mods[k] for k in ("ops", "ref", "gr", "gc", "qz"))
     serve, serving_cache, plan_device = mods["serve"], mods["serving_cache"], mods["plan_device"]
     get_config = mods["get_config"]
@@ -3900,10 +4035,17 @@ def run_all(torch, mods, dev, ckpt_dir, t_start) -> int:
     del serve_bags, serve_host
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    _, tf_counts, tf_operands = transformer_phase(torch, mods, dev)
+    _, tf_counts, tf_operands, _ = lm_serve_phase(torch, mods, dev, TRANSFORMERS)
     flash_shapes = time_flash_shapes(torch, mods, tf_operands, dev)
     del tf_operands
     log(f"transformers: done ({time.perf_counter() - t0:.1f}s)")
+    t0 = time.perf_counter()
+    _, fam_counts, fam_flash, fam_ssd = lm_serve_phase(torch, mods, dev, FAMILY_RUNS)
+    moe_shapes = time_flash_shapes(torch, mods, fam_flash, dev)
+    mamba2_shapes = time_ssd_shapes(torch, mods, fam_ssd, dev)
+    del fam_flash, fam_ssd
+    torch.cuda.empty_cache()
+    log(f"mamba2 and moe: done ({time.perf_counter() - t0:.1f}s)")
 
     by_run = {"serve": counts, **train_counts, **q_counts, **ts_counts, **tt_counts,
               **mt_counts, **sh_counts, **rec_counts}
@@ -3945,18 +4087,22 @@ def run_all(torch, mods, dev, ckpt_dir, t_start) -> int:
             "launches": lm_counts[name], "launches_by_run": {"lm serve": lm_counts[name]},
             **lm_times[name],
         })
+        kernels[-1]["launches_by_run"].update(
+            {run: c[name] for run, c in {**tf_counts, **fam_counts}.items() if c[name]})
+        kernels[-1]["launches"] = sum(kernels[-1]["launches_by_run"].values())
         if name == "flash_attention":
-            kernels[-1]["launches_by_run"].update(
-                {run: c[name] for run, c in tf_counts.items()})
-            kernels[-1]["launches"] = sum(kernels[-1]["launches_by_run"].values())
             kernels[-1]["max_abs_err"] = max(kernels[-1]["max_abs_err"],
-                                             *(f["max_abs_err"] for f in flash_shapes))
+                                             *(f["max_abs_err"] for f in flash_shapes),
+                                             *(f["max_abs_err"] for f in moe_shapes))
             kernels[-1]["details"] = {**lm_details[name],
                                       "warm_prefill_ms": lm_summary["prefill_ms_warm"],
                                       "prefill_profile": lm_summary["profile"]["prefill"],
-                                      "transformer_shapes": flash_shapes}
+                                      "transformer_shapes": flash_shapes,
+                                      "moe_shapes": moe_shapes}
         else:
-            kernels[-1]["details"] = lm_details[name]
+            kernels[-1]["max_abs_err"] = max(kernels[-1]["max_abs_err"],
+                                             *(f["max_abs_err"] for f in mamba2_shapes))
+            kernels[-1]["details"] = {**lm_details[name], "mamba2_shapes": mamba2_shapes}
     log(f"total {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card_line(), flush=True)

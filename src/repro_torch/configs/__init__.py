@@ -2,10 +2,10 @@
 so the port never imports the JAX package.
 
 ``get_config`` / ``get_smoke_config`` resolve ``--arch`` as the reference's
-registry does, for the archs the port runs: ``dlrm-scratchpipe``, the
-hybrid LM ``zamba2-1.2b`` and the dense, encoder and vlm transformers. The
-reference's other LM archs raise ``NotImplementedError`` naming the ROADMAP
-Queue 1 item that ports their model family.
+registry does: ``dlrm-scratchpipe`` and every LM arch of the reference
+(the hybrid ``zamba2-1.2b``, the attention-free ``mamba2-2.7b``, the dense,
+encoder and vlm transformers, and the MoE transformers ``mixtral-8x7b`` and
+``llama4-scout-17b-a16e``).
 """
 from __future__ import annotations
 
@@ -20,26 +20,15 @@ _ARCH_MODULES = {
     "qwen2.5-32b": "qwen2_5_32b",
     "qwen2-72b": "qwen2_72b",
     "mistral-large-123b": "mistral_large_123b",
-}
-
-#: the reference's LM archs not ported yet -> (model family, ROADMAP Queue 1 item)
-_NOT_PORTED = {
-    "mamba2-2.7b": ("ssm (ssm_lm.py)", 16),
-    "mixtral-8x7b": ("moe", 17),
-    "llama4-scout-17b-a16e": ("moe", 17),
+    "mamba2-2.7b": "mamba2_2_7b",
+    "mixtral-8x7b": "mixtral_8x7b",
+    "llama4-scout-17b-a16e": "llama4_scout_17b_a16e",
 }
 
 
 def _module(arch: str):
-    if arch in _NOT_PORTED:
-        family, item = _NOT_PORTED[arch]
-        raise NotImplementedError(
-            f"{arch} ({family}) is not ported yet: ROADMAP.md Queue 1 item {item}"
-        )
     if arch not in _ARCH_MODULES:
-        raise KeyError(
-            f"unknown arch {arch!r}; known: {sorted(_ARCH_MODULES) + sorted(_NOT_PORTED)}"
-        )
+        raise KeyError(f"unknown arch {arch!r}; known: {sorted(_ARCH_MODULES)}")
     return importlib.import_module(f"repro_torch.configs.{_ARCH_MODULES[arch]}")
 
 

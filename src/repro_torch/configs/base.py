@@ -97,13 +97,14 @@ class ShapeSpec:
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     """The fields of the reference's ``ModelConfig`` that the ported
-    serving paths (hybrid, dense, encoder, vlm) read, with the reference's
-    defaults. Its MoE fields and the bf16 SSD storage come with the code
-    that reads them; its sharding, remat and scan knobs have no meaning on
-    one card."""
+    serving paths (hybrid, ssm, dense, moe, encoder, vlm) read, with the
+    reference's defaults, and ``scratchpipe_embedding`` (a flag no code
+    reads, in the reference too). Its bf16 SSD storage (``ssd_bf16``) has
+    no setter in the reference and is not carried over; its sharding,
+    remat and scan knobs have no meaning on one card."""
 
     name: str
-    family: str  # dense | encoder | vlm | hybrid (ssm and moe: not yet)
+    family: str  # dense | moe | ssm | hybrid | encoder | vlm
     num_layers: int
     d_model: int
     num_heads: int
@@ -118,6 +119,13 @@ class ModelConfig:
     rope_fraction: float = 1.0  # chatglm applies rotary to half the dims
     sliding_window: Optional[int] = None  # SWA: a rolling KV cache
     causal: bool = True  # False for encoder-only
+
+    # MoE
+    num_experts: int = 0
+    num_experts_per_tok: int = 0
+    moe_d_ff: int = 0  # expert hidden dim (defaults to d_ff)
+    # expert capacity factor (tokens padded/dropped beyond it)
+    moe_capacity_factor: float = 1.25
 
     # SSM (mamba2 / SSD)
     ssm_state: int = 0
@@ -142,9 +150,14 @@ class ModelConfig:
     param_dtype: str = "bfloat16"
     compute_dtype: str = "bfloat16"
 
+    # the LM token-embedding table is a target of the ScratchPipe technique
+    scratchpipe_embedding: bool = False
+
     def __post_init__(self):
         if self.head_dim == 0 and self.num_heads:
             object.__setattr__(self, "head_dim", self.d_model // self.num_heads)
+        if self.num_experts and not self.moe_d_ff:
+            object.__setattr__(self, "moe_d_ff", self.d_ff)
 
     # ---- derived sizes -----------------------------------------------------
     @property

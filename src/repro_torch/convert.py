@@ -36,14 +36,15 @@ returns), so this module imports nothing of the reference:
   * :func:`lm_params_from_reference` — the reference's LM params (the
     nested dict of ``models/api.py: init``, as numpy arrays) -> the port's:
     for the hybrid family the stacked ``groups`` leaves (G, m, ...) and
-    ``tail`` leaves (tail, ...), for the transformer families the stacked
-    ``layers`` (L, ...) (qkv biases, layer-norm weights and biases and all)
-    become per-layer dicts; ``frontend_proj`` and an untied ``lm_head``
-    come as they are; every array a copy;
-  * :func:`lm_cache_from_reference` — a reference hybrid or transformer
-    decode cache (as numpy arrays) -> the port's, the mamba states
-    unstacked per layer, the KV caches stacked as in the reference, so the
-    port can decode on from a reference prefill.
+    ``tail`` leaves (tail, ...), for the ssm and transformer families the
+    stacked ``layers`` (L, ...) (mamba blocks; qkv biases, layer-norm
+    weights and biases, the MoE ``mlp`` dict of ``router``/``wg``/``wu``/
+    ``wd`` and all) become per-layer dicts; ``frontend_proj`` and an untied
+    ``lm_head`` come as they are; every array a copy;
+  * :func:`lm_cache_from_reference` — a reference hybrid, ssm or
+    transformer decode cache (as numpy arrays) -> the port's, the mamba
+    states unstacked per layer, the KV caches stacked as in the reference,
+    so the port can decode on from a reference prefill.
 """
 from __future__ import annotations
 
@@ -239,7 +240,8 @@ def lm_params_from_reference(params: dict, device="cpu") -> dict:
     """Reference LM params (numpy arrays) -> the port's on ``device``, every
     array copied. Hybrid (``models/hybrid.py``): ``embed``, ``groups``
     stacked (G, m, ...), ``shared``, ``final_norm``, ``lm_head``, ``tail``
-    stacked (tail, ...). Transformer (``models/transformer.py``):
+    stacked (tail, ...). Ssm (``models/ssm_lm.py``) and transformer
+    (``models/transformer.py``, the MoE family's ``mlp`` dict included):
     ``layers`` stacked (L, ...), ``final_norm`` (a dict of ``w``/``b`` for
     the encoder), ``embed``, ``lm_head`` unless tied, ``frontend_proj``."""
     out = {k: _tree(v, device) for k, v in params.items() if k not in _STACKED}
@@ -249,11 +251,18 @@ def lm_params_from_reference(params: dict, device="cpu") -> dict:
     return out
 
 
+#: the keys of one mamba layer's decode state (``models/mamba2.py``)
+_MAMBA_STATE = {"conv_x", "conv_B", "conv_C", "ssm"}
+
+
 def lm_cache_from_reference(cache: dict, device="cpu") -> dict:
     """A reference decode cache (numpy arrays) -> the port's, on ``device``,
     copied: ``k``/``v`` stay stacked ((G or L), B, S, K, hd); the hybrid's
     ``x0`` as it is, its ``groups`` states (G, m, B, ...) and ``tail``
-    states (tail, B, ...) unstacked per layer."""
+    states (tail, B, ...) unstacked per layer; the ssm family's states,
+    stacked (L, B, ...) at the top level, become ``{"layers": [...]}``."""
+    if set(cache) == _MAMBA_STATE:
+        return {"layers": _unstack(cache, 1, device)}
     out = {k: _tensor(v, device) for k, v in cache.items() if k not in _STACKED}
     for k, n_lead in _STACKED.items():
         if k in cache:

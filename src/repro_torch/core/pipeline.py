@@ -116,6 +116,7 @@ from __future__ import annotations
 import collections
 import dataclasses
 from concurrent.futures import ThreadPoolExecutor
+from concurrent.futures import wait as futures_wait
 from typing import Any, Callable, Deque, Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -487,15 +488,14 @@ class ScratchPipe:
                         sv.note_failure(e)
                         poisoned = True
                 # quiesce before replaying: never run the op inline while a
-                # (stalled) worker might still be executing it
+                # (stalled) worker might still be executing it. Its result
+                # is dropped, not kept: the worker ran it without the failed
+                # op's effect (a gather behind a failed write-back reads
+                # the rows before they are written)
                 f = op.future
                 if f is not None and not f.done() and not f.cancel():
-                    try:
-                        op.wait(sv.policy.op_timeout * 5)
-                    except TransientOpError:
-                        pass
-                if not op.settled:
-                    sv.run_inline(op)
+                    futures_wait([f], timeout=sv.policy.op_timeout * 5)
+                sv.run_inline(op)
         if sv.note_incident():
             self._degrade_to_sync()
 

@@ -2,13 +2,14 @@
 lookup tier.
 
 Port of ``repro/launch/serve.py``. LM archs (batched prefill + greedy
-decode against the KV/SSM cache: ``zamba2-1.2b`` and the dense and vlm
-transformers; an encoder-only arch exits, as in the reference; mamba2 and
-the MoE archs raise with their ROADMAP item):
+decode against the KV/SSM cache: ``zamba2-1.2b``, ``mamba2-2.7b``, the
+dense and vlm transformers and the MoE transformers ``mixtral-8x7b`` and
+``llama4-scout-17b-a16e``; an encoder-only arch exits, as in the
+reference):
 
     python -m repro_torch.launch.serve --arch zamba2-1.2b --batch 4 \
         --prompt-len 2048 --gen 16
-    python -m repro_torch.launch.serve --arch chatglm3-6b --smoke --device cpu
+    python -m repro_torch.launch.serve --arch mixtral-8x7b --smoke --device cpu
 
 ``--smoke`` takes the arch's smoke config. Weights are random, drawn from
 ``--seed``, as in the reference. Prints the reference's ``prefill:``,
@@ -179,19 +180,39 @@ def _sync(dev) -> None:
         torch.cuda.synchronize(dev)
 
 
+def fit_kv_cache(cfg, cache: dict, prompt_len: int, gen: int) -> dict:
+    """The prefill's KV cache laid out for ``gen`` tokens of decode, in
+    place of ``cache``'s ``"k"``/``"v"`` (an ssm cache has none): grown
+    to ``prompt_len + gen`` slots (``+ 1`` for the hybrid family, as the
+    reference grows it), and under ``cfg.sliding_window`` W a ring of
+    ``min(prompt_len + gen, W)`` slots with position p at slot p % size
+    (``layers.ring_kv``). The reference's launcher leaves a windowed cache
+    as its prefill cut it (``min(prompt_len, W)`` slots in position order),
+    so its decode overwrites positions still in the window; the port
+    repairs that (ROADMAP.md Queue 3)."""
+    from repro_torch.models.layers import ring_kv
+
+    if "k" not in cache:
+        return cache
+    size = prompt_len + gen + (1 if cfg.family == "hybrid" else 0)
+    if cfg.sliding_window is not None:
+        size = min(size, cfg.sliding_window)
+    cache["k"] = ring_kv(cache["k"], prompt_len, size)
+    cache["v"] = ring_kv(cache["v"], prompt_len, size)
+    return cache
+
+
 def run_lm(args, cfg=None) -> Dict[str, Any]:
     """Port of the reference's ``_serve_lm``: random params from
     ``--seed``, the reference's synthetic prompt batch, one prefill, the KV
-    cache grown by ``gen`` positions (``gen + 1`` for the hybrid family;
-    not at all under a sliding window, whose cache is a ring), then
-    ``gen - 1`` greedy decode steps. ``cfg`` overrides the arch's config
+    cache laid out for decode by :func:`fit_kv_cache`, then ``gen - 1``
+    greedy decode steps. ``cfg`` overrides the arch's config
     (same arch, e.g. another dtype or depth). Prints the reference's lines
     and returns the prefill logits, the cache, the generated tokens (B,
     gen) and the host-clock times (each ended by a device
     synchronization)."""
     import numpy as np
     import torch
-    import torch.nn.functional as F
 
     from repro_torch.configs import get_config, get_smoke_config
     from repro_torch.configs.base import ShapeSpec
@@ -214,12 +235,7 @@ def run_lm(args, cfg=None) -> Dict[str, Any]:
         _sync(dev)
         t0 = time.perf_counter()
         logits, cache = prefill(params, batch)
-        # grow the KV caches to the full generation length (the reference
-        # grows a hybrid cache by gen + 1, a dense one by gen)
-        if cfg.sliding_window is None:
-            pad = args.gen + (1 if cfg.family == "hybrid" else 0)
-            cache["k"] = F.pad(cache["k"], (0, 0, 0, 0, 0, pad))
-            cache["v"] = F.pad(cache["v"], (0, 0, 0, 0, 0, pad))
+        cache = fit_kv_cache(cfg, cache, args.prompt_len, args.gen)
         tok = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
         _sync(dev)
         prefill_s = time.perf_counter() - t0
@@ -252,7 +268,8 @@ def build_parser() -> argparse.ArgumentParser:
     )
     lm = ap.add_argument_group("LM serving")
     lm.add_argument("--arch", default=None,
-                    help="LM arch id (zamba2-1.2b, chatglm3-6b, phi-3-vision-4.2b, ...)")
+                    help="LM arch id (zamba2-1.2b, mamba2-2.7b, chatglm3-6b, "
+                    "phi-3-vision-4.2b, mixtral-8x7b, llama4-scout-17b-a16e, ...)")
     lm.add_argument("--smoke", action="store_true", help="the arch's smoke config")
     lm.add_argument("--prompt-len", type=int, default=32)
     lm.add_argument("--gen", type=int, default=16)

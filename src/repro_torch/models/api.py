@@ -1,13 +1,12 @@
 """Unified model API of the port: family dispatch, head/vocab padding at one
 card, and synthetic batches.
 
-Port of ``repro/models/api.py`` for the serving paths of the ``hybrid``
-family (zamba2-1.2b) and the ``dense``, ``encoder`` and ``vlm`` transformer
-families. One card: TP = 1, so nothing is padded and there are no mesh,
-specs or shardings. The other families raise, naming the ROADMAP item that
-ports them. ``synth_batch`` draws from the same numpy generator in the same
-order as the reference, so its tokens, frames and patches equal the
-reference's.
+Port of ``repro/models/api.py`` for the serving paths of every LM family
+of the reference: ``hybrid`` (zamba2-1.2b), ``ssm`` (mamba2-2.7b) and the
+``dense``, ``moe``, ``encoder`` and ``vlm`` transformer families. One card:
+TP = 1, so nothing is padded and there are no mesh, specs or shardings.
+``synth_batch`` draws from the same numpy generator in the same order as
+the reference, so its tokens, frames and patches equal the reference's.
 """
 from __future__ import annotations
 
@@ -17,22 +16,16 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig, ShapeSpec
-from repro_torch.models import hybrid, transformer
+from repro_torch.models import hybrid, ssm_lm, transformer
 from repro_torch.models.transformer import FRAME_DIM, PATCH_DIM
 
-_FAMILY_MOD = {"hybrid": hybrid, "dense": transformer, "encoder": transformer,
-               "vlm": transformer}
-#: families of the reference not ported yet -> ROADMAP.md Queue 1 item
-_FAMILY_ITEM = {"ssm": 16, "moe": 17}
+_FAMILY_MOD = {"hybrid": hybrid, "ssm": ssm_lm, "dense": transformer,
+               "moe": transformer, "encoder": transformer, "vlm": transformer}
 
 
 def family_module(cfg):
     if cfg.family not in _FAMILY_MOD:
-        item = _FAMILY_ITEM.get(cfg.family)
-        raise NotImplementedError(
-            f"model family {cfg.family!r} is not ported yet"
-            + (f": ROADMAP.md Queue 1 item {item}" if item else "")
-        )
+        raise KeyError(f"unknown model family {cfg.family!r}")
     return _FAMILY_MOD[cfg.family]
 
 

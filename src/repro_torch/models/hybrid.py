@@ -107,25 +107,6 @@ def init_cache(cfg, batch_size: int, seq_len: int, device="cpu"):
     return cache
 
 
-def _mamba_collect(cfg, h, layers):
-    """Run ``layers`` over h (B, S, D), collecting each layer's decode state:
-    the pre-conv projections of the last ssm_conv - 1 positions and the
-    final SSM state."""
-    states = []
-    for lp in layers:
-        out, h_fin = M.mamba_layer_forward(cfg, lp, h)
-        hn = L.rms_norm(h, lp["norm"], cfg.norm_eps)
-        tail_in = hn[:, -(cfg.ssm_conv - 1):]
-        states.append({
-            "conv_x": tail_in @ lp["wx"],
-            "conv_B": tail_in @ lp["wB"],
-            "conv_C": tail_in @ lp["wC"],
-            "ssm": h_fin,
-        })
-        h = out
-    return h, states
-
-
 def prefill(params, cfg, batch):
     """Forward over the prompt collecting shared-block KV caches (per group
     application) and final mamba states. Returns (last-position logits
@@ -139,7 +120,7 @@ def prefill(params, cfg, batch):
     m = shared["mlp"]
     h, gstates, ks, vs = x0, [], [], []
     for gp in params["groups"]:
-        h, st = _mamba_collect(cfg, h, gp)
+        h, st = M.prefill_stack(cfg, h, gp)
         u = torch.cat([h, x0], dim=-1) @ shared["concat_proj"]
         hn = L.rms_norm(u, shared["attn_norm"], cfg.norm_eps)
         q = (hn @ p["wq"]).reshape(B, S, H, hd)
@@ -157,19 +138,10 @@ def prefill(params, cfg, batch):
     cache = {"groups": gstates, "k": torch.stack(ks), "v": torch.stack(vs),
              "x0": x0[:, -1:]}
     if cfg.hybrid_tail_layers:
-        h, cache["tail"] = _mamba_collect(cfg, h, params["tail"])
+        h, cache["tail"] = M.prefill_stack(cfg, h, params["tail"])
     x = L.rms_norm(h, params["final_norm"], cfg.norm_eps)
     logits = C.sharded_logits(x[:, -1], params["lm_head"].to(x.dtype), cfg.vocab_size)
     return logits, cache
-
-
-def _decode_stack(cfg, h, layers, states):
-    """One token through ``layers``; ``states`` (a list, one per layer) is
-    updated in place, each new state cast to the cache's dtypes."""
-    for i, lp in enumerate(layers):
-        h, st = M.mamba_layer_decode(cfg, lp, h, states[i])
-        states[i] = {k: st[k].to(states[i][k].dtype) for k in st}
-    return h
 
 
 def decode_step(params, cfg, cache, tokens, pos: int):
@@ -179,10 +151,10 @@ def decode_step(params, cfg, cache, tokens, pos: int):
     shared = params["shared"]
     h = x0
     for g, gp in enumerate(params["groups"]):
-        h = _decode_stack(cfg, h, gp, cache["groups"][g])
+        h = M.decode_stack(cfg, h, gp, cache["groups"][g])
         h, _, _ = _shared_decode(cfg, shared, h, x0, pos, cache["k"][g], cache["v"][g])
     if cfg.hybrid_tail_layers:
-        h = _decode_stack(cfg, h, params["tail"], cache["tail"])
+        h = M.decode_stack(cfg, h, params["tail"], cache["tail"])
     cache["x0"] = x0
     x = L.rms_norm(h, params["final_norm"], cfg.norm_eps)
     logits = C.sharded_logits(x[:, 0], params["lm_head"].to(x.dtype), cfg.vocab_size)

@@ -1,6 +1,7 @@
 """Shared building blocks of the LM paths: norms, RoPE, attention for
 prefill (the hand-written flash kernel) and decode (against a KV cache,
-rolling under a sliding window), SwiGLU and GELU MLPs.
+a ring under a sliding window, laid out by ``ring_kv``), SwiGLU and GELU
+MLPs.
 
 Port of ``repro/models/layers.py`` (the serving half: the reference's
 ``x_kv`` cross-attention argument has no caller and is not carried over).
@@ -143,6 +144,23 @@ def cache_write(cache: torch.Tensor, new: torch.Tensor, pos: int, *,
     slot = pos % S if rolling else min(max(pos, 0), S - 1)
     cache[:, slot] = new[:, 0].to(cache.dtype)
     return cache
+
+
+def ring_kv(kv: torch.Tensor, prompt_len: int, size: int) -> torch.Tensor:
+    """A prefill's stacked KV cache (L, B, n, K, hd), holding positions
+    ``prompt_len - n`` .. ``prompt_len - 1`` in order -> (L, B, ``size``, K,
+    hd) with each position p it keeps at slot ``p % size`` (the last
+    ``min(n, size)`` positions; the other slots zero). With ``size`` >=
+    ``prompt_len`` this is a growth by ``size - prompt_len`` zero slots; as
+    a ring of ``size`` = the window it is the layout ``cache_write`` and
+    ``decode_attention`` assume (the reference keeps the window's keys at
+    slots 0 .. n - 1 instead, so its decode overwrites a position still in
+    the window unless ``prompt_len % size == 0``)."""
+    n = min(kv.shape[2], size)
+    out = kv.new_zeros(kv.shape[:2] + (size,) + kv.shape[3:])
+    slots = torch.arange(prompt_len - n, prompt_len, device=kv.device) % size
+    out[:, :, slots] = kv[:, :, kv.shape[2] - n:]
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -10,7 +10,11 @@ ssd_chunk_scan_ref`` — the reference's chunk loop — for a CPU one). The
 per-token decode recurrence (:func:`ssd_step`) and the convolutions are
 plain torch. Parameters are plain dicts of tensors in the reference's
 layouts; states are dicts ``{"conv_x", "conv_B", "conv_C", "ssm"}`` of one
-layer.
+layer. :func:`prefill_stack` and :func:`decode_stack` run a list of layers
+for the hybrid (``models/hybrid.py``) and ssm (``models/ssm_lm.py``)
+families. The reference's ``h0`` (a carried-in state) and ``ssd_bf16``
+(``low_prec``) are not carried over: no caller or config of the reference
+sets them (:func:`ssd_scan` raises on both).
 """
 from __future__ import annotations
 
@@ -70,13 +74,16 @@ def ssd_scan(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (y (B, S, nh, hd), h_final (B, nh, hd, ds)), through the
     SSD kernel. The TPU kernel takes neither a carried-in state nor the
-    bf16 intra-chunk storage, and no config on the ported path sets them:
-    ``h0`` and ``low_prec`` raise (ROADMAP.md Queue 1 item 16)."""
+    bf16 intra-chunk storage, and nothing in the reference reaches them:
+    no caller passes ``h0`` (``mamba_layer_forward``'s is never set) and no
+    config sets ``ssd_bf16`` (``low_prec``). Both raise (ROADMAP.md Queue 1
+    item 16, not carried over)."""
     if h0 is not None or low_prec:
         raise NotImplementedError(
             "ssd_scan with h0 or low_prec (the reference's cfg.ssd_bf16) is not "
-            "ported: the SSD kernel starts from a zero state in fp32 "
-            "(ROADMAP.md Queue 1 item 16)"
+            "carried over: no caller or config of the reference sets them, and "
+            "the SSD kernel starts from a zero state in fp32 "
+            "(ROADMAP.md Queue 1 item 16, not carried over)"
         )
     return ops.ssd_chunk_scan(x, dt, A, Bm, Cm, chunk)
 
@@ -222,3 +229,37 @@ def init_mamba_state(cfg, batch: int, device="cpu") -> Dict[str, torch.Tensor]:
         "conv_C": torch.zeros((batch, K - 1, ng * ds), dtype=dt_, device=device),
         "ssm": torch.zeros((batch, nh, hd, ds), dtype=torch.float32, device=device),
     }
+
+
+# ---------------------------------------------------------------------------
+# Layer stacks (the hybrid and ssm families)
+# ---------------------------------------------------------------------------
+
+
+def prefill_stack(cfg, h, layers):
+    """Run ``layers`` (a list of per-layer params) over h (B, S, D).
+    Returns (h, the list of each layer's decode state: the pre-conv
+    projections of the last ssm_conv - 1 positions and the final SSM
+    state). The prefill of the hybrid and ssm families."""
+    states = []
+    for lp in layers:
+        out, h_fin = mamba_layer_forward(cfg, lp, h)
+        hn = L.rms_norm(h, lp["norm"], cfg.norm_eps)
+        tail_in = hn[:, -(cfg.ssm_conv - 1):]
+        states.append({
+            "conv_x": tail_in @ lp["wx"],
+            "conv_B": tail_in @ lp["wB"],
+            "conv_C": tail_in @ lp["wC"],
+            "ssm": h_fin,
+        })
+        h = out
+    return h, states
+
+
+def decode_stack(cfg, h, layers, states):
+    """One token through ``layers``; ``states`` (a list, one per layer) is
+    updated in place, each new state cast to the cache's dtypes."""
+    for i, lp in enumerate(layers):
+        h, st = mamba_layer_decode(cfg, lp, h, states[i])
+        states[i] = {k: st[k].to(states[i][k].dtype) for k in st}
+    return h

@@ -1,5 +1,6 @@
-"""Dense transformer LM, encoder-only (hubert) and VLM backbone (phi-3-vision),
-serving half; and the token embedding the hybrid family shares.
+"""Dense transformer LM, MoE transformer (mixtral, llama4-scout; through
+``models/moe.py``), encoder-only (hubert) and VLM backbone (phi-3-vision),
+serving half; and the token embedding the hybrid and ssm families share.
 
 Port of ``repro/models/transformer.py`` at one card: no mesh, so no
 vocab-sharded lookup, no sequence-parallel constraints and no specs. The
@@ -8,16 +9,19 @@ keeps a list of per-layer parameter dicts (``params["layers"][i]``) and
 loops. Prefill reaches the flash kernel once per layer
 (``layers.chunked_attention``); decode is plain torch against the KV cache
 ``{"k", "v"}`` of shape (L, B, S, K, hd), stacked as in the reference and
-written in place (a ring buffer of ``cfg.sliding_window`` slots when set).
+written in place (a ring of slots ``pos % S`` under ``cfg.sliding_window``:
+``layers.ring_kv`` lays a prefill's keys out for it).
 
-Families: ``dense`` (RMSNorm, SwiGLU), ``encoder`` (LayerNorm with bias, the
-tanh GELU MLP with biases; non-causal), ``vlm`` (a dense backbone whose
-``patches`` frontend is prepended to the token embeddings). The frontends
-are stubs in the reference too: precomputed frame (``FRAME_DIM``) or patch
-(``PATCH_DIM``) embeddings, projected by ``frontend_proj``. The reference's
-``moe`` branches (ROADMAP.md Queue 1 item 17), ``loss_fn`` (LM training,
-item 18) and the fused gate/up and offloaded-embedding knobs (no config of
-the port sets them) are not carried over.
+Families: ``dense`` (RMSNorm, SwiGLU), ``moe`` (RMSNorm, the routed SwiGLU
+experts of ``models/moe.py``; its aux loss is returned by ``_ffn`` and
+dropped by serving, as the reference's prefill drops it), ``encoder``
+(LayerNorm with bias, the tanh GELU MLP with biases; non-causal), ``vlm``
+(a dense backbone whose ``patches`` frontend is prepended to the token
+embeddings). The frontends are stubs in the reference too: precomputed
+frame (``FRAME_DIM``) or patch (``PATCH_DIM``) embeddings, projected by
+``frontend_proj``. ``loss_fn`` (LM training, ROADMAP.md Queue 1 item 18)
+and the fused gate/up and offloaded-embedding knobs (no config of the
+port sets them) are not carried over.
 """
 from __future__ import annotations
 
@@ -27,16 +31,11 @@ from typing import Tuple
 import torch
 
 from repro_torch.models import layers as L
+from repro_torch.models import moe
 from repro_torch.parallel import collectives as C
 
 FRAME_DIM = 512  # audio frontend stub: precomputed frame-embedding width
 PATCH_DIM = 1024  # vision frontend stub: precomputed patch-embedding width
-
-
-def _check_family(cfg) -> None:
-    if cfg.family == "moe":
-        raise NotImplementedError(
-            "the moe transformer family is not ported yet: ROADMAP.md Queue 1 item 17")
 
 
 # ---------------------------------------------------------------------------
@@ -47,7 +46,6 @@ def _check_family(cfg) -> None:
 def init_layer(gen: torch.Generator, cfg, device):
     """One layer's params in ``cfg.param_dtype``, scaled as in the
     reference (draws from ``gen``)."""
-    _check_family(cfg)
     dt = getattr(torch, cfg.param_dtype)
     D, F = cfg.d_model, cfg.d_ff
 
@@ -66,6 +64,10 @@ def init_layer(gen: torch.Generator, cfg, device):
         p["mlp_norm"] = {"w": ones(D), "b": zeros(D)}
         p["mlp"] = {"w1": normal((D, F), 1.0 / math.sqrt(D)), "b1": zeros(F),
                     "w2": normal((F, D), 1.0 / math.sqrt(F)), "b2": zeros(D)}
+    elif cfg.family == "moe":
+        p["attn_norm"] = ones(D)
+        p["mlp_norm"] = ones(D)
+        p["mlp"] = moe.init_moe_mlp(gen, cfg, device)
     else:
         p["attn_norm"] = ones(D)
         p["mlp_norm"] = ones(D)
@@ -82,17 +84,21 @@ def _norm(cfg, x, n):
 
 
 def _ffn(cfg, m, h):
+    """Returns (delta, aux loss): the MoE's fp32 scalar, 0.0 otherwise."""
     if cfg.family == "encoder":
-        return L.gelu_mlp(h, m["w1"], m["b1"], m["w2"], m["b2"])
-    return L.swiglu(h, m["w_gate"], m["w_up"], m["w_down"])
+        return L.gelu_mlp(h, m["w1"], m["b1"], m["w2"], m["b2"]), 0.0
+    if cfg.family == "moe":
+        return moe.moe_ffn(cfg, m, h)
+    return L.swiglu(h, m["w_gate"], m["w_up"], m["w_down"]), 0.0
 
 
 def layer_forward(cfg, p, x, positions):
     """One layer over x (B, S, D) at ``positions`` (B, S). Returns (x, the
-    layer's post-RoPE k and v (B, S, K, hd))."""
+    layer's post-RoPE k and v (B, S, K, hd)); the aux loss is dropped."""
     a, k, v = L.attention_forward(p["attn"], _norm(cfg, x, p["attn_norm"]), positions, cfg)
     x = x + a
-    return x + _ffn(cfg, p["mlp"], _norm(cfg, x, p["mlp_norm"])), k, v
+    delta, _ = _ffn(cfg, p["mlp"], _norm(cfg, x, p["mlp_norm"]))
+    return x + delta, k, v
 
 
 def layer_decode(cfg, p, x, pos: int, kc, vc):
@@ -100,7 +106,8 @@ def layer_decode(cfg, p, x, pos: int, kc, vc):
     place at ``pos``."""
     a, kc, vc = L.attention_decode(p["attn"], _norm(cfg, x, p["attn_norm"]), pos, kc, vc, cfg)
     x = x + a
-    return x + _ffn(cfg, p["mlp"], _norm(cfg, x, p["mlp_norm"])), kc, vc
+    delta, _ = _ffn(cfg, p["mlp"], _norm(cfg, x, p["mlp_norm"]))
+    return x + delta, kc, vc
 
 
 # ---------------------------------------------------------------------------
@@ -111,7 +118,6 @@ def layer_decode(cfg, p, x, pos: int, kc, vc):
 def init_params(cfg, gen: torch.Generator, vocab_pad: int, device=None):
     """Random params from ``gen`` (draws on ``device``, the generator's by
     default), scaled as in the reference."""
-    _check_family(cfg)
     device = device or gen.device
     dt = getattr(torch, cfg.param_dtype)
     D = cfg.d_model
@@ -178,7 +184,8 @@ def init_cache(cfg, batch_size: int, seq_len: int, device="cpu", dtype=None):
 def prefill(params, cfg, batch):
     """Forward over the whole prompt: (last-position logits (B, Vpad) fp32,
     the KV cache {"k", "v"} (L, B, S', K, hd) of the post-RoPE keys and
-    values; S' = S, or the last ``cfg.sliding_window`` positions)."""
+    values of positions S - S' .. S - 1, in order; S' = S, or at most
+    ``cfg.sliding_window``). Decode takes it through ``layers.ring_kv``."""
     x, positions = build_inputs(params, cfg, batch)
     ks, vs = [], []
     for lp in params["layers"]:

@@ -162,6 +162,44 @@ def test_worker_kill_recovered_inline_bit_parity(reference, planner):
     assert ("MainThread", "ft.recover") in tr.totals()
 
 
+def test_failed_writeback_replays_the_gather_running_behind_it():
+    """A write-back that fails frees the ordered worker for the next gather
+    at once. When the main thread finds the failure, that gather may still
+    be RUNNING, reading the host rows without the write-back: recovery
+    waits for it, then recomputes it after the replayed write-back, so the
+    gather returns the written rows (the sync order). Keeping the running
+    gather's result would feed stale rows into the scratchpad (on the card
+    the worker is fast enough to be inside that gather: ``chip_smoke.py``
+    phase 8b's fp16 drill, ``fail-writeback@5``, shows it)."""
+    import threading
+    import time
+
+    host, pipe = _pipe()
+    rows = np.array([3, 5])
+    new = np.full((2, DIM), 7.0, np.float32)
+    calls, read = [], threading.Event()
+
+    def write_back(ids, values):  # fails once, like fail-writeback@1
+        calls.append(1)
+        if len(calls) == 1:
+            time.sleep(0.3)  # the gather is queued behind it by then
+            raise ChaosError("injected op failure: fail-writeback@1")
+        host.scatter(ids, values)
+
+    def gather(ids):
+        out = host.gather(ids).copy()
+        read.set()
+        time.sleep(1.0)  # still running when the failure is found
+        return out
+
+    pipe._submit_host(write_back, rows, new)
+    g = pipe._submit_host(gather, rows)
+    assert read.wait(10) and g.future.running()
+    np.testing.assert_array_equal(pipe._op_result(g), new)
+    pipe.close()
+    assert len(calls) == 2 and pipe._sv.failures >= 1
+
+
 def test_repeated_faults_degrade_to_sync(reference):
     """Past degrade_after incidents the runtime abandons its pools and runs
     sync for the rest of the run — same output, overlap sacrificed."""

@@ -542,6 +542,10 @@ def test_cuda_flash_attention_tile_edges(cuda, dtype, B, Sq, Skv, H, K, hd, caus
         (2, 100, 300, 8, 2, 64, True, None, 200),
         (1, 129, 400, 12, 4, 96, True, 150, 271),
         (1, 70, 200, 16, 16, 80, False, None, 130),
+        # mixtral-8x7b's layout (32/8 x 128) with a window that cuts, and
+        # with a window after a prefix of keys
+        (1, 700, 700, 32, 8, 128, True, 256, 0),
+        (1, 300, 500, 32, 8, 128, True, 128, 200),
     ],
 )
 def test_cuda_flash_attention_lm_head_layouts(cuda, dtype, B, Sq, Skv, H, K, hd, causal,
@@ -585,6 +589,9 @@ def test_cuda_flash_attention_lm_head_layouts(cuda, dtype, B, Sq, Skv, H, K, hd,
         (1, 257, 1, 2, 64, 64, 256),
         (2, 700, 2, 8, 64, 64, 256),  # ng = 2, hpg = 8
         (1, 4096, 1, 4, 64, 64, 256),  # the state after 16 chunks
+        # mamba2-2.7b's per-head widths (hd 64, ds 128, ng 1, Q 256), more
+        # heads per group, a ragged last chunk
+        (1, 1024, 1, 16, 64, 128, 256), (2, 600, 1, 8, 64, 128, 256),
     ],
 )
 def test_cuda_ssd_chunk_scan_vs_plain(cuda, dtype, B, S, ng, hpg, hd, ds, Q):
@@ -606,6 +613,46 @@ def test_cuda_ssd_chunk_scan_vs_plain(cuda, dtype, B, S, ng, hpg, hd, ds, Q):
             dy.max().item())
     assert (h - h_ref).abs().max().item() <= 2e-4
     assert tops.launch_counts()["ssd_chunk_scan"] == 1
+
+
+def _to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to(v, device) for v in tree]
+    return tree.to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,prompt", [("mamba2-2.7b", 40), ("mixtral-8x7b", 96),
+                                         ("llama4-scout-17b-a16e", 24)])
+def test_cuda_lm_serve_ssm_and_moe_match_cpu(cuda, monkeypatch, arch, prompt):
+    """The smoke configs (fp32) served through the launcher on the card
+    (the kernels) and on the CPU (the plain versions) from the same params:
+    16 greedy tokens equal, logits within 1e-3 of the largest; one kernel
+    launch per layer per prefill (the SSD scan for mamba2, flash for the
+    MoE configs; mixtral's 96-token prompt cuts its 64-key window and its
+    decode wraps the ring), none in decode."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch import serve
+    from repro_torch.models import api
+
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    cfg = get_smoke_config(arch)
+    params = api.init(cfg, torch.Generator().manual_seed(0), device="cpu")
+    monkeypatch.setattr(api, "init", lambda c, g, device=None: _to(params, device))
+    argv = ["--arch", arch, "--smoke", "--batch", "2", "--prompt-len", str(prompt),
+            "--gen", "16"]
+    got = serve.main(argv + ["--device", "cuda"])
+    torch.cuda.synchronize()
+    kernel = "ssd_chunk_scan" if cfg.family == "ssm" else "flash_attention"
+    counts = tops.launch_counts()
+    assert counts[kernel] == cfg.num_layers and sum(counts.values()) == cfg.num_layers
+    want = serve.main(argv + ["--device", "cpu"])
+    assert got["logits"].device.type == "cuda"
+    diff = (got["logits"].cpu() - want["logits"]).abs().max().item()
+    assert diff <= 1e-3 * want["logits"].abs().max().item(), diff
+    np.testing.assert_array_equal(got["tokens"], want["tokens"])
 
 
 @pytest.mark.cuda

@@ -178,7 +178,10 @@ LM_MODULES = ("repro_torch.models.layers", "repro_torch.models.mamba2",
               "repro_torch.configs.zamba2_1_2b", "repro_torch.configs.chatglm3_6b",
               "repro_torch.configs.hubert_xlarge", "repro_torch.configs.phi_3_vision_4_2b",
               "repro_torch.configs.qwen2_5_32b", "repro_torch.configs.qwen2_72b",
-              "repro_torch.configs.mistral_large_123b", "repro_torch.core.serving_cache",
+              "repro_torch.configs.mistral_large_123b", "repro_torch.models.moe",
+              "repro_torch.models.ssm_lm", "repro_torch.configs.mamba2_2_7b",
+              "repro_torch.configs.mixtral_8x7b",
+              "repro_torch.configs.llama4_scout_17b_a16e", "repro_torch.core.serving_cache",
               "repro_torch.chaos.injector", "repro_torch.convert")
 
 
@@ -212,12 +215,25 @@ def test_lm_serving_defaults_to_cuda_and_raises_without_a_card(monkeypatch):
         serve.main(["--arch", "zamba2-1.2b", "--smoke", "--device", "cuda:0"])
 
 
-@pytest.mark.parametrize("arch,item", [
-    ("mamba2-2.7b", 16), ("mixtral-8x7b", 17), ("llama4-scout-17b-a16e", 17),
+@pytest.mark.parametrize("arch,module", [
+    ("mamba2-2.7b", "ssm_lm"), ("mixtral-8x7b", "transformer"),
+    ("llama4-scout-17b-a16e", "transformer"),
 ])
-def test_other_lm_archs_name_their_roadmap_item(arch, item):
-    with pytest.raises(NotImplementedError, match=f"Queue 1 item {item}$"):
-        serve.main(["--arch", arch, "--smoke", "--device", "cpu"])
+def test_ssm_and_moe_archs_default_to_cuda_and_raise_without_a_card(monkeypatch, arch,
+                                                                    module):
+    """The attention-free and MoE archs serve on the card by default and
+    raise without one; their families are no longer refused."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import api
+
+    assert serve.build_parser().parse_args(["--arch", arch]).device == "cuda"
+    cfg = get_smoke_config(arch)
+    assert api.family_module(cfg).__name__ == f"repro_torch.models.{module}"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.main(["--arch", arch, "--smoke"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.main(["--arch", arch, "--smoke", "--device", "cuda:0"])
 
 
 @pytest.mark.parametrize("arch", [

@@ -216,21 +216,39 @@ def test_params_carry_across_with_the_ports_structure(arch, mesh1):
 # --------------------------------------------------------------------------- #
 def test_rolling_decode_under_a_sliding_window(mesh1):
     """sliding_window 8 < a 20-token prompt: the prefill keeps the last 8
-    positions, decode writes the ring slot pos % 8 (no growth)."""
-    arch, prompt = "qwen2.5-32b", 20
-    rcfg = dataclasses.replace(ref_smoke_config(arch), sliding_window=8)
-    cfg = dataclasses.replace(get_smoke_config(arch), sliding_window=8)
-    ref = reference_run(rcfg, mesh1, prompt=prompt, steps=6)
+    positions, in position order, as the reference's does; the launcher's
+    ``fit_kv_cache`` lays them out as a ring of 8 with position p at slot
+    p % 8 (here a roll by 20 % 8 = 4), and decode writes slot pos % 8. The
+    tokens and caches equal the reference's decode started from its own
+    prefill cache laid out the same way (its launcher leaves the cache in
+    position order, so its decode would overwrite position 16, still in
+    the window, first: ROADMAP.md Queue 3)."""
+    arch, prompt, steps, W = "qwen2.5-32b", 20, 6, 8
+    rcfg = dataclasses.replace(ref_smoke_config(arch), sliding_window=W)
+    cfg = dataclasses.replace(get_smoke_config(arch), sliding_window=W)
+    ref = reference_run(rcfg, mesh1, prompt=prompt, steps=0)
     params = convert.lm_params_from_reference(ref["params"])
     _batch, logits, cache = port_prefill(cfg, params, prompt=prompt)
     _close(logits, ref["logits"], "windowed logits")
-    assert cache["k"].shape[2] == 8
+    assert cache["k"].shape[2] == W
     for k in ("k", "v"):
         _close(cache[k], ref["cache"][k], f"windowed cache {k}")
-    toks, final = port_decode(cfg, params, logits, cache, prompt=prompt, steps=6)
-    np.testing.assert_array_equal(toks, ref["decoded"])
+    cache = serve.fit_kv_cache(cfg, cache, prompt, steps + 1)
+    rolled = {k: np.roll(v, prompt % W, axis=2) for k, v in ref["cache"].items()}
     for k in ("k", "v"):
-        _close(final[k], ref["final_cache"][k], f"rolled cache {k}")
+        _close(cache[k], rolled[k], f"ring {k}")
+    with jax.set_mesh(mesh1):
+        decode = jax.jit(rapi.make_decode_fn(rcfg, mesh1))
+        tok = jnp.argmax(jnp.asarray(ref["logits"]), axis=-1).astype(jnp.int32)[:, None]
+        want, ring = [np.asarray(tok)], jax.tree.map(jnp.asarray, rolled)
+        for i in range(steps):
+            tok, ring = decode(jax.tree.map(jnp.asarray, ref["params"]), ring, tok,
+                               jnp.int32(prompt + i))
+            want.append(np.asarray(tok))
+    toks, final = port_decode(cfg, params, logits, cache, prompt=prompt, steps=steps)
+    np.testing.assert_array_equal(toks, np.concatenate(want, axis=1))
+    for k in ("k", "v"):
+        _close(final[k], np.asarray(ring[k]), f"rolled cache {k}")
 
 
 @pytest.mark.parametrize("causal,window", [(True, None), (True, 6), (False, None)])
