@@ -33,8 +33,10 @@ Phases, in order; any failure raises and the script exits non-zero:
                is 41 GB of fp32). Launch counts are reset just before and
                read just after; the plain versions are made to raise during
                the run, so no CPU tensor reaches a kernel wrapper. The same
-               batches then go through ``nocache-serve``: the bags must be
-               bitwise equal, and the post-warm-up hit rate 1.000;
+               batches then go through ``nocache-serve`` over the same host
+               table (``run_embedding(..., host=)``; serving never writes
+               it): the bags must be bitwise equal, and the post-warm-up hit
+               rate 1.000;
                Each serving stage's host time is summed on the way.
   5. timing  — each kernel at the operands the main path gave it (CUDA
                events, median, L2 flushed before each launch) beside its
@@ -45,7 +47,9 @@ Phases, in order; any failure raises and the script exits non-zero:
                20 lookups per table, batch 2048, bottom MLP 13-512-256-128,
                dot interaction, top MLP 164-1024-1024-512-256-1), 24 steps,
                seed 0: ``scratchpipe`` split, ``scratchpipe --fused``, then
-               ``nocache``, each from a copy of one host table. One cut:
+               ``nocache``, each from a copy of one host table (the first 8M
+               rows of phase 15's seed-0 table, built once before this
+               phase: the rows a seed-0 table of 8M rows holds). One cut:
                1M rows per table instead of 10M, with the uncut config's
                4,000,000-slot scratchpad (cache_fraction 0.5 at the cut).
                Then two more: ``scratchpipe --planner device --executor
@@ -160,8 +164,8 @@ Phases, in order; any failure raises and the script exits non-zero:
  13. trace serve — phase 4's 24 ``inference_mix`` micro-batches recorded with
                ``record_serving_trace`` as three traces whose tables say fp32,
                fp16 and int8, served through ``repro_torch.launch.serve
-               --embedding --trace`` on one host table (``run_embedding(...,
-               host=)``, built once): fp32 ``scratchpipe-serve`` at depth 2
+               --embedding --trace`` on phase 4's host table
+               (``run_embedding(..., host=)``): fp32 ``scratchpipe-serve`` at depth 2
                (bags bitwise equal to phase 4's); fp16 and int8 at depths 2
                and 0 in a nominal budget set by the launcher's window floor
                (``--cache-frac 0.125``; fp16 2,621,440 rows, which evict,
@@ -275,6 +279,37 @@ Phases, in order; any failure raises and the script exits non-zero:
                mixtral causal at 4 x 2048, windowed at 1 x 8192, SDPA with
                the window as an explicit mask) beside their bounds, plain
                versions and library calls.
+ 20. lm train — LM training through ``repro_torch.launch.train``'s
+               ``train_lm`` (bf16 params, AdamW with fp32 masters, remat,
+               random weights from a seeded ``torch.Generator``): the main
+               path, chatglm3-6b at full width cut to 8 of 28 layers, 4 x
+               4096 tokens (global batch 256 -> 4), 12 steps: ms/step (the
+               median of steps 3-12), tokens/s, peak GB, loss first -> last,
+               a torch.profiler trace of step 11; then mixtral-8x7b at full
+               width, 2 of 32 layers, 1 x 8192 (its 4096-key window cuts in
+               the backward kernel), 6 steps. Counts are reset just before
+               each run and read at every step: exactly 2 x L
+               ``flash_attention`` (the forward and its remat recompute) and
+               L ``flash_attention_bwd`` a step, no other kernel; the plain
+               attention versions raise during the runs; losses and grad
+               norms finite, mixtral's aux loss finite and > 0. Then (a) the
+               backward kernel against ``ref.flash_attention_bwd_ref`` (one
+               kv head at a time) at rows 7a, 7h and 7c's operands, bf16 and
+               fp32, and its lse against the plain one; (b) the forward's
+               output with lse bitwise equal to the one without; (c)
+               chatglm3-6b and mixtral at fp32, full width, 2 layers, 3
+               steps through the kernels and through the plain versions on
+               the card (TF32 off): losses, step 1's gradients (leaf by
+               leaf) and params within the stated limits; (d) a
+               ``TrainSupervisor`` drill at chatglm3-6b's smoke config (a
+               node failure at the 7th step call, checkpoints every 4
+               steps, 12 steps): the final params and AdamW state bitwise
+               equal to an uninterrupted run's. Last, at the main path's
+               first backward operands (4 x 4096), the forward kernel's o
+               and lse held to their plain versions, then
+               ``flash_attention_bwd`` timed there and at rows 7a and 7h
+               beside its bound, its plain version and SDPA's backward
+               (forward + backward less forward).
 
 The traces go to temporary directories removed at exit. The sweep of
 phase 3 covers the fp16 and int8 forms too, and for them also D in {256,
@@ -283,8 +318,9 @@ group), a payload 4 but not 16 bytes aligned, fused calls whose
 fills are all sentinels, and ragged fills. The last three lines are the
 ``kernels`` JSON line (``scatter_add``, ``flash_attention`` — with
 phase 18's shapes under ``transformer_shapes`` and phase 19's under
-``moe_shapes`` — and ``ssd_chunk_scan`` — phase 19's under
-``mamba2_shapes`` — carry their ``details``; ``gather_reduce_q`` and the fp16
+``moe_shapes`` — ``flash_attention_bwd`` — phase 20's shapes and parity
+checks — and ``ssd_chunk_scan`` — phase 19's under ``mamba2_shapes`` — carry
+their ``details``; ``gather_reduce_q`` and the fp16
 gather and fp16/int8 fills their times at phase 13's operands under
 ``serve``), the nvidia-smi line and ``{"ok": true, "device": {...}}``.
 """
@@ -292,6 +328,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import os
 import shutil
 import statistics
@@ -312,6 +349,7 @@ FP32_OPS_PER_S = 67e12  # H100 SXM fp32 outside the tensor cores
 CU_SOURCE = "src/repro_torch/kernels/csrc/gather_reduce.cu"
 CU_SOURCE_BWD = "src/repro_torch/kernels/csrc/grad_coalesce.cu"
 CU_SOURCE_FA = "src/repro_torch/kernels/csrc/flash_attention.cu"
+CU_SOURCE_FA_BWD = "src/repro_torch/kernels/csrc/flash_attention_bwd.cu"
 CU_SOURCE_SSD = "src/repro_torch/kernels/csrc/ssd_chunk.cu"
 BF16_OPS_PER_S = 989e12  # H100 SXM dense bf16 tensor cores
 TF32_OPS_PER_S = 495e12  # H100 SXM dense TF32 tensor cores (fp32 operands)
@@ -1212,12 +1250,13 @@ def observe_summary(name, fast, ms, res, stages, report, by_thread, cells, untra
             "span_s_by_thread": by_thread}
 
 
-def train_main_path(torch, mods, dev, ckpt_dir=None):
-    """The five training runs on copies of one host table; returns
-    (summaries, launch counts per run, captured operands, the host table,
-    the losses, the flushed table's SHA-256). With ``ckpt_dir``, the first
-    run (fp32 split, host planner) is saved there once after its flush:
-    phase 17's warm-start checkpoint."""
+def train_main_path(torch, mods, dev, seed0, ckpt_dir=None):
+    """The five training runs on copies of one host table, the first rows
+    of ``seed0`` (``seed0_rows``); returns (summaries, launch counts per
+    run, captured operands, the host table, the losses, the flushed table's
+    SHA-256). With ``ckpt_dir``, the first run (fp32 split, host planner)
+    is saved there once after its flush: phase 17's warm-start
+    checkpoint."""
     cfg = mods["DLRMConfig"](rows_per_table=ROWS, cache_fraction=TRAIN_CACHE_FRAC)
     check((cfg.num_tables, cfg.embed_dim, cfg.lookups_per_table) == (TABLES, DIM, LOOKUPS)
           and cfg.bottom_mlp == (512, 256, 128)
@@ -1226,9 +1265,9 @@ def train_main_path(torch, mods, dev, ckpt_dir=None):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
-    t0 = time.perf_counter()
-    base = mods["HostEmbeddingTable"](cfg.total_rows, cfg.embed_dim, seed=0).data
-    log(f"train: host table {base.shape} fp32 built in {time.perf_counter() - t0:.1f}s")
+    check(seed0.shape[0] >= cfg.total_rows and seed0.shape[1] == cfg.embed_dim,
+          f"the seed-0 rows {seed0.shape} do not hold the training table")
+    base = seed0[:cfg.total_rows]
     captured, summaries, counts_by_run = {}, [], {}
     first_losses = first_table = first_digest = None
     for name, runtime, fused, fast in TRAIN_RUNS:
@@ -2622,10 +2661,11 @@ def frontend_run(torch, mods, host, group, path, oracle_bags) -> tuple:
             "launches": {k: v for k, v in counts.items() if v}}, counts
 
 
-def trace_serve_phase(torch, mods, tmp: str, phase4_bags):
+def trace_serve_phase(torch, mods, tmp: str, phase4_bags, phase4_rows):
     """Phase 13: phase 4's micro-batches recorded as serving traces at
     fp32, fp16 and int8, served through ``launch/serve.py --trace`` on one
-    host table. Returns (summaries, launch counts per run, captured kernel
+    host table: phase 4's launcher's (``phase4_rows``, never written by
+    serving). Returns (summaries, launch counts per run, captured kernel
     operands, the host table: phase 17 serves from it too)."""
     from repro_torch.core.table_group import TableGroup
     from repro_torch.traces import record_serving_trace, scenario_batches
@@ -2646,11 +2686,8 @@ def trace_serve_phase(torch, mods, tmp: str, phase4_bags):
              for f in os.listdir(paths["fp32"])) / 1e6
     log(f"trace serve: three serving traces of {STEPS} micro-batches recorded, {mb:.1f} MB "
         f"each ({time.perf_counter() - t0:.1f}s)")
-    t0 = time.perf_counter()
-    # the launcher's host table (--seed 0 builds it from seed 1), built once
-    host = mods["HostEmbeddingTable"](group.total_rows, DIM, seed=1)
-    log(f"trace serve: host table {host.data.shape} fp32 built in "
-        f"{time.perf_counter() - t0:.1f}s")
+    check(phase4_rows.shape == (group.total_rows, DIM), "phase 4's host table is another shape")
+    host = mods["HostEmbeddingTable"](group.total_rows, DIM, data=phase4_rows)
     summaries, counts_by_run, captured = [], {}, {}
 
     def record(name, res, counts, stages, **extra):
@@ -2924,17 +2961,34 @@ MT_RUNS = (("multi-table split", "scratchpipe", False, False, "fp32"),
 MT_EVICTING = 4
 
 
-def multi_table_setup(mods):
-    """Phase 15's configuration: ``multi_table_config(8)`` at full width with
-    the one cut of every DLRM phase (base_rows 10M -> 1M); its group, the
-    launcher's slot count and per-table budgets (the §VI-D floor of 6 x 2048
-    x 20 lookups per table), and the 24 batches of ``dlrm_batches_group``."""
+def multi_table_group():
+    """Phase 15's configuration, ``multi_table_config(8)`` at full width with
+    the one cut of every DLRM phase (base_rows 10M -> 1M), and its group."""
     from repro_torch.configs.dlrm_scratchpipe import multi_table_config
     from repro_torch.core.table_group import TableGroup
-    from repro_torch.data.synthetic import dlrm_batches_group
 
     cfg = multi_table_config(TABLES, base_rows=ROWS)
-    group = TableGroup.from_config(cfg)
+    return cfg, TableGroup.from_config(cfg)
+
+
+def seed0_rows(mods):
+    """The seed-0 host table of phase 15's 15,937,500 rows, built once: its
+    first 8M rows are phases 6-8 and 14's table (one numpy stream, so they
+    are the rows a seed-0 table of 8M rows holds)."""
+    t0 = time.perf_counter()
+    rows = mods["HostEmbeddingTable"](multi_table_group()[1].total_rows, DIM, seed=0).data
+    log(f"host table {rows.shape} fp32 ({rows.nbytes / 1e9:.2f} GB) built in "
+        f"{time.perf_counter() - t0:.1f}s: phase 15's, and phases 6-8 and 14's first rows")
+    return rows
+
+
+def multi_table_setup(mods):
+    """Phase 15's configuration (``multi_table_group``), the launcher's slot
+    count and per-table budgets (the §VI-D floor of 6 x 2048 x 20 lookups
+    per table), and the 24 batches of ``dlrm_batches_group``."""
+    from repro_torch.data.synthetic import dlrm_batches_group
+
+    cfg, group = multi_table_group()
     check(group.rows == (8_000_000, 4_000_000, 2_000_000, 1_000_000, 500_000, 250_000,
                          125_000, 62_500)
           and (cfg.embed_dim, cfg.lookups_per_table, cfg.batch_size) == (DIM, LOOKUPS, BATCH)
@@ -2986,20 +3040,19 @@ def evictions_by_table(pipeline):
     return tally, restore
 
 
-def multi_table_phase(torch, mods, tmp: str, dev):
+def multi_table_phase(torch, mods, tmp: str, dev, base):
     """Phase 15: ``train_dlrm --tables 8`` through host/sync split and fused,
     ``nocache``, device+overlapped fused and fp16 device+overlapped fused,
-    each from a copy of one host table; then the same batches recorded as a
-    trace and replayed with ``--trace --adaptive-pad``. Returns (summaries,
-    {run: launch counts}, the setup, the host table, run 1's losses)."""
+    each from a copy of one host table (``base``, ``seed0_rows``); then
+    the same batches recorded as a trace and replayed with ``--trace
+    --adaptive-pad``. Returns (summaries, {run: launch counts}, the setup,
+    the host table, run 1's losses)."""
     from repro_torch.data.synthetic import dlrm_batches_group
     from repro_torch.traces import record_trace
 
     cfg, group, slots, budgets, batches = multi_table_setup(mods)
-    t0 = time.perf_counter()
-    base = mods["HostEmbeddingTable"](group.total_rows, DIM, seed=0).data
-    log(f"multi-table: host table {base.shape} fp32 ({base.nbytes / 1e9:.2f} GB) built in "
-        f"{time.perf_counter() - t0:.1f}s; {slots:,} slots, budgets {budgets}")
+    check(base.shape == (group.total_rows, DIM), f"the host table {base.shape} is not phase 15's")
+    log(f"multi-table: host table {base.shape} fp32; {slots:,} slots, budgets {budgets}")
     summaries, counts_by_run = [], {}
     first_losses = first_table = fast_losses = None
 
@@ -3805,6 +3858,595 @@ def time_ssd_shapes(torch, mods, operands, dev) -> list:
     return out
 
 
+# --------------------------------------------------------------------------- #
+# 20. LM training of the transformer families
+# --------------------------------------------------------------------------- #
+#: phase 20's runs through ``train_lm``: (arch, layers kept, batch, tokens,
+#: steps). The main path: chatglm3-6b at full width cut to 8 of 28 layers
+#: (bf16 params and grads, fp32 m, v and master, 16 bytes a parameter:
+#: 2.16B parameters, ~35 GB; ~100 GB at full depth), remat, 4 x 4096 tokens
+#: (the reference's global batch 256 cut to 4). Then mixtral-8x7b at full
+#: width, 2 of 32 layers (~51 GB), at 1 x 8192, so that its 4096-key window
+#: cuts in the backward kernel
+LM_TRAIN_RUNS = (("chatglm3-6b", 8, 4, 4096, 12), ("mixtral-8x7b", 2, 1, 8192, 6))
+LM_TRAIN_LR = 3e-4
+LM_TRAIN_TIMED_FROM = 2  # ms/step: the median over steps 3 .. N
+LM_TRAIN_TRACED = 10  # the main path's step traced with torch.profiler (the 11th)
+BWD_KERNELS = ("flash_fwd", "dkv_kernel", "dq_kernel", "fa_bwd_delta")
+#: the backward kernel against its plain version (``kernels/ref.py:
+#: flash_attention_bwd_ref``) on the same lse: (row, B, S, H, K, hd, causal,
+#: window), rows 7a, 7h and 7c of PERF.md's kernel table
+BWD_SHAPES = (("7a chatglm3-6b", 4, 2048, 32, 2, 128, True, None),
+              ("7h mixtral-8x7b", 1, 8192, 32, 8, 128, True, 4096),
+              ("7c hubert-xlarge", 4, 2048, 16, 16, 80, False, None))
+#: limits of dq, dk and dv: max |kernel - plain| over the largest |plain|,
+#: and ||kernel - plain||_F / ||plain||_F (fp32: sums in another order;
+#: bf16: the results rounded once to bf16, 2^-9 relative); lse within
+#: BWD_LSE_ATOL (the tensor-core forward's ex2.approx)
+BWD_MAX = {"float32": 1e-4, "bfloat16": 2e-2}
+BWD_REL = {"float32": 1e-5, "bfloat16": 1e-2}
+BWD_LSE_ATOL = {"float32": 1e-5, "bfloat16": 1e-3}
+#: (c): fp32 (TF32 off), 2 layers at full width, short sequences, 3 steps
+#: through the kernels and through the plain versions: every loss within
+#: LM_TRAIN_LOSS_RTOL; step 1's raw gradients (before the clip) leaf by
+#: leaf, ||kernel - plain||_F <= LM_TRAIN_GRAD_RTOL x ||plain leaf||_F +
+#: LM_TRAIN_GRAD_FLOOR x ||all plain gradients||_F (Adam is blind to a
+#: leaf's scale, so only the gradients show a scale error; the floor is
+#: for the key bias, whose exact gradient is 0: a constant added to every
+#: key of a query's softmax); and at most LM_TRAIN_FLIP_SHARE of all
+#: params after step 3 more than 1e-3 x lr (+ 1e-6 of its size) apart. An
+#: Adam step is about lr x sign(g) at first, so an entry whose gradient is
+#: within its rounding of zero steps either way in the two runs (the key
+#: bias's are all such). The params' largest gap is recorded, not held: at
+#: most lr a step each way, it could not exceed a bound of 2 x 3 x lr
+LM_TRAIN_FP32 = (("chatglm3-6b", 2, 2, 256), ("mixtral-8x7b", 2, 1, 256))
+LM_TRAIN_FP32_STEPS = 3
+LM_TRAIN_LOSS_RTOL, LM_TRAIN_FLIP_SHARE = 1e-4, 1e-3
+LM_TRAIN_GRAD_RTOL, LM_TRAIN_GRAD_FLOOR = 1e-4, 1e-5
+#: (d): the supervisor drill at chatglm3-6b's smoke config
+DRILL_STEPS, DRILL_EVERY, DRILL_FAIL_AT = 12, 4, 7
+FLASH_PLAIN = ("flash_attention_ref", "flash_attention_lse_ref", "flash_attention_bwd_ref")
+
+
+def lm_train_run(torch, mods, cfg, arch, batch, seq, steps, ckpt_dir, plain=False,
+                 step_hook=None, capture=None, ckpt_every=1000, smoke=False, trace=None):
+    """One ``train_lm`` run on the card (``cfg`` the config it trains).
+    Counts are reset just before; the launch counts are read at the start
+    of every step and at the end. Without ``plain`` the plain attention
+    versions raise during the run, and ``capture`` (a dict) receives the
+    operands of the first ``flash_attention_bwd`` call; with ``plain``,
+    ``ops.flash_attention`` is the plain version, differentiated by torch's
+    autograd. ``trace`` (a dict) receives a torch.profiler summary of step
+    LM_TRAIN_TRACED (``device_summary``). Returns (result, launch counts at
+    each step start and at the end)."""
+    train, ops, ref, fa = mods["train"], mods["ops"], mods["ref"], mods["fa"]
+    argv = ["--arch", arch, "--batch", str(batch), "--seq-len", str(seq), "--steps",
+            str(steps), "--seed", "0", "--lr", str(LM_TRAIN_LR), "--device", DEVICE,
+            "--ckpt-dir", ckpt_dir, "--ckpt-every", str(ckpt_every)] + (["--smoke"] * smoke)
+    args = train.build_parser().parse_args(argv)
+    snaps, prof = [], []
+
+    def hook():
+        snaps.append(ops.launch_counts())
+        if trace is not None and len(snaps) in (LM_TRAIN_TRACED + 1, LM_TRAIN_TRACED + 2):
+            from torch.profiler import ProfilerActivity, profile
+
+            torch.cuda.synchronize()
+            if not prof:  # the traced step starts
+                prof.append(profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]))
+                prof[0].__enter__()
+                prof.append(time.perf_counter())
+            else:  # ... and ends
+                wall = (time.perf_counter() - prof[1]) * 1e3
+                prof[0].__exit__(None, None, None)
+                trace.update(device_summary(torch, prof[0], wall, named=BWD_KERNELS))
+                # where the host's time goes: the ops with the most self CPU time
+                host = sorted(((e.key, e.self_cpu_time_total / 1e3, e.count)
+                               for e in prof[0].key_averages()), key=lambda r: -r[1])
+                trace["host_top"] = [{"name": k[:90], "ms": ms, "calls": n}
+                                     for k, ms, n in host[:12]]
+        if step_hook is not None:
+            step_hook()
+
+    saved = {n: getattr(ref, n) for n in FLASH_PLAIN}
+    real_bwd, real_ops_fa = fa.flash_attention_bwd, ops.flash_attention
+
+    def no_plain(*_a, **_k):
+        raise RuntimeError("a plain PyTorch version ran on the main path")
+
+    def spy_bwd(*a):
+        if "bwd" not in capture:
+            capture["bwd"] = tuple(t.clone() if torch.is_tensor(t) else t for t in a)
+        return real_bwd(*a)
+
+    if plain:
+        ops.flash_attention = lambda q, k, v, causal=True, window=None, q_offset=0: (
+            saved["flash_attention_ref"](q, k, v, causal=causal, window=window,
+                                         q_offset=q_offset))
+    else:
+        for n in saved:
+            setattr(ref, n, no_plain)
+        if capture is not None:
+            fa.flash_attention_bwd = spy_bwd
+    ops.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        res = train.train_lm(args, cfg=cfg, step_hook=hook)
+    finally:
+        for n, fn in saved.items():
+            setattr(ref, n, fn)
+        fa.flash_attention_bwd, ops.flash_attention = real_bwd, real_ops_fa
+    snaps.append(ops.launch_counts())
+    res["peak_memory_GB"] = torch.cuda.max_memory_allocated() / 1e9
+    return res, snaps
+
+
+def step_launches(snaps, name) -> list:
+    return [b[name] - a[name] for a, b in zip(snaps, snaps[1:])]
+
+
+def lm_train_main(torch, mods, dev, tmp):
+    """Phase 20's two bf16 runs (LM_TRAIN_RUNS): every step exactly 2 x L
+    ``flash_attention`` launches (the forward and its remat recompute) and
+    L ``flash_attention_bwd``, no other kernel; losses and grad norms
+    finite; mixtral's aux loss finite and > 0 in every MoE call. Returns
+    (summaries, launches by run, the main path's first backward operands)."""
+    moe = mods["moe"]
+    summaries, counts_by_run, captured = [], {}, {}
+    for arch, layers, batch, seq, steps in LM_TRAIN_RUNS:
+        t0 = time.perf_counter()
+        full = mods["get_config"](arch)
+        cfg = dataclasses.replace(full, num_layers=layers)
+        label = f"lm train {arch} {batch}x{seq}"
+        aux, real_moe = [], moe.moe_ffn
+
+        def spy_moe(*a, **k):
+            out, a_loss = real_moe(*a, **k)
+            aux.append(a_loss.detach())
+            return out, a_loss
+
+        moe.moe_ffn = spy_moe
+        trace = {} if not captured else None  # the main path's
+        try:
+            res, snaps = lm_train_run(torch, mods, cfg, arch, batch, seq, steps,
+                                      os.path.join(tmp, label.replace(" ", "_")),
+                                      capture=captured if not captured else None, trace=trace)
+        finally:
+            moe.moe_ffn = real_moe
+        rep = res["report"]
+        check(res["cfg"] == cfg and res["params"]["embed"].dtype == torch.bfloat16
+              and res["params"]["embed"].device.type == dev.type,
+              f"{label}: not the bf16 config on the card")
+        check(rep.steps_run == steps and rep.restarts == 0 and len(res["losses"]) == steps,
+              f"{label}: {rep}")
+        check(all(map(math.isfinite, res["losses"] + res["grad_norms"])),
+              f"{label}: non-finite losses {res['losses']} or grad norms {res['grad_norms']}")
+        fwd, bwd = step_launches(snaps, "flash_attention"), step_launches(
+            snaps, "flash_attention_bwd")
+        check(fwd == [2 * layers] * steps and bwd == [layers] * steps,
+              f"{label}: flash launches per step {fwd}, backward {bwd}; expected "
+              f"{2 * layers} and {layers}")
+        other = {k: v for k, v in snaps[-1].items()
+                 if k not in ("flash_attention", "flash_attention_bwd") and v}
+        check(not other, f"{label}: other kernels launched: {other}")
+        if cfg.family == "moe":
+            # one aux loss per layer per step, plus any from a remat
+            # recompute that ran to the layer's end (non-reentrant checkpoint
+            # stops a recompute once it has every saved tensor)
+            a = torch.stack(aux)
+            check(layers * steps <= len(aux) <= 2 * layers * steps
+                  and bool(torch.isfinite(a).all()) and bool((a > 0).all()),
+                  f"{label}: aux losses {a.tolist()}")
+        starts = res["step_starts"]
+        step_ms = [(b - a) * 1e3 for a, b in zip(starts, starts[1:])]
+        ms = statistics.median(step_ms[LM_TRAIN_TIMED_FROM:])
+        summaries.append({
+            "run": label, "arch": arch, "family": cfg.family, "layers": layers,
+            "reduced": [f"depth {full.num_layers} -> {layers}",
+                        f"global batch 256 -> {batch}"],
+            "batch": batch, "seq": seq, "steps": steps, "window": cfg.sliding_window,
+            "params": n_params(res["params"]), "ms_per_step": ms, "step_ms": step_ms,
+            "tokens_per_s": batch * seq / (ms / 1e3), "peak_memory_GB": res["peak_memory_GB"],
+            "loss_first": res["losses"][0], "loss_last": res["losses"][-1],
+            "losses": res["losses"], "grad_norms": res["grad_norms"],
+            "flash_attention_per_step": fwd[0], "flash_attention_bwd_per_step": bwd[0],
+            "aux_loss_min": min(float(x) for x in aux) if aux else None,
+            "aux_loss_max": max(float(x) for x in aux) if aux else None,
+            "profile": trace, "wall_s": time.perf_counter() - t0})
+        counts_by_run[label] = snaps[-1]
+        del res, aux
+        torch.cuda.empty_cache()
+        print("lm train: " + json.dumps(summaries[-1]), flush=True)
+        log(f"{label}: {ms:.1f} ms/step, {summaries[-1]['tokens_per_s']:.0f} tokens/s, peak "
+            f"{summaries[-1]['peak_memory_GB']:.1f} GB, loss {summaries[-1]['loss_first']:.4f} "
+            f"-> {summaries[-1]['loss_last']:.4f}, {fwd[0]} + {bwd[0]} flash launches a step "
+            f"({time.perf_counter() - t0:.1f}s)")
+    return summaries, counts_by_run, captured["bwd"]
+
+
+def bwd_plain(torch, ref, q, k, v, o, lse, do, causal, window):
+    """ref.flash_attention_bwd_ref one kv head at a time (the whole (B, H,
+    Sq, Skv) fp32 matrix at 7h would be 8.6 GB a copy)."""
+    K, G = k.shape[2], q.shape[2] // k.shape[2]
+    dq, dk, dv = [], [], []
+    for kh in range(K):
+        hs, ks = slice(kh * G, (kh + 1) * G), slice(kh, kh + 1)
+        a, b, c = ref.flash_attention_bwd_ref(q[:, :, hs], k[:, :, ks], v[:, :, ks],
+                                              o[:, :, hs], lse[:, hs].contiguous(),
+                                              do[:, :, hs], causal, window)
+        dq.append(a)
+        dk.append(b)
+        dv.append(c)
+    return torch.cat(dq, dim=2), torch.cat(dk, dim=2), torch.cat(dv, dim=2)
+
+
+def lse_plain(torch, ref, q, k, causal, window, q_offset=0):
+    K, G = k.shape[2], q.shape[2] // k.shape[2]
+    return torch.cat([ref.flash_attention_lse_ref(q[:, :, kh * G:(kh + 1) * G],
+                                                  k[:, :, kh:kh + 1], causal, window, q_offset)
+                      for kh in range(K)], dim=1)
+
+
+def fwd_plain(torch, ref, q, k, v, causal, window, q_offset=0):
+    """ref.flash_attention_ref one kv head at a time, as ``bwd_plain``."""
+    K, G = k.shape[2], q.shape[2] // k.shape[2]
+    return torch.cat([ref.flash_attention_ref(q[:, :, kh * G:(kh + 1) * G], k[:, :, kh:kh + 1],
+                                              v[:, :, kh:kh + 1], causal=causal, window=window,
+                                              q_offset=q_offset)
+                      for kh in range(K)], dim=2)
+
+
+def main_forward_close(torch, ref, q, k, v, o, lse, causal, window, q_offset, what) -> dict:
+    """The forward kernel's o and lse that the main path saved for its
+    backward, held to their plain versions on the same q, k, v: o in
+    FLASH_ATOL and FLASH_RTOL (``flash_close``), lse within BWD_LSE_ATOL."""
+    name, o_err, o_rel = flash_close(torch, o, fwd_plain(torch, ref, q, k, v, causal, window,
+                                                         q_offset), what)
+    torch.cuda.empty_cache()
+    lse_err = (lse - lse_plain(torch, ref, q, k, causal, window, q_offset)).abs().max().item()
+    check(lse_err <= BWD_LSE_ATOL[name], f"{what} {name}: lse differs by {lse_err} "
+                                         f"(limit {BWD_LSE_ATOL[name]})")
+    torch.cuda.empty_cache()
+    return {"o_max_abs_err": o_err, "o_rel_err": o_rel, "lse_max_abs_err": lse_err}
+
+
+def bwd_operands(torch, dev, B, S, H, K, hd, dtype, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def draw(*shape):
+        return torch.randn(shape, generator=g, device=dev).to(dtype)
+
+    return draw(B, S, H, hd), draw(B, S, K, hd), draw(B, S, K, hd), draw(B, S, H, hd)
+
+
+def bwd_close(torch, got, want, name, what) -> dict:
+    out = {}
+    for n, gt, w in zip(("dq", "dk", "dv"), got, want):
+        diff = gt.float() - w.float()
+        scale = w.float().abs().max().item()
+        err = diff.abs().max().item()
+        rel = (torch.linalg.vector_norm(diff) / torch.linalg.vector_norm(w.float())
+               .clamp_min(1e-30)).item()
+        check(gt.dtype == w.dtype and gt.shape == w.shape and err <= BWD_MAX[name] * scale
+              and rel <= BWD_REL[name],
+              f"flash_attention_bwd {n} differs by {err} (limit {BWD_MAX[name]} x {scale}), "
+              f"relative {rel} (limit {BWD_REL[name]}) at {what} {name}")
+        out[n] = {"max_abs_err": err, "max_abs_plain": scale, "rel_err": rel}
+    return out
+
+
+def bwd_parity(torch, mods, dev) -> list:
+    """(a) the backward kernel against its plain version at BWD_SHAPES, bf16
+    and fp32 operands, on the forward kernel's lse (itself held to the plain
+    lse); (b) the forward's output with ``lse`` bitwise equal to the one
+    without."""
+    fa, ref = mods["fa"], mods["ref"]
+    out = []
+    for label, B, S, H, K, hd, causal, window in BWD_SHAPES:
+        for dtype in (torch.bfloat16, torch.float32):
+            name = str(dtype).split(".")[-1]
+            q, k, v, do = bwd_operands(torch, dev, B, S, H, K, hd, dtype)
+            lse = torch.empty((B, H, S), dtype=torch.float32, device=dev)
+            o = fa.flash_attention(q, k, v, causal, window, 0, lse=lse)
+            o_serve = fa.flash_attention(q, k, v, causal, window, 0)
+            got = fa.flash_attention_bwd(q, k, v, o, lse, do, causal, window)
+            torch.cuda.synchronize()
+            check(torch.equal(o, o_serve), f"{label} {name}: the forward's output changes "
+                                           "when it writes lse")
+            lse_err = (lse - lse_plain(torch, ref, q, k, causal, window)).abs().max().item()
+            check(lse_err <= BWD_LSE_ATOL[name], f"{label} {name}: lse differs by {lse_err}")
+            want = bwd_plain(torch, ref, q, k, v, o, lse, do, causal, window)
+            errs = bwd_close(torch, got, want, name, label)
+            out.append({"row": label, "dtype": name, "shape": {
+                "B": B, "S": S, "H": H, "K": K, "hd": hd}, "causal": causal,
+                "window": window, "lse_max_abs_err": lse_err, "forward_bitwise_with_lse": True,
+                **errs})
+            del q, k, v, do, lse, o, o_serve, got, want
+            torch.cuda.empty_cache()
+            log(f"flash_attention_bwd at {label} {name}: dq/dk/dv relative "
+                f"{errs['dq']['rel_err']:.2e}/{errs['dk']['rel_err']:.2e}/"
+                f"{errs['dv']['rel_err']:.2e}, lse {lse_err:.2e}; the forward bitwise equal "
+                "with lse")
+    return out
+
+
+def first_grads(mods, use):
+    """Runs ``use(grads)`` on the raw gradients of a run's first step (a spy
+    on ``launch/steps.py``'s ``clip_by_global_norm``, which takes them in
+    ``tree_leaves`` order). Returns restore()."""
+    steps, real_clip, seen = mods["steps"], mods["steps"].clip_by_global_norm, []
+
+    def spy(grads, max_norm):
+        if not seen:
+            seen.append(True)
+            use(grads)
+        return real_clip(grads, max_norm)
+
+    steps.clip_by_global_norm = spy
+    return lambda: setattr(steps, "clip_by_global_norm", real_clip)
+
+
+def grad_gaps(torch, kept, grads) -> dict:
+    """Step 1's gradients of the kernel run (``kept``, on the host) against
+    the plain run's, leaf by leaf: ||kernel - plain||_F and the plain
+    leaf's norm, and the plain gradients' whole norm. Only measures (it
+    runs inside the supervised step, which would take a raise for a node
+    failure): ``grads_close`` holds them."""
+    total = torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(g) for g in grads]))
+    return {"total": total.item(), "leaves": [
+        (tuple(b.shape), a.shape == b.shape and torch.linalg.vector_norm(a.to(b.device) - b)
+         .item(), torch.linalg.vector_norm(b).item()) for a, b in zip(kept, grads)]}
+
+
+def grads_close(gaps, what) -> dict:
+    """Holds ``grad_gaps``' record as the comment on LM_TRAIN_FP32 says."""
+    check(bool(gaps), f"{what}: the plain run's gradients were not compared")
+    total, worst_rel, worst = gaps["total"], 0.0, (-1.0, None)
+    for i, (shape, diff, norm) in enumerate(gaps["leaves"]):
+        limit = LM_TRAIN_GRAD_RTOL * norm + LM_TRAIN_GRAD_FLOOR * total
+        check(diff is not False and diff <= limit,
+              f"{what}: step 1's gradient leaf {i} {shape} differs by {diff} in the Frobenius "
+              f"norm (limit {limit}; the leaf's {norm}, all {total})")
+        worst_rel = max(worst_rel, diff / norm if norm else 0.0)
+        worst = max(worst, (diff / limit, (i, shape, diff, norm)))
+    return {"grad_max_rel_err": worst_rel, "grad_worst_share_of_limit": worst[0],
+            "grad_worst_leaf": worst[1], "grad_norm_plain": total}
+
+
+def lm_train_fp32_check(torch, mods, dev, tmp) -> list:
+    """(c) LM_TRAIN_FP32: three steps through the kernels, then the same
+    three through the plain versions on the card (TF32 off), held as the
+    comment on LM_TRAIN_FP32 says. The kernel run's step-1 gradients and
+    final params wait in host memory while the plain run runs."""
+    tree_leaves, out = mods["tree_leaves"], []
+    for arch, layers, batch, seq in LM_TRAIN_FP32:
+        t0 = time.perf_counter()
+        cfg = dataclasses.replace(mods["get_config"](arch), num_layers=layers,
+                                  param_dtype="float32", compute_dtype="float32")
+        grads_k, gaps = [], {}
+        restore = first_grads(mods, lambda g: grads_k.extend(
+            t.to("cpu", copy=True) for t in g))
+        try:
+            res, snaps = lm_train_run(torch, mods, cfg, arch, batch, seq, LM_TRAIN_FP32_STEPS,
+                                      os.path.join(tmp, f"fp32_{arch}_k"))
+        finally:
+            restore()
+        check(step_launches(snaps, "flash_attention_bwd") == [layers] * LM_TRAIN_FP32_STEPS
+              and res["report"].restarts == 0, f"{arch} fp32: backward launches {snaps}, "
+              f"{res['report']}")
+        losses_k, peak_k = res["losses"], res["peak_memory_GB"]
+        kept = [t.cpu() for t in tree_leaves(res["params"])]
+        del res
+        torch.cuda.empty_cache()
+        restore = first_grads(mods, lambda g: gaps.update(grad_gaps(torch, grads_k, g)))
+        try:
+            res, snaps = lm_train_run(torch, mods, cfg, arch, batch, seq, LM_TRAIN_FP32_STEPS,
+                                      os.path.join(tmp, f"fp32_{arch}_p"), plain=True)
+        finally:
+            restore()
+        del grads_k
+        check(not any(snaps[-1].values()), f"{arch} fp32 plain run launched {snaps[-1]}")
+        check(res["report"].restarts == 0, f"{arch} fp32 plain run: {res['report']}")
+        grad_errs = grads_close(gaps, f"{arch} fp32")
+        losses_p = res["losses"]
+        loss_rel = max(abs(a - b) / abs(b) for a, b in zip(losses_k, losses_p))
+        check(loss_rel <= LM_TRAIN_LOSS_RTOL,
+              f"{arch} fp32: losses {losses_k} (kernels) vs {losses_p} (plain)")
+        worst_abs, flips, total = 0.0, 0, 0
+        for a, b in zip(kept, tree_leaves(res["params"])):
+            diff = (a.to(b.device) - b).abs()
+            worst_abs = max(worst_abs, diff.max().item())
+            flips += int((diff > 1e-3 * LM_TRAIN_LR + 1e-6 * b.abs()).sum())
+            total += b.numel()
+        check(flips <= LM_TRAIN_FLIP_SHARE * total,
+              f"{arch} fp32: {flips} of {total} params after step {LM_TRAIN_FP32_STEPS} more "
+              f"than 1e-3 x lr apart (the largest gap {worst_abs})")
+        out.append({"arch": arch, "layers": layers, "batch": batch, "seq": seq,
+                    "steps": LM_TRAIN_FP32_STEPS, "losses_kernels": losses_k,
+                    "losses_plain": losses_p, "max_loss_rel_diff": loss_rel, **grad_errs,
+                    "max_param_abs_diff": worst_abs, "params_apart": flips,
+                    "params": total,
+                    "peak_memory_GB": max(peak_k, res["peak_memory_GB"]),
+                    "wall_s": time.perf_counter() - t0})
+        del res, kept
+        torch.cuda.empty_cache()
+        log(f"lm train fp32 {arch} ({layers} layers, {batch}x{seq}): losses within "
+            f"{loss_rel:.2e} of the plain run's, step 1's gradients within "
+            f"{grad_errs['grad_max_rel_err']:.2e} a leaf (the worst at "
+            f"{grad_errs['grad_worst_share_of_limit']:.2f} of its limit), {flips} of {total} "
+            f"params more than 1e-3 x lr apart, none more than {worst_abs:.2e} "
+            f"({time.perf_counter() - t0:.1f}s)")
+    return out
+
+
+def lm_train_drill(torch, mods, tmp) -> dict:
+    """(d) chatglm3-6b's smoke config through ``train_lm`` on the card:
+    DRILL_STEPS steps, checkpoints every DRILL_EVERY, a node failure at the
+    DRILL_FAIL_AT-th step call (``FailureInjector``): one restore, and the
+    final params and AdamW state bitwise equal to an uninterrupted run's."""
+    t0 = time.perf_counter()
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.runtime import FailureInjector
+
+    tree_leaves = mods["tree_leaves"]
+    cfg = get_smoke_config("chatglm3-6b")
+    runs = {}
+    for name, hook in (("clean", None),
+                       ("drill", FailureInjector(fail_at=[DRILL_FAIL_AT]).maybe_fail)):
+        res, _ = lm_train_run(torch, mods, cfg, "chatglm3-6b", 8, 128, DRILL_STEPS,
+                              os.path.join(tmp, f"drill_{name}"), step_hook=hook,
+                              ckpt_every=DRILL_EVERY, smoke=True)
+        runs[name] = res
+    clean, drill = runs["clean"], runs["drill"]
+    check(clean["report"].restarts == 0 and drill["report"].restarts == 1
+          and drill["report"].causes == [(DRILL_FAIL_AT - 1, "RuntimeError")],
+          f"drill: {drill['report']}")
+    same = all(torch.equal(a, b) for a, b in zip(
+        tree_leaves((clean["params"], clean["opt_state"])),
+        tree_leaves((drill["params"], drill["opt_state"]))))
+    check(same, "drill: the final params and AdamW state differ from the uninterrupted run's")
+    out = {"config": cfg.name, "steps": DRILL_STEPS, "ckpt_every": DRILL_EVERY,
+           "fail_at_call": DRILL_FAIL_AT, "restarts": drill["report"].restarts,
+           "restore_ms": drill["report"].restore_ms, "save_ms": drill["report"].save_ms,
+           "bitwise_equal": same, "wall_s": time.perf_counter() - t0}
+    log(f"lm train drill: one restore, params and AdamW state bitwise equal to the "
+        f"uninterrupted run's ({out['wall_s']:.1f}s)")
+    return out
+
+
+def bwd_work(B, Sq, Skv, H, K, hd, causal, window) -> tuple:
+    """(flops, bytes) of one backward: 2.5 x the forward's QK^T and PV
+    products over the unmasked pairs; q, k, v, o, dO and lse read once,
+    dq, dk and dv written once (bf16)."""
+    pairs = valid_pairs(Sq, Skv, causal, window)
+    flops = 2.5 * 4 * B * H * hd * pairs
+    n_bytes = 2 * (4 * B * Sq * H * hd + 4 * B * Skv * K * hd) + 4 * B * H * Sq
+    return flops, n_bytes
+
+
+def sdpa_bwd_ms(torch, q, k, v, do, causal, window, flush):
+    """The library yardstick: F.scaled_dot_product_attention's forward plus
+    backward, less its forward (CUDA events, median), on (B, H, S, hd)
+    copies; grouped keys through ``enable_gqa``, a window as an additive
+    mask over keys expanded to H heads. Returns (ms, what it timed)."""
+    import torch.nn.functional as F
+
+    H, K = q.shape[2], k.shape[2]
+    qh, kh, vh, doh = (t.transpose(1, 2).contiguous() for t in (q, k, v, do))
+    kw, what = {"is_causal": causal, "enable_gqa": H != K}, \
+        "F.scaled_dot_product_attention(is_causal, enable_gqa) fwd + bwd - fwd"
+    if window is not None and window < q.shape[1]:
+        S = q.shape[1]
+        i = torch.arange(S, device=q.device)[:, None]
+        j = torch.arange(S, device=q.device)[None]
+        keep = (i - j < window) & ((j <= i) if causal else True)
+        kw = {"attn_mask": torch.zeros((S, S), dtype=q.dtype, device=q.device).masked_fill(
+            ~keep, float("-inf"))}
+        kh, vh = (t.repeat_interleave(H // K, dim=1) for t in (kh, vh))
+        what = ("F.scaled_dot_product_attention(attn_mask = the causal window, additive) "
+                "fwd + bwd - fwd, keys expanded to H heads outside the timed call")
+    qh, kh, vh = (t.requires_grad_() for t in (qh, kh, vh))
+
+    def fwd():
+        with torch.no_grad():
+            F.scaled_dot_product_attention(qh, kh, vh, **kw)
+
+    def fwd_bwd():
+        out = F.scaled_dot_product_attention(qh, kh, vh, **kw)
+        torch.autograd.grad(out, (qh, kh, vh), doh)
+
+    return median_ms(torch, fwd_bwd, 10, flush) - median_ms(torch, fwd, 10, flush), what
+
+
+def time_bwd_shapes(torch, mods, main_operands, dev) -> list:
+    """flash_attention_bwd at the main path's first backward operands (the
+    kernels line's numbers) and at rows 7a and 7h (bf16): median ms (CUDA
+    events, L2 flushed) beside its bound (operations at the bf16 tensor
+    cores' 989 TFLOP/s, or bytes), its plain version's time (whole, not per
+    kv head) and SDPA's backward. At the main path's operands the forward
+    kernel's o and lse are held to their plain versions first
+    (``main_forward_close``): the backward's own check takes them as
+    given."""
+    fa, ref = mods["fa"], mods["ref"]
+    flush = torch.empty(32 * 1024 * 1024, dtype=torch.float32, device=dev)
+    shapes = [("main path chatglm3-6b (8 layers, 4 x 4096)",) + tuple(main_operands)]
+    q, k, v, o, lse, _, causal, window, q_offset = main_operands
+    forward = main_forward_close(torch, ref, q, k, v, o, lse, causal, window, q_offset,
+                                 shapes[0][0])
+    log(f"flash_attention at {shapes[0][0]}: o relative {forward['o_rel_err']:.2e} "
+        f"(max {forward['o_max_abs_err']:.2e}), lse {forward['lse_max_abs_err']:.2e} from "
+        "their plain versions")
+    for label, B, S, H, K, hd, causal, window in BWD_SHAPES[:2]:
+        q, k, v, do = bwd_operands(torch, dev, B, S, H, K, hd, torch.bfloat16, seed=1)
+        lse = torch.empty((B, H, S), dtype=torch.float32, device=dev)
+        o = fa.flash_attention(q, k, v, causal, window, 0, lse=lse)
+        shapes.append((label, q, k, v, o, lse, do, causal, window, 0))
+    out = []
+    for label, q, k, v, o, lse, do, causal, window, q_offset in shapes:
+        B, Sq, H, hd = q.shape
+        Skv, K = k.shape[1], k.shape[2]
+        flops, n_bytes = bwd_work(B, Sq, Skv, H, K, hd, causal, window)
+        t_ops, t_bytes = flops / BF16_OPS_PER_S, n_bytes / HBM_BYTES_PER_S
+        got = fa.flash_attention_bwd(q, k, v, o, lse, do, causal, window, q_offset)
+        want = bwd_plain(torch, ref, q, k, v, o, lse, do, causal, window)
+        errs = bwd_close(torch, got, want, "bfloat16", label)
+        del got, want
+        ms = median_ms(torch, lambda: fa.flash_attention_bwd(q, k, v, o, lse, do, causal,
+                                                             window, q_offset), 10, flush)
+        plain_ms = median_ms(torch, lambda: ref.flash_attention_bwd_ref(
+            q, k, v, o, lse, do, causal, window, q_offset), 3, flush)
+        torch.cuda.empty_cache()
+        try:
+            library_ms, library = sdpa_bwd_ms(torch, q, k, v, do, causal, window, flush)
+        except RuntimeError as e:  # no SDPA backward for these operands: no yardstick
+            library_ms, library = None, f"F.scaled_dot_product_attention backward: {e}"[:300]
+        torch.cuda.empty_cache()
+        out.append({
+            "row": label, "shape": {"B": B, "Sq": Sq, "Skv": Skv, "H": H, "K": K, "hd": hd},
+            "causal": causal, "window": window, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": max(t_ops, t_bytes) * 1e3,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "library_ms": library_ms, "library": library, "flops": flops, "bytes": n_bytes,
+            "tflops_per_s": flops / ms / 1e9,
+            "max_abs_err": max(e["max_abs_err"] for e in errs.values()), "errors": errs,
+            **({"forward": forward} if not out else {})})
+        log(f"flash_attention_bwd at {label}: {ms:.3f} ms, bound {out[-1]['bound_ms']:.3f} "
+            f"({out[-1]['bound_by']}), plain {plain_ms:.2f}, SDPA backward {library_ms}")
+    return out
+
+
+def lm_train_phase(torch, mods, dev):
+    """Phase 20: the main path and the windowed run, (a) + (b), (c), (d) and
+    the backward's timing rows. Returns (summary, launches by run, the
+    kernels-line entry of flash_attention_bwd)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_lm_train_") as tmp:
+        runs, counts_by_run, main_ops = lm_train_main(torch, mods, dev, tmp)
+        parity = bwd_parity(torch, mods, dev)
+        fp32 = lm_train_fp32_check(torch, mods, dev, tmp)
+        drill = lm_train_drill(torch, mods, tmp)
+    print("lm train checks: " + json.dumps({"bwd_parity": parity, "fp32": fp32,
+                                            "drill": drill}), flush=True)
+    times = time_bwd_shapes(torch, mods, main_ops, dev)
+    del main_ops
+    torch.cuda.empty_cache()
+    main = times[0]
+    entry = {
+        "name": "flash_attention_bwd", "route": "cuda", "source": CU_SOURCE_FA_BWD,
+        "replaces": "src/repro/kernels/ops.py:370",
+        "launches": sum(c["flash_attention_bwd"] for c in counts_by_run.values()),
+        "launches_by_run": {r: c["flash_attention_bwd"] for r, c in counts_by_run.items()},
+        "max_abs_err": max([t["max_abs_err"] for t in times]
+                           + [p[n]["max_abs_err"] for p in parity for n in ("dq", "dk", "dv")
+                              if p["dtype"] == "bfloat16"]),
+        **{k: main[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+        "details": {"shapes": times, "parity": parity}}
+    log(f"lm train: done ({time.perf_counter() - t0:.1f}s)")
+    return {"runs": runs, "fp32": fp32, "drill": drill}, counts_by_run, entry
+
+
 def main() -> int:
     import torch
 
@@ -3827,9 +4469,10 @@ def main() -> int:
     from repro_torch.kernels import gather_reduce as gr
     from repro_torch.kernels import grad_coalesce as gc
     from repro_torch.kernels import ssd_chunk as ssd
-    from repro_torch.launch import serve, train
+    from repro_torch.launch import serve, steps, train
     from repro_torch.models import api, hybrid, moe, ssm_lm, transformer
     from repro_torch.models.dlrm import interaction_dim
+    from repro_torch.optim.optimizers import tree_leaves
 
     mods = {"ops": ops, "ref": ref, "gr": gr, "gc": gc, "qz": qz, "train": train,
             "pipeline": pipeline, "static_cache": static_cache,
@@ -3838,6 +4481,7 @@ def main() -> int:
             "fa": fa, "ssd": ssd, "serve": serve, "api": api, "hybrid": hybrid,
             "transformer": transformer, "ssm_lm": ssm_lm, "moe": moe,
             "ShapeSpec": ShapeSpec, "get_config": get_config, "plan": plan,
+            "tree_leaves": tree_leaves, "steps": steps,
             "plan_device": plan_device, "serving_cache": serving_cache}
 
     t_start = time.perf_counter()
@@ -3862,7 +4506,7 @@ def main() -> int:
 
 
 def run_all(torch, mods, dev, ckpt_dir, t_start) -> int:
-    """Phases 3-19, the kernels line, the card line and the last line."""
+    """Phases 3-20, the kernels line, the card line and the last line."""
     ops, ref, gr, gc, qz = (mods[k] for k in ("ops", "ref", "gr", "gc", "qz"))
     serve, serving_cache, plan_device = mods["serve"], mods["serving_cache"], mods["plan_device"]
     get_config = mods["get_config"]
@@ -3885,7 +4529,11 @@ def run_all(torch, mods, dev, ckpt_dir, t_start) -> int:
 
     t0 = time.perf_counter()
     oracle_args = serve.build_parser().parse_args(serve_args("nocache-serve"))
-    oracle = serve.run_embedding(oracle_args, collect_bags=True)
+    # the launcher's host table (--seed 0 builds it from seed 1), which
+    # serving never writes: the oracle's, and phase 13's
+    serve_rows = backend.host.data
+    oracle = serve.run_embedding(oracle_args, collect_bags=True, host=mods[
+        "HostEmbeddingTable"](*serve_rows.shape, data=serve_rows))
     check(len(oracle["bags"]) == len(res["bags"]) == STEPS, "every micro-batch served")
     for i, (a, b) in enumerate(zip(res["bags"], oracle["bags"])):
         check(a.shape == (BATCH, TABLES, DIM) and a.dtype == b.dtype,
@@ -3921,9 +4569,10 @@ def run_all(torch, mods, dev, ckpt_dir, t_start) -> int:
     del res, backend, captured
     torch.cuda.empty_cache()
 
+    seed0 = seed0_rows(mods)
     t0 = time.perf_counter()
     summaries, train_counts, train_captured, base, fp32_losses, fp32_digest = (
-        train_main_path(torch, mods, dev, ckpt_dir))
+        train_main_path(torch, mods, dev, seed0, ckpt_dir))
     log(f"train: {len(TRAIN_RUNS)} runs done ({time.perf_counter() - t0:.1f}s)")
 
     plan_captured = {"plan_step": train_captured.pop("plan_step")}
@@ -4003,7 +4652,8 @@ def run_all(torch, mods, dev, ckpt_dir, t_start) -> int:
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_traces_") as tmp:
         t0 = time.perf_counter()
-        _, ts_counts, ts_captured, serve_host = trace_serve_phase(torch, mods, tmp, serve_bags)
+        _, ts_counts, ts_captured, serve_host = trace_serve_phase(torch, mods, tmp, serve_bags,
+                                                                    serve_rows)
         log(f"trace serve: {len(ts_counts)} runs done ({time.perf_counter() - t0:.1f}s)")
         t0 = time.perf_counter()
         serve_q_times, serve_q_details = time_serve_q_kernels(torch, mods, ts_captured, dev)
@@ -4015,18 +4665,18 @@ def run_all(torch, mods, dev, ckpt_dir, t_start) -> int:
                    if r["run"] == "scratchpipe device+overlapped fused")
         _, tt_counts = trace_train_phase(torch, mods, tmp, base, fp32_losses, fp32_digest,
                                          ms6)
-    del base  # phases 6-8's host table: phase 15 builds one twice its size
+    del base, serve_rows  # serve_host holds phase 4's table on
     torch.cuda.empty_cache()
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_traces_") as tmp:
         t0 = time.perf_counter()
-        _, mt_counts, mt_setup, mt_base = multi_table_phase(torch, mods, tmp, dev)
+        _, mt_counts, mt_setup, mt_base = multi_table_phase(torch, mods, tmp, dev, seed0)
         log(f"multi-table: {len(mt_counts)} runs done ({time.perf_counter() - t0:.1f}s)")
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     _, sh_counts = sharded_phase(torch, mods, mt_setup, mt_base)
     log(f"sharded: {len(sh_counts)} runs done ({time.perf_counter() - t0:.1f}s)")
-    del mt_base, mt_setup
+    del mt_base, mt_setup, seed0
 
     t0 = time.perf_counter()
     rec_summary, rec_counts = recovery_phase(torch, mods, serve_bags, ckpt_dir, serve_host)
@@ -4046,6 +4696,7 @@ def run_all(torch, mods, dev, ckpt_dir, t_start) -> int:
     del fam_flash, fam_ssd
     torch.cuda.empty_cache()
     log(f"mamba2 and moe: done ({time.perf_counter() - t0:.1f}s)")
+    _, lt_counts, bwd_entry = lm_train_phase(torch, mods, dev)
 
     by_run = {"serve": counts, **train_counts, **q_counts, **ts_counts, **tt_counts,
               **mt_counts, **sh_counts, **rec_counts}
@@ -4088,17 +4739,22 @@ def run_all(torch, mods, dev, ckpt_dir, t_start) -> int:
             **lm_times[name],
         })
         kernels[-1]["launches_by_run"].update(
-            {run: c[name] for run, c in {**tf_counts, **fam_counts}.items() if c[name]})
+            {run: c[name] for run, c in {**tf_counts, **fam_counts, **lt_counts}.items()
+             if c[name]})
         kernels[-1]["launches"] = sum(kernels[-1]["launches_by_run"].values())
         if name == "flash_attention":
+            train_fwd = bwd_entry["details"]["shapes"][0]["forward"]
             kernels[-1]["max_abs_err"] = max(kernels[-1]["max_abs_err"],
                                              *(f["max_abs_err"] for f in flash_shapes),
-                                             *(f["max_abs_err"] for f in moe_shapes))
+                                             *(f["max_abs_err"] for f in moe_shapes),
+                                             train_fwd["o_max_abs_err"])
             kernels[-1]["details"] = {**lm_details[name],
                                       "warm_prefill_ms": lm_summary["prefill_ms_warm"],
                                       "prefill_profile": lm_summary["profile"]["prefill"],
                                       "transformer_shapes": flash_shapes,
-                                      "moe_shapes": moe_shapes}
+                                      "moe_shapes": moe_shapes,
+                                      "lm_train_main_path": train_fwd}
+            kernels.append(bwd_entry)
         else:
             kernels[-1]["max_abs_err"] = max(kernels[-1]["max_abs_err"],
                                              *(f["max_abs_err"] for f in mamba2_shapes))

@@ -30,7 +30,8 @@ State is a nested dict (or list/tuple) whose leaves are numpy arrays or
 tensors (a module's ``state_dict()`` nests fine); its leaves are keyed by
 their "/"-joined path. ``restore(target_like)`` returns the same
 structure, each leaf as the type and on the device of the ``target_like``
-leaf at its path. The reference's ``shardings=`` (re-sharding onto a mesh)
+leaf at its path. A bfloat16 tensor is stored as float32 (numpy has no
+bfloat16; the widening is exact) and comes back as bfloat16. The reference's ``shardings=`` (re-sharding onto a mesh)
 is not carried over: the port runs on one card.
 """
 from __future__ import annotations
@@ -75,6 +76,8 @@ def _unflatten_like(tree, flat: Dict[str, np.ndarray], prefix: str = ""):
 
 def _to_host(v) -> np.ndarray:
     if isinstance(v, torch.Tensor):
+        if v.dtype == torch.bfloat16:  # numpy has no bfloat16: widened, exactly
+            v = v.float()
         return v.detach().to("cpu", copy=True).numpy()
     return np.array(np.asarray(v))
 

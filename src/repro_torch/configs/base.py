@@ -97,11 +97,15 @@ class ShapeSpec:
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     """The fields of the reference's ``ModelConfig`` that the ported
-    serving paths (hybrid, ssm, dense, moe, encoder, vlm) read, with the
-    reference's defaults, and ``scratchpipe_embedding`` (a flag no code
-    reads, in the reference too). Its bf16 SSD storage (``ssd_bf16``) has
-    no setter in the reference and is not carried over; its sharding,
-    remat and scan knobs have no meaning on one card."""
+    serving paths (hybrid, ssm, dense, moe, encoder, vlm) and LM training
+    read, with the reference's defaults, and ``scratchpipe_embedding`` (a
+    flag no code reads, in the reference too). Its bf16 SSD storage
+    (``ssd_bf16``) has no setter in the reference and is not carried over;
+    its sharding and scan knobs have no meaning on one card. Training
+    always recomputes each layer in the backward and chunks the cross
+    entropy by 512 tokens: no config of the reference sets ``remat`` or
+    ``xent_chunk`` to another value than its default (True, 512), so they
+    are not fields here."""
 
     name: str
     family: str  # dense | moe | ssm | hybrid | encoder | vlm

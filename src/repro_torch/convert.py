@@ -44,7 +44,15 @@ returns), so this module imports nothing of the reference:
   * :func:`lm_cache_from_reference` — a reference hybrid, ssm or
     transformer decode cache (as numpy arrays) -> the port's, the mamba
     states unstacked per layer, the KV caches stacked as in the reference,
-    so the port can decode on from a reference prefill.
+    so the port can decode on from a reference prefill;
+  * :func:`lm_params_to_reference` — the way back for any tree shaped as
+    the port's params (params, their gradients, AdamW's ``m``/``v``/
+    ``master``): the per-layer lists restacked on a leading axis, as numpy
+    arrays, so tests compare with the reference leaf by leaf;
+  * :func:`adamw_state_from_reference` / :func:`adamw_state_to_reference`
+    — an ``AdamW`` state (``m``, ``v``, ``master`` shaped as the params,
+    and the step count ``t``) between the reference's stacked layout and
+    the port's per-layer lists.
 """
 from __future__ import annotations
 
@@ -248,6 +256,65 @@ def lm_params_from_reference(params: dict, device="cpu") -> dict:
     for k, n_lead in _STACKED.items():
         if k in params:
             out[k] = _unstack(params[k], n_lead, device)
+    return out
+
+
+def _numpy(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:  # numpy has no bfloat16: widened, exactly
+        t = t.float()
+    return t.numpy().copy()
+
+
+def _restack(tree, n_lead: int):
+    """The inverse of :func:`_unstack`: ``n_lead`` levels of lists of
+    (nested dicts of) tensors -> a nested dict of numpy arrays stacked on
+    that many leading axes."""
+    if n_lead == 0:
+        return _tree_np(tree)
+    items = [_restack(sub, n_lead - 1) for sub in tree]
+
+    def stack(*leaves):
+        if isinstance(leaves[0], dict):
+            return {k: stack(*(leaf[k] for leaf in leaves)) for k in leaves[0]}
+        return np.stack(leaves)
+
+    return stack(*items)
+
+
+def _tree_np(d):
+    if isinstance(d, dict):
+        return {k: _tree_np(v) for k, v in d.items()}
+    return _numpy(d)
+
+
+def lm_params_to_reference(tree: dict) -> dict:
+    """A tree shaped as the port's LM params (the params, their gradients,
+    or AdamW's ``m``/``v``/``master``) -> the reference's layout as numpy
+    arrays: ``layers`` (and the hybrid's ``groups``/``tail``) restacked on
+    their leading axes, every other leaf as it is; bfloat16 widened to
+    float32 (exactly)."""
+    out = {k: _tree_np(v) for k, v in tree.items() if k not in _STACKED}
+    for k, n_lead in _STACKED.items():
+        if k in tree:
+            out[k] = _restack(tree[k], n_lead)
+    return out
+
+
+def adamw_state_from_reference(state: dict, device="cpu") -> dict:
+    """A reference ``AdamW`` state (numpy arrays: ``m``, ``v`` and ``master``
+    shaped as the stacked params, ``t`` a 0-dim int32) -> the port's
+    (``optim/optimizers.py: AdamW``), on ``device``, every array copied."""
+    out = {k: lm_params_from_reference(state[k], device)
+           for k in ("m", "v", "master") if k in state}
+    out["t"] = _tensor(np.asarray(state["t"], dtype=np.int32), device)
+    return out
+
+
+def adamw_state_to_reference(state: dict) -> dict:
+    """The port's ``AdamW`` state -> the reference's layout, as numpy arrays."""
+    out = {k: lm_params_to_reference(state[k]) for k in ("m", "v", "master") if k in state}
+    out["t"] = _numpy(state["t"])
     return out
 
 

@@ -1,8 +1,10 @@
 """Capacity-tier ("CPU DRAM") embedding table.
 
-Port of ``repro/core/host_table.py``, copied unchanged: the host tier is
-numpy in both packages, and the same ``seed`` builds the same table bit for
-bit (tests/test_torch_plan.py).
+Port of ``repro/core/host_table.py``: the host tier is numpy in both
+packages, and the same ``seed`` builds the same table bit for bit
+(tests/test_torch_plan.py). One change: the rows are drawn in blocks
+(``normal_rows``), the same values without the reference's two (rows, dim)
+float64 transients, 16 bytes a value.
 
 The paper keeps the full embedding tables in slow/large CPU memory; gathers
 and scatters against it are the bottleneck ScratchPipe removes from the
@@ -25,6 +27,27 @@ import dataclasses
 from typing import Optional, Sequence
 
 import numpy as np
+
+
+#: rows a block of ``normal_rows`` draws (4 MB of float64 at dim 128)
+NORMAL_BLOCK_ROWS = 4096
+
+
+def normal_rows(rows: int, dim: int, seed: int, dtype=np.float32) -> np.ndarray:
+    """``(default_rng(seed).standard_normal((rows, dim)) / sqrt(dim))
+    .astype(dtype)``, bit for bit: the generator's stream does not depend
+    on how many values a call draws, and each block is scaled and rounded
+    as the whole would be."""
+    rng = np.random.default_rng(seed)
+    scale = 1.0 / np.sqrt(dim)
+    out = np.empty((rows, dim), dtype)
+    buf = np.empty((min(rows, NORMAL_BLOCK_ROWS), dim))
+    for lo in range(0, rows, NORMAL_BLOCK_ROWS):
+        block = buf[: min(NORMAL_BLOCK_ROWS, rows - lo)]
+        rng.standard_normal(out=block)
+        np.multiply(block, scale, out=block)
+        out[lo: lo + len(block)] = block
+    return out
 
 
 class RowCorruptionError(RuntimeError):
@@ -77,9 +100,7 @@ class HostEmbeddingTable:
             assert data.shape == (rows, dim)
             self.data = data
         else:
-            rng = np.random.default_rng(seed)
-            scale = 1.0 / np.sqrt(dim)
-            self.data = (rng.standard_normal((rows, dim)) * scale).astype(dtype)
+            self.data = normal_rows(rows, dim, seed, dtype)
         self.traffic = HostTraffic()
         self._sums: Optional[np.ndarray] = None
         if guard:

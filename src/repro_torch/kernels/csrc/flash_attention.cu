@@ -1,7 +1,10 @@
 // Hand-written Hopper (sm_90a) kernels of causal / sliding-window GQA flash
-// attention, forward only. Plain C interface, loaded with ctypes
-// (kernels/flash_attention.py); built by kernels/_build.py with nvcc,
-// without fast-math or flush-to-zero.
+// attention, forward (the backward is flash_attention_bwd.cu). Plain C
+// interface, loaded with ctypes (kernels/flash_attention.py); built by
+// kernels/_build.py with nvcc, without fast-math or flush-to-zero. Training
+// passes an fp32 lse (B, H, Sq) that each kernel fills from its running max
+// and denominator in the epilogue; serving passes null, and o does not
+// depend on it.
 //
 // repro_flash_attention_{bf16,f32} replace the Pallas kernel
 //   repro/kernels/flash_attention.py: flash_attention (_kernel).
@@ -74,10 +77,19 @@
 #include <cmath>
 #include <cstdint>
 
+#include "flash_mma.cuh"
+
 namespace {
 
 constexpr float kNegInf = -1e30f;
 constexpr unsigned kFullMask = 0xffffffffu;
+
+// log sum_j exp(s_j) of a row from its running max m (of the scaled scores)
+// and its denominator l = sum_j exp(s_j - m); +inf where every key was
+// masked (l == 0), so that the backward's exp(s - lse) is 0 there
+__device__ __forceinline__ float lse_of(float m, float l) {
+  return l > 0.f ? m + logf(l) : INFINITY;
+}
 
 // ------------------------------------------------------------------------- //
 // bf16: tensor cores
@@ -100,77 +112,6 @@ __host__ __device__ constexpr int ld() { return HD + 8; }
 template <int HD>
 constexpr size_t smem_bytes() {
   return sizeof(__nv_bfloat16) * static_cast<size_t>(ld<HD>()) * (kBM + 2 * kStages * kBN);
-}
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared, zero-filled when src_bytes is 0
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
-               "r"(src_bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t& r0, uint32_t& r1,
-                                        uint32_t& r2, uint32_t& r3) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
-               : "r"(addr)
-               : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4_t(uint32_t addr, uint32_t& r0, uint32_t& r1,
-                                          uint32_t& r2, uint32_t& r3) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
-               : "r"(addr)
-               : "memory");
-}
-
-// d += a (16x16 bf16, row) . b (16x8 bf16, col), fp32 accumulators
-__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                    uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// two floats rounded to nearest even (torch's .to(bfloat16)); lo in the
-// low half, the lower column of an mma fragment
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// 2^x by the MUFU (ex2.approx: ~2 ulp, subnormal results flushed to 0),
-// for the softmax, which is held to a tolerance
-__device__ __forceinline__ float exp2_approx(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ float quad_max(float v) {  // over the 4 lanes of a row
-  v = fmaxf(v, __shfl_xor_sync(kFullMask, v, 1));
-  return fmaxf(v, __shfl_xor_sync(kFullMask, v, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float v) {
-  v += __shfl_xor_sync(kFullMask, v, 1);
-  return v + __shfl_xor_sync(kFullMask, v, 2);
 }
 
 // rows [row0, row0 + ROWS) of one head (positions step apart, hd wide) into
@@ -205,8 +146,8 @@ __global__ void __launch_bounds__(kThreads, HD <= 64 ? 2 : 1)
 flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
                       const __nv_bfloat16* __restrict__ k,
                       const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
-                      int Sq, int Skv, int H, int K, int hd, float scale, int causal,
-                      int has_window, int window, int q_off) {
+                      float* __restrict__ lse, int Sq, int Skv, int H, int K, int hd,
+                      float scale, int causal, int has_window, int window, int q_off) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   constexpr int LD = ld<HD>();
   __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // kBM x LD
@@ -379,8 +320,15 @@ flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
 
   // epilogue: O / max(l, 1e-30) as bf16, through this warp's own 16 rows of
   // sQ (no other warp reads them), then out as whole rows
-  const float d0 = fmaxf(quad_sum(l[0]), 1e-30f);
-  const float d1 = fmaxf(quad_sum(l[1]), 1e-30f);
+  const float l0 = quad_sum(l[0]), l1 = quad_sum(l[1]);
+  const float d0 = fmaxf(l0, 1e-30f);
+  const float d1 = fmaxf(l1, 1e-30f);
+  if (lse != nullptr && t == 0) {  // the backward's log-sum-exp, natural log
+    float* lb = lse + (static_cast<long long>(b) * H + h) * Sq;
+    const int r0 = q_lo + warp * 16 + g;
+    if (r0 < Sq) lb[r0] = lse_of(m[0] * scale, l0);
+    if (r0 + 8 < Sq) lb[r0 + 8] = lse_of(m[1] * scale, l1);
+  }
   __nv_bfloat16* sO = sQ + warp * 16 * LD;
 #pragma unroll
   for (int i = 0; i < HD / 8; ++i) {
@@ -413,8 +361,8 @@ flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
 
 template <int HD, bool VEC>
 int launch_hd(const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfloat16* v,
-              __nv_bfloat16* o, int B, int Sq, int Skv, int H, int K, int hd, int causal,
-              int has_window, int window, int q_off, cudaStream_t st) {
+              __nv_bfloat16* o, float* lse, int B, int Sq, int Skv, int H, int K, int hd,
+              int causal, int has_window, int window, int q_off, cudaStream_t st) {
   constexpr size_t smem = smem_bytes<HD>();
   cudaError_t err = cudaFuncSetAttribute(flash_fwd_bf16_kernel<HD, VEC>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -425,28 +373,28 @@ int launch_hd(const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfloat1
   // 1/sqrt(hd) rounded once from double, as the reference's Python float is
   const float scale = static_cast<float>(1.0 / std::sqrt(static_cast<double>(hd)));
   flash_fwd_bf16_kernel<HD, VEC><<<grid, kThreads, smem, st>>>(
-      q, k, v, o, Sq, Skv, H, K, hd, scale, causal, has_window, window, q_off);
+      q, k, v, o, lse, Sq, Skv, H, K, hd, scale, causal, has_window, window, q_off);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <bool VEC>
 int launch_vec(const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfloat16* v,
-               __nv_bfloat16* o, int B, int Sq, int Skv, int H, int K, int hd, int causal,
-               int has_window, int window, int q_off, cudaStream_t st) {
+               __nv_bfloat16* o, float* lse, int B, int Sq, int Skv, int H, int K, int hd,
+               int causal, int has_window, int window, int q_off, cudaStream_t st) {
   if (hd <= 32)
-    return launch_hd<32, VEC>(q, k, v, o, B, Sq, Skv, H, K, hd, causal, has_window, window,
+    return launch_hd<32, VEC>(q, k, v, o, lse, B, Sq, Skv, H, K, hd, causal, has_window, window,
                               q_off, st);
   if (hd <= 64)
-    return launch_hd<64, VEC>(q, k, v, o, B, Sq, Skv, H, K, hd, causal, has_window, window,
+    return launch_hd<64, VEC>(q, k, v, o, lse, B, Sq, Skv, H, K, hd, causal, has_window, window,
                               q_off, st);
-  return launch_hd<128, VEC>(q, k, v, o, B, Sq, Skv, H, K, hd, causal, has_window, window,
+  return launch_hd<128, VEC>(q, k, v, o, lse, B, Sq, Skv, H, K, hd, causal, has_window, window,
                              q_off, st);
 }
 
 bool aligned16(const void* p) { return (reinterpret_cast<std::uintptr_t>(p) & 15u) == 0; }
 
-int launch(const void* q, const void* k, const void* v, void* o, int B, int Sq, int Skv,
-           int H, int K, int hd, int causal, int has_window, int window, int q_off,
+int launch(const void* q, const void* k, const void* v, void* o, float* lse, int B, int Sq,
+           int Skv, int H, int K, int hd, int causal, int has_window, int window, int q_off,
            void* stream) {
   const auto* qt = static_cast<const __nv_bfloat16*>(q);
   const auto* kt = static_cast<const __nv_bfloat16*>(k);
@@ -454,9 +402,9 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int Sq, 
   auto* ot = static_cast<__nv_bfloat16*>(o);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (hd % 8 == 0 && aligned16(q) && aligned16(k) && aligned16(v) && aligned16(o))
-    return launch_vec<true>(qt, kt, vt, ot, B, Sq, Skv, H, K, hd, causal, has_window, window,
+    return launch_vec<true>(qt, kt, vt, ot, lse, B, Sq, Skv, H, K, hd, causal, has_window, window,
                             q_off, st);
-  return launch_vec<false>(qt, kt, vt, ot, B, Sq, Skv, H, K, hd, causal, has_window, window,
+  return launch_vec<false>(qt, kt, vt, ot, lse, B, Sq, Skv, H, K, hd, causal, has_window, window,
                            q_off, st);
 }
 
@@ -492,9 +440,9 @@ size_t smem_bytes(int hd) {
 template <int NJ>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                     const float* __restrict__ v, float* __restrict__ o, int Sq, int Skv,
-                     int H, int K, int hd, float scale, int causal, int has_window,
-                     int window, int q_off) {
+                     const float* __restrict__ v, float* __restrict__ o,
+                     float* __restrict__ lse, int Sq, int Skv, int H, int K, int hd,
+                     float scale, int causal, int has_window, int window, int q_off) {
   extern __shared__ float smem[];
   float* Qt = smem;               // hd x kLd: Qt[d][r]
   float* Kt = Qt + hd * kLd;      // hd x kLd: Kt[d][c]
@@ -633,11 +581,15 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
       const int d = tx + 16 * jj;
       if (d < hd) ob[qp * q_step + d] = acc[i][jj] / denom;
     }
+    // the backward's log-sum-exp (m holds the scaled scores' max)
+    if (lse != nullptr && tx == 0)
+      lse[(static_cast<long long>(b) * H + h) * Sq + qp] = lse_of(m[i], l[i]);
   }
 }
 
 template <int NJ>
-int launch_nj(const float* q, const float* k, const float* v, float* o, int B, int Sq,
+int launch_nj(const float* q, const float* k, const float* v, float* o, float* lse, int B,
+              int Sq,
               int Skv, int H, int K, int hd, int causal, int has_window, int window,
               int q_off, cudaStream_t st) {
   const size_t smem = smem_bytes(hd);
@@ -648,12 +600,12 @@ int launch_nj(const float* q, const float* k, const float* v, float* o, int B, i
   const dim3 grid((Sq + kBQ - 1) / kBQ, H, B);
   const float scale = static_cast<float>(1.0 / std::sqrt(static_cast<double>(hd)));
   flash_fwd_f32_kernel<NJ><<<grid, kThreads, smem, st>>>(
-      q, k, v, o, Sq, Skv, H, K, hd, scale, causal, has_window, window, q_off);
+      q, k, v, o, lse, Sq, Skv, H, K, hd, scale, causal, has_window, window, q_off);
   return static_cast<int>(cudaGetLastError());
 }
 
-int launch(const void* q, const void* k, const void* v, void* o, int B, int Sq, int Skv,
-           int H, int K, int hd, int causal, int has_window, int window, int q_off,
+int launch(const void* q, const void* k, const void* v, void* o, float* lse, int B, int Sq,
+           int Skv, int H, int K, int hd, int causal, int has_window, int window, int q_off,
            void* stream) {
   const float* qt = static_cast<const float*>(q);
   const float* kt = static_cast<const float*>(k);
@@ -661,12 +613,12 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int Sq, 
   float* ot = static_cast<float*>(o);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (hd <= 32)
-    return launch_nj<2>(qt, kt, vt, ot, B, Sq, Skv, H, K, hd, causal, has_window, window,
+    return launch_nj<2>(qt, kt, vt, ot, lse, B, Sq, Skv, H, K, hd, causal, has_window, window,
                         q_off, st);
   if (hd <= 64)
-    return launch_nj<4>(qt, kt, vt, ot, B, Sq, Skv, H, K, hd, causal, has_window, window,
+    return launch_nj<4>(qt, kt, vt, ot, lse, B, Sq, Skv, H, K, hd, causal, has_window, window,
                         q_off, st);
-  return launch_nj<8>(qt, kt, vt, ot, B, Sq, Skv, H, K, hd, causal, has_window, window,
+  return launch_nj<8>(qt, kt, vt, ot, lse, B, Sq, Skv, H, K, hd, causal, has_window, window,
                       q_off, st);
 }
 
@@ -681,24 +633,27 @@ bool valid_shape(int B, int Sq, int Skv, int H, int K, int hd) {
 
 // The 1/sqrt(hd) scale is the kernel's (as in the TPU kernel). window is
 // read only when has_window is non-zero; q_off is the position of q row 0.
+// lse: null (serving), or (B, H, Sq) fp32 that receives each query row's
+// log-sum-exp of its scaled scores, which the backward
+// (flash_attention_bwd.cu) recomputes P from; o is the same either way.
 extern "C" int repro_flash_attention_f32(const void* q, const void* k, const void* v,
-                                         void* o, int B, int Sq, int Skv, int H,
+                                         void* o, float* lse, int B, int Sq, int Skv, int H,
                                          int K, int hd, int causal, int has_window,
                                          int window, int q_off, void* stream) {
   if (!valid_shape(B, Sq, Skv, H, K, hd) || q_off < 0 || q_off > (1 << 30) - Sq)
     return static_cast<int>(cudaErrorInvalidValue);
-  return f32::launch(q, k, v, o, B, Sq, Skv, H, K, hd, causal, has_window, window, q_off,
+  return f32::launch(q, k, v, o, lse, B, Sq, Skv, H, K, hd, causal, has_window, window, q_off,
                      stream);
 }
 
 extern "C" int repro_flash_attention_bf16(const void* q, const void* k, const void* v,
-                                          void* o, int B, int Sq, int Skv, int H,
+                                          void* o, float* lse, int B, int Sq, int Skv, int H,
                                           int K, int hd, int causal, int has_window,
                                           int window, int q_off, void* stream) {
   if (!valid_shape(B, Sq, Skv, H, K, hd) || (Sq + tc::kBM - 1) / tc::kBM > 65535 ||
       q_off < 0 || q_off > (1 << 30) - Sq)
     return static_cast<int>(cudaErrorInvalidValue);
-  return tc::launch(q, k, v, o, B, Sq, Skv, H, K, hd, causal, has_window, window, q_off,
+  return tc::launch(q, k, v, o, lse, B, Sq, Skv, H, K, hd, causal, has_window, window, q_off,
                     stream);
 }
 

@@ -24,7 +24,11 @@ the raw launchers do not take:
     coalescing scatter-add kernel into the cotangent buffer. The training
     step does not use them (it takes the bag gradients explicitly,
     ``core/dlrm_runtime.py``); the grad checks do. The quantized wrappers
-    have none, as in the reference;
+    have none, as in the reference. ``flash_attention`` on CUDA tensors
+    that require grad is one too (LM training): its backward is the
+    hand-written ``flash_attention_bwd`` kernel; on the CPU torch's
+    autograd differentiates the plain version, as the reference's
+    ``_fa_bwd`` differentiates its own;
   * quantized storage — ``gather_reduce_q`` and ``fill_gather_reduce_q``
     take the payload and its (N, 1) fp32 ``scale`` column, or
     ``scale=None`` for fp16 storage, whose kernels are the fp16 forms of
@@ -327,24 +331,50 @@ def fill_gather_reduce_q(
 # --------------------------------------------------------------------------- #
 # LM kernels: attention and the Mamba2 / SSD chunked scan
 # --------------------------------------------------------------------------- #
+class _FlashAttention(torch.autograd.Function):
+    """The flash kernel with its hand-written backward: the forward saves
+    q, k, v, its output and the per-row log-sum-exp; the backward kernel
+    recomputes P from them (the reference's ``_fa_bwd`` recomputes through
+    ``jax.vjp`` of its plain version)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, q_offset):
+        B, Sq, H, _ = q.shape
+        lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+        out = _fa.flash_attention(q, k, v, causal, window, q_offset, lse=lse)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.mask = (causal, window, q_offset)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = _fa.flash_attention_bwd(q, k, v, out, lse, g.contiguous(), *ctx.mask)
+        return dq, dk, dv, None, None, None
+
+
 def flash_attention(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = True,
     window=None, q_offset: int = 0,
 ) -> torch.Tensor:
-    """Forward attention: q (B, Sq, H, hd); k/v (B, Skv, K, hd) with
-    H % K == 0 -> (B, Sq, H, hd) in q's dtype. Query row i sits at position
-    ``q_offset`` + i, key j at j; keys past Skv, past the causal frontier
-    (``causal``) or outside ``window`` are masked. No gradient (the
-    reference's backward recomputes through the plain version; LM training
-    is not ported yet)."""
+    """Attention: q (B, Sq, H, hd); k/v (B, Skv, K, hd) with H % K == 0 ->
+    (B, Sq, H, hd) in q's dtype. Query row i sits at position ``q_offset``
+    + i, key j at j; keys past Skv, past the causal frontier (``causal``)
+    or outside ``window`` are masked. On the card, with grad enabled and an
+    input that requires it, the call is differentiable through the
+    backward kernel (``_FlashAttention``); otherwise (prefill, decode) it
+    is the forward kernel alone. A CPU tensor takes the plain version,
+    which torch's autograd differentiates."""
     B, Sq, H, hd = q.shape
     if min(B, Sq, H, hd) == 0:  # nothing to compute: no launch
         return q.new_empty(q.shape)
     if k.shape[1] == 0:  # every key masked: zeros, as the kernel would give
         return torch.zeros_like(q)
     if _route(q) == "cuda":
-        return _fa.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
-                                   causal, window, q_offset)
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+        if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+            return _FlashAttention.apply(q, k, v, causal, window, q_offset)
+        return _fa.flash_attention(q, k, v, causal, window, q_offset)
     return _ref.flash_attention_ref(q, k, v, causal=causal, window=window,
                                     q_offset=q_offset)
 

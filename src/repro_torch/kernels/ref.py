@@ -36,7 +36,11 @@ And of its LM half, held to a tolerance (the kernels sum in another order):
   * ``flash_attention_ref`` — ``repro/kernels/ref.py: flash_attention_ref``:
     a direct softmax over the (Sq, Skv) scores in fp32, masked where
     ``kv_pos > q_pos`` (causal) or ``q_pos - kv_pos >= window``; p is
-    rounded to v's dtype before the PV product.
+    rounded to v's dtype before the PV product. ``flash_attention_lse_ref``
+    and ``flash_attention_bwd_ref`` are the forward's per-row log-sum-exp
+    and the backward as explicit formulas (the reference differentiates
+    its plain attention by ``jax.vjp``, ``repro/kernels/ops.py: _fa_bwd``;
+    the tests hold this against that).
   * ``ssd_chunk_scan_ref`` — the chunk loop of ``repro/models/mamba2.py:
     ssd_scan`` with ``h0=None, low_prec=False``, in the same einsum order
     (the three-operand state einsum as ``x . (B * wj)``, the TPU kernel's
@@ -185,6 +189,27 @@ def coalesce_apply_ref(
     return scatter_add_ref(storage, slot_ids.reshape(-1, L), deltas)
 
 
+def _attention_mask(Sq: int, Skv: int, causal: bool, window, q_offset: int, device):
+    """(Sq, Skv) bool: key j is visible to query row i (at position
+    ``q_offset`` + i): ``causal`` j <= pos, ``window`` pos - j < window."""
+    q_pos = q_offset + torch.arange(Sq, device=device)[:, None]
+    kv_pos = torch.arange(Skv, device=device)[None, :]
+    valid = torch.ones((Sq, Skv), dtype=torch.bool, device=device)
+    if causal:
+        valid &= kv_pos <= q_pos
+    if window is not None:
+        valid &= q_pos - kv_pos < window
+    return valid
+
+
+def _heads(t: torch.Tensor, G: int) -> torch.Tensor:
+    """(B, S, K, hd) -> (B, K * G, S, hd) fp32, kv head h // G for head h."""
+    t = t.float()
+    if G > 1:
+        t = t.repeat_interleave(G, dim=2)
+    return t.permute(0, 2, 1, 3)
+
+
 def flash_attention_ref(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = True,
     window=None, q_offset: int = 0,
@@ -199,17 +224,61 @@ def flash_attention_ref(
         v = v.repeat_interleave(G, dim=2)
     Skv = k.shape[1]
     s = torch.einsum("bqhd,bjhd->bhqj", q.float(), k.float()) / math.sqrt(hd)
-    q_pos = q_offset + torch.arange(Sq, device=q.device)[:, None]
-    kv_pos = torch.arange(Skv, device=q.device)[None, :]
-    valid = torch.ones((Sq, Skv), dtype=torch.bool, device=q.device)
-    if causal:
-        valid &= kv_pos <= q_pos
-    if window is not None:
-        valid &= q_pos - kv_pos < window
+    valid = _attention_mask(Sq, Skv, causal, window, q_offset, q.device)
     s = torch.where(valid[None, None], s, torch.full((), -1e30, device=q.device))
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bhqj,bjhd->bqhd", p.to(v.dtype).float(), v.float())
     return out.to(q.dtype)
+
+
+def flash_attention_lse_ref(
+    q: torch.Tensor, k: torch.Tensor, causal: bool = True, window=None, q_offset: int = 0,
+) -> torch.Tensor:
+    """(B, H, Sq) fp32: each query row's log-sum-exp of its scaled,
+    unmasked scores, +inf where every key is masked — what the forward
+    kernel writes to ``lse`` for the backward."""
+    Sq, hd, G = q.shape[1], q.shape[3], q.shape[2] // k.shape[2]
+    s = _heads(q, 1) @ _heads(k, G).transpose(-1, -2) * (1.0 / math.sqrt(hd))
+    valid = _attention_mask(Sq, k.shape[1], causal, window, q_offset, q.device)
+    lse = torch.logsumexp(s.masked_fill(~valid, -math.inf), dim=-1)
+    return torch.where(torch.isneginf(lse), math.inf, lse)
+
+
+def flash_attention_bwd_ref(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor, lse: torch.Tensor,
+    do: torch.Tensor, causal: bool = True, window=None, q_offset: int = 0,
+):
+    """The attention backward as explicit formulas over the whole (Sq, Skv)
+    matrix, everything in fp32: with s = q k^T / sqrt(hd),
+    P = exp(s - lse) on the unmasked pairs (0 elsewhere), D = rowsum(dO o O),
+    dV = P^T dO, dP = dO V^T, dS = P o (dP - D), dQ = dS K / sqrt(hd),
+    dK = dS^T Q / sqrt(hd), dK and dV summed over each kv head's group of
+    H / K query heads. Returns (dq, dk, dv) in q's dtype. The oracle of
+    ``kernels/flash_attention.py: flash_attention_bwd``; with the lse of
+    :func:`flash_attention_lse_ref` it is the gradient of
+    :func:`flash_attention_ref` (exactly so in fp32, where that rounds p to
+    v's dtype as a no-op)."""
+    B, Sq, H, hd = q.shape
+    Skv, K = k.shape[1], k.shape[2]
+    G = H // K
+    scale = 1.0 / math.sqrt(hd)
+    qh, kh, vh = _heads(q, 1), _heads(k, G), _heads(v, G)
+    oh, doh = _heads(o, 1), _heads(do, 1)
+    valid = _attention_mask(Sq, Skv, causal, window, q_offset, q.device)
+    p = (qh @ kh.transpose(-1, -2)).mul_(scale).sub_(lse[..., None]).exp_()
+    p.masked_fill_(~valid, 0.0)  # (B, H, Sq, Skv)
+    dvh = p.transpose(-1, -2) @ doh
+    delta = (doh * oh).sum(dim=-1, keepdim=True)
+    ds = (doh @ vh.transpose(-1, -2)).sub_(delta).mul_(p)
+    del p
+    dq = (ds @ kh).mul_(scale)
+    dkh = (ds.transpose(-1, -2) @ qh).mul_(scale)
+
+    def to_kv(t):  # (B, H, Skv, hd) -> (B, Skv, K, hd), summed over the group
+        return t.permute(0, 2, 1, 3).reshape(B, Skv, K, G, hd).sum(dim=3)
+
+    return (dq.permute(0, 2, 1, 3).to(q.dtype), to_kv(dkh).to(q.dtype),
+            to_kv(dvh).to(q.dtype))
 
 
 def ssd_chunk_scan_ref(

@@ -1,8 +1,30 @@
-"""Training launcher of the port: the paper's DLRM through a cache runtime.
+"""Training launcher of the port: the paper's DLRM through a cache runtime,
+and LM training of the transformer families.
 
-Port of the DLRM branch of ``repro/launch/train.py``: host-resident tables,
-the ScratchPipe pipeline (or a baseline) and the DLRM [Train] stage, on the
-card:
+Port of ``repro/launch/train.py``. LM archs (the dense, encoder, vlm and
+MoE transformers) train through :func:`train_lm`:
+
+    python -m repro_torch.launch.train --arch chatglm3-6b --batch 4 \
+        [--smoke] [--steps N] [--seq-len S] [--lr 3e-4] [--seed 0] \
+        [--ckpt-dir <dir>] [--ckpt-every 50]
+
+random params from ``--seed`` (a ``torch.Generator`` on the device), the
+reference's synthetic batches (``seed + i`` for step i), the train step of
+``launch/steps.py`` (loss and backward; on the card the flash kernel and
+its backward kernel; global-norm clip 1.0; AdamW with fp32 masters) under
+``runtime.TrainSupervisor`` (checkpoints every ``--ckpt-every`` steps,
+restore + replay on a failure), printing the reference's ``done:`` line.
+Without ``--smoke`` the sequence is the reference's ``train_4k`` 4096
+tokens, but the batch is ``--batch`` (default 8), not its global 256: one
+card holds neither 256 x 4096 tokens of activations nor, at full depth,
+the 16 bytes a parameter of bf16 params, grads and fp32 m, v and master
+of the larger configs. ``--seq-len`` overrides the sequence (the smoke
+default is the reference's 128). The hybrid and ssm families (zamba2,
+mamba2) raise: their SSD kernel has no backward yet (ROADMAP.md Queue 1
+item 20).
+
+The DLRM branch: host-resident tables, the ScratchPipe pipeline (or a
+baseline) and the DLRM [Train] stage, on the card:
 
     python -m repro_torch.launch.train --arch dlrm-scratchpipe --batch 2048 \
         [--smoke] [--runtime scratchpipe|strawman|nocache|static] [--fused] \
@@ -57,8 +79,6 @@ watchdog over the overlapped executor's workers) and prints a
 restarts, unlike the reference, which arms the first incarnation only), and
 ``--verify-every k`` audits the host table's row checksums every k cycles.
 A supervised run's results equal the plain run's bit for bit.
-
-Not ported yet: the LM archs (item 18 of ROADMAP.md Queue 1).
 """
 from __future__ import annotations
 
@@ -73,6 +93,9 @@ import numpy as np
 from repro_torch import obs
 
 ARCH = "dlrm-scratchpipe"
+#: the reference's sequence lengths: ``--smoke`` (its ``--seq-len``
+#: default) and ``train_4k``
+SMOKE_SEQ, TRAIN_SEQ = 128, 4096
 
 
 def obs_setup(trace_out, metrics_out):
@@ -439,12 +462,86 @@ def train_dlrm(args, cfg=None, host=None, mlps=None) -> Dict[str, Any]:
             "report": report, "chaos_fired": fired, "state_digest": digest}
 
 
+def synth_lm_stream(cfg, shape, steps: int, seed: int = 0, skip: int = 0, device="cpu"):
+    """The reference's synthetic LM batches, ``seed + i`` for step i, from
+    step ``skip`` on, as tensors on ``device``."""
+    from repro_torch.models import api
+
+    for i in range(skip, steps):
+        yield api.synth_batch(cfg, shape, seed=seed + i, device=device)
+
+
+def train_lm(args, cfg=None, step_hook=None) -> Dict[str, Any]:
+    """Port of the reference's ``train_lm`` at one card (module docstring).
+    ``cfg`` overrides the arch's config (the same arch, e.g. fewer layers);
+    ``step_hook()`` runs at the start of every step (a drill's
+    ``FailureInjector.maybe_fail``, whose error the supervisor recovers).
+    Prints the ``done:`` line and returns the final params and AdamW
+    state, each step's loss and grad norm, the host clock at the start of
+    each step (the loss of a step is read on the host inside it, so step
+    i's span is synchronized), the supervisor's report and the config."""
+    import torch
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.device import resolve_device
+    from repro_torch.launch import steps as S
+    from repro_torch.models import api
+    from repro_torch.runtime import TrainSupervisor
+
+    dev = resolve_device(args.device)
+    if cfg is None:
+        cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    seq = args.seq_len or (SMOKE_SEQ if args.smoke else TRAIN_SEQ)
+    shape = ShapeSpec("smoke" if args.smoke else "train_4k", seq, args.batch, "train")
+    train_step, opt = S.make_train_step(cfg, lr=args.lr)
+    params = api.init(cfg, torch.Generator(device=dev).manual_seed(args.seed), device=dev)
+    opt_state = opt.init(params)
+    if args.ckpt_dir is None:
+        args.ckpt_dir = tempfile.mkdtemp(prefix="repro_torch_ckpt_")
+        print(f"checkpoints -> {args.ckpt_dir}")
+    ckpt = CheckpointManager(args.ckpt_dir, keep=2)
+    losses, grad_norms, starts = [], [], []
+
+    def step_fn(state, batch):
+        starts.append(time.perf_counter())
+        if step_hook is not None:
+            step_hook()
+        p, o, metrics = train_step(*state, batch)
+        loss, gnorm = float(metrics["loss"]), float(metrics["grad_norm"])
+        losses.append(loss)
+        grad_norms.append(gnorm)
+        return (p, o), {"loss": loss, "grad_norm": gnorm}
+
+    def stream_factory(skip):
+        return synth_lm_stream(cfg, shape, args.steps, seed=args.seed, skip=skip, device=dev)
+
+    sup = TrainSupervisor(ckpt, step_fn, stream_factory, ckpt_every=args.ckpt_every)
+    t0 = time.time()
+    (params, opt_state), report = sup.run((params, opt_state), args.steps)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    dt = time.time() - t0
+    starts.append(time.perf_counter())
+    print(f"done: steps={report.steps_run} restarts={report.restarts} time={dt:.1f}s "
+          f"({dt / max(report.steps_run, 1):.3f}s/step)")
+    return {"cfg": cfg, "shape": shape, "params": params, "opt_state": opt_state,
+            "losses": losses, "grad_norms": grad_norms, "step_starts": starts,
+            "report": report, "wall_s": dt}
+
+
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.split("\n", 1)[0])
     ap.add_argument("--arch", required=True)
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument(
+        "--seq-len", type=int, default=None,
+        help="LM archs: tokens per sequence (default 128 with --smoke, else "
+        "the reference's train_4k 4096)",
+    )
     ap.add_argument("--lr", type=float, default=3e-4)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--locality", default="medium")
@@ -556,8 +653,13 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
     ap = build_parser()
     args = ap.parse_args(argv)
     if args.arch != ARCH:
-        ap.error(f"--arch {args.arch}: the port trains {ARCH} only; the LM "
-                 "training comes later (ROADMAP.md Queue 1 item 18)")
+        from repro_torch.configs import get_config
+
+        try:
+            get_config(args.arch)
+        except KeyError as e:
+            ap.error(str(e))
+        return train_lm(args)
     if args.tables < 0:
         ap.error("--tables must be >= 0 (0 = uniform paper config)")
     if args.trace and args.scenario:

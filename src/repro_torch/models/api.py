@@ -3,7 +3,10 @@ card, and synthetic batches.
 
 Port of ``repro/models/api.py`` for the serving paths of every LM family
 of the reference: ``hybrid`` (zamba2-1.2b), ``ssm`` (mamba2-2.7b) and the
-``dense``, ``moe``, ``encoder`` and ``vlm`` transformer families. One card:
+``dense``, ``moe``, ``encoder`` and ``vlm`` transformer families, and the
+training loss of the transformer families (``make_loss_fn``; the hybrid
+and ssm families need a backward of the SSD kernel, ROADMAP.md Queue 1
+item 20). One card:
 TP = 1, so nothing is padded and there are no mesh, specs or shardings.
 ``synth_batch`` draws from the same numpy generator in the same order as
 the reference, so its tokens, frames and patches equal the reference's.
@@ -45,6 +48,27 @@ def init(cfg: ModelConfig, gen: torch.Generator, device=None):
     generator's by default)."""
     rc, vp = runtime_config(cfg)
     return family_module(rc).init_params(rc, gen, vp, device)
+
+
+#: the families whose training the port carries (``make_loss_fn``)
+TRAINABLE = ("dense", "moe", "encoder", "vlm")
+
+
+def make_loss_fn(cfg: ModelConfig):
+    """``loss(params, batch)`` -> the fp32 training loss (cross entropy plus
+    the MoE aux loss) of a transformer family. ``hybrid`` and ``ssm`` raise:
+    their ``ssd_scan`` is the SSD kernel, which has no backward yet."""
+    rc, _ = runtime_config(cfg)
+    if rc.family not in TRAINABLE:
+        raise NotImplementedError(
+            f"LM training of the {rc.family!r} family ({cfg.name}) is not ported: its "
+            "mamba layers need a backward of the SSD kernel (ROADMAP.md Queue 1 item 20)")
+    mod = family_module(rc)
+
+    def loss(params, batch):
+        return mod.loss_fn(params, rc, batch)
+
+    return loss
 
 
 def make_prefill_fn(cfg: ModelConfig):

@@ -13,8 +13,9 @@ layer and one ``flash_attention`` per shared-block application. Decode is
 plain torch against the caches, which it updates in place: ``cache["k"]`` /
 ``cache["v"]`` (G, B, S, K, hd) stacked as in the reference, and one state
 dict per mamba layer (``cache["groups"][g][i]``, ``cache["tail"][i]``).
-``forward_hidden``, ``_shared_forward`` and ``loss_fn`` belong to LM training
-(ROADMAP.md Queue 1 item 18).
+``forward_hidden``, ``_shared_forward`` and ``loss_fn`` belong to the hybrid
+family's training, which needs a backward of the SSD kernel (ROADMAP.md
+Queue 1 item 20).
 """
 from __future__ import annotations
 

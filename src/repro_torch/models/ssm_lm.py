@@ -10,7 +10,8 @@ decode states (``cache["layers"][i]``, each ``{"conv_x", "conv_B",
 layer (``mamba2.prefill_stack``, which the hybrid family shares); decode is
 plain torch against the states, which it updates in place. The SSM state
 is O(1) in the sequence length, so the cache never grows. ``forward_hidden``
-and ``loss_fn`` belong to LM training (ROADMAP.md Queue 1 item 18).
+and ``loss_fn`` belong to the ssm family's training, which needs a backward
+of the SSD kernel (ROADMAP.md Queue 1 item 20).
 """
 from __future__ import annotations
 

@@ -1,6 +1,7 @@
 """Dense transformer LM, MoE transformer (mixtral, llama4-scout; through
-``models/moe.py``), encoder-only (hubert) and VLM backbone (phi-3-vision),
-serving half; and the token embedding the hybrid and ssm families share.
+``models/moe.py``), encoder-only (hubert) and VLM backbone (phi-3-vision):
+serving and training; and the token embedding the hybrid and ssm families
+share.
 
 Port of ``repro/models/transformer.py`` at one card: no mesh, so no
 vocab-sharded lookup, no sequence-parallel constraints and no specs. The
@@ -10,18 +11,24 @@ loops. Prefill reaches the flash kernel once per layer
 (``layers.chunked_attention``); decode is plain torch against the KV cache
 ``{"k", "v"}`` of shape (L, B, S, K, hd), stacked as in the reference and
 written in place (a ring of slots ``pos % S`` under ``cfg.sliding_window``:
-``layers.ring_kv`` lays a prefill's keys out for it).
+``layers.ring_kv`` lays a prefill's keys out for it). Training
+(:func:`loss_fn`, the reference's) runs the same layers with the grad on,
+each under ``torch.utils.checkpoint`` (the reference's ``jax.checkpoint``
+at its default ``remat``), so the flash kernel runs forward, again in the
+recompute, and its backward kernel once per layer per step.
 
 Families: ``dense`` (RMSNorm, SwiGLU), ``moe`` (RMSNorm, the routed SwiGLU
-experts of ``models/moe.py``; its aux loss is returned by ``_ffn`` and
-dropped by serving, as the reference's prefill drops it), ``encoder``
+experts of ``models/moe.py``; its aux loss is returned by ``_ffn``,
+summed over the layers by training and dropped by serving, as the
+reference's prefill drops it), ``encoder``
 (LayerNorm with bias, the tanh GELU MLP with biases; non-causal), ``vlm``
 (a dense backbone whose ``patches`` frontend is prepended to the token
 embeddings). The frontends are stubs in the reference too: precomputed
 frame (``FRAME_DIM``) or patch (``PATCH_DIM``) embeddings, projected by
-``frontend_proj``. ``loss_fn`` (LM training, ROADMAP.md Queue 1 item 18)
-and the fused gate/up and offloaded-embedding knobs (no config of the
-port sets them) are not carried over.
+``frontend_proj``. The fused gate/up and offloaded-embedding knobs (no
+config of the port sets them) and the reference's ``scan_layers`` (a
+``lax.scan`` over stacked layers; the port loops over a list) are not
+carried over.
 """
 from __future__ import annotations
 
@@ -29,6 +36,7 @@ import math
 from typing import Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import layers as L
 from repro_torch.models import moe
@@ -92,13 +100,24 @@ def _ffn(cfg, m, h):
     return L.swiglu(h, m["w_gate"], m["w_up"], m["w_down"]), 0.0
 
 
+def _layer(cfg, p, x, positions):
+    a, k, v = L.attention_forward(p["attn"], _norm(cfg, x, p["attn_norm"]), positions, cfg)
+    x = x + a
+    delta, aux = _ffn(cfg, p["mlp"], _norm(cfg, x, p["mlp_norm"]))
+    return x + delta, k, v, aux
+
+
 def layer_forward(cfg, p, x, positions):
     """One layer over x (B, S, D) at ``positions`` (B, S). Returns (x, the
     layer's post-RoPE k and v (B, S, K, hd)); the aux loss is dropped."""
-    a, k, v = L.attention_forward(p["attn"], _norm(cfg, x, p["attn_norm"]), positions, cfg)
-    x = x + a
-    delta, _ = _ffn(cfg, p["mlp"], _norm(cfg, x, p["mlp_norm"]))
-    return x + delta, k, v
+    x, k, v, _ = _layer(cfg, p, x, positions)
+    return x, k, v
+
+
+def train_layer(cfg, p, x, positions):
+    """One layer of the training forward: (x, its aux loss)."""
+    x, _, _, aux = _layer(cfg, p, x, positions)
+    return x, aux
 
 
 def layer_decode(cfg, p, x, pos: int, kc, vc):
@@ -170,6 +189,38 @@ def build_inputs(params, cfg, batch) -> Tuple[torch.Tensor, torch.Tensor]:
 
 def head_weight(params, cfg):
     return params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+
+
+def run_layers(cfg, layer_params, x, positions):
+    """The layers in order -> (x, the aux losses summed over the layers, an
+    fp32 scalar). Each layer is recomputed in the backward (non-reentrant
+    ``torch.utils.checkpoint``: only its input is kept), as the reference's
+    ``jax.checkpoint`` of its scan body."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for lp in layer_params:
+        x, a = checkpoint(train_layer, cfg, lp, x, positions, use_reentrant=False)
+        aux = aux + a
+    return x, aux
+
+
+def forward_hidden(params, cfg, batch) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(the final-normed hidden states (B, S, D), the summed aux loss)."""
+    x, positions = build_inputs(params, cfg, batch)
+    x, aux = run_layers(cfg, params["layers"], x, positions)
+    return _norm(cfg, x, params["final_norm"]), aux
+
+
+def loss_fn(params, cfg, batch) -> torch.Tensor:
+    """The training loss: the chunked cross entropy of the hidden states
+    against ``batch["labels"]`` (``loss_mask`` optional; a vlm's image
+    positions carry no loss) plus the aux loss; an fp32 scalar."""
+    x, aux = forward_hidden(params, cfg, batch)
+    if cfg.frontend == "patches":  # image positions carry no LM loss
+        x = x[:, batch["patches"].shape[1]:]
+    xent = C.sharded_xent_loss(
+        x, head_weight(params, cfg).to(x.dtype), batch["labels"], batch.get("loss_mask"),
+        true_vocab=cfg.vocab_size)
+    return xent + aux
 
 
 def init_cache(cfg, batch_size: int, seq_len: int, device="cpu", dtype=None):

@@ -1,6 +1,6 @@
 """Supervised execution and recovery of the training runtimes
-(``repro/runtime``: the supervision primitives and the embedding-runtime
-supervisor; the LM ``TrainSupervisor`` waits for LM training)."""
+(``repro/runtime``: the supervision primitives, the embedding-runtime
+supervisor and the LM ``TrainSupervisor``)."""
 from repro_torch.runtime.fault_tolerance import (  # noqa: F401
     EmbeddingTrainSupervisor,
     FailureInjector,

@@ -6,9 +6,10 @@ worker dies or a host row is corrupted -> the supervisor rebuilds the
 runtime, restores the latest checkpoint (planner state, scratchpad, host
 table, the in-flight hold window, the trainer's dense parameters and step
 counter), fast-forwards the deterministic data stream, and resumes; the
-resumed run is bitwise equal to one that never failed. The LM
-``TrainSupervisor`` (a plain step-function loop) needs LM training, which
-is not ported yet (ROADMAP.md Queue 1 item 18).
+resumed run is bitwise equal to one that never failed. And the LM
+``TrainSupervisor``, the reference's plain step-function loop: periodic
+checkpoints of the (params, optimizer state) tree, restore + replay of the
+deterministic batch stream on a failure or a non-finite loss.
 """
 from __future__ import annotations
 
@@ -54,13 +55,102 @@ class SupervisorReport:
 
 
 class TrainSupervisor:
-    """The reference's step-function supervisor of LM training."""
+    """Runs ``step_fn(state, batch) -> (state, metrics)`` over a stream with
+    periodic checkpoints and automatic restore-on-failure (the reference's,
+    for LM training: ``launch/train.py: train_lm``).
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "TrainSupervisor (LM training) is not ported to repro_torch yet "
-            "(ROADMAP.md Queue 1 item 18)"
-        )
+    * ``stream_factory(skip)`` rebuilds the batch iterator positioned after
+      ``skip`` consumed batches (deterministic replay).
+    * transient exceptions (``RuntimeError``) and non-finite losses trigger
+      restore + resume (up to ``max_restarts``); with no checkpoint yet the
+      run starts over from step 0 and the state it has.
+    * ``nan_policy``: "restore" (the default), "skip" (drop the step's
+      update and go on: the returned state is the one before it) or "raise".
+    * a save in flight on the checkpoint thread is joined before a restore
+      reads the latest step (the reference's restore can race it, ROADMAP
+      Queue 3); a preemption request saves at the next step boundary, waits
+      for the write and stops.
+    """
+
+    def __init__(
+        self,
+        ckpt: CheckpointManager,
+        step_fn: Callable,
+        stream_factory: Callable[[int], Iterator],
+        *,
+        ckpt_every: int = 50,
+        max_restarts: int = 5,
+        nan_policy: str = "restore",  # "restore" | "skip" | "raise"
+        preemption: Optional[PreemptionHandler] = None,
+    ):
+        if nan_policy not in ("restore", "skip", "raise"):
+            raise ValueError(f"nan_policy {nan_policy!r}: restore, skip or raise")
+        self.ckpt = ckpt
+        self.step_fn = step_fn
+        self.stream_factory = stream_factory
+        self.ckpt_every = ckpt_every
+        self.max_restarts = max_restarts
+        self.nan_policy = nan_policy
+        self.preemption = preemption or PreemptionHandler()
+
+    def _restore(self, state, report: SupervisorReport):
+        t0 = time.perf_counter()
+        state, step = self.ckpt.restore(state)
+        report.restore_ms.append((time.perf_counter() - t0) * 1e3)
+        return state, step
+
+    def run(self, state, total_steps: int) -> tuple:
+        report = SupervisorReport()
+        step = 0
+        self.ckpt.wait()
+        if self.ckpt.latest_step() is not None:  # resume from a checkpoint
+            state, step = self._restore(state, report)
+        stream = self.stream_factory(step)
+        restarts = 0
+        while step < total_steps:
+            try:
+                batch = next(stream)
+            except StopIteration:
+                break
+            try:
+                new_state, metrics = self.step_fn(state, batch)
+                loss = metrics.get("loss")
+                if loss is not None and not np.isfinite(float(loss)):
+                    report.nan_steps_skipped += 1
+                    if self.nan_policy == "raise":
+                        raise FloatingPointError(f"non-finite loss at step {step}")
+                    if self.nan_policy == "restore":
+                        raise _NonFinite(step)
+                    new_state = state  # "skip": drop the update, keep going
+                state = new_state
+                step += 1
+                report.steps_run += 1
+                report.last_step = step
+                if step % self.ckpt_every == 0 or self.preemption.requested:
+                    t0 = time.perf_counter()
+                    self.ckpt.save(step, state)
+                    report.save_ms.append((time.perf_counter() - t0) * 1e3)
+                    report.checkpoints += 1
+                    if self.preemption.requested:
+                        self.ckpt.wait()
+                        break
+            except (_NonFinite, RuntimeError, FloatingPointError) as e:
+                if isinstance(e, FloatingPointError) and self.nan_policy == "raise":
+                    raise
+                restarts += 1
+                report.restarts += 1
+                report.causes.append((step, type(e).__name__))
+                if restarts > self.max_restarts:
+                    raise RuntimeError(f"exceeded max_restarts={self.max_restarts}") from e
+                self.ckpt.wait()  # a save in flight decides whether there is a checkpoint
+                if self.ckpt.latest_step() is None:
+                    step = 0  # no checkpoint yet: restart from scratch
+                    stream = self.stream_factory(0)
+                    continue
+                state, step = self._restore(state, report)
+                stream = self.stream_factory(step)
+        self.ckpt.wait()
+        return state, report
 
 
 class _NonFinite(Exception):

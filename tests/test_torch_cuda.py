@@ -1089,3 +1089,137 @@ def test_cuda_sharded_fills_equal_plain(cuda, precisions, planner, executor):
         fills = sum(sum(1 for s in st if s.n_miss) for st, q in zip(got[0], precisions)
                     if q == p)
         assert counts[form[p]] == fills > 0, (p, counts)
+
+
+# --------------------------------------------------------------------------- #
+# the flash backward (LM training): lse from the forward, then the backward
+# kernel against the explicit formulas of ref.flash_attention_bwd_ref, on
+# the same lse. Limits: fp32 relative (Frobenius) 1e-5 and max |diff| 1e-4
+# of the largest |plain| (the sums run in another order); bf16 1e-2 and
+# 2e-2 (the outputs are rounded to bf16, 2^-9 relative). lse: within 1e-5
+# at fp32 and 1e-3 at bf16 (the tensor-core forward's exp2.approx).
+# --------------------------------------------------------------------------- #
+_BWD_REL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+_BWD_MAX = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+_LSE_ATOL = {torch.float32: 1e-5, torch.bfloat16: 1e-3}
+
+
+def _assert_bwd_close(got, want, dtype):
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.dtype == dtype and g.shape == w.shape, name
+        diff = g.float() - w.float()
+        scale = w.float().abs().max().item()
+        err = diff.abs().max().item()
+        rel = (torch.linalg.vector_norm(diff) / torch.linalg.vector_norm(w.float())).item()
+        assert err <= _BWD_MAX[dtype] * scale and rel <= _BWD_REL[dtype], (name, err, rel)
+
+
+def _bwd_operands(dtype, cuda, B, Sq, Skv, H, K, hd, seed):
+    rng = np.random.default_rng(seed)
+    return (torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(cuda).to(dtype)
+            for shape in ((B, Sq, H, hd), (B, Skv, K, hd), (B, Skv, K, hd), (B, Sq, H, hd)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize(
+    "B,Sq,Skv,H,K,hd,causal,window,q_offset",
+    [
+        (2, 128, 128, 8, 2, 64, True, None, 0),  # GQA
+        (2, 160, 160, 4, 1, 32, True, None, 0),  # MQA, ragged
+        (2, 257, 257, 8, 2, 64, True, 100, 0),  # the window crosses key blocks
+        (1, 300, 300, 4, 4, 64, False, 100, 0),  # non-causal window
+        (2, 200, 200, 4, 4, 64, False, None, 0),  # non-causal, Skv not a block multiple
+        (2, 70, 300, 4, 2, 64, False, None, 0),  # Sq != Skv
+        (2, 100, 300, 8, 2, 64, True, None, 200),  # q_offset: a chunk after a prefix
+        (1, 129, 400, 12, 4, 96, True, 150, 271),
+        (1, 300, 300, 32, 2, 128, True, None, 0),  # chatglm3-6b's heads
+        (1, 300, 300, 16, 16, 80, False, None, 0),  # hubert-xlarge's, non-causal
+        (1, 700, 700, 32, 8, 128, True, 256, 0),  # mixtral's, a window that cuts
+        (2, 96, 96, 2, 2, 16, False, None, 0),
+        (1, 100, 100, 4, 4, 20, True, None, 0),  # hd not a multiple of 16
+    ],
+)
+def test_cuda_flash_attention_bwd_vs_plain(cuda, dtype, B, Sq, Skv, H, K, hd, causal,
+                                           window, q_offset):
+    q, k, v, do = _bwd_operands(dtype, cuda, B, Sq, Skv, H, K, hd, hd * 1000 + H + Sq)
+    lse = torch.empty((B, H, Sq), dtype=torch.float32, device=cuda)
+    o = tfa.flash_attention(q, k, v, causal, window, q_offset, lse=lse)
+    want_lse = tref.flash_attention_lse_ref(q, k, causal, window, q_offset)
+    got = tfa.flash_attention_bwd(q, k, v, o, lse, do, causal, window, q_offset)
+    want = tref.flash_attention_bwd_ref(q, k, v, o, lse, do, causal, window, q_offset)
+    torch.cuda.synchronize()
+    assert (lse - want_lse).abs().max().item() <= _LSE_ATOL[dtype]
+    _assert_bwd_close(got, want, dtype)
+    assert tops.launch_counts()["flash_attention_bwd"] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_cuda_flash_attention_lse_leaves_the_output_unchanged(cuda, dtype):
+    """Serving passes no lse; training passes one: the output is bitwise
+    the same, and a row with every key masked gets lse = +inf."""
+    q, k, v, _ = _bwd_operands(dtype, cuda, 2, 200, 150, 8, 2, 64, 3)
+    lse = torch.empty((2, 8, 200), dtype=torch.float32, device=cuda)
+    for causal, window, q_offset in ((True, None, 0), (False, None, 0), (True, 64, 0)):
+        a = tfa.flash_attention(q, k, v, causal, window, q_offset)
+        b = tfa.flash_attention(q, k, v, causal, window, q_offset, lse=lse)
+        torch.cuda.synchronize()
+        assert torch.equal(a, b)
+        assert bool(torch.isfinite(lse).all())
+    # keys 0..149 at positions 0..149; rows at 200.. with a window of 10 see none
+    tfa.flash_attention(q, k, v, True, 10, 200, lse=lse)
+    torch.cuda.synchronize()
+    assert bool(torch.isinf(lse).all()) and bool((lse > 0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_cuda_flash_attention_autograd(cuda, dtype):
+    """ops.flash_attention on CUDA tensors that require grad: one forward
+    launch (with lse) and one backward call; the gradients are the
+    backward kernel's. Under no_grad the forward alone launches."""
+    q, k, v, do = _bwd_operands(dtype, cuda, 2, 130, 130, 8, 2, 64, 11)
+    q, k, v = (t.requires_grad_() for t in (q, k, v))
+    out = tops.flash_attention(q, k, v, True, 48)
+    out.backward(do)
+    torch.cuda.synchronize()
+    assert tops.launch_counts()["flash_attention"] == 1
+    assert tops.launch_counts()["flash_attention_bwd"] == 1
+    lse = tref.flash_attention_lse_ref(q.detach(), k.detach(), True, 48)
+    want = tref.flash_attention_bwd_ref(q.detach(), k.detach(), v.detach(), out.detach(),
+                                        lse, do, True, 48)
+    _assert_bwd_close((q.grad, k.grad, v.grad), want, dtype)
+    with torch.no_grad():
+        tops.flash_attention(q, k, v, True, 48)
+    assert tops.launch_counts()["flash_attention"] == 2
+    assert tops.launch_counts()["flash_attention_bwd"] == 1
+
+
+@pytest.mark.cuda
+def test_cuda_flash_attention_bwd_is_deterministic(cuda):
+    """GQA's sum over a kv head's query heads runs in one CTA, in order: two
+    backward calls give the same bits."""
+    q, k, v, do = _bwd_operands(torch.bfloat16, cuda, 2, 300, 300, 32, 2, 128, 5)
+    lse = torch.empty((2, 32, 300), dtype=torch.float32, device=cuda)
+    o = tfa.flash_attention(q, k, v, True, None, lse=lse)
+    a = tfa.flash_attention_bwd(q, k, v, o, lse, do, True, None)
+    b = tfa.flash_attention_bwd(q, k, v, o, lse, do, True, None)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.cuda
+def test_cuda_flash_attention_bwd_checks_operands(cuda):
+    q = torch.zeros(1, 8, 4, 16, device=cuda)
+    lse = torch.zeros(1, 4, 8, device=cuda)
+    with pytest.raises(ValueError, match="lse"):
+        tfa.flash_attention_bwd(q, q, q, q, lse[:, :, :4], q, True, None)
+    with pytest.raises(TypeError):
+        tfa.flash_attention_bwd(q, q, q, q, lse.double(), q, True, None)
+    with pytest.raises(TypeError):
+        tfa.flash_attention_bwd(q, q, q, q.bfloat16(), lse, q, True, None)
+    with pytest.raises(ValueError, match="do"):
+        tfa.flash_attention_bwd(q, q, q, q, lse, q[:, :4], True, None)
+    with pytest.raises(ValueError, match="lse"):
+        tfa.flash_attention(q, q, q, True, None, lse=lse[:, :2])

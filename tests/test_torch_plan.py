@@ -100,6 +100,21 @@ def test_host_table_same_data_from_seed(seed):
     assert t.traffic.read == j.traffic.read == 4 * 24 * 4
 
 
+@pytest.mark.parametrize("rows,dim,dtype", [
+    (2 * t_host.NORMAL_BLOCK_ROWS + 5, 16, np.float32),  # two whole blocks and a part
+    (t_host.NORMAL_BLOCK_ROWS, 8, np.float16),
+    (1, 3, np.float64),
+    (0, 4, np.float32),
+])
+def test_host_table_blocks_draw_the_references_rows(rows, dim, dtype):
+    """``normal_rows`` draws in blocks of rows: the reference's table, bit
+    for bit, at any row count and dtype."""
+    t = t_host.HostEmbeddingTable(rows, dim, seed=7, dtype=dtype)
+    j = j_host.HostEmbeddingTable(rows, dim, seed=7, dtype=dtype)
+    assert t.data.dtype == j.data.dtype and t.data.shape == j.data.shape == (rows, dim)
+    assert_same(t.data, j.data)
+
+
 @pytest.mark.parametrize("scenario", SCENARIOS)
 def test_scenario_ids_identical(scenario):
     kw = dict(batch_size=6, lookups_per_table=4, seed=5)

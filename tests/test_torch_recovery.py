@@ -599,6 +599,12 @@ def test_preemption_checkpoint(tmp_path, mlps):
     assert CheckpointManager(str(tmp_path / "ck")).latest_step() == 1
 
 
-def test_lm_train_supervisor_names_item_18():
-    with pytest.raises(NotImplementedError, match=r"ROADMAP.md Queue 1 item 18\)"):
-        TrainSupervisor(None, None, None)
+def test_lm_train_supervisor_names_item_18(tmp_path):
+    """Item 18 ported the LM step-function supervisor (it raised, naming
+    the item, before): it runs a loop, and refuses an unknown nan policy."""
+    sup = TrainSupervisor(CheckpointManager(str(tmp_path)), lambda s, b: (s + b, {"loss": 0.0}),
+                          lambda skip: iter(range(skip, 10)), ckpt_every=3)
+    state, report = sup.run(0, total_steps=5)
+    assert state == sum(range(5)) and report.steps_run == 5 and report.checkpoints == 1
+    with pytest.raises(ValueError, match="nan_policy"):
+        TrainSupervisor(None, None, None, nan_policy="ignore")

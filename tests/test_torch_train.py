@@ -369,9 +369,8 @@ def test_training_registry_and_options():
                           tracer=Tracer())
     assert pipe._sv is not None and pipe._tracer is not None
     pipe.close()
-    # the LM's step-function supervisor waits for LM training
-    with pytest.raises(NotImplementedError, match="item 18"):
-        TrainSupervisor(None, None, None)
+    # the LM's step-function supervisor is ported with LM training (item 18)
+    assert TrainSupervisor(None, None, None).nan_policy == "restore"
     # multi-table is ported: a table group splits the slots into per-table ranges
     pipe = t_make_runtime("scratchpipe", host, noop, num_slots=16, device="cpu",
                           table_group=TGroup.uniform(2, 32, 4), slot_budgets=[10, 6])
