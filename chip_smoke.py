@@ -309,7 +309,9 @@ Phases, in order; any failure raises and the script exits non-zero:
                and lse held to their plain versions, then
                ``flash_attention_bwd`` timed there and at rows 7a and 7h
                beside its bound, its plain version and SDPA's backward
-               (forward + backward less forward).
+               (forward + backward less forward), with the GQA split's
+               parts and workspace bytes, and each of its passes' own time
+               in the traced step with their TFLOP/s.
 
 The traces go to temporary directories removed at exit. The sweep of
 phase 3 covers the fp16 and int8 forms too, and for them also D in {256,
@@ -3872,7 +3874,16 @@ LM_TRAIN_RUNS = (("chatglm3-6b", 8, 4, 4096, 12), ("mixtral-8x7b", 2, 1, 8192, 6
 LM_TRAIN_LR = 3e-4
 LM_TRAIN_TIMED_FROM = 2  # ms/step: the median over steps 3 .. N
 LM_TRAIN_TRACED = 10  # the main path's step traced with torch.profiler (the 11th)
-BWD_KERNELS = ("flash_fwd", "dkv_kernel", "dq_kernel", "fa_bwd_delta")
+#: the flash kernels a traced step names: the forward and the bf16
+#: backward's four passes (``fa_bwd_delta_kernel``, ``fa_bwd_dkv_wgmma``, its
+#: sum over the GQA splits ``fa_bwd_dkv_reduce``, ``fa_bwd_dq_wgmma``)
+BWD_KERNELS = ("flash_fwd", "fa_bwd_delta", "fa_bwd_dkv_wgmma", "fa_bwd_dkv_reduce",
+               "fa_bwd_dq_wgmma")
+#: the passes of one bf16 backward call, read from the main path's traced
+#: step: (pass, kernel name, how many of the products it computes, each a
+#: fifth of ``bwd_work``'s operations)
+BWD_PASSES = (("D", "fa_bwd_delta", 0), ("dK/dV", "fa_bwd_dkv_wgmma", 4),
+              ("dK/dV sum", "fa_bwd_dkv_reduce", 0), ("dQ", "fa_bwd_dq_wgmma", 3))
 #: the backward kernel against its plain version (``kernels/ref.py:
 #: flash_attention_bwd_ref``) on the same lse: (row, B, S, H, K, hd, causal,
 #: window), rows 7a, 7h and 7c of PERF.md's kernel table
@@ -4393,6 +4404,7 @@ def time_bwd_shapes(torch, mods, main_operands, dev) -> list:
         del got, want
         ms = median_ms(torch, lambda: fa.flash_attention_bwd(q, k, v, o, lse, do, causal,
                                                              window, q_offset), 10, flush)
+        ws_shape = fa.bwd_workspace_shape(B, Skv, H, K, hd)
         plain_ms = median_ms(torch, lambda: ref.flash_attention_bwd_ref(
             q, k, v, o, lse, do, causal, window, q_offset), 3, flush)
         torch.cuda.empty_cache()
@@ -4408,10 +4420,13 @@ def time_bwd_shapes(torch, mods, main_operands, dev) -> list:
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "library_ms": library_ms, "library": library, "flops": flops, "bytes": n_bytes,
             "tflops_per_s": flops / ms / 1e9,
+            "splits": fa.bwd_splits(B, Skv, H, K),
+            "workspace_bytes": 0 if ws_shape is None else 4 * math.prod(ws_shape),
             "max_abs_err": max(e["max_abs_err"] for e in errs.values()), "errors": errs,
             **({"forward": forward} if not out else {})})
         log(f"flash_attention_bwd at {label}: {ms:.3f} ms, bound {out[-1]['bound_ms']:.3f} "
-            f"({out[-1]['bound_by']}), plain {plain_ms:.2f}, SDPA backward {library_ms}")
+            f"({out[-1]['bound_by']}), plain {plain_ms:.2f}, SDPA backward {library_ms}; "
+            f"{out[-1]['splits']} splits, workspace {out[-1]['workspace_bytes'] / 1e6:.1f} MB")
     return out
 
 
@@ -4433,6 +4448,21 @@ def lm_train_phase(torch, mods, dev):
     del main_ops
     torch.cuda.empty_cache()
     main = times[0]
+    # each pass's own time: its kernel's mean a launch in the traced step
+    named = runs[0]["profile"]["named"]
+    pass_ms = {name: sum(r["mean_ms"] for r in named if kernel in r["name"])
+               for name, kernel, _ in BWD_PASSES}
+    check(pass_ms["dK/dV"] > 0 and pass_ms["dQ"] > 0,
+          f"the traced step names no backward kernel: {named}")
+    passes = {"what": "mean device ms a launch in the main path's traced step "
+                      "(torch.profiler), and TFLOP/s of the products each pass computes at "
+                      "the main path's operands",
+              "ms": pass_ms,
+              "tflops_per_s": {name: n * main["flops"] / 5 / pass_ms[name] / 1e9
+                               for name, _, n in BWD_PASSES if n},
+              "splits": main["splits"], "workspace_bytes": main["workspace_bytes"]}
+    log("flash_attention_bwd passes in the traced step: "
+        + ", ".join(f"{n} {t:.3f}" for n, t in pass_ms.items()) + " ms a launch")
     entry = {
         "name": "flash_attention_bwd", "route": "cuda", "source": CU_SOURCE_FA_BWD,
         "replaces": "src/repro/kernels/ops.py:370",
@@ -4442,7 +4472,7 @@ def lm_train_phase(torch, mods, dev):
                            + [p[n]["max_abs_err"] for p in parity for n in ("dq", "dk", "dv")
                               if p["dtype"] == "bfloat16"]),
         **{k: main[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
-        "details": {"shapes": times, "parity": parity}}
+        "details": {"shapes": times, "passes": passes, "parity": parity}}
     log(f"lm train: done ({time.perf_counter() - t0:.1f}s)")
     return {"runs": runs, "fp32": fp32, "drill": drill}, counts_by_run, entry
 

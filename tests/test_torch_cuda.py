@@ -1138,6 +1138,21 @@ def _bwd_operands(dtype, cuda, B, Sq, Skv, H, K, hd, seed):
         (1, 700, 700, 32, 8, 128, True, 256, 0),  # mixtral's, a window that cuts
         (2, 96, 96, 2, 2, 16, False, None, 0),
         (1, 100, 100, 4, 4, 20, True, None, 0),  # hd not a multiple of 16
+        # the bf16 kernels' edges: GQA groups the split does not divide evenly
+        # (3 = 12/4 in 3 parts, 12 = 24/2 in 12), MHA (no split, no sum),
+        # lengths one below and above the 64-row steps and 128-row blocks, a
+        # window that ends inside a step, hd 16, 20, 80, 96, 128
+        (1, 300, 300, 12, 4, 128, True, None, 0),
+        (1, 191, 191, 24, 2, 128, True, None, 0),
+        (2, 129, 129, 8, 8, 128, True, None, 0),
+        (1, 63, 65, 8, 2, 64, False, None, 0),
+        (1, 65, 63, 8, 2, 128, False, None, 0),
+        (2, 127, 129, 6, 2, 96, True, None, 2),
+        (1, 191, 191, 4, 4, 80, True, None, 0),
+        (1, 320, 320, 8, 2, 128, True, 40, 0),
+        (1, 300, 300, 4, 2, 64, False, 77, 0),
+        (2, 129, 129, 4, 2, 16, True, 100, 0),
+        (1, 191, 127, 6, 3, 20, False, None, 0),
     ],
 )
 def test_cuda_flash_attention_bwd_vs_plain(cuda, dtype, B, Sq, Skv, H, K, hd, causal,
@@ -1152,6 +1167,33 @@ def test_cuda_flash_attention_bwd_vs_plain(cuda, dtype, B, Sq, Skv, H, K, hd, ca
     assert (lse - want_lse).abs().max().item() <= _LSE_ATOL[dtype]
     _assert_bwd_close(got, want, dtype)
     assert tops.launch_counts()["flash_attention_bwd"] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "B,Sq,H,K,hd,causal,window,splits",
+    [
+        (1, 300, 12, 4, 128, True, None, 2),  # a group of 3 in parts of 1 and 2
+        (1, 191, 24, 2, 128, True, None, 5),  # 12 in 2, 2, 3, 2, 3
+        (2, 257, 32, 2, 64, True, 100, 3),  # 16 in 5, 5, 6, a window
+        (1, 129, 24, 2, 96, False, None, 7),
+    ],
+)
+def test_cuda_flash_attention_bwd_uneven_splits(cuda, monkeypatch, B, Sq, H, K, hd, causal,
+                                                window, splits):
+    """The bf16 dK/dV pass with its GQA group cut into parts that do not
+    divide it evenly (``bwd_splits`` forced): within the limits of the
+    plain version, and the same bits from two calls."""
+    monkeypatch.setattr(tfa, "bwd_splits", lambda *_a: splits)
+    q, k, v, do = _bwd_operands(torch.bfloat16, cuda, B, Sq, Sq, H, K, hd, 7 * splits + hd)
+    lse = torch.empty((B, H, Sq), dtype=torch.float32, device=cuda)
+    o = tfa.flash_attention(q, k, v, causal, window, lse=lse)
+    got = tfa.flash_attention_bwd(q, k, v, o, lse, do, causal, window)
+    again = tfa.flash_attention_bwd(q, k, v, o, lse, do, causal, window)
+    want = tref.flash_attention_bwd_ref(q, k, v, o, lse, do, causal, window)
+    torch.cuda.synchronize()
+    _assert_bwd_close(got, want, torch.bfloat16)
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
 
 
 @pytest.mark.cuda
@@ -1198,8 +1240,9 @@ def test_cuda_flash_attention_autograd(cuda, dtype):
 
 @pytest.mark.cuda
 def test_cuda_flash_attention_bwd_is_deterministic(cuda):
-    """GQA's sum over a kv head's query heads runs in one CTA, in order: two
-    backward calls give the same bits."""
+    """GQA's sum over a kv head's query heads runs in a fixed order (bf16: in
+    order inside each split's CTA, then the splits' fp32 sums in split order;
+    no float atomics): two backward calls give the same bits."""
     q, k, v, do = _bwd_operands(torch.bfloat16, cuda, 2, 300, 300, 32, 2, 128, 5)
     lse = torch.empty((2, 32, 300), dtype=torch.float32, device=cuda)
     o = tfa.flash_attention(q, k, v, True, None, lse=lse)
