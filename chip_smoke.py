@@ -312,6 +312,31 @@ Phases, in order; any failure raises and the script exits non-zero:
                (forward + backward less forward), with the GQA split's
                parts and workspace bytes, and each of its passes' own time
                in the traced step with their TFLOP/s.
+ 21. lm train ssm — LM training of the hybrid and ssm families through
+               ``train_lm`` as phase 20 (bf16, remat): zamba2-1.2b (38 mamba
+               layers, the shared block applied 6 times) and mamba2-2.7b (64
+               mamba layers), at full width and depth, 4 x 4096 tokens
+               (global batch 256 -> 4), 8 steps each: ms/step (the median of
+               steps 3-8), tokens/s, peak GB, loss first -> last, the
+               device's idle share in a torch.profiler trace of step 7 and
+               the SSD backward's passes there. Counts are reset just
+               before each run and read at every step: per mamba layer two
+               ``ssd_chunk_scan`` (the forward and its remat recompute) and
+               one ``ssd_chunk_scan_bwd``, per shared-block application two
+               ``flash_attention`` and one ``flash_attention_bwd``, no other
+               kernel; the plain attention and SSD versions raise during the
+               runs. Then (a) the SSD backward kernel at each run's first
+               backward operands against ``ref.ssd_chunk_scan_bwd_ref``, in
+               bf16 and widened to fp32, and two calls bitwise equal; (b) the
+               launch counts above; (c) both families at fp32, full width, 2
+               mamba layers (zamba2: one group and its shared block), 2 x 256,
+               3 steps through the kernels and through the plain versions on
+               the card, held as phase 20's (c); (d) the supervisor drill at
+               zamba2-1.2b's smoke config, as phase 20's. Last,
+               ``ssd_chunk_scan_bwd`` timed at both runs' operands beside its
+               bound and its plain version, and ``flash_attention_bwd`` at
+               zamba2's shared block (hd 64, 32/32 heads, causal, 4 x 4096)
+               beside its bound, its plain version and SDPA's backward.
 
 The traces go to temporary directories removed at exit. The sweep of
 phase 3 covers the fp16 and int8 forms too, and for them also D in {256,
@@ -321,7 +346,8 @@ fills are all sentinels, and ragged fills. The last three lines are the
 ``kernels`` JSON line (``scatter_add``, ``flash_attention`` — with
 phase 18's shapes under ``transformer_shapes`` and phase 19's under
 ``moe_shapes`` — ``flash_attention_bwd`` — phase 20's shapes and parity
-checks — and ``ssd_chunk_scan`` — phase 19's under ``mamba2_shapes`` — carry
+checks, and phase 21's zamba2 row — ``ssd_chunk_scan`` — phase 19's under
+``mamba2_shapes`` — and ``ssd_chunk_scan_bwd`` — phase 21's rows — carry
 their ``details``; ``gather_reduce_q`` and the fp16
 gather and fp16/int8 fills their times at phase 13's operands under
 ``serve``), the nvidia-smi line and ``{"ok": true, "device": {...}}``.
@@ -353,6 +379,7 @@ CU_SOURCE_BWD = "src/repro_torch/kernels/csrc/grad_coalesce.cu"
 CU_SOURCE_FA = "src/repro_torch/kernels/csrc/flash_attention.cu"
 CU_SOURCE_FA_BWD = "src/repro_torch/kernels/csrc/flash_attention_bwd.cu"
 CU_SOURCE_SSD = "src/repro_torch/kernels/csrc/ssd_chunk.cu"
+CU_SOURCE_SSD_BWD = "src/repro_torch/kernels/csrc/ssd_chunk_bwd.cu"
 BF16_OPS_PER_S = 989e12  # H100 SXM dense bf16 tensor cores
 TF32_OPS_PER_S = 495e12  # H100 SXM dense TF32 tensor cores (fp32 operands)
 DEVICE = "cuda"
@@ -3917,20 +3944,25 @@ LM_TRAIN_GRAD_RTOL, LM_TRAIN_GRAD_FLOOR = 1e-4, 1e-5
 #: (d): the supervisor drill at chatglm3-6b's smoke config
 DRILL_STEPS, DRILL_EVERY, DRILL_FAIL_AT = 12, 4, 7
 FLASH_PLAIN = ("flash_attention_ref", "flash_attention_lse_ref", "flash_attention_bwd_ref")
+#: the plain versions a training run through the kernels must not reach
+TRAIN_PLAIN = FLASH_PLAIN + ("ssd_chunk_scan_ref", "ssd_chunk_scan_bwd_ref")
 
 
 def lm_train_run(torch, mods, cfg, arch, batch, seq, steps, ckpt_dir, plain=False,
-                 step_hook=None, capture=None, ckpt_every=1000, smoke=False, trace=None):
+                 step_hook=None, capture=None, ckpt_every=1000, smoke=False, trace=None,
+                 traced=LM_TRAIN_TRACED, named=BWD_KERNELS):
     """One ``train_lm`` run on the card (``cfg`` the config it trains).
     Counts are reset just before; the launch counts are read at the start
-    of every step and at the end. Without ``plain`` the plain attention
-    versions raise during the run, and ``capture`` (a dict) receives the
-    operands of the first ``flash_attention_bwd`` call; with ``plain``,
-    ``ops.flash_attention`` is the plain version, differentiated by torch's
-    autograd. ``trace`` (a dict) receives a torch.profiler summary of step
-    LM_TRAIN_TRACED (``device_summary``). Returns (result, launch counts at
+    of every step and at the end. Without ``plain`` the plain attention and
+    SSD versions raise during the run, and ``capture`` (a dict) receives the
+    operands of the first ``flash_attention_bwd`` call (``bwd``) and of the
+    first ``ssd_chunk_scan_bwd`` call (``ssd_bwd``); with ``plain``,
+    ``ops.flash_attention`` and ``ops.ssd_chunk_scan`` are the plain
+    versions, differentiated by torch's autograd. ``trace`` (a dict)
+    receives a torch.profiler summary of step ``traced`` (0-based;
+    ``device_summary`` with ``named``). Returns (result, launch counts at
     each step start and at the end)."""
-    train, ops, ref, fa = mods["train"], mods["ops"], mods["ref"], mods["fa"]
+    train, ops, ref, fa, ssd = mods["train"], mods["ops"], mods["ref"], mods["fa"], mods["ssd"]
     argv = ["--arch", arch, "--batch", str(batch), "--seq-len", str(seq), "--steps",
             str(steps), "--seed", "0", "--lr", str(LM_TRAIN_LR), "--device", DEVICE,
             "--ckpt-dir", ckpt_dir, "--ckpt-every", str(ckpt_every)] + (["--smoke"] * smoke)
@@ -3939,7 +3971,7 @@ def lm_train_run(torch, mods, cfg, arch, batch, seq, steps, ckpt_dir, plain=Fals
 
     def hook():
         snaps.append(ops.launch_counts())
-        if trace is not None and len(snaps) in (LM_TRAIN_TRACED + 1, LM_TRAIN_TRACED + 2):
+        if trace is not None and len(snaps) in (traced + 1, traced + 2):
             from torch.profiler import ProfilerActivity, profile
 
             torch.cuda.synchronize()
@@ -3950,7 +3982,7 @@ def lm_train_run(torch, mods, cfg, arch, batch, seq, steps, ckpt_dir, plain=Fals
             else:  # ... and ends
                 wall = (time.perf_counter() - prof[1]) * 1e3
                 prof[0].__exit__(None, None, None)
-                trace.update(device_summary(torch, prof[0], wall, named=BWD_KERNELS))
+                trace.update(device_summary(torch, prof[0], wall, named=named))
                 # where the host's time goes: the ops with the most self CPU time
                 host = sorted(((e.key, e.self_cpu_time_total / 1e3, e.count)
                                for e in prof[0].key_averages()), key=lambda r: -r[1])
@@ -3959,26 +3991,32 @@ def lm_train_run(torch, mods, cfg, arch, batch, seq, steps, ckpt_dir, plain=Fals
         if step_hook is not None:
             step_hook()
 
-    saved = {n: getattr(ref, n) for n in FLASH_PLAIN}
+    saved = {n: getattr(ref, n) for n in TRAIN_PLAIN}
     real_bwd, real_ops_fa = fa.flash_attention_bwd, ops.flash_attention
+    real_ssd_bwd, real_ops_ssd = ssd.ssd_chunk_scan_bwd, ops.ssd_chunk_scan
 
     def no_plain(*_a, **_k):
         raise RuntimeError("a plain PyTorch version ran on the main path")
 
-    def spy_bwd(*a):
-        if "bwd" not in capture:
-            capture["bwd"] = tuple(t.clone() if torch.is_tensor(t) else t for t in a)
-        return real_bwd(*a)
+    def spy(key, real):
+        def call(*a):
+            if key not in capture:
+                capture[key] = tuple(t.clone() if torch.is_tensor(t) else t for t in a)
+            return real(*a)
+        return call
 
     if plain:
         ops.flash_attention = lambda q, k, v, causal=True, window=None, q_offset=0: (
             saved["flash_attention_ref"](q, k, v, causal=causal, window=window,
                                          q_offset=q_offset))
+        ops.ssd_chunk_scan = lambda x, dt, A, Bm, Cm, chunk=256: saved["ssd_chunk_scan_ref"](
+            x, dt, A, Bm, Cm, chunk)
     else:
         for n in saved:
             setattr(ref, n, no_plain)
         if capture is not None:
-            fa.flash_attention_bwd = spy_bwd
+            fa.flash_attention_bwd = spy("bwd", real_bwd)
+            ssd.ssd_chunk_scan_bwd = spy("ssd_bwd", real_ssd_bwd)
     ops.reset_launch_counts()
     torch.cuda.reset_peak_memory_stats()
     try:
@@ -3987,6 +4025,7 @@ def lm_train_run(torch, mods, cfg, arch, batch, seq, steps, ckpt_dir, plain=Fals
         for n, fn in saved.items():
             setattr(ref, n, fn)
         fa.flash_attention_bwd, ops.flash_attention = real_bwd, real_ops_fa
+        ssd.ssd_chunk_scan_bwd, ops.ssd_chunk_scan = real_ssd_bwd, real_ops_ssd
     snaps.append(ops.launch_counts())
     res["peak_memory_GB"] = torch.cuda.max_memory_allocated() / 1e9
     return res, snaps
@@ -4225,73 +4264,84 @@ def grads_close(gaps, what) -> dict:
 
 
 def lm_train_fp32_check(torch, mods, dev, tmp) -> list:
-    """(c) LM_TRAIN_FP32: three steps through the kernels, then the same
-    three through the plain versions on the card (TF32 off), held as the
-    comment on LM_TRAIN_FP32 says. The kernel run's step-1 gradients and
-    final params wait in host memory while the plain run runs."""
-    tree_leaves, out = mods["tree_leaves"], []
+    """(c) LM_TRAIN_FP32 through ``train_fp32_pair``: L ``flash_attention_bwd``
+    launches a step in the kernel run."""
+    out = []
     for arch, layers, batch, seq in LM_TRAIN_FP32:
-        t0 = time.perf_counter()
         cfg = dataclasses.replace(mods["get_config"](arch), num_layers=layers,
                                   param_dtype="float32", compute_dtype="float32")
-        grads_k, gaps = [], {}
-        restore = first_grads(mods, lambda g: grads_k.extend(
-            t.to("cpu", copy=True) for t in g))
-        try:
-            res, snaps = lm_train_run(torch, mods, cfg, arch, batch, seq, LM_TRAIN_FP32_STEPS,
-                                      os.path.join(tmp, f"fp32_{arch}_k"))
-        finally:
-            restore()
-        check(step_launches(snaps, "flash_attention_bwd") == [layers] * LM_TRAIN_FP32_STEPS
-              and res["report"].restarts == 0, f"{arch} fp32: backward launches {snaps}, "
-              f"{res['report']}")
-        losses_k, peak_k = res["losses"], res["peak_memory_GB"]
-        kept = [t.cpu() for t in tree_leaves(res["params"])]
-        del res
-        torch.cuda.empty_cache()
-        restore = first_grads(mods, lambda g: gaps.update(grad_gaps(torch, grads_k, g)))
-        try:
-            res, snaps = lm_train_run(torch, mods, cfg, arch, batch, seq, LM_TRAIN_FP32_STEPS,
-                                      os.path.join(tmp, f"fp32_{arch}_p"), plain=True)
-        finally:
-            restore()
-        del grads_k
-        check(not any(snaps[-1].values()), f"{arch} fp32 plain run launched {snaps[-1]}")
-        check(res["report"].restarts == 0, f"{arch} fp32 plain run: {res['report']}")
-        grad_errs = grads_close(gaps, f"{arch} fp32")
-        losses_p = res["losses"]
-        loss_rel = max(abs(a - b) / abs(b) for a, b in zip(losses_k, losses_p))
-        check(loss_rel <= LM_TRAIN_LOSS_RTOL,
-              f"{arch} fp32: losses {losses_k} (kernels) vs {losses_p} (plain)")
-        worst_abs, flips, total = 0.0, 0, 0
-        for a, b in zip(kept, tree_leaves(res["params"])):
-            diff = (a.to(b.device) - b).abs()
-            worst_abs = max(worst_abs, diff.max().item())
-            flips += int((diff > 1e-3 * LM_TRAIN_LR + 1e-6 * b.abs()).sum())
-            total += b.numel()
-        check(flips <= LM_TRAIN_FLIP_SHARE * total,
-              f"{arch} fp32: {flips} of {total} params after step {LM_TRAIN_FP32_STEPS} more "
-              f"than 1e-3 x lr apart (the largest gap {worst_abs})")
-        out.append({"arch": arch, "layers": layers, "batch": batch, "seq": seq,
-                    "steps": LM_TRAIN_FP32_STEPS, "losses_kernels": losses_k,
-                    "losses_plain": losses_p, "max_loss_rel_diff": loss_rel, **grad_errs,
-                    "max_param_abs_diff": worst_abs, "params_apart": flips,
-                    "params": total,
-                    "peak_memory_GB": max(peak_k, res["peak_memory_GB"]),
-                    "wall_s": time.perf_counter() - t0})
-        del res, kept
-        torch.cuda.empty_cache()
-        log(f"lm train fp32 {arch} ({layers} layers, {batch}x{seq}): losses within "
-            f"{loss_rel:.2e} of the plain run's, step 1's gradients within "
-            f"{grad_errs['grad_max_rel_err']:.2e} a leaf (the worst at "
-            f"{grad_errs['grad_worst_share_of_limit']:.2f} of its limit), {flips} of {total} "
-            f"params more than 1e-3 x lr apart, none more than {worst_abs:.2e} "
-            f"({time.perf_counter() - t0:.1f}s)")
+        out.append(train_fp32_pair(torch, mods, arch, cfg, batch, seq, tmp,
+                                   {"flash_attention_bwd": layers}, {"layers": layers}))
     return out
 
 
-def lm_train_drill(torch, mods, tmp) -> dict:
-    """(d) chatglm3-6b's smoke config through ``train_lm`` on the card:
+def train_fp32_pair(torch, mods, arch, cfg, batch, seq, tmp, per_step, label) -> dict:
+    """Three steps of ``cfg`` (fp32, TF32 off) through the kernels, then the
+    same three through the plain versions on the card, held as the comment
+    on LM_TRAIN_FP32 says; ``per_step`` the kernel run's launches a step by
+    kernel. The kernel run's step-1 gradients and final params wait in host
+    memory while the plain run runs."""
+    tree_leaves = mods["tree_leaves"]
+    t0 = time.perf_counter()
+    grads_k, gaps = [], {}
+    restore = first_grads(mods, lambda g: grads_k.extend(t.to("cpu", copy=True) for t in g))
+    try:
+        res, snaps = lm_train_run(torch, mods, cfg, arch, batch, seq, LM_TRAIN_FP32_STEPS,
+                                  os.path.join(tmp, f"fp32_{arch}_k"))
+    finally:
+        restore()
+    got = {k: step_launches(snaps, k) for k in per_step}
+    check(got == {k: [n] * LM_TRAIN_FP32_STEPS for k, n in per_step.items()}
+          and res["report"].restarts == 0, f"{arch} fp32: launches a step {got}, expected "
+          f"{per_step}; {res['report']}")
+    losses_k, peak_k = res["losses"], res["peak_memory_GB"]
+    kept = [t.cpu() for t in tree_leaves(res["params"])]
+    del res
+    torch.cuda.empty_cache()
+    restore = first_grads(mods, lambda g: gaps.update(grad_gaps(torch, grads_k, g)))
+    try:
+        res, snaps = lm_train_run(torch, mods, cfg, arch, batch, seq, LM_TRAIN_FP32_STEPS,
+                                  os.path.join(tmp, f"fp32_{arch}_p"), plain=True)
+    finally:
+        restore()
+    del grads_k
+    check(not any(snaps[-1].values()), f"{arch} fp32 plain run launched {snaps[-1]}")
+    check(res["report"].restarts == 0, f"{arch} fp32 plain run: {res['report']}")
+    grad_errs = grads_close(gaps, f"{arch} fp32")
+    losses_p = res["losses"]
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(losses_k, losses_p))
+    check(loss_rel <= LM_TRAIN_LOSS_RTOL,
+          f"{arch} fp32: losses {losses_k} (kernels) vs {losses_p} (plain)")
+    worst_abs, flips, total = 0.0, 0, 0
+    for a, b in zip(kept, tree_leaves(res["params"])):
+        diff = (a.to(b.device) - b).abs()
+        worst_abs = max(worst_abs, diff.max().item())
+        flips += int((diff > 1e-3 * LM_TRAIN_LR + 1e-6 * b.abs()).sum())
+        total += b.numel()
+    check(flips <= LM_TRAIN_FLIP_SHARE * total,
+          f"{arch} fp32: {flips} of {total} params after step {LM_TRAIN_FP32_STEPS} more "
+          f"than 1e-3 x lr apart (the largest gap {worst_abs})")
+    out = {"arch": arch, **label, "batch": batch, "seq": seq,
+           "steps": LM_TRAIN_FP32_STEPS, "launches_per_step": per_step,
+           "losses_kernels": losses_k, "losses_plain": losses_p,
+           "max_loss_rel_diff": loss_rel, **grad_errs,
+           "max_param_abs_diff": worst_abs, "params_apart": flips, "params": total,
+           "peak_memory_GB": max(peak_k, res["peak_memory_GB"]),
+           "wall_s": time.perf_counter() - t0}
+    del res, kept
+    torch.cuda.empty_cache()
+    what = ", ".join(f"{k} {v}" for k, v in label.items())
+    log(f"lm train fp32 {arch} ({what}, {batch}x{seq}): losses within "
+        f"{loss_rel:.2e} of the plain run's, step 1's gradients within "
+        f"{grad_errs['grad_max_rel_err']:.2e} a leaf (the worst at "
+        f"{grad_errs['grad_worst_share_of_limit']:.2f} of its limit), {flips} of {total} "
+        f"params more than 1e-3 x lr apart, none more than {worst_abs:.2e} "
+        f"({time.perf_counter() - t0:.1f}s)")
+    return out
+
+
+def lm_train_drill(torch, mods, tmp, arch="chatglm3-6b") -> dict:
+    """(d) ``arch``'s smoke config through ``train_lm`` on the card:
     DRILL_STEPS steps, checkpoints every DRILL_EVERY, a node failure at the
     DRILL_FAIL_AT-th step call (``FailureInjector``): one restore, and the
     final params and AdamW state bitwise equal to an uninterrupted run's."""
@@ -4300,11 +4350,11 @@ def lm_train_drill(torch, mods, tmp) -> dict:
     from repro_torch.runtime import FailureInjector
 
     tree_leaves = mods["tree_leaves"]
-    cfg = get_smoke_config("chatglm3-6b")
+    cfg = get_smoke_config(arch)
     runs = {}
     for name, hook in (("clean", None),
                        ("drill", FailureInjector(fail_at=[DRILL_FAIL_AT]).maybe_fail)):
-        res, _ = lm_train_run(torch, mods, cfg, "chatglm3-6b", 8, 128, DRILL_STEPS,
+        res, _ = lm_train_run(torch, mods, cfg, arch, 8, 128, DRILL_STEPS,
                               os.path.join(tmp, f"drill_{name}"), step_hook=hook,
                               ckpt_every=DRILL_EVERY, smoke=True)
         runs[name] = res
@@ -4320,7 +4370,7 @@ def lm_train_drill(torch, mods, tmp) -> dict:
            "fail_at_call": DRILL_FAIL_AT, "restarts": drill["report"].restarts,
            "restore_ms": drill["report"].restore_ms, "save_ms": drill["report"].save_ms,
            "bitwise_equal": same, "wall_s": time.perf_counter() - t0}
-    log(f"lm train drill: one restore, params and AdamW state bitwise equal to the "
+    log(f"lm train drill {arch}: one restore, params and AdamW state bitwise equal to the "
         f"uninterrupted run's ({out['wall_s']:.1f}s)")
     return out
 
@@ -4392,42 +4442,50 @@ def time_bwd_shapes(torch, mods, main_operands, dev) -> list:
         lse = torch.empty((B, H, S), dtype=torch.float32, device=dev)
         o = fa.flash_attention(q, k, v, causal, window, 0, lse=lse)
         shapes.append((label, q, k, v, o, lse, do, causal, window, 0))
-    out = []
-    for label, q, k, v, o, lse, do, causal, window, q_offset in shapes:
-        B, Sq, H, hd = q.shape
-        Skv, K = k.shape[1], k.shape[2]
-        flops, n_bytes = bwd_work(B, Sq, Skv, H, K, hd, causal, window)
-        t_ops, t_bytes = flops / BF16_OPS_PER_S, n_bytes / HBM_BYTES_PER_S
-        got = fa.flash_attention_bwd(q, k, v, o, lse, do, causal, window, q_offset)
-        want = bwd_plain(torch, ref, q, k, v, o, lse, do, causal, window)
-        errs = bwd_close(torch, got, want, "bfloat16", label)
-        del got, want
-        ms = median_ms(torch, lambda: fa.flash_attention_bwd(q, k, v, o, lse, do, causal,
-                                                             window, q_offset), 10, flush)
-        ws_shape = fa.bwd_workspace_shape(B, Skv, H, K, hd)
-        plain_ms = median_ms(torch, lambda: ref.flash_attention_bwd_ref(
-            q, k, v, o, lse, do, causal, window, q_offset), 3, flush)
-        torch.cuda.empty_cache()
-        try:
-            library_ms, library = sdpa_bwd_ms(torch, q, k, v, do, causal, window, flush)
-        except RuntimeError as e:  # no SDPA backward for these operands: no yardstick
-            library_ms, library = None, f"F.scaled_dot_product_attention backward: {e}"[:300]
-        torch.cuda.empty_cache()
-        out.append({
-            "row": label, "shape": {"B": B, "Sq": Sq, "Skv": Skv, "H": H, "K": K, "hd": hd},
-            "causal": causal, "window": window, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": max(t_ops, t_bytes) * 1e3,
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "library_ms": library_ms, "library": library, "flops": flops, "bytes": n_bytes,
-            "tflops_per_s": flops / ms / 1e9,
-            "splits": fa.bwd_splits(B, Skv, H, K),
-            "workspace_bytes": 0 if ws_shape is None else 4 * math.prod(ws_shape),
-            "max_abs_err": max(e["max_abs_err"] for e in errs.values()), "errors": errs,
-            **({"forward": forward} if not out else {})})
-        log(f"flash_attention_bwd at {label}: {ms:.3f} ms, bound {out[-1]['bound_ms']:.3f} "
-            f"({out[-1]['bound_by']}), plain {plain_ms:.2f}, SDPA backward {library_ms}; "
-            f"{out[-1]['splits']} splits, workspace {out[-1]['workspace_bytes'] / 1e6:.1f} MB")
+    out = [bwd_shape_row(torch, mods, *row, flush) for row in shapes]
+    out[0]["forward"] = forward
     return out
+
+
+def bwd_shape_row(torch, mods, label, q, k, v, o, lse, do, causal, window, q_offset,
+                  flush) -> dict:
+    """flash_attention_bwd at one set of bf16 operands: held to its plain
+    version (``bwd_close``), then timed (CUDA events, median, L2 flushed)
+    beside its bound, its plain version (whole) and SDPA's backward."""
+    fa, ref = mods["fa"], mods["ref"]
+    B, Sq, H, hd = q.shape
+    Skv, K = k.shape[1], k.shape[2]
+    flops, n_bytes = bwd_work(B, Sq, Skv, H, K, hd, causal, window)
+    t_ops, t_bytes = flops / BF16_OPS_PER_S, n_bytes / HBM_BYTES_PER_S
+    got = fa.flash_attention_bwd(q, k, v, o, lse, do, causal, window, q_offset)
+    want = bwd_plain(torch, ref, q, k, v, o, lse, do, causal, window)
+    errs = bwd_close(torch, got, want, "bfloat16", label)
+    del got, want
+    ms = median_ms(torch, lambda: fa.flash_attention_bwd(q, k, v, o, lse, do, causal,
+                                                         window, q_offset), 10, flush)
+    ws_shape = fa.bwd_workspace_shape(B, Skv, H, K, hd)
+    plain_ms = median_ms(torch, lambda: ref.flash_attention_bwd_ref(
+        q, k, v, o, lse, do, causal, window, q_offset), 3, flush)
+    torch.cuda.empty_cache()
+    try:
+        library_ms, library = sdpa_bwd_ms(torch, q, k, v, do, causal, window, flush)
+    except RuntimeError as e:  # no SDPA backward for these operands: no yardstick
+        library_ms, library = None, f"F.scaled_dot_product_attention backward: {e}"[:300]
+    torch.cuda.empty_cache()
+    row = {
+        "row": label, "shape": {"B": B, "Sq": Sq, "Skv": Skv, "H": H, "K": K, "hd": hd},
+        "causal": causal, "window": window, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": max(t_ops, t_bytes) * 1e3,
+        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        "library_ms": library_ms, "library": library, "flops": flops, "bytes": n_bytes,
+        "tflops_per_s": flops / ms / 1e9,
+        "splits": fa.bwd_splits(B, Skv, H, K),
+        "workspace_bytes": 0 if ws_shape is None else 4 * math.prod(ws_shape),
+        "max_abs_err": max(e["max_abs_err"] for e in errs.values()), "errors": errs}
+    log(f"flash_attention_bwd at {label}: {ms:.3f} ms, bound {row['bound_ms']:.3f} "
+        f"({row['bound_by']}), plain {plain_ms:.2f}, SDPA backward {library_ms}; "
+        f"{row['splits']} splits, workspace {row['workspace_bytes'] / 1e6:.1f} MB")
+    return row
 
 
 def lm_train_phase(torch, mods, dev):
@@ -4475,6 +4533,260 @@ def lm_train_phase(torch, mods, dev):
         "details": {"shapes": times, "passes": passes, "parity": parity}}
     log(f"lm train: done ({time.perf_counter() - t0:.1f}s)")
     return {"runs": runs, "fp32": fp32, "drill": drill}, counts_by_run, entry
+
+
+# --------------------------------------------------------------------------- #
+# 21. LM training of the hybrid and ssm families
+# --------------------------------------------------------------------------- #
+#: phase 21's runs through ``train_lm``: (arch, batch, tokens, steps), bf16,
+#: full width and full depth (zamba2-1.2b: 38 mamba layers and 6 shared-block
+#: applications, 1.2B parameters; mamba2-2.7b: 64 mamba layers, 2.7B
+#: parameters, ~43 GB at 16 bytes a parameter), remat, the reference's
+#: train_4k 4096 tokens, the global batch 256 cut to 4
+SSM_TRAIN_RUNS = (("zamba2-1.2b", 4, 4096, 8), ("mamba2-2.7b", 4, 4096, 8))
+SSM_TRAIN_TIMED_FROM = 2  # ms/step: the median over steps 3 .. N
+SSM_TRAIN_TRACED = 6  # each run's step traced with torch.profiler (the 7th)
+#: the kernels a traced step names: the SSD forward's and backward's, the
+#: flash forward's and backward's
+SSM_TRAIN_KERNELS = ("ssd_", "flash_fwd", "fa_bwd")
+#: the backward's passes in a traced step (csrc/ssd_chunk_bwd.cu)
+SSD_BWD_PASSES = ("ssd_bwd_chunk_state", "ssd_bwd_state_pass", "ssd_bwd_chunk_kernel",
+                  "ssd_bwd_group_sum", "ssd_bwd_dA")
+SSD_BWD_NAMES = ("dx", "ddt", "dA", "dBm", "dCm")
+#: (a) the backward kernel against ``ref.ssd_chunk_scan_bwd_ref`` at each
+#: main run's first backward operands: bf16 ||kernel - plain||_F <=
+#: SSD_BWD_REL ||plain||_F per output (dx rounded once to bf16, the sums in
+#: another order); the same operands widened to fp32: max |kernel - plain|
+#: <= SSD_BWD_MAX x max |plain| per output
+SSD_BWD_REL, SSD_BWD_MAX = 1e-2, 1e-4
+#: (c): fp32 (TF32 off), full width, 2 mamba layers (zamba2: one group of 2
+#: and its shared-block application, no tail), 2 x 256 tokens, held as
+#: phase 20's (c)
+SSM_TRAIN_FP32 = (("zamba2-1.2b", 2, 256), ("mamba2-2.7b", 2, 256))
+#: (d): the supervisor drill at this family's smoke config (SSD forward and
+#: backward and the flash pair, fp32)
+SSM_DRILL_ARCH = "zamba2-1.2b"
+
+
+def lm_layers(cfg) -> tuple:
+    """(mamba layers, shared-block applications) of an LM config."""
+    if cfg.family == "hybrid":
+        return (cfg.hybrid_groups * cfg.hybrid_layers_per_group + cfg.hybrid_tail_layers,
+                cfg.hybrid_groups)
+    return cfg.num_layers, 0
+
+
+def ssm_per_step(cfg) -> dict:
+    """The launches of one training step: per mamba layer the SSD forward,
+    its remat recompute and the backward; per shared-block application the
+    flash forward, its recompute and the backward."""
+    n_mamba, n_attn = lm_layers(cfg)
+    out = {"ssd_chunk_scan": 2 * n_mamba, "ssd_chunk_scan_bwd": n_mamba}
+    if n_attn:
+        out.update({"flash_attention": 2 * n_attn, "flash_attention_bwd": n_attn})
+    return out
+
+
+def ssm_train_main(torch, mods, dev, tmp):
+    """Phase 21's two bf16 runs (SSM_TRAIN_RUNS): every step exactly the
+    launches of ``ssm_per_step``, no other kernel; losses and grad norms
+    finite. Returns (summaries, launches by run, each run's captured first
+    backward operands)."""
+    summaries, counts_by_run, captured = [], {}, {}
+    for arch, batch, seq, steps in SSM_TRAIN_RUNS:
+        t0 = time.perf_counter()
+        cfg = mods["get_config"](arch)
+        label = f"lm train {arch} {batch}x{seq}"
+        cap, trace = {}, {}
+        res, snaps = lm_train_run(torch, mods, cfg, arch, batch, seq, steps,
+                                  os.path.join(tmp, label.replace(" ", "_")), capture=cap,
+                                  trace=trace, traced=SSM_TRAIN_TRACED, named=SSM_TRAIN_KERNELS)
+        rep = res["report"]
+        check(res["cfg"] == cfg and res["params"]["embed"].dtype == torch.bfloat16
+              and res["params"]["embed"].device.type == dev.type,
+              f"{label}: not the bf16 config on the card")
+        check(rep.steps_run == steps and rep.restarts == 0 and len(res["losses"]) == steps,
+              f"{label}: {rep}")
+        check(all(map(math.isfinite, res["losses"] + res["grad_norms"])),
+              f"{label}: non-finite losses {res['losses']} or grad norms {res['grad_norms']}")
+        per_step = ssm_per_step(cfg)
+        got = {k: step_launches(snaps, k) for k in per_step}
+        check(got == {k: [n] * steps for k, n in per_step.items()},
+              f"{label}: launches a step {got}; expected {per_step}")
+        other = {k: v for k, v in snaps[-1].items() if k not in per_step and v}
+        check(not other, f"{label}: other kernels launched: {other}")
+        starts = res["step_starts"]
+        step_ms = [(b - a) * 1e3 for a, b in zip(starts, starts[1:])]
+        ms = statistics.median(step_ms[SSM_TRAIN_TIMED_FROM:])
+        passes = {p: sum(r["mean_ms"] for r in trace["named"] if p in r["name"])
+                  for p in SSD_BWD_PASSES}
+        check(passes["ssd_bwd_chunk_kernel"] > 0,
+              f"{label}: the traced step names no SSD backward kernel: {trace['named']}")
+        n_mamba, n_attn = lm_layers(cfg)
+        summaries.append({
+            "run": label, "arch": arch, "family": cfg.family, "mamba_layers": n_mamba,
+            "shared_applications": n_attn, "reduced": ["global batch 256 -> 4"],
+            "batch": batch, "seq": seq, "steps": steps, "params": n_params(res["params"]),
+            "ms_per_step": ms, "step_ms": step_ms, "tokens_per_s": batch * seq / (ms / 1e3),
+            "peak_memory_GB": res["peak_memory_GB"],
+            "device_idle_share": trace["device_idle_share"],
+            "loss_first": res["losses"][0], "loss_last": res["losses"][-1],
+            "losses": res["losses"], "grad_norms": res["grad_norms"],
+            "launches_per_step": per_step, "ssd_bwd_pass_ms": passes, "profile": trace,
+            "wall_s": time.perf_counter() - t0})
+        counts_by_run[label] = snaps[-1]
+        captured[arch] = cap
+        del res
+        torch.cuda.empty_cache()
+        print("lm train: " + json.dumps(summaries[-1]), flush=True)
+        log(f"{label}: {ms:.1f} ms/step, {summaries[-1]['tokens_per_s']:.0f} tokens/s, peak "
+            f"{summaries[-1]['peak_memory_GB']:.1f} GB, device idle "
+            f"{trace['device_idle_share']:.3f} of the traced step, loss "
+            f"{summaries[-1]['loss_first']:.4f} -> {summaries[-1]['loss_last']:.4f}, "
+            f"{per_step} a step; the SSD backward's passes "
+            + ", ".join(f"{p} {t:.3f}" for p, t in passes.items())
+            + f" ms a launch ({time.perf_counter() - t0:.1f}s)")
+    return summaries, counts_by_run, captured
+
+
+def ssd_bwd_work(x, dt, A, Bm, Cm, Q) -> tuple:
+    """(operations, bytes) of one SSD backward: per head the (Q, Q) form's
+    dS = dy x^T and dx += s^T dy over the causal pairs, and five (Q, hd, ds)
+    products (the chunk's state recomputed, dh's local term, h_in^T dy,
+    dh_out B and dh_out^T x); per head group C.B^T, dG B and dG^T C over
+    the causal pairs. x, dt, A, B, C and dy read once; dx, ddt, dA, dB and
+    dC written once."""
+    B, S, nh, hd = x.shape
+    ng, ds = Bm.shape[2], Bm.shape[3]
+    nc = -(-S // Q)
+    tri = Q * (Q + 1) // 2
+    ops = B * nh * nc * (4 * tri * hd + 10 * Q * hd * ds) + B * ng * nc * 6 * tri * ds
+    n_bytes = (3 * x.numel() * x.element_size()  # x and dy in, dx out
+               + 2 * 4 * (dt.numel() + A.numel() + Bm.numel() + Cm.numel()))  # and d*
+    return ops, n_bytes
+
+
+def ssd_bwd_close(torch, got, want, dtype, what) -> dict:
+    """(a)'s limits, output by output."""
+    out = {}
+    for n, g, w in zip(SSD_BWD_NAMES, got, want):
+        check(g.dtype == w.dtype and g.shape == w.shape, f"ssd_chunk_scan_bwd {n} at {what}")
+        diff = g.float() - w.float()
+        err, scale = diff.abs().max().item(), w.float().abs().max().item()
+        rel = (torch.linalg.vector_norm(diff)
+               / torch.linalg.vector_norm(w.float()).clamp_min(1e-30)).item()
+        if dtype == "bfloat16":
+            check(rel <= SSD_BWD_REL, f"ssd_chunk_scan_bwd {n} at {what} bf16: relative {rel} "
+                                      f"(limit {SSD_BWD_REL})")
+        else:
+            check(err <= SSD_BWD_MAX * scale, f"ssd_chunk_scan_bwd {n} at {what} fp32: "
+                                              f"{err} (limit {SSD_BWD_MAX} x {scale})")
+        out[n] = {"max_abs_err": err, "max_abs_plain": scale, "rel_err": rel}
+    return out
+
+
+def ssd_bwd_rows(torch, mods, captured, dev) -> list:
+    """(a) and the timing rows of ``ssd_chunk_scan_bwd`` at each main run's
+    first backward operands (bf16, as captured): two kernel calls bitwise
+    equal (deterministic), held to the plain version in bf16 and widened to
+    fp32, then timed (CUDA events, median, L2 flushed) beside its bound
+    (operations at the TF32 rate, as the forward's row 8, or bytes) and the
+    plain version's time; no single PyTorch call computes it."""
+    ssd, ref = mods["ssd"], mods["ref"]
+    flush = torch.empty(32 * 1024 * 1024, dtype=torch.float32, device=dev)
+    out = []
+    for arch, cap in captured.items():
+        x, dt, A, Bm, Cm, dy, dh, Q = cap["ssd_bwd"]
+        label = (f"main path {arch} (its first backward call, the last mamba layer's, "
+                 f"{x.shape[0]} x {x.shape[1]})")
+        got = ssd.ssd_chunk_scan_bwd(x, dt, A, Bm, Cm, dy, dh, Q)
+        again = ssd.ssd_chunk_scan_bwd(x, dt, A, Bm, Cm, dy, dh, Q)
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        check(same, f"ssd_chunk_scan_bwd at {label}: two calls differ")
+        del again
+        errs = {"bfloat16": ssd_bwd_close(torch, got, ref.ssd_chunk_scan_bwd_ref(
+            x, dt, A, Bm, Cm, Q, dy, dh), "bfloat16", label)}
+        del got
+        torch.cuda.empty_cache()
+        x32, dy32 = x.float(), dy.float()
+        errs["float32"] = ssd_bwd_close(
+            torch, ssd.ssd_chunk_scan_bwd(x32, dt, A, Bm, Cm, dy32, dh, Q),
+            ref.ssd_chunk_scan_bwd_ref(x32, dt, A, Bm, Cm, Q, dy32, dh), "float32", label)
+        del x32, dy32
+        torch.cuda.empty_cache()
+        s_ops, s_bytes = ssd_bwd_work(x, dt, A, Bm, Cm, Q)
+        t_ops, t_bytes = s_ops / TF32_OPS_PER_S, s_bytes / HBM_BYTES_PER_S
+        ms = median_ms(torch, lambda: ssd.ssd_chunk_scan_bwd(x, dt, A, Bm, Cm, dy, dh, Q), 10,
+                       flush)
+        plain_ms = median_ms(torch, lambda: ref.ssd_chunk_scan_bwd_ref(
+            x, dt, A, Bm, Cm, Q, dy, dh), 3, flush)
+        torch.cuda.empty_cache()
+        B, S, nh, hd = x.shape
+        out.append({
+            "row": label, "shape": {"B": B, "S": S, "nh": nh, "hd": hd, "ng": Bm.shape[2],
+                                    "ds": Bm.shape[3], "Q": Q},
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_ops, t_bytes) * 1e3,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "ops_ms_tf32": t_ops * 1e3, "ops_ms_fp32": s_ops / FP32_OPS_PER_S * 1e3,
+            "bytes_ms": t_bytes * 1e3, "flops": s_ops, "bytes": s_bytes,
+            "library_ms": None,
+            "library": "no single PyTorch call computes the SSD scan's backward",
+            "tflops_per_s": s_ops / ms / 1e9, "deterministic": same,
+            "max_abs_err": max(e["max_abs_err"] for e in errs["bfloat16"].values()),
+            "errors": errs})
+        log(f"ssd_chunk_scan_bwd at {label}: {ms:.3f} ms, bound {out[-1]['bound_ms']:.3f} "
+            f"({out[-1]['bound_by']}), plain {plain_ms:.2f}; bf16 relative "
+            + "/".join(f"{e['rel_err']:.1e}" for e in errs["bfloat16"].values())
+            + ", fp32 max " + "/".join(f"{e['max_abs_err'] / max(e['max_abs_plain'], 1e-30):.1e}"
+                                       for e in errs["float32"].values())
+            + "; two calls bitwise equal")
+    return out
+
+
+def ssm_train_phase(torch, mods, dev):
+    """Phase 21: the two main runs, (a) + (b), (c), (d), the SSD backward's
+    rows and the flash backward at zamba2's layout. Returns (summary,
+    launches by run, the kernels-line entry of ssd_chunk_scan_bwd, the
+    flash backward's row at zamba2's operands)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ssm_train_") as tmp:
+        runs, counts_by_run, captured = ssm_train_main(torch, mods, dev, tmp)
+        fp32 = []
+        for arch, batch, seq in SSM_TRAIN_FP32:
+            full = mods["get_config"](arch)
+            cut = ({"hybrid_groups": 1, "hybrid_layers_per_group": 2, "hybrid_tail_layers": 0}
+                   if full.family == "hybrid" else {"num_layers": 2})
+            cfg = dataclasses.replace(full, param_dtype="float32", compute_dtype="float32",
+                                      **cut)
+            fp32.append(train_fp32_pair(torch, mods, arch, cfg, batch, seq, tmp,
+                                        ssm_per_step(cfg), cut))
+        drill = lm_train_drill(torch, mods, tmp, SSM_DRILL_ARCH)
+    print("lm train checks: " + json.dumps({"fp32": fp32, "drill": drill}), flush=True)
+    rows = ssd_bwd_rows(torch, mods, captured, dev)
+    flush = torch.empty(32 * 1024 * 1024, dtype=torch.float32, device=dev)
+    q, k, v, o, lse, do, causal, window, q_offset = captured["zamba2-1.2b"]["bwd"]
+    fa_row = bwd_shape_row(torch, mods, f"7z zamba2-1.2b shared block (main path, "
+                           f"{q.shape[0]} x {q.shape[1]})", q, k, v, o, lse, do, causal,
+                           window, q_offset, flush)
+    del captured, q, k, v, o, lse, do, flush
+    torch.cuda.empty_cache()
+    main = rows[-1]  # mamba2-2.7b: the most launches, the widest state
+    entry = {
+        "name": "ssd_chunk_scan_bwd", "route": "cuda", "source": CU_SOURCE_SSD_BWD,
+        "replaces": "src/repro/models/mamba2.py:52",
+        "launches": sum(c["ssd_chunk_scan_bwd"] for c in counts_by_run.values()),
+        "launches_by_run": {r: c["ssd_chunk_scan_bwd"] for r, c in counts_by_run.items()},
+        "max_abs_err": max(r["max_abs_err"] for r in rows),
+        **{k: main[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+        "details": {"what": "the reference has no Pallas backward of its SSD kernel; it "
+                            "differentiates its chunk loop (repro/models/mamba2.py: ssd_scan)",
+                    "shapes": rows, "passes_in_traced_steps": {
+                        r["arch"]: r["ssd_bwd_pass_ms"] for r in runs}}}
+    log(f"lm train ssm: done ({time.perf_counter() - t0:.1f}s)")
+    return {"runs": runs, "fp32": fp32, "drill": drill}, counts_by_run, entry, fa_row
 
 
 def main() -> int:
@@ -4536,7 +4848,7 @@ def main() -> int:
 
 
 def run_all(torch, mods, dev, ckpt_dir, t_start) -> int:
-    """Phases 3-20, the kernels line, the card line and the last line."""
+    """Phases 3-21, the kernels line, the card line and the last line."""
     ops, ref, gr, gc, qz = (mods[k] for k in ("ops", "ref", "gr", "gc", "qz"))
     serve, serving_cache, plan_device = mods["serve"], mods["serving_cache"], mods["plan_device"]
     get_config = mods["get_config"]
@@ -4727,6 +5039,13 @@ def run_all(torch, mods, dev, ckpt_dir, t_start) -> int:
     torch.cuda.empty_cache()
     log(f"mamba2 and moe: done ({time.perf_counter() - t0:.1f}s)")
     _, lt_counts, bwd_entry = lm_train_phase(torch, mods, dev)
+    _, st_counts, ssd_bwd_entry, fa_zamba_row = ssm_train_phase(torch, mods, dev)
+    lt_counts.update(st_counts)
+    bwd_entry["launches_by_run"].update(
+        {r: c["flash_attention_bwd"] for r, c in st_counts.items() if c["flash_attention_bwd"]})
+    bwd_entry["launches"] = sum(bwd_entry["launches_by_run"].values())
+    bwd_entry["max_abs_err"] = max(bwd_entry["max_abs_err"], fa_zamba_row["max_abs_err"])
+    bwd_entry["details"]["shapes"].append(fa_zamba_row)
 
     by_run = {"serve": counts, **train_counts, **q_counts, **ts_counts, **tt_counts,
               **mt_counts, **sh_counts, **rec_counts}
@@ -4789,6 +5108,7 @@ def run_all(torch, mods, dev, ckpt_dir, t_start) -> int:
             kernels[-1]["max_abs_err"] = max(kernels[-1]["max_abs_err"],
                                              *(f["max_abs_err"] for f in mamba2_shapes))
             kernels[-1]["details"] = {**lm_details[name], "mamba2_shapes": mamba2_shapes}
+            kernels.append(ssd_bwd_entry)
     log(f"total {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card_line(), flush=True)

@@ -3,8 +3,8 @@
 Port of ``gather_reduce``, ``gather_reduce_q``, ``fill``,
 ``fill_gather_reduce``, ``fill_gather_reduce_q``, ``coalesce_deltas`` and
 ``coalesce_apply`` of ``repro/kernels/ops.py``, for fp32, fp16 and int8
-storage, and of its LM kernels ``flash_attention`` (forward) and
-``ssd_chunk_scan``, for fp32 and bf16 activations. The wrappers own what
+storage, and of its LM kernels ``flash_attention`` and ``ssd_chunk_scan``,
+forward and backward, for fp32 and bf16 activations. The wrappers own what
 the raw launchers do not take:
 
   * natural shapes — leading batch/table dims of ``slot_ids`` are flattened
@@ -28,7 +28,10 @@ the raw launchers do not take:
     that require grad is one too (LM training): its backward is the
     hand-written ``flash_attention_bwd`` kernel; on the CPU torch's
     autograd differentiates the plain version, as the reference's
-    ``_fa_bwd`` differentiates its own;
+    ``_fa_bwd`` differentiates its own. So is ``ssd_chunk_scan`` (LM
+    training of the mamba layers): its backward is the hand-written
+    ``ssd_chunk_scan_bwd`` kernel, where the reference differentiates its
+    plain chunk loop;
   * quantized storage — ``gather_reduce_q`` and ``fill_gather_reduce_q``
     take the payload and its (N, 1) fp32 ``scale`` column, or
     ``scale=None`` for fp16 storage, whose kernels are the fp16 forms of
@@ -379,6 +382,29 @@ def flash_attention(
                                     q_offset=q_offset)
 
 
+class _SSDChunkScan(torch.autograd.Function):
+    """The SSD kernel with its hand-written backward
+    (``kernels/ssd_chunk.py: ssd_chunk_scan_bwd``): the forward saves its
+    operands, from which the backward kernel recomputes each chunk's
+    entering state (the reference differentiates its plain chunk loop,
+    ``repro/models/mamba2.py: ssd_scan``, by ``jax.vjp``)."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, Bm, Cm, Q):
+        ctx.set_materialize_grads(False)
+        y, h = _ssd.ssd_chunk_scan(x, dt, A, Bm, Cm, Q)
+        ctx.save_for_backward(x, dt, A, Bm, Cm)
+        ctx.Q = Q
+        return y, h
+
+    @staticmethod
+    def backward(ctx, dy, dh):
+        x, dt, A, Bm, Cm = ctx.saved_tensors
+        dy = torch.zeros_like(x) if dy is None else dy.contiguous()
+        dh = None if dh is None else dh.contiguous()
+        return (*_ssd.ssd_chunk_scan_bwd(x, dt, A, Bm, Cm, dy, dh, ctx.Q), None)
+
+
 def ssd_chunk_scan(
     x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.Tensor,
     Cm: torch.Tensor, chunk: int = 256,
@@ -387,7 +413,11 @@ def ssd_chunk_scan(
     (B, S, nh) fp32, A (nh,) fp32, Bm/Cm (B, S, ng, ds) fp32 -> (y (B, S,
     nh, hd) in x's dtype, h_final (B, nh, hd, ds) fp32), in chunks of
     ``min(chunk, S)`` (on the card at most 256 for bf16 ``x``: the
-    tensor-core kernel's limit)."""
+    tensor-core kernel's limit). On the card, with grad enabled and an
+    input that requires it, the call is differentiable through the backward
+    kernel (``_SSDChunkScan``); otherwise (prefill) it is the forward
+    kernel alone, launched as before. A CPU tensor takes the plain version,
+    which torch's autograd differentiates."""
     Bt, S, nh, hd = x.shape
     ds = Bm.shape[3]
     if min(Bt, S, nh, hd, ds) == 0:  # nothing to scan: no launch
@@ -395,6 +425,8 @@ def ssd_chunk_scan(
                 torch.zeros((Bt, nh, hd, ds), dtype=torch.float32, device=x.device))
     Q = min(chunk, S)
     if _route(x) == "cuda":
-        return _ssd.ssd_chunk_scan(x.contiguous(), dt.contiguous(), A.contiguous(),
-                                   Bm.contiguous(), Cm.contiguous(), Q)
+        args = [t.contiguous() for t in (x, dt, A, Bm, Cm)]
+        if _needs_grad(*args):
+            return _SSDChunkScan.apply(*args, Q)
+        return _ssd.ssd_chunk_scan(*args, Q)
     return _ref.ssd_chunk_scan_ref(x, dt, A, Bm, Cm, Q)

@@ -50,6 +50,10 @@ And of its LM half, held to a tolerance (the kernels sum in another order):
     see the same ``cum``. In fp32 at Q = 256, y lies about 5e-4 from the
     exact recurrence, as the reference's does (tests/test_torch_lm_kernels.
     py), more than the 2e-4 the kernel is held to against this version.
+  * ``ssd_chunk_scan_bwd_ref`` — that scan's vector-Jacobian product as
+    explicit formulas, chunk by chunk in reverse (the reference has no
+    Pallas backward: it differentiates its chunk loop, and the tests hold
+    this against ``jax.vjp`` of it).
 """
 from __future__ import annotations
 
@@ -337,3 +341,129 @@ def ssd_chunk_scan_ref(
         ys.append((y_intra + y_inter).to(x.dtype))
     y = torch.stack(ys, 1).reshape(Bt, nc * Q, nh, hd)[:, :S]
     return y, h.reshape(Bt, nh, hd, ds)
+
+
+def ssd_chunk_scan_bwd_ref(
+    x: torch.Tensor,  # (B, S, nh, hd)
+    dt: torch.Tensor,  # (B, S, nh) fp32, post-softplus
+    A: torch.Tensor,  # (nh,) fp32, negative
+    Bm: torch.Tensor,  # (B, S, ng, ds) fp32
+    Cm: torch.Tensor,  # (B, S, ng, ds) fp32
+    chunk: int,
+    dy: torch.Tensor,  # (B, S, nh, hd), the cotangent of y
+    dh_final=None,  # (B, nh, hd, ds), the cotangent of h_final; None is zero
+):
+    """The vector-Jacobian product of :func:`ssd_chunk_scan_ref` as explicit
+    formulas, computed in dt's dtype: returns (dx in x's dtype, ddt, dA,
+    dBm, dCm). The entering state of every chunk comes from a forward walk;
+    then, in reverse chunk order, with ``cum`` the chunk's inclusive prefix
+    sum of ``a = dt * A``, ``total = cum[Q-1]``, ``w_ij = exp(cum_i -
+    cum_j) dt_j`` (i >= j, masked inside the exp), ``s_ij = (C_i . B_j)
+    w_ij``, ``dS_ij = dy_i . x_j`` and ``wj_j = exp(total - cum_j) dt_j``:
+
+      * the state: ``dh_in = exp(total) dh_out + sum_i exp(cum_i) dy_i (x) C_i``;
+      * the (Q, Q) form: ``dx_j += sum_i s_ij dy_i``, ``dC_i += sum_j (w_ij
+        dS_ij) B_j``, ``dB_j += sum_i (w_ij dS_ij) C_i``, ``ddt_j += sum_i
+        (C_i . B_j) exp(cum_i - cum_j) dS_ij``, and ``dcum`` gains the row
+        sums of ``s_ij dS_ij`` at i and loses their column sums at j;
+      * the carried state: ``dC_i += exp(cum_i) h_in^T dy_i``, ``dx_j +=
+        wj_j dh_out B_j``, ``dB_j += wj_j dh_out^T x_j``, ``ddt_j +=
+        exp(total - cum_j) u_j`` with ``u_j = x_j . dh_out B_j``; ``dcum_i
+        += exp(cum_i) dy_i . h_in C_i``, ``dcum_j -= wj_j u_j``, and
+        ``dcum[Q-1] += sum_j wj_j u_j + exp(total) <dh_out, h_in>``;
+      * the decay exponents: ``da`` is the reverse prefix sum of ``dcum``
+        within the chunk, accumulated in fp64 and rounded once (as the
+        forward's prefix sum); ``ddt += A da``, and ``dA`` sums ``dt da``
+        over each chunk in fp64, then over (batch, chunk).
+
+    ``dB``/``dC`` are summed over the heads of a group. A ragged S is
+    zero-padded (positions past S carry no cotangent) and cut off again.
+    The oracle of ``kernels/ssd_chunk.py: ssd_chunk_scan_bwd``; the tests
+    hold it against ``jax.vjp`` of ``repro/models/mamba2.py: ssd_scan``."""
+    Bt, S, nh, hd = x.shape
+    ng, ds = Bm.shape[2], Bm.shape[3]
+    hpg = nh // ng
+    f = dt.dtype
+    Q = min(chunk, S)
+    pad = (-S) % Q
+    if pad:
+        x, dy = (torch.nn.functional.pad(t, (0, 0, 0, 0, 0, pad)) for t in (x, dy))
+        dt = torch.nn.functional.pad(dt, (0, 0, 0, pad))
+        Bm, Cm = (torch.nn.functional.pad(t, (0, 0, 0, 0, 0, pad)) for t in (Bm, Cm))
+    nc = (S + pad) // Q
+    xg = x.reshape(Bt, nc, Q, ng, hpg, hd).to(f)
+    dyg = dy.reshape(Bt, nc, Q, ng, hpg, hd).to(f)
+    dtg = dt.reshape(Bt, nc, Q, ng, hpg)
+    Bg = Bm.reshape(Bt, nc, Q, ng, ds)
+    Cg = Cm.reshape(Bt, nc, Q, ng, ds)
+    Ag = A.reshape(ng, hpg)
+    tri = torch.ones((Q, Q), dtype=torch.bool, device=x.device).tril()[
+        None, :, :, None, None]  # i >= j
+    neg_inf = torch.full((), -math.inf, dtype=f, device=x.device)
+
+    def prefix(c):
+        cum = torch.cumsum(dtg[:, c] * Ag, dim=1, dtype=torch.float64).to(f)
+        return cum, cum[:, -1]  # (B, Q, ng, hpg), (B, ng, hpg)
+
+    h = torch.zeros((Bt, ng, hpg, hd, ds), dtype=f, device=x.device)
+    h_in = []
+    for c in range(nc):  # the forward's state walk: the state entering each chunk
+        h_in.append(h)
+        cum, total = prefix(c)
+        wj = torch.exp(total[:, None] - cum) * dtg[:, c]
+        h = h * torch.exp(total)[..., None, None] + torch.einsum(
+            "bjgnd,bjgns->bgnds", xg[:, c], Bg[:, c][:, :, :, None, :] * wj[..., None])
+    if dh_final is None:
+        dh = torch.zeros_like(h)
+    else:
+        dh = dh_final.to(f).reshape(Bt, ng, hpg, hd, ds)
+    dxs, ddts, dBs, dCs, dA_parts = [], [], [], [], []
+    for c in reversed(range(nc)):
+        xc, dyc, dtc, Bc, Cc, hin = xg[:, c], dyg[:, c], dtg[:, c], Bg[:, c], Cg[:, c], h_in[c]
+        cum, total = prefix(c)
+        # the (Q, Q) form
+        G = torch.einsum("bigs,bjgs->bgij", Cc, Bc)
+        decay = torch.exp(torch.where(tri, cum[:, :, None] - cum[:, None, :], neg_inf))
+        decay = decay.permute(0, 3, 1, 2, 4)  # (B, ng, i, j, hpg)
+        w_ij = decay * dtc.permute(0, 2, 1, 3)[:, :, None]
+        dS = torch.einsum("bignd,bjgnd->bgijn", dyc, xc)
+        s = G[..., None] * w_ij
+        dx = torch.einsum("bgijn,bignd->bjgnd", s, dyc)
+        dG = (w_ij * dS).sum(-1)  # over the group's heads
+        dC = torch.einsum("bgij,bjgs->bigs", dG, Bc)
+        dB = torch.einsum("bgij,bigs->bjgs", dG, Cc)
+        ddt = (G[..., None] * decay * dS).sum(2).permute(0, 2, 1, 3)  # (B, j, ng, hpg)
+        P = s * dS
+        dcum = (P.sum(3) - P.sum(2)).permute(0, 2, 1, 3)  # (B, Q, ng, hpg)
+        # the carried state: y_i += exp(cum_i) C_i . h_in
+        ecum = torch.exp(cum)
+        q = torch.einsum("bignd,bgnds->bigns", dyc, hin)
+        dC = dC + torch.einsum("bign,bigns->bigs", ecum, q)
+        dcum = dcum + ecum * torch.einsum("bigs,bigns->bign", Cc, q)
+        dh_local = torch.einsum("bignd,bigs->bgnds", dyc * ecum[..., None], Cc)
+        # ... and h_out = exp(total) h_in + sum_j wj_j x_j (x) B_j
+        et = torch.exp(total[:, None] - cum)
+        wj = et * dtc
+        Hb = torch.einsum("bgnds,bjgs->bjgnd", dh, Bc)
+        dx = dx + wj[..., None] * Hb
+        u = (xc * Hb).sum(-1)
+        dB = dB + torch.einsum("bjgnd,bgnds->bjgs", xc * wj[..., None], dh)
+        ddt = ddt + et * u
+        dcum = dcum - wj * u
+        dcum[:, -1] += (wj * u).sum(1) + torch.exp(total) * (dh * hin).sum((-2, -1))
+        dh = dh * torch.exp(total)[..., None, None] + dh_local
+        # the decay exponents: a = dt * A, cum its prefix sum
+        da = torch.flip(torch.cumsum(torch.flip(dcum, (1,)), 1, dtype=torch.float64),
+                        (1,)).to(f)
+        ddt = ddt + Ag * da
+        dA_parts.append((dtc * da).sum(1, dtype=torch.float64).reshape(Bt, nh))
+        dxs.append(dx.reshape(Bt, Q, nh, hd))
+        ddts.append(ddt.reshape(Bt, Q, nh))
+        dBs.append(dB)
+        dCs.append(dC)
+
+    def join(parts):  # reverse chunk order -> (B, S, ...)
+        return torch.cat(parts[::-1], 1)[:, :S]
+
+    dA = torch.stack(dA_parts[::-1], 1).sum((0, 1)).to(f)  # (B, nc, nh) in fp64
+    return (join(dxs).to(x.dtype), join(ddts), dA, join(dBs), join(dCs))

@@ -13,11 +13,16 @@ the current stream, raises on the launch's CUDA error, and counts each CALL in
 its CUDA launches). The library is built and loaded at the first launch,
 never at import. Empty operands and the CPU dispatch live in
 ``kernels/ops.py``.
+
+:func:`ssd_chunk_scan_bwd` launches the hand-written backward of
+``csrc/ssd_chunk_bwd.cu`` (five CUDA launches per call, both dtypes, one
+count in :data:`LAUNCHES`), with the fp32 and fp64 workspaces it allocates
+here (:func:`bwd_workspace_shapes`); the source holds its design note.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -25,7 +30,7 @@ from repro_torch.kernels.gather_reduce import _check
 
 #: kernel calls since the last reset — one is added where a call's
 #: launches succeed, and nowhere else
-LAUNCHES = {"ssd_chunk_scan": 0}
+LAUNCHES = {"ssd_chunk_scan": 0, "ssd_chunk_scan_bwd": 0}
 
 #: the kernel each dtype of ``x`` runs (the design note is in the source)
 ROUTES = {
@@ -37,6 +42,7 @@ ROUTES = {
 }
 
 _LIB: Optional[ctypes.CDLL] = None
+_BWD_LIB: Optional[ctypes.CDLL] = None
 MAX_DIM = 128  # head dim and state dim
 MAX_SMEM = 232_448  # dynamic shared memory a block may use on sm_90
 MAX_CHUNK_BF16 = 256  # the tensor-core route: 16 row tiles of 16, two per warp
@@ -82,15 +88,9 @@ def _lib() -> ctypes.CDLL:
     return _LIB
 
 
-def ssd_chunk_scan(
-    x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.Tensor,
-    Cm: torch.Tensor, Q: int,
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x (B, S, nh, hd) fp32 or bf16; dt (B, S, nh), A (nh,), Bm/Cm
-    (B, S, ng, ds) fp32; all contiguous on one CUDA device; nh % ng == 0,
-    hd, ds <= 128, no dim empty; ``Q`` the chunk (S need not be a multiple;
-    at most 256 for bf16) -> (y (B, S, nh, hd) in x's dtype, h_final
-    (B, nh, hd, ds) fp32)."""
+def _check_operands(x, dt, A, Bm, Cm, Q: int) -> Tuple[int, ...]:
+    """The forward's operand checks (the backward's too) -> (Bt, S, nh, hd,
+    ng, ds)."""
     if x.device.type != "cuda":
         raise ValueError(f"CUDA kernel called on a {x.device} tensor")
     dev = x.device
@@ -112,6 +112,20 @@ def ssd_chunk_scan(
     if hd > MAX_DIM or ds > MAX_DIM or Q <= 0:
         raise ValueError(f"head dim {hd}, state dim {ds} (<= {MAX_DIM}) and chunk {Q} "
                          "(> 0): the kernel does not take them")
+    return Bt, S, nh, hd, ng, ds
+
+
+def ssd_chunk_scan(
+    x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.Tensor,
+    Cm: torch.Tensor, Q: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x (B, S, nh, hd) fp32 or bf16; dt (B, S, nh), A (nh,), Bm/Cm
+    (B, S, ng, ds) fp32; all contiguous on one CUDA device; nh % ng == 0,
+    hd, ds <= 128, no dim empty; ``Q`` the chunk (S need not be a multiple;
+    at most 256 for bf16) -> (y (B, S, nh, hd) in x's dtype, h_final
+    (B, nh, hd, ds) fp32)."""
+    Bt, S, nh, hd, ng, ds = _check_operands(x, dt, A, Bm, Cm, Q)
+    dev = x.device
     work = None  # the bf16 route's workspace, checked before the build
     if x.dtype == torch.bfloat16:
         work = torch.empty(workspace_shape(Bt, S, ng, ds, Q), dtype=torch.float32,
@@ -138,3 +152,81 @@ def ssd_chunk_scan(
             f"CUDA launch of ssd_chunk_scan failed: {what} (cudaError {err})")
     LAUNCHES["ssd_chunk_scan"] += 1
     return y, h
+
+
+def bwd_workspace_shapes(Bt: int, S: int, nh: int, hd: int, ng: int, ds: int,
+                         Q: int) -> Dict[str, Tuple[Tuple[int, ...], torch.dtype]]:
+    """The backward's workspaces by name -> (shape, dtype), nc = ceil(S /
+    Q): ``Hs``/``dHs`` each chunk's entering state and the cotangent of its
+    leaving state (Bt, nh, nc, hd, ds); ``tot`` each chunk's total decay
+    exponent (Bt, nh, nc); ``dBp``/``dCp`` dB and dC per head, before the
+    sum over a group's heads (Bt, S, nh, ds); ``dAp`` dA per (b, chunk), in
+    fp64 (Bt, nc, nh)."""
+    nc = -(-S // Q)
+    f32 = torch.float32
+    return {"Hs": ((Bt, nh, nc, hd, ds), f32), "dHs": ((Bt, nh, nc, hd, ds), f32),
+            "tot": ((Bt, nh, nc), f32), "dBp": ((Bt, S, nh, ds), f32),
+            "dCp": ((Bt, S, nh, ds), f32), "dAp": ((Bt, nc, nh), torch.float64)}
+
+
+def _bwd_lib() -> ctypes.CDLL:
+    global _BWD_LIB
+    if _BWD_LIB is None:
+        from repro_torch.kernels import _build
+
+        lib = ctypes.CDLL(str(_build.library_path("ssd_chunk_bwd")))
+        ptr, i32 = ctypes.c_void_p, ctypes.c_int
+        lib.repro_ssd_chunk_scan_bwd.argtypes = [ptr] * 18 + [i32] * 8 + [ptr]
+        lib.repro_ssd_chunk_scan_bwd.restype = i32
+        lib.repro_ssd_bwd_smem_bytes.argtypes = [i32, i32, i32]
+        lib.repro_ssd_bwd_smem_bytes.restype = ctypes.c_longlong
+        lib.repro_cuda_error_string.argtypes = [i32]
+        lib.repro_cuda_error_string.restype = ctypes.c_char_p
+        _BWD_LIB = lib
+    return _BWD_LIB
+
+
+def ssd_chunk_scan_bwd(
+    x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.Tensor,
+    Cm: torch.Tensor, dy: torch.Tensor, dh_final: Optional[torch.Tensor], Q: int,
+) -> Tuple[torch.Tensor, ...]:
+    """The vector-Jacobian product of :func:`ssd_chunk_scan` at its
+    operands: ``dy`` (B, S, nh, hd) in x's dtype, ``dh_final`` (B, nh, hd,
+    ds) fp32 or None (a zero cotangent), all contiguous on x's device ->
+    (dx in x's dtype, ddt (B, S, nh), dA (nh,), dBm, dCm (B, S, ng, ds), all
+    fp32 but dx). Takes what the forward takes, at any chunk whose shared
+    memory fits a block (``repro_ssd_bwd_smem_bytes``)."""
+    Bt, S, nh, hd, ng, ds = _check_operands(x, dt, A, Bm, Cm, Q)
+    dev = x.device
+    _check(dy, "dy", x.dtype, dev)
+    if dy.shape != x.shape:
+        raise ValueError(f"dy {tuple(dy.shape)} is not shaped as x {tuple(x.shape)}")
+    if dh_final is not None:
+        _check(dh_final, "dh_final", torch.float32, dev)
+        if dh_final.shape != (Bt, nh, hd, ds):
+            raise ValueError(f"dh_final {tuple(dh_final.shape)} is not (B, nh, hd, ds) = "
+                             f"{(Bt, nh, hd, ds)}")
+    lib = _bwd_lib()
+    smem = lib.repro_ssd_bwd_smem_bytes(hd, ds, Q)
+    if smem > MAX_SMEM:
+        raise ValueError(f"chunk {Q} at hd {hd}, ds {ds} needs {smem} bytes of shared "
+                         f"memory, more than a block's {MAX_SMEM}")
+    work = {k: torch.empty(shape, dtype=dt_, device=dev)
+            for k, (shape, dt_) in bwd_workspace_shapes(Bt, S, nh, hd, ng, ds, Q).items()}
+    dx = torch.empty_like(x)
+    ddt = torch.empty_like(dt)
+    dA = torch.empty_like(A)
+    dBm = torch.empty_like(Bm)
+    dCm = torch.empty_like(Cm)
+    ptrs = [x, dt, A, Bm, Cm, dy, dh_final, work["Hs"], work["dHs"], work["tot"],
+            work["dBp"], work["dCp"], work["dAp"], dx, ddt, dA, dBm, dCm]
+    with torch.cuda.device(dev):
+        err = lib.repro_ssd_chunk_scan_bwd(
+            *(None if t is None else t.data_ptr() for t in ptrs), Bt, S, nh, hd, ng, ds, Q,
+            int(x.dtype == torch.bfloat16), torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        what = lib.repro_cuda_error_string(err).decode()
+        raise RuntimeError(
+            f"CUDA launch of ssd_chunk_scan_bwd failed: {what} (cudaError {err})")
+    LAUNCHES["ssd_chunk_scan_bwd"] += 1
+    return dx, ddt, dA, dBm, dCm

@@ -1,9 +1,11 @@
 """The LM train step of the port.
 
-Port of ``make_train_step`` of ``repro/launch/steps.py`` at one card:
-loss and backward (``models/api.py: make_loss_fn``; on the card the flash
-kernel and its backward kernel once per layer), ``clip_by_global_norm(1.0)``
-and an ``AdamW`` step with fp32 master weights, in the reference's order.
+Port of ``make_train_step`` of ``repro/launch/steps.py`` at one card, for
+every LM family: loss and backward (``models/api.py: make_loss_fn``; on the
+card the flash kernel and its backward kernel once per attention layer or
+shared-block application, the SSD kernel and its backward kernel once per
+mamba layer), ``clip_by_global_norm(1.0)`` and an ``AdamW`` step with fp32
+master weights, in the reference's order.
 
 Not carried over: the ``embed_offload`` train step (the embedding rows as
 an activation input; no config sets ``embed_offload``), the specs and

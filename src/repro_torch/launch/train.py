@@ -1,8 +1,9 @@
 """Training launcher of the port: the paper's DLRM through a cache runtime,
-and LM training of the transformer families.
+and LM training of every LM family.
 
-Port of ``repro/launch/train.py``. LM archs (the dense, encoder, vlm and
-MoE transformers) train through :func:`train_lm`:
+Port of ``repro/launch/train.py``. LM archs (every family: the hybrid
+zamba2-1.2b, the ssm mamba2-2.7b and the dense, encoder, vlm and MoE
+transformers) train through :func:`train_lm`:
 
     python -m repro_torch.launch.train --arch chatglm3-6b --batch 4 \
         [--smoke] [--steps N] [--seq-len S] [--lr 3e-4] [--seed 0] \
@@ -11,7 +12,8 @@ MoE transformers) train through :func:`train_lm`:
 random params from ``--seed`` (a ``torch.Generator`` on the device), the
 reference's synthetic batches (``seed + i`` for step i), the train step of
 ``launch/steps.py`` (loss and backward; on the card the flash kernel and
-its backward kernel; global-norm clip 1.0; AdamW with fp32 masters) under
+its backward kernel; the SSD kernel and its backward kernel for the mamba
+layers; global-norm clip 1.0; AdamW with fp32 masters) under
 ``runtime.TrainSupervisor`` (checkpoints every ``--ckpt-every`` steps,
 restore + replay on a failure), printing the reference's ``done:`` line.
 Without ``--smoke`` the sequence is the reference's ``train_4k`` 4096
@@ -19,9 +21,10 @@ tokens, but the batch is ``--batch`` (default 8), not its global 256: one
 card holds neither 256 x 4096 tokens of activations nor, at full depth,
 the 16 bytes a parameter of bf16 params, grads and fp32 m, v and master
 of the larger configs. ``--seq-len`` overrides the sequence (the smoke
-default is the reference's 128). The hybrid and ssm families (zamba2,
-mamba2) raise: their SSD kernel has no backward yet (ROADMAP.md Queue 1
-item 20).
+default is the reference's 128). The depth is the config's: a caller of
+:func:`train_lm` cuts it through ``cfg`` (``num_layers``, or for the
+hybrid ``hybrid_groups``, ``hybrid_layers_per_group`` and
+``hybrid_tail_layers``).
 
 The DLRM branch: host-resident tables, the ScratchPipe pipeline (or a
 baseline) and the DLRM [Train] stage, on the card:

@@ -4,9 +4,7 @@ card, and synthetic batches.
 Port of ``repro/models/api.py`` for the serving paths of every LM family
 of the reference: ``hybrid`` (zamba2-1.2b), ``ssm`` (mamba2-2.7b) and the
 ``dense``, ``moe``, ``encoder`` and ``vlm`` transformer families, and the
-training loss of the transformer families (``make_loss_fn``; the hybrid
-and ssm families need a backward of the SSD kernel, ROADMAP.md Queue 1
-item 20). One card:
+training loss of every one of them (``make_loss_fn``). One card:
 TP = 1, so nothing is padded and there are no mesh, specs or shardings.
 ``synth_batch`` draws from the same numpy generator in the same order as
 the reference, so its tokens, frames and patches equal the reference's.
@@ -51,18 +49,14 @@ def init(cfg: ModelConfig, gen: torch.Generator, device=None):
 
 
 #: the families whose training the port carries (``make_loss_fn``)
-TRAINABLE = ("dense", "moe", "encoder", "vlm")
+TRAINABLE = ("hybrid", "ssm", "dense", "moe", "encoder", "vlm")
 
 
 def make_loss_fn(cfg: ModelConfig):
-    """``loss(params, batch)`` -> the fp32 training loss (cross entropy plus
-    the MoE aux loss) of a transformer family. ``hybrid`` and ``ssm`` raise:
-    their ``ssd_scan`` is the SSD kernel, which has no backward yet."""
+    """``loss(params, batch)`` -> the fp32 training loss of ``cfg``'s
+    family: the cross entropy, plus the MoE aux loss for the ``moe``
+    family."""
     rc, _ = runtime_config(cfg)
-    if rc.family not in TRAINABLE:
-        raise NotImplementedError(
-            f"LM training of the {rc.family!r} family ({cfg.name}) is not ported: its "
-            "mamba layers need a backward of the SSD kernel (ROADMAP.md Queue 1 item 20)")
     mod = family_module(rc)
 
     def loss(params, batch):

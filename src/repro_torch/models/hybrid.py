@@ -1,27 +1,31 @@
-"""Zamba2-style hybrid LM, serving half: groups of mamba2 layers interleaved
-with a SHARED attention block (weights reused at every application,
-zamba-style concat of the original embedding stream), plus a mamba tail.
+"""Zamba2-style hybrid LM: groups of mamba2 layers interleaved with a SHARED
+attention block (weights reused at every application, zamba-style concat of
+the original embedding stream), plus a mamba tail. Serving and training.
 
-Port of ``init_params``, ``init_cache``, ``prefill`` and ``decode_step`` of
-``repro/models/hybrid.py`` (one card: no mesh). Structure (cfg.hybrid_*): G
-groups x m mamba layers, each group followed by one application of the
-shared block; then ``tail`` mamba layers. The reference stacks the layers
-of a group on leading axes and scans them; the port keeps a list of
-per-layer parameter dicts (``params["groups"][g][i]``, ``params["tail"][i]``)
-and loops. Prefill reaches the two kernels: one ``ssd_chunk_scan`` per mamba
-layer and one ``flash_attention`` per shared-block application. Decode is
-plain torch against the caches, which it updates in place: ``cache["k"]`` /
-``cache["v"]`` (G, B, S, K, hd) stacked as in the reference, and one state
-dict per mamba layer (``cache["groups"][g][i]``, ``cache["tail"][i]``).
-``forward_hidden``, ``_shared_forward`` and ``loss_fn`` belong to the hybrid
-family's training, which needs a backward of the SSD kernel (ROADMAP.md
-Queue 1 item 20).
+Port of ``repro/models/hybrid.py`` (one card: no mesh). Structure
+(cfg.hybrid_*): G groups x m mamba layers, each group followed by one
+application of the shared block; then ``tail`` mamba layers. The reference
+stacks the layers of a group on leading axes and scans them; the port keeps
+a list of per-layer parameter dicts (``params["groups"][g][i]``,
+``params["tail"][i]``) and loops. Prefill reaches the two kernels: one
+``ssd_chunk_scan`` per mamba layer and one ``flash_attention`` per
+shared-block application. Decode is plain torch against the caches, which it
+updates in place: ``cache["k"]`` / ``cache["v"]`` (G, B, S, K, hd) stacked as
+in the reference, and one state dict per mamba layer
+(``cache["groups"][g][i]``, ``cache["tail"][i]``). Training
+(:func:`loss_fn`, the reference's) runs the same layers with the grad on,
+each mamba layer and each shared-block application under
+``torch.utils.checkpoint`` (the reference checkpoints its group body and
+its stack body): per step the SSD kernel runs twice a mamba layer and its
+backward kernel once, the flash kernel twice an application and its
+backward kernel once.
 """
 from __future__ import annotations
 
 import math
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import layers as L
 from repro_torch.models import mamba2 as M
@@ -47,6 +51,19 @@ def _init_shared_block(gen: torch.Generator, cfg, device):
             "w_down": normal((F, D), 1.0 / math.sqrt(F)),
         },
     }
+
+
+def _shared_forward(cfg, sp, x, x0, positions):
+    """One application of the shared attention block in training.
+    concat([x, x0]) @ W is computed as x @ W_hi + x0 @ W_lo, as the
+    reference does (the same math, without the (B, S, 2D) concat)."""
+    D = cfg.d_model
+    u = x @ sp["concat_proj"][:D] + x0 @ sp["concat_proj"][D:]
+    h = L.rms_norm(u, sp["attn_norm"], cfg.norm_eps)
+    x = x + L.attention_forward(sp["attn"], h, positions, cfg)[0]
+    h = L.rms_norm(x, sp["mlp_norm"], cfg.norm_eps)
+    m = sp["mlp"]
+    return x + L.swiglu(h, m["w_gate"], m["w_up"], m["w_down"])
 
 
 def _shared_decode(cfg, sp, x, x0, pos, kc, vc):
@@ -85,6 +102,30 @@ def init_params(cfg, gen: torch.Generator, vocab_pad: int, device=None):
     if tail:
         params["tail"] = [M.init_mamba_layer(gen, cfg, device) for _ in range(tail)]
     return params
+
+
+def forward_hidden(params, cfg, batch):
+    """The training forward: the final-normed hidden states (B, S, D)."""
+    x0 = T.embed_tokens(params, cfg, batch["tokens"])
+    B, S, _ = x0.shape
+    positions = torch.arange(S, dtype=torch.int32, device=x0.device)[None].expand(B, S)
+    shared = params["shared"]
+    x = x0
+    for gp in params["groups"]:
+        x = M.train_stack(cfg, gp, x)
+        x = checkpoint(_shared_forward, cfg, shared, x, x0, positions, use_reentrant=False)
+    if cfg.hybrid_tail_layers:
+        x = M.train_stack(cfg, params["tail"], x)
+    return L.rms_norm(x, params["final_norm"], cfg.norm_eps)
+
+
+def loss_fn(params, cfg, batch):
+    """The training loss: the chunked cross entropy of the hidden states
+    against ``batch["labels"]`` through ``lm_head`` (``loss_mask``
+    optional); an fp32 scalar."""
+    x = forward_hidden(params, cfg, batch)
+    return C.sharded_xent_loss(x, params["lm_head"].to(x.dtype), batch["labels"],
+                               batch.get("loss_mask"), true_vocab=cfg.vocab_size)
 
 
 # ---------------------------------------------------------------------------

@@ -12,9 +12,12 @@ plain torch. Parameters are plain dicts of tensors in the reference's
 layouts; states are dicts ``{"conv_x", "conv_B", "conv_C", "ssm"}`` of one
 layer. :func:`prefill_stack` and :func:`decode_stack` run a list of layers
 for the hybrid (``models/hybrid.py``) and ssm (``models/ssm_lm.py``)
-families. The reference's ``h0`` (a carried-in state) and ``ssd_bf16``
-(``low_prec``) are not carried over: no caller or config of the reference
-sets them (:func:`ssd_scan` raises on both).
+families, and :func:`train_stack` runs it for their training: each layer
+under ``torch.utils.checkpoint``, so the SSD kernel runs forward, again in
+the recompute, and its backward kernel (``kernels/ops.py: _SSDChunkScan``)
+once per layer per step. The reference's ``h0`` (a carried-in state) and
+``ssd_bf16`` (``low_prec``) are not carried over: no caller or config of the
+reference sets them (:func:`ssd_scan` raises on both).
 """
 from __future__ import annotations
 
@@ -23,6 +26,7 @@ from typing import Dict, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
@@ -254,6 +258,22 @@ def prefill_stack(cfg, h, layers):
         })
         h = out
     return h, states
+
+
+def train_layer(cfg, p, x):
+    """One layer of the training forward: its output (the final SSM state
+    is dropped, as the reference's scan body drops it)."""
+    return mamba_layer_forward(cfg, p, x)[0]
+
+
+def train_stack(cfg, layers, x):
+    """The layers in order over x (B, S, D), each recomputed in the backward
+    (non-reentrant ``torch.utils.checkpoint``: only its input is kept), as
+    the reference's ``jax.checkpoint`` of its scan body at its default
+    ``remat``."""
+    for lp in layers:
+        x = checkpoint(train_layer, cfg, lp, x, use_reentrant=False)
+    return x
 
 
 def decode_stack(cfg, h, layers, states):

@@ -1,17 +1,17 @@
-"""Mamba2 LM (attention-free, mamba2-2.7b), serving half: embedding +
-mamba2 blocks + tied head.
+"""Mamba2 LM (attention-free, mamba2-2.7b): embedding + mamba2 blocks + tied
+head. Serving and training.
 
-Port of ``init_params``, ``init_cache``, ``prefill`` and ``decode_step`` of
-``repro/models/ssm_lm.py`` (one card: no mesh). The reference stacks the
-layers on a leading [L] axis and scans them; the port keeps a list of
-per-layer parameter dicts (``params["layers"][i]``) and a list of per-layer
-decode states (``cache["layers"][i]``, each ``{"conv_x", "conv_B",
-"conv_C", "ssm"}``) and loops. Prefill reaches the SSD kernel once per
-layer (``mamba2.prefill_stack``, which the hybrid family shares); decode is
-plain torch against the states, which it updates in place. The SSM state
-is O(1) in the sequence length, so the cache never grows. ``forward_hidden``
-and ``loss_fn`` belong to the ssm family's training, which needs a backward
-of the SSD kernel (ROADMAP.md Queue 1 item 20).
+Port of ``repro/models/ssm_lm.py`` (one card: no mesh). The reference
+stacks the layers on a leading [L] axis and scans them; the port keeps a
+list of per-layer parameter dicts (``params["layers"][i]``) and a list of
+per-layer decode states (``cache["layers"][i]``, each ``{"conv_x",
+"conv_B", "conv_C", "ssm"}``) and loops. Prefill reaches the SSD kernel once
+per layer (``mamba2.prefill_stack``, which the hybrid family shares); decode
+is plain torch against the states, which it updates in place. The SSM state
+is O(1) in the sequence length, so the cache never grows. Training
+(:func:`loss_fn`, the reference's) runs the layers through
+``mamba2.train_stack``: each under ``torch.utils.checkpoint``, the SSD
+kernel twice a layer a step and its backward kernel once.
 """
 from __future__ import annotations
 
@@ -36,6 +36,22 @@ def init_params(cfg, gen: torch.Generator, vocab_pad: int, device=None):
     if not cfg.tie_embeddings:
         params["lm_head"] = L.normal(gen, (cfg.d_model, vocab_pad), 0.02, dt, device)
     return params
+
+
+def forward_hidden(params, cfg, batch):
+    """The training forward: the final-normed hidden states (B, S, D)."""
+    x = T.embed_tokens(params, cfg, batch["tokens"])
+    x = M.train_stack(cfg, params["layers"], x)
+    return L.rms_norm(x, params["final_norm"], cfg.norm_eps)
+
+
+def loss_fn(params, cfg, batch):
+    """The training loss: the chunked cross entropy of the hidden states
+    against ``batch["labels"]`` through the head (``embed.T`` when tied, as
+    mamba2-2.7b is; ``loss_mask`` optional); an fp32 scalar."""
+    x = forward_hidden(params, cfg, batch)
+    return C.sharded_xent_loss(x, T.head_weight(params, cfg).to(x.dtype), batch["labels"],
+                               batch.get("loss_mask"), true_vocab=cfg.vocab_size)
 
 
 def init_cache(cfg, batch_size: int, seq_len: int = 0, device="cpu"):

@@ -1266,3 +1266,181 @@ def test_cuda_flash_attention_bwd_checks_operands(cuda):
         tfa.flash_attention_bwd(q, q, q, q, lse, q[:, :4], True, None)
     with pytest.raises(ValueError, match="lse"):
         tfa.flash_attention(q, q, q, True, None, lse=lse[:, :2])
+
+
+# --------------------------------------------------------------------------- #
+# the SSD backward (LM training of the mamba layers): the kernel against the
+# explicit formulas of ref.ssd_chunk_scan_bwd_ref on the same operands. fp32:
+# every output within 1e-4 of its largest |plain| (sums in another order),
+# or, where the fp32 plain version is itself further than that from the same
+# formulas in fp64, no further from the fp64 result than twice the plain
+# version is: dA sums dt da over every position of a head, and with few heads
+# its largest value can be far below its addends (measured on the card at 2
+# heads x 600 positions: the fp32 plain dA 2.0e-4 of max |dA| from fp64, the
+# kernel's 1.7e-4, the two 3.7e-4 apart; every other output within 2.4e-5 of
+# fp64). bf16 x
+# (dx rounded to bf16 once, the rest fp32): within 1e-2 of the plain output
+# in the Frobenius norm
+# --------------------------------------------------------------------------- #
+_SSD_BWD_MAX, _SSD_BWD_REL = 1e-4, 1e-2
+_SSD_BWD_NAMES = ("dx", "ddt", "dA", "dBm", "dCm")
+
+
+def _ssd_operands(dtype, cuda, B, S, ng, hpg, hd, ds, dh_final=False):
+    nh = ng * hpg
+    x = _lm_tensor((B, S, nh, hd), dtype, cuda)
+    dt = _lm_tensor((B, S, nh), torch.float32, cuda, 0.05, 1.0)
+    A = -_lm_tensor((nh,), torch.float32, cuda, 0.3, 4.0)
+    Bm = _lm_tensor((B, S, ng, ds), torch.float32, cuda)
+    Cm = _lm_tensor((B, S, ng, ds), torch.float32, cuda)
+    dy = _lm_tensor((B, S, nh, hd), dtype, cuda)
+    dh = _lm_tensor((B, nh, hd, ds), torch.float32, cuda) if dh_final else None
+    return x, dt, A, Bm, Cm, dy, dh
+
+
+def _plain_bwd64(x, dt, A, Bm, Cm, Q, dy, dh):
+    """The plain backward's formulas in fp64 on the same operands."""
+    return tref.ssd_chunk_scan_bwd_ref(*(t.double() for t in (x, dt, A, Bm, Cm)), Q,
+                                       dy.double(), None if dh is None else dh.double())
+
+
+def _assert_ssd_bwd_close(got, want, dtype, want64=None):
+    for i, (name, g, w) in enumerate(zip(_SSD_BWD_NAMES, got, want)):
+        assert g.dtype == w.dtype and g.shape == w.shape, name
+        diff = g.float() - w.float()
+        if dtype == torch.float32:
+            err, scale = diff.abs().max().item(), w.abs().max().item()
+            if err > _SSD_BWD_MAX * scale and want64 is not None:
+                plain_err = (w.double() - want64[i]).abs().max().item()
+                err = (g.double() - want64[i]).abs().max().item()
+                assert err <= max(_SSD_BWD_MAX * scale, 2 * plain_err), (name, err, plain_err)
+            else:
+                assert err <= _SSD_BWD_MAX * scale, (name, err, scale)
+        else:
+            rel = (torch.linalg.vector_norm(diff)
+                   / torch.linalg.vector_norm(w.float())).item()
+            assert rel <= _SSD_BWD_REL, (name, rel)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize(
+    "B,S,ng,hpg,hd,ds,Q,dh_final",
+    [
+        (2, 32, 1, 4, 8, 16, 8, False), (1, 40, 2, 3, 16, 8, 16, True),  # ragged, ng 2
+        (1, 10, 1, 2, 8, 4, 16, True),  # S < Q
+        (1, 200, 1, 2, 64, 64, 64, False), (1, 300, 1, 2, 64, 128, 128, True),
+        (1, 257, 1, 2, 96, 32, 256, False),  # hd 96, one position past a chunk
+        (2, 700, 2, 8, 64, 64, 256, True),  # zamba2's widths, ng 2, ragged
+        (1, 1024, 1, 16, 64, 128, 256, False),  # mamba2-2.7b's widths
+        (1, 600, 1, 2, 128, 128, 256, True),  # the widest: 226 KB of shared memory
+    ],
+)
+def test_cuda_ssd_chunk_scan_bwd_vs_plain(cuda, dtype, B, S, ng, hpg, hd, ds, Q, dh_final):
+    x, dt, A, Bm, Cm, dy, dh = _ssd_operands(dtype, cuda, B, S, ng, hpg, hd, ds, dh_final)
+    got = tssd.ssd_chunk_scan_bwd(x, dt, A, Bm, Cm, dy, dh, Q)
+    want = tref.ssd_chunk_scan_bwd_ref(x, dt, A, Bm, Cm, Q, dy, dh)
+    torch.cuda.synchronize()
+    _assert_ssd_bwd_close(got, want, dtype, _plain_bwd64(x, dt, A, Bm, Cm, Q, dy, dh))
+    assert tops.launch_counts()["ssd_chunk_scan_bwd"] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_cuda_ssd_scan_trains_through_the_backward_kernel(cuda, dtype):
+    """The repair of ``ops.ssd_chunk_scan`` on CUDA tensors that require
+    grad: ``models/mamba2.py: ssd_scan`` returns outputs with a grad_fn,
+    their gradients are the backward kernel's (one forward launch, one
+    backward call), and equal the plain version's on the same card; under
+    no_grad the forward alone launches, bitwise as before."""
+    from repro_torch.models import mamba2
+
+    x, dt, A, Bm, Cm, dy, dh = _ssd_operands(dtype, cuda, 2, 300, 1, 4, 64, 64, True)
+    live = [t.clone().requires_grad_() for t in (x, dt, A, Bm, Cm)]
+    y, h = mamba2.ssd_scan(*live, 128)
+    assert y.grad_fn is not None and h.grad_fn is not None
+    got = torch.autograd.grad((y, h), live, (dy, dh))
+    torch.cuda.synchronize()
+    assert tops.launch_counts()["ssd_chunk_scan"] == 1
+    assert tops.launch_counts()["ssd_chunk_scan_bwd"] == 1
+    _assert_ssd_bwd_close(got, tref.ssd_chunk_scan_bwd_ref(x, dt, A, Bm, Cm, 128, dy, dh),
+                          dtype, _plain_bwd64(x, dt, A, Bm, Cm, 128, dy, dh))
+    with torch.no_grad():
+        y2, h2 = mamba2.ssd_scan(*live, 128)
+    y3, h3 = tssd.ssd_chunk_scan(x, dt, A, Bm, Cm, 128)
+    assert y2.grad_fn is None and torch.equal(y2, y3) and torch.equal(h2, h3)
+    assert torch.equal(y.detach(), y3) and torch.equal(h.detach(), h3)
+    assert tops.launch_counts()["ssd_chunk_scan_bwd"] == 1
+
+
+@pytest.mark.cuda
+def test_cuda_ssd_chunk_scan_bwd_is_deterministic(cuda):
+    """dB and dC summed over a group's heads in head order, dA over (b,
+    chunk) in order, no float atomics: two calls give the same bits."""
+    ops_ = _ssd_operands(torch.bfloat16, cuda, 2, 1000, 1, 16, 64, 128, True)
+    a = tssd.ssd_chunk_scan_bwd(*ops_, 256)
+    b = tssd.ssd_chunk_scan_bwd(*ops_, 256)
+    torch.cuda.synchronize()
+    assert all(torch.equal(u, v) for u, v in zip(a, b))
+
+
+@pytest.mark.cuda
+def test_cuda_ssd_chunk_scan_bwd_checks_operands(cuda):
+    x, dt, A, Bm, Cm, dy, dh = _ssd_operands(torch.float32, cuda, 1, 16, 1, 2, 8, 8, True)
+    with pytest.raises(TypeError):
+        tssd.ssd_chunk_scan_bwd(x, dt, A, Bm, Cm, dy.bfloat16(), dh, 8)
+    with pytest.raises(ValueError, match="dy"):
+        tssd.ssd_chunk_scan_bwd(x, dt, A, Bm, Cm, dy[:, :8].contiguous(), dh, 8)
+    with pytest.raises(ValueError, match="dh_final"):
+        tssd.ssd_chunk_scan_bwd(x, dt, A, Bm, Cm, dy, dh[:, :1].contiguous(), 8)
+    with pytest.raises(ValueError, match="shared"):
+        tssd.ssd_chunk_scan_bwd(x, dt, A, Bm, Cm, dy, dh, 1 << 16)
+    assert tops.launch_counts()["ssd_chunk_scan_bwd"] == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["zamba2-1.2b", "mamba2-2.7b"])
+def test_cuda_lm_train_step_launches_and_matches_cpu(cuda, monkeypatch, arch):
+    """One train step of the smoke config (fp32, TF32 off) on the card and on
+    the CPU from the same params: per mamba layer two ``ssd_chunk_scan``
+    (the forward and its remat recompute) and one ``ssd_chunk_scan_bwd``;
+    per shared-block application two ``flash_attention`` and one
+    ``flash_attention_bwd``; nothing else. The losses agree within 1e-5 and
+    every gradient within 1e-3 of its leaf's largest |value|."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch import steps
+    from repro_torch.models import api
+    from repro_torch.optim.optimizers import tree_leaves, tree_map
+
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    cfg = get_smoke_config(arch)
+    params = api.init(cfg, torch.Generator().manual_seed(0), device="cpu")
+    batch = api.synth_batch(cfg, ShapeSpec("t", 40, 2, "train"), seed=0)
+    out = {}
+    real_clip = steps.clip_by_global_norm
+    for dev in ("cpu", "cuda"):
+        seen = []
+        monkeypatch.setattr(steps, "clip_by_global_norm",  # the raw gradients (it clips in place)
+                            lambda g, n: seen.append([t.to("cpu", copy=True) for t in g])
+                            or real_clip(g, n))
+        step, opt = steps.make_train_step(cfg)
+        p = tree_map(lambda t: t.to(dev, copy=True), params)  # the step updates in place
+        tops.reset_launch_counts()
+        _, _, m = step(p, opt.init(p), _to(batch, dev))
+        torch.cuda.synchronize()
+        out[dev] = (float(m["loss"]), seen[0], tops.launch_counts())
+    if cfg.family == "hybrid":
+        n_mamba = cfg.hybrid_groups * cfg.hybrid_layers_per_group + cfg.hybrid_tail_layers
+        n_attn = cfg.hybrid_groups
+    else:
+        n_mamba, n_attn = cfg.num_layers, 0
+    counts = out["cuda"][2]
+    assert counts["ssd_chunk_scan"] == 2 * n_mamba and counts["ssd_chunk_scan_bwd"] == n_mamba
+    assert counts["flash_attention"] == 2 * n_attn and counts["flash_attention_bwd"] == n_attn
+    assert sum(counts.values()) == 3 * (n_mamba + n_attn), counts
+    assert not any(out["cpu"][2].values())
+    assert abs(out["cuda"][0] - out["cpu"][0]) <= 1e-5 * abs(out["cpu"][0])
+    for g, w in zip(out["cuda"][1], out["cpu"][1]):
+        assert (g - w).abs().max().item() <= 1e-3 * max(w.abs().max().item(), 1e-30)
+    assert len(out["cuda"][1]) == len(tree_leaves(params))

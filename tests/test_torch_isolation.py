@@ -275,27 +275,25 @@ def test_unknown_arch_and_missing_mode():
 
 
 def _lm_training_message(capsys):
-    """LM training of the transformer families is ported (item 18); the
-    hybrid's waits for a backward of the SSD kernel (item 20)."""
-    with pytest.raises(NotImplementedError) as e:
-        train.main(["--arch", "zamba2-1.2b", "--smoke", "--device", "cpu"])
-    return str(e.value)
+    """LM training is ported for every family (items 18 and 20); its mesh
+    half (ZeRO-1, the specs, the offloaded embedding's step) waits for
+    item 19."""
+    from repro_torch.launch import steps
+
+    return steps.__doc__
 
 
 def _supervise_message(capsys):
-    """The LM supervisor is ported (item 18); the train step it would
-    supervise for the ssm family waits for the SSD backward (item 20)."""
-    from repro_torch.configs import get_smoke_config
-    from repro_torch.launch import steps
+    """The supervised LM step is ported (items 18 and 20); the sharding of
+    its AdamW state across a mesh (ZeRO-1) waits for item 19."""
+    from repro_torch.optim import optimizers
 
-    with pytest.raises(NotImplementedError) as e:
-        steps.make_train_step(get_smoke_config("mamba2-2.7b"))
-    return str(e.value)
+    return optimizers.__doc__
 
 
 @pytest.mark.parametrize("message,item", [
-    (_lm_training_message, 20),  # LM training of the hybrid family
-    (_supervise_message, 20),  # the ssm family's supervised train step
+    (_lm_training_message, 19),  # the LM train step's mesh half
+    (_supervise_message, 19),  # the supervised step's ZeRO-1 state
 ], ids=["lm-training", "supervise"])
 def test_not_ported_messages_name_their_roadmap_item(capsys, message, item):
     """What is not ported yet says where ROADMAP.md queues it."""

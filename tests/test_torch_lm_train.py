@@ -1,5 +1,5 @@
-"""LM training of the port's transformer families against the JAX
-package's, on the CPU.
+"""LM training of the port's LM families (the transformers, the hybrid
+zamba2 and the ssm mamba2) against the JAX package's, on the CPU.
 
 Inputs are the reference's own: its params from ``jax.random.key(0)``
 (carried over by ``convert.lm_params_from_reference``) and its synthetic
@@ -22,8 +22,9 @@ summation order:
     gradient entry within its rounding of zero moves its param by up to
     2 lr either way; such entries are counted and must be rare (< 0.1%).
 
-The CPU path launches no kernel: ``ops.flash_attention`` is the plain
-version there, differentiated by torch's autograd.
+The CPU path launches no kernel: ``ops.flash_attention`` and
+``ops.ssd_chunk_scan`` are the plain versions there, differentiated by
+torch's autograd.
 """
 import os
 import subprocess
@@ -61,7 +62,7 @@ from repro_torch.runtime import FailureInjector, PreemptionHandler, TrainSupervi
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ARCHS = ("chatglm3-6b", "mixtral-8x7b", "llama4-scout-17b-a16e", "hubert-xlarge",
-         "phi-3-vision-4.2b")
+         "phi-3-vision-4.2b", "zamba2-1.2b", "mamba2-2.7b")
 BATCH, SEQ = 2, 24
 LOSS_RTOL, XENT_GRAD_TOL, GRAD_TOL, ATTN_TOL = 1e-5, 1e-5, 1e-4, 1e-5
 _CACHE = {}
@@ -255,20 +256,38 @@ def test_vlm_image_positions_carry_no_loss():
 
 
 @pytest.mark.parametrize("arch", ["zamba2-1.2b", "mamba2-2.7b"])
-def test_hybrid_and_ssm_training_raise_naming_item_20(arch, tmp_path):
-    with pytest.raises(NotImplementedError, match="item 20"):
-        tapi.make_loss_fn(get_smoke_config(arch))
-    with pytest.raises(NotImplementedError, match="item 20"):
-        ttrain.main(["--arch", arch, "--smoke", "--device", "cpu", "--steps", "1",
-                     "--ckpt-dir", str(tmp_path)])
+def test_hybrid_and_ssm_train_through_the_launcher(arch, tmp_path, capsys):
+    """The hybrid and ssm families train through ``launch/train.py``:
+    three finite losses and the ``done:`` line; on the CPU no kernel
+    launches."""
+    out = ttrain.main(["--arch", arch, "--smoke", "--device", "cpu", "--steps", "3",
+                       "--batch", "2", "--seq-len", "32", "--lr", "1e-2",
+                       "--ckpt-dir", str(tmp_path)])
+    assert "done: steps=3 restarts=0 time=" in capsys.readouterr().out
+    assert out["cfg"].family == ("hybrid" if arch == "zamba2-1.2b" else "ssm")
+    assert all(np.isfinite(out["losses"])) and len(out["losses"]) == 3
+    assert not any(tops.launch_counts().values())
 
 
-@pytest.mark.parametrize("arch", ["chatglm3-6b", "mixtral-8x7b"])
+def _checkpointed(cfg):
+    """The functions the training forward runs under checkpoint, in order."""
+    from repro_torch.models import hybrid, mamba2, transformer
+
+    if cfg.family == "hybrid":
+        group = [mamba2.train_layer] * cfg.hybrid_layers_per_group + [hybrid._shared_forward]
+        return group * cfg.hybrid_groups + [mamba2.train_layer] * cfg.hybrid_tail_layers
+    if cfg.family == "ssm":
+        return [mamba2.train_layer] * cfg.num_layers
+    return [transformer.train_layer] * cfg.num_layers
+
+
+@pytest.mark.parametrize("arch", ["chatglm3-6b", "mixtral-8x7b", "zamba2-1.2b", "mamba2-2.7b"])
 def test_remat_on_and_off_give_equal_losses_and_gradients(arch, monkeypatch):
-    """torch.utils.checkpoint recomputes each layer in the backward: the
-    same values, bit for bit, on the CPU, as the layers called directly
-    (remat off: ``run_layers``' checkpoint replaced by a plain call)."""
-    from repro_torch.models import transformer
+    """torch.utils.checkpoint recomputes each layer (and each of the
+    hybrid's shared-block applications) in the backward: the same values,
+    bit for bit, on the CPU, as the layers called directly (remat off: the
+    checkpoint replaced by a plain call)."""
+    from repro_torch.models import hybrid, mamba2, transformer
 
     cfg = get_smoke_config(arch)
     params = tapi.init(cfg, torch.Generator().manual_seed(1))
@@ -284,11 +303,12 @@ def test_remat_on_and_off_give_equal_losses_and_gradients(arch, monkeypatch):
 
     out = []
     for wrap in (counted, direct):
-        monkeypatch.setattr(transformer, "checkpoint", wrap)
+        for mod in (transformer, mamba2, hybrid):
+            monkeypatch.setattr(mod, "checkpoint", wrap)
         live = _live(params)
         loss = tapi.make_loss_fn(cfg)(live, batch)
         out.append((loss.detach(), tree_leaves(_grads(loss, live))))
-    assert calls == [transformer.train_layer] * cfg.num_layers
+    assert calls == _checkpointed(cfg)
     assert torch.equal(out[0][0], out[1][0])
     assert all(torch.equal(a, b) for a, b in zip(out[0][1], out[1][1]))
 
@@ -296,7 +316,7 @@ def test_remat_on_and_off_give_equal_losses_and_gradients(arch, monkeypatch):
 # --------------------------------------------------------------------------- #
 # the train step: loss, backward, clip, AdamW
 # --------------------------------------------------------------------------- #
-@pytest.mark.parametrize("arch", ["chatglm3-6b", "mixtral-8x7b"])
+@pytest.mark.parametrize("arch", ["chatglm3-6b", "mixtral-8x7b", "zamba2-1.2b", "mamba2-2.7b"])
 def test_three_train_steps_match_reference(arch, mesh1):
     lr, n = 3e-4, 3
     rcfg, cfg = ref_smoke_config(arch), get_smoke_config(arch)
@@ -478,22 +498,43 @@ def test_supervisor_restore_joins_a_save_in_flight(tmp_path, monkeypatch):
     assert report.causes == [(2, "RuntimeError")] and len(report.restore_ms) == 1
 
 
+def _drill(tmp_path, arch):
+    """``arch``'s smoke config through ``train_lm`` under the supervisor,
+    clean and with a node failure at the 7th step call, checkpoints every 4
+    steps: (clean, drill) results."""
+    def run(name, hook):
+        args = ttrain.build_parser().parse_args(
+            ["--arch", arch, "--smoke", "--device", "cpu", "--steps", "12",
+             "--batch", "2", "--seq-len", "16", "--ckpt-every", "4",
+             "--ckpt-dir", str(tmp_path / name)])
+        return ttrain.train_lm(args, step_hook=hook)
+
+    return run("clean", None), run("drill", FailureInjector(fail_at=[7]).maybe_fail)
+
+
 def test_lm_drill_resumes_bitwise(tmp_path):
     """chatglm3-6b's smoke config through ``train_lm`` under the supervisor:
     a node failure at the 7th step call with checkpoints every 4 steps
     ends in params and AdamW state bitwise equal to an uninterrupted
     run's (the card's drill in chip_smoke.py, phase 20)."""
-    def run(name, hook):
-        args = ttrain.build_parser().parse_args(
-            ["--arch", "chatglm3-6b", "--smoke", "--device", "cpu", "--steps", "12",
-             "--batch", "2", "--seq-len", "16", "--ckpt-every", "4",
-             "--ckpt-dir", str(tmp_path / name)])
-        return ttrain.train_lm(args, step_hook=hook)
-
-    clean = run("clean", None)
-    drill = run("drill", FailureInjector(fail_at=[7]).maybe_fail)
+    clean, drill = _drill(tmp_path, "chatglm3-6b")
     assert drill["report"].restarts == 1 and clean["report"].restarts == 0
     assert all(np.isfinite(clean["losses"]))
+    assert all(torch.equal(a, b) for a, b in zip(
+        tree_leaves((clean["params"], clean["opt_state"])),
+        tree_leaves((drill["params"], drill["opt_state"]))))
+
+
+def test_ssm_lm_drill_resumes_bitwise(tmp_path):
+    """The same drill for mamba2-2.7b's smoke config (phase 21's on the
+    card): the mamba layers' state in the checkpoint (params, AdamW ``m``,
+    ``v``, ``master`` and ``t``) restores and replays bit for bit."""
+    clean, drill = _drill(tmp_path, "mamba2-2.7b")
+    assert drill["report"].restarts == 1 and clean["report"].restarts == 0
+    assert drill["report"].causes == [(6, "RuntimeError")]
+    # steps 0-5, the failure, then steps 4-11 again from the step-4 checkpoint
+    assert all(np.isfinite(clean["losses"]))
+    assert drill["losses"][:4] + drill["losses"][-8:] == clean["losses"]
     assert all(torch.equal(a, b) for a, b in zip(
         tree_leaves((clean["params"], clean["opt_state"])),
         tree_leaves((drill["params"], drill["opt_state"]))))
