@@ -334,7 +334,10 @@ Phases, in order; any failure raises and the script exits non-zero:
                the card, held as phase 20's (c); (d) the supervisor drill at
                zamba2-1.2b's smoke config, as phase 20's. Last,
                ``ssd_chunk_scan_bwd`` timed at both runs' operands beside its
-               bound and its plain version, and ``flash_attention_bwd`` at
+               bound and its plain version (bf16 on the tensor cores: its
+               eight launches named in the traced step, each output's
+               error logged beside its limit), and
+               ``flash_attention_bwd`` at
                zamba2's shared block (hd 64, 32/32 heads, causal, 4 x 4096)
                beside its bound, its plain version and SDPA's backward.
 
@@ -4549,9 +4552,13 @@ SSM_TRAIN_TRACED = 6  # each run's step traced with torch.profiler (the 7th)
 #: the kernels a traced step names: the SSD forward's and backward's, the
 #: flash forward's and backward's
 SSM_TRAIN_KERNELS = ("ssd_", "flash_fwd", "fa_bwd")
-#: the backward's passes in a traced step (csrc/ssd_chunk_bwd.cu)
-SSD_BWD_PASSES = ("ssd_bwd_chunk_state", "ssd_bwd_state_pass", "ssd_bwd_chunk_kernel",
-                  "ssd_bwd_group_sum", "ssd_bwd_dA")
+#: the bf16 backward's eight launches in a traced step (csrc/ssd_chunk_bwd.cu:
+#: G and B, C in fragment order; the chunks' own states; the walk; dx, ddt
+#: and dA per head; dB's and dC's state terms; the head-summed factor per
+#: tile pair; its shares summed; dA)
+SSD_BWD_PASSES = ("ssd_bwd_gram_kernel", "ssd_bwd_state_kernel", "ssd_bwd_walk",
+                  "ssd_bwd_chunk_kernel_tc", "ssd_bwd_gstate_kernel", "ssd_bwd_pair_kernel",
+                  "ssd_bwd_pair_sum", "ssd_bwd_dA")
 SSD_BWD_NAMES = ("dx", "ddt", "dA", "dBm", "dCm")
 #: (a) the backward kernel against ``ref.ssd_chunk_scan_bwd_ref`` at each
 #: main run's first backward operands: bf16 ||kernel - plain||_F <=
@@ -4620,8 +4627,9 @@ def ssm_train_main(torch, mods, dev, tmp):
         ms = statistics.median(step_ms[SSM_TRAIN_TIMED_FROM:])
         passes = {p: sum(r["mean_ms"] for r in trace["named"] if p in r["name"])
                   for p in SSD_BWD_PASSES}
-        check(passes["ssd_bwd_chunk_kernel"] > 0,
-              f"{label}: the traced step names no SSD backward kernel: {trace['named']}")
+        check(all(t > 0 for t in passes.values()),
+              f"{label}: the traced step misses a launch of the SSD backward: {passes}; "
+              f"{trace['named']}")
         n_mamba, n_attn = lm_layers(cfg)
         summaries.append({
             "run": label, "arch": arch, "family": cfg.family, "mamba_layers": n_mamba,
@@ -4650,20 +4658,40 @@ def ssm_train_main(torch, mods, dev, tmp):
 
 
 def ssd_bwd_work(x, dt, A, Bm, Cm, Q) -> tuple:
-    """(operations, bytes) of one SSD backward: per head the (Q, Q) form's
-    dS = dy x^T and dx += s^T dy over the causal pairs, and five (Q, hd, ds)
-    products (the chunk's state recomputed, dh's local term, h_in^T dy,
-    dh_out B and dh_out^T x); per head group C.B^T, dG B and dG^T C over
-    the causal pairs. x, dt, A, B, C and dy read once; dx, ddt, dA, dB and
-    dC written once."""
+    """(operations, those of them whose operands are both in x's dtype,
+    bytes) of one SSD backward: per head the (Q, Q) form's dS = dy x^T and
+    dx += s^T dy over the causal pairs, and five (Q, hd, ds) products (the
+    chunk's state recomputed, dh's local term, h_in^T dy, dh_out B and
+    dh_out^T x); per head group C.B^T, dG B and dG^T C over the causal
+    pairs. Only dS = dy x^T takes both operands in x's dtype; every other
+    product has an fp32 factor (s, B, C, a state). x, dt, A, B, C and dy
+    read once; dx, ddt, dA, dB and dC written once."""
     B, S, nh, hd = x.shape
     ng, ds = Bm.shape[2], Bm.shape[3]
     nc = -(-S // Q)
     tri = Q * (Q + 1) // 2
     ops = B * nh * nc * (4 * tri * hd + 10 * Q * hd * ds) + B * ng * nc * 6 * tri * ds
+    ops_x = B * nh * nc * 2 * tri * hd
     n_bytes = (3 * x.numel() * x.element_size()  # x and dy in, dx out
                + 2 * 4 * (dt.numel() + A.numel() + Bm.numel() + Cm.numel()))  # and d*
-    return ops, n_bytes
+    return ops, ops_x, n_bytes
+
+
+def ssd_bwd_bound(x, dt, A, Bm, Cm, Q) -> dict:
+    """The backward's bound in ms: its operations, dS = dy x^T at the bf16
+    rate where x is 16-bit and every other product at the TF32 rate, or its
+    bytes, whichever takes longer; ``bound_ms_tf32`` prices every product
+    at the TF32 rate, as the forward's row 8 does."""
+    ops, ops_x, n_bytes = ssd_bwd_work(x, dt, A, Bm, Cm, Q)
+    x_rate = BF16_OPS_PER_S if x.element_size() == 2 else TF32_OPS_PER_S
+    t_ops = ((ops - ops_x) / TF32_OPS_PER_S + ops_x / x_rate) * 1e3
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    return {"bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "bound_ms_tf32": max(ops / TF32_OPS_PER_S * 1e3, t_bytes),
+            "ops_ms": t_ops, "ops_ms_tf32": ops / TF32_OPS_PER_S * 1e3,
+            "ops_ms_fp32": ops / FP32_OPS_PER_S * 1e3, "bytes_ms": t_bytes,
+            "flops": ops, "flops_both_in_x_dtype": ops_x, "bytes": n_bytes}
 
 
 def ssd_bwd_close(torch, got, want, dtype, what) -> dict:
@@ -4681,7 +4709,8 @@ def ssd_bwd_close(torch, got, want, dtype, what) -> dict:
         else:
             check(err <= SSD_BWD_MAX * scale, f"ssd_chunk_scan_bwd {n} at {what} fp32: "
                                               f"{err} (limit {SSD_BWD_MAX} x {scale})")
-        out[n] = {"max_abs_err": err, "max_abs_plain": scale, "rel_err": rel}
+        out[n] = {"max_abs_err": err, "max_abs_plain": scale, "rel_err": rel,
+                  "limit": SSD_BWD_REL if dtype == "bfloat16" else SSD_BWD_MAX}
     return out
 
 
@@ -4715,8 +4744,7 @@ def ssd_bwd_rows(torch, mods, captured, dev) -> list:
             ref.ssd_chunk_scan_bwd_ref(x32, dt, A, Bm, Cm, Q, dy32, dh), "float32", label)
         del x32, dy32
         torch.cuda.empty_cache()
-        s_ops, s_bytes = ssd_bwd_work(x, dt, A, Bm, Cm, Q)
-        t_ops, t_bytes = s_ops / TF32_OPS_PER_S, s_bytes / HBM_BYTES_PER_S
+        bound = ssd_bwd_bound(x, dt, A, Bm, Cm, Q)
         ms = median_ms(torch, lambda: ssd.ssd_chunk_scan_bwd(x, dt, A, Bm, Cm, dy, dh, Q), 10,
                        flush)
         plain_ms = median_ms(torch, lambda: ref.ssd_chunk_scan_bwd_ref(
@@ -4726,20 +4754,19 @@ def ssd_bwd_rows(torch, mods, captured, dev) -> list:
         out.append({
             "row": label, "shape": {"B": B, "S": S, "nh": nh, "hd": hd, "ng": Bm.shape[2],
                                     "ds": Bm.shape[3], "Q": Q},
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_ops, t_bytes) * 1e3,
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "ops_ms_tf32": t_ops * 1e3, "ops_ms_fp32": s_ops / FP32_OPS_PER_S * 1e3,
-            "bytes_ms": t_bytes * 1e3, "flops": s_ops, "bytes": s_bytes,
-            "library_ms": None,
+            "ms": ms, "plain_ms": plain_ms, **bound, "library_ms": None,
             "library": "no single PyTorch call computes the SSD scan's backward",
-            "tflops_per_s": s_ops / ms / 1e9, "deterministic": same,
+            "tflops_per_s": bound["flops"] / ms / 1e9, "deterministic": same,
             "max_abs_err": max(e["max_abs_err"] for e in errs["bfloat16"].values()),
             "errors": errs})
-        log(f"ssd_chunk_scan_bwd at {label}: {ms:.3f} ms, bound {out[-1]['bound_ms']:.3f} "
-            f"({out[-1]['bound_by']}), plain {plain_ms:.2f}; bf16 relative "
-            + "/".join(f"{e['rel_err']:.1e}" for e in errs["bfloat16"].values())
-            + ", fp32 max " + "/".join(f"{e['max_abs_err'] / max(e['max_abs_plain'], 1e-30):.1e}"
-                                       for e in errs["float32"].values())
+        log(f"ssd_chunk_scan_bwd at {label}: {ms:.3f} ms, bound {bound['bound_ms']:.3f} "
+            f"({bound['bound_by']}; every product at the TF32 rate "
+            f"{bound['bound_ms_tf32']:.3f}), plain {plain_ms:.2f}, "
+            f"{out[-1]['tflops_per_s']:.1f} TFLOP/s; bf16 relative (limit {SSD_BWD_REL}) "
+            + ", ".join(f"{n} {e['rel_err']:.1e}" for n, e in errs["bfloat16"].items())
+            + f"; fp32 max / max |plain| (limit {SSD_BWD_MAX}) "
+            + ", ".join(f"{n} {e['max_abs_err'] / max(e['max_abs_plain'], 1e-30):.1e}"
+                        for n, e in errs["float32"].items())
             + "; two calls bitwise equal")
     return out
 
@@ -4780,9 +4807,15 @@ def ssm_train_phase(torch, mods, dev):
         "launches": sum(c["ssd_chunk_scan_bwd"] for c in counts_by_run.values()),
         "launches_by_run": {r: c["ssd_chunk_scan_bwd"] for r, c in counts_by_run.items()},
         "max_abs_err": max(r["max_abs_err"] for r in rows),
-        **{k: main[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+        **{k: main[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                                "bound_ms_tf32")},
+        "tflops_per_s": main["tflops_per_s"],
+        "bf16_rel_err": {r["row"]: {n: e["rel_err"] for n, e in r["errors"]["bfloat16"].items()}
+                         for r in rows},
         "details": {"what": "the reference has no Pallas backward of its SSD kernel; it "
                             "differentiates its chunk loop (repro/models/mamba2.py: ssd_scan)",
+                    "design": mods["ssd"].BWD_ROUTES[torch.bfloat16],
+                    "fp32_design": mods["ssd"].BWD_ROUTES[torch.float32],
                     "shapes": rows, "passes_in_traced_steps": {
                         r["arch"]: r["ssd_bwd_pass_ms"] for r in runs}}}
     log(f"lm train ssm: done ({time.perf_counter() - t0:.1f}s)")

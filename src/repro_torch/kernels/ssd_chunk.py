@@ -15,9 +15,10 @@ never at import. Empty operands and the CPU dispatch live in
 ``kernels/ops.py``.
 
 :func:`ssd_chunk_scan_bwd` launches the hand-written backward of
-``csrc/ssd_chunk_bwd.cu`` (five CUDA launches per call, both dtypes, one
-count in :data:`LAUNCHES`), with the fp32 and fp64 workspaces it allocates
-here (:func:`bwd_workspace_shapes`); the source holds its design note.
+``csrc/ssd_chunk_bwd.cu``, routed by ``x``'s dtype too (:data:`BWD_ROUTES`;
+eight CUDA launches per bf16 call, five per fp32 call, one count in
+:data:`LAUNCHES` either way), with the workspaces it allocates here
+(:func:`bwd_workspace_shapes`); the source holds its design note.
 """
 from __future__ import annotations
 
@@ -41,12 +42,25 @@ ROUTES = {
     torch.float32: "fp32 FMAs: one CTA per (b, head), 64 x 64 tiles",
 }
 
+#: the backward each dtype of ``x`` runs (the design note is in the source)
+BWD_ROUTES = {
+    torch.bfloat16: "tensor cores: G = C.B^T once per (b, group, chunk) in fp32 FMAs; each "
+                    "chunk's state terms, the state walk; a CTA per (head, chunk, b) for dx, "
+                    "ddt and dA; dB and dC per (b, chunk, group) over the group's heads in "
+                    "order: their state terms, then the head-summed factor per causal 64 x "
+                    "64 tile times B and C, added in tile order; mma.sync m16n8k16 bf16, "
+                    "fp32 operands split into bf16 parts",
+    torch.float32: "fp32 FMAs: a CTA per (b, head, chunk), 64 x 64 tiles, dB and dC per "
+                   "head, then summed over each group's heads in order",
+}
+
 _LIB: Optional[ctypes.CDLL] = None
 _BWD_LIB: Optional[ctypes.CDLL] = None
 MAX_DIM = 128  # head dim and state dim
 MAX_SMEM = 232_448  # dynamic shared memory a block may use on sm_90
 MAX_CHUNK_BF16 = 256  # the tensor-core route: 16 row tiles of 16, two per warp
 GRAM_TILE = 64  # the G launch's tile: Q is padded up to a multiple
+MAX_GRID_Z = 65535  # the bf16 backward's (b, chunk, group) grids: CUDA's limit on z
 
 
 def workspace_shape(Bt: int, S: int, ng: int, ds: int, Q: int) -> Tuple[int, ...]:
@@ -154,19 +168,47 @@ def ssd_chunk_scan(
     return y, h
 
 
-def bwd_workspace_shapes(Bt: int, S: int, nh: int, hd: int, ng: int, ds: int,
-                         Q: int) -> Dict[str, Tuple[Tuple[int, ...], torch.dtype]]:
-    """The backward's workspaces by name -> (shape, dtype), nc = ceil(S /
-    Q): ``Hs``/``dHs`` each chunk's entering state and the cotangent of its
-    leaving state (Bt, nh, nc, hd, ds); ``tot`` each chunk's total decay
-    exponent (Bt, nh, nc); ``dBp``/``dCp`` dB and dC per head, before the
-    sum over a group's heads (Bt, S, nh, ds); ``dAp`` dA per (b, chunk), in
-    fp64 (Bt, nc, nh)."""
+def bwd_workspace_shapes(Bt: int, S: int, nh: int, hd: int, ng: int, ds: int, Q: int,
+                         dtype: torch.dtype = torch.float32,
+                         ) -> Dict[str, Tuple[Tuple[int, ...], torch.dtype]]:
+    """The backward's workspaces by name -> (shape, dtype) for ``x`` of
+    ``dtype``, nc = ceil(S / Q): ``Hs``/``dHs`` each chunk's entering state
+    and the cotangent of its leaving state (Bt, nh, nc, hd, ds); ``tot``
+    each chunk's total decay exponent (Bt, nh, nc); ``dAp`` dA per (b,
+    chunk), in fp64 (Bt, nc, nh). fp32 adds ``dBp``/``dCp``, dB and dC per
+    head before the sum over a group's heads (Bt, S, nh, ds); bf16 adds
+    ``W``, G^T = (C B^T)^T and B and C in fragment order per (b, group,
+    chunk) (Bt, ng, nc, Qp * (Qp + 3 DS)), ``cum``, each chunk's prefix
+    sum and dt per head (Bt, nh, nc, 2 Qp), and ``P``, the head-summed
+    factor's products with B and C, one share per causal tile pair (Bt, nc,
+    ng, nt (nt + 1) / 2, 2, 64, DS), with Qp = Q rounded up to
+    :data:`GRAM_TILE`, nt = Qp / 64 and DS = ds rounded up to 64 or 128.
+    Raises for a bf16 chunk the route does not take (Q >
+    :data:`MAX_CHUNK_BF16`), or more than :data:`MAX_GRID_Z` (b, chunk,
+    group) triples."""
     nc = -(-S // Q)
     f32 = torch.float32
-    return {"Hs": ((Bt, nh, nc, hd, ds), f32), "dHs": ((Bt, nh, nc, hd, ds), f32),
-            "tot": ((Bt, nh, nc), f32), "dBp": ((Bt, S, nh, ds), f32),
-            "dCp": ((Bt, S, nh, ds), f32), "dAp": ((Bt, nc, nh), torch.float64)}
+    out = {"Hs": ((Bt, nh, nc, hd, ds), f32), "dHs": ((Bt, nh, nc, hd, ds), f32),
+           "tot": ((Bt, nh, nc), f32)}
+    if dtype == torch.bfloat16:
+        if not 0 < Q <= MAX_CHUNK_BF16:
+            raise ValueError(f"chunk {Q}: the bf16 tensor-core backward takes chunks of 1 "
+                             f"to {MAX_CHUNK_BF16} positions")
+        if Bt * nc * ng > MAX_GRID_Z:
+            raise ValueError(f"{Bt} x {nc} chunks x {ng} groups: the bf16 tensor-core "
+                             f"backward takes at most {MAX_GRID_Z} (batch, chunk, group) "
+                             f"triples, a CUDA grid's z")
+        Qp = -(-Q // GRAM_TILE) * GRAM_TILE
+        DS = 64 if ds <= 64 else 128
+        nt = Qp // GRAM_TILE
+        out["W"] = ((Bt, ng, nc, Qp * (Qp + 3 * DS)), f32)
+        out["cum"] = ((Bt, nh, nc, 2 * Qp), f32)
+        out["P"] = ((Bt, nc, ng, nt * (nt + 1) // 2, 2, GRAM_TILE, DS), f32)
+    else:
+        out["dBp"] = ((Bt, S, nh, ds), f32)
+        out["dCp"] = ((Bt, S, nh, ds), f32)
+    out["dAp"] = ((Bt, nc, nh), torch.float64)
+    return out
 
 
 def _bwd_lib() -> ctypes.CDLL:
@@ -176,10 +218,13 @@ def _bwd_lib() -> ctypes.CDLL:
 
         lib = ctypes.CDLL(str(_build.library_path("ssd_chunk_bwd")))
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.repro_ssd_chunk_scan_bwd.argtypes = [ptr] * 18 + [i32] * 8 + [ptr]
-        lib.repro_ssd_chunk_scan_bwd.restype = i32
-        lib.repro_ssd_bwd_smem_bytes.argtypes = [i32, i32, i32]
-        lib.repro_ssd_bwd_smem_bytes.restype = ctypes.c_longlong
+        lib.repro_ssd_chunk_scan_bwd_f32.argtypes = [ptr] * 18 + [i32] * 7 + [ptr]
+        lib.repro_ssd_chunk_scan_bwd_bf16.argtypes = [ptr] * 19 + [i32] * 7 + [ptr]
+        for fn in (lib.repro_ssd_chunk_scan_bwd_f32, lib.repro_ssd_chunk_scan_bwd_bf16):
+            fn.restype = i32
+        for fn in (lib.repro_ssd_bwd_smem_bytes, lib.repro_ssd_bwd_bf16_smem_bytes):
+            fn.argtypes = [i32, i32, i32]
+            fn.restype = ctypes.c_longlong
         lib.repro_cuda_error_string.argtypes = [i32]
         lib.repro_cuda_error_string.restype = ctypes.c_char_p
         _BWD_LIB = lib
@@ -195,7 +240,9 @@ def ssd_chunk_scan_bwd(
     ds) fp32 or None (a zero cotangent), all contiguous on x's device ->
     (dx in x's dtype, ddt (B, S, nh), dA (nh,), dBm, dCm (B, S, ng, ds), all
     fp32 but dx). Takes what the forward takes, at any chunk whose shared
-    memory fits a block (``repro_ssd_bwd_smem_bytes``)."""
+    memory fits a block (``repro_ssd_bwd_smem_bytes``, and for bf16
+    ``repro_ssd_bwd_bf16_smem_bytes`` and chunks of at most
+    :data:`MAX_CHUNK_BF16`)."""
     Bt, S, nh, hd, ng, ds = _check_operands(x, dt, A, Bm, Cm, Q)
     dev = x.device
     _check(dy, "dy", x.dtype, dev)
@@ -206,24 +253,31 @@ def ssd_chunk_scan_bwd(
         if dh_final.shape != (Bt, nh, hd, ds):
             raise ValueError(f"dh_final {tuple(dh_final.shape)} is not (B, nh, hd, ds) = "
                              f"{(Bt, nh, hd, ds)}")
+    bf16 = x.dtype == torch.bfloat16
+    shapes = bwd_workspace_shapes(Bt, S, nh, hd, ng, ds, Q, x.dtype)  # raises first
     lib = _bwd_lib()
-    smem = lib.repro_ssd_bwd_smem_bytes(hd, ds, Q)
+    smem = (lib.repro_ssd_bwd_bf16_smem_bytes if bf16 else lib.repro_ssd_bwd_smem_bytes)(
+        hd, ds, Q)
     if smem > MAX_SMEM:
         raise ValueError(f"chunk {Q} at hd {hd}, ds {ds} needs {smem} bytes of shared "
                          f"memory, more than a block's {MAX_SMEM}")
-    work = {k: torch.empty(shape, dtype=dt_, device=dev)
-            for k, (shape, dt_) in bwd_workspace_shapes(Bt, S, nh, hd, ng, ds, Q).items()}
+    work = {k: torch.empty(shape, dtype=dt_, device=dev) for k, (shape, dt_) in shapes.items()}
     dx = torch.empty_like(x)
     ddt = torch.empty_like(dt)
     dA = torch.empty_like(A)
     dBm = torch.empty_like(Bm)
     dCm = torch.empty_like(Cm)
-    ptrs = [x, dt, A, Bm, Cm, dy, dh_final, work["Hs"], work["dHs"], work["tot"],
-            work["dBp"], work["dCp"], work["dAp"], dx, ddt, dA, dBm, dCm]
+    if bf16:
+        fn = lib.repro_ssd_chunk_scan_bwd_bf16
+        ptrs = [x, dt, A, Bm, Cm, dy, dh_final, work["W"], work["cum"], work["Hs"],
+                work["dHs"], work["tot"], work["dAp"], work["P"], dx, ddt, dA, dBm, dCm]
+    else:
+        fn = lib.repro_ssd_chunk_scan_bwd_f32
+        ptrs = [x, dt, A, Bm, Cm, dy, dh_final, work["Hs"], work["dHs"], work["tot"],
+                work["dBp"], work["dCp"], work["dAp"], dx, ddt, dA, dBm, dCm]
     with torch.cuda.device(dev):
-        err = lib.repro_ssd_chunk_scan_bwd(
-            *(None if t is None else t.data_ptr() for t in ptrs), Bt, S, nh, hd, ng, ds, Q,
-            int(x.dtype == torch.bfloat16), torch.cuda.current_stream(dev).cuda_stream)
+        err = fn(*(None if t is None else t.data_ptr() for t in ptrs), Bt, S, nh, hd, ng, ds, Q,
+                 torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         what = lib.repro_cuda_error_string(err).decode()
         raise RuntimeError(

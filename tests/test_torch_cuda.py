@@ -1336,13 +1336,27 @@ def _assert_ssd_bwd_close(got, want, dtype, want64=None):
         (1, 600, 1, 2, 128, 128, 256, True),  # the widest: 226 KB of shared memory
     ],
 )
-def test_cuda_ssd_chunk_scan_bwd_vs_plain(cuda, dtype, B, S, ng, hpg, hd, ds, Q, dh_final):
+def test_cuda_ssd_chunk_scan_bwd_vs_plain(cuda, monkeypatch, dtype, B, S, ng, hpg, hd, ds, Q,
+                                         dh_final):
+    """Each dtype through its own entry point: bf16 the tensor-core route,
+    fp32 the FMA one."""
+    lib, entries = tssd._bwd_lib(), []
+
+    class Spy:
+        def __getattr__(self, name):
+            if name.startswith("repro_ssd_chunk_scan_bwd_"):
+                entries.append(name)
+            return getattr(lib, name)
+
+    monkeypatch.setattr(tssd, "_bwd_lib", Spy)
     x, dt, A, Bm, Cm, dy, dh = _ssd_operands(dtype, cuda, B, S, ng, hpg, hd, ds, dh_final)
     got = tssd.ssd_chunk_scan_bwd(x, dt, A, Bm, Cm, dy, dh, Q)
     want = tref.ssd_chunk_scan_bwd_ref(x, dt, A, Bm, Cm, Q, dy, dh)
     torch.cuda.synchronize()
     _assert_ssd_bwd_close(got, want, dtype, _plain_bwd64(x, dt, A, Bm, Cm, Q, dy, dh))
     assert tops.launch_counts()["ssd_chunk_scan_bwd"] == 1
+    route = "bf16" if dtype == torch.bfloat16 else "f32"
+    assert entries == [f"repro_ssd_chunk_scan_bwd_{route}"]
 
 
 @pytest.mark.cuda
