@@ -45,11 +45,12 @@ Phases, in order; any failure raises and the script exits non-zero:
   6. train   — the training path: ``repro_torch.launch.train.train_dlrm``
                at the full width of dlrm-scratchpipe (8 tables, D=128 fp32,
                20 lookups per table, batch 2048, bottom MLP 13-512-256-128,
-               dot interaction, top MLP 164-1024-1024-512-256-1), 24 steps,
+               dot interaction, top MLP 164-1024-1024-512-256-1), 20 steps,
                seed 0: ``scratchpipe`` split, ``scratchpipe --fused``, then
                ``nocache``, each from a copy of one host table (the first 8M
-               rows of phase 15's seed-0 table, built once before this
-               phase: the rows a seed-0 table of 8M rows holds). One cut:
+               rows of phase 15's seed-0 table, built once on a thread of
+               its own from the script's start, as phase 22's table is
+               after it: the rows a seed-0 table of 8M rows holds). One cut:
                1M rows per table instead of 10M, with the uncut config's
                4,000,000-slot scratchpad (cache_fraction 0.5 at the cut).
                Then two more: ``scratchpipe --planner device --executor
@@ -82,7 +83,7 @@ Phases, in order; any failure raises and the script exits non-zero:
                timed again on ids of the sweep's Zipf skew.
   8. train q — the same training path at fp16 and int8 replica precision
                (``--precision``, ``stochastic`` rounding, the launcher's
-               default): fp16 split, fp16 fused, int8 split, int8 fused, 24
+               default): fp16 split, fp16 fused, int8 split, int8 fused, 20
                steps each, from copies of the same host table, in a nominal
                budget of 1,000,000 fp32-row slots (cache_fraction 0.125 at
                the cut): fp16 holds 2,000,000 rows and evicts (checked), so
@@ -196,7 +197,7 @@ Phases, in order; any failure raises and the script exits non-zero:
                bags equal to phase 4's, every launch from the front end's
                worker, spans on the worker and on the replay's prefetch
                thread.
- 14. trace train — phase 6's 24 synthetic batches recorded with
+ 14. trace train — phase 6's 20 synthetic batches recorded with
                ``record_trace`` and replayed by ``train_dlrm --trace`` through
                ``scratchpipe --planner device --executor overlapped --fused``
                with phase 6's configuration: the losses and the flushed host
@@ -206,7 +207,7 @@ Phases, in order; any failure raises and the script exits non-zero:
  15. multi-table train — ``train_dlrm --tables 8``: ``multi_table_config(8)``,
                the paper's DLRM at full width with heterogeneous tables, cut
                like every DLRM phase (base_rows 10M -> 1M: 8M, 4M, ... 62.5k
-               rows, 15,937,500 in all, 8.16 GB of fp32), 24 steps, seed 0,
+               rows, 15,937,500 in all, 8.16 GB of fp32), 20 steps, seed 0,
                the launcher's per-table budgets (1,662,060 slots: the §VI-D
                floor of 6 x 2048 x 20 rows for each of the six large
                tables, the two small ones whole), from copies of one host
@@ -340,9 +341,49 @@ Phases, in order; any failure raises and the script exits non-zero:
                ``flash_attention_bwd`` at
                zamba2's shared block (hd 64, 32/32 heads, causal, 4 x 4096)
                beside its bound, its plain version and SDPA's backward.
+ 22. lm cached — the look-forward cache on an LM's token embedding
+               (``core/cached_embedding.py: CachedEmbeddingLM``, the
+               ``ScratchPipe`` runtime around its ``train_fn``):
+               llama4-scout-17b-a16e at full width cut to 4 of 48 layers,
+               bf16 params from a seeded ``torch.Generator`` on the card,
+               its 202,048 x 5,120 fp32 input table in host memory
+               (``HostEmbeddingTable(V, D, seed=0)``'s rows, built once and
+               copied for each run), 8 steps of 4 x 2048 tokens drawn as
+               ``repro_torch.examples.lm_cached_embedding`` draws them, plain
+               SGD at lr 1e-2, a scratchpad of 12,288 slots (6% of the
+               vocabulary), which evicts. Three runs: (i) the host planner
+               and the sync executor; (ii) the device planner and the
+               overlapped executor; (iii) the oracle, the full table on the
+               card as the storage with the token ids as slots. (ii) and
+               (iii) bitwise equal to (i): each step's loss, the params and
+               the flushed host table (SHA-256); (iii) otherwise within the
+               reference test's limits. Counts are reset just before each
+               run and read at every [Train] start: 2 x 4 ``flash_attention``
+               and 4 ``flash_attention_bwd`` a step, one ``fill`` per batch
+               with misses (none in (iii)), no other kernel; the plain
+               versions (and in (ii) the numpy planner) raise; every launch
+               on the main thread, or on torch's autograd device thread
+               while the main thread waits in ``torch.autograd.grad``,
+               never on the runtime's workers; evictions > 0; every [Train]
+               slot inside the scratchpad, and the rows each [Train] reads
+               from its slots (a print of their bits) equal to those the
+               oracle reads for the same tokens at the same step; losses
+               finite, the last below the first. (ii)'s fourth [Train],
+               the whole ``train_fn`` step, runs under
+               ``set_sync_debug_mode("error")``. Prints an ``lm cached:``
+               line (ms/step, the median of steps 3-8; tokens/s; peak GB;
+               evictions; host traffic against the full table's; the main
+               thread's wait on workers in (ii); a torch.profiler trace of
+               (ii)'s last step). Then ``fill`` at the first [Insert]'s
+               operands (fp32 rows of D = 5,120) against ``index_copy_``,
+               and the flash forward and backward at the path's first
+               backward operands (40/8 heads of 128, causal, 4 x 2048)
+               against their plain versions, SDPA and SDPA's backward,
+               each beside its bound.
 
 The traces go to temporary directories removed at exit. The sweep of
-phase 3 covers the fp16 and int8 forms too, and for them also D in {256,
+phase 3 covers fp32 fills of D = 5,120 (phase 22's rows) and the fp16
+and int8 forms too, and for them also D in {256,
 1024} (rows of several warp loads), L in {33, 64} (more than one 32-lookup
 group), a payload 4 but not 16 bytes aligned, fused calls whose
 fills are all sentinels, and ragged fills. The last three lines are the
@@ -351,13 +392,17 @@ phase 18's shapes under ``transformer_shapes`` and phase 19's under
 ``moe_shapes`` — ``flash_attention_bwd`` — phase 20's shapes and parity
 checks, and phase 21's zamba2 row — ``ssd_chunk_scan`` — phase 19's under
 ``mamba2_shapes`` — and ``ssd_chunk_scan_bwd`` — phase 21's rows — carry
-their ``details``; ``gather_reduce_q`` and the fp16
+their ``details``, and so do ``fill``, ``flash_attention`` and
+``flash_attention_bwd`` at phase 22's operands (``lm_cached_embedding``;
+the backward's row under ``shapes``); ``gather_reduce_q`` and the fp16
 gather and fp16/int8 fills their times at phase 13's operands under
 ``serve``), the nvidia-smi line and ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import concurrent.futures
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -391,8 +436,12 @@ DEVICE = "cuda"
 TABLES, ROWS, DIM, LOOKUPS, BATCH = 8, 1_000_000, 128, 20, 2048
 STEPS, DEPTH, CACHE_FRAC = 24, 2, 0.25
 # the training slice: the same width and cut; the scratchpad keeps the uncut
-# config's 0.05 x 80M = 4,000,000 slots (above the 6 x 327,680-row window floor)
-TRAIN_STEPS, TRAIN_WARMUP, TRAIN_CACHE_FRAC = 24, 6, 0.5
+# config's 0.05 x 80M = 4,000,000 slots (above the 6 x 327,680-row window floor);
+# 20 steps (24 until the script neared its time limit): phase 8's fp16 runs
+# evict from step 13, one d2h and one write-back each evicting cycle, so the
+# drill's fail-writeback@5 and kill-d2h@7 still fire (16 steps are too few);
+# phase 15's four large tables evict from step 12 at the latest
+TRAIN_STEPS, TRAIN_WARMUP, TRAIN_CACHE_FRAC = 20, 6, 0.5
 # (name, runtime, fused, fast): ``fast`` adds --planner device --executor
 # overlapped (the device-resident planner and the overlapped executor)
 TRAIN_RUNS = (("scratchpipe split", "scratchpipe", False, False),
@@ -403,7 +452,7 @@ TRAIN_RUNS = (("scratchpipe split", "scratchpipe", False, False),
 FAST_ARGV = ["--planner", "device", "--executor", "overlapped"]
 # the reduced-precision slice: the same width and cut, a nominal budget of
 # 1,000,000 fp32-row slots (cache_fraction 0.125 of the 8M rows): fp16 holds
-# 2,000,000 rows and evicts after ~15 steps of ~130k misses, int8 4,000,000
+# 2,000,000 rows and evicts from step 13 (~130k misses a step), int8 4,000,000
 Q_CACHE_FRAC, Q_NOMINAL_SLOTS = 0.125, 1_000_000
 Q_MULT = {"fp16": 2, "int8": 4}
 Q_RUNS = (("fp16 split", "fp16", False, False), ("fp16 fused", "fp16", True, False),
@@ -713,6 +762,12 @@ def sweep_kernels(torch, ops, ref, gc, qz, dev) -> dict:
             ids = torch.cat([ids, torch.randint(0, 4096, ((-ids.numel()) % 4,), generator=g,
                                                 dtype=torch.int32)])
             scatter_case(4096, D, ids.reshape(-1, 4), scale=1e3)
+    # fp32 rows of D = 5,120 (20 KB a row: llama4-scout's token embedding,
+    # phase 22), in a 4,096-slot storage and at phase 22's shape: its
+    # 12,288-slot scratchpad and a pow-2 padded fill of its first batch's
+    # ~2,400 rows
+    fill_case(4096, 5120, 1000, 1024)
+    fill_case(LMC_SLOTS, 5120, 2374, 4096)
     hot = torch.randint(0, 1_000_000, (100_000,), generator=g, dtype=torch.int32)
     hot[torch.randperm(100_000, generator=g)[:4000]] = 17
     scatter_case(1_000_000, 128, hot.reshape(-1, 4), scale=1e3)
@@ -2930,7 +2985,7 @@ def time_serve_q_kernels(torch, mods, captured, dev):
 # 14. trace train: phase 6's batches replayed from a recorded trace
 # --------------------------------------------------------------------------- #
 def trace_train_phase(torch, mods, tmp: str, base, losses6, digest6, ms6):
-    """Record phase 6's 24 synthetic batches with ``record_trace``, replay
+    """Record phase 6's 20 synthetic batches with ``record_trace``, replay
     them with ``train_dlrm --trace`` through scratchpipe device+overlapped
     fused: losses and the flushed host table bitwise equal to phase 6's.
     Returns (summary, {run: launch counts})."""
@@ -3014,10 +3069,21 @@ def seed0_rows(mods):
     return rows
 
 
+def build_host_rows(mods) -> dict:
+    """The two host tables that take numpy most of a minute to draw
+    (``seed0_rows`` and phase 22's, ``lmc_rows``), built one after the other
+    on a thread of their own while the kernels build and phases 3-5 run:
+    numpy draws without the GIL. Returns their futures by phase."""
+    pool = concurrent.futures.ThreadPoolExecutor(1, thread_name_prefix="host-rows")
+    out = {"seed0": pool.submit(seed0_rows, mods), "lm cached": pool.submit(lmc_rows, mods)}
+    pool.shutdown(wait=False)  # the queued builds still run
+    return out
+
+
 def multi_table_setup(mods):
     """Phase 15's configuration (``multi_table_group``), the launcher's slot
     count and per-table budgets (the §VI-D floor of 6 x 2048 x 20 lookups
-    per table), and the 24 batches of ``dlrm_batches_group``."""
+    per table), and the TRAIN_STEPS batches of ``dlrm_batches_group``."""
     from repro_torch.data.synthetic import dlrm_batches_group
 
     cfg, group = multi_table_group()
@@ -4822,6 +4888,436 @@ def ssm_train_phase(torch, mods, dev):
     return {"runs": runs, "fp32": fp32, "drill": drill}, counts_by_run, entry, fa_row
 
 
+# --------------------------------------------------------------------------- #
+# 22. the look-forward cache on an LM's token embedding
+# --------------------------------------------------------------------------- #
+#: phase 22: llama4-scout-17b-a16e at full width (d_model 5,120; 40/8 heads
+#: of 128; 16 experts of d_ff 8,192, top-1; vocab 202,048) cut to 4 of 48
+#: layers (as phase 19: the whole model is about 200 GB), bf16 params from a
+#: seeded ``torch.Generator`` on the card; its 202,048 x 5,120 fp32 input
+#: table (4.14 GB) in host memory; 8 steps of 4 x 2048 tokens drawn as
+#: ``repro_torch.examples.lm_cached_embedding`` draws them (Zipf "high" from
+#: ``default_rng(0)``, the labels rolled by one), plain SGD at its lr
+LMC_ARCH, LMC_LAYERS = "llama4-scout-17b-a16e", 4
+LMC_BATCH, LMC_SEQ, LMC_STEPS = 4, 2048, 8
+LMC_LR = 1e-2
+LMC_TIMED_FROM = 2  # ms/step: the median over steps 3 .. 8
+#: (ii)'s [Train] that runs under set_sync_debug_mode("error"): the 4th,
+#: after the kernels' first launches and before the evictions begin
+LMC_NO_SYNC_STEP = 3
+#: 6% of the vocabulary (252 MB of fp32): any 6 consecutive batches (the
+#: hold window of 3 + 1 + 2) touch at most 10,926 distinct rows and the 8
+#: batches 13,745, so the cache evicts
+LMC_SLOTS = 12_288
+#: (i) and (ii): the cached runs, (planner, executor)
+LMC_RUNS = (("(i) host/sync", "host", "sync"), ("(ii) device/overlapped", "device", "overlapped"))
+LMC_ORACLE = "(iii) full table on the card"
+#: the kernels the path launches: [Insert]'s fill, the flash forward (and
+#: its remat recompute) and the flash backward
+LMC_KERNELS = ("fill", "flash_attention", "flash_attention_bwd")
+#: if (i) and (iii) are not bitwise equal: the reference test's limits
+#: (tests/test_hlo_and_launch.py), losses rtol, table atol, params atol
+LMC_LIMITS = (1e-4, 2e-5, 2e-4)
+
+
+def lmc_rows(mods):
+    """Phase 22's host table: ``HostEmbeddingTable(V, D, seed=0)``'s rows at
+    LMC_ARCH's vocabulary and width (202,048 x 5,120 fp32, 4.14 GB)."""
+    cfg = mods["get_config"](LMC_ARCH)
+    t0 = time.perf_counter()
+    rows = mods["normal_rows"](cfg.vocab_size, cfg.d_model, 0)
+    log(f"lm cached: host table {rows.shape} fp32 ({rows.nbytes / 1e9:.2f} GB) built in "
+        f"{time.perf_counter() - t0:.1f}s")
+    return rows
+
+
+def lmc_batches(V: int, batch: int, seq: int, steps: int) -> list:
+    """The example's token stream: (ids (batch, seq), {"labels"}) per step."""
+    import numpy as np
+
+    from repro_torch.data.synthetic import sample_ids
+
+    rng = np.random.default_rng(0)
+    out = []
+    for _ in range(steps):
+        toks = sample_ids(rng, V, (batch, seq), "high")
+        out.append((toks, {"labels": np.roll(toks, -1, axis=1).astype(np.int32)}))
+    return out
+
+
+def lmc_guards(torch, mods, device_planner: bool, capture=None):
+    """While a phase-22 run goes: every launch of the path's kernels is
+    recorded with its thread and whether it is allowed there (on the main
+    thread, or on torch's autograd device thread while the main thread is
+    inside ``torch.autograd.grad``: never on the runtime's worker threads);
+    ``capture`` (a dict) receives the first ``fill`` and
+    ``flash_attention_bwd`` call's operands; the plain versions raise, and
+    so does the numpy planner under ``device_planner``; the main thread's
+    waits on worker futures are timed. Returns (launches, waited seconds,
+    restore)."""
+    import concurrent.futures
+    import threading
+
+    main = threading.main_thread()
+    launches, waited, in_grad, saved = [], [0.0], [False], []
+
+    def patch(obj, name, fn):
+        saved.append((obj, name, getattr(obj, name)))
+        setattr(obj, name, fn)
+
+    def guarded(name, fn):
+        def wrapper(*a, **k):
+            t = threading.current_thread()
+            launches.append((name, t.name, t is main or (
+                in_grad[0] and not t.name.startswith("scratchpipe"))))
+            if capture is not None and name in ("fill", "flash_attention_bwd") \
+                    and name not in capture:
+                capture[name] = tuple(x.clone() if torch.is_tensor(x) else x for x in a)
+            return fn(*a, **k)
+        return wrapper
+
+    for mod, name in (("gr", "fill"), ("fa", "flash_attention"), ("fa", "flash_attention_bwd")):
+        patch(mods[mod], name, guarded(name, getattr(mods[mod], name)))
+    real_grad = torch.autograd.grad
+
+    def grad(*a, **k):
+        on_main = threading.current_thread() is main
+        in_grad[0] = in_grad[0] or on_main
+        try:
+            return real_grad(*a, **k)
+        finally:
+            if on_main:
+                in_grad[0] = False
+
+    patch(torch.autograd, "grad", grad)
+    real_result = concurrent.futures.Future.result
+
+    def timed_result(self, timeout=None):
+        if threading.current_thread() is not main:
+            return real_result(self, timeout)
+        t0 = time.perf_counter()
+        try:
+            return real_result(self, timeout)
+        finally:
+            waited[0] += time.perf_counter() - t0
+
+    patch(concurrent.futures.Future, "result", timed_result)
+
+    def no_plain(*_a, **_k):
+        raise RuntimeError("a plain PyTorch version ran on the main path")
+
+    for n in PLAIN_VERSIONS + TRAIN_PLAIN:
+        patch(mods["ref"], n, no_plain)
+    if device_planner:
+        def no_host_plan(*_a, **_k):
+            raise RuntimeError("the numpy Planner.plan ran on a device-planner path")
+        patch(mods["plan"].Planner, "plan", no_host_plan)
+
+    def restore():
+        for obj, name, fn in reversed(saved):
+            setattr(obj, name, fn)
+
+    return launches, waited, restore
+
+
+def lmc_run(torch, mods, cfg, base, batches, dev, label, planner=None, executor=None,
+            capture=None, trace=None) -> dict:
+    """One run of phase 22 from a copy of ``base`` (the host table's rows):
+    ``ScratchPipe`` with ``planner`` and ``executor`` over
+    ``CachedEmbeddingLM.train_fn``, flushed at the end; or, ``planner``
+    None, the oracle: the full table on the card as the storage and the
+    token ids as its slots, ``train_fn`` called in order. Counts are reset
+    just before and read at every [Train] start and at the end (after a
+    synchronize), with the host clock; the peak memory is the run's own
+    (above what was allocated before it). ``trace`` (a dict) receives a
+    torch.profiler summary of the last step (``device_summary``), from its
+    [Train] start to the synchronize that ends the run. Every [Train]
+    records whether a slot lies outside the storage and a print of the
+    rows its slots hold (``rows_print``), both on the card; under the
+    device planner its ``LMC_NO_SYNC_STEP``-th step runs under
+    ``set_sync_debug_mode("error")``. Returns the run's record: losses,
+    step times, launches, the live params (on the card), the prints and
+    the table."""
+    from torch.profiler import ProfilerActivity, profile
+
+    ce, ops = mods["cached_embedding"], mods["ops"]
+    # the run's own peak: what it allocates on top of what is already held
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    lm = ce.CachedEmbeddingLM(cfg, seed=0, lr=LMC_LR, emb_lr=LMC_LR, device=dev)
+    snaps, starts, losses, prof, prints, outside = [], [], [], [], [], []
+    real_train = lm.train_fn
+
+    def train_fn(storage, slots, batch):
+        if trace is not None and len(starts) == LMC_STEPS - 1:  # the last step
+            torch.cuda.synchronize()
+            prof.append(profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]))
+            prof[0].__enter__()
+        starts.append(time.perf_counter())
+        snaps.append(ops.launch_counts())
+        s = (slots if torch.is_tensor(slots) else torch.from_numpy(slots)).to(dev).long()
+        outside.append(((s < 0) | (s >= storage.shape[0])).any())
+        prints.append(rows_print(torch, storage[s]))
+        if planner != "device" or len(starts) != LMC_NO_SYNC_STEP + 1:
+            return real_train(storage, slots, batch)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return real_train(storage, slots, batch)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+
+    host = pipe = storage = stats = None
+    if planner is None:
+        storage = torch.from_numpy(base).to(dev)
+    else:
+        host = mods["HostEmbeddingTable"](*base.shape, data=base.copy())
+        pipe = mods["pipeline"].ScratchPipe(host, LMC_SLOTS, train_fn, planner=planner,
+                                           executor=executor, device=dev)
+    launches, waited, restore = lmc_guards(torch, mods, planner == "device", capture)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    try:
+        if pipe is None:
+            for toks, b in batches:
+                storage, aux = train_fn(storage, toks, b)
+                losses.append(aux["loss"])
+        else:
+            stream = mods["LookaheadStream"](iter(batches))
+            try:
+                stats = pipe.run(stream, lookahead_fn=stream.peek_ids)
+            finally:
+                pipe.close()
+            losses = [st.aux["loss"] for st in stats]
+        torch.cuda.synchronize()
+        starts.append(time.perf_counter())
+        snaps.append(ops.launch_counts())
+    finally:
+        restore()
+        if prof:
+            prof[0].__exit__(None, None, None)
+    if prof:
+        trace.update(device_summary(torch, prof[0], (starts[-1] - starts[-2]) * 1e3,
+                                    named=("flash_fwd", "fa_bwd", "fill_kernel")))
+    peak = (torch.cuda.max_memory_allocated() - held) / 1e9
+    step_ms = [(b - a) * 1e3 for a, b in zip(starts, starts[1:])]
+    rec = {"label": label, "losses": [float(x) for x in losses], "step_ms": step_ms,
+           "ms": statistics.median(step_ms[LMC_TIMED_FROM:]), "peak_memory_GB": peak,
+           "snaps": snaps, "launches": launches, "main_wait_s": waited[0],
+           "params": lm.params, "prints": torch.stack(prints),
+           "slots_outside": bool(torch.stack(outside).any()),
+           "storage_rows": base.shape[0] if pipe is None else pipe.num_slots}
+    if pipe is None:
+        rec["table"] = storage.cpu().numpy()
+    else:
+        rec["host_traffic_bytes"] = host.traffic.total
+        pipe.flush_to_host()
+        rec["table"], rec["stats"] = host.data, stats
+    return rec
+
+
+def lmc_check(cfg, rec) -> dict:
+    """A run's launches and results: per step 2 x L ``flash_attention`` and
+    L ``flash_attention_bwd``; one ``fill`` per planned batch with misses
+    (none for the oracle); no other kernel; every launch allowed where it
+    ran; every [Train] slot inside the storage; losses finite and falling;
+    the cached runs evict, from a storage of LMC_SLOTS rows. Returns the
+    run's summary."""
+    import numpy as np
+
+    label, snaps, L = rec["label"], rec["snaps"], cfg.num_layers
+    fwd, bwd = (step_launches(snaps, n) for n in ("flash_attention", "flash_attention_bwd"))
+    check(fwd == [2 * L] * LMC_STEPS and bwd == [L] * LMC_STEPS,
+          f"lm cached {label}: flash launches per step {fwd}, backward {bwd}; "
+          f"expected {2 * L} and {L}")
+    stats = rec.get("stats")
+    n_fill = 0 if stats is None else sum(1 for st in stats if st.n_miss)
+    check(snaps[-1]["fill"] == n_fill,
+          f"lm cached {label}: {snaps[-1]['fill']} fill launches, {n_fill} batches with misses")
+    other = {k: v for k, v in snaps[-1].items() if k not in LMC_KERNELS and v}
+    check(not other, f"lm cached {label}: other kernels launched: {other}")
+    bad = sorted({(n, t) for n, t, ok in rec["launches"] if not ok})
+    check(not bad, f"lm cached {label}: launches off the main path's threads: {bad}")
+    check(not rec["slots_outside"],
+          f"lm cached {label}: a [Train] slot lies outside the {rec['storage_rows']}-row storage")
+    losses = rec["losses"]
+    check(all(map(math.isfinite, losses)) and losses[-1] < losses[0],
+          f"lm cached {label}: losses {losses}")
+    out = {"run": label, "ms_per_step": rec["ms"], "step_ms": rec["step_ms"],
+           "tokens_per_s": LMC_BATCH * LMC_SEQ / (rec["ms"] / 1e3),
+           "peak_memory_GB": rec["peak_memory_GB"], "losses": losses,
+           "flash_attention_per_step": fwd[0], "flash_attention_bwd_per_step": bwd[0],
+           "fill": snaps[-1]["fill"],
+           "launching_threads": sorted({t for _, t, _ in rec["launches"]})}
+    if stats is not None:
+        row_bytes = cfg.d_model * 4
+        evictions = sum(st.n_evict for st in stats)
+        check(evictions > 0, f"lm cached {label}: no eviction at {LMC_SLOTS} slots")
+        check(rec["storage_rows"] == LMC_SLOTS,
+              f"lm cached {label}: a storage of {rec['storage_rows']} rows, not {LMC_SLOTS}")
+        out.update({
+            "slots": LMC_SLOTS, "evictions": evictions,
+            "misses": [st.n_miss for st in stats], "unique": [st.n_unique for st in stats],
+            "plan_hit_after_warmup": float(np.mean([st.hit_rate for st in stats[6:]])),
+            "host_traffic_MB": rec["host_traffic_bytes"] / 1e6,
+            "full_table_traffic_MB": LMC_STEPS * LMC_BATCH * LMC_SEQ * row_bytes / 1e6,
+            "main_thread_wait_on_workers_s": rec["main_wait_s"]})
+    return out
+
+
+def rows_print(torch, rows):
+    """A print of a tensor's fp32 bits on the card, with no host sync: two
+    int64 sums (wrapping, so in any order the same), the second weighted by
+    position. Equal rows give equal prints."""
+    bits = rows.reshape(-1).view(torch.int32).to(torch.int64)
+    pos = torch.arange(1, bits.numel() + 1, device=bits.device)
+    return torch.stack([bits.sum(), (bits * pos).sum()])
+
+
+def lmc_compare(torch, mods, rec, want, what) -> dict:
+    """A run against (i): the losses, the params (leaf by leaf, both on the
+    card), the rows each [Train] read (their prints) and the table
+    (SHA-256, and the largest difference). Returns {"bitwise", the largest
+    differences}."""
+    import numpy as np
+
+    leaves = mods["tree_leaves"](rec["params"])
+    p_err, p_equal = 0.0, True
+    for p, q in zip(leaves, want["params"]):
+        if not torch.equal(p, q):
+            p_equal = False
+            p_err = max(p_err, (p.float() - q.float()).abs().max().item())
+    digest = table_digest(rec["table"])
+    t_err = (0.0 if digest == want["digest"]
+             else float(np.abs(rec["table"] - want["table"]).max()))
+    l_got, l_want = np.array(rec["losses"]), np.array(want["losses"])
+    rows_equal = torch.equal(rec["prints"], want["prints"])
+    out = {"bitwise": bool(p_equal and digest == want["digest"] and rows_equal
+                           and np.array_equal(l_got, l_want)),
+           "losses_equal": bool(np.array_equal(l_got, l_want)),
+           "rows_read_equal": rows_equal,
+           "loss_max_rel_err": float(np.max(np.abs(l_got - l_want) / np.abs(l_want))),
+           "params_equal": p_equal, "params_max_abs_err": p_err,
+           "table_sha256": digest, "table_max_abs_err": t_err}
+    log(f"lm cached {what}: bitwise {out['bitwise']} (losses {out['losses_equal']}, rows "
+        f"read {rows_equal}, params {p_equal} max {p_err:.3g}, table "
+        f"{digest == want['digest']} max {t_err:.3g})")
+    return out
+
+
+def lmc_fill_row(torch, mods, fill_ops, dev) -> dict:
+    """``fill`` at the path's first [Insert] operands (fp32 rows of D =
+    5,120): bitwise against its plain version, then timed beside its bound
+    (each valid row read and written once, and the slots), the plain
+    version and ``index_copy_``."""
+    gr, ref = mods["gr"], mods["ref"]
+    flush = torch.empty(32 * 1024 * 1024, dtype=torch.float32, device=dev)
+    storage, slots, rows = fill_ops
+    valid = slots < storage.shape[0]
+    n_valid, D = int(valid.sum().item()), storage.shape[1]
+    scratch = storage.clone()
+    gr.fill(scratch, slots, rows)
+    want = ref.fill_ref(storage.clone(), slots, rows)
+    check(torch.equal(scratch, want), "fill differs at phase 22's operands")
+    del want
+    f_bytes = 2 * n_valid * D * 4 + slots.numel() * 4
+    v_slots, v_rows = slots[valid].long(), rows[valid]
+    row = {"row": "2 fill at D = 5,120 fp32 (phase 22's first [Insert])",
+           "storage": list(storage.shape), "F": int(slots.numel()), "valid_rows": n_valid,
+           "ms": median_ms(torch, lambda: gr.fill(scratch, slots, rows), 30, flush),
+           "plain_ms": median_ms(torch, lambda: ref.fill_ref(scratch, slots, rows), 10, flush),
+           "bound_ms": f_bytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes", "bytes": f_bytes,
+           "library_ms": median_ms(torch, lambda: scratch.index_copy_(0, v_slots, v_rows), 30,
+                                   flush),
+           "library": "Tensor.index_copy_ of the valid rows", "max_abs_err": 0.0}
+    row["GB_per_s"] = f_bytes / row["ms"] / 1e6
+    log(f"fill at phase 22's operands: {row['ms']:.4f} ms, bound {row['bound_ms']:.4f}, "
+        f"plain {row['plain_ms']:.4f}, index_copy_ {row['library_ms']:.4f} "
+        f"({n_valid} rows of {D})")
+    return row
+
+
+def lm_cached_phase(torch, mods, dev):
+    """Phase 22: (i) host/sync, (ii) device/overlapped, (iii) the oracle;
+    (i) = (ii) bitwise, (i) = (iii) bitwise or within LMC_LIMITS; then the
+    path's kernels at its operands. Returns (summary, launches by run, the
+    fill row, the flash forward's row and checks, the backward's row)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    full = mods["get_config"](LMC_ARCH)
+    cfg = dataclasses.replace(full, num_layers=LMC_LAYERS)
+    V, D = cfg.vocab_size, cfg.d_model
+    base = mods["host_rows"].pop("lm cached").result()  # lmc_rows
+    check(base.shape == (V, D), f"the host table is {base.shape}, not {(V, D)}")
+    batches = lmc_batches(V, LMC_BATCH, LMC_SEQ, LMC_STEPS)
+    log(f"lm cached: {LMC_ARCH} {LMC_LAYERS} layers, host table {V} x {D} fp32 "
+        f"({base.nbytes / 1e9:.2f} GB) ready ({time.perf_counter() - t0:.1f}s)")
+    runs, counts_by_run, captured, bitwise, trace = [], {}, {}, {}, {}
+    want = None
+    for label, planner, executor in LMC_RUNS + ((LMC_ORACLE, None, None),):
+        t1 = time.perf_counter()
+        rec = lmc_run(torch, mods, cfg, base, batches, dev, label, planner, executor,
+                      capture=captured if not captured else None,
+                      trace=trace if executor == "overlapped" else None)
+        summary = lmc_check(cfg, rec)
+        if want is None:  # (i)'s params stay on the card for the comparisons
+            want = {"losses": rec["losses"], "table": rec["table"],
+                    "digest": table_digest(rec["table"]), "prints": rec["prints"],
+                    "params": mods["tree_leaves"](rec["params"])}
+            summary["params"] = n_params(rec["params"])
+            summary["table_sha256"] = want["digest"]
+        else:
+            bitwise[label] = lmc_compare(torch, mods, rec, want, f"{label} vs (i)")
+        if executor == "overlapped":
+            summary["profile_last_step"] = trace
+        counts_by_run[f"lm cached {label}"] = rec["snaps"][-1]
+        del rec
+        gc.collect()  # the runtime's cycles hold the trainer and its params
+        torch.cuda.empty_cache()
+        summary["wall_s"] = time.perf_counter() - t1
+        runs.append(summary)
+        log(f"lm cached {label}: {summary['ms_per_step']:.1f} ms/step, "
+            f"{summary['tokens_per_s']:.0f} tokens/s, peak {summary['peak_memory_GB']:.1f} GB, "
+            f"loss {summary['losses'][0]:.4f} -> {summary['losses'][-1]:.4f}, fills "
+            f"{summary['fill']}, evictions {summary.get('evictions')} "
+            f"({summary['wall_s']:.1f}s)")
+    ii = bitwise[LMC_RUNS[1][0]]
+    check(ii["bitwise"], f"lm cached: (ii) is not bitwise equal to (i): {ii}")
+    iii = bitwise[LMC_ORACLE]
+    if not iii["bitwise"]:  # held to the reference test's limits instead
+        rtol, t_atol, p_atol = LMC_LIMITS
+        check(iii["loss_max_rel_err"] <= rtol and iii["table_max_abs_err"] <= t_atol
+              and iii["params_max_abs_err"] <= p_atol,
+              f"lm cached: (i) and (iii) differ past the reference test's limits: {iii}")
+    del want, base
+    gc.collect()
+    torch.cuda.empty_cache()
+    card = card_line()
+    summary = {"card": card, "arch": LMC_ARCH, "layers": LMC_LAYERS,
+               "reduced": [f"depth {full.num_layers} -> {LMC_LAYERS}",
+                           "batch 4 x 4096 (phase 21) -> 4 x 2048"],
+               "batch": LMC_BATCH, "seq": LMC_SEQ, "steps": LMC_STEPS, "lr": LMC_LR,
+               "host_table": [V, D], "runs": runs, "vs_i": bitwise,
+               "no_host_sync": f"(ii)'s [Train] {LMC_NO_SYNC_STEP + 1}, the whole train_fn "
+                               "step, under set_sync_debug_mode('error')"}
+    print("lm cached: " + json.dumps(summary), flush=True)
+    flush = torch.empty(32 * 1024 * 1024, dtype=torch.float32, device=dev)
+    fill_row = lmc_fill_row(torch, mods, captured.pop("fill"), dev)
+    q, k, v, o, lse, do, causal, window, q_offset = captured.pop("flash_attention_bwd")
+    what = f"lm cached {LMC_ARCH} (main path, {q.shape[0]} x {q.shape[1]})"
+    forward = main_forward_close(torch, mods["ref"], q, k, v, o, lse, causal, window, q_offset,
+                                 what)
+    fwd_row = time_flash_shapes(torch, mods, {what: (q, k, v, causal, window)}, dev)[0]
+    fwd_row["forward_with_lse"] = forward
+    bwd_row = bwd_shape_row(torch, mods, f"7d-bwd {what}", q, k, v, o, lse, do, causal, window,
+                            q_offset, flush)
+    del q, k, v, o, lse, do, captured, flush
+    torch.cuda.empty_cache()
+    log(f"lm cached: done ({time.perf_counter() - t0:.1f}s)")
+    return summary, counts_by_run, fill_row, fwd_row, bwd_row
+
+
 def main() -> int:
     import torch
 
@@ -4838,7 +5334,9 @@ def main() -> int:
     from repro_torch.core import dlrm_runtime, pipeline, serving_cache, static_cache
     from repro_torch.core import plan, plan_device
     from repro_torch.core import quantize as qz
-    from repro_torch.core.host_table import HostEmbeddingTable
+    from repro_torch.core import cached_embedding
+    from repro_torch.core.host_table import HostEmbeddingTable, normal_rows
+    from repro_torch.data.lookahead import LookaheadStream
     from repro_torch.kernels import _build, ops, ref
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import gather_reduce as gr
@@ -4857,13 +5355,16 @@ def main() -> int:
             "transformer": transformer, "ssm_lm": ssm_lm, "moe": moe,
             "ShapeSpec": ShapeSpec, "get_config": get_config, "plan": plan,
             "tree_leaves": tree_leaves, "steps": steps,
-            "plan_device": plan_device, "serving_cache": serving_cache}
+            "plan_device": plan_device, "serving_cache": serving_cache,
+            "cached_embedding": cached_embedding, "normal_rows": normal_rows,
+            "LookaheadStream": LookaheadStream}
 
     t_start = time.perf_counter()
     card = card_line()
     log(f"card: {card}")
     dev = torch.device(DEVICE, 0)
 
+    mods["host_rows"] = build_host_rows(mods)
     t0 = time.perf_counter()
     built = _build.build_all()
     for b in built.values():
@@ -4881,7 +5382,7 @@ def main() -> int:
 
 
 def run_all(torch, mods, dev, ckpt_dir, t_start) -> int:
-    """Phases 3-21, the kernels line, the card line and the last line."""
+    """Phases 3-22, the kernels line, the card line and the last line."""
     ops, ref, gr, gc, qz = (mods[k] for k in ("ops", "ref", "gr", "gc", "qz"))
     serve, serving_cache, plan_device = mods["serve"], mods["serving_cache"], mods["plan_device"]
     get_config = mods["get_config"]
@@ -4944,7 +5445,7 @@ def run_all(torch, mods, dev, ckpt_dir, t_start) -> int:
     del res, backend, captured
     torch.cuda.empty_cache()
 
-    seed0 = seed0_rows(mods)
+    seed0 = mods["host_rows"].pop("seed0").result()
     t0 = time.perf_counter()
     summaries, train_counts, train_captured, base, fp32_losses, fp32_digest = (
         train_main_path(torch, mods, dev, seed0, ckpt_dir))
@@ -5073,12 +5574,16 @@ def run_all(torch, mods, dev, ckpt_dir, t_start) -> int:
     log(f"mamba2 and moe: done ({time.perf_counter() - t0:.1f}s)")
     _, lt_counts, bwd_entry = lm_train_phase(torch, mods, dev)
     _, st_counts, ssd_bwd_entry, fa_zamba_row = ssm_train_phase(torch, mods, dev)
+    _, lmc_counts, lmc_fill, lmc_fwd, lmc_bwd = lm_cached_phase(torch, mods, dev)
     lt_counts.update(st_counts)
+    lt_counts.update(lmc_counts)
     bwd_entry["launches_by_run"].update(
-        {r: c["flash_attention_bwd"] for r, c in st_counts.items() if c["flash_attention_bwd"]})
+        {r: c["flash_attention_bwd"] for r, c in lt_counts.items()
+         if c["flash_attention_bwd"] and r not in bwd_entry["launches_by_run"]})
     bwd_entry["launches"] = sum(bwd_entry["launches_by_run"].values())
-    bwd_entry["max_abs_err"] = max(bwd_entry["max_abs_err"], fa_zamba_row["max_abs_err"])
-    bwd_entry["details"]["shapes"].append(fa_zamba_row)
+    bwd_entry["max_abs_err"] = max(bwd_entry["max_abs_err"], fa_zamba_row["max_abs_err"],
+                                   lmc_bwd["max_abs_err"])
+    bwd_entry["details"]["shapes"] += [fa_zamba_row, lmc_bwd]
 
     by_run = {"serve": counts, **train_counts, **q_counts, **ts_counts, **tt_counts,
               **mt_counts, **sh_counts, **rec_counts}
@@ -5086,6 +5591,9 @@ def run_all(torch, mods, dev, ckpt_dir, t_start) -> int:
     for k in (gather, fill):
         k["launches_by_run"] = {run: c[k["name"]] for run, c in by_run.items()}
         k["launches"] = sum(k["launches_by_run"].values())
+    fill["launches_by_run"].update({r: c["fill"] for r, c in lmc_counts.items()})
+    fill["launches"] = sum(fill["launches_by_run"].values())
+    fill["details"] = {"lm_cached_embedding": lmc_fill}
     gather["max_abs_err"] = max(gather["max_abs_err"],
                                 train_times["gather_reduce"].pop("max_abs_err"))
     gather["train"] = train_times["gather_reduce"]
@@ -5129,13 +5637,16 @@ def run_all(torch, mods, dev, ckpt_dir, t_start) -> int:
             kernels[-1]["max_abs_err"] = max(kernels[-1]["max_abs_err"],
                                              *(f["max_abs_err"] for f in flash_shapes),
                                              *(f["max_abs_err"] for f in moe_shapes),
-                                             train_fwd["o_max_abs_err"])
+                                             train_fwd["o_max_abs_err"],
+                                             lmc_fwd["max_abs_err"],
+                                             lmc_fwd["forward_with_lse"]["o_max_abs_err"])
             kernels[-1]["details"] = {**lm_details[name],
                                       "warm_prefill_ms": lm_summary["prefill_ms_warm"],
                                       "prefill_profile": lm_summary["profile"]["prefill"],
                                       "transformer_shapes": flash_shapes,
                                       "moe_shapes": moe_shapes,
-                                      "lm_train_main_path": train_fwd}
+                                      "lm_train_main_path": train_fwd,
+                                      "lm_cached_embedding": lmc_fwd}
             kernels.append(bwd_entry)
         else:
             kernels[-1]["max_abs_err"] = max(kernels[-1]["max_abs_err"],

@@ -251,7 +251,10 @@ def lm_params_from_reference(params: dict, device="cpu") -> dict:
     stacked (tail, ...). Ssm (``models/ssm_lm.py``) and transformer
     (``models/transformer.py``, the MoE family's ``mlp`` dict included):
     ``layers`` stacked (L, ...), ``final_norm`` (a dict of ``w``/``b`` for
-    the encoder), ``embed``, ``lm_head`` unless tied, ``frontend_proj``."""
+    the encoder), ``embed``, ``lm_head`` unless tied, ``frontend_proj``.
+    A tree without ``embed`` (the reference's ``CachedEmbeddingLM.params``:
+    the table is the host's) converts as it is, into the params of
+    ``core/cached_embedding.py: CachedEmbeddingLM``."""
     out = {k: _tree(v, device) for k, v in params.items() if k not in _STACKED}
     for k, n_lead in _STACKED.items():
         if k in params:

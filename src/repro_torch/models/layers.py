@@ -73,7 +73,8 @@ def apply_rope(
     xr, xp = x[..., :rot], x[..., rot:]
     half = rot // 2
     exponent = -torch.arange(0, half, dtype=torch.float32, device=x.device) / half
-    freqs = torch.pow(torch.tensor(theta, dtype=torch.float32, device=x.device), exponent)
+    # a fill on the device, not a copy of a host scalar (a host sync)
+    freqs = torch.pow(torch.full((), theta, dtype=torch.float32, device=x.device), exponent)
     ang = positions.float()[..., None] * freqs  # (B, S, half)
     cos = torch.cos(ang)[:, :, None, :]
     sin = torch.sin(ang)[:, :, None, :]

@@ -32,6 +32,7 @@ elements that take padded writes aside), and must run with no host sync
 under ``torch.cuda.set_sync_debug_mode("error")``.
 """
 import dataclasses
+import math
 
 import numpy as np
 import pytest
@@ -79,7 +80,7 @@ def test_cuda_gather_reduce_bitwise(cuda, D, L):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("D", [8, 40, 128, 192])
+@pytest.mark.parametrize("D", [8, 40, 128, 192, 5120])  # 5120: llama4-scout's token rows
 def test_cuda_fill_bitwise(cuda, D):
     N = 300
     st = torch.from_numpy(_storage(N, D)).to(cuda)
@@ -1458,3 +1459,104 @@ def test_cuda_lm_train_step_launches_and_matches_cpu(cuda, monkeypatch, arch):
     for g, w in zip(out["cuda"][1], out["cpu"][1]):
         assert (g - w).abs().max().item() <= 1e-3 * max(w.abs().max().item(), 1e-30)
     assert len(out["cuda"][1]) == len(tree_leaves(params))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("planner,executor", [("host", "sync"), ("device", "overlapped")])
+def test_cuda_cached_embedding_lm_equals_full_table(cuda, planner, executor):
+    """``CachedEmbeddingLM`` on the card (llama4-scout's smoke config, fp32,
+    8 steps of 4 x 16 tokens, a 192-slot scratchpad that evicts): training
+    through ``ScratchPipe`` is bitwise equal to full-table training with
+    identity slots (losses, params, the flushed table); one ``fill`` per
+    batch with misses, the flash pair in every layer, nothing else."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core.cached_embedding import CachedEmbeddingLM
+    from repro_torch.core.host_table import HostEmbeddingTable
+    from repro_torch.core.pipeline import ScratchPipe
+    from repro_torch.data.lookahead import LookaheadStream
+    from repro_torch.optim.optimizers import tree_leaves
+
+    cfg = get_smoke_config("llama4-scout-17b-a16e")
+    V, D, steps = cfg.vocab_size, cfg.d_model, 8
+    toks = np.random.default_rng(0).integers(0, V, size=(steps, 4, 16))
+    labels = np.roll(toks, -1, axis=2).astype(np.int32)
+    full = CachedEmbeddingLM(cfg, seed=1, device=cuda)
+    table = torch.from_numpy(HostEmbeddingTable(V, D, seed=0).data).to(cuda)
+    want = []
+    for i in range(steps):
+        table, aux = full.train_fn(table, toks[i], {"labels": labels[i]})
+        want.append(float(aux["loss"]))
+    lm = CachedEmbeddingLM(cfg, seed=1, device=cuda)
+    host = HostEmbeddingTable(V, D, seed=0)
+    pipe = ScratchPipe(host, 192, lm.train_fn, planner=planner, executor=executor,
+                       device=cuda)
+    stream = LookaheadStream(iter([(toks[i], {"labels": labels[i]}) for i in range(steps)]))
+    tops.reset_launch_counts()
+    try:
+        stats = pipe.run(stream, lookahead_fn=stream.peek_ids)
+        pipe.flush_to_host()
+    finally:
+        pipe.close()
+    assert [float(s.aux["loss"]) for s in stats] == want
+    assert np.array_equal(host.data, table.cpu().numpy())
+    assert all(torch.equal(a, b) for a, b in zip(tree_leaves(lm.params),
+                                                 tree_leaves(full.params)))
+    assert sum(s.n_evict for s in stats) > 0
+    counts = {k: v for k, v in tops.launch_counts().items() if v}
+    L = cfg.num_layers
+    assert counts == {"fill": sum(1 for s in stats if s.n_miss),
+                      "flash_attention": 2 * L * steps, "flash_attention_bwd": L * steps}
+
+
+@pytest.mark.cuda
+def test_cuda_unique_inverse_has_no_host_sync(cuda):
+    """The device planner's slots go through ``unique_inverse`` on the card
+    with no host sync, and give np.unique's unique slots and inverse."""
+    from repro_torch.core.cached_embedding import unique_inverse
+
+    slots = RNG.integers(0, 1000, (4, 64)).astype(np.int32)
+    slots_t = torch.from_numpy(slots).to(cuda)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        uniq, inv = unique_inverse(slots_t, cuda)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    want_u, want_inv = np.unique(slots.ravel(), return_inverse=True)
+    n = want_u.size
+    assert np.array_equal(uniq[:n].cpu().numpy(), want_u)
+    assert bool((uniq[n:] == int(want_u[-1])).all())
+    assert np.array_equal(inv.cpu().numpy(), want_inv.ravel())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["numpy", "tensor"])
+def test_cuda_train_fn_step_has_no_host_sync(cuda, kind):
+    """A whole ``CachedEmbeddingLM.train_fn`` step on the card (llama4-scout's
+    smoke config) makes no host sync, with the host planner's slots (numpy)
+    or the device planner's (a tensor on the card) and numpy labels: the
+    forward, the backward, the SGD update and the uploads."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core.cached_embedding import CachedEmbeddingLM
+    from repro_torch.core.host_table import HostEmbeddingTable
+
+    cfg = get_smoke_config("llama4-scout-17b-a16e")
+    V, D = cfg.vocab_size, cfg.d_model
+    toks = np.random.default_rng(0).integers(0, V, size=(2, 4, 16)).astype(np.int32)
+    labels = np.roll(toks, -1, axis=2)
+    lm = CachedEmbeddingLM(cfg, seed=1, device=cuda)
+    table = torch.from_numpy(HostEmbeddingTable(V, D, seed=0).data).to(cuda)
+
+    def slots(i):
+        return toks[i] if kind == "numpy" else torch.from_numpy(toks[i]).to(cuda)
+
+    table, aux = lm.train_fn(table, slots(0), {"labels": labels[0]})  # loads the kernels
+    first = float(aux["loss"])
+    s1 = slots(1)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        table, aux = lm.train_fn(table, s1, {"labels": labels[1]})
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert math.isfinite(float(aux["loss"])) and math.isfinite(first)

@@ -298,3 +298,52 @@ def _supervise_message(capsys):
 def test_not_ported_messages_name_their_roadmap_item(capsys, message, item):
     """What is not ported yet says where ROADMAP.md queues it."""
     assert f"ROADMAP.md Queue 1 item {item})" in message(capsys)
+
+
+#: the cached-embedding LM and the examples (ports of ``examples/*.py``)
+EXAMPLES = ("repro_torch.examples.lm_cached_embedding", "repro_torch.examples.quickstart",
+            "repro_torch.examples.serve_lm")
+
+
+def test_cached_embedding_and_examples_listed_and_default_to_cuda(monkeypatch):
+    """``core/cached_embedding.py`` and the three examples are modules of
+    the port (so the import checks above cover them); they run on the card
+    by default and raise without one."""
+    import importlib
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core.cached_embedding import CachedEmbeddingLM
+
+    mods = _port_modules()
+    for m in ("repro_torch.core.cached_embedding",) + EXAMPLES:
+        assert m in mods
+    assert inspect.signature(CachedEmbeddingLM.__init__).parameters["device"].default == "cuda"
+    lm_example = importlib.import_module(EXAMPLES[0])
+    assert lm_example.build_parser().parse_args([]).device == "cuda"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        CachedEmbeddingLM(get_smoke_config("llama4-scout-17b-a16e"), seed=0)
+    for m in EXAMPLES:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            importlib.import_module(m).main([])
+
+
+@pytest.mark.parametrize("module,argv,expect", [
+    ("lm_cached_embedding", ["--steps", "8", "--batch", "2", "--seq", "16"], "OK"),
+    ("lm_cached_embedding", ["--steps", "8", "--batch", "2", "--seq", "16", "--planner",
+                             "device", "--executor", "overlapped"], "OK"),
+    ("quickstart", [], "max |scratchpipe - full_table| = 0.00e+00"),
+    ("serve_lm", ["--batch", "2", "--prompt-len", "8", "--gen", "3"], "request[1] generated"),
+], ids=["lm_cached_embedding", "lm_cached_embedding-device-overlapped", "quickstart",
+        "serve_lm"])
+def test_examples_run_on_the_cpu(capsys, module, argv, expect):
+    """Each example's ``main`` with ``--device cpu`` at a tiny size prints
+    its reference's lines (the quickstart keeps its own assertion: the
+    cached run equals full-table training)."""
+    import importlib
+
+    importlib.import_module(f"repro_torch.examples.{module}").main(argv + ["--device", "cpu"])
+    out = capsys.readouterr().out
+    assert expect in out
+    if module == "lm_cached_embedding":
+        assert "plan-hit=" in out and "host traffic" in out and "OK" in out
