@@ -46,8 +46,8 @@ Phases, in order; any failure raises and the script exits non-zero:
                at the full width of dlrm-scratchpipe (8 tables, D=128 fp32,
                20 lookups per table, batch 2048, bottom MLP 13-512-256-128,
                dot interaction, top MLP 164-1024-1024-512-256-1), 20 steps,
-               seed 0: ``scratchpipe`` split, ``scratchpipe --fused``, then
-               ``nocache``, each from a copy of one host table (the first 8M
+               seed 0: ``scratchpipe`` split and ``scratchpipe --fused``,
+               each from a copy of one host table (the first 8M
                rows of phase 15's seed-0 table, built once on a thread of
                its own from the script's start, as phase 22's table is
                after it: the rows a seed-0 table of 8M rows holds). One cut:
@@ -380,6 +380,37 @@ Phases, in order; any failure raises and the script exits non-zero:
                backward operands (40/8 heads of 128, causal, 4 x 2048)
                against their plain versions, SDPA and SDPA's backward,
                each beside its bound.
+ 23. mesh — the mesh layer on the card (``launch/mesh.py``,
+               ``parallel/collectives.py``, ``launch/dryrun.py``), run right
+               after phase 7 on phase 6's operands: (1) NCCL at world 1 from
+               an in-process store, ``make_host_mesh(1, 1)`` and a (1, 1, 1)
+               ("pod", "data", "model") mesh; each collective once against
+               its no-mesh result: ``vocab_sharded_lookup`` bitwise equal to
+               the rows taken by index, ``hierarchical_psum`` the identity,
+               ``ef_int8_psum`` the reference's one-pod quantize (codes,
+               dequantized sum and residual), the vocab-parallel cross
+               entropy within 1e-5 of the one-card loss; the group torn
+               down at the phase's end. (2) ``dlrm_full_train_step`` through
+               the (1, 1) mesh on phase 6's 8 x 1M fp32 table (the same
+               initial bits, on the card, the global row ids as slots), its
+               batches, lr and 20 steps, the plain versions raising: one
+               ``gather_reduce`` and one ``scatter_add`` a step and no other
+               kernel; the losses and the final table (SHA-256) bitwise
+               equal to phase 6's fp32 split run. (3) ``dlrm-scratchpipe``
+               uncut: 8 x 10,000,000 x 128 fp32 (40.96 GB) drawn on the card
+               from a seeded ``torch.Generator``, batch 2048, 20 lookups a
+               table, 20 steps: ms/step (host clock, the median of steps
+               6-20), samples/s, peak GB, the first and last loss (finite);
+               the two kernels at a middle step's operands against their
+               plain versions (held on the rows the step touches, gathered
+               out, never on a copy of the table), beside their bounds and
+               ``F.embedding_bag`` / ``index_add_``. (4) the dry run's
+               per-device argument bytes for the DLRM cell at (1, 1) equal
+               to the bytes (3) allocated for tables, MLPs and one batch, and
+               the rise of ``torch.cuda.memory_allocated()`` within 1% of
+               them; the computed bytes at 16x16 and 2x16x16, and which LM
+               train cells fit one 80 GB card at 16x16 (computed, not
+               measured). Prints a ``mesh:`` line.
 
 The traces go to temporary directories removed at exit. The sweep of
 phase 3 covers fp32 fills of D = 5,120 (phase 22's rows) and the fp16
@@ -443,10 +474,11 @@ STEPS, DEPTH, CACHE_FRAC = 24, 2, 0.25
 # phase 15's four large tables evict from step 12 at the latest
 TRAIN_STEPS, TRAIN_WARMUP, TRAIN_CACHE_FRAC = 20, 6, 0.5
 # (name, runtime, fused, fast): ``fast`` adds --planner device --executor
-# overlapped (the device-resident planner and the overlapped executor)
+# overlapped (the device-resident planner and the overlapped executor). The
+# ``nocache`` baseline runs on the card in phase 15; at these operands phase
+# 23's GPU-only full-table step is the oracle without a cache
 TRAIN_RUNS = (("scratchpipe split", "scratchpipe", False, False),
               ("scratchpipe fused", "scratchpipe", True, False),
-              ("nocache", "nocache", False, False),
               ("scratchpipe device+overlapped", "scratchpipe", False, True),
               ("scratchpipe device+overlapped fused", "scratchpipe", True, True))
 FAST_ARGV = ["--planner", "device", "--executor", "overlapped"]
@@ -2446,6 +2478,12 @@ def time_lm_kernels(torch, mods, captured, captured32, sweep_err, dev, prefill_p
         "library_ms": None,
         "library": "no single PyTorch call computes the chunked SSD scan",
         "max_abs_err": max(e for n, e in sweep_err.items() if n.startswith("ssd")),
+        # the fp32 form's bound at these shapes: the FMA kernel at
+        # FP32_OPS_PER_S, x and y at 4 bytes
+        "fp32_bound_ms": max(s_ops / FP32_OPS_PER_S, (s_bytes + 2 * x.numel() * (
+            4 - x.element_size())) / HBM_BYTES_PER_S) * 1e3,
+        "fp32_bound_by": "operations" if s_ops / FP32_OPS_PER_S >= (s_bytes + 2 * x.numel() * (
+            4 - x.element_size())) / HBM_BYTES_PER_S else "bytes",
     }
     # the operations the tensor-core route does: S.x on hi + lo of S, C.h
     # and the state update on three bf16 products each, C.B^T once per
@@ -5318,6 +5356,249 @@ def lm_cached_phase(torch, mods, dev):
     return summary, counts_by_run, fill_row, fwd_row, bwd_row
 
 
+# --------------------------------------------------------------------------- #
+# 23. the mesh layer, and the full-table DLRM on the card
+# --------------------------------------------------------------------------- #
+MESH_STEPS, MESH_WARMUP = 20, 5  # the uncut run's median is over steps 6-20
+
+
+def mesh_collectives(torch, mods, dev) -> dict:
+    """(1): each collective of ``parallel/collectives.py`` once on the world-1
+    NCCL meshes, against its no-mesh result."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    C, mesh2 = mods["collectives"], mods["mesh"]
+    mesh = mesh2.make_host_mesh(1, 1)
+    mesh3 = init_device_mesh("cuda", (1, 1, 1), mesh_dim_names=("pod", "data", "model"))
+    C.reset_collective_records()
+    g = torch.Generator(device=dev).manual_seed(23)
+    table = torch.randn((1000, DIM), generator=g, device=dev)
+    ids = torch.randint(0, 1000, (64, 20), generator=g, device=dev)
+    check(torch.equal(C.vocab_sharded_lookup(table, ids, mesh), table[ids]),
+          "vocab_sharded_lookup differs from the rows taken by index")
+    grads = torch.randn((64, DIM), generator=g, device=dev)
+    check(torch.equal(C.hierarchical_psum(grads, mesh3), grads),
+          "hierarchical_psum is not the identity on a (1, 1, 1) mesh")
+    codes = []
+    out, err = C.ef_int8_psum(grads, None, mesh3, codes=codes)
+    q, scale, want_err = C.ef_int8_quantize(grads)
+    check(torch.equal(codes[0], q) and torch.equal(out, scale * q.to(grads.dtype))
+          and torch.equal(err, want_err), "ef_int8_psum differs from the one-pod quantize")
+    x = torch.randn((2, 64, DIM), generator=g, device=dev)
+    head = torch.randn((DIM, 1000), generator=g, device=dev)
+    labels = torch.randint(0, 997, (2, 64), generator=g, device=dev)
+    vp = C.vocab_parallel_xent_loss(x, head, labels, true_vocab=997, mesh=mesh, seq_chunk=32)
+    one = C.sharded_xent_loss(x, head, labels, true_vocab=997, seq_chunk=32)
+    check(abs(float(vp) - float(one)) <= 1e-5 * abs(float(one)),
+          f"vocab-parallel xent {float(vp)} against {float(one)}")
+    torch.cuda.synchronize()
+    return {"backend": mods["dist"].get_backend(), "world": mods["dist"].get_world_size(),
+            "collectives": mods["hlo_stats"].collective_stats(),
+            "xent_rel_diff": abs(float(vp) - float(one)) / abs(float(one)), "mesh": mesh}
+
+
+def mesh_batches(torch, mods, rows: int, dev, steps: int):
+    """Phase 6's batches (``dlrm_batches`` at seed 0, the launcher's
+    locality), on the card: dense and label fp32, the per-table ids int32."""
+    import numpy as np
+
+    tc = mods["TraceConfig"](num_tables=TABLES, rows_per_table=rows,
+                             lookups_per_table=LOOKUPS, batch_size=BATCH,
+                             locality=mods["train"].build_parser().parse_args(["--arch", "dlrm-scratchpipe"]).locality,
+                             seed=0)
+    for _, payload in mods["dlrm_batches"](tc, steps):
+        yield {"dense": torch.from_numpy(np.ascontiguousarray(payload["dense"],
+                                                              dtype=np.float32)).to(dev),
+               "label": torch.from_numpy(np.ascontiguousarray(payload["label"],
+                                                              dtype=np.float32)).to(dev),
+               "sparse_ids": torch.from_numpy(np.ascontiguousarray(payload["sparse_ids"],
+                                                                   dtype=np.int32)).to(dev)}
+
+
+def mesh_steps(torch, mods, params, cfg, batches, mesh, lr, capture_at=None):
+    """Full-table steps through ``mesh``, the plain versions raising, the
+    launch counts reset before each step and read after it. Returns
+    (losses, per-step counts, per-step host seconds, captured operands)."""
+    ops, dryrun = mods["ops"], mods["dryrun"]
+    losses, counts, secs, captured = [], [], [], {}
+    real_scatter = mods["gc"].scatter_add
+
+    def spy(storage, flat, deltas):
+        if len(losses) == capture_at:
+            captured["scatter"] = (flat.clone(), deltas.clone())
+        return real_scatter(storage, flat, deltas)
+
+    restore_plain = plain_versions_raise(mods["ref"])
+    mods["gc"].scatter_add = spy
+    try:
+        for b in batches:
+            if len(losses) == capture_at:
+                captured["gather"] = mods["dlrm"].full_table_ids(
+                    cfg, b["sparse_ids"], params["tables"], mesh).reshape(-1, LOOKUPS)
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            params, loss = dryrun.dlrm_full_train_step(params, cfg, b, mesh, lr=lr)
+            losses.append(float(loss))  # a host read: the step's end
+            secs.append(time.perf_counter() - t0)
+            counts.append({k: v for k, v in ops.launch_counts().items() if v})
+    finally:
+        mods["gc"].scatter_add = real_scatter
+        restore_plain()
+    for i, c in enumerate(counts):
+        check(c == {"gather_reduce": 1, "scatter_add": 1},
+              f"full-table step {i}: launches {c}, not one gather_reduce and one scatter_add")
+    return losses, counts, secs, captured
+
+
+def mesh_kernel_times(torch, mods, tables, captured, dev) -> dict:
+    """The two kernels at the uncut run's middle-step operands: each held
+    bitwise to its plain version on the rows the step touches (gathered
+    out), then timed against its plain version, its bound and one library
+    call, on the full table."""
+    import torch.nn.functional as F
+
+    gr, gc, ref = mods["gr"], mods["gc"], mods["ref"]
+    flush = torch.empty(32 * 1024 * 1024, dtype=torch.float32, device=dev)
+    flat = captured["gather"]
+    nb, L = flat.shape
+    D = tables.shape[1]
+    uniq = torch.unique(flat.reshape(-1).long())
+    local = torch.searchsorted(uniq, flat.long()).to(torch.int32)
+    got = gr.gather_reduce(tables, flat)
+    want = ref.gather_reduce_ref(tables[uniq], local)
+    check(torch.equal(got, want), "gather_reduce differs at the full-table operands")
+    g_bytes = uniq.numel() * D * 4 + flat.numel() * 4 + nb * D * 4
+    b_ms, b_by = bound(g_bytes, nb * (L - 1) * D)
+    long_ids = flat.long()
+    out = {"gather_reduce": {
+        "storage": list(tables.shape), "bags": nb, "L": L, "unique_rows": int(uniq.numel()),
+        "ms": median_ms(torch, lambda: gr.gather_reduce(tables, flat), 30, flush),
+        "plain_ms": median_ms(torch, lambda: ref.gather_reduce_ref(tables, flat), 10, flush),
+        "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": median_ms(torch, lambda: F.embedding_bag(long_ids, tables, mode="sum"),
+                                30, flush),
+        "max_abs_err": (got - want).abs().max().item()}}
+    sflat, deltas = captured["scatter"]
+    su = torch.unique(sflat.reshape(-1).long())
+    slocal = torch.searchsorted(su, sflat.long()).to(torch.int32)
+    rows = tables[su]
+    want = ref.scatter_add_ref(rows.clone(), slocal, deltas)
+    gc.scatter_add(tables, sflat, deltas)
+    got = tables[su]
+    check(torch.equal(got, want), "scatter_add differs at the full-table operands")
+    seg = torch.unique(sflat, return_counts=True)[1]
+    b_ms, b_by = bound(2 * su.numel() * D * 4 + sflat.numel() * 4 + nb * D * 4,
+                       sflat.numel() * D)
+    dup, idx = deltas.repeat_interleave(L, dim=0), sflat.reshape(-1).long()
+    out["scatter_add"] = {
+        "storage": list(tables.shape), "bags": nb, "L": L, "unique_rows": int(su.numel()),
+        "longest_segment": int(seg.max()),
+        "ms": median_ms(torch, lambda: gc.scatter_add(tables, sflat, deltas), 30, flush),
+        "sort_ms": median_ms(torch, lambda: gc.sort_by_slot(sflat), 30, flush),
+        "plain_ms": median_ms(torch, lambda: ref.scatter_add_ref(tables, sflat, deltas), 3,
+                              flush),
+        "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": median_ms(torch, lambda: tables.index_add_(0, idx, dup), 30, flush),
+        "max_abs_err": (got - want).abs().max().item()}
+    return out
+
+
+def mesh_phase(torch, mods, dev, base, fp32_losses, fp32_digest):
+    """Phase 23; returns (summary, launch counts by run, kernel times)."""
+    import hashlib
+
+    t_phase = time.perf_counter()
+    dist = mods["dist"]
+    summary, by_run = {}, {}
+    coll = mesh_collectives(torch, mods, dev)
+    mesh = coll.pop("mesh")
+    summary["collectives"] = coll
+    try:
+        # (2) phase 6's fp32 split run, through the (1, 1) mesh
+        t0 = time.perf_counter()
+        cfg = mods["DLRMConfig"](rows_per_table=ROWS)
+        lr = mods["train"].build_parser().parse_args(["--arch", "dlrm-scratchpipe"]).lr
+        params = {"tables": torch.from_numpy(base).to(dev),
+                  "mlps": mods["dlrm"].DLRM(cfg, seed=0).to(dev)}
+        losses, counts, _, _ = mesh_steps(torch, mods, params, cfg,
+                                          mesh_batches(torch, mods, ROWS, dev, TRAIN_STEPS),
+                                          mesh, lr)
+        check(torch.equal(torch.tensor(losses, dtype=torch.float32), fp32_losses),
+              "full-table losses differ from phase 6's fp32 split run")
+        digest = hashlib.sha256(params["tables"].cpu().numpy().data).hexdigest()
+        check(digest == fp32_digest, "the full-table step's table differs from phase 6's "
+              "flushed table")
+        by_run["mesh full-table (phase 6)"] = {k: sum(c.get(k, 0) for c in counts)
+                                              for k in ("gather_reduce", "scatter_add")}
+        summary["bitwise_phase6"] = {"steps": len(losses), "losses_equal": True,
+                                     "table_sha256": digest, "lr": lr,
+                                     "seconds": time.perf_counter() - t0}
+        del params
+        torch.cuda.empty_cache()
+
+        # (3) the uncut model; (4) its allocation against the dry run
+        t0 = time.perf_counter()
+        full = mods["get_config"]("dlrm-scratchpipe")
+        check((full.num_tables, full.rows_per_table, full.embed_dim) == (8, 10_000_000, 128)
+              and full.table_bytes == 40_960_000_000, "dlrm-scratchpipe is not uncut")
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()  # what earlier phases still hold
+        params = mods["dlrm"].init_full(full, torch.Generator(device=dev).manual_seed(0),
+                                        dev)
+        batches = list(mesh_batches(torch, mods, full.rows_per_table, dev, MESH_STEPS))
+        rise = torch.cuda.memory_allocated() - before
+        alloc = (params["tables"].numel() * params["tables"].element_size()
+                 + sum(p.numel() * p.element_size() for p in params["mlps"].parameters())
+                 + sum(t.numel() * t.element_size() for t in batches[0].values()))
+        one = mods["mesh"].AbstractMesh((1, 1), ("data", "model"))
+        dry = mods["dryrun"].arg_bytes("dlrm-scratchpipe", "dlrm_train", one)
+        check(dry["total"] == alloc, f"dry-run bytes {dry} != the allocation {alloc}")
+        # the rise holds every batch: compare it with the tables, MLPs and all batches
+        all_batches = alloc + (MESH_STEPS - 1) * sum(t.numel() * t.element_size()
+                                                     for t in batches[0].values())
+        check(abs(rise - all_batches) <= 0.01 * all_batches,
+              f"memory_allocated rose {rise}, the allocation is {all_batches}")
+        losses, counts, secs, captured = mesh_steps(torch, mods, params, full, batches, mesh,
+                                                    0.05, capture_at=MESH_STEPS // 2)
+        check(all(math.isfinite(x) for x in losses), f"non-finite full-table loss {losses}")
+        ms = statistics.median(secs[MESH_WARMUP:]) * 1e3
+        by_run["mesh full-table uncut"] = {k: sum(c.get(k, 0) for c in counts)
+                                          for k in ("gather_reduce", "scatter_add")}
+        summary["uncut"] = {
+            "config": "dlrm-scratchpipe 8 x 10,000,000 x 128 fp32 (40.96 GB), batch 2048, "
+                      "20 lookups a table, lr 0.05, through a (1, 1) NCCL mesh",
+            "steps": len(losses), "ms_per_step_median_6_20": ms,
+            "ms_per_step": [x * 1e3 for x in secs],
+            "samples_per_s": BATCH / (ms / 1e3),
+            "peak_GB": (torch.cuda.max_memory_allocated() - before) / 1e9,
+            "held_before_GB": before / 1e9,
+            "loss_first": losses[0], "loss_last": losses[-1],
+            "dryrun_arg_bytes_1x1": dry, "allocated_bytes": alloc,
+            "memory_allocated_rise": rise, "memory_allocated_rise_expected": all_batches,
+            "seconds": time.perf_counter() - t0}
+        del batches
+        times = mesh_kernel_times(torch, mods, params["tables"], captured, dev)
+        del params, captured
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    prod = {name: mods["dryrun"].arg_bytes("dlrm-scratchpipe", "dlrm_train",
+                                           mods["mesh"].make_production_mesh(multi_pod=mp))
+            for name, mp in (("16x16", False), ("2x16x16", True))}
+    single = mods["mesh"].make_production_mesh(multi_pod=False)
+    fits = {}
+    for c in mods["dryrun_cells"]():
+        if c["shape"] == "train_4k" and not c["skip"]:
+            b = mods["dryrun"].arg_bytes(c["arch"], "train_4k", single)["total"]
+            fits[c["arch"]] = {"arg_bytes_per_device": b,
+                               "fits_80GB": b <= mods["dryrun"].CARD_BYTES}
+    summary["dryrun_computed_not_measured"] = {"dlrm_per_device": prod,
+                                               "lm_train_4k_at_16x16": fits}
+    summary["card"] = card_line()
+    summary["seconds"] = time.perf_counter() - t_phase
+    return summary, by_run, times
+
+
 def main() -> int:
     import torch
 
@@ -5346,6 +5627,12 @@ def main() -> int:
     from repro_torch.models import api, hybrid, moe, ssm_lm, transformer
     from repro_torch.models.dlrm import interaction_dim
     from repro_torch.optim.optimizers import tree_leaves
+    import torch.distributed as dist
+    from repro_torch.configs import dryrun_cells
+    from repro_torch.data.synthetic import TraceConfig, dlrm_batches
+    from repro_torch.launch import dryrun, hlo_stats, mesh
+    from repro_torch.models import dlrm
+    from repro_torch.parallel import collectives
 
     mods = {"ops": ops, "ref": ref, "gr": gr, "gc": gc, "qz": qz, "train": train,
             "pipeline": pipeline, "static_cache": static_cache,
@@ -5357,7 +5644,10 @@ def main() -> int:
             "tree_leaves": tree_leaves, "steps": steps,
             "plan_device": plan_device, "serving_cache": serving_cache,
             "cached_embedding": cached_embedding, "normal_rows": normal_rows,
-            "LookaheadStream": LookaheadStream}
+            "LookaheadStream": LookaheadStream, "dist": dist, "dryrun": dryrun,
+            "dryrun_cells": dryrun_cells, "hlo_stats": hlo_stats, "mesh": mesh,
+            "dlrm": dlrm, "collectives": collectives, "TraceConfig": TraceConfig,
+            "dlrm_batches": dlrm_batches}
 
     t_start = time.perf_counter()
     card = card_line()
@@ -5457,6 +5747,15 @@ def run_all(torch, mods, dev, ckpt_dir, t_start) -> int:
                                                     train_captured, dev)
     log(f"timing: training operands done ({time.perf_counter() - t0:.1f}s)")
     print("details: " + json.dumps(train_details), flush=True)
+    torch.cuda.empty_cache()
+
+    mesh_summary, mesh_counts, mesh_times = mesh_phase(torch, mods, dev, base, fp32_losses,
+                                                       fp32_digest)
+    print("mesh: " + json.dumps(mesh_summary), flush=True)
+    log(f"mesh: {TRAIN_STEPS} full-table steps bitwise equal to phase 6's fp32 split run; "
+        f"dlrm-scratchpipe uncut {mesh_summary['uncut']['ms_per_step_median_6_20']:.2f} "
+        f"ms/step, peak {mesh_summary['uncut']['peak_GB']:.2f} GB "
+        f"({mesh_summary['seconds']:.1f}s)")
     torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
@@ -5586,7 +5885,8 @@ def run_all(torch, mods, dev, ckpt_dir, t_start) -> int:
     bwd_entry["details"]["shapes"] += [fa_zamba_row, lmc_bwd]
 
     by_run = {"serve": counts, **train_counts, **q_counts, **ts_counts, **tt_counts,
-              **mt_counts, **sh_counts, **rec_counts}
+              **mt_counts, **sh_counts, **rec_counts,
+              **{r: {**{k: 0 for k in counts}, **c} for r, c in mesh_counts.items()}}
     gather, fill = kernels
     for k in (gather, fill):
         k["launches_by_run"] = {run: c[k["name"]] for run, c in by_run.items()}
@@ -5597,6 +5897,9 @@ def run_all(torch, mods, dev, ckpt_dir, t_start) -> int:
     gather["max_abs_err"] = max(gather["max_abs_err"],
                                 train_times["gather_reduce"].pop("max_abs_err"))
     gather["train"] = train_times["gather_reduce"]
+    gather["max_abs_err"] = max(gather["max_abs_err"],
+                                mesh_times["gather_reduce"].pop("max_abs_err"))
+    gather["full_table"] = mesh_times["gather_reduce"]
     train_times.update(q_times)
     for name, source, replaces in (
             ("scatter_add", CU_SOURCE_BWD, "src/repro/kernels/grad_coalesce.py:44"),
@@ -5616,6 +5919,9 @@ def run_all(torch, mods, dev, ckpt_dir, t_start) -> int:
         })
         if name == "scatter_add":
             kernels[-1]["details"] = train_details[name]
+            kernels[-1]["max_abs_err"] = max(kernels[-1]["max_abs_err"],
+                                             mesh_times[name].pop("max_abs_err"))
+            kernels[-1]["full_table"] = mesh_times[name]
         if name in serve_q_times:  # phase 13's operands
             t = serve_q_times[name]
             kernels[-1]["max_abs_err"] = max(kernels[-1]["max_abs_err"], t.pop("max_abs_err"))

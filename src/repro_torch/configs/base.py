@@ -4,9 +4,9 @@
 Ports of the classes of the same names in ``repro/configs/base.py`` (the
 reference's module is pure data too, but importing it would load the JAX
 package). ``DLRMConfig`` and ``ShapeSpec`` are copied field for field;
-``ModelConfig`` keeps the fields the ported LM paths read. The reference's
-dry-run shape grid and arch registry are not ported:
-``configs/__init__.py`` resolves the archs the port runs.
+``ModelConfig`` keeps the fields the ported LM paths and the sharding
+specs read. The dry-run shape grid (``TRAIN_4K`` ... ``LONG_500K``),
+``ArchEntry`` and ``lm_shape_plan`` are the reference's, copied.
 """
 from __future__ import annotations
 
@@ -94,14 +94,27 @@ class ShapeSpec:
     kind: str  # "train" | "prefill" | "decode"
 
 
+TRAIN_4K = ShapeSpec("train_4k", 4096, 256, "train")
+PREFILL_32K = ShapeSpec("prefill_32k", 32768, 32, "prefill")
+DECODE_32K = ShapeSpec("decode_32k", 32768, 128, "decode")
+LONG_500K = ShapeSpec("long_500k", 524288, 1, "decode")
+
+ALL_SHAPES: Tuple[ShapeSpec, ...] = (TRAIN_4K, PREFILL_32K, DECODE_32K, LONG_500K)
+SHAPES_BY_NAME = {s.name: s for s in ALL_SHAPES}
+
+
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     """The fields of the reference's ``ModelConfig`` that the ported
     serving paths (hybrid, ssm, dense, moe, encoder, vlm) and LM training
     read, with the reference's defaults, and ``scratchpipe_embedding`` (a
-    flag no code reads, in the reference too). Its bf16 SSD storage
-    (``ssd_bf16``) has no setter in the reference and is not carried over;
-    its sharding and scan knobs have no meaning on one card. Training
+    flag no code reads, in the reference too), and the sharding knob the
+    specs read (``fsdp``). The reference's ``zero1`` is True in every
+    config, so the port has no such field and always shards the AdamW
+    state with ZeRO-1 (``launch/steps.py: opt_state_specs``). Its bf16 SSD
+    storage (``ssd_bf16``) has no setter in the reference and is not carried over,
+    nor are the knobs of its partitioned execution (``seq_parallel``,
+    ``hierarchical_grad_sync``: ROADMAP.md Queue 1 item 21). Training
     always recomputes each layer in the backward and chunks the cross
     entropy by 512 tokens: no config of the reference sets ``remat`` or
     ``xent_chunk`` to another value than its default (True, 512), so they
@@ -154,6 +167,9 @@ class ModelConfig:
     param_dtype: str = "bfloat16"
     compute_dtype: str = "bfloat16"
 
+    # distribution: FSDP shards layer weights' d_model dim over the data axes
+    fsdp: bool = False
+
     # the LM token-embedding table is a target of the ScratchPipe technique
     scratchpipe_embedding: bool = False
 
@@ -171,3 +187,45 @@ class ModelConfig:
     @property
     def ssm_nheads(self) -> int:
         return self.d_inner // self.ssm_headdim if self.ssm_headdim else 0
+
+
+# ---------------------------------------------------------------------------
+# Arch entry: config + applicable shapes (with skip reasons)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class ArchEntry:
+    config: object  # ModelConfig | DLRMConfig
+    smoke: object
+    shapes: Tuple[ShapeSpec, ...]
+    skips: Tuple[Tuple[str, str], ...] = ()  # (shape_name, reason)
+
+    def skip_reason(self, shape_name: str) -> Optional[str]:
+        for name, reason in self.skips:
+            if name == shape_name:
+                return reason
+        return None
+
+
+def lm_shape_plan(
+    *, encoder_only: bool = False, subquadratic: bool = False
+) -> Tuple[Tuple[ShapeSpec, ...], Tuple[Tuple[str, str], ...]]:
+    """Standard shape set + documented skips for an LM-family arch."""
+    shapes = [TRAIN_4K, PREFILL_32K]
+    skips = []
+    if encoder_only:
+        skips.append(("decode_32k", "encoder-only arch has no decode step"))
+        skips.append(("long_500k", "encoder-only arch has no decode step"))
+    else:
+        shapes.append(DECODE_32K)
+        if subquadratic:
+            shapes.append(LONG_500K)
+        else:
+            skips.append(
+                (
+                    "long_500k",
+                    "pure full-attention arch; 500k ctx needs sub-quadratic attention",
+                )
+            )
+    return tuple(shapes), tuple(skips)

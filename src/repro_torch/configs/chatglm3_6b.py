@@ -2,10 +2,10 @@
 RoPE applied to half the head dims (2d rope approximated), QKV bias.
 [arXiv:2406.12793; hf].
 
-Port of ``config`` and ``smoke_config`` of ``repro/configs/chatglm3_6b.py`` (the
-reference's dry-run shape plan and its sharding knobs are not ported).
+Port of ``config`` and ``smoke_config`` of ``repro/configs/chatglm3_6b.py`` and its
+dry-run ``ENTRY`` (shape plan and skips).
 """
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ArchEntry, ModelConfig, lm_shape_plan
 
 
 def config() -> ModelConfig:
@@ -38,3 +38,7 @@ def smoke_config() -> ModelConfig:
         param_dtype="float32",
         compute_dtype="float32",
     )
+
+
+_shapes, _skips = lm_shape_plan(subquadratic=False)
+ENTRY = ArchEntry(config=config(), smoke=smoke_config(), shapes=_shapes, skips=_skips)

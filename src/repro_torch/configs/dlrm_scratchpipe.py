@@ -4,9 +4,13 @@ Port of the configs of ``repro/configs/dlrm_scratchpipe.py``: 8 embedding
 tables x 10M rows x 128-dim fp32 (= 40 GB model), 20 gathers per table,
 batch 2048, DLRM bottom/top MLPs (MLPerf DLRM), dot-product feature
 interaction; and its multi-table variants with heterogeneous per-table row
-counts (``multi_table_config``, ``launch/train.py --tables N``).
+counts (``multi_table_config``, ``launch/train.py --tables N``); and its
+dry-run ``ENTRY`` (the one ``dlrm_train`` cell).
 """
-from repro_torch.configs.base import DLRMConfig
+from repro_torch.configs.base import ArchEntry, DLRMConfig, ShapeSpec
+
+# DLRM cells use the paper's batch; "seq_len" is reused as lookups/table.
+DLRM_TRAIN = ShapeSpec("dlrm_train", 20, 2048, "train")
 
 
 def config() -> DLRMConfig:
@@ -60,3 +64,8 @@ def multi_table_smoke_config(num_tables: int = 4) -> DLRMConfig:
         batch_size=32,
         cache_fraction=0.125,
     )
+
+
+ENTRY = ArchEntry(
+    config=config(), smoke=smoke_config(), shapes=(DLRM_TRAIN,), skips=()
+)

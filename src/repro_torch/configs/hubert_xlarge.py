@@ -2,10 +2,10 @@
 vocab=504 (k-means units). [arXiv:2106.07447]. Frontend stubbed to precomputed
 frame embeddings per the assignment brief.
 
-Port of ``config`` and ``smoke_config`` of ``repro/configs/hubert_xlarge.py`` (the
-reference's dry-run shape plan and its sharding knobs are not ported).
+Port of ``config`` and ``smoke_config`` of ``repro/configs/hubert_xlarge.py`` and its
+dry-run ``ENTRY`` (shape plan and skips).
 """
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ArchEntry, ModelConfig, lm_shape_plan
 
 
 def config() -> ModelConfig:
@@ -40,3 +40,7 @@ def smoke_config() -> ModelConfig:
         param_dtype="float32",
         compute_dtype="float32",
     )
+
+
+_shapes, _skips = lm_shape_plan(encoder_only=True)
+ENTRY = ArchEntry(config=config(), smoke=smoke_config(), shapes=_shapes, skips=_skips)

@@ -5,16 +5,17 @@ primary LM target for the paper's embedding-cache technique.
 
 Port of ``config`` and ``smoke_config`` of
 ``repro/configs/llama4_scout_17b_a16e.py`` (the reference's model has no
-shared expert either; its ``fsdp`` flag has no meaning on one card; its
-dry-run shape plan is not ported).
+shared expert either) and its dry-run ``ENTRY``; ``fsdp`` shards the layer
+weights over the data axes of a mesh.
 """
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ArchEntry, ModelConfig, lm_shape_plan
 
 
 def config() -> ModelConfig:
     return ModelConfig(
         name="llama4-scout-17b-a16e",
         family="moe",
+        fsdp=True,
         num_layers=48,
         d_model=5120,
         num_heads=40,
@@ -43,3 +44,7 @@ def smoke_config() -> ModelConfig:
         param_dtype="float32",
         compute_dtype="float32",
     )
+
+
+_shapes, _skips = lm_shape_plan(subquadratic=False)
+ENTRY = ArchEntry(config=config(), smoke=smoke_config(), shapes=_shapes, skips=_skips)

@@ -2,9 +2,9 @@
 ssm_state=128, SSD (state-space duality). [arXiv:2405.21060].
 
 Port of ``config`` and ``smoke_config`` of ``repro/configs/mamba2_2_7b.py``
-(the reference's dry-run shape plan is not ported).
+and its dry-run ``ENTRY`` (shape plan and skips).
 """
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ArchEntry, ModelConfig, lm_shape_plan
 
 
 def config() -> ModelConfig:
@@ -47,3 +47,7 @@ def smoke_config() -> ModelConfig:
         param_dtype="float32",
         compute_dtype="float32",
     )
+
+
+_shapes, _skips = lm_shape_plan(subquadratic=True)
+ENTRY = ArchEntry(config=config(), smoke=smoke_config(), shapes=_shapes, skips=_skips)

@@ -1,16 +1,17 @@
 """mistral-large-123b [dense]: 88L d_model=12288 96H (GQA kv=8) d_ff=28672
 vocab=32768. [hf:mistralai/Mistral-Large-Instruct-2407].
 
-Port of ``config`` and ``smoke_config`` of ``repro/configs/mistral_large_123b.py`` (the
-reference's dry-run shape plan and its sharding knobs are not ported).
+Port of ``config`` and ``smoke_config`` of ``repro/configs/mistral_large_123b.py`` and its
+dry-run ``ENTRY`` (shape plan and skips).
 """
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ArchEntry, ModelConfig, lm_shape_plan
 
 
 def config() -> ModelConfig:
     return ModelConfig(
         name="mistral-large-123b",
         family="dense",
+        fsdp=True,
         num_layers=88,
         d_model=12288,
         num_heads=96,
@@ -34,3 +35,7 @@ def smoke_config() -> ModelConfig:
         param_dtype="float32",
         compute_dtype="float32",
     )
+
+
+_shapes, _skips = lm_shape_plan(subquadratic=False)
+ENTRY = ArchEntry(config=config(), smoke=smoke_config(), shapes=_shapes, skips=_skips)

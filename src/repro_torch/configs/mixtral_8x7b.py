@@ -2,16 +2,17 @@
 MoE 8 experts top-2, sliding-window attention (4096). [arXiv:2401.04088; hf].
 
 Port of ``config`` and ``smoke_config`` of ``repro/configs/mixtral_8x7b.py``
-(the reference's ``fsdp`` flag shards weights over a mesh and has no
-meaning on one card; its dry-run shape plan is not ported).
+and its dry-run ``ENTRY`` (shape plan and skips); ``fsdp`` shards the
+layer weights over the data axes of a mesh.
 """
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ArchEntry, ModelConfig, lm_shape_plan
 
 
 def config() -> ModelConfig:
     return ModelConfig(
         name="mixtral-8x7b",
         family="moe",
+        fsdp=True,
         num_layers=32,
         d_model=4096,
         num_heads=32,
@@ -41,3 +42,7 @@ def smoke_config() -> ModelConfig:
         param_dtype="float32",
         compute_dtype="float32",
     )
+
+
+_shapes, _skips = lm_shape_plan(subquadratic=True)
+ENTRY = ArchEntry(config=config(), smoke=smoke_config(), shapes=_shapes, skips=_skips)

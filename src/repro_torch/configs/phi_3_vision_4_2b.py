@@ -3,10 +3,10 @@ vocab=32064. phi3-mini backbone + CLIP frontend; frontend stubbed to
 precomputed patch embeddings per the assignment brief.
 [hf:microsoft/Phi-3-vision-128k-instruct].
 
-Port of ``config`` and ``smoke_config`` of ``repro/configs/phi_3_vision_4_2b.py`` (the
-reference's dry-run shape plan and its sharding knobs are not ported).
+Port of ``config`` and ``smoke_config`` of ``repro/configs/phi_3_vision_4_2b.py`` and its
+dry-run ``ENTRY`` (shape plan and skips).
 """
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ArchEntry, ModelConfig, lm_shape_plan
 
 
 def config() -> ModelConfig:
@@ -40,3 +40,7 @@ def smoke_config() -> ModelConfig:
         param_dtype="float32",
         compute_dtype="float32",
     )
+
+
+_shapes, _skips = lm_shape_plan(subquadratic=False)
+ENTRY = ArchEntry(config=config(), smoke=smoke_config(), shapes=_shapes, skips=_skips)

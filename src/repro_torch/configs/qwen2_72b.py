@@ -1,16 +1,17 @@
 """qwen2-72b [dense]: 80L d_model=8192 64H (GQA kv=8) d_ff=29568 vocab=152064,
 GQA + QKV bias. [arXiv:2407.10671; hf].
 
-Port of ``config`` and ``smoke_config`` of ``repro/configs/qwen2_72b.py`` (the
-reference's dry-run shape plan and its sharding knobs are not ported).
+Port of ``config`` and ``smoke_config`` of ``repro/configs/qwen2_72b.py`` and its
+dry-run ``ENTRY`` (shape plan and skips).
 """
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ArchEntry, ModelConfig, lm_shape_plan
 
 
 def config() -> ModelConfig:
     return ModelConfig(
         name="qwen2-72b",
         family="dense",
+        fsdp=True,
         num_layers=80,
         d_model=8192,
         num_heads=64,
@@ -36,3 +37,7 @@ def smoke_config() -> ModelConfig:
         param_dtype="float32",
         compute_dtype="float32",
     )
+
+
+_shapes, _skips = lm_shape_plan(subquadratic=False)
+ENTRY = ArchEntry(config=config(), smoke=smoke_config(), shapes=_shapes, skips=_skips)

@@ -4,9 +4,9 @@
 application, plus a 2-layer mamba tail (6*6+2 = 38 layers).
 
 Port of ``config`` and ``smoke_config`` of ``repro/configs/zamba2_1_2b.py``
-(the reference's dry-run shape plan is not ported).
+and its dry-run ``ENTRY`` (shape plan and skips).
 """
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ArchEntry, ModelConfig, lm_shape_plan
 
 
 def config() -> ModelConfig:
@@ -53,3 +53,7 @@ def smoke_config() -> ModelConfig:
         param_dtype="float32",
         compute_dtype="float32",
     )
+
+
+_shapes, _skips = lm_shape_plan(subquadratic=True)
+ENTRY = ArchEntry(config=config(), smoke=smoke_config(), shapes=_shapes, skips=_skips)

@@ -52,7 +52,14 @@ returns), so this module imports nothing of the reference:
   * :func:`adamw_state_from_reference` / :func:`adamw_state_to_reference`
     — an ``AdamW`` state (``m``, ``v``, ``master`` shaped as the params,
     and the step count ``t``) between the reference's stacked layout and
-    the port's per-layer lists.
+    the port's per-layer lists;
+  * :func:`specs_to_reference` / :func:`shapes_to_reference` — a tree of
+    the port's partition specs (``parallel/sharding.py: P``), or of
+    ``meta`` tensors (``models/api.py: abstract_params``,
+    ``abstract_cache``), shaped as the port's LM params or decode cache ->
+    the reference's stacked layout: per-layer specs gain a ``None`` per
+    stacked dim (no rule shards one), per-layer shapes a leading dim, as
+    plain tuples and ``(shape, dtype name)`` pairs.
 """
 from __future__ import annotations
 
@@ -273,16 +280,7 @@ def _restack(tree, n_lead: int):
     """The inverse of :func:`_unstack`: ``n_lead`` levels of lists of
     (nested dicts of) tensors -> a nested dict of numpy arrays stacked on
     that many leading axes."""
-    if n_lead == 0:
-        return _tree_np(tree)
-    items = [_restack(sub, n_lead - 1) for sub in tree]
-
-    def stack(*leaves):
-        if isinstance(leaves[0], dict):
-            return {k: stack(*(leaf[k] for leaf in leaves)) for k in leaves[0]}
-        return np.stack(leaves)
-
-    return stack(*items)
+    return _restack_with(_map_leaves(tree, _numpy), n_lead, np.stack)
 
 
 def _tree_np(d):
@@ -338,3 +336,72 @@ def lm_cache_from_reference(cache: dict, device="cpu") -> dict:
         if k in cache:
             out[k] = _unstack(cache[k], n_lead, device)
     return out
+
+
+def _restack_with(tree, n_lead: int, stack):
+    """``n_lead`` levels of lists of nested dicts -> one nested dict whose
+    leaves are ``stack(leaves, counts)`` of the leaves at each path
+    (``counts`` the list lengths, outermost first)."""
+    if n_lead == 0:
+        return tree
+    items = [_restack_with(sub, n_lead - 1, stack) for sub in tree]
+
+    def walk(*leaves):
+        if isinstance(leaves[0], dict):
+            return {k: walk(*(leaf[k] for leaf in leaves)) for k in leaves[0]}
+        return stack(list(leaves))
+
+    return walk(*items)
+
+
+def _lm_tree_to_reference(tree: dict, leaf, stack) -> dict:
+    """``leaf(x, n)`` maps a leaf under ``n`` stacked dims; ``stack``
+    combines the mapped leaves of one list level."""
+    if set(tree) == {"layers"} and set(tree["layers"][0]) == _MAMBA_STATE:
+        return _restack_with(_map_leaves(tree["layers"], lambda x: leaf(x, 1)), 1,
+                             stack)  # the ssm cache
+    out = {}
+    for k, v in tree.items():
+        n = _STACKED.get(k, 0)
+        out[k] = _restack_with(_map_leaves(v, lambda x: leaf(x, n)), n, stack)
+    return out
+
+
+def _map_leaves(tree, fn):
+    if isinstance(tree, dict):
+        return {k: _map_leaves(v, fn) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_map_leaves(v, fn) for v in tree]
+    return fn(tree)
+
+
+def _same(leaves):
+    if any(leaf != leaves[0] for leaf in leaves[1:]):
+        raise ValueError(f"stacked leaves differ: {leaves[0]} vs {leaves[1:]}")
+    return leaves[0]
+
+
+def specs_to_reference(tree: dict) -> dict:
+    """The port's spec tree (params, cache or an optimizer state's ``m``)
+    -> the reference's layout, each spec a plain tuple; a per-layer spec
+    gains its ``lead`` entries (``None`` unless ZeRO-1 splits the layers)
+    in front, one per stacked dim."""
+    def leaf(spec, n):
+        lead = tuple(getattr(spec, "lead", ())) or (None,) * n
+        return lead + tuple(spec)
+
+    return _lm_tree_to_reference(tree, leaf, _same)
+
+
+def shapes_to_reference(tree: dict) -> dict:
+    """A tree of tensors (``meta`` or not) shaped as the port's params or
+    cache -> the reference's layout as ``(shape, dtype name)`` pairs, a
+    per-layer leaf stacked on a leading dim."""
+    def leaf(t, n):
+        return (tuple(t.shape), str(t.dtype).replace("torch.", ""))
+
+    def stack(leaves):
+        shape, dt = _same(leaves)
+        return ((len(leaves),) + shape, dt)
+
+    return _lm_tree_to_reference(tree, leaf, stack)

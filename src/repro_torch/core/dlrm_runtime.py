@@ -41,16 +41,19 @@ from repro_torch.device import resolve_device
 from repro_torch.models import dlrm
 
 
-def _mlp_step(model: dlrm.DLRM, dense, bags, label, lr: float):
+def _mlp_step(model: dlrm.DLRM, dense, bags, label, lr: float, sync=None):
     """Loss, its gradient w.r.t. the bags, and the SGD update of the MLP
-    parameters (``p - lr * g``, as the reference)."""
+    parameters (``p - lr * g``, as the reference). ``sync`` (the mesh step's
+    average over the data ranks) maps the list of MLP gradients before the
+    update."""
     bags = bags.detach().requires_grad_(True)
     params = list(model.parameters())
     with torch.enable_grad():
         loss = dlrm.bce_loss(dlrm.forward_from_bags(model, dense, bags), label)
         grads = torch.autograd.grad(loss, [bags] + params)
+    g_params = grads[1:] if sync is None else sync(list(grads[1:]))
     with torch.no_grad():
-        for p, g in zip(params, grads[1:]):
+        for p, g in zip(params, g_params):
             p.sub_(g * lr)
     return loss.detach(), grads[0]
 

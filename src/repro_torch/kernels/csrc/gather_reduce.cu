@@ -138,8 +138,15 @@
 //
 // All: launch on the caller's stream, allocate nothing, do not
 // synchronize, and return the launch's error for the wrapper to raise on.
-// Slot ids of the gathers must lie in [0, N): the caller guarantees it
-// (the runtimes look up only resident rows).
+// Slot ids of the gathers must lie in [0, N) or be negative: the caller
+// guarantees it (the runtimes look up only resident rows). A negative id
+// is a masked lookup and adds a zero row in its place, in l order, so the
+// bag is bitwise kernels/ref.py's masked sum (the full-table DLRM over a
+// row shard masks the ids outside the shard: models/dlrm.py). The staged
+// int8 gather (D % 16 == 0) takes ids in [0, N) only. Every row address is
+// a 64-bit product (a slot as long long times the row's elements or bytes),
+// so a storage of more than 2^31 elements is addressed whole (the uncut
+// full-table DLRM: 80M rows x 128).
 
 #include <cooperative_groups.h>
 #include <cuda_fp16.h>
@@ -259,7 +266,7 @@ __device__ __forceinline__ void reduce_bag(const typename R::In* storage,
       float my_scale = 1.0f;
       if constexpr (R::kScaled) {
         // the scale column is never written by these kernels
-        my_scale = lane < n ? __ldg(scale + my_id) : 1.0f;
+        my_scale = lane < n && my_id >= 0 ? __ldg(scale + my_id) : 1.0f;
       }
 #pragma unroll 4
       for (int j = 0; j < n; ++j) {
@@ -267,7 +274,9 @@ __device__ __forceinline__ void reduce_bag(const typename R::In* storage,
         float sc = 1.0f;
         if constexpr (R::kScaled) sc = __shfl_sync(kFullMask, my_scale, j);
         if (active) {
-          const Acc v = R::convert(load<kReadOnly>(storage + s * dv + c), sc);
+          // a masked lookup (negative id, warp-uniform) adds a zero row
+          const Acc v = s >= 0 ? R::convert(load<kReadOnly>(storage + s * dv + c), sc)
+                               : Acc{};
           acc = (l0 + j == 0) ? v : add(acc, v);
         }
       }

@@ -68,7 +68,10 @@
 // Launches on the caller's stream (the long kernel on the side stream,
 // joined back to it), allocates nothing on the device, does not synchronize,
 // and returns the first CUDA error for the wrapper to raise on. Slot ids must
-// lie in [0, N): the kernels drop any other rather than write out of bounds.
+// lie in [0, N): the kernels drop any other rather than write out of bounds
+// (the full-table DLRM masks the ids outside a rank's row shard to -1). Row
+// addresses are 64-bit products (storage past 2^31 elements is addressed
+// whole); the lookups are fewer than 2^31 (the wrapper checks).
 
 #include <cuda_runtime.h>
 

@@ -124,8 +124,9 @@ def _raise_on(err: int, kernel: str) -> None:
 
 def gather_reduce(storage: torch.Tensor, flat_ids: torch.Tensor) -> torch.Tensor:
     """storage (N, D) fp32 or fp16 on a CUDA device; flat_ids (nb, L) int32
-    with every id in [0, N), nb, L > 0 -> (nb, D) fp32 bags (fp16 rows are
-    widened exactly, then summed in fp32)."""
+    with every id in [0, N) or negative (a masked lookup: a zero row in its
+    place), nb, L > 0 -> (nb, D) fp32 bags (fp16 rows are widened exactly,
+    then summed in fp32)."""
     _check_cuda(storage)
     _check(storage, "storage", (torch.float32, torch.float16), storage.device)
     _check(flat_ids, "slot_ids", torch.int32, storage.device)

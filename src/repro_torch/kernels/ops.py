@@ -16,7 +16,8 @@ the raw launchers do not take:
   * dispatch — a CUDA tensor goes to the hand-written kernel
     (``kernels/gather_reduce.py``, ``kernels/grad_coalesce.py``) or the call
     raises; a CPU tensor goes to the plain PyTorch version
-    (``kernels/ref.py``). There is no knob and no fallback from one to the
+    (``kernels/ref.py``), and so does a ``meta`` tensor (the dry run's
+    abstract evaluation). There is no knob and no fallback from one to the
     other;
   * differentiation — ``gather_reduce`` and ``fill_gather_reduce`` are
     ``torch.autograd.Function``s when their storage (or fill rows) require
@@ -77,6 +78,11 @@ def reset_launch_counts() -> None:
 
 
 def _route(t: torch.Tensor) -> str:
+    """"cuda" (the hand-written kernel) or "cpu" (the plain version). A
+    ``meta`` tensor takes the plain version's route: the dry run evaluates
+    a step abstractly, shapes and dtypes only (``launch/dryrun.py``)."""
+    if t.device.type == "meta":
+        return "cpu"
     if t.device.type not in ("cuda", "cpu"):
         raise ValueError(f"no kernel for {t.device} tensors: use cuda or cpu")
     return t.device.type

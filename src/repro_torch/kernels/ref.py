@@ -64,14 +64,21 @@ import torch
 
 def gather_reduce_ref(storage: torch.Tensor, slot_ids: torch.Tensor) -> torch.Tensor:
     """storage (N, D); slot_ids (..., L) -> (..., D) summed bags, cast back
-    to the storage dtype."""
+    to the storage dtype. A negative id is a masked lookup: a zero row in
+    its place (the full-table DLRM masks the ids outside a rank's row
+    shard)."""
     if slot_ids.shape[-1] == 0 or slot_ids.numel() == 0:
         return torch.zeros(
             slot_ids.shape[:-1] + (storage.shape[-1],),
             dtype=storage.dtype,
             device=storage.device,
         )
-    emb = storage[slot_ids.long()].to(torch.float32)
+    ids = slot_ids.long()
+    if storage.device.type != "meta" and bool((ids < 0).any()):
+        keep = (ids >= 0)[..., None]
+        emb = torch.where(keep, storage[ids.clamp(min=0)].to(torch.float32), 0.0)
+    else:
+        emb = storage[ids].to(torch.float32)
     out = emb[..., 0, :]
     for l in range(1, emb.shape[-2]):
         out = out + emb[..., l, :]
@@ -156,10 +163,19 @@ def scatter_add_ref(
 ) -> torch.Tensor:
     """In place: ``storage[slot_ids[b, l]] += bag_deltas[b]`` for every
     (b, l), duplicates accumulated in flat bag-major order. storage (N, D);
-    slot_ids (nb, L) with ids in [0, N); bag_deltas (nb, D) in the storage
-    dtype. Returns ``storage``."""
+    slot_ids (nb, L) with ids in [0, N), any other id dropped (as the
+    kernel drops it: the full-table DLRM masks the ids outside a rank's
+    row shard); bag_deltas (nb, D) in the storage dtype. Returns
+    ``storage``. On ``meta`` tensors (a dry run's abstract evaluation) the
+    update keeps the storage's shape and dtype and computes nothing."""
+    if storage.device.type == "meta":
+        return storage
     L = slot_ids.shape[-1]
     flat = slot_ids.reshape(-1).long()
+    src = torch.arange(flat.numel(), device=flat.device)  # flat positions
+    valid = (flat >= 0) & (flat < storage.shape[0])
+    if not bool(valid.all()):  # keep the valid lookups, in flat order
+        flat, src = flat[valid], src[valid]
     n = flat.numel()
     if n == 0:
         return storage
@@ -170,7 +186,7 @@ def scatter_add_ref(
     seg_start = torch.cummax(torch.where(head, pos, torch.zeros_like(pos)), 0).values
     rank = pos - seg_start  # lookups of the same row before this one
     order = torch.argsort(rank, stable=True)
-    keys, bags = keys[order], (perm // L)[order]
+    keys, bags = keys[order], (src[perm] // L)[order]
     start = 0
     for count in torch.bincount(rank).tolist():
         s = keys[start:start + count]  # unique within one rank level

@@ -1,0 +1,111 @@
+"""Meshes of the port. Importing this module starts no process group and
+touches no device: meshes are built only inside the factory functions.
+
+Port of ``repro/launch/mesh.py``:
+
+  * :func:`make_production_mesh` — the reference's production layouts,
+    (data=16, model=16) and (pod=2, data=16, model=16), as an
+    :class:`AbstractMesh`: names and sizes, no process group. One process
+    cannot hold 256 ranks, and the dry run needs only the layout (the
+    reference's ``jax.make_mesh`` there runs over 512 host-platform
+    devices forced by ``XLA_FLAGS``, which torch has no counterpart of).
+  * :func:`make_host_mesh` — a ``DeviceMesh`` ("data", "model") over the
+    running process group: NCCL on the card, gloo only when the caller asks
+    for ``device="cpu"``. With no group running and a (1, 1) mesh it starts
+    a world-1 group from an in-process ``HashStore`` (no network); a larger
+    mesh needs the caller's group (``torch.distributed.init_process_group``
+    with its own address, rank and world size). Nothing falls back from
+    NCCL to gloo.
+"""
+from __future__ import annotations
+
+from typing import Tuple
+
+#: the reference's production layouts
+SINGLE_POD = ((16, 16), ("data", "model"))
+MULTI_POD = ((2, 16, 16), ("pod", "data", "model"))
+
+
+class AbstractMesh:
+    """A mesh as names and sizes only, for specs and the dry run: it has
+    the ``mesh_dim_names`` and ``shape`` of a ``DeviceMesh``, and no rank
+    (``get_coordinate()`` is None)."""
+
+    def __init__(self, shape: Tuple[int, ...], names: Tuple[str, ...]):
+        if len(shape) != len(names):
+            raise ValueError(f"shape {shape} and names {names} differ in length")
+        self.shape = tuple(int(s) for s in shape)
+        self.mesh_dim_names = tuple(names)
+
+    def size(self) -> int:
+        out = 1
+        for s in self.shape:
+            out *= s
+        return out
+
+    def get_coordinate(self):
+        return None
+
+    def __repr__(self) -> str:
+        return f"AbstractMesh({dict(zip(self.mesh_dim_names, self.shape))})"
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> AbstractMesh:
+    """Single pod: (data=16, model=16) = 256 devices. Multi-pod: (pod=2,
+    data=16, model=16) = 512 devices, the "pod" axis being the cross-pod
+    data-parallel dimension."""
+    shape, names = MULTI_POD if multi_pod else SINGLE_POD
+    return AbstractMesh(shape, names)
+
+
+def _backend(device: str) -> str:
+    if device == "cuda":
+        return "nccl"
+    if device == "cpu":
+        return "gloo"
+    raise ValueError(f"no process-group backend for device {device!r}: use cuda or cpu")
+
+
+def _start_world_1(device: str) -> None:
+    """Start a world-1 process group from an in-process ``HashStore`` (no
+    address, no network): NCCL for ``device="cuda"``, gloo for "cpu"."""
+    import torch
+    import torch.distributed as dist
+
+    if device == "cuda":
+        torch.cuda.set_device(0)
+    dist.init_process_group(_backend(device), store=dist.HashStore(), rank=0, world_size=1)
+
+
+def make_host_mesh(data: int = 1, model: int = 1, device: str = "cuda"):
+    """A ``DeviceMesh`` of shape (data, model), names ("data", "model"),
+    over the running process group, whose backend must be ``device``'s
+    (NCCL for "cuda", gloo for "cpu"). With no group running and data *
+    model == 1, a world-1 group is started first (a ``HashStore``, no network);
+    the caller tears it down (``torch.distributed.destroy_process_group``).
+    Raises without a card for ``device="cuda"``, when the group's world
+    size is not data * model, or when its backend is not ``device``'s."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    backend = _backend(device)
+    if device == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("make_host_mesh(device='cuda') needs a CUDA device; "
+                           "pass device='cpu' for gloo ranks")
+    want = data * model
+    if not dist.is_initialized():
+        if want != 1:
+            raise RuntimeError(
+                f"a ({data}, {model}) mesh needs {want} ranks: start the process "
+                "group first (torch.distributed.init_process_group)")
+        _start_world_1(device)
+    world = dist.get_world_size()
+    if world != want:
+        raise RuntimeError(f"a ({data}, {model}) mesh needs {want} ranks; the "
+                           f"process group has {world}")
+    have = dist.get_backend()
+    if have != backend:
+        raise RuntimeError(f"the process group runs {have}; device={device!r} "
+                           f"needs {backend}")
+    return init_device_mesh(device, (data, model), mesh_dim_names=("data", "model"))

@@ -1,18 +1,26 @@
-"""The LM train step of the port.
+"""The LM train step of the port, and the specs of every step.
 
-Port of ``make_train_step`` of ``repro/launch/steps.py`` at one card, for
-every LM family: loss and backward (``models/api.py: make_loss_fn``; on the
-card the flash kernel and its backward kernel once per attention layer or
-shared-block application, the SSD kernel and its backward kernel once per
-mamba layer), ``clip_by_global_norm(1.0)`` and an ``AdamW`` step with fp32
-master weights, in the reference's order.
+Port of ``repro/launch/steps.py``:
 
-Not carried over: the ``embed_offload`` train step (the embedding rows as
-an activation input; no config sets ``embed_offload``), the specs and
-shardings the reference returns beside the step (``opt_state_specs``,
-ZeRO-1), ``make_prefill_step``/``make_serve_step`` (serving calls
-``models/api.py`` directly) and ``abstract_state`` (a dry run's shapes):
-one card has no mesh (ROADMAP.md Queue 1 item 19).
+  * ``make_train_step`` at one card, for every LM family: loss and backward
+    (``models/api.py: make_loss_fn``; on the card the flash kernel and its
+    backward kernel once per attention layer or shared-block application,
+    the SSD kernel and its backward kernel once per mamba layer),
+    ``clip_by_global_norm(1.0)`` and an ``AdamW`` step with fp32 master
+    weights, in the reference's order;
+  * the spec half: ``opt_state_specs`` (ZeRO-1: the AdamW state sharded
+    over the data axes on its first free dim, always: the reference's
+    ``cfg.zero1`` is True in every config),
+    ``train_step_specs`` (the specs the reference's ``make_train_step``
+    returns beside the step), ``abstract_state`` / ``abstract_cache``
+    (``meta`` tensors: the dry run's shapes), ``make_prefill_step`` and
+    ``make_serve_step`` (the function and its specs).
+
+The functions run at one card; running them partitioned over a mesh, the
+ZeRO-1 state sharded, waits for the LM's partitioned execution
+(ROADMAP.md Queue 1 item 21). Not carried over: the ``embed_offload`` train
+step (the embedding rows as an activation input; no config sets
+``embed_offload``).
 """
 from __future__ import annotations
 
@@ -20,10 +28,57 @@ from typing import Callable, Dict, Tuple
 
 import torch
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, ShapeSpec
 from repro_torch.models import api
 from repro_torch.optim import AdamW, clip_by_global_norm
 from repro_torch.optim.optimizers import tree_leaves, tree_map
+from repro_torch.parallel.sharding import P, mesh_axes, tree_map_specs, zero1_spec
+
+
+#: the param trees' layer lists and how many stacked dims each stands for
+_STACKED = {"layers": 1, "tail": 1, "groups": 2}
+
+
+def opt_state_specs(cfg: ModelConfig, ax, params_abs, pspecs):
+    """AdamW state specs: m/v/master follow the param spec, plus ZeRO-1
+    sharding over the data axes (always). A leaf of a layer list is
+    given the rule as the reference's stacked leaf: its shape with the
+    stacked dims in front, so the rule may pick the layer dim (the spec's
+    ``lead``)."""
+
+    def per_leaf(spec, leaf, counts=()):
+        n = len(counts)
+        z = zero1_spec(P(*((None,) * n + tuple(spec))), tuple(counts) + tuple(leaf.shape), ax)
+        return P(*z[n:], lead=z[:n])
+
+    def stacked(sub, abs_sub, n):
+        counts = []
+        s_, a_ = sub, abs_sub
+        for _ in range(n):
+            counts.append(len(s_))
+            s_, a_ = s_[0], a_[0]
+        return _nest(sub, abs_sub, n, lambda sp, lf: per_leaf(sp, lf, counts))
+
+    like = {k: (stacked(v, params_abs[k], _STACKED[k]) if k in _STACKED
+                else tree_map_specs(per_leaf, v, params_abs[k]))
+            for k, v in pspecs.items()}
+    return {"m": like, "v": like, "t": P(), "master": like}
+
+
+def _nest(specs, leaves, n, fn):
+    if n == 0:
+        return tree_map_specs(fn, specs, leaves)
+    return [_nest(s, a, n - 1, fn) for s, a in zip(specs, leaves)]
+
+
+def train_step_specs(cfg: ModelConfig, mesh) -> dict:
+    """{"params", "opt"}: the specs the reference's ``make_train_step``
+    returns beside its step, for ``mesh`` (a ``DeviceMesh`` or an
+    ``AbstractMesh``)."""
+    ax = mesh_axes(mesh)
+    pspecs = api.param_specs(cfg, ax)
+    return {"params": pspecs,
+            "opt": opt_state_specs(cfg, ax, api.abstract_params(cfg, ax), pspecs)}
 
 
 def make_train_step(cfg: ModelConfig, *, lr: float = 3e-4) -> Tuple[Callable, AdamW]:
@@ -54,3 +109,33 @@ def make_train_step(cfg: ModelConfig, *, lr: float = 3e-4) -> Tuple[Callable, Ad
         return params, opt_state, {"loss": loss.detach(), "grad_norm": gnorm}
 
     return train_step, opt
+
+
+def make_prefill_step(cfg: ModelConfig, mesh, shape: ShapeSpec):
+    """(prefill fn, {"params", "cache"} specs for ``mesh`` at ``shape``)."""
+    ax = mesh_axes(mesh)
+    return api.make_prefill_fn(cfg), {
+        "params": api.param_specs(cfg, ax),
+        "cache": api.cache_specs(cfg, ax, shape.global_batch, shape.seq_len)}
+
+
+def make_serve_step(cfg: ModelConfig, mesh, shape: ShapeSpec):
+    """(decode fn, {"params", "cache"} specs for ``mesh`` at ``shape``)."""
+    ax = mesh_axes(mesh)
+    return api.make_decode_fn(cfg), {
+        "params": api.param_specs(cfg, ax),
+        "cache": api.cache_specs(cfg, ax, shape.global_batch, shape.seq_len)}
+
+
+def abstract_state(cfg: ModelConfig, mesh, opt: AdamW = None):
+    """The global params (padded for ``mesh``) as ``meta`` tensors, and with
+    ``opt`` its state too: ``params`` or ``(params, opt_state)``."""
+    params = api.abstract_params(cfg, mesh_axes(mesh))
+    if opt is None:
+        return params
+    return params, opt.init(params)
+
+
+def abstract_cache(cfg: ModelConfig, mesh, shape: ShapeSpec):
+    """The global decode cache at ``shape`` as ``meta`` tensors."""
+    return api.abstract_cache(cfg, shape.global_batch, shape.seq_len, mesh_axes(mesh))

@@ -1,17 +1,26 @@
-"""Unified model API of the port: family dispatch, head/vocab padding at one
-card, and synthetic batches.
+"""Unified model API of the port: family dispatch, head/vocab padding to
+the TP width, specs and abstract (``meta``) trees for the dry run, and
+synthetic batches.
 
-Port of ``repro/models/api.py`` for the serving paths of every LM family
-of the reference: ``hybrid`` (zamba2-1.2b), ``ssm`` (mamba2-2.7b) and the
-``dense``, ``moe``, ``encoder`` and ``vlm`` transformer families, and the
-training loss of every one of them (``make_loss_fn``). One card:
-TP = 1, so nothing is padded and there are no mesh, specs or shardings.
-``synth_batch`` draws from the same numpy generator in the same order as
-the reference, so its tokens, frames and patches equal the reference's.
+Port of ``repro/models/api.py`` for every LM family of the reference:
+``hybrid`` (zamba2-1.2b), ``ssm`` (mamba2-2.7b) and the ``dense``, ``moe``,
+``encoder`` and ``vlm`` transformer families: serving, the training loss
+(``make_loss_fn``), and the mesh half: :func:`runtime_config` with the
+reference's TP padding (``ax=None`` is one card: nothing padded),
+:func:`param_specs`, :func:`abstract_params` (tensors on the ``meta``
+device: shapes and dtypes, no storage), :func:`cache_specs`,
+:func:`abstract_cache`, :func:`batch_specs` / :func:`batch_shardings` and
+:func:`abstract_batch`. Specs follow the port's trees (per-layer lists
+where the reference stacks; ``convert.specs_to_reference`` restacks them).
+The loss, prefill and decode run at one card; running them partitioned
+over a mesh is ROADMAP.md Queue 1 item 21. ``synth_batch`` draws from the
+same numpy generator in the same order as the reference, so its tokens,
+frames and patches equal the reference's.
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+import dataclasses
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -19,6 +28,7 @@ import torch
 from repro_torch.configs.base import ModelConfig, ShapeSpec
 from repro_torch.models import hybrid, ssm_lm, transformer
 from repro_torch.models.transformer import FRAME_DIM, PATCH_DIM
+from repro_torch.parallel.sharding import MeshAxes, P, dp_axis, mesh_axes, named, shard_dim
 
 _FAMILY_MOD = {"hybrid": hybrid, "ssm": ssm_lm, "dense": transformer,
                "moe": transformer, "encoder": transformer, "vlm": transformer}
@@ -31,21 +41,45 @@ def family_module(cfg):
 
 
 # ---------------------------------------------------------------------------
-# Runtime config: pad heads/vocab to the TP width (one card: no padding)
+# Runtime config: pad heads/vocab to the TP width
 # ---------------------------------------------------------------------------
 
 
-def runtime_config(cfg: ModelConfig) -> Tuple[ModelConfig, int]:
-    """Returns (cfg', vocab_pad). The reference pads num_heads and the vocab
-    rows up to multiples of the TP width; at TP = 1 both stay as they are."""
-    return cfg, cfg.vocab_size
+def runtime_config(cfg: ModelConfig, ax: Optional[MeshAxes] = None) -> Tuple[ModelConfig, int]:
+    """Returns (cfg', vocab_pad). Pads num_heads up to a multiple of the TP
+    width (llama4-scout / qwen2.5: 40 -> 48 at TP=16 — real extra compute)
+    and the vocab row count. ``ax=None`` is TP = 1: both stay as they
+    are, and ``cfg`` comes back as the same object."""
+    tp = ax.model_size if ax else 1
+    H = cfg.num_heads
+    if H and H % tp:
+        H = -(-H // tp) * tp
+        if cfg.num_kv_heads and H % cfg.num_kv_heads:
+            H = -(-H // cfg.num_kv_heads) * cfg.num_kv_heads
+    vocab_pad = -(-cfg.vocab_size // tp) * tp
+    if H != cfg.num_heads:
+        cfg = dataclasses.replace(cfg, num_heads=H)
+    return cfg, vocab_pad
 
 
-def init(cfg: ModelConfig, gen: torch.Generator, device=None):
-    """Random params of ``cfg`` drawn from ``gen`` (on ``device``, the
-    generator's by default)."""
-    rc, vp = runtime_config(cfg)
+def init(cfg: ModelConfig, gen: torch.Generator, device=None, ax: Optional[MeshAxes] = None):
+    """Random params of ``cfg`` (padded for ``ax``) drawn from ``gen`` (on
+    ``device``, the generator's by default)."""
+    rc, vp = runtime_config(cfg, ax)
     return family_module(rc).init_params(rc, gen, vp, device)
+
+
+def abstract_params(cfg: ModelConfig, ax: Optional[MeshAxes] = None):
+    """The global params of ``cfg`` padded for ``ax`` as ``meta`` tensors:
+    the shapes and dtypes the dry run reads, nothing allocated."""
+    rc, vp = runtime_config(cfg, ax)
+    gen = torch.Generator(device="cpu")
+    return family_module(rc).init_params(rc, gen, vp, torch.device("meta"))
+
+
+def param_specs(cfg: ModelConfig, ax: MeshAxes):
+    rc, vp = runtime_config(cfg, ax)
+    return family_module(rc).param_specs(rc, ax, vp)
 
 
 #: the families whose training the port carries (``make_loss_fn``)
@@ -85,9 +119,20 @@ def make_decode_fn(cfg: ModelConfig):
     return dec
 
 
-def init_cache(cfg: ModelConfig, batch: int, seq_len: int, device="cpu"):
-    rc, _ = runtime_config(cfg)
+def init_cache(cfg: ModelConfig, batch: int, seq_len: int, device="cpu",
+               ax: Optional[MeshAxes] = None):
+    rc, _ = runtime_config(cfg, ax)
     return family_module(rc).init_cache(rc, batch, seq_len, device)
+
+
+def abstract_cache(cfg: ModelConfig, batch: int, seq_len: int, ax: Optional[MeshAxes] = None):
+    """The decode cache as ``meta`` tensors."""
+    return init_cache(cfg, batch, seq_len, torch.device("meta"), ax)
+
+
+def cache_specs(cfg: ModelConfig, ax: MeshAxes, batch: int, seq_len: int):
+    rc, _ = runtime_config(cfg, ax)
+    return family_module(rc).cache_spec(rc, ax, batch, seq_len)
 
 
 # ---------------------------------------------------------------------------
@@ -134,3 +179,24 @@ def synth_batch(cfg: ModelConfig, shape: ShapeSpec, seed: int = 0, device="cpu")
                 getattr(torch, dt))
         out[name] = a.to(device)
     return out
+
+
+def batch_specs(cfg: ModelConfig, shape: ShapeSpec, ax: MeshAxes) -> Dict[str, P]:
+    """Each input's spec: its batch dim over the data axes where it
+    divides, the rest replicated."""
+    out = {}
+    for name, (shp, _) in batch_structure(cfg, shape).items():
+        b_ax = shard_dim(ax, shp[0], dp_axis(ax))
+        out[name] = P(b_ax, *([None] * (len(shp) - 1)))
+    return out
+
+
+def batch_shardings(cfg: ModelConfig, shape: ShapeSpec, mesh):
+    """:func:`batch_specs` as DTensor placements on ``mesh``."""
+    return {k: named(mesh, s) for k, s in batch_specs(cfg, shape, mesh_axes(mesh)).items()}
+
+
+def abstract_batch(cfg: ModelConfig, shape: ShapeSpec) -> Dict[str, torch.Tensor]:
+    """The global train/prefill inputs as ``meta`` tensors."""
+    return {name: torch.empty(shp, dtype=getattr(torch, dt), device="meta")
+            for name, (shp, dt) in batch_structure(cfg, shape).items()}

@@ -2,7 +2,8 @@
 attention block (weights reused at every application, zamba-style concat of
 the original embedding stream), plus a mamba tail. Serving and training.
 
-Port of ``repro/models/hybrid.py`` (one card: no mesh). Structure
+Port of ``repro/models/hybrid.py``, its specs per layer
+(:func:`param_specs`, :func:`cache_spec`); execution at one card. Structure
 (cfg.hybrid_*): G groups x m mamba layers, each group followed by one
 application of the shared block; then ``tail`` mamba layers. The reference
 stacks the layers of a group on leading axes and scans them; the port keeps
@@ -31,6 +32,7 @@ from repro_torch.models import layers as L
 from repro_torch.models import mamba2 as M
 from repro_torch.models import transformer as T
 from repro_torch.parallel import collectives as C
+from repro_torch.parallel.sharding import MeshAxes, P, dp_axis, shard_dim
 
 
 def _init_shared_block(gen: torch.Generator, cfg, device):
@@ -81,6 +83,22 @@ def _shared_decode(cfg, sp, x, x0, pos, kc, vc):
 # ---------------------------------------------------------------------------
 
 
+def _shared_block_specs(cfg, ax: MeshAxes):
+    m = ax.model
+    H, K, hd, F = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, cfg.d_ff
+    h_ax = m if (H * hd) % ax.model_size == 0 and H % ax.model_size == 0 else None
+    k_ax = m if K % ax.model_size == 0 else None
+    f_ax = shard_dim(ax, F, m)
+    return {
+        "concat_proj": P(None, None),
+        "attn_norm": P(None),
+        "attn": {"wq": P(None, h_ax), "wk": P(None, k_ax), "wv": P(None, k_ax),
+                 "wo": P(h_ax, None)},
+        "mlp_norm": P(None),
+        "mlp": {"w_gate": P(None, f_ax), "w_up": P(None, f_ax), "w_down": P(f_ax, None)},
+    }
+
+
 def init_params(cfg, gen: torch.Generator, vocab_pad: int, device=None):
     """Random params from ``gen`` (draws on ``device``, the generator's by
     default), scaled as in the reference."""
@@ -102,6 +120,21 @@ def init_params(cfg, gen: torch.Generator, vocab_pad: int, device=None):
     if tail:
         params["tail"] = [M.init_mamba_layer(gen, cfg, device) for _ in range(tail)]
     return params
+
+
+def param_specs(cfg, ax: MeshAxes, vocab_pad: int):
+    v_ax = shard_dim(ax, vocab_pad, ax.model)
+    G, m = cfg.hybrid_groups, cfg.hybrid_layers_per_group
+    sp = {
+        "embed": P(v_ax, None),
+        "groups": [[M.mamba_layer_specs(cfg, ax) for _ in range(m)] for _ in range(G)],
+        "shared": _shared_block_specs(cfg, ax),
+        "final_norm": P(None),
+        "lm_head": P(None, v_ax),
+    }
+    if cfg.hybrid_tail_layers:
+        sp["tail"] = [M.mamba_layer_specs(cfg, ax) for _ in range(cfg.hybrid_tail_layers)]
+    return sp
 
 
 def forward_hidden(params, cfg, batch):
@@ -147,6 +180,23 @@ def init_cache(cfg, batch_size: int, seq_len: int, device="cpu"):
     if tail:
         cache["tail"] = [M.init_mamba_state(cfg, batch_size, device) for _ in range(tail)]
     return cache
+
+
+def cache_spec(cfg, ax: MeshAxes, batch_size: int, seq_len: int):
+    b_ax = dp_axis(ax) if batch_size % ax.data_size == 0 else None
+    if cfg.num_kv_heads % ax.model_size == 0:
+        kv = P(None, b_ax, None, ax.model, None)
+    elif seq_len % ax.model_size == 0:
+        kv = P(None, b_ax, ax.model, None, None)
+    else:
+        kv = P(None, b_ax, None, None, None)
+    G, m = cfg.hybrid_groups, cfg.hybrid_layers_per_group
+    state = M.mamba_state_specs(cfg, ax, batch_size)
+    sp = {"groups": [[state for _ in range(m)] for _ in range(G)],
+          "k": kv, "v": kv, "x0": P(b_ax, None, None)}
+    if cfg.hybrid_tail_layers:
+        sp["tail"] = [state for _ in range(cfg.hybrid_tail_layers)]
+    return sp
 
 
 def prefill(params, cfg, batch):

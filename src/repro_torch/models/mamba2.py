@@ -1,7 +1,9 @@
 """Mamba2 (SSD — state-space duality, arXiv:2405.21060) layers of the port.
 
-Port of ``repro/models/mamba2.py`` (the mesh sharding specs disappear: one
-card, TP = 1). Within a chunk the recurrence is a masked "attention-like"
+Port of ``repro/models/mamba2.py``; the sharding specs
+(:func:`mamba_layer_specs`, :func:`mamba_state_specs`) are the reference's
+for ONE layer (the reference's leading stacked dims, which no rule shards,
+become the port's lists). Within a chunk the recurrence is a masked "attention-like"
 quadratic form (C_i.B_j with segment decay); across chunks the (heads,
 headdim, dstate) state is carried. In the port :func:`ssd_scan` IS the
 kernel call (``kernels/ops.py: ssd_chunk_scan``: the hand-written CUDA
@@ -30,6 +32,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
+from repro_torch.parallel.sharding import MeshAxes, P, dp_axis
 
 
 def _softplus(x: torch.Tensor) -> torch.Tensor:
@@ -154,6 +157,24 @@ def init_mamba_layer(gen: torch.Generator, cfg, device=None) -> Dict[str, torch.
     }
 
 
+def mamba_layer_specs(cfg, ax: MeshAxes) -> Dict[str, P]:
+    """Specs of one layer's ``init_mamba_layer`` tree: d_inner and the
+    heads over "model" where they divide, the rest replicated."""
+    m = ax.model
+    tp = ax.model_size
+    din_ax = m if cfg.d_inner % tp == 0 else None
+    nh_ax = m if cfg.ssm_nheads % tp == 0 else None
+    return {
+        "norm": P(None), "wz": P(None, din_ax), "wx": P(None, din_ax),
+        "wB": P(None, None), "wC": P(None, None), "wdt": P(None, nh_ax),
+        "dt_bias": P(nh_ax), "A_log": P(nh_ax), "D_skip": P(nh_ax),
+        "conv_wx": P(None, din_ax), "conv_bx": P(din_ax),
+        "conv_wB": P(None, None), "conv_bB": P(None),
+        "conv_wC": P(None, None), "conv_bC": P(None),
+        "out_norm": P(din_ax), "wo": P(din_ax, None),
+    }
+
+
 def mamba_layer_forward(cfg, p, x):
     """x: (B, S, D). Returns (x_out, h_final)."""
     B, S, D = x.shape
@@ -233,6 +254,17 @@ def init_mamba_state(cfg, batch: int, device="cpu") -> Dict[str, torch.Tensor]:
         "conv_C": torch.zeros((batch, K - 1, ng * ds), dtype=dt_, device=device),
         "ssm": torch.zeros((batch, nh, hd, ds), dtype=torch.float32, device=device),
     }
+
+
+def mamba_state_specs(cfg, ax: MeshAxes, batch: int) -> Dict[str, P]:
+    """Specs of one layer's decode state: the batch over the data axes,
+    d_inner and the heads over "model", where they divide."""
+    b_ax = dp_axis(ax) if batch % ax.data_size == 0 else None
+    tp = ax.model_size
+    din_ax = ax.model if cfg.d_inner % tp == 0 else None
+    nh_ax = ax.model if cfg.ssm_nheads % tp == 0 else None
+    return {"conv_x": P(b_ax, None, din_ax), "conv_B": P(b_ax, None, None),
+            "conv_C": P(b_ax, None, None), "ssm": P(b_ax, nh_ax, None, None)}
 
 
 # ---------------------------------------------------------------------------

@@ -1,9 +1,10 @@
 """Mixture-of-Experts FFN (mixtral / llama4-scout families).
 
-Port of ``init_moe_mlp``, ``_capacity`` and ``moe_ffn`` of
-``repro/models/moe.py`` at one card: no ``shard_map``, so no ``psum`` of
-the combined output over the model axis and no ``pmean`` of the aux loss
-over the data axes (both are identities at one device). Sort-based
+Port of ``init_moe_mlp``, ``moe_mlp_specs``, ``_capacity`` and ``moe_ffn``
+of ``repro/models/moe.py``; ``moe_ffn`` at one card: no ``shard_map``, so
+no ``psum`` of the combined output over the model axis and no ``pmean`` of
+the aux loss over the data axes (both are identities at one device; the
+partitioned dispatch is ROADMAP.md Queue 1 item 21). Sort-based
 capacity dispatch (GShard-style, a scatter into an (E, cap, D) buffer
 instead of a dense (T, E, cap) one-hot): the flat (token, choice) expert
 ids are sorted stably, each entry's rank within its expert is its slot,
@@ -25,6 +26,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models import layers as L
+from repro_torch.parallel.sharding import MeshAxes, P, dp_axis
 
 AUX_WEIGHT = 0.01
 
@@ -41,6 +43,16 @@ def init_moe_mlp(gen: torch.Generator, cfg, device=None) -> Dict[str, torch.Tens
         "wu": L.normal(gen, (E, D, Fe), 1.0 / math.sqrt(D), dt, device),
         "wd": L.normal(gen, (E, Fe, D), 1.0 / math.sqrt(Fe), dt, device),
     }
+
+
+def moe_mlp_specs(cfg, ax: MeshAxes) -> Dict[str, P]:
+    """Specs of one layer's ``init_moe_mlp`` tree (the reference's without
+    its leading [L] dim): the expert inner dim over "model"; under
+    ``cfg.fsdp`` the d_model dim also over the data axes."""
+    f_ax = ax.model if cfg.moe_d_ff % ax.model_size == 0 else None
+    d_ax = dp_axis(ax) if (cfg.fsdp and cfg.d_model % ax.data_size == 0) else None
+    return {"router": P(None, None), "wg": P(None, d_ax, f_ax),
+            "wu": P(None, d_ax, f_ax), "wd": P(None, f_ax, d_ax)}
 
 
 def _capacity(tokens: int, cfg) -> int:

@@ -1,7 +1,8 @@
 """Mamba2 LM (attention-free, mamba2-2.7b): embedding + mamba2 blocks + tied
 head. Serving and training.
 
-Port of ``repro/models/ssm_lm.py`` (one card: no mesh). The reference
+Port of ``repro/models/ssm_lm.py``, its specs per layer
+(:func:`param_specs`, :func:`cache_spec`); execution at one card. The reference
 stacks the layers on a leading [L] axis and scans them; the port keeps a
 list of per-layer parameter dicts (``params["layers"][i]``) and a list of
 per-layer decode states (``cache["layers"][i]``, each ``{"conv_x",
@@ -21,6 +22,7 @@ from repro_torch.models import layers as L
 from repro_torch.models import mamba2 as M
 from repro_torch.models import transformer as T
 from repro_torch.parallel import collectives as C
+from repro_torch.parallel.sharding import MeshAxes, P, shard_dim
 
 
 def init_params(cfg, gen: torch.Generator, vocab_pad: int, device=None):
@@ -36,6 +38,16 @@ def init_params(cfg, gen: torch.Generator, vocab_pad: int, device=None):
     if not cfg.tie_embeddings:
         params["lm_head"] = L.normal(gen, (cfg.d_model, vocab_pad), 0.02, dt, device)
     return params
+
+
+def param_specs(cfg, ax: MeshAxes, vocab_pad: int):
+    v_ax = shard_dim(ax, vocab_pad, ax.model)
+    sp = {"embed": P(v_ax, None),
+          "layers": [M.mamba_layer_specs(cfg, ax) for _ in range(cfg.num_layers)],
+          "final_norm": P(None)}
+    if not cfg.tie_embeddings:
+        sp["lm_head"] = P(None, v_ax)
+    return sp
 
 
 def forward_hidden(params, cfg, batch):
@@ -59,6 +71,11 @@ def init_cache(cfg, batch_size: int, seq_len: int = 0, device="cpu"):
     state is O(1) in the sequence length)."""
     return {"layers": [M.init_mamba_state(cfg, batch_size, device)
                        for _ in range(cfg.num_layers)]}
+
+
+def cache_spec(cfg, ax: MeshAxes, batch_size: int, seq_len: int = 0):
+    state = M.mamba_state_specs(cfg, ax, batch_size)
+    return {"layers": [state for _ in range(cfg.num_layers)]}
 
 
 def prefill(params, cfg, batch):

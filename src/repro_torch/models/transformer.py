@@ -3,8 +3,12 @@
 serving and training; and the token embedding the hybrid and ssm families
 share.
 
-Port of ``repro/models/transformer.py`` at one card: no mesh, so no
-vocab-sharded lookup, no sequence-parallel constraints and no specs. The
+Port of ``repro/models/transformer.py``. Its specs are ported
+(:func:`layer_specs`, :func:`param_specs`, :func:`cache_spec`: the
+reference's rules, per layer, without the stacked [L] dim, which no rule
+shards); its execution runs at one card: the vocab-sharded branch of
+``embed_tokens`` and the sequence-parallel constraints wait for the LM's
+partitioned execution (ROADMAP.md Queue 1 item 21). The
 reference stacks the layers on a leading [L] axis and scans them; the port
 keeps a list of per-layer parameter dicts (``params["layers"][i]``) and
 loops. Prefill reaches the flash kernel once per layer
@@ -41,6 +45,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.models import layers as L
 from repro_torch.models import moe
 from repro_torch.parallel import collectives as C
+from repro_torch.parallel.sharding import MeshAxes, P, dp_axis, shard_dim
 
 FRAME_DIM = 512  # audio frontend stub: precomputed frame-embedding width
 PATCH_DIM = 1024  # vision frontend stub: precomputed patch-embedding width
@@ -129,6 +134,37 @@ def layer_decode(cfg, p, x, pos: int, kc, vc):
     return x + delta, kc, vc
 
 
+def layer_specs(cfg, ax: MeshAxes):
+    """Specs of one layer's params (``init_layer``'s tree; the reference's
+    ``layer_specs`` without its leading [L] dim). TP: heads / FFN-inner over
+    "model". FSDP (``cfg.fsdp``): the d_model dim of every layer weight also
+    shards over the data axes."""
+    m = ax.model
+    H, K, hd, F, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, cfg.d_ff, cfg.d_model
+    h_ax = shard_dim(ax, H * hd, m) if H % ax.model_size == 0 else None
+    k_ax = m if K % ax.model_size == 0 else None
+    f_ax = shard_dim(ax, F, m)
+    d_ax = shard_dim(ax, D, dp_axis(ax)) if cfg.fsdp else None
+    attn = {"wq": P(d_ax, h_ax), "wk": P(d_ax, k_ax), "wv": P(d_ax, k_ax),
+            "wo": P(h_ax, d_ax)}
+    if cfg.qkv_bias:
+        attn.update(bq=P(h_ax), bk=P(k_ax), bv=P(k_ax))
+    sp = {"attn": attn}
+    if cfg.family == "encoder":
+        sp["attn_norm"] = {"w": P(None), "b": P(None)}
+        sp["mlp_norm"] = {"w": P(None), "b": P(None)}
+        sp["mlp"] = {"w1": P(d_ax, f_ax), "b1": P(f_ax), "w2": P(f_ax, d_ax), "b2": P(None)}
+    else:
+        sp["attn_norm"] = P(None)
+        sp["mlp_norm"] = P(None)
+        if cfg.family == "moe":
+            sp["mlp"] = moe.moe_mlp_specs(cfg, ax)
+        else:
+            sp["mlp"] = {"w_gate": P(d_ax, f_ax), "w_up": P(d_ax, f_ax),
+                         "w_down": P(f_ax, d_ax)}
+    return sp
+
+
 # ---------------------------------------------------------------------------
 # Full model
 # ---------------------------------------------------------------------------
@@ -159,6 +195,25 @@ def init_params(cfg, gen: torch.Generator, vocab_pad: int, device=None):
     elif cfg.frontend == "patches":
         params["frontend_proj"] = normal((PATCH_DIM, D), 0.02)
     return params
+
+
+def param_specs(cfg, ax: MeshAxes, vocab_pad: int):
+    """Specs of ``init_params``' tree: the vocab rows of ``embed`` and the
+    vocab columns of ``lm_head`` over "model", d_model over the data axes
+    under FSDP, one :func:`layer_specs` per layer."""
+    v_ax = shard_dim(ax, vocab_pad, ax.model)
+    d_ax = shard_dim(ax, cfg.d_model, dp_axis(ax)) if cfg.fsdp else None
+    sp = {
+        "layers": [layer_specs(cfg, ax) for _ in range(cfg.num_layers)],
+        "final_norm": ({"w": P(None), "b": P(None)} if cfg.family == "encoder"
+                       else P(None)),
+        "embed": P(v_ax, d_ax),
+    }
+    if not cfg.tie_embeddings:
+        sp["lm_head"] = P(d_ax, v_ax)
+    if cfg.frontend:
+        sp["frontend_proj"] = P(None, None)
+    return sp
 
 
 def embed_tokens(params, cfg, tokens: torch.Tensor) -> torch.Tensor:
@@ -230,6 +285,20 @@ def init_cache(cfg, batch_size: int, seq_len: int, device="cpu", dtype=None):
     shape = (cfg.num_layers, batch_size, S, cfg.num_kv_heads, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=dt, device=device),
             "v": torch.zeros(shape, dtype=dt, device=device)}
+
+
+def cache_spec(cfg, ax: MeshAxes, batch_size: int, seq_len: int):
+    """(L, B, S, K, hd): B over data if divisible; K over model if divisible,
+    else S over model (sequence-parallel KV)."""
+    b_ax = shard_dim(ax, batch_size, dp_axis(ax))
+    S = min(seq_len, cfg.sliding_window) if cfg.sliding_window else seq_len
+    if cfg.num_kv_heads % ax.model_size == 0:
+        spec = P(None, b_ax, None, ax.model, None)
+    elif S % ax.model_size == 0:
+        spec = P(None, b_ax, ax.model, None, None)
+    else:
+        spec = P(None, b_ax, None, None, None)
+    return {"k": spec, "v": spec}
 
 
 def prefill(params, cfg, batch):

@@ -14,8 +14,10 @@ reference's, in its order, in fp32 (the temporaries are one leaf at a
 time). ``torch.optim`` is not used: its AdamW keeps no master copy and
 orders its update otherwise.
 
-The reference's ZeRO-1 sharding of the state (``parallel.sharding.
-zero1_spec``) has no meaning on one card (ROADMAP.md Queue 1 item 19).
+The reference's ZeRO-1 sharding of the state has its specs in the port
+(``launch/steps.py: opt_state_specs``, ``parallel/sharding.py:
+zero1_spec``); updating a state sharded that way waits for the LM's
+partitioned execution (ROADMAP.md Queue 1 item 21).
 """
 from __future__ import annotations
 

@@ -1,1 +1,2 @@
-"""Collectives of the port at one card (TP = 1)."""
+"""Sharding rules and collectives of the port (``parallel/sharding.py``,
+``parallel/collectives.py``) on ``torch.distributed``."""

@@ -1,20 +1,206 @@
-"""The collectives of ``repro/parallel/collectives.py`` at one card (TP = 1).
+"""Explicit-collective building blocks of the port, on ``torch.distributed``.
 
-  * ``sharded_logits`` — decode-time logits: the vocab is not sharded, so
-    there is nothing to gather;
-  * ``sharded_xent_loss`` — the chunked cross entropy of LM training: the
-    vocab is not sharded either, so the reference's per-shard log-sum-exp
-    is the whole row's.
+Port of ``repro/parallel/collectives.py``. The reference runs its
+collectives inside ``shard_map`` bodies; the port runs them on the process
+groups of a ``DeviceMesh`` (``launch/mesh.py: make_host_mesh``: NCCL on the
+card, gloo ranks on the CPU), each rank holding its own shard:
 
-The vocab-sharded lookup and the gradient syncs (``hierarchical_psum``,
-``ef_int8_psum``) have no meaning on one card (ROADMAP.md Queue 1 item 19).
+  * ``sharded_logits`` / ``sharded_xent_loss`` — decode-time logits and the
+    chunked cross entropy of LM training. With ``mesh=None`` (one card) the
+    vocab is not sharded and the reference's per-shard log-sum-exp is the
+    whole row's, as before; with a mesh whose "model" axis is wider than 1
+    the head is this rank's column shard and the forms are vocab-parallel
+    (:func:`vocab_parallel_logits`, :func:`vocab_parallel_xent_loss`):
+    log-sum-exp and the label's logit reduced over "model";
+  * ``vocab_sharded_lookup`` — the model-parallel embedding gather: a masked
+    local take, then a sum over "model"; its backward is the identity
+    through the sum and the masked local scatter (an ``autograd.Function``
+    of its own: ``torch.distributed.nn``'s all-reduce sums the gradients in
+    its backward, which would scale each shard's table gradient by the TP
+    width);
+  * ``hierarchical_psum`` — cross-pod gradient sync: reduce-scatter over
+    "data", all-reduce over "pod" on 1/N of the bytes, all-gather over
+    "data";
+  * ``ef_int8_psum`` — error-feedback int8 compression of the cross-pod hop;
+  * ``psum_tree_hierarchical`` — one of the three syncs over a tree.
+
+Every collective call records its kind, count and the bytes in and out of
+this rank (:func:`collective_records`), which ``launch/hlo_stats.py:
+collective_stats`` reads in the reference's dict shape. The collectives
+use the list forms of ``torch.distributed`` (``all_gather``,
+``reduce_scatter``), which gloo and NCCL both take.
 """
 from __future__ import annotations
 
-from typing import Optional
+from collections import defaultdict
+from typing import Dict, Optional, Tuple
 
 import torch
 from torch.utils.checkpoint import checkpoint
+
+from repro_torch.optim.optimizers import tree_map
+from repro_torch.parallel.sharding import shard_start
+
+
+# ---------------------------------------------------------------------------
+# records of the collectives a rank ran (launch/hlo_stats.py reads them)
+# ---------------------------------------------------------------------------
+
+_RECORDS: Dict[str, Dict[str, int]] = defaultdict(
+    lambda: {"count": 0, "bytes_in": 0, "bytes_out": 0})
+
+
+def _record(kind: str, bytes_in: int, bytes_out: int) -> None:
+    rec = _RECORDS[kind]
+    rec["count"] += 1
+    rec["bytes_in"] += int(bytes_in)
+    rec["bytes_out"] += int(bytes_out)
+
+
+def collective_records() -> Dict[str, Dict[str, int]]:
+    """{kind: {"count", "bytes_in", "bytes_out"}} since the last reset, the
+    kinds named as the reference's HLO names them ("all-reduce",
+    "all-gather", "reduce-scatter"), the bytes this rank's."""
+    return {k: dict(v) for k, v in _RECORDS.items()}
+
+
+def reset_collective_records() -> None:
+    _RECORDS.clear()
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
+def _group(mesh, axis: str):
+    return mesh.get_group(axis)
+
+
+def _axis_size(mesh, axis: str) -> int:
+    return mesh.shape[tuple(mesh.mesh_dim_names).index(axis)]
+
+
+def all_reduce(t: torch.Tensor, mesh, axis: str, op: str = "sum") -> torch.Tensor:
+    """A new tensor: ``t`` reduced (sum or max) over the ranks of ``axis``."""
+    import torch.distributed as dist
+
+    out = t.detach().clone().contiguous()
+    dist.all_reduce(out, op=dist.ReduceOp.SUM if op == "sum" else dist.ReduceOp.MAX,
+                    group=_group(mesh, axis))
+    _record("all-reduce", _nbytes(out), _nbytes(out))
+    return out
+
+
+def all_gather(t: torch.Tensor, mesh, axis: str, dim: int = 0, tiled: bool = True):
+    """The ranks' ``t`` over ``axis`` in rank order: concatenated along
+    ``dim`` (``tiled``), else stacked on a new leading dim."""
+    import torch.distributed as dist
+
+    t = t.contiguous()
+    parts = [torch.empty_like(t) for _ in range(_axis_size(mesh, axis))]
+    dist.all_gather(parts, t, group=_group(mesh, axis))
+    out = torch.cat(parts, dim=dim) if tiled else torch.stack(parts)
+    _record("all-gather", _nbytes(t), _nbytes(out))
+    return out
+
+
+def reduce_scatter(t: torch.Tensor, mesh, axis: str, dim: int = 0) -> torch.Tensor:
+    """This rank's block of ``t`` summed over the ranks of ``axis`` (``t``
+    cut into equal blocks along ``dim``, block i to the rank of index i)."""
+    import torch.distributed as dist
+
+    n = _axis_size(mesh, axis)
+    parts = [p.contiguous() for p in torch.chunk(t, n, dim=dim)]
+    out = torch.empty_like(parts[0])
+    dist.reduce_scatter(out, parts, group=_group(mesh, axis))
+    _record("reduce-scatter", _nbytes(t), _nbytes(out))
+    return out
+
+
+class _SumOverAxis(torch.autograd.Function):
+    """Forward: the sum over the ranks of ``axis``; backward: the identity.
+    Every rank of the axis goes on with the same (replicated) sum, so the
+    gradient each rank receives is already the whole one for its own
+    addend."""
+
+    @staticmethod
+    def forward(ctx, t, mesh, axis):
+        return all_reduce(t, mesh, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+class _CopyToAxis(torch.autograd.Function):
+    """Forward: the identity on a tensor replicated over ``axis``;
+    backward: the sum of the ranks' gradients (each rank used the copy in
+    a product with its own shard)."""
+
+    @staticmethod
+    def forward(ctx, t, mesh, axis):
+        ctx.mesh, ctx.axis = mesh, axis
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g, ctx.mesh, ctx.axis), None, None
+
+
+def sum_over_axis(t: torch.Tensor, mesh, axis: str = "model") -> torch.Tensor:
+    return _SumOverAxis.apply(t, mesh, axis)
+
+
+def copy_to_axis(t: torch.Tensor, mesh, axis: str = "model") -> torch.Tensor:
+    return _CopyToAxis.apply(t, mesh, axis)
+
+
+def _dp_axes(mesh) -> Tuple[str, ...]:
+    return tuple(n for n in mesh.mesh_dim_names if n in ("pod", "data"))
+
+
+def data_size(mesh) -> int:
+    """The number of data-parallel ranks: the product of "pod" and "data"."""
+    out = 1
+    for a in _dp_axes(mesh):
+        out *= _axis_size(mesh, a)
+    return out
+
+
+def mean_over_data(t: torch.Tensor, mesh) -> torch.Tensor:
+    """The mean of the data ranks' ``t`` (sum over each data axis)."""
+    for a in _dp_axes(mesh):
+        t = all_reduce(t, mesh, a)
+    return t / data_size(mesh)
+
+
+def gather_over_data(t: torch.Tensor, mesh) -> torch.Tensor:
+    """The data ranks' ``t`` concatenated along dim 0 in rank order (a batch
+    sharded over ("pod", "data") is pod major)."""
+    for a in reversed(_dp_axes(mesh)):  # the minor axis first
+        t = all_gather(t, mesh, a)
+    return t
+
+
+# ---------------------------------------------------------------------------
+# Vocab-sharded (row-partitioned) embedding lookup
+# ---------------------------------------------------------------------------
+
+
+def vocab_sharded_lookup(table: torch.Tensor, ids: torch.Tensor, mesh) -> torch.Tensor:
+    """table: this rank's (V / TP, D) row shard of a (V, D) table sharded
+    over "model" (contiguous row blocks in rank order); ids (...) int: this
+    rank's data shard of global row ids. Returns (..., D) embeddings,
+    replicated over "model": the masked local take (rows outside the shard
+    are zeros), summed over "model". Backward: the identity through the sum,
+    then the masked local scatter-add into the shard — the paper's gradient
+    "scatter" primitive, shard-local, not scaled by the TP width."""
+    rows_local = table.shape[0]
+    loc = ids.long() - shard_start(mesh, rows_local)
+    ok = (loc >= 0) & (loc < rows_local)
+    emb = table[torch.where(ok, loc, torch.zeros_like(loc))]
+    emb = torch.where(ok[..., None], emb, torch.zeros((), dtype=emb.dtype, device=emb.device))
+    return sum_over_axis(emb, mesh, "model")
 
 
 def _mask_padding(logits: torch.Tensor, true_vocab: int) -> torch.Tensor:
@@ -23,10 +209,75 @@ def _mask_padding(logits: torch.Tensor, true_vocab: int) -> torch.Tensor:
                        torch.full((), -torch.inf, device=logits.device))
 
 
-def sharded_logits(x: torch.Tensor, head_w: torch.Tensor, true_vocab: int) -> torch.Tensor:
+def _vocab_parallel(mesh) -> bool:
+    return mesh is not None and "model" in mesh.mesh_dim_names and _axis_size(mesh, "model") > 1
+
+
+def sharded_logits(x: torch.Tensor, head_w: torch.Tensor, true_vocab: int,
+                   mesh=None) -> torch.Tensor:
     """x (B, D) @ head_w (D, Vpad) -> (B, Vpad) fp32 logits (products and
-    sums in fp32), the padding columns ``>= true_vocab`` set to -inf."""
+    sums in fp32), the padding columns ``>= true_vocab`` set to -inf. With
+    a mesh wider than 1 over "model", :func:`vocab_parallel_logits`."""
+    if _vocab_parallel(mesh):
+        return vocab_parallel_logits(x, head_w, true_vocab, mesh)
     return _mask_padding(x.float() @ head_w.float(), true_vocab)
+
+
+def _mask_padding_from(logits: torch.Tensor, true_vocab: int, lo: int) -> torch.Tensor:
+    """``_mask_padding`` of a column shard whose first column is global
+    column ``lo``."""
+    cols = lo + torch.arange(logits.shape[-1], device=logits.device)
+    return torch.where(cols < true_vocab, logits,
+                       torch.full((), -torch.inf, device=logits.device))
+
+
+def vocab_parallel_logits(x: torch.Tensor, head_shard: torch.Tensor, true_vocab: int,
+                          mesh) -> torch.Tensor:
+    """Decode-time logits with the head a column shard over "model": this
+    rank's (B, Vpad / TP) fp32 logits, all-gathered over "model" into the
+    (B, Vpad) row every rank then holds."""
+    lo = shard_start(mesh, head_shard.shape[1])
+    local = _mask_padding_from(x.float() @ head_shard.float(), true_vocab, lo)
+    return all_gather(local, mesh, "model", dim=-1)
+
+
+def _vp_chunk_loss(xs, head32, ls, ms, true_vocab: int, lo: int, mesh) -> torch.Tensor:
+    """:func:`_chunk_loss` with the head a column shard: the row max, the
+    sum of exponentials and the label's logit reduced over "model"."""
+    logits = _mask_padding_from(copy_to_axis(xs, mesh).float() @ head32, true_vocab, lo)
+    m = all_reduce(torch.amax(logits, dim=-1).detach(), mesh, "model", op="max")
+    s = sum_over_axis(torch.sum(torch.exp(logits - m[..., None]), dim=-1), mesh)
+    lse = m + torch.log(s)
+    cols = lo + torch.arange(logits.shape[-1], device=logits.device)
+    label_logit = sum_over_axis(
+        torch.sum(torch.where(cols == ls[..., None].long(), logits, 0.0), dim=-1), mesh)
+    return torch.sum((lse - label_logit) * ms)
+
+
+def vocab_parallel_xent_loss(x, head_shard, labels, mask=None, *, true_vocab: int, mesh,
+                             seq_chunk: int = 512) -> torch.Tensor:
+    """:func:`sharded_xent_loss` with ``head_shard`` this rank's (D, Vpad /
+    TP) column block of the head over "model" (contiguous in rank order);
+    x, labels and mask are this rank's data shard, replicated over "model".
+    Per chunk: fp32 logits of the shard, the row max all-reduced (max) over
+    "model", the sum of exp(logits - max) and the label's logit all-reduced
+    (sum): lse = max + log(sum). The loss is replicated over "model"; the
+    gradient of x is summed over "model" (each rank's product with its own
+    shard). Chunks recompute in the backward, collectives included, in the
+    same order on every rank."""
+    B, S, _ = x.shape
+    if mask is None:
+        mask = torch.ones((B, S), dtype=torch.float32, device=x.device)
+    mask = mask.float()
+    head32 = head_shard.float()
+    lo = shard_start(mesh, head_shard.shape[1])
+    chunk = min(seq_chunk, S)
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for c0 in range(0, S, chunk):
+        c1 = min(c0 + chunk, S)
+        total = total + checkpoint(_vp_chunk_loss, x[:, c0:c1], head32, labels[:, c0:c1],
+                                   mask[:, c0:c1], true_vocab, lo, mesh, use_reentrant=False)
+    return total / torch.clamp(torch.sum(mask), min=1.0)
 
 
 def _chunk_loss(xs, head_w32, ls, ms, true_vocab: int) -> torch.Tensor:
@@ -50,6 +301,7 @@ def sharded_xent_loss(
     *,
     true_vocab: int,
     seq_chunk: int = 512,
+    mesh=None,
 ) -> torch.Tensor:
     """Mean token cross entropy without the (B, S, V) logits: x (B, S, D)
     activations, head_w (D, Vpad), labels (B, S) int, mask (B, S) {0, 1}
@@ -61,7 +313,11 @@ def sharded_xent_loss(
     outside the softmax. The logits product is a plain ``torch.matmul`` in
     fp32 (bf16 operands' products are exact there), as the reference leaves
     its einsum to XLA. The reference's ``unroll`` (a ``lax.scan`` knob) has
-    no counterpart: the chunks are a Python loop."""
+    no counterpart: the chunks are a Python loop. With a mesh wider than 1
+    over "model", :func:`vocab_parallel_xent_loss`."""
+    if _vocab_parallel(mesh):
+        return vocab_parallel_xent_loss(x, head_w, labels, mask, true_vocab=true_vocab,
+                                        mesh=mesh, seq_chunk=seq_chunk)
     B, S, _ = x.shape
     if mask is None:
         mask = torch.ones((B, S), dtype=torch.float32, device=x.device)
@@ -74,3 +330,91 @@ def sharded_xent_loss(
         total = total + checkpoint(_chunk_loss, x[:, lo:hi], head_w32, labels[:, lo:hi],
                                    mask[:, lo:hi], true_vocab, use_reentrant=False)
     return total / torch.clamp(torch.sum(mask), min=1.0)
+
+
+# ---------------------------------------------------------------------------
+# Hierarchical / compressed gradient sync (explicit, for DP-only trees)
+# ---------------------------------------------------------------------------
+
+
+def _psum_dp(g: torch.Tensor, mesh, pod_axis: str, data_axis: str) -> torch.Tensor:
+    return all_reduce(all_reduce(g, mesh, data_axis), mesh, pod_axis)
+
+
+def hierarchical_psum(g: torch.Tensor, mesh, *, pod_axis: str = "pod",
+                      data_axis: str = "data") -> torch.Tensor:
+    """This rank's ``g`` summed over (pod, data) with the least cross-pod
+    bytes: reduce-scatter over ``data_axis`` (dim 0), all-reduce over
+    ``pod_axis`` on 1/N of the tensor, all-gather back over ``data_axis``.
+    A tensor whose leading dim does not divide over ``data_axis`` (or a
+    scalar) takes the plain sum, over ``data_axis`` then ``pod_axis``."""
+    n = _axis_size(mesh, data_axis)
+    if g.dim() == 0 or g.shape[0] % n != 0:
+        return _psum_dp(g, mesh, pod_axis, data_axis)
+    shard = reduce_scatter(g, mesh, data_axis)
+    shard = all_reduce(shard, mesh, pod_axis)
+    return all_gather(shard, mesh, data_axis)
+
+
+def ef_int8_quantize(compensated: torch.Tensor):
+    """The reference's per-tensor int8 code of the cross-pod hop: scale =
+    max(max |c|, 1e-8) / 127, q = clip(round(c / scale), -127, 127) (round
+    half to even), the residual c - q * scale. -> (q int8, scale 0-dim,
+    residual)."""
+    scale = torch.clamp(torch.max(torch.abs(compensated)), min=1e-8) / 127.0
+    q = torch.clamp(torch.round(compensated / scale), -127, 127).to(torch.int8)
+    return q, scale, compensated - q.to(compensated.dtype) * scale
+
+
+def ef_int8_psum(g: torch.Tensor, err=None, mesh=None, *, pod_axis: str = "pod",
+                 data_axis: str = "data", codes: Optional[list] = None):
+    """Error-feedback int8 compression on the cross-pod hop. In-pod: an
+    exact reduce-scatter over ``data_axis``. Cross-pod: this rank's shard
+    plus the carried residual ``err`` quantized to int8 with one scale
+    (:func:`ef_int8_quantize`), the codes and scales all-gathered over
+    ``pod_axis`` (int8 on the wire), their dequantized sum (pod order),
+    all-gathered back over ``data_axis``. Returns (synced g, the new
+    residual, shaped as the in-pod shard); ``err`` None on the first step.
+    A tensor whose leading dim does not divide takes the plain sum and
+    returns ``err`` unchanged. ``codes``, a list, receives this rank's int8
+    codes."""
+    n = _axis_size(mesh, data_axis)
+    if g.dim() == 0 or g.shape[0] % n != 0:
+        return _psum_dp(g, mesh, pod_axis, data_axis), err
+    shard = reduce_scatter(g, mesh, data_axis)
+    compensated = shard if err is None else shard + err
+    q, scale, new_err = ef_int8_quantize(compensated)
+    if codes is not None:
+        codes.append(q)
+    q_all = all_gather(q, mesh, pod_axis, tiled=False)  # (npod, ...)
+    s_all = all_gather(scale.reshape(1), mesh, pod_axis)  # (npod,)
+    deq = s_all[0] * q_all[0].to(compensated.dtype)
+    for p in range(1, q_all.shape[0]):
+        deq = deq + s_all[p] * q_all[p].to(compensated.dtype)
+    return all_gather(deq, mesh, data_axis), new_err
+
+
+def psum_tree_hierarchical(grads, errs=None, *, mesh, mode: str = "hierarchical"):
+    """The chosen sync on every leaf of ``grads`` over (pod, data):
+    ``plain`` (all-reduce), ``hierarchical`` (:func:`hierarchical_psum`) or
+    ``ef_int8`` (:func:`ef_int8_psum`, ``errs`` a tree of residuals shaped
+    as ``grads``, None leaves on the first step). -> (grads, errs)."""
+    if mode == "plain":
+        return tree_map(lambda g: _psum_dp(g, mesh, "pod", "data"), grads), errs
+    if mode == "hierarchical":
+        return tree_map(lambda g: hierarchical_psum(g, mesh), grads), errs
+    if mode == "ef_int8":
+        if errs is None:
+            errs = tree_map(lambda g: None, grads)
+        pairs = tree_map(lambda g, e: ef_int8_psum(g, e, mesh), grads, errs)
+        return _split(pairs, 0), _split(pairs, 1)
+    raise ValueError(f"unknown grad sync mode {mode!r}")
+
+
+def _split(pairs, i: int):
+    """Element ``i`` of every (grad, err) pair leaf."""
+    if isinstance(pairs, dict):
+        return {k: _split(v, i) for k, v in pairs.items()}
+    if isinstance(pairs, list):
+        return [_split(v, i) for v in pairs]
+    return pairs[i]

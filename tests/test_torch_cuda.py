@@ -1560,3 +1560,117 @@ def test_cuda_train_fn_step_has_no_host_sync(cuda, kind):
     finally:
         torch.cuda.set_sync_debug_mode(0)
     assert math.isfinite(float(aux["loss"])) and math.isfinite(first)
+
+
+# --------------------------------------------------------------------------- #
+# the full-table DLRM: masked lookups, and storage past 2^31 elements
+# --------------------------------------------------------------------------- #
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [16, 40, 128])
+def test_cuda_masked_ids_gather_zero_rows_and_scatter_nothing(cuda, D):
+    """A negative id (the full-table DLRM's id outside a rank's row shard)
+    adds a zero row to its bag, in l order, and the scatter drops it: both
+    kernels bitwise equal to their plain versions."""
+    N = 300
+    st = torch.from_numpy(_storage(N, D)).to(cuda)
+    ids = RNG.integers(0, N, (41, 7)).astype(np.int32)
+    ids[RNG.random(ids.shape) < 0.4] = -1
+    ids[0] = -1  # a bag of masked lookups only: zeros
+    ids[1, 0] = -1  # the first lookup masked
+    ids = torch.from_numpy(ids).to(cuda)
+    out = tops.gather_reduce(st, ids)
+    want = tref.gather_reduce_ref(st, ids)
+    torch.cuda.synchronize()
+    assert torch.equal(out, want) and not bool(out[0].any())
+    deltas = torch.from_numpy(RNG.standard_normal((41, D)).astype(np.float32)).to(cuda)
+    got, exp = st.clone(), st.clone()
+    tgc.scatter_add(got, ids, deltas)
+    tref.scatter_add_ref(exp, ids, deltas)
+    torch.cuda.synchronize()
+    assert torch.equal(got, exp)
+    assert tops.launch_counts()["gather_reduce"] == 1
+    assert tops.launch_counts()["scatter_add"] == 1
+
+
+@pytest.mark.cuda
+def test_cuda_kernels_address_past_2_31_elements(cuda):
+    """Storage of 16,777,344 x 128 fp32 (2^31 + 16,384 elements, 8.6 GB):
+    ids on its last rows and on duplicates, both kernels bitwise equal to
+    their plain versions (every index product of their paths is 64-bit)."""
+    N, D = 16_777_344, 128
+    assert N * D == 2**31 + 16_384
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    st = torch.randn((N, D), generator=gen, device=cuda)
+    nb, L = 512, 20
+    ids = RNG.integers(N - 4_096, N, (nb, L)).astype(np.int32)
+    ids[:, 0] = N - 1  # the last row, in every bag
+    ids[::3, 1] = N - 1  # and again: duplicates within a bag
+    ids[5] = RNG.integers(0, 1_000, L)  # low rows beside them
+    ids = torch.from_numpy(ids).to(cuda)
+    out = tops.gather_reduce(st, ids)
+    want = tref.gather_reduce_ref(st, ids)
+    torch.cuda.synchronize()
+    assert torch.equal(out, want)
+    deltas = torch.randn((nb, D), generator=gen, device=cuda)
+    untouched = st[N - 4_097].clone()
+    touched = torch.unique(ids.reshape(-1).long())
+    before = st[touched].clone()
+    exp = st[touched].clone()
+    # the plain version on the touched rows alone (ids renumbered into them):
+    # a second 8.6 GB copy is not needed to hold the kernel to it
+    local = torch.searchsorted(touched, ids.long()).to(torch.int32)
+    tref.scatter_add_ref(exp, local, deltas)
+    tgc.scatter_add(st, ids, deltas)
+    torch.cuda.synchronize()
+    assert torch.equal(st[touched], exp) and not torch.equal(before, exp)
+    # a row the ids never name is untouched
+    assert torch.equal(st[N - 4_097], untouched)
+    assert tops.launch_counts() == {**{k: 0 for k in tops.launch_counts()},
+                                    "gather_reduce": 1, "scatter_add": 1}
+
+
+@pytest.mark.cuda
+def test_cuda_full_table_step_through_a_1x1_nccl_mesh(cuda):
+    """``dlrm_full_train_step`` through ``make_host_mesh(1, 1)`` (NCCL at
+    world 1): one ``gather_reduce`` and one ``scatter_add`` a step and no
+    other hand-written launch, bitwise equal to the call without a mesh,
+    and within the MLP tier of the CPU's run."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.dryrun import dlrm_full_train_step
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import dlrm as tdlrm
+
+    cfg = get_smoke_config("dlrm-scratchpipe")
+    rng = np.random.default_rng(4)
+    batches = [{"dense": rng.standard_normal((32, 13)).astype(np.float32),
+                "label": (rng.random(32) < 0.5).astype(np.float32),
+                "sparse_ids": rng.integers(0, 512, (32, 4, 4)).astype(np.int32)}
+               for _ in range(3)]
+
+    def run(device, mesh):
+        params = tdlrm.init_full(cfg, torch.Generator().manual_seed(0), "cpu")
+        params = {"tables": params["tables"].to(device), "mlps": params["mlps"].to(device)}
+        losses, counts = [], []
+        for b in batches:
+            tops.reset_launch_counts()
+            params, loss = dlrm_full_train_step(
+                params, cfg, {k: torch.from_numpy(v).to(device) for k, v in b.items()}, mesh)
+            counts.append({k: v for k, v in tops.launch_counts().items() if v})
+            losses.append(loss)
+        return torch.stack(losses).cpu(), params["tables"].cpu(), counts
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = make_host_mesh(1, 1)
+    try:
+        assert dist.get_backend() == "nccl"
+        got = run(cuda, mesh)
+    finally:
+        dist.destroy_process_group()
+    want = run(cuda, None)
+    assert got[2] == [{"gather_reduce": 1, "scatter_add": 1}] * 3
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    cpu = run("cpu", None)
+    torch.testing.assert_close(got[0], cpu[0], rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(got[1], cpu[1], rtol=1e-5, atol=1e-6)

@@ -75,7 +75,10 @@ def test_every_module_listed():
               "repro_torch.configs.qwen2_5_32b", "repro_torch.configs.qwen2_72b",
               "repro_torch.configs.mistral_large_123b", "repro_torch.optim",
               "repro_torch.optim.optimizers", "repro_torch.launch.steps",
-              "repro_torch.parallel.collectives"):
+              "repro_torch.parallel.collectives", "repro_torch.parallel.sharding",
+              "repro_torch.launch.mesh", "repro_torch.launch.dryrun",
+              "repro_torch.launch.hlo_stats", "repro_torch.runtime.elastic",
+              "repro_torch.runtime.straggler"):
         assert m in mods
 
 
@@ -275,25 +278,26 @@ def test_unknown_arch_and_missing_mode():
 
 
 def _lm_training_message(capsys):
-    """LM training is ported for every family (items 18 and 20); its mesh
-    half (ZeRO-1, the specs, the offloaded embedding's step) waits for
-    item 19."""
+    """LM training is ported for every family (items 18 and 20) and its
+    specs (item 19); running it partitioned over a mesh waits for item
+    21."""
     from repro_torch.launch import steps
 
     return steps.__doc__
 
 
 def _supervise_message(capsys):
-    """The supervised LM step is ported (items 18 and 20); the sharding of
-    its AdamW state across a mesh (ZeRO-1) waits for item 19."""
+    """The supervised LM step is ported (items 18 and 20), the ZeRO-1 specs
+    of its AdamW state too (item 19); updating the state sharded across a
+    mesh waits for item 21."""
     from repro_torch.optim import optimizers
 
     return optimizers.__doc__
 
 
 @pytest.mark.parametrize("message,item", [
-    (_lm_training_message, 19),  # the LM train step's mesh half
-    (_supervise_message, 19),  # the supervised step's ZeRO-1 state
+    (_lm_training_message, 21),  # the LM train step partitioned over a mesh
+    (_supervise_message, 21),  # the supervised step's ZeRO-1 state, sharded
 ], ids=["lm-training", "supervise"])
 def test_not_ported_messages_name_their_roadmap_item(capsys, message, item):
     """What is not ported yet says where ROADMAP.md queues it."""
@@ -347,3 +351,24 @@ def test_examples_run_on_the_cpu(capsys, module, argv, expect):
     assert expect in out
     if module == "lm_cached_embedding":
         assert "plan-hit=" in out and "host traffic" in out and "OK" in out
+
+
+def test_make_host_mesh_raises_without_a_card_instead_of_choosing_gloo(monkeypatch):
+    """``make_host_mesh`` builds an NCCL mesh for the card (its default)
+    and raises when no card is visible: it never falls back to gloo, and it
+    starts no process group on the way."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_host_mesh
+
+    assert inspect.signature(make_host_mesh).parameters["device"].default == "cuda"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for shape in ((1, 1), (2, 4)):
+        with pytest.raises(RuntimeError, match="needs a CUDA device"):
+            make_host_mesh(*shape)
+    assert not dist.is_initialized()
+    with pytest.raises(RuntimeError, match="needs 8 ranks"):
+        make_host_mesh(2, 4, device="cpu")  # no group: a mesh > 1 is the caller's
+    with pytest.raises(ValueError, match="no process-group backend"):
+        make_host_mesh(1, 1, device="xla")
+    assert not dist.is_initialized()
