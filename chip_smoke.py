@@ -411,6 +411,27 @@ Phases, in order; any failure raises and the script exits non-zero:
                them; the computed bytes at 16x16 and 2x16x16, and which LM
                train cells fit one 80 GB card at 16x16 (computed, not
                measured). Prints a ``mesh:`` line.
+ 24. lm mesh — the transformer LMs' partitioned train step
+               (``launch/steps.py: make_train_step(mesh=)``), run last:
+               (1) phase 20's mixtral-8x7b run again (full width, 2 of 32
+               layers, fsdp as its config sets it, 1 x 8192, seed 0, the
+               same batches and lr, 6 steps) through ``train_lm --mesh 1,1``
+               (NCCL at world 1, started and torn down by the launcher), the
+               plain versions raising: exactly 2L ``flash_attention`` and L
+               ``flash_attention_bwd`` launches a step, no other kernel;
+               every step's loss and grad norm and the final params and
+               AdamW state (SHA-256 of the leaves' bytes) bitwise equal to
+               phase 20's; ms/step beside phase 20's. (3) the dry run's
+               per-device bytes of params and AdamW state at (1, 1) equal
+               to the bytes the run holds, and the rise of
+               ``memory_allocated()`` before step 1 within 1% of them. (2)
+               the flash pair at one tensor-parallel rank's operands:
+               mixtral-8x7b at model 8 (4/1 heads of 128, 1 x 8192, window
+               4096) and chatglm3-6b at model 4 (8/1 heads of 128, 4 x 4096,
+               causal): the forward with ``lse`` and the backward against
+               their plain versions within phase 20's limits, each timed
+               beside its bound and SDPA / SDPA's backward. Prints an
+               ``lm mesh:`` line.
 
 The traces go to temporary directories removed at exit. The sweep of
 phase 3 covers fp32 fills of D = 5,120 (phase 22's rows) and the fp16
@@ -425,7 +446,9 @@ checks, and phase 21's zamba2 row — ``ssd_chunk_scan`` — phase 19's under
 ``mamba2_shapes`` — and ``ssd_chunk_scan_bwd`` — phase 21's rows — carry
 their ``details``, and so do ``fill``, ``flash_attention`` and
 ``flash_attention_bwd`` at phase 22's operands (``lm_cached_embedding``;
-the backward's row under ``shapes``); ``gather_reduce_q`` and the fp16
+the backward's row under ``shapes``) and at phase 24's per-rank operands
+(``lm_mesh_per_rank``; the backward's rows under ``shapes``), with phase
+24's run among their launches; ``gather_reduce_q`` and the fp16
 gather and fp16/int8 fills their times at phase 13's operands under
 ``serve``), the nvidia-smi line and ``{"ok": true, "device": {...}}``.
 """
@@ -4057,7 +4080,7 @@ TRAIN_PLAIN = FLASH_PLAIN + ("ssd_chunk_scan_ref", "ssd_chunk_scan_bwd_ref")
 
 def lm_train_run(torch, mods, cfg, arch, batch, seq, steps, ckpt_dir, plain=False,
                  step_hook=None, capture=None, ckpt_every=1000, smoke=False, trace=None,
-                 traced=LM_TRAIN_TRACED, named=BWD_KERNELS):
+                 traced=LM_TRAIN_TRACED, named=BWD_KERNELS, mesh=None):
     """One ``train_lm`` run on the card (``cfg`` the config it trains).
     Counts are reset just before; the launch counts are read at the start
     of every step and at the end. Without ``plain`` the plain attention and
@@ -4073,7 +4096,7 @@ def lm_train_run(torch, mods, cfg, arch, batch, seq, steps, ckpt_dir, plain=Fals
     argv = ["--arch", arch, "--batch", str(batch), "--seq-len", str(seq), "--steps",
             str(steps), "--seed", "0", "--lr", str(LM_TRAIN_LR), "--device", DEVICE,
             "--ckpt-dir", ckpt_dir, "--ckpt-every", str(ckpt_every)] + (["--smoke"] * smoke)
-    args = train.build_parser().parse_args(argv)
+    args = train.build_parser().parse_args(argv + (["--mesh", mesh] if mesh else []))
     snaps, prof = [], []
 
     def hook():
@@ -4197,8 +4220,12 @@ def lm_train_main(torch, mods, dev, tmp):
         starts = res["step_starts"]
         step_ms = [(b - a) * 1e3 for a, b in zip(starts, starts[1:])]
         ms = statistics.median(step_ms[LM_TRAIN_TIMED_FROM:])
+        # the final state of the run phase 24 repeats through a mesh
+        digest = (state_sha256(torch, mods["tree_leaves"], (res["params"], res["opt_state"]))
+                  if (arch, layers, batch, seq, steps) == MESH_LM_RUN else None)
         summaries.append({
             "run": label, "arch": arch, "family": cfg.family, "layers": layers,
+            "state_sha256": digest,
             "reduced": [f"depth {full.num_layers} -> {layers}",
                         f"global batch 256 -> {batch}"],
             "batch": batch, "seq": seq, "steps": steps, "window": cfg.sliding_window,
@@ -5599,6 +5626,181 @@ def mesh_phase(torch, mods, dev, base, fp32_losses, fp32_digest):
     return summary, by_run, times
 
 
+# --------------------------------------------------------------------------- #
+# 24. the transformer LMs' partitioned train step, through a (1, 1) NCCL mesh
+# --------------------------------------------------------------------------- #
+#: (1) phase 20's mixtral-8x7b run again (full width, 2 of 32 layers, fsdp as
+#: its config sets it, 1 x 8192, the same seed, batches and lr, 6 steps),
+#: through ``train_lm --mesh 1,1``
+MESH_LM_RUN = LM_TRAIN_RUNS[1]
+#: (2) the flash pair at one tensor-parallel rank's operands: (row, B, S, H,
+#: K, hd, causal, window): mixtral-8x7b at model 8 (32/8 q heads, 8/8 kv
+#: heads), chatglm3-6b at model 4 (32/4 q heads; K = 2 does not divide 4, so
+#: the 8 local q heads read the one kv head of their group)
+MESH_LM_RANK_SHAPES = (("24a mixtral-8x7b, a rank of model 8", 1, 8192, 4, 1, 128, True, 4096),
+                       ("24b chatglm3-6b, a rank of model 4", 4, 4096, 8, 1, 128, True, None))
+
+
+def state_sha256(torch, tree_leaves, tree) -> str:
+    """SHA-256 over the SHA-256 of every leaf's bytes, in ``tree_leaves``
+    order (bf16 as its 16-bit patterns); the leaves are copied to the host
+    and hashed on 8 threads."""
+    import hashlib
+
+    def one(t):
+        t = t.detach()
+        if t.dtype == torch.bfloat16:
+            t = t.view(torch.int16)
+        return hashlib.sha256(t.cpu().contiguous().numpy().tobytes()).digest()
+
+    with concurrent.futures.ThreadPoolExecutor(8) as ex:
+        digests = list(ex.map(one, tree_leaves(tree)))
+    return hashlib.sha256(b"".join(digests)).hexdigest()
+
+
+def flash_fwd_row(torch, mods, label, q, k, v, causal, window, flush) -> dict:
+    """The forward kernel with ``lse`` (the training forward) at one set of
+    bf16 operands: o and lse held to their plain versions, then timed (CUDA
+    events, median, L2 flushed) beside its bound, its plain version and
+    SDPA's forward."""
+    import torch.nn.functional as F
+
+    fa, ref = mods["fa"], mods["ref"]
+    B, S, H, hd = q.shape
+    K = k.shape[2]
+    lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+    o = fa.flash_attention(q, k, v, causal, window, 0, lse=lse)
+    close = main_forward_close(torch, mods["ref"], q, k, v, o, lse, causal, window, 0, label)
+    f_ops = 4 * B * H * hd * valid_pairs(S, S, causal, window)
+    f_bytes = 2 * (2 * q.numel() + k.numel() + v.numel()) + 4 * lse.numel()
+    t_ops, t_bytes = f_ops / BF16_OPS_PER_S, f_bytes / HBM_BYTES_PER_S
+    qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    if window is not None and window < S:  # a window that cuts: an additive mask
+        i = torch.arange(S, device=q.device)[:, None]
+        j = torch.arange(S, device=q.device)[None]
+        mask = torch.zeros((S, S), dtype=q.dtype, device=q.device).masked_fill(
+            ~((i - j < window) & (j <= i)), float("-inf"))
+        kh, vh = (t.repeat_interleave(H // K, dim=1) for t in (kh, vh))
+        library = ("F.scaled_dot_product_attention(attn_mask = the causal window, "
+                   "additive), keys expanded to H heads outside the timed call")
+        sdpa = lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask)  # noqa: E731
+    else:
+        library = "F.scaled_dot_product_attention(is_causal, enable_gqa), (B, H, S, hd)"
+        sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            qh, kh, vh, is_causal=causal, enable_gqa=H != K)
+    row = {
+        "row": label, "shape": {"B": B, "S": S, "H": H, "K": K, "hd": hd},
+        "causal": causal, "window": window,
+        "ms": median_ms(torch, lambda: fa.flash_attention(q, k, v, causal, window, 0, lse=lse),
+                        20, flush),
+        "plain_ms": median_ms(torch, lambda: ref.flash_attention_ref(
+            q, k, v, causal=causal, window=window), 3, flush),
+        "bound_ms": max(t_ops, t_bytes) * 1e3,
+        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        "library_ms": median_ms(torch, sdpa, 20, flush), "library": library,
+        "flops": f_ops, "tflops_per_s": None,
+        "max_abs_err": close["o_max_abs_err"], "errors": close}
+    row["tflops_per_s"] = f_ops / row["ms"] / 1e9
+    del qh, kh, vh, sdpa
+    torch.cuda.empty_cache()
+    log(f"flash_attention (lse) at {label}: {row['ms']:.4f} ms, bound {row['bound_ms']:.4f} "
+        f"({row['bound_by']}), plain {row['plain_ms']:.2f}, SDPA {row['library_ms']:.4f}")
+    return row, o, lse
+
+
+def lm_mesh_phase(torch, mods, dev, phase20) -> tuple:
+    """Phase 24: (1) phase 20's mixtral run through a (1, 1) NCCL mesh,
+    bitwise equal to it, with its launch counts; (3) the dry run's bytes of
+    params and AdamW state at (1, 1) against the run's; (2) the flash pair
+    at one tensor-parallel rank's operands. Returns (summary, launches by
+    run, forward rows, backward rows)."""
+    from repro_torch.optim import AdamW
+
+    t_phase = time.perf_counter()
+    steps_mod, dryrun, C = mods["steps"], mods["dryrun"], mods["collectives"]
+    arch, layers, batch, seq, steps = MESH_LM_RUN
+    want = next(r for r in phase20["runs"] if r["arch"] == arch)
+    cfg = dataclasses.replace(mods["get_config"](arch), num_layers=layers)
+    check(cfg.fsdp and want["state_sha256"], f"{arch}: fsdp {cfg.fsdp}, phase 20's digest "
+          f"{want['state_sha256']}")
+    label = f"lm mesh {arch} {batch}x{seq} (1, 1)"
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
+    rise = []
+
+    def hook():  # the first step's start: params, AdamW state and one batch allocated
+        if not rise:
+            rise.append(torch.cuda.memory_allocated() - before)
+
+    C.reset_collective_records()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_lm_mesh_") as tmp:
+        res, snaps = lm_train_run(torch, mods, cfg, arch, batch, seq, steps, tmp,
+                                  step_hook=hook, mesh="1,1")
+    check(not mods["dist"].is_initialized(), "train_lm left its world-1 group running")
+    records = C.collective_records()
+    fwd, bwd = (step_launches(snaps, n) for n in ("flash_attention", "flash_attention_bwd"))
+    check(fwd == [2 * layers] * steps and bwd == [layers] * steps,
+          f"{label}: flash launches per step {fwd}, backward {bwd}; expected "
+          f"{2 * layers} and {layers}")
+    other = {k: v for k, v in snaps[-1].items()
+             if k not in ("flash_attention", "flash_attention_bwd") and v}
+    check(not other, f"{label}: other kernels launched: {other}")
+    check(res["losses"] == want["losses"] and res["grad_norms"] == want["grad_norms"],
+          f"{label}: losses {res['losses']} / grad norms {res['grad_norms']} differ from "
+          f"phase 20's {want['losses']} / {want['grad_norms']}")
+    digest = state_sha256(torch, mods["tree_leaves"], (res["params"], res["opt_state"]))
+    check(digest == want["state_sha256"], f"{label}: the final params and AdamW state "
+          f"(SHA-256 {digest}) differ from phase 20's ({want['state_sha256']})")
+    # (3) the dry run's bytes at (1, 1) against the run's
+    one = mods["mesh"].AbstractMesh((1, 1), ("data", "model"))
+    ax = mods["sharding"].mesh_axes(one)
+    sp = steps_mod.train_step_specs(cfg, one)
+    abs_params, abs_state = steps_mod.abstract_state(cfg, one, AdamW())
+    dry = {"params": dryrun.tree_bytes_per_device(sp["params"], abs_params, ax),
+           "opt": dryrun.tree_bytes_per_device(sp["opt"], abs_state, ax)}
+    held = {k: sum(t.numel() * t.element_size() for t in mods["tree_leaves"](tree))
+            for k, tree in (("params", res["params"]), ("opt", res["opt_state"]))}
+    check(held == dry, f"{label}: the run holds {held} bytes, the dry run computes {dry}")
+    total = dry["params"] + dry["opt"]
+    check(abs(rise[0] - total) <= 0.01 * total,
+          f"{label}: memory_allocated rose {rise[0]} before step 1, the dry run's bytes {total}")
+    starts = res["step_starts"]
+    step_ms = [(b - a) * 1e3 for a, b in zip(starts, starts[1:])]
+    ms = statistics.median(step_ms[LM_TRAIN_TIMED_FROM:])
+    summary = {
+        "run": label, "config": f"{arch} at full width, {layers} of "
+        f"{mods['get_config'](arch).num_layers} layers, fsdp, {batch} x {seq}, lr "
+        f"{LM_TRAIN_LR}, seed 0, through train_lm --mesh 1,1 (NCCL)",
+        "steps": steps, "ms_per_step": ms, "step_ms": step_ms,
+        "phase20_ms_per_step": want["ms_per_step"], "peak_memory_GB": res["peak_memory_GB"],
+        "phase20_peak_memory_GB": want["peak_memory_GB"],
+        "bitwise_phase20": {"losses": True, "grad_norms": True, "state_sha256": digest},
+        "flash_attention_per_step": fwd[0], "flash_attention_bwd_per_step": bwd[0],
+        "collectives": records, "dryrun_bytes_1x1": dry, "held_bytes": held,
+        "memory_allocated_rise_before_step1": rise[0]}
+    counts = {label: snaps[-1]}
+    log(f"{label}: bitwise equal to phase 20 (losses, grad norms, state {digest[:12]}), "
+        f"{ms:.1f} ms/step against phase 20's {want['ms_per_step']:.1f}, {fwd[0]} + {bwd[0]} "
+        f"flash launches a step, dry-run bytes = held ({time.perf_counter() - t_phase:.1f}s)")
+    del res
+    torch.cuda.empty_cache()
+    # (2) the flash pair at one tensor-parallel rank's operands
+    flush = torch.empty(32 * 1024 * 1024, dtype=torch.float32, device=dev)
+    fwd_rows, bwd_rows = [], []
+    for row, B, S, H, K, hd, causal, window in MESH_LM_RANK_SHAPES:
+        q, k, v, do = bwd_operands(torch, dev, B, S, H, K, hd, torch.bfloat16, seed=24)
+        f_row, o, lse = flash_fwd_row(torch, mods, row, q, k, v, causal, window, flush)
+        fwd_rows.append(f_row)
+        bwd_rows.append(bwd_shape_row(torch, mods, row, q, k, v, o, lse, do, causal, window, 0,
+                                      flush))
+        del q, k, v, do, o, lse
+        torch.cuda.empty_cache()
+    summary["per_rank_flash"] = {"forward": fwd_rows, "backward": bwd_rows}
+    summary["card"] = card_line()
+    summary["seconds"] = time.perf_counter() - t_phase
+    return summary, counts, fwd_rows, bwd_rows
+
+
 def main() -> int:
     import torch
 
@@ -5632,7 +5834,7 @@ def main() -> int:
     from repro_torch.data.synthetic import TraceConfig, dlrm_batches
     from repro_torch.launch import dryrun, hlo_stats, mesh
     from repro_torch.models import dlrm
-    from repro_torch.parallel import collectives
+    from repro_torch.parallel import collectives, sharding
 
     mods = {"ops": ops, "ref": ref, "gr": gr, "gc": gc, "qz": qz, "train": train,
             "pipeline": pipeline, "static_cache": static_cache,
@@ -5646,7 +5848,8 @@ def main() -> int:
             "cached_embedding": cached_embedding, "normal_rows": normal_rows,
             "LookaheadStream": LookaheadStream, "dist": dist, "dryrun": dryrun,
             "dryrun_cells": dryrun_cells, "hlo_stats": hlo_stats, "mesh": mesh,
-            "dlrm": dlrm, "collectives": collectives, "TraceConfig": TraceConfig,
+            "dlrm": dlrm, "collectives": collectives, "sharding": sharding,
+            "TraceConfig": TraceConfig,
             "dlrm_batches": dlrm_batches}
 
     t_start = time.perf_counter()
@@ -5672,7 +5875,7 @@ def main() -> int:
 
 
 def run_all(torch, mods, dev, ckpt_dir, t_start) -> int:
-    """Phases 3-22, the kernels line, the card line and the last line."""
+    """Phases 3-24, the kernels line, the card line and the last line."""
     ops, ref, gr, gc, qz = (mods[k] for k in ("ops", "ref", "gr", "gc", "qz"))
     serve, serving_cache, plan_device = mods["serve"], mods["serving_cache"], mods["plan_device"]
     get_config = mods["get_config"]
@@ -5871,18 +6074,24 @@ def run_all(torch, mods, dev, ckpt_dir, t_start) -> int:
     del fam_flash, fam_ssd
     torch.cuda.empty_cache()
     log(f"mamba2 and moe: done ({time.perf_counter() - t0:.1f}s)")
-    _, lt_counts, bwd_entry = lm_train_phase(torch, mods, dev)
+    lt_summary, lt_counts, bwd_entry = lm_train_phase(torch, mods, dev)
     _, st_counts, ssd_bwd_entry, fa_zamba_row = ssm_train_phase(torch, mods, dev)
     _, lmc_counts, lmc_fill, lmc_fwd, lmc_bwd = lm_cached_phase(torch, mods, dev)
+    lm_mesh, lm_mesh_counts, lm_mesh_fwd, lm_mesh_bwd = lm_mesh_phase(torch, mods, dev,
+                                                                      lt_summary)
+    print("lm mesh: " + json.dumps(lm_mesh), flush=True)
+    log(f"lm mesh: done ({lm_mesh['seconds']:.1f}s)")
     lt_counts.update(st_counts)
     lt_counts.update(lmc_counts)
+    lt_counts.update(lm_mesh_counts)
     bwd_entry["launches_by_run"].update(
         {r: c["flash_attention_bwd"] for r, c in lt_counts.items()
          if c["flash_attention_bwd"] and r not in bwd_entry["launches_by_run"]})
     bwd_entry["launches"] = sum(bwd_entry["launches_by_run"].values())
     bwd_entry["max_abs_err"] = max(bwd_entry["max_abs_err"], fa_zamba_row["max_abs_err"],
-                                   lmc_bwd["max_abs_err"])
-    bwd_entry["details"]["shapes"] += [fa_zamba_row, lmc_bwd]
+                                   lmc_bwd["max_abs_err"],
+                                   *(r["max_abs_err"] for r in lm_mesh_bwd))
+    bwd_entry["details"]["shapes"] += [fa_zamba_row, lmc_bwd] + lm_mesh_bwd
 
     by_run = {"serve": counts, **train_counts, **q_counts, **ts_counts, **tt_counts,
               **mt_counts, **sh_counts, **rec_counts,
@@ -5945,14 +6154,16 @@ def run_all(torch, mods, dev, ckpt_dir, t_start) -> int:
                                              *(f["max_abs_err"] for f in moe_shapes),
                                              train_fwd["o_max_abs_err"],
                                              lmc_fwd["max_abs_err"],
-                                             lmc_fwd["forward_with_lse"]["o_max_abs_err"])
+                                             lmc_fwd["forward_with_lse"]["o_max_abs_err"],
+                                             *(r["max_abs_err"] for r in lm_mesh_fwd))
             kernels[-1]["details"] = {**lm_details[name],
                                       "warm_prefill_ms": lm_summary["prefill_ms_warm"],
                                       "prefill_profile": lm_summary["profile"]["prefill"],
                                       "transformer_shapes": flash_shapes,
                                       "moe_shapes": moe_shapes,
                                       "lm_train_main_path": train_fwd,
-                                      "lm_cached_embedding": lmc_fwd}
+                                      "lm_cached_embedding": lmc_fwd,
+                                      "lm_mesh_per_rank": lm_mesh_fwd}
             kernels.append(bwd_entry)
         else:
             kernels[-1]["max_abs_err"] = max(kernels[-1]["max_abs_err"],

@@ -113,8 +113,10 @@ class ModelConfig:
     config, so the port has no such field and always shards the AdamW
     state with ZeRO-1 (``launch/steps.py: opt_state_specs``). Its bf16 SSD
     storage (``ssd_bf16``) has no setter in the reference and is not carried over,
-    nor are the knobs of its partitioned execution (``seq_parallel``,
-    ``hierarchical_grad_sync``: ROADMAP.md Queue 1 item 21). Training
+    nor are two knobs of its partitioned execution: ``seq_parallel`` (no
+    config sets it, and the reference's own test calls it math-preserving)
+    and ``hierarchical_grad_sync`` (nothing in the reference reads it).
+    Training
     always recomputes each layer in the backward and chunks the cross
     entropy by 512 tokens: no config of the reference sets ``remat`` or
     ``xent_chunk`` to another value than its default (True, 512), so they

@@ -53,6 +53,10 @@ returns), so this module imports nothing of the reference:
     — an ``AdamW`` state (``m``, ``v``, ``master`` shaped as the params,
     and the step count ``t``) between the reference's stacked layout and
     the port's per-layer lists;
+  * :func:`lm_train_state_to_rank` / :func:`lm_tree_from_ranks` — the
+    reference's LM params and AdamW state to one rank's shards for the
+    partitioned train step (ZeRO-1 state included), and the ranks' shards
+    of a tree back to global arrays in the reference's layout;
   * :func:`specs_to_reference` / :func:`shapes_to_reference` — a tree of
     the port's partition specs (``parallel/sharding.py: P``), or of
     ``meta`` tensors (``models/api.py: abstract_params``,
@@ -317,6 +321,68 @@ def adamw_state_to_reference(state: dict) -> dict:
     out = {k: lm_params_to_reference(state[k]) for k in ("m", "v", "master") if k in state}
     out["t"] = _numpy(state["t"])
     return out
+
+
+def lm_train_state_to_rank(params: dict, state: dict, cfg, mesh, device="cpu"):
+    """The reference's LM params and ``AdamW`` state (numpy, the model
+    padded for ``mesh``, as the reference's ``api.init(cfg, key, ax)``
+    draws it) -> this rank's (param shards, ZeRO-1 state) for
+    ``launch/steps.py: make_train_step(cfg, mesh=mesh)``, every array a
+    copy: each param cut by its spec (``sharding.tree_local_shards``), each
+    state leaf cut further to this data rank's ZeRO-1 part
+    (``optim/optimizers.py: Zero1``), empty for a layer another data rank
+    holds."""
+    from repro_torch.launch.steps import local_params, train_step_specs
+    from repro_torch.optim.optimizers import Zero1, tree_leaves
+
+    sp = train_step_specs(cfg, mesh)
+    zero1 = Zero1(mesh, sp["params"], sp["opt"]["m"])
+
+    def local(tree):
+        return local_params(lm_params_from_reference(tree, device), cfg, mesh)
+
+    p_local = local(params)
+    out = {"t": _tensor(np.asarray(state["t"], dtype=np.int32), device)}
+    for k in ("m", "v", "master"):
+        tree = local(state[k])
+        part = {id(t): zero1.block(t, e) for t, e in zip(tree_leaves(tree), zero1.plan)}
+        out[k] = _map_leaves(tree, lambda t: (t.new_empty((0,)) if part[id(t)] is None
+                                              else part[id(t)].clone()))
+    return p_local, out
+
+
+def lm_tree_from_ranks(ranks: list, cfg, shape, names, zero1: bool = False) -> dict:
+    """The converse of :func:`lm_train_state_to_rank` for one tree: each
+    rank's shards of a tree shaped as the port's params (params, their
+    gradients; with ``zero1``, one of the ZeRO-1 ``m``/``v``/``master``
+    trees), ``ranks[r]`` the tree of global rank r (or its leaves in
+    ``tree_leaves`` order) on the mesh of ``shape`` and axis ``names``
+    (ranks in row-major order) -> the global tree in the reference's
+    stacked layout, as numpy arrays (bfloat16 widened)."""
+    from repro_torch.launch.mesh import AbstractMesh
+    from repro_torch.launch.steps import train_step_specs
+    from repro_torch.models import api
+    from repro_torch.optim.optimizers import Zero1, tree_leaves
+    from repro_torch.parallel.sharding import mesh_axes, shard_slices, spec_leaves
+
+    mesh = AbstractMesh(tuple(shape), tuple(names))
+    ax = mesh_axes(mesh)
+    sp = train_step_specs(cfg, mesh)
+    template = api.abstract_params(cfg, ax)
+    specs = spec_leaves(sp["params"])
+    outs = [np.zeros(t.shape, np.float32) for t in tree_leaves(template)]
+    for r, tree in enumerate(ranks):
+        coords = dict(zip(names, (int(c) for c in np.unravel_index(r, tuple(shape)))))
+        plan = Zero1(mesh, sp["params"], sp["opt"]["m"], coords=coords)
+        for out, (_, spec), e, leaf in zip(outs, specs, plan.plan, tree_leaves(tree)):
+            view = torch.from_numpy(out[shard_slices(spec, out.shape, ax, coords)])
+            if zero1:
+                view = plan.block(view, e)
+            if view is not None:  # None: a layer another data rank holds
+                view.copy_(torch.as_tensor(leaf).detach().float().cpu())
+    arrays = iter(outs)
+    by_leaf = {id(t): torch.from_numpy(next(arrays)) for t in tree_leaves(template)}
+    return lm_params_to_reference(_map_leaves(template, lambda t: by_leaf[id(t)]))
 
 
 #: the keys of one mamba layer's decode state (``models/mamba2.py``)

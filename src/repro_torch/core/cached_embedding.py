@@ -20,8 +20,7 @@ loss reaches the flash kernel and its backward kernel in every layer.
 
 One card, so no mesh: the reference takes a mesh for its sharded loss,
 whose one-card form is the port's loss (``parallel/collectives.py``). The
-loss partitioned over a mesh waits for the LM's partitioned execution
-(ROADMAP.md Queue 1 item 21).
+cached-embedding LM over a mesh is ROADMAP.md Queue 1 item 24.
 """
 from __future__ import annotations
 

@@ -9,7 +9,8 @@ Port of ``repro/launch/mesh.py``:
     cannot hold 256 ranks, and the dry run needs only the layout (the
     reference's ``jax.make_mesh`` there runs over 512 host-platform
     devices forced by ``XLA_FLAGS``, which torch has no counterpart of).
-  * :func:`make_host_mesh` — a ``DeviceMesh`` ("data", "model") over the
+  * :func:`make_host_mesh` — a ``DeviceMesh`` ("data", "model"), or
+    ("pod", "data", "model"), over the
     running process group: NCCL on the card, gloo only when the caller asks
     for ``device="cpu"``. With no group running and a (1, 1) mesh it starts
     a world-1 group from an in-process ``HashStore`` (no network); a larger
@@ -77,14 +78,15 @@ def _start_world_1(device: str) -> None:
     dist.init_process_group(_backend(device), store=dist.HashStore(), rank=0, world_size=1)
 
 
-def make_host_mesh(data: int = 1, model: int = 1, device: str = "cuda"):
-    """A ``DeviceMesh`` of shape (data, model), names ("data", "model"),
-    over the running process group, whose backend must be ``device``'s
-    (NCCL for "cuda", gloo for "cpu"). With no group running and data *
-    model == 1, a world-1 group is started first (a ``HashStore``, no network);
+def make_host_mesh(data: int = 1, model: int = 1, device: str = "cuda", pod=None):
+    """A ``DeviceMesh`` of shape (data, model), names ("data", "model"), or
+    with ``pod`` (pod, data, model), names ("pod", "data", "model"), over
+    the running process group, whose backend must be ``device``'s
+    (NCCL for "cuda", gloo for "cpu"). With no group running and a mesh of
+    one rank, a world-1 group is started first (a ``HashStore``, no network);
     the caller tears it down (``torch.distributed.destroy_process_group``).
     Raises without a card for ``device="cuda"``, when the group's world
-    size is not data * model, or when its backend is not ``device``'s."""
+    size is not the mesh's, or when its backend is not ``device``'s."""
     import torch
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
@@ -93,19 +95,23 @@ def make_host_mesh(data: int = 1, model: int = 1, device: str = "cuda"):
     if device == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("make_host_mesh(device='cuda') needs a CUDA device; "
                            "pass device='cpu' for gloo ranks")
-    want = data * model
+    shape, names = ((data, model), ("data", "model")) if pod is None else (
+        (pod, data, model), ("pod", "data", "model"))
+    want = 1
+    for n in shape:
+        want *= n
     if not dist.is_initialized():
         if want != 1:
             raise RuntimeError(
-                f"a ({data}, {model}) mesh needs {want} ranks: start the process "
+                f"a {shape} mesh needs {want} ranks: start the process "
                 "group first (torch.distributed.init_process_group)")
         _start_world_1(device)
     world = dist.get_world_size()
     if world != want:
-        raise RuntimeError(f"a ({data}, {model}) mesh needs {want} ranks; the "
+        raise RuntimeError(f"a {shape} mesh needs {want} ranks; the "
                            f"process group has {world}")
     have = dist.get_backend()
     if have != backend:
         raise RuntimeError(f"the process group runs {have}; device={device!r} "
                            f"needs {backend}")
-    return init_device_mesh(device, (data, model), mesh_dim_names=("data", "model"))
+    return init_device_mesh(device, shape, mesh_dim_names=names)

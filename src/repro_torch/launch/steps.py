@@ -7,7 +7,11 @@ Port of ``repro/launch/steps.py``:
     backward kernel once per attention layer or shared-block application,
     the SSD kernel and its backward kernel once per mamba layer),
     ``clip_by_global_norm(1.0)`` and an ``AdamW`` step with fp32 master
-    weights, in the reference's order;
+    weights, in the reference's order; and for the transformer families
+    partitioned over a mesh (``mesh=``): tensor-parallel attention, MLP and
+    experts, the vocab-sharded embedding and cross entropy, FSDP, the
+    ZeRO-1 AdamW state — the reference's GSPMD step, its collectives
+    explicit;
   * the spec half: ``opt_state_specs`` (ZeRO-1: the AdamW state sharded
     over the data axes on its first free dim, always: the reference's
     ``cfg.zero1`` is True in every config),
@@ -16,11 +20,11 @@ Port of ``repro/launch/steps.py``:
     (``meta`` tensors: the dry run's shapes), ``make_prefill_step`` and
     ``make_serve_step`` (the function and its specs).
 
-The functions run at one card; running them partitioned over a mesh, the
-ZeRO-1 state sharded, waits for the LM's partitioned execution
-(ROADMAP.md Queue 1 item 21). Not carried over: the ``embed_offload`` train
-step (the embedding rows as an activation input; no config sets
-``embed_offload``).
+Prefill and decode run at one card (serving over a mesh is
+ROADMAP.md Queue 1 item 23); the hybrid and ssm families train at one card
+(their partitioned step is ROADMAP.md Queue 1 item 22). Not carried over:
+the ``embed_offload`` train step (the embedding rows as an activation
+input; no config sets ``embed_offload``).
 """
 from __future__ import annotations
 
@@ -31,8 +35,10 @@ import torch
 from repro_torch.configs.base import ModelConfig, ShapeSpec
 from repro_torch.models import api
 from repro_torch.optim import AdamW, clip_by_global_norm
-from repro_torch.optim.optimizers import tree_leaves, tree_map
-from repro_torch.parallel.sharding import P, mesh_axes, tree_map_specs, zero1_spec
+from repro_torch.optim.optimizers import Zero1, tree_leaves, tree_map
+from repro_torch.parallel import collectives as C
+from repro_torch.parallel.sharding import (P, local_shard, mesh_axes, spec_leaves,
+                                           tree_map_specs, zero1_spec)
 
 
 #: the param trees' layer lists and how many stacked dims each stands for
@@ -81,7 +87,7 @@ def train_step_specs(cfg: ModelConfig, mesh) -> dict:
             "opt": opt_state_specs(cfg, ax, api.abstract_params(cfg, ax), pspecs)}
 
 
-def make_train_step(cfg: ModelConfig, *, lr: float = 3e-4) -> Tuple[Callable, AdamW]:
+def make_train_step(cfg: ModelConfig, *, lr: float = 3e-4, mesh=None) -> Tuple[Callable, AdamW]:
     """Returns (train_step, opt). ``train_step(params, opt_state, batch) ->
     (params, opt_state, {"loss", "grad_norm"})``, both fp32 0-dim tensors
     on the params' device. The update is in place (``optim/optimizers.py``):
@@ -90,9 +96,28 @@ def make_train_step(cfg: ModelConfig, *, lr: float = 3e-4) -> Tuple[Callable, Ad
     a non-finite one (``nan_policy="skip"``) by keeping the old state. A
     step whose loss is not finite therefore updates nothing here: the loss
     is read on the host (one sync per step, which the supervisor makes
-    anyway) before the optimizer runs."""
-    opt = AdamW()
-    loss_fn = api.make_loss_fn(cfg)
+    anyway) before the optimizer runs.
+
+    With a ``mesh`` (a ``DeviceMesh`` ("data", "model") or ("pod", "data",
+    "model"); the dense, moe, encoder and vlm families) the model is
+    ``cfg`` padded for the mesh (``models/api.py: runtime_config``), the
+    params are this rank's shards under :func:`train_step_specs`' param
+    specs, ``opt.init`` gives this rank's ZeRO-1 state, and ``batch`` is
+    its data shard. The loss is the whole batch's mean (over the mask
+    count of the whole batch); the gradients of leaves replicated over the
+    data axes are summed there (FSDP leaves arrive reduce-scattered); the
+    clip is by the norm of the whole gradient; AdamW updates this rank's
+    ZeRO-1 part and all-gathers the new params. The loss, and so the
+    decision to skip a non-finite step, is the same on every rank."""
+    if mesh is None:
+        opt = AdamW()
+        loss_fn = api.make_loss_fn(cfg)
+        specs = None
+    else:
+        loss_fn = api.make_loss_fn(cfg, mesh)  # raises for the hybrid and ssm families
+        sp = train_step_specs(cfg, mesh)
+        opt = AdamW(zero1=Zero1(mesh, sp["params"], sp["opt"]["m"]))
+        specs = spec_leaves(sp["params"])
 
     def train_step(params, opt_state, batch) -> Tuple[dict, dict, Dict[str, torch.Tensor]]:
         # leaves that require grad, on the params' own storage: the in-place
@@ -103,12 +128,27 @@ def make_train_step(cfg: ModelConfig, *, lr: float = 3e-4) -> Tuple[Callable, Ad
         # frames frontend), as jax.grad gives
         grads = list(torch.autograd.grad(loss, tree_leaves(live), materialize_grads=True))
         del live
-        grads, gnorm = clip_by_global_norm(grads, 1.0)
+        if mesh is None:
+            grads, gnorm = clip_by_global_norm(grads, 1.0)
+        else:
+            C.sum_tree_over_data(grads, specs, mesh)
+            grads, gnorm = clip_by_global_norm(grads, 1.0, specs, mesh)
         if bool(torch.isfinite(loss)):
             params, opt_state = opt.step(params, grads, opt_state, lr)
         return params, opt_state, {"loss": loss.detach(), "grad_norm": gnorm}
 
     return train_step, opt
+
+
+def local_params(params, cfg: ModelConfig, mesh):
+    """This rank's shards of the global ``params`` (padded for ``mesh``)
+    under the train step's param specs: a shard that is the whole leaf is
+    the leaf itself, a part is copied (so the global tree can be freed)."""
+    def own(spec, t):
+        s = local_shard(t, spec, mesh)
+        return t if s.shape == t.shape else s.clone()
+
+    return tree_map_specs(own, api.param_specs(cfg, mesh_axes(mesh)), params)
 
 
 def make_prefill_step(cfg: ModelConfig, mesh, shape: ShapeSpec):

@@ -9,6 +9,15 @@ transformers) train through :func:`train_lm`:
         [--smoke] [--steps N] [--seq-len S] [--lr 3e-4] [--seed 0] \
         [--ckpt-dir <dir>] [--ckpt-every 50]
 
+``--mesh D,M`` (or ``P,D,M``) trains the dense, encoder, vlm and MoE
+families partitioned over a (data, model) mesh on ``torch.distributed``
+(tensor-parallel attention, MLP and experts, the vocab-sharded embedding
+and cross entropy, FSDP where the config sets it, ZeRO-1 AdamW), one
+process a rank; on the CPU, 8 gloo ranks:
+
+    python -m torch.distributed.run --nproc-per-node 8 -m repro_torch.launch.train \
+        --arch mixtral-8x7b --smoke --device cpu --mesh 2,4
+
 random params from ``--seed`` (a ``torch.Generator`` on the device), the
 reference's synthetic batches (``seed + i`` for step i), the train step of
 ``launch/steps.py`` (loss and backward; on the card the flash kernel and
@@ -474,37 +483,120 @@ def synth_lm_stream(cfg, shape, steps: int, seed: int = 0, skip: int = 0, device
         yield api.synth_batch(cfg, shape, seed=seed + i, device=device)
 
 
+def parse_mesh(text: str):
+    """``--mesh D,M`` or ``P,D,M`` -> the sizes as a tuple of ints."""
+    try:
+        shape = tuple(int(x) for x in text.split(","))
+    except ValueError:
+        shape = ()
+    if len(shape) not in (2, 3) or min(shape) < 1:
+        raise ValueError(f"--mesh {text!r}: expected D,M or P,D,M (positive sizes)")
+    return shape
+
+
+def lm_mesh(shape, dev):
+    """The ``DeviceMesh`` of ``--mesh`` over the process group: the running
+    one; else torchrun's (``WORLD_SIZE`` set: ``env://``, NCCL on the card
+    of ``LOCAL_RANK``, gloo with ``--device cpu``); else a world-1 group.
+    Returns (mesh, device, whether this call started the group)."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_host_mesh
+
+    started = False
+    if not dist.is_initialized() and "WORLD_SIZE" in os.environ:
+        if dev.type == "cuda":
+            dev = torch.device("cuda", int(os.environ.get("LOCAL_RANK", "0")))
+            torch.cuda.set_device(dev)
+        dist.init_process_group("nccl" if dev.type == "cuda" else "gloo", init_method="env://")
+        started = True
+    started = started or not dist.is_initialized()
+    pod = shape[0] if len(shape) == 3 else None
+    mesh = make_host_mesh(shape[-2], shape[-1], device=dev.type, pod=pod)
+    return mesh, dev, started
+
+
 def train_lm(args, cfg=None, step_hook=None) -> Dict[str, Any]:
-    """Port of the reference's ``train_lm`` at one card (module docstring).
-    ``cfg`` overrides the arch's config (the same arch, e.g. fewer layers);
+    """Port of the reference's ``train_lm`` (module docstring). ``cfg``
+    overrides the arch's config (the same arch, e.g. fewer layers);
     ``step_hook()`` runs at the start of every step (a drill's
     ``FailureInjector.maybe_fail``, whose error the supervisor recovers).
     Prints the ``done:`` line and returns the final params and AdamW
     state, each step's loss and grad norm, the host clock at the start of
     each step (the loss of a step is read on the host inside it, so step
-    i's span is synchronized), the supervisor's report and the config."""
+    i's span is synchronized), the supervisor's report and the config.
+
+    ``args.mesh`` ("D,M" or "P,D,M") trains partitioned over that mesh
+    (:func:`lm_mesh`): every rank draws the global params from the seed
+    (the model padded for the mesh) and keeps its shards, takes its data
+    slice of each batch, checkpoints into ``rank{r}/`` under
+    ``--ckpt-dir`` and restores from there at the step every rank has;
+    rank 0 prints ``done:``. The returned params and state are this rank's;
+    a group this call started is destroyed on the way out."""
+    import torch
+
+    from repro_torch.device import resolve_device
+
+    dev = resolve_device(args.device)
+    if not getattr(args, "mesh", None):
+        return _train_lm(args, cfg, step_hook, dev, None)
+    import torch.distributed as dist
+
+    mesh, dev, started = lm_mesh(parse_mesh(args.mesh), dev)
+    try:
+        return _train_lm(args, cfg, step_hook, dev, mesh)
+    finally:
+        if started:
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            dist.destroy_process_group()
+
+
+def _train_lm(args, cfg, step_hook, dev, mesh) -> Dict[str, Any]:
     import torch
 
     from repro_torch.checkpoint import CheckpointManager
     from repro_torch.configs import get_config, get_smoke_config
     from repro_torch.configs.base import ShapeSpec
-    from repro_torch.device import resolve_device
     from repro_torch.launch import steps as S
     from repro_torch.models import api
+    from repro_torch.parallel.sharding import data_index, mesh_axes
     from repro_torch.runtime import TrainSupervisor
 
-    dev = resolve_device(args.device)
     if cfg is None:
         cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     seq = args.seq_len or (SMOKE_SEQ if args.smoke else TRAIN_SEQ)
     shape = ShapeSpec("smoke" if args.smoke else "train_4k", seq, args.batch, "train")
-    train_step, opt = S.make_train_step(cfg, lr=args.lr)
-    params = api.init(cfg, torch.Generator(device=dev).manual_seed(args.seed), device=dev)
+    train_step, opt = S.make_train_step(cfg, lr=args.lr, mesh=mesh)
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    rank, agree, take = 0, None, None
+    if mesh is None:
+        params = api.init(cfg, gen, device=dev)
+    else:
+        import torch.distributed as dist
+
+        rank, ax = dist.get_rank(), mesh_axes(mesh)
+        if args.batch % ax.data_size:
+            raise ValueError(f"--batch {args.batch} does not divide over the "
+                             f"{ax.data_size} data ranks of --mesh {args.mesh}")
+        params = S.local_params(api.init(cfg, gen, device=dev, ax=ax), cfg, mesh)
+        b, lo = args.batch // ax.data_size, data_index(mesh) * (args.batch // ax.data_size)
+
+        def take(batch):
+            return {k: v[lo:lo + b] for k, v in batch.items()}
+
+        def agree(step):
+            t = torch.tensor([-1 if step is None else step], dtype=torch.int64, device=dev)
+            dist.all_reduce(t, op=dist.ReduceOp.MIN)
+            return None if int(t) < 0 else int(t)
+
     opt_state = opt.init(params)
     if args.ckpt_dir is None:
         args.ckpt_dir = tempfile.mkdtemp(prefix="repro_torch_ckpt_")
         print(f"checkpoints -> {args.ckpt_dir}")
-    ckpt = CheckpointManager(args.ckpt_dir, keep=2)
+    ckpt_dir = args.ckpt_dir if mesh is None else os.path.join(args.ckpt_dir, f"rank{rank}")
+    ckpt = CheckpointManager(ckpt_dir, keep=2)
     losses, grad_norms, starts = [], [], []
 
     def step_fn(state, batch):
@@ -518,17 +610,20 @@ def train_lm(args, cfg=None, step_hook=None) -> Dict[str, Any]:
         return (p, o), {"loss": loss, "grad_norm": gnorm}
 
     def stream_factory(skip):
-        return synth_lm_stream(cfg, shape, args.steps, seed=args.seed, skip=skip, device=dev)
+        stream = synth_lm_stream(cfg, shape, args.steps, seed=args.seed, skip=skip, device=dev)
+        return stream if take is None else map(take, stream)
 
-    sup = TrainSupervisor(ckpt, step_fn, stream_factory, ckpt_every=args.ckpt_every)
+    sup = TrainSupervisor(ckpt, step_fn, stream_factory, ckpt_every=args.ckpt_every,
+                          agree_step=agree)
     t0 = time.time()
     (params, opt_state), report = sup.run((params, opt_state), args.steps)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     dt = time.time() - t0
     starts.append(time.perf_counter())
-    print(f"done: steps={report.steps_run} restarts={report.restarts} time={dt:.1f}s "
-          f"({dt / max(report.steps_run, 1):.3f}s/step)")
+    if rank == 0:
+        print(f"done: steps={report.steps_run} restarts={report.restarts} time={dt:.1f}s "
+              f"({dt / max(report.steps_run, 1):.3f}s/step)")
     return {"cfg": cfg, "shape": shape, "params": params, "opt_state": opt_state,
             "losses": losses, "grad_norms": grad_norms, "step_starts": starts,
             "report": report, "wall_s": dt}
@@ -619,6 +714,13 @@ def build_parser() -> argparse.ArgumentParser:
     )
     ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument(
+        "--mesh", default=None,
+        help="LM archs of the transformer families: train partitioned over a "
+        "D,M (data, model) or P,D,M (pod, data, model) mesh; the process group "
+        "comes from torchrun's environment (NCCL on the card, gloo with "
+        "--device cpu), else a world-1 group",
+    )
+    ap.add_argument(
         "--supervise", action="store_true",
         help="train under EmbeddingTrainSupervisor: crash-consistent "
         "checkpoints (any cycle, mid-window), restore + fast-forward on "
@@ -662,7 +764,15 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
             get_config(args.arch)
         except KeyError as e:
             ap.error(str(e))
+        if args.mesh:
+            try:
+                parse_mesh(args.mesh)
+            except ValueError as e:
+                ap.error(str(e))
         return train_lm(args)
+    if args.mesh:
+        ap.error("--mesh trains the LM archs; the DLRM's full-table step over a mesh "
+                 "is launch/dryrun.py: dlrm_full_train_step")
     if args.tables < 0:
         ap.error("--tables must be >= 0 (0 = uniform paper config)")
     if args.trace and args.scenario:

@@ -12,10 +12,11 @@ device: shapes and dtypes, no storage), :func:`cache_specs`,
 :func:`abstract_cache`, :func:`batch_specs` / :func:`batch_shardings` and
 :func:`abstract_batch`. Specs follow the port's trees (per-layer lists
 where the reference stacks; ``convert.specs_to_reference`` restacks them).
-The loss, prefill and decode run at one card; running them partitioned
-over a mesh is ROADMAP.md Queue 1 item 21. ``synth_batch`` draws from the
-same numpy generator in the same order as the reference, so its tokens,
-frames and patches equal the reference's.
+The training loss of the transformer families also runs partitioned over
+a mesh (``make_loss_fn(cfg, mesh)``); prefill and decode run at one card
+(serving over a mesh is ROADMAP.md Queue 1 item 23). ``synth_batch``
+draws from the same numpy generator in the same order as the reference,
+so its tokens, frames and patches equal the reference's.
 """
 from __future__ import annotations
 
@@ -86,17 +87,38 @@ def param_specs(cfg: ModelConfig, ax: MeshAxes):
 TRAINABLE = ("hybrid", "ssm", "dense", "moe", "encoder", "vlm")
 
 
-def make_loss_fn(cfg: ModelConfig):
+#: the families whose training runs partitioned over a mesh
+MESH_TRAINABLE = ("dense", "moe", "encoder", "vlm")
+
+
+def make_loss_fn(cfg: ModelConfig, mesh=None):
     """``loss(params, batch)`` -> the fp32 training loss of ``cfg``'s
     family: the cross entropy, plus the MoE aux loss for the ``moe``
-    family."""
-    rc, _ = runtime_config(cfg)
-    mod = family_module(rc)
+    family. With a ``mesh`` (a ``DeviceMesh``), the model is ``cfg``
+    padded for it (:func:`runtime_config`), ``params`` this rank's shards
+    under :func:`param_specs` and ``batch`` its data shard; the loss is the
+    whole batch's, on every rank (``transformer.loss_fn``). The hybrid and
+    ssm families run at one card only (ROADMAP.md Queue 1 item 22)."""
+    if mesh is None:
+        rc, _ = runtime_config(cfg)
+        mod = family_module(rc)
 
-    def loss(params, batch):
-        return mod.loss_fn(params, rc, batch)
+        def loss(params, batch):
+            return mod.loss_fn(params, rc, batch)
 
-    return loss
+        return loss
+    if cfg.family not in MESH_TRAINABLE:
+        raise NotImplementedError(
+            f"{cfg.name}: the {cfg.family} family runs at one card; over a mesh it waits "
+            "for ROADMAP.md Queue 1 item 22")
+    ax = mesh_axes(mesh)
+    rc, vp = runtime_config(cfg, ax)
+    mod, specs = family_module(rc), family_module(rc).param_specs(rc, ax, vp)
+
+    def loss_mesh(params, batch):
+        return mod.loss_fn(params, rc, batch, mesh, specs)
+
+    return loss_mesh
 
 
 def make_prefill_fn(cfg: ModelConfig):

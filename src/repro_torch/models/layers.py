@@ -25,6 +25,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops
+from repro_torch.parallel import collectives as C
+from repro_torch.parallel.sharding import head_shard
 
 NEG_INF = -1e30
 
@@ -217,18 +219,67 @@ def qkv_proj(p, x: torch.Tensor, cfg) -> Tuple[torch.Tensor, torch.Tensor, torch
             v.reshape(B, S, cfg.num_kv_heads, cfg.head_dim))
 
 
+def _kv_proj(w, b, x, heads, hd: int, mesh):
+    """One of k / v over this rank's kv heads (``heads.kv``): a sharded
+    weight is the rank's own; a replicated one is copied over "model" (its
+    gradient, partial on each rank, sums there) and cut to the heads read."""
+    B, S, _ = x.shape
+    if not heads.kv_sharded:
+        w = C.copy_to_axis(w, mesh)
+        b = None if b is None else C.copy_to_axis(b, mesh)
+        if heads.kv_contiguous:
+            lo, n = heads.kv[0] * hd, len(heads.kv) * hd
+            w = w.narrow(1, lo, n)
+            b = None if b is None else b.narrow(0, lo, n)
+    y = x @ w
+    if b is not None:
+        y = y + b
+    y = y.reshape(B, S, -1, hd)
+    if not heads.kv_sharded and not heads.kv_contiguous:  # one kv head per q head
+        y = y.index_select(2, torch.tensor(heads.kv, device=y.device))
+    return y
+
+
+def qkv_proj_sharded(p, x: torch.Tensor, cfg, mesh, heads):
+    """:func:`qkv_proj` on one model rank: x (B, S, D), replicated over
+    "model" -> q (B, S, H_loc, hd) of the rank's q heads, k and v (B, S,
+    K_loc, hd) of the kv heads they read (``heads``, a
+    ``sharding.HeadShard``)."""
+    B, S, _ = x.shape
+    hd = cfg.head_dim
+    q = x @ p["wq"]
+    if cfg.qkv_bias:
+        q = q + p["bq"]
+    bk, bv = (p["bk"], p["bv"]) if cfg.qkv_bias else (None, None)
+    return (q.reshape(B, S, heads.q[1] - heads.q[0], hd),
+            _kv_proj(p["wk"], bk, x, heads, hd, mesh), _kv_proj(p["wv"], bv, x, heads, hd, mesh))
+
+
 def attention_forward(
-    p, x: torch.Tensor, positions: torch.Tensor, cfg
+    p, x: torch.Tensor, positions: torch.Tensor, cfg, mesh=None
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Prefill attention: x (B, S, D), positions (B, S) -> (out (B, S, D),
     the post-RoPE k and v (B, S, K, hd) for the KV cache), the core through
-    the flash kernel (causal or not, windowed under ``cfg.sliding_window``)."""
+    the flash kernel (causal or not, windowed under ``cfg.sliding_window``).
+    With a ``mesh`` (a ``DeviceMesh`` with a "model" axis) ``p`` holds this
+    rank's shards: x, replicated over "model", goes in through
+    ``copy_to_axis`` (its gradient sums over the ranks' heads), the flash
+    call runs at the rank's heads (``sharding.head_shard``), and ``wo`` is
+    row-parallel: its partial product is summed over "model"; k and v are
+    the rank's kv heads."""
     B, S, _ = x.shape
-    q, k, v = qkv_proj(p, x, cfg)
+    if mesh is None:
+        q, k, v = qkv_proj(p, x, cfg)
+    else:
+        heads = head_shard(mesh, cfg.num_heads, cfg.num_kv_heads)
+        q, k, v = qkv_proj_sharded(p, C.copy_to_axis(x, mesh), cfg, mesh, heads)
     q = apply_rope(q, positions, cfg.rope_theta, cfg.rope_fraction)
     k = apply_rope(k, positions, cfg.rope_theta, cfg.rope_fraction)
     out = chunked_attention(q, k, v, causal=cfg.causal, window=cfg.sliding_window)
-    return out.reshape(B, S, cfg.num_heads * cfg.head_dim) @ p["wo"], k, v
+    out = out.reshape(B, S, q.shape[2] * cfg.head_dim) @ p["wo"]
+    if mesh is not None:
+        out = C.sum_over_axis(out, mesh)
+    return out, k, v
 
 
 def attention_decode(

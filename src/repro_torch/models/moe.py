@@ -1,11 +1,9 @@
 """Mixture-of-Experts FFN (mixtral / llama4-scout families).
 
 Port of ``init_moe_mlp``, ``moe_mlp_specs``, ``_capacity`` and ``moe_ffn``
-of ``repro/models/moe.py``; ``moe_ffn`` at one card: no ``shard_map``, so
-no ``psum`` of the combined output over the model axis and no ``pmean`` of
-the aux loss over the data axes (both are identities at one device; the
-partitioned dispatch is ROADMAP.md Queue 1 item 21). Sort-based
-capacity dispatch (GShard-style, a scatter into an (E, cap, D) buffer
+of ``repro/models/moe.py``; ``moe_ffn`` runs at one card or, given a mesh,
+as the body of the reference's ``shard_map`` on one rank (its docstring).
+Sort-based capacity dispatch (GShard-style, a scatter into an (E, cap, D) buffer
 instead of a dense (T, E, cap) one-hot): the flat (token, choice) expert
 ids are sorted stably, each entry's rank within its expert is its slot,
 and entries ranked past the capacity are dropped. The experts' SwiGLU
@@ -26,7 +24,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models import layers as L
-from repro_torch.parallel.sharding import MeshAxes, P, dp_axis
+from repro_torch.parallel import collectives as C
+from repro_torch.parallel.sharding import MeshAxes, P, dp_axis, model_size
 
 AUX_WEIGHT = 0.01
 
@@ -86,26 +85,44 @@ def route(cfg, router: torch.Tensor, xf: torch.Tensor, cap: int) -> Dict[str, to
             "keep": keep, "tok": order // k}
 
 
-def moe_ffn(cfg, p, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+def moe_ffn(cfg, p, x: torch.Tensor, mesh=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (B, S, D) -> (out (B, S, D) in x's dtype, AUX_WEIGHT * aux loss,
-    an fp32 scalar)."""
+    an fp32 scalar).
+
+    With a ``mesh`` this is the body of the reference's ``shard_map``: x is
+    this rank's data shard (its tokens stay there; the capacity is that of
+    its b_local x S tokens) and ``p``'s experts hold this rank's slice of
+    the inner dim over "model". The router runs whole on every model rank.
+    The dispatched tokens and the gate weights that scale the experts'
+    partial outputs go through ``copy_to_axis`` (their gradients sum over
+    "model"); the router logits do not: the aux loss is the same on every
+    model rank and its gradient whole on each. The fp32 combine is summed
+    over "model" before the cast. The aux loss returned is this data
+    shard's; the reference's ``pmean`` over the data axes is the caller's
+    (``transformer.loss_fn`` divides the aux by the data ranks before the
+    sum over them). Experts whose inner dim does not divide run whole."""
     B, S, D = x.shape
     E, T = cfg.num_experts, B * S
     cap = _capacity(T, cfg)
     xf = x.reshape(T, D)
     r = route(cfg, p["router"], xf, cap)
     e_idx, r_idx, keep, tok = r["e_idx"], r["r_idx"], r["keep"], r["tok"]
+    tp = mesh is not None and cfg.moe_d_ff % model_size(mesh) == 0
 
-    rows = torch.where(keep[:, None], xf[tok], 0.0)
+    rows = torch.where(keep[:, None], (C.copy_to_axis(xf, mesh) if tp else xf)[tok], 0.0)
     buf = torch.zeros((E, cap, D), dtype=xf.dtype, device=xf.device)
     buf.index_put_((e_idx, r_idx), rows, accumulate=True)
     h = F.silu(torch.bmm(buf, p["wg"])) * torch.bmm(buf, p["wu"])
-    y = torch.bmm(h, p["wd"])  # (E, cap, D)
+    y = torch.bmm(h, p["wd"])  # (E, cap, D); partial over a sharded inner dim
 
     contrib = y[e_idx, r_idx].float()
     w = torch.where(keep, r["gates"].reshape(-1)[r["order"]], 0.0)
+    if tp:
+        w = C.copy_to_axis(w, mesh)
     out = torch.zeros((T, D), dtype=torch.float32, device=x.device)
     out.index_add_(0, tok, contrib * w[:, None])
+    if tp:
+        out = C.sum_over_axis(out, mesh)
     out = out.to(x.dtype).reshape(B, S, D)
 
     # Switch aux loss: fraction routed * mean prob, summed over experts.

@@ -6,12 +6,15 @@ share.
 Port of ``repro/models/transformer.py``. Its specs are ported
 (:func:`layer_specs`, :func:`param_specs`, :func:`cache_spec`: the
 reference's rules, per layer, without the stacked [L] dim, which no rule
-shards); its execution runs at one card: the vocab-sharded branch of
-``embed_tokens`` and the sequence-parallel constraints wait for the LM's
-partitioned execution (ROADMAP.md Queue 1 item 21). The
-reference stacks the layers on a leading [L] axis and scans them; the port
-keeps a list of per-layer parameter dicts (``params["layers"][i]``) and
-loops. Prefill reaches the flash kernel once per layer
+shards). Training also runs partitioned over a mesh (:func:`loss_fn` with
+``mesh=``: tensor-parallel attention, MLP and experts, the vocab-sharded
+embedding and cross entropy, FSDP gathers inside each checkpointed
+layer); prefill and decode run at one card (serving over a mesh is
+ROADMAP.md Queue 1 item 23). The reference's sequence-parallel residual
+(``_sp_constraint``, under ``seq_parallel``, which no config sets) is not
+carried over. The reference stacks the layers on a leading [L] axis and
+scans them; the port keeps a list of per-layer parameter dicts
+(``params["layers"][i]``) and loops. Prefill reaches the flash kernel once per layer
 (``layers.chunked_attention``); decode is plain torch against the KV cache
 ``{"k", "v"}`` of shape (L, B, S, K, hd), stacked as in the reference and
 written in place (a ring of slots ``pos % S`` under ``cfg.sliding_window``:
@@ -40,12 +43,13 @@ import math
 from typing import Tuple
 
 import torch
+import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import layers as L
 from repro_torch.models import moe
 from repro_torch.parallel import collectives as C
-from repro_torch.parallel.sharding import MeshAxes, P, dp_axis, shard_dim
+from repro_torch.parallel.sharding import MeshAxes, P, dp_axis, model_size, shard_dim
 
 FRAME_DIM = 512  # audio frontend stub: precomputed frame-embedding width
 PATCH_DIM = 1024  # vision frontend stub: precomputed patch-embedding width
@@ -96,19 +100,31 @@ def _norm(cfg, x, n):
     return L.rms_norm(x, n, cfg.norm_eps)
 
 
-def _ffn(cfg, m, h):
-    """Returns (delta, aux loss): the MoE's fp32 scalar, 0.0 otherwise."""
+def _ffn(cfg, m, h, mesh=None):
+    """Returns (delta, aux loss): the MoE's fp32 scalar, 0.0 otherwise.
+    With a ``mesh`` the MLP is tensor-parallel where its inner dim shards
+    over "model": h goes in through ``copy_to_axis``, the column-parallel
+    products give this rank's inner slice, the row-parallel one a partial
+    sum, summed over "model" (GELU's ``b2``, replicated, added once after
+    the sum); an inner dim that does not divide runs whole on every rank."""
+    if mesh is not None and cfg.family != "moe" and cfg.d_ff % model_size(mesh) == 0:
+        h = C.copy_to_axis(h, mesh)
+        if cfg.family == "encoder":
+            y = F.gelu(h @ m["w1"] + m["b1"], approximate="tanh") @ m["w2"]
+            return C.sum_over_axis(y, mesh) + m["b2"], 0.0
+        return C.sum_over_axis(L.swiglu(h, m["w_gate"], m["w_up"], m["w_down"]), mesh), 0.0
     if cfg.family == "encoder":
         return L.gelu_mlp(h, m["w1"], m["b1"], m["w2"], m["b2"]), 0.0
     if cfg.family == "moe":
-        return moe.moe_ffn(cfg, m, h)
+        return moe.moe_ffn(cfg, m, h, mesh)
     return L.swiglu(h, m["w_gate"], m["w_up"], m["w_down"]), 0.0
 
 
-def _layer(cfg, p, x, positions):
-    a, k, v = L.attention_forward(p["attn"], _norm(cfg, x, p["attn_norm"]), positions, cfg)
+def _layer(cfg, p, x, positions, mesh=None):
+    a, k, v = L.attention_forward(p["attn"], _norm(cfg, x, p["attn_norm"]), positions, cfg,
+                                  mesh)
     x = x + a
-    delta, aux = _ffn(cfg, p["mlp"], _norm(cfg, x, p["mlp_norm"]))
+    delta, aux = _ffn(cfg, p["mlp"], _norm(cfg, x, p["mlp_norm"]), mesh)
     return x + delta, k, v, aux
 
 
@@ -119,9 +135,15 @@ def layer_forward(cfg, p, x, positions):
     return x, k, v
 
 
-def train_layer(cfg, p, x, positions):
-    """One layer of the training forward: (x, its aux loss)."""
-    x, _, _, aux = _layer(cfg, p, x, positions)
+def train_layer(cfg, p, x, positions, mesh=None, specs=None):
+    """One layer of the training forward: (x, its aux loss). With a
+    ``mesh``, ``p`` is this rank's shards under ``specs`` (the layer's
+    :func:`layer_specs`): FSDP weights are gathered over the data axes here,
+    inside the checkpointed call, so the recompute gathers them again and
+    no whole layer outlives its step."""
+    if mesh is not None:
+        p = C.gather_tree_over_data(p, specs, mesh)
+    x, _, _, aux = _layer(cfg, p, x, positions, mesh)
     return x, aux
 
 
@@ -216,13 +238,29 @@ def param_specs(cfg, ax: MeshAxes, vocab_pad: int):
     return sp
 
 
-def embed_tokens(params, cfg, tokens: torch.Tensor) -> torch.Tensor:
+def _whole_over_data(params, name, mesh, specs):
+    """``params[name]`` with its FSDP dims gathered over the data axes."""
+    if mesh is None:
+        return params[name]
+    return C.gather_tree_over_data(params[name], specs[name], mesh)
+
+
+def embed_tokens(params, cfg, tokens: torch.Tensor, mesh=None, specs=None) -> torch.Tensor:
     """tokens (B, S) int -> (B, S, D) rows of ``params["embed"]`` in the
-    compute dtype."""
-    return params["embed"][tokens.long()].to(getattr(torch, cfg.compute_dtype))
+    compute dtype. With a ``mesh`` whose "model" axis is wider than 1, the
+    table is this rank's row block and the lookup vocab-sharded
+    (``collectives.vocab_sharded_lookup``: the reference's condition, the
+    padded rows dividing over "model", holds by ``runtime_config``); its
+    FSDP-sharded d_model is gathered first."""
+    table = _whole_over_data(params, "embed", mesh, specs)
+    if model_size(mesh) > 1:
+        emb = C.vocab_sharded_lookup(table, tokens, mesh)
+    else:
+        emb = table[tokens.long()]
+    return emb.to(getattr(torch, cfg.compute_dtype))
 
 
-def build_inputs(params, cfg, batch) -> Tuple[torch.Tensor, torch.Tensor]:
+def build_inputs(params, cfg, batch, mesh=None, specs=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (x (B, S, D), positions (B, S) int32). ``inputs_embeds``
     bypasses the embedding lookup; the ``frames`` frontend projects
     precomputed frames, the ``patches`` frontend prepends projected patches
@@ -234,48 +272,74 @@ def build_inputs(params, cfg, batch) -> Tuple[torch.Tensor, torch.Tensor]:
         x = batch["frames"].to(dt) @ params["frontend_proj"].to(dt)
     elif cfg.frontend == "patches":
         patches = batch["patches"].to(dt) @ params["frontend_proj"].to(dt)
-        x = torch.cat([patches, embed_tokens(params, cfg, batch["tokens"])], dim=1)
+        x = torch.cat([patches, embed_tokens(params, cfg, batch["tokens"], mesh, specs)], dim=1)
     else:
-        x = embed_tokens(params, cfg, batch["tokens"])
+        x = embed_tokens(params, cfg, batch["tokens"], mesh, specs)
     B, S = x.shape[:2]
     positions = torch.arange(S, dtype=torch.int32, device=x.device)[None].expand(B, S)
     return x, positions
 
 
-def head_weight(params, cfg):
-    return params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+def head_weight(params, cfg, mesh=None, specs=None):
+    """(D, Vpad) — with a ``mesh``, this rank's vocab column block, its FSDP
+    dim gathered: the tied head is the embed shard's transpose."""
+    if cfg.tie_embeddings:
+        return _whole_over_data(params, "embed", mesh, specs).T
+    return _whole_over_data(params, "lm_head", mesh, specs)
 
 
-def run_layers(cfg, layer_params, x, positions):
+def run_layers(cfg, layer_params, x, positions, mesh=None, layer_specs_=None):
     """The layers in order -> (x, the aux losses summed over the layers, an
     fp32 scalar). Each layer is recomputed in the backward (non-reentrant
     ``torch.utils.checkpoint``: only its input is kept), as the reference's
-    ``jax.checkpoint`` of its scan body."""
+    ``jax.checkpoint`` of its scan body. With a ``mesh``, each layer's
+    shards and specs go to :func:`train_layer`."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for lp in layer_params:
-        x, a = checkpoint(train_layer, cfg, lp, x, positions, use_reentrant=False)
+    for i, lp in enumerate(layer_params):
+        extra = () if mesh is None else (mesh, layer_specs_[i])
+        x, a = checkpoint(train_layer, cfg, lp, x, positions, *extra, use_reentrant=False)
         aux = aux + a
     return x, aux
 
 
-def forward_hidden(params, cfg, batch) -> Tuple[torch.Tensor, torch.Tensor]:
+def forward_hidden(params, cfg, batch, mesh=None, specs=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """(the final-normed hidden states (B, S, D), the summed aux loss)."""
-    x, positions = build_inputs(params, cfg, batch)
-    x, aux = run_layers(cfg, params["layers"], x, positions)
+    x, positions = build_inputs(params, cfg, batch, mesh, specs)
+    x, aux = run_layers(cfg, params["layers"], x, positions, mesh,
+                        None if specs is None else specs["layers"])
     return _norm(cfg, x, params["final_norm"]), aux
 
 
-def loss_fn(params, cfg, batch) -> torch.Tensor:
+def loss_fn(params, cfg, batch, mesh=None, specs=None) -> torch.Tensor:
     """The training loss: the chunked cross entropy of the hidden states
     against ``batch["labels"]`` (``loss_mask`` optional; a vlm's image
-    positions carry no loss) plus the aux loss; an fp32 scalar."""
-    x, aux = forward_hidden(params, cfg, batch)
+    positions carry no loss) plus the aux loss; an fp32 scalar.
+
+    With a ``mesh`` (``DeviceMesh`` ("data", "model") or ("pod", "data",
+    "model")), ``params`` are this rank's shards under ``specs``
+    (:func:`param_specs` of the padded ``cfg``) and ``batch`` its data
+    shard. The loss is that of the whole batch, the same on every rank:
+    this rank's addend — its masked cross-entropy sum over the mask count
+    of the whole batch, plus its MoE aux losses over the number of data
+    ranks (the reference ``pmean``s each layer's over the data axes) — summed
+    over the data ranks by ``collectives.sum_over_data``, whose backward is
+    the identity, so each rank's gradients are those of its own addend."""
+    x, aux = forward_hidden(params, cfg, batch, mesh, specs)
     if cfg.frontend == "patches":  # image positions carry no LM loss
         x = x[:, batch["patches"].shape[1]:]
+    if mesh is None:
+        xent = C.sharded_xent_loss(
+            x, head_weight(params, cfg).to(x.dtype), batch["labels"], batch.get("loss_mask"),
+            true_vocab=cfg.vocab_size)
+        return xent + aux
+    labels, mask = batch["labels"], batch.get("loss_mask")
+    count = (torch.sum(mask.float()) if mask is not None
+             else torch.full((), labels.numel(), dtype=torch.float32, device=x.device))
+    count = torch.clamp(C.sum_over_data(count.detach(), mesh), min=1.0)
     xent = C.sharded_xent_loss(
-        x, head_weight(params, cfg).to(x.dtype), batch["labels"], batch.get("loss_mask"),
-        true_vocab=cfg.vocab_size)
-    return xent + aux
+        x, head_weight(params, cfg, mesh, specs).to(x.dtype), labels, mask,
+        true_vocab=cfg.vocab_size, mesh=mesh, denominator=count)
+    return C.sum_over_data(xent + aux / C.data_size(mesh), mesh)
 
 
 def init_cache(cfg, batch_size: int, seq_len: int, device="cpu", dtype=None):

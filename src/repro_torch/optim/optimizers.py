@@ -14,16 +14,22 @@ reference's, in its order, in fp32 (the temporaries are one leaf at a
 time). ``torch.optim`` is not used: its AdamW keeps no master copy and
 orders its update otherwise.
 
-The reference's ZeRO-1 sharding of the state has its specs in the port
-(``launch/steps.py: opt_state_specs``, ``parallel/sharding.py:
-zero1_spec``); updating a state sharded that way waits for the LM's
-partitioned execution (ROADMAP.md Queue 1 item 21).
+Over a mesh (``launch/steps.py: make_train_step(cfg, mesh=)``) the
+params and gradients are a rank's shards: :func:`global_norm` sums each
+leaf's squares over the mesh axes its spec shards it on (a replicated leaf
+counts once), and ``AdamW(zero1=Zero1(...))`` keeps the reference's ZeRO-1
+state (``launch/steps.py: opt_state_specs``, ``parallel/sharding.py:
+zero1_spec``): ``m``, ``v`` and ``master`` hold this data rank's slice,
+which it updates, then all-gathers the new params over the data axes.
+A ZeRO-1 split of a layer list over more than one stacked dim, as the
+hybrid family's ``groups`` would need, raises (the hybrid and ssm
+families' partitioned step is ROADMAP.md Queue 1 item 22).
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Callable, List
+from typing import Callable, List, Optional
 
 import torch
 
@@ -48,17 +54,45 @@ def tree_map(fn: Callable, tree, *rest):
     return fn(tree, *rest)
 
 
-def global_norm(tree) -> torch.Tensor:
+def global_norm(tree, specs=None, mesh=None) -> torch.Tensor:
     """sqrt of the sum over leaves of each leaf's fp32 sum of squares: a
-    0-dim fp32 tensor on the leaves' device (no host sync)."""
-    return torch.sqrt(torch.stack([torch.sum(torch.square(g.float()))
-                                   for g in tree_leaves(tree)]).sum())
+    0-dim fp32 tensor on the leaves' device (no host sync). With a
+    ``mesh``, the leaves are this rank's shards and ``specs`` their specs
+    in leaf order (``parallel/sharding.py: spec_leaves``): each leaf's sum
+    is summed over the mesh axes its spec shards it on, so every rank gets
+    the norm of the whole tree and a replicated leaf counts once."""
+    sq = [torch.sum(torch.square(g.float())) for g in tree_leaves(tree)]
+    if mesh is not None:
+        sq = _sum_over_spec_axes(sq, specs, mesh)
+    return torch.sqrt(torch.stack(sq).sum())
 
 
-def clip_by_global_norm(grads, max_norm: float):
+def _sum_over_spec_axes(sq: List[torch.Tensor], specs, mesh) -> List[torch.Tensor]:
+    """Each 0-dim ``sq[i]`` summed over the axes of ``specs[i]``: one
+    all-reduce per axis per group of leaves that share their axes."""
+    from repro_torch.parallel import collectives as C
+    from repro_torch.parallel.sharding import spec_axes
+
+    groups = {}
+    for i, (_, spec) in enumerate(specs):
+        axes = tuple(a for a in mesh.mesh_dim_names if a in spec_axes(spec))
+        if axes:
+            groups.setdefault(axes, []).append(i)
+    out = list(sq)
+    for axes, idx in groups.items():
+        v = torch.stack([sq[i] for i in idx])
+        for a in axes:
+            v = C.all_reduce(v, mesh, a)
+        for j, i in enumerate(idx):
+            out[i] = v[j]
+    return out
+
+
+def clip_by_global_norm(grads, max_norm: float, specs=None, mesh=None):
     """(grads scaled by min(1, max_norm / max(norm, 1e-12)), each leaf in
-    fp32 and rounded back to its dtype, in place; the norm)."""
-    norm = global_norm(grads)
+    fp32 and rounded back to its dtype, in place; the norm). ``specs`` and
+    ``mesh`` as in :func:`global_norm`."""
+    norm = global_norm(grads, specs, mesh)
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-12), max=1.0)
     with torch.no_grad():
         for g in tree_leaves(grads):
@@ -87,6 +121,53 @@ class SGD:
         return params, state
 
 
+class Zero1:
+    """The reference's ZeRO-1 layout of an AdamW state on one rank of a
+    mesh: per param leaf (``tree_leaves`` order), from its param spec and
+    its state spec (``launch/steps.py: opt_state_specs``):
+
+      * ``same`` — the state is shaped as the param shard (the param is
+        sharded over the data axes already, FSDP, or too small to split);
+      * ``dim`` — the state is this data rank's block along tensor dim
+        ``dim`` of the param shard;
+      * ``lead`` — the state of a layer list is split over the data ranks
+        by layer (``P.lead``): layers ``[i L / n, (i + 1) L / n)`` on data
+        rank ``i``; a layer another rank holds has empty state leaves here.
+
+    Data ranks are counted over ("pod", "data"), pod major, as a dim
+    sharded over both is laid out. ``coords`` (a rank's coordinate by axis
+    name) stands in for the mesh's own, as on an ``AbstractMesh``."""
+
+    def __init__(self, mesh, param_specs, state_specs, coords=None):
+        from repro_torch.parallel.sharding import (data_dims, data_index, mesh_axes,
+                                                   spec_leaves)
+
+        ax = mesh_axes(mesh)
+        self.mesh, self.n, self.index = mesh, ax.data_size, data_index(mesh, coords)
+        self.plan = []  # per leaf: (kind, dim, owned, the layer list's leaf key)
+        for (path, ps), (_, os_) in zip(spec_leaves(param_specs), spec_leaves(state_specs)):
+            if any(e is not None for e in os_.lead):
+                if len(os_.lead) != 1 or not isinstance(path[1], int):
+                    raise NotImplementedError(f"ZeRO-1 over {path}: a split of more than one "
+                                              "stacked dim (ROADMAP.md Queue 1 item 22)")
+                per = len(param_specs[path[0]]) // self.n
+                self.plan.append(("lead", None, path[1] // per == self.index,
+                                  path[:1] + path[2:]))
+                continue
+            split = [d for d in data_dims(os_, ax) if d not in data_dims(ps, ax)]
+            self.plan.append(("dim", split[0], True, None) if split
+                             else ("same", None, True, None))
+
+    def block(self, t: torch.Tensor, entry) -> torch.Tensor:
+        """This rank's part of the param-shaped ``t`` (a view), or None for
+        a layer another data rank holds."""
+        kind, dim, owned, _ = entry
+        if kind == "dim":
+            n = t.shape[dim] // self.n
+            return t.narrow(dim, self.index * n, n)
+        return t if owned else None
+
+
 @dataclasses.dataclass(frozen=True)
 class AdamW:
     b1: float = 0.9
@@ -94,8 +175,12 @@ class AdamW:
     eps: float = 1e-8
     weight_decay: float = 0.0
     master_fp32: bool = True  # keep fp32 master copy when params are low-prec
+    #: the ZeRO-1 layout over a mesh (:class:`Zero1`); None at one card
+    zero1: Optional[Zero1] = None
 
     def init(self, params):
+        if self.zero1 is not None:
+            return self._init_zero1(params)
         st = {
             "m": tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
                                                 device=p.device), params),
@@ -107,34 +192,89 @@ class AdamW:
             st["master"] = tree_map(lambda p: p.detach().to(torch.float32, copy=True), params)
         return st
 
+    def _init_zero1(self, params):
+        """Zeros for ``m`` and ``v`` and the fp32 ``master`` of this rank's
+        ZeRO-1 part of each leaf (:class:`Zero1`); empty leaves for the
+        layers another data rank holds."""
+        if not self.master_fp32:
+            raise NotImplementedError("ZeRO-1 keeps an fp32 master")
+        leaves = tree_leaves(params)
+        part = {id(p): self.zero1.block(p, e) for p, e in zip(leaves, self.zero1.plan)}
+
+        def like(fn):
+            return tree_map(lambda p: p.new_empty((0,), dtype=torch.float32)
+                            if part[id(p)] is None else fn(part[id(p)]), params)
+
+        return {"m": like(lambda b: torch.zeros(b.shape, dtype=torch.float32, device=b.device)),
+                "v": like(lambda b: torch.zeros(b.shape, dtype=torch.float32, device=b.device)),
+                "t": torch.zeros((), dtype=torch.int32, device=leaves[0].device),
+                "master": like(lambda b: b.detach().to(torch.float32, copy=True))}
+
+    def _update(self, p32, g, m, v, b1t, b2t, lr):
+        """One leaf's update in place: m, v, then the fp32 master ``p32``."""
+        g32 = g.float()
+        m.mul_(self.b1).add_((1 - self.b1) * g32)
+        v.mul_(self.b2).add_((1 - self.b2) * torch.square(g32))
+        del g32
+        step = torch.div(v, b2t).sqrt_().add_(self.eps)  # sqrt(vh) + eps
+        step = torch.div(m, b1t).div_(step)  # mh / (sqrt(vh) + eps)
+        if self.weight_decay:
+            step.add_(self.weight_decay * p32.float())
+        step.mul_(lr)
+        p32.sub_(step)
+
     @torch.no_grad()
     def step(self, params, grads, state, lr):
         """m = b1 m + (1 - b1) g; v = b2 v + (1 - b2) g^2; p32 -= lr (m / b1t
         / (sqrt(v / b2t) + eps) + wd p32), with b1t = 1 - b1^t, b2t = 1 -
         b2^t in fp32 (as the reference's jnp power); params = p32 in their
-        dtype. All in place."""
+        dtype. All in place. With ``zero1``, ``grads`` are whole over the
+        data axes (summed there) and each rank updates its part of the state
+        (:class:`Zero1`), then all-gathers the new params over the data
+        axes."""
         t = state["t"].add_(1)
         tf = t.float()
         b1t = 1.0 - torch.pow(torch.tensor(self.b1, dtype=torch.float32, device=t.device), tf)
         b2t = 1.0 - torch.pow(torch.tensor(self.b2, dtype=torch.float32, device=t.device), tf)
+        if self.zero1 is not None:
+            return self._step_zero1(params, grads, state, lr, b1t, b2t)
         base = state["master"] if self.master_fp32 else params
         for p, g, m, v, p32 in zip(tree_leaves(params), tree_leaves(grads),
                                    tree_leaves(state["m"]), tree_leaves(state["v"]),
                                    tree_leaves(base)):
-            g32 = g.float()
-            m.mul_(self.b1).add_((1 - self.b1) * g32)
-            v.mul_(self.b2).add_((1 - self.b2) * torch.square(g32))
-            del g32
-            step = torch.div(v, b2t).sqrt_().add_(self.eps)  # sqrt(vh) + eps
-            step = torch.div(m, b1t).div_(step)  # mh / (sqrt(vh) + eps)
-            if self.weight_decay:
-                step.add_(self.weight_decay * p32.float())
-            step.mul_(lr)
             if self.master_fp32:
-                p32.sub_(step)
+                self._update(p32, g, m, v, b1t, b2t, lr)
                 p.copy_(p32)
             else:
-                p.copy_(p.float() - step)
+                p32 = p.float()
+                self._update(p32, g, m, v, b1t, b2t, lr)
+                p.copy_(p32)
+        return params, state
+
+    def _step_zero1(self, params, grads, state, lr, b1t, b2t):
+        from repro_torch.parallel import collectives as C
+
+        z = self.zero1
+        stacks = {}  # a split layer list's new params by leaf, in layer order
+        for p, g, m, v, p32, e in zip(tree_leaves(params), tree_leaves(grads),
+                                      tree_leaves(state["m"]), tree_leaves(state["v"]),
+                                      tree_leaves(state["master"]), z.plan):
+            kind, dim, owned, key = e
+            if kind == "lead":
+                group = stacks.setdefault(key, ([], []))
+                group[0].append(p)
+                if owned:
+                    self._update(p32, g, m, v, b1t, b2t, lr)
+                    group[1].append(p32.to(p.dtype))
+                continue
+            self._update(p32, z.block(g, e), m, v, b1t, b2t, lr)
+            if kind == "dim":
+                p.copy_(C.gather_over_data(p32.to(p.dtype), z.mesh, dim=dim))
+            else:
+                p.copy_(p32)
+        for ps, news in stacks.values():
+            for p, new in zip(ps, C.gather_over_data(torch.stack(news), z.mesh).unbind(0)):
+                p.copy_(new)
         return params, state
 
 

@@ -22,7 +22,14 @@ card, gloo ranks on the CPU), each rank holding its own shard:
     "data", all-reduce over "pod" on 1/N of the bytes, all-gather over
     "data";
   * ``ef_int8_psum`` — error-feedback int8 compression of the cross-pod hop;
-  * ``psum_tree_hierarchical`` — one of the three syncs over a tree.
+  * ``psum_tree_hierarchical`` — one of the three syncs over a tree;
+  * the partitioned LM step's pieces: ``sum_over_axis`` / ``copy_to_axis``
+    (tensor parallelism's all-reduce and its conjugate), ``fsdp_gather`` /
+    ``gather_tree_over_data`` (a weight's data-sharded dim gathered, its
+    gradient reduce-scattered back), ``sum_over_data`` (a rank's loss
+    addend summed over the data ranks, identity backward) and
+    ``sum_tree_over_data`` (the gradients of data-replicated leaves summed
+    in place).
 
 Every collective call records its kind, count and the bytes in and out of
 this rank (:func:`collective_records`), which ``launch/hlo_stats.py:
@@ -39,7 +46,8 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.optim.optimizers import tree_map
-from repro_torch.parallel.sharding import shard_start
+from repro_torch.parallel.sharding import (data_dims, mesh_axes, model_size, shard_start,
+                                           tree_map_specs)
 
 
 # ---------------------------------------------------------------------------
@@ -99,7 +107,10 @@ def all_gather(t: torch.Tensor, mesh, axis: str, dim: int = 0, tiled: bool = Tru
     t = t.contiguous()
     parts = [torch.empty_like(t) for _ in range(_axis_size(mesh, axis))]
     dist.all_gather(parts, t, group=_group(mesh, axis))
-    out = torch.cat(parts, dim=dim) if tiled else torch.stack(parts)
+    if not tiled:
+        out = torch.stack(parts)
+    else:  # one part is the whole: no second copy
+        out = parts[0] if len(parts) == 1 else torch.cat(parts, dim=dim)
     _record("all-gather", _nbytes(t), _nbytes(out))
     return out
 
@@ -174,12 +185,76 @@ def mean_over_data(t: torch.Tensor, mesh) -> torch.Tensor:
     return t / data_size(mesh)
 
 
-def gather_over_data(t: torch.Tensor, mesh) -> torch.Tensor:
-    """The data ranks' ``t`` concatenated along dim 0 in rank order (a batch
-    sharded over ("pod", "data") is pod major)."""
+def gather_over_data(t: torch.Tensor, mesh, dim: int = 0) -> torch.Tensor:
+    """The data ranks' ``t`` concatenated along ``dim`` in rank order (a
+    dim sharded over ("pod", "data") is pod major)."""
     for a in reversed(_dp_axes(mesh)):  # the minor axis first
-        t = all_gather(t, mesh, a)
+        t = all_gather(t, mesh, a, dim=dim)
     return t
+
+
+class _GatherOverAxis(torch.autograd.Function):
+    """Forward: the ranks' blocks of ``axis`` concatenated along ``dim``;
+    backward: the reduce-scatter, each rank's block of the gradients summed
+    over the axis (FSDP: every data rank used the whole weight)."""
+
+    @staticmethod
+    def forward(ctx, t, mesh, axis, dim):
+        ctx.mesh, ctx.axis, ctx.dim = mesh, axis, dim
+        return all_gather(t, mesh, axis, dim=dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return reduce_scatter(g, ctx.mesh, ctx.axis, dim=ctx.dim), None, None, None
+
+
+def fsdp_gather(t: torch.Tensor, mesh, dim: int) -> torch.Tensor:
+    """The whole of a weight whose ``dim`` is sharded over the data axes
+    (FSDP), gathered minor axis first so that the blocks come pod major;
+    its gradient is reduce-scattered back, summed over the data ranks."""
+    for a in reversed(_dp_axes(mesh)):
+        t = _GatherOverAxis.apply(t, mesh, a, dim)
+    return t
+
+
+def gather_tree_over_data(tree, spec_tree, mesh):
+    """``tree`` (this rank's shards under ``spec_tree``) with every dim that
+    its spec shards over the data axes gathered (:func:`fsdp_gather`);
+    leaves without one as they are."""
+    ax = mesh_axes(mesh)
+
+    def one(spec, t):
+        for d in data_dims(spec, ax):
+            t = fsdp_gather(t, mesh, d)
+        return t
+
+    return tree_map_specs(one, spec_tree, tree)
+
+
+def sum_over_data(t: torch.Tensor, mesh) -> torch.Tensor:
+    """The sum of the data ranks' ``t`` (:func:`sum_over_axis` over "pod"
+    and "data"); the backward is the identity: each rank's gradient is that
+    of its own addend."""
+    for a in _dp_axes(mesh):
+        t = sum_over_axis(t, mesh, a)
+    return t
+
+
+def sum_tree_over_data(grads, spec_leaves_, mesh) -> None:
+    """In place: each gradient whose leaf is replicated over the data axes
+    (its spec, in ``spec_leaves_``, names none of them) summed over the data
+    ranks; a leaf sharded over them (FSDP) arrives summed already, by the
+    reduce-scatter of :func:`fsdp_gather`. ``grads`` and ``spec_leaves_``
+    are flat lists in the same order (``tree_leaves`` / ``spec_leaves``)."""
+    import torch.distributed as dist
+
+    ax = mesh_axes(mesh)
+    for g, (_, spec) in zip(grads, spec_leaves_):
+        if data_dims(spec, ax):
+            continue
+        for a in ax.data:
+            dist.all_reduce(g, group=_group(mesh, a))
+            _record("all-reduce", _nbytes(g), _nbytes(g))
 
 
 # ---------------------------------------------------------------------------
@@ -209,16 +284,12 @@ def _mask_padding(logits: torch.Tensor, true_vocab: int) -> torch.Tensor:
                        torch.full((), -torch.inf, device=logits.device))
 
 
-def _vocab_parallel(mesh) -> bool:
-    return mesh is not None and "model" in mesh.mesh_dim_names and _axis_size(mesh, "model") > 1
-
-
 def sharded_logits(x: torch.Tensor, head_w: torch.Tensor, true_vocab: int,
                    mesh=None) -> torch.Tensor:
     """x (B, D) @ head_w (D, Vpad) -> (B, Vpad) fp32 logits (products and
     sums in fp32), the padding columns ``>= true_vocab`` set to -inf. With
     a mesh wider than 1 over "model", :func:`vocab_parallel_logits`."""
-    if _vocab_parallel(mesh):
+    if model_size(mesh) > 1:
         return vocab_parallel_logits(x, head_w, true_vocab, mesh)
     return _mask_padding(x.float() @ head_w.float(), true_vocab)
 
@@ -255,7 +326,7 @@ def _vp_chunk_loss(xs, head32, ls, ms, true_vocab: int, lo: int, mesh) -> torch.
 
 
 def vocab_parallel_xent_loss(x, head_shard, labels, mask=None, *, true_vocab: int, mesh,
-                             seq_chunk: int = 512) -> torch.Tensor:
+                             seq_chunk: int = 512, denominator=None) -> torch.Tensor:
     """:func:`sharded_xent_loss` with ``head_shard`` this rank's (D, Vpad /
     TP) column block of the head over "model" (contiguous in rank order);
     x, labels and mask are this rank's data shard, replicated over "model".
@@ -264,7 +335,7 @@ def vocab_parallel_xent_loss(x, head_shard, labels, mask=None, *, true_vocab: in
     (sum): lse = max + log(sum). The loss is replicated over "model"; the
     gradient of x is summed over "model" (each rank's product with its own
     shard). Chunks recompute in the backward, collectives included, in the
-    same order on every rank."""
+    same order on every rank. ``denominator`` as in :func:`sharded_xent_loss`."""
     B, S, _ = x.shape
     if mask is None:
         mask = torch.ones((B, S), dtype=torch.float32, device=x.device)
@@ -277,7 +348,13 @@ def vocab_parallel_xent_loss(x, head_shard, labels, mask=None, *, true_vocab: in
         c1 = min(c0 + chunk, S)
         total = total + checkpoint(_vp_chunk_loss, x[:, c0:c1], head32, labels[:, c0:c1],
                                    mask[:, c0:c1], true_vocab, lo, mesh, use_reentrant=False)
-    return total / torch.clamp(torch.sum(mask), min=1.0)
+    return total / _denominator(mask, denominator)
+
+
+def _denominator(mask: torch.Tensor, denominator) -> torch.Tensor:
+    if denominator is None:
+        return torch.clamp(torch.sum(mask), min=1.0)
+    return denominator
 
 
 def _chunk_loss(xs, head_w32, ls, ms, true_vocab: int) -> torch.Tensor:
@@ -302,6 +379,7 @@ def sharded_xent_loss(
     true_vocab: int,
     seq_chunk: int = 512,
     mesh=None,
+    denominator=None,
 ) -> torch.Tensor:
     """Mean token cross entropy without the (B, S, V) logits: x (B, S, D)
     activations, head_w (D, Vpad), labels (B, S) int, mask (B, S) {0, 1}
@@ -314,10 +392,13 @@ def sharded_xent_loss(
     fp32 (bf16 operands' products are exact there), as the reference leaves
     its einsum to XLA. The reference's ``unroll`` (a ``lax.scan`` knob) has
     no counterpart: the chunks are a Python loop. With a mesh wider than 1
-    over "model", :func:`vocab_parallel_xent_loss`."""
-    if _vocab_parallel(mesh):
+    over "model", :func:`vocab_parallel_xent_loss`. ``denominator`` (an fp32
+    0-dim tensor) replaces ``max(sum(mask), 1)``: a data rank's share of a
+    batch's mean divides by the mask count of the whole batch."""
+    if model_size(mesh) > 1:
         return vocab_parallel_xent_loss(x, head_w, labels, mask, true_vocab=true_vocab,
-                                        mesh=mesh, seq_chunk=seq_chunk)
+                                        mesh=mesh, seq_chunk=seq_chunk,
+                                        denominator=denominator)
     B, S, _ = x.shape
     if mask is None:
         mask = torch.ones((B, S), dtype=torch.float32, device=x.device)
@@ -329,7 +410,7 @@ def sharded_xent_loss(
         hi = min(lo + chunk, S)
         total = total + checkpoint(_chunk_loss, x[:, lo:hi], head_w32, labels[:, lo:hi],
                                    mask[:, lo:hi], true_vocab, use_reentrant=False)
-    return total / torch.clamp(torch.sum(mask), min=1.0)
+    return total / _denominator(mask, denominator)
 
 
 # ---------------------------------------------------------------------------

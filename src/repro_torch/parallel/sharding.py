@@ -20,6 +20,10 @@ placements (``Shard(d)`` / ``Replicate()`` per mesh dim, for
 cuts this rank's slice of a global tensor. The port shards explicitly, as
 the reference's ``shard_map`` bodies do, so :func:`constraint` (the
 reference's ``with_sharding_constraint``) is a documented no-op.
+:func:`head_shard` says which attention heads a model rank computes (its
+q heads, and the kv heads they read where K does not divide the TP
+width); :func:`spec_leaves`, :func:`shard_slices` and :func:`data_index`
+serve the partitioned train step's ZeRO-1 layout and its conversions.
 """
 from __future__ import annotations
 
@@ -220,6 +224,65 @@ def shard_start(mesh, rows_local: int, axis: str = "model") -> int:
     return mesh.get_local_rank(axis) * rows_local
 
 
+def model_size(mesh) -> int:
+    """The TP width: the size of the mesh's "model" axis (1 without one)."""
+    if mesh is None or "model" not in mesh.mesh_dim_names:
+        return 1
+    return int(mesh.shape[tuple(mesh.mesh_dim_names).index("model")])
+
+
+def data_index(mesh, coords: Optional[Dict[str, int]] = None) -> int:
+    """This rank's index among the data-parallel ranks: its coordinates
+    along "pod" and "data", the first major (the block of a dim sharded
+    over ("pod", "data") that it holds). ``coords`` overrides the mesh's."""
+    ax = mesh_axes(mesh)
+    coords = mesh_coords(mesh) if coords is None else coords
+    i = 0
+    for a in ax.data:
+        i = i * ax.size(a) + coords[a]
+    return i
+
+
+@dataclasses.dataclass(frozen=True)
+class HeadShard:
+    """The attention heads of one model rank. ``q`` is the range of global
+    q heads it holds (``wq``'s column block of H / TP heads). ``kv`` lists
+    the global kv heads its flash call reads, in the order the call takes
+    them: with ``kv_sharded`` they are the rank's own K / TP heads (``wk`` /
+    ``wv`` sharded over "model"); else ``wk`` / ``wv`` are replicated and
+    ``kv`` is the slice the local q heads read, so that the kernel's group
+    mapping ``h // (H_loc / K_loc)`` holds, or, where no slice does (a
+    group split unevenly between ranks), one kv head per local q head."""
+
+    q: Tuple[int, int]
+    kv: Tuple[int, ...]
+    kv_sharded: bool
+
+    @property
+    def kv_contiguous(self) -> bool:
+        return self.kv == tuple(range(self.kv[0], self.kv[0] + len(self.kv)))
+
+
+def head_shard(mesh, num_heads: int, num_kv_heads: int) -> HeadShard:
+    """This model rank's :class:`HeadShard` for H = ``num_heads`` q heads
+    and K = ``num_kv_heads`` kv heads (the specs' rule: q heads over
+    "model", kv heads over "model" only when K divides; H a multiple of
+    the TP width, as ``models/api.py: runtime_config`` pads it)."""
+    tp, H, K = model_size(mesh), num_heads, num_kv_heads
+    if H % tp:
+        raise ValueError(f"{H} q heads do not divide over a model axis of {tp}: "
+                         "pad them (models/api.py: runtime_config)")
+    h_loc, group = H // tp, H // K
+    q_lo = shard_start(mesh, h_loc)
+    if K % tp == 0:
+        k_lo = shard_start(mesh, K // tp)
+        return HeadShard((q_lo, q_lo + h_loc), tuple(range(k_lo, k_lo + K // tp)), True)
+    read = tuple((q_lo + i) // group for i in range(h_loc))
+    if h_loc % group == 0 or group % h_loc == 0:
+        read = tuple(sorted(set(read)))
+    return HeadShard((q_lo, q_lo + h_loc), read, False)
+
+
 def local_shard(t, spec: P, mesh, coords: Optional[Dict[str, int]] = None):
     """This rank's slice of the global tensor ``t`` under ``spec`` (a view):
     along each sharded dim, block ``i`` of ``n`` equal blocks, where ``n``
@@ -228,22 +291,49 @@ def local_shard(t, spec: P, mesh, coords: Optional[Dict[str, int]] = None):
     coordinates (an abstract mesh has none)."""
     if any(e is not None for e in getattr(spec, "lead", ())):
         raise ValueError(f"{spec!r} splits a layer list: cut it at the list, not the tensor")
-    ax = mesh_axes(mesh)
     coords = mesh_coords(mesh) if coords is None else coords
-    for d, entry in enumerate(spec):
-        names = _names(entry)
-        if not names:
-            continue
+    for d, sl in enumerate(shard_slices(spec, t.shape, mesh_axes(mesh), coords)):
+        if sl.stop - sl.start != t.shape[d]:
+            t = t.narrow(d, sl.start, sl.stop - sl.start)
+    return t
+
+
+def shard_slices(spec: P, shape, ax: MeshAxes, coords: Dict[str, int]) -> Tuple[slice, ...]:
+    """Per dim of a global tensor of ``shape``, the slice of it that the
+    rank at ``coords`` holds under ``spec`` (:func:`local_shard`'s rule)."""
+    out = []
+    for d, size in enumerate(shape):
+        names = _names(spec[d]) if d < len(spec) else ()
         n, i = 1, 0
         for a in names:
             i = i * ax.size(a) + coords[a]
             n *= ax.size(a)
-        size = t.shape[d]
         if size % n:
-            raise ValueError(f"dim {d} of size {size} does not divide over {entry!r}")
-        t = t.narrow(d, i * (size // n), size // n)
-    return t
+            raise ValueError(f"dim {d} of size {size} does not divide over {spec[d]!r}")
+        out.append(slice(i * (size // n), (i + 1) * (size // n)))
+    return tuple(out)
 
 
 def tree_local_shards(tree, spec_tree, mesh, coords=None) -> Any:
     return tree_map_specs(lambda s, t: local_shard(t, s, mesh, coords), spec_tree, tree)
+
+
+def spec_leaves(spec_tree, path: tuple = ()) -> list:
+    """(path, spec) of every spec of a tree, in the order ``tree_leaves``
+    visits the tree it describes (dicts in sorted key order, then lists in
+    order); a path holds the dict keys and list indices."""
+    if is_spec(spec_tree):
+        return [(path, spec_tree)]
+    if isinstance(spec_tree, dict):
+        return [x for k in sorted(spec_tree) for x in spec_leaves(spec_tree[k], path + (k,))]
+    return [x for i, v in enumerate(spec_tree) for x in spec_leaves(v, path + (i,))]
+
+
+def data_dims(spec: P, ax: MeshAxes) -> Tuple[int, ...]:
+    """The tensor dims ``spec`` shards over a data axis ("pod" or "data")."""
+    return tuple(d for d, e in enumerate(spec) if any(a in ax.data for a in _names(e)))
+
+
+def spec_axes(spec: P) -> Tuple[str, ...]:
+    """Every mesh axis a spec's tensor dims name (``lead`` aside)."""
+    return tuple(a for e in spec for a in _names(e))

@@ -70,6 +70,10 @@ class TrainSupervisor:
       reads the latest step (the reference's restore can race it, ROADMAP
       Queue 3); a preemption request saves at the next step boundary, waits
       for the write and stops.
+    * ranks of a partitioned step each checkpoint into a directory of their
+      own (``ckpt``) and restore from it; ``agree_step(latest)`` maps this
+      rank's latest step to the one every rank restores (``launch/train.py``:
+      the least over the ranks, None if any has none).
     """
 
     def __init__(
@@ -82,6 +86,7 @@ class TrainSupervisor:
         max_restarts: int = 5,
         nan_policy: str = "restore",  # "restore" | "skip" | "raise"
         preemption: Optional[PreemptionHandler] = None,
+        agree_step: Optional[Callable[[Optional[int]], Optional[int]]] = None,
     ):
         if nan_policy not in ("restore", "skip", "raise"):
             raise ValueError(f"nan_policy {nan_policy!r}: restore, skip or raise")
@@ -92,19 +97,27 @@ class TrainSupervisor:
         self.max_restarts = max_restarts
         self.nan_policy = nan_policy
         self.preemption = preemption or PreemptionHandler()
+        self.agree_step = agree_step
 
-    def _restore(self, state, report: SupervisorReport):
+    def _latest(self) -> Optional[int]:
+        """The step to restore: the latest checkpoint, once a save in flight
+        has landed; through ``agree_step``, the step every rank restores."""
+        self.ckpt.wait()
+        step = self.ckpt.latest_step()
+        return step if self.agree_step is None else self.agree_step(step)
+
+    def _restore(self, state, report: SupervisorReport, step: int):
         t0 = time.perf_counter()
-        state, step = self.ckpt.restore(state)
+        state, step = self.ckpt.restore(state, step)
         report.restore_ms.append((time.perf_counter() - t0) * 1e3)
         return state, step
 
     def run(self, state, total_steps: int) -> tuple:
         report = SupervisorReport()
         step = 0
-        self.ckpt.wait()
-        if self.ckpt.latest_step() is not None:  # resume from a checkpoint
-            state, step = self._restore(state, report)
+        latest = self._latest()
+        if latest is not None:  # resume from a checkpoint
+            state, step = self._restore(state, report, latest)
         stream = self.stream_factory(step)
         restarts = 0
         while step < total_steps:
@@ -142,12 +155,12 @@ class TrainSupervisor:
                 report.causes.append((step, type(e).__name__))
                 if restarts > self.max_restarts:
                     raise RuntimeError(f"exceeded max_restarts={self.max_restarts}") from e
-                self.ckpt.wait()  # a save in flight decides whether there is a checkpoint
-                if self.ckpt.latest_step() is None:
+                latest = self._latest()  # a save in flight decides whether there is one
+                if latest is None:
                     step = 0  # no checkpoint yet: restart from scratch
                     stream = self.stream_factory(0)
                     continue
-                state, step = self._restore(state, report)
+                state, step = self._restore(state, report, latest)
                 stream = self.stream_factory(step)
         self.ckpt.wait()
         return state, report

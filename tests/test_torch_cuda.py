@@ -1674,3 +1674,71 @@ def test_cuda_full_table_step_through_a_1x1_nccl_mesh(cuda):
     cpu = run("cpu", None)
     torch.testing.assert_close(got[0], cpu[0], rtol=1e-5, atol=1e-6)
     torch.testing.assert_close(got[1], cpu[1], rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,fsdp", [("mixtral-8x7b", True), ("chatglm3-6b", False)],
+                         ids=["mixtral-fsdp", "chatglm3"])
+def test_cuda_lm_mesh_1x1_is_the_one_card_run(cuda, monkeypatch, tmp_path, arch, fsdp):
+    """``chip_smoke.py`` phase 24 (1) at the smoke config: ``train_lm --mesh
+    1,1`` on the card (NCCL at world 1, started and torn down by the
+    launcher) gives every step's loss and grad norm and the final params
+    and AdamW state bitwise equal to the one-card run from the same seed;
+    per step 2L ``flash_attention`` and L ``flash_attention_bwd`` launches
+    and no other kernel."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch import train
+    from repro_torch.optim.optimizers import tree_leaves
+
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    cfg = dataclasses.replace(get_smoke_config(arch), fsdp=fsdp)
+    steps, out = 3, []
+    for mesh in (None, "1,1"):
+        args = train.build_parser().parse_args(
+            ["--arch", arch, "--smoke", "--steps", str(steps), "--batch", "2", "--seq-len",
+             "64", "--ckpt-every", "100", "--ckpt-dir", str(tmp_path / str(mesh))]
+            + (["--mesh", mesh] if mesh else []))
+        tops.reset_launch_counts()
+        res = train.train_lm(args, cfg=cfg)
+        torch.cuda.synchronize()
+        out.append((res, tops.launch_counts()))
+        assert not dist.is_initialized()
+    (one, c1), (meshed, c2) = out
+    L = cfg.num_layers
+    assert c2 == c1 and c2["flash_attention"] == 2 * L * steps
+    assert c2["flash_attention_bwd"] == L * steps and sum(c2.values()) == 3 * L * steps
+    assert meshed["params"]["embed"].device.type == "cuda"
+    assert one["losses"] == meshed["losses"] and one["grad_norms"] == meshed["grad_norms"]
+    a, b = (tree_leaves((r["params"], r["opt_state"])) for r in (one, meshed))
+    assert len(a) == len(b) and all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,H,K,hd,window", [(1, 8192, 4, 1, 128, 4096),
+                                               (4, 4096, 8, 1, 128, None)],
+                         ids=["mixtral-model-8", "chatglm3-model-4"])
+def test_cuda_flash_pair_at_one_tensor_parallel_rank(cuda, B, S, H, K, hd, window):
+    """The flash forward (with ``lse``) and backward at the operands one
+    rank of a model axis gives them (``chip_smoke.py`` phase 24 (2)):
+    mixtral-8x7b's 32/8 heads at model 8 (4/1), chatglm3-6b's 32/2 at
+    model 4 (8 q heads reading the one kv head of their group), bf16,
+    causal, against the plain versions within the limits of the other
+    flash tests."""
+    q, k, v, do = _bwd_operands(torch.bfloat16, cuda, B, S, S, H, K, hd, S + H)
+    lse = torch.empty((B, H, S), dtype=torch.float32, device=cuda)
+    o = tfa.flash_attention(q, k, v, True, window, 0, lse=lse)
+    torch.cuda.synchronize()
+    _assert_flash_close(o, tref.flash_attention_ref(q, k, v, causal=True, window=window),
+                        torch.bfloat16)
+    assert (lse - tref.flash_attention_lse_ref(q, k, True, window)).abs().max().item() \
+        <= _LSE_ATOL[torch.bfloat16]
+    got = tfa.flash_attention_bwd(q, k, v, o, lse, do, True, window)
+    want = tref.flash_attention_bwd_ref(q, k, v, o, lse, do, True, window)
+    torch.cuda.synchronize()
+    _assert_bwd_close(got, want, torch.bfloat16)
+    assert tops.launch_counts()["flash_attention"] == 1
+    assert tops.launch_counts()["flash_attention_bwd"] == 1

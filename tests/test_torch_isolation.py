@@ -278,26 +278,27 @@ def test_unknown_arch_and_missing_mode():
 
 
 def _lm_training_message(capsys):
-    """LM training is ported for every family (items 18 and 20) and its
-    specs (item 19); running it partitioned over a mesh waits for item
-    21."""
+    """LM training is ported for every family (items 18 and 20), its specs
+    (item 19) and, for the transformer families, its partitioned step (item
+    21); the hybrid and ssm families over a mesh wait for item 22."""
     from repro_torch.launch import steps
 
     return steps.__doc__
 
 
 def _supervise_message(capsys):
-    """The supervised LM step is ported (items 18 and 20), the ZeRO-1 specs
-    of its AdamW state too (item 19); updating the state sharded across a
-    mesh waits for item 21."""
+    """The supervised LM step is ported (items 18 and 20), and its ZeRO-1
+    state updates sharded over a mesh (item 21); the split of a layer list
+    over two stacked dims, which the hybrid family's groups would need,
+    waits for item 22."""
     from repro_torch.optim import optimizers
 
     return optimizers.__doc__
 
 
 @pytest.mark.parametrize("message,item", [
-    (_lm_training_message, 21),  # the LM train step partitioned over a mesh
-    (_supervise_message, 21),  # the supervised step's ZeRO-1 state, sharded
+    (_lm_training_message, 22),  # the hybrid and ssm train steps over a mesh
+    (_supervise_message, 22),  # ZeRO-1 of a layer list split over two stacked dims
 ], ids=["lm-training", "supervise"])
 def test_not_ported_messages_name_their_roadmap_item(capsys, message, item):
     """What is not ported yet says where ROADMAP.md queues it."""
@@ -372,3 +373,48 @@ def test_make_host_mesh_raises_without_a_card_instead_of_choosing_gloo(monkeypat
     with pytest.raises(ValueError, match="no process-group backend"):
         make_host_mesh(1, 1, device="xla")
     assert not dist.is_initialized()
+
+
+def test_lm_mesh_launcher_defaults_to_cuda_and_raises_without_a_card(monkeypatch):
+    """``train_lm --mesh`` runs on the card by default (NCCL); without a card
+    it raises before it starts a process group, instead of taking gloo."""
+    import torch.distributed as dist
+
+    args = train.build_parser().parse_args(["--arch", "mixtral-8x7b", "--mesh", "2,4"])
+    assert args.device == "cuda" and args.mesh == "2,4"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for mesh in ("1,1", "2,4", "2,2,2"):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            train.main(["--arch", "mixtral-8x7b", "--smoke", "--steps", "1", "--mesh", mesh])
+    assert not dist.is_initialized()
+
+
+@pytest.mark.parametrize("argv", [
+    ["--arch", "mixtral-8x7b", "--mesh", "2"],
+    ["--arch", "mixtral-8x7b", "--mesh", "2,x"],
+    ["--arch", "mixtral-8x7b", "--mesh", "0,4"],
+    ["--arch", "dlrm-scratchpipe", "--mesh", "1,1"],
+], ids=["one-size", "not-a-number", "zero", "dlrm"])
+def test_lm_mesh_flag_is_checked(argv):
+    with pytest.raises(SystemExit):
+        train.main(argv + ["--device", "cpu", "--smoke", "--steps", "1"])
+
+
+def test_cuda_mesh_never_falls_back_to_gloo(monkeypatch):
+    """With a gloo group running, a CUDA mesh (``make_host_mesh`` and the
+    launcher's ``lm_mesh``) raises: nothing falls back from NCCL to gloo."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_host_mesh
+
+    make_host_mesh(1, 1, device="cpu")
+    try:
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+        with pytest.raises(RuntimeError, match="runs gloo"):
+            make_host_mesh(1, 1, device="cuda")
+        with pytest.raises(RuntimeError, match="runs gloo"):
+            train.lm_mesh((1, 1), torch.device("cuda", 0))
+        with pytest.raises(RuntimeError, match="runs gloo"):
+            make_host_mesh(1, 1, device="cuda", pod=1)
+    finally:
+        dist.destroy_process_group()
