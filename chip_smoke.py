@@ -432,6 +432,30 @@ Phases, in order; any failure raises and the script exits non-zero:
                their plain versions within phase 20's limits, each timed
                beside its bound and SDPA / SDPA's backward. Prints an
                ``lm mesh:`` line.
+ 25. lm mesh ssm — the hybrid and ssm LMs' partitioned train step, run
+               last: (1) phase 21's zamba2-1.2b and mamba2-2.7b runs again
+               (full width and depth, bf16, remat, 4 x 4096, the same seed,
+               batches and lr) through ``train_lm --mesh 1,1`` (NCCL at
+               world 1) for their first 3 steps, the plain versions
+               raising: per step phase 21's launches (2 ``ssd_chunk_scan``
+               + 1 ``ssd_chunk_scan_bwd`` per mamba layer, 2
+               ``flash_attention`` + 1 ``flash_attention_bwd`` per
+               shared-block application), no other kernel; each step's
+               loss and grad norm and the params and AdamW state after
+               step 3 (the SHA-256 phase 21 takes after its step 3, inside
+               that step, its time taken out of the step's) bitwise equal
+               to phase 21's; the dry run's bytes at (1, 1) equal to those
+               held, the rise of ``memory_allocated()`` before step 1
+               within 1% of them; ms/step (steps 2-3) beside phase 21's,
+               peak GB and the collectives a step. (2) at one
+               tensor-parallel rank's operands, bf16, 4 x 4096: the SSD
+               forward and backward for mamba2-2.7b at model 8 (10 heads of
+               64, ds 128; row 25a) and zamba2-1.2b at model 4 (16 heads of
+               64, ds 64; row 25b), and the flash pair at zamba2's shared
+               block at model 4 (8/8 heads of 64, causal; row 25c), each
+               against its plain version within phase 21's limits and
+               timed beside its bound, its plain version and SDPA's (none
+               for the SSD scan). Prints an ``lm mesh ssm:`` line.
 
 The traces go to temporary directories removed at exit. The sweep of
 phase 3 covers fp32 fills of D = 5,120 (phase 22's rows) and the fp16
@@ -448,7 +472,9 @@ their ``details``, and so do ``fill``, ``flash_attention`` and
 ``flash_attention_bwd`` at phase 22's operands (``lm_cached_embedding``;
 the backward's row under ``shapes``) and at phase 24's per-rank operands
 (``lm_mesh_per_rank``; the backward's rows under ``shapes``), with phase
-24's run among their launches; ``gather_reduce_q`` and the fp16
+24's run among their launches; ``ssd_chunk_scan`` and
+``ssd_chunk_scan_bwd`` carry phase 25's per-rank rows the same way (and
+the flash pair its 25c row), with phase 25's runs among their launches; ``gather_reduce_q`` and the fp16
 gather and fp16/int8 fills their times at phase 13's operands under
 ``serve``), the nvidia-smi line and ``{"ok": true, "device": {...}}``.
 """
@@ -4080,7 +4106,7 @@ TRAIN_PLAIN = FLASH_PLAIN + ("ssd_chunk_scan_ref", "ssd_chunk_scan_bwd_ref")
 
 def lm_train_run(torch, mods, cfg, arch, batch, seq, steps, ckpt_dir, plain=False,
                  step_hook=None, capture=None, ckpt_every=1000, smoke=False, trace=None,
-                 traced=LM_TRAIN_TRACED, named=BWD_KERNELS, mesh=None):
+                 traced=LM_TRAIN_TRACED, named=BWD_KERNELS, mesh=None, digest_at=None):
     """One ``train_lm`` run on the card (``cfg`` the config it trains).
     Counts are reset just before; the launch counts are read at the start
     of every step and at the end. Without ``plain`` the plain attention and
@@ -4090,8 +4116,11 @@ def lm_train_run(torch, mods, cfg, arch, batch, seq, steps, ckpt_dir, plain=Fals
     ``ops.flash_attention`` and ``ops.ssd_chunk_scan`` are the plain
     versions, differentiated by torch's autograd. ``trace`` (a dict)
     receives a torch.profiler summary of step ``traced`` (0-based;
-    ``device_summary`` with ``named``). Returns (result, launch counts at
-    each step start and at the end)."""
+    ``device_summary`` with ``named``). ``digest_at`` (a step count) puts
+    in ``result["digest"]`` the ``state_sha256`` of the params and AdamW
+    state right after that step and the seconds it took (inside that
+    step's span on the host clock). Returns (result, launch counts at each
+    step start and at the end)."""
     train, ops, ref, fa, ssd = mods["train"], mods["ops"], mods["ref"], mods["fa"], mods["ssd"]
     argv = ["--arch", arch, "--batch", str(batch), "--seq-len", str(seq), "--steps",
             str(steps), "--seed", "0", "--lr", str(LM_TRAIN_LR), "--device", DEVICE,
@@ -4122,6 +4151,27 @@ def lm_train_run(torch, mods, cfg, arch, batch, seq, steps, ckpt_dir, plain=Fals
             step_hook()
 
     saved = {n: getattr(ref, n) for n in TRAIN_PLAIN}
+    steps_mod, digest = mods["steps"], {}
+    real_make = steps_mod.make_train_step
+
+    def make_digesting(*a, **k):  # the train step, hashing the state after step digest_at
+        step, opt = real_make(*a, **k)
+        calls = [0]
+
+        def counted(*args):
+            out = step(*args)
+            calls[0] += 1
+            if calls[0] == digest_at:
+                t0 = time.perf_counter()
+                digest.update(after_step=digest_at, sha256=state_sha256(
+                    torch, mods["tree_leaves"], out[:2]))
+                digest["seconds"] = time.perf_counter() - t0
+            return out
+
+        return counted, opt
+
+    if digest_at is not None:
+        steps_mod.make_train_step = make_digesting
     real_bwd, real_ops_fa = fa.flash_attention_bwd, ops.flash_attention
     real_ssd_bwd, real_ops_ssd = ssd.ssd_chunk_scan_bwd, ops.ssd_chunk_scan
 
@@ -4156,8 +4206,10 @@ def lm_train_run(torch, mods, cfg, arch, batch, seq, steps, ckpt_dir, plain=Fals
             setattr(ref, n, fn)
         fa.flash_attention_bwd, ops.flash_attention = real_bwd, real_ops_fa
         ssd.ssd_chunk_scan_bwd, ops.ssd_chunk_scan = real_ssd_bwd, real_ops_ssd
+        steps_mod.make_train_step = real_make
     snaps.append(ops.launch_counts())
     res["peak_memory_GB"] = torch.cuda.max_memory_allocated() / 1e9
+    res["digest"] = digest
     return res, snaps
 
 
@@ -4629,6 +4681,7 @@ def lm_train_phase(torch, mods, dev):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
+    check_state_sha256(torch, mods["tree_leaves"], dev)  # phases 24-25 compare its digests
     with tempfile.TemporaryDirectory(prefix="chip_smoke_lm_train_") as tmp:
         runs, counts_by_run, main_ops = lm_train_main(torch, mods, dev, tmp)
         parity = bwd_parity(torch, mods, dev)
@@ -4738,7 +4791,8 @@ def ssm_train_main(torch, mods, dev, tmp):
         cap, trace = {}, {}
         res, snaps = lm_train_run(torch, mods, cfg, arch, batch, seq, steps,
                                   os.path.join(tmp, label.replace(" ", "_")), capture=cap,
-                                  trace=trace, traced=SSM_TRAIN_TRACED, named=SSM_TRAIN_KERNELS)
+                                  trace=trace, traced=SSM_TRAIN_TRACED, named=SSM_TRAIN_KERNELS,
+                                  digest_at=SSM_MESH_STEPS)
         rep = res["report"]
         check(res["cfg"] == cfg and res["params"]["embed"].dtype == torch.bfloat16
               and res["params"]["embed"].device.type == dev.type,
@@ -4755,6 +4809,8 @@ def ssm_train_main(torch, mods, dev, tmp):
         check(not other, f"{label}: other kernels launched: {other}")
         starts = res["step_starts"]
         step_ms = [(b - a) * 1e3 for a, b in zip(starts, starts[1:])]
+        # the state's digest for phase 25 is taken inside step SSM_MESH_STEPS
+        step_ms[SSM_MESH_STEPS - 1] -= res["digest"]["seconds"] * 1e3
         ms = statistics.median(step_ms[SSM_TRAIN_TIMED_FROM:])
         passes = {p: sum(r["mean_ms"] for r in trace["named"] if p in r["name"])
                   for p in SSD_BWD_PASSES}
@@ -4772,7 +4828,7 @@ def ssm_train_main(torch, mods, dev, tmp):
             "loss_first": res["losses"][0], "loss_last": res["losses"][-1],
             "losses": res["losses"], "grad_norms": res["grad_norms"],
             "launches_per_step": per_step, "ssd_bwd_pass_ms": passes, "profile": trace,
-            "wall_s": time.perf_counter() - t0})
+            "state_sha256_after": res["digest"], "wall_s": time.perf_counter() - t0})
         counts_by_run[label] = snaps[-1]
         captured[arch] = cap
         del res
@@ -4845,20 +4901,18 @@ def ssd_bwd_close(torch, got, want, dtype, what) -> dict:
     return out
 
 
-def ssd_bwd_rows(torch, mods, captured, dev) -> list:
-    """(a) and the timing rows of ``ssd_chunk_scan_bwd`` at each main run's
-    first backward operands (bf16, as captured): two kernel calls bitwise
-    equal (deterministic), held to the plain version in bf16 and widened to
-    fp32, then timed (CUDA events, median, L2 flushed) beside its bound
-    (operations at the TF32 rate, as the forward's row 8, or bytes) and the
-    plain version's time; no single PyTorch call computes it."""
+def ssd_bwd_rows(torch, mods, operands, dev) -> list:
+    """(a) and the timing rows of ``ssd_chunk_scan_bwd`` at each labelled
+    set of bf16 operands (``operands``: label -> (x, dt, A, Bm, Cm, dy, dh,
+    Q)): two kernel calls bitwise equal (deterministic), held to the plain
+    version in bf16 and widened to fp32, then timed (CUDA events, median,
+    L2 flushed) beside its bound (operations at the TF32 rate, as the
+    forward's row 8, or bytes) and the plain version's time; no single
+    PyTorch call computes it."""
     ssd, ref = mods["ssd"], mods["ref"]
     flush = torch.empty(32 * 1024 * 1024, dtype=torch.float32, device=dev)
     out = []
-    for arch, cap in captured.items():
-        x, dt, A, Bm, Cm, dy, dh, Q = cap["ssd_bwd"]
-        label = (f"main path {arch} (its first backward call, the last mamba layer's, "
-                 f"{x.shape[0]} x {x.shape[1]})")
+    for label, (x, dt, A, Bm, Cm, dy, dh, Q) in operands.items():
         got = ssd.ssd_chunk_scan_bwd(x, dt, A, Bm, Cm, dy, dh, Q)
         again = ssd.ssd_chunk_scan_bwd(x, dt, A, Bm, Cm, dy, dh, Q)
         torch.cuda.synchronize()
@@ -4923,7 +4977,10 @@ def ssm_train_phase(torch, mods, dev):
                                         ssm_per_step(cfg), cut))
         drill = lm_train_drill(torch, mods, tmp, SSM_DRILL_ARCH)
     print("lm train checks: " + json.dumps({"fp32": fp32, "drill": drill}), flush=True)
-    rows = ssd_bwd_rows(torch, mods, captured, dev)
+    rows = ssd_bwd_rows(torch, mods, {
+        f"main path {arch} (its first backward call, the last mamba layer's, "
+        f"{cap['ssd_bwd'][0].shape[0]} x {cap['ssd_bwd'][0].shape[1]})": cap["ssd_bwd"]
+        for arch, cap in captured.items()}, dev)
     flush = torch.empty(32 * 1024 * 1024, dtype=torch.float32, device=dev)
     q, k, v, o, lse, do, causal, window, q_offset = captured["zamba2-1.2b"]["bwd"]
     fa_row = bwd_shape_row(torch, mods, f"7z zamba2-1.2b shared block (main path, "
@@ -5643,19 +5700,52 @@ MESH_LM_RANK_SHAPES = (("24a mixtral-8x7b, a rank of model 8", 1, 8192, 4, 1, 12
 
 def state_sha256(torch, tree_leaves, tree) -> str:
     """SHA-256 over the SHA-256 of every leaf's bytes, in ``tree_leaves``
-    order (bf16 as its 16-bit patterns); the leaves are copied to the host
-    and hashed on 8 threads."""
+    order (bf16 as its 16-bit patterns). 8 threads hash a leaf each; a
+    card's leaf goes through a pinned host buffer of the thread's own,
+    64 MB at a time (a pageable copy of the whole leaf ran at ~2 GB/s)."""
     import hashlib
+    import threading
+
+    chunk, local = 64 << 20, threading.local()
 
     def one(t):
-        t = t.detach()
-        if t.dtype == torch.bfloat16:
-            t = t.view(torch.int16)
-        return hashlib.sha256(t.cpu().contiguous().numpy().tobytes()).digest()
+        flat = t.detach().contiguous().reshape(-1).view(torch.uint8)
+        h = hashlib.sha256()
+        if not flat.is_cuda:
+            h.update(flat.numpy())
+            return h.digest()
+        if not hasattr(local, "buf"):
+            local.buf = torch.empty(chunk, dtype=torch.uint8, pin_memory=True)
+        for lo in range(0, flat.numel(), chunk):
+            n = min(chunk, flat.numel() - lo)
+            part = local.buf[:n]
+            part.copy_(flat[lo:lo + n])  # a synchronous copy into pinned memory
+            h.update(part.numpy())
+        return h.digest()
 
     with concurrent.futures.ThreadPoolExecutor(8) as ex:
         digests = list(ex.map(one, tree_leaves(tree)))
     return hashlib.sha256(b"".join(digests)).hexdigest()
+
+
+def check_state_sha256(torch, tree_leaves, dev) -> None:
+    """``state_sha256`` of leaves on the card (bf16 over several chunks, an
+    fp32 leaf, an int32 scalar, an empty leaf) equal to the digest of the
+    same leaves' bytes copied to the host whole."""
+    import hashlib
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    tree = {"a": torch.randn(70 << 20, generator=g, device=dev).to(torch.bfloat16),
+            "b": torch.randn(3, 5, generator=g, device=dev),
+            "t": torch.tensor(7, dtype=torch.int32, device=dev),
+            "z": torch.empty(0, device=dev)}
+    whole = []
+    for t in tree_leaves(tree):
+        t = t.view(torch.int16) if t.dtype == torch.bfloat16 else t
+        whole.append(hashlib.sha256(t.cpu().contiguous().numpy().tobytes()).digest())
+    want = hashlib.sha256(b"".join(whole)).hexdigest()
+    check(state_sha256(torch, tree_leaves, tree) == want,
+          "state_sha256 through pinned chunks differs from the whole leaves' digest")
 
 
 def flash_fwd_row(torch, mods, label, q, k, v, causal, window, flush) -> dict:
@@ -5801,6 +5891,155 @@ def lm_mesh_phase(torch, mods, dev, phase20) -> tuple:
     return summary, counts, fwd_rows, bwd_rows
 
 
+
+# --------------------------------------------------------------------------- #
+# 25. the hybrid and ssm LMs' partitioned train step, through a (1, 1) NCCL mesh
+# --------------------------------------------------------------------------- #
+#: (1) phase 21's two runs again, through ``train_lm --mesh 1,1``, for their
+#: first SSM_MESH_STEPS steps (phase 21 hashes its state after as many)
+SSM_MESH_STEPS = 3
+#: (2) the SSD pair at one tensor-parallel rank's operands: (row, B, S, the
+#: layer's heads, the model axis, hd, ng, ds, Q): mamba2-2.7b's 80 heads at
+#: model 8 (10 a rank), zamba2-1.2b's 64 at model 4 (16 a rank); each rank's
+#: heads read the one group
+SSM_MESH_RANK_SSD = (("25a mamba2-2.7b, a rank of model 8", 4, 4096, 80, 8, 64, 1, 128, 256),
+                     ("25b zamba2-1.2b, a rank of model 4", 4, 4096, 64, 4, 64, 1, 64, 256))
+#: and the flash pair at zamba2's shared block at model 4: 32/32 heads of 64
+SSM_MESH_RANK_FLASH = ("25c zamba2-1.2b shared block, a rank of model 4", 4, 4096, 8, 8, 64,
+                       True, None)
+
+
+def ssd_rank_operands(torch, dev, B, S, heads, tp, hd, ng, ds, seed):
+    """Rank 0's scan operands of a layer of ``heads`` heads at a model axis
+    of ``tp``: bf16 x and dy, the fp32 rest, as a mamba layer hands them to
+    its scan: dt a softplus, A the rank's slice of the layer's -linspace(1,
+    16) (``init_mamba_layer``), B and C silu outputs. No final-state
+    gradient: training drops the state."""
+    import torch.nn.functional as F
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    nh = heads // tp
+
+    def draw(*shape):
+        return torch.randn(shape, generator=g, device=dev)
+
+    x = draw(B, S, nh, hd).to(torch.bfloat16)
+    dt = F.softplus(draw(B, S, nh))
+    A = -torch.linspace(1.0, 16.0, heads, device=dev)[:nh]
+    Bm, Cm = F.silu(draw(B, S, ng, ds)), F.silu(draw(B, S, ng, ds))
+    return x, dt, A, Bm, Cm, draw(B, S, nh, hd).to(torch.bfloat16)
+
+
+def ssm_mesh_phase(torch, mods, dev, phase21) -> tuple:
+    """Phase 25: (1) phase 21's zamba2-1.2b and mamba2-2.7b runs through a
+    (1, 1) NCCL mesh for SSM_MESH_STEPS steps, bitwise equal to phase 21's
+    first steps and its state after them, with their launch counts, the dry
+    run's bytes at (1, 1) against those held, ms/step beside phase 21's,
+    peak GB and the collectives a step; (2) the SSD pair (25a, 25b) and the
+    flash pair (25c) at one tensor-parallel rank's operands against their
+    plain versions, timed. Returns (summary, launches by run, SSD forward
+    rows, SSD backward rows, flash forward row, flash backward row)."""
+    from repro_torch.optim import AdamW
+
+    t_phase = time.perf_counter()
+    steps_mod, dryrun, C = mods["steps"], mods["dryrun"], mods["collectives"]
+    one = mods["mesh"].AbstractMesh((1, 1), ("data", "model"))
+    ax = mods["sharding"].mesh_axes(one)
+    runs, counts = [], {}
+    for arch, batch, seq, _ in SSM_TRAIN_RUNS:
+        t0 = time.perf_counter()
+        want = next(r for r in phase21["runs"] if r["arch"] == arch)
+        cfg = mods["get_config"](arch)
+        label = f"lm mesh {arch} {batch}x{seq} (1, 1)"
+        torch.cuda.empty_cache()
+        before = torch.cuda.memory_allocated()
+        rise = []
+
+        def hook():  # the first step's start: params, AdamW state and one batch allocated
+            if not rise:
+                rise.append(torch.cuda.memory_allocated() - before)
+
+        C.reset_collective_records()
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_ssm_mesh_") as tmp:
+            res, snaps = lm_train_run(torch, mods, cfg, arch, batch, seq, SSM_MESH_STEPS, tmp,
+                                      step_hook=hook, mesh="1,1")
+        check(not mods["dist"].is_initialized(), "train_lm left its world-1 group running")
+        records = C.collective_records()
+        per_step = ssm_per_step(cfg)
+        got = {k: step_launches(snaps, k) for k in per_step}
+        check(got == {k: [n] * SSM_MESH_STEPS for k, n in per_step.items()},
+              f"{label}: launches a step {got}; expected {per_step}")
+        other = {k: v for k, v in snaps[-1].items() if k not in per_step and v}
+        check(not other, f"{label}: other kernels launched: {other}")
+        n = SSM_MESH_STEPS
+        check(res["losses"] == want["losses"][:n] and res["grad_norms"] == want["grad_norms"][:n],
+              f"{label}: losses {res['losses']} / grad norms {res['grad_norms']} differ from "
+              f"phase 21's first {n}: {want['losses'][:n]} / {want['grad_norms'][:n]}")
+        digest = state_sha256(torch, mods["tree_leaves"], (res["params"], res["opt_state"]))
+        check(digest == want["state_sha256_after"]["sha256"],
+              f"{label}: the params and AdamW state after step {n} (SHA-256 {digest}) differ "
+              f"from phase 21's ({want['state_sha256_after']})")
+        sp = steps_mod.train_step_specs(cfg, one)
+        abs_params, abs_state = steps_mod.abstract_state(cfg, one, AdamW())
+        dry = {"params": dryrun.tree_bytes_per_device(sp["params"], abs_params, ax),
+               "opt": dryrun.tree_bytes_per_device(sp["opt"], abs_state, ax)}
+        held = {k: sum(t.numel() * t.element_size() for t in mods["tree_leaves"](tree))
+                for k, tree in (("params", res["params"]), ("opt", res["opt_state"]))}
+        check(held == dry, f"{label}: the run holds {held} bytes, the dry run computes {dry}")
+        total = dry["params"] + dry["opt"]
+        check(abs(rise[0] - total) <= 0.01 * total,
+              f"{label}: memory_allocated rose {rise[0]} before step 1, the dry run's bytes "
+              f"{total}")
+        starts = res["step_starts"]
+        step_ms = [(b - a) * 1e3 for a, b in zip(starts, starts[1:])]
+        ms = statistics.median(step_ms[1:])  # the first step warms up
+        runs.append({
+            "run": label, "config": f"{arch} at full width and depth, {batch} x {seq}, lr "
+            f"{LM_TRAIN_LR}, seed 0, through train_lm --mesh 1,1 (NCCL)",
+            "steps": n, "ms_per_step": ms, "step_ms": step_ms,
+            "phase21_ms_per_step": want["ms_per_step"],
+            "phase21_step_ms": want["step_ms"][:n],
+            "peak_memory_GB": res["peak_memory_GB"],
+            "phase21_peak_memory_GB": want["peak_memory_GB"],
+            "bitwise_phase21": {"losses": True, "grad_norms": True, "state_sha256": digest},
+            "launches_per_step": per_step, "collectives": records,
+            "collectives_per_step": {k: {f: v[f] / n for f in v} for k, v in records.items()},
+            "dryrun_bytes_1x1": dry, "held_bytes": held,
+            "memory_allocated_rise_before_step1": rise[0],
+            "wall_s": time.perf_counter() - t0})
+        counts[label] = snaps[-1]
+        log(f"{label}: bitwise equal to phase 21's first {n} steps (losses, grad norms, state "
+            f"{digest[:12]}), {ms:.1f} ms/step (steps 2-{n}) against phase 21's "
+            f"{want['ms_per_step']:.1f}, peak {res['peak_memory_GB']:.1f} GB, {per_step} a "
+            f"step, collectives {records}, dry-run bytes = held "
+            f"({time.perf_counter() - t0:.1f}s)")
+        del res
+        gc.collect()
+        torch.cuda.empty_cache()
+    # (2) the SSD pair and the flash pair at one tensor-parallel rank's operands
+    flush = torch.empty(32 * 1024 * 1024, dtype=torch.float32, device=dev)
+    fwd_in, bwd_in = {}, {}
+    for row, B, S, heads, tp, hd, ng, ds, Q in SSM_MESH_RANK_SSD:
+        x, dt, A, Bm, Cm, dy = ssd_rank_operands(torch, dev, B, S, heads, tp, hd, ng, ds,
+                                                 seed=25)
+        fwd_in[row] = (x, dt, A, Bm, Cm, Q)
+        bwd_in[row] = (x, dt, A, Bm, Cm, dy, None, Q)
+    ssd_fwd = time_ssd_shapes(torch, mods, fwd_in, dev)
+    ssd_bwd = ssd_bwd_rows(torch, mods, bwd_in, dev)
+    del fwd_in, bwd_in
+    torch.cuda.empty_cache()
+    row, B, S, H, K, hd, causal, window = SSM_MESH_RANK_FLASH
+    q, k, v, do = bwd_operands(torch, dev, B, S, H, K, hd, torch.bfloat16, seed=25)
+    fa_fwd, o, lse = flash_fwd_row(torch, mods, row, q, k, v, causal, window, flush)
+    fa_bwd = bwd_shape_row(torch, mods, row, q, k, v, o, lse, do, causal, window, 0, flush)
+    del q, k, v, do, o, lse, flush
+    torch.cuda.empty_cache()
+    summary = {"runs": runs, "per_rank": {"ssd_forward": ssd_fwd, "ssd_backward": ssd_bwd,
+                                          "flash_forward": fa_fwd, "flash_backward": fa_bwd},
+               "card": card_line(), "seconds": time.perf_counter() - t_phase}
+    return summary, counts, ssd_fwd, ssd_bwd, fa_fwd, fa_bwd
+
+
 def main() -> int:
     import torch
 
@@ -5875,7 +6114,7 @@ def main() -> int:
 
 
 def run_all(torch, mods, dev, ckpt_dir, t_start) -> int:
-    """Phases 3-24, the kernels line, the card line and the last line."""
+    """Phases 3-25, the kernels line, the card line and the last line."""
     ops, ref, gr, gc, qz = (mods[k] for k in ("ops", "ref", "gr", "gc", "qz"))
     serve, serving_cache, plan_device = mods["serve"], mods["serving_cache"], mods["plan_device"]
     get_config = mods["get_config"]
@@ -6075,15 +6314,31 @@ def run_all(torch, mods, dev, ckpt_dir, t_start) -> int:
     torch.cuda.empty_cache()
     log(f"mamba2 and moe: done ({time.perf_counter() - t0:.1f}s)")
     lt_summary, lt_counts, bwd_entry = lm_train_phase(torch, mods, dev)
-    _, st_counts, ssd_bwd_entry, fa_zamba_row = ssm_train_phase(torch, mods, dev)
+    st_summary, st_counts, ssd_bwd_entry, fa_zamba_row = ssm_train_phase(torch, mods, dev)
     _, lmc_counts, lmc_fill, lmc_fwd, lmc_bwd = lm_cached_phase(torch, mods, dev)
     lm_mesh, lm_mesh_counts, lm_mesh_fwd, lm_mesh_bwd = lm_mesh_phase(torch, mods, dev,
                                                                       lt_summary)
     print("lm mesh: " + json.dumps(lm_mesh), flush=True)
     log(f"lm mesh: done ({lm_mesh['seconds']:.1f}s)")
+    ssm_mesh, ssm_mesh_counts, ssm_mesh_fwd, ssm_mesh_bwd, ssm_mesh_fa, ssm_mesh_fa_bwd = (
+        ssm_mesh_phase(torch, mods, dev, st_summary))
+    print("lm mesh ssm: " + json.dumps(ssm_mesh), flush=True)
+    log(f"lm mesh ssm: done ({ssm_mesh['seconds']:.1f}s)")
     lt_counts.update(st_counts)
     lt_counts.update(lmc_counts)
     lt_counts.update(lm_mesh_counts)
+    lt_counts.update(ssm_mesh_counts)
+    ssd_bwd_entry["launches_by_run"].update(
+        {r: c["ssd_chunk_scan_bwd"] for r, c in ssm_mesh_counts.items()})
+    ssd_bwd_entry["launches"] = sum(ssd_bwd_entry["launches_by_run"].values())
+    ssd_bwd_entry["max_abs_err"] = max(ssd_bwd_entry["max_abs_err"],
+                                       *(r["max_abs_err"] for r in ssm_mesh_bwd))
+    ssd_bwd_entry["details"]["shapes"] += ssm_mesh_bwd
+    ssd_bwd_entry["bf16_rel_err"].update(
+        {r["row"]: {n: e["rel_err"] for n, e in r["errors"]["bfloat16"].items()}
+         for r in ssm_mesh_bwd})
+    lm_mesh_fwd = lm_mesh_fwd + [ssm_mesh_fa]
+    lm_mesh_bwd = lm_mesh_bwd + [ssm_mesh_fa_bwd]
     bwd_entry["launches_by_run"].update(
         {r: c["flash_attention_bwd"] for r, c in lt_counts.items()
          if c["flash_attention_bwd"] and r not in bwd_entry["launches_by_run"]})
@@ -6167,8 +6422,10 @@ def run_all(torch, mods, dev, ckpt_dir, t_start) -> int:
             kernels.append(bwd_entry)
         else:
             kernels[-1]["max_abs_err"] = max(kernels[-1]["max_abs_err"],
-                                             *(f["max_abs_err"] for f in mamba2_shapes))
-            kernels[-1]["details"] = {**lm_details[name], "mamba2_shapes": mamba2_shapes}
+                                             *(f["max_abs_err"] for f in mamba2_shapes),
+                                             *(f["max_abs_err"] for f in ssm_mesh_fwd))
+            kernels[-1]["details"] = {**lm_details[name], "mamba2_shapes": mamba2_shapes,
+                                      "lm_mesh_per_rank": ssm_mesh_fwd}
             kernels.append(ssd_bwd_entry)
     log(f"total {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": kernels}), flush=True)

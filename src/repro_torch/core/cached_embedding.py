@@ -19,8 +19,8 @@ gathered and updated with torch indexing, as the reference uses
 loss reaches the flash kernel and its backward kernel in every layer.
 
 One card, so no mesh: the reference takes a mesh for its sharded loss,
-whose one-card form is the port's loss (``parallel/collectives.py``). The
-cached-embedding LM over a mesh is ROADMAP.md Queue 1 item 24.
+whose one-card form is the port's loss (``parallel/collectives.py``; the
+cached-embedding LM over a mesh is ROADMAP.md Queue 1 item 24).
 """
 from __future__ import annotations
 

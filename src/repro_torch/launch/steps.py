@@ -7,11 +7,12 @@ Port of ``repro/launch/steps.py``:
     backward kernel once per attention layer or shared-block application,
     the SSD kernel and its backward kernel once per mamba layer),
     ``clip_by_global_norm(1.0)`` and an ``AdamW`` step with fp32 master
-    weights, in the reference's order; and for the transformer families
-    partitioned over a mesh (``mesh=``): tensor-parallel attention, MLP and
-    experts, the vocab-sharded embedding and cross entropy, FSDP, the
-    ZeRO-1 AdamW state — the reference's GSPMD step, its collectives
-    explicit;
+    weights, in the reference's order; and for every family partitioned
+    over a mesh (``mesh=``): tensor-parallel attention, MLP and experts,
+    mamba layers over d_inner and the SSD heads, the hybrid's shared block,
+    the vocab-sharded embedding and cross entropy, FSDP, the ZeRO-1 AdamW
+    state (a layer list split over either of the hybrid's two stacked dims)
+    — the reference's GSPMD step, its collectives explicit;
   * the spec half: ``opt_state_specs`` (ZeRO-1: the AdamW state sharded
     over the data axes on its first free dim, always: the reference's
     ``cfg.zero1`` is True in every config),
@@ -21,8 +22,7 @@ Port of ``repro/launch/steps.py``:
     ``make_serve_step`` (the function and its specs).
 
 Prefill and decode run at one card (serving over a mesh is
-ROADMAP.md Queue 1 item 23); the hybrid and ssm families train at one card
-(their partitioned step is ROADMAP.md Queue 1 item 22). Not carried over:
+ROADMAP.md Queue 1 item 23). Not carried over:
 the ``embed_offload`` train step (the embedding rows as an activation
 input; no config sets ``embed_offload``).
 """
@@ -99,7 +99,7 @@ def make_train_step(cfg: ModelConfig, *, lr: float = 3e-4, mesh=None) -> Tuple[C
     anyway) before the optimizer runs.
 
     With a ``mesh`` (a ``DeviceMesh`` ("data", "model") or ("pod", "data",
-    "model"); the dense, moe, encoder and vlm families) the model is
+    "model"); every family) the model is
     ``cfg`` padded for the mesh (``models/api.py: runtime_config``), the
     params are this rank's shards under :func:`train_step_specs`' param
     specs, ``opt.init`` gives this rank's ZeRO-1 state, and ``batch`` is
@@ -114,7 +114,7 @@ def make_train_step(cfg: ModelConfig, *, lr: float = 3e-4, mesh=None) -> Tuple[C
         loss_fn = api.make_loss_fn(cfg)
         specs = None
     else:
-        loss_fn = api.make_loss_fn(cfg, mesh)  # raises for the hybrid and ssm families
+        loss_fn = api.make_loss_fn(cfg, mesh)
         sp = train_step_specs(cfg, mesh)
         opt = AdamW(zero1=Zero1(mesh, sp["params"], sp["opt"]["m"]))
         specs = spec_leaves(sp["params"])

@@ -9,14 +9,14 @@ transformers) train through :func:`train_lm`:
         [--smoke] [--steps N] [--seq-len S] [--lr 3e-4] [--seed 0] \
         [--ckpt-dir <dir>] [--ckpt-every 50]
 
-``--mesh D,M`` (or ``P,D,M``) trains the dense, encoder, vlm and MoE
-families partitioned over a (data, model) mesh on ``torch.distributed``
-(tensor-parallel attention, MLP and experts, the vocab-sharded embedding
-and cross entropy, FSDP where the config sets it, ZeRO-1 AdamW), one
-process a rank; on the CPU, 8 gloo ranks:
+``--mesh D,M`` (or ``P,D,M``) trains every LM family partitioned over a
+(data, model) mesh on ``torch.distributed`` (tensor-parallel attention,
+MLP and experts, mamba layers over d_inner and the SSD heads, the
+vocab-sharded embedding and cross entropy, FSDP where the config sets it,
+ZeRO-1 AdamW), one process a rank; on the CPU, 8 gloo ranks:
 
     python -m torch.distributed.run --nproc-per-node 8 -m repro_torch.launch.train \
-        --arch mixtral-8x7b --smoke --device cpu --mesh 2,4
+        --arch mixtral-8x7b --smoke --device cpu --mesh 2,4   # or zamba2-1.2b, ...
 
 random params from ``--seed`` (a ``torch.Generator`` on the device), the
 reference's synthetic batches (``seed + i`` for step i), the train step of
@@ -715,7 +715,7 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument(
         "--mesh", default=None,
-        help="LM archs of the transformer families: train partitioned over a "
+        help="LM archs: train partitioned over a "
         "D,M (data, model) or P,D,M (pod, data, model) mesh; the process group "
         "comes from torchrun's environment (NCCL on the card, gloo with "
         "--device cpu), else a world-1 group",

@@ -12,8 +12,8 @@ device: shapes and dtypes, no storage), :func:`cache_specs`,
 :func:`abstract_cache`, :func:`batch_specs` / :func:`batch_shardings` and
 :func:`abstract_batch`. Specs follow the port's trees (per-layer lists
 where the reference stacks; ``convert.specs_to_reference`` restacks them).
-The training loss of the transformer families also runs partitioned over
-a mesh (``make_loss_fn(cfg, mesh)``); prefill and decode run at one card
+The training loss of every family also runs partitioned over a mesh
+(``make_loss_fn(cfg, mesh)``); prefill and decode run at one card
 (serving over a mesh is ROADMAP.md Queue 1 item 23). ``synth_batch``
 draws from the same numpy generator in the same order as the reference,
 so its tokens, frames and patches equal the reference's.
@@ -83,12 +83,9 @@ def param_specs(cfg: ModelConfig, ax: MeshAxes):
     return family_module(rc).param_specs(rc, ax, vp)
 
 
-#: the families whose training the port carries (``make_loss_fn``)
+#: the families whose training the port carries (``make_loss_fn``), at one
+#: card and partitioned over a mesh
 TRAINABLE = ("hybrid", "ssm", "dense", "moe", "encoder", "vlm")
-
-
-#: the families whose training runs partitioned over a mesh
-MESH_TRAINABLE = ("dense", "moe", "encoder", "vlm")
 
 
 def make_loss_fn(cfg: ModelConfig, mesh=None):
@@ -97,8 +94,7 @@ def make_loss_fn(cfg: ModelConfig, mesh=None):
     family. With a ``mesh`` (a ``DeviceMesh``), the model is ``cfg``
     padded for it (:func:`runtime_config`), ``params`` this rank's shards
     under :func:`param_specs` and ``batch`` its data shard; the loss is the
-    whole batch's, on every rank (``transformer.loss_fn``). The hybrid and
-    ssm families run at one card only (ROADMAP.md Queue 1 item 22)."""
+    whole batch's, on every rank (``transformer.xent_loss``)."""
     if mesh is None:
         rc, _ = runtime_config(cfg)
         mod = family_module(rc)
@@ -107,10 +103,6 @@ def make_loss_fn(cfg: ModelConfig, mesh=None):
             return mod.loss_fn(params, rc, batch)
 
         return loss
-    if cfg.family not in MESH_TRAINABLE:
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} family runs at one card; over a mesh it waits "
-            "for ROADMAP.md Queue 1 item 22")
     ax = mesh_axes(mesh)
     rc, vp = runtime_config(cfg, ax)
     mod, specs = family_module(rc), family_module(rc).param_specs(rc, ax, vp)

@@ -3,7 +3,11 @@ attention block (weights reused at every application, zamba-style concat of
 the original embedding stream), plus a mamba tail. Serving and training.
 
 Port of ``repro/models/hybrid.py``, its specs per layer
-(:func:`param_specs`, :func:`cache_spec`); execution at one card. Structure
+(:func:`param_specs`, :func:`cache_spec`). Serving runs at one card;
+training also runs partitioned over a mesh (:func:`loss_fn` with
+``mesh=``: the vocab-sharded embedding and head, the mamba layers
+tensor-parallel over d_inner and the SSD heads, the shared block's
+attention and SwiGLU tensor-parallel). Structure
 (cfg.hybrid_*): G groups x m mamba layers, each group followed by one
 application of the shared block; then ``tail`` mamba layers. The reference
 stacks the layers of a group on leading axes and scans them; the port keeps
@@ -55,17 +59,21 @@ def _init_shared_block(gen: torch.Generator, cfg, device):
     }
 
 
-def _shared_forward(cfg, sp, x, x0, positions):
+def _shared_forward(cfg, sp, x, x0, positions, mesh=None):
     """One application of the shared attention block in training.
     concat([x, x0]) @ W is computed as x @ W_hi + x0 @ W_lo, as the
-    reference does (the same math, without the (B, S, 2D) concat)."""
+    reference does (the same math, without the (B, S, 2D) concat). With a
+    ``mesh``, ``sp`` is this rank's shards under :func:`_shared_block_specs`:
+    the attention and the SwiGLU run tensor-parallel as a transformer
+    layer's (``layers.attention_forward``, ``transformer.ffn``: the normed
+    input copied over "model", the row-parallel outputs summed there); the
+    concat projection, both norms and x0 are replicated."""
     D = cfg.d_model
     u = x @ sp["concat_proj"][:D] + x0 @ sp["concat_proj"][D:]
     h = L.rms_norm(u, sp["attn_norm"], cfg.norm_eps)
-    x = x + L.attention_forward(sp["attn"], h, positions, cfg)[0]
+    x = x + L.attention_forward(sp["attn"], h, positions, cfg, mesh)[0]
     h = L.rms_norm(x, sp["mlp_norm"], cfg.norm_eps)
-    m = sp["mlp"]
-    return x + L.swiglu(h, m["w_gate"], m["w_up"], m["w_down"])
+    return x + T.ffn(cfg, sp["mlp"], h, mesh)[0]
 
 
 def _shared_decode(cfg, sp, x, x0, pos, kc, vc):
@@ -137,28 +145,34 @@ def param_specs(cfg, ax: MeshAxes, vocab_pad: int):
     return sp
 
 
-def forward_hidden(params, cfg, batch):
-    """The training forward: the final-normed hidden states (B, S, D)."""
-    x0 = T.embed_tokens(params, cfg, batch["tokens"])
+def forward_hidden(params, cfg, batch, mesh=None, specs=None):
+    """The training forward: the final-normed hidden states (B, S, D). With
+    a ``mesh``, ``params`` are this rank's shards under ``specs``: the
+    lookup vocab-sharded, each mamba layer and each shared-block
+    application partitioned (``mamba2.train_stack``, :func:`_shared_forward`);
+    the one shared weight set's gradients add up over its G applications."""
+    x0 = T.embed_tokens(params, cfg, batch["tokens"], mesh, specs)
     B, S, _ = x0.shape
     positions = torch.arange(S, dtype=torch.int32, device=x0.device)[None].expand(B, S)
     shared = params["shared"]
     x = x0
     for gp in params["groups"]:
-        x = M.train_stack(cfg, gp, x)
-        x = checkpoint(_shared_forward, cfg, shared, x, x0, positions, use_reentrant=False)
+        x = M.train_stack(cfg, gp, x, mesh)
+        x = checkpoint(_shared_forward, cfg, shared, x, x0, positions, mesh,
+                       use_reentrant=False)
     if cfg.hybrid_tail_layers:
-        x = M.train_stack(cfg, params["tail"], x)
+        x = M.train_stack(cfg, params["tail"], x, mesh)
     return L.rms_norm(x, params["final_norm"], cfg.norm_eps)
 
 
-def loss_fn(params, cfg, batch):
+def loss_fn(params, cfg, batch, mesh=None, specs=None):
     """The training loss: the chunked cross entropy of the hidden states
     against ``batch["labels"]`` through ``lm_head`` (``loss_mask``
-    optional); an fp32 scalar."""
-    x = forward_hidden(params, cfg, batch)
-    return C.sharded_xent_loss(x, params["lm_head"].to(x.dtype), batch["labels"],
-                               batch.get("loss_mask"), true_vocab=cfg.vocab_size)
+    optional); an fp32 scalar. With a ``mesh``, ``lm_head`` is this rank's
+    vocab block and the loss the whole batch's, on every rank
+    (``transformer.xent_loss``)."""
+    x = forward_hidden(params, cfg, batch, mesh, specs)
+    return T.xent_loss(cfg, x, T.head_weight(params, cfg, mesh, specs), batch, mesh)
 
 
 # ---------------------------------------------------------------------------

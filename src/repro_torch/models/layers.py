@@ -49,6 +49,17 @@ def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
     return (xf * torch.rsqrt(var + eps)).to(x.dtype) * w.to(x.dtype)
 
 
+def sharded_rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float, n: int,
+                     mesh) -> torch.Tensor:
+    """:func:`rms_norm` over a last dim of ``n`` sharded over "model": x and
+    w are this rank's block. The sum of squares of the block goes through
+    ``collectives.psum`` (its gradient, each block's share, sums over the
+    ranks too) and is divided by ``n``: the mean over the whole dim."""
+    xf = x.float()
+    var = C.psum((xf * xf).sum(dim=-1, keepdim=True), mesh) / n
+    return (xf * torch.rsqrt(var + eps)).to(x.dtype) * w.to(x.dtype)
+
+
 def layer_norm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, eps: float) -> torch.Tensor:
     """fp32 mean and variance, then ``.to(x.dtype)``, then ``* w + b``."""
     xf = x.float()

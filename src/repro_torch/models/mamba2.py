@@ -2,8 +2,10 @@
 
 Port of ``repro/models/mamba2.py``; the sharding specs
 (:func:`mamba_layer_specs`, :func:`mamba_state_specs`) are the reference's
-for ONE layer (the reference's leading stacked dims, which no rule shards,
-become the port's lists). Within a chunk the recurrence is a masked "attention-like"
+per layer (its leading stacked dims become the port's lists; only ZeRO-1
+shards them, ``sharding.P.lead``). Training over a mesh cuts each layer's
+params by them: :func:`sharded_layer_forward` runs a rank's d_inner block
+and SSD heads. Within a chunk the recurrence is a masked "attention-like"
 quadratic form (C_i.B_j with segment decay); across chunks the (heads,
 headdim, dstate) state is carried. In the port :func:`ssd_scan` IS the
 kernel call (``kernels/ops.py: ssd_chunk_scan``: the hand-written CUDA
@@ -32,7 +34,9 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
-from repro_torch.parallel.sharding import MeshAxes, P, dp_axis
+from repro_torch.parallel import collectives as C
+from repro_torch.parallel.sharding import (MeshAxes, P, dp_axis, head_shard, model_size,
+                                           shard_start)
 
 
 def _softplus(x: torch.Tensor) -> torch.Tensor:
@@ -292,19 +296,93 @@ def prefill_stack(cfg, h, layers):
     return h, states
 
 
-def train_layer(cfg, p, x):
+def _local_groups(t: torch.Tensor, mesh, nh: int, ng: int) -> torch.Tensor:
+    """The B or C groups (dim 2 of ``t``, (B, S, ng, ds)) that this model
+    rank's heads read, in the order its scan call takes them: the rank's
+    own ng / TP groups where they divide, else the groups its heads fall
+    in, or one group per local head where a group is split unevenly
+    (``sharding.head_shard``'s rule for the kv heads of attention)."""
+    heads = head_shard(mesh, nh, ng)
+    if heads.kv_sharded or heads.kv_contiguous:
+        return t.narrow(2, heads.kv[0], len(heads.kv))
+    return t.index_select(2, torch.tensor(heads.kv, device=t.device))
+
+
+def sharded_layer_forward(cfg, p, x, mesh):
+    """One layer of the training forward on one rank of a mesh whose "model"
+    axis (TP > 1) divides d_inner; ``p`` is this rank's shards under
+    :func:`mamba_layer_specs`, x (B, S, D) is replicated over "model". The
+    rank runs its d_inner block through ``wz`` / ``wx`` and the depthwise
+    conv, and ``wo`` row-parallel (its partial product summed over
+    "model"); the normed input goes into the sharded projections through
+    ``copy_to_axis``. Where the heads divide too, the SSD scan runs at the
+    rank's heads and the groups they read; ``wB`` / ``wC`` and their convs
+    are replicated, so B and C go into the scan through ``copy_to_axis``
+    (their gradient, each rank's heads' share, sums there; the normed input
+    feeds them directly, so its B / C term is counted once). Where the
+    heads do not divide (the mixed layout), x's block is gathered, every
+    rank scans every head with the replicated dt, B and C, and the output
+    goes back to the rank's block through ``copy_to_axis``, so everything
+    before it gets the whole gradient. The gated RMSNorm normalizes over
+    the whole d_inner (:func:`layers.sharded_rms_norm`). Returns the
+    layer's output, replicated over "model"."""
+    B, S, _ = x.shape
+    tp = model_size(mesh)
+    nh, ng, ds, hd = cfg.ssm_nheads, cfg.ssm_ngroups, cfg.ssm_state, cfg.ssm_headdim
+    heads_split = nh % tp == 0
+    h = L.rms_norm(x, p["norm"], cfg.norm_eps)
+    hc = C.copy_to_axis(h, mesh)
+    z = hc @ p["wz"]
+    xi = hc @ p["wx"]
+    Bc = h @ p["wB"]
+    Cc = h @ p["wC"]
+    dt_raw = ((hc if heads_split else h) @ p["wdt"]).float()
+
+    xi = F.silu(causal_conv(xi, p["conv_wx"], p["conv_bx"]))
+    Bc = F.silu(causal_conv(Bc, p["conv_wB"], p["conv_bB"]))
+    Cc = F.silu(causal_conv(Cc, p["conv_wC"], p["conv_bC"]))
+
+    dt = _softplus(dt_raw + p["dt_bias"])
+    A = -torch.exp(p["A_log"])
+    Bm = Bc.reshape(B, S, ng, ds).float()
+    Cm = Cc.reshape(B, S, ng, ds).float()
+    din_loc = xi.shape[-1]
+    if heads_split:
+        Bm, Cm = (_local_groups(C.copy_to_axis(t, mesh), mesh, nh, ng) for t in (Bm, Cm))
+        xh = xi.reshape(B, S, nh // tp, hd)
+    else:
+        xh = C.gather_from_axis(xi, mesh, dim=-1).reshape(B, S, nh, hd)
+    y, _ = ssd_scan(xh, dt, A, Bm, Cm, cfg.ssm_chunk)
+    y = y + p["D_skip"][None, None, :, None].to(y.dtype) * xh
+    y = y.reshape(B, S, -1)
+    if not heads_split:
+        y = C.copy_to_axis(y, mesh).narrow(-1, shard_start(mesh, din_loc), din_loc)
+    y = L.sharded_rms_norm(y * F.silu(z), p["out_norm"], cfg.norm_eps, cfg.d_inner, mesh)
+    return x + C.sum_over_axis(y @ p["wo"], mesh)
+
+
+def train_layer(cfg, p, x, mesh=None):
     """One layer of the training forward: its output (the final SSM state
-    is dropped, as the reference's scan body drops it)."""
+    is dropped, as the reference's scan body drops it). With a ``mesh``
+    whose "model" axis (TP > 1) divides d_inner, ``p`` is this rank's shards
+    and the layer runs tensor-parallel (:func:`sharded_layer_forward`);
+    otherwise every tensor of the layer is whole on every rank (a TP of 1,
+    or a d_inner that does not divide: the specs replicate every leaf) and
+    the layer is the one-card layer, op for op."""
+    tp = model_size(mesh)
+    if tp > 1 and cfg.d_inner % tp == 0:
+        return sharded_layer_forward(cfg, p, x, mesh)
     return mamba_layer_forward(cfg, p, x)[0]
 
 
-def train_stack(cfg, layers, x):
+def train_stack(cfg, layers, x, mesh=None):
     """The layers in order over x (B, S, D), each recomputed in the backward
-    (non-reentrant ``torch.utils.checkpoint``: only its input is kept), as
-    the reference's ``jax.checkpoint`` of its scan body at its default
+    (non-reentrant ``torch.utils.checkpoint``: only its input is kept, and
+    a tensor-parallel layer runs its collectives again), as the
+    reference's ``jax.checkpoint`` of its scan body at its default
     ``remat``."""
     for lp in layers:
-        x = checkpoint(train_layer, cfg, lp, x, use_reentrant=False)
+        x = checkpoint(train_layer, cfg, lp, x, mesh, use_reentrant=False)
     return x
 
 

@@ -2,7 +2,10 @@
 head. Serving and training.
 
 Port of ``repro/models/ssm_lm.py``, its specs per layer
-(:func:`param_specs`, :func:`cache_spec`); execution at one card. The reference
+(:func:`param_specs`, :func:`cache_spec`). Serving runs at one card;
+training also runs partitioned over a mesh (:func:`loss_fn` with
+``mesh=``: the vocab-sharded embedding and tied head, each mamba layer
+tensor-parallel over d_inner and the SSD heads). The reference
 stacks the layers on a leading [L] axis and scans them; the port keeps a
 list of per-layer parameter dicts (``params["layers"][i]``) and a list of
 per-layer decode states (``cache["layers"][i]``, each ``{"conv_x",
@@ -50,20 +53,24 @@ def param_specs(cfg, ax: MeshAxes, vocab_pad: int):
     return sp
 
 
-def forward_hidden(params, cfg, batch):
-    """The training forward: the final-normed hidden states (B, S, D)."""
-    x = T.embed_tokens(params, cfg, batch["tokens"])
-    x = M.train_stack(cfg, params["layers"], x)
+def forward_hidden(params, cfg, batch, mesh=None, specs=None):
+    """The training forward: the final-normed hidden states (B, S, D). With
+    a ``mesh``, ``params`` are this rank's shards under ``specs`` and the
+    lookup and the layers run partitioned (``transformer.embed_tokens``,
+    ``mamba2.train_stack``)."""
+    x = T.embed_tokens(params, cfg, batch["tokens"], mesh, specs)
+    x = M.train_stack(cfg, params["layers"], x, mesh)
     return L.rms_norm(x, params["final_norm"], cfg.norm_eps)
 
 
-def loss_fn(params, cfg, batch):
+def loss_fn(params, cfg, batch, mesh=None, specs=None):
     """The training loss: the chunked cross entropy of the hidden states
     against ``batch["labels"]`` through the head (``embed.T`` when tied, as
-    mamba2-2.7b is; ``loss_mask`` optional); an fp32 scalar."""
-    x = forward_hidden(params, cfg, batch)
-    return C.sharded_xent_loss(x, T.head_weight(params, cfg).to(x.dtype), batch["labels"],
-                               batch.get("loss_mask"), true_vocab=cfg.vocab_size)
+    mamba2-2.7b is; ``loss_mask`` optional); an fp32 scalar. With a
+    ``mesh``, the head is this rank's vocab block and the loss the whole
+    batch's, on every rank (``transformer.xent_loss``)."""
+    x = forward_hidden(params, cfg, batch, mesh, specs)
+    return T.xent_loss(cfg, x, T.head_weight(params, cfg, mesh, specs), batch, mesh)
 
 
 def init_cache(cfg, batch_size: int, seq_len: int = 0, device="cpu"):

@@ -100,7 +100,7 @@ def _norm(cfg, x, n):
     return L.rms_norm(x, n, cfg.norm_eps)
 
 
-def _ffn(cfg, m, h, mesh=None):
+def ffn(cfg, m, h, mesh=None):
     """Returns (delta, aux loss): the MoE's fp32 scalar, 0.0 otherwise.
     With a ``mesh`` the MLP is tensor-parallel where its inner dim shards
     over "model": h goes in through ``copy_to_axis``, the column-parallel
@@ -124,7 +124,7 @@ def _layer(cfg, p, x, positions, mesh=None):
     a, k, v = L.attention_forward(p["attn"], _norm(cfg, x, p["attn_norm"]), positions, cfg,
                                   mesh)
     x = x + a
-    delta, aux = _ffn(cfg, p["mlp"], _norm(cfg, x, p["mlp_norm"]), mesh)
+    delta, aux = ffn(cfg, p["mlp"], _norm(cfg, x, p["mlp_norm"]), mesh)
     return x + delta, k, v, aux
 
 
@@ -152,7 +152,7 @@ def layer_decode(cfg, p, x, pos: int, kc, vc):
     place at ``pos``."""
     a, kc, vc = L.attention_decode(p["attn"], _norm(cfg, x, p["attn_norm"]), pos, kc, vc, cfg)
     x = x + a
-    delta, _ = _ffn(cfg, p["mlp"], _norm(cfg, x, p["mlp_norm"]))
+    delta, _ = ffn(cfg, p["mlp"], _norm(cfg, x, p["mlp_norm"]))
     return x + delta, kc, vc
 
 
@@ -310,36 +310,47 @@ def forward_hidden(params, cfg, batch, mesh=None, specs=None) -> Tuple[torch.Ten
     return _norm(cfg, x, params["final_norm"]), aux
 
 
+def xent_loss(cfg, x, head, batch, mesh=None, aux=None) -> torch.Tensor:
+    """The training loss of the final-normed hidden states x (B, S, D): the
+    chunked cross entropy through ``head`` (D, Vpad) against
+    ``batch["labels"]`` (``loss_mask`` optional), plus ``aux`` (an fp32
+    scalar, the MoE aux loss) where given; an fp32 scalar. Every LM
+    family's loss ends here.
+
+    With a ``mesh``, ``head`` is this rank's vocab block, x and ``batch``
+    its data shard, and the loss is that of the whole batch, the same on
+    every rank: this rank's addend — its masked cross-entropy sum over the
+    mask count of the whole batch, plus ``aux`` over the number of data
+    ranks (the reference ``pmean``s each MoE layer's over the data axes) —
+    summed over the data ranks by ``collectives.sum_over_data``, whose
+    backward is the identity, so each rank's gradients are those of its
+    own addend."""
+    labels, mask = batch["labels"], batch.get("loss_mask")
+    if mesh is None:
+        xent = C.sharded_xent_loss(x, head.to(x.dtype), labels, mask, true_vocab=cfg.vocab_size)
+        return xent if aux is None else xent + aux
+    count = (torch.sum(mask.float()) if mask is not None
+             else torch.full((), labels.numel(), dtype=torch.float32, device=x.device))
+    count = torch.clamp(C.sum_over_data(count.detach(), mesh), min=1.0)
+    xent = C.sharded_xent_loss(x, head.to(x.dtype), labels, mask, true_vocab=cfg.vocab_size,
+                               mesh=mesh, denominator=count)
+    if aux is not None:
+        xent = xent + aux / C.data_size(mesh)
+    return C.sum_over_data(xent, mesh)
+
+
 def loss_fn(params, cfg, batch, mesh=None, specs=None) -> torch.Tensor:
-    """The training loss: the chunked cross entropy of the hidden states
-    against ``batch["labels"]`` (``loss_mask`` optional; a vlm's image
-    positions carry no loss) plus the aux loss; an fp32 scalar.
+    """The training loss: :func:`xent_loss` of the hidden states (a vlm's
+    image positions carry no loss) plus the aux loss; an fp32 scalar.
 
     With a ``mesh`` (``DeviceMesh`` ("data", "model") or ("pod", "data",
     "model")), ``params`` are this rank's shards under ``specs``
     (:func:`param_specs` of the padded ``cfg``) and ``batch`` its data
-    shard. The loss is that of the whole batch, the same on every rank:
-    this rank's addend — its masked cross-entropy sum over the mask count
-    of the whole batch, plus its MoE aux losses over the number of data
-    ranks (the reference ``pmean``s each layer's over the data axes) — summed
-    over the data ranks by ``collectives.sum_over_data``, whose backward is
-    the identity, so each rank's gradients are those of its own addend."""
+    shard; the loss is the whole batch's, on every rank."""
     x, aux = forward_hidden(params, cfg, batch, mesh, specs)
     if cfg.frontend == "patches":  # image positions carry no LM loss
         x = x[:, batch["patches"].shape[1]:]
-    if mesh is None:
-        xent = C.sharded_xent_loss(
-            x, head_weight(params, cfg).to(x.dtype), batch["labels"], batch.get("loss_mask"),
-            true_vocab=cfg.vocab_size)
-        return xent + aux
-    labels, mask = batch["labels"], batch.get("loss_mask")
-    count = (torch.sum(mask.float()) if mask is not None
-             else torch.full((), labels.numel(), dtype=torch.float32, device=x.device))
-    count = torch.clamp(C.sum_over_data(count.detach(), mesh), min=1.0)
-    xent = C.sharded_xent_loss(
-        x, head_weight(params, cfg, mesh, specs).to(x.dtype), labels, mask,
-        true_vocab=cfg.vocab_size, mesh=mesh, denominator=count)
-    return C.sum_over_data(xent + aux / C.data_size(mesh), mesh)
+    return xent_loss(cfg, x, head_weight(params, cfg, mesh, specs), batch, mesh, aux)
 
 
 def init_cache(cfg, batch_size: int, seq_len: int, device="cpu", dtype=None):

@@ -21,9 +21,8 @@ counts once), and ``AdamW(zero1=Zero1(...))`` keeps the reference's ZeRO-1
 state (``launch/steps.py: opt_state_specs``, ``parallel/sharding.py:
 zero1_spec``): ``m``, ``v`` and ``master`` hold this data rank's slice,
 which it updates, then all-gathers the new params over the data axes.
-A ZeRO-1 split of a layer list over more than one stacked dim, as the
-hybrid family's ``groups`` would need, raises (the hybrid and ssm
-families' partitioned step is ROADMAP.md Queue 1 item 22).
+A layer list's state may split by layer, along either stacked dim of the
+hybrid family's ``groups[G][m]``.
 """
 from __future__ import annotations
 
@@ -131,8 +130,12 @@ class Zero1:
       * ``dim`` — the state is this data rank's block along tensor dim
         ``dim`` of the param shard;
       * ``lead`` — the state of a layer list is split over the data ranks
-        by layer (``P.lead``): layers ``[i L / n, (i + 1) L / n)`` on data
-        rank ``i``; a layer another rank holds has empty state leaves here.
+        by layer (``P.lead``) along one of its stacked dims (the hybrid's
+        ``groups[G][m]`` has two: ``zero1_spec`` picks the first that
+        divides): along a dim of L layers, ``[i L / n, (i + 1) L / n)`` on
+        data rank ``i``, so a rank owns whole groups, or whole layers of
+        every group; a layer another rank holds has empty state leaves
+        here.
 
     Data ranks are counted over ("pod", "data"), pod major, as a dim
     sharded over both is laid out. ``coords`` (a rank's coordinate by axis
@@ -144,15 +147,18 @@ class Zero1:
 
         ax = mesh_axes(mesh)
         self.mesh, self.n, self.index = mesh, ax.data_size, data_index(mesh, coords)
-        self.plan = []  # per leaf: (kind, dim, owned, the layer list's leaf key)
+        # per leaf: (kind, dim, owned, the key of the layers it is gathered with)
+        self.plan = []
         for (path, ps), (_, os_) in zip(spec_leaves(param_specs), spec_leaves(state_specs)):
-            if any(e is not None for e in os_.lead):
-                if len(os_.lead) != 1 or not isinstance(path[1], int):
-                    raise NotImplementedError(f"ZeRO-1 over {path}: a split of more than one "
-                                              "stacked dim (ROADMAP.md Queue 1 item 22)")
-                per = len(param_specs[path[0]]) // self.n
-                self.plan.append(("lead", None, path[1] // per == self.index,
-                                  path[:1] + path[2:]))
+            split = [k for k, e in enumerate(os_.lead) if e is not None]
+            if split:
+                k = split[0]  # path: (list name, its indices outermost first, leaf keys)
+                layers = param_specs[path[0]]
+                for i in path[1:1 + k]:
+                    layers = layers[i]
+                per = len(layers) // self.n
+                self.plan.append(("lead", None, path[1 + k] // per == self.index,
+                                  path[:1 + k] + path[2 + k:]))
                 continue
             split = [d for d in data_dims(os_, ax) if d not in data_dims(ps, ax)]
             self.plan.append(("dim", split[0], True, None) if split
@@ -255,7 +261,9 @@ class AdamW:
         from repro_torch.parallel import collectives as C
 
         z = self.zero1
-        stacks = {}  # a split layer list's new params by leaf, in layer order
+        # a split layer list's params and the ones this rank updated, by the
+        # key of the layers gathered together, in layer order
+        stacks = {}
         for p, g, m, v, p32, e in zip(tree_leaves(params), tree_leaves(grads),
                                       tree_leaves(state["m"]), tree_leaves(state["v"]),
                                       tree_leaves(state["master"]), z.plan):
@@ -265,15 +273,16 @@ class AdamW:
                 group[0].append(p)
                 if owned:
                     self._update(p32, g, m, v, b1t, b2t, lr)
-                    group[1].append(p32.to(p.dtype))
+                    p.copy_(p32)
+                    group[1].append(p)
                 continue
             self._update(p32, z.block(g, e), m, v, b1t, b2t, lr)
             if kind == "dim":
                 p.copy_(C.gather_over_data(p32.to(p.dtype), z.mesh, dim=dim))
             else:
                 p.copy_(p32)
-        for ps, news in stacks.values():
-            for p, new in zip(ps, C.gather_over_data(torch.stack(news), z.mesh).unbind(0)):
+        for ps, mine in stacks.values():  # one key's layers at a time
+            for p, new in zip(ps, C.gather_over_data(torch.stack(mine), z.mesh).unbind(0)):
                 p.copy_(new)
         return params, state
 

@@ -24,7 +24,10 @@ card, gloo ranks on the CPU), each rank holding its own shard:
   * ``ef_int8_psum`` — error-feedback int8 compression of the cross-pod hop;
   * ``psum_tree_hierarchical`` — one of the three syncs over a tree;
   * the partitioned LM step's pieces: ``sum_over_axis`` / ``copy_to_axis``
-    (tensor parallelism's all-reduce and its conjugate), ``fsdp_gather`` /
+    (tensor parallelism's all-reduce and its conjugate), ``psum`` (an
+    all-reduce both ways: a statistic of a sharded dim used per shard),
+    ``gather_from_axis`` (a sharded activation gathered into work every
+    rank repeats whole; the backward keeps the rank's block), ``fsdp_gather`` /
     ``gather_tree_over_data`` (a weight's data-sharded dim gathered, its
     gradient reduce-scattered back), ``sum_over_data`` (a rank's loss
     addend summed over the data ranks, identity backward) and
@@ -158,12 +161,43 @@ class _CopyToAxis(torch.autograd.Function):
         return all_reduce(g, ctx.mesh, ctx.axis), None, None
 
 
+class _GatherFromAxis(torch.autograd.Function):
+    """Forward: the ranks' blocks of ``axis`` concatenated along ``dim``;
+    backward: this rank's block of the gradient. For a sharded activation
+    gathered into work that every rank of the axis repeats whole, so that
+    each rank's gradient of the gathered tensor is already the whole one."""
+
+    @staticmethod
+    def forward(ctx, t, mesh, axis, dim):
+        ctx.mesh, ctx.axis, ctx.dim, ctx.n = mesh, axis, dim, t.shape[dim]
+        return all_gather(t, mesh, axis, dim=dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        lo = shard_start(ctx.mesh, ctx.n, ctx.axis)
+        return g.narrow(ctx.dim, lo, ctx.n), None, None, None
+
+
 def sum_over_axis(t: torch.Tensor, mesh, axis: str = "model") -> torch.Tensor:
     return _SumOverAxis.apply(t, mesh, axis)
 
 
 def copy_to_axis(t: torch.Tensor, mesh, axis: str = "model") -> torch.Tensor:
     return _CopyToAxis.apply(t, mesh, axis)
+
+
+def psum(t: torch.Tensor, mesh, axis: str = "model") -> torch.Tensor:
+    """The sum over the ranks of ``axis``, its backward a sum over them too:
+    for a statistic of a sharded dim (a sum of squares over a d_inner block)
+    that each rank then uses on its own block, so that each rank's gradient
+    of the sum is only its block's share. One all-reduce each way."""
+    return copy_to_axis(sum_over_axis(t, mesh, axis), mesh, axis)
+
+
+def gather_from_axis(t: torch.Tensor, mesh, axis: str = "model", dim: int = -1) -> torch.Tensor:
+    """The ranks' blocks of ``t`` along ``dim``, gathered over ``axis``; the
+    backward keeps this rank's block (:class:`_GatherFromAxis`)."""
+    return _GatherFromAxis.apply(t, mesh, axis, dim % t.dim())
 
 
 def _dp_axes(mesh) -> Tuple[str, ...]:

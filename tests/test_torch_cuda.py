@@ -1718,6 +1718,76 @@ def test_cuda_lm_mesh_1x1_is_the_one_card_run(cuda, monkeypatch, tmp_path, arch,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["zamba2-1.2b", "mamba2-2.7b"])
+def test_cuda_ssm_mesh_1x1_is_the_one_card_run(cuda, monkeypatch, tmp_path, arch):
+    """``chip_smoke.py`` phase 25 (1) at the smoke config: ``train_lm --mesh
+    1,1`` on the card (NCCL at world 1) gives every step's loss and grad
+    norm and the final params and AdamW state bitwise equal to the one-card
+    run from the same seed; per step 2 ``ssd_chunk_scan`` and 1
+    ``ssd_chunk_scan_bwd`` per mamba layer, 2 ``flash_attention`` and 1
+    ``flash_attention_bwd`` per shared-block application, and no other
+    kernel."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch import train
+    from repro_torch.optim.optimizers import tree_leaves
+
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    cfg = get_smoke_config(arch)
+    steps, out = 3, []
+    for mesh in (None, "1,1"):
+        args = train.build_parser().parse_args(
+            ["--arch", arch, "--smoke", "--steps", str(steps), "--batch", "2", "--seq-len",
+             "64", "--ckpt-every", "100", "--ckpt-dir", str(tmp_path / str(mesh))]
+            + (["--mesh", mesh] if mesh else []))
+        tops.reset_launch_counts()
+        res = train.train_lm(args, cfg=cfg)
+        torch.cuda.synchronize()
+        out.append((res, tops.launch_counts()))
+        assert not dist.is_initialized()
+    (one, c1), (meshed, c2) = out
+    if cfg.family == "hybrid":
+        n_mamba = cfg.hybrid_groups * cfg.hybrid_layers_per_group + cfg.hybrid_tail_layers
+        n_attn = cfg.hybrid_groups
+    else:
+        n_mamba, n_attn = cfg.num_layers, 0
+    want = {"ssd_chunk_scan": 2 * n_mamba, "ssd_chunk_scan_bwd": n_mamba,
+            "flash_attention": 2 * n_attn, "flash_attention_bwd": n_attn}
+    assert c2 == c1 and {k: v for k, v in c2.items() if v} == {
+        k: steps * n for k, n in want.items() if n}
+    assert meshed["params"]["embed"].device.type == "cuda"
+    assert one["losses"] == meshed["losses"] and one["grad_norms"] == meshed["grad_norms"]
+    a, b = (tree_leaves((r["params"], r["opt_state"])) for r in (one, meshed))
+    assert len(a) == len(b) and all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,nh,hd,ds", [(1, 4096, 10, 64, 128), (2, 2048, 16, 64, 64)],
+                         ids=["mamba2-model-8", "zamba2-model-4"])
+def test_cuda_ssd_pair_at_one_tensor_parallel_rank(cuda, B, S, nh, hd, ds):
+    """The SSD forward and backward at the operands one rank of a model axis
+    gives them (``chip_smoke.py`` phase 25 (2)): mamba2-2.7b's 80 heads at
+    model 8 (10 a rank, ds 128) and zamba2-1.2b's 64 at model 4 (16, ds 64),
+    one group, bf16, chunk 256 (10 and 16 heads a group: the kernels loop
+    over any number), against the plain versions within the limits of the
+    other SSD tests."""
+    x, dt, A, Bm, Cm, dy, _ = _ssd_operands(torch.bfloat16, cuda, B, S, 1, nh, hd, ds)
+    y, h = tops.ssd_chunk_scan(x, dt, A, Bm, Cm, 256)
+    y_ref, h_ref = tref.ssd_chunk_scan_ref(x, dt, A, Bm, Cm, 256)
+    torch.cuda.synchronize()
+    diff = (y.float() - y_ref.float()).abs()
+    assert bool((diff <= _BF16_ATOL + _BF16_RTOL * y_ref.float().abs()).all()), diff.max()
+    assert (h - h_ref).abs().max().item() <= 2e-4
+    got = tssd.ssd_chunk_scan_bwd(x, dt, A, Bm, Cm, dy, None, 256)
+    want = tref.ssd_chunk_scan_bwd_ref(x, dt, A, Bm, Cm, 256, dy, None)
+    torch.cuda.synchronize()
+    _assert_ssd_bwd_close(got, want, torch.bfloat16)
+    assert tops.launch_counts()["ssd_chunk_scan"] == 1
+    assert tops.launch_counts()["ssd_chunk_scan_bwd"] == 1
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("B,S,H,K,hd,window", [(1, 8192, 4, 1, 128, 4096),
                                                (4, 4096, 8, 1, 128, None)],
                          ids=["mixtral-model-8", "chatglm3-model-4"])

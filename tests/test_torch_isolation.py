@@ -279,26 +279,26 @@ def test_unknown_arch_and_missing_mode():
 
 def _lm_training_message(capsys):
     """LM training is ported for every family (items 18 and 20), its specs
-    (item 19) and, for the transformer families, its partitioned step (item
-    21); the hybrid and ssm families over a mesh wait for item 22."""
+    (item 19) and its partitioned step (items 21 and 22); serving over a
+    mesh waits for item 23."""
     from repro_torch.launch import steps
 
     return steps.__doc__
 
 
 def _supervise_message(capsys):
-    """The supervised LM step is ported (items 18 and 20), and its ZeRO-1
-    state updates sharded over a mesh (item 21); the split of a layer list
-    over two stacked dims, which the hybrid family's groups would need,
-    waits for item 22."""
-    from repro_torch.optim import optimizers
+    """The supervised LM step is ported (items 18 and 20), over a mesh too,
+    its ZeRO-1 state split along either stacked dim of a layer list (items
+    21 and 22); the cached-embedding LM, trained outside it, waits for item
+    24 over a mesh."""
+    from repro_torch.core import cached_embedding
 
-    return optimizers.__doc__
+    return cached_embedding.__doc__
 
 
 @pytest.mark.parametrize("message,item", [
-    (_lm_training_message, 22),  # the hybrid and ssm train steps over a mesh
-    (_supervise_message, 22),  # ZeRO-1 of a layer list split over two stacked dims
+    (_lm_training_message, 23),  # serving over a mesh
+    (_supervise_message, 24),  # the cached-embedding LM over a mesh
 ], ids=["lm-training", "supervise"])
 def test_not_ported_messages_name_their_roadmap_item(capsys, message, item):
     """What is not ported yet says where ROADMAP.md queues it."""

@@ -50,7 +50,8 @@ run's: every comparison is with the reference on the same mesh. Last, the
 launcher: ``train_lm --mesh 2,4`` on 8 gloo ranks, 4 steps, checkpoints
 every 2 steps and a failure at the 3rd step call, ends bitwise equal on
 every rank to an uninterrupted run; and a world-1 ``--mesh 1,1`` run is
-bitwise the run without a mesh.
+bitwise the run without a mesh, for these families and the hybrid and ssm
+ones (whose cells against the reference are ``tests/test_torch_mesh_ssm.py``'s).
 """
 import dataclasses
 import json
@@ -452,7 +453,7 @@ def test_launcher_mesh_drill_resumes_bitwise(tmp_path):
 
 
 @pytest.mark.parametrize("arch", ["chatglm3-6b", "mixtral-8x7b", "hubert-xlarge",
-                                  "phi-3-vision-4.2b"])
+                                  "phi-3-vision-4.2b", "zamba2-1.2b", "mamba2-2.7b"])
 def test_world_1_mesh_run_is_the_one_card_run(arch, tmp_path):
     """``--mesh 1,1`` (a world-1 gloo group the launcher starts and
     destroys) gives each step's loss and grad norm and the final params and
@@ -477,15 +478,3 @@ def test_world_1_mesh_run_is_the_one_card_run(arch, tmp_path):
     a, b = (tree_leaves((r["params"], r["opt_state"])) for r in out)
     assert len(a) == len(b) and all(torch.equal(x, y) for x, y in zip(a, b))
 
-
-def test_hybrid_and_ssm_families_refuse_a_mesh():
-    """Over a mesh the hybrid and ssm families raise, naming their ROADMAP
-    item; nothing falls back to one card."""
-    from repro_torch.configs import get_smoke_config
-    from repro_torch.launch import steps
-    from repro_torch.launch.mesh import AbstractMesh
-
-    for arch in ("zamba2-1.2b", "mamba2-2.7b"):
-        with pytest.raises(NotImplementedError, match=r"ROADMAP.md Queue 1 item 22"):
-            steps.make_train_step(get_smoke_config(arch),
-                                  mesh=AbstractMesh((2, 4), ("data", "model")))
