@@ -456,6 +456,30 @@ Phases, in order; any failure raises and the script exits non-zero:
                against its plain version within phase 21's limits and
                timed beside its bound, its plain version and SDPA's (none
                for the SSD scan). Prints an ``lm mesh ssm:`` line.
+ 26. lm serve mesh — serving over a mesh, run last: (1) zamba2-1.2b,
+               chatglm3-6b and mamba2-2.7b in full and mixtral-8x7b at 8 of
+               32 layers (phase 19's cut), bf16, 4 x 2048 and 16 greedy
+               tokens, each built once from seed 0 and served through
+               ``serve --mesh 1,1`` on a world-1 NCCL group and without a
+               mesh, the plain versions raising: the prefill logits
+               ``torch.equal``, the 16 tokens equal, the decode caches equal
+               by SHA-256; both serves launch one ``flash_attention`` per
+               attention layer or shared-block application and one
+               ``ssd_chunk_scan`` per mamba layer per prefill, none in
+               decode, no other kernel; params + cache bytes equal to the
+               dry run's at (1, 1), the rise of the allocator's requested
+               bytes within 1% of them (``memory_allocated()``'s beside it:
+               it counts a cached block handed out whole); the warm
+               prefill ms and decode ms/step of both serves side by side
+               and the collectives per prefill and per decode step. (2)
+               the serving forward kernels at one
+               tensor-parallel rank's prefill operands, bf16, 4 x 2048:
+               flash without ``lse`` at chatglm3-6b's at model 4 (8/1 heads
+               of 128, causal; row 26a) and the SSD scan at mamba2-2.7b's
+               at model 8 (10 heads of 64, ds 128; row 26b), each against
+               its plain version and timed beside its bound, its plain
+               version and SDPA's (none for the SSD scan). Prints an ``lm
+               serve mesh:`` line.
 
 The traces go to temporary directories removed at exit. The sweep of
 phase 3 covers fp32 fills of D = 5,120 (phase 22's rows) and the fp16
@@ -474,7 +498,10 @@ the backward's row under ``shapes``) and at phase 24's per-rank operands
 (``lm_mesh_per_rank``; the backward's rows under ``shapes``), with phase
 24's run among their launches; ``ssd_chunk_scan`` and
 ``ssd_chunk_scan_bwd`` carry phase 25's per-rank rows the same way (and
-the flash pair its 25c row), with phase 25's runs among their launches; ``gather_reduce_q`` and the fp16
+the flash pair its 25c row), with phase 25's runs among their launches;
+``flash_attention`` and ``ssd_chunk_scan`` carry phase 26's rows 26a and
+26b (``serve_mesh_per_rank``), with phase 26's serves among their
+launches; ``gather_reduce_q`` and the fp16
 gather and fp16/int8 fills their times at phase 13's operands under
 ``serve``), the nvidia-smi line and ``{"ok": true, "device": {...}}``.
 """
@@ -2130,9 +2157,12 @@ def time_q_kernels(torch, mods, captured, dev):
 LM_PLAIN_VERSIONS = PLAIN_VERSIONS + ("flash_attention_ref", "ssd_chunk_scan_ref")
 
 
-def lm_run(torch, mods, cfg=None, plain=False, argv=LM_ARGV, model="hybrid"):
-    """One ``run_lm`` of ``argv`` (``cfg`` overrides the arch's config;
-    ``model`` names the family module whose ``decode_step`` runs). With
+def lm_run(torch, mods, cfg=None, plain=False, argv=LM_ARGV, model="hybrid", params=None,
+           records=None):
+    """One ``run_lm`` of ``argv`` (``cfg`` overrides the arch's config,
+    ``params`` the drawn params; ``model`` names the family module whose
+    ``decode_step`` runs; ``records``, a list, receives the collectives
+    run before the first decode step). With
     ``plain=False`` the plain versions raise during the run and the first
     operands of each kernel are captured; with ``plain=True`` the launchers
     are swapped for the plain versions (run on the card). Returns (result,
@@ -2156,6 +2186,8 @@ def lm_run(torch, mods, cfg=None, plain=False, argv=LM_ARGV, model="hybrid"):
     def spy_decode(*a, **k):
         if not at_decode:
             at_decode.append(ops.launch_counts())
+            if records is not None:
+                records.append(mods["collectives"].collective_records())
         t = time.perf_counter()
         out = real["decode"](*a, **k)
         out[0].cpu()  # the step's token reaches the host, as the launcher reads it
@@ -2178,7 +2210,7 @@ def lm_run(torch, mods, cfg=None, plain=False, argv=LM_ARGV, model="hybrid"):
     try:
         ops.reset_launch_counts()
         res = mods["serve"].run_lm(mods["serve"].build_parser().parse_args(argv),
-                                   cfg=cfg)
+                                   cfg=cfg, params=params)
         torch.cuda.synchronize()
         counts = ops.launch_counts()
     finally:
@@ -3780,12 +3812,14 @@ def serve_run(torch, mods, arch, cfg, batch, prompt, plain=False):
                   model="ssm_lm" if cfg.family == "ssm" else "transformer")
 
 
-def warm_prefill_ms(torch, mods, res, batch_size, prompt) -> list:
+def warm_prefill_ms(torch, mods, res, batch_size, prompt, mesh=None) -> list:
+    """The host ms (synchronized) of two more prefills of ``res``'s config
+    and params, at one card or through ``mesh``."""
     api, cfg = mods["api"], res["cfg"]
     batch = res.get("batch") or api.synth_batch(
         cfg, mods["ShapeSpec"]("serve", prompt, batch_size, "prefill"), seed=0,
         device=DEVICE)
-    prefill, walls = api.make_prefill_fn(cfg), []
+    prefill, walls = api.make_prefill_fn(cfg, mesh), []
     with torch.inference_mode():
         for _ in range(2):
             torch.cuda.synchronize()
@@ -6040,6 +6074,176 @@ def ssm_mesh_phase(torch, mods, dev, phase21) -> tuple:
     return summary, counts, ssd_fwd, ssd_bwd, fa_fwd, fa_bwd
 
 
+# --------------------------------------------------------------------------- #
+# 26. serving every LM family through a (1, 1) NCCL mesh
+# --------------------------------------------------------------------------- #
+#: (arch, layers kept): zamba2-1.2b, chatglm3-6b and mamba2-2.7b in full,
+#: mixtral-8x7b at phase 19's 8 of 32 layers (the whole model, ~93 GB of
+#: bf16, does not fit the card); each at LM_BATCH x LM_PROMPT, LM_GEN tokens
+SERVE_MESH_RUNS = (("zamba2-1.2b", None), ("chatglm3-6b", None), ("mamba2-2.7b", None),
+                   ("mixtral-8x7b", 8))
+#: (2) the serving forward kernels at one tensor-parallel rank's prefill
+#: operands: flash without ``lse`` at chatglm3-6b's prefill at model 4
+#: (32/4 q heads reading the one kv head of their group), (row, B, S, H, K,
+#: hd, causal, window); the SSD scan at mamba2-2.7b's at model 8 (80/8
+#: heads, one group), (row, B, S, heads, tp, hd, ng, ds, Q)
+SERVE_MESH_FLASH = ("26a chatglm3-6b prefill, a rank of model 4", 4, 2048, 8, 1, 128, True,
+                    None)
+SERVE_MESH_SSD = ("26b mamba2-2.7b prefill, a rank of model 8", 4, 2048, 80, 8, 64, 1, 128,
+                  256)
+
+
+def requested_bytes(torch) -> int:
+    """The bytes the caching allocator's live blocks were requested with:
+    ``memory_allocated`` less what the allocator adds to a request (its
+    rounding, and a cached block handed out whole when the rest is too
+    small to split)."""
+    return torch.cuda.memory_stats()["requested_bytes.all.current"]
+
+
+def per_call(records: dict, n: int, minus: dict = None) -> dict:
+    """Collective records over ``n`` calls (less ``minus``'s), per call."""
+    minus = minus or {}
+    out = {}
+    for k, v in records.items():
+        m = minus.get(k, {})
+        out[k] = {f: (v[f] - m.get(f, 0)) / n for f in v}
+    return {k: v for k, v in out.items() if v["count"]}
+
+
+def serve_mesh_phase(torch, mods, dev) -> tuple:
+    """Phase 26: (1) each of SERVE_MESH_RUNS served through ``serve --mesh
+    1,1`` on a world-1 NCCL group and without a mesh, from one set of
+    seeded params: the prefill logits ``torch.equal``, the LM_GEN greedy
+    tokens equal, the decode caches equal by SHA-256; the same launches
+    (one flash per attention layer or shared-block application and one SSD
+    scan per mamba layer per prefill, none in decode, the plain versions
+    made to raise); params + cache bytes equal to the dry run's at (1, 1)
+    and the rise of the allocator's requested bytes within 1% of them
+    (``memory_allocated``'s rise recorded beside it); the warm
+    prefill and decode ms/step of both serves and the collectives per
+    prefill and per decode step. (2) rows 26a and 26b. Returns (summary,
+    launches by run, the flash row, the SSD row)."""
+    t_phase = time.perf_counter()
+    api, dryrun, C, dist = (mods[k] for k in ("api", "dryrun", "collectives", "dist"))
+    tree_leaves = mods["tree_leaves"]
+    mesh = mods["mesh"].make_host_mesh(1, 1, device=DEVICE)
+    check(dist.get_world_size() == 1 and dist.get_backend() == "nccl",
+          "phase 26 needs a world-1 NCCL group")
+    ax = mods["sharding"].mesh_axes(mods["mesh"].AbstractMesh((1, 1), ("data", "model")))
+    for dt in (torch.bfloat16, torch.float32):  # cuBLAS's workspace, before any rise is read
+        torch.ones(64, 64, dtype=dt, device=dev) @ torch.ones(64, 64, dtype=dt, device=dev)
+    torch.cuda.synchronize()
+    runs, counts = [], {}
+    try:
+        for arch, layers in SERVE_MESH_RUNS:
+            t0 = time.perf_counter()
+            full = mods["get_config"](arch)
+            cfg = full if layers is None else dataclasses.replace(full, num_layers=layers)
+            model = {"hybrid": "hybrid", "ssm": "ssm_lm"}.get(cfg.family, "transformer")
+            label = f"lm serve mesh {arch} {LM_BATCH}x{LM_PROMPT} (1, 1)"
+            gc.collect()
+            torch.cuda.empty_cache()
+            before = torch.cuda.memory_allocated()
+            before_req = requested_bytes(torch)
+            torch.cuda.reset_peak_memory_stats()
+            params = api.init(cfg, torch.Generator(device=DEVICE).manual_seed(0), device=DEVICE)
+            argv = ["--arch", arch, "--batch", str(LM_BATCH), "--prompt-len", str(LM_PROMPT),
+                    "--gen", str(LM_GEN), "--seed", "0", "--device", DEVICE]
+            one, pre1, end1, captured, step1 = lm_run(torch, mods, cfg=cfg, argv=argv,
+                                                      model=model, params=params)
+            logits1, tokens1 = one["logits"].clone(), one["tokens"]
+            sha1 = state_sha256(torch, tree_leaves, one["cache"])
+            del one, captured
+            gc.collect()
+            C.reset_collective_records()
+            at_decode = []
+            res, pre2, end2, captured, step2 = lm_run(
+                torch, mods, cfg=cfg, argv=argv + ["--mesh", "1,1"], model=model,
+                params=params, records=at_decode)
+            del captured  # the kernels' first operands, cloned: not the serve's
+            check(dist.is_initialized(), f"{label}: serve tore down the phase's group")
+            records = C.collective_records()
+            rise = torch.cuda.memory_allocated() - before
+            rise_req = requested_bytes(torch) - before_req
+            sha2 = state_sha256(torch, tree_leaves, res["cache"])
+            check(torch.equal(res["logits"], logits1),
+                  f"{label}: the prefill logits differ from the one-card serve's")
+            check((res["tokens"] == tokens1).all(), f"{label}: tokens {res['tokens'].tolist()} "
+                  f"differ from the one-card serve's {tokens1.tolist()}")
+            check(sha2 == sha1, f"{label}: the decode cache (SHA-256 {sha2}) differs from the "
+                  f"one-card serve's ({sha1})")
+            n_mamba, n_attn = lm_layers(cfg) if cfg.family in ("hybrid", "ssm") else (
+                0, cfg.num_layers)
+            want = {"ssd_chunk_scan": n_mamba, "flash_attention": n_attn}
+            for what, pre, end in (("one card", pre1, end1), ("mesh", pre2, end2)):
+                check({k: pre[k] for k in want} == want and {k: end[k] for k in want} == want,
+                      f"{label} ({what}): prefill launched {pre}, at the end {end}; expected "
+                      f"{want} per prefill and none in decode")
+                other = {k: v for k, v in end.items() if k not in want and v}
+                check(not other, f"{label} ({what}): other kernels launched: {other}")
+            slots = mods["serve"].kv_cache_slots(cfg, LM_PROMPT, LM_GEN)
+            dry = {"params": dryrun.tree_bytes_per_device(api.param_specs(cfg, ax),
+                                                          api.abstract_params(cfg, ax), ax),
+                   "cache": dryrun.tree_bytes_per_device(
+                       api.cache_specs(cfg, ax, LM_BATCH, slots),
+                       api.abstract_cache(cfg, LM_BATCH, slots, ax), ax)}
+            held = {k: sum(t.numel() * t.element_size() for t in tree_leaves(res[k]))
+                    for k in ("params", "cache")}
+            check(held == dry, f"{label}: the serve holds {held} bytes, the dry run computes "
+                  f"{dry}")
+            total = dry["params"] + dry["cache"]
+            check(abs(rise_req - total) <= 0.01 * total,
+                  f"{label}: the allocator's requested bytes rose {rise_req} "
+                  f"(memory_allocated {rise}), the dry run's bytes {total}")
+            steps = res["decode_steps"]
+            decode_records = per_call(records, steps, at_decode[0])
+            warm1 = min(warm_prefill_ms(torch, mods, res, LM_BATCH, LM_PROMPT))
+            C.reset_collective_records()
+            warm2 = min(warm_prefill_ms(torch, mods, res, LM_BATCH, LM_PROMPT, mesh))
+            prefill_records = per_call(C.collective_records(), 2)
+            runs.append({
+                "run": label, "arch": arch, "family": cfg.family, "layers": cfg.num_layers,
+                "reduced": None if layers is None else f"depth {full.num_layers} -> {layers}",
+                "batch": LM_BATCH, "prompt": LM_PROMPT, "gen": LM_GEN, "kv_slots": slots,
+                "bitwise_one_card": {"logits": True, "tokens": True, "cache_sha256": sha2},
+                "launches_per_prefill": want,
+                "prefill_ms_warm": {"one_card": warm1, "mesh_1x1": warm2},
+                "decode_ms_per_step_median": {"one_card": statistics.median(step1),
+                                              "mesh_1x1": statistics.median(step2)},
+                "decode_step_ms": {"one_card": step1, "mesh_1x1": step2},
+                "collectives_per_prefill": prefill_records,
+                "collectives_per_decode_step": decode_records,
+                "dryrun_bytes_1x1": dry, "held_bytes": held, "requested_bytes_rise": rise_req,
+                "memory_allocated_rise": rise,
+                "peak_memory_GB": torch.cuda.max_memory_allocated() / 1e9,
+                "tokens": res["tokens"].tolist(), "wall_s": time.perf_counter() - t0})
+            counts[label] = end2
+            log(f"{label}: bitwise the one-card serve (logits, {LM_GEN} tokens, cache "
+                f"{sha2[:12]}), {want} per prefill, none in decode; warm prefill {warm1:.1f} / "
+                f"{warm2:.1f} ms, decode {runs[-1]['decode_ms_per_step_median']['one_card']:.2f}"
+                f" / {runs[-1]['decode_ms_per_step_median']['mesh_1x1']:.2f} ms a step (one "
+                f"card / mesh); held = dry-run bytes ({time.perf_counter() - t0:.1f}s)")
+            del res, params, logits1
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    # (2) the serving forward kernels at one tensor-parallel rank's operands
+    row, B, S, H, K, hd, causal, window = SERVE_MESH_FLASH
+    q, k, v, _ = bwd_operands(torch, dev, B, S, H, K, hd, torch.bfloat16, seed=26)
+    fa_row = time_flash_shapes(torch, mods, {row: (q, k, v, causal, window)}, dev)[0]
+    del q, k, v
+    row, B, S, heads, tp, hd, ng, ds, Q = SERVE_MESH_SSD
+    x, dt, A, Bm, Cm, _ = ssd_rank_operands(torch, dev, B, S, heads, tp, hd, ng, ds, seed=26)
+    ssd_row = time_ssd_shapes(torch, mods, {row: (x, dt, A, Bm, Cm, Q)}, dev)[0]
+    del x, dt, A, Bm, Cm
+    torch.cuda.empty_cache()
+    summary = {"runs": runs, "per_rank": {"flash_forward": fa_row, "ssd_forward": ssd_row},
+               "card": card_line(), "seconds": time.perf_counter() - t_phase}
+    return summary, counts, fa_row, ssd_row
+
+
 def main() -> int:
     import torch
 
@@ -6114,7 +6318,7 @@ def main() -> int:
 
 
 def run_all(torch, mods, dev, ckpt_dir, t_start) -> int:
-    """Phases 3-25, the kernels line, the card line and the last line."""
+    """Phases 3-26, the kernels line, the card line and the last line."""
     ops, ref, gr, gc, qz = (mods[k] for k in ("ops", "ref", "gr", "gc", "qz"))
     serve, serving_cache, plan_device = mods["serve"], mods["serving_cache"], mods["plan_device"]
     get_config = mods["get_config"]
@@ -6324,10 +6528,15 @@ def run_all(torch, mods, dev, ckpt_dir, t_start) -> int:
         ssm_mesh_phase(torch, mods, dev, st_summary))
     print("lm mesh ssm: " + json.dumps(ssm_mesh), flush=True)
     log(f"lm mesh ssm: done ({ssm_mesh['seconds']:.1f}s)")
+    serve_mesh, serve_mesh_counts, serve_mesh_fa, serve_mesh_ssd = serve_mesh_phase(
+        torch, mods, dev)
+    print("lm serve mesh: " + json.dumps(serve_mesh), flush=True)
+    log(f"lm serve mesh: done ({serve_mesh['seconds']:.1f}s)")
     lt_counts.update(st_counts)
     lt_counts.update(lmc_counts)
     lt_counts.update(lm_mesh_counts)
     lt_counts.update(ssm_mesh_counts)
+    lt_counts.update(serve_mesh_counts)
     ssd_bwd_entry["launches_by_run"].update(
         {r: c["ssd_chunk_scan_bwd"] for r, c in ssm_mesh_counts.items()})
     ssd_bwd_entry["launches"] = sum(ssd_bwd_entry["launches_by_run"].values())
@@ -6410,7 +6619,8 @@ def run_all(torch, mods, dev, ckpt_dir, t_start) -> int:
                                              train_fwd["o_max_abs_err"],
                                              lmc_fwd["max_abs_err"],
                                              lmc_fwd["forward_with_lse"]["o_max_abs_err"],
-                                             *(r["max_abs_err"] for r in lm_mesh_fwd))
+                                             *(r["max_abs_err"] for r in lm_mesh_fwd),
+                                             serve_mesh_fa["max_abs_err"])
             kernels[-1]["details"] = {**lm_details[name],
                                       "warm_prefill_ms": lm_summary["prefill_ms_warm"],
                                       "prefill_profile": lm_summary["profile"]["prefill"],
@@ -6418,14 +6628,17 @@ def run_all(torch, mods, dev, ckpt_dir, t_start) -> int:
                                       "moe_shapes": moe_shapes,
                                       "lm_train_main_path": train_fwd,
                                       "lm_cached_embedding": lmc_fwd,
-                                      "lm_mesh_per_rank": lm_mesh_fwd}
+                                      "lm_mesh_per_rank": lm_mesh_fwd,
+                                      "serve_mesh_per_rank": serve_mesh_fa}
             kernels.append(bwd_entry)
         else:
             kernels[-1]["max_abs_err"] = max(kernels[-1]["max_abs_err"],
                                              *(f["max_abs_err"] for f in mamba2_shapes),
-                                             *(f["max_abs_err"] for f in ssm_mesh_fwd))
+                                             *(f["max_abs_err"] for f in ssm_mesh_fwd),
+                                             serve_mesh_ssd["max_abs_err"])
             kernels[-1]["details"] = {**lm_details[name], "mamba2_shapes": mamba2_shapes,
-                                      "lm_mesh_per_rank": ssm_mesh_fwd}
+                                      "lm_mesh_per_rank": ssm_mesh_fwd,
+                                      "serve_mesh_per_rank": serve_mesh_ssd}
             kernels.append(ssd_bwd_entry)
     log(f"total {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -57,6 +57,11 @@ returns), so this module imports nothing of the reference:
     reference's LM params and AdamW state to one rank's shards for the
     partitioned train step (ZeRO-1 state included), and the ranks' shards
     of a tree back to global arrays in the reference's layout;
+  * :func:`lm_params_to_rank` — the reference's LM params to one rank's
+    shards for serving over a mesh; :func:`lm_cache_to_rank` /
+    :func:`lm_cache_from_ranks` — a global decode cache to one rank's share
+    and the ranks' shares back (:func:`lm_cache_to_reference`: the port's
+    cache layout to the reference's);
   * :func:`specs_to_reference` / :func:`shapes_to_reference` — a tree of
     the port's partition specs (``parallel/sharding.py: P``), or of
     ``meta`` tensors (``models/api.py: abstract_params``,
@@ -383,6 +388,76 @@ def lm_tree_from_ranks(ranks: list, cfg, shape, names, zero1: bool = False) -> d
     arrays = iter(outs)
     by_leaf = {id(t): torch.from_numpy(next(arrays)) for t in tree_leaves(template)}
     return lm_params_to_reference(_map_leaves(template, lambda t: by_leaf[id(t)]))
+
+
+def lm_params_to_rank(params: dict, cfg, mesh, device="cpu") -> dict:
+    """The reference's LM params (numpy, the model padded for ``mesh``, as
+    the reference's ``api.init(cfg, key, ax)`` draws it) -> this rank's
+    shards under ``models/api.py: param_specs``, for serving over the mesh
+    (``make_prefill_fn(cfg, mesh)``): :func:`lm_train_state_to_rank`
+    without the optimizer state. Every array a copy."""
+    from repro_torch.launch.steps import local_params
+
+    return local_params(lm_params_from_reference(params, device), cfg, mesh)
+
+
+def lm_cache_to_rank(cache: dict, cfg, mesh, batch: int, seq_len: int, device="cpu",
+                     coords=None) -> dict:
+    """A global decode cache — the reference's (numpy) or the port's
+    (tensors in the port's layout) — laid out for ``seq_len`` positions of
+    ``batch`` prompts -> this rank's share under ``models/api.py:
+    cache_specs(cfg, ax, batch, seq_len)``, copied: the batch block of its
+    data coordinate, and its kv heads, its block of KV slots or all of
+    them (``layers.kv_layout``), its d_inner block and heads of each mamba
+    state. A KV cache is in the port's ring layout (``launch/serve.py:
+    fit_kv_cache``). ``coords`` overrides the mesh's coordinates (an
+    abstract mesh has none)."""
+    from repro_torch.models import api
+    from repro_torch.optim.optimizers import tree_leaves
+    from repro_torch.parallel.sharding import mesh_axes, tree_local_shards
+
+    if not isinstance(tree_leaves(cache)[0], torch.Tensor):
+        cache = lm_cache_from_reference(cache, device)
+    specs = api.cache_specs(cfg, mesh_axes(mesh), batch, seq_len)
+    return _map_leaves(tree_local_shards(cache, specs, mesh, coords), lambda t: t.clone())
+
+
+def lm_cache_from_ranks(ranks: list, cfg, shape, names, batch: int, seq_len: int) -> dict:
+    """The converse of :func:`lm_cache_to_rank`: ``ranks[r]``, the cache
+    share of global rank r (a tree in the port's layout, or its leaves in
+    ``tree_leaves`` order) on the mesh of ``shape`` and axis ``names``
+    (ranks in row-major order) -> the global cache in the reference's
+    layout, as numpy arrays (bfloat16 widened); a block several ranks hold
+    is taken from the last of them."""
+    from repro_torch.launch.mesh import AbstractMesh
+    from repro_torch.models import api
+    from repro_torch.optim.optimizers import tree_leaves
+    from repro_torch.parallel.sharding import mesh_axes, shard_slices, spec_leaves
+
+    ax = mesh_axes(AbstractMesh(tuple(shape), tuple(names)))
+    template = api.abstract_cache(cfg, batch, seq_len, ax)
+    specs = spec_leaves(api.cache_specs(cfg, ax, batch, seq_len))
+    outs = [np.zeros(t.shape, np.float32) for t in tree_leaves(template)]
+    for r, tree in enumerate(ranks):
+        coords = dict(zip(names, (int(c) for c in np.unravel_index(r, tuple(shape)))))
+        for out, (_, spec), leaf in zip(outs, specs, tree_leaves(tree)):
+            out[shard_slices(spec, out.shape, ax, coords)] = np.asarray(
+                torch.as_tensor(leaf).detach().float().cpu())
+    arrays = iter(outs)
+    by_leaf = {id(t): next(arrays) for t in tree_leaves(template)}
+    return lm_cache_to_reference(_map_leaves(template, lambda t: by_leaf[id(t)]))
+
+
+def lm_cache_to_reference(cache: dict) -> dict:
+    """A decode cache in the port's layout (tensors or numpy arrays) -> the
+    reference's, as numpy arrays: the hybrid's ``groups`` states restacked
+    (G, m, ...), its ``tail`` (tail, ...), the ssm family's per-layer
+    states as top-level stacked leaves (L, ...); ``k`` / ``v`` / ``x0`` as
+    they are (bfloat16 widened)."""
+    def leaf(x, n):
+        return _numpy(x) if isinstance(x, torch.Tensor) else np.asarray(x)
+
+    return _lm_tree_to_reference(cache, leaf, np.stack)
 
 
 #: the keys of one mamba layer's decode state (``models/mamba2.py``)

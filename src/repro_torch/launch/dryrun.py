@@ -26,9 +26,10 @@ git-ignored). Each cell records:
 
 Every number is computed, not measured. The reference's ``temp`` and
 ``peak`` bytes and its collective schedule come from XLA's SPMD compile of
-the partitioned step; the port's partitioned LM step runs (``launch/steps.py:
-make_train_step(mesh=)``), and measuring them from it is ROADMAP.md
-Queue 1 item 24.
+the partitioned step; the port's partitioned LM steps run
+(``launch/steps.py: make_train_step(mesh=)``, ``make_prefill_step``,
+``make_serve_step``), and the measured temp and peak bytes of each wait
+(ROADMAP.md Queue 1 item 24).
 
 :func:`dlrm_full_train_step` is the reference's ``_lower_dlrm`` train step
 as a function the port runs: the reference's ``loss_full_tables``, then

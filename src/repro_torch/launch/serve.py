@@ -13,7 +13,14 @@ reference):
 
 ``--smoke`` takes the arch's smoke config. Weights are random, drawn from
 ``--seed``, as in the reference. Prints the reference's ``prefill:``,
-``decode:`` and ``sample[b]:`` lines.
+``decode:`` and ``sample[b]:`` lines. ``--mesh D,M`` (or ``P,D,M``) serves
+partitioned over a mesh, as the reference always serves under one: the
+params, the prompts and the decode cache cut to each rank by the
+reference's specs, on torchrun's ranks (NCCL on the card, gloo with
+``--device cpu``):
+
+    python -m torch.distributed.run --nproc-per-node 8 -m \
+        repro_torch.launch.serve --arch mixtral-8x7b --smoke --device cpu --mesh 2,4
 
 Embedding serving: request micro-batches, from a synthetic scenario or a
 recorded serving trace, through a read-only cache runtime (the
@@ -180,78 +187,144 @@ def _sync(dev) -> None:
         torch.cuda.synchronize(dev)
 
 
-def fit_kv_cache(cfg, cache: dict, prompt_len: int, gen: int) -> dict:
+def kv_cache_slots(cfg, prompt_len: int, gen: int) -> int:
+    """The KV cache's slots for ``gen`` tokens of decode after a prompt of
+    ``prompt_len``: ``prompt_len + gen`` (``+ 1`` for the hybrid family, as
+    the reference grows it), at most ``cfg.sliding_window``."""
+    size = prompt_len + gen + (1 if cfg.family == "hybrid" else 0)
+    return size if cfg.sliding_window is None else min(size, cfg.sliding_window)
+
+
+def fit_kv_cache(cfg, cache: dict, prompt_len: int, gen: int, mesh=None) -> dict:
     """The prefill's KV cache laid out for ``gen`` tokens of decode, in
     place of ``cache``'s ``"k"``/``"v"`` (an ssm cache has none): grown
-    to ``prompt_len + gen`` slots (``+ 1`` for the hybrid family, as the
-    reference grows it), and under ``cfg.sliding_window`` W a ring of
-    ``min(prompt_len + gen, W)`` slots with position p at slot p % size
-    (``layers.ring_kv``). The reference's launcher leaves a windowed cache
-    as its prefill cut it (``min(prompt_len, W)`` slots in position order),
-    so its decode overwrites positions still in the window; the port
-    repairs that (ROADMAP.md Queue 3)."""
-    from repro_torch.models.layers import ring_kv
+    to :func:`kv_cache_slots` slots, and under ``cfg.sliding_window`` W a
+    ring with position p at slot p % size (``layers.ring_kv``). The
+    reference's launcher leaves a windowed cache as its prefill cut it
+    (``min(prompt_len, W)`` slots in position order), so its decode
+    overwrites positions still in the window; the port repairs that
+    (ROADMAP.md Queue 3). With a ``mesh``, ``cache`` is this rank's share
+    (``models/api.py: make_prefill_fn(cfg, mesh)``) and so is the result,
+    under the cache specs at the new size (``layers.ring_kv_share``)."""
+    from repro_torch.models.layers import ring_kv, ring_kv_share
 
     if "k" not in cache:
         return cache
-    size = prompt_len + gen + (1 if cfg.family == "hybrid" else 0)
-    if cfg.sliding_window is not None:
-        size = min(size, cfg.sliding_window)
-    cache["k"] = ring_kv(cache["k"], prompt_len, size)
-    cache["v"] = ring_kv(cache["v"], prompt_len, size)
+    size = kv_cache_slots(cfg, prompt_len, gen)
+    for key in ("k", "v"):
+        if mesh is None:
+            cache[key] = ring_kv(cache[key], prompt_len, size)
+        else:
+            prompt_slots = min(prompt_len, cfg.sliding_window or prompt_len)
+            cache[key] = ring_kv_share(cache[key], prompt_len, size, mesh, cfg.num_kv_heads,
+                                       prompt_slots)
     return cache
 
 
-def run_lm(args, cfg=None) -> Dict[str, Any]:
+def run_lm(args, cfg=None, params=None) -> Dict[str, Any]:
     """Port of the reference's ``_serve_lm``: random params from
     ``--seed``, the reference's synthetic prompt batch, one prefill, the KV
     cache laid out for decode by :func:`fit_kv_cache`, then ``gen - 1``
     greedy decode steps. ``cfg`` overrides the arch's config
-    (same arch, e.g. another dtype or depth). Prints the reference's lines
+    (same arch, e.g. another dtype or depth); ``params`` (a global tree
+    for ``cfg``, padded for the mesh under ``--mesh``) replaces the drawn
+    params. Prints the reference's lines
     and returns the prefill logits, the cache, the generated tokens (B,
     gen) and the host-clock times (each ended by a device
-    synchronization)."""
+    synchronization).
+
+    ``args.mesh`` ("D,M" or "P,D,M") serves partitioned over that mesh
+    (``launch/train.py: lm_mesh``: torchrun's group, NCCL on the card and
+    gloo with ``--device cpu``, else a world-1 group): every rank draws the
+    global params from the seed (the model padded for the mesh) and keeps
+    its shards, takes its data slice of the prompts (all of them where the
+    batch does not divide over the data ranks), and holds its share of the
+    cache; rank 0 prints the lines, every rank returns the whole batch's
+    tokens, and its own logits, params and cache. A group this call
+    started is destroyed on the way out."""
+    import torch
+
+    from repro_torch.device import resolve_device
+
+    dev = resolve_device(args.device)
+    if not getattr(args, "mesh", None):
+        return _run_lm(args, cfg, params, dev, None)
+    import torch.distributed as dist
+
+    from repro_torch.launch.train import lm_mesh, parse_mesh
+
+    mesh, dev, started = lm_mesh(parse_mesh(args.mesh), dev)
+    try:
+        return _run_lm(args, cfg, params, dev, mesh)
+    finally:
+        if started:
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            dist.destroy_process_group()
+
+
+def _run_lm(args, cfg, params, dev, mesh) -> Dict[str, Any]:
     import numpy as np
     import torch
 
     from repro_torch.configs import get_config, get_smoke_config
     from repro_torch.configs.base import ShapeSpec
-    from repro_torch.device import resolve_device
+    from repro_torch.launch.steps import local_params
     from repro_torch.models import api
+    from repro_torch.parallel import collectives as C
+    from repro_torch.parallel.sharding import data_index, mesh_axes
 
-    dev = resolve_device(args.device)
     if cfg is None:
         cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     if cfg.family == "encoder":
         raise SystemExit("encoder-only arch has no decode step")
     shape = ShapeSpec("serve", args.prompt_len, args.batch, "prefill")
-    gen = torch.Generator(device=dev).manual_seed(args.seed)
-    params = api.init(cfg, gen, device=dev)
+    ax = None if mesh is None else mesh_axes(mesh)
+    if params is None:
+        gen = torch.Generator(device=dev).manual_seed(args.seed)
+        params = (api.init(cfg, gen, device=dev) if mesh is None
+                  else api.init(cfg, gen, device=dev, ax=ax))
     batch = api.synth_batch(cfg, shape, seed=args.seed, device=dev)
-    prefill = api.make_prefill_fn(cfg)
-    decode = api.make_decode_fn(cfg)
+    rank, split = 0, False
+    if mesh is not None:
+        import torch.distributed as dist
+
+        rank, split = dist.get_rank(), args.batch % ax.data_size == 0
+        params = local_params(params, cfg, mesh)
+        if split:
+            b = args.batch // ax.data_size
+            batch = {k: v[data_index(mesh) * b:(data_index(mesh) + 1) * b]
+                     for k, v in batch.items()}
+    slots = kv_cache_slots(cfg, args.prompt_len, args.gen)
+    prefill = api.make_prefill_fn(cfg, mesh)
+    decode = api.make_decode_fn(cfg, mesh, slots)
+
+    def whole(tok):  # the whole batch's tokens, on every rank
+        return tok if not split else C.gather_over_data(tok, mesh)
 
     with torch.inference_mode():
         _sync(dev)
         t0 = time.perf_counter()
         logits, cache = prefill(params, batch)
-        cache = fit_kv_cache(cfg, cache, args.prompt_len, args.gen)
+        cache = fit_kv_cache(cfg, cache, args.prompt_len, args.gen, mesh)
         tok = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
         _sync(dev)
         prefill_s = time.perf_counter() - t0
-        print(f"prefill: {prefill_s:.2f}s")
-        outs = [tok.cpu().numpy()]
+        if rank == 0:
+            print(f"prefill: {prefill_s:.2f}s")
+        outs = [whole(tok).cpu().numpy()]
         t1 = time.perf_counter()
         for i in range(args.gen - 1):
             tok, cache = decode(params, cache, tok, args.prompt_len + i)
-            outs.append(tok.cpu().numpy())
+            outs.append(whole(tok).cpu().numpy())
         decode_s = time.perf_counter() - t1
     steps = args.gen - 1
     generated = np.concatenate(outs, axis=1)
-    print(f"decode: {steps} steps in {decode_s:.2f}s "
-          f"({decode_s / max(steps, 1) * 1e3:.1f} ms/step/batch)")
-    for b in range(min(args.batch, 2)):
-        print(f"  sample[{b}]: {generated[b].tolist()}")
+    if rank == 0:
+        print(f"decode: {steps} steps in {decode_s:.2f}s "
+              f"({decode_s / max(steps, 1) * 1e3:.1f} ms/step/batch)")
+        for b in range(min(args.batch, 2)):
+            print(f"  sample[{b}]: {generated[b].tolist()}")
     return {"cfg": cfg, "params": params, "logits": logits, "cache": cache,
             "tokens": generated, "prefill_s": prefill_s, "decode_s": decode_s,
             "decode_steps": steps}
@@ -273,6 +346,12 @@ def build_parser() -> argparse.ArgumentParser:
     lm.add_argument("--smoke", action="store_true", help="the arch's smoke config")
     lm.add_argument("--prompt-len", type=int, default=32)
     lm.add_argument("--gen", type=int, default=16)
+    lm.add_argument(
+        "--mesh", default=None,
+        help="serve partitioned over a D,M (data, model) or P,D,M (pod, data, "
+        "model) mesh; the process group comes from torchrun's environment "
+        "(NCCL on the card, gloo with --device cpu), else a world-1 group",
+    )
     emb = ap.add_argument_group("embedding serving")
     emb.add_argument(
         "--embedding", action="store_true",
@@ -310,6 +389,15 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
     args = ap.parse_args(argv)
     if not args.embedding and args.arch is None:
         ap.error("pass --arch <id> or --embedding")
+    if args.mesh:
+        from repro_torch.launch.train import parse_mesh
+
+        if args.embedding:
+            ap.error("--mesh serves the LM archs")
+        try:
+            parse_mesh(args.mesh)
+        except ValueError as e:
+            ap.error(str(e))
     tracer, metrics = obs_setup(args.trace_out, args.metrics_out)
     try:
         return run_embedding(args) if args.embedding else run_lm(args)

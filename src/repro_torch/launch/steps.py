@@ -13,16 +13,17 @@ Port of ``repro/launch/steps.py``:
     the vocab-sharded embedding and cross entropy, FSDP, the ZeRO-1 AdamW
     state (a layer list split over either of the hybrid's two stacked dims)
     — the reference's GSPMD step, its collectives explicit;
+  * ``make_prefill_step`` and ``make_serve_step``: prefill and decode over
+    a mesh (every family that decodes), each rank holding its param shards
+    and its share of the decode cache, beside the specs they follow;
   * the spec half: ``opt_state_specs`` (ZeRO-1: the AdamW state sharded
     over the data axes on its first free dim, always: the reference's
     ``cfg.zero1`` is True in every config),
     ``train_step_specs`` (the specs the reference's ``make_train_step``
     returns beside the step), ``abstract_state`` / ``abstract_cache``
-    (``meta`` tensors: the dry run's shapes), ``make_prefill_step`` and
-    ``make_serve_step`` (the function and its specs).
+    (``meta`` tensors: the dry run's shapes).
 
-Prefill and decode run at one card (serving over a mesh is
-ROADMAP.md Queue 1 item 23). Not carried over:
+Not carried over:
 the ``embed_offload`` train step (the embedding rows as an activation
 input; no config sets ``embed_offload``).
 """
@@ -152,17 +153,23 @@ def local_params(params, cfg: ModelConfig, mesh):
 
 
 def make_prefill_step(cfg: ModelConfig, mesh, shape: ShapeSpec):
-    """(prefill fn, {"params", "cache"} specs for ``mesh`` at ``shape``)."""
+    """(prefill fn, {"params", "cache"} specs for ``mesh`` at ``shape``):
+    the fn takes this rank's param shards and data shard of a prompt batch
+    of ``shape`` and returns its share of the cache under the specs
+    returned (``models/api.py: make_prefill_fn(cfg, mesh)``)."""
     ax = mesh_axes(mesh)
-    return api.make_prefill_fn(cfg), {
+    return api.make_prefill_fn(cfg, mesh), {
         "params": api.param_specs(cfg, ax),
         "cache": api.cache_specs(cfg, ax, shape.global_batch, shape.seq_len)}
 
 
 def make_serve_step(cfg: ModelConfig, mesh, shape: ShapeSpec):
-    """(decode fn, {"params", "cache"} specs for ``mesh`` at ``shape``)."""
+    """(decode fn, {"params", "cache"} specs for ``mesh`` at ``shape``):
+    the fn decodes one token against this rank's share of a cache laid out
+    for ``shape.seq_len`` positions under the specs returned
+    (``models/api.py: make_decode_fn(cfg, mesh, shape.seq_len)``)."""
     ax = mesh_axes(mesh)
-    return api.make_decode_fn(cfg), {
+    return api.make_decode_fn(cfg, mesh, shape.seq_len), {
         "params": api.param_specs(cfg, ax),
         "cache": api.cache_specs(cfg, ax, shape.global_batch, shape.seq_len)}
 

@@ -12,9 +12,11 @@ device: shapes and dtypes, no storage), :func:`cache_specs`,
 :func:`abstract_cache`, :func:`batch_specs` / :func:`batch_shardings` and
 :func:`abstract_batch`. Specs follow the port's trees (per-layer lists
 where the reference stacks; ``convert.specs_to_reference`` restacks them).
-The training loss of every family also runs partitioned over a mesh
-(``make_loss_fn(cfg, mesh)``); prefill and decode run at one card
-(serving over a mesh is ROADMAP.md Queue 1 item 23). ``synth_batch``
+The training loss, prefill and decode of every family also run
+partitioned over a mesh (``make_loss_fn(cfg, mesh)``,
+``make_prefill_fn(cfg, mesh)``, ``make_decode_fn(cfg, mesh)``): each rank
+holds its shards of the params and its share of the decode cache under
+the reference's specs. ``synth_batch``
 draws from the same numpy generator in the same order as the reference,
 so its tokens, frames and patches equal the reference's.
 """
@@ -113,22 +115,45 @@ def make_loss_fn(cfg: ModelConfig, mesh=None):
     return loss_mesh
 
 
-def make_prefill_fn(cfg: ModelConfig):
-    rc, _ = runtime_config(cfg)
-    mod = family_module(rc)
+def _mesh_model(cfg: ModelConfig, mesh):
+    """(the family module, ``cfg`` padded for ``mesh``, its param specs or
+    None at one card)."""
+    if mesh is None:
+        rc, _ = runtime_config(cfg)
+        return family_module(rc), rc, None
+    ax = mesh_axes(mesh)
+    rc, vp = runtime_config(cfg, ax)
+    return family_module(rc), rc, family_module(rc).param_specs(rc, ax, vp)
+
+
+def make_prefill_fn(cfg: ModelConfig, mesh=None):
+    """``pre(params, batch)`` -> (last-position logits (B, Vpad) fp32, the
+    decode cache). With a ``mesh`` (a ``DeviceMesh``), the model is ``cfg``
+    padded for it (:func:`runtime_config`), ``params`` this rank's shards
+    under :func:`param_specs`, ``batch`` its data shard; the cache comes
+    back as this rank's share under :func:`cache_specs` at the prompt's
+    length, the logits as the rank's data shard, whole over the vocab."""
+    mod, rc, specs = _mesh_model(cfg, mesh)
 
     def pre(params, batch):
-        return mod.prefill(params, rc, batch)
+        return mod.prefill(params, rc, batch, mesh, specs)
 
     return pre
 
 
-def make_decode_fn(cfg: ModelConfig):
-    rc, _ = runtime_config(cfg)
-    mod = family_module(rc)
+def make_decode_fn(cfg: ModelConfig, mesh=None, kv_slots: Optional[int] = None):
+    """``dec(params, cache, tokens, pos)`` -> (next tokens (B, 1) int32,
+    the cache, updated in place). With a ``mesh``, as
+    :func:`make_prefill_fn`; the cache is this rank's share under
+    :func:`cache_specs` at ``kv_slots`` positions, the KV cache's global
+    slot count (the prefill's, as ``launch/serve.py: fit_kv_cache`` grows
+    it), needed where the cache shards over the sequence."""
+    mod, rc, specs = _mesh_model(cfg, mesh)
 
     def dec(params, cache, tokens, pos: int):
-        return mod.decode_step(params, rc, cache, tokens, pos)
+        if mesh is None:
+            return mod.decode_step(params, rc, cache, tokens, pos)
+        return mod.decode_step(params, rc, cache, tokens, pos, mesh, specs, kv_slots)
 
     return dec
 

@@ -3,11 +3,12 @@ attention block (weights reused at every application, zamba-style concat of
 the original embedding stream), plus a mamba tail. Serving and training.
 
 Port of ``repro/models/hybrid.py``, its specs per layer
-(:func:`param_specs`, :func:`cache_spec`). Serving runs at one card;
-training also runs partitioned over a mesh (:func:`loss_fn` with
-``mesh=``: the vocab-sharded embedding and head, the mamba layers
-tensor-parallel over d_inner and the SSD heads, the shared block's
-attention and SwiGLU tensor-parallel). Structure
+(:func:`param_specs`, :func:`cache_spec`). Serving and training also run
+partitioned over a mesh (:func:`prefill`, :func:`decode_step` and
+:func:`loss_fn` with ``mesh=``: the vocab-sharded embedding and head, the
+mamba layers tensor-parallel over d_inner and the SSD heads, the shared
+block's attention and SwiGLU tensor-parallel, each rank holding its share
+of the decode cache). Structure
 (cfg.hybrid_*): G groups x m mamba layers, each group followed by one
 application of the shared block; then ``tail`` mamba layers. The reference
 stacks the layers of a group on leading axes and scans them; the port keeps
@@ -76,14 +77,31 @@ def _shared_forward(cfg, sp, x, x0, positions, mesh=None):
     return x + T.ffn(cfg, sp["mlp"], h, mesh)[0]
 
 
-def _shared_decode(cfg, sp, x, x0, pos, kc, vc):
+def _shared_prefill(cfg, sp, x, x0, positions, mesh=None):
+    """One application of the shared block in serving's prefill: (x, the
+    k and v its KV cache keeps, ``layers.attention_prefill``'s), the
+    concat as the reference's prefill computes it (``concat([x, x0]) @
+    W``). With a ``mesh``, the attention and the SwiGLU run tensor-parallel
+    as in training (:func:`_shared_forward`)."""
     u = torch.cat([x, x0], dim=-1) @ sp["concat_proj"]
     h = L.rms_norm(u, sp["attn_norm"], cfg.norm_eps)
-    a, kc, vc = L.attention_decode(sp["attn"], h, pos, kc, vc, cfg)
+    a, k, v = L.attention_prefill(sp["attn"], h, positions, cfg, mesh)
     x = x + a
     h = L.rms_norm(x, sp["mlp_norm"], cfg.norm_eps)
-    m = sp["mlp"]
-    return x + L.swiglu(h, m["w_gate"], m["w_up"], m["w_down"]), kc, vc
+    return x + T.ffn(cfg, sp["mlp"], h, mesh)[0], k, v
+
+
+def _shared_decode(cfg, sp, x, x0, pos, kc, vc, mesh=None, kv_slots=None):
+    """One application of the shared block for one token; ``kc`` / ``vc``
+    written in place. With a ``mesh``: this rank's shards, its share of a
+    KV cache of ``kv_slots`` slots (``layers.attention_decode``), the
+    SwiGLU tensor-parallel."""
+    u = torch.cat([x, x0], dim=-1) @ sp["concat_proj"]
+    h = L.rms_norm(u, sp["attn_norm"], cfg.norm_eps)
+    a, kc, vc = L.attention_decode(sp["attn"], h, pos, kc, vc, cfg, mesh, kv_slots)
+    x = x + a
+    h = L.rms_norm(x, sp["mlp_norm"], cfg.norm_eps)
+    return x + T.ffn(cfg, sp["mlp"], h, mesh)[0], kc, vc
 
 
 # ---------------------------------------------------------------------------
@@ -213,56 +231,54 @@ def cache_spec(cfg, ax: MeshAxes, batch_size: int, seq_len: int):
     return sp
 
 
-def prefill(params, cfg, batch):
+def prefill(params, cfg, batch, mesh=None, specs=None):
     """Forward over the prompt collecting shared-block KV caches (per group
     application) and final mamba states. Returns (last-position logits
-    (B, Vpad) fp32, cache)."""
-    x0 = T.embed_tokens(params, cfg, batch["tokens"])
+    (B, Vpad) fp32, cache). With a ``mesh``: ``params`` this rank's shards
+    under ``specs``, ``batch`` its data shard; the lookup and the head
+    vocab-parallel, the mamba layers over d_inner and the SSD heads
+    (``mamba2.prefill_stack``), the shared block tensor-parallel
+    (:func:`_shared_prefill`); the cache is this rank's share under
+    :func:`cache_spec` at the prompt's length."""
+    x0 = T.embed_tokens(params, cfg, batch["tokens"], mesh, specs)
     B, S, _ = x0.shape
     positions = torch.arange(S, dtype=torch.int32, device=x0.device)[None].expand(B, S)
     shared = params["shared"]
-    H, K, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    p = shared["attn"]
-    m = shared["mlp"]
     h, gstates, ks, vs = x0, [], [], []
     for gp in params["groups"]:
-        h, st = M.prefill_stack(cfg, h, gp)
-        u = torch.cat([h, x0], dim=-1) @ shared["concat_proj"]
-        hn = L.rms_norm(u, shared["attn_norm"], cfg.norm_eps)
-        q = (hn @ p["wq"]).reshape(B, S, H, hd)
-        k = (hn @ p["wk"]).reshape(B, S, K, hd)
-        v = (hn @ p["wv"]).reshape(B, S, K, hd)
-        q = L.apply_rope(q, positions, cfg.rope_theta, cfg.rope_fraction)
-        k = L.apply_rope(k, positions, cfg.rope_theta, cfg.rope_fraction)
-        o = L.chunked_attention(q, k, v, causal=cfg.causal)
-        h = h + o.reshape(B, S, H * hd) @ p["wo"]
-        hn = L.rms_norm(h, shared["mlp_norm"], cfg.norm_eps)
-        h = h + L.swiglu(hn, m["w_gate"], m["w_up"], m["w_down"])
+        h, st = M.prefill_stack(cfg, h, gp, mesh)
+        h, k, v = _shared_prefill(cfg, shared, h, x0, positions, mesh)
         gstates.append(st)
-        ks.append(k)
-        vs.append(v)
+        ks.append(L.kv_share(k, mesh, cfg.num_kv_heads))
+        vs.append(L.kv_share(v, mesh, cfg.num_kv_heads))
     cache = {"groups": gstates, "k": torch.stack(ks), "v": torch.stack(vs),
              "x0": x0[:, -1:]}
     if cfg.hybrid_tail_layers:
-        h, cache["tail"] = M.prefill_stack(cfg, h, params["tail"])
+        h, cache["tail"] = M.prefill_stack(cfg, h, params["tail"], mesh)
     x = L.rms_norm(h, params["final_norm"], cfg.norm_eps)
-    logits = C.sharded_logits(x[:, -1], params["lm_head"].to(x.dtype), cfg.vocab_size)
+    logits = C.sharded_logits(x[:, -1], T.head_weight(params, cfg, mesh, specs).to(x.dtype),
+                              cfg.vocab_size, mesh)
     return logits, cache
 
 
-def decode_step(params, cfg, cache, tokens, pos: int):
+def decode_step(params, cfg, cache, tokens, pos: int, mesh=None, specs=None, kv_slots=None):
     """tokens (B, 1) int32 at position ``pos`` -> (next tokens (B, 1) int32,
-    cache). The cache is updated in place (and returned)."""
-    x0 = T.embed_tokens(params, cfg, tokens)
+    cache). The cache is updated in place (and returned). With a ``mesh``:
+    this rank's shards, data shard and cache share (a KV cache of
+    ``kv_slots`` slots); the greedy pick over the logits gathered over
+    "model"."""
+    x0 = T.embed_tokens(params, cfg, tokens, mesh, specs)
     shared = params["shared"]
     h = x0
     for g, gp in enumerate(params["groups"]):
-        h = M.decode_stack(cfg, h, gp, cache["groups"][g])
-        h, _, _ = _shared_decode(cfg, shared, h, x0, pos, cache["k"][g], cache["v"][g])
+        h = M.decode_stack(cfg, h, gp, cache["groups"][g], mesh)
+        h, _, _ = _shared_decode(cfg, shared, h, x0, pos, cache["k"][g], cache["v"][g], mesh,
+                                 kv_slots)
     if cfg.hybrid_tail_layers:
-        h = M.decode_stack(cfg, h, params["tail"], cache["tail"])
+        h = M.decode_stack(cfg, h, params["tail"], cache["tail"], mesh)
     cache["x0"] = x0
     x = L.rms_norm(h, params["final_norm"], cfg.norm_eps)
-    logits = C.sharded_logits(x[:, 0], params["lm_head"].to(x.dtype), cfg.vocab_size)
+    logits = C.sharded_logits(x[:, 0], T.head_weight(params, cfg, mesh, specs).to(x.dtype),
+                              cfg.vocab_size, mesh)
     nxt = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
     return nxt, cache

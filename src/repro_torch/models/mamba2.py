@@ -276,22 +276,35 @@ def mamba_state_specs(cfg, ax: MeshAxes, batch: int) -> Dict[str, P]:
 # ---------------------------------------------------------------------------
 
 
-def prefill_stack(cfg, h, layers):
+def _conv_tails(cfg, p, hn, h_fin):
+    """A layer's decode state after a prefill: the pre-conv projections of
+    the normed input ``hn``'s last ssm_conv - 1 positions (through this
+    rank's ``wx`` block and the replicated ``wB`` / ``wC``) and the final
+    SSM state."""
+    tail_in = hn[:, -(cfg.ssm_conv - 1):]
+    return {"conv_x": tail_in @ p["wx"], "conv_B": tail_in @ p["wB"],
+            "conv_C": tail_in @ p["wC"], "ssm": h_fin}
+
+
+def prefill_stack(cfg, h, layers, mesh=None):
     """Run ``layers`` (a list of per-layer params) over h (B, S, D).
     Returns (h, the list of each layer's decode state: the pre-conv
     projections of the last ssm_conv - 1 positions and the final SSM
-    state). The prefill of the hybrid and ssm families."""
+    state). The prefill of the hybrid and ssm families. With a ``mesh``
+    whose "model" axis (TP > 1) divides d_inner, ``layers`` hold this
+    rank's shards, each layer runs tensor-parallel
+    (:func:`sharded_layer_forward`) and each state is the rank's share
+    under :func:`mamba_state_specs`: ``conv_x`` of its d_inner block,
+    ``conv_B`` / ``conv_C`` whole, ``ssm`` of its heads (of every head in
+    the mixed layout); otherwise every layer is the one-card layer."""
     states = []
     for lp in layers:
-        out, h_fin = mamba_layer_forward(cfg, lp, h)
-        hn = L.rms_norm(h, lp["norm"], cfg.norm_eps)
-        tail_in = hn[:, -(cfg.ssm_conv - 1):]
-        states.append({
-            "conv_x": tail_in @ lp["wx"],
-            "conv_B": tail_in @ lp["wB"],
-            "conv_C": tail_in @ lp["wC"],
-            "ssm": h_fin,
-        })
+        if _sharded(cfg, mesh):
+            out, h_fin, hn = _sharded_layer(cfg, lp, h, mesh)
+        else:
+            out, h_fin = mamba_layer_forward(cfg, lp, h)
+            hn = L.rms_norm(h, lp["norm"], cfg.norm_eps)
+        states.append(_conv_tails(cfg, lp, hn, h_fin))
         h = out
     return h, states
 
@@ -326,6 +339,12 @@ def sharded_layer_forward(cfg, p, x, mesh):
     before it gets the whole gradient. The gated RMSNorm normalizes over
     the whole d_inner (:func:`layers.sharded_rms_norm`). Returns the
     layer's output, replicated over "model"."""
+    return _sharded_layer(cfg, p, x, mesh)[0]
+
+
+def _sharded_layer(cfg, p, x, mesh):
+    """:func:`sharded_layer_forward` -> (its output, the final SSM state of
+    the heads the rank scanned, the normed input)."""
     B, S, _ = x.shape
     tp = model_size(mesh)
     nh, ng, ds, hd = cfg.ssm_nheads, cfg.ssm_ngroups, cfg.ssm_state, cfg.ssm_headdim
@@ -352,13 +371,68 @@ def sharded_layer_forward(cfg, p, x, mesh):
         xh = xi.reshape(B, S, nh // tp, hd)
     else:
         xh = C.gather_from_axis(xi, mesh, dim=-1).reshape(B, S, nh, hd)
-    y, _ = ssd_scan(xh, dt, A, Bm, Cm, cfg.ssm_chunk)
+    y, h_fin = ssd_scan(xh, dt, A, Bm, Cm, cfg.ssm_chunk)
     y = y + p["D_skip"][None, None, :, None].to(y.dtype) * xh
     y = y.reshape(B, S, -1)
     if not heads_split:
         y = C.copy_to_axis(y, mesh).narrow(-1, shard_start(mesh, din_loc), din_loc)
     y = L.sharded_rms_norm(y * F.silu(z), p["out_norm"], cfg.norm_eps, cfg.d_inner, mesh)
-    return x + C.sum_over_axis(y @ p["wo"], mesh)
+    return x + C.sum_over_axis(y @ p["wo"], mesh), h_fin, h
+
+
+def _sharded(cfg, mesh) -> bool:
+    """Whether a mamba layer runs tensor-parallel on ``mesh``: a "model"
+    axis wider than 1 that divides d_inner (the specs shard nothing of a
+    layer otherwise)."""
+    tp = model_size(mesh)
+    return tp > 1 and cfg.d_inner % tp == 0
+
+
+def sharded_layer_decode(cfg, p, x, state, mesh):
+    """:func:`mamba_layer_decode` on one rank of a mesh whose "model" axis
+    (TP > 1) divides d_inner: ``p`` this rank's shards, ``state`` its share
+    (:func:`mamba_state_specs`), x (B, 1, D) replicated over "model".
+    ``conv_step`` on the rank's d_inner channels and the whole B / C
+    channels; where the heads divide, ``ssd_step`` on the rank's heads and
+    the groups they read; in the mixed layout x's block is all-gathered
+    and every rank steps every head (its ``ssm`` state whole), keeping its
+    block of the output; the gated RMSNorm over the whole d_inner
+    (``layers.sharded_rms_norm``), ``wo`` row-parallel, summed over
+    "model". Returns (x_out, new state)."""
+    B = x.shape[0]
+    tp = model_size(mesh)
+    nh, ng, ds, hd = cfg.ssm_nheads, cfg.ssm_ngroups, cfg.ssm_state, cfg.ssm_headdim
+    heads_split = nh % tp == 0
+    h = L.rms_norm(x[:, 0], p["norm"], cfg.norm_eps)  # (B, D)
+    z = h @ p["wz"]
+    xi = h @ p["wx"]
+    Bc = h @ p["wB"]
+    Cc = h @ p["wC"]
+    dt_raw = (h @ p["wdt"]).float()
+
+    xi, cx = conv_step(state["conv_x"], xi, p["conv_wx"], p["conv_bx"])
+    Bc, cB = conv_step(state["conv_B"], Bc, p["conv_wB"], p["conv_bB"])
+    Cc, cC = conv_step(state["conv_C"], Cc, p["conv_wC"], p["conv_bC"])
+    xi, Bc, Cc = F.silu(xi), F.silu(Bc), F.silu(Cc)
+
+    dt = _softplus(dt_raw + p["dt_bias"])
+    A = -torch.exp(p["A_log"])
+    Bm = Bc.reshape(B, 1, ng, ds).float()
+    Cm = Cc.reshape(B, 1, ng, ds).float()
+    din_loc = xi.shape[-1]
+    if heads_split:
+        Bm, Cm = (_local_groups(t, mesh, nh, ng) for t in (Bm, Cm))
+        xh = xi.reshape(B, nh // tp, hd)
+    else:
+        xh = C.all_gather(xi, mesh, "model", dim=-1).reshape(B, nh, hd)
+    y, ssm = ssd_step(state["ssm"], xh, dt, A, Bm[:, 0], Cm[:, 0])
+    y = y + p["D_skip"][None, :, None].to(y.dtype) * xh
+    y = y.reshape(B, -1)
+    if not heads_split:
+        y = y.narrow(-1, shard_start(mesh, din_loc), din_loc)
+    y = L.sharded_rms_norm(y * F.silu(z), p["out_norm"], cfg.norm_eps, cfg.d_inner, mesh)
+    out = x + C.sum_over_axis(y @ p["wo"], mesh)[:, None]
+    return out, {"conv_x": cx, "conv_B": cB, "conv_C": cC, "ssm": ssm}
 
 
 def train_layer(cfg, p, x, mesh=None):
@@ -369,8 +443,7 @@ def train_layer(cfg, p, x, mesh=None):
     otherwise every tensor of the layer is whole on every rank (a TP of 1,
     or a d_inner that does not divide: the specs replicate every leaf) and
     the layer is the one-card layer, op for op."""
-    tp = model_size(mesh)
-    if tp > 1 and cfg.d_inner % tp == 0:
+    if _sharded(cfg, mesh):
         return sharded_layer_forward(cfg, p, x, mesh)
     return mamba_layer_forward(cfg, p, x)[0]
 
@@ -386,10 +459,15 @@ def train_stack(cfg, layers, x, mesh=None):
     return x
 
 
-def decode_stack(cfg, h, layers, states):
+def decode_stack(cfg, h, layers, states, mesh=None):
     """One token through ``layers``; ``states`` (a list, one per layer) is
-    updated in place, each new state cast to the cache's dtypes."""
+    updated in place, each new state cast to the cache's dtypes. With a
+    ``mesh`` (:func:`prefill_stack`'s rule) each layer and state is this
+    rank's share (:func:`sharded_layer_decode`)."""
     for i, lp in enumerate(layers):
-        h, st = mamba_layer_decode(cfg, lp, h, states[i])
+        if _sharded(cfg, mesh):
+            h, st = sharded_layer_decode(cfg, lp, h, states[i], mesh)
+        else:
+            h, st = mamba_layer_decode(cfg, lp, h, states[i])
         states[i] = {k: st[k].to(states[i][k].dtype) for k in st}
     return h

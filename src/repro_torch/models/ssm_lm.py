@@ -2,10 +2,11 @@
 head. Serving and training.
 
 Port of ``repro/models/ssm_lm.py``, its specs per layer
-(:func:`param_specs`, :func:`cache_spec`). Serving runs at one card;
-training also runs partitioned over a mesh (:func:`loss_fn` with
-``mesh=``: the vocab-sharded embedding and tied head, each mamba layer
-tensor-parallel over d_inner and the SSD heads). The reference
+(:func:`param_specs`, :func:`cache_spec`). Serving and training also run
+partitioned over a mesh (:func:`prefill`, :func:`decode_step` and
+:func:`loss_fn` with ``mesh=``: the vocab-sharded embedding and tied head,
+each mamba layer tensor-parallel over d_inner and the SSD heads, each
+rank holding its share of the decode states). The reference
 stacks the layers on a leading [L] axis and scans them; the port keeps a
 list of per-layer parameter dicts (``params["layers"][i]``) and a list of
 per-layer decode states (``cache["layers"][i]``, each ``{"conv_x",
@@ -85,25 +86,30 @@ def cache_spec(cfg, ax: MeshAxes, batch_size: int, seq_len: int = 0):
     return {"layers": [state for _ in range(cfg.num_layers)]}
 
 
-def prefill(params, cfg, batch):
+def prefill(params, cfg, batch, mesh=None, specs=None):
     """Run the prompt through the layers (one SSD scan each). Returns (last-
     position logits (B, Vpad) fp32, the cache of each layer's conv tails
-    and final SSM state)."""
-    x = T.embed_tokens(params, cfg, batch["tokens"])
-    x, states = M.prefill_stack(cfg, x, params["layers"])
+    and final SSM state). With a ``mesh``: ``params`` this rank's shards
+    under ``specs``, ``batch`` its data shard, each layer tensor-parallel
+    (``mamba2.prefill_stack``), the states this rank's shares, the tied
+    head vocab-parallel."""
+    x = T.embed_tokens(params, cfg, batch["tokens"], mesh, specs)
+    x, states = M.prefill_stack(cfg, x, params["layers"], mesh)
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
-    logits = C.sharded_logits(x[:, -1], T.head_weight(params, cfg).to(x.dtype),
-                              cfg.vocab_size)
+    logits = C.sharded_logits(x[:, -1], T.head_weight(params, cfg, mesh, specs).to(x.dtype),
+                              cfg.vocab_size, mesh)
     return logits, {"layers": states}
 
 
-def decode_step(params, cfg, cache, tokens, pos: int):
+def decode_step(params, cfg, cache, tokens, pos: int, mesh=None, specs=None, kv_slots=None):
     """One greedy step: tokens (B, 1) int32 (``pos`` is not used: the
-    recurrence carries the position) -> (next tokens (B, 1) int32, cache).
-    The cache is updated in place (and returned)."""
-    x = T.embed_tokens(params, cfg, tokens)
-    x = M.decode_stack(cfg, x, params["layers"], cache["layers"])
+    recurrence carries the position; nor is ``kv_slots``: there is no KV
+    cache) -> (next tokens (B, 1) int32, cache). The cache is updated in
+    place (and returned). With a ``mesh``: this rank's shards, data shard
+    and states; the greedy pick over the logits gathered over "model"."""
+    x = T.embed_tokens(params, cfg, tokens, mesh, specs)
+    x = M.decode_stack(cfg, x, params["layers"], cache["layers"], mesh)
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
-    logits = C.sharded_logits(x[:, 0], T.head_weight(params, cfg).to(x.dtype),
-                              cfg.vocab_size)
+    logits = C.sharded_logits(x[:, 0], T.head_weight(params, cfg, mesh, specs).to(x.dtype),
+                              cfg.vocab_size, mesh)
     return torch.argmax(logits, dim=-1).to(torch.int32)[:, None], cache

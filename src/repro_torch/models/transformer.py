@@ -9,8 +9,11 @@ reference's rules, per layer, without the stacked [L] dim, which no rule
 shards). Training also runs partitioned over a mesh (:func:`loss_fn` with
 ``mesh=``: tensor-parallel attention, MLP and experts, the vocab-sharded
 embedding and cross entropy, FSDP gathers inside each checkpointed
-layer); prefill and decode run at one card (serving over a mesh is
-ROADMAP.md Queue 1 item 23). The reference's sequence-parallel residual
+layer), and so do prefill and decode (:func:`prefill` / :func:`decode_step`
+with ``mesh=``: the same partitioned layers, each rank holding its share
+of the KV cache under :func:`cache_spec` — its kv heads, or a block of
+slots of every head, or all of it — and the greedy pick vocab-parallel).
+The reference's sequence-parallel residual
 (``_sp_constraint``, under ``seq_parallel``, which no config sets) is not
 carried over. The reference stacks the layers on a leading [L] axis and
 scans them; the port keeps a list of per-layer parameter dicts
@@ -128,13 +131,6 @@ def _layer(cfg, p, x, positions, mesh=None):
     return x + delta, k, v, aux
 
 
-def layer_forward(cfg, p, x, positions):
-    """One layer over x (B, S, D) at ``positions`` (B, S). Returns (x, the
-    layer's post-RoPE k and v (B, S, K, hd)); the aux loss is dropped."""
-    x, k, v, _ = _layer(cfg, p, x, positions)
-    return x, k, v
-
-
 def train_layer(cfg, p, x, positions, mesh=None, specs=None):
     """One layer of the training forward: (x, its aux loss). With a
     ``mesh``, ``p`` is this rank's shards under ``specs`` (the layer's
@@ -147,12 +143,33 @@ def train_layer(cfg, p, x, positions, mesh=None, specs=None):
     return x, aux
 
 
-def layer_decode(cfg, p, x, pos: int, kc, vc):
-    """One token through one layer; ``kc``/``vc`` (B, S, K, hd) written in
-    place at ``pos``."""
-    a, kc, vc = L.attention_decode(p["attn"], _norm(cfg, x, p["attn_norm"]), pos, kc, vc, cfg)
+def serve_layer(cfg, p, x, positions, mesh=None, specs=None):
+    """One layer of serving's prefill over x (B, S, D) at ``positions`` (B,
+    S): (x, the post-RoPE k and v the KV cache keeps of it,
+    ``layers.attention_prefill``'s; the aux loss is dropped). With a ``mesh``, ``p`` is this
+    rank's shards under ``specs``, FSDP weights gathered for the call (as
+    :func:`train_layer` gathers them), and the attention, MLP and experts
+    run tensor-parallel as in training."""
+    if mesh is not None:
+        p = C.gather_tree_over_data(p, specs, mesh)
+    a, k, v = L.attention_prefill(p["attn"], _norm(cfg, x, p["attn_norm"]), positions, cfg,
+                                  mesh)
     x = x + a
-    delta, _ = ffn(cfg, p["mlp"], _norm(cfg, x, p["mlp_norm"]))
+    delta, _ = ffn(cfg, p["mlp"], _norm(cfg, x, p["mlp_norm"]), mesh)
+    return x + delta, k, v
+
+
+def layer_decode(cfg, p, x, pos: int, kc, vc, mesh=None, specs=None, kv_slots=None):
+    """One token through one layer; ``kc``/``vc`` (B, S, K, hd) written in
+    place at ``pos``. With a ``mesh``: ``p`` this rank's shards under
+    ``specs`` (FSDP weights gathered for the call), the caches its share of
+    ``kv_slots`` global slots (``layers.attention_decode``)."""
+    if mesh is not None:
+        p = C.gather_tree_over_data(p, specs, mesh)
+    a, kc, vc = L.attention_decode(p["attn"], _norm(cfg, x, p["attn_norm"]), pos, kc, vc, cfg,
+                                   mesh, kv_slots)
+    x = x + a
+    delta, _ = ffn(cfg, p["mlp"], _norm(cfg, x, p["mlp_norm"]), mesh)
     return x + delta, kc, vc
 
 
@@ -353,11 +370,17 @@ def loss_fn(params, cfg, batch, mesh=None, specs=None) -> torch.Tensor:
     return xent_loss(cfg, x, head_weight(params, cfg, mesh, specs), batch, mesh, aux)
 
 
+def cache_slots(cfg, seq_len: int) -> int:
+    """The slots of a KV cache laid out for ``seq_len`` positions: capped
+    at ``cfg.sliding_window`` (the ring's size)."""
+    return min(seq_len, cfg.sliding_window) if cfg.sliding_window else seq_len
+
+
 def init_cache(cfg, batch_size: int, seq_len: int, device="cpu", dtype=None):
     """Zero KV caches (L, B, S, K, hd), S capped at ``cfg.sliding_window``."""
     dt = dtype or getattr(torch, cfg.compute_dtype)
-    S = min(seq_len, cfg.sliding_window) if cfg.sliding_window else seq_len
-    shape = (cfg.num_layers, batch_size, S, cfg.num_kv_heads, cfg.head_dim)
+    shape = (cfg.num_layers, batch_size, cache_slots(cfg, seq_len), cfg.num_kv_heads,
+             cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=dt, device=device),
             "v": torch.zeros(shape, dtype=dt, device=device)}
 
@@ -366,7 +389,7 @@ def cache_spec(cfg, ax: MeshAxes, batch_size: int, seq_len: int):
     """(L, B, S, K, hd): B over data if divisible; K over model if divisible,
     else S over model (sequence-parallel KV)."""
     b_ax = shard_dim(ax, batch_size, dp_axis(ax))
-    S = min(seq_len, cfg.sliding_window) if cfg.sliding_window else seq_len
+    S = cache_slots(cfg, seq_len)
     if cfg.num_kv_heads % ax.model_size == 0:
         spec = P(None, b_ax, None, ax.model, None)
     elif S % ax.model_size == 0:
@@ -376,31 +399,47 @@ def cache_spec(cfg, ax: MeshAxes, batch_size: int, seq_len: int):
     return {"k": spec, "v": spec}
 
 
-def prefill(params, cfg, batch):
+def prefill(params, cfg, batch, mesh=None, specs=None):
     """Forward over the whole prompt: (last-position logits (B, Vpad) fp32,
     the KV cache {"k", "v"} (L, B, S', K, hd) of the post-RoPE keys and
     values of positions S - S' .. S - 1, in order; S' = S, or at most
-    ``cfg.sliding_window``). Decode takes it through ``layers.ring_kv``."""
-    x, positions = build_inputs(params, cfg, batch)
+    ``cfg.sliding_window``). Decode takes it through ``layers.ring_kv``.
+
+    With a ``mesh``, ``params`` are this rank's shards under ``specs``
+    (:func:`param_specs` of the padded ``cfg``) and ``batch`` its data
+    shard: each layer runs partitioned (:func:`serve_layer`), the cache is
+    this rank's share under :func:`cache_spec` at S' (``layers.kv_share``),
+    and the logits are vocab-parallel, gathered over "model" into the
+    (B, Vpad) rows every model rank holds."""
+    x, positions = build_inputs(params, cfg, batch, mesh, specs)
     ks, vs = [], []
-    for lp in params["layers"]:
-        x, k, v = layer_forward(cfg, lp, x, positions)
+    for i, lp in enumerate(params["layers"]):
+        x, k, v = serve_layer(cfg, lp, x, positions, mesh,
+                              None if specs is None else specs["layers"][i])
         if cfg.sliding_window:
             k, v = k[:, -cfg.sliding_window:], v[:, -cfg.sliding_window:]
-        ks.append(k)
-        vs.append(v)
+        ks.append(L.kv_share(k, mesh, cfg.num_kv_heads))
+        vs.append(L.kv_share(v, mesh, cfg.num_kv_heads))
     x = _norm(cfg, x, params["final_norm"])
-    logits = C.sharded_logits(x[:, -1], head_weight(params, cfg).to(x.dtype), cfg.vocab_size)
+    logits = C.sharded_logits(x[:, -1], head_weight(params, cfg, mesh, specs).to(x.dtype),
+                              cfg.vocab_size, mesh)
     return logits, {"k": torch.stack(ks), "v": torch.stack(vs)}
 
 
-def decode_step(params, cfg, cache, tokens, pos: int):
+def decode_step(params, cfg, cache, tokens, pos: int, mesh=None, specs=None, kv_slots=None):
     """One greedy step: tokens (B, 1) int32 at position ``pos`` -> (next
     tokens (B, 1) int32, cache). The cache is updated in place (and
-    returned)."""
-    x = embed_tokens(params, cfg, tokens)
+    returned). With a ``mesh``: ``params`` this rank's shards under
+    ``specs``, ``tokens`` its data shard, the cache its share of a cache of
+    ``kv_slots`` slots (capped at the window); the greedy pick is the
+    argmax of the (B, Vpad) logits gathered over "model", so a tie breaks
+    as over the whole row."""
+    x = embed_tokens(params, cfg, tokens, mesh, specs)
+    slots = None if kv_slots is None else cache_slots(cfg, kv_slots)
     for i, lp in enumerate(params["layers"]):
-        x, _, _ = layer_decode(cfg, lp, x, pos, cache["k"][i], cache["v"][i])
+        x, _, _ = layer_decode(cfg, lp, x, pos, cache["k"][i], cache["v"][i], mesh,
+                               None if specs is None else specs["layers"][i], slots)
     x = _norm(cfg, x, params["final_norm"])
-    logits = C.sharded_logits(x[:, 0], head_weight(params, cfg).to(x.dtype), cfg.vocab_size)
+    logits = C.sharded_logits(x[:, 0], head_weight(params, cfg, mesh, specs).to(x.dtype),
+                              cfg.vocab_size, mesh)
     return torch.argmax(logits, dim=-1).to(torch.int32)[:, None], cache

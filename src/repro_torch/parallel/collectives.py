@@ -32,7 +32,10 @@ card, gloo ranks on the CPU), each rank holding its own shard:
     gradient reduce-scattered back), ``sum_over_data`` (a rank's loss
     addend summed over the data ranks, identity backward) and
     ``sum_tree_over_data`` (the gradients of data-replicated leaves summed
-    in place).
+    in place);
+  * serving's piece: ``merge_attention_partials`` (decode attention over a
+    KV cache sharded over the sequence: each rank's softmax partials
+    all-gathered and combined in rank order).
 
 Every collective call records its kind, count and the bytes in and out of
 this rank (:func:`collective_records`), which ``launch/hlo_stats.py:
@@ -198,6 +201,29 @@ def gather_from_axis(t: torch.Tensor, mesh, axis: str = "model", dim: int = -1) 
     """The ranks' blocks of ``t`` along ``dim``, gathered over ``axis``; the
     backward keeps this rank's block (:class:`_GatherFromAxis`)."""
     return _GatherFromAxis.apply(t, mesh, axis, dim % t.dim())
+
+
+def merge_attention_partials(m: torch.Tensor, l: torch.Tensor, o: torch.Tensor, mesh,
+                             axis: str = "model") -> torch.Tensor:
+    """Attention over keys split between the ranks of ``axis``: each rank's
+    fp32 softmax partials over its own keys — the row max ``m`` (...), the
+    sum of exp(s - m) ``l`` (...) and the unnormalised output ``o`` (...,
+    hd) — all-gathered in one call and combined in rank order (the max,
+    then each rank's share rescaled by exp(m_r - max) and added, rank 0
+    first), so every rank of the axis holds the same bits. Returns the
+    normalised output (..., hd), fp32."""
+    parts = all_gather(torch.cat([m[..., None], l[..., None], o], dim=-1), mesh, axis,
+                       tiled=False)
+    top = parts[0, ..., 0]
+    for r in range(1, parts.shape[0]):
+        top = torch.maximum(top, parts[r, ..., 0])
+    den = torch.zeros_like(top)
+    num = torch.zeros_like(o)
+    for r in range(parts.shape[0]):
+        w = torch.exp(parts[r, ..., 0] - top)
+        den = den + parts[r, ..., 1] * w
+        num = num + parts[r, ..., 2:] * w[..., None]
+    return num / den[..., None]
 
 
 def _dp_axes(mesh) -> Tuple[str, ...]:

@@ -1812,3 +1812,48 @@ def test_cuda_flash_pair_at_one_tensor_parallel_rank(cuda, B, S, H, K, hd, windo
     _assert_bwd_close(got, want, torch.bfloat16)
     assert tops.launch_counts()["flash_attention"] == 1
     assert tops.launch_counts()["flash_attention_bwd"] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["chatglm3-6b", "mixtral-8x7b", "zamba2-1.2b", "mamba2-2.7b"])
+def test_cuda_serve_mesh_1x1_is_the_one_card_serve(cuda, monkeypatch, arch):
+    """``chip_smoke.py`` phase 26 at the smoke config: ``serve --mesh 1,1``
+    on the card (NCCL at world 1, started and torn down by the launcher)
+    gives the prefill logits, the greedy tokens and the final decode cache
+    bitwise equal to the one-card serve from the same seed, with the same
+    launches: one ``flash_attention`` per attention layer or shared-block
+    application and one ``ssd_chunk_scan`` per mamba layer per prefill,
+    none in decode."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch import serve
+    from repro_torch.optim.optimizers import tree_leaves
+
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    cfg = get_smoke_config(arch)
+    out = []
+    for mesh in (None, "1,1"):
+        args = serve.build_parser().parse_args(
+            ["--arch", arch, "--smoke", "--batch", "2", "--prompt-len", "64", "--gen", "8"]
+            + (["--mesh", mesh] if mesh else []))
+        tops.reset_launch_counts()
+        res = serve.run_lm(args, cfg=cfg)
+        torch.cuda.synchronize()
+        out.append((res, tops.launch_counts()))
+        assert not dist.is_initialized()
+    (one, c1), (meshed, c2) = out
+    if cfg.family == "hybrid":
+        n_mamba = cfg.hybrid_groups * cfg.hybrid_layers_per_group + cfg.hybrid_tail_layers
+        n_attn = cfg.hybrid_groups
+    elif cfg.family == "ssm":
+        n_mamba, n_attn = cfg.num_layers, 0
+    else:
+        n_mamba, n_attn = 0, cfg.num_layers
+    assert c2 == c1 and {k: v for k, v in c2.items() if v} == {
+        k: n for k, n in (("ssd_chunk_scan", n_mamba), ("flash_attention", n_attn)) if n}
+    assert meshed["logits"].device.type == "cuda"
+    assert torch.equal(one["logits"], meshed["logits"])
+    assert np.array_equal(one["tokens"], meshed["tokens"])
+    a, b = tree_leaves(one["cache"]), tree_leaves(meshed["cache"])
+    assert len(a) == len(b) and all(torch.equal(x, y) for x, y in zip(a, b))

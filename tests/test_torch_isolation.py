@@ -277,13 +277,13 @@ def test_unknown_arch_and_missing_mode():
         serve.main(["--device", "cpu"])
 
 
-def _lm_training_message(capsys):
-    """LM training is ported for every family (items 18 and 20), its specs
-    (item 19) and its partitioned step (items 21 and 22); serving over a
-    mesh waits for item 23."""
-    from repro_torch.launch import steps
+def _dry_run_message(capsys):
+    """LM training and serving are ported for every family, at one card
+    and over a mesh (items 18-23); the dry run's measured temp and peak
+    bytes of the partitioned steps wait for item 24."""
+    from repro_torch.launch import dryrun
 
-    return steps.__doc__
+    return dryrun.__doc__
 
 
 def _supervise_message(capsys):
@@ -297,7 +297,7 @@ def _supervise_message(capsys):
 
 
 @pytest.mark.parametrize("message,item", [
-    (_lm_training_message, 23),  # serving over a mesh
+    (_dry_run_message, 24),  # the partitioned steps' measured temp/peak bytes
     (_supervise_message, 24),  # the cached-embedding LM over a mesh
 ], ids=["lm-training", "supervise"])
 def test_not_ported_messages_name_their_roadmap_item(capsys, message, item):
