@@ -314,9 +314,10 @@ Phases, in order; any failure raises and the script exits non-zero:
                parts and workspace bytes, and each of its passes' own time
                in the traced step with their TFLOP/s.
  21. lm train ssm — LM training of the hybrid and ssm families through
-               ``train_lm`` as phase 20 (bf16, remat): zamba2-1.2b (38 mamba
-               layers, the shared block applied 6 times) and mamba2-2.7b (64
-               mamba layers), at full width and depth, 4 x 4096 tokens
+               ``train_lm`` as phase 20 (bf16, remat): zamba2-1.2b (3 of its
+               6 groups: 20 mamba layers, the shared block applied 3 times)
+               and mamba2-2.7b (32 of 64 mamba layers), at full width and
+               half depth (the script's time), 4 x 4096 tokens
                (global batch 256 -> 4), 8 steps each: ms/step (the median of
                steps 3-8), tokens/s, peak GB, loss first -> last, the
                device's idle share in a torch.profiler trace of step 7 and
@@ -434,8 +435,8 @@ Phases, in order; any failure raises and the script exits non-zero:
                ``lm mesh:`` line.
  25. lm mesh ssm — the hybrid and ssm LMs' partitioned train step, run
                last: (1) phase 21's zamba2-1.2b and mamba2-2.7b runs again
-               (full width and depth, bf16, remat, 4 x 4096, the same seed,
-               batches and lr) through ``train_lm --mesh 1,1`` (NCCL at
+               (full width, phase 21's depth, bf16, remat, 4 x 4096, the
+               same seed, batches and lr) through ``train_lm --mesh 1,1`` (NCCL at
                world 1) for their first 3 steps, the plain versions
                raising: per step phase 21's launches (2 ``ssd_chunk_scan``
                + 1 ``ssd_chunk_scan_bwd`` per mamba layer, 2
@@ -480,6 +481,34 @@ Phases, in order; any failure raises and the script exits non-zero:
                its plain version and timed beside its bound, its plain
                version and SDPA's (none for the SSD scan). Prints an ``lm
                serve mesh:`` line.
+ 27. lm cached mesh, dry run against the card — run last: (1) phase 22's
+               run (ii) (device planner, overlapped executor, the same
+               host table, batches and seed) through a (1, 1) NCCL mesh
+               (``CachedEmbeddingLM(mesh=)``): each step's loss, the rows
+               each [Train] read, the params and the flushed host table
+               (SHA-256) bitwise equal to phase 22's (i); phase 22's
+               launches (2L ``flash_attention`` and L
+               ``flash_attention_bwd`` a step, one ``fill`` per batch with
+               misses, nothing else), the plain versions raising; ms/step
+               beside phase 22's (ii). (2) ``launch/dryrun.py: rank_step``
+               at (1, 1) for four steps the phases ran (``probed`` there:
+               phase 24's mixtral-8x7b train step, phase 26's chatglm3-6b
+               first prefill and first decode step through the mesh, phase
+               23's uncut full-table step, each outside the spans its phase
+               times): the dry run's argument bytes equal to the step's,
+               its temp within 5% or 64 MiB (the larger) of the rise of
+               the allocator's ``requested_bytes.all.peak`` above the
+               requested bytes at the step's entry, the gap printed in
+               bytes, and its collectives equal to the NCCL step's, kind
+               by kind in count and bytes; for the prefill and the DLRM
+               step, the blocks alive at the card's peak by stream and by
+               the port's frame that allocated them (the allocator's
+               history, ``peak_owners``). (3) rank 0's peak, temp and
+               collective bytes of every train cell at 16x16 and 2x16x16,
+               with ``peak_fits_card``. The dry runs are computed on the
+               CPU by a niced worker process (``--dry-run-worker``) that
+               the script starts before its build and waits for here.
+               Prints an ``lm cached mesh:`` line.
 
 The traces go to temporary directories removed at exit. The sweep of
 phase 3 covers fp32 fills of D = 5,120 (phase 22's rows) and the fp16
@@ -513,6 +542,7 @@ import gc
 import json
 import math
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -2158,13 +2188,14 @@ LM_PLAIN_VERSIONS = PLAIN_VERSIONS + ("flash_attention_ref", "ssd_chunk_scan_ref
 
 
 def lm_run(torch, mods, cfg=None, plain=False, argv=LM_ARGV, model="hybrid", params=None,
-           records=None):
+           records=None, capture=True):
     """One ``run_lm`` of ``argv`` (``cfg`` overrides the arch's config,
     ``params`` the drawn params; ``model`` names the family module whose
     ``decode_step`` runs; ``records``, a list, receives the collectives
     run before the first decode step). With
     ``plain=False`` the plain versions raise during the run and the first
-    operands of each kernel are captured; with ``plain=True`` the launchers
+    operands of each kernel are captured (cloned: not with ``capture=False``,
+    where a probe reads the allocator); with ``plain=True`` the launchers
     are swapped for the plain versions (run on the card). Returns (result,
     launch counts after the prefill, launch counts at the end, captured
     operands, host ms of each decode step, its token on the host)."""
@@ -2176,11 +2207,13 @@ def lm_run(torch, mods, cfg=None, plain=False, argv=LM_ARGV, model="hybrid", par
     captured, at_decode, step_ms = {}, [], []
 
     def spy_fa(q, k, v, causal, window, q_offset=0):
-        captured.setdefault("flash", (q.clone(), k.clone(), v.clone(), causal, window))
+        if capture and "flash" not in captured:
+            captured["flash"] = (q.clone(), k.clone(), v.clone(), causal, window)
         return real["fa"](q, k, v, causal, window, q_offset)
 
     def spy_ssd(x, dt, A, Bm, Cm, Q):
-        captured.setdefault("ssd", tuple(t.clone() for t in (x, dt, A, Bm, Cm)) + (Q,))
+        if capture and "ssd" not in captured:
+            captured["ssd"] = tuple(t.clone() for t in (x, dt, A, Bm, Cm)) + (Q,)
         return real["ssd"](x, dt, A, Bm, Cm, Q)
 
     def spy_decode(*a, **k):
@@ -4140,7 +4173,8 @@ TRAIN_PLAIN = FLASH_PLAIN + ("ssd_chunk_scan_ref", "ssd_chunk_scan_bwd_ref")
 
 def lm_train_run(torch, mods, cfg, arch, batch, seq, steps, ckpt_dir, plain=False,
                  step_hook=None, capture=None, ckpt_every=1000, smoke=False, trace=None,
-                 traced=LM_TRAIN_TRACED, named=BWD_KERNELS, mesh=None, digest_at=None):
+                 traced=LM_TRAIN_TRACED, named=BWD_KERNELS, mesh=None, digest_at=None,
+                 probe=None):
     """One ``train_lm`` run on the card (``cfg`` the config it trains).
     Counts are reset just before; the launch counts are read at the start
     of every step and at the end. Without ``plain`` the plain attention and
@@ -4153,7 +4187,8 @@ def lm_train_run(torch, mods, cfg, arch, batch, seq, steps, ckpt_dir, plain=Fals
     ``device_summary`` with ``named``). ``digest_at`` (a step count) puts
     in ``result["digest"]`` the ``state_sha256`` of the params and AdamW
     state right after that step and the seconds it took (inside that
-    step's span on the host clock). Returns (result, launch counts at each
+    step's span on the host clock). ``probe`` (a PROBES key) measures step
+    PROBE_TRAIN_STEP (``probed``). Returns (result, launch counts at each
     step start and at the end)."""
     train, ops, ref, fa, ssd = mods["train"], mods["ops"], mods["ref"], mods["fa"], mods["ssd"]
     argv = ["--arch", arch, "--batch", str(batch), "--seq-len", str(seq), "--steps",
@@ -4204,8 +4239,14 @@ def lm_train_run(torch, mods, cfg, arch, batch, seq, steps, ckpt_dir, plain=Fals
 
         return counted, opt
 
+    def make_probed(*a, **k):
+        step, opt = real_make(*a, **k)
+        return probed(torch, mods, step, probe, at=PROBE_TRAIN_STEP), opt
+
     if digest_at is not None:
         steps_mod.make_train_step = make_digesting
+    elif probe is not None:
+        steps_mod.make_train_step = make_probed
     real_bwd, real_ops_fa = fa.flash_attention_bwd, ops.flash_attention
     real_ssd_bwd, real_ops_ssd = ssd.ssd_chunk_scan_bwd, ops.ssd_chunk_scan
 
@@ -4242,7 +4283,7 @@ def lm_train_run(torch, mods, cfg, arch, batch, seq, steps, ckpt_dir, plain=Fals
         ssd.ssd_chunk_scan_bwd, ops.ssd_chunk_scan = real_ssd_bwd, real_ops_ssd
         steps_mod.make_train_step = real_make
     snaps.append(ops.launch_counts())
-    res["peak_memory_GB"] = torch.cuda.max_memory_allocated() / 1e9
+    res["peak_memory_GB"] = peak_since_probe(torch, *((probe,) if probe else ())) / 1e9
     res["digest"] = digest
     return res, snaps
 
@@ -4759,12 +4800,13 @@ def lm_train_phase(torch, mods, dev):
 # --------------------------------------------------------------------------- #
 # 21. LM training of the hybrid and ssm families
 # --------------------------------------------------------------------------- #
-#: phase 21's runs through ``train_lm``: (arch, batch, tokens, steps), bf16,
-#: full width and full depth (zamba2-1.2b: 38 mamba layers and 6 shared-block
-#: applications, 1.2B parameters; mamba2-2.7b: 64 mamba layers, 2.7B
-#: parameters, ~43 GB at 16 bytes a parameter), remat, the reference's
-#: train_4k 4096 tokens, the global batch 256 cut to 4
-SSM_TRAIN_RUNS = (("zamba2-1.2b", 4, 4096, 8), ("mamba2-2.7b", 4, 4096, 8))
+#: phase 21's runs through ``train_lm``: (arch, the depth's cut, batch,
+#: tokens, steps), bf16, full width, half the depth to keep the script inside
+#: its time (zamba2-1.2b: 3 of its 6 groups, 20 of 38 mamba layers and 3 of 6
+#: shared-block applications; mamba2-2.7b: 32 of 64 mamba layers), remat, the
+#: reference's train_4k 4096 tokens, the global batch 256 cut to 4
+SSM_TRAIN_RUNS = (("zamba2-1.2b", {"hybrid_groups": 3}, 4, 4096, 8),
+                  ("mamba2-2.7b", {"num_layers": 32}, 4, 4096, 8))
 SSM_TRAIN_TIMED_FROM = 2  # ms/step: the median over steps 3 .. N
 SSM_TRAIN_TRACED = 6  # each run's step traced with torch.profiler (the 7th)
 #: the kernels a traced step names: the SSD forward's and backward's, the
@@ -4818,9 +4860,9 @@ def ssm_train_main(torch, mods, dev, tmp):
     finite. Returns (summaries, launches by run, each run's captured first
     backward operands)."""
     summaries, counts_by_run, captured = [], {}, {}
-    for arch, batch, seq, steps in SSM_TRAIN_RUNS:
+    for arch, cut, batch, seq, steps in SSM_TRAIN_RUNS:
         t0 = time.perf_counter()
-        cfg = mods["get_config"](arch)
+        cfg = dataclasses.replace(mods["get_config"](arch), **cut)
         label = f"lm train {arch} {batch}x{seq}"
         cap, trace = {}, {}
         res, snaps = lm_train_run(torch, mods, cfg, arch, batch, seq, steps,
@@ -4854,7 +4896,8 @@ def ssm_train_main(torch, mods, dev, tmp):
         n_mamba, n_attn = lm_layers(cfg)
         summaries.append({
             "run": label, "arch": arch, "family": cfg.family, "mamba_layers": n_mamba,
-            "shared_applications": n_attn, "reduced": ["global batch 256 -> 4"],
+            "shared_applications": n_attn,
+            "reduced": ["global batch 256 -> 4", f"depth: {cut} (PR 33)"],
             "batch": batch, "seq": seq, "steps": steps, "params": n_params(res["params"]),
             "ms_per_step": ms, "step_ms": step_ms, "tokens_per_s": batch * seq / (ms / 1e3),
             "peak_memory_GB": res["peak_memory_GB"],
@@ -5177,7 +5220,7 @@ def lmc_guards(torch, mods, device_planner: bool, capture=None):
 
 
 def lmc_run(torch, mods, cfg, base, batches, dev, label, planner=None, executor=None,
-            capture=None, trace=None) -> dict:
+            capture=None, trace=None, mesh=None) -> dict:
     """One run of phase 22 from a copy of ``base`` (the host table's rows):
     ``ScratchPipe`` with ``planner`` and ``executor`` over
     ``CachedEmbeddingLM.train_fn``, flushed at the end; or, ``planner``
@@ -5191,9 +5234,9 @@ def lmc_run(torch, mods, cfg, base, batches, dev, label, planner=None, executor=
     records whether a slot lies outside the storage and a print of the
     rows its slots hold (``rows_print``), both on the card; under the
     device planner its ``LMC_NO_SYNC_STEP``-th step runs under
-    ``set_sync_debug_mode("error")``. Returns the run's record: losses,
-    step times, launches, the live params (on the card), the prints and
-    the table."""
+    ``set_sync_debug_mode("error")``. ``mesh`` (phase 27) goes to
+    ``CachedEmbeddingLM``. Returns the run's record: losses, step times,
+    launches, the live params (on the card), the prints and the table."""
     from torch.profiler import ProfilerActivity, profile
 
     ce, ops = mods["cached_embedding"], mods["ops"]
@@ -5201,7 +5244,7 @@ def lmc_run(torch, mods, cfg, base, batches, dev, label, planner=None, executor=
     torch.cuda.synchronize()
     held = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
-    lm = ce.CachedEmbeddingLM(cfg, seed=0, lr=LMC_LR, emb_lr=LMC_LR, device=dev)
+    lm = ce.CachedEmbeddingLM(cfg, seed=0, lr=LMC_LR, emb_lr=LMC_LR, device=dev, mesh=mesh)
     snaps, starts, losses, prof, prints, outside = [], [], [], [], [], []
     real_train = lm.train_fn
 
@@ -5397,7 +5440,10 @@ def lm_cached_phase(torch, mods, dev):
     """Phase 22: (i) host/sync, (ii) device/overlapped, (iii) the oracle;
     (i) = (ii) bitwise, (i) = (iii) bitwise or within LMC_LIMITS; then the
     path's kernels at its operands. Returns (summary, launches by run, the
-    fill row, the flash forward's row and checks, the backward's row)."""
+    fill row, the flash forward's row and checks, the backward's row, and
+    what phase 27 holds its run to: the host table's rows, (i)'s losses,
+    rows read, params (SHA-256) and flushed table (SHA-256), (ii)'s
+    ms/step)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
@@ -5420,9 +5466,11 @@ def lm_cached_phase(torch, mods, dev):
         if want is None:  # (i)'s params stay on the card for the comparisons
             want = {"losses": rec["losses"], "table": rec["table"],
                     "digest": table_digest(rec["table"]), "prints": rec["prints"],
-                    "params": mods["tree_leaves"](rec["params"])}
+                    "params": mods["tree_leaves"](rec["params"]),
+                    "params_sha256": state_sha256(torch, mods["tree_leaves"], rec["params"])}
             summary["params"] = n_params(rec["params"])
             summary["table_sha256"] = want["digest"]
+            summary["params_sha256"] = want["params_sha256"]
         else:
             bitwise[label] = lmc_compare(torch, mods, rec, want, f"{label} vs (i)")
         if executor == "overlapped":
@@ -5446,6 +5494,9 @@ def lm_cached_phase(torch, mods, dev):
         check(iii["loss_max_rel_err"] <= rtol and iii["table_max_abs_err"] <= t_atol
               and iii["params_max_abs_err"] <= p_atol,
               f"lm cached: (i) and (iii) differ past the reference test's limits: {iii}")
+    keep = {"base": base, "losses": want["losses"], "prints": want["prints"],
+            "digest": want["digest"], "params_sha256": want["params_sha256"],
+            "ms_ii": runs[1]["ms_per_step"], "peak_ii_GB": runs[1]["peak_memory_GB"]}
     del want, base
     gc.collect()
     torch.cuda.empty_cache()
@@ -5471,7 +5522,7 @@ def lm_cached_phase(torch, mods, dev):
     del q, k, v, o, lse, do, captured, flush
     torch.cuda.empty_cache()
     log(f"lm cached: done ({time.perf_counter() - t0:.1f}s)")
-    return summary, counts_by_run, fill_row, fwd_row, bwd_row
+    return summary, counts_by_run, fill_row, fwd_row, bwd_row, keep
 
 
 # --------------------------------------------------------------------------- #
@@ -5533,11 +5584,15 @@ def mesh_batches(torch, mods, rows: int, dev, steps: int):
                                                                    dtype=np.int32)).to(dev)}
 
 
-def mesh_steps(torch, mods, params, cfg, batches, mesh, lr, capture_at=None):
+def mesh_steps(torch, mods, params, cfg, batches, mesh, lr, capture_at=None, probe=None):
     """Full-table steps through ``mesh``, the plain versions raising, the
-    launch counts reset before each step and read after it. Returns
+    launch counts reset before each step and read after it; ``probe`` (a
+    PROBES key) measures step PROBE_DLRM_STEP (``probed``). Returns
     (losses, per-step counts, per-step host seconds, captured operands)."""
     ops, dryrun = mods["ops"], mods["dryrun"]
+    step = dryrun.dlrm_full_train_step
+    if probe is not None:
+        step = probed(torch, mods, step, probe, at=PROBE_DLRM_STEP)
     losses, counts, secs, captured = [], [], [], {}
     real_scatter = mods["gc"].scatter_add
 
@@ -5555,7 +5610,7 @@ def mesh_steps(torch, mods, params, cfg, batches, mesh, lr, capture_at=None):
                     cfg, b["sparse_ids"], params["tables"], mesh).reshape(-1, LOOKUPS)
             ops.reset_launch_counts()
             t0 = time.perf_counter()
-            params, loss = dryrun.dlrm_full_train_step(params, cfg, b, mesh, lr=lr)
+            params, loss = step(params, cfg, b, mesh, lr=lr)
             losses.append(float(loss))  # a host read: the step's end
             secs.append(time.perf_counter() - t0)
             counts.append({k: v for k, v in ops.launch_counts().items() if v})
@@ -5677,7 +5732,8 @@ def mesh_phase(torch, mods, dev, base, fp32_losses, fp32_digest):
         check(abs(rise - all_batches) <= 0.01 * all_batches,
               f"memory_allocated rose {rise}, the allocation is {all_batches}")
         losses, counts, secs, captured = mesh_steps(torch, mods, params, full, batches, mesh,
-                                                    0.05, capture_at=MESH_STEPS // 2)
+                                                    0.05, capture_at=MESH_STEPS // 2,
+                                                    probe=PROBE_DLRM)
         check(all(math.isfinite(x) for x in losses), f"non-finite full-table loss {losses}")
         ms = statistics.median(secs[MESH_WARMUP:]) * 1e3
         by_run["mesh full-table uncut"] = {k: sum(c.get(k, 0) for c in counts)
@@ -5688,7 +5744,7 @@ def mesh_phase(torch, mods, dev, base, fp32_losses, fp32_digest):
             "steps": len(losses), "ms_per_step_median_6_20": ms,
             "ms_per_step": [x * 1e3 for x in secs],
             "samples_per_s": BATCH / (ms / 1e3),
-            "peak_GB": (torch.cuda.max_memory_allocated() - before) / 1e9,
+            "peak_GB": (peak_since_probe(torch, PROBE_DLRM) - before) / 1e9,
             "held_before_GB": before / 1e9,
             "loss_first": losses[0], "loss_last": losses[-1],
             "dryrun_arg_bytes_1x1": dry, "allocated_bytes": alloc,
@@ -5859,7 +5915,7 @@ def lm_mesh_phase(torch, mods, dev, phase20) -> tuple:
     C.reset_collective_records()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_lm_mesh_") as tmp:
         res, snaps = lm_train_run(torch, mods, cfg, arch, batch, seq, steps, tmp,
-                                  step_hook=hook, mesh="1,1")
+                                  step_hook=hook, mesh="1,1", probe=PROBE_TRAIN)
     check(not mods["dist"].is_initialized(), "train_lm left its world-1 group running")
     records = C.collective_records()
     fwd, bwd = (step_launches(snaps, n) for n in ("flash_attention", "flash_attention_bwd"))
@@ -5980,10 +6036,10 @@ def ssm_mesh_phase(torch, mods, dev, phase21) -> tuple:
     one = mods["mesh"].AbstractMesh((1, 1), ("data", "model"))
     ax = mods["sharding"].mesh_axes(one)
     runs, counts = [], {}
-    for arch, batch, seq, _ in SSM_TRAIN_RUNS:
+    for arch, cut, batch, seq, _ in SSM_TRAIN_RUNS:
         t0 = time.perf_counter()
         want = next(r for r in phase21["runs"] if r["arch"] == arch)
-        cfg = mods["get_config"](arch)
+        cfg = dataclasses.replace(mods["get_config"](arch), **cut)
         label = f"lm mesh {arch} {batch}x{seq} (1, 1)"
         torch.cuda.empty_cache()
         before = torch.cuda.memory_allocated()
@@ -6028,8 +6084,8 @@ def ssm_mesh_phase(torch, mods, dev, phase21) -> tuple:
         step_ms = [(b - a) * 1e3 for a, b in zip(starts, starts[1:])]
         ms = statistics.median(step_ms[1:])  # the first step warms up
         runs.append({
-            "run": label, "config": f"{arch} at full width and depth, {batch} x {seq}, lr "
-            f"{LM_TRAIN_LR}, seed 0, through train_lm --mesh 1,1 (NCCL)",
+            "run": label, "config": f"{arch} at full width, depth {cut}, {batch} x {seq}, "
+            f"lr {LM_TRAIN_LR}, seed 0, through train_lm --mesh 1,1 (NCCL)",
             "steps": n, "ms_per_step": ms, "step_ms": step_ms,
             "phase21_ms_per_step": want["ms_per_step"],
             "phase21_step_ms": want["step_ms"][:n],
@@ -6158,10 +6214,18 @@ def serve_mesh_phase(torch, mods, dev) -> tuple:
             gc.collect()
             C.reset_collective_records()
             at_decode = []
-            res, pre2, end2, captured, step2 = lm_run(
-                torch, mods, cfg=cfg, argv=argv + ["--mesh", "1,1"], model=model,
-                params=params, records=at_decode)
-            del captured  # the kernels' first operands, cloned: not the serve's
+            real_pre, real_dec = api.make_prefill_fn, api.make_decode_fn
+            if arch == PROBE_SERVE_ARCH:
+                api.make_prefill_fn = lambda *a, **k: probed(
+                    torch, mods, real_pre(*a, **k), PROBE_PREFILL)
+                api.make_decode_fn = lambda *a, **k: probed(
+                    torch, mods, real_dec(*a, **k), PROBE_DECODE, host_bytes=4)
+            try:
+                res, pre2, end2, _, step2 = lm_run(
+                    torch, mods, cfg=cfg, argv=argv + ["--mesh", "1,1"], model=model,
+                    params=params, records=at_decode, capture=False)
+            finally:
+                api.make_prefill_fn, api.make_decode_fn = real_pre, real_dec
             check(dist.is_initialized(), f"{label}: serve tore down the phase's group")
             records = C.collective_records()
             rise = torch.cuda.memory_allocated() - before
@@ -6216,7 +6280,9 @@ def serve_mesh_phase(torch, mods, dev) -> tuple:
                 "collectives_per_decode_step": decode_records,
                 "dryrun_bytes_1x1": dry, "held_bytes": held, "requested_bytes_rise": rise_req,
                 "memory_allocated_rise": rise,
-                "peak_memory_GB": torch.cuda.max_memory_allocated() / 1e9,
+                "peak_memory_GB": peak_since_probe(
+                    torch, *((PROBE_PREFILL, PROBE_DECODE)
+                             if arch == PROBE_SERVE_ARCH else ())) / 1e9,
                 "tokens": res["tokens"].tolist(), "wall_s": time.perf_counter() - t0})
             counts[label] = end2
             log(f"{label}: bitwise the one-card serve (logits, {LM_GEN} tokens, cache "
@@ -6244,16 +6310,343 @@ def serve_mesh_phase(torch, mods, dev) -> tuple:
     return summary, counts, fa_row, ssd_row
 
 
-def main() -> int:
+
+# --------------------------------------------------------------------------- #
+# 27. the cached-embedding LM through a (1, 1) NCCL mesh; the dry run
+#     against what the card holds
+# --------------------------------------------------------------------------- #
+#: the four steps phase 27 (2) holds the dry run to, each measured where its
+#: phase runs it (``probed``), outside the spans its phase times: phase 24's
+#: mixtral-8x7b train step (its 2nd, after the first has warmed every cuBLAS
+#: handle), phase 26's chatglm3-6b serve through the mesh, its prefill (the
+#: first call over the mesh; that serve captures no kernel operands: the
+#: clones of the first flash call's q, k and v, 72 MiB, would count in its
+#: rise) and its first decode step, and phase 23's uncut full-table
+#: step (its 4th: recording its history and symbolizing its C++ frames takes
+#: seconds, and the step after it is slow too, so both stay before the
+#: median's steps 6-20)
+PROBE_TRAIN, PROBE_PREFILL, PROBE_DECODE, PROBE_DLRM = (
+    "24 mixtral-8x7b train step", "26 chatglm3-6b prefill", "26 chatglm3-6b decode step",
+    "23 dlrm-scratchpipe uncut full-table step")
+PROBE_TRAIN_STEP, PROBE_DLRM_STEP, PROBE_SERVE_ARCH = 2, MESH_WARMUP - 1, "chatglm3-6b"
+#: the dry run's temp against the rise of the allocator's requested bytes:
+#: within 5% of the rise or 64 MiB, whichever is larger
+TEMP_RTOL, TEMP_ATOL = 0.05, 64 << 20
+#: what the probed calls measured, by key
+PROBES: dict = {}
+#: the probed calls whose peak is attributed (``peak_owners``), with the
+#: stacks the allocator's history records: the DLRM step's backward runs
+#: on autograd's device thread, whose blocks have C++ frames only
+OWNED_PROBES = {PROBE_PREFILL: "python", PROBE_DLRM: "all"}
+#: how long phase 27 waits for the dry-run worker it started with the script
+DRY_RUN_WAIT_S = 300
+
+
+def tensor_bytes(mods, obj) -> int:
+    """The bytes of the distinct storages of the CUDA tensors in ``obj``
+    (``dryrun.tensors``: dicts, lists, tuples, a module's parameters)."""
+    storages = {t.untyped_storage().data_ptr(): t.untyped_storage().nbytes()
+                for t in mods["dryrun"].tensors(obj) if t.is_cuda}
+    return sum(storages.values())
+
+
+def records_since(after: dict, before: dict) -> dict:
+    """The collectives recorded between two ``collective_records()``."""
+    out = {}
+    for kind, rec in after.items():
+        was = before.get(kind, {})
+        d = {f: rec[f] - was.get(f, 0) for f in rec}
+        if d["count"]:
+            out[kind] = d
+    return out
+
+
+def _frame_label(frames) -> str:
+    """The innermost frame of the port (``repro_torch/``) among a block's
+    frames; without one (an allocation on autograd's device thread, which
+    has no Python frames), the innermost C++ frame that names an op: a
+    CUDA kernel's launcher (``at::native::gpu_*``), a CUDA wrapper or an
+    operator (``at::_ops::``)."""
+    port = [f for f in frames if "repro_torch" in f["filename"]]
+    if port:
+        f = port[0]
+        return f"{f['filename'].split('src/')[-1]}:{f['line']} {f['name']}"
+    for f in frames:
+        m = re.search(r"at::native::gpu_\w+|wrapper_CUDA_\w+|at::_ops::\w+", f["name"])
+        if m:
+            return m.group(0)
+    return frames[0]["name"][:80] if frames else "?"
+
+
+def peak_owners(torch, snap, top=8) -> dict:
+    """Who holds the bytes at a call's peak, from the allocator's history
+    of the call (``torch.cuda.memory._snapshot()`` taken after it): the
+    trace replayed (+ each ``alloc``, - each ``free_completed``, blocks
+    from before the call included) to its highest point, and the blocks
+    allocated in the call and alive there summed by stream and by
+    ``_frame_label``, largest first. Block sizes: the allocator's
+    rounding (512 B) included."""
+    trace = snap["device_traces"][torch.cuda.current_device()]
+    cur = peak = 0
+    at = -1
+    for i, e in enumerate(trace):
+        if e["action"] == "alloc":
+            cur += e["size"]
+        elif e["action"] == "free_completed":
+            cur -= e["size"]
+        if cur > peak:
+            peak, at = cur, i
+    live = {}
+    for e in trace[:at + 1]:
+        if e["action"] == "alloc":
+            live[e["addr"]] = e
+        elif e["action"] == "free_completed":
+            live.pop(e["addr"], None)
+    groups = {}
+    for e in live.values():
+        g = groups.setdefault((e["stream"], _frame_label(e.get("frames") or [])), [0, 0])
+        g[0] += e["size"]
+        g[1] += 1
+    rows = sorted(groups.items(), key=lambda kv: -kv[1][0])
+    return {"peak_rise_blocks": peak, "alive_at_peak": sum(v[0] for _, v in rows),
+            "owners": [{"stream": s, "where": w, "bytes": b, "blocks": n}
+                       for (s, w), (b, n) in rows[:top]]}
+
+
+def probed(torch, mods, fn, key, at=1, host_bytes=0):
+    """``fn`` with its ``at``-th call measured into PROBES[key]: the
+    allocator's peak is reset just before it, and the rise of
+    ``requested_bytes.all.peak`` above the requested bytes held at its
+    entry read just after (the allocator's books are kept on the host, so
+    no synchronize), with the bytes of its CUDA arguments (plus
+    ``host_bytes``: a host scalar argument) and the collectives it ran.
+    ``prior_peak`` keeps ``max_memory_allocated`` from before the reset
+    (``peak_since_probe``). For a key in OWNED_PROBES (a call outside the
+    spans its phase times), the allocator's history is recorded over the
+    call, with the stacks OWNED_PROBES names, and ``owners`` says who
+    holds its peak (``peak_owners``)."""
+    calls = [0]
+    C = mods["collectives"]
+
+    def call(*a, **k):
+        calls[0] += 1
+        if calls[0] != at:
+            return fn(*a, **k)
+        stacks = OWNED_PROBES.get(key)
+        before = C.collective_records()
+        prior = torch.cuda.max_memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        if stacks:
+            torch.cuda.memory._record_memory_history(
+                enabled="all", context="alloc", stacks=stacks, max_entries=1 << 21)
+        entry = requested_bytes(torch)
+        out = fn(*a, **k)
+        peak = torch.cuda.memory_stats()["requested_bytes.all.peak"]
+        PROBES[key] = {"call": at, "requested_at_entry": entry, "rise": peak - entry,
+                       "argument_bytes": tensor_bytes(mods, (a, k)) + host_bytes,
+                       "collectives": records_since(C.collective_records(), before),
+                       "prior_peak": prior}
+        if stacks:
+            snap = torch.cuda.memory._snapshot()
+            torch.cuda.memory._record_memory_history(enabled=None)
+            PROBES[key]["owners"] = peak_owners(torch, snap)
+        return out
+
+    return call
+
+
+def peak_since_probe(torch, *keys) -> int:
+    """``max_memory_allocated()`` over a run whose probed calls reset it:
+    the larger of it and what each probe found before its reset."""
+    return max([torch.cuda.max_memory_allocated()]
+               + [PROBES[k]["prior_peak"] for k in keys if k in PROBES])
+
+
+def dry_run_specs(mods) -> dict:
+    """key -> (config, ShapeSpec) of the four probed steps at the operands
+    their phases give them."""
+    ShapeSpec, get_config = mods["ShapeSpec"], mods["get_config"]
+    arch, layers, batch, seq, _ = MESH_LM_RUN
+    mixtral = dataclasses.replace(get_config(arch), num_layers=layers)
+    glm = get_config(PROBE_SERVE_ARCH)
+    slots = mods["serve"].kv_cache_slots(glm, LM_PROMPT, LM_GEN)
+    return {PROBE_TRAIN: (mixtral, ShapeSpec("phase24", seq, batch, "train")),
+            PROBE_PREFILL: (glm, ShapeSpec("phase26", LM_PROMPT, LM_BATCH, "prefill")),
+            PROBE_DECODE: (glm, ShapeSpec("phase26", slots, LM_BATCH, "decode")),
+            PROBE_DLRM: (get_config("dlrm-scratchpipe"),
+                         ShapeSpec("phase23", LOOKUPS, BATCH, "train"))}
+
+
+def dry_run_worker(out_path: str) -> int:
+    """``chip_smoke.py --dry-run-worker OUT``: the dry runs phase 27 reads,
+    on the CPU (``meta`` tensors, no card) in a process of their own that
+    the script starts before its build and waits for in phase 27: each
+    probed step at (1, 1) (``dryrun.rank_step``), and every train cell's
+    rank-0 step at 16x16 and 2x16x16. Writes JSON to ``out_path``."""
+    os.environ["CUDA_VISIBLE_DEVICES"] = ""
+    sys.path.insert(0, str(SRC))
     import torch
 
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device is available", file=sys.stderr)
-        return 2
-    if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
-        print(f"chip_smoke: no port sources under {SRC}; run it from the root of "
-              "a checkout", file=sys.stderr)
-        return 2
+    torch.set_num_threads(1)
+    from repro_torch.configs import dryrun_cells, get_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch import dryrun, mesh, serve
+
+    mods = {"ShapeSpec": ShapeSpec, "get_config": get_config, "serve": serve}
+    out = {"at_1x1": {}, "production": {}, "seconds": {}}
+    t0 = time.perf_counter()
+    for key, (cfg, shape) in dry_run_specs(mods).items():
+        out["at_1x1"][key] = dryrun.rank_step(cfg, shape, (1, 1))
+    out["seconds"]["at_1x1"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for c in dryrun_cells(include_dlrm=True):
+        if c["skip"] or c["shape"] not in ("train_4k", "dlrm_train"):
+            continue
+        cfg, shape = dryrun.cell_config(c["arch"], c["shape"])
+        for name, (shp, _) in (("16x16", mesh.SINGLE_POD), ("2x16x16", mesh.MULTI_POD)):
+            rec = dryrun.rank_step(cfg, shape, shp)
+            rec["peak_fits_card"] = (rec["memory"]["peak_memory_in_bytes"]
+                                     <= dryrun.CARD_BYTES)
+            rec["arg_bytes_per_device"] = dryrun.arg_bytes(
+                c["arch"], c["shape"], mesh.make_production_mesh(multi_pod=name != "16x16"))
+            out["production"][f"{c['arch']} {c['shape']} {name}"] = rec
+    out["seconds"]["production"] = time.perf_counter() - t0
+    with open(out_path, "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+def start_dry_run_worker(tmp: str):
+    """Start ``dry_run_worker`` in a process of its own, niced; -> (process,
+    the JSON's path, its log's path)."""
+    out, log_path = os.path.join(tmp, "dryrun.json"), os.path.join(tmp, "dryrun.log")
+    with open(log_path, "w") as f:  # at a lower priority than the phases' host work
+        proc = subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"),
+                                 "--dry-run-worker", out], stdout=f, stderr=subprocess.STDOUT,
+                                cwd=str(ROOT), preexec_fn=lambda: os.nice(10))
+    return proc, out, log_path
+
+
+def lm_cached_mesh_phase(torch, mods, dev, keep, worker) -> tuple:
+    """Phase 27: (1) phase 22's run (ii) again through a (1, 1) NCCL mesh
+    (``CachedEmbeddingLM(mesh=)``), from phase 22's host table: each
+    step's loss, the rows each [Train] read, the params and the flushed
+    table (SHA-256) bitwise equal to phase 22's (i), phase 22's launches,
+    the plain versions raising, ms/step beside phase 22's (ii). (2) the
+    dry run at (1, 1) of the four probed steps (PROBES) against the card:
+    its argument bytes equal to the step's, its temp within TEMP_RTOL of
+    the rise of the allocator's requested bytes or TEMP_ATOL, its
+    collectives equal to the NCCL step's, kind by kind. (3) every train
+    cell's rank-0 peak, temp and collective bytes at 16x16 and 2x16x16.
+    Returns (summary, launches by run)."""
+    t_phase = time.perf_counter()
+    card = card_line()
+    C, dist, tree_leaves = mods["collectives"], mods["dist"], mods["tree_leaves"]
+    full = mods["get_config"](LMC_ARCH)
+    cfg = dataclasses.replace(full, num_layers=LMC_LAYERS)
+    batches = lmc_batches(cfg.vocab_size, LMC_BATCH, LMC_SEQ, LMC_STEPS)
+    label = "(ii) device/overlapped through a (1, 1) NCCL mesh"
+    mesh = mods["mesh"].make_host_mesh(1, 1, device=DEVICE)
+    check(dist.get_world_size() == 1 and dist.get_backend() == "nccl",
+          "phase 27 needs a world-1 NCCL group")
+    try:
+        C.reset_collective_records()
+        rec = lmc_run(torch, mods, cfg, keep["base"], batches, dev, label, "device",
+                      "overlapped", mesh=mesh)
+        records = C.collective_records()
+    finally:
+        dist.destroy_process_group()
+    run = lmc_check(cfg, rec)
+    params_sha = state_sha256(torch, tree_leaves, rec["params"])
+    table_sha = table_digest(rec["table"])
+    bitwise = {"losses": rec["losses"] == keep["losses"],
+               "rows_read": torch.equal(rec["prints"], keep["prints"]),
+               "params_sha256": params_sha == keep["params_sha256"],
+               "table_sha256": table_sha == keep["digest"]}
+    check(all(bitwise.values()), f"lm cached mesh: (ii) through the (1, 1) mesh is not "
+          f"bitwise phase 22's (i): {bitwise}; losses {rec['losses']} against "
+          f"{keep['losses']}")
+    run.update({"bitwise_phase22_i": bitwise, "params_sha256": params_sha,
+                "table_sha256": table_sha, "phase22_ii_ms_per_step": keep["ms_ii"],
+                "phase22_ii_peak_memory_GB": keep["peak_ii_GB"],
+                "collectives": records, "card": card})
+    counts = {f"lm cached mesh {label}": rec["snaps"][-1]}
+    log(f"lm cached mesh: {label} bitwise phase 22's (i) (losses, rows read, params "
+        f"{params_sha[:12]}, table {table_sha[:12]}); {run['ms_per_step']:.1f} ms/step against "
+        f"phase 22's (ii) {keep['ms_ii']:.1f}; {run['flash_attention_per_step']} + "
+        f"{run['flash_attention_bwd_per_step']} flash launches a step, {run['fill']} fills "
+        f"[{card}]")
+    del rec, keep["base"]
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (2) the dry run at (1, 1) against the card
+    proc, path, log_path = worker
+    try:
+        rc = proc.wait(timeout=DRY_RUN_WAIT_S)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        rc = "killed after waiting"
+    with open(log_path) as f:
+        tail = f.read()[-3000:]
+    check(rc == 0, f"the dry-run worker ended with {rc}: {tail}")
+    with open(path) as f:
+        dry = json.load(f)
+    steps = []
+    for key in (PROBE_TRAIN, PROBE_PREFILL, PROBE_DECODE, PROBE_DLRM):
+        check(key in PROBES, f"lm cached mesh: {key} was not measured in its phase")
+        got, want = PROBES[key], dry["at_1x1"][key]
+        mem = want["memory"]
+        gap = mem["temp_size_in_bytes"] - got["rise"]
+        window = max(TEMP_RTOL * got["rise"], TEMP_ATOL)
+        coll = {k: v for k, v in want["collectives"].items() if k != "total" and v["count"]}
+        row = {"step": key, "card": card, "dry_run_memory": mem,
+               "requested_at_entry": got["requested_at_entry"], "measured_rise": got["rise"],
+               "temp_minus_rise": gap, "window": window,
+               "argument_bytes_held": got["argument_bytes"],
+               "collectives_card": got["collectives"], "collectives_dry_run": coll,
+               "dry_run_seconds": want["seconds"], "owners_at_peak": got.get("owners")}
+        steps.append(row)
+        log(f"lm cached mesh: {key}: dry-run temp {mem['temp_size_in_bytes']} B, the card's "
+            f"rise {got['rise']} B, gap {gap:+d} B ({gap / max(got['rise'], 1):+.2%}); "
+            f"arguments {mem['argument_size_in_bytes']} / held {got['argument_bytes']}; "
+            f"{sum(v['count'] for v in coll.values())} collectives [{card}]")
+        for o in (got.get("owners") or {}).get("owners", ()):
+            print(f"    at the card's peak: {o['bytes']} B in {o['blocks']} blocks, stream "
+                  f"{o['stream']}, {o['where']}", flush=True)
+        check(mem["argument_size_in_bytes"] == got["argument_bytes"],
+              f"lm cached mesh: {key}: the dry run's arguments {mem['argument_size_in_bytes']} "
+              f"B, the step holds {got['argument_bytes']}")
+        check(abs(gap) <= window, f"lm cached mesh: {key}: the dry run's temp "
+              f"{mem['temp_size_in_bytes']} is {gap:+d} B from the card's rise {got['rise']} "
+              f"(window {window:.0f})")
+        check(coll == got["collectives"], f"lm cached mesh: {key}: the dry run's collectives "
+              f"{coll} differ from the NCCL step's {got['collectives']}")
+
+    # (3) every train cell's rank 0 at the production meshes
+    prod = {}
+    for cell, r in dry["production"].items():
+        m, c = r["memory"], r["collectives"]["total"]
+        prod[cell] = {"peak_bytes": m["peak_memory_in_bytes"], "temp_bytes": m["temp_size_in_bytes"],
+                      "argument_bytes": m["argument_size_in_bytes"],
+                      "collective_bytes_in": c["bytes_in"], "collectives": c["count"],
+                      "peak_fits_card": r["peak_fits_card"], "seconds": r["seconds"]}
+        check(m["argument_size_in_bytes"] == r["arg_bytes_per_device"]["total"],
+              f"lm cached mesh: {cell}: the dry run's arguments differ from the specs' bytes")
+        print(f"  dry run {cell}: peak {m['peak_memory_in_bytes'] / 1e9:.2f} GB, temp "
+              f"{m['temp_size_in_bytes'] / 1e9:.2f} GB, collectives {c['bytes_in'] / 1e9:.2f} GB "
+              f"in {c['count']}, peak_fits_card {r['peak_fits_card']} (computed on meta tensors, "
+              f"rank 0, a fake group of {'256' if cell.endswith(' 16x16') else '512'} ranks)",
+              flush=True)
+    summary = {"card": card, "run": run, "dry_run_vs_card": steps,
+               "production_train_cells": prod, "dry_run_seconds": dry["seconds"],
+               "seconds": time.perf_counter() - t_phase}
+    return summary, counts
+
+
+def load_mods() -> dict:
+    """The port's modules the phases use, by name (from ``SRC``)."""
     sys.path.insert(0, str(SRC))
     from repro_torch.configs import get_config
     from repro_torch.configs.base import DLRMConfig, ShapeSpec
@@ -6279,7 +6672,7 @@ def main() -> int:
     from repro_torch.models import dlrm
     from repro_torch.parallel import collectives, sharding
 
-    mods = {"ops": ops, "ref": ref, "gr": gr, "gc": gc, "qz": qz, "train": train,
+    return {"ops": ops, "ref": ref, "gr": gr, "gc": gc, "qz": qz, "train": train,
             "pipeline": pipeline, "static_cache": static_cache,
             "dlrm_runtime": dlrm_runtime, "HostEmbeddingTable": HostEmbeddingTable,
             "DLRMConfig": DLRMConfig, "interaction_dim": interaction_dim,
@@ -6293,16 +6686,31 @@ def main() -> int:
             "dryrun_cells": dryrun_cells, "hlo_stats": hlo_stats, "mesh": mesh,
             "dlrm": dlrm, "collectives": collectives, "sharding": sharding,
             "TraceConfig": TraceConfig,
-            "dlrm_batches": dlrm_batches}
+            "dlrm_batches": dlrm_batches, "build": _build}
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 2
+    if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
+        print(f"chip_smoke: no port sources under {SRC}; run it from the root of "
+              "a checkout", file=sys.stderr)
+        return 2
+    mods = load_mods()
 
     t_start = time.perf_counter()
     card = card_line()
     log(f"card: {card}")
     dev = torch.device(DEVICE, 0)
+    worker_dir = tempfile.mkdtemp(prefix="chip_smoke_dryrun_")
+    worker = start_dry_run_worker(worker_dir)  # phase 27's dry runs, on the CPU
 
     mods["host_rows"] = build_host_rows(mods)
     t0 = time.perf_counter()
-    built = _build.build_all()
+    built = mods["build"].build_all()
     for b in built.values():
         regs = [ln.strip() for ln in b.log.splitlines()
                 if "registers" in ln or "spill" in ln or "Function properties" in ln]
@@ -6312,13 +6720,17 @@ def main() -> int:
     log(f"build: {time.perf_counter() - t0:.2f}s in all")
     ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
     try:
-        return run_all(torch, mods, dev, ckpt_dir, t_start)
+        return run_all(torch, mods, dev, ckpt_dir, t_start, worker)
     finally:
+        if worker[0].poll() is None:
+            worker[0].kill()
+            worker[0].wait()
         shutil.rmtree(ckpt_dir, ignore_errors=True)
+        shutil.rmtree(worker_dir, ignore_errors=True)
 
 
-def run_all(torch, mods, dev, ckpt_dir, t_start) -> int:
-    """Phases 3-26, the kernels line, the card line and the last line."""
+def run_all(torch, mods, dev, ckpt_dir, t_start, worker) -> int:
+    """Phases 3-27, the kernels line, the card line and the last line."""
     ops, ref, gr, gc, qz = (mods[k] for k in ("ops", "ref", "gr", "gc", "qz"))
     serve, serving_cache, plan_device = mods["serve"], mods["serving_cache"], mods["plan_device"]
     get_config = mods["get_config"]
@@ -6519,7 +6931,7 @@ def run_all(torch, mods, dev, ckpt_dir, t_start) -> int:
     log(f"mamba2 and moe: done ({time.perf_counter() - t0:.1f}s)")
     lt_summary, lt_counts, bwd_entry = lm_train_phase(torch, mods, dev)
     st_summary, st_counts, ssd_bwd_entry, fa_zamba_row = ssm_train_phase(torch, mods, dev)
-    _, lmc_counts, lmc_fill, lmc_fwd, lmc_bwd = lm_cached_phase(torch, mods, dev)
+    _, lmc_counts, lmc_fill, lmc_fwd, lmc_bwd, lmc_keep = lm_cached_phase(torch, mods, dev)
     lm_mesh, lm_mesh_counts, lm_mesh_fwd, lm_mesh_bwd = lm_mesh_phase(torch, mods, dev,
                                                                       lt_summary)
     print("lm mesh: " + json.dumps(lm_mesh), flush=True)
@@ -6532,6 +6944,10 @@ def run_all(torch, mods, dev, ckpt_dir, t_start) -> int:
         torch, mods, dev)
     print("lm serve mesh: " + json.dumps(serve_mesh), flush=True)
     log(f"lm serve mesh: done ({serve_mesh['seconds']:.1f}s)")
+    cached_mesh, cached_mesh_counts = lm_cached_mesh_phase(torch, mods, dev, lmc_keep, worker)
+    print("lm cached mesh: " + json.dumps(cached_mesh), flush=True)
+    log(f"lm cached mesh: done ({cached_mesh['seconds']:.1f}s)")
+    lmc_counts.update(cached_mesh_counts)
     lt_counts.update(st_counts)
     lt_counts.update(lmc_counts)
     lt_counts.update(lm_mesh_counts)
@@ -6650,4 +7066,6 @@ def run_all(torch, mods, dev, ckpt_dir, t_start) -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--dry-run-worker"] and len(sys.argv) == 3:
+        sys.exit(dry_run_worker(sys.argv[2]))
     sys.exit(main())

@@ -337,7 +337,8 @@ def lm_train_state_to_rank(params: dict, state: dict, cfg, mesh, device="cpu"):
     state leaf cut further to this data rank's ZeRO-1 part
     (``optim/optimizers.py: Zero1``), empty for a layer another data rank
     holds."""
-    from repro_torch.launch.steps import local_params, train_step_specs
+    from repro_torch.launch.steps import train_step_specs
+    from repro_torch.models.api import local_params
     from repro_torch.optim.optimizers import Zero1, tree_leaves
 
     sp = train_step_specs(cfg, mesh)
@@ -390,15 +391,16 @@ def lm_tree_from_ranks(ranks: list, cfg, shape, names, zero1: bool = False) -> d
     return lm_params_to_reference(_map_leaves(template, lambda t: by_leaf[id(t)]))
 
 
-def lm_params_to_rank(params: dict, cfg, mesh, device="cpu") -> dict:
+def lm_params_to_rank(params: dict, cfg, mesh, device="cpu", without=()) -> dict:
     """The reference's LM params (numpy, the model padded for ``mesh``, as
     the reference's ``api.init(cfg, key, ax)`` draws it) -> this rank's
     shards under ``models/api.py: param_specs``, for serving over the mesh
     (``make_prefill_fn(cfg, mesh)``): :func:`lm_train_state_to_rank`
-    without the optimizer state. Every array a copy."""
-    from repro_torch.launch.steps import local_params
+    without the optimizer state. Every array a copy. ``without`` names the
+    top-level params ``params`` leaves out (``api.local_params``)."""
+    from repro_torch.models.api import local_params
 
-    return local_params(lm_params_from_reference(params, device), cfg, mesh)
+    return local_params(lm_params_from_reference(params, device), cfg, mesh, without)
 
 
 def lm_cache_to_rank(cache: dict, cfg, mesh, batch: int, seq_len: int, device="cpu",

@@ -16,7 +16,9 @@ warpgroup tensor-core products (``wgmma``) for bf16, with a fourth that
 sums the dK/dV pass's parts of a GQA group when :func:`bwd_splits` cuts it;
 on FMAs for fp32.
 
-The launchers take CUDA tensors only: they check device, dtype, shape and
+The launchers take CUDA tensors (and ``meta`` ones, the dry run's footprint
+pass: they allocate what a launch allocates and launch nothing,
+``gather_reduce.footprint``) only: they check device, dtype, shape and
 contiguity, launch on the current stream, raise on a launch's CUDA error,
 and count each call in :data:`LAUNCHES` (both dtypes under the kernel's
 name; the backward's launches count once). The libraries are built
@@ -31,7 +33,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from repro_torch.kernels.gather_reduce import _check
+from repro_torch.kernels.gather_reduce import _check, _check_cuda, footprint
 
 #: kernel launches since the last reset — one is added where a launch
 #: succeeds, and nowhere else
@@ -73,8 +75,7 @@ def _lib(name: str = "flash_attention") -> ctypes.CDLL:
 
 
 def _check_qkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, q_offset: int) -> None:
-    if q.device.type != "cuda":
-        raise ValueError(f"CUDA kernel called on a {q.device} tensor")
+    _check_cuda(q)
     _check(q, "q", _DTYPES, q.device)
     _check(k, "k", q.dtype, q.device)
     _check(v, "v", q.dtype, q.device)
@@ -125,6 +126,8 @@ def flash_attention(
     if lse is not None:
         _check_stats(lse, "lse", (B, H, Sq), torch.float32, q.device)
     out = torch.empty_like(q)
+    if footprint(q):
+        return out
     lib = _lib()
     fn = (lib.repro_flash_attention_f32 if q.dtype == torch.float32
           else lib.repro_flash_attention_bf16)
@@ -183,6 +186,8 @@ def flash_attention_bwd(
     shape = bwd_workspace_shape(B, Skv, H, K, hd) if q.dtype == torch.bfloat16 else None
     splits = 1 if shape is None else shape[1]
     ws = None if shape is None else torch.empty(shape, dtype=torch.float32, device=q.device)
+    if footprint(q):
+        return dq, dk, dv
     lib = _lib("flash_attention_bwd")
     fn = (lib.repro_flash_attention_bwd_f32 if q.dtype == torch.float32
           else lib.repro_flash_attention_bwd_bf16)

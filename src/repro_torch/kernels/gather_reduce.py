@@ -4,7 +4,9 @@ Port of the ``gather_reduce``, ``gather_reduce_q``, ``fill``,
 ``fill_gather_reduce`` and ``fill_gather_reduce_q`` Pallas kernels of
 ``repro/kernels/gather_reduce.py``, for fp32, fp16 and int8 storage; the
 source file holds each kernel's bound and design note. These launchers take
-CUDA tensors only: they check device, dtype, shape and contiguity, launch
+CUDA tensors only (and ``meta`` ones: the dry run's footprint pass, for
+which they allocate what a launch allocates and launch nothing,
+:func:`footprint`): they check device, dtype, shape and contiguity, launch
 on the current stream, raise on the launch's CUDA error, and count each
 launch in :data:`LAUNCHES`, under the kernel's name and storage form. The
 library is built and loaded at the first launch, never at import (the CPU
@@ -74,8 +76,18 @@ def _check(t: torch.Tensor, name: str, dtype, device: torch.device):
 
 
 def _check_cuda(storage: torch.Tensor) -> None:
-    if storage.device.type != "cuda":
+    """A CUDA tensor, or a ``meta`` one: the dry run's memory pass
+    (``launch/dryrun.py``), for which a launcher allocates what it
+    allocates on the card and launches nothing (:func:`footprint`)."""
+    if storage.device.type not in ("cuda", "meta"):
         raise ValueError(f"CUDA kernel called on a {storage.device} tensor")
+
+
+def footprint(t: torch.Tensor) -> bool:
+    """Whether a launcher given ``t`` stops after its allocations: a
+    ``meta`` tensor, the dry run's abstract card (nothing launches, nothing
+    is counted in :data:`LAUNCHES`)."""
+    return t.device.type == "meta"
 
 
 def _check_scale(scale: torch.Tensor, storage: torch.Tensor) -> None:
@@ -132,6 +144,8 @@ def gather_reduce(storage: torch.Tensor, flat_ids: torch.Tensor) -> torch.Tensor
     _check(flat_ids, "slot_ids", torch.int32, storage.device)
     nb, L, D = _gather_shapes(storage, flat_ids, "gather_reduce")
     out = torch.empty((nb, D), dtype=torch.float32, device=storage.device)
+    if footprint(storage):
+        return out
     lib = _lib()
     fn = (lib.repro_gather_reduce_f32 if storage.dtype == torch.float32
           else lib.repro_gather_reduce_f16)
@@ -156,6 +170,8 @@ def gather_reduce_q(
     _check(flat_ids, "slot_ids", torch.int32, storage.device)
     nb, L, D = _gather_shapes(storage, flat_ids, "gather_reduce_q")
     out = torch.empty((nb, D), dtype=torch.float32, device=storage.device)
+    if footprint(storage):
+        return out
     with torch.cuda.device(storage.device):
         err = _lib().repro_gather_reduce_q8(
             storage.data_ptr(), scale.data_ptr(), flat_ids.data_ptr(),
@@ -177,6 +193,8 @@ def fill(storage: torch.Tensor, fill_slots: torch.Tensor, rows: torch.Tensor) ->
     _check(rows, "rows", storage.dtype, storage.device)
     F, N, D = _fill_shapes(storage, fill_slots, rows, "fill")
     key = "fill" + _FORM[storage.dtype]
+    if footprint(storage):
+        return
     with torch.cuda.device(storage.device):
         err = _lib().repro_fill(
             storage.data_ptr(), fill_slots.data_ptr(), rows.data_ptr(), F,
@@ -215,6 +233,8 @@ def fill_gather_reduce(
     F, N, D, nb, L = _check_fused(storage, fill_slots, rows, flat_ids,
                                   "fill_gather_reduce")
     out = torch.empty((nb, D), dtype=torch.float32, device=storage.device)
+    if footprint(storage):
+        return out
     lib = _lib()
     fn = (lib.repro_fill_gather_reduce_f32 if storage.dtype == torch.float32
           else lib.repro_fill_gather_reduce_f16)
@@ -245,6 +265,8 @@ def fill_gather_reduce_q(
     F, N, D, nb, L = _check_fused(storage, fill_slots, rows, flat_ids,
                                   "fill_gather_reduce_q")
     out = torch.empty((nb, D), dtype=torch.float32, device=storage.device)
+    if footprint(storage):
+        return out
     with torch.cuda.device(storage.device):
         err = _lib().repro_fill_gather_reduce_q8(
             storage.data_ptr(), scale.data_ptr(), fill_slots.data_ptr(),

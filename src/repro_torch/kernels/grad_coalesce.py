@@ -12,7 +12,9 @@ lookups; a CTA per (longer segment, column slab) for the hot rows, on a
 side stream that overlaps the short kernel, from a worklist a first launch
 builds on the device (:func:`long_segment_heads` is the same list in
 torch). :func:`scatter_add` does the sort and the accumulation. The
-launchers take CUDA tensors only: they check device, dtype (fp32 storage
+launchers take CUDA tensors only (``meta`` ones too: the dry run's
+footprint pass, which allocates the sort and the worklist and launches
+nothing): they check device, dtype (fp32 storage
 and deltas, int32 ids), shape and contiguity, launch on the current stream
 (the long kernel forked from and joined back to it on a side stream of
 the calling host thread's own, so threads may launch at once on their own
@@ -29,7 +31,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.kernels.gather_reduce import _check
+from repro_torch.kernels.gather_reduce import _check, _check_cuda, footprint
 
 #: kernel launches since the last reset — one is added where a launch
 #: succeeds, and nowhere else
@@ -90,8 +92,7 @@ def scatter_add_sorted(
     All on one CUDA device. Returns the long-segment worklist, int64:
     ``work[0]`` heads at ``work[2:2 + work[0]]``, in no fixed order (as a
     set, they are :func:`long_segment_heads`)."""
-    if storage.device.type != "cuda":
-        raise ValueError(f"CUDA kernel called on a {storage.device} tensor")
+    _check_cuda(storage)
     _check(storage, "storage", torch.float32, storage.device)
     _check(keys, "keys", torch.int32, storage.device)
     _check(perm, "perm", torch.int64, storage.device)
@@ -111,6 +112,8 @@ def scatter_add_sorted(
         raise ValueError(f"{n} lookups: the kernels take fewer than 2^31")
     cap = n // (LONG_SEGMENT + 1)  # the most segments longer than LONG_SEGMENT
     work = torch.empty(2 + cap, dtype=torch.int64, device=storage.device)
+    if footprint(storage):
+        return work
     lib = _lib()
     with torch.cuda.device(storage.device):
         err = lib.repro_scatter_add_sorted_f32(
@@ -131,8 +134,7 @@ def scatter_add(
     """In place: storage[flat_ids[b, l]] += bag_deltas[b], duplicates in flat
     bag-major order. storage (N, D) fp32; flat_ids (nb, L) int32 with every
     id in [0, N); bag_deltas (nb, D) fp32; nb, L > 0."""
-    if storage.device.type != "cuda":
-        raise ValueError(f"CUDA kernel called on a {storage.device} tensor")
+    _check_cuda(storage)
     _check(flat_ids, "slot_ids", torch.int32, storage.device)
     if flat_ids.dim() != 2:
         raise ValueError(f"expected slot_ids (nb, L), got {tuple(flat_ids.shape)}")

@@ -17,8 +17,12 @@ the raw launchers do not take:
     (``kernels/gather_reduce.py``, ``kernels/grad_coalesce.py``) or the call
     raises; a CPU tensor goes to the plain PyTorch version
     (``kernels/ref.py``), and so does a ``meta`` tensor (the dry run's
-    abstract evaluation). There is no knob and no fallback from one to the
-    other;
+    abstract evaluation: its flops pass counts the plain versions'
+    products). Inside :func:`kernel_footprint` (the dry run's memory pass)
+    a ``meta`` tensor takes the kernel's route instead, whose launchers
+    allocate what they allocate on the card — outputs, ``lse``, workspaces,
+    the sort in front of ``scatter_add`` — and launch nothing. There is no
+    knob and no fallback from one to the other;
   * differentiation — ``gather_reduce`` and ``fill_gather_reduce`` are
     ``torch.autograd.Function``s when their storage (or fill rows) require
     grad, the ports of the reference's ``custom_vjp``s: the backward is the
@@ -50,6 +54,7 @@ ROADMAP Queue 3).
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Dict, Tuple
 
 import torch
@@ -77,12 +82,30 @@ def reset_launch_counts() -> None:
             c[k] = 0
 
 
+#: set inside :func:`kernel_footprint`
+_FOOTPRINT = [False]
+
+
+@contextlib.contextmanager
+def kernel_footprint():
+    """Within: ``meta`` tensors take the hand-written kernels' route, whose
+    launchers allocate what they allocate on the card and launch nothing —
+    the dry run's memory pass counts the kernels' footprint, not the plain
+    versions' temporaries (a (B, H, Sq, Skv) score tensor)."""
+    _FOOTPRINT[0], saved = True, _FOOTPRINT[0]
+    try:
+        yield
+    finally:
+        _FOOTPRINT[0] = saved
+
+
 def _route(t: torch.Tensor) -> str:
     """"cuda" (the hand-written kernel) or "cpu" (the plain version). A
     ``meta`` tensor takes the plain version's route: the dry run evaluates
-    a step abstractly, shapes and dtypes only (``launch/dryrun.py``)."""
+    a step abstractly, shapes and dtypes only (``launch/dryrun.py``); inside
+    :func:`kernel_footprint`, the kernel's."""
     if t.device.type == "meta":
-        return "cpu"
+        return "cuda" if _FOOTPRINT[0] else "cpu"
     if t.device.type not in ("cuda", "cpu"):
         raise ValueError(f"no kernel for {t.device} tensors: use cuda or cpu")
     return t.device.type

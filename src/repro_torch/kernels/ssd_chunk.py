@@ -6,7 +6,9 @@ holds the kernels' bound and design note. Routes by ``x``'s dtype
 (:data:`ROUTES`): bf16 makes two CUDA launches per call, G = C B^T once per
 (batch, group, chunk) into an fp32 workspace that this launcher allocates
 (:func:`workspace_shape`), then the scan on the tensor cores; fp32 makes
-one launch of the FMA kernel. The launcher takes CUDA tensors only: it checks
+one launch of the FMA kernel. The launcher takes CUDA tensors only (``meta``
+ones too: the dry run's footprint pass, which allocates the outputs and
+workspaces and launches nothing): it checks
 device, dtype, shape, contiguity and the shapes the route takes, launches on
 the current stream, raises on the launch's CUDA error, and counts each CALL in
 :data:`LAUNCHES` (both dtypes under the kernel's name, one per call whatever
@@ -27,7 +29,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from repro_torch.kernels.gather_reduce import _check
+from repro_torch.kernels.gather_reduce import _check, _check_cuda, footprint
 
 #: kernel calls since the last reset — one is added where a call's
 #: launches succeed, and nowhere else
@@ -105,8 +107,7 @@ def _lib() -> ctypes.CDLL:
 def _check_operands(x, dt, A, Bm, Cm, Q: int) -> Tuple[int, ...]:
     """The forward's operand checks (the backward's too) -> (Bt, S, nh, hd,
     ng, ds)."""
-    if x.device.type != "cuda":
-        raise ValueError(f"CUDA kernel called on a {x.device} tensor")
+    _check_cuda(x)
     dev = x.device
     _check(x, "x", (torch.float32, torch.bfloat16), dev)
     for t, name in ((dt, "dt"), (A, "A"), (Bm, "Bm"), (Cm, "Cm")):
@@ -144,6 +145,10 @@ def ssd_chunk_scan(
     if x.dtype == torch.bfloat16:
         work = torch.empty(workspace_shape(Bt, S, ng, ds, Q), dtype=torch.float32,
                            device=dev)
+    y = torch.empty_like(x)
+    h = torch.empty((Bt, nh, hd, ds), dtype=torch.float32, device=dev)
+    if footprint(x):
+        return y, h
     lib = _lib()
     ptrs = [x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(), Cm.data_ptr()]
     if work is None:
@@ -155,8 +160,6 @@ def ssd_chunk_scan(
     else:
         fn = lib.repro_ssd_chunk_scan_bf16
         ptrs.append(work.data_ptr())
-    y = torch.empty_like(x)
-    h = torch.empty((Bt, nh, hd, ds), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         err = fn(*ptrs, y.data_ptr(), h.data_ptr(), Bt, S, nh, hd, ng, ds, Q,
                  torch.cuda.current_stream(dev).cuda_stream)
@@ -255,18 +258,21 @@ def ssd_chunk_scan_bwd(
                              f"{(Bt, nh, hd, ds)}")
     bf16 = x.dtype == torch.bfloat16
     shapes = bwd_workspace_shapes(Bt, S, nh, hd, ng, ds, Q, x.dtype)  # raises first
-    lib = _bwd_lib()
-    smem = (lib.repro_ssd_bwd_bf16_smem_bytes if bf16 else lib.repro_ssd_bwd_smem_bytes)(
-        hd, ds, Q)
-    if smem > MAX_SMEM:
-        raise ValueError(f"chunk {Q} at hd {hd}, ds {ds} needs {smem} bytes of shared "
-                         f"memory, more than a block's {MAX_SMEM}")
+    if not footprint(x):
+        lib = _bwd_lib()
+        smem = (lib.repro_ssd_bwd_bf16_smem_bytes if bf16 else lib.repro_ssd_bwd_smem_bytes)(
+            hd, ds, Q)
+        if smem > MAX_SMEM:
+            raise ValueError(f"chunk {Q} at hd {hd}, ds {ds} needs {smem} bytes of shared "
+                             f"memory, more than a block's {MAX_SMEM}")
     work = {k: torch.empty(shape, dtype=dt_, device=dev) for k, (shape, dt_) in shapes.items()}
     dx = torch.empty_like(x)
     ddt = torch.empty_like(dt)
     dA = torch.empty_like(A)
     dBm = torch.empty_like(Bm)
     dCm = torch.empty_like(Cm)
+    if footprint(x):
+        return dx, ddt, dA, dBm, dCm
     if bf16:
         fn = lib.repro_ssd_chunk_scan_bwd_bf16
         ptrs = [x, dt, A, Bm, Cm, dy, dh_final, work["W"], work["cum"], work["Hs"],

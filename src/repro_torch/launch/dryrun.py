@@ -1,6 +1,7 @@
 """Dry run of the port: for every (arch x input-shape x mesh) cell, what one
-device of the production mesh holds and what the step computes, without
-allocating; and the DLRM full-table train step it lowers.
+device of the production mesh holds, allocates and sends while it runs the
+cell's step, without allocating; and the DLRM full-table train step it
+lowers.
 
 Port of ``repro/launch/dryrun.py``:
 
@@ -14,7 +15,7 @@ git-ignored). Each cell records:
   * ``arg_bytes_per_device`` — the bytes of one device's arguments of the
     cell's step, by group (params; the AdamW state with ZeRO-1 for a train
     cell; the decode cache and the token ids and position for a decode
-    cell; the batch), from the specs (``models/api.py``,
+    cell; the batch), computed from the specs (``models/api.py``,
     ``launch/steps.py``) and the ``meta`` shapes: each leaf's bytes over
     the product of the mesh axes its spec names;
   * ``flops`` — the step's floating-point operations at the padded global
@@ -22,14 +23,34 @@ git-ignored). Each cell records:
     on ``meta`` tensors (the hand-written kernels' wrappers send ``meta``
     tensors to their plain versions: ``kernels/ops.py``), and
     ``flops_per_device`` (an even split, computed);
-  * ``fits_card`` — whether one device's arguments fit one 80 GB card.
+  * ``fits_card`` — whether one device's arguments fit one 80 GB card;
+  * ``memory`` and ``collectives`` — rank 0's step itself
+    (:func:`rank_step`): ``make_train_step(cfg, mesh=)`` whole (loss,
+    backward, the sum over data, the clip, the ZeRO-1 AdamW step and its
+    all-gather), ``make_prefill_step``, ``make_serve_step`` or
+    :func:`dlrm_full_train_step`, run on ``meta`` shards of its params,
+    state and data over a fake process group of the mesh's world size
+    (``launch/mesh.py: abstract_rank_mesh``). ``memory`` has the keys of
+    the reference's ``memory_analysis()``: ``argument_size_in_bytes`` (the
+    arguments' storages at entry, equal to ``arg_bytes_per_device``'s
+    total), ``output_size_in_bytes`` (the outputs that alias no argument),
+    ``alias_size_in_bytes`` (outputs written in place into arguments: a
+    train step's params and state, a decode step's cache),
+    ``peak_memory_in_bytes`` (the most live bytes during the step,
+    arguments included: ``launch/hlo_stats.py: LiveBytes``) and
+    ``temp_size_in_bytes`` (the peak less the arguments). The hand-written
+    kernels' wrappers allocate there what they allocate on the card
+    (``ops.kernel_footprint``), not the plain versions' temporaries.
+    ``generated_code_size_in_bytes`` has no meaning without a compiled
+    module and is left out. ``collectives`` is
+    ``hlo_stats.collective_stats`` of the records the step's collectives
+    kept, in the reference's shape; ``peak_fits_card`` whether the peak
+    fits one 80 GB card.
 
-Every number is computed, not measured. The reference's ``temp`` and
-``peak`` bytes and its collective schedule come from XLA's SPMD compile of
-the partitioned step; the port's partitioned LM steps run
-(``launch/steps.py: make_train_step(mesh=)``, ``make_prefill_step``,
-``make_serve_step``), and the measured temp and peak bytes of each wait
-(ROADMAP.md Queue 1 item 24).
+``method`` says how each number was obtained. The peak counts the
+storages the step's aten ops return, so not an allocator's rounding, a
+library's own workspace (cuBLAS's, a sort's), or the communicator's
+buffers; ``chip_smoke.py`` holds it against the card's allocator at (1, 1).
 
 :func:`dlrm_full_train_step` is the reference's ``_lower_dlrm`` train step
 as a function the port runs: the reference's ``loss_full_tables``, then
@@ -47,17 +68,19 @@ from typing import Dict
 import torch
 
 from repro_torch.configs import SHAPES_BY_NAME, dryrun_cells, get_entry
-from repro_torch.configs.base import ShapeSpec
-from repro_torch.launch.mesh import make_production_mesh
+from repro_torch.configs.base import DLRMConfig, ShapeSpec
+from repro_torch.launch.mesh import MULTI_POD, SINGLE_POD, make_production_mesh
 from repro_torch.models import api, dlrm
 from repro_torch.optim.optimizers import tree_leaves, tree_map
 from repro_torch.parallel.sharding import (
     P,
     dp_axis,
+    local_shard,
     mesh_axes,
     shard_dim,
     is_spec,
     shard_factor,
+    tree_map_specs,
 )
 
 RESULTS_DIR = os.path.join("build", "dryrun")
@@ -261,17 +284,146 @@ def step_flops(arch: str, shape_name: str, mesh) -> int:
     return _flops(lambda: mod.decode_step(params, rc, cache, tokens, shape.seq_len - 1))
 
 
+# ---------------------------------------------------------------------------
+# one rank's step on meta shards: memory and collectives
+# ---------------------------------------------------------------------------
+
+
+def tensors(obj) -> list:
+    """The tensors of a tree of dicts, lists and tuples (a module's
+    parameters included), in order."""
+    if isinstance(obj, torch.Tensor):
+        return [obj]
+    if isinstance(obj, torch.nn.Module):
+        return list(obj.parameters())
+    if isinstance(obj, dict):
+        return [t for k in sorted(obj) for t in tensors(obj[k])]
+    if isinstance(obj, (list, tuple)):
+        return [t for v in obj for t in tensors(v)]
+    return []
+
+
+def _own(spec, t, mesh):
+    """This rank's shard of the global ``meta`` tensor ``t`` as a tensor
+    of its own (a storage of the shard's bytes)."""
+    return local_shard(t, spec, mesh).clone()
+
+
+def _rank_call(cfg, shape: ShapeSpec, mesh):
+    """(step fn, its arguments, bytes of a host scalar argument): the step
+    of ``cfg`` at ``shape`` for this rank of ``mesh``, its arguments
+    ``meta`` shards."""
+    from repro_torch.launch import steps
+
+    ax = mesh_axes(mesh)
+    if isinstance(cfg, DLRMConfig):
+        specs = dlrm.full_specs(cfg, ax)
+        tables = torch.empty((cfg.total_rows, cfg.embed_dim), device="meta")
+        params = {"tables": _own(specs["tables"], tables, mesh),
+                  "mlps": dlrm.DLRM(cfg).to("meta")}
+        batch = tree_map_specs(lambda sp, t: _own(sp, t, mesh), dlrm_batch_specs(ax),
+                               dlrm_abstract_batch(cfg, shape))
+        return (lambda p, b: dlrm_full_train_step(p, cfg, b, mesh)), (params, batch), 0
+    params = api.local_params(api.abstract_params(cfg, ax), cfg, mesh)
+    if shape.kind == "decode":
+        dec, sp = steps.make_serve_step(cfg, mesh, shape)
+        cache = tree_map_specs(lambda s_, t: _own(s_, t, mesh), sp["cache"],
+                               steps.abstract_cache(cfg, mesh, shape))
+        b_ax = shard_dim(ax, shape.global_batch, dp_axis(ax))
+        tokens = _own(P(b_ax, None), torch.empty((shape.global_batch, 1), dtype=torch.int32,
+                                                 device="meta"), mesh)
+        # the position is a host int: the reference's replicated int32 scalar
+        return (lambda p, c, t: dec(p, c, t, shape.seq_len - 1)), (params, cache, tokens), 4
+    batch = tree_map_specs(lambda sp, t: _own(sp, t, mesh), api.batch_specs(cfg, shape, ax),
+                           api.abstract_batch(cfg, shape))
+    if shape.kind == "prefill":
+        pre, _ = steps.make_prefill_step(cfg, mesh, shape)
+        return pre, (params, batch), 0
+    step, opt = steps.make_train_step(cfg, mesh=mesh)
+    return step, (params, opt.init(params), batch), 0
+
+
+def rank_step(cfg, shape: ShapeSpec, mesh_shape, rank: int = 0) -> dict:
+    """One rank's step of ``cfg`` (an LM config, its layers cut as a caller
+    cuts them, or a ``DLRMConfig``: :func:`dlrm_full_train_step`) at
+    ``shape`` over a mesh of ``mesh_shape`` ((data, model), or (pod, data,
+    model); (1, 1) included), run on ``meta`` shards over a fake process
+    group of the mesh's world size as ``rank``, the kernels' wrappers
+    allocating what they allocate on the card. -> {"memory": the
+    reference's ``memory_analysis()`` keys (the module docstring),
+    "collectives": ``collective_stats`` of the step's records, "seconds"}."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch.hlo_stats import LiveBytes, collective_stats
+    from repro_torch.launch.mesh import abstract_rank_mesh
+    from repro_torch.parallel import collectives as C
+
+    t0 = time.time()
+    with abstract_rank_mesh(mesh_shape, rank=rank) as mesh:
+        fn, args, host_bytes = _rank_call(cfg, shape, mesh)
+        inputs = tensors(args)
+        tracker = LiveBytes("meta")
+        arguments = tracker.hold(inputs) + host_bytes
+        C.reset_collective_records()
+        with torch.enable_grad(), ops.kernel_footprint(), tracker:
+            out = fn(*args)
+        records = C.collective_records()
+        del fn, args
+        seen, output, alias = set(), 0, 0
+        in_args = {id(t.untyped_storage()) for t in inputs}
+        for t in tensors(out):
+            st = t.untyped_storage()
+            if t.device.type != "meta" or id(st) in seen:
+                continue
+            seen.add(id(st))
+            if id(st) in in_args:
+                alias += st.nbytes()
+            else:
+                output += st.nbytes()
+        peak = tracker.peak + host_bytes
+    memory = {"argument_size_in_bytes": arguments, "output_size_in_bytes": output,
+              "alias_size_in_bytes": alias, "temp_size_in_bytes": peak - arguments,
+              "peak_memory_in_bytes": peak}
+    return {"memory": memory, "collectives": collective_stats(records),
+            "seconds": round(time.time() - t0, 2)}
+
+
+def cell_config(arch: str, shape_name: str):
+    """(the cell's config, its ShapeSpec)."""
+    entry = get_entry(arch)
+    shape = entry.shapes[0] if arch == "dlrm-scratchpipe" else SHAPES_BY_NAME[shape_name]
+    return entry.config, shape
+
+
 def run_cell(arch: str, shape_name: str, multi_pod: bool) -> dict:
+    """The cell's record: the computed argument bytes and flops, and rank
+    0's step on the production mesh (:func:`rank_step`). Raises when the
+    step's argument bytes are not the computed ones."""
     mesh = make_production_mesh(multi_pod=multi_pod)
-    rec = {"arch": arch, "shape": shape_name,
-           "mesh": "2x16x16" if multi_pod else "16x16", "devices": mesh.size(),
-           "computed_not_measured": True}
+    name = "2x16x16" if multi_pod else "16x16"
+    rec = {"arch": arch, "shape": shape_name, "mesh": name, "devices": mesh.size(),
+           "rank": 0,
+           "method": {
+               "arg_bytes_per_device": "computed: each leaf's bytes over its spec's axes",
+               "flops": "FlopCounterMode over the step at the global shapes on meta "
+                        "tensors, the kernels' plain versions",
+               "memory": f"rank 0's step on meta shards over a fake process group of "
+                         f"{mesh.size()} ranks: the live bytes of the storages its ops "
+                         "return, the hand-written kernels' own allocations",
+               "collectives": "the records of rank 0's collectives in that step"}}
     t0 = time.time()
     rec["arg_bytes_per_device"] = arg_bytes(arch, shape_name, mesh)
     rec["fits_card"] = rec["arg_bytes_per_device"]["total"] <= CARD_BYTES
     with torch.enable_grad():
         rec["flops"] = step_flops(arch, shape_name, mesh)
     rec["flops_per_device"] = rec["flops"] / mesh.size()
+    cfg, shape = cell_config(arch, shape_name)
+    step = rank_step(cfg, shape, (MULTI_POD if multi_pod else SINGLE_POD)[0])
+    rec["memory"], rec["collectives"] = step["memory"], step["collectives"]
+    if rec["memory"]["argument_size_in_bytes"] != rec["arg_bytes_per_device"]["total"]:
+        raise RuntimeError(f"{arch} {shape_name} {name}: the step's arguments hold "
+                           f"{rec['memory']['argument_size_in_bytes']} bytes, the specs "
+                           f"give {rec['arg_bytes_per_device']['total']}")
+    rec["peak_fits_card"] = rec["memory"]["peak_memory_in_bytes"] <= CARD_BYTES
     rec["seconds"] = round(time.time() - t0, 2)
     return rec
 
@@ -315,10 +467,15 @@ def main(argv=None) -> int:
             with open(path, "w") as f:
                 json.dump(rec, f, indent=1)
             if rec.get("ok"):
-                b = rec["arg_bytes_per_device"]
+                b, m = rec["arg_bytes_per_device"], rec["memory"]
+                c = rec["collectives"]["total"]
                 print(f"  ok arg_bytes/dev={b['total']:.4e} fits_card={rec['fits_card']} "
-                      f"flops={rec['flops']:.4e} flops/dev={rec['flops_per_device']:.4e} "
-                      f"({rec['seconds']}s)", flush=True)
+                      f"flops={rec['flops']:.4e} flops/dev={rec['flops_per_device']:.4e}\n"
+                      f"     peak/dev={m['peak_memory_in_bytes']:.4e} "
+                      f"temp/dev={m['temp_size_in_bytes']:.4e} "
+                      f"out={m['output_size_in_bytes']:.4e} alias={m['alias_size_in_bytes']:.4e} "
+                      f"peak_fits_card={rec['peak_fits_card']} collectives={c['count']} "
+                      f"coll_bytes/dev={c['bytes_in']:.4e} ({rec['seconds']}s)", flush=True)
     if failures:
         raise SystemExit(f"{failures} cell(s) failed")
     return 0

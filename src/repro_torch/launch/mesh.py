@@ -17,9 +17,16 @@ Port of ``repro/launch/mesh.py``:
     mesh needs the caller's group (``torch.distributed.init_process_group``
     with its own address, rank and world size). Nothing falls back from
     NCCL to gloo.
+  * :func:`abstract_rank_mesh` — one rank of a mesh of any shape, the
+    production layouts included, as a ``DeviceMesh`` over a fake process
+    group of the mesh's world size (torch's test backend: collectives
+    complete at once and move nothing), on no device and with no network:
+    the dry run (``launch/dryrun.py``) runs a rank's step on ``meta``
+    shards over it. Never a path that trains or serves.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Tuple
 
 #: the reference's production layouts
@@ -115,3 +122,40 @@ def make_host_mesh(data: int = 1, model: int = 1, device: str = "cuda", pod=None
         raise RuntimeError(f"the process group runs {have}; device={device!r} "
                            f"needs {backend}")
     return init_device_mesh(device, shape, mesh_dim_names=names)
+
+
+@contextlib.contextmanager
+def abstract_rank_mesh(shape: Tuple[int, ...], rank: int = 0):
+    """A ``DeviceMesh`` of ``shape`` (names ("data", "model"), or with a
+    leading "pod" for three dims) over a fake process group of
+    ``prod(shape)`` ranks, as ``rank``: its coordinates, groups and shard
+    offsets are that rank's, and its collectives complete without moving a
+    byte. No device and no network; the group is torn down on exit. For
+    the dry run's ``meta`` steps only. Raises when a process group is
+    already running, and when this torch lacks the fake group
+    (``torch.testing._internal.distributed.fake_pg``)."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    try:
+        from torch.testing._internal.distributed.fake_pg import FakeStore
+    except ImportError as e:  # the one torch-internal module the port uses
+        raise RuntimeError(
+            "the dry run's abstract rank needs torch's fake process group "
+            "(torch.testing._internal.distributed.fake_pg), which this torch build "
+            f"lacks: {e}") from e
+    shape = tuple(int(n) for n in shape)
+    names = SINGLE_POD[1] if len(shape) == 2 else MULTI_POD[1]
+    world = 1
+    for n in shape:
+        world *= n
+    if not 0 <= rank < world:
+        raise ValueError(f"rank {rank} is not in a {shape} mesh of {world} ranks")
+    if dist.is_initialized():
+        raise RuntimeError("a process group is running: the dry run's abstract rank "
+                           "starts its own fake group, with no other running")
+    dist.init_process_group("fake", store=FakeStore(), rank=rank, world_size=world)
+    try:
+        yield init_device_mesh("cpu", shape, mesh_dim_names=names)
+    finally:
+        dist.destroy_process_group()

@@ -269,7 +269,6 @@ def _run_lm(args, cfg, params, dev, mesh) -> Dict[str, Any]:
 
     from repro_torch.configs import get_config, get_smoke_config
     from repro_torch.configs.base import ShapeSpec
-    from repro_torch.launch.steps import local_params
     from repro_torch.models import api
     from repro_torch.parallel import collectives as C
     from repro_torch.parallel.sharding import data_index, mesh_axes
@@ -290,7 +289,7 @@ def _run_lm(args, cfg, params, dev, mesh) -> Dict[str, Any]:
         import torch.distributed as dist
 
         rank, split = dist.get_rank(), args.batch % ax.data_size == 0
-        params = local_params(params, cfg, mesh)
+        params = api.local_params(params, cfg, mesh)
         if split:
             b = args.batch // ax.data_size
             batch = {k: v[data_index(mesh) * b:(data_index(mesh) + 1) * b]

@@ -38,7 +38,7 @@ from repro_torch.models import api
 from repro_torch.optim import AdamW, clip_by_global_norm
 from repro_torch.optim.optimizers import Zero1, tree_leaves, tree_map
 from repro_torch.parallel import collectives as C
-from repro_torch.parallel.sharding import (P, local_shard, mesh_axes, spec_leaves,
+from repro_torch.parallel.sharding import (P, mesh_axes, spec_leaves,
                                            tree_map_specs, zero1_spec)
 
 
@@ -97,7 +97,9 @@ def make_train_step(cfg: ModelConfig, *, lr: float = 3e-4, mesh=None) -> Tuple[C
     a non-finite one (``nan_policy="skip"``) by keeping the old state. A
     step whose loss is not finite therefore updates nothing here: the loss
     is read on the host (one sync per step, which the supervisor makes
-    anyway) before the optimizer runs.
+    anyway) before the optimizer runs. A ``meta`` loss (the dry run's
+    abstract rank, ``launch/dryrun.py``) has no value to read: its step
+    runs the optimizer.
 
     With a ``mesh`` (a ``DeviceMesh`` ("data", "model") or ("pod", "data",
     "model"); every family) the model is
@@ -134,22 +136,11 @@ def make_train_step(cfg: ModelConfig, *, lr: float = 3e-4, mesh=None) -> Tuple[C
         else:
             C.sum_tree_over_data(grads, specs, mesh)
             grads, gnorm = clip_by_global_norm(grads, 1.0, specs, mesh)
-        if bool(torch.isfinite(loss)):
+        if loss.device.type == "meta" or bool(torch.isfinite(loss)):
             params, opt_state = opt.step(params, grads, opt_state, lr)
         return params, opt_state, {"loss": loss.detach(), "grad_norm": gnorm}
 
     return train_step, opt
-
-
-def local_params(params, cfg: ModelConfig, mesh):
-    """This rank's shards of the global ``params`` (padded for ``mesh``)
-    under the train step's param specs: a shard that is the whole leaf is
-    the leaf itself, a part is copied (so the global tree can be freed)."""
-    def own(spec, t):
-        s = local_shard(t, spec, mesh)
-        return t if s.shape == t.shape else s.clone()
-
-    return tree_map_specs(own, api.param_specs(cfg, mesh_axes(mesh)), params)
 
 
 def make_prefill_step(cfg: ModelConfig, mesh, shape: ShapeSpec):

@@ -580,7 +580,7 @@ def _train_lm(args, cfg, step_hook, dev, mesh) -> Dict[str, Any]:
         if args.batch % ax.data_size:
             raise ValueError(f"--batch {args.batch} does not divide over the "
                              f"{ax.data_size} data ranks of --mesh {args.mesh}")
-        params = S.local_params(api.init(cfg, gen, device=dev, ax=ax), cfg, mesh)
+        params = api.local_params(api.init(cfg, gen, device=dev, ax=ax), cfg, mesh)
         b, lo = args.batch // ax.data_size, data_index(mesh) * (args.batch // ax.data_size)
 
         def take(batch):

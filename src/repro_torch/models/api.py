@@ -7,7 +7,7 @@ Port of ``repro/models/api.py`` for every LM family of the reference:
 ``encoder`` and ``vlm`` transformer families: serving, the training loss
 (``make_loss_fn``), and the mesh half: :func:`runtime_config` with the
 reference's TP padding (``ax=None`` is one card: nothing padded),
-:func:`param_specs`, :func:`abstract_params` (tensors on the ``meta``
+:func:`param_specs`, :func:`local_params`, :func:`abstract_params` (tensors on the ``meta``
 device: shapes and dtypes, no storage), :func:`cache_specs`,
 :func:`abstract_cache`, :func:`batch_specs` / :func:`batch_shardings` and
 :func:`abstract_batch`. Specs follow the port's trees (per-layer lists
@@ -31,7 +31,8 @@ import torch
 from repro_torch.configs.base import ModelConfig, ShapeSpec
 from repro_torch.models import hybrid, ssm_lm, transformer
 from repro_torch.models.transformer import FRAME_DIM, PATCH_DIM
-from repro_torch.parallel.sharding import MeshAxes, P, dp_axis, mesh_axes, named, shard_dim
+from repro_torch.parallel.sharding import (MeshAxes, P, dp_axis, local_shard, mesh_axes, named,
+                                           shard_dim, tree_map_specs)
 
 _FAMILY_MOD = {"hybrid": hybrid, "ssm": ssm_lm, "dense": transformer,
                "moe": transformer, "encoder": transformer, "vlm": transformer}
@@ -83,6 +84,21 @@ def abstract_params(cfg: ModelConfig, ax: Optional[MeshAxes] = None):
 def param_specs(cfg: ModelConfig, ax: MeshAxes):
     rc, vp = runtime_config(cfg, ax)
     return family_module(rc).param_specs(rc, ax, vp)
+
+
+def local_params(params, cfg: ModelConfig, mesh, without: Tuple[str, ...] = ()):
+    """This rank's shards of the global ``params`` (padded for ``mesh``)
+    under :func:`param_specs`: a shard that is the whole leaf is the leaf
+    itself, a part is copied (so the global tree can be freed). ``without``
+    names the top-level params the tree leaves out (``"embed"`` for
+    ``CachedEmbeddingLM``, whose host table holds it); any other missing
+    param raises."""
+    def own(spec, t):
+        s = local_shard(t, spec, mesh)
+        return t if s.shape == t.shape else s.clone()
+
+    specs = param_specs(cfg, mesh_axes(mesh))
+    return tree_map_specs(own, {k: v for k, v in specs.items() if k not in without}, params)
 
 
 #: the families whose training the port carries (``make_loss_fn``), at one

@@ -2,8 +2,10 @@
 
   * the CLI at ``--arch chatglm3-6b --shape train_4k --mesh single`` and the
     DLRM cell write their JSON into the directory ``--out`` names: the
-    per-device argument bytes by group, the step's flops (> 0) and whether
-    one device's arguments fit a card;
+    per-device argument bytes by group, the step's flops (> 0), whether
+    one device's arguments fit a card, and how each number was obtained
+    (``tests/test_torch_dryrun_memory.py`` holds the memory and collectives
+    of rank 0's step);
   * the hand-written kernels' wrappers send ``meta`` tensors to their plain
     versions (the dry run's abstract evaluation), and a CUDA tensor still
     never reaches a plain version.
@@ -38,7 +40,9 @@ def test_cli_lm_cell_writes_its_json(tmp_path):
     assert r.returncode == 0, r.stderr[-3000:]
     with open(tmp_path / "chatglm3-6b__train_4k__16x16.json") as f:
         rec = json.load(f)
-    assert rec["ok"] and rec["devices"] == 256 and rec["computed_not_measured"]
+    assert rec["ok"] and rec["devices"] == 256 and rec["rank"] == 0
+    assert rec["method"]["arg_bytes_per_device"].startswith("computed")
+    assert "fake process group of 256 ranks" in rec["method"]["memory"]
     b = rec["arg_bytes_per_device"]
     assert set(b) == {"params", "opt", "batch", "total"}
     assert b["total"] == b["params"] + b["opt"] + b["batch"] > 0

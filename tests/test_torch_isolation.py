@@ -279,39 +279,56 @@ def test_unknown_arch_and_missing_mode():
 
 def _dry_run_message(capsys):
     """LM training and serving are ported for every family, at one card
-    and over a mesh (items 18-23); the dry run's measured temp and peak
-    bytes of the partitioned steps wait for item 24."""
-    from repro_torch.launch import dryrun
+    and over a mesh (items 18-23), and so is the dry run of a rank's
+    partitioned step, its peak, temp and collectives (item 24): its
+    docstring names no item."""
+    from repro_torch.launch import dryrun, hlo_stats
 
-    return dryrun.__doc__
+    return dryrun.__doc__ + hlo_stats.__doc__
 
 
 def _supervise_message(capsys):
     """The supervised LM step is ported (items 18 and 20), over a mesh too,
     its ZeRO-1 state split along either stacked dim of a layer list (items
-    21 and 22); the cached-embedding LM, trained outside it, waits for item
-    24 over a mesh."""
+    21 and 22), and so is the cached-embedding LM, trained outside it, over
+    a mesh (item 24): its docstring names no item."""
     from repro_torch.core import cached_embedding
 
     return cached_embedding.__doc__
 
 
+def _ssd_scan_message(capsys):
+    """The reference's ``ssd_scan`` from a given state or in low precision
+    (``h0``, ``low_prec``) is not carried over (item 16)."""
+    import inspect
+
+    from repro_torch.models import mamba2
+
+    return inspect.getsource(mamba2)
+
+
 @pytest.mark.parametrize("message,item", [
-    (_dry_run_message, 24),  # the partitioned steps' measured temp/peak bytes
-    (_supervise_message, 24),  # the cached-embedding LM over a mesh
-], ids=["lm-training", "supervise"])
+    (_dry_run_message, None),  # item 24, done: a rank's step measured on meta
+    (_supervise_message, None),  # item 24, done: the cached-embedding LM over a mesh
+    (_ssd_scan_message, 16),  # not carried over
+], ids=["lm-training", "supervise", "ssd-scan"])
 def test_not_ported_messages_name_their_roadmap_item(capsys, message, item):
-    """What is not ported yet says where ROADMAP.md queues it."""
-    assert f"ROADMAP.md Queue 1 item {item})" in message(capsys)
+    """What is not ported yet says where ROADMAP.md queues it; a done item
+    is named nowhere."""
+    text = message(capsys)
+    if item is None:
+        assert "ROADMAP.md Queue 1 item" not in text
+    else:
+        assert f"ROADMAP.md Queue 1 item {item}," in text
 
 
 #: the cached-embedding LM and the examples (ports of ``examples/*.py``)
 EXAMPLES = ("repro_torch.examples.lm_cached_embedding", "repro_torch.examples.quickstart",
-            "repro_torch.examples.serve_lm")
+            "repro_torch.examples.serve_lm", "repro_torch.examples.train_dlrm_scratchpipe")
 
 
 def test_cached_embedding_and_examples_listed_and_default_to_cuda(monkeypatch):
-    """``core/cached_embedding.py`` and the three examples are modules of
+    """``core/cached_embedding.py`` and the four examples are modules of
     the port (so the import checks above cover them); they run on the card
     by default and raise without one."""
     import importlib
@@ -339,12 +356,15 @@ def test_cached_embedding_and_examples_listed_and_default_to_cuda(monkeypatch):
                              "device", "--executor", "overlapped"], "OK"),
     ("quickstart", [], "max |scratchpipe - full_table| = 0.00e+00"),
     ("serve_lm", ["--batch", "2", "--prompt-len", "8", "--gen", "3"], "request[1] generated"),
+    ("train_dlrm_scratchpipe", ["--steps", "8", "--tables", "1"],
+     "max loss diff over first 10 steps = 0.00e+00 (same algorithm)"),
 ], ids=["lm_cached_embedding", "lm_cached_embedding-device-overlapped", "quickstart",
-        "serve_lm"])
+        "serve_lm", "train_dlrm_scratchpipe"])
 def test_examples_run_on_the_cpu(capsys, module, argv, expect):
     """Each example's ``main`` with ``--device cpu`` at a tiny size prints
     its reference's lines (the quickstart keeps its own assertion: the
-    cached run equals full-table training)."""
+    cached run equals full-table training; the multi-table DLRM's
+    scratchpipe and static runs from the registry give equal losses)."""
     import importlib
 
     importlib.import_module(f"repro_torch.examples.{module}").main(argv + ["--device", "cpu"])

@@ -36,6 +36,8 @@ import numpy as np
 import pytest
 import torch
 
+from _mesh_lock import cpu_lock
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SRC = os.path.join(ROOT, "src")
 N_RANKS = 8
@@ -272,20 +274,22 @@ def runs(tmp_path_factory):
 
     tmp = str(tmp_path_factory.mktemp("mesh"))
     env = dict(os.environ, PYTHONPATH=SRC, JAX_PLATFORMS="cpu")
-    r = subprocess.run([sys.executable, "-c", REF_SCRIPT, os.path.join(tmp, "ref.npz"),
-                        str(LR), str(DLRM_STEPS)],
-                       capture_output=True, text=True, env=env, timeout=120)
+    with cpu_lock(tmp):
+        r = subprocess.run([sys.executable, "-c", REF_SCRIPT, os.path.join(tmp, "ref.npz"),
+                            str(LR), str(DLRM_STEPS)],
+                           capture_output=True, text=True, env=env, timeout=120)
     assert r.returncode == 0 and "REF-OK" in r.stdout, r.stderr[-3000:]
     # the world-1 checkpoint: chatglm3-6b smoke params from a seed
     params = api.init(get_smoke_config("chatglm3-6b"), torch.Generator().manual_seed(3))
     ckpt = CheckpointManager(os.path.join(tmp, "ckpt"))
     ckpt.save(7, params)
     ckpt.wait()
-    r = subprocess.run([sys.executable, "-c",
-                        "import sys; sys.path.insert(0, sys.argv[2]); "
-                        "import test_torch_mesh as t; t._spawn(sys.argv[1])",
-                        tmp, os.path.dirname(os.path.abspath(__file__))],
-                       capture_output=True, text=True, env=env, timeout=120)
+    with cpu_lock(tmp):
+        r = subprocess.run([sys.executable, "-c",
+                            "import sys; sys.path.insert(0, sys.argv[2]); "
+                            "import test_torch_mesh as t; t._spawn(sys.argv[1])",
+                            tmp, os.path.dirname(os.path.abspath(__file__))],
+                           capture_output=True, text=True, env=env, timeout=120)
     assert r.returncode == 0, r.stderr[-3000:]
     ref = dict(np.load(os.path.join(tmp, "ref.npz")))
     ranks = [dict(np.load(os.path.join(tmp, f"rank{i}.npz"))) for i in range(N_RANKS)]

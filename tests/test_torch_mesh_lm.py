@@ -64,6 +64,8 @@ import numpy as np
 import pytest
 import torch
 
+from _mesh_lock import cpu_lock
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SRC = os.path.join(ROOT, "src")
 N_RANKS, STEPS, LR, BATCH, SEQ = 8, 2, 3e-4, 4, 16
@@ -236,11 +238,12 @@ def _spawn(tmp: str) -> None:
 
 def _run_spawned(fn: str, tmp: str) -> None:
     env = dict(os.environ, PYTHONPATH=SRC)
-    r = subprocess.run([sys.executable, "-c",
-                        "import sys; sys.path.insert(0, sys.argv[2]); "
-                        f"import test_torch_mesh_lm as t; t.{fn}(sys.argv[1])",
-                        tmp, os.path.dirname(os.path.abspath(__file__))],
-                       capture_output=True, text=True, env=env, timeout=120)
+    with cpu_lock(tmp):
+        r = subprocess.run([sys.executable, "-c",
+                            "import sys; sys.path.insert(0, sys.argv[2]); "
+                            f"import test_torch_mesh_lm as t; t.{fn}(sys.argv[1])",
+                            tmp, os.path.dirname(os.path.abspath(__file__))],
+                           capture_output=True, text=True, env=env, timeout=120)
     assert r.returncode == 0, r.stderr[-3000:]
 
 
@@ -251,9 +254,11 @@ def runs(tmp_path_factory):
     env = dict(os.environ, PYTHONPATH=SRC, JAX_PLATFORMS="cpu")
     for g in REF_GROUPS:
         cells = json.dumps({c: CELLS[c] for c in g})
-        r = subprocess.run([sys.executable, "-c", REF_SCRIPT, os.path.join(tmp, f"ref_{g}.npz"),
-                            str(LR), str(BATCH), str(SEQ), str(STEPS), cells],
-                           capture_output=True, text=True, env=env, timeout=120)
+        with cpu_lock(tmp):
+            r = subprocess.run([sys.executable, "-c", REF_SCRIPT,
+                                os.path.join(tmp, f"ref_{g}.npz"), str(LR), str(BATCH),
+                                str(SEQ), str(STEPS), cells],
+                               capture_output=True, text=True, env=env, timeout=120)
         assert r.returncode == 0 and "REF-OK" in r.stdout, r.stderr[-3000:]
     _run_spawned("_spawn", tmp)
     ref = {}

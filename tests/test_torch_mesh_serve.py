@@ -82,6 +82,7 @@ import numpy as np
 import pytest
 import torch
 
+from _mesh_lock import cpu_lock
 from test_torch_mesh_lm import SRC, _flat, _nested
 
 N_RANKS, BATCH, PROMPT, GEN = 8, 4, 16, 8
@@ -262,7 +263,7 @@ def _steps_rank(mesh, out) -> None:
     for arch in STEP_ARCHS:
         cfg = get_smoke_config(arch)
         gen = torch.Generator().manual_seed(0)
-        params = S.local_params(api.init(cfg, gen, ax=ax), cfg, mesh)
+        params = api.local_params(api.init(cfg, gen, ax=ax), cfg, mesh)
         pre_shape = ShapeSpec("serve", PROMPT, BATCH, "prefill")
         slots = serve.kv_cache_slots(cfg, PROMPT, GEN)
         pre, pre_specs = S.make_prefill_step(cfg, mesh, pre_shape)
@@ -351,11 +352,12 @@ def _spawn(tmp: str) -> None:
 
 def _run_spawned(fn: str, tmp: str) -> None:
     env = dict(os.environ, PYTHONPATH=SRC)
-    r = subprocess.run([sys.executable, "-c",
-                        "import sys; sys.path.insert(0, sys.argv[2]); "
-                        f"import test_torch_mesh_serve as t; t.{fn}(sys.argv[1])",
-                        tmp, os.path.dirname(os.path.abspath(__file__))],
-                       capture_output=True, text=True, env=env, timeout=180)
+    with cpu_lock(tmp):
+        r = subprocess.run([sys.executable, "-c",
+                            "import sys; sys.path.insert(0, sys.argv[2]); "
+                            f"import test_torch_mesh_serve as t; t.{fn}(sys.argv[1])",
+                            tmp, os.path.dirname(os.path.abspath(__file__))],
+                           capture_output=True, text=True, env=env, timeout=180)
     assert r.returncode == 0, r.stderr[-3000:]
 
 
@@ -365,19 +367,20 @@ def runs(tmp_path_factory):
     tmp = str(tmp_path_factory.mktemp("mesh_serve"))
     env = dict(os.environ, PYTHONPATH=SRC, JAX_PLATFORMS="cpu")
     procs = []
-    for g in REF_GROUPS:
-        cells = json.dumps({c: _spec(c) for c in g})
-        procs.append(subprocess.Popen(
-            [sys.executable, "-c", REF_SCRIPT, os.path.join(tmp, f"ref_{g}.npz"), cells],
-            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env))
-    for p in procs:
-        try:
-            stdout, stderr = p.communicate(timeout=120)
-        except subprocess.TimeoutExpired:
-            for q in procs:
-                q.kill()
-            raise
-        assert p.returncode == 0 and "REF-OK" in stdout, stderr[-3000:]
+    with cpu_lock(tmp):
+        for g in REF_GROUPS:
+            cells = json.dumps({c: _spec(c) for c in g})
+            procs.append(subprocess.Popen(
+                [sys.executable, "-c", REF_SCRIPT, os.path.join(tmp, f"ref_{g}.npz"), cells],
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env))
+        for p in procs:
+            try:
+                stdout, stderr = p.communicate(timeout=120)
+            except subprocess.TimeoutExpired:
+                for q in procs:
+                    q.kill()
+                raise
+            assert p.returncode == 0 and "REF-OK" in stdout, stderr[-3000:]
     _run_spawned("_spawn", tmp)
     ranks, extra = [], []
     for i in range(N_RANKS):
