@@ -510,6 +510,34 @@ Phases, in order; any failure raises and the script exits non-zero:
                the script starts before its build and waits for here.
                Prints an ``lm cached mesh:`` line.
 
+ 28. bf16 storage — run after phase 9, while phase 6's and phase 4's host
+               tables are alive: the fp32 path's bf16 scratchpad
+               (``ScratchPipe(storage_dtype=torch.bfloat16)``, built through
+               its constructor: no launcher has the option) at phase 6's
+               operands (4,000,000 slots of 128 bf16, 1.02 GB), 12 steps
+               each: (i) host/sync split and (ii) device+overlapped fused,
+               and (iii) device+overlapped split at 1,400,000 slots, which
+               evicts from step 8 (its bf16 victims cross d2h as 16 bits
+               and are widened into the masters on the worker threads),
+               from copies of phase 6's table, the plain versions raising,
+               every launch on the main thread, only the bf16 forms
+               launched (``gather_reduce_bf16``, ``fill_bf16``,
+               ``fill_gather_reduce_bf16``, ``scatter_add_bf16``; none of
+               the fp32 ones): each step's loss, the final scratchpad and
+               the flushed table (SHA-256) bitwise equal across (i)-(iii)
+               (the scratchpad's SHA-256 across (i) and (ii)): the
+               write-back of a bf16 row is exact. Then a bf16
+               ``ReadOnlyCacheServer`` serves 8
+               ``inference_mix`` micro-batches at phase 4's operands from
+               phase 4's table, each [Lookup]'s bags bitwise the plain
+               gather over the same bf16 storage. Then each bf16 form at the
+               runs' middle-step operands against its plain version (max
+               |kernel - plain| 0) and timed beside its bound, its plain
+               version and a library call (``F.embedding_bag``,
+               ``index_copy_`` after ``.to(bf16)``, none for the fused form,
+               ``index_add_``, which does not round per add: a time only).
+               Prints a ``bf16 storage:`` line with the phase's seconds.
+
 The traces go to temporary directories removed at exit. The sweep of
 phase 3 covers fp32 fills of D = 5,120 (phase 22's rows) and the fp16
 and int8 forms too, and for them also D in {256,
@@ -530,7 +558,7 @@ the backward's row under ``shapes``) and at phase 24's per-rank operands
 the flash pair its 25c row), with phase 25's runs among their launches;
 ``flash_attention`` and ``ssd_chunk_scan`` carry phase 26's rows 26a and
 26b (``serve_mesh_per_rank``), with phase 26's serves among their
-launches; ``gather_reduce_q`` and the fp16
+launches; the four bf16 forms carry phase 28's numbers and launches; ``gather_reduce_q`` and the fp16
 gather and fp16/int8 fills their times at phase 13's operands under
 ``serve``), the nvidia-smi line and ``{"ok": true, "device": {...}}``.
 """
@@ -2179,6 +2207,335 @@ def time_q_kernels(torch, mods, captured, dev):
         }
         del st0, rows_u, delta
     return out, details
+
+
+# --------------------------------------------------------------------------- #
+# 28. the fp32 path's bf16 scratchpad
+# --------------------------------------------------------------------------- #
+#: phase 28: 12 steps a run at phase 6's operands, 8 serves at phase 4's
+BF16_STEPS, BF16_SERVES = 12, 8
+#: (name, fused, planner, executor, slots: None for the launcher's 4,000,000).
+#: At 1,400,000 slots the stream's rows outgrow the scratchpad from step 8
+#: (1.45M distinct by then) while a 6-batch window holds at most 1.16M: the
+#: bf16 victims cross d2h and are written back, which changes no result
+BF16_RUNS = (("bf16 host/sync split", False, "host", "sync", None),
+             ("bf16 device+overlapped fused", True, "device", "overlapped", None),
+             ("bf16 device+overlapped split, evicting", False, "device", "overlapped",
+              1_400_000))
+#: the kernels' bf16 forms (their launch keys) and the fp32 forms they replace
+BF16_FORMS = ("gather_reduce_bf16", "fill_bf16", "fill_gather_reduce_bf16",
+              "scatter_add_bf16")
+FP32_FORMS = ("gather_reduce", "fill", "fill_gather_reduce", "scatter_add")
+
+
+def bf16_sha256(torch, t) -> str:
+    """SHA-256 of a bf16 tensor's bits."""
+    import hashlib
+
+    return hashlib.sha256(t.view(torch.int16).cpu().numpy().tobytes()).hexdigest()
+
+
+def bf16_spies(mods, captured, at: int):
+    """Wrap the four launchers (already guarded by ``run_guards``) to copy
+    the operands of their ``at``-th call into ``captured`` (the first run
+    that reaches it keeps them). Returns restore()."""
+    gr, gc = mods["gr"], mods["gc"]
+    targets = [(gr, "gather_reduce"), (gr, "fill"), (gr, "fill_gather_reduce"),
+               (gc, "scatter_add")]
+    saved = [(mod, name, getattr(mod, name)) for mod, name in targets]
+    calls = {name: 0 for _, name in targets}
+
+    def spy(name, fn):
+        def wrapper(*a):
+            calls[name] += 1
+            if calls[name] == at and name not in captured:
+                captured[name] = tuple(x.clone() for x in a)
+            return fn(*a)
+        return wrapper
+
+    for mod, name, fn in saved:
+        setattr(mod, name, spy(name, fn))
+
+    def restore():
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+    return restore
+
+
+def bf16_train_run(torch, mods, cfg, base, name, fused, planner, executor, slots, captured,
+                   dev):
+    """One run of a bf16 ScratchPipe built through its constructor (no
+    launcher has the option) from a copy of ``base``: the launcher's
+    trainer, synthetic stream and scratchpad size, the plain versions
+    raising, every launch from the main thread (``run_guards``; under the
+    device planner the numpy planner raises). Returns (stats, runtime,
+    host table, launch counts, seconds)."""
+    ops, ref = mods["ops"], mods["ref"]
+    args = mods["train"].build_parser().parse_args(["--arch", "dlrm-scratchpipe"])
+    host = mods["HostEmbeddingTable"](base.shape[0], base.shape[1], data=base.copy())
+    trainer = mods["dlrm_runtime"].DLRMTrainer(cfg, seed=0, lr=args.lr, device=dev)
+    pipe = mods["pipeline"].ScratchPipe(
+        host, slots or max(2048, int(cfg.total_rows * cfg.cache_fraction)), trainer.train_fn,
+        past_window=cfg.past_window, future_window=cfg.future_window,
+        storage_dtype=torch.bfloat16, planner=planner, executor=executor, device=dev,
+        fused_train_fn=trainer.fused_train_fn if fused else None)
+    tc = mods["TraceConfig"](num_tables=cfg.num_tables, rows_per_table=cfg.rows_per_table,
+                             lookups_per_table=cfg.lookups_per_table, batch_size=BATCH,
+                             locality=args.locality, seed=0)
+    stream = mods["LookaheadStream"](mods["dlrm_batches"](tc, BF16_STEPS))
+    report, unguard = run_guards(mods, planner == "device")
+    unspy = bf16_spies(mods, captured, BF16_STEPS // 2)
+    restore_plain = plain_versions_raise(ref)
+    try:
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        stats = pipe.run(stream, lookahead_fn=stream.peek_ids)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        pipe.flush_to_host()
+    finally:
+        restore_plain()
+        unspy()
+        unguard()
+        pipe.close()
+    off_main, _ = report()
+    check(not off_main, f"{name}: kernel launches off the main thread: {off_main[:5]}")
+    return stats, pipe, host, counts, seconds
+
+
+def check_bf16_counts(name, fused, stats, counts):
+    """Only the bf16 forms launched, each where the run needs it."""
+    n = len(stats)
+    with_fills = sum(1 for st in stats if st.n_miss > 0)
+    check(n == BF16_STEPS and with_fills > 0, f"{name}: {n} steps, {with_fills} with fills")
+    check(not any(counts[k] for k in FP32_FORMS), f"{name}: an fp32 form launched: {counts}")
+    check(counts["scatter_add_bf16"] == n, f"{name}: one scatter_add_bf16 a step: {counts}")
+    fgr, g, f = (counts[k] for k in ("fill_gather_reduce_bf16", "gather_reduce_bf16",
+                                     "fill_bf16"))
+    if fused:
+        check(fgr > 0 and fgr + g == n and fgr + f == with_fills, f"{name}: launches {counts}")
+    else:
+        check(fgr == 0 and g == n and f == with_fills, f"{name}: launches {counts}")
+
+
+def bf16_serve(torch, mods, serve_rows, dev) -> tuple:
+    """A bf16 ReadOnlyCacheServer, built through its constructor at phase
+    4's operands (the launcher's table group, scratchpad size and window),
+    serving ``BF16_SERVES`` inference_mix micro-batches from phase 4's host
+    table (serving never writes it), the plain versions raising. Each
+    [Lookup]'s bags are held, as they are returned, against the plain
+    gather over the same bf16 storage (bitwise). Returns (summary, launch
+    counts)."""
+    from repro_torch.core.table_group import TableGroup
+    from repro_torch.serving import replay_serving
+    from repro_torch.traces.scenarios import scenario_batches
+
+    ops, ref, gr = mods["ops"], mods["ref"], mods["gr"]
+    group = TableGroup.uniform(TABLES, ROWS, DIM)
+    batches = [g for g, _ in scenario_batches("inference_mix", group, BF16_SERVES,
+                                              batch_size=BATCH, lookups_per_table=LOOKUPS,
+                                              seed=0)]
+    host = mods["HostEmbeddingTable"](*serve_rows.shape, data=serve_rows)
+    srv = mods["serving_cache"].ReadOnlyCacheServer(
+        host, mods["serve"].scratchpad_slots(group, BATCH, LOOKUPS, DEPTH, CACHE_FRAC),
+        window=DEPTH, table_group=group, storage_dtype=torch.bfloat16, device=dev)
+    report, unguard = run_guards(mods, False)
+    plain, guarded = ref.gather_reduce_ref, gr.gather_reduce
+    held = {"lookups": 0, "max_abs_err": 0.0, "differ": 0}
+
+    def lookup(storage, flat):
+        out = guarded(storage, flat)
+        want = plain(storage, flat)  # the comparison: no kernel, no count
+        held["lookups"] += 1
+        held["differ"] += not torch.equal(out.view(torch.int16), want.view(torch.int16))
+        held["max_abs_err"] = max(held["max_abs_err"],
+                                  (out.float() - want.float()).abs().max().item())
+        return out
+
+    gr.gather_reduce = lookup
+    restore_plain = plain_versions_raise(ref)
+    try:
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = replay_serving(srv, batches, depth=DEPTH, collect_bags=True)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = ops.launch_counts()
+    finally:
+        restore_plain()
+        gr.gather_reduce = guarded
+        unguard()
+    off_main, _ = report()
+    check(not off_main, f"bf16 serve: launches off the main thread: {off_main[:5]}")
+    check(srv.storage.dtype == torch.bfloat16 and srv.storage.device.type == dev.type,
+          "the bf16 server's scratchpad is not bf16 on the card")
+    check(res["served"] == BF16_SERVES and held["lookups"] == BF16_SERVES
+          and held["differ"] == 0 and held["max_abs_err"] == 0.0,
+          f"bf16 serve: bags differ from the plain gather over its storage: {held}")
+    check(all(b.dtype.name == "float32" and b.shape == (BATCH, TABLES, DIM)
+              and bool(torch.isfinite(torch.from_numpy(b)).all()) for b in res["bags"]),
+          "bf16 serve: bags not finite fp32 of the batch's shape")
+    check(counts["gather_reduce_bf16"] == BF16_SERVES and counts["fill_bf16"] > 0
+          and not any(counts[k] for k in FP32_FORMS), f"bf16 serve: launches {counts}")
+    summary = {"served": res["served"], "hit_rate": res["hit_rate"], "seconds": seconds,
+               "slots": srv.num_slots, "storage_GB": srv.storage.numel() * 2 / 1e9,
+               "bags_held_against_plain": held}
+    del srv, res
+    return summary, counts
+
+
+def time_bf16_kernels(torch, mods, captured, dev) -> dict:
+    """Each bf16 form at the operands of the training runs' middle step
+    (gather, fill and scatter from the split run, the fused kernel from the
+    device+overlapped fused run): bitwise against its plain version, then
+    timed beside its bound, its plain version and one library call.
+    Returns {form: numbers}."""
+    import torch.nn.functional as F
+
+    gr, gc, ref = mods["gr"], mods["gc"], mods["ref"]
+    flush = torch.empty(32 * 1024 * 1024, dtype=torch.float32, device=dev)  # 128 MB > L2
+    out = {}
+
+    def err(a, b):
+        check(torch.equal(a.view(torch.int16), b.view(torch.int16)),
+              "a bf16 kernel differs from its plain version at the training operands")
+        return (a.float() - b.float()).abs().max().item()
+
+    storage, flat = captured.pop("gather_reduce")
+    nb, L = flat.shape
+    D = storage.shape[1]
+    n_unique = int(torch.unique(flat).numel())
+    b_ms, b_by = bound(n_unique * D * 2 + flat.numel() * 4 + nb * D * 2, nb * (L - 1) * D)
+    long_ids = flat.long()
+    out["gather_reduce_bf16"] = {
+        "max_abs_err": err(gr.gather_reduce(storage, flat), ref.gather_reduce_ref(storage, flat)),
+        "ms": median_ms(torch, lambda: gr.gather_reduce(storage, flat), 30, flush),
+        "plain_ms": median_ms(torch, lambda: ref.gather_reduce_ref(storage, flat), 10, flush),
+        "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": median_ms(
+            torch, lambda: F.embedding_bag(long_ids, storage, mode="sum"), 30, flush),
+        "library": "F.embedding_bag(mode='sum') on the bf16 storage",
+        "operands": {"storage": list(storage.shape), "bags": nb, "L": L,
+                     "unique_rows": n_unique},
+    }
+    del long_ids
+
+    st0, slots, rows = captured.pop("fill")
+    scratch = st0.clone()
+    gr.fill(scratch, slots, rows)
+    f_err = err(scratch, ref.fill_ref(st0.clone(), slots, rows))
+    valid = slots < st0.shape[0]
+    n_valid = int(valid.sum().item())
+    v_slots, v_rows = slots[valid].long(), rows[valid]
+    out["fill_bf16"] = {
+        "max_abs_err": f_err,
+        "ms": median_ms(torch, lambda: gr.fill(scratch, slots, rows), 30, flush),
+        "plain_ms": median_ms(torch, lambda: ref.fill_ref(scratch, slots, rows), 10, flush),
+        "bound_ms": bound(n_valid * D * (4 + 2) + slots.numel() * 4, n_valid * D)[0],
+        "bound_by": "bytes",
+        "library_ms": median_ms(
+            torch, lambda: scratch.index_copy_(0, v_slots, v_rows.to(torch.bfloat16)), 30,
+            flush),
+        "library": "index_copy_ after a .to(torch.bfloat16)",
+        "operands": {"F": int(slots.numel()), "valid_rows": n_valid},
+    }
+    del st0, scratch, v_slots, v_rows
+
+    st0, slots, rows, flat = captured.pop("fill_gather_reduce")
+    nb, L = flat.shape
+    got_st = st0.clone()
+    got = gr.fill_gather_reduce(got_st, slots, rows, flat)
+    want_st, want = ref.fill_gather_reduce_ref(st0.clone(), slots, rows, flat)
+    fg_err = max(err(got_st, want_st), err(got, want))
+    del got_st, want_st
+    n_valid = int((slots < st0.shape[0]).sum().item())
+    n_unique = int(torch.unique(flat).numel())
+    b_ms, b_by = bound(n_valid * D * 6 + slots.numel() * 4 + n_unique * D * 2
+                       + flat.numel() * 4 + nb * D * 2, nb * (L - 1) * D + n_valid * D)
+    scratch = st0.clone()
+    out["fill_gather_reduce_bf16"] = {
+        "max_abs_err": fg_err,
+        "ms": median_ms(torch, lambda: gr.fill_gather_reduce(scratch, slots, rows, flat), 30,
+                        flush),
+        "plain_ms": median_ms(
+            torch, lambda: ref.fill_gather_reduce_ref(scratch, slots, rows, flat), 10, flush),
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+        "library": "none: no one PyTorch call fills and gathers",
+        "operands": {"F": int(slots.numel()), "valid_rows": n_valid, "bags": nb, "L": L,
+                     "unique_rows": n_unique},
+    }
+    del st0, scratch
+
+    st0, flat, deltas = captured.pop("scatter_add")
+    nb, L = flat.shape
+    got = st0.clone()
+    gc.scatter_add(got, flat, deltas)
+    s_err = err(got, ref.scatter_add_ref(st0.clone(), flat, deltas))
+    del got
+    seg = torch.unique(flat, return_counts=True)[1]
+    b_ms, b_by = bound(2 * int(seg.numel()) * D * 2 + flat.numel() * 4 + nb * D * 2,
+                       flat.numel() * D)
+    scratch = st0.clone()
+    dup, idx = deltas.repeat_interleave(L, dim=0), flat.reshape(-1).long()
+    out["scatter_add_bf16"] = {
+        "max_abs_err": s_err,
+        "ms": median_ms(torch, lambda: gc.scatter_add(scratch, flat, deltas), 30, flush),
+        "sort_ms": median_ms(torch, lambda: gc.sort_by_slot(flat), 30, flush),
+        "plain_ms": median_ms(torch, lambda: ref.scatter_add_ref(scratch, flat, deltas), 3,
+                              flush),
+        "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": median_ms(torch, lambda: scratch.index_add_(0, idx, dup), 30, flush),
+        "library": "index_add_ on the bf16 storage (a time only: it does not round per add)",
+        "operands": {"bags": nb, "L": L, "unique_rows": int(seg.numel()),
+                     "longest_segment": int(seg.max()),
+                     "long_segments": int((seg > gc.LONG_SEGMENT).sum())},
+    }
+    del st0, scratch, dup, idx
+    return out
+
+
+def bf16_phase(torch, mods, dev, base, serve_rows) -> tuple:
+    """Phase 28: runs (i)-(iii) of a bf16 ScratchPipe, bitwise equal (each
+    step's loss and the flushed table by SHA-256; the final scratchpad too
+    where the slots are the same), the bf16 serve, and the four bf16 forms
+    timed. Returns (summary, {run: launch counts}, {form: numbers})."""
+    t_phase = time.perf_counter()
+    cfg = mods["DLRMConfig"](rows_per_table=ROWS, cache_fraction=TRAIN_CACHE_FRAC)
+    captured, counts_by_run, runs = {}, {}, []
+    for name, fused, planner, executor, slots in BF16_RUNS:
+        stats, pipe, host, counts, seconds = bf16_train_run(
+            torch, mods, cfg, base, name, fused, planner, executor, slots, captured, dev)
+        check(pipe.storage.dtype == torch.bfloat16 and pipe.storage.device.type == dev.type,
+              f"{name}: the scratchpad is not bf16 on the card")
+        check_bf16_counts(name, fused, stats, counts)
+        losses = torch.stack([st.aux["loss"] for st in stats]).cpu()
+        check(bool(torch.isfinite(losses).all()), f"{name}: non-finite loss")
+        runs.append({"run": name, "losses": losses, "seconds": seconds,
+                     "ms_per_step": seconds / len(stats) * 1e3,
+                     "storage_sha256": bf16_sha256(torch, pipe.storage),
+                     "table_sha256": table_digest(host.data),
+                     "storage_GB": pipe.storage.numel() * 2 / 1e9, "slots": pipe.num_slots,
+                     "evicted": sum(st.n_evict for st in stats)})
+        counts_by_run[name] = counts
+        del stats, pipe, host
+        torch.cuda.empty_cache()
+    a = runs[0]
+    for b in runs[1:]:
+        what = f"bf16: {b['run']} against {a['run']}"
+        check(torch.equal(a["losses"], b["losses"]), f"{what}: losses differ at steps "
+              f"{torch.nonzero(a['losses'] != b['losses']).flatten().tolist()}")
+        check(a["table_sha256"] == b["table_sha256"], f"{what}: the flushed tables differ")
+        if a["slots"] == b["slots"]:
+            check(a["storage_sha256"] == b["storage_sha256"], f"{what}: scratchpads differ")
+    check(runs[-1]["evicted"] > 0, f"bf16: {runs[-1]['run']} evicted nothing")
+    serve_summary, counts_by_run["bf16 serve"] = bf16_serve(torch, mods, serve_rows, dev)
+    times = time_bf16_kernels(torch, mods, captured, dev)
+    summary = {
+        "runs": [{k: (v.tolist() if k == "losses" else v) for k, v in r.items()} for r in runs],
+        "serve": serve_summary, "seconds": time.perf_counter() - t_phase,
+    }
+    return summary, counts_by_run, times
 
 
 # --------------------------------------------------------------------------- #
@@ -6827,6 +7184,14 @@ def run_all(torch, mods, dev, ckpt_dir, t_start, worker) -> int:
     del q_captured
     torch.cuda.empty_cache()
 
+    bf16_summary, bf16_counts, bf16_times = bf16_phase(torch, mods, dev, base, serve_rows)
+    print("bf16 storage: " + json.dumps(bf16_summary), flush=True)
+    log(f"bf16 storage: {len(BF16_RUNS)} runs of {BF16_STEPS} steps bitwise equal (losses, "
+        f"flushed table and, at equal slots, scratchpad by SHA-256; the last evicts "
+        f"{bf16_summary['runs'][-1]['evicted']} rows), {BF16_SERVES} serves bitwise the plain "
+        f"gather, 4 bf16 kernels at max |kernel - plain| 0 ({bf16_summary['seconds']:.1f}s)")
+    torch.cuda.empty_cache()
+
     t0 = time.perf_counter()
     log("lm serve: " + " ".join(LM_ARGV))
     res, after_prefill, lm_counts, lm_captured, step_ms = lm_run(torch, mods)
@@ -7015,6 +7380,17 @@ def run_all(torch, mods, dev, ckpt_dir, t_start, worker) -> int:
             t = serve_q_times[name]
             kernels[-1]["max_abs_err"] = max(kernels[-1]["max_abs_err"], t.pop("max_abs_err"))
             kernels[-1]["serve"] = t
+    for name, source, replaces in (
+            ("gather_reduce_bf16", CU_SOURCE, "src/repro/kernels/gather_reduce.py:55"),
+            ("fill_bf16", CU_SOURCE, "src/repro/kernels/gather_reduce.py:146"),
+            ("fill_gather_reduce_bf16", CU_SOURCE, "src/repro/kernels/gather_reduce.py:210"),
+            ("scatter_add_bf16", CU_SOURCE_BWD, "src/repro/kernels/grad_coalesce.py:44")):
+        launches = {run: c[name] for run, c in bf16_counts.items()}
+        kernels.append({
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": sum(launches.values()), "launches_by_run": launches,
+            **bf16_times[name],
+        })
     for name, source, replaces in (
             ("flash_attention", CU_SOURCE_FA, "src/repro/kernels/flash_attention.py:87"),
             ("ssd_chunk_scan", CU_SOURCE_SSD, "src/repro/kernels/ssd_chunk.py:81")):

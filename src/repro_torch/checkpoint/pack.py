@@ -15,7 +15,10 @@ never references a device buffer and the two packages read each other's
 blobs: same wrapper, same version. :func:`unpack_blob` unpickles with a
 restricted loader that builds numpy arrays and builtins only, never a
 class of either package, so loading a blob imports nothing and runs no
-code of its own.
+code of its own. A reference blob may hold bf16 arrays (its bf16
+scratchpad's victims), whose dtype names ``ml_dtypes.bfloat16``: the loader
+builds them as uint16 arrays of their bits instead (numpy has no bfloat16;
+``device.widen_bf16_bits`` gives their fp32 values).
 """
 from __future__ import annotations
 
@@ -57,6 +60,8 @@ class _HostOnlyUnpickler(pickle.Unpickler):
             return super().find_class(module, name)
         if module == "_codecs" and name == "encode":  # numpy's protocol-2 bytes
             return super().find_class(module, name)
+        if (module, name) == ("ml_dtypes", "bfloat16"):  # its bits, as uint16
+            return np.uint16
         raise pickle.UnpicklingError(
             f"checkpoint blob names {module}.{name}: a blob holds numpy arrays "
             "and builtins only")

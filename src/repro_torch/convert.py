@@ -19,14 +19,16 @@ returns), so this module imports nothing of the reference:
     ``shard<i>_`` keys), or the host arrays of a reference checkpoint ->
     a dict the port's ``load_state_arrays`` takes: every array copied, the
     device-planner state checked, the int8 ``storage``/``storage_scale``
-    pair checked, and the in-flight window blob read with the port's
-    restricted unpickler (numpy and builtins only) and packed anew;
+    pair checked, a bf16 ``storage`` (and the bf16 victims in the window)
+    widened exactly to fp32, as the port's snapshots hold it, and the
+    in-flight window blob read with the port's restricted unpickler (numpy
+    and builtins only) and packed anew;
   * :func:`device_planner_state_from_reference` — a reference
     ``DevicePlanner.state_dict()`` (keys ``t{t}_{field}``, ``hold``
     uint32) -> a ``state_dict`` the port's ``DevicePlanner`` loads; both
     planners then plan the same next cycles;
   * :func:`storage_from_reference` — a reference scratchpad storage (an
-    fp32/fp16 array, or an int8 ``QuantStorage`` as a ``(data, scale)``
+    fp32/fp16/bf16 array, or an int8 ``QuantStorage`` as a ``(data, scale)``
     pair of numpy arrays) -> the port's storage on a device, copied, so
     both packages can start from identical quantized state;
   * :func:`mlps_from_reference` — the reference's DLRM ``init_mlps``
@@ -81,6 +83,7 @@ from repro_torch.checkpoint.pack import pack_blob, unpack_blob
 from repro_torch.core.host_table import HostEmbeddingTable
 from repro_torch.core.quantize import QuantStorage
 from repro_torch.core.serving_cache import ReadOnlyCacheServer
+from repro_torch.device import widen_bf16_bits
 
 
 def host_table_from_reference(data: np.ndarray) -> HostEmbeddingTable:
@@ -97,8 +100,21 @@ def load_reference_server_state(server: ReadOnlyCacheServer, arrays: dict) -> No
     and table layout). Every array is copied (a reference snapshot aliases
     the live planner arrays of the server it came from, and on the CPU a
     zero-copy view of its scratchpad), and the queue blob is read with the
-    port's restricted unpickler."""
-    server.load_state_arrays(arrays)
+    port's restricted unpickler. A bf16 scratchpad is widened exactly to
+    fp32 (numpy has no bfloat16), as the port's snapshots hold it."""
+    server.load_state_arrays({**arrays, "storage": _widen_bf16(arrays["storage"])})
+
+
+def _is_bf16(a) -> bool:
+    """A numpy array of ml_dtypes' bfloat16 (the reference's bf16
+    scratchpad), recognized by its dtype's name: the port imports no
+    ml_dtypes."""
+    return getattr(getattr(a, "dtype", None), "name", "") == "bfloat16"
+
+
+def _widen_bf16(a):
+    """A bfloat16 array -> its fp32 values (exact); any other as it is."""
+    return np.asarray(a, dtype=np.float32) if _is_bf16(a) else a
 
 
 def server_state_to_reference(server: ReadOnlyCacheServer) -> Dict[str, np.ndarray]:
@@ -156,7 +172,8 @@ def pipe_state_from_reference(arrays: dict) -> Dict[str, np.ndarray]:
     for key in ("host_table", "storage"):
         if key not in arrays:
             raise ValueError(f"not a runtime snapshot: no {key!r}")
-    out = {k: np.array(v, copy=True) for k, v in arrays.items()
+    bf16 = _is_bf16(arrays["storage"])
+    out = {k: np.array(_widen_bf16(v), copy=True) for k, v in arrays.items()
            if k not in ("window",) and not k.startswith("planner_")}
     if "storage_scale" in out:
         storage_from_reference((out["storage"], out["storage_scale"]))  # checks
@@ -166,7 +183,13 @@ def pipe_state_from_reference(arrays: dict) -> Dict[str, np.ndarray]:
         planner = device_planner_state_from_reference(planner)
     out.update({f"planner_{k}": np.array(v, copy=True) for k, v in planner.items()})
     if "window" in arrays:
-        out["window"] = pack_blob(unpack_blob(arrays["window"]))
+        entries = unpack_blob(arrays["window"])
+        if bf16:  # the victims read from a bf16 scratchpad: their bits, as uint16
+            for e in entries:
+                for key in ("evicted_dev", "evicted_host"):
+                    if getattr(e.get(key), "dtype", None) == np.uint16:
+                        e[key] = widen_bf16_bits(e[key])
+        out["window"] = pack_blob(entries)
     return out
 
 
@@ -186,6 +209,8 @@ def storage_from_reference(storage, device="cpu"):
             raise ValueError(f"data {data.shape} and scale {scale.shape} do not pair")
         return QuantStorage(torch.from_numpy(data).to(device),
                             torch.from_numpy(scale).to(device))
+    if _is_bf16(storage):  # widened exactly, narrowed back on the device
+        return torch.from_numpy(_widen_bf16(storage)).to(device).to(torch.bfloat16)
     arr = np.array(storage, copy=True)
     if arr.dtype not in (np.float32, np.float16) or arr.ndim != 2:
         raise ValueError(f"expected an fp32/fp16 (N, D) array, got {arr.dtype} {arr.shape}")

@@ -23,6 +23,13 @@ given, its looked-up rows updated (the reference donates the buffer and
 returns a new array). The loss stays a device tensor in ``aux``: reading it
 (``float(aux["loss"])``) synchronizes, so the runtimes never do it per step.
 
+A bf16 scratchpad (``ScratchPipe(storage_dtype=torch.bfloat16)``) runs the
+fp32 steps as they are: the gather gives bf16 bags, which the MLP's
+concatenation promotes to fp32 (as ``jnp.concatenate`` does in the
+reference), so their gradient comes back bf16 and ``apply_grad`` rounds
+``-lr`` to bf16 before the product, as jnp's weakly typed ``lr`` is
+(``kernels/ref.py: scatter_deltas``).
+
 At fp16/int8 replica precision the ``*_q`` steps run instead: the gather
 dequantizes in the kernel (fp32 bags into the same loss) and the update
 re-quantizes only the touched rows (``scratchpad.apply_grad_q``). The MLP

@@ -30,9 +30,11 @@ pow-2 by default, or the set ``pad_buckets=`` gives (a trace-derived set,
 ``traces/profiling.py: derive_pad_buckets``, ``launch/train.py
 --adaptive-pad``) — so the kernels see the reference's operands, drop
 sentinels included; the padding changes operand lengths, never results.
-The reference's ``policy``, ``memoize_plan`` and ``record_stage_times``
-options are not carried over: no caller of the port sets them (LRU and the
-memoized planner are the defaults kept).
+``policy`` ("lru", "lfu", "random"; the device planner takes "lru" only,
+as the reference's) and ``memoize_plan`` go to the planner;
+``record_stage_times=True`` fills each ``StepStats.stage_times`` with the
+calling thread's seconds per stage (``plan``, ``collect``, ``exchange``,
+``insert``, ``train``), the reference's keys.
 
 Multi-table (``table_group=``, paper §VI-D): the tables of a
 :class:`~repro_torch.core.table_group.TableGroup` share one scratchpad
@@ -108,13 +110,22 @@ the whole runtime at any cycle, mid-window included (planner, scratchpad,
 host table in place, traffic counters, the in-flight entries), so a
 restored run is bitwise equal to the uninterrupted one.
 
-The reference's ``storage_dtype`` (an fp32-path experiment knob that no
-launcher, benchmark or example of the reference sets) is not carried over.
+bf16 scratchpad (``storage_dtype=torch.bfloat16``, the reference's fp32-path
+experiment knob; no launcher sets it, so none has a flag): the host keeps
+fp32 masters, [Exchange] moves fp32 rows, and the fill kernel rounds them
+into bf16 slots; [Train] gathers bf16 bags into the fp32 MLP and rounds
+each add of the update to bf16 (``core/scratchpad.py``). The victims cross
+d2h as their 16 bits and are widened exactly into the masters on the host
+(numpy has no bfloat16), as ``flush_to_host`` and ``state_arrays`` widen
+the scratchpad. The byte counters price a row at fp32, as the reference's
+do. ``storage_dtype`` with a reduced ``precision`` raises, as in the
+reference, and so does a dtype other than fp32 or bf16.
 """
 from __future__ import annotations
 
 import collections
 import dataclasses
+import time
 from concurrent.futures import ThreadPoolExecutor
 from concurrent.futures import wait as futures_wait
 from typing import Any, Callable, Deque, Dict, Iterator, List, Optional, Sequence, Tuple
@@ -130,7 +141,7 @@ from repro_torch.core.plan import Planner, PlanResult, pad_index, pad_rows
 from repro_torch.core.plan_device import DevicePlanner
 from repro_torch.core.quantize import QuantStorage
 from repro_torch.core.runtime import register_runtime
-from repro_torch.device import HostCopy, PendingCopy, resolve_device
+from repro_torch.device import HostCopy, PendingCopy, resolve_device, to_host
 from repro_torch.obs import NULL_SPAN, resolve as obs_resolve
 from repro_torch.runtime.supervision import (
     OpSupervisor,
@@ -150,9 +161,7 @@ class StepStats:
     n_evict: int
     hit_lookups: int = 0  # lookup-level (non-unique) hit count
     by_table: Any = None  # per-table {hits, misses} (multi-table runs only)
-    # main-thread seconds per stage (kept for field parity with the
-    # reference; the port's runtimes leave it None and time stages from
-    # outside, as chip_smoke.py does)
+    # the calling thread's seconds per stage (ScratchPipe(record_stage_times=True))
     stage_times: Optional[Dict[str, float]] = None
     aux: Any = None
 
@@ -188,9 +197,9 @@ def _wait_rows(pending):
     """The victims' d2h (both halves of an int8 pair) as numpy: on the d2h
     thread a wait for a copy the main thread enqueued (``PendingCopy``);
     under the sync executor a blocking copy of the tensors, on the main
-    thread."""
-    return _map_rows(
-        lambda p: p.wait() if isinstance(p, PendingCopy) else p.cpu().numpy(), pending)
+    thread (bf16 victims widened exactly to fp32)."""
+    return _map_rows(lambda p: p.wait() if isinstance(p, PendingCopy) else to_host(p),
+                     pending)
 
 
 def _to_numpy(x):
@@ -201,6 +210,8 @@ def _to_numpy(x):
     if isinstance(x, tuple):
         return tuple(_to_numpy(a) for a in x)
     if isinstance(x, torch.Tensor):
+        if x.dtype == torch.bfloat16:  # numpy has no bfloat16: widened, exactly
+            return to_host(x)
         return x.detach().to("cpu", copy=True).numpy()
     return np.array(x)
 
@@ -233,6 +244,7 @@ class _InFlight:
     evicted_host: Any = None  # [Exchange] d2h
     evicted_host_f: Optional[SupervisedOp] = None  # overlapped: pending d2h
     stage: int = 0  # stages completed: 1=planned .. 4=inserted
+    times: Dict[str, float] = dataclasses.field(default_factory=dict)  # per stage
 
 
 class ScratchPipe:
@@ -244,12 +256,16 @@ class ScratchPipe:
         *,
         past_window: int = 3,
         future_window: int = 2,
+        policy: str = "lru",
         pipelined: bool = True,
+        storage_dtype=None,
         precision: Optional[str] = None,
         table_group=None,
         slot_budgets=None,
         executor: str = "sync",
         fused_train_fn: Optional[Callable] = None,
+        memoize_plan: bool = True,
+        record_stage_times: bool = False,
         planner: str = "host",
         pad_buckets: Optional[Sequence[int]] = None,
         tracer=None,
@@ -278,12 +294,13 @@ class ScratchPipe:
         self.host = host_table
         self.train_fn = train_fn
         self.fused_train_fn = fused_train_fn
+        self.record_stage_times = record_stage_times
         self.pipelined = pipelined
         self.pad_buckets = tuple(sorted(pad_buckets)) if pad_buckets else None
         self.table_group = table_group
         if not pipelined:  # straw-man (§IV-B): depth-1, no hazards possible
             past_window, future_window = 0, 0
-        windows = dict(past_window=past_window, future_window=future_window)
+        windows = dict(past_window=past_window, future_window=future_window, policy=policy)
         if table_group is not None:
             if table_group.total_rows != host_table.rows:
                 raise ValueError(
@@ -300,9 +317,11 @@ class ScratchPipe:
             self.planner = DevicePlanner(host_table.rows, eff_slots, device=self.device,
                                          pad_buckets=self.pad_buckets, **windows)
         else:
-            self.planner = Planner(host_table.rows, eff_slots, **windows)
+            self.planner = Planner(host_table.rows, eff_slots, memoize=memoize_plan,
+                                   **windows)
         self.storage = sp.make_storage(
-            eff_slots, host_table.dim, precision=self.precision, device=self.device
+            eff_slots, host_table.dim, precision=self.precision, dtype=storage_dtype,
+            device=self.device
         )
         self.num_slots = eff_slots
         self.nominal_slots = num_slots  # the fp32-row byte budget
@@ -549,15 +568,24 @@ class ScratchPipe:
     # ------------------------------------------------------------------ #
     # stages
     # ------------------------------------------------------------------ #
+    @staticmethod
+    def _timed(entry: _InFlight, stage: str, t0: float) -> None:
+        """Add the seconds since ``t0`` to ``entry``'s time for ``stage``
+        (the [Insert] halves add up to one "insert")."""
+        entry.times[stage] = entry.times.get(stage, 0.0) + time.perf_counter() - t0
+
     def _stage_plan(self, entry: _InFlight, lookahead: List[np.ndarray]):
+        t0 = time.perf_counter()
         with self._span("plan"):
             entry.plan = self.planner.plan(entry.ids, lookahead)
             if self._d2h_pool is not None and hasattr(entry.plan, "start_materialize"):
                 # device planner + overlapped: the miss/evict vectors come
                 # back on the d2h thread, beside [Train]
                 entry.plan.start_materialize(self._d2h_pool, tracer=self._tracer)
+        self._timed(entry, "plan", t0)
 
     def _stage_collect(self, entry: _InFlight):
+        t0 = time.perf_counter()
         with self._span("collect"):
             p = entry.plan
             if p.miss_ids.size:
@@ -576,8 +604,10 @@ class ScratchPipe:
                 if self._d2h_pool is not None:
                     entry.evict_ready = self._copy.ready()
             self.hbm.read += p.evict_slots.size * self._row_bytes
+        self._timed(entry, "collect", t0)
 
     def _stage_exchange(self, entry: _InFlight):
+        t0 = time.perf_counter()
         with self._span("exchange"):
             p = entry.plan
             if p.miss_ids.size:  # h2d, both halves of an int8 pair
@@ -603,9 +633,11 @@ class ScratchPipe:
                     _map_rows(lambda t: t[:n_evict], entry.evicted_dev))
             self.pcie.written += p.miss_ids.size * self._row_bytes
             self.pcie.read += p.evict_slots.size * self._row_bytes
+        self._timed(entry, "exchange", t0)
 
     def _stage_insert_host(self, entry: _InFlight):
         """[Insert], host half: write evicted (dirty, trained) rows back."""
+        t0 = time.perf_counter()
         with self._span("insert_host"):
             p = entry.plan
             if p.evict_ids.size:
@@ -614,9 +646,11 @@ class ScratchPipe:
                                       entry.evicted_host_f)
                 else:
                     self.host.scatter(p.evict_ids, self._dequant(entry.evicted_host))
+        self._timed(entry, "insert", t0)
 
     def _stage_insert_fill(self, entry: _InFlight):
         """[Insert], device half: fill fetched rows into their slots."""
+        t0 = time.perf_counter()
         with self._span("insert_fill"):
             p = entry.plan
             if p.fill_slots.size:
@@ -626,14 +660,17 @@ class ScratchPipe:
                     entry.fetched_dev,
                 )
             self.hbm.written += p.fill_slots.size * self._row_bytes
+        self._timed(entry, "insert", t0)
 
     def _stage_train(
         self, entry: _InFlight, fused_entry: Optional[_InFlight] = None
     ) -> StepStats:
+        t0 = time.perf_counter()
         with self._span("train"):
-            return self._train_body(entry, fused_entry)
+            return self._train_body(entry, fused_entry, t0)
 
-    def _train_body(self, entry: _InFlight, fused_entry: Optional[_InFlight]) -> StepStats:
+    def _train_body(self, entry: _InFlight, fused_entry: Optional[_InFlight],
+                    t0: float) -> StepStats:
         p = entry.plan
         if fused_entry is not None:
             # one launch: the younger batch's [Insert]-fill rides inside
@@ -648,6 +685,7 @@ class ScratchPipe:
                 entry.batch,
             )
             self.hbm.written += fp.fill_slots.size * self._row_bytes
+            fused_entry.times.setdefault("insert", 0.0)  # its fill rode in [Train]
         else:
             self.storage, aux = self.train_fn(self.storage, p.slots, entry.batch)
         n_lookups = _numel(p.slots)
@@ -658,6 +696,7 @@ class ScratchPipe:
         by_table = None
         if p.hits_by_table is not None:
             by_table = {"hits": p.hits_by_table, "misses": p.misses_by_table}
+        self._timed(entry, "train", t0)
         st = StepStats(
             step=p.step,
             n_lookups=n_lookups,
@@ -667,6 +706,7 @@ class ScratchPipe:
             n_evict=int(p.evict_slots.size),
             hit_lookups=n_lookups,  # always-hit at [Train] (§IV)
             by_table=by_table,
+            stage_times=dict(entry.times) if self.record_stage_times else None,
             aux=aux,
         )
         self._stats.append(st)
@@ -815,8 +855,7 @@ class ScratchPipe:
         slot_to_id = self.planner.slot_to_id
         live = np.flatnonzero(slot_to_id >= 0)
         if live.size:
-            vals = _map_rows(lambda t: t.cpu().numpy(),
-                             sp.read(self.storage, self._index(live)))
+            vals = _map_rows(to_host, sp.read(self.storage, self._index(live)))
             self.host.scatter(slot_to_id[live], self._dequant(vals))
 
     # -- checkpoint/restart (crash-consistent, ANY cycle) ------------------ #
@@ -913,8 +952,8 @@ class ScratchPipe:
         if "storage_scale" in arrays:
             self.storage = QuantStorage(self._to_device(arrays["storage"]),
                                         self._to_device(arrays["storage_scale"]))
-        else:
-            self.storage = self._to_device(arrays["storage"])
+        else:  # a bf16 storage was saved widened to fp32: narrowed back, exactly
+            self.storage = self._to_device(arrays["storage"]).to(self.storage.dtype)
         self.planner.load_state_dict(
             {k[len("planner_"):]: np.array(v) for k, v in arrays.items()
              if k.startswith("planner_")})

@@ -13,6 +13,15 @@ the reference donates the buffer to a functional update; the contents are
 the same. ``read`` stays plain indexing, as the reference leaves it to XLA:
 it feeds the victim write-back over PCIe, not an HBM hot loop.
 
+bf16 storage (``make_storage(..., dtype=torch.bfloat16)``, the reference's
+``storage_dtype`` knob of the fp32 path): the same fp32-path primitives on
+a bf16 tensor, through the kernels' bf16 forms. The gather returns bf16
+bags (the fp32 sum rounded once), the fill rounds fp32 rows into their
+slots, and the update rounds the pre-rounded bf16 deltas and every add to
+bf16, as the reference's bf16 storage does. ``storage_precision`` reports
+it as "fp32", as the reference's does: it rides the fp32 path, not the
+quantized one.
+
 Mixed precision (``core/quantize.py``): the storage may be an fp16 tensor
 or an int8 :class:`QuantStorage` (payload + per-row fp32 scale column). The
 gather dequantizes in the kernel and yields fp32 bags; the backward
@@ -31,12 +40,25 @@ from repro_torch.kernels import ops
 
 
 def make_storage(num_slots: int, dim: int, *, precision: str = "fp32",
-                 device="cuda"):
+                 dtype=None, device="cuda"):
     """Zeroed scratchpad of ``num_slots`` resident rows on ``device``: an
     fp32 or fp16 tensor, or for ``precision="int8"`` a
     :class:`QuantStorage` whose scale column starts at 1.0 (dequantized
-    zeros are zeros, and no scale is ever 0)."""
+    zeros are zeros, and no scale is ever 0). At fp32 precision ``dtype``
+    (the runtimes' ``storage_dtype``: torch.float32, the default, or
+    torch.bfloat16) is the tensor's dtype, as the reference's ``dtype``; a
+    reduced precision takes none, and any other dtype raises."""
     qz.check_precision(precision)
+    if precision != "fp32" and dtype is not None:
+        raise ValueError("storage_dtype is the fp32-path experiment knob; "
+                         "reduced precision is selected with precision= alone")
+    if dtype not in (None, torch.float32, torch.bfloat16):
+        raise ValueError(
+            f"storage_dtype={dtype!r}: the fp32 path stores torch.float32 or "
+            "torch.bfloat16 rows; other storage dtypes are not ported yet "
+            "(ROADMAP.md Queue 1 item 26, the options the port refuses)"
+        )
+    dt = torch.float32 if dtype is None else dtype
     dev = resolve_device(device)
     shape = (int(num_slots), int(dim))
     if precision == "int8":
@@ -44,8 +66,9 @@ def make_storage(num_slots: int, dim: int, *, precision: str = "fp32",
             torch.zeros(shape, dtype=torch.int8, device=dev),
             torch.ones((shape[0], 1), dtype=torch.float32, device=dev),
         )
-    dtype = torch.float16 if precision == "fp16" else torch.float32
-    return torch.zeros(shape, dtype=dtype, device=dev)
+    if precision == "fp16":
+        dt = torch.float16
+    return torch.zeros(shape, dtype=dt, device=dev)
 
 
 def _scatter_scale(scale: torch.Tensor, slots: torch.Tensor, rows_scale) -> None:
@@ -196,7 +219,8 @@ def storage_bytes(storage) -> int:
 
 
 def storage_precision(storage) -> str:
-    """The replica precision a storage operand encodes."""
+    """The replica precision a storage operand encodes (a bf16 storage
+    reports "fp32": it rides the fp32 path, as in the reference)."""
     if isinstance(storage, QuantStorage):
         return "int8"
     if storage.dtype == torch.float16:

@@ -6,7 +6,7 @@ Port of ``repro/core/serving_cache.py``: ``NoCacheServer`` (the oracle),
 queueing and byte accounting are the reference's numpy code unchanged; the
 device half is PyTorch: rows go to the device with
 ``torch.from_numpy(...).to(device)``, bags come back with
-``.cpu().numpy()``, and the [Lookup] and [Insert] run the port's kernels
+``device.to_host``, and the [Lookup] and [Insert] run the port's kernels
 (``core/scratchpad.py``) — the hand-written CUDA kernels on the card, their
 plain versions on the CPU. Bags are bit-identical to the reference's.
 
@@ -53,9 +53,15 @@ preloads an empty server from a TRAINING checkpoint's resident set
 (``resident_set_from_state``: flat, device-planner and sharded layouts, at
 fp32, fp16 and int8 storage). Every fill of a retry, an emergency or a
 warm start runs on the thread that drives the server, through the port's
-kernels. Not carried over: the reference's ``storage_dtype``, an
-fp32-path experiment knob that no launcher, benchmark or example of the
-reference sets.
+kernels.
+
+bf16 scratchpad (``ReadOnlyCacheServer(storage_dtype=torch.bfloat16)``,
+the reference's fp32-path experiment knob): fp32 host rows are rounded into
+bf16 slots by the fill kernel, and the [Lookup] gathers bf16 bags (the fp32
+sum rounded once). The reference returns those bags to the host as bf16;
+numpy has no bfloat16, so the port returns their exact fp32 widening: the
+same values. ``storage_dtype`` with a reduced ``precision`` raises, as in
+the reference.
 """
 from __future__ import annotations
 
@@ -76,7 +82,7 @@ from repro_torch.core.pipeline import StepStats, _to_numpy, capture_plan
 from repro_torch.core.plan import Planner, PlanResult, pad_index, pad_rows
 from repro_torch.core.runtime import register_runtime
 from repro_torch.core.table_group import TableGroup
-from repro_torch.device import resolve_device
+from repro_torch.device import resolve_device, to_host
 from repro_torch.obs import NULL_SPAN, resolve as obs_resolve
 from repro_torch.runtime.supervision import TransientOpError
 
@@ -85,12 +91,13 @@ def _lookup_bags(storage, slots: np.ndarray) -> np.ndarray:
     """[Lookup]: the training forward's gather+bag-reduce, backward elided.
     ``slots`` (R, T, L) on the host -> (R, T, D) fp32 bags on the host (the
     copy back synchronizes the device). An fp16 or int8 storage goes
-    through the dequantizing gather."""
+    through the dequantizing gather; a bf16 storage's bf16 bags come back
+    widened to fp32, exactly."""
     dev = storage.data.device if isinstance(storage, QuantStorage) else storage.device
     ids = torch.from_numpy(np.ascontiguousarray(slots, dtype=np.int32)).to(dev)
     if sp.storage_precision(storage) == "fp32":
-        return sp.gather_reduce(storage, ids).cpu().numpy()
-    return sp.gather_reduce_q(storage, ids).cpu().numpy()
+        return to_host(sp.gather_reduce(storage, ids))
+    return to_host(sp.gather_reduce_q(storage, ids))
 
 
 @dataclasses.dataclass
@@ -326,6 +333,7 @@ class ReadOnlyCacheServer(_ServingRuntimeBase):
     The scratchpad holds ``precision`` rows (fp32, fp16, or int8 with a
     per-row fp32 scale) on ``device``; ``precision`` defaults to the table
     group's uniform precision, else fp32, and must not conflict with it.
+    At fp32 ``storage_dtype=torch.bfloat16`` holds the rows in bf16.
     ``num_slots`` is a byte budget in fp32-row units: the scratchpad holds
     ``num_slots * quantize.SLOT_MULTIPLIER[precision]`` rows.
     """
@@ -343,6 +351,7 @@ class ReadOnlyCacheServer(_ServingRuntimeBase):
         table_group: Optional[TableGroup] = None,
         slot_budgets=None,
         pad_buckets: Optional[Sequence[int]] = None,
+        storage_dtype=None,
         precision: Optional[str] = None,
         fetch_retries: int = 1,
         tracer=None,
@@ -414,7 +423,8 @@ class ReadOnlyCacheServer(_ServingRuntimeBase):
             slot_ranges=slot_ranges,
         )
         self.storage = sp.make_storage(
-            eff_slots, host_table.dim, precision=self.precision, device=self.device
+            eff_slots, host_table.dim, precision=self.precision, dtype=storage_dtype,
+            device=self.device
         )
         # slot content validity: True iff the slot holds the row the HitMap
         # currently maps to it (fills land here; plans invalidate here)
@@ -664,8 +674,8 @@ class ReadOnlyCacheServer(_ServingRuntimeBase):
         if "storage_scale" in arrays:
             self.storage = QuantStorage(self._to_device(storage),
                                         self._to_device(arrays["storage_scale"]))
-        else:
-            self.storage = self._to_device(storage)
+        else:  # a bf16 storage was saved widened to fp32: narrowed back, exactly
+            self.storage = self._to_device(storage).to(self.storage.dtype)
         self.planner.load_state_dict(
             {k[len("planner_"):]: np.array(v, copy=True) for k, v in arrays.items()
              if k.startswith("planner_")}

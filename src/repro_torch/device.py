@@ -7,6 +7,7 @@ version (how the tests hold the port against the JAX package).
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -28,6 +29,23 @@ def resolve_device(device="cuda") -> torch.device:
     return dev
 
 
+def widen_bf16_bits(bits: np.ndarray) -> np.ndarray:
+    """bf16 values held as their 16 bits (an int16 or uint16 array) ->
+    their fp32 values, exactly (the bits are the top half of the fp32
+    word). numpy has no bfloat16, so bf16 rows cross to the host so."""
+    return (bits.view(np.uint16).astype(np.uint32) << 16).view(np.float32)
+
+
+def to_host(t: torch.Tensor) -> np.ndarray:
+    """A tensor -> a host numpy array (a copy of a device tensor, a view
+    of a CPU one); a bf16 tensor comes back as a new fp32 array, its exact
+    widening."""
+    t = t.detach()
+    if t.dtype == torch.bfloat16:
+        return widen_bf16_bits(t.view(torch.int16).cpu().numpy())
+    return t.cpu().numpy()
+
+
 class HostCopy:
     """Device -> host copies that leave the main stream free.
 
@@ -41,6 +59,8 @@ class HostCopy:
     PyTorch's pinned allocator does not hand the buffer out again before
     the copy's event completes and every view of it is gone. On the CPU
     the tensor already is host memory: ``wait()`` returns its numpy view.
+    A bf16 tensor moves as its 16 bits and ``wait()`` returns their exact
+    fp32 widening (:func:`widen_bf16_bits`).
     """
 
     def __init__(self, device):
@@ -58,8 +78,11 @@ class HostCopy:
         return ev
 
     def start(self, t: torch.Tensor, ready=None) -> "PendingCopy":
+        bf16 = t.dtype == torch.bfloat16
+        if bf16:
+            t = t.view(torch.int16)
         if self._stream is None:
-            return PendingCopy(t.detach().numpy(), None)
+            return PendingCopy(t.detach().numpy(), None, bf16)
         if ready is None:
             ready = self.ready()
         host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
@@ -69,20 +92,22 @@ class HostCopy:
             done = torch.cuda.Event()
             done.record()
         t.record_stream(self._stream)
-        return PendingCopy(host.numpy(), done)
+        return PendingCopy(host.numpy(), done, bf16)
 
 
 class PendingCopy:
     """A host copy in flight: ``wait()`` blocks until it has landed and
-    returns it as a numpy array (which keeps its buffer alive)."""
+    returns it as a numpy array (which keeps its buffer alive; bf16 bits
+    come back widened to fp32, a new array)."""
 
-    __slots__ = ("_host", "_done")
+    __slots__ = ("_host", "_done", "_bf16")
 
-    def __init__(self, host, done):
+    def __init__(self, host, done, bf16: bool = False):
         self._host = host
         self._done = done
+        self._bf16 = bf16
 
     def wait(self):
         if self._done is not None:
             self._done.synchronize()
-        return self._host
+        return widen_bf16_bits(self._host) if self._bf16 else self._host

@@ -1,7 +1,8 @@
 // Hand-written Hopper (sm_90a) kernels of the embedding forward: the bag
-// gather-reduce of every [Lookup] / [Train] forward (fp32, fp16 and
-// dequantizing int8 storage), the [Insert] drop-mode fill, and the fused
-// fill + gather-reduce of one training cycle (fp32, fp16, int8).
+// gather-reduce of every [Lookup] / [Train] forward (fp32, fp16, bf16 and
+// dequantizing int8 storage), the [Insert] drop-mode fill (a byte copy, and
+// fp32 rows converted into bf16 slots), and the fused fill + gather-reduce
+// of one training cycle (fp32, fp16, bf16, int8).
 // Plain C interface, loaded with ctypes (kernels/gather_reduce.py); built by
 // kernels/_build.py with nvcc, without fast-math or flush-to-zero, so each
 // fp32 add rounds exactly as the plain PyTorch versions' adds do. Every add
@@ -69,6 +70,33 @@
 //   and the sum is bitwise equal to the plain version. Other widths and
 //   alignments (D = 8, 40, a view 4 but not 16 bytes in) keep reduce_bag
 //   with I8x4 / I8x1 lanes, the lane that loads an id loading its scale.
+//
+// repro_gather_reduce_bf16 / repro_fill_f32_to_bf16 /
+// repro_fill_gather_reduce_bf16 are the same three kernels for a bf16
+// storage (ScratchPipe / ReadOnlyCacheServer(storage_dtype=torch.bfloat16),
+// the fp32 path's bf16 scratchpad): what the Pallas gather_reduce, fill
+// and fill_gather_reduce compute when their storage operand is bf16
+// (repro/kernels/ref.py: gather_reduce_ref casts the fp32 sum to the
+// storage dtype, fill_ref casts the fp32 rows to it).
+//   gather: bf16 rows widened to fp32 exactly (a 16-bit shift), summed in
+//   fp32 in l order as above, the bag rounded ONCE to bf16 (round to
+//   nearest even, __float2bfloat16_rn, as torch's .to(torch.bfloat16) on
+//   the card): bf16 bags, bitwise the plain version's.
+//   fill: fp32 rows (F, D) in, each element rounded to bf16 in the kernel
+//   (RNE, NaN, infinities, signed zeros and subnormals as .to() gives
+//   them) and written to its slot; drop mode as repro_fill.
+//   fused: the converting fill, grid.sync(), then the bf16 gather over the
+//   post-fill storage, as repro_fill_gather_reduce_f32 orders them.
+//   Bound: bytes. The gather reads each unique looked-up row's 2*D bytes
+//   once, the ids, and writes nb*D*2 bytes of bags; the fill reads each
+//   valid fp32 row (4*D bytes) and writes its bf16 slot (2*D bytes). The
+//   adds and conversions (one per element read) sit far below the card's
+//   67 TFLOP/s fp32.
+//   Design: the fp32 kernels' warp-per-bag gather with a 4-value lane
+//   chunk (8 bytes of bf16, so a D=128 row is one 256-byte warp load) and
+//   its scalar form for other widths; the fill converts one row per warp,
+//   each lane loading a float4 and storing 4 bf16 (8 bytes), or one value
+//   per lane where D % 4 or an address rules that out.
 //
 // repro_fill replaces the Pallas kernel
 //   repro/kernels/gather_reduce.py: fill (_fill_kernel), for every storage
@@ -149,6 +177,7 @@
 // full-table DLRM: 80M rows x 128).
 
 #include <cooperative_groups.h>
+#include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
@@ -186,22 +215,66 @@ __device__ __forceinline__ float half_bits_to_float(unsigned bits) {
   return __half2float(__ushort_as_half(static_cast<unsigned short>(bits)));
 }
 
+// bf16 <-> fp32: the widening is exact (the bf16 bits are the top half of
+// the fp32 word); the narrowing rounds to nearest even, as torch's
+// .to(torch.bfloat16) on the card does.
+__device__ __forceinline__ float bf16_bits_to_float(unsigned bits) {
+  return __uint_as_float(bits << 16);
+}
+__device__ __forceinline__ unsigned bf16_bits(float x) {
+  return __bfloat16_as_ushort(__float2bfloat16_rn(x));
+}
+// two values -> two bf16 in one 32-bit word, the first in the low half
+__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
+  return bf16_bits(lo) | (bf16_bits(hi) << 16);
+}
+
+// The bags of every form but bf16 storage's are written as the fp32 sums.
+template <typename A>
+struct Fp32Bags {
+  using Out = A;
+  __device__ static Out narrow(A a) { return a; }
+};
+
 // Row formats of the gather: In is what a lane loads per chunk, Acc the
-// fp32 values it adds (4 consecutive elements, or 1). convert() widens a
-// chunk to fp32 exactly; scale is the row's int8 scale (unused otherwise).
-struct F32x4 {
+// fp32 values it adds (4 consecutive elements, or 1), Out what it writes
+// per chunk of the bag. convert() widens a chunk to fp32 exactly; scale is
+// the row's int8 scale (unused otherwise); narrow() turns the sum into
+// the bag's type.
+struct F32x4 : Fp32Bags<float4> {
   using In = float4;
   using Acc = float4;
   static constexpr bool kScaled = false;
   __device__ static Acc convert(In v, float) { return v; }
 };
-struct F32x1 {
+struct F32x1 : Fp32Bags<float> {
   using In = float;
   using Acc = float;
   static constexpr bool kScaled = false;
   __device__ static Acc convert(In v, float) { return v; }
 };
-struct F16x4 {  // 4 halves, little-endian in two 32-bit words
+struct BF16x4 {  // 4 bf16, little-endian in two 32-bit words; bf16 bags
+  using In = uint2;
+  using Acc = float4;
+  using Out = uint2;
+  static constexpr bool kScaled = false;
+  __device__ static Acc convert(In v, float) {
+    return make_float4(bf16_bits_to_float(v.x & 0xffffu), bf16_bits_to_float(v.x >> 16),
+                       bf16_bits_to_float(v.y & 0xffffu), bf16_bits_to_float(v.y >> 16));
+  }
+  __device__ static Out narrow(Acc a) {
+    return make_uint2(pack_bf16(a.x, a.y), pack_bf16(a.z, a.w));
+  }
+};
+struct BF16x1 {
+  using In = unsigned short;
+  using Acc = float;
+  using Out = unsigned short;
+  static constexpr bool kScaled = false;
+  __device__ static Acc convert(In v, float) { return bf16_bits_to_float(v); }
+  __device__ static Out narrow(Acc a) { return static_cast<unsigned short>(bf16_bits(a)); }
+};
+struct F16x4 : Fp32Bags<float4> {  // 4 halves, little-endian in two 32-bit words
   using In = uint2;
   using Acc = float4;
   static constexpr bool kScaled = false;
@@ -210,13 +283,13 @@ struct F16x4 {  // 4 halves, little-endian in two 32-bit words
                        half_bits_to_float(v.y & 0xffffu), half_bits_to_float(v.y >> 16));
   }
 };
-struct F16x1 {
+struct F16x1 : Fp32Bags<float> {
   using In = unsigned short;
   using Acc = float;
   static constexpr bool kScaled = false;
   __device__ static Acc convert(In v, float) { return half_bits_to_float(v); }
 };
-struct I8x4 {
+struct I8x4 : Fp32Bags<float4> {
   using In = char4;
   using Acc = float4;
   static constexpr bool kScaled = true;
@@ -227,7 +300,7 @@ struct I8x4 {
                        __fmul_rn(static_cast<float>(v.w), s));
   }
 };
-struct I8x1 {
+struct I8x1 : Fp32Bags<float> {
   using In = signed char;
   using Acc = float;
   static constexpr bool kScaled = true;
@@ -241,6 +314,7 @@ struct I8x1 {
 // reduce_bag's loads into registers; each lane adds char4 columns as I8x4.
 struct I8Stage {
   using Acc = float4;
+  using Out = float4;
 };
 
 // One warp sums one bag: each output element is accumulated by ONE lane,
@@ -250,12 +324,12 @@ template <bool kReadOnly, typename R>
 __device__ __forceinline__ void reduce_bag(const typename R::In* storage,
                                            const float* __restrict__ scale,
                                            const int* __restrict__ ids,
-                                           typename R::Acc* __restrict__ out,
+                                           typename R::Out* __restrict__ out,
                                            long long bag, int L, int dv,
                                            int lane) {
   using Acc = typename R::Acc;
   const int* bag_ids = ids + bag * L;
-  Acc* dst = out + bag * dv;
+  typename R::Out* dst = out + bag * dv;
   for (int c0 = 0; c0 < dv; c0 += kWarp) {
     const int c = c0 + lane;
     const bool active = c < dv;
@@ -281,7 +355,7 @@ __device__ __forceinline__ void reduce_bag(const typename R::In* storage,
         }
       }
     }
-    if (active) dst[c] = acc;
+    if (active) dst[c] = R::narrow(acc);
   }
 }
 
@@ -441,12 +515,40 @@ __device__ __forceinline__ void fill_item(char* storage,
   }
 }
 
+// One warp converts fill row i (D fp32 values) into its bf16 slot, each
+// value rounded to nearest even; the sentinel (>= N) and negative slots are
+// dropped. kVec: a lane loads a float4 and stores 4 bf16 (D % 4 == 0, rows
+// 16-byte and storage 8-byte aligned), else one value per lane.
+template <bool kVec>
+__device__ __forceinline__ void fill_row_bf16(unsigned short* storage,
+                                              const int* __restrict__ slots,
+                                              const float* __restrict__ rows,
+                                              long long i, int D, long long N,
+                                              int lane) {
+  const int s = __ldg(slots + i);
+  if (s < 0 || static_cast<long long>(s) >= N) return;  // drop sentinel
+  unsigned short* dst = storage + static_cast<long long>(s) * D;
+  const float* src = rows + i * D;
+  if constexpr (kVec) {
+    const float4* src4 = reinterpret_cast<const float4*>(src);
+    uint2* dst4 = reinterpret_cast<uint2*>(dst);
+    for (int c = lane; c < D / 4; c += kWarp) {
+      const float4 v = __ldg(src4 + c);
+      dst4[c] = make_uint2(pack_bf16(v.x, v.y), pack_bf16(v.z, v.w));
+    }
+  } else {
+    for (int c = lane; c < D; c += kWarp) {
+      dst[c] = static_cast<unsigned short>(bf16_bits(__ldg(src + c)));
+    }
+  }
+}
+
 template <typename R>
 __global__ void __launch_bounds__(kThreads)
     gather_reduce_kernel(const typename R::In* __restrict__ storage,
                          const float* __restrict__ scale,
                          const int* __restrict__ ids,
-                         typename R::Acc* __restrict__ out, long long nb, int L,
+                         typename R::Out* __restrict__ out, long long nb, int L,
                          int dv) {
   // warp-uniform: a warp either owns a bag or leaves together, so the full
   // shuffle mask is always exact
@@ -484,6 +586,44 @@ __global__ void __launch_bounds__(kThreads)
                      threadIdx.x % kWarp);
 }
 
+template <bool kVec>
+__global__ void __launch_bounds__(kThreads)
+    fill_bf16_kernel(unsigned short* __restrict__ storage,
+                     const int* __restrict__ slots,
+                     const float* __restrict__ rows, long long F, int D,
+                     long long N) {
+  const long long i =
+      static_cast<long long>(blockIdx.x) * kWarpsPerBlock + threadIdx.x / kWarp;
+  if (i >= F) return;
+  fill_row_bf16<kVec>(storage, slots, rows, i, D, N, threadIdx.x % kWarp);
+}
+
+// Cooperative launch only: the converting fill into a bf16 storage, the
+// grid-wide barrier, then the bf16 gather over the post-fill storage (R is
+// BF16x4 or BF16x1), its rows read from L2 (__ldcg), as below.
+template <typename R, bool kVec>
+__global__ void __launch_bounds__(kThreads)
+    fill_gather_reduce_bf16_kernel(unsigned short* storage,
+                                   const int* __restrict__ slots,
+                                   const float* __restrict__ rows, long long F,
+                                   long long N, int D,
+                                   const int* __restrict__ ids,
+                                   typename R::Out* __restrict__ out,
+                                   long long nb, int L, int dv) {
+  const long long first =
+      static_cast<long long>(blockIdx.x) * kWarpsPerBlock + threadIdx.x / kWarp;
+  const long long stride = static_cast<long long>(gridDim.x) * kWarpsPerBlock;
+  const int lane = threadIdx.x % kWarp;
+  for (long long i = first; i < F; i += stride) {
+    fill_row_bf16<kVec>(storage, slots, rows, i, D, N, lane);
+  }
+  cooperative_groups::this_grid().sync();
+  const auto* st = reinterpret_cast<const typename R::In*>(storage);
+  for (long long bag = first; bag < nb; bag += stride) {
+    reduce_bag<false, R>(st, nullptr, ids, out, bag, L, dv, lane);
+  }
+}
+
 // Cooperative launch only: every block of the grid must be co-resident.
 template <typename R, bool kNarrow>
 __global__ void __launch_bounds__(kThreads)
@@ -493,7 +633,7 @@ __global__ void __launch_bounds__(kThreads)
                               int chunk, int G,
                               const float* __restrict__ scale,
                               const int* __restrict__ ids,
-                              typename R::Acc* __restrict__ out, long long nb,
+                              typename R::Out* __restrict__ out, long long nb,
                               int L, int dv) {
   const long long first =
       static_cast<long long>(blockIdx.x) * kWarpsPerBlock + threadIdx.x / kWarp;
@@ -567,10 +707,10 @@ cudaError_t resident_blocks(const void* fn, long long* blocks) {
 
 template <typename R>
 int launch_gather(const void* storage, const float* scale, const int* ids,
-                  float* out, long long nb, int L, int dv, cudaStream_t st) {
+                  void* out, long long nb, int L, int dv, cudaStream_t st) {
   gather_reduce_kernel<R><<<blocks_for(nb), kThreads, 0, st>>>(
       static_cast<const typename R::In*>(storage), scale, ids,
-      reinterpret_cast<typename R::Acc*>(out), nb, L, dv);
+      static_cast<typename R::Out*>(out), nb, L, dv);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -604,7 +744,7 @@ int launch_fused(void* storage, const int* slots, const void* rows, long long F,
       std::min<long long>(blocks_for(std::max(fl.items, nb)), resident));
   char* st_bytes = static_cast<char*>(storage);
   const char* row_data = static_cast<const char*>(rows);
-  auto* acc_out = reinterpret_cast<typename R::Acc*>(out);
+  auto* acc_out = reinterpret_cast<typename R::Out*>(out);
   void* args[] = {&st_bytes, &slots, &row_data, &F, &fl.items, &N, &row_bytes,
                   &fl.chunk, &fl.G, &scale, &ids, &acc_out, &nb, &L, &dv};
   err = cudaLaunchCooperativeKernel(fn, dim3(grid), dim3(kThreads), args, 0, st);
@@ -613,6 +753,30 @@ int launch_fused(void* storage, const int* slots, const void* rows, long long F,
 }
 
 bool bad_gather(long long nb, int L, int D) { return nb <= 0 || L <= 0 || D <= 0; }
+
+// The converting fill's lanes take a float4 each where the width and both
+// arrays allow it (fp32 rows 16-byte, bf16 storage 8-byte aligned).
+bool fill_bf16_vec(const void* storage, const void* rows, int D) {
+  return D % 4 == 0 && aligned(storage, 8) && aligned(rows, 16);
+}
+
+template <typename R, bool kVec>
+int launch_fused_bf16(void* storage, const int* slots, const float* rows, long long F,
+                      long long N, int D, const int* ids, void* out, long long nb,
+                      int L, int dv, cudaStream_t st) {
+  const void* fn = reinterpret_cast<const void*>(&fill_gather_reduce_bf16_kernel<R, kVec>);
+  long long resident = 0;
+  cudaError_t err = resident_blocks(fn, &resident);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const unsigned grid =
+      static_cast<unsigned>(std::min<long long>(blocks_for(std::max(F, nb)), resident));
+  auto* st_bf16 = static_cast<unsigned short*>(storage);
+  auto* bags = static_cast<typename R::Out*>(out);
+  void* args[] = {&st_bf16, &slots, &rows, &F, &N, &D, &ids, &bags, &nb, &L, &dv};
+  err = cudaLaunchCooperativeKernel(fn, dim3(grid), dim3(kThreads), args, 0, st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
 
 bool bad_fused(long long F, long long nb, int L, int D) {
   return F <= 0 || bad_gather(nb, L, D);
@@ -698,6 +862,52 @@ extern "C" int repro_fill_gather_reduce_f16(void* storage, const int* slots,
   }
   return launch_fused<F16x1>(storage, slots, rows, F, N, D * 2, nullptr, ids,
                              out, nb, L, D, st);
+}
+
+extern "C" int repro_gather_reduce_bf16(const void* storage, const int* ids,
+                                        void* out, long long nb, int L, int D,
+                                        void* stream) {
+  if (bad_gather(nb, L, D)) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (D % 4 == 0 && aligned(storage, 8) && aligned(out, 8)) {
+    return launch_gather<BF16x4>(storage, nullptr, ids, out, nb, L, D / 4, st);
+  }
+  return launch_gather<BF16x1>(storage, nullptr, ids, out, nb, L, D, st);
+}
+
+// fp32 rows (F, D) into a bf16 storage (N, D), rounded in the kernel.
+extern "C" int repro_fill_f32_to_bf16(void* storage, const int* slots,
+                                      const float* rows, long long F, int D,
+                                      long long N, void* stream) {
+  if (F <= 0 || D <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  auto* dst = static_cast<unsigned short*>(storage);
+  if (fill_bf16_vec(storage, rows, D)) {
+    fill_bf16_kernel<true><<<blocks_for(F), kThreads, 0, st>>>(dst, slots, rows, F, D, N);
+  } else {
+    fill_bf16_kernel<false><<<blocks_for(F), kThreads, 0, st>>>(dst, slots, rows, F, D, N);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int repro_fill_gather_reduce_bf16(void* storage, const int* slots,
+                                             const float* rows, long long F,
+                                             long long N, const int* ids,
+                                             void* out, long long nb, int L,
+                                             int D, void* stream) {
+  if (bad_fused(F, nb, L, D)) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bool vec_fill = fill_bf16_vec(storage, rows, D);
+  if (D % 4 == 0 && aligned(storage, 8) && aligned(out, 8)) {
+    return vec_fill ? launch_fused_bf16<BF16x4, true>(storage, slots, rows, F, N, D, ids,
+                                                      out, nb, L, D / 4, st)
+                    : launch_fused_bf16<BF16x4, false>(storage, slots, rows, F, N, D, ids,
+                                                       out, nb, L, D / 4, st);
+  }
+  return vec_fill ? launch_fused_bf16<BF16x1, true>(storage, slots, rows, F, N, D, ids, out,
+                                                    nb, L, D, st)
+                  : launch_fused_bf16<BF16x1, false>(storage, slots, rows, F, N, D, ids, out,
+                                                     nb, L, D, st);
 }
 
 extern "C" int repro_fill_gather_reduce_q8(void* data, const float* scale,

@@ -65,6 +65,23 @@
 //   ms to accumulate: the short class, at ~2.3 TB/s of random 512-byte row
 //   reads and writes, is what is left.
 //
+// repro_scatter_add_sorted_bf16 is the same update on a bf16 storage (the
+//   fp32 path's bf16 scratchpad, ScratchPipe(storage_dtype=torch.bfloat16)):
+//   what the Pallas scatter_add computes for a bf16 operand, where
+//   kernels/ref.py: scatter_add_ref's storage.at[flat].add(dup) rounds
+//   EACH add to bf16: row = bf16(bf16(row + d_first) + d_next) ..., with
+//   the deltas bf16 already (rounded once per bag, outside the kernel).
+//   Both kernels keep the segment's sum in an fp32 register and round it to
+//   bf16 after every add (__float2bfloat16_rn of the exact fp32 sum of two
+//   bf16 values, as torch's bf16 add and XLA's do); summing the segment in
+//   fp32 and rounding once would differ in the last bit on a hot row.
+//   The short kernel's lane owns 4 bf16 columns (8 bytes: a D=128 row is
+//   one 256-byte warp load) or 1; the long kernel's ring holds bf16 delta
+//   slabs (32 bytes a row), copied 16 bytes at a time by cp.async, or 4, or
+//   with plain 2-byte loads where D or an address rules wider copies out.
+//   Bound: bytes, 2 * U * D * 2 + nb * L * 4 + nb * D * 2 (half the fp32
+//   form's row and delta bytes).
+//
 // Launches on the caller's stream (the long kernel on the side stream,
 // joined back to it), allocates nothing on the device, does not synchronize,
 // and returns the first CUDA error for the wrapper to raise on. Slot ids must
@@ -73,6 +90,7 @@
 // addresses are 64-bit products (storage past 2^31 elements is addressed
 // whole); the lookups are fewer than 2^31 (the wrapper checks).
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -100,21 +118,79 @@ __device__ __forceinline__ float4 add(float4 a, float4 b) {
   return make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
 }
 
+// Element types of the storage and the deltas: the long kernel keeps one
+// column's running sum in an fp32 register; widen() loads an element into
+// it exactly, narrow() stores it back, add() is one add of the chain.
+struct F32Elem {
+  using T = float;
+  __device__ static float widen(float x) { return x; }
+  __device__ static float narrow(float x) { return x; }
+  __device__ static float add(float a, float b) { return a + b; }
+};
+struct BF16Elem {  // each add rounded to bf16 (nearest even), as the reference's
+  using T = unsigned short;
+  __device__ static float widen(unsigned short x) {
+    return __uint_as_float(static_cast<unsigned>(x) << 16);
+  }
+  __device__ static unsigned short narrow(float x) {
+    return __bfloat16_as_ushort(__float2bfloat16_rn(x));
+  }
+  __device__ static float add(float a, float b) { return widen(narrow(__fadd_rn(a, b))); }
+};
+
+// Lane chunks of the short kernel: In is what a lane loads and stores, Acc
+// the fp32 values it adds (E = 4 or 1 consecutive columns).
+template <typename V>
+struct F32Lane {  // float4 or float
+  using In = V;
+  using Acc = V;
+  __device__ static Acc widen(In v) { return v; }
+  __device__ static In narrow(Acc a) { return a; }
+  __device__ static Acc add(Acc a, Acc b) { return ::add(a, b); }
+};
+struct BF16Lane4 {  // 4 bf16, little-endian in two 32-bit words
+  using In = uint2;
+  using Acc = float4;
+  __device__ static Acc widen(In v) {
+    return make_float4(BF16Elem::widen(v.x & 0xffffu), BF16Elem::widen(v.x >> 16),
+                       BF16Elem::widen(v.y & 0xffffu), BF16Elem::widen(v.y >> 16));
+  }
+  __device__ static unsigned pack(float lo, float hi) {
+    return BF16Elem::narrow(lo) | (static_cast<unsigned>(BF16Elem::narrow(hi)) << 16);
+  }
+  __device__ static In narrow(Acc a) { return make_uint2(pack(a.x, a.y), pack(a.z, a.w)); }
+  __device__ static Acc add(Acc a, Acc b) {
+    return make_float4(BF16Elem::add(a.x, b.x), BF16Elem::add(a.y, b.y),
+                       BF16Elem::add(a.z, b.z), BF16Elem::add(a.w, b.w));
+  }
+};
+struct BF16Lane1 {
+  using In = unsigned short;
+  using Acc = float;
+  __device__ static Acc widen(In v) { return BF16Elem::widen(v); }
+  __device__ static In narrow(Acc a) { return BF16Elem::narrow(a); }
+  __device__ static Acc add(Acc a, Acc b) { return BF16Elem::add(a, b); }
+};
+
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-template <typename V>
-__device__ __forceinline__ void cp_async(uint32_t dst, const float* src);
-
-template <>
-__device__ __forceinline__ void cp_async<float4>(uint32_t dst, const float* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(src) : "memory");
-}
-
-template <>
-__device__ __forceinline__ void cp_async<float>(uint32_t dst, const float* src) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst), "l"(src) : "memory");
+// Copy one C (16, 4 or 2 bytes) of a delta row into the ring: by cp.async
+// (16 bytes cached in L2 only, 4 through L1), or for 2 bytes a plain load
+// and store, which the barrier after the cp.async wait also orders.
+template <typename C>
+__device__ __forceinline__ void cp_async(void* dst, const void* src) {
+  if constexpr (sizeof(C) == 16) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)),
+                 "l"(src) : "memory");
+  } else if constexpr (sizeof(C) == 4) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_addr(dst)),
+                 "l"(src) : "memory");
+  } else {
+    static_assert(sizeof(C) == 2, "a ring copy is 16, 4 or 2 bytes");
+    *static_cast<C*>(dst) = __ldg(static_cast<const C*>(src));
+  }
 }
 
 __device__ __forceinline__ void cp_async_commit() {
@@ -153,14 +229,17 @@ __global__ void __launch_bounds__(kThreads)
   if (is_long) work[2 + base + __popc(mask & ((1u << lane) - 1u))] = j;
 }
 
-// V is float4 (D % 4 == 0, 16-byte aligned rows) or float; dv = D in Vs.
+// S is a lane chunk (F32Lane<float4> for D % 4 == 0 and 16-byte aligned
+// rows, F32Lane<float>, BF16Lane4, BF16Lane1); dv = D in chunks.
 // keys: the flat slot ids sorted stably; perm: their flat positions. The
 // segments longer than T are the long kernel's.
-template <typename V>
+template <typename S>
 __global__ void __launch_bounds__(kThreads)
-    scatter_short_kernel(V* __restrict__ storage, const int* __restrict__ keys,
-                         const long long* __restrict__ perm, const V* __restrict__ deltas,
-                         long long n, int L, int dv, long long N, int T) {
+    scatter_short_kernel(typename S::In* __restrict__ storage, const int* __restrict__ keys,
+                         const long long* __restrict__ perm,
+                         const typename S::In* __restrict__ deltas, long long n, int L,
+                         int dv, long long N, int T) {
+  using V = typename S::Acc;
   // every branch below is warp-uniform (on w0, ballots or shuffled values),
   // so the full shuffle and ballot masks are always exact
   const long long w0 =
@@ -203,19 +282,21 @@ __global__ void __launch_bounds__(kThreads)
         sk[u] = __shfl_sync(kFullMask, s, src);
         const bool mu = (mine_mask >> src) & 1u;
         const bool hu = (head_mask >> src) & 1u;
-        dbuf[u] = (active && mu) ? __ldg(deltas + bu * dv + c) : V{};
-        rbuf[u] = (active && mu && hu) ? storage[static_cast<long long>(sk[u]) * dv + c] : V{};
+        dbuf[u] = (active && mu) ? S::widen(__ldg(deltas + bu * dv + c)) : V{};
+        rbuf[u] = (active && mu && hu)
+                      ? S::widen(storage[static_cast<long long>(sk[u]) * dv + c])
+                      : V{};
       }
 #pragma unroll
       for (int u = 0; u < kPrefetch; ++u) {
         const int src = u0 + u;
         if (!((mine_mask >> src) & 1u)) continue;
         if ((head_mask >> src) & 1u) {  // a new segment: the last one is done
-          if (cur >= 0 && active) storage[cur * dv + c] = acc;
+          if (cur >= 0 && active) storage[cur * dv + c] = S::narrow(acc);
           acc = rbuf[u];
           cur = sk[u];
         }
-        acc = add(acc, dbuf[u]);
+        acc = S::add(acc, dbuf[u]);
       }
     }
     if (extend) {  // at most T - 1 more positions
@@ -231,16 +312,16 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
           for (int u = 0; u < kPrefetch; ++u) {
             const long long bu = __shfl_sync(kFullMask, my_bag, (t0 + u) % kWarp);
-            buf[u] = (active && t0 + u < cnt) ? __ldg(deltas + bu * dv + c) : V{};
+            buf[u] = (active && t0 + u < cnt) ? S::widen(__ldg(deltas + bu * dv + c)) : V{};
           }
 #pragma unroll
           for (int u = 0; u < kPrefetch; ++u)
-            if (t0 + u < cnt) acc = add(acc, buf[u]);
+            if (t0 + u < cnt) acc = S::add(acc, buf[u]);
         }
         if (cnt < kWarp) break;
       }
     }
-    if (cur >= 0 && active) storage[cur * dv + c] = acc;
+    if (cur >= 0 && active) storage[cur * dv + c] = S::narrow(acc);
   }
 }
 
@@ -248,16 +329,20 @@ __global__ void __launch_bounds__(kThreads)
 // (the worklist's segments times the row's slabs) taken from a counter in
 // work[1]: the adds of one column form
 // one chain, so the columns of a row can go to different CTAs without
-// reordering any add.
-template <typename V>
+// reordering any add. El is the element type (F32Elem, BF16Elem), C the
+// ring copy (16, 4 or 2 bytes; E elements).
+template <typename El, typename C>
 __global__ void __launch_bounds__(kThreads)
-    scatter_long_kernel(float* __restrict__ storage, const int* __restrict__ keys,
-                        const long long* __restrict__ perm, const float* __restrict__ deltas,
-                        long long n, int L, int D, long long* __restrict__ work) {
-  extern __shared__ __align__(16) float ring[];  // kStages x kStageRows x kSlab
+    scatter_long_kernel(typename El::T* __restrict__ storage, const int* __restrict__ keys,
+                        const long long* __restrict__ perm,
+                        const typename El::T* __restrict__ deltas, long long n, int L, int D,
+                        long long* __restrict__ work) {
+  using T = typename El::T;
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* ring = reinterpret_cast<T*>(smem);  // kStages x kStageRows x kSlab
   int* sbag = reinterpret_cast<int*>(ring + kStages * kStageRows * kSlab);  // kIdx
   __shared__ int part[kWarpsPerBlock];  // per-warp counts of the index block
-  constexpr int E = sizeof(V) / sizeof(float);
+  constexpr int E = sizeof(C) / sizeof(T);
   __shared__ long long next;  // this CTA's next task
   const int tid = threadIdx.x;
   const int slabs = (D + kSlab - 1) / kSlab;
@@ -277,9 +362,9 @@ __global__ void __launch_bounds__(kThreads)
     const int w = min(kSlab, D - c0);
     const int wv = w / E;  // copies per row
     const int s = keys[j0];
-    float* row = storage + static_cast<long long>(s) * D + c0;
+    T* row = storage + static_cast<long long>(s) * D + c0;
     // the first warp adds: lane c owns column c0 + c
-    float acc = tid < w ? row[tid] : 0.f;
+    float acc = tid < w ? El::widen(row[tid]) : 0.f;
     for (long long blk = j0;; blk += kIdx) {
       __syncthreads();  // the last block's readers of sbag, part and the ring are done
       // the segment's positions in [blk, blk + kIdx) are a prefix: count the
@@ -305,13 +390,13 @@ __global__ void __launch_bounds__(kThreads)
       }
       const int nst = (cnt + kStageRows - 1) / kStageRows;
       auto issue = [&](int i) {  // stage i of this block's rows
-        float* dst = ring + (i % kStages) * kStageRows * kSlab;
+        T* dst = ring + (i % kStages) * kStageRows * kSlab;
         const int r0 = i * kStageRows;
         const int rows = min(kStageRows, cnt - r0);
         for (int e = tid; e < rows * wv; e += kThreads) {
           const int r = e / wv;
           const int cv = e - r * wv;
-          cp_async<V>(smem_addr(dst + r * kSlab + cv * E),
+          cp_async<C>(dst + r * kSlab + cv * E,
                       deltas + static_cast<long long>(sbag[r0 + r]) * D + c0 + cv * E);
         }
       };
@@ -326,28 +411,32 @@ __global__ void __launch_bounds__(kThreads)
         if (i + kStages - 1 < nst) issue(i + kStages - 1);
         cp_async_commit();
         if (tid < w) {
-          const float* src = ring + (i % kStages) * kStageRows * kSlab + tid;
+          const T* src = ring + (i % kStages) * kStageRows * kSlab + tid;
           const int rows = min(kStageRows, cnt - i * kStageRows);
           int r = 0;
           for (; r + kBatch <= rows; r += kBatch) {  // loads first, then the chain
             float x[kBatch];
 #pragma unroll
-            for (int u = 0; u < kBatch; ++u) x[u] = src[(r + u) * kSlab];
+            for (int u = 0; u < kBatch; ++u) x[u] = El::widen(src[(r + u) * kSlab]);
 #pragma unroll
-            for (int u = 0; u < kBatch; ++u) acc += x[u];
+            for (int u = 0; u < kBatch; ++u) acc = El::add(acc, x[u]);
           }
-          for (; r < rows; ++r) acc += src[r * kSlab];
+          for (; r < rows; ++r) acc = El::add(acc, El::widen(src[r * kSlab]));
         }
       }
       cp_async_wait<0>();
       if (cnt < kIdx) break;
     }
-    if (tid < w) row[tid] = acc;
+    if (tid < w) row[tid] = El::narrow(acc);
   }
 }
 
-bool aligned16(const void* p) {
-  return (reinterpret_cast<std::uintptr_t>(p) & 15u) == 0;
+bool aligned(const void* p, unsigned bytes) {
+  return (reinterpret_cast<std::uintptr_t>(p) & (bytes - 1u)) == 0;
+}
+
+bool bad_args(long long n, int L, int D, int T, long long work_cap) {
+  return n <= 0 || n > INT32_MAX || L <= 0 || D <= 0 || T <= 0 || work_cap < n / (T + 1LL);
 }
 
 // The long kernel's stream, forked from and joined back to the caller's by
@@ -384,19 +473,22 @@ cudaError_t side_for_device(Side** out) {
   return cudaSuccess;
 }
 
-template <typename V>
-int launch(float* storage, const int* keys, const long long* perm, const float* deltas,
+// S: the short kernel's lane chunk; El, C: the long kernel's element type
+// and ring copy.
+template <typename S, typename El, typename C>
+int launch(void* storage, const int* keys, const long long* perm, const void* deltas,
            long long n, int L, int D, long long N, int T, long long* work, long long work_cap,
            cudaStream_t st) {
-  constexpr int E = sizeof(V) / sizeof(float);
+  using Elem = typename El::T;
+  constexpr int E = sizeof(typename S::In) / sizeof(Elem);
   const unsigned blocks = static_cast<unsigned>((n + kThreads - 1) / kThreads);
   Side* side = nullptr;
   cudaError_t err = cudaMemsetAsync(work, 0, 2 * sizeof(long long), st);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (work_cap > 0) {  // n > T: a long segment may exist
-    constexpr size_t smem = sizeof(float) * kStages * kStageRows * kSlab + sizeof(int) * kIdx;
+    constexpr size_t smem = sizeof(Elem) * kStages * kStageRows * kSlab + sizeof(int) * kIdx;
     if ((err = side_for_device(&side)) != cudaSuccess ||
-        (err = cudaFuncSetAttribute(scatter_long_kernel<V>,
+        (err = cudaFuncSetAttribute(scatter_long_kernel<El, C>,
                                     cudaFuncAttributeMaxDynamicSharedMemorySize,
                                     static_cast<int>(smem))) != cudaSuccess)
       return static_cast<int>(err);
@@ -407,16 +499,18 @@ int launch(float* storage, const int* keys, const long long* perm, const float* 
       return static_cast<int>(err);
     // the long segments run beside the short ones (their rows are disjoint)
     const long long tasks = work_cap * ((D + kSlab - 1) / kSlab);  // at most
-    const long long most = 2LL * side->sms;  // 2 CTAs of 80 KB fit an SM
-    scatter_long_kernel<V><<<static_cast<unsigned>(tasks < most ? tasks : most), kThreads, smem,
-                             side->stream>>>(storage, keys, perm, deltas, n, L, D, work);
+    const long long most = 2LL * side->sms;  // 2 CTAs of 80 KB (fp32) fit an SM
+    scatter_long_kernel<El, C><<<static_cast<unsigned>(tasks < most ? tasks : most), kThreads,
+                                 smem, side->stream>>>(
+        static_cast<Elem*>(storage), keys, perm, static_cast<const Elem*>(deltas), n, L, D,
+        work);
     if ((err = cudaGetLastError()) != cudaSuccess ||
         (err = cudaEventRecord(side->join, side->stream)) != cudaSuccess)
       return static_cast<int>(err);
   }
-  scatter_short_kernel<V><<<blocks, kThreads, 0, st>>>(  // a warp per 32 positions
-      reinterpret_cast<V*>(storage), keys, perm, reinterpret_cast<const V*>(deltas), n, L,
-      D / E, N, T);
+  scatter_short_kernel<S><<<blocks, kThreads, 0, st>>>(  // a warp per 32 positions
+      static_cast<typename S::In*>(storage), keys, perm,
+      static_cast<const typename S::In*>(deltas), n, L, D / E, N, T);
   if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
   if (side != nullptr) err = cudaStreamWaitEvent(st, side->join, 0);  // the join
   return static_cast<int>(err);
@@ -436,12 +530,38 @@ extern "C" int repro_scatter_add_sorted_f32(float* storage, const int* keys,
                                             int L, int D, long long N, int T,
                                             long long* work, long long work_cap,
                                             void* stream) {
-  if (n <= 0 || n > INT32_MAX || L <= 0 || D <= 0 || T <= 0 || work_cap < n / (T + 1LL))
-    return static_cast<int>(cudaErrorInvalidValue);
+  if (bad_args(n, L, D, T, work_cap)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (D % 4 == 0 && aligned16(storage) && aligned16(deltas))
-    return launch<float4>(storage, keys, perm, deltas, n, L, D, N, T, work, work_cap, st);
-  return launch<float>(storage, keys, perm, deltas, n, L, D, N, T, work, work_cap, st);
+  if (D % 4 == 0 && aligned(storage, 16) && aligned(deltas, 16))
+    return launch<F32Lane<float4>, F32Elem, float4>(storage, keys, perm, deltas, n, L, D, N, T,
+                                                    work, work_cap, st);
+  return launch<F32Lane<float>, F32Elem, float>(storage, keys, perm, deltas, n, L, D, N, T,
+                                                work, work_cap, st);
+}
+
+// The same on a bf16 storage (N, D) with bf16 deltas, each add rounded.
+extern "C" int repro_scatter_add_sorted_bf16(void* storage, const int* keys,
+                                             const long long* perm, const void* deltas,
+                                             long long n, int L, int D, long long N, int T,
+                                             long long* work, long long work_cap,
+                                             void* stream) {
+  if (bad_args(n, L, D, T, work_cap)) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bool lane4 = D % 4 == 0 && aligned(storage, 8) && aligned(deltas, 8);
+  if (D % 8 == 0 && aligned(deltas, 16)) {  // 16-byte ring copies
+    return lane4 ? launch<BF16Lane4, BF16Elem, uint4>(storage, keys, perm, deltas, n, L, D, N,
+                                                       T, work, work_cap, st)
+                 : launch<BF16Lane1, BF16Elem, uint4>(storage, keys, perm, deltas, n, L, D, N,
+                                                       T, work, work_cap, st);
+  }
+  if (D % 2 == 0 && aligned(deltas, 4)) {
+    return lane4 ? launch<BF16Lane4, BF16Elem, unsigned>(storage, keys, perm, deltas, n, L, D,
+                                                          N, T, work, work_cap, st)
+                 : launch<BF16Lane1, BF16Elem, unsigned>(storage, keys, perm, deltas, n, L, D,
+                                                          N, T, work, work_cap, st);
+  }
+  return launch<BF16Lane1, BF16Elem, unsigned short>(storage, keys, perm, deltas, n, L, D, N,
+                                                     T, work, work_cap, st);
 }
 
 extern "C" const char* repro_cuda_error_string(int err) {

@@ -2,8 +2,10 @@
 
 Port of the ``gather_reduce``, ``gather_reduce_q``, ``fill``,
 ``fill_gather_reduce`` and ``fill_gather_reduce_q`` Pallas kernels of
-``repro/kernels/gather_reduce.py``, for fp32, fp16 and int8 storage; the
-source file holds each kernel's bound and design note. These launchers take
+``repro/kernels/gather_reduce.py``, for fp32, fp16, bf16 and int8 storage;
+the source file holds each kernel's bound and design note. A bf16 storage
+(the fp32 path's bf16 scratchpad) has bf16 bags and takes fp32 fill rows,
+which its fill kernel rounds to bf16. These launchers take
 CUDA tensors only (and ``meta`` ones: the dry run's footprint pass, for
 which they allocate what a launch allocates and launch nothing,
 :func:`footprint`): they check device, dtype, shape and contiguity, launch
@@ -22,17 +24,22 @@ import torch
 
 #: kernel launches since the last reset, by kernel and storage form — one
 #: is added where a launch succeeds, and nowhere else. The fp32 forms keep
-#: the bare kernel names; ``_f16`` is fp16 storage, ``_i8`` an int8 payload
-#: (``gather_reduce_q`` and ``fill_gather_reduce_q`` are int8 only).
+#: the bare kernel names; ``_f16`` is fp16 storage, ``_bf16`` bf16 storage,
+#: ``_i8`` an int8 payload (``gather_reduce_q`` and ``fill_gather_reduce_q``
+#: are int8 only).
 LAUNCHES = {
-    "gather_reduce": 0, "gather_reduce_f16": 0, "gather_reduce_q": 0,
-    "fill": 0, "fill_f16": 0, "fill_i8": 0,
-    "fill_gather_reduce": 0, "fill_gather_reduce_f16": 0,
+    "gather_reduce": 0, "gather_reduce_f16": 0, "gather_reduce_bf16": 0,
+    "gather_reduce_q": 0,
+    "fill": 0, "fill_f16": 0, "fill_bf16": 0, "fill_i8": 0,
+    "fill_gather_reduce": 0, "fill_gather_reduce_f16": 0, "fill_gather_reduce_bf16": 0,
     "fill_gather_reduce_q": 0,
 }
 
 #: storage dtype -> suffix of its LAUNCHES key
-_FORM = {torch.float32: "", torch.float16: "_f16", torch.int8: "_i8"}
+_FORM = {torch.float32: "", torch.float16: "_f16", torch.bfloat16: "_bf16",
+         torch.int8: "_i8"}
+#: storages the (unscaled) gather and fused kernels take
+_FLOAT = (torch.float32, torch.float16, torch.bfloat16)
 
 _LIB: Optional[ctypes.CDLL] = None
 
@@ -49,10 +56,13 @@ def _lib() -> ctypes.CDLL:
         for name, argtypes in (
             ("repro_gather_reduce_f32", gather),
             ("repro_gather_reduce_f16", gather),
+            ("repro_gather_reduce_bf16", gather),
             ("repro_gather_reduce_q8", [ptr] + gather),
             ("repro_fill", [ptr, ptr, ptr, i64, i32, i64, ptr]),
+            ("repro_fill_f32_to_bf16", [ptr, ptr, ptr, i64, i32, i64, ptr]),
             ("repro_fill_gather_reduce_f32", fused),
             ("repro_fill_gather_reduce_f16", fused),
+            ("repro_fill_gather_reduce_bf16", fused),
             ("repro_fill_gather_reduce_q8", [ptr, ptr] + fused[1:]),
         ):
             fn = getattr(lib, name)
@@ -134,21 +144,31 @@ def _raise_on(err: int, kernel: str) -> None:
         raise RuntimeError(f"CUDA launch of {kernel} failed: {what} (cudaError {err})")
 
 
+def _bags(storage: torch.Tensor, nb: int, D: int) -> torch.Tensor:
+    """The (nb, D) bags a gather of ``storage`` writes: bf16 for a bf16
+    storage (the sum rounded once, as the reference casts it to the storage
+    dtype), fp32 for every other form (fp16 rows summed in fp32 stay fp32,
+    as the reference's fp16 replica path keeps them)."""
+    dtype = torch.bfloat16 if storage.dtype == torch.bfloat16 else torch.float32
+    return torch.empty((nb, D), dtype=dtype, device=storage.device)
+
+
 def gather_reduce(storage: torch.Tensor, flat_ids: torch.Tensor) -> torch.Tensor:
-    """storage (N, D) fp32 or fp16 on a CUDA device; flat_ids (nb, L) int32
-    with every id in [0, N) or negative (a masked lookup: a zero row in its
-    place), nb, L > 0 -> (nb, D) fp32 bags (fp16 rows are widened exactly,
-    then summed in fp32)."""
+    """storage (N, D) fp32, fp16 or bf16 on a CUDA device; flat_ids (nb, L)
+    int32 with every id in [0, N) or negative (a masked lookup: a zero row
+    in its place), nb, L > 0 -> (nb, D) bags: rows widened exactly, summed
+    in fp32 in l order; fp32 bags, bf16 ones for a bf16 storage."""
     _check_cuda(storage)
-    _check(storage, "storage", (torch.float32, torch.float16), storage.device)
+    _check(storage, "storage", _FLOAT, storage.device)
     _check(flat_ids, "slot_ids", torch.int32, storage.device)
     nb, L, D = _gather_shapes(storage, flat_ids, "gather_reduce")
-    out = torch.empty((nb, D), dtype=torch.float32, device=storage.device)
+    out = _bags(storage, nb, D)
     if footprint(storage):
         return out
     lib = _lib()
-    fn = (lib.repro_gather_reduce_f32 if storage.dtype == torch.float32
-          else lib.repro_gather_reduce_f16)
+    fn = {torch.float32: lib.repro_gather_reduce_f32,
+          torch.float16: lib.repro_gather_reduce_f16,
+          torch.bfloat16: lib.repro_gather_reduce_bf16}[storage.dtype]
     key = "gather_reduce" + _FORM[storage.dtype]
     with torch.cuda.device(storage.device):
         err = fn(storage.data_ptr(), flat_ids.data_ptr(), out.data_ptr(), nb, L, D,
@@ -182,31 +202,46 @@ def gather_reduce_q(
     return out
 
 
+def _rows_dtype(storage: torch.Tensor) -> torch.dtype:
+    """The fill rows a storage takes: fp32 ones for a bf16 storage (the
+    kernel rounds them), the storage's own dtype otherwise."""
+    return torch.float32 if storage.dtype == torch.bfloat16 else storage.dtype
+
+
 def fill(storage: torch.Tensor, fill_slots: torch.Tensor, rows: torch.Tensor) -> None:
     """In place: storage[s] = rows[i] for every s = fill_slots[i] < N.
-    storage (N, D) fp32, fp16 or int8; fill_slots (F,) int32, non-negative,
-    valid slots unique; rows (F, D) of the storage's dtype; F > 0. All on
-    one CUDA device. One byte-copy kernel serves every dtype."""
+    storage (N, D) fp32, fp16, bf16 or int8; fill_slots (F,) int32,
+    non-negative, valid slots unique; rows (F, D) of the storage's dtype,
+    fp32 for a bf16 storage; F > 0. All on one CUDA device. One byte-copy
+    kernel serves fp32, fp16 and int8; a bf16 storage's kernel rounds each
+    fp32 value to bf16 (nearest even) as it writes it."""
     _check_cuda(storage)
     _check(storage, "storage", tuple(_FORM), storage.device)
     _check(fill_slots, "fill_slots", torch.int32, storage.device)
-    _check(rows, "rows", storage.dtype, storage.device)
+    _check(rows, "rows", _rows_dtype(storage), storage.device)
     F, N, D = _fill_shapes(storage, fill_slots, rows, "fill")
     key = "fill" + _FORM[storage.dtype]
     if footprint(storage):
         return
+    lib = _lib()
     with torch.cuda.device(storage.device):
-        err = _lib().repro_fill(
-            storage.data_ptr(), fill_slots.data_ptr(), rows.data_ptr(), F,
-            D * storage.element_size(), N, _stream(storage),
-        )
+        if storage.dtype == torch.bfloat16:
+            err = lib.repro_fill_f32_to_bf16(
+                storage.data_ptr(), fill_slots.data_ptr(), rows.data_ptr(), F, D, N,
+                _stream(storage),
+            )
+        else:
+            err = lib.repro_fill(
+                storage.data_ptr(), fill_slots.data_ptr(), rows.data_ptr(), F,
+                D * storage.element_size(), N, _stream(storage),
+            )
     _raise_on(err, key)
     LAUNCHES[key] += 1
 
 
 def _check_fused(storage, fill_slots, rows, flat_ids, what):
     _check(fill_slots, "fill_slots", torch.int32, storage.device)
-    _check(rows, "rows", storage.dtype, storage.device)
+    _check(rows, "rows", _rows_dtype(storage), storage.device)
     _check(flat_ids, "slot_ids", torch.int32, storage.device)
     if flat_ids.dim() != 2:
         raise ValueError(f"expected slot_ids (nb, L), got {tuple(flat_ids.shape)}")
@@ -224,20 +259,22 @@ def fill_gather_reduce(
     flat_ids: torch.Tensor,
 ) -> torch.Tensor:
     """ONE cooperative launch: the fill (in place, as :func:`fill`), then
-    the bag gather-reduce over the post-fill storage -> (nb, D) fp32 bags.
-    storage (N, D) fp32 or fp16; fill_slots (F,) int32, non-negative, valid
-    slots unique; rows (F, D) of the storage's dtype; flat_ids (nb, L) int32
+    the bag gather-reduce over the post-fill storage -> (nb, D) bags, as
+    :func:`gather_reduce` gives them. storage (N, D) fp32, fp16 or bf16;
+    fill_slots (F,) int32, non-negative, valid slots unique; rows (F, D) of
+    the storage's dtype (fp32 for a bf16 storage); flat_ids (nb, L) int32
     with every id in [0, N); F, nb, L > 0. All on one CUDA device."""
     _check_cuda(storage)
-    _check(storage, "storage", (torch.float32, torch.float16), storage.device)
+    _check(storage, "storage", _FLOAT, storage.device)
     F, N, D, nb, L = _check_fused(storage, fill_slots, rows, flat_ids,
                                   "fill_gather_reduce")
-    out = torch.empty((nb, D), dtype=torch.float32, device=storage.device)
+    out = _bags(storage, nb, D)
     if footprint(storage):
         return out
     lib = _lib()
-    fn = (lib.repro_fill_gather_reduce_f32 if storage.dtype == torch.float32
-          else lib.repro_fill_gather_reduce_f16)
+    fn = {torch.float32: lib.repro_fill_gather_reduce_f32,
+          torch.float16: lib.repro_fill_gather_reduce_f16,
+          torch.bfloat16: lib.repro_fill_gather_reduce_bf16}[storage.dtype]
     key = "fill_gather_reduce" + _FORM[storage.dtype]
     with torch.cuda.device(storage.device):
         err = fn(storage.data_ptr(), fill_slots.data_ptr(), rows.data_ptr(), F, N,

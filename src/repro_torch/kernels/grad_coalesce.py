@@ -14,8 +14,8 @@ builds on the device (:func:`long_segment_heads` is the same list in
 torch). :func:`scatter_add` does the sort and the accumulation. The
 launchers take CUDA tensors only (``meta`` ones too: the dry run's
 footprint pass, which allocates the sort and the worklist and launches
-nothing): they check device, dtype (fp32 storage
-and deltas, int32 ids), shape and contiguity, launch on the current stream
+nothing): they check device, dtype (fp32 or bf16 storage, deltas of the
+storage's dtype, int32 ids), shape and contiguity, launch on the current stream
 (the long kernel forked from and joined back to it on a side stream of
 the calling host thread's own, so threads may launch at once on their own
 streams), raise on a CUDA error
@@ -34,8 +34,9 @@ import torch
 from repro_torch.kernels.gather_reduce import _check, _check_cuda, footprint
 
 #: kernel launches since the last reset — one is added where a launch
-#: succeeds, and nowhere else
-LAUNCHES = {"scatter_add": 0}
+#: succeeds, and nowhere else; ``scatter_add_bf16`` is the bf16 storage's
+#: form (each add rounded to bf16)
+LAUNCHES = {"scatter_add": 0, "scatter_add_bf16": 0}
 #: a segment of more than this many lookups of one row gets a CTA of its own
 LONG_SEGMENT = 64
 
@@ -49,10 +50,9 @@ def _lib() -> ctypes.CDLL:
 
         lib = ctypes.CDLL(str(_build.library_path("grad_coalesce")))
         ptr, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-        lib.repro_scatter_add_sorted_f32.argtypes = [
-            ptr, ptr, ptr, ptr, i64, i32, i32, i64, i32, ptr, i64, ptr,
-        ]
-        lib.repro_scatter_add_sorted_f32.restype = i32
+        for fn in (lib.repro_scatter_add_sorted_f32, lib.repro_scatter_add_sorted_bf16):
+            fn.argtypes = [ptr, ptr, ptr, ptr, i64, i32, i32, i64, i32, ptr, i64, ptr]
+            fn.restype = i32
         lib.repro_cuda_error_string.argtypes = [i32]
         lib.repro_cuda_error_string.restype = ctypes.c_char_p
         _LIB = lib
@@ -87,16 +87,17 @@ def scatter_add_sorted(
     L: int,
 ) -> torch.Tensor:
     """In place: storage[keys[j]] += bag_deltas[perm[j] // L] for every j,
-    in j order per row. storage (N, D) fp32; keys (n,) int32 and perm (n,)
-    int64 from :func:`sort_by_slot`; bag_deltas (n // L, D) fp32; n > 0.
-    All on one CUDA device. Returns the long-segment worklist, int64:
-    ``work[0]`` heads at ``work[2:2 + work[0]]``, in no fixed order (as a
-    set, they are :func:`long_segment_heads`)."""
+    in j order per row. storage (N, D) fp32 or bf16 (each add then rounded
+    to bf16); keys (n,) int32 and perm (n,) int64 from
+    :func:`sort_by_slot`; bag_deltas (n // L, D) of the storage's dtype;
+    n > 0. All on one CUDA device. Returns the long-segment worklist,
+    int64: ``work[0]`` heads at ``work[2:2 + work[0]]``, in no fixed order
+    (as a set, they are :func:`long_segment_heads`)."""
     _check_cuda(storage)
-    _check(storage, "storage", torch.float32, storage.device)
+    _check(storage, "storage", (torch.float32, torch.bfloat16), storage.device)
     _check(keys, "keys", torch.int32, storage.device)
     _check(perm, "perm", torch.int64, storage.device)
-    _check(bag_deltas, "bag_deltas", torch.float32, storage.device)
+    _check(bag_deltas, "bag_deltas", storage.dtype, storage.device)
     if storage.dim() != 2 or bag_deltas.dim() != 2 or keys.dim() != 1:
         raise ValueError("expected storage (N, D), keys (n,), perm (n,), deltas (nb, D)")
     (n,) = keys.shape
@@ -115,16 +116,19 @@ def scatter_add_sorted(
     if footprint(storage):
         return work
     lib = _lib()
+    bf16 = storage.dtype == torch.bfloat16
+    key = "scatter_add_bf16" if bf16 else "scatter_add"
+    fn = lib.repro_scatter_add_sorted_bf16 if bf16 else lib.repro_scatter_add_sorted_f32
     with torch.cuda.device(storage.device):
-        err = lib.repro_scatter_add_sorted_f32(
+        err = fn(
             storage.data_ptr(), keys.data_ptr(), perm.data_ptr(),
             bag_deltas.data_ptr(), n, L, D, N, LONG_SEGMENT, work.data_ptr(), cap,
             torch.cuda.current_stream(storage.device).cuda_stream,
         )
     if err != 0:
         what = lib.repro_cuda_error_string(err).decode()
-        raise RuntimeError(f"CUDA launch of scatter_add failed: {what} (cudaError {err})")
-    LAUNCHES["scatter_add"] += 1
+        raise RuntimeError(f"CUDA launch of {key} failed: {what} (cudaError {err})")
+    LAUNCHES[key] += 1
     return work
 
 
@@ -132,8 +136,9 @@ def scatter_add(
     storage: torch.Tensor, flat_ids: torch.Tensor, bag_deltas: torch.Tensor
 ) -> None:
     """In place: storage[flat_ids[b, l]] += bag_deltas[b], duplicates in flat
-    bag-major order. storage (N, D) fp32; flat_ids (nb, L) int32 with every
-    id in [0, N); bag_deltas (nb, D) fp32; nb, L > 0."""
+    bag-major order. storage (N, D) fp32 or bf16; flat_ids (nb, L) int32
+    with every id in [0, N); bag_deltas (nb, D) of the storage's dtype;
+    nb, L > 0."""
     _check_cuda(storage)
     _check(flat_ids, "slot_ids", torch.int32, storage.device)
     if flat_ids.dim() != 2:

@@ -2,8 +2,8 @@
 
 Port of ``gather_reduce``, ``gather_reduce_q``, ``fill``,
 ``fill_gather_reduce``, ``fill_gather_reduce_q``, ``coalesce_deltas`` and
-``coalesce_apply`` of ``repro/kernels/ops.py``, for fp32, fp16 and int8
-storage, and of its LM kernels ``flash_attention`` and ``ssd_chunk_scan``,
+``coalesce_apply`` of ``repro/kernels/ops.py``, for fp32, fp16, bf16 and
+int8 storage, and of its LM kernels ``flash_attention`` and ``ssd_chunk_scan``,
 forward and backward, for fp32 and bf16 activations. The wrappers own what
 the raw launchers do not take:
 
@@ -37,6 +37,11 @@ the raw launchers do not take:
     training of the mamba layers): its backward is the hand-written
     ``ssd_chunk_scan_bwd`` kernel, where the reference differentiates its
     plain chunk loop;
+  * bf16 storage (the fp32 path's bf16 scratchpad) — ``gather_reduce``
+    and ``fill_gather_reduce`` give bf16 bags, ``fill`` and
+    ``fill_gather_reduce`` take fp32 rows and round them in the kernel,
+    and ``coalesce_apply`` rounds every add, each through the kernels'
+    bf16 forms;
   * quantized storage — ``gather_reduce_q`` and ``fill_gather_reduce_q``
     take the payload and its (N, 1) fp32 ``scale`` column, or
     ``scale=None`` for fp16 storage, whose kernels are the fp16 forms of

@@ -21,6 +21,12 @@ the card (bitwise: the kernels do the same fp32 adds in the same order).
     ``== num_slots``, ``core/plan.py: pad_index``). Torch's index ops do
     not drop out-of-range indices, so the version masks them explicitly.
     It writes in place (the reference returns a new array).
+  * a bf16 storage (the fp32 path's bf16 scratchpad) keeps the reference's
+    casts: ``gather_reduce_ref`` sums in fp32 and rounds the bag once to
+    bf16; ``fill_ref`` rounds fp32 rows into the bf16 slots; each add of
+    ``scatter_add_ref``'s levels is a bf16 add, rounded, as the reference's
+    bf16 ``.at[].add`` rounds every one; ``scatter_deltas`` rounds ``lr``
+    to bf16 before the product, as jnp's weakly typed Python scalar is.
   * ``scatter_add_ref`` updates every looked-up row as
     ``row + d_first + d_next + ...`` with the deltas in flat bag-major
     order — what the reference's ``storage.at[flat].add(dup)`` does. Torch's
@@ -154,7 +160,13 @@ def scatter_deltas(
 ) -> torch.Tensor:
     """The canonical pre-rounded per-bag SGD delta ``-lr * bag_grads`` in the
     storage dtype, rounded once per bag before any accumulation (an
-    in-kernel ``acc += -lr * g`` could contract to an FMA)."""
+    in-kernel ``acc += -lr * g`` could contract to an FMA). Against bf16
+    gradients the reference's Python ``lr`` is weakly typed, so jnp rounds
+    ``-lr`` to bf16 before the product: here too (torch would multiply by
+    the fp32 scalar)."""
+    if bag_grads.dtype == torch.bfloat16:
+        neg_lr = torch.tensor(-lr, dtype=torch.bfloat16, device=bag_grads.device)
+        return (neg_lr * bag_grads).to(storage.dtype)
     return ((-lr) * bag_grads).to(storage.dtype)
 
 

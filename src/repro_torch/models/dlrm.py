@@ -95,7 +95,10 @@ class DLRM(nn.Module):
 
 
 def forward_from_bags(model: DLRM, dense: torch.Tensor, bags: torch.Tensor) -> torch.Tensor:
-    """dense: (B, 13); bags: (B, T, Dm) reduced embedding bags. -> logit (B,)."""
+    """dense: (B, 13); bags: (B, T, Dm) reduced embedding bags. -> logit (B,).
+    bf16 bags (a bf16 scratchpad's) are promoted to fp32 by the
+    concatenation, as ``jnp.concatenate`` promotes them in the reference;
+    their gradient comes back in bf16."""
     b = _mlp(model.bottom, dense)  # (B, Dm)
     feats = torch.cat([b[:, None, :], bags], dim=1)  # (B, T+1, Dm)
     inter = torch.bmm(feats, feats.transpose(1, 2))  # (B, T+1, T+1)
